@@ -1,0 +1,42 @@
+"""jpezy_tpu_torch: the PyTorch/CUDA port of jpezy_tpu for NVIDIA Hopper.
+
+A second package beside jpezy_tpu, which stays the reference it is tested
+against.  It imports nothing of jpezy_tpu and nothing of jax: the jax-free
+host code (core/, bitstream/, runtime/native.py, codec/oracle.py,
+codec/host_codec.py, utils/timing.py) is a verbatim copy, held
+byte-identical to jpezy_tpu's by tests/test_torch_host_copies.py, and the
+C++ host runtime csrc/jpezy_host.cpp is shared.  Device code is torch; the
+entropy pack runs as a hand-written CUDA kernel (ops/pack_cuda.py) on CUDA
+tensors.
+
+Public API (every entry point takes device=, default "cuda", which raises
+when no card is present; pass device="cpu" for the CPU path):
+
+    from jpezy_tpu_torch import encode_batch, decode_batch, roundtrip_batches
+    streams = encode_batch(rgbs)                  # [N, H, W, 3] uint8
+    pixels, props = decode_batch(streams)
+
+Lazy: importing this package imports neither torch's CUDA kernels nor the
+codec modules until an entry point is called.
+"""
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+
+def encode_batch(*args, **kwargs):
+    from .codec.torch_codec import encode_batch as _f
+
+    return _f(*args, **kwargs)
+
+
+def decode_batch(*args, **kwargs):
+    from .codec.torch_codec import decode_batch as _f
+
+    return _f(*args, **kwargs)
+
+
+def roundtrip_batches(*args, **kwargs):
+    from .runtime.pipeline import roundtrip_batches as _f
+
+    return _f(*args, **kwargs)

@@ -1,0 +1,61 @@
+"""The codec's fixed parameters as device tensors.
+
+The codec has no learned weights.  Its parameters are the Annex K
+quantisation and Huffman tables (jpezy_tpu/core/tables.py), the 64x64 DCT
+bases (ops/dct.py) and the float64 ordered-sum term tables of the oracle
+(jpezy_tpu/codec/oracle.py).  The numpy masters stay in those jax-free
+modules; this module only places them on a device, once per
+(device, quality).  Callers treat the returned tensors as read-only.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from .codec import oracle as _o
+from .core import tables as T
+from .device import resolve
+from .ops.dct import _FWD64, _INV64
+
+
+@functools.lru_cache(maxsize=32)
+def _build(device: torch.device, quality: int | None) -> dict:
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    yqt, cqt = (T.scale_quant_tables(quality) if quality is not None
+                else (T.Y_QUANT, T.C_QUANT))
+    i64, i32, f32, f64 = torch.int64, torch.int32, torch.float32, torch.float64
+    return {
+        "zigzag": t(T.ZIGZAG, i64),
+        "y_quant": t(yqt, i32),
+        "c_quant": t(cqt, i32),
+        "y_dc_size": t(T.Y_DC_SIZE, i64),
+        "y_dc_code": t(T.Y_DC_CODE, i64),
+        "y_ac_size": t(T.Y_AC_SIZE, i64),
+        "y_ac_code": t(T.Y_AC_CODE, i64),
+        "c_dc_size": t(T.C_DC_SIZE, i64),
+        "c_dc_code": t(T.C_DC_CODE, i64),
+        "c_ac_size": t(T.C_AC_SIZE, i64),
+        "c_ac_code": t(T.C_AC_CODE, i64),
+        "fwd64_f32": t(_FWD64, f32),
+        "inv64_f32": t(_INV64, f32),
+        "fwd_c1": t(_o._FWD_C1, f64),
+        "fwd_c2": t(_o._FWD_C2, f64),
+        "cu_j": t(_o._CU_J, f64),
+        "inv_cucv": t(_o._INV_CUCV, f64),
+        "inv_c1": t(_o._INV_C1, f64),
+        "inv_c2": t(_o._INV_C2, f64),
+    }
+
+
+def codec_constants(device: str | torch.device = "cuda",
+                    quality: int | None = None) -> dict[str, torch.Tensor]:
+    """Annex K tables, DCT bases and ordered-sum term tables on `device`.
+
+    quality (extension): libjpeg-style scaling of the quant tables
+    (core.tables.scale_quant_tables); None = the fixed Annex K tables.
+    """
+    return _build(resolve(device), quality)
