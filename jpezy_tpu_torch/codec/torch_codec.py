@@ -4,8 +4,9 @@ Counterpart of the ycc420-transport paths of jpezy_tpu.codec.jax_codec:
 
 Encode: host C++ RGB -> YCC 4:2:0 int8 planes (float64, the reference's
 exact truncation) -> ONE packed int8 upload -> blockify, DCT, quantize,
-emissions, the CUDA pack kernel, stream concat -> ONE fetch of
-`combined` [N, 1 + maxw] -> host header + byte stuffing.
+the CUDA entropy kernel (Huffman emissions and bit packing in one launch
+per component), stream concat -> ONE fetch of `combined` [N, 1 + maxw] ->
+host header + byte stuffing.
 
 Decode: marker parse (every stream must be decodable) -> host C++ Huffman
 frontend + sparsify -> ONE uint8 upload -> densify, dequantize, float32
@@ -85,14 +86,14 @@ def _emit_local(yq, cbq, crq):
     (parallel/sharded.py:_emit_local with tile_axis=None, interleave=False).
 
     Images are flattened into the block axis: emissions are block-local
-    once the per-image DC chains are captured in the predictors."""
+    once the per-image DC chains are captured in the predictors.  One
+    entropy kernel per component (E.encode_block_words)."""
     words, bits = [], []
     for q, chroma in ((yq, False), (cbq, True), (crq, True)):
         n, b, _ = q.shape
         pred = E.dc_predictors(q[:, :, 0])
-        hi, lo, nb = E.block_emissions(q.reshape(-1, 64), pred.reshape(-1),
-                                       chroma)
-        w_c, b_c = E.pack_block_words(hi, lo, nb)
+        w_c, b_c = E.encode_block_words(q.reshape(-1, 64), pred.reshape(-1),
+                                        chroma)
         words.append(w_c.reshape(n, b, w_c.shape[-1]))
         bits.append(b_c.reshape(n, b))
     return tuple(words), tuple(bits)

@@ -7,9 +7,17 @@ Counterpart of jpezy_tpu/ops/entropy.py, same formulation:
     extra, <= 59 bits, or EOB at slot 63), computed data-parallel.
  2. Bit offsets are exclusive cumsums of emission lengths.
  3. Per-block packing aligns each emission into a 96-bit window of three
-    32-bit words and ORs the windows into the block's 64-word buffer: the
-    hand-written CUDA kernel (ops/pack_cuda.py) for CUDA tensors, the
-    masked-reduce form below for CPU tensors.
+    32-bit words and ORs the windows into the block's 64-word buffer.
+ 3'. On a CUDA device steps 1-3 are ONE hand-written kernel
+    (encode_block_words -> ops/pack_cuda.py, csrc/entropy_pack.cu): a warp
+    per block computes the 64 emissions in registers and packs them
+    through a shared-memory word buffer, so the emissions (768 bytes per
+    block) never reach device memory; per block it moves the 260 bytes of
+    coefficients and predictor in and the words and bit count out.  The
+    same source holds the pack alone (pack_block_words), the one-to-one
+    counterpart of the JAX package's Pallas kernel.  For CPU tensors both
+    take the plain tensor programs below (block_emissions and the
+    masked-reduce pack), which are also what the kernels are held to.
  4. Cross-block concatenation funnel-shifts block words to their global
     bit phase and adds them into per-image streams.
 
@@ -20,6 +28,7 @@ with & 0xFFFFFFFF.  An emission (<= 59 bits) is one int64 `v`; the
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import codec_constants
@@ -191,6 +200,119 @@ def pack_block_words(hi, lo, nbits):
     if hi.device.type != "cpu":
         raise ValueError(f"pack_block_words: unsupported device {hi.device}")
     return pack_block_words_plain(hi, lo, nbits)
+
+
+def encode_block_words_plain(qblocks, dc_pred, chroma: bool):
+    """Plain torch entropy encode of blocks: block_emissions followed by
+    pack_block_words_plain.  Returns (words [B, 64] int64 in [0, 2**32),
+    bits [B] int32)."""
+    return pack_block_words_plain(*block_emissions(qblocks, dc_pred, chroma))
+
+
+def encode_block_words(qblocks, dc_pred, chroma: bool):
+    """[B, 64] int32 quantized blocks (natural order) and [B] DC predictors
+    -> (words [B, 64] int64 in [0, 2**32), bits [B] int32), with the
+    component's fixed Annex K Huffman tables.
+
+    CUDA tensors go through the fused hand-written kernel
+    (pack_cuda.encode_blocks_cuda), which never stores the emissions; CPU
+    tensors through encode_block_words_plain.  The choice follows the
+    tensors' device; a kernel that fails to build or launch raises.
+    """
+    if qblocks.is_cuda:
+        from .pack_cuda import encode_blocks_cuda
+
+        return encode_blocks_cuda(qblocks, dc_pred.to(torch.int32),
+                                  bool(chroma))
+    if qblocks.device.type != "cpu":
+        raise ValueError(
+            f"encode_block_words: unsupported device {qblocks.device}")
+    return encode_block_words_plain(qblocks, dc_pred, chroma)
+
+
+# zero-run lengths before a nonzero that the ZRL logic turns on: 0-3 ZRLs,
+# and run & 15 == 15, which shifts the flat table index by one
+EDGE_RUNS = (0, 1, 14, 15, 16, 17, 30, 31, 32, 33, 46, 47, 48, 49, 61, 62)
+
+
+def edge_case_blocks(seed: int = 0) -> np.ndarray:
+    """Seeded quantized blocks [B, 64] int32 (natural order) that reach the
+    corners of the entropy encode; one chain, DC predictors from
+    dc_predictors over the whole array.  In order:
+
+    - for each run in EDGE_RUNS and several start positions: `run` zeros,
+      then a nonzero (so 0-3 ZRLs and both rem == 15 cases), the rest of
+      the block sparse at random;
+    - a nonzero at zigzag position 63 (no EOB), alone and after a long run;
+    - all-zero blocks (DC category 0 + EOB only) and DC-only blocks;
+    - DC steps between -1024 and 1016 (difference category 11, both
+      signs), equal DCs (category 0), and every category between;
+    - AC magnitudes at every category edge, 2**k - 1 and 2**k for both
+      signs up to +-1023 (one's-complement extras);
+    - dense blocks with all 63 AC coefficients of category 10, which
+      exceed 1,592 bits and cross word 49.
+    """
+    rng = np.random.default_rng(seed)
+    zz_blocks = []
+
+    def sign():
+        return int(rng.choice([-1, 1]))
+
+    for run in EDGE_RUNS:
+        for start in sorted({1, 2, 17, 63 - run}):
+            if start + run > 63:
+                continue
+            zz = np.zeros(64, np.int64)
+            if start > 1:
+                zz[start - 1] = sign() * int(rng.integers(1, 1024))
+            zz[start + run] = sign() * int(rng.integers(1, 1024))
+            tail = np.arange(start + run + 1, 64)
+            keep = tail[rng.random(tail.size) < 0.2]
+            zz[keep] = rng.integers(1, 64, keep.size) * rng.choice(
+                [-1, 1], keep.size)
+            zz[0] = int(rng.integers(-1024, 1017))
+            zz_blocks.append(zz)
+
+    for first in (63, 1, 47):  # nonzero at 63: no EOB
+        zz = np.zeros(64, np.int64)
+        zz[63] = sign() * int(rng.integers(1, 1024))
+        if first != 63:
+            zz[first] = sign()
+        zz_blocks.append(zz)
+
+    # all-zero and DC-only blocks; DC chain through the extremes
+    for dc in (0, 0, 5, 5, -1024, 1016, -1024, -1024, 1016, 1016, 0, -1, 1):
+        zz = np.zeros(64, np.int64)
+        zz[0] = dc
+        zz_blocks.append(zz)
+    # DC steps of +m and -m at both edges of every category 1..11
+    for m in sorted({min(e, 2040) for k in range(11)
+                     for e in ((1 << k), (2 << k) - 1)}):
+        a = max(-1024, min(-(m // 2), 1016 - m))
+        for dc in (a, a + m, a):
+            zz = np.zeros(64, np.int64)
+            zz[0] = dc
+            zz[1:4] = rng.integers(-3, 4, 3)
+            zz_blocks.append(zz)
+
+    # AC magnitudes at the category edges, both signs
+    mags = sorted({m for k in range(10) for m in ((1 << k), (2 << k) - 1)})
+    for sgn in (1, -1):
+        zz = np.zeros(64, np.int64)
+        zz[1:1 + len(mags)] = [sgn * m for m in mags]
+        zz[40] = -sgn * 1023
+        zz_blocks.append(zz)
+
+    # dense worst case: every AC coefficient in category 10
+    for _ in range(4):
+        zz = rng.integers(512, 1024, 64) * rng.choice([-1, 1], 64)
+        zz[0] = int(rng.integers(-1024, 1017))
+        zz_blocks.append(zz)
+
+    zz_all = np.stack(zz_blocks)
+    q = np.zeros_like(zz_all)
+    q[:, T.ZIGZAG] = zz_all          # zigzag position k -> natural index
+    return q.astype(np.int32)
 
 
 def stream_offsets_batch(bits: torch.Tensor):

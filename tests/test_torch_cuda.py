@@ -1,7 +1,8 @@
-"""CUDA-only checks of jpezy_tpu_torch: the hand-written pack kernel
-against its plain torch version, and the codec on the card against the
-codec on the CPU.  Marked `cuda`; each test skips when no CUDA device is
-present (decided inside the fixture, never at import).  On a card:
+"""CUDA-only checks of jpezy_tpu_torch: the hand-written entropy kernels
+(the pack alone and the fused emissions + pack) against their plain torch
+versions, and the codec on the card against the codec on the CPU.  Marked
+`cuda`; each test skips when no CUDA device is present (decided inside the
+fixture, never at import).  On a card:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
@@ -23,7 +24,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _emissions(dev):
+def _blocks(dev):
+    """Quantized [B, 64] int32 blocks with their chroma flag: the three
+    components of two test images, dense worst-case blocks and the
+    edge-case blocks."""
     from imagegen import make_test_image
 
     rgbs = np.stack([make_test_image(128, 128, seed=120 + i) for i in range(2)])
@@ -33,35 +37,87 @@ def _emissions(dev):
     rng = np.random.default_rng(121)
     worst = rng.integers(1, 1024, (512, 64)) * rng.choice([-1, 1], (512, 64))
     worst[:, 0] = rng.integers(-1024, 1017, 512)
-    blocks = [qc.reshape(-1, 64) for qc in q]
-    blocks.append(torch.from_numpy(worst.astype(np.int32)).to(dev))
-    out = []
-    for i, b in enumerate(blocks):
-        pred = TE.dc_predictors(b[:, 0])
-        out.append(TE.block_emissions(b, pred, chroma=i in (1, 2)))
-    return out
+    blocks = [(qc.reshape(-1, 64), i > 0) for i, qc in enumerate(q)]
+    blocks.append((torch.from_numpy(worst.astype(np.int32)).to(dev), False))
+    edge = torch.from_numpy(TE.edge_case_blocks(122)).to(dev)
+    blocks += [(edge, False), (edge[:-1], True)]     # even and odd counts
+    return blocks
+
+
+def _emissions(dev):
+    return [TE.block_emissions(b, TE.dc_predictors(b[:, 0]), chroma)
+            for b, chroma in _blocks(dev)]
 
 
 def test_pack_kernel_matches_plain(cuda):
     from jpezy_tpu_torch.ops import pack_cuda
 
     ems = _emissions(cuda)
-    before = pack_cuda.launches
+    before = (pack_cuda.launches, pack_cuda.encode_launches)
     for hi, lo, nb in ems:
-        wk, bk = TE.pack_block_words(hi, lo, nb)
+        wk, bk = pack_cuda.pack_words_cuda(hi, lo, nb)
         wp, bp = TE.pack_block_words_plain(hi, lo, nb)
         torch.cuda.synchronize()
-        assert torch.equal(wk, wp)
+        assert wk.dtype == torch.int64 and torch.equal(wk, wp)
         assert torch.equal(bk, bp)
-    assert pack_cuda.launches - before == len(ems)
-    assert int(TE.pack_block_words_plain(*ems[-1])[1].max()) > 32 * 32
+    assert pack_cuda.launches - before[0] == len(ems)
+    assert pack_cuda.encode_launches == before[1]
+    assert int(TE.pack_block_words_plain(*ems[3])[1].max()) > 32 * 32
+    wk, bk = TE.pack_block_words(*ems[0])           # the dispatching form
+    assert torch.equal(wk, TE.pack_block_words_plain(*ems[0])[0])
+    assert pack_cuda.launches - before[0] == len(ems) + 1
+
+
+def test_fused_kernel_matches_plain(cuda):
+    from jpezy_tpu_torch.ops import pack_cuda
+
+    blocks = _blocks(cuda)
+    before = (pack_cuda.launches, pack_cuda.encode_launches)
+    for q, chroma in blocks:
+        pred = TE.dc_predictors(q[:, 0])
+        wk, bk = pack_cuda.encode_blocks_cuda(q, pred, chroma)
+        wp, bp = TE.encode_block_words_plain(q, pred, chroma)
+        torch.cuda.synchronize()
+        assert wk.dtype == torch.int64 and torch.equal(wk, wp)
+        assert torch.equal(bk, bp)
+    assert pack_cuda.encode_launches - before[1] == len(blocks)
+    assert pack_cuda.launches == before[0]
+
+
+def test_fused_kernel_dispatch_predictors_and_tables(cuda):
+    """encode_block_words launches the fused kernel for CUDA tensors; the
+    kernel takes any predictors (a restart resets them) and explicit
+    tables."""
+    from jpezy_tpu_torch.ops import pack_cuda
+
+    q = torch.from_numpy(TE.edge_case_blocks(123)).to(cuda)
+    pred = TE.dc_predictors(q[:, 0])
+    pred[::3] = 0
+    before = pack_cuda.encode_launches
+    wk, bk = TE.encode_block_words(q, pred, True)
+    wt, bt = pack_cuda.encode_blocks_cuda(
+        q, pred, pack_cuda.huffman_tables_i32(q.device, True))
+    wp, bp = TE.encode_block_words_plain(q, pred, True)
+    torch.cuda.synchronize()
+    assert pack_cuda.encode_launches - before == 2
+    assert torch.equal(wk, wp) and torch.equal(bk, bp)
+    assert torch.equal(wt, wp) and torch.equal(bt, bp)
+    empty_w, empty_b = pack_cuda.encode_blocks_cuda(q[:0], pred[:0], False)
+    assert empty_w.shape == (0, 64) and empty_b.shape == (0,)
+    assert pack_cuda.encode_launches - before == 2   # nothing to launch
 
 
 def test_codec_on_card_matches_cpu(cuda):
     from imagegen import make_test_image
 
+    from jpezy_tpu_torch.ops import pack_cuda
+
     rgbs = np.stack([make_test_image(64, 64, seed=130 + i) for i in range(2)])
+    before = (pack_cuda.launches, pack_cuda.encode_launches)
     exact = TC.encode_batch(rgbs, precision="exact", device=cuda)
+    # one fused launch per component; the pack alone is off the codec's path
+    assert (pack_cuda.launches, pack_cuda.encode_launches) == (
+        before[0], before[1] + 3)
     assert exact == TC.encode_batch(rgbs, precision="exact", device="cpu")
     flat, kw, *_ = TC._decode_host_prep(exact, gray=False, precision="fast",
                                         transport=None)

@@ -4,8 +4,13 @@ Given the same quantized blocks, every stage is integer-exact and must be
 identical: emissions (hi, lo, nbits), the plain pack against both JAX
 references the Pallas kernel is held to (the default reduce form and the
 fori form, use_pallas=False), stream offsets and the stream concat,
-including images that overflow their word budget.  The CUDA kernel is
-held to the plain pack in tests/test_torch_cuda.py and chip_smoke.py.
+including images that overflow their word budget.  The fused encode
+(encode_block_words: emissions + pack) is held to the JAX emissions + pack
+and to the numpy oracle's bit strings on the seeded edge-case blocks.  The
+CUDA kernels are held to the plain versions in tests/test_torch_cuda.py
+and chip_smoke.py; what of their wrappers runs without a card (argument
+checks, dispatch by device, the tables written into the source) is tested
+here.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -145,3 +150,171 @@ def test_entropy_vectors(name, vals, chroma):
     w, b = TE.pack_block_words(*got)
     have, t_have = splice_blocks(w.numpy().astype(np.uint32), b.numpy())
     assert (have, t_have) == (want, t_want), name
+
+
+# ---------------------------------------------------------------------------
+# The fused entropy encode (emissions + pack) and its edge-case blocks
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def edge_blocks():
+    return TE.edge_case_blocks(7)
+
+
+def _zigzag_runs(q):
+    """Per block: the zero runs before each nonzero AC, in zigzag order."""
+    from jpezy_tpu_torch.core import tables as T
+
+    out = []
+    for zz in q[:, T.ZIGZAG]:
+        nzpos = np.flatnonzero(zz[1:]) + 1
+        out.append(set(np.diff(np.concatenate([[0], nzpos])) - 1))
+    return out
+
+
+class TestEdgeCaseBlocks:
+    def test_seeded_and_typed(self, edge_blocks):
+        assert edge_blocks.dtype == np.int32 and edge_blocks.shape[1] == 64
+        assert np.array_equal(edge_blocks, TE.edge_case_blocks(7))
+        assert not np.array_equal(edge_blocks, TE.edge_case_blocks(8))
+        assert edge_blocks.min() >= -1024 and edge_blocks.max() <= 1023
+
+    @pytest.mark.parametrize("run", TE.EDGE_RUNS)
+    def test_covers_run(self, edge_blocks, run):
+        assert any(run in runs for runs in _zigzag_runs(edge_blocks))
+
+    def test_covers_eob_and_no_eob(self, edge_blocks):
+        last = edge_blocks[:, 63]          # zigzag 63 is natural 63
+        assert (last != 0).any() and (last == 0).any()
+        assert (np.abs(edge_blocks).sum(axis=1) == 0).any()   # all-zero block
+
+    def test_covers_dc_categories(self, edge_blocks):
+        dc = edge_blocks[:, 0].astype(np.int64)
+        diff = dc - np.concatenate([[0], dc[:-1]])
+        cats = {int(abs(d)).bit_length() for d in diff}
+        assert cats == set(range(12))
+        assert (diff[np.abs(diff) >= 1024] > 0).any()
+        assert (diff[np.abs(diff) >= 1024] < 0).any()
+
+    def test_covers_ac_magnitudes_and_long_blocks(self, edge_blocks):
+        ac = edge_blocks.copy()
+        ac[:, 0] = 0
+        assert ac.max() == 1023 and ac.min() == -1023
+        cats = {int(abs(v)).bit_length() for v in ac.reshape(-1)}
+        assert cats == set(range(11))
+        _, bits = TE.encode_block_words_plain(
+            _t(edge_blocks), TE.dc_predictors(_t(edge_blocks[:, 0])), False)
+        assert int(bits.max()) >= 1592       # crosses word 49
+
+
+class TestEncodeBlockWords:
+    @pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+    def test_edge_cases_identical_to_jax(self, edge_blocks, chroma):
+        pred = JE.dc_predictors(jnp.asarray(edge_blocks[:, 0]))
+        w_ref, b_ref = JE.pack_block_words(*JE.block_emissions(
+            jnp.asarray(edge_blocks), pred, chroma))
+        w, b = TE.encode_block_words_plain(
+            _t(edge_blocks), TE.dc_predictors(_t(edge_blocks[:, 0])), chroma)
+        assert np.array_equal(w.numpy(), _np(w_ref))
+        assert np.array_equal(b.numpy(), _np(b_ref))
+
+    @pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+    def test_edge_cases_identical_to_oracle_bits(self, edge_blocks, chroma):
+        from jpezy_tpu_torch.codec import oracle as port_oracle
+
+        pred = np.concatenate([[0], edge_blocks[:-1, 0]]).astype(np.int32)
+        codes, lens = port_oracle.encode_block_emissions(
+            edge_blocks, pred, chroma)
+        w, b = TE.encode_block_words_plain(_t(edge_blocks), _t(pred), chroma)
+        w, b = w.numpy().astype(np.uint32), b.numpy()
+        for i in range(edge_blocks.shape[0]):
+            want = writer.pack_bits(codes[i], lens[i])
+            have = splice_blocks(w[i:i + 1], b[i:i + 1])
+            assert have == want, i
+
+    @pytest.mark.parametrize("chroma", [False, True], ids=["luma", "chroma"])
+    def test_real_blocks_identical_to_jax(self, qblocks, chroma):
+        ref, _ = _emissions_both(qblocks.reshape(-1, 64), chroma)
+        w_ref, b_ref = JE.pack_block_words(*ref)
+        q2d = _t(qblocks.reshape(-1, 64))
+        w, b = TE.encode_block_words(q2d, TE.dc_predictors(q2d[:, 0]), chroma)
+        assert np.array_equal(w.numpy(), _np(w_ref))
+        assert np.array_equal(b.numpy(), _np(b_ref))
+
+    def test_cpu_tensors_take_plain_and_launch_nothing(self, edge_blocks):
+        from jpezy_tpu_torch.ops import pack_cuda
+
+        before = (pack_cuda.launches, pack_cuda.encode_launches)
+        q = _t(edge_blocks)
+        pred = TE.dc_predictors(q[:, 0])
+        w, b = TE.encode_block_words(q, pred, True)
+        w_p, b_p = TE.encode_block_words_plain(q, pred, True)
+        assert torch.equal(w, w_p) and torch.equal(b, b_p)
+        assert (pack_cuda.launches, pack_cuda.encode_launches) == before
+        assert pack_cuda._lib is None      # nothing was built or loaded
+
+    @pytest.mark.parametrize("fn", ["encode_block_words", "pack_block_words"])
+    def test_meta_device_raises(self, fn):
+        q = torch.zeros((2, 64), dtype=torch.int32, device="meta")
+        with pytest.raises(ValueError, match="unsupported device"):
+            if fn == "encode_block_words":
+                TE.encode_block_words(q, q[:, 0], False)
+            else:
+                h = q.to(torch.int64)
+                TE.pack_block_words(h, h, q)
+
+
+class TestCudaWrappersOnCpu:
+    """What of ops/pack_cuda.py runs without a card: argument checks, the
+    bit-pattern view, and the kernel source's tables."""
+
+    def test_low32_keeps_bit_patterns(self):
+        from jpezy_tpu_torch.ops import pack_cuda
+
+        rng = np.random.default_rng(63)
+        x = rng.integers(0, 2**32, (5, 64), dtype=np.int64)
+        x[0, :4] = [0, 2**31 - 1, 2**31, 2**32 - 1]
+        got = pack_cuda._low32(_t(x)).numpy()
+        assert got.dtype == np.int32
+        assert np.array_equal(got.view(np.uint32), x.astype(np.uint32))
+
+    @pytest.mark.parametrize("fn", ["pack_words_cuda", "encode_blocks_cuda"])
+    def test_cpu_tensor_refused(self, fn):
+        from jpezy_tpu_torch.ops import pack_cuda
+
+        q = torch.zeros((2, 64), dtype=torch.int32)
+        with pytest.raises(ValueError, match="not a CUDA tensor"):
+            if fn == "pack_words_cuda":
+                pack_cuda.pack_words_cuda(q.to(torch.int64),
+                                          q.to(torch.int64), q)
+            else:
+                pack_cuda.encode_blocks_cuda(q, q[:, 0], False)
+
+    @pytest.mark.parametrize("bad", ["dtype", "shape"])
+    def test_bad_arguments_refused(self, bad):
+        from jpezy_tpu_torch.ops import pack_cuda
+
+        q = torch.zeros((2, 64) if bad == "dtype" else (2, 63),
+                        dtype=torch.int64 if bad == "dtype" else torch.int32)
+        with pytest.raises(ValueError, match="encode_blocks_cuda"):
+            pack_cuda.encode_blocks_cuda(q, torch.zeros(2, dtype=torch.int32),
+                                         False)
+
+    def test_kernel_source_tables_match(self):
+        """The zigzag order and table indices written into the CUDA source
+        are the codec's."""
+        import re
+
+        from jpezy_tpu_torch.core import tables as T
+        from jpezy_tpu_torch.ops import pack_cuda
+
+        src = open(pack_cuda._SRC).read()
+        body = re.search(r"kZigzag\[kSlots\] = \{([^}]*)\}", src).group(1)
+        assert [int(x) for x in body.split(",")] == list(T.ZIGZAG)
+        for name, want in (("kEobIndex", T.EOB_INDEX),
+                           ("kZrlIndex", T.ZRL_INDEX),
+                           ("kDcEntries", len(T.Y_DC_SIZE)),
+                           ("kAcEntries", len(T.Y_AC_SIZE))):
+            got = re.search(rf"constexpr int {name} = (\d+);", src).group(1)
+            assert int(got) == want, name
