@@ -3,47 +3,67 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path -- the pipelined encode+decode round trip of
-uniform batches of 16 RGB images at 512x512, fast precision, 4:2:0, no
-restart markers -- on the card, in phases.  Each phase prints one line and
-any failure exits nonzero:
+Drives the port's paths on the card, in phases: the main path (the
+pipelined encode+decode round trip of uniform batches of 16 RGB images at
+512x512, fast precision, 4:2:0, no restart markers, `ycc420` transport)
+and the restart path (the same round trip with restart_interval=8 and the
+`device` decode transport, whose Huffman decode runs on the card), then
+the `indexed` decode of the main path's streams.  Each phase prints one
+line and any failure exits nonzero.  In the order they run:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      fp32 matmuls at IEEE precision (no TF32);
-  2. build: compiles the CUDA entropy kernels (the pack alone and the fused
-     emissions + pack) from the checkout's sources and prints what ptxas
-     reports for each; a stack frame or a spill fails the run.  Counts
-     each kernel's SASS instructions (cuobjdump), to set the time of
-     running them all beside the kernel's time in phase 6;
-  3. both kernels against their plain torch versions on the real
+  2. build: compiles the CUDA sources of the checkout, all at once (the
+     entropy pack alone and fused with the emissions, entropy_pack.cu; the
+     Huffman scan, huffman_scan.cu) and prints what ptxas reports for each
+     kernel; a stack frame or a spill in the pack kernels, or a spill in
+     the scan kernel, fails the run.  Counts each kernel's SASS
+     instructions (cuobjdump);
+  3. the pack kernels against their plain torch versions on the real
      16x512x512 blocks, on seeded worst-case blocks and on the edge-case
      blocks: words and bits must be identical.  The pack kernel alone is
-     off the main path, so its launch count is taken here, over the real
+     off every path, so its launch count is taken here, over the real
      blocks (3, one per component);
-  4. exact parity: a 4x512x512 precision="exact" encode on the card must be
-     byte-identical to the host C++ codec (the port's verbatim copy of
-     jpezy_tpu's host_codec), and both decoders must decode;
+  7. the scan kernel against decode_segments_plain on the card: the 2,048
+     real segments of a 16x512x512 restart batch, noise images, the
+     edge-case blocks encoded into segments, the 2,048 pseudo-segments of
+     the indexed transport (skip0, preds0), a batch with two table sets,
+     and a seeded sweep of bit flips, zeroed, truncated and all-ones rows:
+     blocks and flags must be identical;
+  4. exact parity: 4x512x512 precision="exact" encodes on the card, without
+     and with restart markers, must be byte-identical to the host C++ codec
+     (the port's verbatim copy of jpezy_tpu's host_codec);
   5. main path: roundtrip_batches over 4 batches of 16x512x512 on the card,
      every stream must decode; the port's own decode and the host decoder's
      decode of the port's streams must both reach a PSNR within 0.05 dB of
-     the host codec's exact round trip.  Per batch it prints the encode and
-     decode programs' CUDA-event spans (host-launch bound: they include the
-     gaps between the many small launches), their device-busy time (kernel
-     and copy time summed from a torch.profiler trace), their number of
-     device events and the pipelined MP/s, then the same three numbers
-     for each stage of the encode program alone, and the card's busy share
-     of the pipelined round trip (device time of a profiled round trip
-     over the wall time of the unprofiled one).  The fused kernel must
-     have been launched (3 times per batch) and the pack alone not at all;
-  6. times: each kernel alone on the real blocks (CUDA-event span of the
-     wrapper calls and the kernel's own device time from a torch.profiler
-     trace, per launch and per batch, also with the L2 cache overwritten
-     before each launch) beside its bound, the larger of the bytes the
-     function must move (inputs read once, 32-bit words and bit counts
-     written once) over 3.35 TB/s and the operations it needs at the
-     least on this run's data over the card's 32-bit rate.  The profiler is first used behind the pipelined
-     wall-clock measurement of phase 5, so that its tracing hooks cannot
-     weigh on that number.
+     the host codec's exact round trip.  The fused kernel must have been
+     launched 3 times per batch and no other kernel at all;
+  8. restart path: the same batches with restart_interval=8 and
+     transport="device": every stream starts FFD8, ends FFD9, carries DRI
+     and RSTn cycling 0..7, decodes in the host decoder; the device
+     transport's pixels equal the ycc420 transport's exactly; the fused
+     kernel must have been launched 3 times and the scan once per batch.
+     Then decode_batches with transport="indexed" on the main path's
+     restart-free streams: pixels equal to the main path's; one scan launch
+     per batch.  A corrupted stream must raise.  Decode alone, pipelined,
+     is timed for the three transports side by side, and the host halves
+     (parse, _device_host_frontend, _indexed_host_frontend, the ycc420
+     host frontend, encode_batch_finish) per batch on the host's clock;
+  5/8 device: only now the profiler: per batch the encode and decode
+     programs' CUDA-event spans (host-launch bound), their device-busy
+     time (kernel and copy time summed from a torch.profiler trace) and
+     number of device events, for both paths, the encode program's stages
+     alone, and the card's busy share of each pipelined round trip (device
+     time of a profiled round trip over the wall time of the unprofiled
+     one);
+  6. times of the pack kernels alone on the real blocks beside their
+     bounds (see _bound);
+  9. times of the scan kernel alone on the real segments beside its bound
+     and the plain version's time, with the L2 cache overwritten before
+     each launch, and on four times the lanes.
+
+Every wall clock is taken before torch.profiler first traces: after that
+every launch in the process costs the host more.
 
 The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
@@ -66,6 +86,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 H = W = 512
 BATCH = 16
 MAIN_BATCHES = 4
+RESTART_INTERVAL = 8
 PSNR_SLACK_DB = 0.05
 
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory
@@ -94,6 +115,18 @@ BLOCK_BYTES = {"pack_words": 3 * 256 + 256 + 4,
 MIN_OPS = {"pack_words": (2, 10), "encode_blocks": (3, 25)}
 # blocks one warp of each kernel takes (kBlocksPerWarp of the source)
 BLOCKS_PER_WARP = {"pack_words": 1, "encode_blocks": 2}
+# The least 32-bit operations per decoded Huffman symbol, whatever decodes
+# it: cut the 16-bit window (1), index the table (2), split length and
+# value (2), cut and sign-extend the extra bits (4), the coefficient's
+# position (2), advance the bit position (1).
+MIN_OPS_PER_SYMBOL = 12
+KERNELS = ("pack_words", "encode_blocks", "decode_segments")
+SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
+           "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
+           "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu"}
+REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
+            "encode_blocks": "jpezy_tpu/ops/pack_pallas.py:27",
+            "decode_segments": "jpezy_tpu/ops/entropy_decode.py:211"}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -200,7 +233,10 @@ def _worst_case_blocks(dev, nblocks: int = 4096, seed: int = 5):
 
 
 def _kernel_of(symbol: str) -> str:
-    return "encode_blocks" if "encode_blocks" in symbol else "pack_words"
+    for name in ("encode_blocks", "decode_segments"):
+        if name in symbol:
+            return name
+    return "pack_words"
 
 
 def _ptxas_by_kernel(log: str) -> dict:
@@ -241,6 +277,128 @@ def _bound(nbytes: int, ops: int):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median wall time in ms of fn() on the host's clock."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * float(np.median(times))
+
+
+def _to_dev(kw: dict, dev) -> dict:
+    """numpy arguments of decode_segments -> tensors on dev."""
+    from jpezy_tpu_torch.ops.entropy_decode import words_tensor
+
+    out = {}
+    for k, v in kw.items():
+        if k == "words":
+            out[k] = words_tensor(v).to(dev)
+        elif k == "max_blocks" or v is None:
+            out[k] = v
+        else:
+            out[k] = torch.from_numpy(
+                np.ascontiguousarray(v, np.int32)).to(dev)
+    return out
+
+
+def _restart_lanes(HG, streams, ri: int) -> dict:
+    """decode_segments arguments (numpy) for a batch of restart streams,
+    as the device transport makes them."""
+    from jpezy_tpu_torch.bitstream.reader import parse
+
+    pjs = [parse(s) for s in streams]
+    nmcu = (pjs[0].props.height // 16) * (pjs[0].props.width // 16)
+    nseg = -(-nmcu // ri)
+    words, nblk, rawlen = HG._device_host_frontend(pjs, nmcu, ri, nseg)
+    lut, tsel = HG._device_luts(pjs, nseg)
+    return dict(words=words, nblk=nblk, lut=lut, tsel=tsel, rawlen=rawlen,
+                max_blocks=ri * 6)
+
+
+def _indexed_lanes(HG, streams, k_mcus: int = 8) -> dict:
+    """decode_segments arguments (numpy) for restart-free streams, as the
+    indexed transport makes them."""
+    from jpezy_tpu_torch.bitstream.reader import parse
+
+    pjs = [parse(s) for s in streams]
+    nmcu = (pjs[0].props.height // 16) * (pjs[0].props.width // 16)
+    nseg = -(-nmcu // k_mcus)
+    words, nblk, skip0, preds0 = HG._indexed_host_frontend(
+        pjs, nmcu, k_mcus, nseg)
+    lut, tsel = HG._device_luts(pjs, nseg)
+    return dict(words=words, nblk=nblk, lut=lut, tsel=tsel, skip0=skip0,
+                preds0=preds0, max_blocks=k_mcus * 6)
+
+
+def _edge_case_lanes(E, lut: np.ndarray) -> dict:
+    """entropy.edge_case_blocks in lanes of six (Y0..Y3 with the luma
+    tables, Cb and Cr with the chroma tables, predictors reset per lane),
+    each lane spliced into one segment on the host."""
+    from jpezy_tpu_torch.bitstream.splice import splice_blocks
+
+    q = E.edge_case_blocks(3)
+    q = q[: (q.shape[0] // 6) * 6].reshape(-1, 6, 64)
+    pred = np.zeros(q.shape[:2], np.int32)
+    pred[:, 1:4] = q[:, 0:3, 0]
+    qt = torch.from_numpy(q.reshape(-1, 64))
+    pt = torch.from_numpy(pred.reshape(-1))
+    wy, by = E.encode_block_words(qt, pt, False)       # CPU: plain versions
+    wc, bc = E.encode_block_words(qt, pt, True)
+    chroma = torch.arange(qt.shape[0]) % 6 >= 4
+    w = torch.where(chroma[:, None], wc, wy).numpy().astype(np.uint32)
+    b = torch.where(chroma, bc, by).numpy().astype(np.int32)
+    raws = [splice_blocks(w[i:i + 6], b[i:i + 6])[0]
+            for i in range(0, w.shape[0], 6)]
+    L = (max(map(len, raws)) + 8 + 3) // 4 * 4
+    rows = np.zeros((len(raws), L), np.uint8)
+    for i, raw in enumerate(raws):
+        rows[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+    return dict(words=rows.view(">u4").astype("=u4"),
+                nblk=np.full(len(raws), 6, np.int32), lut=lut,
+                rawlen=np.array([len(r) for r in raws], np.int32),
+                max_blocks=6), q.astype(np.int16)
+
+
+def _count_symbols(E, blocks: torch.Tensor, nblk: torch.Tensor):
+    """Huffman symbols that decoding these blocks takes: per decoded block
+    one DC symbol, one per nonzero AC coefficient, the ZRLs before them,
+    and an EOB unless zigzag position 63 is nonzero.  Returns (total,
+    per-lane counts [S])."""
+    from jpezy_tpu_torch.constants import codec_constants
+
+    S, mb, _ = blocks.shape
+    live = (torch.arange(mb, device=blocks.device)[None, :]
+            < nblk[:, None].to(torch.int64))
+    _, nz, zrl, _, _ = E._ac_run_size(
+        blocks.reshape(-1, 64), codec_constants(blocks.device)["zigzag"])
+    per_block = (1 + nz.sum(1) + zrl.sum(1) + (~nz[:, -1]).to(torch.int64))
+    per_lane = (per_block.reshape(S, mb) * live).sum(1)
+    return int(per_lane.sum()), per_lane
+
+
+def _destuff_batch(pjs, nmcu: int, ri: int, nseg: int, nthreads: int):
+    """The destuff calls of HG._device_host_frontend with `nthreads` per
+    call (0: the host library's default, a thread per hardware core)."""
+    from jpezy_tpu_torch.runtime import native
+
+    rows = np.zeros((nseg, 256), np.uint8)
+    lens = np.zeros(nseg, np.int64)
+    for pj in pjs:
+        d = np.frombuffer(pj.data, np.uint8)[pj.entropy_start:]
+        rows[:] = 0
+        native.destuff_segments(d, native.find_restart_offsets(d, nmcu, ri),
+                                rows, lens, nthreads=nthreads)
+
+
+def _rst_sequence(stream: bytes, entropy_start: int) -> np.ndarray:
+    """Indices n of the RSTn markers in a stream's entropy data, in order."""
+    d = np.frombuffer(stream, np.uint8)[entropy_start:-2]
+    at = np.nonzero((d[:-1] == 0xFF) & (d[1:] >= 0xD0) & (d[1:] <= 0xD7))[0]
+    return d[at + 1].astype(np.int64) - 0xD0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -251,9 +409,13 @@ def main() -> int:
     from jpezy_tpu_torch.codec import host_glue as HG
     from jpezy_tpu_torch.codec import torch_codec as TC
     from jpezy_tpu_torch.device import check_fp32_precision, resolve
+    from jpezy_tpu_torch.bitstream.reader import parse
+    from jpezy_tpu_torch.ops import cuda_build
     from jpezy_tpu_torch.ops import entropy as E
-    from jpezy_tpu_torch.ops import pack_cuda
-    from jpezy_tpu_torch.runtime.pipeline import roundtrip_batches
+    from jpezy_tpu_torch.ops import entropy_decode as ED
+    from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+    from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
+                                                  roundtrip_batches)
 
     # ---- 1. environment
     card = _card()
@@ -266,26 +428,43 @@ def main() -> int:
          f"allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
          f"fp32_matmul_precision={torch.get_float32_matmul_precision()}")
 
-    # ---- 2. build the kernels from the checkout's sources
-    secs = pack_cuda.build(force=True)
-    pack_cuda.get_lib()
-    ptxas = _ptxas_by_kernel(pack_cuda.build_log)
-    sass = _sass_instructions(pack_cuda._nvcc(), pack_cuda._SO)
-    if sorted(ptxas) != sorted(BLOCK_BYTES) or sorted(sass) != sorted(ptxas) \
+    # ---- 2. build the kernels from the checkout's sources, all at once
+    import concurrent.futures as cf
+
+    libs = (pack_cuda.LIB, scan_cuda.LIB)
+    t0 = time.perf_counter()
+    with cf.ThreadPoolExecutor(len(libs)) as ex:
+        secs = list(ex.map(lambda lib: lib.build(force=True), libs))
+    build_wall = time.perf_counter() - t0
+    ptxas, sass = {}, {}
+    for lib in libs:
+        lib.get()
+        ptxas.update(_ptxas_by_kernel(lib.build_log))
+        sass.update(_sass_instructions(cuda_build.nvcc(), lib.so))
+    if sorted(ptxas) != sorted(KERNELS) or sorted(sass) != sorted(KERNELS) \
             or min(sass.values()) <= 0:
-        raise AssertionError(f"ptxas reported {sorted(ptxas)}, cuobjdump "
-                             f"{sass}:\n{pack_cuda.build_log}")
-    _say("2 build", f"entropy_pack.cu built for sm_90a in {secs:.2f} s; "
+        raise AssertionError(
+            f"ptxas reported {sorted(ptxas)}, cuobjdump {sass}:\n"
+            + "\n".join(lib.build_log for lib in libs))
+    _say("2 build", "entropy_pack.cu and huffman_scan.cu built for sm_90a "
+         f"side by side in {build_wall:.2f} s (nvcc {secs[0]:.2f} and "
+         f"{secs[1]:.2f} s); "
          + " || ".join(f"{k}: {' | '.join(v)} | {sass[k]} SASS instructions"
                        for k, v in ptxas.items()))
     for k, lines in ptxas.items():
         frames = [ln for ln in lines if "stack frame" in ln]
-        if not frames or any(not ln.startswith(
-                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
-                "loads") for ln in frames):
-            raise AssertionError(f"{k} uses local memory: {lines}")
+        clean = ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                 "loads")
+        if not frames:
+            raise AssertionError(f"ptxas printed no stack frame for {k}")
+        for ln in frames:
+            # the scan kernel may keep a stack frame; nothing may spill
+            ok = (ln.endswith(clean[clean.index("0 bytes spill"):])
+                  if k == "decode_segments" else ln.startswith(clean))
+            if not ok:
+                raise AssertionError(f"{k} uses local memory: {lines}")
 
-    # ---- 3. both kernels against their plain torch versions
+    # ---- 3. the pack kernels against their plain torch versions
     real = _real_blocks(TC, HG, _images(BATCH, 0), dev)
     edge = torch.from_numpy(E.edge_case_blocks(3)).to(dev)
     sets = (("real", real), ("worst", _worst_case_blocks(dev)),
@@ -335,6 +514,78 @@ def main() -> int:
     del real, sets, edge, ems, wp, bp, got, wk, bk, q, pred
     torch.cuda.empty_cache()
 
+    # ---- 7. the scan kernel against its plain torch version
+    scan_cuda.launches = 0
+    restart0 = TC.encode_batch(_images(BATCH, 0),
+                               restart_interval=RESTART_INTERVAL,
+                               device="cuda")
+    plain0 = TC.encode_batch(_images(BATCH, 0), device="cuda")
+    rng = np.random.default_rng(7)
+    noise = TC.encode_batch(
+        rng.integers(0, 256, (4, 128, 128, 3), np.uint8), restart_interval=1,
+        quality=95, device="cuda")
+    optimized = [host_codec.encode(im[..., 0], im[..., 1], im[..., 2],
+                                   optimize=True, restart_interval=4)
+                 for im in _images(4, 50)[:, :128, :128]]
+    standard = TC.encode_batch(_images(4, 50)[:, :128, :128],
+                               restart_interval=4, device="cuda")
+    real_np = _restart_lanes(HG, restart0, RESTART_INTERVAL)
+    std_lut = real_np["lut"][0]
+    edge_np, edge_q = _edge_case_lanes(E, std_lut)
+    scan_sets = [("real", real_np),
+                 ("noise", _restart_lanes(HG, noise, 1)),
+                 ("edge", edge_np),
+                 ("indexed", _indexed_lanes(HG, plain0)),
+                 ("two table sets", _restart_lanes(
+                     HG, [standard[0], optimized[1], standard[2],
+                          optimized[3]], 4))]
+    sub = {k: (v[:256] if k in ("words", "nblk", "tsel", "rawlen") else v)
+           for k, v in real_np.items()}
+    scan_sets += [(f"corrupt {seed}", dict(sub, words=ED.corrupt_rows(
+        sub["words"], sub["rawlen"], seed))) for seed in range(4)]
+    err["decode_segments"] = 0
+    scan_plain_ms = None
+    flagged = lanes_seen = 0
+    for label, kw in scan_sets:
+        args = _to_dev(kw, dev)
+        gb, gbad = ED.decode_segments(**args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pb, pbad = ED.decode_segments_plain(**args)
+        torch.cuda.synchronize()
+        if label == "real":
+            # one call of the plain version at the full width, on the card
+            scan_plain_ms = 1e3 * (time.perf_counter() - t0)
+            real_args, real_blocks = args, gb
+        e = max(int((gb.to(torch.int32) - pb.to(torch.int32)).abs().max()),
+                int((gbad != pbad).sum()))
+        err["decode_segments"] = max(err["decode_segments"], e)
+        if e or gb.dtype != torch.int16 or gbad.dtype != torch.bool:
+            raise AssertionError(
+                f"decode_segments kernel != plain version on {label} "
+                f"segments {tuple(kw['words'].shape)}")
+        if label.startswith("corrupt"):
+            flagged += int(pbad.sum())
+            lanes_seen += pbad.numel()
+        elif bool(pbad.any()):
+            raise AssertionError(f"{label} segments flagged as corrupt")
+        if label == "edge" and not np.array_equal(gb.cpu().numpy(), edge_q):
+            raise AssertionError("edge-case blocks do not survive the scan")
+    if not 0 < flagged < lanes_seen:
+        raise AssertionError(f"corruption sweep flagged {flagged} of "
+                             f"{lanes_seen} lanes")
+    if scan_cuda.launches != len(scan_sets):
+        raise AssertionError(f"scan kernel launched {scan_cuda.launches} "
+                             f"times in {len(scan_sets)} comparisons")
+    _say("7 scan", "decode_segments: blocks and flags identical to the "
+         "plain version on "
+         + ", ".join(f"{label} {tuple(kw['words'].shape)} x "
+                     f"{kw['max_blocks']} blocks" for label, kw in scan_sets)
+         + f"; the sweep flagged {flagged} of {lanes_seen} lanes; plain "
+         f"version on the real segments {scan_plain_ms:.1f} ms (one call)")
+    del scan_sets, sub, args, gb, gbad, pb, pbad
+    torch.cuda.empty_cache()
+
     # ---- 4. exact parity with the host C++ codec
     imgs4 = _images(4, 100)
     got = TC.encode_batch(imgs4, precision="exact", device="cuda")
@@ -342,6 +593,15 @@ def main() -> int:
     if got != ref:
         bad = [i for i in range(4) if got[i] != ref[i]]
         raise AssertionError(f"exact encode differs from host_codec on {bad}")
+    got_r = TC.encode_batch(imgs4, precision="exact",
+                            restart_interval=RESTART_INTERVAL, device="cuda")
+    ref_r = [host_codec.encode(im[..., 0], im[..., 1], im[..., 2],
+                               restart_interval=RESTART_INTERVAL)
+             for im in imgs4]
+    if got_r != ref_r:
+        bad = [i for i in range(4) if got_r[i] != ref_r[i]]
+        raise AssertionError(
+            f"exact restart encode differs from host_codec on {bad}")
     px, _ = TC.decode_batch(got, device="cuda")
     host_px = np.stack([np.stack(host_codec.decode(s)[:3], -1) for s in got])
     p_port, p_host = _psnr(px, imgs4), _psnr(host_px, imgs4)
@@ -349,25 +609,36 @@ def main() -> int:
     if p_port < p_host - PSNR_SLACK_DB:
         raise AssertionError(f"port decode PSNR {p_port} < host {p_host}")
     _say("4 exact", f"4x{H}x{W} exact encode byte-identical to host_codec "
-         f"({sum(map(len, got))} bytes); decode PSNR port {p_port:.4f} dB, "
+         f"({sum(map(len, got))} bytes), and with restart_interval="
+         f"{RESTART_INTERVAL} ({sum(map(len, got_r))} bytes); decode PSNR "
+         f"port {p_port:.4f} dB, "
          f"host {p_host:.4f} dB, max |diff| {int(diff.max())}, "
          f"{float((diff > 0).mean()):.5f} of samples differ")
+
+    def reset_counts():
+        pack_cuda.launches = pack_cuda.encode_launches = 0
+        scan_cuda.launches = 0
+
+    def read_counts():
+        return {"pack_words": pack_cuda.launches,
+                "encode_blocks": pack_cuda.encode_launches,
+                "decode_segments": scan_cuda.launches}
 
     # ---- 5. the main path: pipelined round trip on the card
     batches = [_images(BATCH, 1000 + BATCH * i) for i in range(MAIN_BATCHES)]
     for _ in roundtrip_batches(batches[:1], device="cuda"):
         pass  # warm-up: CUDA context, cuBLAS handle, first allocations
     torch.cuda.synchronize()
-    pack_cuda.launches = pack_cuda.encode_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     results = list(roundtrip_batches(batches, lookahead=1, device="cuda"))
     wall = time.perf_counter() - t0
-    main_launches = {"pack_words": pack_cuda.launches,
-                     "encode_blocks": pack_cuda.encode_launches}
-    if main_launches != {"pack_words": 0, "encode_blocks": 3 * MAIN_BATCHES}:
+    main_launches = read_counts()
+    if main_launches != {"pack_words": 0, "encode_blocks": 3 * MAIN_BATCHES,
+                         "decode_segments": 0}:
         raise AssertionError(
             f"main path launches {main_launches}: want the fused kernel 3 "
-            "times per batch and the pack alone not at all")
+            "times per batch and no other kernel")
     streams = [s for ss, _ in results for s in ss]
     src = np.concatenate(batches)
     px = np.concatenate([p for _, p in results])
@@ -386,7 +657,152 @@ def main() -> int:
         raise AssertionError(f"host decode of the port's streams: PSNR "
                              f"{p_hostdec} < host exact {p_ref}")
     mps = len(streams) * H * W / 1e6 / wall
+    mpix = len(streams) * H * W / 1e6
+    _say("5 main", f"{MAIN_BATCHES} batches x {BATCH}x{H}x{W} fast "
+         f"round trip: {len(streams)} streams decode; PSNR port "
+         f"{p_rt:.4f} dB, host decode of port streams {p_hostdec:.4f} dB, "
+         f"host exact round trip {p_ref:.4f} dB; launches {main_launches}; "
+         f"pipelined {mps:.3f} MP/s (wall {wall:.3f} s) on {card}")
 
+    # ---- 8. the restart path: restart encode, device Huffman decode
+    ri = RESTART_INTERVAL
+    rt_kw = dict(lookahead=1, restart_interval=ri, transport="device",
+                 device="cuda")
+    for _ in roundtrip_batches(batches[:1], **rt_kw):
+        pass  # warm-up of this path's shapes
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rresults = list(roundtrip_batches(batches, **rt_kw))
+    rwall = time.perf_counter() - t0
+    restart_launches = read_counts()
+    if restart_launches != {"pack_words": 0,
+                            "encode_blocks": 3 * MAIN_BATCHES,
+                            "decode_segments": MAIN_BATCHES}:
+        raise AssertionError(
+            f"restart path launches {restart_launches}: want the fused "
+            "kernel 3 times and the scan kernel once per batch")
+    nseg = -(-(H // 16) * (W // 16) // ri)
+    want_rst = np.arange(nseg - 1) % 8
+    for ss, rpx in rresults:
+        for s in ss:
+            pj = parse(s)
+            if s[:2] != b"\xff\xd8" or s[-2:] != b"\xff\xd9":
+                raise AssertionError("restart stream without SOI/EOI")
+            if pj.restart_interval != ri:
+                raise AssertionError(f"DRI says {pj.restart_interval}")
+            if not np.array_equal(_rst_sequence(s, pj.entropy_start),
+                                  want_rst):
+                raise AssertionError("RSTn markers do not cycle 0..7 "
+                                     f"{nseg - 1} times")
+        ypx, _ = TC.decode_batch(ss, transport="ycc420", device="cuda")
+        if not np.array_equal(rpx, ypx):
+            raise AssertionError("device transport's pixels differ from the "
+                                 "ycc420 transport's")
+    rstreams = [s for ss, _ in rresults for s in ss]
+    rpx_all = np.concatenate([p for _, p in rresults])
+    rhost = np.stack([np.stack(host_codec.decode(s)[:3], -1)
+                      for s in rstreams])
+    p_r, p_rhost = _psnr(rpx_all, src), _psnr(rhost, src)
+    if min(p_r, p_rhost) < p_ref - PSNR_SLACK_DB:
+        raise AssertionError(f"restart round-trip PSNR {p_r} / host decode "
+                             f"{p_rhost} < host exact {p_ref}")
+    # one corrupted stream must raise, naming it
+    broken = bytearray(rstreams[1])
+    es = parse(rstreams[1]).entropy_start
+    broken[es:es + 8] = bytes(8)
+    try:
+        TC.decode_batch([rstreams[0], bytes(broken)], transport="device",
+                        device="cuda")
+    except ValueError as exc:
+        if "corrupt" not in str(exc) or "[1]" not in str(exc):
+            raise
+    else:
+        raise AssertionError("a corrupted restart stream decoded")
+
+    # indexed: the device Huffman decode of the main path's streams
+    plain_lists = [ss for ss, _ in results]
+    restart_lists = [ss for ss, _ in rresults]
+    dec_walls, dec_launches = {}, {}
+    for label, lists, transport in (
+            ("ycc420", plain_lists, "ycc420"),
+            ("device", restart_lists, "device"),
+            ("indexed", plain_lists, "indexed")):
+        kw = dict(lookahead=1, transport=transport, device="cuda")
+        for _ in decode_batches(lists[:1], **kw):
+            pass
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = list(decode_batches(lists, **kw))
+        dec_walls[label] = time.perf_counter() - t0
+        counts = read_counts()
+        dec_launches[label] = counts["decode_segments"]
+        if label == "indexed":
+            indexed_launches = counts
+        for (p, _), (_, want) in zip(out, results if label != "device"
+                                     else rresults):
+            if not np.array_equal(p, want):
+                raise AssertionError(
+                    f"decode_batches transport={transport}: pixels differ "
+                    "from the round trip's")
+    if dec_launches != {"ycc420": 0, "device": MAIN_BATCHES,
+                        "indexed": MAIN_BATCHES}:
+        raise AssertionError(f"scan launches by transport: {dec_launches}")
+
+    # host halves per batch, on the host's clock (median of 5)
+    pjs_r = [parse(s) for s in restart_lists[0]]
+    pjs_p = [parse(s) for s in plain_lists[0]]
+    nmcu = (H // 16) * (W // 16)
+    parse_kw = dict(gray=False, precision="fast", transport=None)
+    host_ms = {
+        "parse + checks (_parse_batch)": _host_ms(
+            lambda: TC._parse_batch(restart_lists[0], **parse_kw)),
+        "_device_host_frontend": _host_ms(
+            lambda: HG._device_host_frontend(pjs_r, nmcu, ri, nseg)),
+        "destuff alone, the host library's default thread count":
+            _host_ms(lambda: _destuff_batch(pjs_r, nmcu, ri, nseg, 0)),
+        "destuff alone, calling thread": _host_ms(
+            lambda: _destuff_batch(pjs_r, nmcu, ri, nseg, 1)),
+        "_indexed_host_frontend": _host_ms(
+            lambda: HG._indexed_host_frontend(pjs_p, nmcu, 8, nseg)),
+        "_decode_host_prep (ycc420, restart-free streams)": _host_ms(
+            lambda: TC._decode_host_prep(plain_lists[0], **parse_kw)),
+        "_decode_host_prep (ycc420, restart streams)": _host_ms(
+            lambda: TC._decode_host_prep(restart_lists[0], **parse_kw)),
+    }
+    for label, r_i in (("encode_batch_finish", 0),
+                       ("encode_batch_finish, restart", ri)):
+        tickets = [TC.encode_batch_dispatch(batches[0], restart_interval=r_i,
+                                            device="cuda") for _ in range(5)]
+        torch.cuda.synchronize()
+        it = iter(tickets)
+        host_ms[label] = _host_ms(lambda: TC.encode_batch_finish(next(it)))
+    for label, lists, transport in (("decode_batch_finish", plain_lists,
+                                     "ycc420"),
+                                    ("decode_batch_finish, device",
+                                     restart_lists, "device")):
+        tickets = [TC.decode_batch_dispatch(lists[0], transport=transport,
+                                            device="cuda") for _ in range(5)]
+        torch.cuda.synchronize()
+        it = iter(tickets)
+        host_ms[label] = _host_ms(lambda: TC.decode_batch_finish(next(it)))
+    _say("8 restart", f"{MAIN_BATCHES} batches x {BATCH}x{H}x{W} with "
+         f"restart_interval={ri}, transport=device: {len(rstreams)} streams "
+         f"carry DRI and {nseg - 1} RSTn cycling 0..7 and decode in the "
+         f"host decoder; device pixels equal ycc420 pixels exactly; PSNR "
+         f"{p_r:.4f} dB (host decode {p_rhost:.4f} dB); a corrupted stream "
+         f"raised; launches {restart_launches}; pipelined round trip "
+         f"{mpix / rwall:.3f} MP/s (wall {rwall:.3f} s) beside the main "
+         f"path's {mps:.3f}; decode alone, pipelined: "
+         + ", ".join(f"{k} {mpix / v:.3f} MP/s (wall {v:.3f} s, "
+                     f"{dec_launches[k]} scan launches)"
+                     for k, v in dec_walls.items())
+         + "; indexed pixels equal the main path's exactly; host ms per "
+         "batch: " + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items())
+         + f"; on {card}")
+
+    # ---- 5/8 device: event spans, then (only now) the profiler
     y, cb, cr = HG.host_rgb_to_ycc420(batches[0])
     packed_dev = torch.from_numpy(np.concatenate(
         [y.reshape(BATCH, -1), cb.reshape(BATCH, -1), cr.reshape(BATCH, -1)],
@@ -394,42 +810,76 @@ def main() -> int:
     def enc():
         return TC._encode_batch_blocks_packed(packed_dev, h=H, w=W)
 
+    def enc_r():
+        return TC._encode_batch_blocks_packed(packed_dev, h=H, w=W,
+                                              restart_interval=ri)
+
     flat_host, kw, _, _, _ = TC._decode_host_prep(
         results[0][0], gray=False, precision="fast", transport=None)
     flat_dev = torch.from_numpy(flat_host).to(dev)
     def dec():
         return TC._decode_fused_batch_ycc420(flat_dev, **kw)
 
-    # both event spans first: once the profiler has traced in a process,
+    lanes = _to_dev(_restart_lanes(HG, restart_lists[0], ri), dev)
+    qarr = torch.from_numpy(HG._quant_arr(pjs_r)).to(dev)
+    geom = kw["geom"]
+    def dec_r():
+        return TC._decode_fused_batch_device(
+            lanes["words"], lanes["nblk"], lanes["lut"], lanes["tsel"],
+            lanes["rawlen"], qarr, N=BATCH, nseg=nseg, ri=ri, geom=geom,
+            level=128)
+
+    # all event spans first: once the profiler has traced in a process,
     # every later launch costs the host more
-    enc_ms, dec_ms = _time_ms(enc, 5), _time_ms(dec, 5)
-    enc_prof, dec_prof = _profile(enc, 5), _profile(dec, 5)
-    # the card's busy share of the pipelined round trip: device time of the
+    spans = {name: _time_ms(fn, 5) for name, fn in (
+        ("enc", enc), ("dec", dec), ("enc_r", enc_r), ("dec_r", dec_r))}
+    profs = {name: _profile(fn, 5) for name, fn in (
+        ("enc", enc), ("dec", dec), ("enc_r", enc_r), ("dec_r", dec_r))}
+    enc_prof, dec_prof = profs["enc"], profs["dec"]
+    if enc_prof["events"] > 73:
+        raise AssertionError(
+            f"the encode program without restart markers makes "
+            f"{enc_prof['events']} device events per call, 73 before")
+    # the card's busy share of a pipelined round trip: device time of the
     # same round trip under the profiler (which slows the host, not the
     # kernels) over the wall time measured above without it
     rt_prof = _profile(lambda: list(roundtrip_batches(
         batches, lookahead=1, device="cuda")), 1)
-    if rt_prof["busy_ms"] is None:
+    rrt_prof = _profile(lambda: list(roundtrip_batches(batches, **rt_kw)), 1)
+    if rt_prof["busy_ms"] is None or rrt_prof["busy_ms"] is None:
         raise RuntimeError("the profiler traced no device time for the "
-                           "round trip")
+                           "round trips")
     busy_share = rt_prof["busy_ms"] / (1e3 * wall)
-    _say("5 main", f"{MAIN_BATCHES} batches x {BATCH}x{H}x{W} fast "
-         f"round trip: {len(streams)} streams decode; PSNR port "
-         f"{p_rt:.4f} dB, host decode of port streams {p_hostdec:.4f} dB, "
-         f"host exact round trip {p_ref:.4f} dB; launches {main_launches}; "
-         f"per batch: encode event span {enc_ms:.3f} ms, device busy "
+    rbusy_share = rrt_prof["busy_ms"] / (1e3 * rwall)
+    _say("5 device", f"main path per batch: encode event span "
+         f"{spans['enc']:.3f} ms, device busy "
          f"{_fmt_ms(enc_prof['busy_ms'])} ms in {enc_prof['events']:.1f} "
          f"device events (fused kernel "
          f"{_fmt_ms(_kernel_ms(enc_prof, 'encode_blocks_kernel'))} ms); "
-         f"decode event span {dec_ms:.3f} ms, device busy "
+         f"decode event span {spans['dec']:.3f} ms, device busy "
          f"{_fmt_ms(dec_prof['busy_ms'])} ms in {dec_prof['events']:.1f} "
-         f"device events; pipelined {mps:.3f} MP/s (wall {wall:.3f} s); "
+         f"device events; "
          f"device busy over the {MAIN_BATCHES} pipelined batches "
          f"{rt_prof['busy_ms']:.3f} ms in {rt_prof['events']:.0f} device "
          f"events = {busy_share:.4f} of that wall, idle "
          f"{1 - busy_share:.4f} ({rt_prof['busy_ms'] / rt_prof['wall_ms']:.4f}"
          f" of the {rt_prof['wall_ms'] / 1e3:.3f} s the round trip takes "
          f"under the profiler) on {card}")
+    _say("8 device", f"restart path per batch: encode event span "
+         f"{spans['enc_r']:.3f} ms, device busy "
+         f"{_fmt_ms(profs['enc_r']['busy_ms'])} ms in "
+         f"{profs['enc_r']['events']:.1f} device events; device decode "
+         f"program (_decode_fused_batch_device) event span "
+         f"{spans['dec_r']:.3f} ms, device busy "
+         f"{_fmt_ms(profs['dec_r']['busy_ms'])} ms in "
+         f"{profs['dec_r']['events']:.1f} device events, of it the scan "
+         f"kernel "
+         f"{_fmt_ms(_kernel_ms(profs['dec_r'], 'decode_segments_kernel'))} "
+         f"ms; device busy over the {MAIN_BATCHES} pipelined batches "
+         f"{rrt_prof['busy_ms']:.3f} ms in {rrt_prof['events']:.0f} device "
+         f"events = {rbusy_share:.4f} of that wall, idle "
+         f"{1 - rbusy_share:.4f} on {card}")
+    del lanes, qarr, flat_dev
 
     # the encode program's three stages, each alone on the same batch
     ny, nc = H * W, (H // 2) * (W // 2)
@@ -554,23 +1004,98 @@ def main() -> int:
     _say("6 times", f"encode_blocks on [{q4.shape[0]}, 64] luma blocks in "
          f"one launch: kernel {big_ms:.4f} ms, bound {big_bound:.4f} ms by "
          f"{big_by} = {big_bound / big_ms:.3f} of it")
-    del real_inputs, q4, p4, l2_flush
+    del real_inputs, q4, p4
+
+    # ---- 9. the scan kernel alone on the real segments of phase 7
+    S, Lw = real_args["words"].shape
+    mb = real_args["max_blocks"]
+    nsym, per_lane = _count_symbols(E, real_blocks, real_args["nblk"])
+    scan_bytes = (4 * S * Lw + 3 * 4 * S + 4 * real_args["lut"].numel()
+                  + 2 * 64 * mb * S + S)
+
+    def run_scan(args=real_args):
+        scan_cuda.decode_segments_cuda(**args)
+
+    def run_scan_cold():
+        l2_flush.zero_()
+        run_scan()
+
+    t = {"event_ms": _time_ms(run_scan, 20), "plain_ms": scan_plain_ms}
+    prof = _profile(run_scan, 20)
+    t["ms"] = _kernel_ms(prof, "decode_segments_kernel")
+    t["wrapper_busy_ms"] = prof["busy_ms"]
+    t["cold_ms"] = _kernel_ms(_profile(run_scan_cold, 20),
+                              "decode_segments_kernel")
+    t["bound_ms"], t["bound_by"] = _bound(scan_bytes,
+                                          MIN_OPS_PER_SYMBOL * nsym)
+    t["sass_ms"] = None
+    t["launch_ms"], t["cold_launch_ms"] = [t["ms"]], [t["cold_ms"]]
+    # four times the lanes in one launch: does the card have room left?
+    wide = {k: (torch.cat([v] * 4) if k in (
+        "words", "nblk", "tsel", "rawlen") else v)
+        for k, v in real_args.items()}
+    wide_ms = _kernel_ms(_profile(lambda: run_scan(wide), 10),
+                         "decode_segments_kernel")
+    # every lane given the slowest lane's row: warps without divergence
+    slow = int(per_lane.argmax())
+    same = {k: (v[slow:slow + 1].expand(S, *v.shape[1:]).contiguous()
+                if k in ("words", "nblk", "tsel", "rawlen") else v)
+            for k, v in real_args.items()}
+    same_ms = _kernel_ms(_profile(lambda: run_scan(same), 10),
+                         "decode_segments_kernel")
+    # a warp lasts as long as its slowest lane
+    warp_max = per_lane.reshape(-1, 32).max(dim=1).values
+    timing["decode_segments"] = t
+    _say("9 times", f"decode_segments per {BATCH}x{H}x{W} batch with "
+         f"restart_interval={RESTART_INTERVAL} (1 launch, {S} lanes x {mb} "
+         f"block slots, rows of {Lw} words, {S // 32} warps): kernel alone "
+         f"{t['ms']:.4f} ms (profiler), wrapper device busy "
+         f"{_fmt_ms(t['wrapper_busy_ms'])} ms (with the zeroing of the "
+         f"blocks), wrapper event span {t['event_ms']:.4f} ms; bound "
+         f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({scan_bytes} bytes: "
+         f"rows {4 * S * Lw}, per-lane arguments {12 * S}, LUT "
+         f"{4 * real_args['lut'].numel()}, blocks {128 * mb * S}, flags "
+         f"{S}; {nsym} symbols x {MIN_OPS_PER_SYMBOL} operations) = "
+         f"{t['bound_ms'] / t['ms']:.4f} of the kernel's time; with the L2 "
+         f"cache overwritten before each launch: kernel {t['cold_ms']:.4f} "
+         f"ms; {4 * S} lanes in one launch: {wide_ms:.4f} ms "
+         f"({wide_ms / t['ms']:.2f} x the time for 4 x the work); all {S} "
+         f"lanes on the slowest lane's row ({int(per_lane.max())} symbols, "
+         f"no divergence within a warp): {same_ms:.4f} ms = "
+         f"{1e6 * same_ms / int(per_lane.max()):.1f} ns per symbol; symbols "
+         f"per lane: mean {float(per_lane.float().mean()):.1f}, max "
+         f"{int(per_lane.max())}, mean of the warps' slowest lanes "
+         f"{float(warp_max.float().mean()):.1f}: "
+         f"{1e6 * t['ms'] / int(per_lane.max()):.1f} ns per symbol of the "
+         f"slowest lane; plain version {t['plain_ms']:.1f} ms (one call, "
+         f"all {S} lanes, host clock with a synchronise); on {card}")
+    del real_args, real_blocks, wide, same, l2_flush
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "jpezy_tpu"))
     if leaked:
         raise AssertionError(f"imported {leaked[:5]}")
-    # pack_words is off the main path: its count is phase 3's, over the
-    # real blocks; encode_blocks' is the main path's
+    # pack_words is off every path: its count is phase 3's, over the real
+    # blocks; encode_blocks' is the main path's; decode_segments' is the
+    # restart path's.  launches_by_path holds every path's own counts, each
+    # read just after that path's run.
     launches = {"pack_words": pack_alone_launches,
-                "encode_blocks": main_launches["encode_blocks"]}
+                "encode_blocks": main_launches["encode_blocks"],
+                "decode_segments": restart_launches["decode_segments"]}
+    by_path = {name: {"main": main_launches[name],
+                      "restart_device": restart_launches[name],
+                      "decode_indexed": indexed_launches[name]}
+               for name in launches}
+    per_batch = {name: {path: n / MAIN_BATCHES for path, n in paths.items()}
+                 for name, paths in by_path.items()}
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": "jpezy_tpu_torch/csrc/entropy_pack.cu",
-        "replaces": "jpezy_tpu/ops/pack_pallas.py:27",
+        "name": name, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name],
         "launches": launches[name], "max_abs_err": err[name],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+        "launches_by_path": by_path[name],
+        "launches_per_batch": per_batch[name],
         "launch_ms": t["launch_ms"], "cold_ms": t["cold_ms"],
         "cold_launch_ms": t["cold_launch_ms"],
         "event_ms": t["event_ms"], "wrapper_busy_ms": t["wrapper_busy_ms"],

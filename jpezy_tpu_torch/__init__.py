@@ -6,8 +6,9 @@ host code (core/, bitstream/, runtime/native.py, codec/oracle.py,
 codec/host_codec.py, utils/timing.py) is a verbatim copy, held
 byte-identical to jpezy_tpu's by tests/test_torch_host_copies.py, and the
 C++ host runtime csrc/jpezy_host.cpp is shared.  Device code is torch; the
-entropy pack runs as a hand-written CUDA kernel (ops/pack_cuda.py) on CUDA
-tensors.
+entropy encode of blocks (ops/pack_cuda.py) and the Huffman decode of
+restart segments (ops/scan_cuda.py) run as hand-written CUDA kernels on
+CUDA tensors.
 
 Public API (every entry point takes device=, default "cuda", which raises
 when no card is present; pass device="cpu" for the CPU path):
@@ -15,6 +16,8 @@ when no card is present; pass device="cpu" for the CPU path):
     from jpezy_tpu_torch import encode_batch, decode_batch, roundtrip_batches
     streams = encode_batch(rgbs)                  # [N, H, W, 3] uint8
     pixels, props = decode_batch(streams)
+    streams = encode_batch(rgbs, restart_interval=8)   # DRI + RSTn
+    pixels, props = decode_batch(streams)         # Huffman decode on device
 
 Lazy: importing this package imports neither torch's CUDA kernels nor the
 codec modules until an entry point is called.

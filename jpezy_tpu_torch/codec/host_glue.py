@@ -1,17 +1,21 @@
 """Host helpers of the batch transports, copied from jpezy_tpu.codec.jax_codec.
 
 jax_codec imports jax at module level, and the port must not, so the
-numpy/C++ host halves of the ycc420 encode and decode transports are
-copied here verbatim (only imports adjusted).  Each copy names its
-original; tests/test_torch_pipeline.py asserts that copy and original give
-identical outputs.  A later change can move them into one shared jax-free
-module that both packages import.
+numpy/C++ host halves of the encode and decode transports (ycc420,
+restart segments, device and indexed) are copied here verbatim (only
+imports adjusted; _device_luts keeps the LUT mode only, and
+_device_host_frontend destuffs on the calling thread).  Each copy names
+its original; tests/test_torch_pipeline.py and tests/test_torch_restart.py
+assert that copy and original give identical outputs.  A later change can
+move them into one shared jax-free module that both packages import.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..bitstream import writer
 from ..bitstream.reader import ParsedJpeg, split_entropy_segments
+from ..bitstream.splice import splice_blocks
 from ..core.geometry import ComponentGeometry
 
 
@@ -60,6 +64,51 @@ def _stream_to_bytes(stream: np.ndarray, total: int) -> bytes:
     if pad:
         raw[-1] |= (1 << pad) - 1  # T.81 F.1.2.3 one-padding
     return bytes(raw)
+
+
+def _splice_restart_raw(nw: np.ndarray, nb: np.ndarray, S: int,
+                        ri: int, seg_bits: np.ndarray) -> bytes:
+    """Copy of jpezy_tpu.codec.jax_codec._splice_restart_raw.
+
+    Host splice of per-block words into byte-aligned restart segments
+    (the overflow fallback mirroring concat_device_restart's layout)."""
+    raw_parts = []
+    for s in range(S):
+        sl = slice(s * 6 * ri, (s + 1) * 6 * ri)
+        seg_raw, sb = splice_blocks(
+            np.ascontiguousarray(nw[sl]), np.ascontiguousarray(nb[sl]))
+        # splice 1-pads the tail; _assemble_restart_segments re-ORs the
+        # same bits
+        raw_parts.append(seg_raw)
+        assert sb == int(seg_bits[s])
+    return b"".join(raw_parts)
+
+
+def _assemble_restart_segments(raw: bytes, seg_bits: np.ndarray) -> bytes:
+    """Copy of jpezy_tpu.codec.jax_codec._assemble_restart_segments.
+
+    Join byte-aligned segments with 1-padding, stuffing and RSTn markers.
+
+    raw: device stream bytes where segment s sits at byte offset
+    sum(ceil(seg_bits[:s]/8)) (concat_device_restart layout).  RSTn markers
+    are emitted between segments, indices cycling 0..7 (T.81 E.1.2), and are
+    NOT byte-stuffed (they are markers, not entropy data).
+    """
+    parts = []
+    base = 0
+    S = len(seg_bits)
+    for s in range(S):
+        sb = int(seg_bits[s])
+        nb = (sb + 7) // 8
+        seg = bytearray(raw[base : base + nb])
+        pad = (-sb) % 8
+        if pad:
+            seg[-1] |= (1 << pad) - 1  # T.81 F.1.2.3 one-padding
+        parts.append(writer.byte_stuff(bytes(seg)))
+        if s != S - 1:
+            parts.append(bytes([0xFF, 0xD0 + (s % 8)]))
+        base += nb
+    return b"".join(parts)
 
 
 def _words_comp_to_mcu(w: np.ndarray, nm: int) -> np.ndarray:
@@ -205,6 +254,139 @@ def _check_uniform_quant(pjs, p0) -> None:
                     "decode_batch needs uniform quant tables on this "
                     "transport (mixed-quality batches decode on "
                     "transport='device'/'indexed')")
+
+
+def _device_host_frontend(pjs, nmcu: int, ri: int, nseg: int):
+    """jpezy_tpu.codec.jax_codec._device_host_frontend, with one change:
+    each image's segments are destuffed on the calling thread
+    (nthreads=1).  The library's default starts a thread per hardware core
+    in every call, which for the few kilobytes of one image costs far more
+    than the destuffing (measured on an H100 host, PERF.md).
+
+    Host half of the device transport: restart offsets + per-segment
+    destuff (C++) -> ([S, Lw] BE uint32 rows, [S] block
+    counts, [S] destuffed byte lengths for the corruption check).  Split
+    out for bench stage attribution (VERDICT r3 #4)."""
+    from ..runtime import native
+
+    N = len(pjs)
+    datas = [np.frombuffer(pj.data, np.uint8)[pj.entropy_start:]
+             for pj in pjs]
+    offs = [native.find_restart_offsets(d, nmcu, ri) for d in datas]
+    # row stride: max raw segment length + margin (peek reads <= 4 bytes
+    # past the final bit), bucketed so jit shapes are stable across batches
+    raw_max = 0
+    for d, of in zip(datas, offs):
+        ends = np.append(of[1:], len(d))
+        raw_max = max(raw_max, int((ends - of).max()))
+    L = 64
+    while L < raw_max + 8:
+        L *= 2
+    rows = np.zeros((N * nseg, L), np.uint8)
+    lens = np.zeros(N * nseg, np.int64)
+    for i, (d, of) in enumerate(zip(datas, offs)):
+        native.destuff_segments(d, of, rows[i * nseg: (i + 1) * nseg],
+                                lens[i * nseg: (i + 1) * nseg], nthreads=1)
+    words = rows.view(">u4").astype("=u4")         # [S, L/4] BE-packed
+    nblk = np.minimum(ri, nmcu - np.arange(nseg) * ri) * 6
+    nblk = np.tile(nblk.astype(np.int32), N)
+    return words, nblk, lens.astype(np.int32)
+
+
+def _indexed_host_frontend(pjs, nmcu: int, k_mcus: int, nseg: int):
+    """Host half of the indexed transport, the numpy/C++ part of
+    jpezy_tpu.codec.jax_codec._decode_batch_indexed_dispatch: a serial
+    LENGTH-ONLY scan per image (C++ index_scan, thread-parallel across
+    images) records every k_mcus MCUs the bit offset and the absolute DC
+    predictors; each pseudo-segment's byte window is copied into one row.
+
+    Returns ([S, Lw] BE uint32 rows, [S] block counts, skip0 [S] bit phase
+    of each row's first byte, preds0 [S, 3] DC predictors)."""
+    from ..runtime import native
+
+    N = len(pjs)
+
+    def _p1(pj):
+        return native.index_scan(pj, nmcu, k_mcus)
+
+    if N > 1:
+        import concurrent.futures as cf
+        import os as _os
+
+        with cf.ThreadPoolExecutor(min(N, _os.cpu_count() or 1)) as ex:
+            outs = list(ex.map(_p1, pjs))
+    else:
+        outs = [_p1(pjs[0])]
+
+    need = 0
+    for destuffed, bitoffs, _ in outs:
+        ends = np.append((bitoffs[1:] >> 3) + 8, len(destuffed))
+        need = max(need, int((ends - (bitoffs >> 3)).max()))
+    L = 64
+    while L < need + 8:
+        L *= 2
+    rows = np.zeros((N * nseg, L), np.uint8)
+    skip0 = np.zeros(N * nseg, np.int32)
+    preds0 = np.zeros((N * nseg, 3), np.int32)
+    for i, (destuffed, bitoffs, preds) in enumerate(outs):
+        native.copy_bit_windows(destuffed, bitoffs,
+                                rows[i * nseg: (i + 1) * nseg])
+        skip0[i * nseg: (i + 1) * nseg] = (bitoffs & 7)
+        preds0[i * nseg: (i + 1) * nseg] = preds
+    words = rows.view(">u4").astype("=u4")
+    nblk = np.tile(
+        (np.minimum(k_mcus, nmcu - np.arange(nseg) * k_mcus) * 6)
+        .astype(np.int32), N)
+    return words, nblk, skip0, preds0
+
+
+def _device_luts(pjs, nseg: int):
+    """jpezy_tpu.codec.jax_codec._device_luts in LUT mode (the chain
+    tables are a TPU form and are not ported).
+
+    Per-image decode LUTs, deduplicated by table content: [T, 6, 65536]
+    stacked sets + a per-lane table index [N*nseg], so one batch may mix
+    streams with different DHT tables."""
+    from ..ops.entropy_decode import build_decode_lut, lut_content_key
+
+    keys: dict[bytes, int] = {}
+    luts = []
+    tsel_img = np.empty(len(pjs), np.int32)
+    for i, pj in enumerate(pjs):
+        k = lut_content_key(pj.huff, pj.scan_components)
+        if k not in keys:
+            keys[k] = len(luts)
+            luts.append(build_decode_lut(pj.huff, pj.scan_components))
+        tsel_img[i] = keys[k]
+    return np.stack(luts), np.repeat(tsel_img, nseg)
+
+
+def _quant_arr(pjs) -> np.ndarray:
+    """Copy of jpezy_tpu.codec.jax_codec._quant_arr.
+
+    [N, 3, 64] int32 per-image quant tables (device dequant input)."""
+    return np.stack([
+        np.stack([np.asarray(pj.quant[fc.Tq], np.int32)
+                  for fc in pj.frame_components])
+        for pj in pjs])
+
+
+def _decode_batch_device_finish(ticket):
+    """Copy of jpezy_tpu.codec.jax_codec._decode_batch_device_finish.
+
+    Validate the per-image corruption flags the device scan appended,
+    then reuse the ycc420 color tail.  The reference propagates decode
+    failure as an empty optional (jpezy_decoder.hpp:593,635 -> 109-120);
+    our host paths raise -- so does the device transport (VERDICT r4 #4)."""
+    _, packed, props, N, mcus_x, mcus_y = ticket
+    packed = np.asarray(packed)  # ONE fetch (planes + flags)
+    bad = packed[:, -1]
+    if bad.any():
+        raise ValueError(
+            "corrupt entropy data in stream(s) "
+            f"{np.nonzero(bad)[0].tolist()} (device Huffman scan)")
+    return _decode_batch_ycc420_finish(
+        ("ycc420", packed[:, :-1], props, N, mcus_x, mcus_y))
 
 
 def _decode_batch_ycc420_finish(ticket):

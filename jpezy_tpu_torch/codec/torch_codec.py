@@ -12,14 +12,21 @@ Decode: marker parse (every stream must be decodable) -> host C++ Huffman
 frontend + sparsify -> ONE uint8 upload -> densify, dequantize, float32
 IDCT, deblockify, clamp to u8 planes -> ONE fetch -> C++ upsample + color.
 
+Restart streams (encode with restart_interval > 0: DRI + RSTn, every
+segment byte-aligned and with reset DC predictors) decode by default on
+the "device" transport: host destuff of the segments -> upload of the raw
+entropy words -> the CUDA Huffman scan, one lane per segment
+(ops/entropy_decode.py) -> per-image dequantize, IDCT, planes plus one
+corruption flag per image -> ONE fetch.  The "indexed" transport gives
+restart-free streams the same device decode after a length-only host scan.
+
 precision:
   "fast"  - float32 transforms at IEEE precision (TF32 refused)
   "exact" - float64 ordered sums, byte-identical to the oracle (encode)
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-restart_interval > 0, optimize=True, the "rgb" encode transport, and on
-decode the "rgb"/"device"/"indexed" transports, exact-mode decode, gray
-decode and non-4:2:0 streams.
+optimize=True, the "rgb" encode transport, and on decode the "rgb"
+transport, exact-mode decode, gray decode and non-4:2:0 streams.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from ..device import resolve
 from ..ops import blocks as B
 from ..ops import dct as D
 from ..ops import entropy as E
+from ..ops import entropy_decode as ED
 from ..ops import quantize as Q
 from . import host_glue as HG
 
@@ -81,17 +89,19 @@ def _quantize_local_ycc(y, cb, cr, *, gray: bool, dtype, rounded: bool,
     return tuple(out)
 
 
-def _emit_local(yq, cbq, crq):
+def _emit_local(yq, cbq, crq, restart_interval: int = 0):
     """Quantized blocks -> per-component (words, bits), component order
     (parallel/sharded.py:_emit_local with tile_axis=None, interleave=False).
 
     Images are flattened into the block axis: emissions are block-local
     once the per-image DC chains are captured in the predictors.  One
-    entropy kernel per component (E.encode_block_words)."""
+    entropy kernel per component (E.encode_block_words).
+    restart_interval > 0 resets each component's predictor chain every
+    that many MCUs (4 blocks of Y, 1 of Cb and of Cr per MCU)."""
     words, bits = [], []
-    for q, chroma in ((yq, False), (cbq, True), (crq, True)):
+    for q, chroma, bpm in ((yq, False, 4), (cbq, True, 1), (crq, True, 1)):
         n, b, _ = q.shape
-        pred = E.dc_predictors(q[:, :, 0])
+        pred = E.dc_predictors_restart(q[:, :, 0], restart_interval * bpm)
         w_c, b_c = E.encode_block_words(q.reshape(-1, 64), pred.reshape(-1),
                                         chroma)
         words.append(w_c.reshape(n, b, w_c.shape[-1]))
@@ -106,34 +116,43 @@ def stream_budget_words_batch(nblocks: int) -> int:
     return max(4096, nblocks * 2)
 
 
-def _concat_batch_combined_comp(wc, bc):
+def _concat_batch_combined_comp(wc, bc, restart_interval: int = 0):
     """Batched stream concat from PER-COMPONENT packed words
-    (jax_codec._concat_batch_combined_comp without restarts).
+    (jax_codec._concat_batch_combined_comp).
 
     The scatter is order-independent, so blocks scatter from component
     order with MCU-ordered global bit offsets; only the small [N, nm*6]
-    bits array is interleaved.  Returns (combined [N, 1 + maxw] int64 with
-    column 0 = total bits, words_comp [N, nm*6, W] in component order,
-    bits_mcu [N, nm*6] in MCU order)."""
+    bits array is interleaved.  Returns (combined [N, 1 + S + maxw] int64:
+    column 0 = total bits, then with restart_interval the S per-segment
+    bit counts (each segment starts byte-aligned in the stream), then the
+    stream; words_comp [N, nm*6, W] in component order; bits_mcu
+    [N, nm*6] in MCU order)."""
     N, nm = bc[1].shape
     bits_mcu = torch.cat(
         [bc[0].reshape(N, nm, 4), bc[1].reshape(N, nm, 1),
          bc[2].reshape(N, nm, 1)], dim=2).reshape(N, nm * 6)
     maxw = stream_budget_words_batch(nm * 6)
-    goff, total = E.stream_offsets_batch(bits_mcu)
+    head = []
+    if restart_interval:
+        goff, total, seg_bits = E.stream_offsets_restart_batch(
+            bits_mcu, 6 * restart_interval)
+        head = [seg_bits]
+    else:
+        goff, total = E.stream_offsets_batch(bits_mcu)
     g6 = goff.reshape(N, nm, 6)
     goff_c = torch.cat(
         [g6[:, :, :4].reshape(N, nm * 4), g6[:, :, 4], g6[:, :, 5]], dim=1)
     words_c = torch.cat(wc, dim=1)
     stream = E._concat_batch_scatter(words_c, goff_c, maxw)
-    combined = torch.cat([total[:, None], stream], dim=1)
+    combined = torch.cat([total[:, None]] + head + [stream], dim=1)
     return combined, words_c, bits_mcu
 
 
 def _encode_batch_blocks_packed(packed: torch.Tensor, *, h: int, w: int,
                                 gray: bool = False, precision: str = "fast",
                                 rounded: bool = False,
-                                quality: int | None = None):
+                                quality: int | None = None,
+                                restart_interval: int = 0):
     """Device program of the ycc420 transport: packed [N, H*W +
     2*(H/2)*(W/2)] int8 holds Y then Cb then Cr per image
     (jax_codec._encode_batch_blocks_packed)."""
@@ -149,8 +168,8 @@ def _encode_batch_blocks_packed(packed: torch.Tensor, *, h: int, w: int,
     yq, cbq, crq = _quantize_local_ycc(
         y, cb, cr, gray=gray, dtype=_dtype(precision), rounded=rounded,
         qtables=qtables)
-    wc, bc = _emit_local(yq, cbq, crq)
-    return _concat_batch_combined_comp(wc, bc)
+    wc, bc = _emit_local(yq, cbq, crq, restart_interval)
+    return _concat_batch_combined_comp(wc, bc, restart_interval)
 
 
 def encode_batch_dispatch(rgbs: np.ndarray, *, gray: bool = False,
@@ -172,9 +191,6 @@ def encode_batch_dispatch(rgbs: np.ndarray, *, gray: bool = False,
     if restart_interval < 0:
         raise ValueError(
             f"restart_interval must be >= 0, got {restart_interval}")
-    if restart_interval > 0:
-        raise NotImplementedError("restart_interval > 0 is " + _TODO.format(
-            "restart encode and stream_offsets_restart_batch"))
     if optimize:
         raise NotImplementedError("optimize=True is " + _TODO.format(
             "optimize (symbol_histograms, _encode_batch_custom)"))
@@ -189,31 +205,47 @@ def encode_batch_dispatch(rgbs: np.ndarray, *, gray: bool = False,
         [y.reshape(n, -1), cb.reshape(n, -1), cr.reshape(n, -1)], axis=1)
     combined, words, bits = _encode_batch_blocks_packed(
         torch.from_numpy(packed).to(dev), h=h, w=w, gray=gray,
-        precision=precision, rounded=rounded, quality=quality)
+        precision=precision, rounded=rounded, quality=quality,
+        restart_interval=restart_interval)
     return dict(combined=combined, words=words, bits=bits, n=n, h=h, w=w,
-                gray=gray, quality=quality)
+                gray=gray, quality=quality, ri=restart_interval)
 
 
 def encode_batch_finish(ticket) -> list[bytes]:
     """Fetch `combined` once and assemble the JFIF streams on the host."""
     combined = ticket["combined"].cpu().numpy().astype(np.uint32)
     n, h, w = ticket["n"], ticket["h"], ticket["w"]
-    quality = ticket["quality"]
+    quality, ri = ticket["quality"], ticket["ri"]
     geo = EncodeGeometry(width=w, height=h)
-    maxw = combined.shape[1] - 1
+    S = -(-geo.num_mcus // ri) if ri else 0
+    maxw = combined.shape[1] - 1 - S
     qt = T.scale_quant_tables(quality) if quality is not None else None
     props = make_encode_props(w, h, gray=ticket["gray"])
-    header = writer.write_header(props, quant_tables=qt)
+    header = writer.write_header(props, restart_interval=ri, quant_tables=qt)
+
+    def overflowed(i):
+        """Image i's words in MCU order and its bits, fetched only when
+        its stream outgrew the budget (host splice of this image only)."""
+        wi = ticket["words"][i].cpu().numpy().astype(np.uint32)
+        return (HG._words_comp_to_mcu(wi, geo.num_mcus),
+                ticket["bits"][i].cpu().numpy().astype(np.int32))
+
     out = []
     for i in range(n):
         total = int(combined[i, 0])
+        if ri:
+            seg_bits = combined[i, 1:1 + S]
+            if total <= 32 * maxw:
+                raw = combined[i, 1 + S:].astype(">u4").tobytes()
+            else:
+                raw = HG._splice_restart_raw(*overflowed(i), S, ri, seg_bits)
+            out.append(header + HG._assemble_restart_segments(raw, seg_bits)
+                       + writer.EOI)
+            continue
         if total <= 32 * maxw:
             packed = HG._stream_to_bytes(combined[i, 1:], total)
-        else:  # overflow: host splice of this image's words only
-            wi = ticket["words"][i].cpu().numpy().astype(np.uint32)
-            packed, _ = splice_blocks(
-                HG._words_comp_to_mcu(wi, geo.num_mcus),
-                ticket["bits"][i].cpu().numpy().astype(np.int32))
+        else:
+            packed, _ = splice_blocks(*overflowed(i))
         out.append(writer.assemble(header, packed))
     return out
 
@@ -310,17 +342,58 @@ def _decode_fused_batch_ycc420(flat: torch.Tensor, *, geom, level, shapes,
     return torch.cat(outs, dim=1)
 
 
-def _decode_host_prep(streams: list[bytes], *, gray: bool, precision: str,
-                      transport: str | None):
-    """Host half of decode_batch_dispatch: marker parse with the
-    decodability check on every stream, then the C++ entropy frontend and
-    sparsify into one flat upload buffer.
+def _decode_fused_batch_device(words, nblk, lut, tsel, rawlen, qarr,
+                               skip0=None, preds0=None, *, N, nseg, ri,
+                               geom, level):
+    """FULL device decode of restart-interval 4:2:0 streams: destuffed
+    entropy bytes in, packed native-resolution u8 YCC planes out
+    (jax_codec._decode_fused_batch_device).
 
-    Returns (flat_host uint8, device-program kwargs, props, mcus_x,
-    mcus_y)."""
-    if transport not in (None, "ycc420"):
+    The Huffman frontend runs on the device (ops.entropy_decode
+    .decode_segments: one lane per segment), so the upload is the raw
+    entropy bytes instead of sparse coefficients.
+    words: [N*nseg, Lw] int32 bit patterns of the BE segment words; nblk:
+    [N*nseg] int32; lut: [T, 6, 65536] with tsel [N*nseg] selecting each
+    lane's table set (per-image DHT tables); rawlen: [N*nseg] destuffed
+    byte lengths feeding the corruption check (None on the indexed
+    transport); qarr: [N, 3, 64] int32 PER-IMAGE quant tables; skip0,
+    preds0: the indexed transport's start phase and DC predictors.
+    Output layout = _decode_fused_batch_ycc420 plus ONE trailing bad-flag
+    byte per image (still a single fetch).
+    """
+    blocks, bad = ED.decode_segments(words, nblk, lut, tsel, rawlen, skip0,
+                                     preds0, max_blocks=ri * 6)
+    mcus_y, mcus_x = geom[0][0], geom[0][1]
+    nmcu = mcus_y * mcus_x
+    b6 = blocks.reshape(N, nseg * ri, 6, 64)[:, :nmcu]
+    comps = (
+        b6[:, :, :4].reshape(N, nmcu * 4, 64),   # MCU-raster (v,h) order ==
+        b6[:, :, 4],                             # the deblockify layout
+        b6[:, :, 5],
+    )
+    outs = []
+    for c, (cb, (my, mx, v, h, _, _)) in enumerate(zip(comps, geom)):
+        Bn = cb.shape[1]
+        deq = cb.to(torch.int32) * qarr[:, c][:, None, :]
+        spat = D.inverse_dct(deq.reshape(-1, 64), level,
+                             torch.float32).reshape(N, Bn, 64)
+        plane = B.deblockify(spat, my, mx, v, h)
+        outs.append(plane.clamp(0, 255).to(torch.uint8).reshape(N, -1))
+    badimg = bad.reshape(N, nseg).any(dim=1).to(torch.uint8)
+    return torch.cat(outs + [badimg[:, None]], dim=1)
+
+
+def _parse_batch(streams: list[bytes], *, gray: bool, precision: str,
+                 transport: str | None):
+    """Marker parse of a uniform batch, with the decodability check on
+    every stream (on every transport), and the checks of what the port
+    decodes so far: fast precision, colour, 3-component 4:2:0.
+
+    Returns (pjs, geom, level): geom is the per-component tuple of
+    (mcus_y, mcus_x, v, h, dup_y, dup_x) the device programs take."""
+    if transport not in (None, "ycc420", "device", "indexed"):
         raise NotImplementedError(f"transport={transport!r} is " + _TODO.format(
-            "the device Huffman decode and the rgb transports"))
+            "the rgb transports"))
     if _dtype(precision) != torch.float32:
         raise NotImplementedError("precision='exact' decode is " + _TODO.format(
             "the rgb transports and the exact-mode decode"))
@@ -349,41 +422,163 @@ def _decode_host_prep(streams: list[bytes], *, gray: bool, precision: str,
         raise NotImplementedError(
             "decode of streams other than 3-component 4:2:0 is "
             + _TODO.format("the rgb transports and the exact-mode decode"))
+    geom = tuple(
+        (mcus_y, mcus_x, fc.V, fc.H, geos[i].dup_y, geos[i].dup_x)
+        for i, fc in enumerate(p0.frame_components))
+    level = 128 if p0.props.sample_precision == 8 else 2048
+    return pjs, geom, level
+
+
+def _ycc420_host_prep(pjs, geom, level):
+    """Host half of the ycc420 transport: the C++ entropy frontend and
+    sparsify into one flat upload buffer.  Returns (flat_host uint8,
+    kwargs of _decode_fused_batch_ycc420)."""
+    p0 = pjs[0]
     HG._check_uniform_quant(pjs, p0)
     K = 10
     flat_host, shapes, caps = HG._ycc420_host_frontend(pjs, K)
     kwargs = dict(
-        geom=tuple(
-            (mcus_y, mcus_x, fc.V, fc.H, geos[i].dup_y, geos[i].dup_x)
-            for i, fc in enumerate(p0.frame_components)),
-        level=128 if p0.props.sample_precision == 8 else 2048,
-        shapes=shapes, K=K, N=len(pjs), caps=caps,
+        geom=geom, level=level, shapes=shapes, K=K, N=len(pjs), caps=caps,
         qtuple=tuple(tuple(int(x) for x in p0.quant[fc.Tq])
                      for fc in p0.frame_components))
-    return flat_host, kwargs, p0.props, mcus_x, mcus_y
+    return flat_host, kwargs
+
+
+def _decode_host_prep(streams: list[bytes], *, gray: bool, precision: str,
+                      transport: str | None):
+    """Host half of the ycc420 decode of `streams`: _parse_batch, then
+    _ycc420_host_prep.
+
+    Returns (flat_host uint8, device-program kwargs, props, mcus_x,
+    mcus_y)."""
+    if transport not in (None, "ycc420"):
+        raise ValueError("_decode_host_prep is the ycc420 transport's")
+    pjs, geom, level = _parse_batch(streams, gray=gray, precision=precision,
+                                    transport=transport)
+    flat_host, kwargs = _ycc420_host_prep(pjs, geom, level)
+    return flat_host, kwargs, pjs[0].props, geom[0][1], geom[0][0]
+
+
+def _i32(a: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+
+def _check_device_eligible(pjs) -> None:
+    """transport='device' takes restart-interval streams that share one
+    DRI; raises ValueError otherwise.  Reads the parsed headers only."""
+    ri = pjs[0].restart_interval
+    if ri <= 0:
+        raise ValueError("transport='device' needs restart-interval streams")
+    if any(pj.restart_interval != ri for pj in pjs[1:]):
+        raise ValueError("transport='device' needs uniform DRI")
+
+
+def _decode_batch_device_dispatch(pjs, geom, level, dev):
+    """Host prep and device program of the full device decode
+    (transport='device', jax_codec._decode_batch_device_dispatch): restart
+    offsets and per-segment destuff (C++), uploads of the big-endian words
+    and the per-lane block counts, table selects and destuffed lengths.
+    Every stream must share the restart interval; Huffman AND quant tables
+    may differ per image (deduplicated LUT sets with a per-lane select,
+    [N, 3, 64] quant tables)."""
+    from ..runtime import native
+
+    native.get_lib()
+    _check_device_eligible(pjs)
+    p0 = pjs[0]
+    ri = p0.restart_interval
+    N = len(pjs)
+    mcus_y, mcus_x = geom[0][0], geom[0][1]
+    nmcu = mcus_x * mcus_y
+    nseg = -(-nmcu // ri)
+    words, nblk, rawlen = HG._device_host_frontend(pjs, nmcu, ri, nseg)
+    lut, tsel = HG._device_luts(pjs, nseg)
+    packed = _decode_fused_batch_device(
+        ED.words_tensor(words).to(dev), _i32(nblk, dev),
+        ED.device_lut(lut, dev), _i32(tsel, dev), _i32(rawlen, dev),
+        _i32(HG._quant_arr(pjs), dev),
+        N=N, nseg=nseg, ri=ri, geom=geom, level=level)
+    # ycc420 layout + one bad-flag byte per image
+    return ("device", packed, p0.props, N, mcus_x, mcus_y)
+
+
+def _decode_batch_indexed_dispatch(pjs, geom, level, dev, k_mcus: int = 8):
+    """Index-assisted two-pass decode of RESTART-FREE streams
+    (transport='indexed', jax_codec._decode_batch_indexed_dispatch): a
+    serial LENGTH-ONLY host scan (C++) records every k_mcus MCUs the bit
+    offset and absolute DC predictors, then all pseudo-segments decode in
+    parallel on the device through the same scan as the restart transport
+    (per-lane skip0 bit phase and preds0).  The upload is raw entropy
+    bytes, as for transport='device'."""
+    from ..runtime import native
+
+    native.get_lib()
+    p0 = pjs[0]
+    if any(pj.restart_interval for pj in pjs):
+        raise ValueError("transport='indexed' is for restart-FREE streams"
+                         " (restart streams use transport='device')")
+    N = len(pjs)
+    mcus_y, mcus_x = geom[0][0], geom[0][1]
+    nmcu = mcus_x * mcus_y
+    nseg = -(-nmcu // k_mcus)
+    words, nblk, skip0, preds0 = HG._indexed_host_frontend(
+        pjs, nmcu, k_mcus, nseg)
+    lut, tsel = HG._device_luts(pjs, nseg)
+    packed = _decode_fused_batch_device(
+        ED.words_tensor(words).to(dev), _i32(nblk, dev),
+        ED.device_lut(lut, dev), _i32(tsel, dev), None,
+        _i32(HG._quant_arr(pjs), dev), _i32(skip0, dev), _i32(preds0, dev),
+        N=N, nseg=nseg, ri=k_mcus, geom=geom, level=level)
+    return ("device", packed, p0.props, N, mcus_x, mcus_y)
 
 
 def decode_batch_dispatch(streams: list[bytes], *, gray: bool = False,
                           precision: str = "fast",
                           transport: str | None = None,
                           device: str | torch.device = "cuda"):
-    """Marker parse, host entropy frontend, one upload and the device
-    program for a uniform batch of 3-component 4:2:0 streams.
+    """Marker parse, host frontend, uploads and the device program for a
+    uniform batch of 3-component 4:2:0 streams.
+
+    transport: "ycc420" runs the Huffman frontend on the host (C++) and
+    uploads sparse coefficients; "device" uploads the destuffed entropy
+    bytes of restart-interval streams and runs the Huffman decode on the
+    device, one lane per restart segment; "indexed" does the same for
+    restart-FREE streams after a length-only host scan.  None picks
+    "device" for restart streams (falling back to "ycc420" only when the
+    batch is not eligible, e.g. mixed restart intervals) and "ycc420"
+    otherwise.  All give the same pixels.
 
     Returns a ticket for decode_batch_finish."""
     dev = resolve(device)
-    flat_host, kwargs, props, mcus_x, mcus_y = _decode_host_prep(
-        streams, gray=gray, precision=precision, transport=transport)
+    pjs, geom, level = _parse_batch(streams, gray=gray, precision=precision,
+                                    transport=transport)
+    if transport == "indexed":
+        return _decode_batch_indexed_dispatch(pjs, geom, level, dev)
+    if transport is None and pjs[0].restart_interval > 0:
+        # eligibility is decided from the headers, before anything reaches
+        # the device: no error of the device path is ever caught
+        try:
+            _check_device_eligible(pjs)
+            transport = "device"
+        except ValueError:
+            transport = "ycc420"
+    if transport == "device":
+        return _decode_batch_device_dispatch(pjs, geom, level, dev)
+    flat_host, kwargs = _ycc420_host_prep(pjs, geom, level)
     packed = _decode_fused_batch_ycc420(
         torch.from_numpy(flat_host).to(dev), **kwargs)
-    return ("ycc420", packed, props, kwargs["N"], mcus_x, mcus_y)
+    return ("ycc420", packed, pjs[0].props, kwargs["N"], geom[0][1],
+            geom[0][0])
 
 
 def decode_batch_finish(ticket):
-    """Fetch the planes once; C++ upsample + colour -> ([N,H,W,3] u8, props)."""
+    """Fetch the planes once; C++ upsample + colour -> ([N,H,W,3] u8, props).
+    A "device" ticket carries one corruption flag per image: raises
+    ValueError naming the streams whose entropy data is corrupt."""
     kind, packed, props, N, mcus_x, mcus_y = ticket
-    return HG._decode_batch_ycc420_finish(
-        (kind, packed.cpu().numpy(), props, N, mcus_x, mcus_y))
+    finish = (HG._decode_batch_device_finish if kind == "device"
+              else HG._decode_batch_ycc420_finish)
+    return finish((kind, packed.cpu().numpy(), props, N, mcus_x, mcus_y))
 
 
 def decode_batch(streams: list[bytes], *, gray: bool = False,

@@ -64,6 +64,20 @@ def dc_predictors(dc: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(dc[..., :1]), dc[..., :-1]], dim=-1)
 
 
+def dc_predictors_restart(dc: torch.Tensor, seg_blocks: int) -> torch.Tensor:
+    """dc_predictors with a reset to 0 at every restart-segment start
+    (T.81 F.2.1.3.1), along the last axis.
+
+    seg_blocks: blocks per restart segment FOR THIS COMPONENT
+    (= restart_interval * blocks_per_mcu); <= 0 means one unbroken chain.
+    """
+    pred = dc_predictors(dc)
+    if seg_blocks <= 0:
+        return pred
+    idx = torch.arange(dc.shape[-1], device=dc.device)
+    return torch.where(idx % seg_blocks == 0, torch.zeros_like(pred), pred)
+
+
 def _ac_run_size(qblocks: torch.Tensor, zigzag: torch.Tensor):
     """Shared AC run-length derivation over zigzag positions 1..63.
 
@@ -322,6 +336,25 @@ def stream_offsets_batch(bits: torch.Tensor):
     goff = torch.cumsum(b, dim=1) - b
     total = goff[:, -1] + b[:, -1]
     return goff, total
+
+
+def stream_offsets_restart_batch(bits: torch.Tensor, seg_blocks: int):
+    """Segment-aligned bit offsets (restart encode): [N, B] stream-ordered
+    bits -> (goff [N, B], total [N], seg_bits [N, S]), all int64.  Each
+    segment starts byte-aligned (RSTn markers sit on byte boundaries); the
+    tail segment is padded to S * seg_blocks blocks of 0 bits."""
+    N, B = bits.shape
+    S = -(-B // seg_blocks)
+    bp = torch.nn.functional.pad(bits.to(torch.int64),
+                                 (0, S * seg_blocks - B))
+    bseg = bp.reshape(N, S, seg_blocks)
+    seg_bits = bseg.sum(dim=2)
+    seg_span = ((seg_bits + 7) // 8) * 8            # byte-aligned span
+    base = torch.cumsum(seg_span, dim=1) - seg_span
+    within = torch.cumsum(bseg, dim=2) - bseg
+    goff = (base[:, :, None] + within).reshape(N, -1)[:, :B]
+    total = base[:, -1] + seg_span[:, -1]
+    return goff, total, seg_bits
 
 
 def _concat_batch_scatter(words, goff, maxw: int):

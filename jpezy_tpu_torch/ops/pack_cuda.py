@@ -21,12 +21,9 @@ convention of ops/entropy.py: the kernels store them zero-extended
 themselves (256 bytes per block beyond the bound), which was measured
 faster on an H100 than 32-bit stores and a widening pass (PERF.md).
 
-The kernels are compiled with nvcc into a shared library with a plain C
-interface and loaded with ctypes, the way runtime/native.py builds the
-C++ host library: no PyTorch headers (which take minutes to compile) and
-no ninja.  The library goes to build/torch_ext/ and is rebuilt when the
-.cu source is newer than it.  A failed build or launch raises; nothing
-falls back to the plain torch versions.
+The library is built at first use and loaded with ctypes by
+ops/cuda_build.py.  A failed build or launch raises; nothing falls back to
+the plain torch versions.
 
 `launches` counts launches of the pack kernel made through
 pack_words_cuda and `encode_launches` those of the fused kernel made
@@ -36,95 +33,30 @@ through.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
-import time
 
 import torch
 
 from ..constants import codec_constants
+from .cuda_build import KernelLibrary, check_tensors as _check
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "entropy_pack.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_ext")
-_SO = os.path.join(_BUILD_DIR, "libjz_entropy_pack.so")
+
+def _bind(lib) -> None:
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.jz_pack_words.restype = ci
+    lib.jz_pack_words.argtypes = [vp, vp, vp, vp, vp, ll, vp]
+    lib.jz_encode_blocks.restype = ci
+    lib.jz_encode_blocks.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll, vp]
+
+
+LIB = KernelLibrary("entropy_pack.cu", _bind)
 
 _lock = threading.Lock()
-_lib = None
 launches = 0
 encode_launches = 0
-# nvcc's output from the last build in this process (ptxas resource usage)
-build_log = ""
 # int32 copies of the fixed Huffman tables, one set per (device, chroma)
 _tables: dict = {}
 _TABLE_LENGTHS = (12, 12, 162, 162)  # dc_code, dc_size, ac_code, ac_size
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            "/usr/local/cuda/bin/nvcc"]:
-        if os.path.exists(cand):
-            return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: cannot build the CUDA kernels")
-    return found
-
-
-def build(force: bool = False) -> float:
-    """Compile entropy_pack.cu for sm_90a if the library is missing or stale.
-
-    Returns the seconds spent compiling (0.0 when the library was fresh)."""
-    global build_log
-    if (not force and os.path.exists(_SO)
-            and os.path.getmtime(_SO) >= os.path.getmtime(_SRC)):
-        return 0.0
-    nvcc = _nvcc()
-    cuda_lib = os.path.join(os.path.dirname(os.path.dirname(nvcc)), "lib64")
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [
-        nvcc, "-O3", "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
-        "-Xptxas", "-v", "-Xlinker", "-rpath", "-Xlinker", cuda_lib,
-        _SRC, "-o", tmp,
-    ]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    build_log = (res.stdout + res.stderr).strip()
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {_SRC}:\n{build_log}")
-    os.replace(tmp, _SO)
-    return secs
-
-
-def get_lib() -> ctypes.CDLL:
-    """Build if needed and load the kernel library (CUDA initialised first,
-    so the library binds to the cudart PyTorch already loaded)."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        if not torch.cuda.is_available():
-            raise RuntimeError("the CUDA entropy kernels need a CUDA device")
-        torch.cuda.init()
-        build()
-        lib = ctypes.CDLL(_SO)
-        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.jz_pack_words.restype = ci
-        lib.jz_pack_words.argtypes = [vp, vp, vp, vp, vp, ll, vp]
-        lib.jz_encode_blocks.restype = ci
-        lib.jz_encode_blocks.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll,
-                                         vp]
-        lib.jz_cuda_error_string.restype = ctypes.c_char_p
-        lib.jz_cuda_error_string.argtypes = [ci]
-        _lib = lib
-        return _lib
 
 
 def _low32(x: torch.Tensor) -> torch.Tensor:
@@ -134,30 +66,9 @@ def _low32(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().view(torch.int32)[..., ::2].contiguous()
 
 
-def _check(fn: str, ref: torch.Tensor, *specs) -> None:
-    """specs: (name, tensor, dtype, shape) each checked against `ref`'s
-    device; raises ValueError on what the kernels do not take."""
-    for name, t, dtype, shape in specs:
-        if t.dtype != dtype:
-            raise ValueError(f"{fn}: {name} is {t.dtype}, want {dtype}")
-        if not t.is_cuda:
-            raise ValueError(f"{fn}: {name} is not a CUDA tensor")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, "
-                             f"want {tuple(shape)}")
-        if t.device != ref.device:
-            raise ValueError(f"{fn}: inputs on different devices")
-
-
 def _outputs(B: int, dev: torch.device):
     return (torch.empty((B, 64), dtype=torch.int64, device=dev),
             torch.empty((B,), dtype=torch.int32, device=dev))
-
-
-def _raise_on(fn: str, lib, rc: int) -> None:
-    if rc != 0:
-        msg = lib.jz_cuda_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"{fn} kernel launch failed: {msg} ({rc})")
 
 
 def pack_words_cuda(hi: torch.Tensor, lo: torch.Tensor, nbits: torch.Tensor):
@@ -173,7 +84,7 @@ def pack_words_cuda(hi: torch.Tensor, lo: torch.Tensor, nbits: torch.Tensor):
     _check("pack_words_cuda", hi, ("hi", hi, torch.int64, hi.shape),
            ("lo", lo, torch.int64, hi.shape),
            ("nbits", nbits, torch.int32, hi.shape))
-    lib = get_lib()
+    lib = LIB.get()
     B = hi.shape[0]
     dev = hi.device
     with torch.cuda.device(dev):
@@ -184,7 +95,7 @@ def pack_words_cuda(hi: torch.Tensor, lo: torch.Tensor, nbits: torch.Tensor):
         rc = lib.jz_pack_words(h32.data_ptr(), l32.data_ptr(),
                                n32.data_ptr(), words.data_ptr(),
                                bits.data_ptr(), B, stream)
-    _raise_on("pack_words", lib, rc)
+    LIB.raise_on("pack_words", rc)
     if B > 0:  # the launcher returns without a launch for an empty batch
         with _lock:
             launches += 1
@@ -233,7 +144,7 @@ def encode_blocks_cuda(q: torch.Tensor, pred: torch.Tensor, tables):
                 ("dc_code", "dc_size", "ac_code", "ac_size"), tables,
                 _TABLE_LENGTHS)))
         tables = tuple(t.contiguous() for t in tables)
-    lib = get_lib()
+    lib = LIB.get()
     dev = q.device
     with torch.cuda.device(dev):
         qc, pc = q.contiguous(), pred.contiguous()
@@ -243,7 +154,7 @@ def encode_blocks_cuda(q: torch.Tensor, pred: torch.Tensor, tables):
                                   *(t.data_ptr() for t in tables),
                                   words.data_ptr(), bits.data_ptr(), B,
                                   stream)
-    _raise_on("encode_blocks", lib, rc)
+    LIB.raise_on("encode_blocks", rc)
     if B > 0:  # the launcher returns without a launch for an empty batch
         with _lock:
             encode_launches += 1

@@ -146,16 +146,15 @@ class TestDecode:
 
 class TestNotPorted:
     @pytest.mark.parametrize("kw", [
-        {"restart_interval": 4}, {"optimize": True}, {"transport": "rgb"},
-    ], ids=["restart", "optimize", "rgb"])
+        {"optimize": True}, {"transport": "rgb"},
+    ], ids=["optimize", "rgb"])
     def test_encode_raises(self, batch2, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TC.encode_batch(batch2, device=CPU, **kw)
 
     @pytest.mark.parametrize("kw", [
-        {"transport": "device"}, {"transport": "indexed"},
         {"transport": "rgb"}, {"precision": "exact"}, {"gray": True},
-    ], ids=["device", "indexed", "rgb", "exact", "gray"])
+    ], ids=["rgb", "exact", "gray"])
     def test_decode_raises(self, fast_streams, kw):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TC.decode_batch(fast_streams[0], device=CPU, **kw)

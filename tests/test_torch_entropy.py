@@ -252,7 +252,7 @@ class TestEncodeBlockWords:
         w_p, b_p = TE.encode_block_words_plain(q, pred, True)
         assert torch.equal(w, w_p) and torch.equal(b, b_p)
         assert (pack_cuda.launches, pack_cuda.encode_launches) == before
-        assert pack_cuda._lib is None      # nothing was built or loaded
+        assert pack_cuda.LIB.handle is None      # nothing was built or loaded
 
     @pytest.mark.parametrize("fn", ["encode_block_words", "pack_block_words"])
     def test_meta_device_raises(self, fn):
@@ -309,7 +309,7 @@ class TestCudaWrappersOnCpu:
         from jpezy_tpu_torch.core import tables as T
         from jpezy_tpu_torch.ops import pack_cuda
 
-        src = open(pack_cuda._SRC).read()
+        src = open(pack_cuda.LIB.src).read()
         body = re.search(r"kZigzag\[kSlots\] = \{([^}]*)\}", src).group(1)
         assert [int(x) for x in body.split(",")] == list(T.ZIGZAG)
         for name, want in (("kEobIndex", T.EOB_INDEX),

@@ -5,9 +5,14 @@ of the host code both packages run: Annex K tables, geometry and props, the
 marker writer/reader and splice, the ctypes loader of the C++ host runtime,
 the oracle, the host C++ codec and the section timer.  Each copy must stay
 byte-identical to its original, and the copied host codec must give the
-original's streams.
+original's streams.  The host helpers that codec/host_glue.py copies out of
+jpezy_tpu.codec.jax_codec (which imports jax) must keep their original's
+code: same arguments, same statements, only the docstring may differ.
 """
+import ast
+import inspect
 import os
+import textwrap
 
 import numpy as np
 import pytest
@@ -71,3 +76,34 @@ def test_copied_host_codec_matches_original(seed):
     assert s == ref.encode(*planes)
     for a, b in zip(port.decode(s)[:3], ref.decode(s)[:3]):
         assert np.array_equal(a, b)
+
+
+# host_glue functions that are verbatim copies of jax_codec functions
+# (_device_host_frontend and _device_luts differ on purpose; their outputs
+# are held equal in tests/test_torch_device_decode.py)
+GLUE_COPIES = [
+    "host_rgb_to_ycc420", "_stream_to_bytes", "_words_comp_to_mcu",
+    "decode_entropy_host", "_ycc420_host_frontend", "_check_uniform_quant",
+    "_decode_batch_ycc420_finish", "_splice_restart_raw",
+    "_assemble_restart_segments", "_quant_arr", "_decode_batch_device_finish",
+]
+
+
+def _code_of(fn):
+    """A function's arguments and statements without its docstring."""
+    node = ast.parse(textwrap.dedent(inspect.getsource(fn))).body[0]
+    body = node.body
+    if (isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+            and isinstance(body[0].value.value, str)):
+        body = body[1:]
+    return ast.dump(node.args), [ast.dump(stmt) for stmt in body]
+
+
+@pytest.mark.parametrize("name", GLUE_COPIES)
+def test_host_glue_copy_has_not_drifted(name):
+    from jpezy_tpu.codec import jax_codec
+    from jpezy_tpu_torch.codec import host_glue
+
+    assert _code_of(getattr(host_glue, name)) == _code_of(
+        getattr(jax_codec, name)), (
+        f"host_glue.{name} drifted from jax_codec.{name}")
