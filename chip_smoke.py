@@ -16,9 +16,10 @@ line and any failure exits nonzero.  In the order they run:
   2. build: compiles the CUDA sources of the checkout, all at once (the
      entropy pack alone and fused with the emissions, entropy_pack.cu; the
      Huffman scan, huffman_scan.cu) and prints what ptxas reports for each
-     kernel; a stack frame or a spill in the pack kernels, or a spill in
-     the scan kernel, fails the run.  Counts each kernel's SASS
-     instructions (cuobjdump);
+     kernel; a
+     stack frame or a spill in the pack kernels, or a spill in the scan
+     kernel, fails the run.  Counts each kernel's SASS instructions
+     (cuobjdump);
   3. the pack kernels against their plain torch versions on the real
      16x512x512 blocks, on seeded worst-case blocks and on the edge-case
      blocks: words and bits must be identical.  The pack kernel alone is
@@ -28,7 +29,14 @@ line and any failure exits nonzero.  In the order they run:
      real segments of a 16x512x512 restart batch, noise images, the
      edge-case blocks encoded into segments, the 2,048 pseudo-segments of
      the indexed transport (skip0, preds0), a batch with two table sets,
-     and a seeded sweep of bit flips, zeroed, truncated and all-ones rows:
+     and a seeded sweep of bit flips, zeroed, truncated and all-ones rows;
+     then the shapes the kernel's layout is sensitive to: rows of 16, 64
+     and 128 words and the long rows of quality-95 and noise segments, two
+     table sets interleaved segment by segment (both in one thread block),
+     a luma AC table whose codes all have 10 to 14 bits (no symbol answered
+     by the first-level table), and a launch into a buffer filled with a
+     pattern, with more block slots than any segment decodes, segments
+     with no blocks and a segment count that fills no whole thread block:
      blocks and flags must be identical;
   4. exact parity: 4x512x512 precision="exact" encodes on the card, without
      and with restart markers, must be byte-identical to the host C++ codec
@@ -60,7 +68,10 @@ line and any failure exits nonzero.  In the order they run:
      bounds (see _bound);
   9. times of the scan kernel alone on the real segments beside its bound
      and the plain version's time, with the L2 cache overwritten before
-     each launch, and on four times the lanes.
+     each launch, on four times the segments, and with every segment on
+     the slowest one's row; how the launch lies on the card (warps, thread
+     blocks, warps per SM) and the share of symbols its first-level table
+     answers.
 
 Every wall clock is taken before torch.profiler first traces: after that
 every launch in the process costs the host more.
@@ -120,6 +131,10 @@ BLOCKS_PER_WARP = {"pack_words": 1, "encode_blocks": 2}
 # value (2), cut and sign-extend the extra bits (4), the coefficient's
 # position (2), advance the bit position (1).
 MIN_OPS_PER_SYMBOL = 12
+# The one-thread-per-segment kernel this one replaced, on the same
+# segments (NVIDIA H100 80GB HBM3, 700 W; a reading kept from then, not
+# taken again here).
+EARLIER_SCAN_MS = 0.1052
 KERNELS = ("pack_words", "encode_blocks", "decode_segments")
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
@@ -332,20 +347,22 @@ def _indexed_lanes(HG, streams, k_mcus: int = 8) -> dict:
                 preds0=preds0, max_blocks=k_mcus * 6)
 
 
-def _edge_case_lanes(E, lut: np.ndarray) -> dict:
+def _edge_case_lanes(E, lut: np.ndarray, encode=None) -> dict:
     """entropy.edge_case_blocks in lanes of six (Y0..Y3 with the luma
     tables, Cb and Cr with the chroma tables, predictors reset per lane),
-    each lane spliced into one segment on the host."""
+    each lane spliced into one segment on the host.  encode(q, pred,
+    chroma) -> (words, bits) defaults to the plain versions on the CPU."""
     from jpezy_tpu_torch.bitstream.splice import splice_blocks
 
+    encode = encode or E.encode_block_words
     q = E.edge_case_blocks(3)
     q = q[: (q.shape[0] // 6) * 6].reshape(-1, 6, 64)
     pred = np.zeros(q.shape[:2], np.int32)
     pred[:, 1:4] = q[:, 0:3, 0]
     qt = torch.from_numpy(q.reshape(-1, 64))
     pt = torch.from_numpy(pred.reshape(-1))
-    wy, by = E.encode_block_words(qt, pt, False)       # CPU: plain versions
-    wc, bc = E.encode_block_words(qt, pt, True)
+    wy, by = (t.cpu() for t in encode(qt, pt, False))
+    wc, bc = (t.cpu() for t in encode(qt, pt, True))
     chroma = torch.arange(qt.shape[0]) % 6 >= 4
     w = torch.where(chroma[:, None], wc, wy).numpy().astype(np.uint32)
     b = torch.where(chroma, bc, by).numpy().astype(np.int32)
@@ -359,6 +376,89 @@ def _edge_case_lanes(E, lut: np.ndarray) -> dict:
                 nblk=np.full(len(raws), 6, np.int32), lut=lut,
                 rawlen=np.array([len(r) for r in raws], np.int32),
                 max_blocks=6), q.astype(np.int16)
+
+
+def _long_code_lanes(E, pack_cuda, lut: np.ndarray, dev):
+    """_edge_case_lanes with the luma AC table replaced by one whose 162
+    codes all have 10 to 14 bits, so that a first-level table of up to 9
+    index bits answers no luma AC symbol.  The blocks are encoded on the
+    card by the fused kernel, which takes the tables as arrays."""
+    from jpezy_tpu_torch.bitstream.reader import HuffTable
+    from jpezy_tpu_torch.core import tables as T
+    from jpezy_tpu_torch.runtime.native import _huff_lut
+
+    bits = bytes([0] * 9 + [20, 30, 40, 40, 32, 0, 0])
+    sizes, codes = T.build_canonical_codes(bits)
+    ac_size, ac_code = T.huffval_to_flat_ac(T.AC_LUMA_VALS, sizes, codes)
+    long_lut = np.array(lut)
+    long_lut[1] = _huff_lut(HuffTable(
+        sizes, codes, np.frombuffer(T.AC_LUMA_VALS, np.uint8).astype(np.int32)))
+    if int((long_lut[1][long_lut[1] >= 0] & 0xFF).min()) < 10:
+        raise AssertionError("a luma AC code shorter than 10 bits")
+    dc_code, dc_size, _, _ = pack_cuda.huffman_tables_i32(dev, False)
+    luma = (dc_code, dc_size,
+            torch.from_numpy(ac_code.astype(np.int32)).to(dev),
+            torch.from_numpy(ac_size.astype(np.int32)).to(dev))
+
+    def encode(q, pred, chroma):
+        return pack_cuda.encode_blocks_cuda(q.to(dev), pred.to(dev),
+                                            True if chroma else luma)
+
+    return _edge_case_lanes(E, long_lut, encode)
+
+
+PER_LANE = ("words", "nblk", "tsel", "rawlen", "skip0", "preds0")
+
+
+def _take_lanes(kw: dict, index) -> dict:
+    """The decode_segments arguments `kw` (numpy) with the lanes `index`
+    (a slice or an index array)."""
+    return {k: (v[index] if k in PER_LANE and v is not None else v)
+            for k, v in kw.items()}
+
+
+def _repad(kw: dict, lw: int) -> dict:
+    """`kw` with its rows zero-extended to lw words."""
+    words = kw["words"]
+    wide = np.zeros((words.shape[0], lw), words.dtype)
+    wide[:, :words.shape[1]] = words
+    return dict(kw, words=wide)
+
+
+def _first_level_share(E, blocks, nblk, lut6: np.ndarray, bits: int):
+    """(symbols with a code of at most `bits` bits, all symbols) that
+    decoding these blocks takes with the table set lut6 [6, 65536], DC
+    predictors starting at 0 in every lane: what a first-level table of
+    `bits` index bits answers.  Counted on the host from the decoded
+    blocks and the LUT's code lengths."""
+    from jpezy_tpu_torch.constants import codec_constants
+
+    S, mb, _ = blocks.shape
+    dev = blocks.device
+    lens = np.full((6, 256), 99, np.int64)     # code length by row, symbol
+    for r in range(6):
+        e = lut6[r][lut6[r] >= 0]
+        lens[r, e >> 8] = e & 0xFF
+    short = torch.from_numpy(lens <= bits).to(dev)
+    live = (torch.arange(mb, device=dev)[None, :]
+            < nblk[:, None].to(torch.int64))
+    slot = torch.arange(mb, device=dev) % 6
+    zigzag = codec_constants(dev)["zigzag"]
+    hit = total = 0
+    for comp, slots in enumerate((slot < 4, slot == 4, slot == 5)):
+        q = blocks[:, slots].to(torch.int64)               # [S, n, 64]
+        on = live[:, slots]
+        dc_sym = E.bit_category(q[..., 0] - E.dc_predictors(q[..., 0]))
+        _, nz, zrl, rem, s_ac = E._ac_run_size(q.reshape(-1, 64), zigzag)
+        on_ac = on.reshape(-1, 1)
+        ac_sym = ((rem << 4) | s_ac)[nz & on_ac]
+        n_zrl = int((zrl * on_ac).sum())
+        n_eob = int((~nz[:, -1] & on_ac[:, 0]).sum())
+        dc_row, ac_row = short[2 * comp], short[2 * comp + 1]
+        hit += (int(dc_row[dc_sym[on]].sum()) + int(ac_row[ac_sym].sum())
+                + n_zrl * int(ac_row[0xF0]) + n_eob * int(ac_row[0x00]))
+        total += int(on.sum()) + ac_sym.numel() + n_zrl + n_eob
+    return hit, total
 
 
 def _count_symbols(E, blocks: torch.Tensor, nblk: torch.Tensor):
@@ -539,10 +639,36 @@ def main() -> int:
                  ("two table sets", _restart_lanes(
                      HG, [standard[0], optimized[1], standard[2],
                           optimized[3]], 4))]
-    sub = {k: (v[:256] if k in ("words", "nblk", "tsel", "rawlen") else v)
-           for k, v in real_np.items()}
+    sub = _take_lanes(real_np, slice(0, 256))
     scan_sets += [(f"corrupt {seed}", dict(sub, words=ED.corrupt_rows(
         sub["words"], sub["rawlen"], seed))) for seed in range(4)]
+    # the shapes the kernel's layout is sensitive to
+    short_rows = _restart_lanes(HG, TC.encode_batch(
+        _images(4, 60)[:, :128, :128], restart_interval=2, device="cuda"), 2)
+    long_rows = _restart_lanes(HG, TC.encode_batch(
+        _images(2, 70)[:, :256, :256], restart_interval=32, quality=95,
+        device="cuda"), 32)
+    noise_rows = _restart_lanes(HG, TC.encode_batch(
+        rng.integers(0, 256, (1, 128, 128, 3), np.uint8),
+        restart_interval=16, quality=95, device="cuda"), 16)
+    two_sets = scan_sets[4][1]
+    n2 = two_sets["words"].shape[0]
+    mixed = _take_lanes(two_sets, np.arange(n2).reshape(4, -1).T.reshape(-1))
+    long_np, long_q = _long_code_lanes(E, pack_cuda, std_lut, dev)
+    layout = scan_cuda.layout()
+    if short_rows["words"].shape[1] != 16 or min(
+            long_rows["words"].shape[1], noise_rows["words"].shape[1]) <= 128:
+        raise AssertionError("the short and long rows are not what they "
+                             "were meant to be")
+    if len(set(mixed["tsel"][:layout["warps_per_block"]])) < 2:
+        raise AssertionError("no thread block holds two table sets")
+    scan_sets += [("rows of 16 words", short_rows),
+                  ("re-padded to 64 words", _repad(sub, 64)),
+                  ("re-padded to 128 words", _repad(sub, 128)),
+                  ("quality 95, restart_interval=32", long_rows),
+                  ("noise, quality 95, restart_interval=16", noise_rows),
+                  ("two table sets interleaved", mixed),
+                  ("luma AC codes of 10 to 14 bits", long_np)]
     err["decode_segments"] = 0
     scan_plain_ms = None
     flagged = lanes_seen = 0
@@ -569,20 +695,48 @@ def main() -> int:
             lanes_seen += pbad.numel()
         elif bool(pbad.any()):
             raise AssertionError(f"{label} segments flagged as corrupt")
-        if label == "edge" and not np.array_equal(gb.cpu().numpy(), edge_q):
-            raise AssertionError("edge-case blocks do not survive the scan")
+        for name, want in (("edge", edge_q), ("luma AC codes", long_q)):
+            if label.startswith(name) and not np.array_equal(
+                    gb.cpu().numpy(), want):
+                raise AssertionError(f"{label}: the blocks do not survive "
+                                     "the scan")
     if not 0 < flagged < lanes_seen:
         raise AssertionError(f"corruption sweep flagged {flagged} of "
                              f"{lanes_seen} lanes")
-    if scan_cuda.launches != len(scan_sets):
+    # Into a buffer filled with a pattern: more block slots than any
+    # segment decodes, segments with no blocks or a few, a segment count
+    # that fills no whole thread block.  A slot the kernel forgets shows.
+    ragged = _take_lanes(dict(real_np, rawlen=None), slice(0, 253))
+    ragged["nblk"] = ragged["nblk"].copy()
+    ragged["nblk"][::7] = 0
+    ragged["nblk"][3::11] = 18
+    ragged["max_blocks"] = real_np["max_blocks"] + 7
+    args = _to_dev(ragged, dev)
+    gb = torch.full((253, ragged["max_blocks"], 64), 0x5A5A,
+                    dtype=torch.int16, device=dev)
+    gbad = torch.full((253,), 0x5A, dtype=torch.uint8, device=dev)
+    scan_cuda._launch([args.get(k) for k in (
+        "words", "nblk", "lut", "tsel", "rawlen", "skip0", "preds0")],
+        gb, gbad)
+    pb, pbad = ED.decode_segments_plain(**args)
+    torch.cuda.synchronize()
+    if (253 % layout["warps_per_block"] == 0 or not torch.equal(gb, pb)
+            or not torch.equal(gbad.bool(), pbad) or bool(pbad.any())
+            or int(gbad.max()) > 1):
+        raise AssertionError("decode_segments kernel != plain version into "
+                             "a buffer filled with a pattern")
+    if scan_cuda.launches != len(scan_sets) + 1:
         raise AssertionError(f"scan kernel launched {scan_cuda.launches} "
-                             f"times in {len(scan_sets)} comparisons")
+                             f"times in {len(scan_sets) + 1} comparisons")
     _say("7 scan", "decode_segments: blocks and flags identical to the "
          "plain version on "
          + ", ".join(f"{label} {tuple(kw['words'].shape)} x "
                      f"{kw['max_blocks']} blocks" for label, kw in scan_sets)
-         + f"; the sweep flagged {flagged} of {lanes_seen} lanes; plain "
-         f"version on the real segments {scan_plain_ms:.1f} ms (one call)")
+         + f"; and into a buffer filled with a pattern, {gb.shape[0]} "
+         f"segments x {gb.shape[1]} slots with "
+         f"{int((ragged['nblk'] == 0).sum())} segments of no blocks; the "
+         f"sweep flagged {flagged} of {lanes_seen} lanes; plain version on "
+         f"the real segments {scan_plain_ms:.1f} ms (one call)")
     del scan_sets, sub, args, gb, gbad, pb, pbad
     torch.cuda.empty_cache()
 
@@ -1030,45 +1184,60 @@ def main() -> int:
                                           MIN_OPS_PER_SYMBOL * nsym)
     t["sass_ms"] = None
     t["launch_ms"], t["cold_launch_ms"] = [t["ms"]], [t["cold_ms"]]
-    # four times the lanes in one launch: does the card have room left?
+    # four times the segments in one launch: does the card have room left?
     wide = {k: (torch.cat([v] * 4) if k in (
         "words", "nblk", "tsel", "rawlen") else v)
         for k, v in real_args.items()}
     wide_ms = _kernel_ms(_profile(lambda: run_scan(wide), 10),
                          "decode_segments_kernel")
-    # every lane given the slowest lane's row: warps without divergence
+    # every segment given the slowest one's row
     slow = int(per_lane.argmax())
     same = {k: (v[slow:slow + 1].expand(S, *v.shape[1:]).contiguous()
                 if k in ("words", "nblk", "tsel", "rawlen") else v)
             for k, v in real_args.items()}
     same_ms = _kernel_ms(_profile(lambda: run_scan(same), 10),
                          "decode_segments_kernel")
-    # a warp lasts as long as its slowest lane
-    warp_max = per_lane.reshape(-1, 32).max(dim=1).values
+    # how the launch lies on the card, and what its first-level table does
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ctas = -(-S // layout["warps_per_block"])
+    warps_per_sm = layout["warps_per_block"] * min(
+        layout["blocks_per_sm"], -(-ctas // sms))
+    hit, seen = _first_level_share(E, real_blocks, real_args["nblk"],
+                                   real_args["lut"][0].cpu().numpy(),
+                                   layout["first_level_bits"])
+    if seen != nsym:
+        raise AssertionError(f"{seen} symbols by table row, {nsym} by block")
     timing["decode_segments"] = t
     _say("9 times", f"decode_segments per {BATCH}x{H}x{W} batch with "
-         f"restart_interval={RESTART_INTERVAL} (1 launch, {S} lanes x {mb} "
-         f"block slots, rows of {Lw} words, {S // 32} warps): kernel alone "
-         f"{t['ms']:.4f} ms (profiler), wrapper device busy "
-         f"{_fmt_ms(t['wrapper_busy_ms'])} ms (with the zeroing of the "
-         f"blocks), wrapper event span {t['event_ms']:.4f} ms; bound "
+         f"restart_interval={RESTART_INTERVAL} (1 launch, {S} segments x "
+         f"{mb} block slots, rows of {Lw} words; one warp a segment, {ctas} "
+         f"thread blocks of {layout['warps_per_block']} warps on {sms} SMs, "
+         f"{warps_per_sm} warps on an SM of the "
+         f"{layout['warps_per_block'] * layout['blocks_per_sm']} it could "
+         f"hold): kernel alone {t['ms']:.4f} ms (profiler), wrapper device "
+         f"busy {_fmt_ms(t['wrapper_busy_ms'])} ms (the blocks are not "
+         f"cleared first), wrapper event span {t['event_ms']:.4f} ms; the "
+         f"one-thread-per-segment kernel it replaced read "
+         f"{EARLIER_SCAN_MS} ms on these segments (NVIDIA H100 80GB HBM3, "
+         f"700 W; kept from then, not measured here); bound "
          f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({scan_bytes} bytes: "
          f"rows {4 * S * Lw}, per-lane arguments {12 * S}, LUT "
          f"{4 * real_args['lut'].numel()}, blocks {128 * mb * S}, flags "
          f"{S}; {nsym} symbols x {MIN_OPS_PER_SYMBOL} operations) = "
          f"{t['bound_ms'] / t['ms']:.4f} of the kernel's time; with the L2 "
          f"cache overwritten before each launch: kernel {t['cold_ms']:.4f} "
-         f"ms; {4 * S} lanes in one launch: {wide_ms:.4f} ms "
+         f"ms; {4 * S} segments in one launch: {wide_ms:.4f} ms "
          f"({wide_ms / t['ms']:.2f} x the time for 4 x the work); all {S} "
-         f"lanes on the slowest lane's row ({int(per_lane.max())} symbols, "
-         f"no divergence within a warp): {same_ms:.4f} ms = "
+         f"segments on the slowest one's row ({int(per_lane.max())} "
+         f"symbols): {same_ms:.4f} ms = "
          f"{1e6 * same_ms / int(per_lane.max()):.1f} ns per symbol; symbols "
-         f"per lane: mean {float(per_lane.float().mean()):.1f}, max "
-         f"{int(per_lane.max())}, mean of the warps' slowest lanes "
-         f"{float(warp_max.float().mean()):.1f}: "
+         f"per segment: mean {float(per_lane.float().mean()):.1f}, max "
+         f"{int(per_lane.max())}: "
          f"{1e6 * t['ms'] / int(per_lane.max()):.1f} ns per symbol of the "
-         f"slowest lane; plain version {t['plain_ms']:.1f} ms (one call, "
-         f"all {S} lanes, host clock with a synchronise); on {card}")
+         f"slowest segment; the first-level table of "
+         f"{layout['first_level_bits']} index bits answers {hit} of {seen} "
+         f"symbols ({hit / seen:.4f}); plain version {t['plain_ms']:.1f} ms (one call, all {S} "
+         f"segments, host clock with a synchronise); on {card}")
     del real_args, real_blocks, wide, same, l2_flush
 
     leaked = sorted(m for m in sys.modules

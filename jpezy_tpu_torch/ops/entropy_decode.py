@@ -15,11 +15,12 @@ runtime/native.py) per symbol, T.81 F.2.2.1 sign extension, ZRL/EOB
 control, and a store of each coefficient at its natural position.
 
 decode_segments runs the hand-written CUDA kernel (ops/scan_cuda.py,
-csrc/huffman_scan.cu: one thread per lane) for CUDA tensors and
+csrc/huffman_scan.cu: one warp per lane) for CUDA tensors and
 decode_segments_plain, the same steps as lockstep tensor operations over
 all lanes, for CPU tensors.  The two give identical blocks and flags on
 valid and on corrupt input; the plain version is what the kernel is held
-to.
+to.  The kernel answers short codes from a first-level table that it
+builds from the LUT by the rule of first_level_table.
 
 CORRUPTION SIGNAL: a per-lane `bad` flag is set by
   - an invalid LUT window (no code matches; 8 bits are skipped),
@@ -110,6 +111,35 @@ def device_lut(lut: np.ndarray, device) -> torch.Tensor:
     else:
         _lut_cache.move_to_end(key)
     return hit
+
+
+# Index bits of the scan kernel's first-level table (kFirstBits of
+# csrc/huffman_scan.cu): 6 rows x 512 entries x 4 bytes of shared memory.
+FIRST_LEVEL_BITS = 9
+
+
+def first_level_table(lut: np.ndarray,
+                      bits: int = FIRST_LEVEL_BITS) -> np.ndarray:
+    """[..., 65536] int32 LUT rows -> [..., 2**bits] uint16 first-level
+    rows: which prefixes the scan kernel's shared-memory table answers,
+    and with which LUT entry (the kernel stores that entry split into the
+    fields its decode step reads).
+
+    Entry p is the LUT's entry for the first window with the `bits`-bit
+    prefix p where that entry fits 16 bits and its code length is 1..bits,
+    else 0 ("read the full LUT").  A code of at most `bits` bits that
+    matches p matches every window with that prefix, so for the LUT of a
+    prefix code (build_decode_lut) the entry answers all of them.
+
+    A model of the kernel's table, which the kernel builds on its own in
+    CUDA: nothing in the package calls this, the tests hold it to the full
+    LUT.  The kernel also leaves to the full LUT a DC entry whose symbol is
+    above 15 (it flags the segment), which changes no result."""
+    lut = np.asarray(lut, np.int32)
+    e = lut[..., ::1 << (16 - bits)]
+    ln = e & 0xFF
+    ok = (e > 0) & (e < 65536) & (ln >= 1) & (ln <= bits)
+    return np.where(ok, e, 0).astype(np.uint16)
 
 
 def words_tensor(words: np.ndarray) -> torch.Tensor:

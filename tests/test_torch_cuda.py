@@ -7,6 +7,8 @@ fixture, never at import).  On a card:
 
     python -m pytest tests/test_torch_cuda.py -q
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -130,10 +132,28 @@ def test_codec_on_card_matches_cpu(cuda):
     assert (on_card.to(torch.int32) - on_cpu.to(torch.int32)).abs().max() <= 1
 
 
+PER_LANE = ("words", "nblk", "tsel", "rawlen", "skip0", "preds0")
+
+
+def _lanes(kw, index):
+    """The decode_segments arguments `kw` with the lanes `index`."""
+    return {k: (v[index] if k in PER_LANE else v) for k, v in kw.items()}
+
+
+def _repad(kw, lw):
+    wide = np.zeros((kw["words"].shape[0], lw), np.uint32)
+    wide[:, :kw["words"].shape[1]] = kw["words"]
+    return dict(kw, words=wide)
+
+
+@functools.lru_cache(maxsize=None)
 def _scan_cases():
-    """(label, kwargs of decode_segments as numpy arrays) for the scan
+    """{label: kwargs of decode_segments as numpy arrays} for the scan
     kernel: real restart segments, noise, pseudo-segments of the indexed
-    transport, a mixed-table batch, and seeded corruptions of the first."""
+    transport, a mixed-table batch, seeded corruptions of the first, and
+    the shapes the kernel's layout is sensitive to (row lengths, more
+    block slots than blocks, a segment count that fills no whole thread
+    block, segments without blocks, two table sets in one thread block)."""
     from imagegen import make_test_image
 
     from jpezy_tpu_torch.bitstream.reader import parse
@@ -142,7 +162,7 @@ def _scan_cases():
     rgbs = np.stack([make_test_image(128, 128, seed=140 + i) for i in range(3)])
     rng = np.random.default_rng(141)
     noise = rng.integers(0, 256, (2, 64, 64, 3), np.uint8)
-    cases = []
+    cases = {}
 
     def restart_case(label, streams, ri):
         pjs = [parse(s) for s in streams]
@@ -150,8 +170,8 @@ def _scan_cases():
         nseg = -(-nmcu // ri)
         words, nblk, rawlen = HG._device_host_frontend(pjs, nmcu, ri, nseg)
         lut, tsel = HG._device_luts(pjs, nseg)
-        cases.append((label, dict(words=words, nblk=nblk, lut=lut, tsel=tsel,
-                                  rawlen=rawlen, max_blocks=ri * 6)))
+        cases[label] = dict(words=words, nblk=nblk, lut=lut, tsel=tsel,
+                            rawlen=rawlen, max_blocks=ri * 6)
 
     std = TC.encode_batch(rgbs, restart_interval=3, device="cpu")
     restart_case("real", std, 3)
@@ -163,13 +183,37 @@ def _scan_cases():
     pjs = [parse(s) for s in TC.encode_batch(rgbs, device="cpu")]
     words, nblk, skip0, preds0 = HG._indexed_host_frontend(pjs, 64, 8, 8)
     lut, tsel = HG._device_luts(pjs, 8)
-    cases.append(("indexed", dict(words=words, nblk=nblk, lut=lut, tsel=tsel,
-                                  skip0=skip0, preds0=preds0, max_blocks=48)))
-    real = cases[0][1]
+    cases["indexed"] = dict(words=words, nblk=nblk, lut=lut, tsel=tsel,
+                            skip0=skip0, preds0=preds0, max_blocks=48)
+    real = cases["real"]
     for seed in range(4):
-        cases.append((f"corrupt {seed}", dict(real, words=ED.corrupt_rows(
-            real["words"], real["rawlen"], 150 + seed))))
+        cases[f"corrupt {seed}"] = dict(real, words=ED.corrupt_rows(
+            real["words"], real["rawlen"], 150 + seed))
+    lw = real["words"].shape[1]
+    cases["rows of 64 words"] = _repad(real, max(64, 2 * lw))
+    cases["rows of 128 words"] = _repad(real, max(128, 4 * lw))
+    restart_case("long rows", TC.encode_batch(
+        noise[:1], restart_interval=8, quality=95, device="cpu"), 8)
+    assert cases["long rows"]["words"].shape[1] > 64     # past two chunks
+    cases["more slots than blocks"] = dict(real, max_blocks=25)
+    cases["ragged segment count"] = _lanes(real, slice(0, 37))
+    empty = dict(real, nblk=real["nblk"].copy(), rawlen=None)
+    empty["nblk"][::3] = 0
+    empty["nblk"][1::5] = 7
+    del empty["rawlen"]
+    cases["segments without blocks"] = empty
+    mixed = cases["mixed tables"]
+    n = mixed["words"].shape[0]
+    cases["interleaved tables"] = _lanes(
+        mixed, np.arange(n).reshape(3, -1).T.reshape(-1))
     return cases
+
+
+SCAN_CASES = ("real", "noise", "mixed tables", "indexed", "corrupt 0",
+              "corrupt 1", "corrupt 2", "corrupt 3", "rows of 64 words",
+              "rows of 128 words", "long rows", "more slots than blocks",
+              "ragged segment count", "segments without blocks",
+              "interleaved tables")
 
 
 def _scan_args(kw, dev):
@@ -184,29 +228,58 @@ def _scan_args(kw, dev):
     return out
 
 
-def test_scan_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("label", SCAN_CASES)
+def test_scan_kernel_matches_plain(cuda, label):
     from jpezy_tpu_torch.ops import scan_cuda
 
-    cases = _scan_cases()
+    kw = _scan_cases()[label]
     before = scan_cuda.launches
-    flagged = 0
-    for label, kw in cases:
-        blocks, bad = ED.decode_segments(**_scan_args(kw, cuda))
-        pb, pbad = ED.decode_segments_plain(**_scan_args(kw, "cpu"))
-        torch.cuda.synchronize()
-        assert blocks.dtype == torch.int16 and bad.dtype == torch.bool
-        assert torch.equal(blocks.cpu(), pb), label
-        assert torch.equal(bad.cpu(), pbad), label
-        if label.startswith("corrupt"):
-            flagged += int(pbad.sum())
-        else:
-            assert not pbad.any(), label
-    assert flagged > 0
-    assert scan_cuda.launches - before == len(cases)
-    kw = _scan_args(cases[0][1], cuda)
-    empty, _ = ED.decode_segments(**dict(kw, max_blocks=0))
-    assert empty.shape == (kw["words"].shape[0], 0, 64)
-    assert scan_cuda.launches - before == len(cases)   # nothing to launch
+    blocks, bad = ED.decode_segments(**_scan_args(kw, cuda))
+    pb, pbad = ED.decode_segments_plain(**_scan_args(kw, "cpu"))
+    torch.cuda.synchronize()
+    assert blocks.dtype == torch.int16 and bad.dtype == torch.bool
+    assert torch.equal(blocks.cpu(), pb)
+    assert torch.equal(bad.cpu(), pbad)
+    if label.startswith("corrupt"):
+        assert pbad.any() and not pbad.all()
+    else:
+        assert not pbad.any()
+    assert scan_cuda.launches - before == 1
+    if label == "interleaved tables":
+        first = kw["tsel"][:scan_cuda.layout()["warps_per_block"]]
+        assert len(set(first.tolist())) > 1    # one thread block, two sets
+    if label == "real":
+        args = _scan_args(kw, cuda)
+        empty, _ = ED.decode_segments(**dict(args, max_blocks=0))
+        assert empty.shape == (args["words"].shape[0], 0, 64)
+        assert scan_cuda.launches - before == 1       # nothing to launch
+
+
+def test_scan_kernel_overwrites_its_output(cuda):
+    """The kernel writes every block slot, the undecoded ones as zeros: a
+    buffer filled with a pattern comes back equal to the plain version."""
+    from jpezy_tpu_torch.ops import scan_cuda
+
+    kw = _scan_cases()["segments without blocks"]
+    args = _scan_args(dict(kw, max_blocks=kw["max_blocks"] + 3), cuda)
+    S, mb = args["words"].shape[0], args["max_blocks"]
+    blocks = torch.full((S, mb, 64), 0x5A5A, dtype=torch.int16, device=cuda)
+    bad = torch.full((S,), 0x5A, dtype=torch.uint8, device=cuda)
+    scan_cuda._launch([args.get(k) for k in (
+        "words", "nblk", "lut", "tsel", "rawlen", "skip0", "preds0")],
+        blocks, bad)
+    pb, pbad = ED.decode_segments_plain(
+        **{k: (v.cpu() if torch.is_tensor(v) else v) for k, v in args.items()})
+    torch.cuda.synchronize()
+    assert torch.equal(blocks.cpu(), pb)
+    assert torch.equal(bad.cpu().bool(), pbad) and int(bad.max()) <= 1
+
+
+def test_scan_kernel_index_bits_are_the_models(cuda):
+    """entropy_decode.first_level_table models the built kernel's table."""
+    from jpezy_tpu_torch.ops import scan_cuda
+
+    assert scan_cuda.layout()["first_level_bits"] == ED.FIRST_LEVEL_BITS
 
 
 def test_device_transports_on_card_match_cpu(cuda):

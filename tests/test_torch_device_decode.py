@@ -152,6 +152,108 @@ class TestTables:
         assert np.array_equal(got_sel, ref_sel)
 
 
+def _table(bits, vals):
+    """A parsed-DHT table from BITS counts and HUFFVAL."""
+    from jpezy_tpu_torch.bitstream.reader import HuffTable
+
+    sizes, codes = T.build_canonical_codes(bytes(bits))
+    return HuffTable(sizes, codes, np.frombuffer(bytes(vals), np.uint8)
+                     .astype(np.int32))
+
+
+def _optimal_lut(seed):
+    """[6, 65536] LUT of optimal tables for seeded symbol histograms, a
+    different pair of tables per component."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(3):
+        dc_freq = np.zeros(256, np.int64)
+        dc_freq[:12] = rng.integers(0, 1000, 12) ** 2
+        dc_freq[int(rng.integers(0, 12))] += 1
+        ac_freq = np.zeros(256, np.int64)
+        syms = [r << 4 | s for r in range(16) for s in range(1, 11)]
+        ac_freq[syms] = (rng.pareto(0.7, len(syms)) * 50).astype(np.int64)
+        ac_freq[[0x00, 0xF0]] = rng.integers(1, 5000, 2)
+        (dcb, dcv), (acb, acv), *_ = T.optimal_flat_tables(dc_freq, ac_freq)
+        rows += [native._huff_lut(_table(dcb, dcv)),
+                 native._huff_lut(_table(acb, acv))]
+    return np.stack(rows)
+
+
+def _long_code_lut():
+    """[6, 65536] hand-built LUT: rows with 16-bit codes, with unused
+    prefixes (-1 windows), with codes one bit shorter and one bit longer
+    than the first-level index, and one row whose codes are all 16 bits
+    long, which the first-level table cannot answer at all."""
+    from jpezy_tpu_torch.bitstream.reader import HuffTable
+
+    def lut(entries):
+        sizes, codes, vals = (np.array(x, np.int32) for x in zip(*entries))
+        return native._huff_lut(HuffTable(sizes, codes, vals))
+
+    mixed = [(1, 0b0, 0x01), (9, 0b100000000, 0x12), (10, 0b1000000010, 0x23),
+             (11, 0b10000000110, 0x34), (16, 0x8100, 0xF0), (16, 0x8101, 0xFA),
+             (16, 0xFFFE, 0x00), (12, 0xC00, 0x45)]
+    only16 = [(16, c, v) for c, v in ((0x0000, 0x00), (0x0001, 0x11),
+                                      (0x7FFF, 0xF0), (0x8000, 0xA5),
+                                      (0xFFFF, 0xFF))]
+    sparse = [(3, 0b101, 0x05), (16, 0x0400, 0x77), (11, 0b11100000001, 0x0B)]
+    return np.stack([lut(mixed), lut(only16), lut(sparse), lut(mixed[::2]),
+                     lut(only16[1:]), np.full(65536, -1, np.int32)])
+
+
+def _two_level_lookup(lut, first, bits):
+    """What the scan kernel reads for each of the 65,536 windows of each
+    row: the first-level entry of the window's prefix where it is nonzero,
+    else the LUT's own entry."""
+    short = first[..., np.arange(65536) >> (16 - bits)].astype(np.int32)
+    return np.where(short != 0, short, lut)
+
+
+class TestFirstLevelTable:
+    """The rule the scan kernel builds its shared-memory table by: for each
+    of the 65,536 windows of all 6 rows the two-level lookup must equal the
+    full LUT, exactly."""
+
+    @pytest.mark.parametrize("bits", [8, 9, 10, 11])
+    @pytest.mark.parametrize("source", ["annexk", "optimal-0", "optimal-1",
+                                        "optimal-2", "optimal-3", "long"])
+    def test_two_level_lookup_equals_lut(self, source, bits):
+        if source == "annexk":
+            lut = np.stack([native._huff_lut(t) for t in _annexk_tables()])
+        elif source == "long":
+            lut = _long_code_lut()
+            assert (lut == -1).any() and ((lut & 0xFF) == 16).any()
+        else:
+            lut = _optimal_lut(int(source[-1]))
+        first = ED.first_level_table(lut, bits)
+        assert first.dtype == np.uint16 and first.shape == (6, 1 << bits)
+        assert np.array_equal(_two_level_lookup(lut, first, bits), lut)
+        # it answers exactly the windows whose code has at most `bits` bits
+        answered = first[:, np.arange(65536) >> (16 - bits)] != 0
+        assert np.array_equal(answered, (lut >= 0) & ((lut & 0xFF) <= bits))
+        if source == "long":
+            assert not first[1].any() and not first[5].any()
+        else:
+            assert answered.mean() > 0.9
+
+    def test_batched_table_sets(self):
+        lut = np.stack([_optimal_lut(7), _long_code_lut()])
+        first = ED.first_level_table(lut)
+        assert first.shape == (2, 6, 1 << ED.FIRST_LEVEL_BITS)
+        assert np.array_equal(_two_level_lookup(lut, first, ED.FIRST_LEVEL_BITS), lut)
+
+    def test_wide_entries_are_left_to_the_lut(self):
+        """An entry that does not fit 16 bits, or has length 0, is never
+        answered by the first level (no prefix code's LUT holds one)."""
+        lut = np.full((6, 65536), (300 << 8) | 4, np.int32)
+        lut[1] = 0
+        lut[2] = 4
+        first = ED.first_level_table(lut)
+        assert not first[0].any() and not first[1].any() and first[2].all()
+        assert np.array_equal(_two_level_lookup(lut, first, ED.FIRST_LEVEL_BITS), lut)
+
+
 class TestDecodeSegmentsPlain:
     """decode_segments on CPU tensors (the plain version) against the JAX
     scan and the host C++ frontend."""
