@@ -5,18 +5,22 @@
 
 Drives the port's paths on the card, in phases: the main path (the
 pipelined encode+decode round trip of uniform batches of 16 RGB images at
-512x512, fast precision, 4:2:0, no restart markers, `ycc420` transport)
-and the restart path (the same round trip with restart_interval=8 and the
-`device` decode transport, whose Huffman decode runs on the card), then
-the `indexed` decode of the main path's streams.  Each phase prints one
-line and any failure exits nonzero.  In the order they run:
+512x512, fast precision, 4:2:0, no restart markers, `ycc420` transport),
+the restart path (the same round trip with restart_interval=8 and the
+`device` decode transport, whose Huffman decode runs on the card), the
+`indexed` decode of the main path's streams, the optimize path (per-image
+Huffman tables; encode_batches(optimize=True, restart_interval=8), then
+the device decode), and the rgb transports and single-image, mixed-size
+and command-line entry points.  Each phase prints one line and any
+failure exits nonzero.  In the order they run:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      fp32 matmuls at IEEE precision (no TF32);
   2. build: compiles the CUDA sources of the checkout, all at once (the
-     entropy pack alone and fused with the emissions, entropy_pack.cu; the
-     Huffman scan, huffman_scan.cu) and prints what ptxas reports for each
-     kernel; a
+     entropy pack alone and fused with the emissions, the latter in a
+     fixed-table and a custom-table form, entropy_pack.cu; the Huffman
+     scan, huffman_scan.cu) and prints what ptxas reports for each kernel;
+     a
      stack frame or a spill in the pack kernels, or a spill in the scan
      kernel, fails the run.  Counts each kernel's SASS instructions
      (cuobjdump);
@@ -57,15 +61,37 @@ line and any failure exits nonzero.  In the order they run:
      is timed for the three transports side by side, and the host halves
      (parse, _device_host_frontend, _indexed_host_frontend, the ycc420
      host frontend, encode_batch_finish) per batch on the host's clock;
+  10. optimize: the histogram kernel against its plain version on the
+     real 16x512x512 components, the edge-case blocks and the
+     long-emission blocks, in images of 1 to 140 blocks (a thread block
+     spanning images); the fused kernel with the batch's 16 per-image
+     table sets against its plain version; slots of 74 bits
+     (entropy.long_emission_tables) encoded on the card to the host C++
+     encoder's entropy bytes; 4x512x512 exact optimize streams, with and
+     without restarts, byte-identical to host_codec.  Then the optimize
+     path over 4 batches: every stream with its own DHT, pixels equal to
+     the restart path's, fewer bytes; 3 histogram, 3 fused and 1 scan
+     launch per batch; MP/s of encode and decode and the host stages
+     (the table derivation, the 16 LUT sets of the decode);
+  11. rgb and entry points: rgb encode (fast, exact) and rgb decode (fast,
+     exact, gray) on the card against the same calls on the CPU; exact
+     rgb streams at 16x512x512 equal the ycc420 transport's and decode to
+     host_codec's pixels; encode/decode of a 1000x750 image,
+     encode_mixed/decode_mixed of six sizes (exact: equal to host_codec),
+     and `python -m jpezy_tpu_torch.cli encode|decode ... --gpu` on a PPM
+     (the same stream and pixels as the in-process calls);
   5/8 device: only now the profiler: per batch the encode and decode
      programs' CUDA-event spans (host-launch bound), their device-busy
      time (kernel and copy time summed from a torch.profiler trace) and
      number of device events, for both paths, the encode program's stages
      alone, and the card's busy share of each pipelined round trip (device
      time of a profiled round trip over the wall time of the unprofiled
-     one);
-  6. times of the pack kernels alone on the real blocks beside their
-     bounds (see _bound);
+     one); 10/11 device: the optimize encode's device stages alone and the
+     optimize path's busy share, the rgb transports' device programs
+     (fast, exact, gray);
+  6. times of the pack kernels and the histogram kernel alone on the real
+     blocks beside their bounds (see _bound), and of the fused kernel with
+     the 16 per-image table sets beside the fixed tables;
   9. times of the scan kernel alone on the real segments beside its bound
      and the plain version's time, with the L2 cache overwritten before
      each launch, on four times the segments, and with every segment on
@@ -112,7 +138,10 @@ PEAK_INT_OPS_PER_S = 67e12 / 2
 # store the words zero-extended to 64 bits, 256 bytes more per block: a
 # cost of that layout, not part of the bound.)
 BLOCK_BYTES = {"pack_words": 3 * 256 + 256 + 4,
-               "encode_blocks": 256 + 4 + 256 + 4}
+               "encode_blocks": 256 + 4 + 256 + 4,
+               "symbol_histograms": 256 + 4}
+# and per image, the histogram kernel's [2, 256] int32 counts
+IMAGE_HIST_BYTES = 2 * 256 * 4
 # The least 32-bit operations each function needs, whatever computes it:
 # (per emission slot, per emission of nonzero length).  Packing: a slot
 # costs one add of the prefix sum over the lengths and one test for an
@@ -123,9 +152,13 @@ BLOCK_BYTES = {"pack_words": 3 * 256 + 256 + 4,
 # the table index (3), two table reads, the extra bits (3), the merge of
 # code and extra bits (2) and the length (1).  Emissions are counted from
 # the run's data.
-MIN_OPS = {"pack_words": (2, 10), "encode_blocks": (3, 25)}
+MIN_OPS = {"pack_words": (2, 10), "encode_blocks": (3, 25),
+           # counting: per slot the nonzero test and the zero run (3), per
+           # symbol the category (2), the bin (3) and the count (1)
+           "symbol_histograms": (3, 6)}
 # blocks one warp of each kernel takes (kBlocksPerWarp of the source)
-BLOCKS_PER_WARP = {"pack_words": 1, "encode_blocks": 2}
+BLOCKS_PER_WARP = {"pack_words": 1, "encode_blocks": 2,
+                   "symbol_histograms": 4}
 # The least 32-bit operations per decoded Huffman symbol, whatever decodes
 # it: cut the 16-bit window (1), index the table (2), split length and
 # value (2), cut and sign-extend the extra bits (4), the coefficient's
@@ -135,13 +168,22 @@ MIN_OPS_PER_SYMBOL = 12
 # segments (NVIDIA H100 80GB HBM3, 700 W; a reading kept from then, not
 # taken again here).
 EARLIER_SCAN_MS = 0.1052
-KERNELS = ("pack_words", "encode_blocks", "decode_segments")
+KERNELS = ("pack_words", "encode_blocks", "decode_segments",
+           "symbol_histograms")
+# the fused kernel's instantiation for the caller's tables (optimize), built
+# and checked beside the fixed-table one, which keeps the name
+ENCODE_CUSTOM = "encode_blocks (custom tables)"
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
-           "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu"}
+           "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
+           "symbol_histograms": "jpezy_tpu_torch/csrc/entropy_pack.cu"}
 REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
             "encode_blocks": "jpezy_tpu/ops/pack_pallas.py:27",
-            "decode_segments": "jpezy_tpu/ops/entropy_decode.py:211"}
+            "decode_segments": "jpezy_tpu/ops/entropy_decode.py:211",
+            "symbol_histograms": "jpezy_tpu/ops/entropy.py:112"}
+# the smaller batch of the card-against-CPU comparisons (phase 11): the
+# plain versions on the host's CPU take seconds per image at 512x512
+CPU_BATCH, CPU_HW = 2, 256
 
 
 def _say(phase: str, msg: str) -> None:
@@ -248,7 +290,9 @@ def _worst_case_blocks(dev, nblocks: int = 4096, seed: int = 5):
 
 
 def _kernel_of(symbol: str) -> str:
-    for name in ("encode_blocks", "decode_segments"):
+    if "encode_blocks_kernelILb1E" in symbol:  # the custom-table form
+        return ENCODE_CUSTOM
+    for name in ("encode_blocks", "decode_segments", "symbol_histograms"):
         if name in symbol:
             return name
     return "pack_words"
@@ -395,10 +439,8 @@ def _long_code_lanes(E, pack_cuda, lut: np.ndarray, dev):
         sizes, codes, np.frombuffer(T.AC_LUMA_VALS, np.uint8).astype(np.int32)))
     if int((long_lut[1][long_lut[1] >= 0] & 0xFF).min()) < 10:
         raise AssertionError("a luma AC code shorter than 10 bits")
-    dc_code, dc_size, _, _ = pack_cuda.huffman_tables_i32(dev, False)
-    luma = (dc_code, dc_size,
-            torch.from_numpy(ac_code.astype(np.int32)).to(dev),
-            torch.from_numpy(ac_size.astype(np.int32)).to(dev))
+    dc_size, dc_code, _, _ = E.annex_k_tables("cpu", False)
+    luma = E.kernel_tables((dc_size, dc_code, ac_size, ac_code), dev)
 
     def encode(q, pred, chroma):
         return pack_cuda.encode_blocks_cuda(q.to(dev), pred.to(dev),
@@ -499,6 +541,50 @@ def _rst_sequence(stream: bytes, entropy_start: int) -> np.ndarray:
     return d[at + 1].astype(np.int64) - 0xD0
 
 
+def _dht(stream: bytes) -> bytes:
+    """The DHT segments of a stream (our writer puts them last before SOS)."""
+    from jpezy_tpu_torch.bitstream.reader import parse
+
+    return stream[stream.find(b"\xff\xc4"):parse(stream).entropy_start]
+
+
+def _long_emission_bytes(E, encode) -> tuple[bytes, bytes, int]:
+    """Two MCUs of entropy.long_emission_blocks, every component on
+    entropy.long_emission_tables (slots of up to 74 bits): (stuffed
+    entropy bytes of encode(q, pred, tables), the host C++ encoder's
+    bytes, the longest slot in bits)."""
+    from jpezy_tpu_torch.bitstream import writer
+    from jpezy_tpu_torch.bitstream.splice import splice_blocks
+    from jpezy_tpu_torch.codec import host_codec
+    from jpezy_tpu_torch.runtime import native
+
+    _, _, *tabs = E.long_emission_tables()
+    q = E.long_emission_blocks()
+    q12 = np.concatenate([q, q[:4]])
+    comps = (np.concatenate([q12[0:4], q12[6:10]]), q12[[4, 10]],
+             q12[[5, 11]])
+    packed = (host_codec._packed_dc(tabs[0], tabs[1]),
+              host_codec._packed_ac(tabs[2], tabs[3]))
+    ref = native.entropy_encode(*comps, 0, *packed, *packed)
+    out = []
+    for c in comps:
+        t = torch.from_numpy(c)
+        w, b = encode(t, E.dc_predictors(t[:, 0]), tabs)
+        out.append((w.cpu(), b.cpu()))
+    (wy, by), (wc, bc), (wr, br) = out
+    words = torch.cat([wy[:4], wc[:1], wr[:1], wy[4:], wc[1:], wr[1:]])
+    bits = torch.cat([by[:4], bc[:1], br[:1], by[4:], bc[1:], br[1:]])
+    raw, _ = splice_blocks(words.numpy().astype(np.uint32), bits.numpy())
+    t = torch.from_numpy(q)
+    _, _, nb = E.block_emissions(t, E.dc_predictors(t[:, 0]), False, tabs)
+    return writer.byte_stuff(raw), ref, int(nb.max())
+
+
+def _preds(E, q: torch.Tensor, n: int) -> torch.Tensor:
+    """DC predictors of [B, 64] blocks holding n images, one chain each."""
+    return E.dc_predictors(q[:, 0].reshape(n, -1)).reshape(-1)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -514,7 +600,9 @@ def main() -> int:
     from jpezy_tpu_torch.ops import entropy as E
     from jpezy_tpu_torch.ops import entropy_decode as ED
     from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+    from jpezy_tpu_torch.runtime import batch as RB
     from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
+                                                  encode_batches,
                                                   roundtrip_batches)
 
     # ---- 1. environment
@@ -541,7 +629,8 @@ def main() -> int:
         lib.get()
         ptxas.update(_ptxas_by_kernel(lib.build_log))
         sass.update(_sass_instructions(cuda_build.nvcc(), lib.so))
-    if sorted(ptxas) != sorted(KERNELS) or sorted(sass) != sorted(KERNELS) \
+    built = sorted(KERNELS + (ENCODE_CUSTOM,))
+    if sorted(ptxas) != built or sorted(sass) != built \
             or min(sass.values()) <= 0:
         raise AssertionError(
             f"ptxas reported {sorted(ptxas)}, cuobjdump {sass}:\n"
@@ -771,12 +860,13 @@ def main() -> int:
 
     def reset_counts():
         pack_cuda.launches = pack_cuda.encode_launches = 0
-        scan_cuda.launches = 0
+        pack_cuda.histogram_launches = scan_cuda.launches = 0
 
     def read_counts():
         return {"pack_words": pack_cuda.launches,
                 "encode_blocks": pack_cuda.encode_launches,
-                "decode_segments": scan_cuda.launches}
+                "decode_segments": scan_cuda.launches,
+                "symbol_histograms": pack_cuda.histogram_launches}
 
     # ---- 5. the main path: pipelined round trip on the card
     batches = [_images(BATCH, 1000 + BATCH * i) for i in range(MAIN_BATCHES)]
@@ -789,7 +879,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     main_launches = read_counts()
     if main_launches != {"pack_words": 0, "encode_blocks": 3 * MAIN_BATCHES,
-                         "decode_segments": 0}:
+                         "decode_segments": 0, "symbol_histograms": 0}:
         raise AssertionError(
             f"main path launches {main_launches}: want the fused kernel 3 "
             "times per batch and no other kernel")
@@ -832,7 +922,8 @@ def main() -> int:
     restart_launches = read_counts()
     if restart_launches != {"pack_words": 0,
                             "encode_blocks": 3 * MAIN_BATCHES,
-                            "decode_segments": MAIN_BATCHES}:
+                            "decode_segments": MAIN_BATCHES,
+                            "symbol_histograms": 0}:
         raise AssertionError(
             f"restart path launches {restart_launches}: want the fused "
             "kernel 3 times and the scan kernel once per batch")
@@ -956,6 +1047,310 @@ def main() -> int:
          "batch: " + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items())
          + f"; on {card}")
 
+    # ---- 10. optimize: the histogram kernel, per-image table sets, and
+    # the optimize path (encode_batches, then the device decode)
+    from jpezy_tpu_torch.core import tables as T
+
+    real10 = _real_blocks(TC, HG, _images(BATCH, 0), dev)
+    edge = torch.from_numpy(E.edge_case_blocks(3)).to(dev)
+    longq = torch.from_numpy(E.long_emission_blocks()).to(dev)
+    hist_sets = [(f"real {'chroma' if c else 'luma'}", q,
+                  _preds(E, q, BATCH), q.shape[0] // BATCH)
+                 for q, c in real10]
+    for label, q, bpi in (("edge", edge, edge.shape[0]), ("edge", edge, 1),
+                          ("edge", edge, 3), ("edge", edge, 7),
+                          ("long", longq, 1), ("long", longq, 2),
+                          ("long", longq, 8)):
+        q = q[:(q.shape[0] // bpi) * bpi]
+        hist_sets.append((f"{label} in images of {bpi}", q,
+                          _preds(E, q, q.shape[0] // bpi), bpi))
+    err["symbol_histograms"] = 0
+    pack_cuda.histogram_launches = 0
+    for label, q, pred, bpi in hist_sets:
+        hk = pack_cuda.symbol_histograms_cuda(q, pred, bpi)
+        hp = E.symbol_histograms_plain(q, pred, bpi)
+        torch.cuda.synchronize()
+        e = int((hk.to(torch.int64) - hp.to(torch.int64)).abs().max())
+        err["symbol_histograms"] = max(err["symbol_histograms"], e)
+        if e or hk.dtype != torch.int32:
+            raise AssertionError(f"symbol_histograms kernel != plain version "
+                                 f"on {label} {tuple(q.shape)}")
+    # the real components: phase 6 times the kernel on these
+    hist_inputs = [(q, pred, bpi) for _, q, pred, bpi in hist_sets[:3]]
+    if pack_cuda.histogram_launches != len(hist_sets):
+        raise AssertionError(f"histogram kernel launched "
+                             f"{pack_cuda.histogram_launches} times in "
+                             f"{len(hist_sets)} comparisons")
+    # 16 per-image table sets of the real batch, one launch per component
+    comps = tuple(q.reshape(BATCH, -1, 64) for q, _ in real10)
+    hists = TC._symbol_histograms_batch(*comps).cpu().numpy()
+    _, ytabs, ctabs = TC._optimal_tables(hists)
+    set_inputs = []      # (q, pred, kernel tables, bpi) per component
+    for (q, chroma), tabs in zip(real10, (ytabs, ctabs, ctabs)):
+        pred, bpi = _preds(E, q, BATCH), q.shape[0] // BATCH
+        wk, bk = E.encode_block_words(q, pred, chroma, tables=tabs,
+                                      blocks_per_image=bpi)
+        wp, bp = E.encode_block_words_plain(q, pred, chroma, tabs, bpi)
+        torch.cuda.synchronize()
+        e = max(int((wk - wp).abs().max()),
+                int((bk.to(torch.int64) - bp.to(torch.int64)).abs().max()))
+        err["encode_blocks"] = max(err["encode_blocks"], e)
+        if e:
+            raise AssertionError(f"encode_blocks with {BATCH} table sets != "
+                                 f"plain version, chroma={chroma}")
+        set_inputs.append((q, pred, E.kernel_tables(tabs, dev), bpi))
+    n_sets = len({t.tobytes() for t in ytabs[3]})  # ac_code
+    # slots of up to 74 bits: the card's bytes are the host encoder's
+    card_bytes, host_bytes, long_bits = _long_emission_bytes(
+        E, lambda q, p, t: E.encode_block_words(q.to(dev), p.to(dev), False,
+                                                tables=t))
+    plain_bytes, _, _ = _long_emission_bytes(
+        E, lambda q, p, t: E.encode_block_words_plain(q, p, False, t))
+    if not card_bytes == plain_bytes == host_bytes or long_bits < 70:
+        raise AssertionError(f"{long_bits}-bit emissions: the card's entropy "
+                             "bytes differ from the host C++ encoder's")
+    # exact optimize streams against the host codec
+    got_o = TC.encode_batch(imgs4, precision="exact", optimize=True,
+                            device="cuda")
+    ref_o = [host_codec.encode(im[..., 0], im[..., 1], im[..., 2],
+                               optimize=True) for im in imgs4]
+    got_or = TC.encode_batch(imgs4, precision="exact", optimize=True,
+                             restart_interval=ri, device="cuda")
+    ref_or = [host_codec.encode(im[..., 0], im[..., 1], im[..., 2],
+                                optimize=True, restart_interval=ri)
+              for im in imgs4]
+    if got_o != ref_o or got_or != ref_or:
+        raise AssertionError("exact optimize encode differs from host_codec")
+    _say("10 kernels", f"symbol_histograms identical to the plain version "
+         f"on {len(hist_sets)} sets ("
+         + ", ".join(f"{label} {tuple(q.shape)}"
+                     for label, q, _, _ in hist_sets)
+         + f"); encode_blocks with {BATCH} per-image table sets ({n_sets} "
+         f"distinct luma AC tables) identical to the plain version on "
+         f"{[tuple(q.shape) for q, *_ in set_inputs]}; {long_bits}-bit "
+         f"slots: the card's {len(card_bytes)} entropy bytes equal the host "
+         f"C++ encoder's; 4x{H}x{W} exact optimize encode byte-identical to "
+         f"host_codec, without and with restart_interval={ri} "
+         f"({sum(map(len, got_o))} and {sum(map(len, got_or))} bytes against "
+         f"{sum(map(len, got))} and {sum(map(len, got_r))} with the fixed "
+         f"tables)")
+
+    opt_kw = dict(lookahead=1, optimize=True, restart_interval=ri,
+                  device="cuda")
+    odec_kw = dict(lookahead=1, transport="device", device="cuda")
+    for ss in encode_batches(batches[:1], **opt_kw):
+        for _ in decode_batches([ss], **odec_kw):
+            pass  # warm-up of this path's shapes
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    opt_lists = list(encode_batches(batches, **opt_kw))
+    owall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opt_dec = list(decode_batches(opt_lists, **odec_kw))
+    odwall = time.perf_counter() - t0
+    optimize_launches = read_counts()
+    if optimize_launches != {"pack_words": 0,
+                             "encode_blocks": 3 * MAIN_BATCHES,
+                             "decode_segments": MAIN_BATCHES,
+                             "symbol_histograms": 3 * MAIN_BATCHES}:
+        raise AssertionError(
+            f"optimize path launches {optimize_launches}: want the histogram "
+            "and the fused kernel 3 times and the scan once per batch")
+    opt_bytes = sum(len(s) for ss in opt_lists for s in ss)
+    fixed_bytes = sum(len(s) for s in rstreams)
+    for ss, (opx, _), (_, rpx) in zip(opt_lists, opt_dec, rresults):
+        if len({_dht(s) for s in ss}) != len(ss):
+            raise AssertionError("optimize streams share a DHT")
+        if not np.array_equal(opx, rpx):
+            raise AssertionError("optimize streams decode to other pixels "
+                                 "than the fixed-table restart streams")
+    if opt_bytes >= fixed_bytes:
+        raise AssertionError(f"optimize streams take {opt_bytes} bytes, the "
+                             f"fixed tables {fixed_bytes}")
+    # host stages of the optimize path per batch (median of 5)
+    pjs_o = [parse(s) for s in opt_lists[0]]
+    opt_host_ms = {
+        "encode_batch_dispatch, optimize (blocks on the histogram fetch)":
+            _host_ms(lambda: TC.encode_batch_dispatch(
+                batches[0], optimize=True, restart_interval=ri,
+                device="cuda")),
+        "host table build (_optimal_tables: 32 optimal_flat_tables)":
+            _host_ms(lambda: TC._optimal_tables(hists)),
+        "_device_luts (16 LUT sets)": _host_ms(
+            lambda: HG._device_luts(pjs_o, nseg)),
+    }
+
+    def lut_upload():
+        lut, _ = HG._device_luts(pjs_o, nseg)
+        ED._lut_cache.clear()
+        ED.device_lut(lut, dev)
+        torch.cuda.synchronize()
+
+    opt_host_ms["_device_luts + hash + upload (cache cleared)"] = _host_ms(
+        lut_upload)
+    _say("10 optimize", f"{MAIN_BATCHES} batches x {BATCH}x{H}x{W}, "
+         f"encode_batches(optimize=True, restart_interval={ri}) then "
+         f"decode_batches(transport='device') with {BATCH} table sets a "
+         f"batch in the scan: every stream has its own DHT; pixels equal "
+         f"the fixed-table restart path's exactly; {opt_bytes} bytes against "
+         f"{fixed_bytes} ({opt_bytes / fixed_bytes:.4f}); launches "
+         f"{optimize_launches}; encode pipelined {mpix / owall:.3f} MP/s "
+         f"(wall {owall:.3f} s), decode pipelined {mpix / odwall:.3f} MP/s "
+         f"(wall {odwall:.3f} s); host ms per batch: "
+         + ", ".join(f"{k} {v:.3f}" for k, v in opt_host_ms.items())
+         + f"; on {card}")
+
+    # ---- 11. the rgb transports and the entry points, card against CPU
+    small = _images(CPU_BATCH, 300)[:, :CPU_HW, :CPU_HW]
+    for precision in ("fast", "exact"):
+        on_card = TC.encode_batch(small, transport="rgb", precision=precision,
+                                  device="cuda")
+        on_cpu = TC.encode_batch(small, transport="rgb", precision=precision,
+                                 device="cpu")
+        if precision == "exact":
+            host = [host_codec.encode(im[..., 0], im[..., 1], im[..., 2])
+                    for im in small]
+            if not on_card == on_cpu == host:
+                raise AssertionError("exact rgb encode: card, CPU and host "
+                                     "codec differ")
+            exact_small = on_card
+        for a, b, im in zip(on_card, on_cpu, small):
+            pa = _psnr(np.stack(host_codec.decode(a)[:3], -1), im)
+            pb = _psnr(np.stack(host_codec.decode(b)[:3], -1), im)
+            if abs(pa - pb) > PSNR_SLACK_DB:
+                raise AssertionError(f"{precision} rgb encode PSNR {pa} on "
+                                     f"the card, {pb} on the CPU")
+    rgb_dec_diff = {}
+    for label, kw in (("fast", dict(transport="rgb")),
+                      ("exact", dict(precision="exact")),
+                      ("gray", dict(precision="exact", gray=True))):
+        a, _ = TC.decode_batch(exact_small, device="cuda", **kw)
+        b, _ = TC.decode_batch(exact_small, device="cpu", **kw)
+        d = int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
+        rgb_dec_diff[label] = d
+        # exact: float64 ordered sums on both; fast: float32 IDCT and
+        # colour summed in another order by cuBLAS than on the CPU
+        if d > (2 if label == "fast" else 0):
+            raise AssertionError(f"rgb decode ({label}) differs by {d} "
+                                 "between the card and the CPU")
+        if label == "exact":
+            host_px = np.stack([np.stack(host_codec.decode(s)[:3], -1)
+                                for s in exact_small])
+            if not np.array_equal(a, host_px):
+                raise AssertionError("exact rgb decode != host_codec.decode")
+    # full width on the card: rgb transport against ycc420, both ways
+    rgb_full = TC.encode_batch(batches[0], transport="rgb",
+                               precision="exact", device="cuda")
+    if rgb_full != TC.encode_batch(batches[0], precision="exact",
+                                   device="cuda"):
+        raise AssertionError("exact rgb and ycc420 streams differ at "
+                             f"{BATCH}x{H}x{W}")
+    rgb_px, _ = TC.decode_batch(rgb_full, precision="exact", device="cuda")
+    ref_px = np.stack([np.stack(host_codec.decode(s)[:3], -1)
+                       for s in rgb_full])
+    if not np.array_equal(rgb_px, ref_px):
+        raise AssertionError(f"exact rgb decode at {BATCH}x{H}x{W} != "
+                             "host_codec.decode")
+    rgb_host_ms = {
+        "encode_batch, rgb, fast": _host_ms(lambda: TC.encode_batch(
+            batches[0], transport="rgb", device="cuda"), 3),
+        "encode_batch, ycc420, fast": _host_ms(lambda: TC.encode_batch(
+            batches[0], device="cuda"), 3),
+        "encode_batch, rgb, exact": _host_ms(lambda: TC.encode_batch(
+            batches[0], transport="rgb", precision="exact", device="cuda"),
+            3),
+        "decode_batch, rgb, fast": _host_ms(lambda: TC.decode_batch(
+            plain_lists[0], transport="rgb", device="cuda"), 3),
+        "decode_batch, rgb, exact": _host_ms(lambda: TC.decode_batch(
+            plain_lists[0], precision="exact", device="cuda"), 3),
+        "decode_batch, ycc420, fast": _host_ms(lambda: TC.decode_batch(
+            plain_lists[0], device="cuda"), 3),
+    }
+    # one large image through the single-image entry points
+    from imagegen import make_test_image
+
+    big = make_test_image(750, 1000, seed=310)
+    planes_big = (big[..., 0], big[..., 1], big[..., 2])
+    s_big = TC.encode(*planes_big, precision="exact", device="cuda")
+    if s_big != host_codec.encode(*planes_big):
+        raise AssertionError("encode of 1000x750, exact, != host_codec")
+    big_px = np.stack(TC.decode(s_big, precision="exact", device="cuda")[:3],
+                      -1)
+    if not np.array_equal(big_px, np.stack(host_codec.decode(s_big)[:3], -1)):
+        raise AssertionError("decode of 1000x750, exact, != host_codec")
+    s_bigf = TC.encode(*planes_big, device="cuda")
+    p_big = _psnr(np.stack(TC.decode(s_bigf, device="cuda")[:3], -1), big)
+    p_big_ref = _psnr(np.stack(host_codec.decode(s_big)[:3], -1), big)
+    if p_big < p_big_ref - PSNR_SLACK_DB:
+        raise AssertionError(f"1000x750 fast round trip PSNR {p_big} < host "
+                             f"exact {p_big_ref}")
+    big_host_ms = {"encode, fast": _host_ms(
+                  lambda: TC.encode(*planes_big, device="cuda"), 3),
+              "decode, fast": _host_ms(
+                  lambda: TC.decode(s_bigf, device="cuda"), 3),
+              "encode, exact": _host_ms(
+                  lambda: TC.encode(*planes_big, precision="exact",
+                                    device="cuda"), 3),
+              "decode, exact": _host_ms(
+                  lambda: TC.decode(s_big, precision="exact", device="cuda"),
+                  3)}
+    # mixed sizes
+    mixed = [big, _images(1, 320)[0], _images(1, 321)[0][:500, :500],
+             make_test_image(37, 50, seed=322), make_test_image(48, 64, seed=323),
+             make_test_image(1, 1, seed=324)]
+    m_streams = RB.encode_mixed(mixed, precision="exact", device="cuda")
+    if m_streams != [host_codec.encode(im[..., 0], im[..., 1], im[..., 2])
+                     for im in mixed]:
+        raise AssertionError("encode_mixed (exact) != host_codec")
+    for px, s in zip(RB.decode_mixed(m_streams, precision="exact",
+                                     device="cuda"), m_streams):
+        if not np.array_equal(px, np.stack(host_codec.decode(s)[:3], -1)):
+            raise AssertionError("decode_mixed (exact) != host_codec")
+    # the command line on a PPM: encode with --gpu, decode with no backend
+    # flag (the default is the card)
+    from jpezy_tpu_torch.runtime import ppm
+
+    cli_dir = os.path.join(REPO, "build", "smoke_cli")
+    os.makedirs(cli_dir, exist_ok=True)
+    ppm.write(os.path.join(cli_dir, "in.ppm"), big, fmt="P6")
+    cli_out = {}
+    for cmd in (["encode", "in.ppm", "out.jpg", "--gpu"],
+                ["decode", "out.jpg", "out.ppm"]):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "jpezy_tpu_torch.cli",
+                              *cmd], cwd=cli_dir, capture_output=True,
+                             text=True, timeout=300,
+                             env=dict(os.environ, PYTHONPATH=REPO))
+        cli_out[cmd[0]] = time.perf_counter() - t0
+        if res.returncode != 0 or "backend: gpu" not in res.stdout:
+            raise AssertionError(f"cli {cmd}: {res.returncode}\n"
+                                 f"{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    with open(os.path.join(cli_dir, "out.jpg"), "rb") as f:
+        cli_jpg = f.read()
+    if cli_jpg != s_bigf:
+        raise AssertionError("the cli's --gpu stream != encode() on the card")
+    _, _, _, cli_px = ppm.read(os.path.join(cli_dir, "out.ppm"))
+    if not np.array_equal(cli_px, np.stack(
+            TC.decode(cli_jpg, device="cuda")[:3], -1)):
+        raise AssertionError("the cli's decode != decode() on the card")
+    _say("11 rgb+entry", f"rgb encode on the card against the CPU "
+         f"({CPU_BATCH}x{CPU_HW}x{CPU_HW}): exact byte-identical to the CPU "
+         f"and host_codec, fast within {PSNR_SLACK_DB} dB; rgb decode, card "
+         f"against CPU, max |diff|: " + ", ".join(
+             f"{k} {v}" for k, v in rgb_dec_diff.items())
+         + f"; at {BATCH}x{H}x{W} exact rgb streams equal ycc420's and their "
+         f"exact rgb decode equals host_codec's; host ms per batch: "
+         + ", ".join(f"{k} {v:.3f}" for k, v in rgb_host_ms.items())
+         + f"; 1000x750 encode/decode exact equal host_codec, fast PSNR "
+         f"{p_big:.4f} dB (host exact {p_big_ref:.4f}); ms: "
+         + ", ".join(f"{k} {v:.3f}" for k, v in big_host_ms.items())
+         + f"; encode_mixed/decode_mixed of {len(mixed)} sizes exact equal "
+         f"host_codec; cli encode --gpu {cli_out['encode']:.2f} s, decode "
+         f"with no backend flag {cli_out['decode']:.2f} s (processes, both "
+         f"on the card), stream and pixels equal "
+         f"the in-process calls; on {card}")
+
     # ---- 5/8 device: event spans, then (only now) the profiler
     y, cb, cr = HG.host_rgb_to_ycc420(batches[0])
     packed_dev = torch.from_numpy(np.concatenate(
@@ -1063,14 +1458,81 @@ def main() -> int:
          + "; ".join(parts))
     del planes, quantized, emitted
 
+    def stage_rows(stages):
+        """'label: device busy, event span, events' of each stage alone
+        (spans after tracing: they hold more host time than phase 5's)."""
+        rows = []
+        for label, fn in stages:
+            span, prof = _time_ms(fn, 5), _profile(fn, 5)
+            rows.append(f"{label}: device busy {_fmt_ms(prof['busy_ms'])} "
+                        f"ms, event span {span:.3f} ms, "
+                        f"{prof['events']:.1f} events")
+        return rows
+
+    # optimize: its device stages alone, and the card's busy share
+    quantized = TC._quantize_batch_ycc(packed_dev, h=H, w=W)
+    hists_b = TC._symbol_histograms_batch(*quantized,
+                                          restart_interval=ri).cpu().numpy()
+    _, yt_b, ct_b = TC._optimal_tables(hists_b)
+    opt_rows = stage_rows((
+        ("symbol histograms (3 kernels, chroma sum)",
+         lambda: TC._symbol_histograms_batch(*quantized,
+                                             restart_interval=ri)),
+        ("the same and the [N, 4, 256] fetch",
+         lambda: TC._symbol_histograms_batch(
+             *quantized, restart_interval=ri).cpu()),
+        ("entropy with 16 table sets + concat (_encode_batch_custom)",
+         lambda: TC._encode_batch_custom(*quantized, yt_b, ct_b,
+                                         restart_interval=ri))))
+    opt_prof = _profile(lambda: list(decode_batches(
+        list(encode_batches(batches, **opt_kw)), **odec_kw)), 1)
+    if opt_prof["busy_ms"] is None:
+        raise RuntimeError("the profiler traced no device time for the "
+                           "optimize path")
+    obusy_share = opt_prof["busy_ms"] / (1e3 * (owall + odwall))
+    _say("10 device", "optimize encode per batch, device stages alone: "
+         + "; ".join(opt_rows)
+         + f"; over the {MAIN_BATCHES} pipelined batches (encode then "
+         f"device decode) device busy {opt_prof['busy_ms']:.3f} ms in "
+         f"{opt_prof['events']:.0f} device events = {obusy_share:.4f} of "
+         f"their wall, idle {1 - obusy_share:.4f} on {card}")
+    del quantized
+
+    # the rgb transports' device programs, fast and exact
+    rgb_dev = torch.from_numpy(np.ascontiguousarray(batches[0])).to(dev)
+    pjs_rgb, geom_rgb, level_rgb = TC._parse_batch(plain_lists[0])
+    coeff, rkw = TC._rgb_host_prep(pjs_rgb, geom_rgb, level_rgb, gray=False,
+                                   precision="fast")
+    coeff_dev = torch.from_numpy(coeff).to(dev)
+    rgb_prep_ms = _host_ms(lambda: TC._rgb_host_prep(
+        pjs_rgb, geom_rgb, level_rgb, gray=False, precision="fast"))
+    rgb_rows = stage_rows((
+        ("rgb encode program, fast (_encode_batch_blocks)",
+         lambda: TC._encode_batch_blocks(rgb_dev)),
+        ("rgb encode program, exact",
+         lambda: TC._encode_batch_blocks(rgb_dev, precision="exact")),
+        ("rgb decode program, fast (_decode_fused_batch)",
+         lambda: TC._decode_fused_batch(coeff_dev, **rkw)),
+        ("rgb decode program, exact",
+         lambda: TC._decode_fused_batch(coeff_dev,
+                                        **dict(rkw, precision="exact"))),
+        ("rgb decode program, gray exact",
+         lambda: TC._decode_fused_batch(
+             coeff_dev, **dict(rkw, precision="exact", gray=True)))))
+    _say("11 device", f"rgb transports per {BATCH}x{H}x{W} batch: "
+         + "; ".join(rgb_rows)
+         + f"; host frontend of the rgb decode (_rgb_host_prep) "
+         f"{rgb_prep_ms:.3f} ms on {card}")
+    del rgb_dev, coeff_dev
+
     # ---- 6. each kernel alone, timed (after the round trips: the profiler
     # is first used in phase 5, behind the pipelined wall-clock measurement)
-    def bound(name, nblocks, emissions):
+    def bound(name, nblocks, emissions, extra_bytes=0):
         """Bound of `name` on this many blocks holding this many emissions
-        of nonzero length: the bytes and the operations its function needs
-        at the least."""
+        of nonzero length (symbols, for the histograms): the bytes and the
+        operations its function needs at the least."""
         per_slot, per_emission = MIN_OPS[name]
-        return _bound(BLOCK_BYTES[name] * nblocks,
+        return _bound(BLOCK_BYTES[name] * nblocks + extra_bytes,
                       per_slot * 64 * nblocks + per_emission * emissions)
 
     def sass_ms(name, block_counts):
@@ -1085,13 +1547,17 @@ def main() -> int:
     counts = [q.shape[0] for q, *_ in real_inputs]
     n_emitted = [int((ems[2] > 0).sum()) for *_, ems in real_inputs]
 
-    def run_pack():
-        for *_, ems in real_inputs:
-            pack_cuda.pack_words_cuda(*ems)
-
-    def run_encode():
-        for q, pred, chroma, _ in real_inputs:
-            pack_cuda.encode_blocks_cuda(q, pred, chroma)
+    n_symbols = sum(int(E.symbol_histograms_plain(*hi).sum())
+                    for hi in hist_inputs)
+    # one launch of each kernel on component i of the batch, and the plain
+    # version on all three
+    launch_one = {
+        "pack_words": lambda i: pack_cuda.pack_words_cuda(*real_inputs[i][3]),
+        "encode_blocks": lambda i: pack_cuda.encode_blocks_cuda(
+            *real_inputs[i][:3]),
+        "symbol_histograms": lambda i: pack_cuda.symbol_histograms_cuda(
+            *hist_inputs[i]),
+    }
 
     def run_pack_plain():
         for *_, ems in real_inputs:
@@ -1101,34 +1567,44 @@ def main() -> int:
         for q, pred, chroma, _ in real_inputs:
             E.encode_block_words_plain(q, pred, chroma)
 
+    def run_hist_plain():
+        for hi in hist_inputs:
+            E.symbol_histograms_plain(*hi)
+
     # five times the card's 50 MB L2 cache
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     timing = {}
-    for name, run, plain, sym in (
-            ("pack_words", run_pack, run_pack_plain, "pack_words_kernel"),
-            ("encode_blocks", run_encode, run_encode_plain,
-             "encode_blocks_kernel")):
+    for name, plain, sym, work in (
+            ("pack_words", run_pack_plain, "pack_words_kernel",
+             (sum(n_emitted), 0)),
+            ("encode_blocks", run_encode_plain, "encode_blocks_kernel",
+             (sum(n_emitted), 0)),
+            ("symbol_histograms", run_hist_plain, "symbol_histograms_kernel",
+             (n_symbols, 3 * BATCH * IMAGE_HIST_BYTES))):
+        one = launch_one[name]
+
+        def run(one=one):
+            for i in range(3):
+                one(i)
+
         t = {"event_ms": _time_ms(run, 20), "plain_ms": _time_ms(plain, 3)}
         prof = _profile(run, 20)
         t["ms"] = _kernel_ms(prof, sym)  # the kernel's own device time
         t["wrapper_busy_ms"] = prof["busy_ms"]
         # each of the batch's three launches alone (Y, Cb, Cr): repeated on
         # the same buffers, then with the L2 cache overwritten before each
-        def alone(i, cold):
+        def alone(i, cold, one=one):
             def fn():
                 if cold:
                     l2_flush.zero_()
-                if name == "pack_words":
-                    pack_cuda.pack_words_cuda(*real_inputs[i][3])
-                else:
-                    pack_cuda.encode_blocks_cuda(*real_inputs[i][:3])
+                one(i)
             return fn
 
         for key, cold in (("launch_ms", False), ("cold_launch_ms", True)):
             t[key] = [_kernel_ms(_profile(alone(i, cold), 20), sym)
-                      for i in range(len(real_inputs))]
+                      for i in range(3)]
         t["cold_ms"] = sum(t["cold_launch_ms"])
-        t["bound_ms"], t["bound_by"] = bound(name, sum(counts), sum(n_emitted))
+        t["bound_ms"], t["bound_by"] = bound(name, sum(counts), *work)
         t["sass_ms"] = sass_ms(name, counts)
         timing[name] = t
         _say("6 times", f"{name} per {BATCH}x{H}x{W} batch (3 launches on "
@@ -1145,8 +1621,9 @@ def main() -> int:
              f"{' '.join(f'{x:.4f}' for x in t['cold_launch_ms'])} ms), "
              f"bound = {t['bound_ms'] / t['cold_ms']:.3f} of it; all "
              f"{sass[name]} SASS instructions run once per thread would "
-             f"take {t['sass_ms']:.4f} ms; {sum(n_emitted)} emissions in "
-             f"{sum(counts)} blocks; plain version event span "
+             f"take {t['sass_ms']:.4f} ms; {work[0]} "
+             f"{'symbols' if name == 'symbol_histograms' else 'emissions'} "
+             f"in {sum(counts)} blocks; plain version event span "
              f"{t['plain_ms']:.4f} ms; on {card}")
     # the fused kernel on four batches' worth of luma blocks in one launch
     q4 = torch.cat([real_inputs[0][0]] * 4)
@@ -1158,7 +1635,29 @@ def main() -> int:
     _say("6 times", f"encode_blocks on [{q4.shape[0]}, 64] luma blocks in "
          f"one launch: kernel {big_ms:.4f} ms, bound {big_bound:.4f} ms by "
          f"{big_by} = {big_bound / big_ms:.3f} of it")
-    del real_inputs, q4, p4
+    # the fused kernel with the batch's 16 per-image table sets (optimize)
+    def run_sets(cold=False):
+        for q, pred, tabs, bpi in set_inputs:
+            if cold:
+                l2_flush.zero_()
+            pack_cuda.encode_blocks_cuda(q, pred, tabs, bpi)
+
+    sets_ms = _kernel_ms(_profile(run_sets, 20), "encode_blocks_kernel")
+    sets_cold_ms = _kernel_ms(_profile(lambda: run_sets(True), 20),
+                              "encode_blocks_kernel")
+    def run_fixed():
+        for i in range(3):
+            launch_one["encode_blocks"](i)
+
+    fixed_ms = _kernel_ms(_profile(run_fixed, 20), "encode_blocks_kernel")
+    timing["encode_blocks"]["ms_per_image_tables"] = sets_ms
+    timing["encode_blocks"]["cold_ms_per_image_tables"] = sets_cold_ms
+    _say("6 times", f"encode_blocks per {BATCH}x{H}x{W} batch with "
+         f"{BATCH} per-image table sets (optimize): kernel {sets_ms:.4f} ms "
+         f"(L2 overwritten before each launch {sets_cold_ms:.4f}) beside "
+         f"{fixed_ms:.4f} ms with the fixed tables in the same run; bound "
+         f"{timing['encode_blocks']['bound_ms']:.4f} ms")
+    del real_inputs, q4, p4, set_inputs, hist_inputs
 
     # ---- 9. the scan kernel alone on the real segments of phase 7
     S, Lw = real_args["words"].shape
@@ -1246,14 +1745,16 @@ def main() -> int:
         raise AssertionError(f"imported {leaked[:5]}")
     # pack_words is off every path: its count is phase 3's, over the real
     # blocks; encode_blocks' is the main path's; decode_segments' is the
-    # restart path's.  launches_by_path holds every path's own counts, each
+    # restart path's; symbol_histograms' is the optimize path's.  launches_by_path holds every path's own counts, each
     # read just after that path's run.
     launches = {"pack_words": pack_alone_launches,
                 "encode_blocks": main_launches["encode_blocks"],
-                "decode_segments": restart_launches["decode_segments"]}
+                "decode_segments": restart_launches["decode_segments"],
+                "symbol_histograms": optimize_launches["symbol_histograms"]}
     by_path = {name: {"main": main_launches[name],
                       "restart_device": restart_launches[name],
-                      "decode_indexed": indexed_launches[name]}
+                      "decode_indexed": indexed_launches[name],
+                      "optimize": optimize_launches[name]}
                for name in launches}
     per_batch = {name: {path: n / MAIN_BATCHES for path, n in paths.items()}
                  for name, paths in by_path.items()}
@@ -1269,6 +1770,8 @@ def main() -> int:
         "cold_launch_ms": t["cold_launch_ms"],
         "event_ms": t["event_ms"], "wrapper_busy_ms": t["wrapper_busy_ms"],
         "sass_instructions": sass[name], "sass_ms": t["sass_ms"],
+        **{k: t[k] for k in ("ms_per_image_tables",
+                             "cold_ms_per_image_tables") if k in t},
     } for name, t in timing.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,13 @@
 
 A second package beside jpezy_tpu, which stays the reference it is tested
 against.  It imports nothing of jpezy_tpu and nothing of jax: the jax-free
-host code (core/, bitstream/, runtime/native.py, codec/oracle.py,
-codec/host_codec.py, utils/timing.py) is a verbatim copy, held
+host code (core/, bitstream/, runtime/native.py, runtime/ppm.py,
+codec/oracle.py, codec/host_codec.py, utils/timing.py) is a verbatim copy, held
 byte-identical to jpezy_tpu's by tests/test_torch_host_copies.py, and the
 C++ host runtime csrc/jpezy_host.cpp is shared.  Device code is torch; the
-entropy encode of blocks (ops/pack_cuda.py) and the Huffman decode of
-restart segments (ops/scan_cuda.py) run as hand-written CUDA kernels on
-CUDA tensors.
+entropy encode of blocks and the symbol counts of optimize
+(ops/pack_cuda.py) and the Huffman decode of restart segments
+(ops/scan_cuda.py) run as hand-written CUDA kernels on CUDA tensors.
 
 Public API (every entry point takes device=, default "cuda", which raises
 when no card is present; pass device="cpu" for the CPU path):
@@ -18,6 +18,13 @@ when no card is present; pass device="cpu" for the CPU path):
     pixels, props = decode_batch(streams)
     streams = encode_batch(rgbs, restart_interval=8)   # DRI + RSTn
     pixels, props = decode_batch(streams)         # Huffman decode on device
+    streams = encode_batch(rgbs, optimize=True)   # per-image Huffman tables
+    jpeg = encode(r, g, b)                        # one image, any size
+    r, g, b, props = decode(jpeg, precision="exact")
+    streams = encode_mixed(images)                # list of [H, W, 3]
+
+Command line: python -m jpezy_tpu_torch.cli encode in.ppm out.jpg [--gpu]
+(jpezy_tpu_torch/cli.py).
 
 Lazy: importing this package imports neither torch's CUDA kernels nor the
 codec modules until an entry point is called.
@@ -35,6 +42,30 @@ def encode_batch(*args, **kwargs):
 
 def decode_batch(*args, **kwargs):
     from .codec.torch_codec import decode_batch as _f
+
+    return _f(*args, **kwargs)
+
+
+def encode(*args, **kwargs):
+    from .codec.torch_codec import encode as _f
+
+    return _f(*args, **kwargs)
+
+
+def decode(*args, **kwargs):
+    from .codec.torch_codec import decode as _f
+
+    return _f(*args, **kwargs)
+
+
+def encode_mixed(*args, **kwargs):
+    from .runtime.batch import encode_mixed as _f
+
+    return _f(*args, **kwargs)
+
+
+def decode_mixed(*args, **kwargs):
+    from .runtime.batch import decode_mixed as _f
 
     return _f(*args, **kwargs)
 

@@ -10,7 +10,7 @@ import importlib
 
 
 def __getattr__(name):
-    if name in ("decode_batch", "encode_batch"):
+    if name in ("decode_batch", "encode_batch", "decode", "encode"):
         return getattr(importlib.import_module(".torch_codec", __name__), name)
     if name in ("torch_codec", "host_glue", "oracle", "host_codec"):
         return importlib.import_module(f".{name}", __name__)

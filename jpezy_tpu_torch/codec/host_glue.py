@@ -2,7 +2,7 @@
 
 jax_codec imports jax at module level, and the port must not, so the
 numpy/C++ host halves of the encode and decode transports (ycc420,
-restart segments, device and indexed) are copied here verbatim (only
+restart segments, device, indexed and rgb) are copied here verbatim (only
 imports adjusted; _device_luts keeps the LUT mode only, and
 _device_host_frontend destuffs on the calling thread).  Each copy names
 its original; tests/test_torch_pipeline.py and tests/test_torch_restart.py
@@ -120,6 +120,22 @@ def _words_comp_to_mcu(w: np.ndarray, nm: int) -> np.ndarray:
         [w[: nm * 4].reshape(nm, 4, -1),
          w[nm * 4: nm * 5].reshape(nm, 1, -1),
          w[nm * 5:].reshape(nm, 1, -1)], axis=1).reshape(nm * 6, -1)
+
+
+def _decode_entropy_batch(pjs: list[ParsedJpeg]) -> list[list[np.ndarray]]:
+    """Copy of jpezy_tpu.codec.jax_codec._decode_entropy_batch.
+
+    Entropy-decode a batch of parsed streams, thread-parallel across
+    images (the C++ frontend releases the GIL during the ctypes call, so
+    N images decode on N cores -- the host analog of the data axis)."""
+    if len(pjs) <= 1:
+        return [decode_entropy_host(pj) for pj in pjs]
+    import concurrent.futures as cf
+    import os
+
+    workers = min(len(pjs), os.cpu_count() or 1)
+    with cf.ThreadPoolExecutor(workers) as ex:
+        return list(ex.map(decode_entropy_host, pjs))
 
 
 def decode_entropy_host(pj: ParsedJpeg) -> list[np.ndarray]:

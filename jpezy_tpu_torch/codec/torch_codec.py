@@ -1,32 +1,39 @@
-"""Batched encode and decode over uniform image batches (torch).
+"""Batched encode and decode over uniform image batches, and the
+single-image entry points (torch).
 
-Counterpart of the ycc420-transport paths of jpezy_tpu.codec.jax_codec:
+Counterpart of jpezy_tpu.codec.jax_codec:
 
-Encode: host C++ RGB -> YCC 4:2:0 int8 planes (float64, the reference's
-exact truncation) -> ONE packed int8 upload -> blockify, DCT, quantize,
-the CUDA entropy kernel (Huffman emissions and bit packing in one launch
-per component), stream concat -> ONE fetch of `combined` [N, 1 + maxw] ->
-host header + byte stuffing.
+Encode, `ycc420` transport (the default): host C++ RGB -> YCC 4:2:0 int8
+planes (float64, the reference's exact truncation) -> ONE packed int8
+upload -> blockify, DCT, quantize, the CUDA entropy kernel (Huffman
+emissions and bit packing in one launch per component), stream concat ->
+ONE fetch of `combined` [N, 1 + maxw] -> host header + byte stuffing.
+`rgb` transport: ONE [N, H, W, 3] u8 upload, colour conversion and 4:2:0
+decimation on the device (float32 in fast mode), then the same program.
+optimize=True (two passes, per-image optimal Huffman tables): the
+quantized blocks stay on the device, the CUDA histogram kernel counts each
+image's symbols (one launch per component), ONE [N, 4, 256] fetch, the
+host derives two table pairs per image (T.81 K.2), ONE upload of the
+table sets, and the entropy kernel codes every image with its own set in
+one launch per component; each stream carries its own DHT.
 
-Decode: marker parse (every stream must be decodable) -> host C++ Huffman
-frontend + sparsify -> ONE uint8 upload -> densify, dequantize, float32
-IDCT, deblockify, clamp to u8 planes -> ONE fetch -> C++ upsample + color.
-
-Restart streams (encode with restart_interval > 0: DRI + RSTn, every
-segment byte-aligned and with reset DC predictors) decode by default on
-the "device" transport: host destuff of the segments -> upload of the raw
-entropy words -> the CUDA Huffman scan, one lane per segment
-(ops/entropy_decode.py) -> per-image dequantize, IDCT, planes plus one
-corruption flag per image -> ONE fetch.  The "indexed" transport gives
-restart-free streams the same device decode after a length-only host scan.
+Decode: marker parse (every stream must be decodable), then one of four
+transports.  `ycc420`: host C++ Huffman frontend + sparsify -> ONE uint8
+upload -> densify, dequantize, float32 IDCT, deblockify, clamp to u8
+planes -> ONE fetch -> C++ upsample + colour.  `device` (restart
+streams): host destuff of the segments -> upload of the raw entropy words
+-> the CUDA Huffman scan, one lane per segment (ops/entropy_decode.py) ->
+per-image dequantize, IDCT, planes plus one corruption flag per image ->
+ONE fetch.  `indexed` gives restart-free streams the same device decode
+after a length-only host scan.  `rgb`, for any frame: host Huffman
+frontend -> ONE upload of the coefficients -> dequantize, IDCT (float64
+ordered sums in exact mode), deblockify, upsample by the sampling
+factors, colour or gray clamp on the device -> ONE fetch of RGB.
 
 precision:
   "fast"  - float32 transforms at IEEE precision (TF32 refused)
   "exact" - float64 ordered sums, byte-identical to the oracle (encode)
-
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-optimize=True, the "rgb" encode transport, and on decode the "rgb"
-transport, exact-mode decode, gray decode and non-4:2:0 streams.
+            and pixel-identical to the JAX package (decode, rgb)
 """
 from __future__ import annotations
 
@@ -39,17 +46,15 @@ from ..bitstream.splice import splice_blocks
 from ..constants import codec_constants
 from ..core import tables as T
 from ..core.geometry import ComponentGeometry, EncodeGeometry
-from ..core.props import make_encode_props
+from ..core.props import ImageProps, make_encode_props
 from ..device import resolve
 from ..ops import blocks as B
+from ..ops import colorspace as C
 from ..ops import dct as D
 from ..ops import entropy as E
 from ..ops import entropy_decode as ED
 from ..ops import quantize as Q
 from . import host_glue as HG
-
-_TODO = "not ported to jpezy_tpu_torch yet (ROADMAP.md, Queue 1: {})"
-
 
 def _dtype(precision: str):
     if precision == "exact":
@@ -89,7 +94,8 @@ def _quantize_local_ycc(y, cb, cr, *, gray: bool, dtype, rounded: bool,
     return tuple(out)
 
 
-def _emit_local(yq, cbq, crq, restart_interval: int = 0):
+def _emit_local(yq, cbq, crq, restart_interval: int = 0,
+                tables=(None, None)):
     """Quantized blocks -> per-component (words, bits), component order
     (parallel/sharded.py:_emit_local with tile_axis=None, interleave=False).
 
@@ -97,13 +103,18 @@ def _emit_local(yq, cbq, crq, restart_interval: int = 0):
     once the per-image DC chains are captured in the predictors.  One
     entropy kernel per component (E.encode_block_words).
     restart_interval > 0 resets each component's predictor chain every
-    that many MCUs (4 blocks of Y, 1 of Cb and of Cr per MCU)."""
+    that many MCUs (4 blocks of Y, 1 of Cb and of Cr per MCU).
+    tables: (luma, chroma) Huffman tables in the JAX order, each None (the
+    fixed tables) or one set per image with a leading [N] axis."""
     words, bits = [], []
-    for q, chroma, bpm in ((yq, False, 4), (cbq, True, 1), (crq, True, 1)):
+    for q, chroma, bpm, tabs in ((yq, False, 4, tables[0]),
+                                 (cbq, True, 1, tables[1]),
+                                 (crq, True, 1, tables[1])):
         n, b, _ = q.shape
         pred = E.dc_predictors_restart(q[:, :, 0], restart_interval * bpm)
         w_c, b_c = E.encode_block_words(q.reshape(-1, 64), pred.reshape(-1),
-                                        chroma)
+                                        chroma, tables=tabs,
+                                        blocks_per_image=b)
         words.append(w_c.reshape(n, b, w_c.shape[-1]))
         bits.append(b_c.reshape(n, b))
     return tuple(words), tuple(bits)
@@ -148,6 +159,23 @@ def _concat_batch_combined_comp(wc, bc, restart_interval: int = 0):
     return combined, words_c, bits_mcu
 
 
+def _qtables(quality: int | None, dev):
+    """(luma, chroma) quant tables on dev; None = the fixed Annex K."""
+    if quality is None:
+        return None
+    c = codec_constants(dev, quality)
+    return (c["y_quant"], c["c_quant"])
+
+
+def _unpack_ycc(packed: torch.Tensor, h: int, w: int):
+    """packed [N, H*W + 2*(H/2)*(W/2)] int8 -> (y, cb, cr) planes."""
+    N = packed.shape[0]
+    ny, nc = h * w, (h // 2) * (w // 2)
+    return (packed[:, :ny].reshape(N, h, w),
+            packed[:, ny:ny + nc].reshape(N, h // 2, w // 2),
+            packed[:, ny + nc:].reshape(N, h // 2, w // 2))
+
+
 def _encode_batch_blocks_packed(packed: torch.Tensor, *, h: int, w: int,
                                 gray: bool = False, precision: str = "fast",
                                 rounded: bool = False,
@@ -156,20 +184,95 @@ def _encode_batch_blocks_packed(packed: torch.Tensor, *, h: int, w: int,
     """Device program of the ycc420 transport: packed [N, H*W +
     2*(H/2)*(W/2)] int8 holds Y then Cb then Cr per image
     (jax_codec._encode_batch_blocks_packed)."""
-    N = packed.shape[0]
-    ny, nc = h * w, (h // 2) * (w // 2)
-    y = packed[:, :ny].reshape(N, h, w)
-    cb = packed[:, ny:ny + nc].reshape(N, h // 2, w // 2)
-    cr = packed[:, ny + nc:].reshape(N, h // 2, w // 2)
-    qtables = None
-    if quality is not None:
-        c = codec_constants(packed.device, quality)
-        qtables = (c["y_quant"], c["c_quant"])
-    yq, cbq, crq = _quantize_local_ycc(
-        y, cb, cr, gray=gray, dtype=_dtype(precision), rounded=rounded,
-        qtables=qtables)
+    yq, cbq, crq = _quantize_batch_ycc(packed, h=h, w=w, gray=gray,
+                                       precision=precision, rounded=rounded,
+                                       quality=quality)
     wc, bc = _emit_local(yq, cbq, crq, restart_interval)
     return _concat_batch_combined_comp(wc, bc, restart_interval)
+
+
+def _quantize_batch_rgb(rgb: torch.Tensor, *, gray: bool = False,
+                        precision: str = "fast", rounded: bool = False,
+                        quality: int | None = None):
+    """rgb [N, H, W, 3] uint8 on the device -> per-component quantized
+    blocks [N, B, 64] (jax_codec._encode_batch_blocks up to the entropy
+    coding, via parallel/sharded.py:_encode_local): colour conversion at
+    the precision's dtype, then 4:2:0 decimation."""
+    dt = _dtype(precision)
+    y, cb, cr = C.rgb_to_ycc(rgb[..., 0], rgb[..., 1], rgb[..., 2], dt)
+    return _quantize_local_ycc(
+        y, B.decimate_420(cb), B.decimate_420(cr), gray=gray, dtype=dt,
+        rounded=rounded, qtables=_qtables(quality, rgb.device))
+
+
+def _encode_batch_blocks(rgb: torch.Tensor, *, gray: bool = False,
+                         precision: str = "fast", rounded: bool = False,
+                         quality: int | None = None,
+                         restart_interval: int = 0):
+    """Device program of the rgb transport (jax_codec._encode_batch_blocks):
+    rgb [N, H, W, 3] uint8 -> (combined, words in component order,
+    bits in MCU order), as _encode_batch_blocks_packed returns them."""
+    yq, cbq, crq = _quantize_batch_rgb(rgb, gray=gray, precision=precision,
+                                       rounded=rounded, quality=quality)
+    wc, bc = _emit_local(yq, cbq, crq, restart_interval)
+    return _concat_batch_combined_comp(wc, bc, restart_interval)
+
+
+def _quantize_batch_ycc(packed: torch.Tensor, *, h: int, w: int,
+                        gray: bool = False, precision: str = "fast",
+                        rounded: bool = False, quality: int | None = None):
+    """ycc420 upload -> per-component quantized blocks [N, B, 64]
+    (jax_codec._quantize_batch_ycc)."""
+    return _quantize_local_ycc(
+        *_unpack_ycc(packed, h, w), gray=gray, dtype=_dtype(precision),
+        rounded=rounded, qtables=_qtables(quality, packed.device))
+
+
+def _symbol_histograms_batch(yq, cbq, crq, *, restart_interval: int = 0):
+    """Per-image Huffman symbol counts [N, 4, 256] int32: Y-DC, Y-AC, C-DC,
+    C-AC, chroma summed over Cb and Cr (jax_codec._symbol_histograms_batch).
+    One histogram kernel per component on CUDA tensors."""
+    hists = []
+    for q, bpm in ((yq, 4), (cbq, 1), (crq, 1)):
+        n, b, _ = q.shape
+        pred = E.dc_predictors_restart(q[:, :, 0], restart_interval * bpm)
+        hists.append(E.symbol_histograms(q.reshape(-1, 64), pred.reshape(-1),
+                                         blocks_per_image=b))
+    y, cb, cr = hists
+    return torch.cat([y, cb + cr], dim=1)
+
+
+def _encode_batch_custom(yq, cbq, crq, ytables, ctables, *,
+                         restart_interval: int = 0):
+    """Entropy-code a batch with PER-IMAGE Huffman tables
+    (jax_codec._encode_batch_custom): ytables/ctables are (dc_size,
+    dc_code, ac_size, ac_code) with a leading [N] axis, on the host.  One
+    entropy kernel per component codes every image with its own set; the
+    stream matches the JAX package's, the words stay in component order
+    (as _encode_batch_blocks_packed returns them)."""
+    if yq.is_cuda:  # the kernel's rows, laid out on the host: one upload each
+        ytables, ctables = (E.kernel_tables(t, yq.device)
+                            for t in (ytables, ctables))
+    wc, bc = _emit_local(yq, cbq, crq, restart_interval,
+                         tables=(ytables, ctables))
+    return _concat_batch_combined_comp(wc, bc, restart_interval)
+
+
+def _optimal_tables(hists: np.ndarray):
+    """Host half of optimize: [N, 4, 256] counts -> per image the DHT
+    (bits, vals) blobs, and the per-image flat tables of luma and chroma
+    (JAX order, numpy with a leading [N] axis)."""
+    huffs, flats = [], []
+    for i in range(hists.shape[0]):
+        ydc_bv, yac_bv, *yflat = T.optimal_flat_tables(hists[i, 0],
+                                                       hists[i, 1])
+        cdc_bv, cac_bv, *cflat = T.optimal_flat_tables(hists[i, 2],
+                                                       hists[i, 3])
+        huffs.append((ydc_bv, cdc_bv, yac_bv, cac_bv))
+        flats.append((yflat, cflat))
+    ytables, ctables = (tuple(np.stack([f[g][k] for f in flats])
+                              for k in range(4)) for g in range(2))
+    return huffs, ytables, ctables
 
 
 def encode_batch_dispatch(rgbs: np.ndarray, *, gray: bool = False,
@@ -178,12 +281,24 @@ def encode_batch_dispatch(rgbs: np.ndarray, *, gray: bool = False,
                           quality: int | None = None,
                           restart_interval: int = 0,
                           optimize: bool = False,
-                          device: str | torch.device = "cuda"):
-    """Host colour conversion, one upload and the device program for a
-    uniform batch [N, H, W, 3] uint8 (H, W multiples of 16).
+                          device: str | torch.device = "cuda",
+                          _size: tuple[int, int] | None = None,
+                          _props: ImageProps | None = None):
+    """Colour conversion, one upload and the device program for a uniform
+    batch [N, H, W, 3] uint8 (H, W multiples of 16).
+
+    transport: "ycc420" (default) converts colour on the host (C++,
+    float64) and uploads int8 planes, half the bytes of "rgb", which
+    uploads the RGB samples and converts on the device (float32 in fast
+    mode; exact mode gives identical streams).  optimize derives per-image
+    optimal Huffman tables: it waits for one [N, 4, 256] histogram fetch
+    and runs the table derivation on the host, and implies the ycc420
+    transport.  _size (width, height) and _props carry an image's true
+    size and properties into the header when encode() padded it to the
+    MCU grid.
 
     Returns a ticket for encode_batch_finish.  CUDA work is queued on the
-    current stream; nothing here waits for it."""
+    current stream; nothing here waits for it, except optimize's fetch."""
     dev = resolve(device)
     n, h, w = rgbs.shape[:3]
     if h % 16 or w % 16:
@@ -191,36 +306,55 @@ def encode_batch_dispatch(rgbs: np.ndarray, *, gray: bool = False,
     if restart_interval < 0:
         raise ValueError(
             f"restart_interval must be >= 0, got {restart_interval}")
-    if optimize:
-        raise NotImplementedError("optimize=True is " + _TODO.format(
-            "optimize (symbol_histograms, _encode_batch_custom)"))
-    if transport not in (None, "ycc420"):
-        raise NotImplementedError(f"transport={transport!r} is " + _TODO.format(
-            "the rgb transports"))
+    if transport not in (None, "ycc420", "rgb"):
+        raise ValueError(f"unknown encode transport {transport!r}")
     _dtype(precision)
     if quality is not None:
         T.scale_quant_tables(quality)  # validate before any device work
+    ri = restart_interval
+    ticket = dict(n=n, h=h, w=w, gray=gray, quality=quality, ri=ri,
+                  huff=None, size=_size, props=_props)
+    if transport == "rgb" and not optimize:
+        combined, words, bits = _encode_batch_blocks(
+            torch.from_numpy(np.ascontiguousarray(rgbs, np.uint8)).to(dev),
+            gray=gray, precision=precision, rounded=rounded, quality=quality,
+            restart_interval=ri)
+        return dict(ticket, combined=combined, words=words, bits=bits)
     y, cb, cr = HG.host_rgb_to_ycc420(rgbs)
-    packed = np.concatenate(
-        [y.reshape(n, -1), cb.reshape(n, -1), cr.reshape(n, -1)], axis=1)
-    combined, words, bits = _encode_batch_blocks_packed(
-        torch.from_numpy(packed).to(dev), h=h, w=w, gray=gray,
-        precision=precision, rounded=rounded, quality=quality,
-        restart_interval=restart_interval)
-    return dict(combined=combined, words=words, bits=bits, n=n, h=h, w=w,
-                gray=gray, quality=quality, ri=restart_interval)
+    packed = torch.from_numpy(np.concatenate(
+        [y.reshape(n, -1), cb.reshape(n, -1), cr.reshape(n, -1)],
+        axis=1)).to(dev)
+    if not optimize:
+        combined, words, bits = _encode_batch_blocks_packed(
+            packed, h=h, w=w, gray=gray, precision=precision,
+            rounded=rounded, quality=quality, restart_interval=ri)
+        return dict(ticket, combined=combined, words=words, bits=bits)
+    yq, cbq, crq = _quantize_batch_ycc(packed, h=h, w=w, gray=gray,
+                                       precision=precision, rounded=rounded,
+                                       quality=quality)
+    hists = _symbol_histograms_batch(yq, cbq, crq,
+                                     restart_interval=ri).cpu().numpy()
+    huffs, ytables, ctables = _optimal_tables(hists)
+    combined, words, bits = _encode_batch_custom(
+        yq, cbq, crq, ytables, ctables, restart_interval=ri)
+    return dict(ticket, combined=combined, words=words, bits=bits,
+                huff=huffs)
 
 
 def encode_batch_finish(ticket) -> list[bytes]:
-    """Fetch `combined` once and assemble the JFIF streams on the host."""
+    """Fetch `combined` once and assemble the JFIF streams on the host
+    (with optimize, each with its own DHT)."""
     combined = ticket["combined"].cpu().numpy().astype(np.uint32)
     n, h, w = ticket["n"], ticket["h"], ticket["w"]
-    quality, ri = ticket["quality"], ticket["ri"]
+    quality, ri, huff = ticket["quality"], ticket["ri"], ticket["huff"]
     geo = EncodeGeometry(width=w, height=h)
     S = -(-geo.num_mcus // ri) if ri else 0
     maxw = combined.shape[1] - 1 - S
     qt = T.scale_quant_tables(quality) if quality is not None else None
-    props = make_encode_props(w, h, gray=ticket["gray"])
+    # headers carry the TRUE dims when encode() padded to the MCU grid;
+    # the grid is unchanged by the pad, so only the SOF0 W/H differ
+    tw, th = ticket["size"] or (w, h)
+    props = ticket["props"] or make_encode_props(tw, th, gray=ticket["gray"])
     header = writer.write_header(props, restart_interval=ri, quant_tables=qt)
 
     def overflowed(i):
@@ -232,6 +366,9 @@ def encode_batch_finish(ticket) -> list[bytes]:
 
     out = []
     for i in range(n):
+        if huff is not None:  # per-image optimal tables
+            header = writer.write_header(props, restart_interval=ri,
+                                         quant_tables=qt, huff_tables=huff[i])
         total = int(combined[i, 0])
         if ri:
             seg_bits = combined[i, 1:1 + S]
@@ -260,6 +397,35 @@ def encode_batch(rgbs: np.ndarray, *, gray: bool = False,
         rgbs, gray=gray, precision=precision, rounded=rounded,
         transport=transport, quality=quality,
         restart_interval=restart_interval, optimize=optimize, device=device))
+
+
+def encode(r: np.ndarray, g: np.ndarray, b: np.ndarray,
+           props: ImageProps | None = None, *, gray: bool = False,
+           precision: str = "fast", rounded: bool = False,
+           quality: int | None = None, restart_interval: int = 0,
+           optimize: bool = False,
+           device: str | torch.device = "cuda") -> bytes:
+    """Full encode: RGB planes [H, W] uint8 -> baseline JFIF bytes
+    (jax_codec.encode).
+
+    Runs the batch path at N=1 on the ycc420 transport: the planes are
+    edge-replicated to the MCU grid on the host (padding commutes with the
+    pointwise colour conversion, so streams are those of the reference),
+    and the header carries the true size.  quality, restart_interval and
+    optimize are the extensions of encode_batch."""
+    h, w = r.shape
+    geo = EncodeGeometry(width=w, height=h)
+    stacked = np.stack([np.asarray(r), np.asarray(g), np.asarray(b)])
+    ph_, pw_ = geo.padded_height, geo.padded_width
+    if (h, w) != (ph_, pw_):
+        stacked = np.pad(
+            stacked, ((0, 0), (0, ph_ - h), (0, pw_ - w)), mode="edge")
+    ticket = encode_batch_dispatch(
+        np.moveaxis(stacked, 0, -1)[None], gray=gray, precision=precision,
+        rounded=rounded, quality=quality, restart_interval=restart_interval,
+        optimize=optimize, device=device, _props=props,
+        _size=None if (h, w) == (ph_, pw_) else (w, h))
+    return encode_batch_finish(ticket)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -383,23 +549,17 @@ def _decode_fused_batch_device(words, nblk, lut, tsel, rawlen, qarr,
     return torch.cat(outs + [badimg[:, None]], dim=1)
 
 
-def _parse_batch(streams: list[bytes], *, gray: bool, precision: str,
-                 transport: str | None):
+def _parse_batch(streams: list[bytes], *, gray: bool = False,
+                 precision: str = "fast", transport: str | None = None):
     """Marker parse of a uniform batch, with the decodability check on
-    every stream (on every transport), and the checks of what the port
-    decodes so far: fast precision, colour, 3-component 4:2:0.
+    every stream (on every transport).  Any frame the JAX package decodes
+    is taken: 1 or 3 components, any sampling factors.
 
     Returns (pjs, geom, level): geom is the per-component tuple of
     (mcus_y, mcus_x, v, h, dup_y, dup_x) the device programs take."""
-    if transport not in (None, "ycc420", "device", "indexed"):
-        raise NotImplementedError(f"transport={transport!r} is " + _TODO.format(
-            "the rgb transports"))
-    if _dtype(precision) != torch.float32:
-        raise NotImplementedError("precision='exact' decode is " + _TODO.format(
-            "the rgb transports and the exact-mode decode"))
-    if gray:
-        raise NotImplementedError("gray decode is " + _TODO.format(
-            "the rgb transports and the exact-mode decode"))
+    if transport not in (None, "ycc420", "device", "indexed", "rgb"):
+        raise ValueError(f"unknown decode transport {transport!r}")
+    _dtype(precision)
     pjs = [parse(s) for s in streams]
     for pj in pjs:
         check_decodable(pj)
@@ -414,19 +574,48 @@ def _parse_batch(streams: list[bytes], *, gray: bool, precision: str,
         for fc in p0.frame_components
     ]
     mcus_x, mcus_y = geos[0].mcus_x, geos[0].mcus_y
-    std420 = (
-        len(p0.frame_components) == 3
-        and [(fc.H, fc.V) for fc in p0.frame_components] == [(2, 2), (1, 1), (1, 1)]
-    )
-    if not std420:
-        raise NotImplementedError(
-            "decode of streams other than 3-component 4:2:0 is "
-            + _TODO.format("the rgb transports and the exact-mode decode"))
     geom = tuple(
         (mcus_y, mcus_x, fc.V, fc.H, geos[i].dup_y, geos[i].dup_x)
         for i, fc in enumerate(p0.frame_components))
     level = 128 if p0.props.sample_precision == 8 else 2048
     return pjs, geom, level
+
+
+def _std420(pj) -> bool:
+    """3-component 4:2:0 with the standard sampling factors."""
+    return (len(pj.frame_components) == 3
+            and [(fc.H, fc.V) for fc in pj.frame_components]
+            == [(2, 2), (1, 1), (1, 1)])
+
+
+def _pick_transport(pjs, *, gray: bool, precision: str,
+                    transport: str | None) -> str:
+    """The decode transport (jax_codec.decode_batch_dispatch's policy).
+
+    None: "ycc420" for fast standard 4:2:0 colour, and for restart streams
+    "device" when the batch is eligible (uniform DRI, decided from the
+    headers before any device work: no error of the device path is ever
+    caught); "rgb" otherwise.  "ycc420", "device" and "indexed" take fast
+    standard 4:2:0 colour only and raise ValueError on anything else (the
+    JAX package moves an ineligible "ycc420" request to "rgb" without a
+    word); "rgb" takes every frame."""
+    p0 = pjs[0]
+    fast420 = precision == "fast" and _std420(p0) and not gray
+    if transport is None:
+        if not fast420:
+            return "rgb"
+        if p0.restart_interval > 0:
+            try:
+                _check_device_eligible(pjs)
+                return "device"
+            except ValueError:
+                pass
+        return "ycc420"
+    if transport != "rgb" and not fast420:
+        raise ValueError(
+            f"transport={transport!r} supports fast-precision standard "
+            "4:2:0 color streams only")
+    return transport
 
 
 def _ycc420_host_prep(pjs, geom, level):
@@ -455,8 +644,61 @@ def _decode_host_prep(streams: list[bytes], *, gray: bool, precision: str,
         raise ValueError("_decode_host_prep is the ycc420 transport's")
     pjs, geom, level = _parse_batch(streams, gray=gray, precision=precision,
                                     transport=transport)
+    _pick_transport(pjs, gray=gray, precision=precision,
+                    transport="ycc420")  # raises unless eligible
     flat_host, kwargs = _ycc420_host_prep(pjs, geom, level)
     return flat_host, kwargs, pjs[0].props, geom[0][1], geom[0][0]
+
+
+def _rgb_host_prep(pjs, geom, level, *, gray: bool, precision: str):
+    """Host half of the rgb transport: the Huffman frontend of every image
+    (C++, thread-parallel across images) into ONE coefficient array
+    [N, sum(B_i), 64].  Returns (coeff_all, kwargs of
+    _decode_fused_batch)."""
+    p0 = pjs[0]
+    HG._check_uniform_quant(pjs, p0)
+    per_image = HG._decode_entropy_batch(pjs)
+    ncomp = len(p0.frame_components)
+    sizes = tuple(int(per_image[0][c].shape[0]) for c in range(ncomp))
+    dt0 = np.result_type(*[cb.dtype for cb in per_image[0]])
+    coeff_all = np.concatenate(
+        [np.stack([np.asarray(pi[c], dt0) for pi in per_image])
+         for c in range(ncomp)], axis=1)
+    qtuple = tuple(tuple(int(x) for x in p0.quant[fc.Tq])
+                   for fc in p0.frame_components)
+    return coeff_all, dict(geom=geom, level=level,
+                           gray=gray or ncomp == 1, precision=precision,
+                           sizes=sizes, qtuple=qtuple)
+
+
+def _decode_fused_batch(coeff_all: torch.Tensor, *, geom, level, gray,
+                        precision, sizes, qtuple):
+    """Device program of the rgb transport (jax_codec.
+    _decode_fused_batch_packed): coefficients [N, sum(B_i), 64] of every
+    component in one array -> [N, H_mcu, W_mcu, 3] uint8 RGB, or
+    [N, H_mcu, W_mcu, 1] for gray or a 1-component frame.  Dequantize,
+    IDCT at the precision's dtype (float64 ordered sums in exact mode),
+    deblockify, nearest upsample by the sampling factors, then colour or
+    the gray clamp.  Gray needs the luma only, so the chroma components
+    are not transformed."""
+    dt = _dtype(precision)
+    dev = coeff_all.device
+    N = coeff_all.shape[0]
+    planes = []
+    off = 0
+    for n_b, qt, (mcus_y, mcus_x, v, h, dup_y, dup_x) in zip(
+            sizes, qtuple, geom):
+        cb = coeff_all[:, off:off + n_b]
+        off += n_b
+        deq = Q.dequantize(cb.reshape(-1, 64),
+                           torch.tensor(qt, dtype=torch.int32, device=dev))
+        spat = D.inverse_dct(deq, level, dt).reshape(N, n_b, 64)
+        plane = B.deblockify(spat, mcus_y, mcus_x, v, h)
+        planes.append(B.upsample_nearest(plane, dup_y, dup_x))
+        if gray:
+            return C.clamp_gray(planes[0], dt)[..., None]
+    r, g, b = C.ycc_to_rgb(planes[0], planes[1], planes[2], dt)
+    return torch.stack([r, g, b], dim=-1)
 
 
 def _i32(a: np.ndarray, dev) -> torch.Tensor:
@@ -532,50 +774,66 @@ def _decode_batch_indexed_dispatch(pjs, geom, level, dev, k_mcus: int = 8):
     return ("device", packed, p0.props, N, mcus_x, mcus_y)
 
 
+def _dispatch(pjs, geom, level, transport: str, dev, *, gray: bool,
+              precision: str):
+    """Host prep, uploads and device program of one transport; a ticket
+    for decode_batch_finish."""
+    if transport == "device":
+        return _decode_batch_device_dispatch(pjs, geom, level, dev)
+    if transport == "indexed":
+        return _decode_batch_indexed_dispatch(pjs, geom, level, dev)
+    if transport == "ycc420":
+        flat_host, kwargs = _ycc420_host_prep(pjs, geom, level)
+        packed = _decode_fused_batch_ycc420(
+            torch.from_numpy(flat_host).to(dev), **kwargs)
+        return ("ycc420", packed, pjs[0].props, kwargs["N"], geom[0][1],
+                geom[0][0])
+    coeff_all, kwargs = _rgb_host_prep(pjs, geom, level, gray=gray,
+                                       precision=precision)
+    return ("rgb", _decode_fused_batch(torch.from_numpy(coeff_all).to(dev),
+                                       **kwargs), pjs[0].props)
+
+
 def decode_batch_dispatch(streams: list[bytes], *, gray: bool = False,
                           precision: str = "fast",
                           transport: str | None = None,
                           device: str | torch.device = "cuda"):
     """Marker parse, host frontend, uploads and the device program for a
-    uniform batch of 3-component 4:2:0 streams.
+    uniform batch.
 
     transport: "ycc420" runs the Huffman frontend on the host (C++) and
     uploads sparse coefficients; "device" uploads the destuffed entropy
     bytes of restart-interval streams and runs the Huffman decode on the
     device, one lane per restart segment; "indexed" does the same for
-    restart-FREE streams after a length-only host scan.  None picks
-    "device" for restart streams (falling back to "ycc420" only when the
-    batch is not eligible, e.g. mixed restart intervals) and "ycc420"
-    otherwise.  All give the same pixels.
+    restart-FREE streams after a length-only host scan; "rgb" uploads
+    the host frontend's coefficients and fetches RGB, for any frame, gray
+    and precision="exact".  None picks as _pick_transport says.  The
+    first three give the same pixels.
 
     Returns a ticket for decode_batch_finish."""
     dev = resolve(device)
     pjs, geom, level = _parse_batch(streams, gray=gray, precision=precision,
                                     transport=transport)
-    if transport == "indexed":
-        return _decode_batch_indexed_dispatch(pjs, geom, level, dev)
-    if transport is None and pjs[0].restart_interval > 0:
-        # eligibility is decided from the headers, before anything reaches
-        # the device: no error of the device path is ever caught
-        try:
-            _check_device_eligible(pjs)
-            transport = "device"
-        except ValueError:
-            transport = "ycc420"
-    if transport == "device":
-        return _decode_batch_device_dispatch(pjs, geom, level, dev)
-    flat_host, kwargs = _ycc420_host_prep(pjs, geom, level)
-    packed = _decode_fused_batch_ycc420(
-        torch.from_numpy(flat_host).to(dev), **kwargs)
-    return ("ycc420", packed, pjs[0].props, kwargs["N"], geom[0][1],
-            geom[0][0])
+    transport = _pick_transport(pjs, gray=gray, precision=precision,
+                                transport=transport)
+    return _dispatch(pjs, geom, level, transport, dev, gray=gray,
+                     precision=precision)
 
 
 def decode_batch_finish(ticket):
-    """Fetch the planes once; C++ upsample + colour -> ([N,H,W,3] u8, props).
-    A "device" ticket carries one corruption flag per image: raises
-    ValueError naming the streams whose entropy data is corrupt."""
-    kind, packed, props, N, mcus_x, mcus_y = ticket
+    """Fetch the result once and finish on the host -> ([N,H,W,3] u8,
+    props).  ycc420/device tickets: C++ upsample + colour; a "device"
+    ticket carries one corruption flag per image and raises ValueError
+    naming the streams whose entropy data is corrupt.  rgb tickets: crop
+    to the true size, gray repeated to 3 channels."""
+    kind = ticket[0]
+    if kind == "rgb":
+        _, out, props = ticket
+        out = out.cpu().numpy()[:, :props.height, :props.width]
+        if out.shape[-1] == 1:
+            out = np.repeat(out, 3, axis=-1)
+        return out, props
+    _, packed, props, N, mcus_x, mcus_y = ticket
     finish = (HG._decode_batch_device_finish if kind == "device"
               else HG._decode_batch_ycc420_finish)
     return finish((kind, packed.cpu().numpy(), props, N, mcus_x, mcus_y))
@@ -584,9 +842,40 @@ def decode_batch_finish(ticket):
 def decode_batch(streams: list[bytes], *, gray: bool = False,
                  precision: str = "fast", transport: str | None = None,
                  device: str | torch.device = "cuda"):
-    """Decode a batch of same-geometry 4:2:0 JPEGs ->
-    ([N, H, W, 3] uint8, props).  Every stream must be decodable (DHT, DQT
-    and SOS present); raises ValueError otherwise."""
+    """Decode a batch of same-geometry JPEGs -> ([N, H, W, 3] uint8,
+    props).  Every stream must be decodable (DHT, DQT and SOS present);
+    raises ValueError otherwise."""
     return decode_batch_finish(decode_batch_dispatch(
         streams, gray=gray, precision=precision, transport=transport,
         device=device))
+
+
+def decode(data: bytes, *, gray: bool = False, precision: str = "fast",
+           verbose: bool = False, transport: str | None = None,
+           device: str | torch.device = "cuda"):
+    """Decode baseline JPEG bytes -> (r, g, b [H, W] uint8, ImageProps)
+    (jax_codec.decode): the batch transports at N=1, same choices and
+    default policy as decode_batch.
+
+    verbose: per-phase section timers on stdout, the decoder<Debug>
+    analog of the reference."""
+    import contextlib
+
+    from ..utils.timing import SectionTimer
+
+    phase = (lambda msg: SectionTimer(msg, indent="\t")) if verbose \
+        else (lambda msg: contextlib.nullcontext())
+    dev = resolve(device)
+    with phase("analyzing header..."):
+        pjs, geom, level = _parse_batch([data], gray=gray,
+                                        precision=precision,
+                                        transport=transport)
+    transport = _pick_transport(pjs, gray=gray, precision=precision,
+                                transport=transport)
+    with phase("entropy frontend + sparse upload (dispatch)..."):
+        ticket = _dispatch(pjs, geom, level, transport, dev, gray=gray,
+                           precision=precision)
+    with phase("device backend + fetch + color tail..."):
+        out, props = decode_batch_finish(ticket)
+    out = out[0]
+    return out[..., 0], out[..., 1], out[..., 2], props

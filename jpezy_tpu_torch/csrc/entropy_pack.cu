@@ -1,11 +1,13 @@
-// Per-block Huffman entropy encode and bit packing for Hopper (sm_90a).
+// Per-block Huffman entropy encode and bit packing for Hopper (sm_90a),
+// and the symbol counts of the optimized encode's first pass.
 //
 // Replaces the Pallas TPU kernel jpezy_tpu/ops/pack_pallas.py
 // (_pack_kernel / pack_words_pallas) and every form of
 // jpezy_tpu/ops/entropy.py:pack_block_words (reduce, prefix, fori): it
 // folds in the exclusive cumsum of the emission lengths and the 96-bit
 // window alignment (entropy._window_words) that the JAX package computes
-// around its kernel.  Two entry points share one pack routine:
+// around its kernel.  Three entry points; the first two share one pack
+// routine:
 //
 //   jz_pack_words     the one-to-one counterpart of the Pallas kernel.
 //     In:  hi, lo [B, 64] uint32 halves of each merged emission (the
@@ -15,15 +17,26 @@
 //     block_emissions followed by pack_block_words); the encode program
 //     uses this one, so emissions never reach device memory.
 //     In:  q [B, 64] int32 quantized blocks in natural order, pred [B]
-//          int32 DC predictors, and the component's Huffman tables as int32
-//          arrays: dc_code, dc_size [12] by magnitude category, ac_code,
-//          ac_size [162] in the flat layout idx = rem*10 + s + (rem == 15)
-//          (EOB at 0, ZRL at 151).
+//          int32 DC predictors, and T sets of Huffman tables, int32
+//          [T, 348]: each row dc_code, dc_size [12] by magnitude category,
+//          then ac_code, ac_size [162] in the flat layout
+//          idx = rem*10 + s + (rem == 15) (EOB at 0, ZRL at 151).  `custom`
+//          says the tables are the caller's (optimize): block b takes set
+//          b / blocks_per_image (per-image optimal tables; one launch for
+//          the whole batch), and an emission may exceed 64 bits.  Without
+//          it the one set is the fixed Annex K tables.
 //   Out of both: words [B, 64] MSB-first packed block bitstring, 32-bit
 //     words stored zero-extended as uint64, which is the int64 word
 //     convention of the stream concat (storing them as uint32 and widening
 //     them in a second pass was measured slower, PERF.md); bits [B] int32
 //     total bits.
+//   jz_symbol_histograms  the counts of jpezy_tpu/ops/entropy.py:
+//     symbol_histograms, vmapped over images (jax_codec.
+//     _symbol_histograms_batch), which XLA fused on the TPU: no Pallas
+//     source.  In: q [B, 64], pred [B] as above, blocks_per_image.  Out:
+//     hist [N, 2, 256] int32, zeroed by the caller: per image the DC
+//     magnitude categories and the AC symbols RRRRSSSS with ZRL (0xF0) and
+//     EOB (0x00), the symbols jz_encode_blocks would emit.
 //
 // Design: a warp owns an 8x8 block.  Lane l owns emission slots l and l+32,
 // so a warp reads its block's 256-byte row of each input in two 128-byte
@@ -31,36 +44,58 @@
 // permutation; two ballots give the nonzero masks of the block's two
 // halves, and a slot's zero run is its position minus the position of the
 // highest set bit below it (__clz), which replaces the cummax of the
-// tensor program.  Each lane builds its two emissions (code + extra bits
-// in 32-bit arithmetic; the rare ZRLs, up to 3, go in front: <= 59 bits
-// with the Annex K tables) in a 64-bit register.  The shared
+// tensor program.  Each lane builds its two emissions in registers: the
+// code and extra bits (<= 27 bits, 32-bit arithmetic) and the rare ZRL
+// prefix in front of them (up to 3 codes).  With the Annex K tables a
+// whole emission has <= 59 bits, and the prefix is merged into one 64-bit
+// register.  Optimal tables allow codes of 16 bits and emissions of up to
+// 74, more than a 64-bit register holds, so the kernel is instantiated
+// twice: the custom-table form keeps the prefix (<= 48 bits) apart as a
+// count until it is placed, and takes each block's table set; the
+// fixed-table form, the main path's, carries neither (28-32 registers
+// against 40).  The shared
 // pack routine then turns lengths into exclusive bit offsets with one warp
 // shuffle scan (both slots' lengths ride in the halves of one register),
-// cuts each emission into its <= 3 words and ORs them with atomicOr into
+// cuts each part into its <= 3 words and ORs them with atomicOr into
 // the warp's 64-word buffer in shared memory (neighbouring lanes can land
 // in one word; emission bit ranges are disjoint, so OR accumulates them),
 // and the 64 words leave as two coalesced stores.  Windows past word 63
 // are dropped, as the masked forms of the JAX package drop them.  No
-// per-thread array, so nothing lives in local memory.
+// per-thread array, so nothing lives in local memory.  A table set is one
+// row of 1,392 bytes (one pointer a block), read through the read-only
+// cache; 22 KB for 16 sets.
 //
-// What bounds it: memory traffic.  Per block the function jz_pack_words
+// The histogram kernel derives the same symbols the same way (one warp a
+// block, ballots, __clz), counts them into a shared-memory histogram of
+// its thread block with warp-aggregated atomicAdd (__match_any_sync: the
+// lanes holding one symbol add once), and flushes the nonzero bins into
+// the per-image histogram in device memory with atomicAdd.  A thread
+// block's blocks may span images: the first two of them are counted in
+// shared memory, blocks of any later image (images of fewer blocks than a
+// thread block takes) straight into device memory.
+//
+// What bounds them: memory traffic.  Per block the function jz_pack_words
 // computes must read 768 bytes and write 64 32-bit words and a count, 260:
 // 1,028 bytes, 101 MB per 16x512x512 4:2:0 batch of 98,304 blocks.  That
 // of jz_encode_blocks must read 260 and write 260: 520 bytes, 51 MB per
-// batch.  These are the bounds.  The zero upper halves of the stored
+// batch (the table sets add 1,392 bytes a set, read through the cache);
+// jz_symbol_histograms reads the same 260 and writes 2 KB an image: 25.7
+// MB per batch.  These are the bounds.  The zero upper halves of the stored
 // words are 256 more bytes per block (1,284 and 776 moved), a cost of the
 // layout and no part of the bound.  The integer work, some tens of short
 // operations per slot, stays below the card's rate for that many bytes.
 // The design answers with coalesced
 // loads and stores, with a warp per block, which keeps the card full of
-// threads (64 warps resident per SM at 28-32 registers and 2 KB of shared
+// threads (64 warps resident per SM at <= 32 registers and 2 KB of shared
 // memory per CTA), and with the fusion, which removes the emissions' 768
 // bytes per block from device memory altogether.  The fused kernel moves
 // so few bytes per block that one block per warp leaves too few loads in
 // flight; each of its warps therefore takes kBlocksPerWarp consecutive
 // blocks and starts all their loads before it uses any (2 measured
-// fastest on an H100; 4 and 8 cost registers and were slower).  Times on
-// the card are in PERF.md.
+// fastest on an H100; 4 and 8 cost registers and were slower).  The
+// histogram kernel takes kHistBlocksPerWarp, which also spreads the
+// flush of its shared histogram over more blocks.  Times on the card are
+// in PERF.md.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,31 +140,63 @@ __device__ __forceinline__ void place(uint32_t* buf, uint64_t v, int n,
   or_word(buf, w0 + 2, __funnelshift_r(0u, ulo, p));
 }
 
+// One set of Huffman tables is kSetEntries int32 in a row: dc_code and
+// dc_size by magnitude category, then ac_code and ac_size in the flat AC
+// layout.
+constexpr int kDcCode = 0;
+constexpr int kDcSize = kDcEntries;
+constexpr int kAcCode = 2 * kDcEntries;
+constexpr int kAcSize = 2 * kDcEntries + kAcEntries;
+constexpr int kSetEntries = 2 * (kDcEntries + kAcEntries);
+
+// `count` ZRL codes of `size` bits of the set t, one after the other
+// (<= 3 x 16 bits).
+__device__ __forceinline__ uint64_t zrl_prefix(const int32_t* t, int count,
+                                               int size) {
+  const uint64_t code = static_cast<uint32_t>(__ldg(t + kAcCode + kZrlIndex));
+  uint64_t z = 0ull;
+  for (int k = 0; k < count; ++k) z = (z << size) | code;
+  return z;
+}
+
 // The shared pack routine.  Every lane of the warp calls it with its two
-// emissions (slot `lane` and slot `lane + 32`); `buf` is the warp's
-// 64-word buffer in shared memory.
-__device__ __forceinline__ void pack_block(uint64_t v0, int n0, uint64_t v1,
-                                           int n1, uint32_t* buf, int lane,
+// emissions (slot `lane` and slot `lane + 32`), each as zc ZRL codes of the
+// table set t followed by a body (v, n) of <= 64 bits; `buf` is the warp's
+// 64-word buffer in shared memory.  The prefix travels as a count and is
+// built only where it is placed: no 64-bit value of it stays live across
+// the scan.  Callers whose emissions are whole pass zc = 0, and the
+// prefix code folds away.
+template <typename V>
+__device__ __forceinline__ void pack_block(int zc0, V v0, int n0, int zc1,
+                                           V v1, int n1, const int32_t* t,
+                                           uint32_t* buf, int lane,
                                            uint64_t* out_row,
                                            int32_t* out_bits) {
-  // inclusive scan of both slots' lengths at once: 32 * 59 < 2**16, so
+  const int zs = (zc0 | zc1) != 0 ? __ldg(t + kAcSize + kZrlIndex) : 0;
+  const int zn0 = zc0 * zs;
+  const int zn1 = zc1 * zs;
+  // inclusive scan of both slots' lengths at once: 32 * 74 < 2**16, so
   // the two sums never meet
-  int incl = n0 | (n1 << 16);
+  const int t0 = zn0 + n0;
+  const int t1 = zn1 + n1;
+  int incl = t0 | (t1 << 16);
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int t = __shfl_up_sync(kFullMask, incl, d);
-    if (lane >= d) incl += t;
+    const int x = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += x;
   }
   const int tot = __shfl_sync(kFullMask, incl, 31);
   const int total0 = tot & 0xFFFF;
-  const int off0 = (incl & 0xFFFF) - n0;
-  const int off1 = total0 + (incl >> 16) - n1;
+  const int off0 = (incl & 0xFFFF) - t0;
+  const int off1 = total0 + (incl >> 16) - t1;
 
   buf[lane] = 0u;
   buf[lane + 32] = 0u;
   __syncwarp();
-  place(buf, v0, n0, off0);
-  place(buf, v1, n1, off1);
+  if (zc0 != 0) place(buf, zrl_prefix(t, zc0, zs), zn0, off0);
+  place(buf, v0, n0, off0 + zn0);
+  if (zc1 != 0) place(buf, zrl_prefix(t, zc1, zs), zn1, off1);
+  place(buf, v1, n1, off1 + zn1);
   __syncwarp();
   out_row[lane] = buf[lane];
   out_row[lane + 32] = buf[lane + 32];
@@ -152,16 +219,21 @@ __global__ void __launch_bounds__(kWarpsPerCta * 32)
       (static_cast<uint64_t>(hi[base + lane]) << 32) | lo[base + lane];
   const uint64_t v1 = (static_cast<uint64_t>(hi[base + lane + 32]) << 32) |
                       lo[base + lane + 32];
-  pack_block(v0, nbits[base + lane], v1, nbits[base + lane + 32], bufs[warp],
-             lane, words + base, bits + b);
+  pack_block(0, v0, nbits[base + lane], 0, v1, nbits[base + lane + 32],
+             nullptr, bufs[warp], lane, words + base, bits + b);
 }
 
-struct HuffTables {
-  const int32_t* dc_code;
-  const int32_t* dc_size;
-  const int32_t* ac_code;
-  const int32_t* ac_size;
-};
+// The table set of block b out of `nsets` (b / blocks_per_image; the
+// launcher keeps b below 2**31 when nsets > 1).
+__device__ __forceinline__ const int32_t* table_set(const int32_t* tables,
+                                                    int64_t b, int nsets,
+                                                    int64_t blocks_per_image) {
+  if (nsets <= 1) return tables;
+  const int s = min(static_cast<int>(static_cast<uint32_t>(b) /
+                                     static_cast<uint32_t>(blocks_per_image)),
+                    nsets - 1);
+  return tables + s * kSetEntries;
+}
 
 // Magnitude category: bit length of |v| (0 for v == 0).
 __device__ __forceinline__ int category(int v) {
@@ -177,49 +249,67 @@ __device__ __forceinline__ uint32_t code_and_extra(uint32_t code, int v,
   return (code << s) | extra;
 }
 
+// The type of an emission's body: the code and extra bits alone (custom
+// tables), or the whole emission with its ZRL prefix merged in (<= 59
+// bits, the fixed tables).
+template <bool kCustom>
+struct Body {
+  using type = uint64_t;
+};
+template <>
+struct Body<true> {
+  using type = uint32_t;
+};
+
 // Slot 0: the DC code and extra bits of diff = DC - predictor.
-__device__ __forceinline__ void dc_emission(int diff, const HuffTables& t,
-                                            uint64_t& v, int& n) {
+template <typename V>
+__device__ __forceinline__ void dc_emission(int diff, const int32_t* t,
+                                            V& v, int& n) {
   const int s = min(category(diff), kDcEntries - 1);
-  v = code_and_extra(static_cast<uint32_t>(__ldg(t.dc_code + s)), diff, s);
-  n = __ldg(t.dc_size + s) + s;
+  v = code_and_extra(static_cast<uint32_t>(__ldg(t + kDcCode + s)), diff, s);
+  n = __ldg(t + kDcSize + s) + s;
 }
 
 // Slot j in 1..63: the coefficient c at zigzag position j, `prev` the
 // position of the last nonzero coefficient before it (0 if none).  A
 // nonzero c emits one ZRL per 16 zeros of its run, then the (run & 15,
-// category) code and the extra bits; a zero emits nothing, except EOB at
-// position 63.
+// category) code and the extra bits (v, n); a zero emits nothing, except
+// EOB at position 63.  With custom tables the ZRLs are returned as their
+// count zc; with the fixed ones they are merged into v (zc = 0).
+template <bool kCustom>
 __device__ __forceinline__ void ac_emission(int c, int j, int prev,
-                                            const HuffTables& t, uint64_t& v,
+                                            const int32_t* t, int& zc,
+                                            typename Body<kCustom>::type& v,
                                             int& n) {
-  v = 0ull;
+  zc = 0;
+  v = 0u;
   n = 0;
   if (c != 0) {
     const int run = j - prev - 1;
     const int rem = run & 15;
     const int s = category(c);
     const int idx = min(rem * 10 + s + (rem == 15 ? 1 : 0), kAcEntries - 1);
-    v = code_and_extra(static_cast<uint32_t>(__ldg(t.ac_code + idx)), c, s);
-    n = __ldg(t.ac_size + idx) + s;
-    if (run >= 16) {  // rare: up to three ZRL codes go in front
-      const uint64_t zrl_code =
-          static_cast<uint32_t>(__ldg(t.ac_code + kZrlIndex));
-      const int zrl_size = __ldg(t.ac_size + kZrlIndex);
-      uint64_t z = 0ull;
-      for (int k = 0; k < (run >> 4); ++k) z = (z << zrl_size) | zrl_code;
-      v |= z << n;
-      n += (run >> 4) * zrl_size;
+    v = code_and_extra(static_cast<uint32_t>(__ldg(t + kAcCode + idx)), c, s);
+    n = __ldg(t + kAcSize + idx) + s;
+    if constexpr (kCustom) {
+      zc = run >> 4;  // rare: up to three ZRL codes go in front
+    } else if (run >= 16) {  // rare, and <= 3 x 11 + 27 bits in all
+      const int zs = __ldg(t + kAcSize + kZrlIndex);
+      v |= zrl_prefix(t, run >> 4, zs) << n;
+      n += (run >> 4) * zs;
     }
   } else if (j == kSlots - 1) {
-    v = static_cast<uint32_t>(__ldg(t.ac_code + kEobIndex));
-    n = __ldg(t.ac_size + kEobIndex);
+    v = static_cast<uint32_t>(__ldg(t + kAcCode + kEobIndex));
+    n = __ldg(t + kAcSize + kEobIndex);
   }
 }
 
+template <bool kCustom>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
     encode_blocks_kernel(const int32_t* __restrict__ q,
-                         const int32_t* __restrict__ pred, HuffTables tables,
+                         const int32_t* __restrict__ pred,
+                         const int32_t* __restrict__ tables, int nsets,
+                         int64_t blocks_per_image,
                          uint64_t* __restrict__ words, int32_t* __restrict__ bits,
                          int64_t nblocks) {
   __shared__ uint32_t bufs[kWarpsPerCta][kWords];
@@ -247,24 +337,124 @@ __global__ void __launch_bounds__(kWarpsPerCta * 32)
   for (int i = 0; i < kBlocksPerWarp; ++i) {
     const int64_t b = b0 + i;
     if (b >= nblocks) break;
+    const int32_t* t = tables;
+    if constexpr (kCustom) t = table_set(tables, b, nsets, blocks_per_image);
     // nonzero masks of zigzag positions 0..31 and 32..63; bit 0 (the DC)
     // is always set, so "no nonzero AC before me" reads as position 0
     const uint32_t nz_lo = __ballot_sync(kFullMask, c0[i] != 0) | 1u;
     const uint32_t nz_hi = __ballot_sync(kFullMask, c1[i] != 0);
     const uint32_t below_hi = nz_hi & lanes_below;
-    uint64_t v0, v1;
-    int n0, n1;
+    typename Body<kCustom>::type v0, v1;
+    int zc0, n0, zc1, n1;
     if (lane == 0) {
-      dc_emission(c0[i] - dcp[i], tables, v0, n0);
+      zc0 = 0;
+      dc_emission(c0[i] - dcp[i], t, v0, n0);
     } else {
-      ac_emission(c0[i], lane, 31 - __clz(nz_lo & lanes_below), tables, v0,
-                  n0);
+      ac_emission<kCustom>(c0[i], lane, 31 - __clz(nz_lo & lanes_below), t,
+                           zc0, v0, n0);
     }
-    ac_emission(c1[i], lane + 32,
-                below_hi != 0u ? 63 - __clz(below_hi) : 31 - __clz(nz_lo),
-                tables, v1, n1);
-    pack_block(v0, n0, v1, n1, bufs[warp], lane, words + b * kSlots,
-               bits + b);
+    ac_emission<kCustom>(
+        c1[i], lane + 32,
+        below_hi != 0u ? 63 - __clz(below_hi) : 31 - __clz(nz_lo), t, zc1, v1,
+        n1);
+    pack_block(zc0, v0, n0, zc1, v1, n1, t, bufs[warp], lane,
+               words + b * kSlots, bits + b);
+  }
+}
+
+// ---- pass 1 of the optimized encode: per-image symbol counts
+
+constexpr int kHistBins = 256;                 // per row: DC, then AC
+constexpr int kHistImageBins = 2 * kHistBins;  // one image's [2, 256]
+constexpr int kHistImages = 2;       // images a thread block counts in shared
+constexpr int kHistBlocksPerWarp = 4;
+constexpr int kEobBin = kHistBins + 0x00;
+constexpr int kZrlBin = kHistBins + 0xF0;
+
+// Category capped at 12, as the JAX package's comparison ladder
+// (bit_category, max_bits=12) caps it.
+__device__ __forceinline__ int category12(int v) {
+  return min(category(v), 12);
+}
+
+// The AC bin of a nonzero coefficient c at zigzag position j after the
+// nonzero at `prev` (the symbol RRRRSSSS of its run & 15 and category),
+// its ZRL count run >> 4; a zero is no symbol (-1), except EOB at 63.
+__device__ __forceinline__ int ac_bin(int c, int j, int prev, int& zrls) {
+  if (c != 0) {
+    const int run = j - prev - 1;
+    zrls = run >> 4;
+    return kHistBins + (((run & 15) << 4) | category12(c));
+  }
+  zrls = 0;
+  return j == kSlots - 1 ? kEobBin : -1;
+}
+
+// Add one for every lane's bin (-1: none): the lanes holding one bin add
+// their count once, through their lowest lane.
+__device__ __forceinline__ void count_bin(int32_t* hist, int bin, int lane) {
+  const unsigned peers = __match_any_sync(kFullMask, bin);
+  if (bin >= 0 && lane == __ffs(peers) - 1)
+    atomicAdd(hist + bin, __popc(peers));
+}
+
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+    symbol_histograms_kernel(const int32_t* __restrict__ q,
+                             const int32_t* __restrict__ pred,
+                             int32_t* __restrict__ hist, int64_t nblocks,
+                             int64_t blocks_per_image) {
+  __shared__ int32_t sh[kHistImages * kHistImageBins];
+  for (int i = threadIdx.x; i < kHistImages * kHistImageBins; i += blockDim.x)
+    sh[i] = 0;
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int64_t cta0 =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerCta * kHistBlocksPerWarp;
+  const int64_t img0 = cta0 / blocks_per_image;
+  const int64_t b0 = cta0 + warp * kHistBlocksPerWarp;
+  if (b0 < nblocks) {  // warp-uniform; no return: the flush below syncs
+    const int z0 = kZigzag[lane];
+    const int z1 = kZigzag[lane + 32];
+    int c0[kHistBlocksPerWarp], c1[kHistBlocksPerWarp],
+        dcp[kHistBlocksPerWarp];
+#pragma unroll
+    for (int i = 0; i < kHistBlocksPerWarp; ++i) {
+      const int64_t b = b0 + i < nblocks ? b0 + i : b0;
+      c0[i] = __ldg(q + b * kSlots + z0);
+      c1[i] = __ldg(q + b * kSlots + z1);
+      dcp[i] = lane == 0 ? __ldg(pred + b) : 0;
+    }
+    const uint32_t lanes_below = (1u << lane) - 1u;
+#pragma unroll
+    for (int i = 0; i < kHistBlocksPerWarp; ++i) {
+      const int64_t b = b0 + i;
+      if (b >= nblocks) break;
+      const int64_t img = b / blocks_per_image;
+      int32_t* h = img - img0 < kHistImages
+                       ? sh + (img - img0) * kHistImageBins
+                       : hist + img * kHistImageBins;
+      const uint32_t nz_lo = __ballot_sync(kFullMask, c0[i] != 0) | 1u;
+      const uint32_t nz_hi = __ballot_sync(kFullMask, c1[i] != 0);
+      const uint32_t below_hi = nz_hi & lanes_below;
+      int zrl0 = 0, zrl1;
+      const int bin0 =
+          lane == 0 ? category12(c0[i] - dcp[i])
+                    : ac_bin(c0[i], lane, 31 - __clz(nz_lo & lanes_below),
+                             zrl0);
+      const int bin1 = ac_bin(
+          c1[i], lane + 32,
+          below_hi != 0u ? 63 - __clz(below_hi) : 31 - __clz(nz_lo), zrl1);
+      count_bin(h, bin0, lane);
+      count_bin(h, bin1, lane);
+      if (zrl0 + zrl1 > 0) atomicAdd(h + kZrlBin, zrl0 + zrl1);  // rare
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kHistImages * kHistImageBins;
+       i += blockDim.x) {
+    const int32_t v = sh[i];
+    if (v != 0) atomicAdd(hist + img0 * kHistImageBins + i, v);
   }
 }
 
@@ -282,8 +472,8 @@ bool grid_for(long long nblocks, int per_warp, unsigned* grid) {
 
 extern "C" {
 
-// Both entry points launch on `stream` (PyTorch's current stream) and
-// return cudaGetLastError(): 0 on success.  Neither synchronises.
+// Every entry point launches on `stream` (PyTorch's current stream) and
+// returns cudaGetLastError(): 0 on success.  None synchronises.
 
 int jz_pack_words(const void* hi, const void* lo, const void* nbits,
                   void* words, void* bits, long long nblocks, void* stream) {
@@ -299,21 +489,42 @@ int jz_pack_words(const void* hi, const void* lo, const void* nbits,
   return static_cast<int>(cudaGetLastError());
 }
 
-int jz_encode_blocks(const void* q, const void* pred, const void* dc_code,
-                     const void* dc_size, const void* ac_code,
-                     const void* ac_size, void* words, void* bits,
-                     long long nblocks, void* stream) {
+// tables [nsets, kSetEntries] int32.  custom != 0: the caller's tables,
+// with nsets > 1 block b takes set b / blocks_per_image; custom == 0: the
+// one fixed Annex K set (nsets must be 1).
+int jz_encode_blocks(const void* q, const void* pred, const void* tables,
+                     int nsets, int custom, long long blocks_per_image,
+                     void* words, void* bits, long long nblocks,
+                     void* stream) {
   if (nblocks <= 0) return 0;
+  if (nsets < 1 || (!custom && nsets != 1) ||
+      (nsets > 1 && (blocks_per_image <= 0 || nblocks > 0x7FFFFFFFll)))
+    return static_cast<int>(cudaErrorInvalidValue);
   unsigned grid;
   if (!grid_for(nblocks, kBlocksPerWarp, &grid))
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const HuffTables t{
-      static_cast<const int32_t*>(dc_code), static_cast<const int32_t*>(dc_size),
-      static_cast<const int32_t*>(ac_code), static_cast<const int32_t*>(ac_size)};
-  encode_blocks_kernel<<<grid, kWarpsPerCta * 32, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(q), static_cast<const int32_t*>(pred), t,
+  auto kernel =
+      custom ? encode_blocks_kernel<true> : encode_blocks_kernel<false>;
+  kernel<<<grid, kWarpsPerCta * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(q), static_cast<const int32_t*>(pred),
+      static_cast<const int32_t*>(tables), nsets, blocks_per_image,
       static_cast<uint64_t*>(words), static_cast<int32_t*>(bits), nblocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hist [nblocks / blocks_per_image, 2, 256] int32, zeroed by the caller.
+int jz_symbol_histograms(const void* q, const void* pred, void* hist,
+                         long long blocks_per_image, long long nblocks,
+                         void* stream) {
+  if (nblocks <= 0) return 0;
+  if (blocks_per_image <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned grid;
+  if (!grid_for(nblocks, kHistBlocksPerWarp, &grid))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  symbol_histograms_kernel<<<grid, kWarpsPerCta * 32, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(q), static_cast<const int32_t*>(pred),
+      static_cast<int32_t*>(hist), nblocks, blocks_per_image);
   return static_cast<int>(cudaGetLastError());
 }
 

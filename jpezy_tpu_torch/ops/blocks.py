@@ -9,6 +9,31 @@ from __future__ import annotations
 import torch
 
 
+def pad_replicate(plane: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """Edge replication of [..., H, W] planes to [..., ph, pw]."""
+    h, w = plane.shape[-2:]
+    if (h, w) == (ph, pw):
+        return plane
+    rows = torch.arange(ph, device=plane.device).clamp(max=h - 1)
+    cols = torch.arange(pw, device=plane.device).clamp(max=w - 1)
+    return plane[..., rows[:, None], cols[None, :]]
+
+
+def upsample_nearest(plane: torch.Tensor, dup_y: int,
+                     dup_x: int) -> torch.Tensor:
+    """Nearest-neighbour duplication of [..., H, W] planes."""
+    if dup_y == 1 and dup_x == 1:
+        return plane
+    return plane.repeat_interleave(dup_y, dim=-2).repeat_interleave(
+        dup_x, dim=-1)
+
+
+def decimate_420(plane: torch.Tensor) -> torch.Tensor:
+    """4:2:0 decimation of [..., H, W] planes: top-left of each 2x2, no
+    averaging."""
+    return plane[..., 0::2, 0::2]
+
+
 def blockify_luma(y: torch.Tensor) -> torch.Tensor:
     """[N, H16, W16] -> [N, nmcu*4, 64], MCU order TL,TR,BL,BR."""
     n = y.shape[0]

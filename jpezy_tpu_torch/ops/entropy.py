@@ -4,7 +4,10 @@ Counterpart of jpezy_tpu/ops/entropy.py, same formulation:
 
  1. Every block's emission stream is exactly 64 merged emissions: slot 0 =
     DC code + extra bits, slot j = zigzag position j (up to 3 ZRLs + code +
-    extra, <= 59 bits, or EOB at slot 63), computed data-parallel.
+    extra, or EOB at slot 63), computed data-parallel.  With the fixed
+    Annex K tables an emission has <= 59 bits; with optimal per-image
+    tables (`optimize`) it can reach 74, so the plain encode keeps each
+    slot's ZRL prefix apart from its code and extra bits.
  2. Bit offsets are exclusive cumsums of emission lengths.
  3. Per-block packing aligns each emission into a 96-bit window of three
     32-bit words and ORs the windows into the block's 64-word buffer.
@@ -21,9 +24,13 @@ Counterpart of jpezy_tpu/ops/entropy.py, same formulation:
  4. Cross-block concatenation funnel-shifts block words to their global
     bit phase and adds them into per-image streams.
 
+Pass 1 of the optimized encode counts the symbols the encode would emit,
+per image (symbol_histograms; a hand-written kernel on CUDA tensors, in
+the same source).
+
 Word convention: CPU torch implements no shifts, adds or compares on
 uint32, so 32-bit words are held as int64 values in [0, 2**32) and masked
-with & 0xFFFFFFFF.  An emission (<= 59 bits) is one int64 `v`; the
+with & 0xFFFFFFFF.  An emission part of <= 59 bits is one int64 `v`; the
 (hi, lo) pair of the JAX package is `v >> 32, v & 0xFFFFFFFF`.
 """
 from __future__ import annotations
@@ -46,15 +53,6 @@ def bit_category(v: torch.Tensor, max_bits: int = 12) -> torch.Tensor:
     for k in range(max_bits):
         s = s + (a >= (1 << k)).to(v.dtype)
     return s
-
-
-def _append(v, n, bits, nbits):
-    """Append (bits, nbits <= 16) to an int64 MSB-first accumulator (v, n).
-
-    Replaces the JAX package's (hi, lo) funnel: every emission fits in 59
-    bits, so one int64 holds it and no shift reaches 64."""
-    v = torch.where(nbits > 0, (v << nbits) | bits, v)
-    return v, n + nbits
 
 
 def dc_predictors(dc: torch.Tensor) -> torch.Tensor:
@@ -100,55 +98,130 @@ def _ac_run_size(qblocks: torch.Tensor, zigzag: torch.Tensor):
     return zz, nz, zrl_count, rem, s_ac
 
 
-def block_emissions(qblocks: torch.Tensor, dc_pred: torch.Tensor,
-                    chroma: bool):
-    """[B, 64] quantized blocks -> merged emissions (hi, lo, nbits) [B, 64].
+_TABLE_LENGTHS = (12, 12, 162, 162)  # dc_size, dc_code, ac_size, ac_code
 
-    hi, lo: int64 holding the uint32 halves of each emission (MSB-justified
-    in the low bits of hi:lo); nbits: int32 emission lengths (<= 59).
-    Uses the fixed Annex K Huffman tables.  Plain table indexing replaces
-    the JAX package's select chains (a TPU gather workaround).
-    """
-    c = codec_constants(qblocks.device)
+
+def _table_sets(tables, device):
+    """Huffman tables as four int64 tensors [T, n] on `device` (None: where
+    they are), in the JAX order of block_emissions(tables=...): (dc_size
+    [T, 12], dc_code, ac_size [T, 162], ac_code).  tables: one set (1-D
+    arrays) or one set per image (a leading [N] axis); numpy or torch."""
+    out = []
+    for t in tables:
+        t = torch.as_tensor(t).to(device=device, dtype=torch.int64)
+        out.append(t.reshape(1, -1) if t.dim() == 1 else t)
+    if len(out) != 4 or len({t.shape[0] for t in out}) != 1 or tuple(
+            t.shape[1] for t in out) != _TABLE_LENGTHS:
+        raise ValueError("tables must be (dc_size [12], dc_code [12], "
+                         "ac_size [162], ac_code [162]) with one leading "
+                         "set axis")
+    return tuple(out)
+
+
+def annex_k_tables(device, chroma: bool):
+    """The component's fixed Annex K Huffman tables in the JAX order, one
+    set [1, n] of int64 tensors on `device`."""
+    c = codec_constants(device)
     p = "c_" if chroma else "y_"
-    dc_size, dc_code = c[p + "dc_size"], c[p + "dc_code"]
-    ac_size, ac_code = c[p + "ac_size"], c[p + "ac_code"]
-    zrl_s, zrl_c = ac_size[T.ZRL_INDEX], ac_code[T.ZRL_INDEX]
-    eob_s, eob_c = ac_size[T.EOB_INDEX], ac_code[T.EOB_INDEX]
-    zero = torch.zeros((), dtype=torch.int64, device=qblocks.device)
+    return tuple(c[p + k][None, :]
+                 for k in ("dc_size", "dc_code", "ac_size", "ac_code"))
+
+
+def kernel_tables(tables, device) -> torch.Tensor:
+    """JAX-ordered tables (dc_size, dc_code, ac_size, ac_code), one set or
+    one per image, numpy or torch -> the rows the CUDA entropy kernel
+    takes: int32 [T, 348] on `device`, each row dc_code [12], dc_size
+    [12], ac_code [162], ac_size [162].  Host tables are laid out on the
+    host and uploaded once.  The one place the two orders meet; the
+    tables are int32 arrays of equal lengths, so a swap would still run
+    (tests/test_torch_optimize.py holds it)."""
+    dc_size, dc_code, ac_size, ac_code = _table_sets(tables, None)
+    return torch.cat([dc_code, dc_size, ac_code, ac_size], dim=1).to(
+        device=device, dtype=torch.int32).contiguous()
+
+
+def _set_index(B: int, nsets: int, blocks_per_image, device):
+    """Table set of each of B blocks: block b takes set b // bpi."""
+    if nsets == 1:
+        return torch.zeros(B, dtype=torch.int64, device=device)
+    bpi = blocks_per_image if blocks_per_image is not None else B // nsets
+    if bpi <= 0 or bpi * nsets != B:
+        raise ValueError(f"{nsets} table sets do not divide {B} blocks "
+                         f"into images of {blocks_per_image}")
+    return torch.arange(B, dtype=torch.int64, device=device) // bpi
+
+
+def _emission_parts(qblocks, dc_pred, chroma: bool, tables=None,
+                    blocks_per_image=None):
+    """Every slot's emission in two parts, [B, 64] int64 each:
+    (zv, zn) the ZRL prefix (up to 3 codes of <= 16 bits: <= 48 bits; 0
+    but on a nonzero AC after 16 or more zeros) and (v, n) the code and
+    extra bits (<= 16 + 11 bits).  The whole emission is zv followed by v,
+    zn + n <= 74 bits with optimal tables, so it is kept in two parts.
+    Plain table indexing replaces the JAX package's select chains (a TPU
+    gather workaround)."""
+    dev = qblocks.device
+    dc_size, dc_code, ac_size, ac_code = (
+        annex_k_tables(dev, chroma) if tables is None
+        else _table_sets(tables, dev))
+    sel = _set_index(qblocks.shape[0], dc_size.shape[0], blocks_per_image,
+                     dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
 
     # ---- DC: code + extra bits (one's complement for negatives)
     diff = qblocks[:, 0].to(torch.int64) - dc_pred.to(torch.int64)
     s = bit_category(diff)
-    v0 = torch.zeros_like(diff)
-    n0 = torch.zeros_like(diff)
-    v0, n0 = _append(v0, n0, dc_code[s], dc_size[s])
     extra = torch.where(diff < 0, diff - 1, diff) & ((1 << s) - 1)
-    v0, n0 = _append(v0, n0, extra, s)
+    v0 = (dc_code[sel, s] << s) | extra
+    n0 = dc_size[sel, s] + s
 
-    # ---- AC: up to 3 ZRLs + code + extra per nonzero zigzag position
-    zz, nz, zrl_count, rem, s_ac = _ac_run_size(qblocks, c["zigzag"])
+    # ---- AC: ZRL prefix, then code + extra per nonzero zigzag position
+    zz, nz, zrl_count, rem, s_ac = _ac_run_size(qblocks, codec_constants(
+        dev)["zigzag"])
     idx = rem * 10 + s_ac + (rem == 15).to(torch.int64)
-    v = torch.zeros_like(zz)
-    n = torch.zeros_like(zz)
-    for k in range(3):  # the `while run > 15` ZRL loop, unrolled (max 3)
-        on = nz & (zrl_count > k)
-        v, n = _append(v, n, torch.where(on, zrl_c, zero),
-                       torch.where(on, zrl_s, zero))
-    v, n = _append(v, n, torch.where(nz, ac_code[idx], zero),
-                   torch.where(nz, ac_size[idx], zero))
+    row = sel[:, None]
     extra_ac = torch.where(zz < 0, zz - 1, zz) & ((1 << s_ac) - 1)
-    v, n = _append(v, n, torch.where(nz, extra_ac, zero),
-                   torch.where(nz, s_ac, zero))
+    v = torch.where(nz, (ac_code[row, idx] << s_ac) | extra_ac, zero)
+    n = torch.where(nz, ac_size[row, idx] + s_ac, zero)
+    zrl_s = ac_size[row, T.ZRL_INDEX]
+    zrl_c = ac_code[row, T.ZRL_INDEX]
+    zv = torch.zeros_like(zz)
+    for k in range(3):  # the `while run > 15` ZRL loop, unrolled (max 3)
+        zv = torch.where(zrl_count > k, (zv << zrl_s) | zrl_c, zv)
+    zn = zrl_count * zrl_s
 
     # EOB at slot 63 when zigzag position 63 is zero
     eob = ~nz[:, -1]
-    v[:, -1] = torch.where(eob, eob_c, v[:, -1])
-    n[:, -1] = torch.where(eob, eob_s, n[:, -1])
+    v[:, -1] = torch.where(eob, ac_code[sel, T.EOB_INDEX], v[:, -1])
+    n[:, -1] = torch.where(eob, ac_size[sel, T.EOB_INDEX], n[:, -1])
 
-    v_all = torch.cat([v0[:, None], v], dim=1)
-    n_all = torch.cat([n0[:, None], n], dim=1)
-    return v_all >> 32, v_all & M32, n_all.to(torch.int32)
+    first = torch.zeros_like(diff)[:, None]
+    return (torch.cat([first, zv], dim=1), torch.cat([first, zn], dim=1),
+            torch.cat([v0[:, None], v], dim=1),
+            torch.cat([n0[:, None], n], dim=1))
+
+
+def block_emissions(qblocks: torch.Tensor, dc_pred: torch.Tensor,
+                    chroma: bool, tables=None, blocks_per_image=None):
+    """[B, 64] quantized blocks -> merged emissions (hi, lo, nbits) [B, 64].
+
+    hi, lo: int64 holding the uint32 halves of the LOW 64 bits of each
+    emission (MSB-justified in the low bits of hi:lo); nbits: int32
+    emission lengths.  tables: None for the fixed Annex K tables of the
+    component, else (dc_size, dc_code, ac_size, ac_code) as in the JAX
+    package, one set or one per image (leading [N] axis; block b takes set
+    b // blocks_per_image).  With optimal tables an emission can reach 74
+    bits (3 ZRLs of 16 bits, a 16-bit code, 10 extra bits); the JAX
+    package's (hi, lo) accumulator then keeps its low 64 bits, and so does
+    this, so the two agree on every slot.  What packs such an emission
+    whole is encode_block_words_plain, which keeps the ZRL prefix apart.
+    """
+    zv, zn, v, n = _emission_parts(qblocks, dc_pred, chroma, tables,
+                                   blocks_per_image)
+    # merged = (zv << n) | v, n <= 27: low 32 bits and bits 32..63
+    lo = (((zv & M32) << n) | v) & M32
+    hi = (zv >> (32 - n)) & M32
+    return hi, lo, (zn + n).to(torch.int32)
 
 
 def _window_words(hi, lo, nbits, off):
@@ -216,32 +289,117 @@ def pack_block_words(hi, lo, nbits):
     return pack_block_words_plain(hi, lo, nbits)
 
 
-def encode_block_words_plain(qblocks, dc_pred, chroma: bool):
-    """Plain torch entropy encode of blocks: block_emissions followed by
-    pack_block_words_plain.  Returns (words [B, 64] int64 in [0, 2**32),
-    bits [B] int32)."""
-    return pack_block_words_plain(*block_emissions(qblocks, dc_pred, chroma))
+def _pack_at(v, nbits, off):
+    """Pack emissions of <= 59 bits (int64 values) at the given bit offsets
+    into per-block words [B, 64] (the masked-reduce form)."""
+    w0, wwords = _window_words(v >> 32, v & M32, nbits, off)
+    return _pack_words_reduce(w0, wwords)
 
 
-def encode_block_words(qblocks, dc_pred, chroma: bool):
+def encode_block_words_plain(qblocks, dc_pred, chroma: bool, tables=None,
+                             blocks_per_image=None):
+    """Plain torch entropy encode of blocks: the emissions of
+    block_emissions, packed.  Each slot's ZRL prefix (<= 48 bits) and its
+    code and extra bits (<= 27) are packed as two emissions, the second
+    right behind the first, so a whole emission may exceed 64 bits (up to
+    74 with optimal tables).  Emission bit ranges are disjoint, so the two
+    packs add.  Returns (words [B, 64] int64 in [0, 2**32), bits [B]
+    int32)."""
+    zv, zn, v, n = _emission_parts(qblocks, dc_pred, chroma, tables,
+                                   blocks_per_image)
+    tot = zn + n
+    off = torch.cumsum(tot, dim=1) - tot                # exclusive
+    words = _pack_at(zv, zn, off) + _pack_at(v, n, off + zn)
+    return words, tot.sum(dim=1).to(torch.int32)
+
+
+def encode_block_words(qblocks, dc_pred, chroma: bool, tables=None,
+                       blocks_per_image=None):
     """[B, 64] int32 quantized blocks (natural order) and [B] DC predictors
-    -> (words [B, 64] int64 in [0, 2**32), bits [B] int32), with the
-    component's fixed Annex K Huffman tables.
+    -> (words [B, 64] int64 in [0, 2**32), bits [B] int32).
 
-    CUDA tensors go through the fused hand-written kernel
-    (pack_cuda.encode_blocks_cuda), which never stores the emissions; CPU
+    tables: None for the component's fixed Annex K Huffman tables, else
+    (dc_size, dc_code, ac_size, ac_code) in the JAX package's order, one
+    set or one per image (leading [N] axis; block b takes set
+    b // blocks_per_image, by default B // N); on CUDA tensors also the
+    kernel's rows that kernel_tables made of them.  CUDA tensors go
+    through the fused hand-written kernel (pack_cuda.encode_blocks_cuda:
+    one launch for all the sets), which never stores the emissions; CPU
     tensors through encode_block_words_plain.  The choice follows the
     tensors' device; a kernel that fails to build or launch raises.
     """
     if qblocks.is_cuda:
         from .pack_cuda import encode_blocks_cuda
 
-        return encode_blocks_cuda(qblocks, dc_pred.to(torch.int32),
-                                  bool(chroma))
+        if tables is None:
+            tables = bool(chroma)
+        elif not isinstance(tables, torch.Tensor):
+            tables = kernel_tables(tables, qblocks.device)
+        return encode_blocks_cuda(qblocks, dc_pred.to(torch.int32), tables,
+                                  blocks_per_image)
     if qblocks.device.type != "cpu":
         raise ValueError(
             f"encode_block_words: unsupported device {qblocks.device}")
-    return encode_block_words_plain(qblocks, dc_pred, chroma)
+    return encode_block_words_plain(qblocks, dc_pred, chroma, tables,
+                                    blocks_per_image)
+
+
+HIST_BINS = 256
+
+
+def symbol_histograms_plain(qblocks, dc_pred, blocks_per_image=None):
+    """Per-image Huffman symbol counts [N, 2, 256] int32 (row 0: DC
+    magnitude categories, row 1: AC RRRRSSSS symbols with ZRL 0xF0 and EOB
+    0x00), exactly the symbols the entropy encode emits; the counterpart
+    of jpezy_tpu/ops/entropy.py:symbol_histograms vmapped over images.
+    Blocks [B, 64] hold N images of blocks_per_image blocks each (default:
+    one image of all B)."""
+    dev = qblocks.device
+    B = qblocks.shape[0]
+    bpi = B if blocks_per_image is None else blocks_per_image
+    if bpi <= 0 or B % bpi:
+        raise ValueError(f"{B} blocks are no whole number of images of "
+                         f"{bpi}")
+    N = B // bpi
+    base = (torch.arange(B, dtype=torch.int64, device=dev)
+            // bpi) * (2 * HIST_BINS)                          # [B]
+    diff = qblocks[:, 0].to(torch.int64) - dc_pred.to(torch.int64)
+    _, nz, zrl_count, rem, s_ac = _ac_run_size(
+        qblocks, codec_constants(dev)["zigzag"])
+    ac = base[:, None] + HIST_BINS
+    idx = torch.cat([
+        base + bit_category(diff),                            # DC
+        (ac + ((rem << 4) | s_ac))[nz],                       # AC symbols
+        ac[:, 0] + 0xF0,                                      # ZRLs
+        ac[:, 0],                                             # EOB
+    ])
+    weight = torch.cat([
+        torch.ones(B + int(nz.sum()), dtype=torch.int64, device=dev),
+        zrl_count.sum(dim=1),
+        (~nz[:, -1]).to(torch.int64),
+    ])
+    hist = torch.zeros(N * 2 * HIST_BINS, dtype=torch.int64, device=dev)
+    hist.index_add_(0, idx, weight)
+    return hist.reshape(N, 2, HIST_BINS).to(torch.int32)
+
+
+def symbol_histograms(qblocks, dc_pred, blocks_per_image=None):
+    """Per-image symbol counts [N, 2, 256] int32 of one component's blocks
+    (see symbol_histograms_plain).  CUDA tensors go through the
+    hand-written kernel (pack_cuda.symbol_histograms_cuda, one launch),
+    CPU tensors through symbol_histograms_plain; a kernel that fails to
+    build or launch raises."""
+    if qblocks.is_cuda:
+        from .pack_cuda import symbol_histograms_cuda
+
+        return symbol_histograms_cuda(
+            qblocks, dc_pred.to(torch.int32),
+            qblocks.shape[0] if blocks_per_image is None
+            else blocks_per_image)
+    if qblocks.device.type != "cpu":
+        raise ValueError(
+            f"symbol_histograms: unsupported device {qblocks.device}")
+    return symbol_histograms_plain(qblocks, dc_pred, blocks_per_image)
 
 
 # zero-run lengths before a nonzero that the ZRL logic turns on: 0-3 ZRLs,
@@ -326,6 +484,42 @@ def edge_case_blocks(seed: int = 0) -> np.ndarray:
     zz_all = np.stack(zz_blocks)
     q = np.zeros_like(zz_all)
     q[:, T.ZIGZAG] = zz_all          # zigzag position k -> natural index
+    return q.astype(np.int32)
+
+
+def long_emission_tables():
+    """Optimal Huffman tables (core.tables.optimal_flat_tables) of a legal
+    histogram under which ZRL and the symbol 0xEA (run 14, category 10)
+    both get 16-bit codes, so a block whose only nonzero AC coefficient is
+    +-512..1023 at zigzag position 63 emits 3 ZRLs, that code and 10 extra
+    bits in one slot: 74 bits, more than one 64-bit word holds.  Common
+    symbols get halving counts, which makes the code lengths a chain.
+
+    Returns ((dc_bits, dc_vals), (ac_bits, ac_vals), dc_size, dc_code,
+    ac_size, ac_code) as optimal_flat_tables does."""
+    syms = [0x00] + [(r << 4) | s for r in range(3) for s in range(1, 11)]
+    ac = np.zeros(256, np.int64)
+    for k, sym in enumerate(syms):
+        ac[sym] = 1 << (24 - k) if k < 20 else 2
+    ac[0xF0] = ac[0xEA] = 1
+    dc = np.zeros(256, np.int64)
+    dc[:12] = 100
+    return T.optimal_flat_tables(dc, ac)
+
+
+def long_emission_blocks() -> np.ndarray:
+    """Quantized blocks [8, 64] int32 (natural order) for
+    long_emission_tables: the 74-bit slot with both signs and small DCs,
+    then 1 and 2 ZRLs before 0xEA-like symbols and an all-zero block."""
+    zz = np.zeros((8, 64), np.int64)
+    zz[0, 63], zz[1, 63], zz[1, 0] = 700, -1023, 5
+    zz[2, 0], zz[2, 63] = -3, 512
+    zz[3, 40] = 600                        # 2 ZRLs + run 7
+    zz[4, 1], zz[4, 63] = 1, 900           # 3 ZRLs + run 13
+    zz[5, 20], zz[5, 50] = -2, -1000       # 1 ZRL + run 13
+    zz[6, 0] = 7
+    q = np.zeros_like(zz)
+    q[:, T.ZIGZAG] = zz
     return q.astype(np.int32)
 
 

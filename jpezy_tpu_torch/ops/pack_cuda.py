@@ -1,8 +1,10 @@
 """Loader and wrappers of the hand-written CUDA entropy kernels
 (csrc/entropy_pack.cu).
 
-Replaces the Pallas TPU kernel jpezy_tpu/ops/pack_pallas.py.  The source
-holds one warp-per-block pack routine and two entry points:
+Replaces the Pallas TPU kernel jpezy_tpu/ops/pack_pallas.py, and the
+symbol counts of the optimized encode (jpezy_tpu/ops/entropy.py:
+symbol_histograms, XLA-fused on the TPU).  The source holds one
+warp-per-block pack routine and three entry points:
 
   pack_words_cuda     merged emissions (hi, lo, nbits) -> packed words; the
                       one-to-one counterpart of the Pallas kernel.  Per
@@ -10,11 +12,19 @@ holds one warp-per-block pack routine and two entry points:
                       (64 32-bit words and a count): a bound of 1,028.
   encode_blocks_cuda  quantized blocks + DC predictors + Huffman tables ->
                       packed words, the emissions computed in registers;
-                      the encode program calls this one.  Per block the
+                      the encode program calls this one.  Takes the
+                      fixed tables, or the caller's: one set or one per
+                      image (optimize), in one launch, with emissions of
+                      up to 74 bits.  Per block the
                       function reads 260 bytes and writes 260: a bound
                       of 520.
+  symbol_histograms_cuda
+                      quantized blocks + DC predictors -> per-image
+                      symbol counts [N, 2, 256] (pass 1 of optimize).
+                      Per block it reads 260 bytes, per image it writes
+                      2 KB.
 
-Both are bound by memory traffic; the design (coalesced rows, a warp
+All are bound by memory traffic; the design (coalesced rows, a warp
 shuffle scan, a 64-word shared-memory buffer per warp) is described in the
 source's header.  Words come back as int64 values in [0, 2**32), the word
 convention of ops/entropy.py: the kernels store them zero-extended
@@ -26,9 +36,10 @@ ops/cuda_build.py.  A failed build or launch raises; nothing falls back to
 the plain torch versions.
 
 `launches` counts launches of the pack kernel made through
-pack_words_cuda and `encode_launches` those of the fused kernel made
-through encode_blocks_cuda, so a run can show which kernels its path went
-through.
+pack_words_cuda, `encode_launches` those of the fused kernel made through
+encode_blocks_cuda and `histogram_launches` those of the histogram kernel
+made through symbol_histograms_cuda, so a run can show which kernels its
+path went through.
 """
 from __future__ import annotations
 
@@ -37,8 +48,9 @@ import threading
 
 import torch
 
-from ..constants import codec_constants
 from .cuda_build import KernelLibrary, check_tensors as _check
+
+KERNEL_ROW = 2 * (12 + 162)  # one table set: dc_code, dc_size, ac_code, ac_size
 
 
 def _bind(lib) -> None:
@@ -46,7 +58,10 @@ def _bind(lib) -> None:
     lib.jz_pack_words.restype = ci
     lib.jz_pack_words.argtypes = [vp, vp, vp, vp, vp, ll, vp]
     lib.jz_encode_blocks.restype = ci
-    lib.jz_encode_blocks.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ll, vp]
+    lib.jz_encode_blocks.argtypes = [vp, vp, vp, ci, ci, ll, vp, vp, ll,
+                                     vp]
+    lib.jz_symbol_histograms.restype = ci
+    lib.jz_symbol_histograms.argtypes = [vp, vp, vp, ll, ll, vp]
 
 
 LIB = KernelLibrary("entropy_pack.cu", _bind)
@@ -54,9 +69,9 @@ LIB = KernelLibrary("entropy_pack.cu", _bind)
 _lock = threading.Lock()
 launches = 0
 encode_launches = 0
-# int32 copies of the fixed Huffman tables, one set per (device, chroma)
-_tables: dict = {}
-_TABLE_LENGTHS = (12, 12, 162, 162)  # dc_code, dc_size, ac_code, ac_size
+histogram_launches = 0
+# the fixed Annex K tables as the kernel's row, per (device, chroma)
+_rows: dict = {}
 
 
 def _low32(x: torch.Tensor) -> torch.Tensor:
@@ -102,29 +117,34 @@ def pack_words_cuda(hi: torch.Tensor, lo: torch.Tensor, nbits: torch.Tensor):
     return words, bits
 
 
-def huffman_tables_i32(device: torch.device, chroma: bool):
-    """The component's fixed Annex K tables (dc_code, dc_size, ac_code,
-    ac_size) as int32 tensors on `device`, made once per device."""
+def annex_k_row(device: torch.device, chroma: bool) -> torch.Tensor:
+    """The component's fixed Annex K Huffman tables as the kernel's
+    [1, 348] int32 row on `device` (entropy.kernel_tables), made once per
+    device."""
     key = (device, bool(chroma))
-    tabs = _tables.get(key)
-    if tabs is None:
-        c = codec_constants(device)
-        p = "c_" if chroma else "y_"
-        tabs = tuple(c[p + k].to(torch.int32).contiguous()
-                     for k in ("dc_code", "dc_size", "ac_code", "ac_size"))
-        _tables[key] = tabs
-    return tabs
+    row = _rows.get(key)
+    if row is None:
+        from . import entropy as E
+
+        row = E.kernel_tables(E.annex_k_tables(torch.device("cpu"), chroma),
+                              device)
+        _rows[key] = row
+    return row
 
 
-def encode_blocks_cuda(q: torch.Tensor, pred: torch.Tensor, tables):
+def encode_blocks_cuda(q: torch.Tensor, pred: torch.Tensor, tables,
+                       blocks_per_image: int | None = None):
     """CUDA form of entropy.encode_block_words: block_emissions and
     pack_block_words in one kernel, the emissions never stored.
 
     q: [B, 64] int32 quantized blocks, natural order; pred: [B] int32 DC
-    predictors; tables: False/True for the fixed luma/chroma Huffman
-    tables, or (dc_code [12], dc_size [12], ac_code [162], ac_size [162])
-    int32 tensors on q's device.  Returns (words [B, 64] int64 in
-    [0, 2**32), bits [B] int32), on the inputs' device and stream."""
+    predictors; tables: False/True for the component's fixed Annex K
+    tables, or the caller's T sets as the kernel's rows, an int32
+    [T, 348] tensor on q's device (entropy.kernel_tables builds them from
+    the JAX order), where block b takes set b // blocks_per_image (default
+    B // T); their emissions may exceed 64 bits.  Returns (words [B, 64]
+    int64 in [0, 2**32), bits [B] int32), on the inputs' device and
+    stream."""
     global encode_launches
     if q.dim() != 2 or q.shape[1] != 64:
         raise ValueError(f"encode_blocks_cuda: q has shape {tuple(q.shape)}, "
@@ -132,26 +152,34 @@ def encode_blocks_cuda(q: torch.Tensor, pred: torch.Tensor, tables):
     B = q.shape[0]
     _check("encode_blocks_cuda", q, ("q", q, torch.int32, q.shape),
            ("pred", pred, torch.int32, (B,)))
-    if isinstance(tables, bool):
-        tables = huffman_tables_i32(q.device, tables)
-    else:
-        tables = tuple(tables)
-        if len(tables) != 4:
+    custom = not isinstance(tables, bool)
+    if custom:
+        if not isinstance(tables, torch.Tensor) or tables.dim() != 2:
             raise ValueError("encode_blocks_cuda: tables must be a bool or "
-                             "(dc_code, dc_size, ac_code, ac_size)")
-        _check("encode_blocks_cuda", q, *(
-            (name, t, torch.int32, (n,)) for name, t, n in zip(
-                ("dc_code", "dc_size", "ac_code", "ac_size"), tables,
-                _TABLE_LENGTHS)))
-        tables = tuple(t.contiguous() for t in tables)
+                             "the kernel's rows [T, 348] "
+                             "(entropy.kernel_tables)")
+        rows = tables
+    else:
+        rows = annex_k_row(q.device, tables)
+    nsets = rows.shape[0]
+    _check("encode_blocks_cuda", q,
+           ("tables", rows, torch.int32, (nsets, KERNEL_ROW)))
+    bpi = 0
+    if nsets > 1:
+        bpi = B // nsets if blocks_per_image is None else blocks_per_image
+        if bpi <= 0 or bpi * nsets != B or B >= 2**31:
+            raise ValueError(f"encode_blocks_cuda: {nsets} table sets do "
+                             f"not divide {B} blocks into images of "
+                             f"{blocks_per_image}")
     lib = LIB.get()
     dev = q.device
     with torch.cuda.device(dev):
+        rows = rows.contiguous()
         qc, pc = q.contiguous(), pred.contiguous()
         words, bits = _outputs(B, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jz_encode_blocks(qc.data_ptr(), pc.data_ptr(),
-                                  *(t.data_ptr() for t in tables),
+                                  rows.data_ptr(), nsets, int(custom), bpi,
                                   words.data_ptr(), bits.data_ptr(), B,
                                   stream)
     LIB.raise_on("encode_blocks", rc)
@@ -159,3 +187,38 @@ def encode_blocks_cuda(q: torch.Tensor, pred: torch.Tensor, tables):
         with _lock:
             encode_launches += 1
     return words, bits
+
+
+def symbol_histograms_cuda(q: torch.Tensor, pred: torch.Tensor,
+                           blocks_per_image: int):
+    """CUDA form of entropy.symbol_histograms: per-image Huffman symbol
+    counts [N, 2, 256] int32 (DC categories; AC symbols with ZRL and EOB)
+    of q [B, 64] int32 blocks in natural order with pred [B] int32 DC
+    predictors, N = B // blocks_per_image images.  On the inputs' device
+    and stream; the output is zeroed first (a memset) and the kernel adds
+    into it."""
+    global histogram_launches
+    if q.dim() != 2 or q.shape[1] != 64:
+        raise ValueError(f"symbol_histograms_cuda: q has shape "
+                         f"{tuple(q.shape)}, want [B, 64]")
+    B = q.shape[0]
+    _check("symbol_histograms_cuda", q, ("q", q, torch.int32, q.shape),
+           ("pred", pred, torch.int32, (B,)))
+    if blocks_per_image <= 0 or B % blocks_per_image:
+        raise ValueError(f"symbol_histograms_cuda: {B} blocks are no whole "
+                         f"number of images of {blocks_per_image}")
+    lib = LIB.get()
+    dev = q.device
+    with torch.cuda.device(dev):
+        qc, pc = q.contiguous(), pred.contiguous()
+        hist = torch.zeros((B // blocks_per_image, 2, 256),
+                           dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.jz_symbol_histograms(qc.data_ptr(), pc.data_ptr(),
+                                      hist.data_ptr(), blocks_per_image, B,
+                                      stream)
+    LIB.raise_on("symbol_histograms", rc)
+    if B > 0:
+        with _lock:
+            histogram_launches += 1
+    return hist

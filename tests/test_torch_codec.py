@@ -144,21 +144,36 @@ class TestDecode:
             TC.decode_batch([stripped], device=CPU)
 
 
-class TestNotPorted:
+class TestOptionsRun:
+    """optimize and the rgb encode transport round-trip on the CPU; the
+    rgb decode transport, exact and gray decode match the JAX package; a
+    bad argument beside each raises ValueError."""
+
     @pytest.mark.parametrize("kw", [
         {"optimize": True}, {"transport": "rgb"},
     ], ids=["optimize", "rgb"])
-    def test_encode_raises(self, batch2, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.encode_batch(batch2, device=CPU, **kw)
+    def test_encode_options(self, batch2, kw):
+        streams = TC.encode_batch(batch2, device=CPU, **kw)
+        px, _ = TC.decode_batch(streams, device=CPU)
+        assert px.shape == batch2.shape
+        with pytest.raises(ValueError):
+            TC.encode_batch(batch2, device=CPU,
+                            **dict(kw, transport="bogus"))
 
     @pytest.mark.parametrize("kw", [
         {"transport": "rgb"}, {"precision": "exact"}, {"gray": True},
     ], ids=["rgb", "exact", "gray"])
-    def test_decode_raises(self, fast_streams, kw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TC.decode_batch(fast_streams[0], device=CPU, **kw)
+    def test_decode_options(self, fast_streams, kw):
+        px, _ = TC.decode_batch(fast_streams[0], device=CPU, **kw)
+        ref, _ = JC.decode_batch(fast_streams[0], **kw)
+        assert px.shape == ref.shape
+        assert np.abs(px.astype(int) - ref.astype(int)).max() <= 1
+        with pytest.raises(ValueError):
+            TC.decode_batch(fast_streams[0], device=CPU,
+                            **dict(kw, precision="coarse"))
 
+
+class TestArguments:
     def test_invalid_arguments(self, batch2):
         with pytest.raises(ValueError):
             TC.encode_batch(batch2, quality=0, device=CPU)

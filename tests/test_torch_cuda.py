@@ -90,8 +90,9 @@ def test_fused_kernel_matches_plain(cuda):
 
 def test_fused_kernel_dispatch_predictors_and_tables(cuda):
     """encode_block_words launches the fused kernel for CUDA tensors; the
-    kernel takes any predictors (a restart resets them) and explicit
-    tables."""
+    kernel takes any predictors (a restart resets them), and the Annex K
+    tables passed as the caller's (the custom-table instantiation) give
+    the fixed-table words."""
     from jpezy_tpu_torch.ops import pack_cuda
 
     q = torch.from_numpy(TE.edge_case_blocks(123)).to(cuda)
@@ -99,8 +100,8 @@ def test_fused_kernel_dispatch_predictors_and_tables(cuda):
     pred[::3] = 0
     before = pack_cuda.encode_launches
     wk, bk = TE.encode_block_words(q, pred, True)
-    wt, bt = pack_cuda.encode_blocks_cuda(
-        q, pred, pack_cuda.huffman_tables_i32(q.device, True))
+    wt, bt = pack_cuda.encode_blocks_cuda(q, pred, TE.kernel_tables(
+        TE.annex_k_tables("cpu", True), q.device))
     wp, bp = TE.encode_block_words_plain(q, pred, True)
     torch.cuda.synchronize()
     assert pack_cuda.encode_launches - before == 2
@@ -310,3 +311,108 @@ def test_device_transports_on_card_match_cpu(cuda):
     data[es:es + 6] = bytes(6)
     with pytest.raises(ValueError, match="corrupt"):
         TC.decode_batch([bytes(data)], transport="device", device=cuda)
+
+
+def _optimize_inputs(dev):
+    """(q [B, 64], pred [B], blocks_per_image) of three components of three
+    test images, per-image tables of luma and chroma in the JAX order, and
+    the edge-case and long-emission blocks."""
+    from imagegen import make_test_image
+
+    rgbs = np.stack([make_test_image(64, 48, seed=170 + i) for i in range(3)])
+    y, cb, cr = HG.host_rgb_to_ycc420(rgbs)
+    q = TC._quantize_local_ycc(*(torch.from_numpy(a).to(dev)
+                                 for a in (y, cb, cr)),
+                               gray=False, dtype=torch.float32, rounded=False)
+    hists = TC._symbol_histograms_batch(*(t.cpu() for t in q)).numpy()
+    _, ytabs, ctabs = TC._optimal_tables(hists)
+    return q, ytabs, ctabs
+
+
+def test_histogram_kernel_matches_plain(cuda):
+    """Per-image symbol counts of the kernel equal the plain version's:
+    real components, a thread block spanning images (images of 1 and 3
+    blocks), edge-case and long-emission blocks; one launch a call."""
+    from jpezy_tpu_torch.ops import pack_cuda
+
+    q, _, _ = _optimize_inputs(cuda)
+    edge = torch.from_numpy(TE.edge_case_blocks(171)).to(cuda)
+    longq = torch.from_numpy(TE.long_emission_blocks()).to(cuda)
+    cases = [(qc.reshape(-1, 64), qc.shape[1]) for qc in q]
+    cases += [(edge, edge.shape[0]), (edge[:-1], 1), (edge[:99], 3),
+              (longq, 2), (longq, 1)]
+    before = pack_cuda.histogram_launches
+    for blocks, bpi in cases:
+        pred = TE.dc_predictors_restart(
+            blocks[:, 0].reshape(-1, bpi), 2).reshape(-1)
+        got = TE.symbol_histograms(blocks, pred, bpi)
+        want = TE.symbol_histograms_plain(blocks.cpu(), pred.cpu(), bpi)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    assert pack_cuda.histogram_launches - before == len(cases)
+
+
+def test_fused_kernel_per_image_tables(cuda):
+    """One launch with a table set per image equals the plain version and
+    the per-image launches; the long-emission tables (74-bit slots) too."""
+    from jpezy_tpu_torch.ops import pack_cuda
+
+    q, ytabs, ctabs = _optimize_inputs(cuda)
+    for qc, tabs, chroma in ((q[0], ytabs, False), (q[1], ctabs, True),
+                             (q[2], ctabs, True)):
+        n, b, _ = qc.shape
+        flat = qc.reshape(-1, 64)
+        pred = TE.dc_predictors(qc[:, :, 0]).reshape(-1)
+        before = pack_cuda.encode_launches
+        wk, bk = TE.encode_block_words(flat, pred, chroma, tables=tabs,
+                                       blocks_per_image=b)
+        assert pack_cuda.encode_launches - before == 1
+        wp, bp = TE.encode_block_words_plain(flat, pred, chroma, tabs, b)
+        torch.cuda.synchronize()
+        assert torch.equal(wk, wp) and torch.equal(bk, bp)
+        for i in range(n):
+            one = tuple(t[i] for t in tabs)
+            wi, bi = TE.encode_block_words(flat[i * b:(i + 1) * b],
+                                           pred[i * b:(i + 1) * b], chroma,
+                                           tables=one)
+            assert torch.equal(wi, wk[i * b:(i + 1) * b])
+            assert torch.equal(bi, bk[i * b:(i + 1) * b])
+    _, _, *flat_tabs = TE.long_emission_tables()
+    longq = torch.from_numpy(TE.long_emission_blocks()).to(cuda)
+    pred = TE.dc_predictors(longq[:, 0])
+    wk, bk = TE.encode_block_words(longq, pred, False, tables=flat_tabs)
+    wp, bp = TE.encode_block_words_plain(longq.cpu(), pred.cpu(), False,
+                                         flat_tabs)
+    assert torch.equal(wk.cpu(), wp) and torch.equal(bk.cpu(), bp)
+    _, _, nbits = TE.block_emissions(longq.cpu(), pred.cpu(), False,
+                                     flat_tabs)
+    assert int(nbits.max()) == 74
+
+
+def test_optimize_and_rgb_on_card_match_cpu(cuda):
+    """optimize and the rgb transports in exact mode: the card's streams
+    and pixels equal the CPU's; optimize launches the histogram and the
+    fused kernel three times each."""
+    from imagegen import make_test_image
+
+    from jpezy_tpu_torch.ops import pack_cuda
+
+    rgbs = np.stack([make_test_image(64, 64, seed=180 + i) for i in range(2)])
+    before = (pack_cuda.histogram_launches, pack_cuda.encode_launches)
+    opt = TC.encode_batch(rgbs, precision="exact", optimize=True,
+                          restart_interval=2, device=cuda)
+    assert (pack_cuda.histogram_launches - before[0],
+            pack_cuda.encode_launches - before[1]) == (3, 3)
+    assert opt == TC.encode_batch(rgbs, precision="exact", optimize=True,
+                                  restart_interval=2, device="cpu")
+    rgb = TC.encode_batch(rgbs, precision="exact", transport="rgb",
+                          device=cuda)
+    assert rgb == TC.encode_batch(rgbs, precision="exact", device="cpu")
+    for kw in (dict(precision="exact"), dict(precision="exact", gray=True)):
+        a, _ = TC.decode_batch(opt, device=cuda, **kw)
+        b, _ = TC.decode_batch(opt, device="cpu", **kw)
+        assert np.array_equal(a, b)
+    a, _ = TC.decode_batch(opt, transport="rgb", device=cuda)
+    b, _ = TC.decode_batch(opt, transport="rgb", device="cpu")
+    # float32 IDCT and colour differ in summation order from the CPU's
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 2

@@ -3,7 +3,8 @@
 jpezy_tpu_torch imports nothing of jpezy_tpu, so it carries verbatim copies
 of the host code both packages run: Annex K tables, geometry and props, the
 marker writer/reader and splice, the ctypes loader of the C++ host runtime,
-the oracle, the host C++ codec and the section timer.  Each copy must stay
+the oracle, the host C++ codec, the section timer and the PPM reader and
+writer.  Each copy must stay
 byte-identical to its original, and the copied host codec must give the
 original's streams.  The host helpers that codec/host_glue.py copies out of
 jpezy_tpu.codec.jax_codec (which imports jax) must keep their original's
@@ -22,7 +23,7 @@ COPIES = [
     "core/tables.py", "core/geometry.py", "core/props.py",
     "bitstream/reader.py", "bitstream/writer.py", "bitstream/splice.py",
     "runtime/native.py", "codec/oracle.py", "codec/host_codec.py",
-    "utils/timing.py",
+    "utils/timing.py", "runtime/ppm.py",
 ]
 
 
@@ -83,7 +84,7 @@ def test_copied_host_codec_matches_original(seed):
 # are held equal in tests/test_torch_device_decode.py)
 GLUE_COPIES = [
     "host_rgb_to_ycc420", "_stream_to_bytes", "_words_comp_to_mcu",
-    "decode_entropy_host", "_ycc420_host_frontend", "_check_uniform_quant",
+    "decode_entropy_host", "_decode_entropy_batch", "_ycc420_host_frontend", "_check_uniform_quant",
     "_decode_batch_ycc420_finish", "_splice_restart_raw",
     "_assemble_restart_segments", "_quant_arr", "_decode_batch_device_finish",
 ]

@@ -58,9 +58,11 @@ class TestPipeline:
             assert np.array_equal(px, px_ref)
 
     def test_stage_error_propagates(self, batches):
-        # the encode stages pass; the third stage refuses exact-mode decode
-        with pytest.raises(NotImplementedError):
-            list(P.roundtrip_batches(batches, precision="exact", device=CPU))
+        # the encode stages pass; the third stage refuses the indexed
+        # transport for restart streams
+        with pytest.raises(ValueError, match="restart-FREE"):
+            list(P.roundtrip_batches(batches, restart_interval=2,
+                                     transport="indexed", device=CPU))
 
 
 def test_port_runs_without_jax():
