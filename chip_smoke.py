@@ -10,8 +10,9 @@ the restart path (the same round trip with restart_interval=8 and the
 `device` decode transport, whose Huffman decode runs on the card), the
 `indexed` decode of the main path's streams, the optimize path (per-image
 Huffman tables; encode_batches(optimize=True, restart_interval=8), then
-the device decode), and the rgb transports and single-image, mixed-size
-and command-line entry points.  Each phase prints one line and any
+the device decode), the rgb transports and single-image, mixed-size and
+command-line entry points, and the sharded codec (parallel/) on a 1x1
+mesh and over gloo ranks that share the card.  Each phase prints one line and any
 failure exits nonzero.  In the order they run:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
@@ -80,6 +81,23 @@ failure exits nonzero.  In the order they run:
      encode_mixed/decode_mixed of six sizes (exact: equal to host_codec),
      and `python -m jpezy_tpu_torch.cli encode|decode ... --gpu` on a PPM
      (the same stream and pixels as the in-process calls);
+  12. the sharded codec (parallel/), world size 1 (a 1x1 mesh, no process
+     group): exact encode_sharded of a 16x512x512 batch, without and with
+     restart_interval=8, byte-identical to encode_batch(transport="rgb")
+     and host_codec; then 4 batches through encode_sharded and
+     decode_sharded on three paths, `sharded` (no restart markers, host
+     Huffman frontend), `sharded_restart` (restart_interval=8, the device
+     decode per shard) and `sharded_optimize` (one table set a batch):
+     decode_sharded pixels equal decode_batch(transport="rgb")'s, optimize
+     streams decode to the restart streams' pixels in fewer bytes,
+     launches per batch 3 fused (+ 1 scan with restarts, + 3 histogram
+     with optimize), MP/s beside encode_batch/decode_batch.  Then this
+     script spawns itself as 2 gloo ranks (a 1x2 mesh), then 4 (2x2), all
+     on the one card, on 4 of the images with restart_interval=8: exact
+     restart and optimize streams equal the 1x1 mesh's, the sharded device
+     decode's pixels equal decode_batch(transport="rgb")'s, a corrupted
+     stream raises on the ranks of its tile row, and each rank's launches
+     per step are as expected; a rank that fails or hangs fails the run;
   5/8 device: only now the profiler: per batch the encode and decode
      programs' CUDA-event spans (host-launch bound), their device-busy
      time (kernel and copy time summed from a torch.profiler trace) and
@@ -106,6 +124,7 @@ The last three lines are the kernel table as JSON, the card's name and
 power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits nonzero and prints no
 result.  Imports nothing of JAX and nothing of the jpezy_tpu package.
+`--rank R WORLD DATA STORE OUT` runs one of phase 12's ranks (rank_main).
 """
 from __future__ import annotations
 
@@ -181,9 +200,35 @@ REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
             "encode_blocks": "jpezy_tpu/ops/pack_pallas.py:27",
             "decode_segments": "jpezy_tpu/ops/entropy_decode.py:211",
             "symbol_histograms": "jpezy_tpu/ops/entropy.py:112"}
+# phase 12's gloo ranks: the images they share, and each rank's steps
+# with the launches every step must make
+PARALLEL_IMAGES = 4
+RANK_STEPS = {"exact_restart": {"encode_blocks": 3},
+              "exact_optimize": {"encode_blocks": 3, "symbol_histograms": 3},
+              "fast_restart": {"encode_blocks": 3},
+              "device_decode": {"decode_segments": 1},
+              "corrupt_decode": {"decode_segments": 1}}
+RANK_TIMEOUT_S = 300
 # the smaller batch of the card-against-CPU comparisons (phase 11): the
 # plain versions on the host's CPU take seconds per image at 512x512
 CPU_BATCH, CPU_HW = 2, 256
+
+
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+
+    pack_cuda.launches = pack_cuda.encode_launches = 0
+    pack_cuda.histogram_launches = scan_cuda.launches = 0
+
+
+def read_counts() -> dict:
+    from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+
+    return {"pack_words": pack_cuda.launches,
+            "encode_blocks": pack_cuda.encode_launches,
+            "decode_segments": scan_cuda.launches,
+            "symbol_histograms": pack_cuda.histogram_launches}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -858,16 +903,6 @@ def main() -> int:
          f"host {p_host:.4f} dB, max |diff| {int(diff.max())}, "
          f"{float((diff > 0).mean()):.5f} of samples differ")
 
-    def reset_counts():
-        pack_cuda.launches = pack_cuda.encode_launches = 0
-        pack_cuda.histogram_launches = scan_cuda.launches = 0
-
-    def read_counts():
-        return {"pack_words": pack_cuda.launches,
-                "encode_blocks": pack_cuda.encode_launches,
-                "decode_segments": scan_cuda.launches,
-                "symbol_histograms": pack_cuda.histogram_launches}
-
     # ---- 5. the main path: pipelined round trip on the card
     batches = [_images(BATCH, 1000 + BATCH * i) for i in range(MAIN_BATCHES)]
     for _ in roundtrip_batches(batches[:1], device="cuda"):
@@ -1351,6 +1386,171 @@ def main() -> int:
          f"on the card), stream and pixels equal "
          f"the in-process calls; on {card}")
 
+    # ---- 12. the sharded codec (parallel/): world size 1 at full width,
+    # then gloo ranks that share the card
+    from jpezy_tpu_torch.parallel import (decode_sharded, encode_sharded,
+                                          make_mesh)
+
+    mesh = make_mesh(1, 1, device="cuda")
+    exact_kw = (("plain", {}), ("restart_interval=8",
+                                {"restart_interval": ri}))
+    for label, kw in exact_kw:
+        got = encode_sharded(mesh, batches[0], precision="exact", **kw)
+        if got != TC.encode_batch(batches[0], transport="rgb",
+                                  precision="exact", device="cuda", **kw):
+            raise AssertionError(f"exact encode_sharded ({label}) differs "
+                                 "from encode_batch(transport='rgb')")
+        if got != [host_codec.encode(im[..., 0], im[..., 1], im[..., 2],
+                                     **kw) for im in batches[0]]:
+            raise AssertionError(f"exact encode_sharded ({label}) differs "
+                                 "from host_codec")
+    # dense content over the default budget: the shard emits again, fitted
+    from jpezy_tpu_torch.parallel.api import (encode_sharded_dispatch,
+                                              encode_sharded_finish,
+                                              shard_budget_words)
+
+    dense = np.random.default_rng(12).integers(0, 256, (2, H, W, 3),
+                                               dtype=np.uint8)
+    dense_maxw = []
+    for dri in (0, ri):
+        kw = {"quality": 100, "restart_interval": dri}
+        ticket = encode_sharded_dispatch(mesh, dense, precision="exact",
+                                         **kw)
+        dense_maxw.append(ticket[-1])
+        if ticket[-1] <= shard_budget_words(H * W // 256):
+            raise AssertionError("dense encode_sharded kept the default "
+                                 "budget")
+        got = encode_sharded_finish(ticket)
+        if got != [host_codec.encode(im[..., 0], im[..., 1], im[..., 2],
+                                     **kw) for im in dense] or got != (
+                TC.encode_batch(dense, transport="rgb", precision="exact",
+                                device="cuda", **kw)):
+            raise AssertionError(f"dense encode_sharded ({kw}) differs from "
+                                 "host_codec or encode_batch(transport='rgb')")
+    sharded_paths = (
+        ("sharded", {}, {"encode_blocks": 3}),
+        ("sharded_restart", {"restart_interval": ri},
+         {"encode_blocks": 3, "decode_segments": 1}),
+        ("sharded_optimize", {"optimize": True, "restart_interval": ri},
+         {"encode_blocks": 3, "decode_segments": 1, "symbol_histograms": 3}))
+    sharded_launches, sharded_mps, sharded_out = {}, {}, {}
+    for label, kw, per_batch in sharded_paths:
+        decode_sharded(mesh, encode_sharded(mesh, batches[0], **kw))
+        torch.cuda.synchronize()  # warm-up of this path's shapes
+        reset_counts()
+        t0 = time.perf_counter()
+        lists = [encode_sharded(mesh, b, **kw) for b in batches]
+        t_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pxs = [decode_sharded(mesh, ss) for ss in lists]
+        t_dec = time.perf_counter() - t0
+        sharded_launches[label] = read_counts()
+        want = {k: MAIN_BATCHES * per_batch.get(k, 0) for k in KERNELS}
+        if sharded_launches[label] != want:
+            raise AssertionError(f"{label} launches "
+                                 f"{sharded_launches[label]}, want {want}")
+        # the unsharded calls of the same semantics, timed in this run
+        ref_kw = dict(kw) if kw.get("optimize") else dict(kw, transport="rgb")
+        t0 = time.perf_counter()
+        for b in batches:
+            TC.encode_batch(b, device="cuda", **ref_kw)
+        t_ref_enc = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        refs = [TC.decode_batch(ss, transport="rgb", device="cuda")[0]
+                for ss in lists]
+        t_ref_dec = time.perf_counter() - t0
+        for p, r in zip(pxs, refs):
+            if not np.array_equal(p, r):
+                d = int(np.abs(p.astype(np.int32) - r.astype(np.int32)).max())
+                raise AssertionError(f"{label}: decode_sharded pixels differ "
+                                     f"from decode_batch(transport='rgb') by "
+                                     f"up to {d}")
+        sharded_out[label] = (lists, pxs)
+        sharded_mps[label] = {k: mpix / v for k, v in (
+            ("encode_sharded", t_enc), ("decode_sharded", t_dec),
+            ("encode_batch", t_ref_enc), ("decode_batch rgb", t_ref_dec))}
+    sh_opt_lists, sh_opt_px = sharded_out["sharded_optimize"]
+    sh_rst_lists, sh_rst_px = sharded_out["sharded_restart"]
+    for a, b in zip(sh_opt_px, sh_rst_px):
+        if not np.array_equal(a, b):
+            raise AssertionError("sharded optimize streams decode to other "
+                                 "pixels than the sharded restart streams")
+    sh_opt_bytes = sum(len(s) for ss in sh_opt_lists for s in ss)
+    sh_rst_bytes = sum(len(s) for ss in sh_rst_lists for s in ss)
+    if sh_opt_bytes >= sh_rst_bytes:
+        raise AssertionError(f"sharded optimize streams take {sh_opt_bytes}"
+                             f" bytes, the fixed tables {sh_rst_bytes}")
+    _say("12 sharded", f"1x1 mesh, {MAIN_BATCHES} batches x {BATCH}x{H}x{W}"
+         f": exact encode_sharded byte-identical to encode_batch("
+         f"transport='rgb') and host_codec, without and with "
+         f"restart_interval={ri}; 2 noise images at quality 100 outgrew the "
+         f"default budget of {shard_budget_words(H * W // 256)} words and "
+         f"were emitted again into {dense_maxw} (without, with restart "
+         f"markers), exact streams equal host_codec's and encode_batch's; "
+         f"decode_sharded pixels equal decode_batch("
+         f"transport='rgb')'s on every path; optimize ({sh_opt_bytes} bytes "
+         f"against {sh_rst_bytes}, one table set a batch) decodes to the "
+         f"restart streams' pixels; launches " + "; ".join(
+             f"{k} {v}" for k, v in sharded_launches.items())
+         + "; MP/s (serial, 4 batches): " + "; ".join(
+             f"{k}: " + ", ".join(f"{n} {v:.3f}" for n, v in m.items())
+             for k, m in sharded_mps.items()) + f"; on {card}")
+
+    # ranks that share the card: gloo, one process each, on cuda:0
+    imgs_p = batches[0][:PARALLEL_IMAGES]
+    exact_p = {
+        "exact_restart": encode_sharded(mesh, imgs_p, precision="exact",
+                                        restart_interval=ri),
+        "exact_optimize": encode_sharded(mesh, imgs_p, precision="exact",
+                                         optimize=True, restart_interval=ri)}
+    ranks_said = []
+    for world, data in ((2, 1), (4, 2)):
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(world, data)
+        wall_p = time.perf_counter() - t0
+        n_loc = PARALLEL_IMAGES // data
+        for res in ranks:
+            d, r = int(res["data_index"]), int(res["rank"])
+            rows = slice(d * n_loc, (d + 1) * n_loc)
+            if str(res["leaked"]):
+                raise AssertionError(f"rank {r} imported {res['leaked']}")
+            for name, want in exact_p.items():
+                if _unpack_streams(res, name) != want[rows]:
+                    raise AssertionError(f"rank {r} of {world}: {name} "
+                                         "streams differ from the 1x1 mesh's")
+            fast = _unpack_streams(res, "fast_restart")
+            ref, _ = TC.decode_batch(fast, transport="rgb", device="cuda")
+            if not np.array_equal(res["px_device"], ref):
+                d_max = int(np.abs(res["px_device"].astype(np.int32)
+                                   - ref.astype(np.int32)).max())
+                raise AssertionError(
+                    f"rank {r} of {world}: sharded device decode differs "
+                    f"from decode_batch(transport='rgb') by up to {d_max}")
+            corrupt_err = str(res["corrupt_error"])
+            if ((not ("corrupt" in corrupt_err and "[1]" in corrupt_err))
+                    if d == 0 else corrupt_err):
+                raise AssertionError(f"rank {r} of {world} (data row {d}): "
+                                     f"corrupt stream gave {corrupt_err!r}")
+            got = {k: {n: int(c) for n, c in zip(KERNELS, res["counts_" + k])}
+                   for k in RANK_STEPS}
+            want = {k: {n: v.get(n, 0) for n in KERNELS}
+                    for k, v in RANK_STEPS.items()}
+            if got != want:
+                raise AssertionError(f"rank {r} of {world} launches {got}, "
+                                     f"want {want}")
+        ranks_said.append(
+            f"{world} ranks ({data}x{world // data}): {wall_p:.2f} s from "
+            "spawn to exit, per rank " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in zip(
+                    RANK_STEPS, ranks[0]["step_s"])))
+    _say("12 ranks", f"gloo ranks sharing cuda:0, {PARALLEL_IMAGES}x{H}x{W}"
+         f" with restart_interval={ri}: exact restart and optimize streams "
+         f"equal the 1x1 mesh's; the sharded device decode's pixels equal "
+         f"decode_batch(transport='rgb')'s; a corrupted stream raised on "
+         f"the ranks of its tile row only; launches per rank and step "
+         + ", ".join(f"{k} {v}" for k, v in RANK_STEPS.items())
+         + "; " + "; ".join(ranks_said) + f"; on {card}")
+
     # ---- 5/8 device: event spans, then (only now) the profiler
     y, cb, cr = HG.host_rgb_to_ycc420(batches[0])
     packed_dev = torch.from_numpy(np.concatenate(
@@ -1745,8 +1945,9 @@ def main() -> int:
         raise AssertionError(f"imported {leaked[:5]}")
     # pack_words is off every path: its count is phase 3's, over the real
     # blocks; encode_blocks' is the main path's; decode_segments' is the
-    # restart path's; symbol_histograms' is the optimize path's.  launches_by_path holds every path's own counts, each
-    # read just after that path's run.
+    # restart path's; symbol_histograms' is the optimize path's.
+    # launches_by_path holds every path's own counts (phase 12's sharded
+    # paths too), each read just after that path's run.
     launches = {"pack_words": pack_alone_launches,
                 "encode_blocks": main_launches["encode_blocks"],
                 "decode_segments": restart_launches["decode_segments"],
@@ -1754,7 +1955,9 @@ def main() -> int:
     by_path = {name: {"main": main_launches[name],
                       "restart_device": restart_launches[name],
                       "decode_indexed": indexed_launches[name],
-                      "optimize": optimize_launches[name]}
+                      "optimize": optimize_launches[name],
+                      **{path: counts[name]
+                         for path, counts in sharded_launches.items()}}
                for name in launches}
     per_batch = {name: {path: n / MAIN_BATCHES for path, n in paths.items()}
                  for name, paths in by_path.items()}
@@ -1780,5 +1983,123 @@ def main() -> int:
     return 0
 
 
+def _unpack_streams(res: dict, name: str) -> list[bytes]:
+    data = res["streams_" + name].tobytes()
+    offs = np.concatenate([[0], np.cumsum(res["lens_" + name])])
+    return [data[a:b] for a, b in zip(offs[:-1], offs[1:])]
+
+
+def _spawn_ranks(world: int, data: int) -> list[dict]:
+    """Phase 12's gloo ranks: `world` processes of this script (its rank
+    mode), a data x (world/data) mesh over one card.  Returns each rank's
+    results; a rank that fails or outlives RANK_TIMEOUT_S fails the run,
+    and every rank is stopped before this returns."""
+    out_dir = os.path.join(REPO, "build", "smoke_parallel")
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, f"store{world}")
+    outs = [os.path.join(out_dir, f"rank{r}of{world}.npz")
+            for r in range(world)]
+    for f in [store] + outs:
+        if os.path.exists(f):
+            os.remove(f)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         str(world), str(data), store, outs[r]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=RANK_TIMEOUT_S)
+            logs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0 or f"rank {r}: OK" not in log:
+            raise AssertionError(f"rank {r} of {world} failed "
+                                 f"({p.returncode}):\n{log[-4000:]}")
+    return [dict(np.load(f)) for f in outs]
+
+
+def rank_main(argv: list[str]) -> int:
+    """One gloo rank of phase 12 (`chip_smoke.py --rank R WORLD DATA STORE
+    OUT`): the mesh over the world's ranks, all on the one card; this
+    rank's data row of the PARALLEL_IMAGES images through encode_sharded
+    (exact with restart markers, exact optimize, fast with restart
+    markers) and decode_sharded (the device decode of the fast streams,
+    and of the same streams with image 1's first segment zeroed); the
+    results and each step's kernel launches to OUT (.npz)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    rank, world, data = (int(a) for a in argv[:3])
+    store, out = argv[3], argv[4]
+    sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+    import torch.distributed as dist
+    from jpezy_tpu_torch.bitstream.reader import parse
+    from jpezy_tpu_torch.parallel import decode_sharded, encode_sharded
+    from jpezy_tpu_torch.parallel.distributed import (initialize,
+                                                      make_global_mesh)
+
+    initialize(f"file://{store}", world, rank, backend="gloo")
+    mesh = make_global_mesh(data, device="cuda")
+    n_loc = PARALLEL_IMAGES // data
+    d = mesh.data_index
+    local = _images(PARALLEL_IMAGES, 1000)[d * n_loc:(d + 1) * n_loc]
+    ri = RESTART_INTERVAL
+    res = {"rank": rank, "data_index": d}
+    step_s = []
+
+    def step(name, fn):
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            res["counts_" + name] = np.array(
+                [read_counts()[k] for k in KERNELS])
+
+    def keep(name, streams):
+        res["streams_" + name] = np.frombuffer(b"".join(streams), np.uint8)
+        res["lens_" + name] = np.array([len(s) for s in streams])
+        return streams
+
+    keep("exact_restart", step("exact_restart", lambda: encode_sharded(
+        mesh, local, precision="exact", restart_interval=ri)))
+    keep("exact_optimize", step("exact_optimize", lambda: encode_sharded(
+        mesh, local, precision="exact", optimize=True, restart_interval=ri)))
+    fast = keep("fast_restart", step("fast_restart", lambda: encode_sharded(
+        mesh, local, restart_interval=ri)))
+    res["px_device"] = step("device_decode",
+                            lambda: decode_sharded(mesh, fast))
+    broken = list(fast)
+    if d == 0:  # image 1's first segment: data row 0, tile shard 0
+        b = bytearray(broken[1])
+        es = parse(broken[1]).entropy_start
+        b[es:es + 8] = bytes(8)
+        broken[1] = bytes(b)
+    try:
+        step("corrupt_decode", lambda: decode_sharded(mesh, broken))
+        res["corrupt_error"] = ""
+    except ValueError as exc:
+        res["corrupt_error"] = str(exc)
+    res["step_s"] = np.array(step_s)
+    res["leaked"] = " ".join(sorted(
+        m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                      "jpezy_tpu")))
+    np.savez(out, **res)
+    dist.barrier()
+    dist.destroy_process_group()
+    print(f"rank {rank}: OK", flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

@@ -9,6 +9,8 @@ C++ host runtime csrc/jpezy_host.cpp is shared.  Device code is torch; the
 entropy encode of blocks and the symbol counts of optimize
 (ops/pack_cuda.py) and the Huffman decode of restart segments
 (ops/scan_cuda.py) run as hand-written CUDA kernels on CUDA tensors.
+parallel/ shards the codec over a ('data', 'tile') mesh of ranks on
+torch.distributed.
 
 Public API (every entry point takes device=, default "cuda", which raises
 when no card is present; pass device="cpu" for the CPU path):
@@ -22,9 +24,16 @@ when no card is present; pass device="cpu" for the CPU path):
     jpeg = encode(r, g, b)                        # one image, any size
     r, g, b, props = decode(jpeg, precision="exact")
     streams = encode_mixed(images)                # list of [H, W, 3]
+    jpeg = encode_host(r, g, b)                   # host C++ codec, no card
+
+    from jpezy_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(data, tile)                  # one rank per shard
+    streams = encode_sharded(mesh, rgbs)          # this rank's data row
+    pixels = decode_sharded(mesh, streams)
 
 Command line: python -m jpezy_tpu_torch.cli encode in.ppm out.jpg [--gpu]
-(jpezy_tpu_torch/cli.py).
+(jpezy_tpu_torch/cli.py; scripts jpezy-torch, jpezy-torch-encode and
+jpezy-torch-decode).
 
 Lazy: importing this package imports neither torch's CUDA kernels nor the
 codec modules until an entry point is called.
@@ -72,5 +81,31 @@ def decode_mixed(*args, **kwargs):
 
 def roundtrip_batches(*args, **kwargs):
     from .runtime.pipeline import roundtrip_batches as _f
+
+    return _f(*args, **kwargs)
+
+
+def encode_host(*args, **kwargs):
+    """Complete host C++ codec path (no card, no torch kernels): the
+    reference's streams.  See codec/host_codec.py."""
+    from .codec.host_codec import encode as _f
+
+    return _f(*args, **kwargs)
+
+
+def decode_host(*args, **kwargs):
+    from .codec.host_codec import decode as _f
+
+    return _f(*args, **kwargs)
+
+
+def encode_sharded(*args, **kwargs):
+    from .parallel.api import encode_sharded as _f
+
+    return _f(*args, **kwargs)
+
+
+def decode_sharded(*args, **kwargs):
+    from .parallel.api import decode_sharded as _f
 
     return _f(*args, **kwargs)

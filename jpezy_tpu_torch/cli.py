@@ -6,7 +6,8 @@ Usage:
   jpezy-torch decode <input.(jpg|jpeg)> <output.ppm> [--gray] [-v]
   ... [--host | --gpu | --cpu]
 
-Also python -m jpezy_tpu_torch.cli.  Kept from the reference: the logo,
+Also python -m jpezy_tpu_torch.cli, and the reference's two binaries as
+jpezy-torch-encode / jpezy-torch-decode (main_encode, main_decode).  Kept from the reference: the logo,
 the section timers ("Done! Processing time: X(sec)"), encode to .ppm
 re-emitting the parsed PPM (--debug dumps it to stdout), decode -v with
 the marker trace and per-phase timers.
@@ -229,6 +230,18 @@ def main(argv: list[str] | None = None) -> int:
         return cmd_decode(rest)
     print("Usage: jpezy-torch (encode | decode) ...", file=sys.stderr)
     return 1
+
+
+def main_encode(argv: list[str] | None = None) -> int:
+    """`jpezy-torch-encode in.ppm out.jpg ...`: the reference's first
+    binary (CMakeLists.txt:7)."""
+    return main(["encode"] + list(sys.argv[1:] if argv is None else argv))
+
+
+def main_decode(argv: list[str] | None = None) -> int:
+    """`jpezy-torch-decode in.jpg out.ppm ...`: the reference's second
+    binary (CMakeLists.txt:8)."""
+    return main(["decode"] + list(sys.argv[1:] if argv is None else argv))
 
 
 if __name__ == "__main__":

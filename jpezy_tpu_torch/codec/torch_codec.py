@@ -95,9 +95,10 @@ def _quantize_local_ycc(y, cb, cr, *, gray: bool, dtype, rounded: bool,
 
 
 def _emit_local(yq, cbq, crq, restart_interval: int = 0,
-                tables=(None, None)):
+                tables=(None, None), carry=None):
     """Quantized blocks -> per-component (words, bits), component order
-    (parallel/sharded.py:_emit_local with tile_axis=None, interleave=False).
+    (jpezy_tpu/parallel/sharded.py:_emit_local with interleave=False, the
+    carry given in place of its ppermute).
 
     Images are flattened into the block axis: emissions are block-local
     once the per-image DC chains are captured in the predictors.  One
@@ -105,13 +106,18 @@ def _emit_local(yq, cbq, crq, restart_interval: int = 0,
     restart_interval > 0 resets each component's predictor chain every
     that many MCUs (4 blocks of Y, 1 of Cb and of Cr per MCU).
     tables: (luma, chroma) Huffman tables in the JAX order, each None (the
-    fixed tables) or one set per image with a leading [N] axis."""
+    fixed tables) or one set per image with a leading [N] axis.
+    carry: [N, 3] first DC predictor of each image's Y, Cb and Cr chain (a
+    tile shard's carry-in, jpezy_tpu_torch/parallel/sharded.py); None for
+    0, a whole image."""
     words, bits = [], []
-    for q, chroma, bpm, tabs in ((yq, False, 4, tables[0]),
-                                 (cbq, True, 1, tables[1]),
-                                 (crq, True, 1, tables[1])):
+    for c, (q, chroma, bpm, tabs) in enumerate((
+            (yq, False, 4, tables[0]), (cbq, True, 1, tables[1]),
+            (crq, True, 1, tables[1]))):
         n, b, _ = q.shape
-        pred = E.dc_predictors_restart(q[:, :, 0], restart_interval * bpm)
+        pred = E.dc_predictors_restart(
+            q[:, :, 0], restart_interval * bpm,
+            None if carry is None else carry[:, c])
         w_c, b_c = E.encode_block_words(q.reshape(-1, 64), pred.reshape(-1),
                                         chroma, tables=tabs,
                                         blocks_per_image=b)
@@ -127,9 +133,12 @@ def stream_budget_words_batch(nblocks: int) -> int:
     return max(4096, nblocks * 2)
 
 
-def _concat_batch_combined_comp(wc, bc, restart_interval: int = 0):
+def _concat_batch_combined_comp(wc, bc, restart_interval: int = 0,
+                                maxw: int | None = None):
     """Batched stream concat from PER-COMPONENT packed words
-    (jax_codec._concat_batch_combined_comp).
+    (jax_codec._concat_batch_combined_comp; with the caller's maxw, also
+    the per-shard concat of jpezy_tpu/parallel/sharded.py, i.e. the JAX
+    concat_device_batch and concat_device_restart_batch).
 
     The scatter is order-independent, so blocks scatter from component
     order with MCU-ordered global bit offsets; only the small [N, nm*6]
@@ -137,12 +146,15 @@ def _concat_batch_combined_comp(wc, bc, restart_interval: int = 0):
     column 0 = total bits, then with restart_interval the S per-segment
     bit counts (each segment starts byte-aligned in the stream), then the
     stream; words_comp [N, nm*6, W] in component order; bits_mcu
-    [N, nm*6] in MCU order)."""
+    [N, nm*6] in MCU order).  maxw: the stream's words, None for
+    stream_budget_words_batch; writes past it are dropped and the caller
+    checks total <= 32 * maxw."""
     N, nm = bc[1].shape
     bits_mcu = torch.cat(
         [bc[0].reshape(N, nm, 4), bc[1].reshape(N, nm, 1),
          bc[2].reshape(N, nm, 1)], dim=2).reshape(N, nm * 6)
-    maxw = stream_budget_words_batch(nm * 6)
+    if maxw is None:
+        maxw = stream_budget_words_batch(nm * 6)
     head = []
     if restart_interval:
         goff, total, seg_bits = E.stream_offsets_restart_batch(
@@ -228,14 +240,18 @@ def _quantize_batch_ycc(packed: torch.Tensor, *, h: int, w: int,
         rounded=rounded, qtables=_qtables(quality, packed.device))
 
 
-def _symbol_histograms_batch(yq, cbq, crq, *, restart_interval: int = 0):
+def _symbol_histograms_batch(yq, cbq, crq, *, restart_interval: int = 0,
+                             carry=None):
     """Per-image Huffman symbol counts [N, 4, 256] int32: Y-DC, Y-AC, C-DC,
     C-AC, chroma summed over Cb and Cr (jax_codec._symbol_histograms_batch).
-    One histogram kernel per component on CUDA tensors."""
+    One histogram kernel per component on CUDA tensors.  carry: as in
+    _emit_local."""
     hists = []
-    for q, bpm in ((yq, 4), (cbq, 1), (crq, 1)):
+    for c, (q, bpm) in enumerate(((yq, 4), (cbq, 1), (crq, 1))):
         n, b, _ = q.shape
-        pred = E.dc_predictors_restart(q[:, :, 0], restart_interval * bpm)
+        pred = E.dc_predictors_restart(
+            q[:, :, 0], restart_interval * bpm,
+            None if carry is None else carry[:, c])
         hists.append(E.symbol_histograms(q.reshape(-1, 64), pred.reshape(-1),
                                          blocks_per_image=b))
     y, cb, cr = hists
@@ -292,10 +308,10 @@ def encode_batch_dispatch(rgbs: np.ndarray, *, gray: bool = False,
     uploads the RGB samples and converts on the device (float32 in fast
     mode; exact mode gives identical streams).  optimize derives per-image
     optimal Huffman tables: it waits for one [N, 4, 256] histogram fetch
-    and runs the table derivation on the host, and implies the ycc420
-    transport.  _size (width, height) and _props carry an image's true
-    size and properties into the header when encode() padded it to the
-    MCU grid.
+    and runs the table derivation on the host, on the ycc420 transport
+    (transport="rgb" with optimize raises ValueError).  _size (width,
+    height) and _props carry an image's true size and properties into the
+    header when encode() padded it to the MCU grid.
 
     Returns a ticket for encode_batch_finish.  CUDA work is queued on the
     current stream; nothing here waits for it, except optimize's fetch."""
@@ -308,13 +324,16 @@ def encode_batch_dispatch(rgbs: np.ndarray, *, gray: bool = False,
             f"restart_interval must be >= 0, got {restart_interval}")
     if transport not in (None, "ycc420", "rgb"):
         raise ValueError(f"unknown encode transport {transport!r}")
+    if optimize and transport == "rgb":
+        raise ValueError("optimize=True runs on the ycc420 transport; "
+                         "transport='rgb' with optimize is not supported")
     _dtype(precision)
     if quality is not None:
         T.scale_quant_tables(quality)  # validate before any device work
     ri = restart_interval
     ticket = dict(n=n, h=h, w=w, gray=gray, quality=quality, ri=ri,
                   huff=None, size=_size, props=_props)
-    if transport == "rgb" and not optimize:
+    if transport == "rgb":
         combined, words, bits = _encode_batch_blocks(
             torch.from_numpy(np.ascontiguousarray(rgbs, np.uint8)).to(dev),
             gray=gray, precision=precision, rounded=rounded, quality=quality,

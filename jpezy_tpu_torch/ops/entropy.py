@@ -62,14 +62,21 @@ def dc_predictors(dc: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(dc[..., :1]), dc[..., :-1]], dim=-1)
 
 
-def dc_predictors_restart(dc: torch.Tensor, seg_blocks: int) -> torch.Tensor:
+def dc_predictors_restart(dc: torch.Tensor, seg_blocks: int,
+                          first: torch.Tensor | None = None) -> torch.Tensor:
     """dc_predictors with a reset to 0 at every restart-segment start
     (T.81 F.2.1.3.1), along the last axis.
 
     seg_blocks: blocks per restart segment FOR THIS COMPONENT
     (= restart_interval * blocks_per_mcu); <= 0 means one unbroken chain.
+    first: the predictor of each chain's first block (dc without its last
+    axis), None for 0: a tile shard's carry, the previous shard's last DC
+    (parallel/sharded.py).  A segment that starts at the chain's first
+    block still resets to 0.
     """
     pred = dc_predictors(dc)
+    if first is not None:
+        pred[..., 0] = first.to(pred.dtype)
     if seg_blocks <= 0:
         return pred
     idx = torch.arange(dc.shape[-1], device=dc.device)

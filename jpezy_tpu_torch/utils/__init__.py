@@ -1,6 +1,6 @@
-"""Verbatim copy of jpezy_tpu/utils/ (timing.py).
-
-The port imports nothing of jpezy_tpu, so it carries its own copy of this
-jax-free host code.  tests/test_torch_host_copies.py holds every file
-byte-identical to its original; change both together.
+"""Host utilities of the port: timing.py is a verbatim copy of
+jpezy_tpu/utils/timing.py (the port imports nothing of jpezy_tpu;
+tests/test_torch_host_copies.py holds it byte-identical, change both
+together); profiling.py is the port's counterpart of
+jpezy_tpu/utils/profiling.py, with a torch.profiler trace.
 """

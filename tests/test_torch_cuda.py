@@ -416,3 +416,32 @@ def test_optimize_and_rgb_on_card_match_cpu(cuda):
     b, _ = TC.decode_batch(opt, transport="rgb", device="cpu")
     # float32 IDCT and colour differ in summation order from the CPU's
     assert np.abs(a.astype(int) - b.astype(int)).max() <= 2
+
+
+@pytest.mark.parametrize("kw", [{}, {"restart_interval": 2},
+                                {"optimize": True, "restart_interval": 2}],
+                         ids=["plain", "restart", "optimize"])
+def test_sharded_on_card_matches_cpu(cuda, kw):
+    """encode_sharded / decode_sharded on a 1x1 mesh on the card: exact
+    streams equal the CPU mesh's, the kernels launch per shard (3 fused,
+    3 histogram with optimize, 1 scan for restart streams), and the
+    device decode's pixels equal the card's rgb transport's."""
+    from imagegen import make_test_image
+
+    from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+    from jpezy_tpu_torch.parallel import (decode_sharded, encode_sharded,
+                                          make_mesh)
+
+    rgbs = np.stack([make_test_image(64, 64, seed=190 + i) for i in range(2)])
+    card, cpu = make_mesh(1, 1, device=cuda), make_mesh(1, 1, device="cpu")
+    before = (pack_cuda.encode_launches, pack_cuda.histogram_launches,
+              scan_cuda.launches)
+    streams = encode_sharded(card, rgbs, precision="exact", **kw)
+    px = decode_sharded(card, streams)
+    after = (pack_cuda.encode_launches, pack_cuda.histogram_launches,
+             scan_cuda.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (
+        3, 3 if kw.get("optimize") else 0, 1 if kw else 0)
+    assert streams == encode_sharded(cpu, rgbs, precision="exact", **kw)
+    want, _ = TC.decode_batch(streams, transport="rgb", device=cuda)
+    assert np.array_equal(px, want)

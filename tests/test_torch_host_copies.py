@@ -2,13 +2,13 @@
 
 jpezy_tpu_torch imports nothing of jpezy_tpu, so it carries verbatim copies
 of the host code both packages run: Annex K tables, geometry and props, the
-marker writer/reader and splice, the ctypes loader of the C++ host runtime,
-the oracle, the host C++ codec, the section timer and the PPM reader and
-writer.  Each copy must stay
-byte-identical to its original, and the copied host codec must give the
-original's streams.  The host helpers that codec/host_glue.py copies out of
-jpezy_tpu.codec.jax_codec (which imports jax) must keep their original's
-code: same arguments, same statements, only the docstring may differ.
+marker writer/reader, splice and differ, the ctypes loader of the C++ host
+runtime, the oracle, the host C++ codec, the section timer and the PPM
+reader and writer.  Each copy must stay byte-identical to its original,
+and the copied host codec must give the original's streams.  The host
+helpers that codec/host_glue.py copies out of jpezy_tpu.codec.jax_codec
+(which imports jax) must keep their original's code: same arguments, same
+statements, only the docstring may differ.
 """
 import ast
 import inspect
@@ -23,7 +23,7 @@ COPIES = [
     "core/tables.py", "core/geometry.py", "core/props.py",
     "bitstream/reader.py", "bitstream/writer.py", "bitstream/splice.py",
     "runtime/native.py", "codec/oracle.py", "codec/host_codec.py",
-    "utils/timing.py", "runtime/ppm.py",
+    "utils/timing.py", "runtime/ppm.py", "bitstream/differ.py",
 ]
 
 
