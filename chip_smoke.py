@@ -19,12 +19,12 @@ failure exits nonzero.  In the order they run:
      fp32 matmuls at IEEE precision (no TF32);
   2. build: compiles the CUDA sources of the checkout, all at once (the
      entropy pack alone and fused with the emissions, the latter in a
-     fixed-table and a custom-table form, entropy_pack.cu; the Huffman
-     scan, huffman_scan.cu) and prints what ptxas reports for each kernel;
-     a
-     stack frame or a spill in the pack kernels, or a spill in the scan
-     kernel, fails the run.  Counts each kernel's SASS instructions
-     (cuobjdump);
+     fixed-table and a custom-table form, and the symbol histograms,
+     entropy_pack.cu; the Huffman scan, huffman_scan.cu; the stream
+     concat's two passes, stream_concat.cu) and prints what ptxas reports
+     for each kernel; a stack frame or a spill in any kernel but the
+     scan, or a spill in the scan kernel, fails the run.  Counts each
+     kernel's SASS instructions (cuobjdump);
   3. the pack kernels against their plain torch versions on the real
      16x512x512 blocks, on seeded worst-case blocks and on the edge-case
      blocks: words and bits must be identical.  The pack kernel alone is
@@ -50,29 +50,32 @@ failure exits nonzero.  In the order they run:
      every stream must decode; the port's own decode and the host decoder's
      decode of the port's streams must both reach a PSNR within 0.05 dB of
      the host codec's exact round trip.  The fused kernel must have been
-     launched 3 times per batch and no other kernel at all;
+     launched 3 times and the concat once per batch and no other kernel
+     at all;
   8. restart path: the same batches with restart_interval=8 and
      transport="device": every stream starts FFD8, ends FFD9, carries DRI
      and RSTn cycling 0..7, decodes in the host decoder; the device
      transport's pixels equal the ycc420 transport's exactly; the fused
-     kernel must have been launched 3 times and the scan once per batch.
+     kernel must have been launched 3 times, the concat and the scan once
+     per batch.
      Then decode_batches with transport="indexed" on the main path's
      restart-free streams: pixels equal to the main path's; one scan launch
      per batch.  A corrupted stream must raise.  Decode alone, pipelined,
      is timed for the three transports side by side, and the host halves
      (parse, _device_host_frontend, _indexed_host_frontend, the ycc420
      host frontend, encode_batch_finish) per batch on the host's clock;
-  10. optimize: the histogram kernel against its plain version on the
-     real 16x512x512 components, the edge-case blocks and the
-     long-emission blocks, in images of 1 to 140 blocks (a thread block
-     spanning images); the fused kernel with the batch's 16 per-image
+  10. optimize: the histogram kernel (one launch for the three
+     components) against its plain version on the real 16x512x512
+     components without and with restarts and a carry, and on images of
+     1 to 140 blocks a component cut from the edge-case and long-emission
+     blocks; the fused kernel with the batch's 16 per-image
      table sets against its plain version; slots of 74 bits
      (entropy.long_emission_tables) encoded on the card to the host C++
      encoder's entropy bytes; 4x512x512 exact optimize streams, with and
      without restarts, byte-identical to host_codec.  Then the optimize
      path over 4 batches: every stream with its own DHT, pixels equal to
-     the restart path's, fewer bytes; 3 histogram, 3 fused and 1 scan
-     launch per batch; MP/s of encode and decode and the host stages
+     the restart path's, fewer bytes; 1 histogram, 3 fused, 1 concat and
+     1 scan launch per batch; MP/s of encode and decode and the host stages
      (the table derivation, the 16 LUT sets of the decode);
   11. rgb and entry points: rgb encode (fast, exact) and rgb decode (fast,
      exact, gray) on the card against the same calls on the CPU; exact
@@ -90,26 +93,36 @@ failure exits nonzero.  In the order they run:
      decode per shard) and `sharded_optimize` (one table set a batch):
      decode_sharded pixels equal decode_batch(transport="rgb")'s, optimize
      streams decode to the restart streams' pixels in fewer bytes,
-     launches per batch 3 fused (+ 1 scan with restarts, + 3 histogram
-     with optimize), MP/s beside encode_batch/decode_batch.  Then this
+     launches per batch 3 fused and 1 concat (+ 1 scan with restarts,
+     + 1 histogram with optimize), MP/s beside encode_batch/decode_batch.
+     Then this
      script spawns itself as 2 gloo ranks (a 1x2 mesh), then 4 (2x2), all
      on the one card, on 4 of the images with restart_interval=8: exact
      restart and optimize streams equal the 1x1 mesh's, the sharded device
      decode's pixels equal decode_batch(transport="rgb")'s, a corrupted
      stream raises on the ranks of its tile row, and each rank's launches
      per step are as expected; a rank that fails or hangs fails the run;
+  13. the concat kernel against its plain version, bit for bit: the real
+     16x512x512 blocks without and with restart_interval 1, 8 and 17, the
+     16 per-image table sets of optimize, gray, noise at quality 100 with
+     the default budget and a quarter of it (words dropped), the two
+     shards of a 1x2 mesh in the shard budget, and seeded blocks whose
+     bits reach word 63; one counted call each;
   5/8 device: only now the profiler: per batch the encode and decode
      programs' CUDA-event spans (host-launch bound), their device-busy
      time (kernel and copy time summed from a torch.profiler trace) and
      number of device events, for both paths, the encode program's stages
-     alone, and the card's busy share of each pipelined round trip (device
+     alone (the concat also as the plain torch stage it replaced), and the
+     card's busy share of each pipelined round trip (device
      time of a profiled round trip over the wall time of the unprofiled
      one); 10/11 device: the optimize encode's device stages alone and the
      optimize path's busy share, the rgb transports' device programs
      (fast, exact, gray);
-  6. times of the pack kernels and the histogram kernel alone on the real
-     blocks beside their bounds (see _bound), and of the fused kernel with
-     the 16 per-image table sets beside the fixed tables;
+  6. times of the pack kernels, the histogram kernel and the concat alone
+     on the real blocks beside their bounds (see _bound) and their plain
+     versions, of the concat on noise at quality 100 (dense blocks), and
+     of the fused kernel with the 16 per-image table sets beside the fixed
+     tables;
   9. times of the scan kernel alone on the real segments beside its bound
      and the plain version's time, with the L2 cache overwritten before
      each launch, on four times the segments, and with every segment on
@@ -158,9 +171,9 @@ PEAK_INT_OPS_PER_S = 67e12 / 2
 # cost of that layout, not part of the bound.)
 BLOCK_BYTES = {"pack_words": 3 * 256 + 256 + 4,
                "encode_blocks": 256 + 4 + 256 + 4,
-               "symbol_histograms": 256 + 4}
-# and per image, the histogram kernel's [2, 256] int32 counts
-IMAGE_HIST_BYTES = 2 * 256 * 4
+               "symbol_histograms": 256}
+# and per image, the histogram kernel's [4, 256] int32 counts
+IMAGE_HIST_BYTES = 4 * 256 * 4
 # The least 32-bit operations each function needs, whatever computes it:
 # (per emission slot, per emission of nonzero length).  Packing: a slot
 # costs one add of the prefix sum over the lengths and one test for an
@@ -175,9 +188,14 @@ MIN_OPS = {"pack_words": (2, 10), "encode_blocks": (3, 25),
            # counting: per slot the nonzero test and the zero run (3), per
            # symbol the category (2), the bin (3) and the count (1)
            "symbol_histograms": (3, 6)}
-# blocks one warp of each kernel takes (kBlocksPerWarp of the source)
+# The least 32-bit operations of the stream concat: per block the scan's
+# add and the split of its offset (3), per word it places the two halves
+# of the funnel shift, their merge and the store (4).
+CONCAT_OPS = (3, 4)
+# blocks one warp of each kernel takes (kBlocksPerWarp of the source; the
+# histogram kernel takes one a thread)
 BLOCKS_PER_WARP = {"pack_words": 1, "encode_blocks": 2,
-                   "symbol_histograms": 4}
+                   "symbol_histograms": 32}
 # The least 32-bit operations per decoded Huffman symbol, whatever decodes
 # it: cut the 16-bit window (1), index the table (2), split length and
 # value (2), cut and sign-extend the extra bits (4), the coefficient's
@@ -188,24 +206,39 @@ MIN_OPS_PER_SYMBOL = 12
 # taken again here).
 EARLIER_SCAN_MS = 0.1052
 KERNELS = ("pack_words", "encode_blocks", "decode_segments",
-           "symbol_histograms")
+           "symbol_histograms", "concat_streams")
 # the fused kernel's instantiation for the caller's tables (optimize), built
 # and checked beside the fixed-table one, which keeps the name
 ENCODE_CUSTOM = "encode_blocks (custom tables)"
+# the concat's first pass (the offsets); its second, the scatter, keeps
+# the name.  One wrapper call launches both.
+CONCAT_OFFSETS = "concat_streams (offsets)"
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
-           "symbol_histograms": "jpezy_tpu_torch/csrc/entropy_pack.cu"}
+           "symbol_histograms": "jpezy_tpu_torch/csrc/entropy_pack.cu",
+           "concat_streams": "jpezy_tpu_torch/csrc/stream_concat.cu"}
 REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
             "encode_blocks": "jpezy_tpu/ops/pack_pallas.py:27",
             "decode_segments": "jpezy_tpu/ops/entropy_decode.py:211",
-            "symbol_histograms": "jpezy_tpu/ops/entropy.py:112"}
+            "symbol_histograms": "jpezy_tpu/codec/jax_codec.py:464",
+            "concat_streams": "jpezy_tpu/codec/jax_codec.py:317"}
+# The three per-component histogram launches that the one-launch kernel
+# replaced, summed (chip_smoke.py phase 6, PR 5 and PR 6: NVIDIA H100 80GB
+# HBM3, 700 W; kept from then, not measured here).
+EARLIER_HISTOGRAM_MS = 0.0268
+# The concat stage of the encode program as plain torch on the card, as
+# earlier runs read it (chip_smoke.py phase 5 stages, PR 5: NVIDIA H100
+# 80GB HBM3, 700 W; kept from then); this run measures it again beside
+# the kernel.
+EARLIER_CONCAT_MS = 0.5805
 # phase 12's gloo ranks: the images they share, and each rank's steps
 # with the launches every step must make
 PARALLEL_IMAGES = 4
-RANK_STEPS = {"exact_restart": {"encode_blocks": 3},
-              "exact_optimize": {"encode_blocks": 3, "symbol_histograms": 3},
-              "fast_restart": {"encode_blocks": 3},
+RANK_STEPS = {"exact_restart": {"encode_blocks": 3, "concat_streams": 1},
+              "exact_optimize": {"encode_blocks": 3, "symbol_histograms": 1,
+                                 "concat_streams": 1},
+              "fast_restart": {"encode_blocks": 3, "concat_streams": 1},
               "device_decode": {"decode_segments": 1},
               "corrupt_decode": {"decode_segments": 1}}
 RANK_TIMEOUT_S = 300
@@ -216,19 +249,21 @@ CPU_BATCH, CPU_HW = 2, 256
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda, scan_cuda
 
     pack_cuda.launches = pack_cuda.encode_launches = 0
     pack_cuda.histogram_launches = scan_cuda.launches = 0
+    concat_cuda.launches = 0
 
 
 def read_counts() -> dict:
-    from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda, scan_cuda
 
     return {"pack_words": pack_cuda.launches,
             "encode_blocks": pack_cuda.encode_launches,
             "decode_segments": scan_cuda.launches,
-            "symbol_histograms": pack_cuda.histogram_launches}
+            "symbol_histograms": pack_cuda.histogram_launches,
+            "concat_streams": concat_cuda.launches}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -293,13 +328,27 @@ def _profile(fn, reps: int) -> dict:
                         for e in dev}}
 
 
-def _kernel_ms(prof: dict, name: str) -> float:
-    """Device ms per call of the kernels whose name holds `name`; raises
-    if the trace holds none."""
+def _kernel_ms(prof: dict, name: str, required: bool = True):
+    """Device ms per call of the kernels whose name holds `name`; if the
+    trace holds none, raises (or None where not required)."""
     hit = [ms for key, ms in prof["by_name"].items() if name in key]
     if not hit or sum(hit) <= 0:
+        if not required:
+            return None
         raise RuntimeError(f"the profiler traced no device time for {name}")
     return sum(hit)
+
+
+def _traced(fn, reps: int, *names: str):
+    """(device ms per call of the kernels named, summed; the trace) of a
+    torch.profiler trace of `reps` calls of fn.  A trace that lost a
+    kernel's events (the profiler drops some now and then) is taken
+    again, up to three times in all; then it raises."""
+    for attempt in range(3):
+        prof = _profile(fn, reps)
+        ms = [_kernel_ms(prof, name, attempt == 2) for name in names]
+        if None not in ms:
+            return sum(ms), prof
 
 
 def _fmt_ms(ms) -> str:
@@ -337,6 +386,10 @@ def _worst_case_blocks(dev, nblocks: int = 4096, seed: int = 5):
 def _kernel_of(symbol: str) -> str:
     if "encode_blocks_kernelILb1E" in symbol:  # the custom-table form
         return ENCODE_CUSTOM
+    if "concat_offsets" in symbol:
+        return CONCAT_OFFSETS
+    if "concat_scatter" in symbol:
+        return "concat_streams"
     for name in ("encode_blocks", "decode_segments", "symbol_histograms"):
         if name in symbol:
             return name
@@ -625,6 +678,37 @@ def _long_emission_bytes(E, encode) -> tuple[bytes, bytes, int]:
     return writer.byte_stuff(raw), ref, int(nb.max())
 
 
+def _hist_sets(E, comps, dev):
+    """(label, (yq, cbq, crq), restart_interval, carry) of the histogram
+    kernel's checks: the real batch's components without and with restarts
+    and with a carry, then images of 1 to 140 blocks a component cut from
+    the edge-case blocks (a thread block's run ends inside a chain, chains
+    of one block, chroma longer than luma) and the long-emission blocks."""
+    edge = torch.cat([torch.from_numpy(E.edge_case_blocks(3)).to(dev)] * 4)
+    longq = torch.from_numpy(E.long_emission_blocks()).to(dev)
+    carry = torch.from_numpy(np.random.default_rng(13).integers(
+        -1000, 1000, (comps[0].shape[0], 3)).astype(np.int32)).to(dev)
+    sets = [("real", comps, 0, None), ("real", comps, RESTART_INTERVAL, None),
+            ("real, carry", comps, 0, carry),
+            ("real, carry", comps, RESTART_INTERVAL, carry)]
+    for ny, nc in ((1, 1), (4, 1), (7, 3), (140, 35), (128, 129),
+                   (130, 140)):
+        n = edge.shape[0] // (ny + 2 * nc)
+        blk = edge[:n * (ny + 2 * nc)].reshape(n, -1, 64)
+        cs = (blk[:, :ny], blk[:, ny:ny + nc], blk[:, ny + nc:])
+        sets += [(f"edge, images of {ny}+{nc}+{nc} blocks", cs, r_i, None)
+                 for r_i in (0, 1, 3)]
+    lq = longq.reshape(2, 4, 64)
+    sets.append(("long", (lq, lq[:, :1], lq[:, 1:2]), 0, None))
+    return sets
+
+
+def _per_batch(**per_batch) -> dict:
+    """Every kernel's launches over MAIN_BATCHES batches, from its launches
+    per batch (0 where not given)."""
+    return {k: MAIN_BATCHES * per_batch.get(k, 0) for k in KERNELS}
+
+
 def _preds(E, q: torch.Tensor, n: int) -> torch.Tensor:
     """DC predictors of [B, 64] blocks holding n images, one chain each."""
     return E.dc_predictors(q[:, 0].reshape(n, -1)).reshape(-1)
@@ -644,7 +728,7 @@ def main() -> int:
     from jpezy_tpu_torch.ops import cuda_build
     from jpezy_tpu_torch.ops import entropy as E
     from jpezy_tpu_torch.ops import entropy_decode as ED
-    from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda, scan_cuda
     from jpezy_tpu_torch.runtime import batch as RB
     from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
                                                   encode_batches,
@@ -664,7 +748,7 @@ def main() -> int:
     # ---- 2. build the kernels from the checkout's sources, all at once
     import concurrent.futures as cf
 
-    libs = (pack_cuda.LIB, scan_cuda.LIB)
+    libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB)
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(len(libs)) as ex:
         secs = list(ex.map(lambda lib: lib.build(force=True), libs))
@@ -674,15 +758,15 @@ def main() -> int:
         lib.get()
         ptxas.update(_ptxas_by_kernel(lib.build_log))
         sass.update(_sass_instructions(cuda_build.nvcc(), lib.so))
-    built = sorted(KERNELS + (ENCODE_CUSTOM,))
+    built = sorted(KERNELS + (ENCODE_CUSTOM, CONCAT_OFFSETS))
     if sorted(ptxas) != built or sorted(sass) != built \
             or min(sass.values()) <= 0:
         raise AssertionError(
             f"ptxas reported {sorted(ptxas)}, cuobjdump {sass}:\n"
             + "\n".join(lib.build_log for lib in libs))
-    _say("2 build", "entropy_pack.cu and huffman_scan.cu built for sm_90a "
-         f"side by side in {build_wall:.2f} s (nvcc {secs[0]:.2f} and "
-         f"{secs[1]:.2f} s); "
+    _say("2 build", ", ".join(os.path.basename(lib.src) for lib in libs)
+         + f" built for sm_90a side by side in {build_wall:.2f} s (nvcc "
+         + ", ".join(f"{t:.2f}" for t in secs) + " s); "
          + " || ".join(f"{k}: {' | '.join(v)} | {sass[k]} SASS instructions"
                        for k, v in ptxas.items()))
     for k, lines in ptxas.items():
@@ -913,11 +997,10 @@ def main() -> int:
     results = list(roundtrip_batches(batches, lookahead=1, device="cuda"))
     wall = time.perf_counter() - t0
     main_launches = read_counts()
-    if main_launches != {"pack_words": 0, "encode_blocks": 3 * MAIN_BATCHES,
-                         "decode_segments": 0, "symbol_histograms": 0}:
+    if main_launches != _per_batch(encode_blocks=3, concat_streams=1):
         raise AssertionError(
             f"main path launches {main_launches}: want the fused kernel 3 "
-            "times per batch and no other kernel")
+            "times and the concat once per batch and no other kernel")
     streams = [s for ss, _ in results for s in ss]
     src = np.concatenate(batches)
     px = np.concatenate([p for _, p in results])
@@ -955,13 +1038,11 @@ def main() -> int:
     rresults = list(roundtrip_batches(batches, **rt_kw))
     rwall = time.perf_counter() - t0
     restart_launches = read_counts()
-    if restart_launches != {"pack_words": 0,
-                            "encode_blocks": 3 * MAIN_BATCHES,
-                            "decode_segments": MAIN_BATCHES,
-                            "symbol_histograms": 0}:
+    if restart_launches != _per_batch(encode_blocks=3, concat_streams=1,
+                                      decode_segments=1):
         raise AssertionError(
             f"restart path launches {restart_launches}: want the fused "
-            "kernel 3 times and the scan kernel once per batch")
+            "kernel 3 times, the concat and the scan kernel once per batch")
     nseg = -(-(H // 16) * (W // 16) // ri)
     want_rst = np.arange(nseg - 1) % 8
     for ss, rpx in rresults:
@@ -1087,37 +1168,26 @@ def main() -> int:
     from jpezy_tpu_torch.core import tables as T
 
     real10 = _real_blocks(TC, HG, _images(BATCH, 0), dev)
-    edge = torch.from_numpy(E.edge_case_blocks(3)).to(dev)
-    longq = torch.from_numpy(E.long_emission_blocks()).to(dev)
-    hist_sets = [(f"real {'chroma' if c else 'luma'}", q,
-                  _preds(E, q, BATCH), q.shape[0] // BATCH)
-                 for q, c in real10]
-    for label, q, bpi in (("edge", edge, edge.shape[0]), ("edge", edge, 1),
-                          ("edge", edge, 3), ("edge", edge, 7),
-                          ("long", longq, 1), ("long", longq, 2),
-                          ("long", longq, 8)):
-        q = q[:(q.shape[0] // bpi) * bpi]
-        hist_sets.append((f"{label} in images of {bpi}", q,
-                          _preds(E, q, q.shape[0] // bpi), bpi))
+    comps = tuple(q.reshape(BATCH, -1, 64) for q, _ in real10)
+    hist_sets = _hist_sets(E, comps, dev)
     err["symbol_histograms"] = 0
     pack_cuda.histogram_launches = 0
-    for label, q, pred, bpi in hist_sets:
-        hk = pack_cuda.symbol_histograms_cuda(q, pred, bpi)
-        hp = E.symbol_histograms_plain(q, pred, bpi)
+    for label, cs, r_i, carry in hist_sets:
+        hk = pack_cuda.symbol_histograms_batch_cuda(
+            *cs, restart_interval=r_i, carry=carry)
+        hp = E.symbol_histograms_batch_plain(*cs, r_i, carry)
         torch.cuda.synchronize()
         e = int((hk.to(torch.int64) - hp.to(torch.int64)).abs().max())
         err["symbol_histograms"] = max(err["symbol_histograms"], e)
         if e or hk.dtype != torch.int32:
-            raise AssertionError(f"symbol_histograms kernel != plain version "
-                                 f"on {label} {tuple(q.shape)}")
-    # the real components: phase 6 times the kernel on these
-    hist_inputs = [(q, pred, bpi) for _, q, pred, bpi in hist_sets[:3]]
+            raise AssertionError(
+                f"symbol_histograms kernel != plain version on {label} "
+                f"{[tuple(c.shape) for c in cs]}, restart_interval={r_i}")
     if pack_cuda.histogram_launches != len(hist_sets):
         raise AssertionError(f"histogram kernel launched "
                              f"{pack_cuda.histogram_launches} times in "
                              f"{len(hist_sets)} comparisons")
     # 16 per-image table sets of the real batch, one launch per component
-    comps = tuple(q.reshape(BATCH, -1, 64) for q, _ in real10)
     hists = TC._symbol_histograms_batch(*comps).cpu().numpy()
     _, ytabs, ctabs = TC._optimal_tables(hists)
     set_inputs = []      # (q, pred, kernel tables, bpi) per component
@@ -1156,10 +1226,11 @@ def main() -> int:
               for im in imgs4]
     if got_o != ref_o or got_or != ref_or:
         raise AssertionError("exact optimize encode differs from host_codec")
-    _say("10 kernels", f"symbol_histograms identical to the plain version "
-         f"on {len(hist_sets)} sets ("
-         + ", ".join(f"{label} {tuple(q.shape)}"
-                     for label, q, _, _ in hist_sets)
+    _say("10 kernels", f"symbol_histograms (one launch for the three "
+         f"components) identical to the plain version on {len(hist_sets)} "
+         "sets (" + ", ".join(
+             f"{label} {[tuple(c.shape)[:2] for c in cs]} ri={r_i}"
+             for label, cs, r_i, _ in hist_sets)
          + f"); encode_blocks with {BATCH} per-image table sets ({n_sets} "
          f"distinct luma AC tables) identical to the plain version on "
          f"{[tuple(q.shape) for q, *_ in set_inputs]}; {long_bits}-bit "
@@ -1185,13 +1256,12 @@ def main() -> int:
     opt_dec = list(decode_batches(opt_lists, **odec_kw))
     odwall = time.perf_counter() - t0
     optimize_launches = read_counts()
-    if optimize_launches != {"pack_words": 0,
-                             "encode_blocks": 3 * MAIN_BATCHES,
-                             "decode_segments": MAIN_BATCHES,
-                             "symbol_histograms": 3 * MAIN_BATCHES}:
+    if optimize_launches != _per_batch(symbol_histograms=1, encode_blocks=3,
+                                       concat_streams=1, decode_segments=1):
         raise AssertionError(
             f"optimize path launches {optimize_launches}: want the histogram "
-            "and the fused kernel 3 times and the scan once per batch")
+            "kernel once, the fused kernel 3 times, the concat and the scan "
+            "once per batch")
     opt_bytes = sum(len(s) for ss in opt_lists for s in ss)
     fixed_bytes = sum(len(s) for s in rstreams)
     for ss, (opx, _), (_, rpx) in zip(opt_lists, opt_dec, rresults):
@@ -1428,11 +1498,12 @@ def main() -> int:
             raise AssertionError(f"dense encode_sharded ({kw}) differs from "
                                  "host_codec or encode_batch(transport='rgb')")
     sharded_paths = (
-        ("sharded", {}, {"encode_blocks": 3}),
+        ("sharded", {}, {"encode_blocks": 3, "concat_streams": 1}),
         ("sharded_restart", {"restart_interval": ri},
-         {"encode_blocks": 3, "decode_segments": 1}),
+         {"encode_blocks": 3, "concat_streams": 1, "decode_segments": 1}),
         ("sharded_optimize", {"optimize": True, "restart_interval": ri},
-         {"encode_blocks": 3, "decode_segments": 1, "symbol_histograms": 3}))
+         {"encode_blocks": 3, "concat_streams": 1, "decode_segments": 1,
+          "symbol_histograms": 1}))
     sharded_launches, sharded_mps, sharded_out = {}, {}, {}
     for label, kw, per_batch in sharded_paths:
         decode_sharded(mesh, encode_sharded(mesh, batches[0], **kw))
@@ -1445,7 +1516,7 @@ def main() -> int:
         pxs = [decode_sharded(mesh, ss) for ss in lists]
         t_dec = time.perf_counter() - t0
         sharded_launches[label] = read_counts()
-        want = {k: MAIN_BATCHES * per_batch.get(k, 0) for k in KERNELS}
+        want = _per_batch(**per_batch)
         if sharded_launches[label] != want:
             raise AssertionError(f"{label} launches "
                                  f"{sharded_launches[label]}, want {want}")
@@ -1551,6 +1622,73 @@ def main() -> int:
          + ", ".join(f"{k} {v}" for k, v in RANK_STEPS.items())
          + "; " + "; ".join(ranks_said) + f"; on {card}")
 
+    # ---- 13. the concat kernel against its plain torch version
+    from jpezy_tpu_torch.parallel.sharded import last_dcs
+
+    concat_sets = [(f"real, restart_interval={r_i}",
+                    *TC._emit_local(*comps, r_i), r_i, None)
+                   for r_i in (0, 1, ri, 17)]
+    concat_inputs = concat_sets[0][1:3]  # the main path's; phase 6 times it
+    _, owc, obc = TC._encode_batch_custom(*comps, ytabs, ctabs,
+                                          restart_interval=ri)
+    concat_sets.append((f"{BATCH} per-image table sets", owc, obc, ri, None))
+    gray_q = TC._quantize_batch_rgb(torch.from_numpy(batches[0]).to(dev),
+                                    gray=True)
+    concat_sets.append(("gray", *TC._emit_local(*gray_q), 0, None))
+    dense_q = TC._quantize_batch_rgb(torch.from_numpy(dense).to(dev),
+                                     quality=100)
+    dense_maxw0 = TC.stream_budget_words_batch(6 * (H // 16) * (W // 16))
+    for r_i in (0, ri):
+        dwc, dbc = TC._emit_local(*dense_q, r_i)
+        concat_sets += [
+            (f"noise at quality 100, restart_interval={r_i}", dwc, dbc, r_i,
+             None),
+            (f"the same in {dense_maxw0 // 4} words", dwc, dbc, r_i,
+             dense_maxw0 // 4)]
+    # the two shards of a 1x2 mesh: each image's halves of MCU rows, the
+    # second from the first's last DCs, in the shard budget
+    halves = [tuple(c[:, k * c.shape[1] // 2:(k + 1) * c.shape[1] // 2]
+                    for c in comps) for k in (0, 1)]
+    shard_maxw = shard_budget_words((H // 16) * (W // 16) // 2)
+    carries = (None, last_dcs(halves[0]))
+    for k, (half, carry) in enumerate(zip(halves, carries)):
+        concat_sets.append((f"1x2 shard {k}, restart_interval={ri}",
+                            *TC._emit_local(*half, ri, carry=carry), ri,
+                            shard_maxw))
+    swc, sbc = E.stream_blocks(6, 700, seed=63)
+    concat_sets.append(("seeded, bits up to word 63",
+                        tuple(w.to(dev) for w in swc),
+                        tuple(b.to(dev) for b in sbc), 3, None))
+    err["concat_streams"] = 0
+    concat_cuda.launches = 0
+    dropped = 0
+    for label, cwc, cbc, r_i, maxw in concat_sets:
+        if maxw is None:
+            maxw = TC.stream_budget_words_batch(6 * cbc[1].shape[1])
+        got = concat_cuda.concat_streams_cuda(cwc, cbc, maxw=maxw,
+                                              restart_interval=r_i)
+        want = E.concat_streams_plain(cwc, cbc, r_i, maxw)
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        err["concat_streams"] = max(err["concat_streams"], e)
+        if e or got.dtype != torch.int64 or got.shape != want.shape:
+            raise AssertionError(f"concat_streams kernel != plain version on "
+                                 f"{label} {tuple(want.shape)}")
+        dropped += int((want[:, 0] > 32 * maxw).sum())
+    if concat_cuda.launches != len(concat_sets):
+        raise AssertionError(f"concat kernel launched {concat_cuda.launches}"
+                             f" times in {len(concat_sets)} comparisons")
+    if dropped < 8:  # both noise images in all four noise sets
+        raise AssertionError(f"only {dropped} images outgrew their budget")
+    _say("13 concat", "concat_streams (two launches a call) bit-identical "
+         f"to the plain version on {len(concat_sets)} sets: "
+         + ", ".join(f"{label} ({cbc[1].shape[0]} images of "
+                     f"{6 * cbc[1].shape[1]} blocks)"
+                     for label, _, cbc, _, _ in concat_sets)
+         + f"; {dropped} images outgrew their budget (words dropped, "
+         f"totals exact); shard budget {shard_maxw} words")
+    del concat_sets, owc, obc, gray_q, dense_q, dwc, dbc, halves
+
     # ---- 5/8 device: event spans, then (only now) the profiler
     y, cb, cr = HG.host_rgb_to_ycc420(batches[0])
     packed_dev = torch.from_numpy(np.concatenate(
@@ -1585,10 +1723,11 @@ def main() -> int:
     profs = {name: _profile(fn, 5) for name, fn in (
         ("enc", enc), ("dec", dec), ("enc_r", enc_r), ("dec_r", dec_r))}
     enc_prof, dec_prof = profs["enc"], profs["dec"]
-    if enc_prof["events"] > 73:
+    if enc_prof["events"] > 35:
         raise AssertionError(
             f"the encode program without restart markers makes "
-            f"{enc_prof['events']} device events per call, 73 before")
+            f"{enc_prof['events']} device events per call, 35 since the "
+            "concat kernel (73 before it)")
     # the card's busy share of a pipelined round trip: device time of the
     # same round trip under the profiler (which slows the host, not the
     # kernels) over the wall time measured above without it
@@ -1604,7 +1743,8 @@ def main() -> int:
          f"{spans['enc']:.3f} ms, device busy "
          f"{_fmt_ms(enc_prof['busy_ms'])} ms in {enc_prof['events']:.1f} "
          f"device events (fused kernel "
-         f"{_fmt_ms(_kernel_ms(enc_prof, 'encode_blocks_kernel'))} ms); "
+         f"{_fmt_ms(_kernel_ms(enc_prof, 'encode_blocks_kernel', False))} "
+         "ms); "
          f"decode event span {spans['dec']:.3f} ms, device busy "
          f"{_fmt_ms(dec_prof['busy_ms'])} ms in {dec_prof['events']:.1f} "
          f"device events; "
@@ -1623,7 +1763,8 @@ def main() -> int:
          f"{_fmt_ms(profs['dec_r']['busy_ms'])} ms in "
          f"{profs['dec_r']['events']:.1f} device events, of it the scan "
          f"kernel "
-         f"{_fmt_ms(_kernel_ms(profs['dec_r'], 'decode_segments_kernel'))} "
+         + _fmt_ms(_kernel_ms(profs["dec_r"], "decode_segments_kernel",
+                              False)) + " "
          f"ms; device busy over the {MAIN_BATCHES} pipelined batches "
          f"{rrt_prof['busy_ms']:.3f} ms in {rrt_prof['events']:.0f} device "
          f"events = {rbusy_share:.4f} of that wall, idle "
@@ -1647,10 +1788,18 @@ def main() -> int:
     def st_concat():
         return TC._concat_batch_combined_comp(*emitted)
 
+    def st_concat_plain():  # the stage as it was before the kernel
+        return E.concat_streams_plain(*emitted, 0,
+                                      TC.stream_budget_words_batch(
+                                          6 * (H // 16) * (W // 16)))
+
     parts = []
     for label, fn in (("blockify+fDCT+quantize", st_quant),
                       ("entropy, fused kernel wrapper x3", st_emit),
-                      ("concat", st_concat)):
+                      ("concat, kernel (one wrapper call)", st_concat),
+                      ("concat, plain torch on the card (the stage before "
+                       f"the kernel; {EARLIER_CONCAT_MS} ms busy in 40 events "
+                       "in PR 5)", st_concat_plain)):
         span, prof = _time_ms(fn, 5), _profile(fn, 5)  # spans: after tracing
         parts.append(f"{label}: device busy {_fmt_ms(prof['busy_ms'])} ms, "
                      f"event span {span:.3f} ms, {prof['events']:.1f} events")
@@ -1675,9 +1824,13 @@ def main() -> int:
                                           restart_interval=ri).cpu().numpy()
     _, yt_b, ct_b = TC._optimal_tables(hists_b)
     opt_rows = stage_rows((
-        ("symbol histograms (3 kernels, chroma sum)",
+        ("symbol histograms (one kernel and the memset of the counts)",
          lambda: TC._symbol_histograms_batch(*quantized,
                                              restart_interval=ri)),
+        ("symbol histograms, plain torch on the card (the predictor chains "
+         "and counts; PR 5 and 6 read 0.0635 ms busy in 29 events for the "
+         "three kernels, the chains and the chroma sum)",
+         lambda: E.symbol_histograms_batch_plain(*quantized, ri)),
         ("the same and the [N, 4, 256] fetch",
          lambda: TC._symbol_histograms_batch(
              *quantized, restart_interval=ri).cpu()),
@@ -1746,91 +1899,141 @@ def main() -> int:
 
     counts = [q.shape[0] for q, *_ in real_inputs]
     n_emitted = [int((ems[2] > 0).sum()) for *_, ems in real_inputs]
-
-    n_symbols = sum(int(E.symbol_histograms_plain(*hi).sum())
-                    for hi in hist_inputs)
-    # one launch of each kernel on component i of the batch, and the plain
-    # version on all three
-    launch_one = {
-        "pack_words": lambda i: pack_cuda.pack_words_cuda(*real_inputs[i][3]),
-        "encode_blocks": lambda i: pack_cuda.encode_blocks_cuda(
-            *real_inputs[i][:3]),
-        "symbol_histograms": lambda i: pack_cuda.symbol_histograms_cuda(
-            *hist_inputs[i]),
+    n_symbols = int(E.symbol_histograms_batch_plain(
+        *comps, RESTART_INTERVAL).sum())
+    # the concat's inputs: the main path's blocks; what its function must
+    # move is each block's bit count and used words, and combined
+    cwc, cbc = concat_inputs
+    cmaxw = TC.stream_budget_words_batch(6 * cbc[1].shape[1])
+    n_cblocks = sum(b.numel() for b in cbc)
+    used_words = sum(int(((b.to(torch.int64) + 31) // 32).clamp(max=64).sum())
+                     for b in cbc)
+    combined_bytes = 8 * BATCH * (1 + cmaxw)
+    concat_bytes = 4 * n_cblocks + 8 * used_words + combined_bytes
+    concat_layout_bytes = (4 + 8 * 64) * n_cblocks + combined_bytes
+    # each kernel's launches on one batch (Y, Cb, Cr, or one for all), its
+    # plain version on the same inputs, its symbols in the trace, its bound
+    kernels6 = {
+        "pack_words": (
+            [lambda i=i: pack_cuda.pack_words_cuda(*real_inputs[i][3])
+             for i in range(3)],
+            lambda: [E.pack_block_words_plain(*ems)
+                     for *_, ems in real_inputs],
+            ("pack_words_kernel",),
+            bound("pack_words", sum(counts), sum(n_emitted)),
+            f"{sum(n_emitted)} emissions in {sum(counts)} blocks"),
+        "encode_blocks": (
+            [lambda i=i: pack_cuda.encode_blocks_cuda(*real_inputs[i][:3])
+             for i in range(3)],
+            lambda: [E.encode_block_words_plain(q, pred, chroma)
+                     for q, pred, chroma, _ in real_inputs],
+            ("encode_blocks_kernel",),
+            bound("encode_blocks", sum(counts), sum(n_emitted)),
+            f"{sum(n_emitted)} emissions in {sum(counts)} blocks"),
+        "symbol_histograms": (
+            [lambda: pack_cuda.symbol_histograms_batch_cuda(
+                *comps, restart_interval=RESTART_INTERVAL)],
+            lambda: E.symbol_histograms_batch_plain(*comps,
+                                                    RESTART_INTERVAL),
+            ("symbol_histograms_batch_kernel",),
+            bound("symbol_histograms", sum(counts), n_symbols,
+                  BATCH * IMAGE_HIST_BYTES),
+            f"{n_symbols} symbols in {sum(counts)} blocks, "
+            f"restart_interval={RESTART_INTERVAL}; the three launches it "
+            f"replaced (PR 5, kept from then) "
+            f"{EARLIER_HISTOGRAM_MS} ms"),
+        "concat_streams": (
+            [lambda: concat_cuda.concat_streams_cuda(cwc, cbc, maxw=cmaxw)],
+            lambda: E.concat_streams_plain(cwc, cbc, 0, cmaxw),
+            ("concat_offsets_kernel", "concat_scatter_kernel"),
+            _bound(concat_bytes, CONCAT_OPS[0] * n_cblocks
+                   + CONCAT_OPS[1] * used_words),
+            f"{used_words} used words in {n_cblocks} blocks, "
+            f"{concat_bytes} bytes (all 64 words of every block, as laid "
+            f"out: {concat_layout_bytes} bytes, "
+            f"{1e3 * concat_layout_bytes / PEAK_BYTES_PER_S:.4f} ms); the "
+            f"plain stage it replaced read {EARLIER_CONCAT_MS} ms busy "
+            f"(PR 5, kept from then)"),
     }
-
-    def run_pack_plain():
-        for *_, ems in real_inputs:
-            E.pack_block_words_plain(*ems)
-
-    def run_encode_plain():
-        for q, pred, chroma, _ in real_inputs:
-            E.encode_block_words_plain(q, pred, chroma)
-
-    def run_hist_plain():
-        for hi in hist_inputs:
-            E.symbol_histograms_plain(*hi)
 
     # five times the card's 50 MB L2 cache
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     timing = {}
-    for name, plain, sym, work in (
-            ("pack_words", run_pack_plain, "pack_words_kernel",
-             (sum(n_emitted), 0)),
-            ("encode_blocks", run_encode_plain, "encode_blocks_kernel",
-             (sum(n_emitted), 0)),
-            ("symbol_histograms", run_hist_plain, "symbol_histograms_kernel",
-             (n_symbols, 3 * BATCH * IMAGE_HIST_BYTES))):
-        one = launch_one[name]
-
-        def run(one=one):
-            for i in range(3):
-                one(i)
+    for name, (calls, plain, syms, (b_ms, b_by), work) in kernels6.items():
+        def run(calls=calls):
+            for call in calls:
+                call()
 
         t = {"event_ms": _time_ms(run, 20), "plain_ms": _time_ms(plain, 3)}
-        prof = _profile(run, 20)
-        t["ms"] = _kernel_ms(prof, sym)  # the kernel's own device time
+        t["ms"], prof = _traced(run, 20, *syms)  # the kernels' own time
         t["wrapper_busy_ms"] = prof["busy_ms"]
-        # each of the batch's three launches alone (Y, Cb, Cr): repeated on
-        # the same buffers, then with the L2 cache overwritten before each
-        def alone(i, cold, one=one):
+        # each of the batch's launches alone: repeated on the same buffers,
+        # then with the L2 cache overwritten before each
+        def alone(call, cold):
             def fn():
                 if cold:
                     l2_flush.zero_()
-                one(i)
+                call()
             return fn
 
         for key, cold in (("launch_ms", False), ("cold_launch_ms", True)):
-            t[key] = [_kernel_ms(_profile(alone(i, cold), 20), sym)
-                      for i in range(3)]
+            t[key] = [_traced(alone(call, cold), 20, *syms)[0]
+                      for call in calls]
         t["cold_ms"] = sum(t["cold_launch_ms"])
-        t["bound_ms"], t["bound_by"] = bound(name, sum(counts), *work)
-        t["sass_ms"] = sass_ms(name, counts)
+        t["bound_ms"], t["bound_by"] = b_ms, b_by
+        t["sass_instructions"] = sum(
+            sass[k] for k in ((name, CONCAT_OFFSETS)
+                              if name == "concat_streams" else (name,)))
+        t["sass_ms"] = (None if name == "concat_streams"
+                        else sass_ms(name, counts))
         timing[name] = t
-        _say("6 times", f"{name} per {BATCH}x{H}x{W} batch (3 launches on "
-             f"{[tuple(q.shape) for q, *_ in real_inputs]}): kernel alone "
-             f"{t['ms']:.4f} ms (profiler; Y, Cb, Cr launch alone "
+        _say("6 times", f"{name} per {BATCH}x{H}x{W} batch ({len(calls)} "
+             f"call{'s' if len(calls) > 1 else ''}): kernel alone "
+             f"{t['ms']:.4f} ms (profiler; each call alone "
              f"{' '.join(f'{x:.4f}' for x in t['launch_ms'])} ms), wrapper "
-             f"device busy {_fmt_ms(t['wrapper_busy_ms'])} ms, wrapper "
-             f"event span {t['event_ms']:.4f} ms; bound "
-             f"{t['bound_ms']:.4f} ms by {t['bound_by']} "
-             f"({BLOCK_BYTES[name]} bytes/block) = "
-             f"{t['bound_ms'] / t['ms']:.3f} of the kernel's time; with the "
-             f"L2 cache overwritten before each launch: kernel "
-             f"{t['cold_ms']:.4f} ms (Y, Cb, Cr "
+             f"device busy {_fmt_ms(t['wrapper_busy_ms'])} ms in "
+             f"{prof['events']:.1f} device events, wrapper event span "
+             f"{t['event_ms']:.4f} ms; bound {t['bound_ms']:.4f} ms by "
+             f"{t['bound_by']} = {t['bound_ms'] / t['ms']:.3f} of the "
+             f"kernel's time; with the L2 cache overwritten before each "
+             f"call: kernel {t['cold_ms']:.4f} ms (each "
              f"{' '.join(f'{x:.4f}' for x in t['cold_launch_ms'])} ms), "
-             f"bound = {t['bound_ms'] / t['cold_ms']:.3f} of it; all "
-             f"{sass[name]} SASS instructions run once per thread would "
-             f"take {t['sass_ms']:.4f} ms; {work[0]} "
-             f"{'symbols' if name == 'symbol_histograms' else 'emissions'} "
-             f"in {sum(counts)} blocks; plain version event span "
-             f"{t['plain_ms']:.4f} ms; on {card}")
+             f"bound = {t['bound_ms'] / t['cold_ms']:.3f} of it; "
+             f"{t['sass_instructions']} SASS instructions"
+             + ("" if t["sass_ms"] is None else
+                f", all run once per thread would take {t['sass_ms']:.4f} ms")
+             + f"; {work}; plain version event span {t['plain_ms']:.4f} ms; "
+             f"on {card}")
+    # the concat on dense blocks: noise at quality 100 in a budget that
+    # holds it whole
+    noise = np.random.default_rng(14).integers(0, 256, (BATCH, H, W, 3),
+                                               dtype=np.uint8)
+    nwc, nbc = TC._emit_local(*TC._quantize_batch_rgb(
+        torch.from_numpy(noise).to(dev), quality=100))
+    del noise
+    n_bits = sum(b.to(torch.int64).sum(dim=1) for b in nbc)
+    n_maxw = int(n_bits.max()) // 32 + 2
+    n_used = sum(int(((b.to(torch.int64) + 31) // 32).clamp(max=64).sum())
+                 for b in nbc)
+    n_bytes = 4 * n_cblocks + 8 * n_used + 8 * BATCH * (1 + n_maxw)
+    n_bound, n_by = _bound(n_bytes, CONCAT_OPS[0] * n_cblocks
+                           + CONCAT_OPS[1] * n_used)
+    dense_ms, _ = _traced(lambda: concat_cuda.concat_streams_cuda(
+        nwc, nbc, maxw=n_maxw), 20, *kernels6["concat_streams"][2])
+    dense_plain_ms = _time_ms(
+        lambda: E.concat_streams_plain(nwc, nbc, 0, n_maxw), 3)
+    timing["concat_streams"]["dense_ms"] = dense_ms
+    _say("6 times", f"concat_streams on dense blocks ({BATCH}x{H}x{W} noise "
+         f"at quality 100, {n_used} used words in {n_cblocks} blocks, "
+         f"budget {n_maxw} words): kernel {dense_ms:.4f} ms, bound "
+         f"{n_bound:.4f} ms by {n_by} = {n_bound / dense_ms:.3f} of it; "
+         f"plain version event span {dense_plain_ms:.4f} ms; on {card}")
+    del nwc, nbc
     # the fused kernel on four batches' worth of luma blocks in one launch
     q4 = torch.cat([real_inputs[0][0]] * 4)
     p4 = torch.cat([real_inputs[0][1]] * 4)
-    big_ms = _kernel_ms(_profile(
-        lambda: pack_cuda.encode_blocks_cuda(q4, p4, False), 20),
-        "encode_blocks_kernel")
+    big_ms, _ = _traced(lambda: pack_cuda.encode_blocks_cuda(q4, p4, False),
+                        20, "encode_blocks_kernel")
     big_bound, big_by = bound("encode_blocks", q4.shape[0], 4 * n_emitted[0])
     _say("6 times", f"encode_blocks on [{q4.shape[0]}, 64] luma blocks in "
          f"one launch: kernel {big_ms:.4f} ms, bound {big_bound:.4f} ms by "
@@ -1842,14 +2045,14 @@ def main() -> int:
                 l2_flush.zero_()
             pack_cuda.encode_blocks_cuda(q, pred, tabs, bpi)
 
-    sets_ms = _kernel_ms(_profile(run_sets, 20), "encode_blocks_kernel")
-    sets_cold_ms = _kernel_ms(_profile(lambda: run_sets(True), 20),
+    sets_ms, _ = _traced(run_sets, 20, "encode_blocks_kernel")
+    sets_cold_ms, _ = _traced(lambda: run_sets(True), 20,
                               "encode_blocks_kernel")
     def run_fixed():
-        for i in range(3):
-            launch_one["encode_blocks"](i)
+        for call in kernels6["encode_blocks"][0]:
+            call()
 
-    fixed_ms = _kernel_ms(_profile(run_fixed, 20), "encode_blocks_kernel")
+    fixed_ms, _ = _traced(run_fixed, 20, "encode_blocks_kernel")
     timing["encode_blocks"]["ms_per_image_tables"] = sets_ms
     timing["encode_blocks"]["cold_ms_per_image_tables"] = sets_cold_ms
     _say("6 times", f"encode_blocks per {BATCH}x{H}x{W} batch with "
@@ -1857,7 +2060,7 @@ def main() -> int:
          f"(L2 overwritten before each launch {sets_cold_ms:.4f}) beside "
          f"{fixed_ms:.4f} ms with the fixed tables in the same run; bound "
          f"{timing['encode_blocks']['bound_ms']:.4f} ms")
-    del real_inputs, q4, p4, set_inputs, hist_inputs
+    del real_inputs, q4, p4, set_inputs, concat_inputs, comps
 
     # ---- 9. the scan kernel alone on the real segments of phase 7
     S, Lw = real_args["words"].shape
@@ -1874,28 +2077,24 @@ def main() -> int:
         run_scan()
 
     t = {"event_ms": _time_ms(run_scan, 20), "plain_ms": scan_plain_ms}
-    prof = _profile(run_scan, 20)
-    t["ms"] = _kernel_ms(prof, "decode_segments_kernel")
+    t["ms"], prof = _traced(run_scan, 20, "decode_segments_kernel")
     t["wrapper_busy_ms"] = prof["busy_ms"]
-    t["cold_ms"] = _kernel_ms(_profile(run_scan_cold, 20),
-                              "decode_segments_kernel")
+    t["cold_ms"], _ = _traced(run_scan_cold, 20, "decode_segments_kernel")
     t["bound_ms"], t["bound_by"] = _bound(scan_bytes,
                                           MIN_OPS_PER_SYMBOL * nsym)
-    t["sass_ms"] = None
+    t["sass_ms"], t["sass_instructions"] = None, sass["decode_segments"]
     t["launch_ms"], t["cold_launch_ms"] = [t["ms"]], [t["cold_ms"]]
     # four times the segments in one launch: does the card have room left?
     wide = {k: (torch.cat([v] * 4) if k in (
         "words", "nblk", "tsel", "rawlen") else v)
         for k, v in real_args.items()}
-    wide_ms = _kernel_ms(_profile(lambda: run_scan(wide), 10),
-                         "decode_segments_kernel")
+    wide_ms, _ = _traced(lambda: run_scan(wide), 10, "decode_segments_kernel")
     # every segment given the slowest one's row
     slow = int(per_lane.argmax())
     same = {k: (v[slow:slow + 1].expand(S, *v.shape[1:]).contiguous()
                 if k in ("words", "nblk", "tsel", "rawlen") else v)
             for k, v in real_args.items()}
-    same_ms = _kernel_ms(_profile(lambda: run_scan(same), 10),
-                         "decode_segments_kernel")
+    same_ms, _ = _traced(lambda: run_scan(same), 10, "decode_segments_kernel")
     # how the launch lies on the card, and what its first-level table does
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ctas = -(-S // layout["warps_per_block"])
@@ -1944,14 +2143,16 @@ def main() -> int:
     if leaked:
         raise AssertionError(f"imported {leaked[:5]}")
     # pack_words is off every path: its count is phase 3's, over the real
-    # blocks; encode_blocks' is the main path's; decode_segments' is the
-    # restart path's; symbol_histograms' is the optimize path's.
+    # blocks; encode_blocks' and concat_streams' are the main path's;
+    # decode_segments' is the restart path's; symbol_histograms' is the
+    # optimize path's.
     # launches_by_path holds every path's own counts (phase 12's sharded
     # paths too), each read just after that path's run.
     launches = {"pack_words": pack_alone_launches,
                 "encode_blocks": main_launches["encode_blocks"],
                 "decode_segments": restart_launches["decode_segments"],
-                "symbol_histograms": optimize_launches["symbol_histograms"]}
+                "symbol_histograms": optimize_launches["symbol_histograms"],
+                "concat_streams": main_launches["concat_streams"]}
     by_path = {name: {"main": main_launches[name],
                       "restart_device": restart_launches[name],
                       "decode_indexed": indexed_launches[name],
@@ -1972,9 +2173,10 @@ def main() -> int:
         "launch_ms": t["launch_ms"], "cold_ms": t["cold_ms"],
         "cold_launch_ms": t["cold_launch_ms"],
         "event_ms": t["event_ms"], "wrapper_busy_ms": t["wrapper_busy_ms"],
-        "sass_instructions": sass[name], "sass_ms": t["sass_ms"],
+        "sass_instructions": t["sass_instructions"], "sass_ms": t["sass_ms"],
         **{k: t[k] for k in ("ms_per_image_tables",
-                             "cold_ms_per_image_tables") if k in t},
+                             "cold_ms_per_image_tables", "dense_ms")
+           if k in t},
     } for name, t in timing.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

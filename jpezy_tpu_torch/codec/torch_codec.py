@@ -6,16 +6,17 @@ Counterpart of jpezy_tpu.codec.jax_codec:
 Encode, `ycc420` transport (the default): host C++ RGB -> YCC 4:2:0 int8
 planes (float64, the reference's exact truncation) -> ONE packed int8
 upload -> blockify, DCT, quantize, the CUDA entropy kernel (Huffman
-emissions and bit packing in one launch per component), stream concat ->
+emissions and bit packing in one launch per component), the CUDA stream
+concat (one call, the blocks read where the entropy kernel wrote them) ->
 ONE fetch of `combined` [N, 1 + maxw] -> host header + byte stuffing.
 `rgb` transport: ONE [N, H, W, 3] u8 upload, colour conversion and 4:2:0
 decimation on the device (float32 in fast mode), then the same program.
 optimize=True (two passes, per-image optimal Huffman tables): the
 quantized blocks stay on the device, the CUDA histogram kernel counts each
-image's symbols (one launch per component), ONE [N, 4, 256] fetch, the
-host derives two table pairs per image (T.81 K.2), ONE upload of the
-table sets, and the entropy kernel codes every image with its own set in
-one launch per component; each stream carries its own DHT.
+image's symbols (one launch for the three components), ONE [N, 4, 256]
+fetch, the host derives two table pairs per image (T.81 K.2), ONE upload
+of the table sets, and the entropy kernel codes every image with its own
+set in one launch per component; each stream carries its own DHT.
 
 Decode: marker parse (every stream must be decodable), then one of four
 transports.  `ycc420`: host C++ Huffman frontend + sparsify -> ONE uint8
@@ -140,35 +141,32 @@ def _concat_batch_combined_comp(wc, bc, restart_interval: int = 0,
     the per-shard concat of jpezy_tpu/parallel/sharded.py, i.e. the JAX
     concat_device_batch and concat_device_restart_batch).
 
-    The scatter is order-independent, so blocks scatter from component
-    order with MCU-ordered global bit offsets; only the small [N, nm*6]
-    bits array is interleaved.  Returns (combined [N, 1 + S + maxw] int64:
+    wc, bc: per component (Y, Cb, Cr) the words [N, B_c, 64] and bits
+    [N, B_c] of _emit_local.  Returns (combined [N, 1 + S + maxw] int64:
     column 0 = total bits, then with restart_interval the S per-segment
     bit counts (each segment starts byte-aligned in the stream), then the
-    stream; words_comp [N, nm*6, W] in component order; bits_mcu
-    [N, nm*6] in MCU order).  maxw: the stream's words, None for
-    stream_budget_words_batch; writes past it are dropped and the caller
-    checks total <= 32 * maxw."""
-    N, nm = bc[1].shape
-    bits_mcu = torch.cat(
-        [bc[0].reshape(N, nm, 4), bc[1].reshape(N, nm, 1),
-         bc[2].reshape(N, nm, 1)], dim=2).reshape(N, nm * 6)
+    stream; wc; bc): E.concat_streams, the hand-written kernel on CUDA
+    tensors.  The JAX function returns the words concatenated in
+    component order and the bits in MCU order; here they stay per
+    component, and only an image that overflows has its rows put in MCU
+    order, on the host (_image_words_bits).  maxw: the stream's words,
+    None for stream_budget_words_batch; writes past it are dropped and
+    the caller checks total <= 32 * maxw."""
     if maxw is None:
-        maxw = stream_budget_words_batch(nm * 6)
-    head = []
-    if restart_interval:
-        goff, total, seg_bits = E.stream_offsets_restart_batch(
-            bits_mcu, 6 * restart_interval)
-        head = [seg_bits]
-    else:
-        goff, total = E.stream_offsets_batch(bits_mcu)
-    g6 = goff.reshape(N, nm, 6)
-    goff_c = torch.cat(
-        [g6[:, :, :4].reshape(N, nm * 4), g6[:, :, 4], g6[:, :, 5]], dim=1)
-    words_c = torch.cat(wc, dim=1)
-    stream = E._concat_batch_scatter(words_c, goff_c, maxw)
-    combined = torch.cat([total[:, None]] + head + [stream], dim=1)
-    return combined, words_c, bits_mcu
+        maxw = stream_budget_words_batch(bc[1].shape[1] * 6)
+    return E.concat_streams(wc, bc, restart_interval, maxw), wc, bc
+
+
+def _image_words_bits(wc, bc, i: int):
+    """Image i's packed words [nm*6, 64] uint32 and bits [nm*6] int32 in
+    MCU order, on the host, from the per-component tuples of
+    _concat_batch_combined_comp: what a host splice of that image takes."""
+    nm = bc[1].shape[1]
+    words = np.concatenate([w[i].cpu().numpy() for w in wc]).astype(
+        np.uint32)
+    bits = np.concatenate([b[i].cpu().numpy() for b in bc]).astype(np.int32)
+    return (HG._words_comp_to_mcu(words, nm),
+            HG._words_comp_to_mcu(bits[:, None], nm)[:, 0])
 
 
 def _qtables(quality: int | None, dev):
@@ -222,8 +220,9 @@ def _encode_batch_blocks(rgb: torch.Tensor, *, gray: bool = False,
                          quality: int | None = None,
                          restart_interval: int = 0):
     """Device program of the rgb transport (jax_codec._encode_batch_blocks):
-    rgb [N, H, W, 3] uint8 -> (combined, words in component order,
-    bits in MCU order), as _encode_batch_blocks_packed returns them."""
+    rgb [N, H, W, 3] uint8 -> (combined, words, bits) of
+    _concat_batch_combined_comp, as _encode_batch_blocks_packed returns
+    them."""
     yq, cbq, crq = _quantize_batch_rgb(rgb, gray=gray, precision=precision,
                                        rounded=rounded, quality=quality)
     wc, bc = _emit_local(yq, cbq, crq, restart_interval)
@@ -243,19 +242,10 @@ def _quantize_batch_ycc(packed: torch.Tensor, *, h: int, w: int,
 def _symbol_histograms_batch(yq, cbq, crq, *, restart_interval: int = 0,
                              carry=None):
     """Per-image Huffman symbol counts [N, 4, 256] int32: Y-DC, Y-AC, C-DC,
-    C-AC, chroma summed over Cb and Cr (jax_codec._symbol_histograms_batch).
-    One histogram kernel per component on CUDA tensors.  carry: as in
-    _emit_local."""
-    hists = []
-    for c, (q, bpm) in enumerate(((yq, 4), (cbq, 1), (crq, 1))):
-        n, b, _ = q.shape
-        pred = E.dc_predictors_restart(
-            q[:, :, 0], restart_interval * bpm,
-            None if carry is None else carry[:, c])
-        hists.append(E.symbol_histograms(q.reshape(-1, 64), pred.reshape(-1),
-                                         blocks_per_image=b))
-    y, cb, cr = hists
-    return torch.cat([y, cb + cr], dim=1)
+    C-AC, chroma summed over Cb and Cr (jax_codec._symbol_histograms_batch):
+    E.symbol_histograms_batch, one histogram kernel for the three
+    components on CUDA tensors.  carry: as in _emit_local."""
+    return E.symbol_histograms_batch(yq, cbq, crq, restart_interval, carry)
 
 
 def _encode_batch_custom(yq, cbq, crq, ytables, ctables, *,
@@ -264,8 +254,8 @@ def _encode_batch_custom(yq, cbq, crq, ytables, ctables, *,
     (jax_codec._encode_batch_custom): ytables/ctables are (dc_size,
     dc_code, ac_size, ac_code) with a leading [N] axis, on the host.  One
     entropy kernel per component codes every image with its own set; the
-    stream matches the JAX package's, the words stay in component order
-    (as _encode_batch_blocks_packed returns them)."""
+    stream matches the JAX package's; returns what
+    _encode_batch_blocks_packed returns."""
     if yq.is_cuda:  # the kernel's rows, laid out on the host: one upload each
         ytables, ctables = (E.kernel_tables(t, yq.device)
                             for t in (ytables, ctables))
@@ -377,11 +367,9 @@ def encode_batch_finish(ticket) -> list[bytes]:
     header = writer.write_header(props, restart_interval=ri, quant_tables=qt)
 
     def overflowed(i):
-        """Image i's words in MCU order and its bits, fetched only when
-        its stream outgrew the budget (host splice of this image only)."""
-        wi = ticket["words"][i].cpu().numpy().astype(np.uint32)
-        return (HG._words_comp_to_mcu(wi, geo.num_mcus),
-                ticket["bits"][i].cpu().numpy().astype(np.int32))
+        """Image i's words and bits in MCU order, fetched only when its
+        stream outgrew the budget (host splice of this image only)."""
+        return _image_words_bits(ticket["words"], ticket["bits"], i)
 
     out = []
     for i in range(n):

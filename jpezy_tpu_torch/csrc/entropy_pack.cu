@@ -30,13 +30,17 @@
 //     convention of the stream concat (storing them as uint32 and widening
 //     them in a second pass was measured slower, PERF.md); bits [B] int32
 //     total bits.
-//   jz_symbol_histograms  the counts of jpezy_tpu/ops/entropy.py:
-//     symbol_histograms, vmapped over images (jax_codec.
-//     _symbol_histograms_batch), which XLA fused on the TPU: no Pallas
-//     source.  In: q [B, 64], pred [B] as above, blocks_per_image.  Out:
-//     hist [N, 2, 256] int32, zeroed by the caller: per image the DC
-//     magnitude categories and the AC symbols RRRRSSSS with ZRL (0xF0) and
-//     EOB (0x00), the symbols jz_encode_blocks would emit.
+//   jz_symbol_histograms_batch  the counts of jpezy_tpu/codec/jax_codec.py:
+//     _symbol_histograms_batch (jpezy_tpu/ops/entropy.py:symbol_histograms
+//     vmapped over images, one chain per component), which XLA fused on
+//     the TPU: no Pallas source.  In: the batch's three components yq [N,
+//     B_Y, 64], cbq and crq [N, B_C, 64] int32 in natural order, the
+//     restart interval ri (MCUs) and an optional carry [N, 3] int32, each
+//     image's first DC predictor per component.  Out: hist [N, 4, 256]
+//     int32, zeroed by the caller: per image the Y DC magnitude categories,
+//     the Y AC symbols RRRRSSSS with ZRL (0xF0) and EOB (0x00), then the
+//     same two rows for Cb and Cr together: the symbols jz_encode_blocks
+//     would emit.
 //
 // Design: a warp owns an 8x8 block.  Lane l owns emission slots l and l+32,
 // so a warp reads its block's 256-byte row of each input in two 128-byte
@@ -65,22 +69,33 @@
 // row of 1,392 bytes (one pointer a block), read through the read-only
 // cache; 22 KB for 16 sets.
 //
-// The histogram kernel derives the same symbols the same way (one warp a
-// block, ballots, __clz), counts them into a shared-memory histogram of
-// its thread block with warp-aggregated atomicAdd (__match_any_sync: the
-// lanes holding one symbol add once), and flushes the nonzero bins into
-// the per-image histogram in device memory with atomicAdd.  A thread
-// block's blocks may span images: the first two of them are counted in
-// shared memory, blocks of any later image (images of fewer blocks than a
-// thread block takes) straight into device memory.
+// The histogram kernel counts the same symbols another way: it needs no
+// emission, only each nonzero coefficient's run and category, and a block
+// holds only a few nonzero coefficients.  One thread takes one block: its
+// 64 coefficients in registers, walked in zigzag order (a loop unrolled
+// with the positions fixed at compile time), each symbol one atomicAdd
+// into the thread block's shared-memory histogram; the nonzero bins are
+// flushed into the image's rows in device memory with atomicAdd.  A warp
+// per block, as in the encode, would spend its 32 lanes on the mostly zero
+// coefficients and pay ballots and warp-aggregated atomics
+// (__match_any_sync) per block, more than the loads cost: measured at
+// under a third of the bound against over half for this form (PERF.md).
+// One launch takes all three components: a
+// thread block owns kHistThreads consecutive blocks of one image's
+// component, so its 512 shared bins are zeroed and flushed once per that
+// many blocks, and Cb and Cr flush into the same chroma rows.  Each
+// block's DC predictor is found in the kernel (the previous block's DC,
+// from the neighbouring thread; 0 at a restart segment's start; the carry
+// or 0 at the image's first block), so no predictor array is built or
+// read.
 //
 // What bounds them: memory traffic.  Per block the function jz_pack_words
 // computes must read 768 bytes and write 64 32-bit words and a count, 260:
 // 1,028 bytes, 101 MB per 16x512x512 4:2:0 batch of 98,304 blocks.  That
 // of jz_encode_blocks must read 260 and write 260: 520 bytes, 51 MB per
 // batch (the table sets add 1,392 bytes a set, read through the cache);
-// jz_symbol_histograms reads the same 260 and writes 2 KB an image: 25.7
-// MB per batch.  These are the bounds.  The zero upper halves of the stored
+// jz_symbol_histograms_batch reads the 256 bytes of coefficients and
+// writes 4 KB an image: 25.2 MB per batch.  These are the bounds.  The zero upper halves of the stored
 // words are 256 more bytes per block (1,284 and 776 moved), a cost of the
 // layout and no part of the bound.  The integer work, some tens of short
 // operations per slot, stays below the card's rate for that many bytes.
@@ -92,10 +107,9 @@
 // so few bytes per block that one block per warp leaves too few loads in
 // flight; each of its warps therefore takes kBlocksPerWarp consecutive
 // blocks and starts all their loads before it uses any (2 measured
-// fastest on an H100; 4 and 8 cost registers and were slower).  The
-// histogram kernel takes kHistBlocksPerWarp, which also spreads the
-// flush of its shared histogram over more blocks.  Times on the card are
-// in PERF.md.
+// fastest on an H100; 4 and 8 cost registers and were slower).  A
+// histogram thread has its block's whole row in flight at once (16 loads
+// of 16 bytes).  Times on the card are in PERF.md.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -365,9 +379,8 @@ __global__ void __launch_bounds__(kWarpsPerCta * 32)
 // ---- pass 1 of the optimized encode: per-image symbol counts
 
 constexpr int kHistBins = 256;                 // per row: DC, then AC
-constexpr int kHistImageBins = 2 * kHistBins;  // one image's [2, 256]
-constexpr int kHistImages = 2;       // images a thread block counts in shared
-constexpr int kHistBlocksPerWarp = 4;
+constexpr int kHistImageBins = 2 * kHistBins;  // one component's [2, 256]
+constexpr int kHistThreads = 256;  // blocks a thread block counts, one each
 constexpr int kEobBin = kHistBins + 0x00;
 constexpr int kZrlBin = kHistBins + 0xF0;
 
@@ -377,84 +390,87 @@ __device__ __forceinline__ int category12(int v) {
   return min(category(v), 12);
 }
 
-// The AC bin of a nonzero coefficient c at zigzag position j after the
-// nonzero at `prev` (the symbol RRRRSSSS of its run & 15 and category),
-// its ZRL count run >> 4; a zero is no symbol (-1), except EOB at 63.
-__device__ __forceinline__ int ac_bin(int c, int j, int prev, int& zrls) {
-  if (c != 0) {
-    const int run = j - prev - 1;
-    zrls = run >> 4;
-    return kHistBins + (((run & 15) << 4) | category12(c));
+// One launch counts every image's three components.  A thread block owns
+// kHistThreads consecutive blocks of one (image, component), a thread one
+// block: its 64 coefficients in registers (16 coalesced-in-L1 16-byte
+// loads), walked in zigzag order with the positions fixed at compile time,
+// each nonzero coefficient one shared-memory atomicAdd of its symbol.
+// Block i's DC predictor is block i - 1's DC in the same chain (the
+// neighbouring thread's, by a shuffle), 0 where a restart segment starts
+// (every seg_blocks blocks), and carry[n, c] (or 0) at the image's first
+// block.
+__global__ void __launch_bounds__(kHistThreads)
+    symbol_histograms_batch_kernel(const int32_t* __restrict__ yq,
+                                   const int32_t* __restrict__ cbq,
+                                   const int32_t* __restrict__ crq,
+                                   const int32_t* __restrict__ carry,
+                                   int32_t* __restrict__ hist, int luma_blocks,
+                                   int chroma_blocks, int ri, int luma_ctas,
+                                   int chroma_ctas) {
+  // zigzag position k -> natural index; the loop below is unrolled, so
+  // every read of this table folds into a register number
+  constexpr int kZz[kSlots] = {
+      0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+      12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+      35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+      58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+  __shared__ int32_t sh[kHistImageBins];
+  for (int i = threadIdx.x; i < kHistImageBins; i += kHistThreads) sh[i] = 0;
+  // which (image, component, run of blocks) this thread block owns
+  const int per_image = luma_ctas + 2 * chroma_ctas;
+  const int n = blockIdx.x / per_image;
+  int r = blockIdx.x - n * per_image;
+  int comp = 0;
+  if (r >= luma_ctas) {
+    r -= luma_ctas;
+    comp = 1 + r / chroma_ctas;
+    r -= (comp - 1) * chroma_ctas;
   }
-  zrls = 0;
-  return j == kSlots - 1 ? kEobBin : -1;
-}
-
-// Add one for every lane's bin (-1: none): the lanes holding one bin add
-// their count once, through their lowest lane.
-__device__ __forceinline__ void count_bin(int32_t* hist, int bin, int lane) {
-  const unsigned peers = __match_any_sync(kFullMask, bin);
-  if (bin >= 0 && lane == __ffs(peers) - 1)
-    atomicAdd(hist + bin, __popc(peers));
-}
-
-__global__ void __launch_bounds__(kWarpsPerCta * 32)
-    symbol_histograms_kernel(const int32_t* __restrict__ q,
-                             const int32_t* __restrict__ pred,
-                             int32_t* __restrict__ hist, int64_t nblocks,
-                             int64_t blocks_per_image) {
-  __shared__ int32_t sh[kHistImages * kHistImageBins];
-  for (int i = threadIdx.x; i < kHistImages * kHistImageBins; i += blockDim.x)
-    sh[i] = 0;
+  const int nb = comp == 0 ? luma_blocks : chroma_blocks;
+  const int32_t* q = (comp == 0 ? yq : comp == 1 ? cbq : crq) +
+                     static_cast<int64_t>(n) * nb * kSlots;
+  const int seg_blocks = ri * (comp == 0 ? 4 : 1);
+  const int b = r * kHistThreads + threadIdx.x;
+  const bool live = b < nb;
+  int c[kSlots];
+  const int4* row = reinterpret_cast<const int4*>(q + (live ? b : 0) * kSlots);
+#pragma unroll
+  for (int k = 0; k < kSlots / 4; ++k) {
+    const int4 v = __ldg(row + k);
+    c[4 * k] = v.x;
+    c[4 * k + 1] = v.y;
+    c[4 * k + 2] = v.z;
+    c[4 * k + 3] = v.w;
+  }
+  int pred = __shfl_up_sync(kFullMask, c[0], 1);
+  if ((threadIdx.x & 31) == 0 && live && b > 0)
+    pred = __ldg(q + (b - 1) * kSlots);
+  if (b == 0) pred = carry != nullptr ? __ldg(carry + n * 3 + comp) : 0;
+  if (seg_blocks > 0 && b % seg_blocks == 0) pred = 0;
   __syncthreads();
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t cta0 =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerCta * kHistBlocksPerWarp;
-  const int64_t img0 = cta0 / blocks_per_image;
-  const int64_t b0 = cta0 + warp * kHistBlocksPerWarp;
-  if (b0 < nblocks) {  // warp-uniform; no return: the flush below syncs
-    const int z0 = kZigzag[lane];
-    const int z1 = kZigzag[lane + 32];
-    int c0[kHistBlocksPerWarp], c1[kHistBlocksPerWarp],
-        dcp[kHistBlocksPerWarp];
+  if (live) {
+    atomicAdd(sh + category12(c[0] - pred), 1);
+    int last = 0, zrls = 0;
 #pragma unroll
-    for (int i = 0; i < kHistBlocksPerWarp; ++i) {
-      const int64_t b = b0 + i < nblocks ? b0 + i : b0;
-      c0[i] = __ldg(q + b * kSlots + z0);
-      c1[i] = __ldg(q + b * kSlots + z1);
-      dcp[i] = lane == 0 ? __ldg(pred + b) : 0;
+    for (int k = 1; k < kSlots; ++k) {
+      const int v = c[kZz[k]];
+      if (v != 0) {
+        const int run = k - last - 1;
+        zrls += run >> 4;
+        atomicAdd(sh + kHistBins + (((run & 15) << 4) | category12(v)), 1);
+        last = k;
+      }
     }
-    const uint32_t lanes_below = (1u << lane) - 1u;
-#pragma unroll
-    for (int i = 0; i < kHistBlocksPerWarp; ++i) {
-      const int64_t b = b0 + i;
-      if (b >= nblocks) break;
-      const int64_t img = b / blocks_per_image;
-      int32_t* h = img - img0 < kHistImages
-                       ? sh + (img - img0) * kHistImageBins
-                       : hist + img * kHistImageBins;
-      const uint32_t nz_lo = __ballot_sync(kFullMask, c0[i] != 0) | 1u;
-      const uint32_t nz_hi = __ballot_sync(kFullMask, c1[i] != 0);
-      const uint32_t below_hi = nz_hi & lanes_below;
-      int zrl0 = 0, zrl1;
-      const int bin0 =
-          lane == 0 ? category12(c0[i] - dcp[i])
-                    : ac_bin(c0[i], lane, 31 - __clz(nz_lo & lanes_below),
-                             zrl0);
-      const int bin1 = ac_bin(
-          c1[i], lane + 32,
-          below_hi != 0u ? 63 - __clz(below_hi) : 31 - __clz(nz_lo), zrl1);
-      count_bin(h, bin0, lane);
-      count_bin(h, bin1, lane);
-      if (zrl0 + zrl1 > 0) atomicAdd(h + kZrlBin, zrl0 + zrl1);  // rare
-    }
+    if (last != kSlots - 1) atomicAdd(sh + kEobBin, 1);
+    if (zrls > 0) atomicAdd(sh + kZrlBin, zrls);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kHistImages * kHistImageBins;
-       i += blockDim.x) {
+  // Cb and Cr add into the same chroma rows
+  int32_t* out =
+      hist + (static_cast<int64_t>(n) * 2 + (comp > 0)) * kHistImageBins;
+  for (int i = threadIdx.x; i < kHistImageBins; i += kHistThreads) {
     const int32_t v = sh[i];
-    if (v != 0) atomicAdd(hist + img0 * kHistImageBins + i, v);
+    if (v != 0) atomicAdd(out + i, v);
   }
 }
 
@@ -512,19 +528,36 @@ int jz_encode_blocks(const void* q, const void* pred, const void* tables,
   return static_cast<int>(cudaGetLastError());
 }
 
-// hist [nblocks / blocks_per_image, 2, 256] int32, zeroed by the caller.
-int jz_symbol_histograms(const void* q, const void* pred, void* hist,
-                         long long blocks_per_image, long long nblocks,
-                         void* stream) {
-  if (nblocks <= 0) return 0;
-  if (blocks_per_image <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  unsigned grid;
-  if (!grid_for(nblocks, kHistBlocksPerWarp, &grid))
+// yq [N, luma_blocks, 64], cbq and crq [N, chroma_blocks, 64] int32, each
+// 16-byte aligned; carry [N, 3] int32 or null; hist [N, 4, 256] int32,
+// zeroed by the caller.
+int jz_symbol_histograms_batch(const void* yq, const void* cbq,
+                               const void* crq, const void* carry, void* hist,
+                               long long nimages, long long luma_blocks,
+                               long long chroma_blocks, long long ri,
+                               void* stream) {
+  if (nimages <= 0) return 0;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const long long most = 0x7FFFFFFFll / kSlots;  // int block offsets
+  if (luma_blocks <= 0 || chroma_blocks <= 0 || luma_blocks > most ||
+      chroma_blocks > most || ri < 0 || ri > 0x7FFFFFFFll / 4 ||
+      !aligned(yq) || !aligned(cbq) || !aligned(crq))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long luma_ctas = (luma_blocks + kHistThreads - 1) / kHistThreads;
+  const long long chroma_ctas =
+      (chroma_blocks + kHistThreads - 1) / kHistThreads;
+  const long long grid = nimages * (luma_ctas + 2 * chroma_ctas);
+  if (grid > 0x7FFFFFFFll)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  symbol_histograms_kernel<<<grid, kWarpsPerCta * 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(q), static_cast<const int32_t*>(pred),
-      static_cast<int32_t*>(hist), nblocks, blocks_per_image);
+  symbol_histograms_batch_kernel<<<static_cast<unsigned>(grid), kHistThreads,
+                                   0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(yq), static_cast<const int32_t*>(cbq),
+      static_cast<const int32_t*>(crq), static_cast<const int32_t*>(carry),
+      static_cast<int32_t*>(hist), static_cast<int>(luma_blocks),
+      static_cast<int>(chroma_blocks), static_cast<int>(ri),
+      static_cast<int>(luma_ctas), static_cast<int>(chroma_ctas));
   return static_cast<int>(cudaGetLastError());
 }
 

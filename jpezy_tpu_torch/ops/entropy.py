@@ -22,11 +22,13 @@ Counterpart of jpezy_tpu/ops/entropy.py, same formulation:
     take the plain tensor programs below (block_emissions and the
     masked-reduce pack), which are also what the kernels are held to.
  4. Cross-block concatenation funnel-shifts block words to their global
-    bit phase and adds them into per-image streams.
+    bit phase and adds them into per-image streams (concat_streams; on
+    CUDA tensors a hand-written kernel, ops/concat_cuda.py,
+    csrc/stream_concat.cu).
 
 Pass 1 of the optimized encode counts the symbols the encode would emit,
-per image (symbol_histograms; a hand-written kernel on CUDA tensors, in
-the same source).
+per image (symbol_histograms_batch; a hand-written kernel on CUDA
+tensors, in the same source as the entropy kernel).
 
 Word convention: CPU torch implements no shifts, adds or compares on
 uint32, so 32-bit words are held as int64 values in [0, 2**32) and masked
@@ -390,23 +392,46 @@ def symbol_histograms_plain(qblocks, dc_pred, blocks_per_image=None):
     return hist.reshape(N, 2, HIST_BINS).to(torch.int32)
 
 
-def symbol_histograms(qblocks, dc_pred, blocks_per_image=None):
-    """Per-image symbol counts [N, 2, 256] int32 of one component's blocks
-    (see symbol_histograms_plain).  CUDA tensors go through the
-    hand-written kernel (pack_cuda.symbol_histograms_cuda, one launch),
-    CPU tensors through symbol_histograms_plain; a kernel that fails to
-    build or launch raises."""
-    if qblocks.is_cuda:
-        from .pack_cuda import symbol_histograms_cuda
+def symbol_histograms_batch_plain(yq, cbq, crq, restart_interval: int = 0,
+                                  carry=None):
+    """Per-image symbol counts [N, 4, 256] int32 of a batch's three
+    components (jpezy_tpu/codec/jax_codec.py:_symbol_histograms_batch):
+    Y-DC, Y-AC, C-DC, C-AC, chroma summed over Cb and Cr.  yq [N, B_Y,
+    64], cbq and crq [N, B_C, 64] quantized blocks; each component of an
+    image is one DC chain, reset every restart_interval MCUs (4 blocks of
+    Y, 1 of Cb and of Cr per MCU).  carry: [N, 3] first DC predictor of
+    each image's Y, Cb and Cr chain (a tile shard's carry-in), None for
+    0."""
+    hists = []
+    for c, (q, bpm) in enumerate(((yq, 4), (cbq, 1), (crq, 1))):
+        n, b, _ = q.shape
+        pred = dc_predictors_restart(
+            q[:, :, 0], restart_interval * bpm,
+            None if carry is None else carry[:, c])
+        hists.append(symbol_histograms_plain(q.reshape(-1, 64),
+                                             pred.reshape(-1), b))
+    y, cb, cr = hists
+    return torch.cat([y, cb + cr], dim=1)
 
-        return symbol_histograms_cuda(
-            qblocks, dc_pred.to(torch.int32),
-            qblocks.shape[0] if blocks_per_image is None
-            else blocks_per_image)
-    if qblocks.device.type != "cpu":
+
+def symbol_histograms_batch(yq, cbq, crq, restart_interval: int = 0,
+                            carry=None):
+    """symbol_histograms_batch_plain's counts.  CUDA tensors go through
+    the hand-written kernel (pack_cuda.symbol_histograms_batch_cuda: one
+    launch for the three components, the DC predictors derived in it),
+    CPU tensors through symbol_histograms_batch_plain; a kernel that fails
+    to build or launch raises."""
+    if yq.is_cuda:
+        from .pack_cuda import symbol_histograms_batch_cuda
+
+        return symbol_histograms_batch_cuda(
+            yq, cbq, crq, restart_interval=restart_interval,
+            carry=None if carry is None else carry.to(torch.int32))
+    if yq.device.type != "cpu":
         raise ValueError(
-            f"symbol_histograms: unsupported device {qblocks.device}")
-    return symbol_histograms_plain(qblocks, dc_pred, blocks_per_image)
+            f"symbol_histograms_batch: unsupported device {yq.device}")
+    return symbol_histograms_batch_plain(yq, cbq, crq, restart_interval,
+                                         carry)
 
 
 # zero-run lengths before a nonzero that the ZRL logic turns on: 0-3 ZRLs,
@@ -530,6 +555,29 @@ def long_emission_blocks() -> np.ndarray:
     return q.astype(np.int32)
 
 
+def stream_blocks(n: int, nm: int, seed: int = 0):
+    """Seeded per-component packed blocks (words, bits) for the stream
+    concat, as _emit_local returns them: words (Y, Cb, Cr) int64 [n, B_c,
+    64] in [0, 2**32), zero past each block's bits; bits int32 [n, B_c] in
+    [0, 2048]; B_Y = 4 nm, B_Cb = B_Cr = nm.  Every fifth block is empty
+    and every eleventh (from the fourth) has bits reaching word 63."""
+    rng = np.random.default_rng(seed)
+    words, bits = [], []
+    pos = np.arange(WORDS_PER_BLOCK)
+    for per_mcu in (4, 1, 1):
+        b = rng.integers(0, 700, (n, per_mcu * nm))
+        b[:, ::5] = 0
+        b[:, 3::11] = rng.integers(2017, 2049, b[:, 3::11].shape)
+        full, tail = (b // 32)[..., None], (b % 32)[..., None]
+        keep = np.where(pos < full, M32, np.where(
+            (pos == full) & (tail > 0), (M32 << (32 - tail)) & M32, 0))
+        w = rng.integers(0, 2 ** 32, (*b.shape, WORDS_PER_BLOCK),
+                         dtype=np.int64)
+        words.append(torch.from_numpy(w & keep))
+        bits.append(torch.from_numpy(b.astype(np.int32)))
+    return tuple(words), tuple(bits)
+
+
 def stream_offsets_batch(bits: torch.Tensor):
     """Global bit offsets for stream-ordered blocks: [N, B] bits ->
     (goff [N, B] int64, total [N] int64)."""
@@ -591,3 +639,55 @@ def _concat_batch_scatter(words, goff, maxw: int):
     out = torch.zeros(N * maxw + 1, dtype=torch.int64, device=dev)
     out.index_add_(0, idx.reshape(-1), contrib.reshape(-1))
     return out[:N * maxw].reshape(N, maxw)
+
+
+def concat_streams_plain(words, bits, restart_interval: int, maxw: int):
+    """Plain torch stream concat from PER-COMPONENT packed blocks
+    (jpezy_tpu/codec/jax_codec.py:_concat_batch_combined_comp, and with
+    the caller's maxw the JAX concat_device_batch and
+    concat_device_restart_batch of its sharded encode).
+
+    words: (Y, Cb, Cr) [N, B_c, 64] int64 words in [0, 2**32); bits: (Y,
+    Cb, Cr) [N, B_c]; B_Y = 4 nm, B_Cb = B_Cr = nm.  The scatter is
+    order-independent, so blocks scatter from component order with
+    MCU-ordered global bit offsets; only the small [N, nm*6] bits array is
+    interleaved.  Returns combined [N, 1 + S + maxw] int64: column 0 =
+    total bits, then with restart_interval the S per-segment bit counts
+    (each segment starts byte-aligned in the stream), then the stream;
+    writes past maxw are dropped and the caller checks total <= 32 *
+    maxw."""
+    N, nm = bits[1].shape
+    bits_mcu = torch.cat(
+        [bits[0].reshape(N, nm, 4), bits[1].reshape(N, nm, 1),
+         bits[2].reshape(N, nm, 1)], dim=2).reshape(N, nm * 6)
+    head = []
+    if restart_interval:
+        goff, total, seg_bits = stream_offsets_restart_batch(
+            bits_mcu, 6 * restart_interval)
+        head = [seg_bits]
+    else:
+        goff, total = stream_offsets_batch(bits_mcu)
+    g6 = goff.reshape(N, nm, 6)
+    goff_c = torch.cat(
+        [g6[:, :, :4].reshape(N, nm * 4), g6[:, :, 4], g6[:, :, 5]], dim=1)
+    stream = _concat_batch_scatter(torch.cat(words, dim=1), goff_c, maxw)
+    return torch.cat([total[:, None]] + head + [stream], dim=1)
+
+
+def concat_streams(words, bits, restart_interval: int, maxw: int):
+    """concat_streams_plain's combined.  CUDA tensors go through the
+    hand-written kernel (concat_cuda.concat_streams_cuda: it reads each
+    block's used words where they lie, so the words are neither
+    interleaved nor concatenated first), CPU tensors through
+    concat_streams_plain; a kernel that fails to build or launch
+    raises."""
+    if words[0].is_cuda:
+        from .concat_cuda import concat_streams_cuda
+
+        return concat_streams_cuda(
+            words, tuple(b.to(torch.int32) for b in bits), maxw=maxw,
+            restart_interval=restart_interval)
+    if words[0].device.type != "cpu":
+        raise ValueError(
+            f"concat_streams: unsupported device {words[0].device}")
+    return concat_streams_plain(words, bits, restart_interval, maxw)

@@ -2,8 +2,9 @@
 (csrc/entropy_pack.cu).
 
 Replaces the Pallas TPU kernel jpezy_tpu/ops/pack_pallas.py, and the
-symbol counts of the optimized encode (jpezy_tpu/ops/entropy.py:
-symbol_histograms, XLA-fused on the TPU).  The source holds one
+symbol counts of the optimized encode (jpezy_tpu/codec/jax_codec.py:
+_symbol_histograms_batch over entropy.symbol_histograms, XLA-fused on
+the TPU).  The source holds one
 warp-per-block pack routine and three entry points:
 
   pack_words_cuda     merged emissions (hi, lo, nbits) -> packed words; the
@@ -18,11 +19,12 @@ warp-per-block pack routine and three entry points:
                       up to 74 bits.  Per block the
                       function reads 260 bytes and writes 260: a bound
                       of 520.
-  symbol_histograms_cuda
-                      quantized blocks + DC predictors -> per-image
-                      symbol counts [N, 2, 256] (pass 1 of optimize).
-                      Per block it reads 260 bytes, per image it writes
-                      2 KB.
+  symbol_histograms_batch_cuda
+                      a batch's three components of quantized blocks ->
+                      per-image symbol counts [N, 4, 256] (pass 1 of
+                      optimize), one launch, the DC predictors derived
+                      in the kernel.  Per block it reads 256 bytes, per
+                      image it writes 4 KB.
 
 All are bound by memory traffic; the design (coalesced rows, a warp
 shuffle scan, a 64-word shared-memory buffer per warp) is described in the
@@ -38,8 +40,8 @@ the plain torch versions.
 `launches` counts launches of the pack kernel made through
 pack_words_cuda, `encode_launches` those of the fused kernel made through
 encode_blocks_cuda and `histogram_launches` those of the histogram kernel
-made through symbol_histograms_cuda, so a run can show which kernels its
-path went through.
+made through symbol_histograms_batch_cuda, so a run can show which
+kernels its path went through.
 """
 from __future__ import annotations
 
@@ -60,8 +62,9 @@ def _bind(lib) -> None:
     lib.jz_encode_blocks.restype = ci
     lib.jz_encode_blocks.argtypes = [vp, vp, vp, ci, ci, ll, vp, vp, ll,
                                      vp]
-    lib.jz_symbol_histograms.restype = ci
-    lib.jz_symbol_histograms.argtypes = [vp, vp, vp, ll, ll, vp]
+    lib.jz_symbol_histograms_batch.restype = ci
+    lib.jz_symbol_histograms_batch.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll,
+                                               ll, vp]
 
 
 LIB = KernelLibrary("entropy_pack.cu", _bind)
@@ -189,36 +192,48 @@ def encode_blocks_cuda(q: torch.Tensor, pred: torch.Tensor, tables,
     return words, bits
 
 
-def symbol_histograms_cuda(q: torch.Tensor, pred: torch.Tensor,
-                           blocks_per_image: int):
-    """CUDA form of entropy.symbol_histograms: per-image Huffman symbol
-    counts [N, 2, 256] int32 (DC categories; AC symbols with ZRL and EOB)
-    of q [B, 64] int32 blocks in natural order with pred [B] int32 DC
-    predictors, N = B // blocks_per_image images.  On the inputs' device
-    and stream; the output is zeroed first (a memset) and the kernel adds
-    into it."""
+def symbol_histograms_batch_cuda(yq: torch.Tensor, cbq: torch.Tensor,
+                                 crq: torch.Tensor, *,
+                                 restart_interval: int = 0,
+                                 carry: torch.Tensor | None = None):
+    """CUDA form of entropy.symbol_histograms_batch_plain, one launch for
+    the three components: per-image Huffman symbol counts [N, 4, 256]
+    int32 (Y DC, Y AC, chroma DC, chroma AC; Cb and Cr summed).
+
+    yq [N, B_Y, 64], cbq and crq [N, B_C, 64] int32 quantized blocks in
+    natural order; the kernel derives each block's DC predictor itself
+    (entropy.dc_predictors_restart over each image's chain, reset every
+    restart_interval MCUs); carry: None, or [N, 3] int32 first predictors
+    (a tile shard's carry-in).  On the inputs' device and stream; the
+    counts are zeroed first (a memset) and the kernel adds into them."""
     global histogram_launches
-    if q.dim() != 2 or q.shape[1] != 64:
-        raise ValueError(f"symbol_histograms_cuda: q has shape "
-                         f"{tuple(q.shape)}, want [B, 64]")
-    B = q.shape[0]
-    _check("symbol_histograms_cuda", q, ("q", q, torch.int32, q.shape),
-           ("pred", pred, torch.int32, (B,)))
-    if blocks_per_image <= 0 or B % blocks_per_image:
-        raise ValueError(f"symbol_histograms_cuda: {B} blocks are no whole "
-                         f"number of images of {blocks_per_image}")
+    if yq.dim() != 3 or yq.shape[2] != 64 or cbq.dim() != 3:
+        raise ValueError(f"symbol_histograms_batch_cuda: yq has shape "
+                         f"{tuple(yq.shape)}, cbq {tuple(cbq.shape)}, want "
+                         "[N, B, 64] each")
+    N = yq.shape[0]
+    specs = [("yq", yq, torch.int32, yq.shape),
+             ("cbq", cbq, torch.int32, (N, cbq.shape[1], 64)),
+             ("crq", crq, torch.int32, cbq.shape)]
+    if carry is not None:
+        specs.append(("carry", carry, torch.int32, (N, 3)))
+    _check("symbol_histograms_batch_cuda", yq, *specs)
+    if restart_interval < 0 or 0 in (yq.shape[1], cbq.shape[1]):
+        raise ValueError("symbol_histograms_batch_cuda: restart_interval < 0 "
+                         "or a component without blocks")
     lib = LIB.get()
-    dev = q.device
+    dev = yq.device
     with torch.cuda.device(dev):
-        qc, pc = q.contiguous(), pred.contiguous()
-        hist = torch.zeros((B // blocks_per_image, 2, 256),
-                           dtype=torch.int32, device=dev)
+        qs = [t.contiguous() for t in (yq, cbq, crq)]
+        cc = None if carry is None else carry.contiguous()
+        hist = torch.zeros((N, 4, 256), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.jz_symbol_histograms(qc.data_ptr(), pc.data_ptr(),
-                                      hist.data_ptr(), blocks_per_image, B,
-                                      stream)
-    LIB.raise_on("symbol_histograms", rc)
-    if B > 0:
+        rc = lib.jz_symbol_histograms_batch(
+            *(t.data_ptr() for t in qs), None if cc is None else cc.data_ptr(),
+            hist.data_ptr(), N, yq.shape[1], cbq.shape[1], restart_interval,
+            stream)
+    LIB.raise_on("symbol_histograms_batch", rc)
+    if N > 0:
         with _lock:
             histogram_launches += 1
     return hist

@@ -115,7 +115,7 @@ def last_dcs(q) -> torch.Tensor:
 def histograms_local(q, carry, *, restart_interval: int = 0):
     """Symbol counts [4, 256] int32 (Y-DC, Y-AC, C-DC, C-AC) of this
     shard's images, summed over them: the histogram kernel with the
-    shard's block count per image, once per component."""
+    shard's block count per image, one launch for the three components."""
     return TC._symbol_histograms_batch(
         *q, restart_interval=restart_interval, carry=carry).sum(
             dim=0, dtype=torch.int32)

@@ -1,6 +1,7 @@
-"""CUDA-only checks of jpezy_tpu_torch: the hand-written entropy kernels
-(the pack alone, the fused emissions + pack, and the Huffman scan of the
-device decode) against their plain torch versions, and the codec on the
+"""CUDA-only checks of jpezy_tpu_torch: the hand-written kernels (the pack
+alone, the fused emissions + pack, the symbol histograms, the stream
+concat and the Huffman scan of the device decode) against their plain
+torch versions, and the codec on the
 card against the codec on the CPU.  Marked
 `cuda`; each test skips when no CUDA device is present (decided inside the
 fixture, never at import).  On a card:
@@ -115,14 +116,16 @@ def test_fused_kernel_dispatch_predictors_and_tables(cuda):
 def test_codec_on_card_matches_cpu(cuda):
     from imagegen import make_test_image
 
-    from jpezy_tpu_torch.ops import pack_cuda
+    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda
 
     rgbs = np.stack([make_test_image(64, 64, seed=130 + i) for i in range(2)])
-    before = (pack_cuda.launches, pack_cuda.encode_launches)
+    before = (pack_cuda.launches, pack_cuda.encode_launches,
+              concat_cuda.launches)
     exact = TC.encode_batch(rgbs, precision="exact", device=cuda)
-    # one fused launch per component; the pack alone is off the codec's path
-    assert (pack_cuda.launches, pack_cuda.encode_launches) == (
-        before[0], before[1] + 3)
+    # one fused launch per component and one concat; the pack alone is
+    # off the codec's path
+    assert (pack_cuda.launches, pack_cuda.encode_launches,
+            concat_cuda.launches) == (before[0], before[1] + 3, before[2] + 1)
     assert exact == TC.encode_batch(rgbs, precision="exact", device="cpu")
     flat, kw, *_ = TC._decode_host_prep(exact, gray=False, precision="fast",
                                         transport=None)
@@ -329,27 +332,129 @@ def _optimize_inputs(dev):
     return q, ytabs, ctabs
 
 
+def _hist_cases(dev):
+    """(label, (yq, cbq, crq), restart_interval, carry) of the batched
+    histogram kernel: the real components; images of 1 to 140 blocks cut
+    from the edge-case and long-emission blocks (Y 4 times chroma, as the
+    codec has it, and not); a carry; restarts."""
+    q, _, _ = _optimize_inputs(dev)
+    edge = torch.from_numpy(TE.edge_case_blocks(171)).to(dev)
+    longq = torch.from_numpy(TE.long_emission_blocks()).to(dev)
+    cases = [("real", q, 0, None), ("real", q, 2, None)]
+    src = torch.cat([edge] * 4)
+    for ny, nc in ((4, 1), (140, 35), (1, 1), (7, 3), (128, 129)):
+        n = src.shape[0] // (ny + 2 * nc)
+        blk = src[:n * (ny + 2 * nc)].reshape(n, -1, 64)
+        comps = (blk[:, :ny], blk[:, ny:ny + nc], blk[:, ny + nc:])
+        cases += [(f"edge {ny}/{nc}", comps, ri, None) for ri in (0, 1, 3)]
+    lq = longq.reshape(2, 4, 64)
+    cases.append(("long", (lq, lq[:, :1], lq[:, 1:2]), 0, None))
+    rng = np.random.default_rng(172)
+    for ri in (0, 1, 2):
+        carry = torch.from_numpy(rng.integers(-1000, 1000, (3, 3)).astype(
+            np.int32)).to(dev)
+        cases.append((f"carry ri={ri}", q, ri, carry))
+    return cases
+
+
 def test_histogram_kernel_matches_plain(cuda):
-    """Per-image symbol counts of the kernel equal the plain version's:
-    real components, a thread block spanning images (images of 1 and 3
-    blocks), edge-case and long-emission blocks; one launch a call."""
+    """Per-image symbol counts of the batched kernel (one launch for the
+    three components, predictors derived in it) equal the plain form's:
+    real components, images of 1 to 140 blocks, edge-case and
+    long-emission blocks, with restarts and a carry."""
     from jpezy_tpu_torch.ops import pack_cuda
 
-    q, _, _ = _optimize_inputs(cuda)
-    edge = torch.from_numpy(TE.edge_case_blocks(171)).to(cuda)
-    longq = torch.from_numpy(TE.long_emission_blocks()).to(cuda)
-    cases = [(qc.reshape(-1, 64), qc.shape[1]) for qc in q]
-    cases += [(edge, edge.shape[0]), (edge[:-1], 1), (edge[:99], 3),
-              (longq, 2), (longq, 1)]
+    cases = _hist_cases(cuda)
     before = pack_cuda.histogram_launches
-    for blocks, bpi in cases:
-        pred = TE.dc_predictors_restart(
-            blocks[:, 0].reshape(-1, bpi), 2).reshape(-1)
-        got = TE.symbol_histograms(blocks, pred, bpi)
-        want = TE.symbol_histograms_plain(blocks.cpu(), pred.cpu(), bpi)
+    for label, comps, ri, carry in cases:
+        got = TE.symbol_histograms_batch(*comps, ri, carry)
+        want = TE.symbol_histograms_batch_plain(
+            *(c.cpu() for c in comps), ri,
+            None if carry is None else carry.cpu())
         torch.cuda.synchronize()
-        assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+        assert got.dtype == torch.int32, label
+        assert torch.equal(got.cpu(), want), label
     assert pack_cuda.histogram_launches - before == len(cases)
+
+
+def test_histogram_kernel_refuses_shapes(cuda):
+    from jpezy_tpu_torch.ops import pack_cuda
+
+    q = torch.zeros((2, 8, 64), dtype=torch.int32, device=cuda)
+    for comps, carry in (((q, q[:, :2], q[:, :3]), None),
+                         ((q, q[:1, :2], q[:1, :2]), None),
+                         ((q, q[:, :2], q[:, :2]),
+                          torch.zeros((2, 2), dtype=torch.int32,
+                                      device=cuda))):
+        with pytest.raises(ValueError, match="shape"):
+            pack_cuda.symbol_histograms_batch_cuda(*comps, carry=carry)
+
+
+def _concat_cases(dev):
+    """(label, words, bits, restart_interval, maxw) of the concat kernel on
+    the card: real blocks with and without restarts, gray, per-image table
+    sets, dense noise with the default and a shrunk budget, and seeded
+    blocks whose bits reach word 63."""
+    from imagegen import make_test_image
+
+    rgbs = np.stack([make_test_image(64, 48, seed=180 + i) for i in range(3)])
+    noise = np.random.default_rng(181).integers(0, 256, (2, 64, 64, 3),
+                                                dtype=np.uint8)
+    q = TC._quantize_batch_rgb(torch.from_numpy(rgbs).to(dev))
+    qg = TC._quantize_batch_rgb(torch.from_numpy(rgbs).to(dev), gray=True)
+    qn = TC._quantize_batch_rgb(torch.from_numpy(noise).to(dev), quality=100)
+    hists = TC._symbol_histograms_batch(*q).cpu().numpy()
+    _, ytabs, ctabs = TC._optimal_tables(hists)
+    cases = []
+    for ri in (0, 1, 8, 17):
+        wc, bc = TC._emit_local(*q, ri)
+        cases.append((f"real ri={ri}", wc, bc, ri, None))
+    cases.append(("gray", *TC._emit_local(*qg), 0, None))
+    _, wc, bc = TC._encode_batch_custom(*q, ytabs, ctabs, restart_interval=2)
+    cases.append(("per-image tables", wc, bc, 2, None))
+    for ri in (0, 4):
+        wc, bc = TC._emit_local(*qn, ri)
+        cases += [(f"noise ri={ri}", wc, bc, ri, None),
+                  (f"noise ri={ri}, maxw 700", wc, bc, ri, 700)]
+    wc, bc = TE.stream_blocks(3, 40, seed=5)
+    cases.append(("word 63", tuple(w.to(dev) for w in wc),
+                  tuple(b.to(dev) for b in bc), 3, None))
+    return cases
+
+
+def test_concat_kernel_matches_plain(cuda):
+    """combined of the concat kernel is bit-identical to the plain form's
+    in every case, one counted call each; the dense noise outgrows the
+    shrunk budget (words dropped, totals exact)."""
+    from jpezy_tpu_torch.ops import concat_cuda
+
+    cases = _concat_cases(cuda)
+    before = concat_cuda.launches
+    overflowed = 0
+    for label, wc, bc, ri, maxw in cases:
+        got, _, _ = TC._concat_batch_combined_comp(wc, bc, ri, maxw=maxw)
+        m = got.shape[1] - 1 - (-(-bc[1].shape[1] // ri) if ri else 0)
+        want = TE.concat_streams_plain(tuple(w.cpu() for w in wc),
+                                       tuple(b.cpu() for b in bc), ri, m)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64, label
+        assert torch.equal(got.cpu(), want), label
+        overflowed += int((want[:, 0] > 32 * m).sum())
+    assert concat_cuda.launches - before == len(cases)
+    assert overflowed > 0
+
+
+def test_concat_kernel_refuses_shapes(cuda):
+    from jpezy_tpu_torch.ops import concat_cuda
+
+    wc, bc = TE.stream_blocks(2, 4, seed=6)
+    wc = tuple(w.to(cuda) for w in wc)
+    bc = tuple(b.to(cuda) for b in bc)
+    for w, b in (((wc[0][:, :15],) + wc[1:], bc),
+                 (wc, (bc[0], bc[1], bc[2][:1])),
+                 (tuple(w[..., :32] for w in wc), bc)):
+        with pytest.raises(ValueError, match="shape"):
+            concat_cuda.concat_streams_cuda(w, b, maxw=4096)
 
 
 def test_fused_kernel_per_image_tables(cuda):
@@ -391,18 +496,20 @@ def test_fused_kernel_per_image_tables(cuda):
 
 def test_optimize_and_rgb_on_card_match_cpu(cuda):
     """optimize and the rgb transports in exact mode: the card's streams
-    and pixels equal the CPU's; optimize launches the histogram and the
-    fused kernel three times each."""
+    and pixels equal the CPU's; optimize launches the histogram kernel
+    once, the fused kernel three times and the concat once."""
     from imagegen import make_test_image
 
-    from jpezy_tpu_torch.ops import pack_cuda
+    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda
 
     rgbs = np.stack([make_test_image(64, 64, seed=180 + i) for i in range(2)])
-    before = (pack_cuda.histogram_launches, pack_cuda.encode_launches)
+    before = (pack_cuda.histogram_launches, pack_cuda.encode_launches,
+              concat_cuda.launches)
     opt = TC.encode_batch(rgbs, precision="exact", optimize=True,
                           restart_interval=2, device=cuda)
     assert (pack_cuda.histogram_launches - before[0],
-            pack_cuda.encode_launches - before[1]) == (3, 3)
+            pack_cuda.encode_launches - before[1],
+            concat_cuda.launches - before[2]) == (1, 3, 1)
     assert opt == TC.encode_batch(rgbs, precision="exact", optimize=True,
                                   restart_interval=2, device="cpu")
     rgb = TC.encode_batch(rgbs, precision="exact", transport="rgb",
@@ -424,24 +531,26 @@ def test_optimize_and_rgb_on_card_match_cpu(cuda):
 def test_sharded_on_card_matches_cpu(cuda, kw):
     """encode_sharded / decode_sharded on a 1x1 mesh on the card: exact
     streams equal the CPU mesh's, the kernels launch per shard (3 fused,
-    3 histogram with optimize, 1 scan for restart streams), and the
+    1 concat, 1 histogram with optimize, 1 scan for restart streams), and
+    the
     device decode's pixels equal the card's rgb transport's."""
     from imagegen import make_test_image
 
-    from jpezy_tpu_torch.ops import pack_cuda, scan_cuda
+    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda, scan_cuda
     from jpezy_tpu_torch.parallel import (decode_sharded, encode_sharded,
                                           make_mesh)
 
     rgbs = np.stack([make_test_image(64, 64, seed=190 + i) for i in range(2)])
     card, cpu = make_mesh(1, 1, device=cuda), make_mesh(1, 1, device="cpu")
-    before = (pack_cuda.encode_launches, pack_cuda.histogram_launches,
-              scan_cuda.launches)
+    def counts():
+        return (pack_cuda.encode_launches, concat_cuda.launches,
+                pack_cuda.histogram_launches, scan_cuda.launches)
+
+    before = counts()
     streams = encode_sharded(card, rgbs, precision="exact", **kw)
     px = decode_sharded(card, streams)
-    after = (pack_cuda.encode_launches, pack_cuda.histogram_launches,
-             scan_cuda.launches)
-    assert tuple(a - b for a, b in zip(after, before)) == (
-        3, 3 if kw.get("optimize") else 0, 1 if kw else 0)
+    assert tuple(a - b for a, b in zip(counts(), before)) == (
+        3, 1, 1 if kw.get("optimize") else 0, 1 if kw else 0)
     assert streams == encode_sharded(cpu, rgbs, precision="exact", **kw)
     want, _ = TC.decode_batch(streams, transport="rgb", device=cuda)
     assert np.array_equal(px, want)

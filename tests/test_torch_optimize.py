@@ -92,7 +92,7 @@ class TestHistograms:
         q = (TE.edge_case_blocks(201) if which == "edge"
              else TE.long_emission_blocks())
         pred = TE.dc_predictors(torch.from_numpy(q[:, 0]))
-        got = TE.symbol_histograms(torch.from_numpy(q), pred)
+        got = TE.symbol_histograms_plain(torch.from_numpy(q), pred)
         dc, ac = JE.symbol_histograms(jnp.asarray(q), _jax(pred))
         assert got.shape == (1, 2, 256)
         assert np.array_equal(got[0, 0].numpy(), np.asarray(dc))
@@ -102,7 +102,7 @@ class TestHistograms:
     def test_images_counted_apart(self, bpi):
         q = torch.from_numpy(TE.edge_case_blocks(202)[:51])
         pred = TE.dc_predictors(q[:, 0].reshape(-1, bpi)).reshape(-1)
-        got = TE.symbol_histograms(q, pred, bpi)
+        got = TE.symbol_histograms_plain(q, pred, bpi)
         assert got.shape == (51 // bpi, 2, 256)
         for i in range(51 // bpi):
             sl = slice(i * bpi, (i + 1) * bpi)
@@ -112,14 +112,47 @@ class TestHistograms:
     def test_cpu_tensors_launch_nothing(self):
         from jpezy_tpu_torch.ops import pack_cuda
 
-        q = torch.from_numpy(TE.edge_case_blocks(203))
+        q = torch.from_numpy(TE.edge_case_blocks(203)[:60]).reshape(2, 30, 64)
+        comps = (q, q[:, :10], q[:, 10:20])
         before = pack_cuda.histogram_launches
-        TE.symbol_histograms(q, TE.dc_predictors(q[:, 0]))
+        got = TE.symbol_histograms_batch(*comps, restart_interval=2)
         assert pack_cuda.histogram_launches == before
+        assert torch.equal(got, TE.symbol_histograms_batch_plain(*comps, 2))
         with pytest.raises(ValueError, match="unsupported device"):
-            TE.symbol_histograms(q.to("meta"), q[:, 0].to("meta"))
+            TE.symbol_histograms_batch(*(c.to("meta") for c in comps))
         with pytest.raises(ValueError, match="whole number"):
-            TE.symbol_histograms(q, q[:, 0], q.shape[0] + 1)
+            TE.symbol_histograms_plain(q[0], q[0, :, 0], 31)
+
+    @pytest.mark.parametrize("ri", [0, 1, 3])
+    def test_batch_plain_equals_jax(self, quantized, ri):
+        """The three-component plain form is jax_codec's
+        _symbol_histograms_batch, with and without restarts."""
+        got = TE.symbol_histograms_batch_plain(*quantized, ri)
+        ref = JC._symbol_histograms_batch(*(_jax(q) for q in quantized),
+                                          restart_interval=ri)
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), np.asarray(ref))
+
+    @pytest.mark.parametrize("ri", [0, 2])
+    def test_carry_is_each_chains_first_predictor(self, quantized, ri):
+        """With a carry, the batch form counts what the one-component form
+        counts on dc_predictors_restart(first=carry) for Y, Cb and Cr (a
+        segment that starts at block 0 still resets to 0)."""
+        rng = np.random.default_rng(204)
+        carry = torch.from_numpy(rng.integers(-900, 900, (2, 3)).astype(
+            np.int32))
+        got = TE.symbol_histograms_batch_plain(*quantized, ri, carry)
+        rows = []
+        for c, (q, bpm) in enumerate(zip(quantized, (4, 1, 1))):
+            n, b, _ = q.shape
+            pred = TE.dc_predictors_restart(q[:, :, 0], ri * bpm, carry[:, c])
+            rows.append(TE.symbol_histograms_plain(q.reshape(-1, 64),
+                                                   pred.reshape(-1), b))
+        assert torch.equal(got[:, :2], rows[0])
+        assert torch.equal(got[:, 2:], rows[1] + rows[2])
+        if ri == 0:  # the carry reaches the counts
+            assert not torch.equal(got,
+                                   TE.symbol_histograms_batch_plain(*quantized))
 
 
 class TestTables:
