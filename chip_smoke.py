@@ -21,10 +21,13 @@ failure exits nonzero.  In the order they run:
      entropy pack alone and fused with the emissions, the latter in a
      fixed-table and a custom-table form, and the symbol histograms,
      entropy_pack.cu; the Huffman scan, huffman_scan.cu; the stream
-     concat's two passes, stream_concat.cu) and prints what ptxas reports
-     for each kernel; a stack frame or a spill in any kernel but the
-     scan, or a spill in the scan kernel, fails the run.  Counts each
-     kernel's SASS instructions (cuobjdump);
+     concat's two passes, stream_concat.cu; the fDCT+quantize kernel for
+     int8 and int32 samples and the IDCT-to-planes kernel's sparse,
+     overflow and dense launches, block_transforms.cu) and prints what
+     ptxas reports for each kernel (a template's instantiations under one
+     name); a stack frame or a spill in any kernel but the scan, or a
+     spill in the scan kernel, fails the run.  Counts each kernel's SASS
+     instructions (cuobjdump);
   3. the pack kernels against their plain torch versions on the real
      16x512x512 blocks, on seeded worst-case blocks and on the edge-case
      blocks: words and bits must be identical.  The pack kernel alone is
@@ -49,18 +52,19 @@ failure exits nonzero.  In the order they run:
   5. main path: roundtrip_batches over 4 batches of 16x512x512 on the card,
      every stream must decode; the port's own decode and the host decoder's
      decode of the port's streams must both reach a PSNR within 0.05 dB of
-     the host codec's exact round trip.  The fused kernel must have been
-     launched 3 times and the concat once per batch and no other kernel
-     at all;
+     the host codec's exact round trip.  Per batch the fDCT kernel must
+     have been launched once, the fused kernel 3 times, the concat and
+     the IDCT kernel (sparse form) once, and no other kernel at all;
   8. restart path: the same batches with restart_interval=8 and
      transport="device": every stream starts FFD8, ends FFD9, carries DRI
      and RSTn cycling 0..7, decodes in the host decoder; the device
-     transport's pixels equal the ycc420 transport's exactly; the fused
-     kernel must have been launched 3 times, the concat and the scan once
-     per batch.
+     transport's pixels equal the ycc420 transport's exactly; per batch
+     the fDCT kernel once, the fused kernel 3 times, the concat, the scan
+     and the IDCT kernel (dense form) once.
      Then decode_batches with transport="indexed" on the main path's
-     restart-free streams: pixels equal to the main path's; one scan launch
-     per batch.  A corrupted stream must raise.  Decode alone, pipelined,
+     restart-free streams: pixels equal to the main path's; one scan and
+     one IDCT launch per batch (decode alone on ycc420: one IDCT launch).
+     A corrupted stream must raise.  Decode alone, pipelined,
      is timed for the three transports side by side, and the host halves
      (parse, _device_host_frontend, _indexed_host_frontend, the ycc420
      host frontend, encode_batch_finish) per batch on the host's clock;
@@ -74,8 +78,9 @@ failure exits nonzero.  In the order they run:
      encoder's entropy bytes; 4x512x512 exact optimize streams, with and
      without restarts, byte-identical to host_codec.  Then the optimize
      path over 4 batches: every stream with its own DHT, pixels equal to
-     the restart path's, fewer bytes; 1 histogram, 3 fused, 1 concat and
-     1 scan launch per batch; MP/s of encode and decode and the host stages
+     the restart path's, fewer bytes; 1 fDCT, 1 histogram, 3 fused, 1
+     concat, 1 scan and 1 IDCT launch per batch; MP/s of encode and
+     decode and the host stages
      (the table derivation, the 16 LUT sets of the decode);
   11. rgb and entry points: rgb encode (fast, exact) and rgb decode (fast,
      exact, gray) on the card against the same calls on the CPU; exact
@@ -93,8 +98,10 @@ failure exits nonzero.  In the order they run:
      decode per shard) and `sharded_optimize` (one table set a batch):
      decode_sharded pixels equal decode_batch(transport="rgb")'s, optimize
      streams decode to the restart streams' pixels in fewer bytes,
-     launches per batch 3 fused and 1 concat (+ 1 scan with restarts,
-     + 1 histogram with optimize), MP/s beside encode_batch/decode_batch.
+     launches per batch 1 fDCT, 3 fused and 1 concat (+ 1 scan with
+     restarts, + 1 histogram with optimize; no IDCT kernel: the shards
+     decode through the rgb transport's program, colour on unclamped
+     planes), MP/s beside encode_batch/decode_batch.
      Then this
      script spawns itself as 2 gloo ranks (a 1x2 mesh), then 4 (2x2), all
      on the one card, on 4 of the images with restart_interval=8: exact
@@ -108,21 +115,40 @@ failure exits nonzero.  In the order they run:
      the default budget and a quarter of it (words dropped), the two
      shards of a 1x2 mesh in the shard budget, and seeded blocks whose
      bits reach word 63; one counted call each;
+  14. the block transforms against their plain versions and the numpy
+     models of the kernels' arithmetic order (ops/block_transform.py):
+     fdct_quantize on the main batch's ycc420 int8 planes at Annex K,
+     quality 95, rounded and gray, on the rgb path's int32 planes (chroma
+     at column stride 2) and on noise; idct_planes' sparse form on the
+     uploads of the main and restart batches, of 4 noise images at
+     quality 100 (overflow rows) and of 16x16, 48x16 and 48x32 batches
+     (odd MCU counts put the Cr fields off a word boundary), its dense
+     form on the scan's blocks of the restart path's 2,048 segments and
+     of the indexed transport's pseudo-segments: bit-identical to the
+     model, within 1 of the plain version (the share that differs
+     printed), the two forms' planes identical on the same streams; one
+     counted call each;
   5/8 device: only now the profiler: per batch the encode and decode
      programs' CUDA-event spans (host-launch bound), their device-busy
      time (kernel and copy time summed from a torch.profiler trace) and
-     number of device events, for both paths, the encode program's stages
-     alone (the concat also as the plain torch stage it replaced), and the
-     card's busy share of each pipelined round trip (device
-     time of a profiled round trip over the wall time of the unprofiled
-     one); 10/11 device: the optimize encode's device stages alone and the
-     optimize path's busy share, the rgb transports' device programs
+     number of device events, for both paths, with the plain programs'
+     earlier readings (EARLIER_PROGRAMS) beside them and the device
+     decode's tail after the scan, the encode program's stages alone (the
+     concat and fDCT+quantize also as the plain torch stages they
+     replaced), and the card's busy share of each pipelined round trip
+     (device time of a profiled round trip over the wall time of the
+     unprofiled one); 10/11 device: the optimize encode's device stages alone
+     and the optimize path's busy share, the rgb transports' device programs
      (fast, exact, gray);
-  6. times of the pack kernels, the histogram kernel and the concat alone
-     on the real blocks beside their bounds (see _bound) and their plain
-     versions, of the concat on noise at quality 100 (dense blocks), and
-     of the fused kernel with the 16 per-image table sets beside the fixed
-     tables;
+  6. times of the pack kernels, the histogram kernel, the concat and the
+     two block transforms alone on the real batch beside their bounds
+     (see _bound; the transforms' by bytes or float32 operations, the
+     IDCT's counted from the batch's nonzero coefficients) and their
+     plain versions, with the L2 cache overwritten too, the transforms
+     beside torch.matmul of the [98304, 64] @ [64, 64] product alone; of
+     the concat on noise at quality 100 (dense blocks), of the IDCT
+     kernel's dense form on the restart segments, and of the fused kernel
+     with the 16 per-image table sets beside the fixed tables;
   9. times of the scan kernel alone on the real segments beside its bound
      and the plain version's time, with the L2 cache overwritten before
      each launch, on four times the segments, and with every segment on
@@ -133,8 +159,11 @@ failure exits nonzero.  In the order they run:
 Every wall clock is taken before torch.profiler first traces: after that
 every launch in the process costs the host more.
 
-The last three lines are the kernel table as JSON, the card's name and
-power limit, and {"ok": true, "device": {...}}.  Without a CUDA device, or
+The last three lines are the kernel table as JSON (seven kernels:
+pack_words, encode_blocks, decode_segments, symbol_histograms,
+concat_streams, fdct_quantize, idct_planes; launches per path in
+launches_by_path), the card's name and power limit, and {"ok": true,
+"device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits nonzero and prints no
 result.  Imports nothing of JAX and nothing of the jpezy_tpu package.
 `--rank R WORLD DATA STORE OUT` runs one of phase 12's ranks (rank_main).
@@ -165,6 +194,9 @@ PSNR_SLACK_DB = 0.05
 # than float32 lanes, so this favours the operations side of the bound).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT_OPS_PER_S = 67e12 / 2
+# the float32 rate outside the tensor cores in operations (a multiply-add
+# counts two): the rate of the block transforms' bound
+PEAK_FP32_FLOPS = 67e12
 # Bytes per 8x8 block that each kernel's function must move: its inputs
 # read once, 64 32-bit words and one bit count written once.  (The kernels
 # store the words zero-extended to 64 bits, 256 bytes more per block: a
@@ -206,7 +238,8 @@ MIN_OPS_PER_SYMBOL = 12
 # taken again here).
 EARLIER_SCAN_MS = 0.1052
 KERNELS = ("pack_words", "encode_blocks", "decode_segments",
-           "symbol_histograms", "concat_streams")
+           "symbol_histograms", "concat_streams", "fdct_quantize",
+           "idct_planes")
 # the fused kernel's instantiation for the caller's tables (optimize), built
 # and checked beside the fixed-table one, which keeps the name
 ENCODE_CUSTOM = "encode_blocks (custom tables)"
@@ -217,12 +250,24 @@ SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
            "symbol_histograms": "jpezy_tpu_torch/csrc/entropy_pack.cu",
-           "concat_streams": "jpezy_tpu_torch/csrc/stream_concat.cu"}
+           "concat_streams": "jpezy_tpu_torch/csrc/stream_concat.cu",
+           "fdct_quantize": "jpezy_tpu_torch/csrc/block_transforms.cu",
+           "idct_planes": "jpezy_tpu_torch/csrc/block_transforms.cu"}
 REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
             "encode_blocks": "jpezy_tpu/ops/pack_pallas.py:27",
             "decode_segments": "jpezy_tpu/ops/entropy_decode.py:211",
             "symbol_histograms": "jpezy_tpu/codec/jax_codec.py:464",
-            "concat_streams": "jpezy_tpu/codec/jax_codec.py:317"}
+            "concat_streams": "jpezy_tpu/codec/jax_codec.py:317",
+            "fdct_quantize": "jpezy_tpu/parallel/sharded.py:75",
+            "idct_planes": "jpezy_tpu/codec/jax_codec.py:833"}
+# The block transforms' stages as plain torch on the card, as this script's
+# phase 5 read them before the kernels (NVIDIA H100 80GB HBM3, 700 W; kept
+# from then, not measured here): fDCT+quantize alone, the encode and
+# ycc420 decode programs and the device decode program, device busy ms
+# (device events).
+EARLIER_PROGRAMS = {"fDCT+quantize": (0.1830, 24), "encode": (0.2441, 35),
+                    "ycc420 decode": (0.9582, 97),
+                    "device decode": (0.2497, 33)}
 # The three per-component histogram launches that the one-launch kernel
 # replaced, summed (chip_smoke.py phase 6, PR 5 and PR 6: NVIDIA H100 80GB
 # HBM3, 700 W; kept from then, not measured here).
@@ -238,7 +283,8 @@ PARALLEL_IMAGES = 4
 RANK_STEPS = {"exact_restart": {"encode_blocks": 3, "concat_streams": 1},
               "exact_optimize": {"encode_blocks": 3, "symbol_histograms": 1,
                                  "concat_streams": 1},
-              "fast_restart": {"encode_blocks": 3, "concat_streams": 1},
+              "fast_restart": {"encode_blocks": 3, "concat_streams": 1,
+                               "fdct_quantize": 1},
               "device_decode": {"decode_segments": 1},
               "corrupt_decode": {"decode_segments": 1}}
 RANK_TIMEOUT_S = 300
@@ -249,21 +295,26 @@ CPU_BATCH, CPU_HW = 2, 256
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda, scan_cuda
+    from jpezy_tpu_torch.ops import (concat_cuda, pack_cuda, scan_cuda,
+                                     transform_cuda)
 
     pack_cuda.launches = pack_cuda.encode_launches = 0
     pack_cuda.histogram_launches = scan_cuda.launches = 0
     concat_cuda.launches = 0
+    transform_cuda.fdct_launches = transform_cuda.idct_launches = 0
 
 
 def read_counts() -> dict:
-    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda, scan_cuda
+    from jpezy_tpu_torch.ops import (concat_cuda, pack_cuda, scan_cuda,
+                                     transform_cuda)
 
     return {"pack_words": pack_cuda.launches,
             "encode_blocks": pack_cuda.encode_launches,
             "decode_segments": scan_cuda.launches,
             "symbol_histograms": pack_cuda.histogram_launches,
-            "concat_streams": concat_cuda.launches}
+            "concat_streams": concat_cuda.launches,
+            "fdct_quantize": transform_cuda.fdct_launches,
+            "idct_planes": transform_cuda.idct_launches}
 
 
 def _say(phase: str, msg: str) -> None:
@@ -390,28 +441,31 @@ def _kernel_of(symbol: str) -> str:
         return CONCAT_OFFSETS
     if "concat_scatter" in symbol:
         return "concat_streams"
-    for name in ("encode_blocks", "decode_segments", "symbol_histograms"):
+    for name in ("encode_blocks", "decode_segments", "symbol_histograms",
+                 "fdct_quantize", "idct_planes"):
         if name in symbol:
             return name
     return "pack_words"
 
 
 def _ptxas_by_kernel(log: str) -> dict:
-    """nvcc -Xptxas -v output -> {kernel: resource lines}."""
+    """nvcc -Xptxas -v output -> {kernel: resource lines}, the lines of
+    every instantiation of a kernel template under its one name."""
     out, cur = {}, None
     for ln in log.splitlines():
         ln = ln.strip()
         if "Compiling entry function" in ln:
             cur = _kernel_of(ln.split("'")[1])
-            out[cur] = []
+            out.setdefault(cur, [])
         elif cur and ("registers" in ln or "stack frame" in ln):
             out[cur].append(ln.replace("ptxas info    : ", ""))
     return out
 
 
 def _sass_instructions(nvcc: str, lib: str) -> dict:
-    """{kernel: number of SASS instructions in its sm_90a code}, from
-    `cuobjdump -sass` of the built library, NOPs left out."""
+    """{kernel: number of SASS instructions in its sm_90a code, summed over
+    the instantiations of a template}, from `cuobjdump -sass` of the built
+    library, NOPs left out."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     res = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                          timeout=120)
@@ -421,16 +475,17 @@ def _sass_instructions(nvcc: str, lib: str) -> dict:
     for ln in res.stdout.splitlines():
         if "Function :" in ln:
             cur = _kernel_of(ln.split(":", 1)[1])
-            out[cur] = 0
+            out.setdefault(cur, 0)
         elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", ln):
             out[cur] += 1
     return out
 
 
-def _bound(nbytes: int, ops: int):
+def _bound(nbytes: int, ops: int, rate: float = PEAK_INT_OPS_PER_S):
     """(bound ms, what bounds it): the larger of bytes over the memory
-    rate and operations over the 32-bit rate."""
-    t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops / PEAK_INT_OPS_PER_S
+    rate and operations over `rate` (the 32-bit rate, or the float32
+    one)."""
+    t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops / rate
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -728,7 +783,9 @@ def main() -> int:
     from jpezy_tpu_torch.ops import cuda_build
     from jpezy_tpu_torch.ops import entropy as E
     from jpezy_tpu_torch.ops import entropy_decode as ED
-    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda, scan_cuda
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import (concat_cuda, pack_cuda, scan_cuda,
+                                     transform_cuda)
     from jpezy_tpu_torch.runtime import batch as RB
     from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
                                                   encode_batches,
@@ -748,7 +805,8 @@ def main() -> int:
     # ---- 2. build the kernels from the checkout's sources, all at once
     import concurrent.futures as cf
 
-    libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB)
+    libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB,
+            transform_cuda.LIB)
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(len(libs)) as ex:
         secs = list(ex.map(lambda lib: lib.build(force=True), libs))
@@ -997,10 +1055,12 @@ def main() -> int:
     results = list(roundtrip_batches(batches, lookahead=1, device="cuda"))
     wall = time.perf_counter() - t0
     main_launches = read_counts()
-    if main_launches != _per_batch(encode_blocks=3, concat_streams=1):
+    if main_launches != _per_batch(fdct_quantize=1, encode_blocks=3,
+                                   concat_streams=1, idct_planes=1):
         raise AssertionError(
-            f"main path launches {main_launches}: want the fused kernel 3 "
-            "times and the concat once per batch and no other kernel")
+            f"main path launches {main_launches}: want per batch the fDCT "
+            "kernel once, the fused kernel 3 times, the concat and the IDCT "
+            "kernel once, and no other kernel")
     streams = [s for ss, _ in results for s in ss]
     src = np.concatenate(batches)
     px = np.concatenate([p for _, p in results])
@@ -1038,11 +1098,13 @@ def main() -> int:
     rresults = list(roundtrip_batches(batches, **rt_kw))
     rwall = time.perf_counter() - t0
     restart_launches = read_counts()
-    if restart_launches != _per_batch(encode_blocks=3, concat_streams=1,
-                                      decode_segments=1):
+    if restart_launches != _per_batch(fdct_quantize=1, encode_blocks=3,
+                                      concat_streams=1, decode_segments=1,
+                                      idct_planes=1):
         raise AssertionError(
-            f"restart path launches {restart_launches}: want the fused "
-            "kernel 3 times, the concat and the scan kernel once per batch")
+            f"restart path launches {restart_launches}: want per batch the "
+            "fDCT kernel once, the fused kernel 3 times, the concat, the "
+            "scan and the IDCT kernel once")
     nseg = -(-(H // 16) * (W // 16) // ri)
     want_rst = np.arange(nseg - 1) % 8
     for ss, rpx in rresults:
@@ -1099,6 +1161,10 @@ def main() -> int:
         dec_walls[label] = time.perf_counter() - t0
         counts = read_counts()
         dec_launches[label] = counts["decode_segments"]
+        if counts != _per_batch(idct_planes=1, decode_segments=int(
+                label != "ycc420")):
+            raise AssertionError(f"decode_batches transport={transport} "
+                                 f"launches {counts}")
         if label == "indexed":
             indexed_launches = counts
         for (p, _), (_, want) in zip(out, results if label != "device"
@@ -1256,12 +1322,13 @@ def main() -> int:
     opt_dec = list(decode_batches(opt_lists, **odec_kw))
     odwall = time.perf_counter() - t0
     optimize_launches = read_counts()
-    if optimize_launches != _per_batch(symbol_histograms=1, encode_blocks=3,
-                                       concat_streams=1, decode_segments=1):
+    if optimize_launches != _per_batch(fdct_quantize=1, symbol_histograms=1,
+                                       encode_blocks=3, concat_streams=1,
+                                       decode_segments=1, idct_planes=1):
         raise AssertionError(
-            f"optimize path launches {optimize_launches}: want the histogram "
-            "kernel once, the fused kernel 3 times, the concat and the scan "
-            "once per batch")
+            f"optimize path launches {optimize_launches}: want per batch the "
+            "fDCT kernel and the histogram kernel once, the fused kernel 3 "
+            "times, the concat, the scan and the IDCT kernel once")
     opt_bytes = sum(len(s) for ss in opt_lists for s in ss)
     fixed_bytes = sum(len(s) for s in rstreams)
     for ss, (opx, _), (_, rpx) in zip(opt_lists, opt_dec, rresults):
@@ -1497,13 +1564,17 @@ def main() -> int:
                                 device="cuda", **kw)):
             raise AssertionError(f"dense encode_sharded ({kw}) differs from "
                                  "host_codec or encode_batch(transport='rgb')")
+    # the shards decode through the rgb transport's program (colour on the
+    # unclamped planes): no IDCT kernel
     sharded_paths = (
-        ("sharded", {}, {"encode_blocks": 3, "concat_streams": 1}),
+        ("sharded", {}, {"fdct_quantize": 1, "encode_blocks": 3,
+                         "concat_streams": 1}),
         ("sharded_restart", {"restart_interval": ri},
-         {"encode_blocks": 3, "concat_streams": 1, "decode_segments": 1}),
+         {"fdct_quantize": 1, "encode_blocks": 3, "concat_streams": 1,
+          "decode_segments": 1}),
         ("sharded_optimize", {"optimize": True, "restart_interval": ri},
-         {"encode_blocks": 3, "concat_streams": 1, "decode_segments": 1,
-          "symbol_histograms": 1}))
+         {"fdct_quantize": 1, "encode_blocks": 3, "concat_streams": 1,
+          "decode_segments": 1, "symbol_histograms": 1}))
     sharded_launches, sharded_mps, sharded_out = {}, {}, {}
     for label, kw, per_batch in sharded_paths:
         decode_sharded(mesh, encode_sharded(mesh, batches[0], **kw))
@@ -1689,6 +1760,164 @@ def main() -> int:
          f"totals exact); shard budget {shard_maxw} words")
     del concat_sets, owc, obc, gray_q, dense_q, dwc, dbc, halves
 
+    # ---- 14. the block transforms against their plain versions and the
+    # numpy models of the kernels' arithmetic order
+    from jpezy_tpu_torch.ops import blocks as OB
+    from jpezy_tpu_torch.ops import colorspace as OC
+
+    def upload(rgbs):
+        """The ycc420 transport's int8 plane views of rgbs on the card."""
+        y, cb, cr = HG.host_rgb_to_ycc420(rgbs)
+        n, h, w = y.shape
+        packed = torch.from_numpy(np.concatenate(
+            [y.reshape(n, -1), cb.reshape(n, -1), cr.reshape(n, -1)],
+            axis=1)).to(dev)
+        return TC._unpack_ycc(packed, h, w)
+
+    ycc_real = upload(batches[0])
+    rgb0 = torch.from_numpy(batches[0]).to(dev)
+    ry, rcb, rcr = OC.rgb_to_ycc(rgb0[..., 0], rgb0[..., 1], rgb0[..., 2])
+    noise14 = np.random.default_rng(15).integers(0, 256, (BATCH, H, W, 3),
+                                                 dtype=np.uint8)
+    q95 = tuple(torch.from_numpy(t).to(dev)
+                for t in T.scale_quant_tables(95))
+    plain_kw = dict(gray=False, rounded=False)
+    fdct_sets = [
+        ("ycc420 upload, Annex K", ycc_real, plain_kw),
+        ("quality 95", ycc_real, dict(plain_kw, qtables=q95)),
+        ("rounded", ycc_real, dict(plain_kw, rounded=True)),
+        ("gray", ycc_real, dict(plain_kw, gray=True)),
+        ("rgb path, int32 planes, chroma at column stride 2",
+         (ry, OB.decimate_420(rcb), OB.decimate_420(rcr)), plain_kw),
+        ("noise", upload(noise14), plain_kw)]
+    del rgb0, rcb, rcr
+    err["fdct_quantize"] = 0
+    transform_cuda.fdct_launches = 0
+    said14 = []
+    for label, planes14, kw in fdct_sets:
+        got = BT.fdct_quantize(*planes14, **kw)
+        want = BT.fdct_quantize_plain(*planes14, **kw)
+        qt = kw.get("qtables")
+        model = BT.fdct_quantize_model(
+            *(p.cpu().numpy() for p in planes14), gray=kw["gray"],
+            rounded=kw["rounded"],
+            qtables=None if qt is None else tuple(t.cpu().numpy()
+                                                  for t in qt))
+        torch.cuda.synchronize()
+        n_diff = n_all = 0
+        for g, w_, m in zip(got, want, model):
+            if g.dtype != torch.int32 or not np.array_equal(g.cpu().numpy(),
+                                                            m):
+                raise AssertionError(f"fdct_quantize kernel != its model on "
+                                     f"{label}")
+            e = int((g - w_).abs().max())
+            err["fdct_quantize"] = max(err["fdct_quantize"], e)
+            if e > 1:
+                raise AssertionError(f"fdct_quantize kernel differs from the "
+                                     f"plain version by {e} on {label}")
+            n_diff += int((g != w_).sum())
+            n_all += g.numel()
+        said14.append(f"{label}: {n_diff} of {n_all} coefficients differ "
+                      f"from the plain version ({n_diff / n_all:.2e})")
+    if transform_cuda.fdct_launches != len(fdct_sets):
+        raise AssertionError(f"fDCT kernel launched "
+                             f"{transform_cuda.fdct_launches} times in "
+                             f"{len(fdct_sets)} comparisons")
+    _say("14 fdct", "fdct_quantize (one launch for the three components) "
+         "bit-identical to the numpy model of its ascending float32 sums "
+         f"and within 1 of the plain version on {BATCH}x{H}x{W}: "
+         + "; ".join(said14))
+    fdct_inputs = ycc_real      # phase 6 times the kernel on these planes
+    real_nonzero = sum(int((q != 0).sum()) for q in BT.fdct_quantize(
+        *ycc_real, **plain_kw))
+    del fdct_sets, got, want, model, noise14
+
+    # the IDCT kernel: the sparse form on ycc420 uploads, the dense form on
+    # the scan's blocks, each against its model and its plain version
+    def sparse_set(streams):
+        flat, kw, *_ = TC._decode_host_prep(streams, gray=False,
+                                            precision="fast", transport=None)
+        return ("sparse", flat, kw)
+
+    def dense_set(lanes_np, streams):
+        """The scan's blocks and flags of these lanes on the card, the
+        streams' per-image quant tables, and the form's arguments."""
+        args = _to_dev(lanes_np, dev)
+        blocks, bad = ED.decode_segments(**args)
+        pjs14 = [parse(st) for st in streams]
+        _, geom14, level14 = TC._parse_batch(streams)
+        kw = dict(N=len(pjs14), nseg=args["words"].shape[0] // len(pjs14),
+                  ri=args["max_blocks"] // 6, geom=geom14, level=level14)
+        return ("dense", (blocks, bad, torch.from_numpy(
+            HG._quant_arr(pjs14)).to(dev)), kw)
+
+    noise_q100 = TC.encode_batch(
+        np.random.default_rng(16).integers(0, 256, (BATCH // 4, H, W, 3),
+                                           dtype=np.uint8),
+        quality=100, device="cuda")
+    small = {f"{w}x{h}, quality 95": TC.encode_batch(
+        np.stack([make_test_image(h, w, seed=340 + i) for i in range(3)]),
+        quality=95, device="cuda") for h, w in ((16, 16), (16, 48), (32, 48))}
+    idct_sets = [("main path's batch", sparse_set(plain_lists[0])),
+                 ("restart path's batch", sparse_set(restart_lists[0])),
+                 (f"{BATCH // 4} noise images at quality 100",
+                  sparse_set(noise_q100))]
+    idct_sets += [(label, sparse_set(st)) for label, st in small.items()]
+    idct_sets += [
+        ("restart path's segments", dense_set(
+            _restart_lanes(HG, restart_lists[0], ri), restart_lists[0])),
+        ("indexed transport's pseudo-segments of the main path's batch",
+         dense_set(_indexed_lanes(HG, plain_lists[0]), plain_lists[0]))]
+    err["idct_planes"] = 0
+    transform_cuda.idct_launches = 0
+    said14, planes_by = [], {}
+    for label, (form, src, kw) in idct_sets:
+        if form == "sparse":
+            src_dev = torch.from_numpy(src).to(dev)
+            got = BT.idct_planes_sparse(src_dev, **kw)
+            want = BT.idct_planes_sparse_plain(src_dev, **kw)
+            model = BT.idct_planes_sparse_model(src, **kw)
+            extra = f", overflow rows {list(kw['caps'])}"
+        else:
+            got = BT.idct_planes_dense(*src, **kw)
+            want = BT.idct_planes_dense_plain(*src, **kw)
+            model = BT.idct_planes_dense_model(
+                *(t.cpu().numpy() for t in src), **kw)
+            extra = ", flags " + str(got[:, -1].tolist().count(1))
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        if not np.array_equal(got, model):
+            raise AssertionError(f"idct_planes kernel != its model on {label}")
+        d = np.abs(got.astype(np.int32) - want.cpu().numpy().astype(np.int32))
+        err["idct_planes"] = max(err["idct_planes"], int(d.max()))
+        if d.max() > 1:
+            raise AssertionError(f"idct_planes kernel differs from the plain "
+                                 f"version by {int(d.max())} on {label}")
+        planes_by[label] = got
+        said14.append(f"{label} ({form}{extra}): {float((d > 0).mean()):.2e}"
+                      " of samples differ from the plain version")
+    if transform_cuda.idct_launches != len(idct_sets):
+        raise AssertionError(f"IDCT kernel launched "
+                             f"{transform_cuda.idct_launches} times in "
+                             f"{len(idct_sets)} comparisons")
+    # the two forms give the same planes for the same blocks
+    for sparse_label, dense_label in (
+            ("restart path's batch", idct_sets[-2][0]),
+            ("main path's batch", idct_sets[-1][0])):
+        if not np.array_equal(planes_by[sparse_label],
+                              planes_by[dense_label][:, :-1]):
+            raise AssertionError(f"the sparse form on the {sparse_label} "
+                                 f"differs from the dense form on the "
+                                 f"{dense_label}")
+    _say("14 idct", "idct_planes bit-identical to the numpy model of its "
+         "ascending float32 sums and within 1 of the plain version; the "
+         "sparse form on the ycc420 uploads and the dense form on the "
+         "scan's blocks of the same streams give identical planes: "
+         + "; ".join(said14))
+    idct_sparse_input = idct_sets[0][1]     # phase 6 times both forms
+    idct_dense_input = idct_sets[-2][1]
+    del idct_sets, planes_by, got, want, model, noise_q100, small
+
     # ---- 5/8 device: event spans, then (only now) the profiler
     y, cb, cr = HG.host_rgb_to_ycc420(batches[0])
     packed_dev = torch.from_numpy(np.concatenate(
@@ -1723,11 +1952,23 @@ def main() -> int:
     profs = {name: _profile(fn, 5) for name, fn in (
         ("enc", enc), ("dec", dec), ("enc_r", enc_r), ("dec_r", dec_r))}
     enc_prof, dec_prof = profs["enc"], profs["dec"]
-    if enc_prof["events"] > 35:
+    if enc_prof["events"] > 12:
         raise AssertionError(
             f"the encode program without restart markers makes "
-            f"{enc_prof['events']} device events per call, 35 since the "
-            "concat kernel (73 before it)")
+            f"{enc_prof['events']} device events per call, 12 since the "
+            "fDCT kernel (35 with the concat kernel, 73 before it)")
+    # the ycc420 decode program is the IDCT kernel (a second launch only
+    # for overflow rows); the device one the scan, its flags' conversion
+    # and the IDCT kernel
+    if dec_prof["events"] > 2 or profs["dec_r"]["events"] > 3:
+        raise AssertionError(
+            f"the decode programs make {dec_prof['events']} (ycc420) and "
+            f"{profs['dec_r']['events']} (device) device events per call, "
+            "2 and 3 at most since the IDCT kernel (97 and 33 before it)")
+
+    def earlier(name):
+        ms, events = EARLIER_PROGRAMS[name]
+        return f"before the kernels: {ms} ms busy in {events} events"
     # the card's busy share of a pipelined round trip: device time of the
     # same round trip under the profiler (which slows the host, not the
     # kernels) over the wall time measured above without it
@@ -1742,18 +1983,24 @@ def main() -> int:
     _say("5 device", f"main path per batch: encode event span "
          f"{spans['enc']:.3f} ms, device busy "
          f"{_fmt_ms(enc_prof['busy_ms'])} ms in {enc_prof['events']:.1f} "
-         f"device events (fused kernel "
+         f"device events ({earlier('encode')}; fused kernel "
          f"{_fmt_ms(_kernel_ms(enc_prof, 'encode_blocks_kernel', False))} "
+         "ms, fDCT kernel "
+         f"{_fmt_ms(_kernel_ms(enc_prof, 'fdct_quantize_kernel', False))} "
          "ms); "
          f"decode event span {spans['dec']:.3f} ms, device busy "
          f"{_fmt_ms(dec_prof['busy_ms'])} ms in {dec_prof['events']:.1f} "
-         f"device events; "
+         f"device events ({earlier('ycc420 decode')}; IDCT kernel "
+         f"{_fmt_ms(_kernel_ms(dec_prof, 'idct_planes_kernel', False))} "
+         "ms); "
          f"device busy over the {MAIN_BATCHES} pipelined batches "
          f"{rt_prof['busy_ms']:.3f} ms in {rt_prof['events']:.0f} device "
          f"events = {busy_share:.4f} of that wall, idle "
          f"{1 - busy_share:.4f} ({rt_prof['busy_ms'] / rt_prof['wall_ms']:.4f}"
          f" of the {rt_prof['wall_ms'] / 1e3:.3f} s the round trip takes "
          f"under the profiler) on {card}")
+    scan_in_dec_r = _kernel_ms(profs["dec_r"], "decode_segments_kernel",
+                               False)
     _say("8 device", f"restart path per batch: encode event span "
          f"{spans['enc_r']:.3f} ms, device busy "
          f"{_fmt_ms(profs['enc_r']['busy_ms'])} ms in "
@@ -1761,11 +2008,15 @@ def main() -> int:
          f"program (_decode_fused_batch_device) event span "
          f"{spans['dec_r']:.3f} ms, device busy "
          f"{_fmt_ms(profs['dec_r']['busy_ms'])} ms in "
-         f"{profs['dec_r']['events']:.1f} device events, of it the scan "
-         f"kernel "
-         + _fmt_ms(_kernel_ms(profs["dec_r"], "decode_segments_kernel",
-                              False)) + " "
-         f"ms; device busy over the {MAIN_BATCHES} pipelined batches "
+         f"{profs['dec_r']['events']:.1f} device events "
+         f"({earlier('device decode')}), of it the scan kernel "
+         + _fmt_ms(scan_in_dec_r) + " ms and the tail after the scan "
+         + _fmt_ms(None if None in (profs["dec_r"]["busy_ms"],
+                                    scan_in_dec_r)
+                   else profs["dec_r"]["busy_ms"] - scan_in_dec_r)
+         + " ms (the IDCT kernel "
+         + _fmt_ms(_kernel_ms(profs["dec_r"], "idct_planes_kernel", False))
+         + f" ms); device busy over the {MAIN_BATCHES} pipelined batches "
          f"{rrt_prof['busy_ms']:.3f} ms in {rrt_prof['events']:.0f} device "
          f"events = {rbusy_share:.4f} of that wall, idle "
          f"{1 - rbusy_share:.4f} on {card}")
@@ -1779,6 +2030,9 @@ def main() -> int:
     def st_quant():
         return TC._quantize_local_ycc(*planes, gray=False,
                                       dtype=torch.float32, rounded=False)
+
+    def st_quant_plain():  # the stage as it was before the kernel
+        return BT.fdct_quantize_plain(*planes, gray=False, rounded=False)
 
     quantized = st_quant()
     def st_emit():
@@ -1794,7 +2048,10 @@ def main() -> int:
                                           6 * (H // 16) * (W // 16)))
 
     parts = []
-    for label, fn in (("blockify+fDCT+quantize", st_quant),
+    for label, fn in (("fDCT+quantize, kernel (one wrapper call)", st_quant),
+                      ("fDCT+quantize, plain torch on the card (the stage "
+                       f"before the kernel; {earlier('fDCT+quantize')})",
+                       st_quant_plain),
                       ("entropy, fused kernel wrapper x3", st_emit),
                       ("concat, kernel (one wrapper call)", st_concat),
                       ("concat, plain torch on the card (the stage before "
@@ -1911,6 +2168,32 @@ def main() -> int:
     combined_bytes = 8 * BATCH * (1 + cmaxw)
     concat_bytes = 4 * n_cblocks + 8 * used_words + combined_bytes
     concat_layout_bytes = (4 + 8 * 64) * n_cblocks + combined_bytes
+    # the block transforms on the main path's batch: the bytes their
+    # functions must move, and their float32 operations (a multiply-add two;
+    # the IDCT's depend on the data: 64 multiply-adds per nonzero
+    # coefficient)
+    from jpezy_tpu_torch.constants import codec_constants
+
+    n_blocks = sum(counts)
+    fdct_bytes = (sum(p.numel() * p.element_size() for p in fdct_inputs)
+                  + 4 * 64 * n_blocks + 4 * 64 * 64 + 2 * 4 * 64)
+    fdct_ops = 2 * 1024 * n_blocks       # separable: 16 8-point products
+    fdct_ops64 = 2 * 4096 * n_blocks     # the kernel's 64-term form
+    _, sp_flat, sp_kw = idct_sparse_input
+    sp_dev = torch.from_numpy(sp_flat).to(dev)
+    idct_out_bytes = BATCH * H * W * 3 // 2
+    idct_bytes = sp_flat.size + idct_out_bytes + 4 * 64 * 64 + 3 * 4 * 64
+    idct_ops = 128 * real_nonzero
+    _, dn_src, dn_kw = idct_dense_input
+    dn_used = BATCH * (H // 16) * (W // 16) * 6 * 128
+    dn_bytes = (dn_used + dn_src[1].numel() + idct_out_bytes + BATCH
+                + dn_src[2].numel() * 4 + 4 * 64 * 64)
+    # the one PyTorch call beside them (the port calls it nowhere): the
+    # [98304, 64] @ [64, 64] float32 product alone
+    lib_x = torch.randn(n_blocks, 64, device=dev)
+    lib_m = codec_constants(dev)["inv64_f32"]
+    library_ms = _profile(lambda: torch.matmul(lib_x, lib_m.T), 20)[
+        "busy_ms"]
     # each kernel's launches on one batch (Y, Cb, Cr, or one for all), its
     # plain version on the same inputs, its symbols in the trace, its bound
     kernels6 = {
@@ -1954,6 +2237,38 @@ def main() -> int:
             f"{1e3 * concat_layout_bytes / PEAK_BYTES_PER_S:.4f} ms); the "
             f"plain stage it replaced read {EARLIER_CONCAT_MS} ms busy "
             f"(PR 5, kept from then)"),
+        "fdct_quantize": (
+            [lambda: BT.fdct_quantize(*fdct_inputs, gray=False,
+                                      rounded=False)],
+            lambda: BT.fdct_quantize_plain(*fdct_inputs, gray=False,
+                                           rounded=False),
+            ("fdct_quantize_kernel",),
+            _bound(fdct_bytes, fdct_ops, PEAK_FP32_FLOPS),
+            f"{n_blocks} blocks from int8 planes, {fdct_bytes} bytes; "
+            f"{fdct_ops} float32 operations in the separable form "
+            f"({1e3 * fdct_ops / PEAK_FP32_FLOPS:.4f} ms), {fdct_ops64} in "
+            f"the kernel's 64-term form "
+            f"({1e3 * fdct_ops64 / PEAK_FP32_FLOPS:.4f} ms; issued as "
+            f"separate multiplies and adds "
+            f"{2e3 * fdct_ops64 / PEAK_FP32_FLOPS:.4f} ms); the plain stage "
+            f"read {EARLIER_PROGRAMS['fDCT+quantize'][0]} ms busy (before "
+            f"the kernel, kept from then); torch.matmul of the "
+            f"[{n_blocks}, 64] @ [64, 64] float32 product alone "
+            f"{_fmt_ms(library_ms)} ms"),
+        "idct_planes": (
+            [lambda: BT.idct_planes_sparse(sp_dev, **sp_kw)],
+            lambda: BT.idct_planes_sparse_plain(sp_dev, **sp_kw),
+            ("idct_planes_kernel",),
+            _bound(idct_bytes, idct_ops, PEAK_FP32_FLOPS),
+            f"sparse form, the main path's upload of {sp_flat.size} bytes "
+            f"(overflow rows {list(sp_kw['caps'])}), {idct_bytes} bytes "
+            f"with the planes; {real_nonzero} nonzero coefficients x 64 "
+            f"multiply-adds = {idct_ops} float32 operations "
+            f"({1e3 * idct_ops / PEAK_FP32_FLOPS:.4f} ms); the plain "
+            f"program read {EARLIER_PROGRAMS['ycc420 decode'][0]} ms busy "
+            f"(before the kernel, kept from then); torch.matmul of the "
+            f"product alone "
+            f"{_fmt_ms(library_ms)} ms"),
     }
 
     # five times the card's 50 MB L2 cache
@@ -1984,8 +2299,10 @@ def main() -> int:
         t["sass_instructions"] = sum(
             sass[k] for k in ((name, CONCAT_OFFSETS)
                               if name == "concat_streams" else (name,)))
-        t["sass_ms"] = (None if name == "concat_streams"
-                        else sass_ms(name, counts))
+        t["sass_ms"] = (sass_ms(name, counts) if name in BLOCKS_PER_WARP
+                        else None)
+        t["library_ms"] = (library_ms if name in ("fdct_quantize",
+                                                  "idct_planes") else None)
         timing[name] = t
         _say("6 times", f"{name} per {BATCH}x{H}x{W} batch ({len(calls)} "
              f"call{'s' if len(calls) > 1 else ''}): kernel alone "
@@ -2029,6 +2346,20 @@ def main() -> int:
          f"{n_bound:.4f} ms by {n_by} = {n_bound / dense_ms:.3f} of it; "
          f"plain version event span {dense_plain_ms:.4f} ms; on {card}")
     del nwc, nbc
+    # the IDCT kernel's dense form on the restart path's 2,048 segments
+    dn_ms, _ = _traced(lambda: BT.idct_planes_dense(*dn_src, **dn_kw), 20,
+                       "idct_planes_kernel")
+    dn_plain_ms = _time_ms(lambda: BT.idct_planes_dense_plain(*dn_src,
+                                                              **dn_kw), 3)
+    dn_bound, dn_by = _bound(dn_bytes, idct_ops, PEAK_FP32_FLOPS)
+    timing["idct_planes"]["dense_form_ms"] = dn_ms
+    _say("6 times", f"idct_planes, dense form, on the scan's blocks of the "
+         f"restart path's {dn_src[0].shape[0]} segments ({dn_bytes} bytes: "
+         f"the {dn_used} bytes of used blocks, flags, tables and planes): "
+         f"kernel {dn_ms:.4f} ms, bound {dn_bound:.4f} ms by {dn_by} = "
+         f"{dn_bound / dn_ms:.3f} of it; plain version event span "
+         f"{dn_plain_ms:.4f} ms; on {card}")
+    del sp_dev, dn_src, lib_x
     # the fused kernel on four batches' worth of luma blocks in one launch
     q4 = torch.cat([real_inputs[0][0]] * 4)
     p4 = torch.cat([real_inputs[0][1]] * 4)
@@ -2060,7 +2391,7 @@ def main() -> int:
          f"(L2 overwritten before each launch {sets_cold_ms:.4f}) beside "
          f"{fixed_ms:.4f} ms with the fixed tables in the same run; bound "
          f"{timing['encode_blocks']['bound_ms']:.4f} ms")
-    del real_inputs, q4, p4, set_inputs, concat_inputs, comps
+    del real_inputs, q4, p4, set_inputs, concat_inputs, comps, fdct_inputs
 
     # ---- 9. the scan kernel alone on the real segments of phase 7
     S, Lw = real_args["words"].shape
@@ -2152,7 +2483,9 @@ def main() -> int:
                 "encode_blocks": main_launches["encode_blocks"],
                 "decode_segments": restart_launches["decode_segments"],
                 "symbol_histograms": optimize_launches["symbol_histograms"],
-                "concat_streams": main_launches["concat_streams"]}
+                "concat_streams": main_launches["concat_streams"],
+                "fdct_quantize": main_launches["fdct_quantize"],
+                "idct_planes": main_launches["idct_planes"]}
     by_path = {name: {"main": main_launches[name],
                       "restart_device": restart_launches[name],
                       "decode_indexed": indexed_launches[name],
@@ -2167,7 +2500,7 @@ def main() -> int:
         "replaces": REPLACES[name],
         "launches": launches[name], "max_abs_err": err[name],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None,
+        "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
         "launches_by_path": by_path[name],
         "launches_per_batch": per_batch[name],
         "launch_ms": t["launch_ms"], "cold_ms": t["cold_ms"],
@@ -2175,7 +2508,8 @@ def main() -> int:
         "event_ms": t["event_ms"], "wrapper_busy_ms": t["wrapper_busy_ms"],
         "sass_instructions": t["sass_instructions"], "sass_ms": t["sass_ms"],
         **{k: t[k] for k in ("ms_per_image_tables",
-                             "cold_ms_per_image_tables", "dense_ms")
+                             "cold_ms_per_image_tables", "dense_ms",
+                             "dense_form_ms")
            if k in t},
     } for name, t in timing.items()]}))
     print(card)

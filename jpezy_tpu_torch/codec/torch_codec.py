@@ -5,10 +5,12 @@ Counterpart of jpezy_tpu.codec.jax_codec:
 
 Encode, `ycc420` transport (the default): host C++ RGB -> YCC 4:2:0 int8
 planes (float64, the reference's exact truncation) -> ONE packed int8
-upload -> blockify, DCT, quantize, the CUDA entropy kernel (Huffman
-emissions and bit packing in one launch per component), the CUDA stream
-concat (one call, the blocks read where the entropy kernel wrote them) ->
-ONE fetch of `combined` [N, 1 + maxw] -> host header + byte stuffing.
+upload -> the CUDA fDCT+quantize kernel (blockify, float32 DCT, quantize,
+one launch for the three components, ops/block_transform.py), the CUDA
+entropy kernel (Huffman emissions and bit packing in one launch per
+component), the CUDA stream concat (one call, the blocks read where the
+entropy kernel wrote them) -> ONE fetch of `combined` [N, 1 + maxw] ->
+host header + byte stuffing.
 `rgb` transport: ONE [N, H, W, 3] u8 upload, colour conversion and 4:2:0
 decimation on the device (float32 in fast mode), then the same program.
 optimize=True (two passes, per-image optimal Huffman tables): the
@@ -20,19 +22,23 @@ set in one launch per component; each stream carries its own DHT.
 
 Decode: marker parse (every stream must be decodable), then one of four
 transports.  `ycc420`: host C++ Huffman frontend + sparsify -> ONE uint8
-upload -> densify, dequantize, float32 IDCT, deblockify, clamp to u8
-planes -> ONE fetch -> C++ upsample + colour.  `device` (restart
-streams): host destuff of the segments -> upload of the raw entropy words
--> the CUDA Huffman scan, one lane per segment (ops/entropy_decode.py) ->
-per-image dequantize, IDCT, planes plus one corruption flag per image ->
-ONE fetch.  `indexed` gives restart-free streams the same device decode
+upload -> the CUDA IDCT-to-planes kernel, which reads the upload in place
+(densify, dequantize, float32 IDCT, deblockify, clamp to u8 planes) ->
+ONE fetch -> C++ upsample + colour.  `device` (restart streams): host
+destuff of the segments -> upload of the raw entropy words -> the CUDA
+Huffman scan, one lane per segment (ops/entropy_decode.py) -> the same
+IDCT kernel on the scan's blocks (per-image dequantize, IDCT, planes plus
+one corruption flag per image) -> ONE fetch.  `indexed` gives restart-free streams the same device decode
 after a length-only host scan.  `rgb`, for any frame: host Huffman
 frontend -> ONE upload of the coefficients -> dequantize, IDCT (float64
 ordered sums in exact mode), deblockify, upsample by the sampling
 factors, colour or gray clamp on the device -> ONE fetch of RGB.
 
 precision:
-  "fast"  - float32 transforms at IEEE precision (TF32 refused)
+  "fast"  - float32 transforms at IEEE precision (TF32 refused); on the
+            card the fDCT and the ycc420/device IDCT sum in the kernels'
+            fixed ascending order, so card and CPU may differ by 1 at
+            truncation ties
   "exact" - float64 ordered sums, byte-identical to the oracle (encode)
             and pixel-identical to the JAX package (decode, rgb)
 """
@@ -49,6 +55,7 @@ from ..core import tables as T
 from ..core.geometry import ComponentGeometry, EncodeGeometry
 from ..core.props import ImageProps, make_encode_props
 from ..device import resolve
+from ..ops import block_transform as BT
 from ..ops import blocks as B
 from ..ops import colorspace as C
 from ..ops import dct as D
@@ -76,23 +83,14 @@ def _quantize_local_ycc(y, cb, cr, *, gray: bool, dtype, rounded: bool,
     (parallel/sharded.py:_quantize_local_ycc).
 
     y: [N, H, W] int (Y-128); cb/cr: [N, H/2, W/2] int.  qtables: optional
-    (yqt, cqt) quant tables; None = the fixed Annex K tables."""
-    yqt, cqt = qtables if qtables is not None else (None, None)
-    yb = B.blockify_luma(y)
-    cbb = B.blockify_chroma(cb)
-    crb = B.blockify_chroma(cr)
-    if gray:
-        cbb = torch.zeros_like(cbb)
-        crb = torch.zeros_like(crb)
-    out = []
-    for blk, chroma, qt in ((yb, False, yqt), (cbb, True, cqt),
-                            (crb, True, cqt)):
-        n, b, _ = blk.shape
-        out.append(Q.quantize(
-            D.forward_dct(blk.reshape(-1, 64), dtype), chroma,
-            rounded=rounded, qtable=qt,
-        ).reshape(n, b, 64))
-    return tuple(out)
+    (yqt, cqt) quant tables; None = the fixed Annex K tables.  float32:
+    BT.fdct_quantize, the hand-written kernel on CUDA tensors; float64:
+    the oracle's ordered sums, plain torch on every device."""
+    if dtype == torch.float32:
+        return BT.fdct_quantize(y, cb, cr, gray=gray, rounded=rounded,
+                                qtables=qtables)
+    return BT.fdct_quantize_plain(y, cb, cr, gray=gray, rounded=rounded,
+                                  qtables=qtables, dtype=dtype)
 
 
 def _emit_local(yq, cbq, crq, restart_interval: int = 0,
@@ -440,34 +438,11 @@ def encode(r: np.ndarray, g: np.ndarray, b: np.ndarray,
 # ---------------------------------------------------------------------------
 
 
-def _densify(mask_lo, mask_hi, vals):
-    """Sparse coefficient transport -> dense [B, 64] int32 blocks.
-
-    mask_lo/hi: [B] uint32 nonzero masks (int64 values; natural index j);
-    vals: [B, K] nonzero values in index order.  Each set bit's rank
-    (exclusive cumsum) indexes its value; plain gather in place of the JAX
-    package's K-way select chain."""
-    dev = vals.device
-    j = torch.arange(32, dtype=torch.int64, device=dev)[None, :]
-    blo = (mask_lo.to(torch.int64)[:, None] >> j) & 1
-    bhi = (mask_hi.to(torch.int64)[:, None] >> j) & 1
-    bits = torch.cat([blo, bhi], dim=1)                     # [B, 64]
-    rank = torch.cumsum(bits, dim=1) - bits
-    K = vals.shape[1]
-    picked = vals.to(torch.int32).gather(1, rank.clamp(max=K - 1))
-    return torch.where((bits == 1) & (rank < K), picked, 0)
-
-
-def _bytes_as(buf: torch.Tensor, dtype) -> torch.Tensor:
-    """Reinterpret a 1-D uint8 slice as `dtype` (little-endian, as the
-    host wrote it); the clone gives the view an aligned base."""
-    return buf.clone().view(dtype)
-
-
 def _decode_fused_batch_ycc420(flat: torch.Tensor, *, geom, level, shapes,
                                K, N, caps, qtuple):
     """Sparse coefficients in, packed native-resolution u8 YCC planes out
-    (jax_codec._decode_fused_batch_ycc420, same flat layout).
+    (jax_codec._decode_fused_batch_ycc420, same flat layout):
+    BT.idct_planes_sparse, the hand-written kernel on a CUDA buffer.
 
     flat: ONE uint8 buffer.  First N*X bytes are per-image rows holding,
     per component, mask_lo [N,B] u32 | mask_hi [N,B] u32 | vals [N,B,K]
@@ -475,44 +450,8 @@ def _decode_fused_batch_ycc420(flat: torch.Tensor, *, geom, level, shapes,
     [cap, 64] i16, padded with the out-of-range sentinel N*B_i.  Returns
     [N, H*W*1.5] uint8 for 4:2:0.
     """
-    dev = flat.device
-    X = sum((4 + 4 + K) * Bn for Bn in shapes)
-    packed = flat[: N * X].reshape(N, X)
-    ooff = N * X
-    outs = []
-    off = 0
-    for Bn, cap, qt, (mcus_y, mcus_x, v, h, _, _) in zip(
-            shapes, caps, qtuple, geom):
-        ml = _bytes_as(packed[:, off:off + 4 * Bn], torch.int32)
-        off += 4 * Bn
-        mh = _bytes_as(packed[:, off:off + 4 * Bn], torch.int32)
-        off += 4 * Bn
-        vv = packed[:, off:off + Bn * K].reshape(N * Bn, K).view(torch.int8)
-        off += Bn * K
-        dense = _densify(ml.reshape(-1).to(torch.int64) & E.M32,
-                         mh.reshape(-1).to(torch.int64) & E.M32, vv)
-        if cap:
-            oidx = _bytes_as(flat[ooff:ooff + 4 * cap], torch.int32)
-            ooff += 4 * cap
-            orows = _bytes_as(flat[ooff:ooff + 128 * cap],
-                              torch.int16).reshape(cap, 64)
-            ooff += 128 * cap
-            # Padding carries the sentinel N*Bn.  It is filtered into one
-            # extra row that is dropped afterwards, so it can never wrap
-            # onto a real block (and the host need not be waited on).
-            drop = N * Bn
-            idx = torch.where(oidx.to(torch.int64) < drop,
-                              oidx.to(torch.int64), drop)
-            ext = torch.cat([dense, torch.zeros((1, 64), dtype=dense.dtype,
-                                                device=dev)])
-            ext.index_copy_(0, idx, orows.to(dense.dtype))
-            dense = ext[:drop]
-        qtab = torch.tensor(qt, dtype=torch.int32, device=dev)
-        deq = Q.dequantize(dense, qtab)
-        spat = D.inverse_dct(deq, level, torch.float32).reshape(N, Bn, 64)
-        plane = B.deblockify(spat, mcus_y, mcus_x, v, h)
-        outs.append(plane.clamp(0, 255).to(torch.uint8).reshape(N, -1))
-    return torch.cat(outs, dim=1)
+    return BT.idct_planes_sparse(flat, geom=geom, level=level, shapes=shapes,
+                                 K=K, N=N, caps=caps, qtuple=qtuple)
 
 
 def _decode_fused_batch_device(words, nblk, lut, tsel, rawlen, qarr,
@@ -532,28 +471,13 @@ def _decode_fused_batch_device(words, nblk, lut, tsel, rawlen, qarr,
     transport); qarr: [N, 3, 64] int32 PER-IMAGE quant tables; skip0,
     preds0: the indexed transport's start phase and DC predictors.
     Output layout = _decode_fused_batch_ycc420 plus ONE trailing bad-flag
-    byte per image (still a single fetch).
+    byte per image (still a single fetch): BT.idct_planes_dense, the
+    hand-written kernel on CUDA tensors, after the scan.
     """
     blocks, bad = ED.decode_segments(words, nblk, lut, tsel, rawlen, skip0,
                                      preds0, max_blocks=ri * 6)
-    mcus_y, mcus_x = geom[0][0], geom[0][1]
-    nmcu = mcus_y * mcus_x
-    b6 = blocks.reshape(N, nseg * ri, 6, 64)[:, :nmcu]
-    comps = (
-        b6[:, :, :4].reshape(N, nmcu * 4, 64),   # MCU-raster (v,h) order ==
-        b6[:, :, 4],                             # the deblockify layout
-        b6[:, :, 5],
-    )
-    outs = []
-    for c, (cb, (my, mx, v, h, _, _)) in enumerate(zip(comps, geom)):
-        Bn = cb.shape[1]
-        deq = cb.to(torch.int32) * qarr[:, c][:, None, :]
-        spat = D.inverse_dct(deq.reshape(-1, 64), level,
-                             torch.float32).reshape(N, Bn, 64)
-        plane = B.deblockify(spat, my, mx, v, h)
-        outs.append(plane.clamp(0, 255).to(torch.uint8).reshape(N, -1))
-    badimg = bad.reshape(N, nseg).any(dim=1).to(torch.uint8)
-    return torch.cat(outs + [badimg[:, None]], dim=1)
+    return BT.idct_planes_dense(blocks, bad, qarr, N=N, nseg=nseg, ri=ri,
+                                geom=geom, level=level)
 
 
 def _parse_batch(streams: list[bytes], *, gray: bool = False,

@@ -554,3 +554,186 @@ def test_sharded_on_card_matches_cpu(cuda, kw):
     assert streams == encode_sharded(cpu, rgbs, precision="exact", **kw)
     want, _ = TC.decode_batch(streams, transport="rgb", device=cuda)
     assert np.array_equal(px, want)
+
+
+def _transform_images(h, w, seed, n=2):
+    from imagegen import make_test_image
+
+    return np.stack([make_test_image(h, w, seed=seed + i) for i in range(n)])
+
+
+def _fdct_cases(dev):
+    """(label, (y, cb, cr) on dev, kwargs of fdct_quantize) of the fDCT
+    kernel: the ycc420 upload's int8 views (Annex K, quality 95, rounded,
+    gray), noise, and the rgb path's int32 planes with strided chroma."""
+    from jpezy_tpu_torch.core import tables as T
+    from jpezy_tpu_torch.ops import blocks as B
+    from jpezy_tpu_torch.ops import colorspace as C
+
+    def upload(rgbs):
+        y, cb, cr = HG.host_rgb_to_ycc420(rgbs)
+        n, h, w = y.shape
+        packed = torch.from_numpy(np.concatenate(
+            [y.reshape(n, -1), cb.reshape(n, -1), cr.reshape(n, -1)],
+            axis=1)).to(dev)
+        return TC._unpack_ycc(packed, h, w)
+
+    real = upload(_transform_images(128, 96, 400))
+    noise = upload(np.random.default_rng(401).integers(
+        0, 256, (2, 64, 48, 3), dtype=np.uint8))
+    rgb = torch.from_numpy(_transform_images(64, 80, 402)).to(dev)
+    y, cb, cr = C.rgb_to_ycc(rgb[..., 0], rgb[..., 1], rgb[..., 2])
+    strided = (y, B.decimate_420(cb), B.decimate_420(cr))
+    q95 = tuple(torch.from_numpy(t).to(dev) for t in
+                T.scale_quant_tables(95))
+    plain = dict(gray=False, rounded=False)
+    return [("annexk", real, plain), ("q95", real, dict(plain, qtables=q95)),
+            ("rounded", real, dict(plain, rounded=True)),
+            ("gray", real, dict(plain, gray=True)),
+            ("noise", noise, plain), ("rgb int32 strided", strided, plain)]
+
+
+def test_fdct_kernel_matches_model(cuda):
+    """The fDCT kernel is bit-identical to block_transform's numpy model
+    (the same ascending float32 sums) and within 1 of the plain version
+    (cuBLAS sums in another order); one launch a call, no copy of the
+    strided planes."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import transform_cuda
+
+    for label, planes, kw in _fdct_cases(cuda):
+        before = transform_cuda.fdct_launches
+        got = BT.fdct_quantize(*planes, **kw)
+        assert transform_cuda.fdct_launches - before == 1, label
+        plain = BT.fdct_quantize_plain(*planes, **kw)
+        qt = kw.get("qtables")
+        model = BT.fdct_quantize_model(
+            *(p.cpu().numpy() for p in planes), gray=kw["gray"],
+            rounded=kw["rounded"],
+            qtables=None if qt is None else tuple(t.cpu().numpy()
+                                                  for t in qt))
+        torch.cuda.synchronize()
+        for g, p, m in zip(got, plain, model):
+            assert g.dtype == torch.int32 and g.shape == p.shape, label
+            assert np.array_equal(g.cpu().numpy(), m), label
+            assert (g - p).abs().max() <= 1, label
+
+
+def _sparse_case(streams):
+    flat, kw, *_ = TC._decode_host_prep(streams, gray=False,
+                                        precision="fast", transport=None)
+    return flat, kw
+
+
+def test_idct_sparse_kernel_matches_model(cuda):
+    """The sparse form of the IDCT kernel on the ycc420 upload: real
+    images, noise at quality 100 (every block an overflow row, the tails
+    padded with the sentinel), and 16x16, 48x16 (Cr fields off a word
+    boundary) and 48x32 batches at quality 95 (overflow rows too):
+    bit-identical to the model, within 1 of the plain version, one counted
+    call each."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import transform_cuda
+
+    noise = np.random.default_rng(410).integers(0, 256, (3, 64, 64, 3),
+                                                dtype=np.uint8)
+    cases = {"real": TC.encode_batch(_transform_images(128, 96, 411),
+                                     device="cpu"),
+             "noise q100": TC.encode_batch(noise, quality=100, device="cpu")}
+    for h, w in ((16, 16), (16, 48), (32, 48)):
+        cases[f"{w}x{h}"] = TC.encode_batch(
+            _transform_images(h, w, 412, n=3), quality=95, device="cpu")
+    for label, streams in cases.items():
+        flat, kw = _sparse_case(streams)
+        if label == "noise q100":
+            assert all(kw["caps"])
+        before = transform_cuda.idct_launches
+        got = BT.idct_planes_sparse(torch.from_numpy(flat).to(cuda), **kw)
+        assert transform_cuda.idct_launches - before == 1, label
+        model = BT.idct_planes_sparse_model(flat, **kw)
+        plain = BT.idct_planes_sparse_plain(torch.from_numpy(flat).to(cuda),
+                                            **kw)
+        torch.cuda.synchronize()
+        assert np.array_equal(got.cpu().numpy(), model), label
+        assert (got.to(torch.int32) - plain.to(torch.int32)).abs().max() \
+            <= 1, label
+
+
+def test_idct_dense_kernel_matches_model_and_sparse(cuda):
+    """The dense form on the scan's blocks of restart segments and of the
+    indexed transport's pseudo-segments: bit-identical to the model, its
+    planes identical to the sparse form's on the same streams, and each
+    image's flag byte set where one of its segments is corrupt."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import transform_cuda
+
+    rgbs = _transform_images(64, 96, 420, n=3)
+    for label, streams in (
+            ("restart", TC.encode_batch(rgbs, restart_interval=5,
+                                        device="cpu")),
+            ("indexed", TC.encode_batch(rgbs, device="cpu"))):
+        pjs, geom, level = TC._parse_batch(streams)
+        nmcu = geom[0][0] * geom[0][1]
+        if label == "restart":
+            ri = 5
+            nseg = -(-nmcu // ri)
+            words, nblk, rawlen = HG._device_host_frontend(pjs, nmcu, ri,
+                                                           nseg)
+            opt = dict(rawlen=rawlen)
+        else:
+            ri = 8
+            nseg = -(-nmcu // ri)
+            words, nblk, skip0, preds0 = HG._indexed_host_frontend(
+                pjs, nmcu, ri, nseg)
+            opt = dict(skip0=skip0, preds0=preds0)
+        lut, tsel = HG._device_luts(pjs, nseg)
+        args = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(
+            cuda) for k, v in dict(opt, nblk=nblk, tsel=tsel).items()}
+        blocks, bad = ED.decode_segments(
+            ED.words_tensor(words).to(cuda), lut=ED.device_lut(lut, cuda),
+            max_blocks=ri * 6, **args)
+        bad = bad.clone()
+        bad[nseg + 1] = True                     # image 1 flagged
+        qarr = torch.from_numpy(HG._quant_arr(pjs)).to(cuda)
+        kw = dict(N=3, nseg=nseg, ri=ri, geom=geom, level=level)
+        before = transform_cuda.idct_launches
+        got = BT.idct_planes_dense(blocks, bad, qarr, **kw)
+        assert transform_cuda.idct_launches - before == 1, label
+        model = BT.idct_planes_dense_model(blocks.cpu().numpy(),
+                                           bad.cpu().numpy(),
+                                           qarr.cpu().numpy(), **kw)
+        torch.cuda.synchronize()
+        got = got.cpu().numpy()
+        assert np.array_equal(got, model), label
+        assert got[:, -1].tolist() == [0, 1, 0], label
+        flat, skw = _sparse_case(streams)
+        sparse = BT.idct_planes_sparse(torch.from_numpy(flat).to(cuda), **skw)
+        assert np.array_equal(sparse.cpu().numpy(), got[:, :-1]), label
+
+
+def test_transform_kernels_on_the_codec_paths(cuda):
+    """Per batch: a fast encode launches the fDCT kernel once (ycc420, rgb
+    and optimize alike), an exact one never; the ycc420, device and
+    indexed decodes launch the IDCT kernel once, the rgb decode never."""
+    from jpezy_tpu_torch.ops import transform_cuda
+
+    rgbs = _transform_images(64, 64, 430)
+
+    def counts():
+        return transform_cuda.fdct_launches, transform_cuda.idct_launches
+
+    for kw, want in (({}, (1, 0)), ({"transport": "rgb"}, (1, 0)),
+                     ({"optimize": True, "restart_interval": 2}, (1, 0)),
+                     ({"precision": "exact"}, (0, 0))):
+        before = counts()
+        TC.encode_batch(rgbs, device=cuda, **kw)
+        assert tuple(a - b for a, b in zip(counts(), before)) == want, kw
+    plain = TC.encode_batch(rgbs, device="cpu")
+    restart = TC.encode_batch(rgbs, restart_interval=2, device="cpu")
+    for streams, kw, want in ((plain, {"transport": "ycc420"}, (0, 1)),
+                              (restart, {"transport": "device"}, (0, 1)),
+                              (plain, {"transport": "indexed"}, (0, 1)),
+                              (plain, {"transport": "rgb"}, (0, 0))):
+        before = counts()
+        TC.decode_batch(streams, device=cuda, **kw)
+        assert tuple(a - b for a, b in zip(counts(), before)) == want, kw
