@@ -2,9 +2,11 @@
 
 The codec has no learned weights.  Its parameters are the Annex K
 quantisation and Huffman tables (jpezy_tpu/core/tables.py), the 64x64 DCT
-bases (ops/dct.py) and the float64 ordered-sum term tables of the oracle
-(jpezy_tpu/codec/oracle.py).  The numpy masters stay in those jax-free
-modules; this module only places them on a device, once per
+bases (ops/dct.py), the 8x8 cosine and normalisation tables of the
+separable forward DCT that the fDCT kernel computes (their masters here)
+and the float64 ordered-sum term tables of the oracle
+(jpezy_tpu/codec/oracle.py).  The other numpy masters stay in those
+jax-free modules; this module places them on a device, once per
 (device, quality).  Callers treat the returned tensors as read-only.
 """
 from __future__ import annotations
@@ -18,6 +20,23 @@ from .codec import oracle as _o
 from .core import tables as T
 from .device import resolve
 from .ops.dct import _FWD64, _INV64
+
+
+def _separable_masters() -> tuple[np.ndarray, np.ndarray]:
+    """float64 masters of the separable forward DCT: COS[v, x] =
+    cos((2x + 1) v pi / 16), unnormalised (row 0 is 1), and SCALE[u, v] =
+    c_u c_v / 4 with c_0 = 1/sqrt(2).  In float32 SCALE[0, 0] is 0.125
+    exactly, so a DC coefficient (an integer sum times 0.125) is exact;
+    folding c_u / 2 into each pass's table instead would not be."""
+    v = np.arange(8, dtype=np.float64)[:, None]
+    x = np.arange(8, dtype=np.float64)[None, :]
+    cos = np.cos((2.0 * x + 1.0) * v * np.pi / 16.0)
+    c = np.ones(8, dtype=np.float64)
+    c[0] = 1.0 / np.sqrt(2.0)
+    return cos, np.outer(c, c) / 4.0
+
+
+FDCT_COS, FDCT_SCALE = _separable_masters()
 
 
 @functools.lru_cache(maxsize=32)
@@ -42,6 +61,8 @@ def _build(device: torch.device, quality: int | None) -> dict:
         "c_ac_code": t(T.C_AC_CODE, i64),
         "fwd64_f32": t(_FWD64, f32),
         "inv64_f32": t(_INV64, f32),
+        "fdct_cos_f32": t(FDCT_COS, f32),
+        "fdct_scale_f32": t(FDCT_SCALE, f32),
         "fwd_c1": t(_o._FWD_C1, f64),
         "fwd_c2": t(_o._FWD_C2, f64),
         "cu_j": t(_o._CU_J, f64),

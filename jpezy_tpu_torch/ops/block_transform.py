@@ -12,14 +12,22 @@ Each has a plain torch version (the CPU's route, and the reference the
 kernels are held to on the card), a dispatcher that takes the
 hand-written CUDA kernel (ops/transform_cuda.py, csrc/block_transforms.cu)
 for CUDA tensors and the plain version for CPU tensors, and a float32
-numpy model of the kernel's arithmetic order.  The kernels sum each
-coefficient or sample over k = 0..63 in ascending order, a float32
-multiply then a float32 add per term; the plain versions' matrix products
-(cuBLAS, or the CPU's BLAS) sum in another order, so a kernel and its
-plain version may differ by 1 where a sum falls next to an integer, while
-a kernel and its model agree bit for bit.  The kernels compute the fast
-precision only: exact mode's float64 ordered sums stay plain torch on
-every device by design (ops/dct.py).
+numpy model of the kernel's arithmetic order.
+
+The fDCT kernel computes the separable form (separable_forward): a row
+pass of 8 terms, t[y][v] = sum over x = 0..7 ascending of X[y][x] C[v][x],
+then a column pass, o[u][v] = sum over y = 0..7 ascending of C[u][y]
+t[y][v], with the unnormalised cosines C (row 0 exactly 1), then one
+multiply by S[u][v] = c_u c_v / 4 (S[0][0] exactly 0.125), truncated toward
+zero; every term a float32 multiply then a float32 add.  The IDCT kernel
+sums each sample over the nonzero coefficients k = 0..63 in ascending
+order, a float32 multiply then a float32 add per term (inverse_model).
+The plain versions' matrix products (cuBLAS, or the CPU's BLAS) sum the
+64-term form in another order, so a kernel and its plain version may
+differ by 1 where a sum falls next to an integer, while a kernel and its
+model agree bit for bit.  The kernels compute the fast precision only:
+exact mode's float64 ordered sums stay plain torch on every device by
+design (ops/dct.py).
 """
 from __future__ import annotations
 
@@ -252,7 +260,7 @@ def sum_ascending(x: np.ndarray, m: np.ndarray) -> np.ndarray:
     """x [B, 64] float32, m [64, 64] float32 -> [B, 64] float32 with
     out[:, i] = sum of x[:, k] * m[i, k] over k = 0..63 in ascending order,
     the sum starting at +0.0, each product and each partial sum rounded to
-    float32: the kernels' order."""
+    float32: the IDCT kernel's order (and the 64-term forward form)."""
     x = np.asarray(x, np.float32)
     m = np.asarray(m, np.float32)
     s = np.zeros(x.shape, np.float32)
@@ -265,12 +273,30 @@ def _basis(name: str) -> np.ndarray:
     return codec_constants("cpu")[name].numpy()
 
 
-def forward_model(blocks: np.ndarray) -> np.ndarray:
-    """[B, 64] int samples -> [B, 64] int32 coefficients: the ascending
-    float32 sum truncated toward zero (fdct_quantize_kernel's float
-    part)."""
-    return sum_ascending(blocks.astype(np.float32),
-                         _basis("fwd64_f32")).astype(np.int32)
+def separable_sums(blocks: np.ndarray, cos: np.ndarray) -> np.ndarray:
+    """[B, 64] samples, cos [8, 8] float32 -> [B, 8, 8] float32 o[u][v]:
+    the row pass t[y][v] = sum_x X[y][x] cos[v][x], then the column pass
+    o[u][v] = sum_y cos[u][y] t[y][v], each in ascending order from +0.0,
+    every product and partial sum rounded to float32."""
+    x = np.asarray(blocks).astype(np.float32).reshape(-1, 8, 8)
+    cos = np.asarray(cos, np.float32)
+    t = np.zeros(x.shape, np.float32)                       # [B, y, v]
+    for k in range(8):
+        t += x[:, :, k:k + 1] * cos[:, k][None, None, :]
+    o = np.zeros(x.shape, np.float32)                       # [B, u, v]
+    for y in range(8):
+        o += cos[:, y][None, :, None] * t[:, y:y + 1, :]
+    return o
+
+
+def separable_forward(blocks: np.ndarray) -> np.ndarray:
+    """[B, 64] int samples -> [B, 64] int32 coefficients (natural index
+    8u + v): separable_sums with the unnormalised cosines, times
+    S[u][v] = c_u c_v / 4 as one float32 multiply, truncated toward zero
+    (fdct_quantize_kernel's float part)."""
+    o = separable_sums(blocks, _basis("fdct_cos_f32"))
+    o = o * _basis("fdct_scale_f32")[None]
+    return o.reshape(-1, 64).astype(np.int32)
 
 
 def inverse_model(deq: np.ndarray, level: int) -> np.ndarray:
@@ -305,10 +331,10 @@ def _quantize(coef: np.ndarray, q: np.ndarray, rounded: bool) -> np.ndarray:
 
 
 def fdct_quantize_model(y, cb, cr, *, gray: bool, rounded: bool,
-                        qtables=None, transform=forward_model):
+                        qtables=None, transform=separable_forward):
     """fdct_quantize_kernel in numpy: planes (numpy ints) -> (yq, cbq, crq)
     [N, B_c, 64] int32.  transform: [B, 64] int samples -> [B, 64] int32
-    coefficients (the float part; default the kernel's order)."""
+    coefficients (the float part; default the kernel's separable form)."""
     yqt, cqt = qtables if qtables is not None else (T.Y_QUANT, T.C_QUANT)
     out = []
     for plane, vh, qt, zero in ((y, 2, yqt, False), (cb, 1, cqt, gray),
@@ -336,7 +362,8 @@ def _le(buf: np.ndarray, dtype) -> np.ndarray:
 
 def idct_planes_sparse_model(flat: np.ndarray, *, geom, level, shapes, K, N,
                              caps, qtuple, transform=inverse_model):
-    """idct_planes_kernel's sparse and overflow launches in numpy: the flat
+    """The sparse form's launches (idct_planes_kernel, then
+    idct_planes_overflow_kernel) in numpy: the flat
     upload (uint8) -> [N, P] uint8 planes.  Each block's coefficient j is
     vals[rank(j)] where bit j is set and its rank is below K; an overflow
     row with an index in [0, N*B_c) replaces its block.  transform: [B, 64]

@@ -2,7 +2,8 @@
 (csrc/block_transforms.cu).
 
 fdct_quantize_cuda is the CUDA form of block_transform.fdct_quantize_plain
-at float32: blockify, forward DCT and quantize of the three components in
+at float32: blockify, forward DCT (the separable form of
+block_transform.separable_forward) and quantize of the three components in
 one launch, the planes read at their element strides (the ycc420 upload's
 int8 views, the rgb path's int32 planes and decimated chroma), so no copy
 is made first.  It replaces the stage XLA fused on the TPU in
@@ -19,8 +20,8 @@ scan's blocks and writes each image's corruption flag after its planes
 replace jpezy_tpu/codec/jax_codec.py:_decode_fused_batch_ycc420 and the
 tail of _decode_fused_batch_device.
 
-The kernels sum in a fixed ascending order, which block_transform's numpy
-models reproduce bit for bit; they compute the fast precision only, and
+The kernels sum in a fixed order, which block_transform's numpy models
+reproduce bit for bit; they compute the fast precision only, and
 exact mode's float64 transforms stay plain torch by design, on every
 device.  The library is built at first use and loaded with ctypes by
 ops/cuda_build.py.  A failed build or launch raises; nothing falls back to
@@ -49,6 +50,8 @@ def _bind(lib) -> None:
     lib.jz_fdct_quantize.argtypes = [ci] + [vp] * 11
     lib.jz_idct_planes.restype = ci
     lib.jz_idct_planes.argtypes = [ci] + [vp] * 7
+    lib.jz_transform_kernel_info.restype = ci
+    lib.jz_transform_kernel_info.argtypes = [ci, vp]
 
 
 LIB = KernelLibrary("block_transforms.cu", _bind)
@@ -57,6 +60,37 @@ _lock = threading.Lock()
 fdct_launches = 0
 idct_launches = 0
 _SAMPLE_BYTES = {torch.int8: 1, torch.int32: 4}
+# the sparse form stages at most this many value bytes a block
+MAX_K = 64
+# the kernels' instantiations, in jz_transform_kernel_info's order
+KERNEL_INFO = ("fdct_quantize int8", "fdct_quantize int32",
+               "idct_planes sparse", "idct_planes dense",
+               "idct_planes overflow")
+
+
+@functools.lru_cache(maxsize=1)
+def _fdct_tables() -> np.ndarray:
+    """The separable fDCT's float32 tables, C[v][x] then S[u][v] (128
+    values, host memory), handed to the fDCT kernel's launcher."""
+    c = codec_constants("cpu")
+    return np.ascontiguousarray(np.concatenate(
+        [c["fdct_cos_f32"].numpy().ravel(),
+         c["fdct_scale_f32"].numpy().ravel()]), np.float32)
+
+
+def kernel_info() -> dict:
+    """{instantiation: (registers a thread, resident thread blocks an SM,
+    static shared bytes, local bytes a thread, threads a block)} as
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    report them on the current card."""
+    lib = LIB.get()
+    out = {}
+    for i, name in enumerate(KERNEL_INFO):
+        info = np.zeros(5, np.int32)
+        LIB.raise_on(f"kernel_info({name})",
+                     lib.jz_transform_kernel_info(i, info.ctypes.data))
+        out[name] = tuple(int(v) for v in info)
+    return out
 
 
 def fdct_quantize_cuda(y, cb, cr, yqt, cqt, *, gray: bool = False,
@@ -84,16 +118,15 @@ def fdct_quantize_cuda(y, cb, cr, yqt, cqt, *, gray: bool = False,
     my, mx = H // 16, W // 16
     desc = np.array([N, my, mx, int(gray), int(rounded), *y.stride(),
                      *cb.stride(), *cr.stride()], np.int64)
+    sep = _fdct_tables()
     with torch.cuda.device(dev):
-        basis = codec_constants(dev)["fwd64_f32"]
         tabs = [t.contiguous() for t in (yqt, cqt)]
         outs = [torch.empty((N, k * my * mx, 64), dtype=torch.int32,
                             device=dev) for k in (4, 1, 1)]
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jz_fdct_quantize(
-            _SAMPLE_BYTES[y.dtype], desc.ctypes.data,
-            *(t.data_ptr() for t in (y, cb, cr, *tabs, basis, *outs)),
-            stream)
+            _SAMPLE_BYTES[y.dtype], desc.ctypes.data, sep.ctypes.data,
+            *(t.data_ptr() for t in (y, cb, cr, *tabs, *outs)), stream)
     LIB.raise_on("fdct_quantize", rc)
     if N > 0:
         with _lock:
@@ -104,13 +137,14 @@ def fdct_quantize_cuda(y, cb, cr, yqt, cqt, *, gray: bool = False,
 def _layout(geom, shapes):
     """Per component (mcus_y, mcus_x, v, h, ...) geometry and block counts
     -> (plane bytes of each component, their sum), after checking that
-    every component covers the same MCU grid with its blocks."""
+    every component covers the same MCU grid with its blocks, at sampling
+    factors 1..4 (JPEG's range, which bounds the kernel's strips)."""
     mcus_y, mcus_x = geom[0][0], geom[0][1]
     sizes = []
     for g, Bn in zip(geom, shapes):
         my, mx, v, h = (int(x) for x in g[:4])
-        if (my, mx) != (mcus_y, mcus_x) or v < 1 or h < 1 \
-                or Bn != my * mx * v * h:
+        if (my, mx) != (mcus_y, mcus_x) or not 1 <= v <= 4 \
+                or not 1 <= h <= 4 or Bn != my * mx * v * h:
             raise ValueError(f"idct_planes: component geometry {g} does not "
                              f"hold {Bn} blocks on a {mcus_y}x{mcus_x} grid")
         sizes.append(my * v * 8 * mx * h * 8)
@@ -178,9 +212,10 @@ def idct_planes_sparse_cuda(flat, qtab, *, geom, level, shapes, K, N, caps):
                          "1 to 3 components")
     X = sum((8 + K) * Bn for Bn in shapes)
     need = N * X + sum(132 * cap for cap in caps)
-    if flat.dim() != 1 or flat.numel() < need or K < 1:
+    if flat.dim() != 1 or flat.numel() < need or not 1 <= K <= MAX_K:
         raise ValueError(f"{fn}: flat has shape {tuple(flat.shape)} and K "
-                         f"{K}, want 1-D with at least {need} bytes")
+                         f"{K}, want 1-D with at least {need} bytes and K "
+                         f"in 1..{MAX_K}")
     _layout(geom, shapes)
     check_tensors(fn, flat, ("flat", flat, torch.uint8, tuple(flat.shape)),
                   ("qtab", qtab, torch.int32, (ncomp, 64)))

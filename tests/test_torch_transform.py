@@ -15,11 +15,16 @@ tensors and their plain versions on CPU tensors.  Here, on the CPU:
     orders), with the share of values that differ stated and bounded, and
     identical on flat blocks and DC-only blocks, where every product is
     exact in float32;
-  - the float32 numpy models of the kernels' ascending sums: equal to the
-    plain versions exactly when both take the same float part (the
-    layout, densify, overflow rows, dequantize, quantize, rounded, gray,
-    clamp), within 1 with the kernels' own order, and the sparse and dense
-    forms give identical planes for the same blocks;
+  - the float32 numpy models of the kernels' arithmetic (the fDCT's
+    separable form, the IDCT's ascending sums): equal to the plain
+    versions exactly when both take the same float part (the layout,
+    densify, overflow rows, dequantize, quantize, rounded, gray, clamp),
+    within 1 with the kernels' own order, and the sparse and dense forms
+    give identical planes for the same blocks;
+  - the separable fDCT model: its DC is the exact sum times 0.125, flat
+    blocks give DC only, it is within 1 of the 64-term float32 form and of
+    an extended-precision truth and no more often off the truth, and the
+    folded normalisation it avoids gets flat blocks' DC wrong;
   - the sparse layout at odd MCU counts, where the Cr fields start off a
     4-byte boundary;
   - dispatch: CPU tensors launch nothing, and the CUDA wrappers refuse
@@ -160,12 +165,185 @@ def test_fdct_model_within_one_of_plain(planes, quality, rounded):
 
 
 def test_fdct_model_float_part_within_one_of_torch():
-    """The ascending float32 sum against torch's product on noise blocks
-    of the full sample range: the truncated coefficients within 1."""
+    """The separable float32 form against torch's 64-term product on noise
+    blocks of the full sample range: the truncated coefficients within
+    1."""
     rng = np.random.default_rng(320)
     blk = rng.integers(-128, 128, (4096, 64)).astype(np.int32)
-    d = np.abs(BT.forward_model(blk).astype(np.int64) - _exact_forward(blk))
+    d = np.abs(BT.separable_forward(blk).astype(np.int64)
+               - _exact_forward(blk))
     assert d.max() <= 1 and (d > 0).mean() < 0.01
+
+
+def _forward64(blk):
+    """The 64-term float32 form: the ascending sum with fwd64_f32 (the
+    kernel's arithmetic before the separable one), truncated."""
+    return BT.sum_ascending(blk.astype(np.float32),
+                            BT._basis("fwd64_f32")).astype(np.int32)
+
+
+def _forward_truth(blk):
+    """The forward DCT in extended precision (np.longdouble): the cosines,
+    the normalisation and the sums, truncated toward zero."""
+    L = np.longdouble
+    v = np.arange(8, dtype=L)[:, None]
+    x = np.arange(8, dtype=L)[None, :]
+    cos = np.cos((2 * x + 1) * v * L("3.14159265358979323846264338") / 16)
+    c = np.ones(8, dtype=L)
+    c[0] = 1 / np.sqrt(L(2))
+    o = np.einsum("uy,vx,byx->buv", cos, cos,
+                  blk.astype(L).reshape(-1, 8, 8)) * (np.outer(c, c) / 4)
+    return np.trunc(o).reshape(-1, 64).astype(np.int32)
+
+
+def _synthetic_blocks(n, seed):
+    """n seeded 8x8 level-shifted blocks, a quarter each of gradients,
+    oriented textures, noise and flat blocks."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:8, 0:8]
+    k = n // 4
+
+    def u(lo, hi):
+        return rng.uniform(lo, hi, (k, 1, 1))
+
+    grad = u(-128, 127) + u(-12, 12) * yy + u(-12, 12) * xx
+    tex = u(-60, 60) * np.sin(u(0, 3) * xx + u(0, 3) * yy + u(0, 6)) \
+        + u(-60, 60)
+    noise = rng.integers(-128, 128, (k, 8, 8))
+    flat = np.broadcast_to(rng.integers(-128, 128, (k, 1, 1)), (k, 8, 8))
+    b = np.concatenate([grad, tex, noise, flat])
+    return b.round().clip(-128, 127).astype(np.int32).reshape(-1, 64)
+
+
+@pytest.fixture(scope="module")
+def forward_sets(planes):
+    """The test planes' blocks and 16,384 synthetic ones, with the
+    separable model's, the 64-term form's and the truth's coefficients."""
+    y, cb, cr = planes
+    blk = np.concatenate(
+        [BT._blockify(y.astype(np.int32), 2, 2).reshape(-1, 64)]
+        + [BT._blockify(p.astype(np.int32), 1, 1).reshape(-1, 64)
+           for p in (cb, cr)] + [_synthetic_blocks(16384, 321)])
+    return {"sep": BT.separable_forward(blk), "f64": _forward64(blk),
+            "truth": _forward_truth(blk)}
+
+
+QUANT_SETTINGS = {"annexk": (None, False), "q95": (95, False),
+                  "rounded": (None, True)}
+
+
+def _quantized(forward_sets, setting):
+    quality, rounded = QUANT_SETTINGS[setting]
+    qt = np.asarray(T.Y_QUANT if quality is None
+                    else T.scale_quant_tables(quality)[0])
+    return {k: BT._quantize(v, qt, rounded) for k, v in forward_sets.items()}
+
+
+def test_fdct_model_dc_is_the_exact_sum():
+    """The separable model's DC is sum(X) * 0.125 exactly: the cosine row
+    0 is 1, every partial sum of integer samples is exact in float32 and
+    S[0][0] is 0.125 exactly."""
+    c = BT._basis("fdct_cos_f32")
+    s = BT._basis("fdct_scale_f32")
+    assert (c[0] == 1.0).all() and s[0, 0] == np.float32(0.125)
+    rng = np.random.default_rng(322)
+    blk = rng.integers(-128, 128, (8192, 64)).astype(np.int32)
+    o = BT.separable_sums(blk, c)
+    assert np.array_equal(o[:, 0, 0], blk.sum(axis=1).astype(np.float32))
+    want = (blk.sum(axis=1).astype(np.float32) * np.float32(0.125))
+    assert np.array_equal(BT.separable_forward(blk)[:, 0],
+                          want.astype(np.int32))
+
+
+def test_fdct_model_flat_blocks_dc_only():
+    """Flat blocks of every level: the DC is 8 times the level (64 x / 8,
+    exact) and every AC coefficient is zero."""
+    levels = np.arange(-128, 128, dtype=np.int32)
+    blk = np.repeat(levels[:, None], 64, axis=1)
+    got = BT.separable_forward(blk)
+    assert np.array_equal(got[:, 0], 8 * levels)
+    assert not got[:, 1:].any()
+
+
+@pytest.mark.parametrize("setting", list(QUANT_SETTINGS))
+def test_fdct_model_within_one_of_64_term_and_truth(forward_sets, setting):
+    """Quantized, the separable model is within 1 of the 64-term float32
+    form and of the extended-precision truth, never off on a DC, and off
+    the truth on at most 2e-3 of the coefficients (the card's gate against
+    the plain version)."""
+    q = _quantized(forward_sets, setting)
+    for other in ("f64", "truth"):
+        d = np.abs(q["sep"].astype(np.int64) - q[other])
+        assert d.max() <= 1, other
+        assert not d[:, 0].any(), other
+    assert (q["sep"] != q["truth"]).mean() <= 2e-3
+
+
+def test_fdct_model_error_share_against_truth(forward_sets):
+    """The separable model is off the truth on at most 1.5 times as many
+    quantized coefficients as the 64-term form, counted over Annex K,
+    quality 95 and rounded together (Annex K alone has a few tens of
+    differences in a million coefficients, too few for a ratio), and off
+    as rarely before quantization."""
+    sep = f64 = total = 0
+    for setting in QUANT_SETTINGS:
+        q = _quantized(forward_sets, setting)
+        sep += int((q["sep"] != q["truth"]).sum())
+        f64 += int((q["f64"] != q["truth"]).sum())
+        total += q["sep"].size
+    assert 0 < sep <= 1.5 * f64
+    raw = {k: float((forward_sets[k] != forward_sets["truth"]).mean())
+           for k in ("sep", "f64")}
+    assert raw["sep"] <= 1.5 * raw["f64"] and raw["sep"] < 5e-3
+
+
+def test_folded_normalisation_breaks_the_dc():
+    """The pitfall the kernel avoids: folding c_u / 2 into each pass's
+    cosine table (no final multiply) gets the DC of flat blocks wrong,
+    because float32(1 / (2 sqrt 2)) squared is not 0.125."""
+    c = np.ones(8)
+    c[0] = 1 / np.sqrt(2)
+    folded = (np.asarray(BT._basis("fdct_cos_f32"), np.float64)
+              * c[:, None] / 2).astype(np.float32)
+    levels = np.arange(-128, 128, dtype=np.int32)
+    blk = np.repeat(levels[:, None], 64, axis=1)
+    dc = BT.separable_sums(blk, folded)[:, 0, 0].astype(np.int32)
+    wrong = dc != 8 * levels
+    assert wrong.mean() > 0.25
+    assert np.array_equal(BT.separable_forward(blk)[:, 0], 8 * levels)
+
+
+def _f32_up(x):
+    """The least float32 at or above x (a positive Fraction), exactly."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    while Fraction(float(f)) < x:
+        f = np.nextafter(f, np.float32(np.inf))
+    while Fraction(float(np.nextafter(f, np.float32(0)))) >= x:
+        f = np.nextafter(f, np.float32(0))
+    return Fraction(float(f))
+
+
+def test_division_by_reciprocal_rounded_up():
+    """The kernel's quantizer (and index arithmetic) divide by multiplying
+    with 1/den rounded up to float32, the product rounded up and
+    truncated: for 0 < num < 2^22 that is C's num / den.  Held here in
+    exact rational arithmetic on seeded quotients and on the ones next to
+    every boundary: num = k den - 1, k den, k den + den - 1."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(323)
+    dens = [1, 2, 3, 7, 11, 16, 99, 121, 255, 256, 509, 510, 65535]
+    cases = [(int(n), int(d)) for n, d in zip(
+        rng.integers(1, 1 << 22, 1500), rng.integers(1, 511, 1500))]
+    for d in dens:
+        for k in (1, 2, 3, 100, (1 << 22) // d - 1, (1 << 22) // d):
+            cases += [(n, d) for n in (k * d - 1, k * d, k * d + d - 1)
+                      if 0 < n < 1 << 22]
+    for num, den in cases:
+        q = _f32_up(num * _f32_up(Fraction(1, den)))
+        assert int(q) == num // den, (num, den)
 
 
 def test_fdct_model_reads_strided_int32_planes():
