@@ -18,21 +18,27 @@ failure exits nonzero.  In the order they run:
   1. environment: torch/CUDA versions, the card's name and power limit,
      fp32 matmuls at IEEE precision (no TF32);
   2. build: compiles the CUDA sources of the checkout, all at once (the
-     entropy pack alone and fused with the emissions, the latter in a
-     fixed-table and a custom-table form, and the symbol histograms,
-     entropy_pack.cu; the Huffman scan, huffman_scan.cu; the stream
-     concat's two passes, stream_concat.cu; the fDCT+quantize kernel for
-     int8 and int32 samples and the IDCT-to-planes kernel's sparse,
-     overflow and dense launches, block_transforms.cu) and prints what
-     ptxas reports for each kernel (a template's instantiations under one
-     name); a stack frame or a spill in any kernel but the scan, or a
-     spill in the scan kernel, fails the run.  Counts each kernel's SASS
-     instructions (cuobjdump);
-  3. the pack kernels against their plain torch versions on the real
-     16x512x512 blocks, on seeded worst-case blocks and on the edge-case
-     blocks: words and bits must be identical.  The pack kernel alone is
-     off every path, so its launch count is taken here, over the real
-     blocks (3, one per component);
+     entropy pack alone, the batched entropy kernel with the emissions and
+     the DC predictors fused in, in a fixed-table and a custom-table form,
+     and the symbol histograms, entropy_pack.cu; the Huffman scan,
+     huffman_scan.cu; the one-launch stream concat, stream_concat.cu; the
+     fDCT+quantize kernel for int8 and int32 samples and the
+     IDCT-to-planes kernel's sparse, overflow and dense launches,
+     block_transforms.cu; and the designs the entropy kernel and the
+     concat replaced, scripts/previous_designs.cu, for phase 6) and
+     prints what ptxas reports for each kernel (a template's
+     instantiations under one name); a stack frame or a spill in any
+     kernel but the scan, or a spill in the scan kernel, fails the run.
+     Counts each kernel's SASS instructions (cuobjdump);
+  3. the pack kernels against their plain torch versions: the pack alone
+     per component on the real 16x512x512 blocks, on seeded worst-case
+     blocks and on the edge-case blocks; the batched entropy kernel (one
+     launch for the three components, its predictors found in the kernel)
+     on the real batch without and with restart markers and on the
+     worst-case and edge-case blocks as an image's components: words and
+     bits must be identical.  The pack kernel alone is off every path, so
+     its launch count is taken here, over the real blocks (3, one per
+     component);
   7. the scan kernel against decode_segments_plain on the card: the 2,048
      real segments of a 16x512x512 restart batch, noise images, the
      edge-case blocks encoded into segments, the 2,048 pseudo-segments of
@@ -52,15 +58,15 @@ failure exits nonzero.  In the order they run:
   5. main path: roundtrip_batches over 4 batches of 16x512x512 on the card,
      every stream must decode; the port's own decode and the host decoder's
      decode of the port's streams must both reach a PSNR within 0.05 dB of
-     the host codec's exact round trip.  Per batch the fDCT kernel must
-     have been launched once, the fused kernel 3 times, the concat and
-     the IDCT kernel (sparse form) once, and no other kernel at all;
+     the host codec's exact round trip.  Per batch the fDCT kernel, the
+     fused kernel, the concat and the IDCT kernel (sparse form) must each
+     have been launched once, and no other kernel at all;
   8. restart path: the same batches with restart_interval=8 and
      transport="device": every stream starts FFD8, ends FFD9, carries DRI
      and RSTn cycling 0..7, decodes in the host decoder; the device
      transport's pixels equal the ycc420 transport's exactly; per batch
-     the fDCT kernel once, the fused kernel 3 times, the concat, the scan
-     and the IDCT kernel (dense form) once.
+     the fDCT kernel, the fused kernel, the concat, the scan and the IDCT
+     kernel (dense form) once each.
      Then decode_batches with transport="indexed" on the main path's
      restart-free streams: pixels equal to the main path's; one scan and
      one IDCT launch per batch (decode alone on ycc420: one IDCT launch).
@@ -72,13 +78,14 @@ failure exits nonzero.  In the order they run:
      components) against its plain version on the real 16x512x512
      components without and with restarts and a carry, and on images of
      1 to 140 blocks a component cut from the edge-case and long-emission
-     blocks; the fused kernel with the batch's 16 per-image
-     table sets against its plain version; slots of 74 bits
+     blocks; the fused kernel with the batch's 16 per-image table sets
+     (one launch), without and with restarts, against its plain version;
+     slots of 74 bits
      (entropy.long_emission_tables) encoded on the card to the host C++
      encoder's entropy bytes; 4x512x512 exact optimize streams, with and
      without restarts, byte-identical to host_codec.  Then the optimize
      path over 4 batches: every stream with its own DHT, pixels equal to
-     the restart path's, fewer bytes; 1 fDCT, 1 histogram, 3 fused, 1
+     the restart path's, fewer bytes; 1 fDCT, 1 histogram, 1 fused, 1
      concat, 1 scan and 1 IDCT launch per batch; MP/s of encode and
      decode and the host stages
      (the table derivation, the 16 LUT sets of the decode);
@@ -98,7 +105,7 @@ failure exits nonzero.  In the order they run:
      decode per shard) and `sharded_optimize` (one table set a batch):
      decode_sharded pixels equal decode_batch(transport="rgb")'s, optimize
      streams decode to the restart streams' pixels in fewer bytes,
-     launches per batch 1 fDCT, 3 fused and 1 concat (+ 1 scan with
+     launches per batch 1 fDCT, 1 fused and 1 concat (+ 1 scan with
      restarts, + 1 histogram with optimize; no IDCT kernel: the shards
      decode through the rgb transport's program, colour on unclamped
      planes), MP/s beside encode_batch/decode_batch.
@@ -110,11 +117,15 @@ failure exits nonzero.  In the order they run:
      stream raises on the ranks of its tile row, and each rank's launches
      per step are as expected; a rank that fails or hangs fails the run;
   13. the concat kernel against its plain version, bit for bit: the real
-     16x512x512 blocks without and with restart_interval 1, 8 and 17, the
-     16 per-image table sets of optimize, gray, noise at quality 100 with
-     the default budget and a quarter of it (words dropped), the two
-     shards of a 1x2 mesh in the shard budget, and seeded blocks whose
-     bits reach word 63; one counted call each;
+     16x512x512 blocks without and with restart_interval 1, 8, 17 and
+     2000 (one segment, longer than the image), the 16 per-image table
+     sets of optimize, gray, noise at quality 100 with the default budget
+     and a quarter of it (words dropped), the two shards of a 1x2 mesh in
+     the shard budget, seeded blocks whose bits reach word 63, one-MCU
+     images, and one 3840x2160 image without and with restart_interval=8
+     (whose entropy kernel output is held to the plain version too); one
+     counted call (one launch) each; the two-pass design phase 6 times
+     beside it gives the same combined;
   14. the block transforms against their plain versions and the numpy
      models of the kernels' arithmetic order (ops/block_transform.py):
      fdct_quantize on the main batch's ycc420 int8 planes at Annex K,
@@ -133,10 +144,14 @@ failure exits nonzero.  In the order they run:
      programs' CUDA-event spans (host-launch bound), their device-busy
      time (kernel and copy time summed from a torch.profiler trace) and
      number of device events, for both paths, with the plain programs'
-     earlier readings (EARLIER_PROGRAMS) beside them and the device
-     decode's tail after the scan, the encode program's stages alone (the
-     concat and fDCT+quantize also as the plain torch stages they
-     replaced), and the card's busy share of each pipelined round trip
+     earlier readings (EARLIER_PROGRAMS, EARLIER_ENCODE) beside them and the
+     device decode's tail after the scan; each encode program, with and
+     without restart markers, must be the fDCT, entropy and concat kernels
+     alone (3 device events, no plain torch between the upload and the
+     fetch); the encode program's stages alone (the entropy stage and the
+     concat also as the earlier designs ran them, the concat and
+     fDCT+quantize also as the plain torch stages they replaced), and the
+     card's busy share of each pipelined round trip
      (device time of a profiled round trip over the wall time of the
      unprofiled one); 10/11 device: the optimize encode's device stages alone
      and the optimize path's busy share, the rgb transports' device programs
@@ -151,7 +166,12 @@ failure exits nonzero.  In the order they run:
      card reports them; of
      the concat on noise at quality 100 (dense blocks), of the IDCT
      kernel's dense form on the restart segments, and of the fused kernel
-     with the 16 per-image table sets beside the fixed tables;
+     with the 16 per-image table sets beside the fixed tables; the entropy
+     kernel and the concat beside the designs they replaced
+     (scripts/previous_designs.py: three per-component launches, the
+     two-pass concat) in turns, without and with restart_interval=8, warm
+     and with the L2 cache overwritten first, with both designs' registers
+     and thread blocks an SM;
   9. times of the scan kernel alone on the real segments beside its bound
      and the plain version's time, with the L2 cache overwritten before
      each launch, on four times the segments, and with every segment on
@@ -205,7 +225,10 @@ PEAK_FP32_FLOPS = 67e12
 # store the words zero-extended to 64 bits, 256 bytes more per block: a
 # cost of that layout, not part of the bound.)
 BLOCK_BYTES = {"pack_words": 3 * 256 + 256 + 4,
-               "encode_blocks": 256 + 4 + 256 + 4,
+               # the coefficients in, the words and the count out: the
+               # kernel finds the DC predictors itself (its per-component
+               # form read them too, 4 more bytes)
+               "encode_blocks": 256 + 256 + 4,
                "symbol_histograms": 256}
 # and per image, the histogram kernel's [4, 256] int32 counts
 IMAGE_HIST_BYTES = 4 * 256 * 4
@@ -246,9 +269,13 @@ KERNELS = ("pack_words", "encode_blocks", "decode_segments",
 # the fused kernel's instantiation for the caller's tables (optimize), built
 # and checked beside the fixed-table one, which keeps the name
 ENCODE_CUSTOM = "encode_blocks (custom tables)"
-# the concat's first pass (the offsets); its second, the scatter, keeps
-# the name.  One wrapper call launches both.
-CONCAT_OFFSETS = "concat_streams (offsets)"
+# the earlier designs that the encode program's entropy kernel and concat
+# replaced (scripts/previous_designs.cu), built and timed beside them in
+# this run: the per-component fused kernel, the two-pass concat's scan
+# and scatter
+PREVIOUS = {"encode_blocks_kernel": "previous encode_blocks",
+            "concat_offsets_kernel": "previous concat_streams (offsets)",
+            "concat_scatter_kernel": "previous concat_streams (scatter)"}
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
@@ -280,6 +307,13 @@ EARLIER_HISTOGRAM_MS = 0.0268
 # 80GB HBM3, 700 W; kept from then); this run measures it again beside
 # the kernel.
 EARLIER_CONCAT_MS = 0.5805
+# The encode programs before the entropy kernel took the DC predictors
+# and the concat became one launch (fDCT kernel, three per-component
+# entropy launches beside the plain predictor chains, the two-pass concat;
+# this script's phase 5/8 device on an NVIDIA H100 80GB HBM3 at 700 W;
+# kept from then, not measured here).
+EARLIER_ENCODE = {"encode": "0.0818 ms busy in 12 events",
+                  "restart encode": "0.1052 ms busy in 27 events"}
 # The share of fdct_quantize's coefficients that may differ from the plain
 # version's (phase 14): the separable form and the 64-term product round
 # differently, each by at most 1.
@@ -287,10 +321,10 @@ FDCT_DIFF_SHARE = 2e-3
 # phase 12's gloo ranks: the images they share, and each rank's steps
 # with the launches every step must make
 PARALLEL_IMAGES = 4
-RANK_STEPS = {"exact_restart": {"encode_blocks": 3, "concat_streams": 1},
-              "exact_optimize": {"encode_blocks": 3, "symbol_histograms": 1,
+RANK_STEPS = {"exact_restart": {"encode_blocks": 1, "concat_streams": 1},
+              "exact_optimize": {"encode_blocks": 1, "symbol_histograms": 1,
                                  "concat_streams": 1},
-              "fast_restart": {"encode_blocks": 3, "concat_streams": 1,
+              "fast_restart": {"encode_blocks": 1, "concat_streams": 1,
                                "fdct_quantize": 1},
               "device_decode": {"decode_segments": 1},
               "corrupt_decode": {"decode_segments": 1}}
@@ -419,6 +453,13 @@ def _images(n: int, seed0: int) -> np.ndarray:
     return np.stack([make_test_image(H, W, seed=seed0 + i) for i in range(n)])
 
 
+def _image_4k() -> np.ndarray:
+    """One 3840x2160 RGB test image (32,400 MCUs)."""
+    from imagegen import make_test_image
+
+    return make_test_image(2160, 3840, seed=4096)
+
+
 def _real_blocks(TC, HG, rgbs, dev):
     """Per-component ([B, 64] int32 quantized blocks, chroma) of a batch,
     as the main path makes them."""
@@ -442,28 +483,33 @@ def _worst_case_blocks(dev, nblocks: int = 4096, seed: int = 5):
 
 
 def _kernel_of(symbol: str) -> str:
-    if "encode_blocks_kernelILb1E" in symbol:  # the custom-table form
+    if "encode_blocks_batch_kernelILb1E" in symbol:  # the custom-table form
         return ENCODE_CUSTOM
-    if "concat_offsets" in symbol:
-        return CONCAT_OFFSETS
-    if "concat_scatter" in symbol:
-        return "concat_streams"
-    for name in ("encode_blocks", "decode_segments", "symbol_histograms",
-                 "fdct_quantize", "idct_planes"):
+    for name in ("encode_blocks_batch", "decode_segments", "symbol_histograms",
+                 "concat_streams", "fdct_quantize", "idct_planes"):
         if name in symbol:
-            return name
+            return name.replace("_batch", "")
     return "pack_words"
 
 
-def _ptxas_by_kernel(log: str) -> dict:
+def _previous_of(symbol: str):
+    """The name of an earlier design's kernel in scripts/previous_designs.cu,
+    None for the current kernels that file compiles again."""
+    return next((name for key, name in PREVIOUS.items() if key in symbol),
+                None)
+
+
+def _ptxas_by_kernel(log: str, kernel_of=_kernel_of) -> dict:
     """nvcc -Xptxas -v output -> {kernel: resource lines}, the lines of
-    every instantiation of a kernel template under its one name."""
+    every instantiation of a kernel template under its one name (kernels
+    that kernel_of names None are left out)."""
     out, cur = {}, None
     for ln in log.splitlines():
         ln = ln.strip()
         if "Compiling entry function" in ln:
-            cur = _kernel_of(ln.split("'")[1])
-            out.setdefault(cur, [])
+            cur = kernel_of(ln.split("'")[1])
+            if cur is not None:
+                out.setdefault(cur, [])
         elif cur and ("registers" in ln or "stack frame" in ln):
             out[cur].append(ln.replace("ptxas info    : ", ""))
     return out
@@ -554,22 +600,26 @@ def _indexed_lanes(HG, streams, k_mcus: int = 8) -> dict:
 def _edge_case_lanes(E, lut: np.ndarray, encode=None) -> dict:
     """entropy.edge_case_blocks in lanes of six (Y0..Y3 with the luma
     tables, Cb and Cr with the chroma tables, predictors reset per lane),
-    each lane spliced into one segment on the host.  encode(q, pred,
-    chroma) -> (words, bits) defaults to the plain versions on the CPU."""
+    each lane spliced into one segment on the host.  The lanes are the
+    MCUs of one image with a restart interval of 1: encode(yq, cbq, crq)
+    -> (words, bits) per component defaults to the plain version on the
+    CPU."""
     from jpezy_tpu_torch.bitstream.splice import splice_blocks
 
-    encode = encode or E.encode_block_words
+    encode = encode or (lambda *c: E.encode_blocks_batch_plain(*c, 1))
     q = E.edge_case_blocks(3)
     q = q[: (q.shape[0] // 6) * 6].reshape(-1, 6, 64)
-    pred = np.zeros(q.shape[:2], np.int32)
-    pred[:, 1:4] = q[:, 0:3, 0]
-    qt = torch.from_numpy(q.reshape(-1, 64))
-    pt = torch.from_numpy(pred.reshape(-1))
-    wy, by = (t.cpu() for t in encode(qt, pt, False))
-    wc, bc = (t.cpu() for t in encode(qt, pt, True))
-    chroma = torch.arange(qt.shape[0]) % 6 >= 4
-    w = torch.where(chroma[:, None], wc, wy).numpy().astype(np.uint32)
-    b = torch.where(chroma, bc, by).numpy().astype(np.int32)
+    L = q.shape[0]
+    comps = (torch.from_numpy(q[:, :4].reshape(1, -1, 64).copy()),
+             torch.from_numpy(q[None, :, 4].copy()),
+             torch.from_numpy(q[None, :, 5].copy()))
+    (wy, wcb, wcr), (by, bcb, bcr) = encode(*comps)
+    w = torch.cat([wy.cpu().reshape(L, 4, 64), wcb.cpu().reshape(L, 1, 64),
+                   wcr.cpu().reshape(L, 1, 64)], 1).reshape(-1, 64)
+    b = torch.cat([by.cpu().reshape(L, 4), bcb.cpu().reshape(L, 1),
+                   bcr.cpu().reshape(L, 1)], 1).reshape(-1)
+    w = w.numpy().astype(np.uint32)
+    b = b.numpy().astype(np.int32)
     raws = [splice_blocks(w[i:i + 6], b[i:i + 6])[0]
             for i in range(0, w.shape[0], 6)]
     L = (max(map(len, raws)) + 8 + 3) // 4 * 4
@@ -582,11 +632,12 @@ def _edge_case_lanes(E, lut: np.ndarray, encode=None) -> dict:
                 max_blocks=6), q.astype(np.int16)
 
 
-def _long_code_lanes(E, pack_cuda, lut: np.ndarray, dev):
+def _long_code_lanes(E, lut: np.ndarray, dev):
     """_edge_case_lanes with the luma AC table replaced by one whose 162
     codes all have 10 to 14 bits, so that a first-level table of up to 9
     index bits answers no luma AC symbol.  The blocks are encoded on the
-    card by the fused kernel, which takes the tables as arrays."""
+    card by the batched entropy kernel, which takes the tables as
+    arrays."""
     from jpezy_tpu_torch.bitstream.reader import HuffTable
     from jpezy_tpu_torch.core import tables as T
     from jpezy_tpu_torch.runtime.native import _huff_lut
@@ -600,11 +651,12 @@ def _long_code_lanes(E, pack_cuda, lut: np.ndarray, dev):
     if int((long_lut[1][long_lut[1] >= 0] & 0xFF).min()) < 10:
         raise AssertionError("a luma AC code shorter than 10 bits")
     dc_size, dc_code, _, _ = E.annex_k_tables("cpu", False)
-    luma = E.kernel_tables((dc_size, dc_code, ac_size, ac_code), dev)
+    rows = (E.kernel_tables((dc_size, dc_code, ac_size, ac_code), dev),
+            E.kernel_tables(E.annex_k_tables("cpu", True), dev))
 
-    def encode(q, pred, chroma):
-        return pack_cuda.encode_blocks_cuda(q.to(dev), pred.to(dev),
-                                            True if chroma else luma)
+    def encode(*comps):
+        return E.encode_blocks_batch(*(c.to(dev) for c in comps), 1,
+                                     tables=rows)
 
     return _edge_case_lanes(E, long_lut, encode)
 
@@ -711,8 +763,8 @@ def _dht(stream: bytes) -> bytes:
 def _long_emission_bytes(E, encode) -> tuple[bytes, bytes, int]:
     """Two MCUs of entropy.long_emission_blocks, every component on
     entropy.long_emission_tables (slots of up to 74 bits): (stuffed
-    entropy bytes of encode(q, pred, tables), the host C++ encoder's
-    bytes, the longest slot in bits)."""
+    entropy bytes of encode(yq, cbq, crq, tables) -> per-component (words,
+    bits), the host C++ encoder's bytes, the longest slot in bits)."""
     from jpezy_tpu_torch.bitstream import writer
     from jpezy_tpu_torch.bitstream.splice import splice_blocks
     from jpezy_tpu_torch.codec import host_codec
@@ -726,12 +778,10 @@ def _long_emission_bytes(E, encode) -> tuple[bytes, bytes, int]:
     packed = (host_codec._packed_dc(tabs[0], tabs[1]),
               host_codec._packed_ac(tabs[2], tabs[3]))
     ref = native.entropy_encode(*comps, 0, *packed, *packed)
-    out = []
-    for c in comps:
-        t = torch.from_numpy(c)
-        w, b = encode(t, E.dc_predictors(t[:, 0]), tabs)
-        out.append((w.cpu(), b.cpu()))
-    (wy, by), (wc, bc), (wr, br) = out
+    (wy, wc, wr), (by, bc, br) = encode(
+        *(torch.from_numpy(c)[None] for c in comps), (tabs, tabs))
+    wy, wc, wr = (w[0].cpu() for w in (wy, wc, wr))
+    by, bc, br = (b[0].cpu() for b in (by, bc, br))
     words = torch.cat([wy[:4], wc[:1], wr[:1], wy[4:], wc[1:], wr[1:]])
     bits = torch.cat([by[:4], bc[:1], br[:1], by[4:], bc[1:], br[1:]])
     raw, _ = splice_blocks(words.numpy().astype(np.uint32), bits.numpy())
@@ -771,17 +821,13 @@ def _per_batch(**per_batch) -> dict:
     return {k: MAIN_BATCHES * per_batch.get(k, 0) for k in KERNELS}
 
 
-def _preds(E, q: torch.Tensor, n: int) -> torch.Tensor:
-    """DC predictors of [B, 64] blocks holding n images, one chain each."""
-    return E.dc_predictors(q[:, 0].reshape(n, -1)).reshape(-1)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     sys.path.insert(0, os.path.join(REPO, "tests"))
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
     from jpezy_tpu_torch.codec import host_codec
     from jpezy_tpu_torch.codec import host_glue as HG
     from jpezy_tpu_torch.codec import torch_codec as TC
@@ -794,6 +840,7 @@ def main() -> int:
     from jpezy_tpu_torch.ops import (concat_cuda, pack_cuda, scan_cuda,
                                      transform_cuda)
     from jpezy_tpu_torch.runtime import batch as RB
+    import previous_designs
     from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
                                                   encode_batches,
                                                   roundtrip_batches)
@@ -815,26 +862,37 @@ def main() -> int:
     libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB,
             transform_cuda.LIB)
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(len(libs)) as ex:
-        secs = list(ex.map(lambda lib: lib.build(force=True), libs))
+    with cf.ThreadPoolExecutor(len(libs) + 1) as ex:
+        secs = list(ex.map(lambda lib: lib.build(force=True),
+                           libs + (previous_designs.LIB,)))
     build_wall = time.perf_counter() - t0
     ptxas, sass = {}, {}
     for lib in libs:
         lib.get()
         ptxas.update(_ptxas_by_kernel(lib.build_log))
         sass.update(_sass_instructions(cuda_build.nvcc(), lib.so))
-    built = sorted(KERNELS + (ENCODE_CUSTOM, CONCAT_OFFSETS))
+    built = sorted(KERNELS + (ENCODE_CUSTOM,))
     if sorted(ptxas) != built or sorted(sass) != built \
             or min(sass.values()) <= 0:
         raise AssertionError(
             f"ptxas reported {sorted(ptxas)}, cuobjdump {sass}:\n"
             + "\n".join(lib.build_log for lib in libs))
+    previous_designs.LIB.get()
+    prev_ptxas = _ptxas_by_kernel(previous_designs.LIB.build_log,
+                                  _previous_of)
+    if sorted(prev_ptxas) != sorted(PREVIOUS.values()):
+        raise AssertionError(f"ptxas reported {sorted(prev_ptxas)} of the "
+                             f"earlier designs:\n"
+                             f"{previous_designs.LIB.build_log}")
     _say("2 build", ", ".join(os.path.basename(lib.src) for lib in libs)
-         + f" built for sm_90a side by side in {build_wall:.2f} s (nvcc "
+         + f" and the earlier designs' scripts/previous_designs.cu built for "
+         f"sm_90a side by side in {build_wall:.2f} s (nvcc "
          + ", ".join(f"{t:.2f}" for t in secs) + " s); "
          + " || ".join(f"{k}: {' | '.join(v)} | {sass[k]} SASS instructions"
-                       for k, v in ptxas.items()))
-    for k, lines in ptxas.items():
+                       for k, v in ptxas.items())
+         + " || " + " || ".join(f"{k}: {' | '.join(v)}"
+                                for k, v in prev_ptxas.items()))
+    for k, lines in list(ptxas.items()) + list(prev_ptxas.items()):
         frames = [ln for ln in lines if "stack frame" in ln]
         clean = ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
                  "loads")
@@ -849,34 +907,32 @@ def main() -> int:
 
     # ---- 3. the pack kernels against their plain torch versions
     real = _real_blocks(TC, HG, _images(BATCH, 0), dev)
+    real_comps = tuple(q.reshape(BATCH, -1, 64) for q, _ in real)
     edge = torch.from_numpy(E.edge_case_blocks(3)).to(dev)
-    sets = (("real", real), ("worst", _worst_case_blocks(dev)),
-            ("edge", [(edge, False), (edge[:-1], True)]))  # even and odd B
+    worst = _worst_case_blocks(dev)[0][0]
     err = {"pack_words": 0, "encode_blocks": 0}
-    worst_bits = 0
     real_inputs = []       # (q, pred, chroma, (hi, lo, nbits)) of the batch
     pack_cuda.launches = pack_cuda.encode_launches = 0
-    for label, blocks in sets:
+    # the pack alone, per component: the real blocks (per-image DC chains,
+    # as the encode program has them), the worst-case and edge-case blocks
+    # (one chain), luma and chroma tables
+    for label, blocks in (("real", real),
+                          ("worst", [(worst, False), (worst, True)]),
+                          ("edge", [(edge, False), (edge[:-1], True)])):
         for q, chroma in blocks:
-            # per-image DC chains for the batch, as _emit_local; else one
             chains = BATCH if label == "real" else 1
             pred = E.dc_predictors(q[:, 0].reshape(chains, -1)).reshape(-1)
             ems = E.block_emissions(q, pred, chroma)
             wp, bp = E.pack_block_words_plain(*ems)
-            got = {"pack_words": pack_cuda.pack_words_cuda(*ems),
-                   "encode_blocks": pack_cuda.encode_blocks_cuda(
-                       q, pred, chroma)}
+            wk, bk = pack_cuda.pack_words_cuda(*ems)
             torch.cuda.synchronize()
-            for name, (wk, bk) in got.items():
-                e = max(int((wk - wp).abs().max()), int(
-                    (bk.to(torch.int64) - bp.to(torch.int64)).abs().max()))
-                err[name] = max(err[name], e)
-                if e or wk.dtype != torch.int64:
-                    raise AssertionError(
-                        f"{name} kernel != plain version on {label} blocks "
-                        f"[{q.shape[0]}, 64] chroma={chroma}")
-            if label == "worst":
-                worst_bits = max(worst_bits, int(bp.max()))
+            e = max(int((wk - wp).abs().max()), int(
+                (bk.to(torch.int64) - bp.to(torch.int64)).abs().max()))
+            err["pack_words"] = max(err["pack_words"], e)
+            if e or wk.dtype != torch.int64:
+                raise AssertionError(
+                    f"pack_words kernel != plain version on {label} blocks "
+                    f"[{q.shape[0]}, 64] chroma={chroma}")
             if label == "real":
                 real_inputs.append((q, pred, chroma, ems))
         if label == "real":
@@ -885,16 +941,49 @@ def main() -> int:
     if pack_alone_launches != len(real_inputs):
         raise AssertionError(f"pack_words launched {pack_alone_launches} "
                              f"times on {len(real_inputs)} components")
+    # the batched entropy kernel, one launch a set for the three components:
+    # the real batch, then the worst-case and edge-case blocks as one
+    # image's components (Y with the luma tables, Cb and Cr with the chroma
+    # ones), with restart intervals that reset the chains
+    k4 = worst.shape[0] // 4
+    ke = edge.shape[0] // 4
+    enc_sets = [("real", real_comps, 0), ("real", real_comps, RESTART_INTERVAL),
+                ("worst", (worst[None], worst[None, :k4], worst[None, -k4:]),
+                 0),
+                ("edge", (edge[None], edge[None, :ke], edge[None, -ke:]), 1)]
+    worst_bits = 0
+    for label, comps3, r_i in enc_sets:
+        wk, bk = pack_cuda.encode_blocks_batch_cuda(*comps3,
+                                                    restart_interval=r_i)
+        wp, bp = E.encode_blocks_batch_plain(*comps3, r_i)
+        torch.cuda.synchronize()
+        e = max(max(int((a - b).abs().max()) for a, b in zip(wk, wp)),
+                max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                    for a, b in zip(bk, bp)))
+        err["encode_blocks"] = max(err["encode_blocks"], e)
+        if e or wk[0].dtype != torch.int64:
+            raise AssertionError(
+                f"encode_blocks kernel != plain version on {label} blocks "
+                f"{[tuple(c.shape) for c in comps3]}, restart_interval={r_i}")
+        if label == "worst":
+            worst_bits = max(int(b.max()) for b in bp)
+    if pack_cuda.encode_launches != len(enc_sets):
+        raise AssertionError(f"encode_blocks launched "
+                             f"{pack_cuda.encode_launches} times on "
+                             f"{len(enc_sets)} sets")
     if worst_bits <= 32 * 32:
         raise AssertionError(f"worst-case blocks reach only {worst_bits} bits")
 
     n_edge = edge.shape[0]
-    _say("3 kernels", f"pack_words and encode_blocks: words and bits "
-         f"identical to the plain versions on real "
-         f"{[tuple(q.shape) for q, *_ in real_inputs]}, worst-case (max "
-         f"{worst_bits} bits/block) and {n_edge} edge-case blocks; "
-         f"pack_words launches on the real blocks {pack_alone_launches}")
-    del real, sets, edge, ems, wp, bp, got, wk, bk, q, pred
+    _say("3 kernels", f"pack_words (per component) and encode_blocks (one "
+         f"launch for the three components, predictors found in the kernel)"
+         f": words and bits identical to the plain versions on real "
+         f"{[tuple(q.shape) for q in real_comps]} with restart_interval 0 "
+         f"and {RESTART_INTERVAL}, worst-case (max {worst_bits} bits/block) "
+         f"and {n_edge} edge-case blocks; pack_words launches on the real "
+         f"blocks {pack_alone_launches}, encode_blocks "
+         f"{pack_cuda.encode_launches} on {len(enc_sets)} sets")
+    del real, edge, worst, ems, wp, bp, wk, bk, q, pred
     torch.cuda.empty_cache()
 
     # ---- 7. the scan kernel against its plain torch version
@@ -937,7 +1026,7 @@ def main() -> int:
     two_sets = scan_sets[4][1]
     n2 = two_sets["words"].shape[0]
     mixed = _take_lanes(two_sets, np.arange(n2).reshape(4, -1).T.reshape(-1))
-    long_np, long_q = _long_code_lanes(E, pack_cuda, std_lut, dev)
+    long_np, long_q = _long_code_lanes(E, std_lut, dev)
     layout = scan_cuda.layout()
     if short_rows["words"].shape[1] != 16 or min(
             long_rows["words"].shape[1], noise_rows["words"].shape[1]) <= 128:
@@ -1062,12 +1151,12 @@ def main() -> int:
     results = list(roundtrip_batches(batches, lookahead=1, device="cuda"))
     wall = time.perf_counter() - t0
     main_launches = read_counts()
-    if main_launches != _per_batch(fdct_quantize=1, encode_blocks=3,
+    if main_launches != _per_batch(fdct_quantize=1, encode_blocks=1,
                                    concat_streams=1, idct_planes=1):
         raise AssertionError(
             f"main path launches {main_launches}: want per batch the fDCT "
-            "kernel once, the fused kernel 3 times, the concat and the IDCT "
-            "kernel once, and no other kernel")
+            "kernel, the fused kernel, the concat and the IDCT kernel once "
+            "each, and no other kernel")
     streams = [s for ss, _ in results for s in ss]
     src = np.concatenate(batches)
     px = np.concatenate([p for _, p in results])
@@ -1105,13 +1194,13 @@ def main() -> int:
     rresults = list(roundtrip_batches(batches, **rt_kw))
     rwall = time.perf_counter() - t0
     restart_launches = read_counts()
-    if restart_launches != _per_batch(fdct_quantize=1, encode_blocks=3,
+    if restart_launches != _per_batch(fdct_quantize=1, encode_blocks=1,
                                       concat_streams=1, decode_segments=1,
                                       idct_planes=1):
         raise AssertionError(
             f"restart path launches {restart_launches}: want per batch the "
-            "fDCT kernel once, the fused kernel 3 times, the concat, the "
-            "scan and the IDCT kernel once")
+            "fDCT kernel, the fused kernel, the concat, the scan and the "
+            "IDCT kernel once each")
     nseg = -(-(H // 16) * (W // 16) // ri)
     want_rst = np.arange(nseg - 1) % 8
     for ss, rpx in rresults:
@@ -1260,30 +1349,30 @@ def main() -> int:
         raise AssertionError(f"histogram kernel launched "
                              f"{pack_cuda.histogram_launches} times in "
                              f"{len(hist_sets)} comparisons")
-    # 16 per-image table sets of the real batch, one launch per component
+    # 16 per-image table sets of the real batch, one launch for the three
+    # components, with and without restarts
     hists = TC._symbol_histograms_batch(*comps).cpu().numpy()
     _, ytabs, ctabs = TC._optimal_tables(hists)
-    set_inputs = []      # (q, pred, kernel tables, bpi) per component
-    for (q, chroma), tabs in zip(real10, (ytabs, ctabs, ctabs)):
-        pred, bpi = _preds(E, q, BATCH), q.shape[0] // BATCH
-        wk, bk = E.encode_block_words(q, pred, chroma, tables=tabs,
-                                      blocks_per_image=bpi)
-        wp, bp = E.encode_block_words_plain(q, pred, chroma, tabs, bpi)
+    set_rows = (E.kernel_tables(ytabs, dev), E.kernel_tables(ctabs, dev))
+    for r_i in (0, RESTART_INTERVAL):
+        wk, bk = E.encode_blocks_batch(*comps, r_i, tables=set_rows)
+        wp, bp = E.encode_blocks_batch_plain(*comps, r_i,
+                                             tables=(ytabs, ctabs))
         torch.cuda.synchronize()
-        e = max(int((wk - wp).abs().max()),
-                int((bk.to(torch.int64) - bp.to(torch.int64)).abs().max()))
+        e = max(max(int((a - b).abs().max()) for a, b in zip(wk, wp)),
+                max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                    for a, b in zip(bk, bp)))
         err["encode_blocks"] = max(err["encode_blocks"], e)
         if e:
             raise AssertionError(f"encode_blocks with {BATCH} table sets != "
-                                 f"plain version, chroma={chroma}")
-        set_inputs.append((q, pred, E.kernel_tables(tabs, dev), bpi))
+                                 f"plain version, restart_interval={r_i}")
     n_sets = len({t.tobytes() for t in ytabs[3]})  # ac_code
     # slots of up to 74 bits: the card's bytes are the host encoder's
     card_bytes, host_bytes, long_bits = _long_emission_bytes(
-        E, lambda q, p, t: E.encode_block_words(q.to(dev), p.to(dev), False,
-                                                tables=t))
+        E, lambda *c: E.encode_blocks_batch(*(x.to(dev) for x in c[:3]),
+                                            tables=c[3]))
     plain_bytes, _, _ = _long_emission_bytes(
-        E, lambda q, p, t: E.encode_block_words_plain(q, p, False, t))
+        E, lambda *c: E.encode_blocks_batch_plain(*c[:3], tables=c[3]))
     if not card_bytes == plain_bytes == host_bytes or long_bits < 70:
         raise AssertionError(f"{long_bits}-bit emissions: the card's entropy "
                              "bytes differ from the host C++ encoder's")
@@ -1305,8 +1394,9 @@ def main() -> int:
              f"{label} {[tuple(c.shape)[:2] for c in cs]} ri={r_i}"
              for label, cs, r_i, _ in hist_sets)
          + f"); encode_blocks with {BATCH} per-image table sets ({n_sets} "
-         f"distinct luma AC tables) identical to the plain version on "
-         f"{[tuple(q.shape) for q, *_ in set_inputs]}; {long_bits}-bit "
+         f"distinct luma AC tables, one launch) identical to the plain "
+         f"version on {[tuple(q.shape) for q in comps]} with "
+         f"restart_interval 0 and {RESTART_INTERVAL}; {long_bits}-bit "
          f"slots: the card's {len(card_bytes)} entropy bytes equal the host "
          f"C++ encoder's; 4x{H}x{W} exact optimize encode byte-identical to "
          f"host_codec, without and with restart_interval={ri} "
@@ -1330,12 +1420,12 @@ def main() -> int:
     odwall = time.perf_counter() - t0
     optimize_launches = read_counts()
     if optimize_launches != _per_batch(fdct_quantize=1, symbol_histograms=1,
-                                       encode_blocks=3, concat_streams=1,
+                                       encode_blocks=1, concat_streams=1,
                                        decode_segments=1, idct_planes=1):
         raise AssertionError(
             f"optimize path launches {optimize_launches}: want per batch the "
-            "fDCT kernel and the histogram kernel once, the fused kernel 3 "
-            "times, the concat, the scan and the IDCT kernel once")
+            "fDCT kernel, the histogram kernel, the fused kernel, the "
+            "concat, the scan and the IDCT kernel once each")
     opt_bytes = sum(len(s) for ss in opt_lists for s in ss)
     fixed_bytes = sum(len(s) for s in rstreams)
     for ss, (opx, _), (_, rpx) in zip(opt_lists, opt_dec, rresults):
@@ -1574,13 +1664,13 @@ def main() -> int:
     # the shards decode through the rgb transport's program (colour on the
     # unclamped planes): no IDCT kernel
     sharded_paths = (
-        ("sharded", {}, {"fdct_quantize": 1, "encode_blocks": 3,
+        ("sharded", {}, {"fdct_quantize": 1, "encode_blocks": 1,
                          "concat_streams": 1}),
         ("sharded_restart", {"restart_interval": ri},
-         {"fdct_quantize": 1, "encode_blocks": 3, "concat_streams": 1,
+         {"fdct_quantize": 1, "encode_blocks": 1, "concat_streams": 1,
           "decode_segments": 1}),
         ("sharded_optimize", {"optimize": True, "restart_interval": ri},
-         {"fdct_quantize": 1, "encode_blocks": 3, "concat_streams": 1,
+         {"fdct_quantize": 1, "encode_blocks": 1, "concat_streams": 1,
           "decode_segments": 1, "symbol_histograms": 1}))
     sharded_launches, sharded_mps, sharded_out = {}, {}, {}
     for label, kw, per_batch in sharded_paths:
@@ -1706,7 +1796,9 @@ def main() -> int:
     concat_sets = [(f"real, restart_interval={r_i}",
                     *TC._emit_local(*comps, r_i), r_i, None)
                    for r_i in (0, 1, ri, 17)]
-    concat_inputs = concat_sets[0][1:3]  # the main path's; phase 6 times it
+    # the main path's and the restart path's; phase 6 times them
+    concat_inputs = concat_sets[0][1:3]
+    concat_inputs_r = concat_sets[2][1:3]
     _, owc, obc = TC._encode_batch_custom(*comps, ytabs, ctabs,
                                           restart_interval=ri)
     concat_sets.append((f"{BATCH} per-image table sets", owc, obc, ri, None))
@@ -1737,6 +1829,28 @@ def main() -> int:
     concat_sets.append(("seeded, bits up to word 63",
                         tuple(w.to(dev) for w in swc),
                         tuple(b.to(dev) for b in sbc), 3, None))
+    # a restart interval past the image (one segment), one-MCU images
+    concat_sets.append(("real, restart_interval=2000 (one segment)",
+                        *TC._emit_local(*comps, 2000), 2000, None))
+    for r_i in (0, 1):
+        owc1, obc1 = E.stream_blocks(8, 1, seed=64 + r_i)
+        concat_sets.append((f"one-MCU images, restart_interval={r_i}",
+                            tuple(w.to(dev) for w in owc1),
+                            tuple(b.to(dev) for b in obc1), r_i, 64))
+    # one 3840x2160 image: 32,400 MCUs in 16 tiles of 2,025
+    big = torch.from_numpy(np.stack([_image_4k()])).to(dev)
+    big_q = TC._quantize_batch_rgb(big)
+    del big
+    for r_i in (0, ri):
+        bwc, bbc = TC._emit_local(*big_q, r_i)
+        bwp, bbp = E.encode_blocks_batch_plain(*big_q, r_i)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(bwc + bbc, bwp + bbp)):
+            raise AssertionError(f"encode_blocks on a 3840x2160 image != "
+                                 f"plain version, restart_interval={r_i}")
+        concat_sets.append((f"3840x2160, restart_interval={r_i}", bwc, bbc,
+                            r_i, None))
+    del big_q, bwp, bbp
     err["concat_streams"] = 0
     concat_cuda.launches = 0
     dropped = 0
@@ -1758,14 +1872,28 @@ def main() -> int:
                              f" times in {len(concat_sets)} comparisons")
     if dropped < 8:  # both noise images in all four noise sets
         raise AssertionError(f"only {dropped} images outgrew their budget")
-    _say("13 concat", "concat_streams (two launches a call) bit-identical "
+    # the two-pass design timed in phase 6 computes the same function
+    pmaxw = TC.stream_budget_words_batch(6 * concat_inputs[1][1].shape[1])
+    for r_i in (0, ri):
+        cwc, cbc = concat_sets[0 if r_i == 0 else 2][1:3]
+        if not torch.equal(
+                previous_designs.concat_two_pass(cwc, cbc, maxw=pmaxw,
+                                                 restart_interval=r_i),
+                E.concat_streams_plain(cwc, cbc, r_i, pmaxw)):
+            raise AssertionError("the two-pass concat != plain version")
+    _say("13 concat", "concat_streams (one launch a call) bit-identical "
          f"to the plain version on {len(concat_sets)} sets: "
          + ", ".join(f"{label} ({cbc[1].shape[0]} images of "
                      f"{6 * cbc[1].shape[1]} blocks)"
                      for label, _, cbc, _, _ in concat_sets)
          + f"; {dropped} images outgrew their budget (words dropped, "
-         f"totals exact); shard budget {shard_maxw} words")
-    del concat_sets, owc, obc, gray_q, dense_q, dwc, dbc, halves
+         f"totals exact); shard budget {shard_maxw} words; tiles an image "
+         f"{concat_cuda.tile_layout((H // 16) * (W // 16))} at {H}x{W}, "
+         f"{concat_cuda.tile_layout(32400)} at 3840x2160 (tiles, MCUs a "
+         f"tile); encode_blocks on the 3840x2160 image identical to the "
+         f"plain version, restart_interval 0 and {ri}; the two-pass design "
+         f"(scripts/previous_designs.cu) identical on the main path's sets")
+    del concat_sets, owc, obc, gray_q, dense_q, dwc, dbc, halves, bwc, bbc
 
     # ---- 14. the block transforms against their plain versions and the
     # numpy models of the kernels' arithmetic order
@@ -1964,11 +2092,20 @@ def main() -> int:
     profs = {name: _profile(fn, 5) for name, fn in (
         ("enc", enc), ("dec", dec), ("enc_r", enc_r), ("dec_r", dec_r))}
     enc_prof, dec_prof = profs["enc"], profs["dec"]
-    if enc_prof["events"] > 12:
-        raise AssertionError(
-            f"the encode program without restart markers makes "
-            f"{enc_prof['events']} device events per call, 12 since the "
-            "fDCT kernel (35 with the concat kernel, 73 before it)")
+    # the encode programs, with and without restart markers, are the three
+    # hand kernels and nothing else between the upload and the fetch
+    program_kernels = ("fdct_quantize_kernel", "encode_blocks_batch_kernel",
+                       "concat_streams_kernel")
+    for name in ("enc", "enc_r"):
+        names = sorted(profs[name]["by_name"])
+        if profs[name]["events"] > 3 or len(names) != 3 or not all(
+                any(k in n for n in names) for k in program_kernels):
+            raise AssertionError(
+                f"the encode program ({name}) makes "
+                f"{profs[name]['events']} device events per call ({names}): "
+                "want the fDCT, entropy and concat kernels alone (12 events "
+                "before the entropy kernel took the predictors and the "
+                "concat became one launch)")
     # the ycc420 decode program is the IDCT kernel (a second launch only
     # for overflow rows); the device one the scan, its flags' conversion
     # and the IDCT kernel
@@ -1995,10 +2132,13 @@ def main() -> int:
     _say("5 device", f"main path per batch: encode event span "
          f"{spans['enc']:.3f} ms, device busy "
          f"{_fmt_ms(enc_prof['busy_ms'])} ms in {enc_prof['events']:.1f} "
-         f"device events ({earlier('encode')}; fused kernel "
-         f"{_fmt_ms(_kernel_ms(enc_prof, 'encode_blocks_kernel', False))} "
-         "ms, fDCT kernel "
+         f"device events ({earlier('encode')}; {EARLIER_ENCODE['encode']} "
+         f"with the earlier entropy tail; fused kernel "
+         f"{_fmt_ms(_kernel_ms(enc_prof, 'encode_blocks_batch_kernel', False))}"
+         " ms, fDCT kernel "
          f"{_fmt_ms(_kernel_ms(enc_prof, 'fdct_quantize_kernel', False))} "
+         "ms, concat kernel "
+         f"{_fmt_ms(_kernel_ms(enc_prof, 'concat_streams_kernel', False))} "
          "ms); "
          f"decode event span {spans['dec']:.3f} ms, device busy "
          f"{_fmt_ms(dec_prof['busy_ms'])} ms in {dec_prof['events']:.1f} "
@@ -2016,7 +2156,14 @@ def main() -> int:
     _say("8 device", f"restart path per batch: encode event span "
          f"{spans['enc_r']:.3f} ms, device busy "
          f"{_fmt_ms(profs['enc_r']['busy_ms'])} ms in "
-         f"{profs['enc_r']['events']:.1f} device events; device decode "
+         f"{profs['enc_r']['events']:.1f} device events "
+         f"({EARLIER_ENCODE['restart encode']} with the earlier entropy "
+         f"tail; fused kernel "
+         + _fmt_ms(_kernel_ms(profs["enc_r"], "encode_blocks_batch_kernel",
+                              False))
+         + " ms, concat kernel "
+         + _fmt_ms(_kernel_ms(profs["enc_r"], "concat_streams_kernel", False))
+         + " ms); device decode "
          f"program (_decode_fused_batch_device) event span "
          f"{spans['dec_r']:.3f} ms, device busy "
          f"{_fmt_ms(profs['dec_r']['busy_ms'])} ms in "
@@ -2051,21 +2198,33 @@ def main() -> int:
         return TC._emit_local(*quantized)
 
     emitted = st_emit()
+    stage_maxw = TC.stream_budget_words_batch(6 * (H // 16) * (W // 16))
     def st_concat():
         return TC._concat_batch_combined_comp(*emitted)
 
     def st_concat_plain():  # the stage as it was before the kernel
-        return E.concat_streams_plain(*emitted, 0,
-                                      TC.stream_budget_words_batch(
-                                          6 * (H // 16) * (W // 16)))
+        return E.concat_streams_plain(*emitted, 0, stage_maxw)
 
     parts = []
     for label, fn in (("fDCT+quantize, kernel (one wrapper call)", st_quant),
                       ("fDCT+quantize, plain torch on the card (the stage "
                        f"before the kernel; {earlier('fDCT+quantize')})",
                        st_quant_plain),
-                      ("entropy, fused kernel wrapper x3", st_emit),
+                      ("entropy, the batched kernel (one wrapper call)",
+                       st_emit),
+                      ("entropy, restart_interval=8, the batched kernel",
+                       lambda: TC._emit_local(*quantized, ri)),
+                      ("entropy as the earlier design ran it: plain "
+                       "predictor chains and three per-component launches "
+                       "(previous_designs)",
+                       lambda: previous_designs.encode_stage(*quantized)),
+                      ("the same, restart_interval=8",
+                       lambda: previous_designs.encode_stage(*quantized,
+                                                             ri)),
                       ("concat, kernel (one wrapper call)", st_concat),
+                      ("concat, the two-pass design (previous_designs)",
+                       lambda: previous_designs.concat_two_pass(
+                           *emitted, maxw=stage_maxw)),
                       ("concat, plain torch on the card (the stage before "
                        f"the kernel; {EARLIER_CONCAT_MS} ms busy in 40 events "
                        "in PR 5)", st_concat_plain)):
@@ -2218,13 +2377,12 @@ def main() -> int:
             bound("pack_words", sum(counts), sum(n_emitted)),
             f"{sum(n_emitted)} emissions in {sum(counts)} blocks"),
         "encode_blocks": (
-            [lambda i=i: pack_cuda.encode_blocks_cuda(*real_inputs[i][:3])
-             for i in range(3)],
-            lambda: [E.encode_block_words_plain(q, pred, chroma)
-                     for q, pred, chroma, _ in real_inputs],
-            ("encode_blocks_kernel",),
+            [lambda: pack_cuda.encode_blocks_batch_cuda(*real_comps)],
+            lambda: E.encode_blocks_batch_plain(*real_comps),
+            ("encode_blocks_batch_kernel",),
             bound("encode_blocks", sum(counts), sum(n_emitted)),
-            f"{sum(n_emitted)} emissions in {sum(counts)} blocks"),
+            f"{sum(n_emitted)} emissions in {sum(counts)} blocks, the three "
+            f"components in one launch"),
         "symbol_histograms": (
             [lambda: pack_cuda.symbol_histograms_batch_cuda(
                 *comps, restart_interval=RESTART_INTERVAL)],
@@ -2240,7 +2398,7 @@ def main() -> int:
         "concat_streams": (
             [lambda: concat_cuda.concat_streams_cuda(cwc, cbc, maxw=cmaxw)],
             lambda: E.concat_streams_plain(cwc, cbc, 0, cmaxw),
-            ("concat_offsets_kernel", "concat_scatter_kernel"),
+            ("concat_streams_kernel",),
             _bound(concat_bytes, CONCAT_OPS[0] * n_cblocks
                    + CONCAT_OPS[1] * used_words),
             f"{used_words} used words in {n_cblocks} blocks, "
@@ -2308,9 +2466,7 @@ def main() -> int:
                       for call in calls]
         t["cold_ms"] = sum(t["cold_launch_ms"])
         t["bound_ms"], t["bound_by"] = b_ms, b_by
-        t["sass_instructions"] = sum(
-            sass[k] for k in ((name, CONCAT_OFFSETS)
-                              if name == "concat_streams" else (name,)))
+        t["sass_instructions"] = sass[name]
         t["sass_ms"] = (sass_ms(name, counts) if name in BLOCKS_PER_WARP
                         else None)
         t["library_ms"] = (library_ms if name in ("fdct_quantize",
@@ -2351,13 +2507,76 @@ def main() -> int:
         nwc, nbc, maxw=n_maxw), 20, *kernels6["concat_streams"][2])
     dense_plain_ms = _time_ms(
         lambda: E.concat_streams_plain(nwc, nbc, 0, n_maxw), 3)
+    prev_concat = ("concat_offsets_kernel", "concat_scatter_kernel")
+    dense_prev_ms, _ = _traced(lambda: previous_designs.concat_two_pass(
+        nwc, nbc, maxw=n_maxw), 20, *prev_concat)
     timing["concat_streams"]["dense_ms"] = dense_ms
+    timing["concat_streams"]["previous_dense_ms"] = dense_prev_ms
     _say("6 times", f"concat_streams on dense blocks ({BATCH}x{H}x{W} noise "
          f"at quality 100, {n_used} used words in {n_cblocks} blocks, "
          f"budget {n_maxw} words): kernel {dense_ms:.4f} ms, bound "
-         f"{n_bound:.4f} ms by {n_by} = {n_bound / dense_ms:.3f} of it; "
-         f"plain version event span {dense_plain_ms:.4f} ms; on {card}")
+         f"{n_bound:.4f} ms by {n_by} = {n_bound / dense_ms:.3f} of it; the "
+         f"two-pass design in this run {dense_prev_ms:.4f} ms; plain version "
+         f"event span {dense_plain_ms:.4f} ms; on {card}")
     del nwc, nbc
+    # the entropy kernel and the concat beside the designs they replaced
+    # (scripts/previous_designs.cu), in turns on the same inputs: the
+    # kernels' own time, then with the L2 cache overwritten before each
+    # call, and what the card reports for each
+    cwc_r, cbc_r = concat_inputs_r
+    vs = {
+        "encode_blocks": (
+            lambda r_i: lambda: pack_cuda.encode_blocks_batch_cuda(
+                *real_comps, restart_interval=r_i),
+            ("encode_blocks_batch_kernel",),
+            lambda r_i: lambda: previous_designs.encode_stage(*real_comps,
+                                                              r_i),
+            ("encode_blocks_kernel",)),
+        "concat_streams": (
+            lambda r_i: lambda: concat_cuda.concat_streams_cuda(
+                *((cwc, cbc) if r_i == 0 else (cwc_r, cbc_r)), maxw=cmaxw,
+                restart_interval=r_i),
+            ("concat_streams_kernel",),
+            lambda r_i: lambda: previous_designs.concat_two_pass(
+                *((cwc, cbc) if r_i == 0 else (cwc_r, cbc_r)), maxw=cmaxw,
+                restart_interval=r_i),
+            prev_concat)}
+    infos = {**{f"now {k}": v for k, v in pack_cuda.kernel_info().items()},
+             "now concat_streams": concat_cuda.kernel_info(),
+             **{f"previous {k}": v
+                for k, v in previous_designs.kernel_info().items()}}
+    vs_rows = []
+    for name, (now, now_syms, prev, prev_syms) in vs.items():
+        row = {}
+        for r_i in (0, RESTART_INTERVAL):
+            for which, make, syms in (("now", now, now_syms),
+                                      ("previous", prev, prev_syms),
+                                      ("now again", now, now_syms),
+                                      ("previous again", prev, prev_syms)):
+                fn = make(r_i)
+                warm = _traced(fn, 20, *syms)[0]
+                cold = _traced(lambda: (l2_flush.zero_(), fn()), 20,
+                               *syms)[0]
+                row[f"{which}, restart_interval={r_i}"] = (warm, cold)
+        timing[name]["previous_ms"] = row[
+            "previous, restart_interval=0"][0]
+        timing[name]["previous_cold_ms"] = row[
+            "previous, restart_interval=0"][1]
+        timing[name]["versus_previous"] = row
+        vs_rows.append(f"{name}: " + "; ".join(
+            f"{k} {w:.4f} ms (L2 overwritten first {c:.4f})"
+            for k, (w, c) in row.items()))
+    timing["encode_blocks"]["kernel_info"] = {
+        k: v for k, v in infos.items() if "encode_blocks" in k}
+    timing["concat_streams"]["kernel_info"] = {
+        k: v for k, v in infos.items() if "concat_streams" in k}
+    _say("6 versus", "the current kernels beside the designs they replaced "
+         "(kernels' own device time, profiler; the earlier entropy design's "
+         "plain predictor chains not counted here, see 5 stages): "
+         + " || ".join(vs_rows) + "; what the card reports (registers a "
+         "thread, thread blocks an SM, static shared bytes, local bytes, "
+         "threads a block): " + ", ".join(f"{k} {v}" for k, v in
+                                          infos.items()) + f"; on {card}")
     # the IDCT kernel's dense form on the restart path's 2,048 segments
     dn_ms, _ = _traced(lambda: BT.idct_planes_dense(*dn_src, **dn_kw), 20,
                        "idct_planes_kernel")
@@ -2406,38 +2625,36 @@ def main() -> int:
          f"of the [{n_blocks}, 64] @ [64, 64] float32 product alone "
          f"{_fmt_ms(library_ms)} ms; on {card}")
     del sp_dev, dn_src, lib_x
-    # the fused kernel on four batches' worth of luma blocks in one launch
-    q4 = torch.cat([real_inputs[0][0]] * 4)
-    p4 = torch.cat([real_inputs[0][1]] * 4)
-    big_ms, _ = _traced(lambda: pack_cuda.encode_blocks_cuda(q4, p4, False),
-                        20, "encode_blocks_kernel")
-    big_bound, big_by = bound("encode_blocks", q4.shape[0], 4 * n_emitted[0])
-    _say("6 times", f"encode_blocks on [{q4.shape[0]}, 64] luma blocks in "
-         f"one launch: kernel {big_ms:.4f} ms, bound {big_bound:.4f} ms by "
-         f"{big_by} = {big_bound / big_ms:.3f} of it")
+    # the fused kernel on four batches in one launch
+    comps4 = tuple(torch.cat([c] * 4) for c in real_comps)
+    big_ms, _ = _traced(lambda: pack_cuda.encode_blocks_batch_cuda(*comps4),
+                        20, "encode_blocks_batch_kernel")
+    big_bound, big_by = bound("encode_blocks", 4 * sum(counts),
+                              4 * sum(n_emitted))
+    _say("6 times", f"encode_blocks on {4 * BATCH} images "
+         f"({4 * sum(counts)} blocks) in one launch: kernel {big_ms:.4f} ms, "
+         f"bound {big_bound:.4f} ms by {big_by} = {big_bound / big_ms:.3f} "
+         f"of it")
     # the fused kernel with the batch's 16 per-image table sets (optimize)
     def run_sets(cold=False):
-        for q, pred, tabs, bpi in set_inputs:
-            if cold:
-                l2_flush.zero_()
-            pack_cuda.encode_blocks_cuda(q, pred, tabs, bpi)
+        if cold:
+            l2_flush.zero_()
+        pack_cuda.encode_blocks_batch_cuda(*real_comps, tables=set_rows)
 
-    sets_ms, _ = _traced(run_sets, 20, "encode_blocks_kernel")
+    sets_ms, _ = _traced(run_sets, 20, "encode_blocks_batch_kernel")
     sets_cold_ms, _ = _traced(lambda: run_sets(True), 20,
-                              "encode_blocks_kernel")
-    def run_fixed():
-        for call in kernels6["encode_blocks"][0]:
-            call()
-
-    fixed_ms, _ = _traced(run_fixed, 20, "encode_blocks_kernel")
+                              "encode_blocks_batch_kernel")
+    fixed_ms, _ = _traced(kernels6["encode_blocks"][0][0], 20,
+                          "encode_blocks_batch_kernel")
     timing["encode_blocks"]["ms_per_image_tables"] = sets_ms
     timing["encode_blocks"]["cold_ms_per_image_tables"] = sets_cold_ms
     _say("6 times", f"encode_blocks per {BATCH}x{H}x{W} batch with "
          f"{BATCH} per-image table sets (optimize): kernel {sets_ms:.4f} ms "
-         f"(L2 overwritten before each launch {sets_cold_ms:.4f}) beside "
+         f"(L2 overwritten first {sets_cold_ms:.4f}) beside "
          f"{fixed_ms:.4f} ms with the fixed tables in the same run; bound "
          f"{timing['encode_blocks']['bound_ms']:.4f} ms")
-    del real_inputs, q4, p4, set_inputs, concat_inputs, comps, fdct_inputs
+    del real_inputs, comps4, real_comps, set_rows, concat_inputs
+    del concat_inputs_r, comps, fdct_inputs
 
     # ---- 9. the scan kernel alone on the real segments of phase 7
     S, Lw = real_args["words"].shape
@@ -2556,7 +2773,9 @@ def main() -> int:
         **{k: t[k] for k in ("ms_per_image_tables",
                              "cold_ms_per_image_tables", "dense_ms",
                              "dense_form_ms", "cold_dense_form_ms",
-                             "kernel_info")
+                             "kernel_info", "previous_ms",
+                             "previous_cold_ms", "previous_dense_ms",
+                             "versus_previous")
            if k in t},
     } for name, t in timing.items()]}))
     print(card)

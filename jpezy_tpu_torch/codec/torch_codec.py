@@ -7,9 +7,10 @@ Encode, `ycc420` transport (the default): host C++ RGB -> YCC 4:2:0 int8
 planes (float64, the reference's exact truncation) -> ONE packed int8
 upload -> the CUDA fDCT+quantize kernel (blockify, float32 DCT, quantize,
 one launch for the three components, ops/block_transform.py), the CUDA
-entropy kernel (Huffman emissions and bit packing in one launch per
-component), the CUDA stream concat (one call, the blocks read where the
-entropy kernel wrote them) -> ONE fetch of `combined` [N, 1 + maxw] ->
+entropy kernel (DC predictors, Huffman emissions and bit packing, one
+launch for the three components), the CUDA stream concat (one launch, the
+blocks read where the entropy kernel wrote them) -> ONE fetch of
+`combined` [N, 1 + maxw] ->
 host header + byte stuffing.
 `rgb` transport: ONE [N, H, W, 3] u8 upload, colour conversion and 4:2:0
 decimation on the device (float32 in fast mode), then the same program.
@@ -18,7 +19,7 @@ quantized blocks stay on the device, the CUDA histogram kernel counts each
 image's symbols (one launch for the three components), ONE [N, 4, 256]
 fetch, the host derives two table pairs per image (T.81 K.2), ONE upload
 of the table sets, and the entropy kernel codes every image with its own
-set in one launch per component; each stream carries its own DHT.
+set in one launch; each stream carries its own DHT.
 
 Decode: marker parse (every stream must be decodable), then one of four
 transports.  `ycc420`: host C++ Huffman frontend + sparsify -> ONE uint8
@@ -97,32 +98,19 @@ def _emit_local(yq, cbq, crq, restart_interval: int = 0,
                 tables=(None, None), carry=None):
     """Quantized blocks -> per-component (words, bits), component order
     (jpezy_tpu/parallel/sharded.py:_emit_local with interleave=False, the
-    carry given in place of its ppermute).
-
-    Images are flattened into the block axis: emissions are block-local
-    once the per-image DC chains are captured in the predictors.  One
-    entropy kernel per component (E.encode_block_words).
+    carry given in place of its ppermute): E.encode_blocks_batch, one
+    entropy kernel launch for the three components on CUDA tensors, the
+    per-image DC predictor chains found in the kernel.
     restart_interval > 0 resets each component's predictor chain every
     that many MCUs (4 blocks of Y, 1 of Cb and of Cr per MCU).
     tables: (luma, chroma) Huffman tables in the JAX order, each None (the
-    fixed tables) or one set per image with a leading [N] axis.
+    fixed tables) or one set, or one set per image with a leading [N]
+    axis; on CUDA tensors also the kernel's rows (E.kernel_tables).
     carry: [N, 3] first DC predictor of each image's Y, Cb and Cr chain (a
     tile shard's carry-in, jpezy_tpu_torch/parallel/sharded.py); None for
     0, a whole image."""
-    words, bits = [], []
-    for c, (q, chroma, bpm, tabs) in enumerate((
-            (yq, False, 4, tables[0]), (cbq, True, 1, tables[1]),
-            (crq, True, 1, tables[1]))):
-        n, b, _ = q.shape
-        pred = E.dc_predictors_restart(
-            q[:, :, 0], restart_interval * bpm,
-            None if carry is None else carry[:, c])
-        w_c, b_c = E.encode_block_words(q.reshape(-1, 64), pred.reshape(-1),
-                                        chroma, tables=tabs,
-                                        blocks_per_image=b)
-        words.append(w_c.reshape(n, b, w_c.shape[-1]))
-        bits.append(b_c.reshape(n, b))
-    return tuple(words), tuple(bits)
+    return E.encode_blocks_batch(yq, cbq, crq, restart_interval, carry,
+                                 tables)
 
 
 def stream_budget_words_batch(nblocks: int) -> int:
@@ -251,7 +239,7 @@ def _encode_batch_custom(yq, cbq, crq, ytables, ctables, *,
     """Entropy-code a batch with PER-IMAGE Huffman tables
     (jax_codec._encode_batch_custom): ytables/ctables are (dc_size,
     dc_code, ac_size, ac_code) with a leading [N] axis, on the host.  One
-    entropy kernel per component codes every image with its own set; the
+    entropy kernel launch codes every image with its own set; the
     stream matches the JAX package's; returns what
     _encode_batch_blocks_packed returns."""
     if yq.is_cuda:  # the kernel's rows, laid out on the host: one upload each

@@ -13,23 +13,29 @@
 //     In:  hi, lo [B, 64] uint32 halves of each merged emission (the
 //          emission sits MSB-first in the low bits of hi:lo), nbits [B, 64]
 //          int32 emission lengths, 0 <= nbits <= 59.
-//   jz_encode_blocks  emissions fused in (jpezy_tpu/ops/entropy.py:
-//     block_emissions followed by pack_block_words); the encode program
-//     uses this one, so emissions never reach device memory.
-//     In:  q [B, 64] int32 quantized blocks in natural order, pred [B]
-//          int32 DC predictors, and T sets of Huffman tables, int32
-//          [T, 348]: each row dc_code, dc_size [12] by magnitude category,
-//          then ac_code, ac_size [162] in the flat layout
-//          idx = rem*10 + s + (rem == 15) (EOB at 0, ZRL at 151).  `custom`
-//          says the tables are the caller's (optimize): block b takes set
-//          b / blocks_per_image (per-image optimal tables; one launch for
-//          the whole batch), and an emission may exceed 64 bits.  Without
-//          it the one set is the fixed Annex K tables.
-//   Out of both: words [B, 64] MSB-first packed block bitstring, 32-bit
-//     words stored zero-extended as uint64, which is the int64 word
-//     convention of the stream concat (storing them as uint32 and widening
-//     them in a second pass was measured slower, PERF.md); bits [B] int32
-//     total bits.
+//   jz_encode_blocks_batch  emissions fused in (jpezy_tpu/ops/entropy.py:
+//     block_emissions followed by pack_block_words), with the DC
+//     predictor chains of jpezy_tpu/parallel/sharded.py:_emit_local that
+//     XLA fused on the TPU; the encode program uses this one, one launch
+//     for the batch's three components, so neither emissions nor
+//     predictors reach device memory.
+//     In:  yq [N, B_Y, 64], cbq and crq [N, B_C, 64] int32 quantized
+//          blocks in natural order, the restart interval ri (MCUs; a
+//          segment is 4 ri blocks of Y, ri of Cb and of Cr), an optional
+//          carry [N, 3] int32 (each image's first DC predictor per
+//          component), and a luma and a chroma set of Huffman tables,
+//          int32 [T, 348] each: each row dc_code, dc_size [12] by
+//          magnitude category, then ac_code, ac_size [162] in the flat
+//          layout idx = rem*10 + s + (rem == 15) (EOB at 0, ZRL at 151).
+//          `custom` says the tables are the caller's (optimize): one set
+//          for the batch, or one an image (image n takes set n), and an
+//          emission may exceed 64 bits.  Without it the sets are the
+//          fixed Annex K tables.
+//   Out of both: words [B, 64] MSB-first packed block bitstring (per
+//     component [N, B_c, 64]), 32-bit words stored zero-extended as
+//     uint64, which is the int64 word convention of the stream concat
+//     (storing them as uint32 and widening them in a second pass was
+//     measured slower, PERF.md); bits [B] int32 total bits.
 //   jz_symbol_histograms_batch  the counts of jpezy_tpu/codec/jax_codec.py:
 //     _symbol_histograms_batch (jpezy_tpu/ops/entropy.py:symbol_histograms
 //     vmapped over images, one chain per component), which XLA fused on
@@ -39,8 +45,8 @@
 //     image's first DC predictor per component.  Out: hist [N, 4, 256]
 //     int32, zeroed by the caller: per image the Y DC magnitude categories,
 //     the Y AC symbols RRRRSSSS with ZRL (0xF0) and EOB (0x00), then the
-//     same two rows for Cb and Cr together: the symbols jz_encode_blocks
-//     would emit.
+//     same two rows for Cb and Cr together: the symbols
+//     jz_encode_blocks_batch would emit.
 //
 // Design: a warp owns an 8x8 block.  Lane l owns emission slots l and l+32,
 // so a warp reads its block's 256-byte row of each input in two 128-byte
@@ -55,9 +61,14 @@
 // register.  Optimal tables allow codes of 16 bits and emissions of up to
 // 74, more than a 64-bit register holds, so the kernel is instantiated
 // twice: the custom-table form keeps the prefix (<= 48 bits) apart as a
-// count until it is placed, and takes each block's table set; the
+// count until it is placed, and takes each image's table set; the
 // fixed-table form, the main path's, carries neither (28-32 registers
-// against 40).  The shared
+// against 40).  One launch takes the batch's three components, a warp's
+// blocks all of one component; each block's DC predictor is found in the
+// kernel (the previous block's DC, already in lane 0 for the warp's second
+// block, one 4-byte load for its first; 0 at a restart segment's start;
+// the carry or 0 at the image's first block), so no predictor array is
+// built or read.  The shared
 // pack routine then turns lengths into exclusive bit offsets with one warp
 // shuffle scan (both slots' lengths ride in the halves of one register),
 // cuts each part into its <= 3 words and ORs them with atomicOr into
@@ -92,8 +103,10 @@
 // What bounds them: memory traffic.  Per block the function jz_pack_words
 // computes must read 768 bytes and write 64 32-bit words and a count, 260:
 // 1,028 bytes, 101 MB per 16x512x512 4:2:0 batch of 98,304 blocks.  That
-// of jz_encode_blocks must read 260 and write 260: 520 bytes, 51 MB per
-// batch (the table sets add 1,392 bytes a set, read through the cache);
+// of jz_encode_blocks_batch must read 256 and write 260: 516 bytes, 50.7
+// MB per batch (the per-component form it replaced also read a 4-byte
+// predictor a block, 520; the table sets add 1,392 bytes a set, read
+// through the cache);
 // jz_symbol_histograms_batch reads the 256 bytes of coefficients and
 // writes 4 KB an image: 25.2 MB per batch.  These are the bounds.  The zero upper halves of the stored
 // words are 256 more bytes per block (1,284 and 776 moved), a cost of the
@@ -237,18 +250,6 @@ __global__ void __launch_bounds__(kWarpsPerCta * 32)
              nullptr, bufs[warp], lane, words + base, bits + b);
 }
 
-// The table set of block b out of `nsets` (b / blocks_per_image; the
-// launcher keeps b below 2**31 when nsets > 1).
-__device__ __forceinline__ const int32_t* table_set(const int32_t* tables,
-                                                    int64_t b, int nsets,
-                                                    int64_t blocks_per_image) {
-  if (nsets <= 1) return tables;
-  const int s = min(static_cast<int>(static_cast<uint32_t>(b) /
-                                     static_cast<uint32_t>(blocks_per_image)),
-                    nsets - 1);
-  return tables + s * kSetEntries;
-}
-
 // Magnitude category: bit length of |v| (0 for v == 0).
 __device__ __forceinline__ int category(int v) {
   return 32 - __clz(v < 0 ? -v : v);
@@ -318,61 +319,127 @@ __device__ __forceinline__ void ac_emission(int c, int j, int prev,
   }
 }
 
+// One block, by the whole warp: lane l holds the coefficients at zigzag
+// positions l (c0) and l + 32 (c1); dcp is the DC predictor (read in
+// lane 0), t the block's table set.  Writes the block's 64 words and its
+// bit count.
+template <bool kCustom>
+__device__ __forceinline__ void encode_block(int c0, int c1, int dcp,
+                                             const int32_t* t, uint32_t* buf,
+                                             int lane, uint64_t* out_row,
+                                             int32_t* out_bits) {
+  const uint32_t lanes_below = (1u << lane) - 1u;
+  // nonzero masks of zigzag positions 0..31 and 32..63; bit 0 (the DC)
+  // is always set, so "no nonzero AC before me" reads as position 0
+  const uint32_t nz_lo = __ballot_sync(kFullMask, c0 != 0) | 1u;
+  const uint32_t nz_hi = __ballot_sync(kFullMask, c1 != 0);
+  const uint32_t below_hi = nz_hi & lanes_below;
+  typename Body<kCustom>::type v0, v1;
+  int zc0, n0, zc1, n1;
+  if (lane == 0) {
+    zc0 = 0;
+    dc_emission(c0 - dcp, t, v0, n0);
+  } else {
+    ac_emission<kCustom>(c0, lane, 31 - __clz(nz_lo & lanes_below), t, zc0,
+                         v0, n0);
+  }
+  ac_emission<kCustom>(
+      c1, lane + 32,
+      below_hi != 0u ? 63 - __clz(below_hi) : 31 - __clz(nz_lo), t, zc1, v1,
+      n1);
+  pack_block(zc0, v0, n0, zc1, v1, n1, t, buf, lane, out_row, out_bits);
+}
+
+// One component of the batch: its quantized blocks [N, per_image, 64], its
+// table sets (one, or one an image), its outputs.
+struct Component {
+  const int32_t* q;
+  const int32_t* tables;
+  uint64_t* words;
+  int32_t* bits;
+  int per_image;   // blocks an image
+  int seg_blocks;  // blocks a restart segment; 0 for none
+  int warps;       // warps it takes: ceil(N * per_image / kBlocksPerWarp)
+};
+
+// One launch for the batch's three components.  A warp takes
+// kBlocksPerWarp consecutive blocks of one component, picked by branches
+// (a parameter array indexed at run time would be copied to local
+// memory).  Block b's DC predictor is block b - 1's DC in the same image
+// and component; 0 where a restart segment starts (every seg_blocks
+// blocks), and carry[n, comp] (or 0) at image n's first block.  The warp's
+// second block takes the first block's DC, which lane 0 already holds;
+// only the first block loads one more DC (4 bytes).  Every predictor and
+// table set is decided, and every load started, before any block is
+// coded.  The launcher keeps each component's blocks below 2**31, so the
+// indices are 32-bit.
 template <bool kCustom>
 __global__ void __launch_bounds__(kWarpsPerCta * 32)
-    encode_blocks_kernel(const int32_t* __restrict__ q,
-                         const int32_t* __restrict__ pred,
-                         const int32_t* __restrict__ tables, int nsets,
-                         int64_t blocks_per_image,
-                         uint64_t* __restrict__ words, int32_t* __restrict__ bits,
-                         int64_t nblocks) {
+    encode_blocks_batch_kernel(Component y, Component cb, Component cr,
+                               const int32_t* __restrict__ carry, int nimages,
+                               int nsets) {
   __shared__ uint32_t bufs[kWarpsPerCta][kWords];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  // the warp's first block; every test on a block index is warp-uniform
-  const int64_t b0 =
-      (static_cast<int64_t>(blockIdx.x) * kWarpsPerCta + warp) * kBlocksPerWarp;
-  if (b0 >= nblocks) return;
+  int g = blockIdx.x * kWarpsPerCta + warp;
+  Component k = y;
+  int comp = 0;
+  if (g >= y.warps) {  // every test on g is warp-uniform
+    g -= y.warps;
+    k = cb;
+    comp = 1;
+    if (g >= cb.warps) {
+      g -= cb.warps;
+      k = cr;
+      comp = 2;
+      if (g >= cr.warps) return;  // whole warps leave together
+    }
+  }
+  const unsigned nblocks = static_cast<unsigned>(nimages) * k.per_image;
+  const unsigned b0 = static_cast<unsigned>(g) * kBlocksPerWarp;
   // All loads of the warp's blocks are started before any is used: a block
   // is only 256 bytes, and one block per warp keeps too few bytes in
   // flight to cover the latency of device memory.
   const int z0 = kZigzag[lane];
   const int z1 = kZigzag[lane + 32];
   int c0[kBlocksPerWarp], c1[kBlocksPerWarp], dcp[kBlocksPerWarp];
+  bool chained[kBlocksPerWarp];  // predictor: the previous block's DC
+  unsigned set[kBlocksPerWarp];
+  unsigned n = b0 / k.per_image;
+  unsigned at = b0 - n * k.per_image;  // the block's index in its image
 #pragma unroll
   for (int i = 0; i < kBlocksPerWarp; ++i) {
-    const int64_t b = b0 + i < nblocks ? b0 + i : b0;  // tail: load a valid row
-    c0[i] = __ldg(q + b * kSlots + z0);
-    c1[i] = __ldg(q + b * kSlots + z1);
-    dcp[i] = lane == 0 ? __ldg(pred + b) : 0;
-  }
-  const uint32_t lanes_below = (1u << lane) - 1u;
-#pragma unroll
-  for (int i = 0; i < kBlocksPerWarp; ++i) {
-    const int64_t b = b0 + i;
-    if (b >= nblocks) break;
-    const int32_t* t = tables;
-    if constexpr (kCustom) t = table_set(tables, b, nsets, blocks_per_image);
-    // nonzero masks of zigzag positions 0..31 and 32..63; bit 0 (the DC)
-    // is always set, so "no nonzero AC before me" reads as position 0
-    const uint32_t nz_lo = __ballot_sync(kFullMask, c0[i] != 0) | 1u;
-    const uint32_t nz_hi = __ballot_sync(kFullMask, c1[i] != 0);
-    const uint32_t below_hi = nz_hi & lanes_below;
-    typename Body<kCustom>::type v0, v1;
-    int zc0, n0, zc1, n1;
-    if (lane == 0) {
-      zc0 = 0;
-      dc_emission(c0[i] - dcp[i], t, v0, n0);
-    } else {
-      ac_emission<kCustom>(c0[i], lane, 31 - __clz(nz_lo & lanes_below), t,
-                           zc0, v0, n0);
+    const bool live = b0 + i < nblocks;
+    const unsigned b = live ? b0 + i : b0;  // tail: load a valid row
+    const int32_t* row = k.q + static_cast<size_t>(b) * kSlots;
+    c0[i] = __ldg(row + z0);
+    c1[i] = __ldg(row + z1);
+    const bool seg_start = k.seg_blocks > 0 && at % k.seg_blocks == 0;
+    chained[i] = i > 0 && at != 0 && !seg_start;
+    dcp[i] = 0;
+    if (live && !seg_start && at == 0 && carry != nullptr)
+      dcp[i] = __ldg(carry + n * 3 + comp);
+    else if (!seg_start && at != 0 && i == 0 && lane == 0)
+      dcp[i] = __ldg(row - kSlots);  // the block before the warp's first
+    set[i] = n;
+    if (++at == static_cast<unsigned>(k.per_image)) {
+      at = 0;
+      ++n;
     }
-    ac_emission<kCustom>(
-        c1[i], lane + 32,
-        below_hi != 0u ? 63 - __clz(below_hi) : 31 - __clz(nz_lo), t, zc1, v1,
-        n1);
-    pack_block(zc0, v0, n0, zc1, v1, n1, t, bufs[warp], lane,
-               words + b * kSlots, bits + b);
+  }
+#pragma unroll
+  for (int i = 0; i < kBlocksPerWarp; ++i) {
+    const unsigned b = b0 + i;
+    if (b >= nblocks) break;
+    // the previous block's DC is c0[i - 1] in lane 0
+    const int pred = chained[i] ? c0[i > 0 ? i - 1 : 0] : dcp[i];
+    const int32_t* t = k.tables;
+    if constexpr (kCustom) {
+      if (nsets > 1) t += set[i] * kSetEntries;
+    }
+    encode_block<kCustom>(c0[i], c1[i], pred, t, bufs[warp], lane,
+                          k.words + static_cast<size_t>(b) * kSlots,
+                          k.bits + b);
   }
 }
 
@@ -484,6 +551,23 @@ bool grid_for(long long nblocks, int per_warp, unsigned* grid) {
   return true;
 }
 
+template <typename K>
+int kernel_info(K kernel, int threads, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  info[0] = attr.numRegs;
+  info[1] = per_sm;
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = threads;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -505,26 +589,53 @@ int jz_pack_words(const void* hi, const void* lo, const void* nbits,
   return static_cast<int>(cudaGetLastError());
 }
 
-// tables [nsets, kSetEntries] int32.  custom != 0: the caller's tables,
-// with nsets > 1 block b takes set b / blocks_per_image; custom == 0: the
-// one fixed Annex K set (nsets must be 1).
-int jz_encode_blocks(const void* q, const void* pred, const void* tables,
-                     int nsets, int custom, long long blocks_per_image,
-                     void* words, void* bits, long long nblocks,
-                     void* stream) {
-  if (nblocks <= 0) return 0;
-  if (nsets < 1 || (!custom && nsets != 1) ||
-      (nsets > 1 && (blocks_per_image <= 0 || nblocks > 0x7FFFFFFFll)))
+// The batch's three components in one launch.  yq [N, luma_blocks, 64],
+// cbq and crq [N, chroma_blocks, 64] int32; luma and chroma: the two
+// components' table rows [nsets, kSetEntries] int32, the fixed Annex K
+// rows (custom == 0, nsets 1) or the caller's (custom != 0: nsets 1, or N
+// and image n takes set n); carry [N, 3] int32 or null; ri the restart
+// interval in MCUs (0: none); out per component: words [N, B_c, 64]
+// uint64 and bits [N, B_c] int32.
+int jz_encode_blocks_batch(const void* yq, const void* cbq, const void* crq,
+                           const void* luma, const void* chroma, int nsets,
+                           int custom, const void* carry, void* wy, void* wcb,
+                           void* wcr, void* by, void* bcb, void* bcr,
+                           long long nimages, long long luma_blocks,
+                           long long chroma_blocks, long long ri,
+                           void* stream) {
+  if (nimages <= 0) return 0;
+  const long long most = 0x7FFFFFFFll;  // 32-bit block indices
+  if (luma_blocks <= 0 || chroma_blocks <= 0 || ri < 0 ||
+      nimages * luma_blocks > most || nimages * chroma_blocks > most ||
+      4 * ri > most || nsets < 1 || (!custom && nsets != 1) ||
+      (nsets > 1 && nsets != nimages))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long luma_warps =
+      (nimages * luma_blocks + kBlocksPerWarp - 1) / kBlocksPerWarp;
+  const long long chroma_warps =
+      (nimages * chroma_blocks + kBlocksPerWarp - 1) / kBlocksPerWarp;
   unsigned grid;
-  if (!grid_for(nblocks, kBlocksPerWarp, &grid))
+  if (!grid_for(luma_warps + 2 * chroma_warps, 1, &grid) ||
+      luma_warps + 2 * chroma_warps > most)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel =
-      custom ? encode_blocks_kernel<true> : encode_blocks_kernel<false>;
+  const auto comp = [](const void* q, const void* t, void* w, void* b,
+                       long long per_image, long long seg_blocks,
+                       long long warps) {
+    return Component{static_cast<const int32_t*>(q),
+                     static_cast<const int32_t*>(t), static_cast<uint64_t*>(w),
+                     static_cast<int32_t*>(b), static_cast<int>(per_image),
+                     static_cast<int>(seg_blocks), static_cast<int>(warps)};
+  };
+  const Component y = comp(yq, luma, wy, by, luma_blocks, 4 * ri, luma_warps);
+  const Component cb =
+      comp(cbq, chroma, wcb, bcb, chroma_blocks, ri, chroma_warps);
+  const Component cr =
+      comp(crq, chroma, wcr, bcr, chroma_blocks, ri, chroma_warps);
+  auto kernel = custom ? encode_blocks_batch_kernel<true>
+                       : encode_blocks_batch_kernel<false>;
   kernel<<<grid, kWarpsPerCta * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(q), static_cast<const int32_t*>(pred),
-      static_cast<const int32_t*>(tables), nsets, blocks_per_image,
-      static_cast<uint64_t*>(words), static_cast<int32_t*>(bits), nblocks);
+      y, cb, cr, static_cast<const int32_t*>(carry),
+      static_cast<int>(nimages), nsets);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -559,6 +670,28 @@ int jz_symbol_histograms_batch(const void* yq, const void* cbq,
       static_cast<int>(chroma_blocks), static_cast<int>(ri),
       static_cast<int>(luma_ctas), static_cast<int>(chroma_ctas));
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card reports for kernel `which` (0: encode_blocks, fixed
+// tables; 1: custom tables; 2: symbol_histograms; 3: pack_words):
+// info[0] registers a thread, [1] resident thread blocks an SM, [2] static
+// shared bytes, [3] local bytes a thread, [4] threads a block.  Returns 0
+// or a CUDA error code.
+int jz_entropy_kernel_info(int which, int* info) {
+  switch (which) {
+    case 0:
+      return kernel_info(encode_blocks_batch_kernel<false>, kWarpsPerCta * 32,
+                         info);
+    case 1:
+      return kernel_info(encode_blocks_batch_kernel<true>, kWarpsPerCta * 32,
+                         info);
+    case 2:
+      return kernel_info(symbol_histograms_batch_kernel, kHistThreads, info);
+    case 3:
+      return kernel_info(pack_words_kernel, kWarpsPerCta * 32, info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* jz_cuda_error_string(int code) {

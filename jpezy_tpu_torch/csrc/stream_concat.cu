@@ -9,7 +9,7 @@
 //
 //   In:  per component c (Y, Cb, Cr) words_c [N, B_c, 64] 32-bit words
 //        stored zero-extended as uint64 (the packed block bitstring,
-//        MSB-first, zero past the block's bits: what jz_encode_blocks
+//        MSB-first, zero past the block's bits: what jz_encode_blocks_batch
 //        writes) and bits_c [N, B_c] int32, B_Y = 4 nm, B_Cb = B_Cr = nm
 //        for nm MCUs an image; restart_interval ri (0: none); maxw.
 //   Out: combined [N, 1 + S + maxw] int64: the image's total bits, then
@@ -19,281 +19,445 @@
 //
 // The stream holds the blocks in MCU order (Y0..Y3, Cb, Cr per MCU); the
 // blocks stay in component order in memory and the kernel finds a block's
-// place by index arithmetic.  A block's bit offset is the exclusive prefix
-// sum of the bit counts in MCU order.  With restarts each segment of ri
-// MCUs starts on a byte boundary: the (8 - seg_bits % 8) % 8 bits that
-// round segment s up are inserted before segment s + 1, and after the last
-// segment for the total.
+// place by index arithmetic.  With restarts each segment of ri MCUs starts
+// on a byte boundary: the (8 - seg_bits % 8) % 8 bits that round segment
+// s up are inserted before segment s + 1, and after the last segment for
+// the total.  Since every segment starts on a byte boundary, rounding the
+// running bit offset up to a multiple of 8 at each segment's first MCU
+// inserts exactly that padding.  So an MCU maps the running offset x to
+// x + bits, or, where a segment starts, to ceil8(x) + bits; a run of MCUs
+// composes to x + a or ceil8(x + a) + c (struct Run), an associative
+// operation, so offsets are an ordinary prefix scan over Runs.
 //
-// Two launches:
-//  1. concat_offsets_kernel: one thread block per image, and kZeroCtas
-//     more that zero every image's maxw stream words.  An image's block
-//     zeros its segment counts, adds each MCU's bits into its segment's
-//     count (atomics, one a warp where the warp's MCUs share one segment),
-//     then scans the MCUs: one MCU (six bit counts) per thread, a
-//     block-wide scan per round of kThreads MCUs with the running sum
-//     carried, the padding of the previous segment added at each
-//     segment's first MCU.  It writes every block's offset into the
-//     scratch goff [N, 6 nm] (component order) and the total.
-//  2. concat_scatter_kernel: a warp takes 32 consecutive blocks and lays
-//     their output words (a block's used words, ceil(bits / 32), and the
-//     carry word after them) out as one list, by a scan over its lanes;
-//     then lane l places entries l, l + 32, ... of the list, kRounds at a
-//     time with their loads in flight first.  Output word j of a block
-//     takes the block's words j and j - 1 funnel-shifted to the offset's
-//     phase.  A block covers its interior words whole, so those take
-//     plain stores; its first and last words are shared with its
-//     neighbours and take atomicOr (the bits are disjoint, so OR merges
-//     them).  Zero words are not written: pass 1 zeroed the stream.
+// One launch, no scratch in device memory.  A thread block owns a tile: a
+// run of tile_mcus consecutive MCUs of one image (the wrapper's
+// tile_layout: at least 8 tiles a 512 x 512 image, at most 16 an image
+// until a tile would pass kMaxTileMcus), so a 16-image batch of 512 x 512
+// runs 128 thread blocks on the card's 132 SMs, the image's last tile
+// first.  The thread block
+//  1. folds the bit counts of all MCUs from the image's start to its
+//     tile's end, a contiguous run of MCUs a thread, then scans the
+//     threads' Runs.  Its predecessors' counts are re-reduced, not waited
+//     for: no tile depends on another, and with at most 16 tiles an image
+//     the counts are read at most 8 times (from L2: the entropy kernel has
+//     just written them);
+//  2. writes its MCUs' first-block offsets and bit counts into shared
+//     memory, and the bit counts of the segments that end in the tile (no
+//     atomics: each segment ends in one tile);
+//  3. assembles its stream words in a shared-memory stage (up to kStage
+//     words at a time, or maxw where fewer).  Word w is the
+//     tile's when the tile's first offset <= 32 w < the next tile's first
+//     offset.  A thread a block (stream order) ORs the block's used words,
+//     funnel-shifted to their phase, into the stage, kGroup blocks a
+//     thread with their first kAhead words loaded together; one thread,
+//     the walker, adds to the tile's last word the bits of the next
+//     tiles' blocks (the next tile's first counts loaded during step 1);
+//     the stage leaves in coalesced plain stores, and the image's last
+//     tile then writes the zeros after the data up to maxw in 16-byte
+//     stores.  So every word of the stream, zeros included, is one plain
+//     store, no word is zeroed first and none is merged in device memory.
 //
-// What bounds it: memory traffic, and at these sizes the launches.  The
+// What bounds it: memory traffic, and at these sizes latency.  The
 // function must read each block's bit count and used words once and write
 // combined once: for a 16 x 512 x 512 4:2:0 batch of photographs about
 // 0.4 MB of counts, 0.8 MB of used words and 1.6 MB of combined, under a
-// microsecond at the card's rate.  The offsets scratch (8 bytes a block,
-// written and read once) is the price of splitting the scan from the
-// scatter.  Blocks differ widely in length: a photograph's use one or two
-// words, noise at quality 100 about 22.  A warp per block leaves most
-// lanes idle on the first; a thread per block stores 32 blocks' words to
-// 32 places at once, uncoalesced, on the second (both measured, PERF.md).
-// The list keeps every lane busy on either and the lanes of a block on
-// neighbouring words.
+// microsecond at the card's rate.  The earlier two-pass design wrote an
+// 8-byte offset a block to a scratch array and read it back, zeroed the
+// streams in thread blocks of their own and ran one thread block an image
+// for the offsets; this one keeps the offsets in shared memory and spreads
+// each image over many SMs.  What is left is a chain of dependent steps a
+// thread block (the counts from L2, the scan, the block words, the
+// stores; times in PERF.md), the image's last tile, which re-reduces the
+// whole image and writes its zeros, the longest.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr int kWords = 64;          // words a block holds
-constexpr int kThreads = 1024;      // pass 1: MCUs per round
-constexpr int kZeroCtas = 64;       // pass 1: thread blocks zeroing streams
-constexpr int kScatterThreads = 256;  // pass 2: blocks a thread block takes
-constexpr int kRounds = 2;  // pass 2: output words a lane places per step
+constexpr int kWords = 64;            // words a block holds
+constexpr int kThreads = 512;         // a thread block: one tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTileMcus = 2048;    // shared memory: 16 KB of offsets
+                                      // and 24 KB of bit counts at most
+constexpr int kStage = 32768;         // and up to 128 KB of words being
+                                      // assembled (maxw words if fewer)
+constexpr int kGroup = 2;             // blocks a thread starts at once
+constexpr int kAhead = 6;             // words of each block in flight
+constexpr int kNext = 2;              // MCUs of the next tile read early
+
+// Dynamic shared memory of a tile of tile_mcus MCUs and a stage of
+// stage_words words.
+constexpr size_t smem_bytes(long long tile_mcus, long long stage_words) {
+  return 8 * tile_mcus + 2 * ((6 * tile_mcus + 1) & ~1ll) + 4 * stage_words;
+}
 
 struct Comps {
-  const uint64_t* words[3];
-  const int32_t* bits[3];
+  const uint64_t* wy;
+  const uint64_t* wcb;
+  const uint64_t* wcr;
+  const int32_t* by;
+  const int32_t* bcb;
+  const int32_t* bcr;
 };
 
-// Bit counts of MCU m of image n, in stream order Y0..Y3, Cb, Cr.
+// Bit counts of MCU m of image n, in stream order Y0..Y3, Cb, Cr (the Y
+// counts as one 16-byte load: the launcher checks their alignment).
 __device__ __forceinline__ void mcu_bits(const Comps& c, int64_t n,
                                          int64_t nm, int64_t m, int32_t b[6]) {
-  const int32_t* y = c.bits[0] + (n * nm + m) * 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) b[j] = __ldg(y + j);
-  b[4] = __ldg(c.bits[1] + n * nm + m);
-  b[5] = __ldg(c.bits[2] + n * nm + m);
+  const int4 y = __ldg(reinterpret_cast<const int4*>(c.by) + n * nm + m);
+  b[0] = y.x;
+  b[1] = y.y;
+  b[2] = y.z;
+  b[3] = y.w;
+  b[4] = __ldg(c.bcb + n * nm + m);
+  b[5] = __ldg(c.bcr + n * nm + m);
 }
 
-// The zero bits that round a segment of seg_bits up to a byte.
-__device__ __forceinline__ int64_t pad_of(int64_t seg_bits) {
-  return (8 - (seg_bits & 7)) & 7;
+// Block j (stream order within the MCU) of MCU m: its 64 words.
+__device__ __forceinline__ const uint64_t* block_words(const Comps& c,
+                                                       int64_t n, int64_t nm,
+                                                       int64_t m, int j) {
+  if (j < 4) return c.wy + ((n * nm + m) * 4 + j) * kWords;
+  return (j == 4 ? c.wcb : c.wcr) + (n * nm + m) * kWords;
 }
 
-// Exclusive block-wide scan of x over kThreads threads; *sum receives the
-// total.  `warp_sums` holds 32 values in shared memory.
-__device__ __forceinline__ int64_t block_scan(int64_t x, int64_t* warp_sums,
-                                              int64_t* sum) {
+__device__ __forceinline__ int64_t ceil8(int64_t x) { return (x + 7) & ~7ll; }
+
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ int64_t lmax(int64_t a, int64_t b) {
+  return a > b ? a : b;
+}
+
+// A run of MCUs as a map of the running bit offset x: x + a, or, when a
+// segment starts inside the run, ceil8(x + a) + c.
+struct Run {
+  int64_t a, c;
+  int bound;
+};
+
+// the empty run: x -> x
+__device__ __forceinline__ Run none() { return Run{0, 0, 0}; }
+
+// f, then g.  ceil8(ceil8(y) + d) = ceil8(y) + ceil8(d), so two runs with
+// segment starts compose into one.
+__device__ __forceinline__ Run then(Run f, Run g) {
+  if (!g.bound) {
+    if (f.bound)
+      f.c += g.a;
+    else
+      f.a += g.a;
+    return f;
+  }
+  if (!f.bound) return Run{f.a + g.a, g.c, 1};
+  return Run{f.a, ceil8(f.c + g.a) + g.c, 1};
+}
+
+__device__ __forceinline__ int64_t apply(Run f, int64_t x) {
+  return f.bound ? ceil8(x + f.a) + f.c : x + f.a;
+}
+
+__device__ __forceinline__ Run shfl_up(Run r, int d) {
+  return Run{__shfl_up_sync(kFullMask, r.a, d),
+             __shfl_up_sync(kFullMask, r.c, d),
+             __shfl_up_sync(kFullMask, r.bound, d)};
+}
+
+// Exclusive in-order scan of the threads' runs over the thread block;
+// *whole receives the run of all of them.  `sh` holds kWarps runs.
+__device__ __forceinline__ Run block_scan(Run r, Run* sh, Run* whole) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  int64_t v = x;
+  Run incl = r;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int64_t o = __shfl_up_sync(kFullMask, v, d);
-    if (lane >= d) v += o;
+    const Run o = shfl_up(incl, d);
+    if (lane >= d) incl = then(o, incl);
   }
-  if (lane == 31) warp_sums[warp] = v;
+  if (lane == 31) sh[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int64_t w = warp_sums[lane];
+    Run w = lane < kWarps ? sh[lane] : none();
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int64_t o = __shfl_up_sync(kFullMask, w, d);
-      if (lane >= d) w += o;
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const Run o = shfl_up(w, d);
+      if (lane >= d) w = then(o, w);
     }
-    warp_sums[lane] = w;  // inclusive over warps
+    __syncwarp();
+    if (lane < kWarps) sh[lane] = w;  // inclusive over warps
   }
   __syncthreads();
-  const int64_t before = warp > 0 ? warp_sums[warp - 1] : 0;
-  *sum = warp_sums[31];
-  __syncthreads();  // warp_sums is reused by the next call
-  return before + v - x;
+  Run excl = shfl_up(incl, 1);
+  if (lane == 0) excl = none();
+  const Run before = warp > 0 ? sh[warp - 1] : none();
+  *whole = sh[kWarps - 1];
+  __syncthreads();  // sh may be reused
+  return then(before, excl);
+}
+
+// Bits [p, p + 32) of a block of nb > 0 bits at offset o, where the block
+// overlaps them (o < p + 32 and o + nb > p): its word i and the next one
+// funnel-shifted to the word's phase; the next is read only where the
+// block has bits there.
+__device__ __forceinline__ uint32_t piece(const uint64_t* w, int nb,
+                                          int64_t o, int64_t p) {
+  if (o >= p)
+    return static_cast<uint32_t>(__ldg(w)) >> static_cast<int>(o - p);
+  const int k = static_cast<int>(p - o);  // < nb
+  const int i = k >> 5;
+  const int r = k & 31;
+  const uint32_t hi = static_cast<uint32_t>(__ldg(w + i));
+  const uint32_t lo = r != 0 && 32 * (i + 1) < nb
+                          ? static_cast<uint32_t>(__ldg(w + i + 1))
+                          : 0u;
+  return __funnelshift_l(lo, hi, r);
+}
+
+// The bits [p, p + 32) that the blocks after the tile put there: the
+// tile's last word may reach into the next tiles' blocks, whose offsets
+// follow from s_next, the offset where MCU m1 starts (before its
+// segment's padding).  The bit counts of the next kNext MCUs are in nxt
+// (loaded early); a walk further loads them.
+__device__ uint32_t bits_past_tile(const Comps& c, int64_t n, int64_t nm,
+                                   int64_t ri, int64_t m1, int64_t s_next,
+                                   int64_t p, const int32_t (*nxt)[6]) {
+  uint32_t word = 0u;
+  int64_t o = s_next;
+  for (int64_t m = m1; m < nm && o < p + 32; ++m) {
+    if (ri > 0 && m % ri == 0) o = ceil8(o);
+    int32_t b[6];
+    if (m < m1 + kNext) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) b[j] = nxt[m - m1][j];
+    } else {
+      mcu_bits(c, n, nm, m, b);
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if (b[j] > 0 && o < p + 32 && o + b[j] > p)
+        word |= piece(block_words(c, n, nm, m, j), b[j], o, p);
+      o += b[j];
+    }
+  }
+  return word;
+}
+
+// What block i (stream order) of a tile puts into the stage's words [lo,
+// hi): its output words q + x for x in [x0, x1] (x0 > x1: none), where
+// output word q + x takes its words x (shifted right by r) and x - 1, and
+// the words [first, last] of its own that these need.
+struct Span {
+  const uint64_t* w;
+  int64_t q;
+  int r, nw, x0, x1, first, last;
+};
+
+__device__ __forceinline__ Span span_of(const Comps& c, int64_t n,
+                                        int64_t nm, int64_t m0,
+                                        int64_t tile_mcus, const int64_t* off,
+                                        const uint16_t* cnt, int i, int nblk,
+                                        int64_t lo, int64_t hi) {
+  Span sp = {nullptr, 0, 0, 0, 1, 0, 0, -1};
+  if (i >= nblk) return sp;
+  const int k = i / 6;
+  const int j = i - 6 * k;
+  const int nb = cnt[j * tile_mcus + k];
+  if (nb == 0) return sp;
+  int64_t o = off[k];
+  for (int jj = 0; jj < j; ++jj) o += cnt[jj * tile_mcus + k];
+  sp.q = o >> 5;
+  sp.r = static_cast<int>(o & 31);
+  sp.nw = (nb + 31) >> 5;
+  // the last output word only where the block's bits reach into it
+  const int64_t x0 = lmax(0, lo - sp.q);
+  const int64_t x1 = lmin(sp.r > 0 ? sp.nw : sp.nw - 1, hi - 1 - sp.q);
+  if (x0 > x1) return sp;
+  sp.x0 = static_cast<int>(x0);
+  sp.x1 = static_cast<int>(x1);
+  sp.first = sp.x0 > 0 ? sp.x0 - 1 : 0;
+  sp.last = min(sp.x1, sp.nw - 1);
+  sp.w = block_words(c, n, nm, m0 + k, j);
+  return sp;
+}
+
+// OR a block's output words into the stage.  ahead holds its words first,
+// first + 1, ...; each word taken is replaced by the one kAhead later.
+__device__ __forceinline__ void place_block(const Span& sp,
+                                            uint32_t (&ahead)[kAhead],
+                                            uint32_t* stage, int64_t lo) {
+  int y = sp.first;  // the word in ahead[0]
+  const auto take = [&]() {
+    const uint32_t v = ahead[0];
+#pragma unroll
+    for (int u = 0; u + 1 < kAhead; ++u) ahead[u] = ahead[u + 1];
+    ahead[kAhead - 1] = y + kAhead <= sp.last
+                            ? static_cast<uint32_t>(__ldg(sp.w + y + kAhead))
+                            : 0u;
+    ++y;
+    return v;
+  };
+  uint32_t prev = sp.x0 > 0 ? take() : 0u;
+  for (int x = sp.x0; x <= sp.x1; ++x) {
+    const uint32_t cur = x < sp.nw ? take() : 0u;
+    const uint32_t v =
+        sp.r == 0 ? cur : (cur >> sp.r) | (prev << (32 - sp.r));
+    if (v != 0u) atomicOr(stage + (sp.q + x - lo), v);
+    prev = cur;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-    concat_offsets_kernel(Comps c, int64_t nimages, int64_t nm, int64_t ri,
-                          int64_t nseg, int64_t maxw,
-                          int64_t* __restrict__ goff,
+    concat_streams_kernel(Comps c, int64_t nimages, int64_t nm, int64_t ri,
+                          int64_t nseg, int64_t maxw, int64_t tile_mcus,
+                          int64_t ntiles, int64_t stage_words,
                           int64_t* __restrict__ combined) {
-  __shared__ int64_t warp_sums[32];
-  const int64_t row = 1 + nseg + maxw;
-  if (blockIdx.x >= nimages) {  // one of the kZeroCtas: zero the streams
-    const int64_t stride = static_cast<int64_t>(kZeroCtas) * kThreads;
-    for (int64_t i = (blockIdx.x - nimages) * kThreads + threadIdx.x;
-         i < nimages * maxw; i += stride) {
-      const int64_t n = i / maxw;
-      combined[n * row + 1 + nseg + (i - n * maxw)] = 0;
+  // dynamic shared memory: the tile's MCU offsets, its bit counts (<=
+  // 2048; block j of MCU m at cnt[j * tile_mcus + m - m0]) and the stage
+  // of stage_words words that its words are assembled in
+  extern __shared__ int64_t dyn[];
+  int64_t* off = dyn;
+  uint16_t* cnt = reinterpret_cast<uint16_t*>(off + tile_mcus);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(
+      cnt + ((6 * tile_mcus + 1) & ~1ll));
+  __shared__ Run sh[kWarps];
+  __shared__ int64_t marks[2];  // s_t, and the base of the open segment
+  // the bit counts of the next tile's first MCUs, for the tile's last word
+  __shared__ int32_t nxt[kNext][6];
+  // the image's last tile first: it writes the most words
+  const int64_t n = blockIdx.x % nimages;
+  const int64_t t = ntiles - 1 - blockIdx.x / nimages;
+  const int64_t m0 = t * tile_mcus;
+  const int64_t m1 = lmin(nm, m0 + tile_mcus);
+  const bool last = m1 == nm;
+  // the first MCU of the segment that holds m0
+  const int64_t open = ri > 0 ? m0 / ri * ri : m0;
+
+  // 1. the MCUs [0, m1): a contiguous run a thread, then the block's scan
+  const int64_t chunk = (m1 + kThreads - 1) / kThreads;
+  const int64_t c0 = lmin(m1, static_cast<int64_t>(threadIdx.x) * chunk);
+  const int64_t c1 = lmin(m1, c0 + chunk);
+  const int64_t phase0 = ri > 0 ? c0 % ri : 1;
+  Run mine = none();
+  {
+    int64_t phase = phase0;
+#pragma unroll 4
+    for (int64_t m = c0; m < c1; ++m) {
+      int32_t b[6];
+      mcu_bits(c, n, nm, m, b);
+      const int64_t mb = b[0] + b[1] + b[2] + b[3] + b[4] + b[5];
+      mine = then(mine, (m > 0 && phase == 0) ? Run{0, mb, 1}
+                                              : Run{mb, 0, 0});
+      if (ri > 0 && ++phase == ri) phase = 0;
     }
-    return;
   }
-  const int64_t n = blockIdx.x;
-  int64_t* out = combined + n * row;
-  unsigned long long* seg = reinterpret_cast<unsigned long long*>(out + 1);
-  for (int64_t i = threadIdx.x; i < nseg; i += kThreads) out[1 + i] = 0;
-  __syncthreads();
-  // the segments' bit counts: MCUs of one segment sit in neighbouring
-  // threads; a warp whose MCUs all lie in one segment adds once
-  if (ri > 0) {
-    for (int64_t m0 = 0; m0 < nm; m0 += kThreads) {
-      const int64_t m = m0 + threadIdx.x;
-      int32_t b[6] = {0, 0, 0, 0, 0, 0};
-      if (m < nm) mcu_bits(c, n, nm, m, b);
-      const int64_t s = m < nm ? m / ri : -1;
-      const unsigned sum =
-          static_cast<unsigned>(b[0] + b[1] + b[2] + b[3] + b[4] + b[5]);
-      if (__match_any_sync(kFullMask, s) == kFullMask) {  // warp-uniform
-        const unsigned total = __reduce_add_sync(kFullMask, sum);
-        if (s >= 0 && (threadIdx.x & 31) == 0 && total != 0u)
-          atomicAdd(seg + s, static_cast<unsigned long long>(total));
-      } else if (s >= 0 && sum != 0u) {
-        atomicAdd(seg + s, static_cast<unsigned long long>(sum));
+  // the walker, the last thread, takes the tile's last word; the counts
+  // it needs first are loaded now, beside the scan's
+  const bool walker = threadIdx.x == kThreads - 1 && !last;
+  if (walker)
+    for (int k = 0; k < kNext && m1 + k < nm; ++k)
+      mcu_bits(c, n, nm, m1 + k, nxt[k]);
+  Run whole;
+  const Run before = block_scan(mine, sh, &whole);
+  const int64_t s_next = apply(whole, 0);  // the offset where m1 starts
+
+  // 2. offsets: the value before MCU m0 (s_t), the base of the segment
+  // open at m0, and every tile MCU's first-block offset (after padding)
+  if (c1 > open) {
+    int64_t v = apply(before, 0);
+    int64_t phase = phase0;
+    for (int64_t m = c0; m < c1; ++m) {
+      int32_t b[6];
+      mcu_bits(c, n, nm, m, b);
+      if (m == m0) marks[0] = v;
+      if (m > 0 && phase == 0) v = ceil8(v);
+      if (m == open && m < m0) marks[1] = v;
+      if (m >= m0) {
+        off[m - m0] = v;
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          cnt[j * tile_mcus + m - m0] = static_cast<uint16_t>(b[j]);
       }
+      v += b[0] + b[1] + b[2] + b[3] + b[4] + b[5];
+      if (ri > 0 && ++phase == ri) phase = 0;
     }
+  }
+  __syncthreads();
+  const int64_t s_t = marks[0];
+  int64_t* out = combined + n * (1 + nseg + maxw);
+  // the bit counts of the segments that end in this tile
+  if (ri > 0) {
+    for (int64_t s = m0 / ri + threadIdx.x; s <= (m1 - 1) / ri;
+         s += kThreads) {
+      const int64_t e = lmin((s + 1) * ri, nm) - 1;  // its last MCU
+      if (e >= m1) continue;
+      int64_t end = off[e - m0];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) end += cnt[j * tile_mcus + e - m0];
+      const int64_t start = s * ri;
+      out[1 + s] = end - (start >= m0 ? off[start - m0] : marks[1]);
+    }
+  }
+  if (last && threadIdx.x == 0) out[0] = ri > 0 ? ceil8(s_next) : s_next;
+
+  // 3. the tile's words [w0, w_data): the words that start in its bits,
+  // up to maxw, assembled stage_words at a time in shared memory (all at
+  // once unless the tile's words are many): a thread a
+  // block ORs the block's words, shifted to their phase, into the stage;
+  // the walker adds the bits of the next tiles' blocks in the tile's last
+  // word; then the stage leaves in coalesced plain stores.  The last tile
+  // then writes the zeros after the image's data.
+  int64_t* stream = out + 1 + nseg;
+  const int64_t w0 = (s_t + 31) >> 5;
+  const int64_t w_data = lmin(maxw, (s_next + 31) >> 5);
+  const int nblk = static_cast<int>(6 * (m1 - m0));
+  for (int64_t lo = w0; lo < w_data; lo += stage_words) {
+    const int64_t hi = lmin(lo + stage_words, w_data);
+    for (int i = threadIdx.x; i < hi - lo; i += kThreads) stage[i] = 0u;
+    __syncthreads();
+    uint32_t past = 0u;
+    if (walker && hi == w_data && (s_next & 31) != 0)
+      past = bits_past_tile(c, n, nm, ri, m1, s_next, (w_data - 1) << 5, nxt);
+    // kGroup blocks a thread, all their first kAhead words in flight
+    // before any is used, and each block's later words kAhead ahead
+    for (int i0 = threadIdx.x; i0 < nblk; i0 += kGroup * kThreads) {
+      Span sp[kGroup];
+      uint32_t ahead[kGroup][kAhead];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        sp[g] = span_of(c, n, nm, m0, tile_mcus, off, cnt, i0 + g * kThreads,
+                        nblk, lo, hi);
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u)
+          ahead[g][u] = sp[g].first + u <= sp[g].last
+                            ? static_cast<uint32_t>(
+                                  __ldg(sp[g].w + sp[g].first + u))
+                            : 0u;
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g)
+        if (sp[g].x0 <= sp[g].x1)
+          place_block(sp[g], ahead[g], stage, lo);
+    }
+    if (past != 0u) atomicOr(stage + (w_data - 1 - lo), past);
+    __syncthreads();
+    for (int i = threadIdx.x; i < hi - lo; i += kThreads)
+      stream[lo + i] = stage[i];
     __syncthreads();
   }
-  // the offsets: one MCU a thread, in rounds of kThreads MCUs
-  int64_t carry = 0;
-  for (int64_t m0 = 0; m0 < nm; m0 += kThreads) {
-    const int64_t m = m0 + threadIdx.x;
-    int32_t b[6] = {0, 0, 0, 0, 0, 0};
-    int64_t pad = 0;
-    if (m < nm) {
-      mcu_bits(c, n, nm, m, b);
-      if (ri > 0 && m > 0 && m % ri == 0)
-        pad = pad_of(static_cast<int64_t>(__ldcg(seg + m / ri - 1)));
+  if (last) {  // the words after the image's data: 16-byte stores
+    int64_t w = lmax(w0, w_data);
+    if (w < maxw && (reinterpret_cast<uintptr_t>(stream + w) & 15) != 0) {
+      if (threadIdx.x == 0) stream[w] = 0;
+      ++w;
     }
-    const int64_t mbits = b[0] + b[1] + b[2] + b[3] + b[4] + b[5];
-    int64_t round_sum;
-    int64_t off = carry + block_scan(mbits + pad, warp_sums, &round_sum) + pad;
-    carry += round_sum;
-    if (m < nm) {
-      int64_t* g = goff + n * 6 * nm;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        g[4 * m + j] = off;
-        off += b[j];
-      }
-      g[4 * nm + m] = off;
-      g[5 * nm + m] = off + b[4];
-    }
-  }
-  if (threadIdx.x == 0)
-    out[0] = carry + (ri > 0 ? pad_of(static_cast<int64_t>(
-                                   __ldcg(seg + nseg - 1)))
-                             : 0);
-}
-
-// OR v into stream word w (< maxw); a plain store where the block owns the
-// word whole.
-__device__ __forceinline__ void put(uint64_t* stream, int64_t w, int64_t maxw,
-                                    uint32_t v, bool owned) {
-  if (v == 0u || w >= maxw) return;
-  if (owned)
-    stream[w] = v;
-  else
-    atomicOr(reinterpret_cast<unsigned long long*>(stream + w),
-             static_cast<unsigned long long>(v));
-}
-
-// Output word j of a block at bit phase r: its word j shifted right by r,
-// below the r low bits of its word j - 1.
-__device__ __forceinline__ uint32_t shifted(uint64_t cur, uint64_t prev,
-                                            int r) {
-  const uint32_t a = static_cast<uint32_t>(cur) >> r;
-  return r == 0 ? a : a | static_cast<uint32_t>(prev << (32 - r));
-}
-
-__global__ void __launch_bounds__(kScatterThreads)
-    concat_scatter_kernel(Comps c, int64_t nm, int64_t nseg, int64_t maxw,
-                          const int64_t* __restrict__ goff,
-                          int64_t* __restrict__ combined, int64_t nblocks) {
-  const int lane = threadIdx.x & 31;
-  const int64_t g =
-      static_cast<int64_t>(blockIdx.x) * kScatterThreads + threadIdx.x;
-  // this lane's block: its used words, offset, words and stream
-  int nw = 0;
-  int64_t off = 0;
-  const uint64_t* w = nullptr;
-  uint64_t* stream = nullptr;
-  if (g < nblocks) {
-    const int64_t per_image = 6 * nm;
-    const int64_t n = g / per_image;
-    int64_t i = g - n * per_image;
-    // the component by branches: a parameter array indexed at run time
-    // would be copied to local memory
-    const int32_t* bits = c.bits[0];
-    const uint64_t* words = c.words[0];
-    int64_t bc = 4 * nm;
-    if (i >= 5 * nm) {
-      bits = c.bits[2], words = c.words[2], i -= 5 * nm, bc = nm;
-    } else if (i >= 4 * nm) {
-      bits = c.bits[1], words = c.words[1], i -= 4 * nm, bc = nm;
-    }
-    const int nb = __ldg(bits + n * bc + i);
-    if (nb > 0) {
-      nw = min(kWords, (nb + 31) >> 5);
-      off = __ldg(goff + g);
-      w = words + (n * bc + i) * kWords;
-      stream = reinterpret_cast<uint64_t*>(combined + n * (1 + nseg + maxw) +
-                                           1 + nseg);
-    }
-  }
-  // The warp's 32 blocks' output words as one list: a block's nw words
-  // and its carry word, from `start` on (an exclusive scan over lanes).
-  const int count = nw > 0 ? nw + 1 : 0;
-  int start = count;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(kFullMask, start, d);
-    if (lane >= d) start += o;
-  }
-  const int total = __shfl_sync(kFullMask, start, 31);
-  start -= count;
-  const auto bcast = [](const void* p, int k) {
-    return __shfl_sync(kFullMask, reinterpret_cast<unsigned long long>(p), k);
-  };
-  for (int f0 = 0; f0 < total; f0 += 32 * kRounds) {
-    int j[kRounds], nwk[kRounds], r[kRounds];
-    int64_t q[kRounds];
-    uint64_t* dst[kRounds];
-    uint64_t cur[kRounds], prev[kRounds];
-#pragma unroll
-    for (int t = 0; t < kRounds; ++t) {
-      const int f = f0 + 32 * t + lane;
-      // the block of list entry f: the last lane whose words start at or
-      // before it (starts do not decrease; an empty block shares its start
-      // with the next block)
-      int k = 0;
-#pragma unroll
-      for (int step = 16; step > 0; step >>= 1)
-        if (__shfl_sync(kFullMask, start, k + step) <= f) k += step;
-      j[t] = f - __shfl_sync(kFullMask, start, k);
-      nwk[t] = __shfl_sync(kFullMask, nw, k);
-      const int64_t ok = __shfl_sync(kFullMask, off, k);
-      const uint64_t* wk = reinterpret_cast<const uint64_t*>(bcast(w, k));
-      dst[t] = reinterpret_cast<uint64_t*>(bcast(stream, k));
-      r[t] = static_cast<int>(ok & 31);
-      q[t] = ok >> 5;
-      if (f >= total) j[t] = -1;
-      cur[t] = j[t] >= 0 && j[t] < nwk[t] ? __ldg(wk + j[t]) : 0ull;
-      prev[t] = j[t] > 0 ? __ldg(wk + j[t] - 1) : 0ull;
-    }
-    // output word j of a block takes its words j and j - 1
-#pragma unroll
-    for (int t = 0; t < kRounds; ++t)
-      if (j[t] >= 0)
-        put(dst[t], q[t] + j[t], maxw, shifted(cur[t], prev[t], r[t]),
-            j[t] > 0 && j[t] < nwk[t] - 1);
+    longlong2* pairs = reinterpret_cast<longlong2*>(stream + w);
+    for (int64_t i = threadIdx.x; i < (maxw - w) >> 1; i += kThreads)
+      pairs[i] = make_longlong2(0, 0);
+    if (w < maxw && ((maxw - w) & 1) != 0 && threadIdx.x == 0)
+      stream[maxw - 1] = 0;
   }
 }
 
@@ -301,41 +465,62 @@ __global__ void __launch_bounds__(kScatterThreads)
 
 extern "C" {
 
-// Launches both passes on `stream` (PyTorch's current stream) and returns
-// cudaGetLastError(): 0 on success.  Does not synchronise.  goff [N, 6 nm]
-// int64 scratch and combined [N, 1 + nseg + maxw] int64 are written whole.
+// Launches the kernel on `stream` (PyTorch's current stream) and returns
+// cudaGetLastError(): 0 on success.  Does not synchronise.  combined [N,
+// 1 + nseg + maxw] int64 is written whole.  tile_mcus, ntiles: the tiles
+// of an image (ops/concat_cuda.py:tile_layout), ntiles * tile_mcus >= nm
+// > (ntiles - 1) * tile_mcus, tile_mcus <= kMaxTileMcus.
 int jz_concat_streams(const void* wy, const void* wcb, const void* wcr,
                       const void* by, const void* bcb, const void* bcr,
-                      void* goff, void* combined, long long nimages,
-                      long long nm, long long ri, long long nseg,
-                      long long maxw, void* stream) {
+                      void* combined, long long nimages, long long nm,
+                      long long ri, long long nseg, long long maxw,
+                      long long tile_mcus, long long ntiles, void* stream) {
   if (nimages <= 0) return 0;
-  if (nm <= 0 || ri < 0 || maxw <= 0 || nimages > 0x7FFFFFFFll ||
-      nseg != (ri > 0 ? (nm + ri - 1) / ri : 0))
+  if (nm <= 0 || ri < 0 || maxw <= 0 ||
+      nseg != (ri > 0 ? (nm + ri - 1) / ri : 0) || tile_mcus <= 0 ||
+      tile_mcus > kMaxTileMcus || ntiles <= 0 || ntiles * tile_mcus < nm ||
+      (ntiles - 1) * tile_mcus >= nm ||
+      reinterpret_cast<uintptr_t>(by) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long nblocks = nimages * 6 * nm;
-  const long long grid2 = (nblocks + kScatterThreads - 1) / kScatterThreads;
-  if (grid2 > 0x7FFFFFFFll || nimages + kZeroCtas > 0x7FFFFFFFll)
+  if (nimages * ntiles > 0x7FFFFFFFll)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  Comps c;
-  c.words[0] = static_cast<const uint64_t*>(wy);
-  c.words[1] = static_cast<const uint64_t*>(wcb);
-  c.words[2] = static_cast<const uint64_t*>(wcr);
-  c.bits[0] = static_cast<const int32_t*>(by);
-  c.bits[1] = static_cast<const int32_t*>(bcb);
-  c.bits[2] = static_cast<const int32_t*>(bcr);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  concat_offsets_kernel<<<static_cast<unsigned>(nimages + kZeroCtas),
-                          kThreads, 0, s>>>(
-      c, nimages, nm, ri, nseg, maxw, static_cast<int64_t*>(goff),
+  const Comps c = {static_cast<const uint64_t*>(wy),
+                   static_cast<const uint64_t*>(wcb),
+                   static_cast<const uint64_t*>(wcr),
+                   static_cast<const int32_t*>(by),
+                   static_cast<const int32_t*>(bcb),
+                   static_cast<const int32_t*>(bcr)};
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      concat_streams_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(kMaxTileMcus, kStage)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long stage_words = maxw < kStage ? maxw : kStage;
+  concat_streams_kernel<<<static_cast<unsigned>(nimages * ntiles), kThreads,
+                          smem_bytes(tile_mcus, stage_words),
+                          static_cast<cudaStream_t>(stream)>>>(
+      c, nimages, nm, ri, nseg, maxw, tile_mcus, ntiles, stage_words,
       static_cast<int64_t*>(combined));
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  concat_scatter_kernel<<<static_cast<unsigned>(grid2), kScatterThreads, 0,
-                          s>>>(c, nm, nseg, maxw,
-                               static_cast<const int64_t*>(goff),
-                               static_cast<int64_t*>(combined), nblocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What the card reports for the kernel: info[0] registers a thread, [1]
+// resident thread blocks an SM and [2] shared bytes a thread block at the
+// main path's shape (tiles of 128 MCUs, a budget of 12,288 words), [3]
+// local bytes a thread, [4] threads a block.  Returns 0 or a CUDA error code.
+int jz_concat_kernel_info(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, concat_streams_kernel);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, concat_streams_kernel, kThreads, smem_bytes(128, 12288));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  info[0] = attr.numRegs;
+  info[1] = per_sm;
+  info[2] = static_cast<int>(attr.sharedSizeBytes + smem_bytes(128, 12288));
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = kThreads;
+  return 0;
 }
 
 const char* jz_cuda_error_string(int code) {

@@ -35,13 +35,15 @@ def nvcc() -> str:
 
 
 class KernelLibrary:
-    """One csrc/*.cu source and the shared library built from it.
+    """One csrc/*.cu source (or one in `directory`) and the shared library
+    built from it.
 
     bind(lib) sets the restype/argtypes of the library's entry points;
     every library also exports jz_cuda_error_string(int)."""
 
-    def __init__(self, source: str, bind):
-        self.src = os.path.join(_PKG, "csrc", source)
+    def __init__(self, source: str, bind, directory: str | None = None):
+        self.src = os.path.join(directory or os.path.join(_PKG, "csrc"),
+                                source)
         self.so = os.path.join(
             BUILD_DIR, f"libjz_{os.path.splitext(source)[0]}.so")
         self._bind = bind

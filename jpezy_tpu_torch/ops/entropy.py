@@ -11,15 +11,17 @@ Counterpart of jpezy_tpu/ops/entropy.py, same formulation:
  2. Bit offsets are exclusive cumsums of emission lengths.
  3. Per-block packing aligns each emission into a 96-bit window of three
     32-bit words and ORs the windows into the block's 64-word buffer.
- 3'. On a CUDA device steps 1-3 are ONE hand-written kernel
-    (encode_block_words -> ops/pack_cuda.py, csrc/entropy_pack.cu): a warp
-    per block computes the 64 emissions in registers and packs them
-    through a shared-memory word buffer, so the emissions (768 bytes per
-    block) never reach device memory; per block it moves the 260 bytes of
-    coefficients and predictor in and the words and bit count out.  The
-    same source holds the pack alone (pack_block_words), the one-to-one
-    counterpart of the JAX package's Pallas kernel.  For CPU tensors both
-    take the plain tensor programs below (block_emissions and the
+ 3'. On a CUDA device steps 1-3, and the DC predictor chains of every
+    image and component, are ONE hand-written kernel launch for the
+    batch's three components (encode_blocks_batch -> ops/pack_cuda.py,
+    csrc/entropy_pack.cu): a warp per block finds its predictor, computes
+    the 64 emissions in registers and packs them through a shared-memory
+    word buffer, so neither the emissions (768 bytes per block) nor the
+    predictors reach device memory; per block it moves the 256 bytes of
+    coefficients in and the words and bit count out.  The same source
+    holds the pack alone (pack_block_words), the one-to-one counterpart of
+    the JAX package's Pallas kernel.  For CPU tensors both take the plain
+    tensor programs below (dc_predictors_restart, block_emissions and the
     masked-reduce pack), which are also what the kernels are held to.
  4. Cross-block concatenation funnel-shifts block words to their global
     bit phase and adds them into per-image streams (concat_streams; on
@@ -325,32 +327,82 @@ def encode_block_words_plain(qblocks, dc_pred, chroma: bool, tables=None,
 def encode_block_words(qblocks, dc_pred, chroma: bool, tables=None,
                        blocks_per_image=None):
     """[B, 64] int32 quantized blocks (natural order) and [B] DC predictors
-    -> (words [B, 64] int64 in [0, 2**32), bits [B] int32).
-
-    tables: None for the component's fixed Annex K Huffman tables, else
-    (dc_size, dc_code, ac_size, ac_code) in the JAX package's order, one
-    set or one per image (leading [N] axis; block b takes set
-    b // blocks_per_image, by default B // N); on CUDA tensors also the
-    kernel's rows that kernel_tables made of them.  CUDA tensors go
-    through the fused hand-written kernel (pack_cuda.encode_blocks_cuda:
-    one launch for all the sets), which never stores the emissions; CPU
-    tensors through encode_block_words_plain.  The choice follows the
-    tensors' device; a kernel that fails to build or launch raises.
-    """
-    if qblocks.is_cuda:
-        from .pack_cuda import encode_blocks_cuda
-
-        if tables is None:
-            tables = bool(chroma)
-        elif not isinstance(tables, torch.Tensor):
-            tables = kernel_tables(tables, qblocks.device)
-        return encode_blocks_cuda(qblocks, dc_pred.to(torch.int32), tables,
-                                  blocks_per_image)
+    -> (words [B, 64] int64 in [0, 2**32), bits [B] int32):
+    encode_block_words_plain on CPU tensors.  tables: None for the
+    component's fixed Annex K Huffman tables, else (dc_size, dc_code,
+    ac_size, ac_code) in the JAX package's order, one set or one per image
+    (leading [N] axis; block b takes set b // blocks_per_image, by default
+    B // N).  The card has no per-component kernel: a batch's CUDA blocks
+    go through encode_blocks_batch, which finds the predictors itself, so
+    CUDA tensors raise here."""
     if qblocks.device.type != "cpu":
         raise ValueError(
-            f"encode_block_words: unsupported device {qblocks.device}")
+            f"encode_block_words: unsupported device {qblocks.device} (CUDA "
+            "blocks take encode_blocks_batch, one kernel for the batch)")
     return encode_block_words_plain(qblocks, dc_pred, chroma, tables,
                                     blocks_per_image)
+
+
+def encode_blocks_batch_plain(yq, cbq, crq, restart_interval: int = 0,
+                              carry=None, tables=(None, None)):
+    """Plain torch entropy encode of a batch's three components
+    (jpezy_tpu/parallel/sharded.py:_emit_local with interleave=False, the
+    carry given in place of its ppermute): per component the DC predictor
+    chain of each image (dc_predictors_restart: reset every
+    restart_interval MCUs, 4 blocks of Y and 1 of Cb and of Cr per MCU;
+    carry[:, c] or 0 at the image's first block), then
+    encode_block_words_plain over the flattened blocks.
+
+    yq [N, B_Y, 64], cbq and crq [N, B_C, 64] quantized blocks; carry:
+    [N, 3] or None; tables: (luma, chroma) Huffman tables in the JAX
+    order, each None (the fixed tables) or one set, or one set per image
+    with a leading [N] axis.  Returns ((words_Y, words_Cb, words_Cr) [N,
+    B_c, 64] int64 in [0, 2**32), (bits_Y, bits_Cb, bits_Cr) [N, B_c]
+    int32)."""
+    words, bits = [], []
+    for c, (q, chroma, bpm, tabs) in enumerate((
+            (yq, False, 4, tables[0]), (cbq, True, 1, tables[1]),
+            (crq, True, 1, tables[1]))):
+        n, b, _ = q.shape
+        pred = dc_predictors_restart(
+            q[:, :, 0], restart_interval * bpm,
+            None if carry is None else carry[:, c])
+        w_c, b_c = encode_block_words_plain(q.reshape(-1, 64),
+                                            pred.reshape(-1), chroma, tabs, b)
+        words.append(w_c.reshape(n, b, w_c.shape[-1]))
+        bits.append(b_c.reshape(n, b))
+    return tuple(words), tuple(bits)
+
+
+def encode_blocks_batch(yq, cbq, crq, restart_interval: int = 0, carry=None,
+                        tables=(None, None)):
+    """encode_blocks_batch_plain's (words, bits).  CUDA tensors go through
+    the hand-written kernel (pack_cuda.encode_blocks_batch_cuda: one launch
+    for the three components, every set of tables in it, the predictors
+    found in it; tables in the JAX order are laid out as its rows by
+    kernel_tables, and a table given as a tensor is taken as such rows),
+    CPU tensors
+    through encode_blocks_batch_plain; a kernel that fails to build or
+    launch raises."""
+    if yq.is_cuda:
+        from .pack_cuda import encode_blocks_batch_cuda
+
+        rows = None
+        if tables[0] is not None or tables[1] is not None:
+            rows = tuple(
+                t if isinstance(t, torch.Tensor) else kernel_tables(
+                    annex_k_tables("cpu", chroma) if t is None else t,
+                    yq.device)
+                for t, chroma in zip(tables, (False, True)))
+        return encode_blocks_batch_cuda(
+            yq, cbq, crq, restart_interval=restart_interval,
+            carry=None if carry is None else carry.to(torch.int32),
+            tables=rows)
+    if yq.device.type != "cpu":
+        raise ValueError(
+            f"encode_blocks_batch: unsupported device {yq.device}")
+    return encode_blocks_batch_plain(yq, cbq, crq, restart_interval, carry,
+                                     tables)
 
 
 HIST_BINS = 256

@@ -11,14 +11,16 @@ warp-per-block pack routine and three entry points:
                       one-to-one counterpart of the Pallas kernel.  Per
                       block the function reads 768 bytes and writes 260
                       (64 32-bit words and a count): a bound of 1,028.
-  encode_blocks_cuda  quantized blocks + DC predictors + Huffman tables ->
-                      packed words, the emissions computed in registers;
-                      the encode program calls this one.  Takes the
-                      fixed tables, or the caller's: one set or one per
-                      image (optimize), in one launch, with emissions of
-                      up to 74 bits.  Per block the
-                      function reads 260 bytes and writes 260: a bound
-                      of 520.
+  encode_blocks_batch_cuda
+                      a batch's three components of quantized blocks +
+                      Huffman tables -> packed words per component, one
+                      launch, the emissions computed in registers and
+                      the DC predictors found in the kernel; the encode
+                      program calls this one.  Takes the fixed tables,
+                      or the caller's: one set or one per image
+                      (optimize), with emissions of up to 74 bits.  Per
+                      block the function reads 256 bytes and writes
+                      260: a bound of 516.
   symbol_histograms_batch_cuda
                       a batch's three components of quantized blocks ->
                       per-image symbol counts [N, 4, 256] (pass 1 of
@@ -39,7 +41,7 @@ the plain torch versions.
 
 `launches` counts launches of the pack kernel made through
 pack_words_cuda, `encode_launches` those of the fused kernel made through
-encode_blocks_cuda and `histogram_launches` those of the histogram kernel
+encode_blocks_batch_cuda and `histogram_launches` those of the histogram kernel
 made through symbol_histograms_batch_cuda, so a run can show which
 kernels its path went through.
 """
@@ -59,12 +61,14 @@ def _bind(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.jz_pack_words.restype = ci
     lib.jz_pack_words.argtypes = [vp, vp, vp, vp, vp, ll, vp]
-    lib.jz_encode_blocks.restype = ci
-    lib.jz_encode_blocks.argtypes = [vp, vp, vp, ci, ci, ll, vp, vp, ll,
-                                     vp]
+    lib.jz_encode_blocks_batch.restype = ci
+    lib.jz_encode_blocks_batch.argtypes = [vp] * 5 + [ci, ci] + [vp] * 7 + [
+        ll] * 4 + [vp]
     lib.jz_symbol_histograms_batch.restype = ci
     lib.jz_symbol_histograms_batch.argtypes = [vp, vp, vp, vp, vp, ll, ll, ll,
                                                ll, vp]
+    lib.jz_entropy_kernel_info.restype = ci
+    lib.jz_entropy_kernel_info.argtypes = [ci, vp]
 
 
 LIB = KernelLibrary("entropy_pack.cu", _bind)
@@ -75,6 +79,9 @@ encode_launches = 0
 histogram_launches = 0
 # the fixed Annex K tables as the kernel's row, per (device, chroma)
 _rows: dict = {}
+# the kernels' instantiations, in jz_entropy_kernel_info's order
+KERNEL_INFO = ("encode_blocks fixed tables", "encode_blocks custom tables",
+               "symbol_histograms", "pack_words")
 
 
 def _low32(x: torch.Tensor) -> torch.Tensor:
@@ -82,11 +89,6 @@ def _low32(x: torch.Tensor) -> torch.Tensor:
     pattern: the low half of each little-endian int64, picked from a view
     of the same memory (no reliance on a wrapping cast)."""
     return x.contiguous().view(torch.int32)[..., ::2].contiguous()
-
-
-def _outputs(B: int, dev: torch.device):
-    return (torch.empty((B, 64), dtype=torch.int64, device=dev),
-            torch.empty((B,), dtype=torch.int32, device=dev))
 
 
 def pack_words_cuda(hi: torch.Tensor, lo: torch.Tensor, nbits: torch.Tensor):
@@ -108,7 +110,8 @@ def pack_words_cuda(hi: torch.Tensor, lo: torch.Tensor, nbits: torch.Tensor):
     with torch.cuda.device(dev):
         h32, l32 = _low32(hi), _low32(lo)
         n32 = nbits.contiguous()
-        words, bits = _outputs(B, dev)
+        words = torch.empty((B, 64), dtype=torch.int64, device=dev)
+        bits = torch.empty((B,), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jz_pack_words(h32.data_ptr(), l32.data_ptr(),
                                n32.data_ptr(), words.data_ptr(),
@@ -135,61 +138,92 @@ def annex_k_row(device: torch.device, chroma: bool) -> torch.Tensor:
     return row
 
 
-def encode_blocks_cuda(q: torch.Tensor, pred: torch.Tensor, tables,
-                       blocks_per_image: int | None = None):
-    """CUDA form of entropy.encode_block_words: block_emissions and
-    pack_block_words in one kernel, the emissions never stored.
+def kernel_info() -> dict:
+    """{instantiation: (registers a thread, resident thread blocks an SM,
+    static shared bytes, local bytes a thread, threads a block)} as
+    cudaFuncGetAttributes and cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    report them on the current card."""
+    lib = LIB.get()
+    out = {}
+    for i, name in enumerate(KERNEL_INFO):
+        info = (ctypes.c_int * 5)()
+        LIB.raise_on(f"kernel_info({name})",
+                     lib.jz_entropy_kernel_info(i, info))
+        out[name] = tuple(info)
+    return out
 
-    q: [B, 64] int32 quantized blocks, natural order; pred: [B] int32 DC
-    predictors; tables: False/True for the component's fixed Annex K
-    tables, or the caller's T sets as the kernel's rows, an int32
-    [T, 348] tensor on q's device (entropy.kernel_tables builds them from
-    the JAX order), where block b takes set b // blocks_per_image (default
-    B // T); their emissions may exceed 64 bits.  Returns (words [B, 64]
-    int64 in [0, 2**32), bits [B] int32), on the inputs' device and
-    stream."""
+
+def encode_blocks_batch_cuda(yq: torch.Tensor, cbq: torch.Tensor,
+                             crq: torch.Tensor, *, restart_interval: int = 0,
+                             carry: torch.Tensor | None = None,
+                             tables=None):
+    """CUDA form of entropy.encode_blocks_batch_plain, one launch for the
+    three components: block_emissions and pack_block_words in one kernel,
+    the emissions never stored, each block's DC predictor found in the
+    kernel.
+
+    yq [N, B_Y, 64], cbq and crq [N, B_C, 64] int32 quantized blocks in
+    natural order; each component of an image is one DC chain, reset
+    every restart_interval MCUs (4 blocks of Y, 1 of Cb and of Cr);
+    carry: None, or [N, 3] int32 first predictors (a tile shard's
+    carry-in).  tables: None for the fixed Annex K tables, or the
+    caller's (luma, chroma) as the kernel's rows, int32 [T, 348] tensors
+    on the blocks' device (entropy.kernel_tables builds them from the JAX
+    order), T = 1 for the batch or N, one set an image; their emissions
+    may exceed 64 bits.  Returns ((words_Y, words_Cb, words_Cr) [N, B_c,
+    64] int64 in [0, 2**32), (bits_Y, bits_Cb, bits_Cr) [N, B_c] int32),
+    on the inputs' device and stream."""
     global encode_launches
-    if q.dim() != 2 or q.shape[1] != 64:
-        raise ValueError(f"encode_blocks_cuda: q has shape {tuple(q.shape)}, "
-                         "want [B, 64]")
-    B = q.shape[0]
-    _check("encode_blocks_cuda", q, ("q", q, torch.int32, q.shape),
-           ("pred", pred, torch.int32, (B,)))
-    custom = not isinstance(tables, bool)
+    if yq.dim() != 3 or yq.shape[2] != 64 or cbq.dim() != 3:
+        raise ValueError(f"encode_blocks_batch_cuda: yq has shape "
+                         f"{tuple(yq.shape)}, cbq {tuple(cbq.shape)}, want "
+                         "[N, B, 64] each")
+    N = yq.shape[0]
+    specs = [("yq", yq, torch.int32, yq.shape),
+             ("cbq", cbq, torch.int32, (N, cbq.shape[1], 64)),
+             ("crq", crq, torch.int32, cbq.shape)]
+    if carry is not None:
+        specs.append(("carry", carry, torch.int32, (N, 3)))
+    custom = tables is not None
     if custom:
-        if not isinstance(tables, torch.Tensor) or tables.dim() != 2:
-            raise ValueError("encode_blocks_cuda: tables must be a bool or "
-                             "the kernel's rows [T, 348] "
+        if len(tables) != 2 or not all(isinstance(t, torch.Tensor)
+                                       and t.dim() == 2 for t in tables):
+            raise ValueError("encode_blocks_batch_cuda: tables must be None "
+                             "or the kernel's (luma, chroma) rows [T, 348] "
                              "(entropy.kernel_tables)")
         rows = tables
     else:
-        rows = annex_k_row(q.device, tables)
-    nsets = rows.shape[0]
-    _check("encode_blocks_cuda", q,
-           ("tables", rows, torch.int32, (nsets, KERNEL_ROW)))
-    bpi = 0
-    if nsets > 1:
-        bpi = B // nsets if blocks_per_image is None else blocks_per_image
-        if bpi <= 0 or bpi * nsets != B or B >= 2**31:
-            raise ValueError(f"encode_blocks_cuda: {nsets} table sets do "
-                             f"not divide {B} blocks into images of "
-                             f"{blocks_per_image}")
+        rows = (annex_k_row(yq.device, False), annex_k_row(yq.device, True))
+    nsets = rows[0].shape[0]
+    specs += [("luma tables", rows[0], torch.int32, (nsets, KERNEL_ROW)),
+              ("chroma tables", rows[1], torch.int32, (nsets, KERNEL_ROW))]
+    _check("encode_blocks_batch_cuda", yq, *specs)
+    if nsets not in (1, N) or restart_interval < 0 or 0 in (yq.shape[1],
+                                                            cbq.shape[1]):
+        raise ValueError(f"encode_blocks_batch_cuda: {nsets} table sets for "
+                         f"{N} images, restart_interval={restart_interval}, "
+                         f"blocks {yq.shape[1]} and {cbq.shape[1]}")
     lib = LIB.get()
-    dev = q.device
+    dev = yq.device
     with torch.cuda.device(dev):
-        rows = rows.contiguous()
-        qc, pc = q.contiguous(), pred.contiguous()
-        words, bits = _outputs(B, dev)
+        qs = [t.contiguous() for t in (yq, cbq, crq)]
+        rs = [r.contiguous() for r in rows]
+        cc = None if carry is None else carry.contiguous()
+        outs = [(torch.empty((N, q.shape[1], 64), dtype=torch.int64,
+                             device=dev),
+                 torch.empty((N, q.shape[1]), dtype=torch.int32, device=dev))
+                for q in qs]
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.jz_encode_blocks(qc.data_ptr(), pc.data_ptr(),
-                                  rows.data_ptr(), nsets, int(custom), bpi,
-                                  words.data_ptr(), bits.data_ptr(), B,
-                                  stream)
-    LIB.raise_on("encode_blocks", rc)
-    if B > 0:  # the launcher returns without a launch for an empty batch
+        rc = lib.jz_encode_blocks_batch(
+            *(t.data_ptr() for t in qs + rs), nsets, int(custom),
+            None if cc is None else cc.data_ptr(),
+            *(w.data_ptr() for w, _ in outs), *(b.data_ptr() for _, b in outs),
+            N, yq.shape[1], cbq.shape[1], restart_interval, stream)
+    LIB.raise_on("encode_blocks_batch", rc)
+    if N > 0:  # the launcher returns without a launch for an empty batch
         with _lock:
             encode_launches += 1
-    return words, bits
+    return tuple(w for w, _ in outs), tuple(b for _, b in outs)
 
 
 def symbol_histograms_batch_cuda(yq: torch.Tensor, cbq: torch.Tensor,
@@ -203,7 +237,7 @@ def symbol_histograms_batch_cuda(yq: torch.Tensor, cbq: torch.Tensor,
     yq [N, B_Y, 64], cbq and crq [N, B_C, 64] int32 quantized blocks in
     natural order; the kernel derives each block's DC predictor itself
     (entropy.dc_predictors_restart over each image's chain, reset every
-    restart_interval MCUs); carry: None, or [N, 3] int32 first predictors
+    restart_interval MCUs), as encode_blocks_batch_cuda does; carry: None, or [N, 3] int32 first predictors
     (a tile shard's carry-in).  On the inputs' device and stream; the
     counts are zeroed first (a memset) and the kernel adds into them."""
     global histogram_launches

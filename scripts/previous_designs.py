@@ -1,0 +1,104 @@
+"""The earlier designs of two of jpezy_tpu_torch's kernels, built from
+scripts/previous_designs.cu with the package's loader, so that
+chip_smoke.py times them beside the current kernels in one run, on the
+same inputs and the same card.  Nothing in the package calls them.
+
+  encode_stage       the entropy stage as torch_codec._emit_local ran it
+                     before the kernel found the predictors: per
+                     component the plain torch predictor chain
+                     (entropy.dc_predictors_restart on the card), then one
+                     launch of the per-component fused kernel; three
+                     launches and the chains' events a batch.
+  concat_two_pass    the stream concat's two-pass design: a scan of the
+                     bit counts, one thread block an image, into an
+                     offsets scratch [N, 6 nm] (and thread blocks that zero
+                     the streams), then a scatter of the used words with
+                     atomicOr on shared words; two launches a call.
+
+Both raise without a card; neither falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+
+import torch
+
+from jpezy_tpu_torch.ops import entropy as E
+from jpezy_tpu_torch.ops.cuda_build import KernelLibrary
+from jpezy_tpu_torch.ops.pack_cuda import annex_k_row
+
+KERNEL_INFO = ("encode_blocks per component", "concat_streams pass 1",
+               "concat_streams pass 2")
+
+
+def _bind(lib) -> None:
+    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.jz_prev_encode_blocks.restype = ci
+    lib.jz_prev_encode_blocks.argtypes = [vp, vp, vp, ci, ci, ll, vp, vp, ll,
+                                          vp]
+    lib.jz_prev_concat_streams.restype = ci
+    lib.jz_prev_concat_streams.argtypes = [vp] * 8 + [ll] * 5 + [vp]
+    lib.jz_prev_kernel_info.restype = ci
+    lib.jz_prev_kernel_info.argtypes = [ci, vp]
+
+
+LIB = KernelLibrary("previous_designs.cu", _bind,
+                    directory=os.path.dirname(os.path.abspath(__file__)))
+
+
+def kernel_info() -> dict:
+    """{kernel: (registers a thread, resident thread blocks an SM, static
+    shared bytes, local bytes a thread, threads a block)} on this card."""
+    lib = LIB.get()
+    out = {}
+    for i, name in enumerate(KERNEL_INFO):
+        info = (ctypes.c_int * 5)()
+        LIB.raise_on(f"kernel_info({name})", lib.jz_prev_kernel_info(i, info))
+        out[name] = tuple(info)
+    return out
+
+
+def encode_stage(yq, cbq, crq, restart_interval: int = 0):
+    """(words, bits) per component of the batch's quantized blocks [N,
+    B_c, 64] int32 on the card, with the fixed tables, as the encode
+    program made them before the batched kernel."""
+    lib = LIB.get()
+    words, bits = [], []
+    for q, chroma, bpm in ((yq, False, 4), (cbq, True, 1), (crq, True, 1)):
+        n, b, _ = q.shape
+        pred = E.dc_predictors_restart(q[:, :, 0], restart_interval * bpm)
+        pred = pred.reshape(-1).to(torch.int32).contiguous()
+        qc = q.reshape(-1, 64).contiguous()
+        w = torch.empty((n * b, 64), dtype=torch.int64, device=q.device)
+        bt = torch.empty((n * b,), dtype=torch.int32, device=q.device)
+        rc = lib.jz_prev_encode_blocks(
+            qc.data_ptr(), pred.data_ptr(),
+            annex_k_row(q.device, chroma).data_ptr(), 1, 0, 0, w.data_ptr(),
+            bt.data_ptr(), n * b, torch.cuda.current_stream().cuda_stream)
+        LIB.raise_on("prev_encode_blocks", rc)
+        words.append(w.reshape(n, b, 64))
+        bits.append(bt.reshape(n, b))
+    return tuple(words), tuple(bits)
+
+
+def concat_two_pass(words, bits, *, maxw: int, restart_interval: int = 0):
+    """combined [N, 1 + S + maxw] int64 of the two-pass design, from the
+    per-component (words, bits) that encode_stage or the current kernel
+    returns."""
+    lib = LIB.get()
+    N, nm = bits[1].shape
+    ri = restart_interval
+    nseg = -(-nm // ri) if ri else 0
+    dev = words[0].device
+    ws = [w.contiguous() for w in words]
+    bs = [b.to(torch.int32).contiguous() for b in bits]
+    goff = torch.empty((N, 6 * nm), dtype=torch.int64, device=dev)
+    combined = torch.empty((N, 1 + nseg + maxw), dtype=torch.int64,
+                           device=dev)
+    rc = lib.jz_prev_concat_streams(
+        *(t.data_ptr() for t in ws + bs), goff.data_ptr(),
+        combined.data_ptr(), N, nm, ri, nseg, maxw,
+        torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_concat_streams", rc)
+    return combined

@@ -9,9 +9,11 @@ Imports jpezy_tpu_torch and the test images of TREE (default: the
 checkout holding this script), builds its kernels there, and traces with
 torch.profiler (5 calls after one warm-up) the device busy time, summed
 over kernels, copies and memsets, and the number of device events of:
-the encode program without restart markers (_encode_batch_blocks_packed),
-its stream concat alone (_concat_batch_combined_comp), the optimize
-path's symbol histograms with restart_interval=8
+the encode program without and with restart_interval=8
+(_encode_batch_blocks_packed), its entropy stage alone (_emit_local) and
+its stream concat alone (_concat_batch_combined_comp), each without and
+with restart_interval=8, the optimize path's symbol histograms with
+restart_interval=8
 (_symbol_histograms_batch) and its entropy coding with the 16 per-image
 table sets (_encode_batch_custom).  Each stage's CUDA-event span, taken
 before the first trace, is printed beside it.  The functions exist with
@@ -88,12 +90,20 @@ def main(argv: list[str]) -> int:
         axis=1)).to(dev)
     q = TC._quantize_batch_ycc(packed, h=H, w=W)
     emitted = TC._emit_local(*q)
+    emitted_r = TC._emit_local(*q, RI)
     hists = TC._symbol_histograms_batch(*q, restart_interval=RI).cpu().numpy()
     _, ytabs, ctabs = TC._optimal_tables(hists)
     stages = {
         "encode program": lambda: TC._encode_batch_blocks_packed(
             packed, h=H, w=W),
+        "encode program, restart_interval=8":
+            lambda: TC._encode_batch_blocks_packed(packed, h=H, w=W,
+                                                   restart_interval=RI),
+        "entropy (_emit_local)": lambda: TC._emit_local(*q),
+        "entropy, restart_interval=8": lambda: TC._emit_local(*q, RI),
         "concat": lambda: TC._concat_batch_combined_comp(*emitted),
+        "concat, restart_interval=8":
+            lambda: TC._concat_batch_combined_comp(*emitted_r, RI),
         "symbol histograms, restart_interval=8":
             lambda: TC._symbol_histograms_batch(*q, restart_interval=RI),
         "optimize entropy + concat (_encode_batch_custom)":

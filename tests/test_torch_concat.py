@@ -15,6 +15,8 @@ still gives host_codec's bytes; the CUDA wrappers refuse what they do not
 take before anything is built.  Tolerance 0 throughout: all of it is
 integer-exact.
 """
+import bisect
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -29,46 +31,189 @@ from jpezy_tpu_torch.ops import entropy as TE
 from test_torch_host_copies import host_runtime  # noqa: F401 (autouse)
 
 NM = 40  # MCUs an image: 240 blocks
+M32 = 0xFFFFFFFF
 
 
-def _model(words, bits, ri: int, maxw: int) -> np.ndarray:
-    """The CUDA kernel's algorithm in numpy: pass 1 scans the MCUs' bit
-    counts with the byte padding of segment s inserted before segment
-    s + 1's first MCU; pass 2 ORs only each block's ceil(bits / 32) used
-    words, shifted to the block's phase, into the zeroed stream."""
+THREADS = 512  # kThreads of csrc/stream_concat.cu: a thread block a tile
+STAGE = 32768   # kStage: most words a tile assembles in shared memory at once
+
+
+def _ceil8(x: int) -> int:
+    return (x + 7) & ~7
+
+
+def _then(f, g):
+    """Run f, then run g; a run (a, c, bound) maps the running bit offset
+    x to x + a, or to ceil8(x + a) + c when a segment starts in it."""
+    (fa, fc, fb), (ga, gc, gb) = f, g
+    if not gb:
+        return (fa, fc + ga, 1) if fb else (fa + ga, 0, 0)
+    if not fb:
+        return (fa + ga, gc, 1)
+    return (fa, _ceil8(fc + ga) + gc, 1)
+
+
+def _apply(f, x: int) -> int:
+    a, c, bound = f
+    return _ceil8(x + a) + c if bound else x + a
+
+
+def _model(words, bits, ri: int, maxw: int, tile_mcus=None,
+           stage_words: int | None = None) -> np.ndarray:
+    """The CUDA kernel's algorithm in numpy, a thread block at a time: the
+    tiles of concat_cuda.tile_layout (or of tile_mcus MCUs); each tile
+    folds the MCUs from its image's start to its end in THREADS contiguous
+    runs, scans the runs in order, walks them again for its MCUs'
+    first-block offsets (after the segment's byte padding) and the base of
+    the segment open at its start, writes the bit counts of the segments
+    that end in it and, in the last tile, the total; then it assembles
+    each stream word whose first bit lies in [the tile's offset, the next
+    tile's), STAGE words at a time: each of its blocks ORs in its words
+    shifted to their phase, clipped to those words, and the last word
+    takes the bits of the next tiles' blocks by a walk from the next
+    tile's offset; the last tile writes zeros after the data up to maxw.
+    Every element of combined must be written exactly once.  stage_words:
+    the stage's size, None for the kernel's min(STAGE, maxw) (a smaller
+    one makes a tile assemble its words in several rounds)."""
     N, nm = bits[1].shape
+    if tile_mcus is None:
+        ntiles, tile_mcus = concat_cuda.tile_layout(nm)
+    else:
+        ntiles = -(-nm // tile_mcus)
     S = -(-nm // ri) if ri else 0
+    stage_words = stage_words or min(STAGE, maxw)
     out = np.zeros((N, 1 + S + maxw), np.int64)
+    writes = np.zeros(out.shape, np.int64)
+
+    def put(n, col, v):
+        out[n, col] = v
+        writes[n, col] += 1
+
     for n in range(N):
         mcu = np.concatenate([bits[0][n].numpy().reshape(nm, 4),
                               bits[1][n].numpy()[:, None],
                               bits[2][n].numpy()[:, None]], 1).astype(np.int64)
-        seg = (np.add.reduceat(mcu.sum(1), np.arange(0, nm, ri)) if ri
-               else np.zeros(0, np.int64))
-        pad = (8 - seg % 8) % 8
-        off, goff = 0, np.zeros((nm, 6), np.int64)
-        for m in range(nm):
-            if ri and m and m % ri == 0:
-                off += pad[m // ri - 1]
-            goff[m] = off + np.concatenate([[0], np.cumsum(mcu[m])[:-1]])
-            off += mcu[m].sum()
-        out[n, 0] = off + (pad[-1] if ri else 0)
-        out[n, 1:1 + S] = seg
-        stream = out[n, 1 + S:]
-        for c, (w_c, b_c) in enumerate(zip(words, bits)):
-            for i in range(b_c.shape[1]):
-                m, j = (i // 4, i % 4) if c == 0 else (i, 3 + c)
-                nb, o = int(b_c[n, i]), int(goff[m, j])
-                used = w_c[n, i, :-(-nb // 32)].numpy()
-                r, q = o & 31, o >> 5
-                for k in range(used.size + 1):
-                    cur = int(used[k]) if k < used.size else 0
-                    prev = int(used[k - 1]) if k else 0
-                    v = (cur >> r) | ((prev << (32 - r)) & 0xFFFFFFFF
-                                      if r else 0)
-                    if v and q + k < maxw:
-                        stream[q + k] |= v
+        blk = [[words[0][n, 4 * m + j].numpy() for j in range(4)]
+               + [words[1][n, m].numpy(), words[2][n, m].numpy()]
+               for m in range(nm)]
+
+        def starts(m):
+            return bool(ri) and m > 0 and m % ri == 0
+
+        def run_of(m):
+            b = int(mcu[m].sum())
+            return (0, b, 1) if starts(m) else (b, 0, 0)
+
+        def piece(m, j, o, p):
+            """Bits [p, p + 32) of block j of MCU m at offset o."""
+            w, nb = blk[m][j], int(mcu[m, j])
+            if o >= p:
+                return int(w[0]) >> (o - p)
+            i, r = divmod(p - o, 32)
+            lo = int(w[i + 1]) if r and 32 * (i + 1) < nb else 0
+            return ((int(w[i]) << r) | (lo >> (32 - r))) & M32
+
+        def bits_past_tile(m1, s_next, p):
+            word, o, m = 0, s_next, m1
+            while m < nm and o < p + 32:
+                o = _ceil8(o) if starts(m) else o
+                for j in range(6):
+                    nb = int(mcu[m, j])
+                    if nb > 0 and o < p + 32 and o + nb > p:
+                        word |= piece(m, j, o, p)
+                    o += nb
+                m += 1
+            return word
+
+        for t in range(ntiles):
+            m0, m1 = t * tile_mcus, min(nm, (t + 1) * tile_mcus)
+            last = m1 == nm
+            open_ = m0 // ri * ri if ri else m0
+            chunk = -(-m1 // THREADS)
+            chunks = [(min(m1, i * chunk), min(m1, (i + 1) * chunk))
+                      for i in range(THREADS)]
+            runs = []
+            for c0, c1 in chunks:
+                r = (0, 0, 0)
+                for m in range(c0, c1):
+                    r = _then(r, run_of(m))
+                runs.append(r)
+            before, whole = [], (0, 0, 0)
+            for r in runs:           # the block's exclusive scan
+                before.append(whole)
+                whole = _then(whole, r)
+            s_next = _apply(whole, 0)
+            off = [0] * (m1 - m0)
+            marks = {}
+            for (c0, c1), r in zip(chunks, before):
+                if c1 <= open_:
+                    continue
+                v = _apply(r, 0)
+                for m in range(c0, c1):
+                    if m == m0:
+                        marks["s_t"] = v
+                    if starts(m):
+                        v = _ceil8(v)
+                    if m == open_ and m < m0:
+                        marks["open"] = v
+                    if m >= m0:
+                        off[m - m0] = v
+                    v += int(mcu[m].sum())
+            s_t = marks["s_t"]
+            for s in range(m0 // ri, (m1 - 1) // ri + 1) if ri else ():
+                e = min((s + 1) * ri, nm) - 1
+                if e >= m1:
+                    continue
+                base = off[s * ri - m0] if s * ri >= m0 else marks["open"]
+                put(n, 1 + s, off[e - m0] + int(mcu[e].sum()) - base)
+            if last:
+                put(n, 0, _ceil8(s_next) if ri else s_next)
+            w0, w_data = (s_t + 31) >> 5, min(maxw, (s_next + 31) >> 5)
+            for lo in range(w0, w_data, stage_words):
+                hi = min(lo + stage_words, w_data)
+                stage = [0] * (hi - lo)
+                for k in range(m1 - m0):       # a thread a block
+                    o = off[k]
+                    for j in range(6):
+                        nb = int(mcu[m0 + k, j])
+                        q, r, nw = o >> 5, o & 31, -(-nb // 32)
+                        w = blk[m0 + k][j]
+                        for x in range(max(0, lo - q),
+                                       min(nw if r else nw - 1, hi - 1 - q)
+                                       + 1):
+                            cur = int(w[x]) if x < nw else 0
+                            prev = int(w[x - 1]) if x > 0 else 0
+                            stage[q + x - lo] |= (
+                                cur >> r | (prev << (32 - r)) & M32
+                                if r else cur)
+                        o += nb
+                if not last and hi == w_data and s_next & 31:
+                    stage[-1] |= bits_past_tile(m1, s_next, (w_data - 1) << 5)
+                for x, v in enumerate(stage):
+                    put(n, 1 + S + lo + x, v)
+            if last:
+                for w in range(max(w0, w_data), maxw):
+                    put(n, 1 + S + w, 0)
+    assert (writes == 1).all(), "an element written other than once"
     return out
+
+
+def _short_blocks(n: int, nm: int, seed: int):
+    """Per-component packed blocks of 0 to 4 bits (every seventh MCU
+    empty): six blocks of an MCU hold fewer than 32 bits, so with tiles of
+    one MCU a word spans several tiles, and empty tiles own no word."""
+    rng = np.random.default_rng(seed)
+    words, bits = [], []
+    for per_mcu in (4, 1, 1):
+        b = rng.integers(2, 5, (n, per_mcu * nm))
+        b[:, ::3] = rng.integers(0, 2, b[:, ::3].shape) * 2
+        b.reshape(n, nm, per_mcu)[:, ::7] = 0
+        top = rng.integers(0, 16, b.shape) << 28
+        w = np.zeros((*b.shape, 64), np.int64)
+        w[..., 0] = top & ((M32 << (32 - b)) & M32)
+        words.append(torch.from_numpy(w))
+        bits.append(torch.from_numpy(b.astype(np.int32)))
+    return tuple(words), tuple(bits)
 
 
 @pytest.mark.parametrize("ri", [0, 1, 8, 17])
@@ -93,14 +238,65 @@ def test_dispatch_equals_jax(ri):
                                      (0, 900), (8, 900)],
                          ids=["plain", "ri3", "ri17", "drops", "drops-ri8"])
 def test_kernel_model_equals_plain(ri, maxw):
-    """The kernel's two passes, modelled in numpy, give the plain form's
-    combined bit for bit; with a budget under the streams the words past
-    it are dropped and the totals stay exact."""
+    """The kernel's algorithm, modelled in numpy (one tile an image at 24
+    MCUs), gives the plain form's combined bit for bit; with a budget
+    under the streams the words past it are dropped and the totals stay
+    exact."""
     wc, bc = TE.stream_blocks(2, 24, seed=100 + ri)
     got = TE.concat_streams_plain(wc, bc, ri, maxw)
     assert np.array_equal(_model(wc, bc, ri, maxw), got.numpy())
     if maxw < 4096:
         assert int(got[:, 0].max()) > 32 * maxw
+
+
+@pytest.mark.parametrize("nm,ri,tile,maxw", [
+    (24, 0, 5, 4096), (24, 1, 5, 4096), (24, 8, 7, 4096), (24, 17, 5, 4096),
+    (24, 30, 4, 4096), (1, 0, None, 4096), (1, 4, None, 64),
+    (301, 8, None, 12000), (24, 8, 5, 700)],
+    ids=["ri0", "ri1", "ri8", "ri17", "ri-past-nm", "one-mcu",
+         "one-mcu-ri", "tiles-of-101", "drops-tiled"])
+def test_tiled_model_equals_plain(nm, ri, tile, maxw):
+    """The model with several tiles an image: tiles of 4 to 7 MCUs on 24
+    (the last one shorter, a restart segment across tiles and across
+    several, one segment longer than the image), one MCU, and 301 MCUs in
+    tile_layout's own 3 tiles (101, 101, 99); and words dropped past a
+    small budget."""
+    if nm == 301:
+        assert concat_cuda.tile_layout(nm) == (3, 101)
+    wc, bc = TE.stream_blocks(2, nm, seed=200 + nm + ri)
+    got = TE.concat_streams_plain(wc, bc, ri, maxw)
+    assert np.array_equal(_model(wc, bc, ri, maxw, tile), got.numpy())
+    assert np.array_equal(_model(wc, bc, ri, maxw, tile, stage_words=7),
+                          got.numpy())
+    if maxw == 700:
+        assert int(got[:, 0].max()) > 32 * maxw
+
+
+@pytest.mark.parametrize("ri", [0, 1, 3])
+def test_model_words_straddle_tiles(ri):
+    """Blocks of 2 to 4 bits in tiles of one MCU: a word takes bits of up
+    to several tiles (the walk past the tile's end), tiles of only empty
+    blocks own no word, and the model still equals the plain form."""
+    wc, bc = _short_blocks(2, 30, seed=300 + ri)
+    per_mcu = sum(b.reshape(2, 30, -1).sum(-1) for b in bc)
+    assert int(per_mcu.max()) < 32 and int((per_mcu == 0).sum()) > 0
+    got = TE.concat_streams_plain(wc, bc, ri, 64)
+    assert np.array_equal(_model(wc, bc, ri, 64, 1), got.numpy())
+
+
+def test_tile_layout():
+    """At least 8 tiles a 512x512 image, at most 16 for 3840x2160 (each
+    tile re-reads its predecessors' counts), none over the kernel's
+    shared offsets, and every MCU in one tile."""
+    assert concat_cuda.tile_layout(1024) == (8, 128)
+    assert concat_cuda.tile_layout(32400) == (16, 2025)
+    assert concat_cuda.tile_layout(1) == (1, 1)
+    for nm in (1, 2, 127, 129, 1000, 4097, 32400, 40000, 262144):
+        tiles, mcus = concat_cuda.tile_layout(nm)
+        assert (tiles - 1) * mcus < nm <= tiles * mcus
+        assert mcus <= concat_cuda.MAX_TILE_MCUS
+        assert tiles <= concat_cuda.MAX_TILES or mcus > (
+            concat_cuda.MAX_TILE_MCUS // 2)
 
 
 def test_words_past_the_bits_are_zero():

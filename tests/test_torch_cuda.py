@@ -1,8 +1,8 @@
 """CUDA-only checks of jpezy_tpu_torch: the hand-written kernels (the pack
-alone, the fused emissions + pack, the symbol histograms, the stream
-concat and the Huffman scan of the device decode) against their plain
-torch versions, and the codec on the
-card against the codec on the CPU.  Marked
+alone, the batched entropy encode with its predictors, the symbol
+histograms, the one-launch stream concat, the Huffman scan of the device
+decode and the block transforms) against their plain torch versions, and
+the codec on the card against the codec on the CPU.  Marked
 `cuda`; each test skips when no CUDA device is present (decided inside the
 fixture, never at import).  On a card:
 
@@ -74,43 +74,93 @@ def test_pack_kernel_matches_plain(cuda):
 
 
 def test_fused_kernel_matches_plain(cuda):
+    """The batched entropy kernel, one launch each, on every block set as
+    one image's three components (Y with the luma tables, Cb and Cr with
+    the chroma ones): words and bits equal the plain form's."""
     from jpezy_tpu_torch.ops import pack_cuda
 
     blocks = _blocks(cuda)
     before = (pack_cuda.launches, pack_cuda.encode_launches)
-    for q, chroma in blocks:
-        pred = TE.dc_predictors(q[:, 0])
-        wk, bk = pack_cuda.encode_blocks_cuda(q, pred, chroma)
-        wp, bp = TE.encode_block_words_plain(q, pred, chroma)
+    for q, _ in blocks:
+        k = max(1, q.shape[0] // 4)
+        comps = (q[None], q[None, :k], q[None, -k:])
+        wk, bk = pack_cuda.encode_blocks_batch_cuda(*comps)
+        wp, bp = TE.encode_blocks_batch_plain(*(c.cpu() for c in comps))
         torch.cuda.synchronize()
-        assert wk.dtype == torch.int64 and torch.equal(wk, wp)
-        assert torch.equal(bk, bp)
+        for a, b in zip(wk + bk, wp + bp):
+            assert torch.equal(a.cpu(), b)
+        assert all(w.dtype == torch.int64 for w in wk)
     assert pack_cuda.encode_launches - before[1] == len(blocks)
     assert pack_cuda.launches == before[0]
 
 
+def _batch_cases(dev):
+    """(label, (yq, cbq, crq), restart_interval, carry) of the batched
+    entropy kernel: the real components with restart intervals 0, 1 and
+    8 (a segment shorter than a warp's blocks, and longer), a carry, and
+    images whose odd chroma block counts put a warp's two blocks in two
+    images."""
+    q, _, _ = _optimize_inputs(dev)
+    rng = np.random.default_rng(173)
+    carry = torch.from_numpy(rng.integers(-1000, 1000, (3, 3)).astype(
+        np.int32)).to(dev)
+    edge = torch.from_numpy(TE.edge_case_blocks(174)).to(dev)
+    n = edge.shape[0] // 13
+    blk = edge[:n * 13].reshape(n, 13, 64)
+    odd = (blk[:, :7], blk[:, 7:10], blk[:, 10:])
+    return ([(f"real ri={ri}", q, ri, None) for ri in (0, 1, 8)]
+            + [("real, carry", q, 0, carry), ("real, carry ri=1", q, 1, carry),
+               ("odd", odd, 0, None), ("odd ri=1", odd, 1, None)])
+
+
 def test_fused_kernel_dispatch_predictors_and_tables(cuda):
-    """encode_block_words launches the fused kernel for CUDA tensors; the
-    kernel takes any predictors (a restart resets them), and the Annex K
-    tables passed as the caller's (the custom-table instantiation) give
-    the fixed-table words."""
+    """encode_blocks_batch launches the kernel once for CUDA tensors and
+    finds every predictor itself (restarts, a carry, warps across images);
+    the Annex K tables passed as the caller's (the custom-table
+    instantiation) give the fixed-table words; an empty batch launches
+    nothing."""
     from jpezy_tpu_torch.ops import pack_cuda
 
-    q = torch.from_numpy(TE.edge_case_blocks(123)).to(cuda)
-    pred = TE.dc_predictors(q[:, 0])
-    pred[::3] = 0
+    annex_k = tuple(TE.annex_k_tables("cpu", c) for c in (False, True))
+    for label, comps, ri, carry in _batch_cases(cuda):
+        before = pack_cuda.encode_launches
+        got = TE.encode_blocks_batch(*comps, ri, carry)
+        as_custom = TE.encode_blocks_batch(*comps, ri, carry, annex_k)
+        want = TE.encode_blocks_batch_plain(
+            *(c.cpu() for c in comps), ri,
+            None if carry is None else carry.cpu())
+        torch.cuda.synchronize()
+        assert pack_cuda.encode_launches - before == 2, label
+        for a, b, c in zip(got[0] + got[1], as_custom[0] + as_custom[1],
+                           want[0] + want[1]):
+            assert torch.equal(a.cpu(), c) and torch.equal(b.cpu(), c), label
+    q = _batch_cases(cuda)[0][1]
     before = pack_cuda.encode_launches
-    wk, bk = TE.encode_block_words(q, pred, True)
-    wt, bt = pack_cuda.encode_blocks_cuda(q, pred, TE.kernel_tables(
-        TE.annex_k_tables("cpu", True), q.device))
-    wp, bp = TE.encode_block_words_plain(q, pred, True)
-    torch.cuda.synchronize()
-    assert pack_cuda.encode_launches - before == 2
-    assert torch.equal(wk, wp) and torch.equal(bk, bp)
-    assert torch.equal(wt, wp) and torch.equal(bt, bp)
-    empty_w, empty_b = pack_cuda.encode_blocks_cuda(q[:0], pred[:0], False)
-    assert empty_w.shape == (0, 64) and empty_b.shape == (0,)
-    assert pack_cuda.encode_launches - before == 2   # nothing to launch
+    empty_w, empty_b = pack_cuda.encode_blocks_batch_cuda(*(c[:0] for c in q))
+    assert empty_w[0].shape == (0, q[0].shape[1], 64)
+    assert empty_b[1].shape == (0, q[1].shape[1])
+    assert pack_cuda.encode_launches == before  # nothing to launch
+
+
+def test_fused_and_concat_kernels_4k(cuda):
+    """One 3840x2160 image (32,400 MCUs: the concat's 16 tiles of 2,025
+    MCUs) without and with restart markers: the entropy kernel's words
+    and bits, and the concat's combined, equal the plain forms'."""
+    from jpezy_tpu_torch.ops import concat_cuda
+
+    img = _transform_images(2160, 3840, 175, n=1)
+    q = TC._quantize_batch_rgb(torch.from_numpy(img).to(cuda))
+    assert concat_cuda.tile_layout(q[1].shape[1]) == (16, 2025)
+    for ri in (0, 8):
+        wc, bc = TC._emit_local(*q, ri)
+        wp, bp = TE.encode_blocks_batch_plain(*(c.cpu() for c in q), ri)
+        torch.cuda.synchronize()
+        for a, b in zip(wc + bc, wp + bp):
+            assert torch.equal(a.cpu(), b), ri
+        got, _, _ = TC._concat_batch_combined_comp(wc, bc, ri)
+        maxw = got.shape[1] - 1 - (-(-q[1].shape[1] // ri) if ri else 0)
+        want = TE.concat_streams_plain(wp, bp, ri, maxw)
+        assert torch.equal(got.cpu(), want), ri
 
 
 def test_codec_on_card_matches_cpu(cuda):
@@ -122,10 +172,10 @@ def test_codec_on_card_matches_cpu(cuda):
     before = (pack_cuda.launches, pack_cuda.encode_launches,
               concat_cuda.launches)
     exact = TC.encode_batch(rgbs, precision="exact", device=cuda)
-    # one fused launch per component and one concat; the pack alone is
-    # off the codec's path
+    # one fused launch for the three components and one concat; the pack
+    # alone is off the codec's path
     assert (pack_cuda.launches, pack_cuda.encode_launches,
-            concat_cuda.launches) == (before[0], before[1] + 3, before[2] + 1)
+            concat_cuda.launches) == (before[0], before[1] + 1, before[2] + 1)
     assert exact == TC.encode_batch(rgbs, precision="exact", device="cpu")
     flat, kw, *_ = TC._decode_host_prep(exact, gray=False, precision="fast",
                                         transport=None)
@@ -440,10 +490,14 @@ def test_histogram_kernel_refuses_shapes(cuda):
 
 
 def _concat_cases(dev):
-    """(label, words, bits, restart_interval, maxw) of the concat kernel on
-    the card: real blocks with and without restarts, gray, per-image table
-    sets, dense noise with the default and a shrunk budget, and seeded
-    blocks whose bits reach word 63."""
+    """(label, words, bits, restart_interval, maxw, tile_mcus) of the
+    concat kernel on the card: real blocks with and without restarts
+    (intervals 0, 1, 8, 17 and one past the image), gray, per-image table
+    sets, dense noise with the default and a shrunk budget, seeded blocks
+    whose bits reach word 63, in tile_layout's tiles and in tiles of 1 to
+    7 MCUs (segments across tiles, the last tile shorter), one-MCU images,
+    and blocks of 2 to 4 bits in tiles of one MCU (a word across several
+    tiles, tiles that own no word)."""
     from imagegen import make_test_image
 
     rgbs = np.stack([make_test_image(64, 48, seed=180 + i) for i in range(3)])
@@ -455,33 +509,77 @@ def _concat_cases(dev):
     hists = TC._symbol_histograms_batch(*q).cpu().numpy()
     _, ytabs, ctabs = TC._optimal_tables(hists)
     cases = []
-    for ri in (0, 1, 8, 17):
+    for ri in (0, 1, 8, 17, 20):
         wc, bc = TC._emit_local(*q, ri)
-        cases.append((f"real ri={ri}", wc, bc, ri, None))
-    cases.append(("gray", *TC._emit_local(*qg), 0, None))
+        cases.append((f"real ri={ri}", wc, bc, ri, None, None))
+        if ri in (0, 8):
+            cases += [(f"real ri={ri}, tiles of {t}", wc, bc, ri, None, t)
+                      for t in (1, 5, 7)]
+    cases.append(("gray", *TC._emit_local(*qg), 0, None, None))
     _, wc, bc = TC._encode_batch_custom(*q, ytabs, ctabs, restart_interval=2)
-    cases.append(("per-image tables", wc, bc, 2, None))
+    cases.append(("per-image tables", wc, bc, 2, None, None))
     for ri in (0, 4):
         wc, bc = TC._emit_local(*qn, ri)
-        cases += [(f"noise ri={ri}", wc, bc, ri, None),
-                  (f"noise ri={ri}, maxw 700", wc, bc, ri, 700)]
+        cases += [(f"noise ri={ri}", wc, bc, ri, None, None),
+                  (f"noise ri={ri}, maxw 700", wc, bc, ri, 700, None),
+                  (f"noise ri={ri}, maxw 700, tiles of 3", wc, bc, ri, 700,
+                   3)]
     wc, bc = TE.stream_blocks(3, 40, seed=5)
     cases.append(("word 63", tuple(w.to(dev) for w in wc),
-                  tuple(b.to(dev) for b in bc), 3, None))
+                  tuple(b.to(dev) for b in bc), 3, None, None))
+    for ri in (0, 1):
+        wc, bc = TE.stream_blocks(4, 1, seed=6 + ri)
+        cases.append((f"one MCU ri={ri}", tuple(w.to(dev) for w in wc),
+                      tuple(b.to(dev) for b in bc), ri, 64, None))
+    rng = np.random.default_rng(182)
+    for ri in (0, 3):
+        words, bits = [], []
+        for per_mcu in (4, 1, 1):
+            b = rng.integers(0, 5, (2, per_mcu * 30))
+            b.reshape(2, 30, per_mcu)[:, ::7] = 0
+            w = np.zeros((*b.shape, 64), np.int64)
+            w[..., 0] = (rng.integers(0, 16, b.shape) << 28) & (
+                (0xFFFFFFFF << (32 - b)) & 0xFFFFFFFF)
+            words.append(torch.from_numpy(w).to(dev))
+            bits.append(torch.from_numpy(b.astype(np.int32)).to(dev))
+        cases.append((f"2-4-bit blocks ri={ri}, tiles of 1", tuple(words),
+                      tuple(bits), ri, 64, 1))
     return cases
+
+
+def _concat_in_tiles(wc, bc, ri, maxw, tile):
+    """The concat kernel launched with tiles of `tile` MCUs (the wrapper
+    takes tile_layout's), so that a word spans several tiles."""
+    from jpezy_tpu_torch.ops import concat_cuda
+
+    N, nm = bc[1].shape
+    nseg = -(-nm // ri) if ri else 0
+    out = torch.empty((N, 1 + nseg + maxw), dtype=torch.int64,
+                      device=bc[1].device)
+    rc = concat_cuda.LIB.get().jz_concat_streams(
+        *(t.contiguous().data_ptr() for t in wc + bc), out.data_ptr(), N, nm,
+        ri, nseg, maxw, tile, -(-nm // tile),
+        torch.cuda.current_stream().cuda_stream)
+    concat_cuda.LIB.raise_on("concat_streams", rc)
+    return out
 
 
 def test_concat_kernel_matches_plain(cuda):
     """combined of the concat kernel is bit-identical to the plain form's
-    in every case, one counted call each; the dense noise outgrows the
-    shrunk budget (words dropped, totals exact)."""
+    in every case (in tile_layout's tiles, one counted call each, and in
+    tiles of 1 to 7 MCUs); the dense noise outgrows the shrunk budget
+    (words dropped, totals exact)."""
     from jpezy_tpu_torch.ops import concat_cuda
 
     cases = _concat_cases(cuda)
     before = concat_cuda.launches
     overflowed = 0
-    for label, wc, bc, ri, maxw in cases:
-        got, _, _ = TC._concat_batch_combined_comp(wc, bc, ri, maxw=maxw)
+    for label, wc, bc, ri, maxw, tile in cases:
+        if tile is None:
+            got, _, _ = TC._concat_batch_combined_comp(wc, bc, ri, maxw=maxw)
+        else:
+            got = _concat_in_tiles(wc, bc, ri, maxw or (
+                TC.stream_budget_words_batch(6 * bc[1].shape[1])), tile)
         m = got.shape[1] - 1 - (-(-bc[1].shape[1] // ri) if ri else 0)
         want = TE.concat_streams_plain(tuple(w.cpu() for w in wc),
                                        tuple(b.cpu() for b in bc), ri, m)
@@ -489,7 +587,7 @@ def test_concat_kernel_matches_plain(cuda):
         assert got.dtype == torch.int64, label
         assert torch.equal(got.cpu(), want), label
         overflowed += int((want[:, 0] > 32 * m).sum())
-    assert concat_cuda.launches - before == len(cases)
+    assert concat_cuda.launches - before == sum(c[5] is None for c in cases)
     assert overflowed > 0
 
 
@@ -507,46 +605,45 @@ def test_concat_kernel_refuses_shapes(cuda):
 
 
 def test_fused_kernel_per_image_tables(cuda):
-    """One launch with a table set per image equals the plain version and
-    the per-image launches; the long-emission tables (74-bit slots) too."""
+    """One launch with a table set per image (the custom instantiation)
+    equals the plain form and each image coded alone with its set, with
+    and without restarts; the long-emission tables (74-bit slots) too."""
     from jpezy_tpu_torch.ops import pack_cuda
 
     q, ytabs, ctabs = _optimize_inputs(cuda)
-    for qc, tabs, chroma in ((q[0], ytabs, False), (q[1], ctabs, True),
-                             (q[2], ctabs, True)):
-        n, b, _ = qc.shape
-        flat = qc.reshape(-1, 64)
-        pred = TE.dc_predictors(qc[:, :, 0]).reshape(-1)
+    for ri in (0, 2):
         before = pack_cuda.encode_launches
-        wk, bk = TE.encode_block_words(flat, pred, chroma, tables=tabs,
-                                       blocks_per_image=b)
+        wk, bk = TE.encode_blocks_batch(*q, ri, tables=(ytabs, ctabs))
         assert pack_cuda.encode_launches - before == 1
-        wp, bp = TE.encode_block_words_plain(flat, pred, chroma, tabs, b)
+        wp, bp = TE.encode_blocks_batch_plain(*(c.cpu() for c in q), ri,
+                                              tables=(ytabs, ctabs))
         torch.cuda.synchronize()
-        assert torch.equal(wk, wp) and torch.equal(bk, bp)
-        for i in range(n):
-            one = tuple(t[i] for t in tabs)
-            wi, bi = TE.encode_block_words(flat[i * b:(i + 1) * b],
-                                           pred[i * b:(i + 1) * b], chroma,
-                                           tables=one)
-            assert torch.equal(wi, wk[i * b:(i + 1) * b])
-            assert torch.equal(bi, bk[i * b:(i + 1) * b])
+        for a, b in zip(wk + bk, wp + bp):
+            assert torch.equal(a.cpu(), b), ri
+        for i in range(q[0].shape[0]):
+            one = tuple(tuple(t[i] for t in tabs) for tabs in (ytabs, ctabs))
+            wi, bi = TE.encode_blocks_batch(*(c[i:i + 1] for c in q), ri,
+                                            tables=one)
+            for a, b in zip(wi + bi, wk + bk):
+                assert torch.equal(a, b[i:i + 1]), (ri, i)
     _, _, *flat_tabs = TE.long_emission_tables()
     longq = torch.from_numpy(TE.long_emission_blocks()).to(cuda)
-    pred = TE.dc_predictors(longq[:, 0])
-    wk, bk = TE.encode_block_words(longq, pred, False, tables=flat_tabs)
-    wp, bp = TE.encode_block_words_plain(longq.cpu(), pred.cpu(), False,
-                                         flat_tabs)
-    assert torch.equal(wk.cpu(), wp) and torch.equal(bk.cpu(), bp)
-    _, _, nbits = TE.block_emissions(longq.cpu(), pred.cpu(), False,
-                                     flat_tabs)
+    comps = (longq[None], longq[None, :2], longq[None, 2:4])
+    wk, bk = TE.encode_blocks_batch(*comps, tables=(flat_tabs, flat_tabs))
+    wp, bp = TE.encode_blocks_batch_plain(*(c.cpu() for c in comps),
+                                          tables=(flat_tabs, flat_tabs))
+    for a, b in zip(wk + bk, wp + bp):
+        assert torch.equal(a.cpu(), b)
+    _, _, nbits = TE.block_emissions(longq.cpu(),
+                                     TE.dc_predictors(longq[:, 0].cpu()),
+                                     False, flat_tabs)
     assert int(nbits.max()) == 74
 
 
 def test_optimize_and_rgb_on_card_match_cpu(cuda):
     """optimize and the rgb transports in exact mode: the card's streams
-    and pixels equal the CPU's; optimize launches the histogram kernel
-    once, the fused kernel three times and the concat once."""
+    and pixels equal the CPU's; optimize launches the histogram kernel,
+    the fused kernel and the concat once each."""
     from imagegen import make_test_image
 
     from jpezy_tpu_torch.ops import concat_cuda, pack_cuda
@@ -558,7 +655,7 @@ def test_optimize_and_rgb_on_card_match_cpu(cuda):
                           restart_interval=2, device=cuda)
     assert (pack_cuda.histogram_launches - before[0],
             pack_cuda.encode_launches - before[1],
-            concat_cuda.launches - before[2]) == (1, 3, 1)
+            concat_cuda.launches - before[2]) == (1, 1, 1)
     assert opt == TC.encode_batch(rgbs, precision="exact", optimize=True,
                                   restart_interval=2, device="cpu")
     rgb = TC.encode_batch(rgbs, precision="exact", transport="rgb",
@@ -579,10 +676,9 @@ def test_optimize_and_rgb_on_card_match_cpu(cuda):
                          ids=["plain", "restart", "optimize"])
 def test_sharded_on_card_matches_cpu(cuda, kw):
     """encode_sharded / decode_sharded on a 1x1 mesh on the card: exact
-    streams equal the CPU mesh's, the kernels launch per shard (3 fused,
+    streams equal the CPU mesh's, the kernels launch per shard (1 fused,
     1 concat, 1 histogram with optimize, 1 scan for restart streams), and
-    the
-    device decode's pixels equal the card's rgb transport's."""
+    the device decode's pixels equal the card's rgb transport's."""
     from imagegen import make_test_image
 
     from jpezy_tpu_torch.ops import concat_cuda, pack_cuda, scan_cuda
@@ -599,7 +695,7 @@ def test_sharded_on_card_matches_cpu(cuda, kw):
     streams = encode_sharded(card, rgbs, precision="exact", **kw)
     px = decode_sharded(card, streams)
     assert tuple(a - b for a, b in zip(counts(), before)) == (
-        3, 1, 1 if kw.get("optimize") else 0, 1 if kw else 0)
+        1, 1, 1 if kw.get("optimize") else 0, 1 if kw else 0)
     assert streams == encode_sharded(cpu, rgbs, precision="exact", **kw)
     want, _ = TC.decode_batch(streams, transport="rgb", device=cuda)
     assert np.array_equal(px, want)

@@ -5,7 +5,7 @@ identical: emissions (hi, lo, nbits), the plain pack against both JAX
 references the Pallas kernel is held to (the default reduce form and the
 fori form, use_pallas=False), stream offsets and the stream concat,
 including images that overflow their word budget.  The fused encode
-(encode_block_words: emissions + pack) is held to the JAX emissions + pack
+(encode_block_words_plain: emissions + pack) is held to the JAX emissions + pack
 and to the numpy oracle's bit strings on the seeded edge-case blocks.  The
 CUDA kernels are held to the plain versions in tests/test_torch_cuda.py
 and chip_smoke.py; what of their wrappers runs without a card (argument
@@ -279,7 +279,9 @@ class TestCudaWrappersOnCpu:
         assert got.dtype == np.int32
         assert np.array_equal(got.view(np.uint32), x.astype(np.uint32))
 
-    @pytest.mark.parametrize("fn", ["pack_words_cuda", "encode_blocks_cuda"])
+    @pytest.mark.parametrize("fn", ["pack_words_cuda",
+                                    "encode_blocks_batch_cuda"],
+                             ids=["pack_words_cuda", "encode_blocks_cuda"])
     def test_cpu_tensor_refused(self, fn):
         from jpezy_tpu_torch.ops import pack_cuda
 
@@ -289,17 +291,18 @@ class TestCudaWrappersOnCpu:
                 pack_cuda.pack_words_cuda(q.to(torch.int64),
                                           q.to(torch.int64), q)
             else:
-                pack_cuda.encode_blocks_cuda(q, q[:, 0], False)
+                pack_cuda.encode_blocks_batch_cuda(q[None], q[None, :1],
+                                                   q[None, :1])
 
     @pytest.mark.parametrize("bad", ["dtype", "shape"])
     def test_bad_arguments_refused(self, bad):
         from jpezy_tpu_torch.ops import pack_cuda
 
-        q = torch.zeros((2, 64) if bad == "dtype" else (2, 63),
+        q = torch.zeros((1, 2, 64) if bad == "dtype" else (1, 2, 63),
                         dtype=torch.int64 if bad == "dtype" else torch.int32)
-        with pytest.raises(ValueError, match="encode_blocks_cuda"):
-            pack_cuda.encode_blocks_cuda(q, torch.zeros(2, dtype=torch.int32),
-                                         False)
+        c = torch.zeros((1, 1, 64), dtype=torch.int32)
+        with pytest.raises(ValueError, match="encode_blocks_batch_cuda"):
+            pack_cuda.encode_blocks_batch_cuda(q, c, c)
 
     def test_kernel_source_tables_match(self):
         """The zigzag order and table indices written into the CUDA source
