@@ -11,9 +11,11 @@ the restart path (the same round trip with restart_interval=8 and the
 `indexed` decode of the main path's streams, the optimize path (per-image
 Huffman tables; encode_batches(optimize=True, restart_interval=8), then
 the device decode), the rgb transports and single-image, mixed-size and
-command-line entry points, and the sharded codec (parallel/) on a 1x1
-mesh and over gloo ranks that share the card.  Each phase prints one line and any
-failure exits nonzero.  In the order they run:
+command-line entry points, the sharded codec (parallel/) on a 1x1
+mesh and over gloo ranks that share the card, and exact mode's paths
+(precision="exact": the ycc420 and rgb encodes and the rgb decode, colour
+and gray, through the float64 kernels).  Each phase prints one line and
+any failure exits nonzero.  In the order they run:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
      fp32 matmuls at IEEE precision (no TF32);
@@ -24,12 +26,15 @@ failure exits nonzero.  In the order they run:
      huffman_scan.cu; the one-launch stream concat, stream_concat.cu; the
      fDCT+quantize kernel for int8 and int32 samples and the
      IDCT-to-planes kernel's sparse, overflow and dense launches,
-     block_transforms.cu; and the designs the entropy kernel and the
-     concat replaced, scripts/previous_designs.cu, for phase 6) and
-     prints what ptxas reports for each kernel (a template's
-     instantiations under one name); a stack frame or a spill in any
-     kernel but the scan, or a spill in the scan kernel, fails the run.
-     Counts each kernel's SASS instructions (cuobjdump);
+     block_transforms.cu; exact mode's fDCT+quantize and
+     dequantize+IDCT-to-planes kernels, exact_transforms.cu; and the
+     designs the entropy kernel and the concat replaced,
+     scripts/previous_designs.cu, for phase 6) and prints what ptxas
+     reports for each kernel (a template's instantiations under one name);
+     a stack frame or a spill in any kernel but the scan, or a spill in
+     the scan kernel, fails the run.  Counts each kernel's SASS
+     instructions (cuobjdump), and in the exact kernels DFMA, DMUL and
+     DADD: a DFMA (a contracted multiply-add) fails the run;
   3. the pack kernels against their plain torch versions: the pack alone
      per component on the real 16x512x512 blocks, on seeded worst-case
      blocks and on the edge-case blocks; the batched entropy kernel (one
@@ -54,7 +59,8 @@ failure exits nonzero.  In the order they run:
      blocks and flags must be identical;
   4. exact parity: 4x512x512 precision="exact" encodes on the card, without
      and with restart markers, must be byte-identical to the host C++ codec
-     (the port's verbatim copy of jpezy_tpu's host_codec);
+     (the port's verbatim copy of jpezy_tpu's host_codec), each launching
+     the exact fDCT, the entropy and the concat kernel once;
   5. main path: roundtrip_batches over 4 batches of 16x512x512 on the card,
      every stream must decode; the port's own decode and the host decoder's
      decode of the port's streams must both reach a PSNR within 0.05 dB of
@@ -83,23 +89,30 @@ failure exits nonzero.  In the order they run:
      slots of 74 bits
      (entropy.long_emission_tables) encoded on the card to the host C++
      encoder's entropy bytes; 4x512x512 exact optimize streams, with and
-     without restarts, byte-identical to host_codec.  Then the optimize
+     without restarts, byte-identical to host_codec (1 exact fDCT, 1
+     histogram, 1 fused and 1 concat launch a call).  Then the optimize
      path over 4 batches: every stream with its own DHT, pixels equal to
      the restart path's, fewer bytes; 1 fDCT, 1 histogram, 1 fused, 1
      concat, 1 scan and 1 IDCT launch per batch; MP/s of encode and
      decode and the host stages
      (the table derivation, the 16 LUT sets of the decode);
   11. rgb and entry points: rgb encode (fast, exact) and rgb decode (fast,
-     exact, gray) on the card against the same calls on the CPU; exact
-     rgb streams at 16x512x512 equal the ycc420 transport's and decode to
-     host_codec's pixels; encode/decode of a 1000x750 image,
+     exact, gray) on the card against the same calls on the CPU, with
+     their launches (an encode its fDCT kernel, fast or exact, the fused
+     kernel and the concat; an exact decode idct_planes_exact once, the
+     fast rgb decode no kernel); exact rgb streams at 16x512x512 equal the
+     ycc420 transport's and decode to host_codec's pixels; encode/decode
+     of a 1000x750 image,
      encode_mixed/decode_mixed of six sizes (exact: equal to host_codec),
      and `python -m jpezy_tpu_torch.cli encode|decode ... --gpu` on a PPM
      (the same stream and pixels as the in-process calls);
   12. the sharded codec (parallel/), world size 1 (a 1x1 mesh, no process
      group): exact encode_sharded of a 16x512x512 batch, without and with
      restart_interval=8, byte-identical to encode_batch(transport="rgb")
-     and host_codec; then 4 batches through encode_sharded and
+     and host_codec (1 exact fDCT, 1 fused, 1 concat launch), and exact
+     decode_sharded of the streams without restart markers equal to
+     host_codec.decode (1 idct_planes_exact launch); then 4 batches
+     through encode_sharded and
      decode_sharded on three paths, `sharded` (no restart markers, host
      Huffman frontend), `sharded_restart` (restart_interval=8, the device
      decode per shard) and `sharded_optimize` (one table set a batch):
@@ -115,7 +128,9 @@ failure exits nonzero.  In the order they run:
      restart and optimize streams equal the 1x1 mesh's, the sharded device
      decode's pixels equal decode_batch(transport="rgb")'s, a corrupted
      stream raises on the ranks of its tile row, and each rank's launches
-     per step are as expected; a rank that fails or hangs fails the run;
+     per step are as expected (RANK_STEPS: an exact encode step launches
+     the exact fDCT kernel once); a rank that fails or hangs fails the
+     run;
   13. the concat kernel against its plain version, bit for bit: the real
      16x512x512 blocks without and with restart_interval 1, 8, 17 and
      2000 (one segment, longer than the image), the 16 per-image table
@@ -140,6 +155,24 @@ failure exits nonzero.  In the order they run:
      printed; the fDCT's, separable against the plain 64-term product,
      at most FDCT_DIFF_SHARE per set), the two forms' planes identical on
      the same streams; one counted call each;
+  15. exact mode's kernels against their plain versions (the ordered
+     float64 sums of ops/dct.py), bit for bit: fdct_quantize_exact on the
+     main batch's ycc420 int8 planes at Annex K, quality 95, rounded and
+     gray, on the rgb path's int32 planes converted at float64 (chroma at
+     column stride 2), on noise at quality 100 and on the tie set
+     (testing/exact_ties.forward_tie_blocks: ramps on which another summation
+     order truncates differently, and flat blocks; int8 at quantizer 1,
+     int32 at Annex K); idct_planes_exact on the main batch's rgb upload
+     read as 4:2:0, 4:2:2, 4:4:4, one component and gray, at level 128 and
+     2048, as int32, on 16 noise images at quality 100 (their quantized
+     blocks from fdct_quantize_exact, as the rgb transport would upload
+     them) and on the inverse tie set at both levels; one counted call
+     each.  Then exact mode's
+     paths over the 4 batches: the ycc420 and the rgb encode
+     byte-identical to host_codec's streams, the rgb decode (colour and
+     gray) identical to host_codec.decode's pixels; per batch an encode
+     launches the exact fDCT, the fused kernel and the concat once and no
+     fast fDCT, a decode idct_planes_exact once;
   5/8 device: only now the profiler: per batch the encode and decode
      programs' CUDA-event spans (host-launch bound), their device-busy
      time (kernel and copy time summed from a torch.profiler trace) and
@@ -155,13 +188,18 @@ failure exits nonzero.  In the order they run:
      (device time of a profiled round trip over the wall time of the
      unprofiled one); 10/11 device: the optimize encode's device stages alone
      and the optimize path's busy share, the rgb transports' device programs
-     (fast, exact, gray);
+     (fast, exact, gray; the exact ones beside their plain readings,
+     EARLIER_EXACT), and the exact ycc420 encode program, which must be the
+     exact fDCT, entropy and concat kernels alone (3 device events);
   6. times of the pack kernels, the histogram kernel, the concat and the
-     two block transforms alone on the real batch beside their bounds
+     four block transforms alone on the real batch beside their bounds
      (see _bound; the transforms' by bytes or float32 operations, the
-     IDCT's counted from the batch's nonzero coefficients) and their
-     plain versions, with the L2 cache overwritten too, the transforms
-     beside torch.matmul of the [98304, 64] @ [64, 64] product alone, and
+     exact ones' by bytes or separate float64 DMUL/DADD, the IDCTs'
+     counted from the batch's nonzero coefficients) and their plain
+     versions, with the L2 cache overwritten too, the transforms beside
+     torch.matmul of the [98304, 64] @ [64, 64] product alone (float32;
+     float64, cuBLAS DGEMM, for the exact ones: not the same function),
+     of idct_planes_exact on noise at quality 100 too, and
      each instantiation's registers and resident thread blocks an SM as the
      card reports them; of
      the concat on noise at quality 100 (dense blocks), of the IDCT
@@ -182,10 +220,10 @@ failure exits nonzero.  In the order they run:
 Every wall clock is taken before torch.profiler first traces: after that
 every launch in the process costs the host more.
 
-The last three lines are the kernel table as JSON (seven kernels:
+The last three lines are the kernel table as JSON (nine kernels:
 pack_words, encode_blocks, decode_segments, symbol_histograms,
-concat_streams, fdct_quantize, idct_planes; launches per path in
-launches_by_path), the card's name and power limit, and {"ok": true,
+concat_streams, fdct_quantize, idct_planes, fdct_quantize_exact,
+idct_planes_exact; launches per path in launches_by_path), the card's name and power limit, and {"ok": true,
 "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits nonzero and prints no
 result.  Imports nothing of JAX and nothing of the jpezy_tpu package.
@@ -220,6 +258,28 @@ PEAK_INT_OPS_PER_S = 67e12 / 2
 # the float32 rate outside the tensor cores in operations (a multiply-add
 # counts two): the rate of the block transforms' bound
 PEAK_FP32_FLOPS = 67e12
+# the float64 rate outside the tensor cores, 33.5 TFLOP/s with a fused
+# multiply-add counted two, as separate DMUL and DADD operations (exact
+# mode's kernels may not contract): the rate of their bound
+PEAK_FP64_OPS = 33.5e12 / 2
+# The float64 operations that exact mode's functions need: those whose
+# result the oracle's roundings depend on.  A product by exactly 1
+# (COS[0][.], cu[j >= 1], cucv[k] for u, v >= 1) and the first add of a
+# sum, onto +0, change no value beyond the sign of a zero, which the
+# truncation drops; a zero sample or coefficient adds only such terms, and
+# a block with no nonzero input needs nothing (its outputs are 0, or
+# level).  Forward, per nonzero sample: 7 first products p[k] COS[j][x]
+# (j >= 1), 56 second products (i >= 1) and 64 adds; per block with one:
+# 64 first adds fewer, and 16 products by cu[0] and 64 divisions by 4 for
+# the normalisation.  A block with no zero sample needs 8,144 (the kernel
+# issues 8,896: 512, 4,096, 4,096 and 192).  Inverse, per nonzero
+# coefficient (u, v): 64 adds, 8 column products if u >= 1, 64 row products
+# if v >= 1, the product cucv[k] d[k] if u or v is 0; per block with one:
+# 64 first adds fewer, and s / 4 + level for each of its 64 samples.
+EXACT_FWD_OPS = (7 + 56 + 64, 16 + 64 - 64)
+_U, _V = np.arange(64) % 8, np.arange(64) // 8
+EXACT_INV_OPS = (64 + 8 * (_U > 0) + 64 * (_V > 0) + ((_U == 0) | (_V == 0)),
+                 2 * 64 - 64)
 # Bytes per 8x8 block that each kernel's function must move: its inputs
 # read once, 64 32-bit words and one bit count written once.  (The kernels
 # store the words zero-extended to 64 bits, 256 bytes more per block: a
@@ -265,7 +325,9 @@ MIN_OPS_PER_SYMBOL = 12
 EARLIER_SCAN_MS = 0.1052
 KERNELS = ("pack_words", "encode_blocks", "decode_segments",
            "symbol_histograms", "concat_streams", "fdct_quantize",
-           "idct_planes")
+           "idct_planes", "fdct_quantize_exact", "idct_planes_exact")
+# exact mode's kernels, whose SASS must hold no DFMA
+EXACT_KERNELS = ("fdct_quantize_exact", "idct_planes_exact")
 # the fused kernel's instantiation for the caller's tables (optimize), built
 # and checked beside the fixed-table one, which keeps the name
 ENCODE_CUSTOM = "encode_blocks (custom tables)"
@@ -282,14 +344,18 @@ SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "symbol_histograms": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "concat_streams": "jpezy_tpu_torch/csrc/stream_concat.cu",
            "fdct_quantize": "jpezy_tpu_torch/csrc/block_transforms.cu",
-           "idct_planes": "jpezy_tpu_torch/csrc/block_transforms.cu"}
+           "idct_planes": "jpezy_tpu_torch/csrc/block_transforms.cu",
+           "fdct_quantize_exact": "jpezy_tpu_torch/csrc/exact_transforms.cu",
+           "idct_planes_exact": "jpezy_tpu_torch/csrc/exact_transforms.cu"}
 REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
             "encode_blocks": "jpezy_tpu/ops/pack_pallas.py:27",
             "decode_segments": "jpezy_tpu/ops/entropy_decode.py:211",
             "symbol_histograms": "jpezy_tpu/codec/jax_codec.py:464",
             "concat_streams": "jpezy_tpu/codec/jax_codec.py:317",
             "fdct_quantize": "jpezy_tpu/parallel/sharded.py:75",
-            "idct_planes": "jpezy_tpu/codec/jax_codec.py:833"}
+            "idct_planes": "jpezy_tpu/codec/jax_codec.py:833",
+            "fdct_quantize_exact": "jpezy_tpu/ops/dct.py:58",
+            "idct_planes_exact": "jpezy_tpu/ops/dct.py:87"}
 # The block transforms' stages as plain torch on the card, as this script's
 # phase 5 read them before the kernels (NVIDIA H100 80GB HBM3, 700 W; kept
 # from then, not measured here): fDCT+quantize alone, the encode and
@@ -298,6 +364,13 @@ REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
 EARLIER_PROGRAMS = {"fDCT+quantize": (0.1830, 24), "encode": (0.2441, 35),
                     "ycc420 decode": (0.9582, 97),
                     "device decode": (0.2497, 33)}
+# Exact mode's device programs as plain float64 torch on the card, as this
+# script's 11 device line read them before the exact kernels (NVIDIA H100
+# 80GB HBM3, 700 W; kept from then, not measured here): device busy ms
+# (device events).
+EARLIER_EXACT = {"rgb exact encode": (7.7399, 634),
+                 "exact decode": (7.7703, 827),
+                 "gray exact decode": (5.0066, 270)}
 # The three per-component histogram launches that the one-launch kernel
 # replaced, summed (chip_smoke.py phase 6, PR 5 and PR 6: NVIDIA H100 80GB
 # HBM3, 700 W; kept from then, not measured here).
@@ -321,9 +394,11 @@ FDCT_DIFF_SHARE = 2e-3
 # phase 12's gloo ranks: the images they share, and each rank's steps
 # with the launches every step must make
 PARALLEL_IMAGES = 4
-RANK_STEPS = {"exact_restart": {"encode_blocks": 1, "concat_streams": 1},
+RANK_STEPS = {"exact_restart": {"encode_blocks": 1, "concat_streams": 1,
+                                "fdct_quantize_exact": 1},
               "exact_optimize": {"encode_blocks": 1, "symbol_histograms": 1,
-                                 "concat_streams": 1},
+                                 "concat_streams": 1,
+                                 "fdct_quantize_exact": 1},
               "fast_restart": {"encode_blocks": 1, "concat_streams": 1,
                                "fdct_quantize": 1},
               "device_decode": {"decode_segments": 1},
@@ -336,18 +411,19 @@ CPU_BATCH, CPU_HW = 2, 256
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from jpezy_tpu_torch.ops import (concat_cuda, pack_cuda, scan_cuda,
-                                     transform_cuda)
+    from jpezy_tpu_torch.ops import (concat_cuda, exact_cuda, pack_cuda,
+                                     scan_cuda, transform_cuda)
 
     pack_cuda.launches = pack_cuda.encode_launches = 0
     pack_cuda.histogram_launches = scan_cuda.launches = 0
     concat_cuda.launches = 0
     transform_cuda.fdct_launches = transform_cuda.idct_launches = 0
+    exact_cuda.fdct_exact_launches = exact_cuda.idct_exact_launches = 0
 
 
 def read_counts() -> dict:
-    from jpezy_tpu_torch.ops import (concat_cuda, pack_cuda, scan_cuda,
-                                     transform_cuda)
+    from jpezy_tpu_torch.ops import (concat_cuda, exact_cuda, pack_cuda,
+                                     scan_cuda, transform_cuda)
 
     return {"pack_words": pack_cuda.launches,
             "encode_blocks": pack_cuda.encode_launches,
@@ -355,11 +431,17 @@ def read_counts() -> dict:
             "symbol_histograms": pack_cuda.histogram_launches,
             "concat_streams": concat_cuda.launches,
             "fdct_quantize": transform_cuda.fdct_launches,
-            "idct_planes": transform_cuda.idct_launches}
+            "idct_planes": transform_cuda.idct_launches,
+            "fdct_quantize_exact": exact_cuda.fdct_exact_launches,
+            "idct_planes_exact": exact_cuda.idct_exact_launches}
+
+
+_T0 = time.perf_counter()
 
 
 def _say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One phase's line, with the seconds since the script started."""
+    print(f"[{phase}] ({time.perf_counter() - _T0:.1f} s) {msg}", flush=True)
 
 
 def _psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -486,7 +568,8 @@ def _kernel_of(symbol: str) -> str:
     if "encode_blocks_batch_kernelILb1E" in symbol:  # the custom-table form
         return ENCODE_CUSTOM
     for name in ("encode_blocks_batch", "decode_segments", "symbol_histograms",
-                 "concat_streams", "fdct_quantize", "idct_planes"):
+                 "concat_streams", "fdct_quantize_exact", "idct_planes_exact",
+                 "fdct_quantize", "idct_planes"):
         if name in symbol:
             return name.replace("_batch", "")
     return "pack_words"
@@ -515,23 +598,51 @@ def _ptxas_by_kernel(log: str, kernel_of=_kernel_of) -> dict:
     return out
 
 
-def _sass_instructions(nvcc: str, lib: str) -> dict:
-    """{kernel: number of SASS instructions in its sm_90a code, summed over
-    the instantiations of a template}, from `cuobjdump -sass` of the built
-    library, NOPs left out."""
+def _sass_instructions(nvcc: str, lib: str, opcodes=()) -> tuple:
+    """({kernel: number of SASS instructions in its sm_90a code, summed
+    over the instantiations of a template}, {kernel: {opcode: how many of
+    its instructions are that opcode (predicated or not, any suffix)}}),
+    from `cuobjdump -sass` of the built library, NOPs left out."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     res = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                          timeout=120)
     if res.returncode != 0:
         raise RuntimeError(f"cuobjdump failed: {res.stderr.strip()}")
-    out, cur = {}, None
+    out, ops, cur = {}, {}, None
     for ln in res.stdout.splitlines():
         if "Function :" in ln:
             cur = _kernel_of(ln.split(":", 1)[1])
             out.setdefault(cur, 0)
-        elif cur and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?!NOP\b)\S", ln):
+            ops.setdefault(cur, dict.fromkeys(opcodes, 0))
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@\S+\s+)?([A-Z]\w*)",
+                     ln)
+        if cur and m and m.group(1) != "NOP":
             out[cur] += 1
-    return out
+            if m.group(1) in ops[cur]:
+                ops[cur][m.group(1)] += 1
+    return out, ops
+
+
+def exact_fwd_ops(planes) -> int:
+    """EXACT_FWD_OPS counted on the planes fdct_quantize_exact reads."""
+    total = 0
+    for p in planes:
+        n, hh, ww = p.shape
+        nz = (p.reshape(n, hh // 8, 8, ww // 8, 8) != 0).sum(dim=(2, 4))
+        total += (EXACT_FWD_OPS[0] * int(nz.sum())
+                  + EXACT_FWD_OPS[1] * int((nz > 0).sum()))
+    return total
+
+
+def exact_inv_ops(coeff, kw) -> int:
+    """EXACT_INV_OPS counted on the coefficients idct_planes_exact
+    transforms (component 0 alone with gray)."""
+    c = coeff[:, :kw["sizes"][0]] if kw["gray"] else coeff
+    nz = c.reshape(-1, 64) != 0
+    per_term = torch.from_numpy(EXACT_INV_OPS[0]).to(c.device)
+    return (int((nz * per_term).sum())
+            + EXACT_INV_OPS[1] * int(nz.any(dim=1).sum()))
 
 
 def _bound(nbytes: int, ops: int, rate: float = PEAK_INT_OPS_PER_S):
@@ -837,8 +948,9 @@ def main() -> int:
     from jpezy_tpu_torch.ops import entropy as E
     from jpezy_tpu_torch.ops import entropy_decode as ED
     from jpezy_tpu_torch.ops import block_transform as BT
-    from jpezy_tpu_torch.ops import (concat_cuda, pack_cuda, scan_cuda,
-                                     transform_cuda)
+    from jpezy_tpu_torch.testing import exact_ties as XT
+    from jpezy_tpu_torch.ops import (concat_cuda, exact_cuda, pack_cuda,
+                                     scan_cuda, transform_cuda)
     from jpezy_tpu_torch.runtime import batch as RB
     import previous_designs
     from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
@@ -860,23 +972,32 @@ def main() -> int:
     import concurrent.futures as cf
 
     libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB,
-            transform_cuda.LIB)
+            transform_cuda.LIB, exact_cuda.LIB)
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(len(libs) + 1) as ex:
         secs = list(ex.map(lambda lib: lib.build(force=True),
                            libs + (previous_designs.LIB,)))
     build_wall = time.perf_counter() - t0
-    ptxas, sass = {}, {}
+    ptxas, sass, sass_ops = {}, {}, {}
     for lib in libs:
         lib.get()
         ptxas.update(_ptxas_by_kernel(lib.build_log))
-        sass.update(_sass_instructions(cuda_build.nvcc(), lib.so))
+        n_sass, ops = _sass_instructions(cuda_build.nvcc(), lib.so,
+                                         ("DFMA", "DMUL", "DADD"))
+        sass.update(n_sass)
+        sass_ops.update(ops)
     built = sorted(KERNELS + (ENCODE_CUSTOM,))
     if sorted(ptxas) != built or sorted(sass) != built \
             or min(sass.values()) <= 0:
         raise AssertionError(
             f"ptxas reported {sorted(ptxas)}, cuobjdump {sass}:\n"
             + "\n".join(lib.build_log for lib in libs))
+    # exact mode: every float64 multiply and add separate, none contracted
+    for k in EXACT_KERNELS:
+        if sass_ops[k]["DFMA"] or not sass_ops[k]["DMUL"] \
+                or not sass_ops[k]["DADD"]:
+            raise AssertionError(f"{k}'s SASS holds {sass_ops[k]}: want "
+                                 "DMUL and DADD and no DFMA")
     previous_designs.LIB.get()
     prev_ptxas = _ptxas_by_kernel(previous_designs.LIB.build_log,
                                   _previous_of)
@@ -889,6 +1010,9 @@ def main() -> int:
          f"sm_90a side by side in {build_wall:.2f} s (nvcc "
          + ", ".join(f"{t:.2f}" for t in secs) + " s); "
          + " || ".join(f"{k}: {' | '.join(v)} | {sass[k]} SASS instructions"
+                       + (" (" + ", ".join(f"{n} {op}" for op, n in
+                                           sass_ops[k].items()) + ")"
+                          if k in EXACT_KERNELS else "")
                        for k, v in ptxas.items())
          + " || " + " || ".join(f"{k}: {' | '.join(v)}"
                                 for k, v in prev_ptxas.items()))
@@ -1114,6 +1238,7 @@ def main() -> int:
 
     # ---- 4. exact parity with the host C++ codec
     imgs4 = _images(4, 100)
+    reset_counts()
     got = TC.encode_batch(imgs4, precision="exact", device="cuda")
     ref = [host_codec.encode(im[..., 0], im[..., 1], im[..., 2]) for im in imgs4]
     if got != ref:
@@ -1128,6 +1253,14 @@ def main() -> int:
         bad = [i for i in range(4) if got_r[i] != ref_r[i]]
         raise AssertionError(
             f"exact restart encode differs from host_codec on {bad}")
+    exact4_launches = read_counts()
+    if exact4_launches != {k: 2 * int(k in ("fdct_quantize_exact",
+                                            "encode_blocks",
+                                            "concat_streams"))
+                           for k in KERNELS}:
+        raise AssertionError(f"two exact encodes launched {exact4_launches}:"
+                             " want the exact fDCT, entropy and concat "
+                             "kernels once each a call")
     px, _ = TC.decode_batch(got, device="cuda")
     host_px = np.stack([np.stack(host_codec.decode(s)[:3], -1) for s in got])
     p_port, p_host = _psnr(px, imgs4), _psnr(host_px, imgs4)
@@ -1136,7 +1269,8 @@ def main() -> int:
         raise AssertionError(f"port decode PSNR {p_port} < host {p_host}")
     _say("4 exact", f"4x{H}x{W} exact encode byte-identical to host_codec "
          f"({sum(map(len, got))} bytes), and with restart_interval="
-         f"{RESTART_INTERVAL} ({sum(map(len, got_r))} bytes); decode PSNR "
+         f"{RESTART_INTERVAL} ({sum(map(len, got_r))} bytes), launches "
+         f"{ {k: v for k, v in exact4_launches.items() if v} }; decode PSNR "
          f"port {p_port:.4f} dB, "
          f"host {p_host:.4f} dB, max |diff| {int(diff.max())}, "
          f"{float((diff > 0).mean()):.5f} of samples differ")
@@ -1165,8 +1299,12 @@ def main() -> int:
             raise AssertionError("stream without SOI/EOI")
     host_dec = np.stack([np.stack(host_codec.decode(s)[:3], -1)
                          for s in streams])
-    ref_rt = np.stack([np.stack(host_codec.decode(host_codec.encode(
-        im[..., 0], im[..., 1], im[..., 2]))[:3], -1) for im in src])
+    # the host codec's streams of the batches (phase 15's exact paths are
+    # held to them too) and their round trip
+    host_streams = [host_codec.encode(im[..., 0], im[..., 1], im[..., 2])
+                    for im in src]
+    ref_rt = np.stack([np.stack(host_codec.decode(s)[:3], -1)
+                       for s in host_streams])
     p_rt, p_hostdec, p_ref = (_psnr(px, src), _psnr(host_dec, src),
                               _psnr(ref_rt, src))
     if p_rt < p_ref - PSNR_SLACK_DB:
@@ -1377,6 +1515,7 @@ def main() -> int:
         raise AssertionError(f"{long_bits}-bit emissions: the card's entropy "
                              "bytes differ from the host C++ encoder's")
     # exact optimize streams against the host codec
+    reset_counts()
     got_o = TC.encode_batch(imgs4, precision="exact", optimize=True,
                             device="cuda")
     ref_o = [host_codec.encode(im[..., 0], im[..., 1], im[..., 2],
@@ -1388,6 +1527,14 @@ def main() -> int:
               for im in imgs4]
     if got_o != ref_o or got_or != ref_or:
         raise AssertionError("exact optimize encode differs from host_codec")
+    exact_opt_launches = read_counts()
+    if exact_opt_launches != {k: 2 * int(k in (
+            "fdct_quantize_exact", "symbol_histograms", "encode_blocks",
+            "concat_streams")) for k in KERNELS}:
+        raise AssertionError(f"two exact optimize encodes launched "
+                             f"{exact_opt_launches}: want the exact fDCT, "
+                             "histogram, entropy and concat kernels once "
+                             "each a call")
     _say("10 kernels", f"symbol_histograms (one launch for the three "
          f"components) identical to the plain version on {len(hist_sets)} "
          "sets (" + ", ".join(
@@ -1399,7 +1546,8 @@ def main() -> int:
          f"restart_interval 0 and {RESTART_INTERVAL}; {long_bits}-bit "
          f"slots: the card's {len(card_bytes)} entropy bytes equal the host "
          f"C++ encoder's; 4x{H}x{W} exact optimize encode byte-identical to "
-         f"host_codec, without and with restart_interval={ri} "
+         f"host_codec, without and with restart_interval={ri}, launches "
+         f"{ {k: v for k, v in exact_opt_launches.items() if v} } "
          f"({sum(map(len, got_o))} and {sum(map(len, got_or))} bytes against "
          f"{sum(map(len, got))} and {sum(map(len, got_r))} with the fixed "
          f"tables)")
@@ -1472,9 +1620,18 @@ def main() -> int:
 
     # ---- 11. the rgb transports and the entry points, card against CPU
     small = _images(CPU_BATCH, 300)[:, :CPU_HW, :CPU_HW]
+    rgb_launches = {}
+    fdct_of = {"fast": "fdct_quantize", "exact": "fdct_quantize_exact"}
     for precision in ("fast", "exact"):
+        reset_counts()
         on_card = TC.encode_batch(small, transport="rgb", precision=precision,
                                   device="cuda")
+        rgb_launches[f"encode {precision}"] = read_counts()
+        if rgb_launches[f"encode {precision}"] != {
+                k: int(k in (fdct_of[precision], "encode_blocks",
+                             "concat_streams")) for k in KERNELS}:
+            raise AssertionError(f"rgb encode ({precision}) launched "
+                                 f"{rgb_launches[f'encode {precision}']}")
         on_cpu = TC.encode_batch(small, transport="rgb", precision=precision,
                                  device="cpu")
         if precision == "exact":
@@ -1494,7 +1651,16 @@ def main() -> int:
     for label, kw in (("fast", dict(transport="rgb")),
                       ("exact", dict(precision="exact")),
                       ("gray", dict(precision="exact", gray=True))):
+        reset_counts()
         a, _ = TC.decode_batch(exact_small, device="cuda", **kw)
+        rgb_launches[f"decode {label}"] = read_counts()
+        # the fast rgb decode is plain torch (Queue 2 item 2); exact mode's
+        # transform is idct_planes_exact, one launch
+        if rgb_launches[f"decode {label}"] != {
+                k: int(k == "idct_planes_exact" and label != "fast")
+                for k in KERNELS}:
+            raise AssertionError(f"rgb decode ({label}) launched "
+                                 f"{rgb_launches[f'decode {label}']}")
         b, _ = TC.decode_batch(exact_small, device="cpu", **kw)
         d = int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
         rgb_dec_diff[label] = d
@@ -1509,6 +1675,7 @@ def main() -> int:
             if not np.array_equal(a, host_px):
                 raise AssertionError("exact rgb decode != host_codec.decode")
     # full width on the card: rgb transport against ycc420, both ways
+    reset_counts()
     rgb_full = TC.encode_batch(batches[0], transport="rgb",
                                precision="exact", device="cuda")
     if rgb_full != TC.encode_batch(batches[0], precision="exact",
@@ -1521,6 +1688,14 @@ def main() -> int:
     if not np.array_equal(rgb_px, ref_px):
         raise AssertionError(f"exact rgb decode at {BATCH}x{H}x{W} != "
                              "host_codec.decode")
+    rgb_launches["full width"] = read_counts()
+    if rgb_launches["full width"] != {
+            k: {"fdct_quantize_exact": 2, "encode_blocks": 2,
+                "concat_streams": 2, "idct_planes_exact": 1}.get(k, 0)
+            for k in KERNELS}:
+        raise AssertionError(f"two exact encodes and an exact decode at "
+                             f"full width launched "
+                             f"{rgb_launches['full width']}")
     rgb_host_ms = {
         "encode_batch, rgb, fast": _host_ms(lambda: TC.encode_batch(
             batches[0], transport="rgb", device="cuda"), 3),
@@ -1609,7 +1784,10 @@ def main() -> int:
          f"against CPU, max |diff|: " + ", ".join(
              f"{k} {v}" for k, v in rgb_dec_diff.items())
          + f"; at {BATCH}x{H}x{W} exact rgb streams equal ycc420's and their "
-         f"exact rgb decode equals host_codec's; host ms per batch: "
+         f"exact rgb decode equals host_codec's; launches " + "; ".join(
+             f"{k} { {n: c for n, c in v.items() if c} }"
+             for k, v in rgb_launches.items())
+         + "; host ms per batch: "
          + ", ".join(f"{k} {v:.3f}" for k, v in rgb_host_ms.items())
          + f"; 1000x750 encode/decode exact equal host_codec, fast PSNR "
          f"{p_big:.4f} dB (host exact {p_big_ref:.4f}); ms: "
@@ -1628,8 +1806,11 @@ def main() -> int:
     mesh = make_mesh(1, 1, device="cuda")
     exact_kw = (("plain", {}), ("restart_interval=8",
                                 {"restart_interval": ri}))
+    sharded_exact = {}
     for label, kw in exact_kw:
+        reset_counts()
         got = encode_sharded(mesh, batches[0], precision="exact", **kw)
+        sharded_exact[f"encode_sharded {label}"] = read_counts()
         if got != TC.encode_batch(batches[0], transport="rgb",
                                   precision="exact", device="cuda", **kw):
             raise AssertionError(f"exact encode_sharded ({label}) differs "
@@ -1638,6 +1819,23 @@ def main() -> int:
                                      **kw) for im in batches[0]]:
             raise AssertionError(f"exact encode_sharded ({label}) differs "
                                  "from host_codec")
+        if kw:
+            continue
+        # exact decode_sharded: the host Huffman frontend, then the rgb
+        # transport's program through idct_planes_exact
+        reset_counts()
+        px_sh = decode_sharded(mesh, got, precision="exact")
+        sharded_exact[f"decode_sharded {label}"] = read_counts()
+        if not np.array_equal(px_sh, ref_rt[:BATCH]):
+            raise AssertionError(f"exact decode_sharded ({label}) differs "
+                                 "from host_codec.decode")
+    for k, counts in sharded_exact.items():
+        want = ({"fdct_quantize_exact": 1, "encode_blocks": 1,
+                 "concat_streams": 1} if k.startswith("encode")
+                else {"idct_planes_exact": 1})
+        if counts != {n: want.get(n, 0) for n in KERNELS}:
+            raise AssertionError(f"{k} (exact) launched {counts}, want "
+                                 f"{want}")
     # dense content over the default budget: the shard emits again, fitted
     from jpezy_tpu_torch.parallel.api import (encode_sharded_dispatch,
                                               encode_sharded_finish,
@@ -1722,7 +1920,10 @@ def main() -> int:
     _say("12 sharded", f"1x1 mesh, {MAIN_BATCHES} batches x {BATCH}x{H}x{W}"
          f": exact encode_sharded byte-identical to encode_batch("
          f"transport='rgb') and host_codec, without and with "
-         f"restart_interval={ri}; 2 noise images at quality 100 outgrew the "
+         f"restart_interval={ri}, and exact decode_sharded of the streams "
+         f"without equal to host_codec.decode (launches " + "; ".join(
+             f"{k} { {n: c for n, c in v.items() if c} }"
+             for k, v in sharded_exact.items()) + f"); 2 noise images at quality 100 outgrew the "
          f"default budget of {shard_budget_words(H * W // 256)} words and "
          f"were emitted again into {dense_maxw} (without, with restart "
          f"markers), exact streams equal host_codec's and encode_batch's; "
@@ -2058,6 +2259,178 @@ def main() -> int:
     idct_dense_input = idct_sets[-2][1]
     del idct_sets, planes_by, got, want, model, noise_q100, small
 
+    # ---- 15. exact mode's kernels against their plain versions, bit for
+    # bit, then the exact paths over the batches
+    def tie_planes(blocks, dtype):
+        """Sample blocks as one image's planes on the card."""
+        return tuple(torch.from_numpy(p.astype(dtype)).to(dev)
+                     for p in XT.tie_planes(blocks))
+
+    ones = torch.ones(64, dtype=torch.int32, device=dev)
+    q100 = tuple(torch.from_numpy(t).to(dev)
+                 for t in T.scale_quant_tables(100))
+    rgb0 = torch.from_numpy(batches[0]).to(dev)
+    ey, ecb, ecr = OC.rgb_to_ycc(rgb0[..., 0], rgb0[..., 1], rgb0[..., 2],
+                                 torch.float64)
+    noise15 = np.random.default_rng(17).integers(0, 256, (BATCH, H, W, 3),
+                                                 dtype=np.uint8)
+    fwd_ties = XT.forward_tie_blocks(4096, 18)
+    fx_sets = [
+        ("ycc420 upload, Annex K", ycc_real, plain_kw),
+        ("quality 95", ycc_real, dict(plain_kw, qtables=q95)),
+        ("rounded", ycc_real, dict(plain_kw, rounded=True)),
+        ("gray", ycc_real, dict(plain_kw, gray=True)),
+        ("rgb path, int32 planes at float64, chroma at column stride 2",
+         (ey, OB.decimate_420(ecb), OB.decimate_420(ecr)), plain_kw),
+        ("noise, quality 100", upload(noise15), dict(plain_kw,
+                                                     qtables=q100)),
+        (f"tie set of {len(fwd_ties)} blocks, int8, quantizer 1",
+         tie_planes(fwd_ties, np.int8), dict(plain_kw, qtables=(ones, ones))),
+        ("the tie set, int32, Annex K", tie_planes(fwd_ties, np.int32),
+         plain_kw)]
+    del rgb0, ecb, ecr
+    err["fdct_quantize_exact"] = 0
+    exact_cuda.fdct_exact_launches = 0
+    said15 = []
+    for label, planes15, kw in fx_sets:
+        got = BT.fdct_quantize_exact(*planes15, **kw)
+        want = BT.fdct_quantize_plain(*planes15, dtype=torch.float64, **kw)
+        torch.cuda.synchronize()
+        for g, w_ in zip(got, want):
+            e = int((g - w_).abs().max())
+            err["fdct_quantize_exact"] = max(err["fdct_quantize_exact"], e)
+            if e or g.dtype != torch.int32:
+                raise AssertionError(f"fdct_quantize_exact kernel != plain "
+                                     f"version on {label}")
+        said15.append(f"{label} {tuple(planes15[0].shape)} "
+                      f"{planes15[0].dtype}")
+    if exact_cuda.fdct_exact_launches != len(fx_sets):
+        raise AssertionError(f"exact fDCT kernel launched "
+                             f"{exact_cuda.fdct_exact_launches} times in "
+                             f"{len(fx_sets)} comparisons")
+    _say("15 fdct exact", "fdct_quantize_exact (one launch for the three "
+         "components) bit-identical to the plain float64 ordered sums on "
+         "the card on: " + "; ".join(said15))
+    del fx_sets, got, want
+
+    def rgb_upload(streams):
+        """The rgb transport's coefficient upload of streams on the card,
+        and the decode's kwargs."""
+        pjs15, geom15, level15 = TC._parse_batch(streams, precision="exact")
+        coeff15, kw15 = TC._rgb_host_prep(pjs15, geom15, level15,
+                                          gray=False, precision="exact")
+        return torch.from_numpy(coeff15).to(dev), kw15
+
+    main_up, main_kw = rgb_upload(plain_lists[0])
+    # the noise batch's coefficients as the rgb transport would upload them
+    # (its quantized blocks, component after component), made on the card
+    noise_up = torch.cat(BT.fdct_quantize_exact(
+        *upload(noise15), gray=False, rounded=False, qtables=q100),
+        dim=1).to(torch.int16)
+    yq100, cq100 = (tuple(int(x) for x in t)
+                    for t in T.scale_quant_tables(100))
+    noise_kw = dict(main_kw, qtuple=(yq100, cq100, cq100))
+    del noise15
+    my15, mx15 = main_kw["geom"][0][:2]
+    ix_sets = []
+    for lay15, (geom15, sizes15, gray15) in XT.upload_layouts(
+            my15, mx15).items():
+        for lvl in (128, 2048):
+            ix_sets.append((f"main batch's upload as {lay15}, level {lvl}",
+                            main_up, dict(geom=geom15, sizes=sizes15,
+                                          gray=gray15, level=lvl,
+                                          qtuple=main_kw["qtuple"][
+                                              :len(sizes15)])))
+    noise_kw = {k: noise_kw[k] for k in ("geom", "sizes", "gray", "level",
+                                         "qtuple")}
+    ix_sets.append((f"{BATCH} noise images at quality 100", noise_up,
+                    noise_kw))
+    ix_sets.append(("main batch's upload as int32", main_up.to(torch.int32),
+                    ix_sets[0][2]))
+    for lvl in (128, 2048):
+        inv_ties = XT.inverse_tie_blocks(4096, 19, lvl)
+        nt = len(inv_ties)
+        ix_sets.append((f"tie set of {nt} blocks, level {lvl}, quantizer 1",
+                        torch.from_numpy(inv_ties[None]).to(dev),
+                        dict(geom=((1, nt, 1, 1, 1, 1),), sizes=(nt,),
+                             gray=False, level=lvl,
+                             qtuple=(tuple([1] * 64),))))
+    err["idct_planes_exact"] = 0
+    exact_cuda.idct_exact_launches = 0
+    for label, src15, kw in ix_sets:
+        got = BT.idct_planes_exact(src15, **kw)
+        want = BT.idct_planes_exact_plain(src15, **kw)
+        torch.cuda.synchronize()
+        if len(got) != len(want):
+            raise AssertionError(f"idct_planes_exact gave {len(got)} planes, "
+                                 f"the plain version {len(want)}, on {label}")
+        for g, w_ in zip(got, want):
+            e = int((g - w_).abs().max())
+            err["idct_planes_exact"] = max(err["idct_planes_exact"], e)
+            if e or g.dtype != torch.int32:
+                raise AssertionError(f"idct_planes_exact kernel != plain "
+                                     f"version on {label}")
+    if exact_cuda.idct_exact_launches != len(ix_sets):
+        raise AssertionError(f"exact IDCT kernel launched "
+                             f"{exact_cuda.idct_exact_launches} times in "
+                             f"{len(ix_sets)} comparisons")
+    _say("15 idct exact", "idct_planes_exact (one launch for every "
+         "component) bit-identical to the plain float64 ordered sums on the "
+         "card on: " + "; ".join(
+             f"{label} ({src15.dtype}, {len(kw['sizes'])} components "
+             f"{[tuple(g[2:4]) for g in kw['geom']]}"
+             f"{', gray' if kw['gray'] else ''})"
+             for label, src15, kw in ix_sets))
+    exact_fdct_input = ycc_real          # phase 6 times the kernels on these
+    exact_idct_input = (main_up, ix_sets[0][2])
+    exact_idct_noise = (noise_up, noise_kw)
+    del ix_sets, got, want
+
+    # the exact paths over the batches: streams byte-identical to the host
+    # codec's, pixels identical to its decode, the exact kernels once a batch
+    def run_exact_path(label, fn, per_batch):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = [fn(i, b) for i, b in enumerate(batches)]
+        walls15[label] = time.perf_counter() - t0
+        exact_launches[label] = read_counts()
+        if exact_launches[label] != _per_batch(**per_batch):
+            raise AssertionError(f"{label} launches {exact_launches[label]},"
+                                 f" want per batch {per_batch}")
+        return out
+
+    walls15, exact_launches = {}, {}
+    enc_once = dict(fdct_quantize_exact=1, encode_blocks=1, concat_streams=1)
+    for label, transport in (("exact_encode", "ycc420"),
+                             ("exact_rgb_encode", "rgb")):
+        lists15 = run_exact_path(label, lambda i, b: TC.encode_batch(
+            b, precision="exact", transport=transport, device="cuda"),
+            enc_once)
+        if [s for ss in lists15 for s in ss] != host_streams:
+            raise AssertionError(f"{label}: streams differ from host_codec's")
+    host_lists = [host_streams[i * BATCH:(i + 1) * BATCH]
+                  for i in range(MAIN_BATCHES)]
+    host_gray = np.stack([np.stack(host_codec.decode(s, gray=True)[:3], -1)
+                          for s in host_streams])
+    for label, gray15, want_px in (("exact_decode", False, ref_rt),
+                                   ("exact_gray_decode", True, host_gray)):
+        pxs = run_exact_path(label, lambda i, b: TC.decode_batch(
+            host_lists[i], precision="exact", gray=gray15,
+            device="cuda")[0], dict(idct_planes_exact=1))
+        if not np.array_equal(np.concatenate(pxs), want_px):
+            raise AssertionError(f"{label}: pixels differ from "
+                                 "host_codec.decode's")
+    del host_gray
+    _say("15 exact paths", f"{MAIN_BATCHES} batches x {BATCH}x{H}x{W} "
+         "precision='exact' on the card: ycc420 and rgb encodes "
+         "byte-identical to host_codec, the rgb decode's pixels (colour and "
+         "gray) identical to host_codec.decode's; launches " + "; ".join(
+             f"{k} { {n: c for n, c in v.items() if c} }"
+             for k, v in exact_launches.items())
+         + "; serial MP/s " + ", ".join(f"{k} {mpix / v:.3f}"
+                                        for k, v in walls15.items())
+         + f" (no warm-up); on {card}")
+
     # ---- 5/8 device: event spans, then (only now) the profiler
     y, cb, cr = HG.host_rgb_to_ycc420(batches[0])
     packed_dev = torch.from_numpy(np.concatenate(
@@ -2287,22 +2660,49 @@ def main() -> int:
     coeff_dev = torch.from_numpy(coeff).to(dev)
     rgb_prep_ms = _host_ms(lambda: TC._rgb_host_prep(
         pjs_rgb, geom_rgb, level_rgb, gray=False, precision="fast"))
+    def was(name):
+        ms, events = EARLIER_EXACT[name]
+        return (f"before the exact kernels {ms} ms busy in {events} events, "
+                f"kept from then")
+
     rgb_rows = stage_rows((
         ("rgb encode program, fast (_encode_batch_blocks)",
          lambda: TC._encode_batch_blocks(rgb_dev)),
-        ("rgb encode program, exact",
+        (f"rgb encode program, exact ({was('rgb exact encode')})",
          lambda: TC._encode_batch_blocks(rgb_dev, precision="exact")),
         ("rgb decode program, fast (_decode_fused_batch)",
          lambda: TC._decode_fused_batch(coeff_dev, **rkw)),
-        ("rgb decode program, exact",
+        (f"rgb decode program, exact ({was('exact decode')})",
          lambda: TC._decode_fused_batch(coeff_dev,
                                         **dict(rkw, precision="exact"))),
-        ("rgb decode program, gray exact",
+        (f"rgb decode program, gray exact ({was('gray exact decode')})",
          lambda: TC._decode_fused_batch(
              coeff_dev, **dict(rkw, precision="exact", gray=True)))))
+    # the exact ycc420 encode program is the exact fDCT, entropy and concat
+    # kernels alone, as the fast one is with its fDCT kernel
+    def enc_exact():
+        return TC._encode_batch_blocks_packed(packed_dev, h=H, w=W,
+                                              precision="exact")
+
+    exact_span = _time_ms(enc_exact, 5)
+    exact_prof = _profile(enc_exact, 5)
+    names = sorted(exact_prof["by_name"])
+    if exact_prof["events"] > 3 or len(names) != 3 or not all(
+            any(k in n for n in names) for k in (
+                "fdct_quantize_exact_kernel", "encode_blocks_batch_kernel",
+                "concat_streams_kernel")):
+        raise AssertionError(
+            f"the exact ycc420 encode program makes {exact_prof['events']} "
+            f"device events per call ({names}): want the exact fDCT, "
+            "entropy and concat kernels alone")
     _say("11 device", f"rgb transports per {BATCH}x{H}x{W} batch: "
          + "; ".join(rgb_rows)
-         + f"; host frontend of the rgb decode (_rgb_host_prep) "
+         + f"; ycc420 encode program, exact "
+         f"(_encode_batch_blocks_packed): device busy "
+         f"{_fmt_ms(exact_prof['busy_ms'])} ms, event span {exact_span:.3f} "
+         f"ms, {exact_prof['events']:.1f} events (exact fDCT kernel "
+         f"{_fmt_ms(_kernel_ms(exact_prof, 'fdct_quantize_exact_kernel', False))}"
+         f" ms); host frontend of the rgb decode (_rgb_host_prep) "
          f"{rgb_prep_ms:.3f} ms on {card}")
     del rgb_dev, coeff_dev
 
@@ -2365,6 +2765,26 @@ def main() -> int:
     lib_m = codec_constants(dev)["inv64_f32"]
     library_ms = _profile(lambda: torch.matmul(lib_x, lib_m.T), 20)[
         "busy_ms"]
+    # and the same product in float64 (cuBLAS DGEMM), the yardstick of
+    # exact mode's kernels: not the same function, since it reorders the
+    # sums and contracts products into the adds
+    lib_x64, lib_m64 = lib_x.to(torch.float64), lib_m.to(torch.float64)
+    library64_ms = _profile(lambda: torch.matmul(lib_x64, lib_m64.T), 20)[
+        "busy_ms"]
+    # exact mode's kernels: the forward on the main batch's int8 planes, the
+    # inverse on its rgb upload (int16) into int32 planes; float64
+    # operations counted from the data (the inverse's from the nonzero
+    # coefficients)
+    ex_fdct_bytes = (sum(p.numel() * p.element_size()
+                         for p in exact_fdct_input)
+                     + 4 * 64 * n_blocks + 8 * 136 + 2 * 4 * 64)
+    ex_fdct_ops = exact_fwd_ops(exact_fdct_input)
+    ex_coeff, ex_kw = exact_idct_input
+    ex_samples = ex_coeff.numel()
+    ex_idct_bytes = (ex_coeff.numel() * ex_coeff.element_size()
+                     + 4 * ex_samples + 8 * 136 + 3 * 4 * 64)
+    ex_nonzero = int((ex_coeff != 0).sum())
+    ex_idct_ops = exact_inv_ops(ex_coeff, ex_kw)
     # each kernel's launches on one batch (Y, Cb, Cr, or one for all), its
     # plain version on the same inputs, its symbols in the trace, its bound
     kernels6 = {
@@ -2439,6 +2859,43 @@ def main() -> int:
             f"(before the kernel, kept from then); torch.matmul of the "
             f"product alone "
             f"{_fmt_ms(library_ms)} ms"),
+        "fdct_quantize_exact": (
+            [lambda: BT.fdct_quantize_exact(*exact_fdct_input, gray=False,
+                                            rounded=False)],
+            lambda: BT.fdct_quantize_plain(*exact_fdct_input, gray=False,
+                                           rounded=False,
+                                           dtype=torch.float64),
+            ("fdct_quantize_exact_kernel",),
+            _bound(ex_fdct_bytes, ex_fdct_ops, PEAK_FP64_OPS),
+            f"{n_blocks} blocks from int8 planes, {ex_fdct_bytes} bytes "
+            f"({1e3 * ex_fdct_bytes / PEAK_BYTES_PER_S:.4f} ms); "
+            f"{ex_fdct_ops} float64 operations that the oracle's roundings "
+            f"need ({ex_fdct_ops / n_blocks:.2f} a block; 8144 for a block "
+            f"with no zero sample, the kernel issues 8896) at "
+            f"{PEAK_FP64_OPS:.4g} separate DMUL/DADD a second; the rgb "
+            f"exact encode program read "
+            f"{EARLIER_EXACT['rgb exact encode'][0]} ms busy before the "
+            f"kernel (kept from then); torch.matmul of the "
+            f"[{n_blocks}, 64] @ [64, 64] float64 product alone (cuBLAS "
+            f"DGEMM, not the same function: it reorders and contracts) "
+            f"{_fmt_ms(library64_ms)} ms"),
+        "idct_planes_exact": (
+            [lambda: BT.idct_planes_exact(ex_coeff, **ex_kw)],
+            lambda: BT.idct_planes_exact_plain(ex_coeff, **ex_kw),
+            ("idct_planes_exact_kernel",),
+            _bound(ex_idct_bytes, ex_idct_ops, PEAK_FP64_OPS),
+            f"the main batch's rgb upload {tuple(ex_coeff.shape)} "
+            f"{ex_coeff.dtype} into int32 planes, {ex_idct_bytes} bytes "
+            f"({1e3 * ex_idct_bytes / PEAK_BYTES_PER_S:.4f} ms); "
+            f"{ex_nonzero} nonzero coefficients of {ex_samples}: "
+            f"{ex_idct_ops} float64 operations that the oracle's roundings "
+            f"need ({ex_idct_ops / max(ex_nonzero, 1):.2f} a nonzero "
+            f"coefficient) "
+            f"({1e3 * ex_idct_ops / PEAK_FP64_OPS:.4f} ms); the exact decode "
+            f"program read {EARLIER_EXACT['exact decode'][0]} ms busy before "
+            f"the kernel (kept from then); torch.matmul of the "
+            f"float64 product alone (DGEMM, not the same function) "
+            f"{_fmt_ms(library64_ms)} ms"),
     }
 
     # five times the card's 50 MB L2 cache
@@ -2469,8 +2926,14 @@ def main() -> int:
         t["sass_instructions"] = sass[name]
         t["sass_ms"] = (sass_ms(name, counts) if name in BLOCKS_PER_WARP
                         else None)
-        t["library_ms"] = (library_ms if name in ("fdct_quantize",
-                                                  "idct_planes") else None)
+        t["library_ms"] = {"fdct_quantize": library_ms,
+                           "idct_planes": library_ms,
+                           "fdct_quantize_exact": library64_ms,
+                           "idct_planes_exact": library64_ms}.get(name)
+        if name in EXACT_KERNELS:
+            t["library_call"] = (f"torch.matmul, float64 [{n_blocks}, 64] "
+                                 "@ [64, 64] (cuBLAS DGEMM): not the same "
+                                 "function, it reorders and contracts")
         timing[name] = t
         _say("6 times", f"{name} per {BATCH}x{H}x{W} batch ({len(calls)} "
              f"call{'s' if len(calls) > 1 else ''}): kernel alone "
@@ -2596,11 +3059,29 @@ def main() -> int:
     # the block transforms with what the card reports for each
     # instantiation (cudaFuncGetAttributes,
     # cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    info = transform_cuda.kernel_info()
-    timing["fdct_quantize"]["kernel_info"] = {
-        k: v for k, v in info.items() if k.startswith("fdct")}
-    timing["idct_planes"]["kernel_info"] = {
-        k: v for k, v in info.items() if k.startswith("idct")}
+    info = {**transform_cuda.kernel_info(), **exact_cuda.kernel_info()}
+    for name in ("fdct_quantize", "idct_planes", "fdct_quantize_exact",
+                 "idct_planes_exact"):
+        timing[name]["kernel_info"] = {
+            k: v for k, v in info.items() if k.split()[0] == name}
+    # exact mode's inverse where its float64 operations bound it: noise at
+    # quality 100, every coefficient nonzero or nearly
+    nz_coeff, nz_kw = exact_idct_noise
+    nz_samples = nz_coeff.numel()
+    nz_bound, nz_by = _bound(
+        nz_coeff.numel() * nz_coeff.element_size() + 4 * nz_samples,
+        exact_inv_ops(nz_coeff, nz_kw), PEAK_FP64_OPS)
+    nz_ms, _ = _traced(lambda: BT.idct_planes_exact(nz_coeff, **nz_kw), 20,
+                       "idct_planes_exact_kernel")
+    nz_cold_ms, _ = _traced(lambda: (l2_flush.zero_(), BT.idct_planes_exact(
+        nz_coeff, **nz_kw)), 20, "idct_planes_exact_kernel")
+    timing["idct_planes_exact"]["noise_ms"] = nz_ms
+    timing["idct_planes_exact"]["noise_bound_ms"] = nz_bound
+    _say("6 times", f"idct_planes_exact on {nz_coeff.shape[0]} noise images "
+         f"at quality 100 ({int((nz_coeff != 0).sum())} nonzero of "
+         f"{nz_samples} coefficients): kernel {nz_ms:.4f} ms (L2 "
+         f"overwritten first {nz_cold_ms:.4f}), bound {nz_bound:.4f} ms by "
+         f"{nz_by} = {nz_bound / nz_ms:.3f} of it; on {card}")
     rows6 = []
     for label, ms, cold, b_ms, key in (
             ("fdct_quantize", timing["fdct_quantize"]["ms"],
@@ -2610,7 +3091,15 @@ def main() -> int:
              timing["idct_planes"]["cold_ms"],
              timing["idct_planes"]["bound_ms"], "idct_planes sparse"),
             ("idct_planes dense", dn_ms, dn_cold_ms, dn_bound,
-             "idct_planes dense")):
+             "idct_planes dense"),
+            ("fdct_quantize_exact", timing["fdct_quantize_exact"]["ms"],
+             timing["fdct_quantize_exact"]["cold_ms"],
+             timing["fdct_quantize_exact"]["bound_ms"],
+             "fdct_quantize_exact int8"),
+            ("idct_planes_exact", timing["idct_planes_exact"]["ms"],
+             timing["idct_planes_exact"]["cold_ms"],
+             timing["idct_planes_exact"]["bound_ms"],
+             "idct_planes_exact int16")):
         regs, per_sm, smem, local, threads = info[key]
         rows6.append(
             f"{label}: {ms:.4f} ms (L2 overwritten first {cold:.4f}), bound "
@@ -2620,11 +3109,14 @@ def main() -> int:
             f"{local} of local memory a thread block / thread")
     others = ", ".join(f"{k} {v[0]} registers, {v[1]} thread blocks an SM"
                        for k, v in info.items()
-                       if k in ("fdct_quantize int32", "idct_planes overflow"))
+                       if k in ("fdct_quantize int32", "idct_planes overflow",
+                                "fdct_quantize_exact int32",
+                                "idct_planes_exact int32"))
     _say("6 transforms", "; ".join(rows6) + f"; {others}; torch.matmul "
          f"of the [{n_blocks}, 64] @ [64, 64] float32 product alone "
-         f"{_fmt_ms(library_ms)} ms; on {card}")
-    del sp_dev, dn_src, lib_x
+         f"{_fmt_ms(library_ms)} ms, float64 (DGEMM, not the same function "
+         f"as the exact kernels) {_fmt_ms(library64_ms)} ms; on {card}")
+    del sp_dev, dn_src, lib_x, lib_x64, nz_coeff, ex_coeff
     # the fused kernel on four batches in one launch
     comps4 = tuple(torch.cat([c] * 4) for c in real_comps)
     big_ms, _ = _traced(lambda: pack_cuda.encode_blocks_batch_cuda(*comps4),
@@ -2739,7 +3231,8 @@ def main() -> int:
     # pack_words is off every path: its count is phase 3's, over the real
     # blocks; encode_blocks' and concat_streams' are the main path's;
     # decode_segments' is the restart path's; symbol_histograms' is the
-    # optimize path's.
+    # optimize path's; the exact kernels' are phase 15's exact encode
+    # (ycc420) and exact decode paths'.
     # launches_by_path holds every path's own counts (phase 12's sharded
     # paths too), each read just after that path's run.
     launches = {"pack_words": pack_alone_launches,
@@ -2748,13 +3241,19 @@ def main() -> int:
                 "symbol_histograms": optimize_launches["symbol_histograms"],
                 "concat_streams": main_launches["concat_streams"],
                 "fdct_quantize": main_launches["fdct_quantize"],
-                "idct_planes": main_launches["idct_planes"]}
+                "idct_planes": main_launches["idct_planes"],
+                "fdct_quantize_exact":
+                    exact_launches["exact_encode"]["fdct_quantize_exact"],
+                "idct_planes_exact":
+                    exact_launches["exact_decode"]["idct_planes_exact"]}
     by_path = {name: {"main": main_launches[name],
                       "restart_device": restart_launches[name],
                       "decode_indexed": indexed_launches[name],
                       "optimize": optimize_launches[name],
                       **{path: counts[name]
-                         for path, counts in sharded_launches.items()}}
+                         for path, counts in sharded_launches.items()},
+                      **{path: counts[name]
+                         for path, counts in exact_launches.items()}}
                for name in launches}
     per_batch = {name: {path: n / MAIN_BATCHES for path, n in paths.items()}
                  for name, paths in by_path.items()}
@@ -2772,6 +3271,7 @@ def main() -> int:
         "sass_instructions": t["sass_instructions"], "sass_ms": t["sass_ms"],
         **{k: t[k] for k in ("ms_per_image_tables",
                              "cold_ms_per_image_tables", "dense_ms",
+                             "library_call", "noise_ms", "noise_bound_ms",
                              "dense_form_ms", "cold_dense_form_ms",
                              "kernel_info", "previous_ms",
                              "previous_cold_ms", "previous_dense_ms",

@@ -14,6 +14,9 @@ blocks read where the entropy kernel wrote them) -> ONE fetch of
 host header + byte stuffing.
 `rgb` transport: ONE [N, H, W, 3] u8 upload, colour conversion and 4:2:0
 decimation on the device (float32 in fast mode), then the same program.
+Exact mode takes the exact fDCT+quantize kernel in place of the fast one
+(the oracle's ordered float64 sums, ops/exact_cuda.py) on either
+transport.
 optimize=True (two passes, per-image optimal Huffman tables): the
 quantized blocks stay on the device, the CUDA histogram kernel counts each
 image's symbols (one launch for the three components), ONE [N, 4, 256]
@@ -31,9 +34,10 @@ Huffman scan, one lane per segment (ops/entropy_decode.py) -> the same
 IDCT kernel on the scan's blocks (per-image dequantize, IDCT, planes plus
 one corruption flag per image) -> ONE fetch.  `indexed` gives restart-free streams the same device decode
 after a length-only host scan.  `rgb`, for any frame: host Huffman
-frontend -> ONE upload of the coefficients -> dequantize, IDCT (float64
-ordered sums in exact mode), deblockify, upsample by the sampling
-factors, colour or gray clamp on the device -> ONE fetch of RGB.
+frontend -> ONE upload of the coefficients -> dequantize, IDCT,
+deblockify (exact mode: the CUDA kernel of the float64 ordered sums, one
+launch), upsample by the sampling factors, colour or gray clamp on the
+device -> ONE fetch of RGB.
 
 precision:
   "fast"  - float32 transforms at IEEE precision (TF32 refused); on the
@@ -59,10 +63,8 @@ from ..device import resolve
 from ..ops import block_transform as BT
 from ..ops import blocks as B
 from ..ops import colorspace as C
-from ..ops import dct as D
 from ..ops import entropy as E
 from ..ops import entropy_decode as ED
-from ..ops import quantize as Q
 from . import host_glue as HG
 
 def _dtype(precision: str):
@@ -85,13 +87,13 @@ def _quantize_local_ycc(y, cb, cr, *, gray: bool, dtype, rounded: bool,
 
     y: [N, H, W] int (Y-128); cb/cr: [N, H/2, W/2] int.  qtables: optional
     (yqt, cqt) quant tables; None = the fixed Annex K tables.  float32:
-    BT.fdct_quantize, the hand-written kernel on CUDA tensors; float64:
-    the oracle's ordered sums, plain torch on every device."""
+    BT.fdct_quantize; float64: BT.fdct_quantize_exact, the oracle's
+    ordered sums; each the hand-written kernel on CUDA tensors."""
     if dtype == torch.float32:
         return BT.fdct_quantize(y, cb, cr, gray=gray, rounded=rounded,
                                 qtables=qtables)
-    return BT.fdct_quantize_plain(y, cb, cr, gray=gray, rounded=rounded,
-                                  qtables=qtables, dtype=dtype)
+    return BT.fdct_quantize_exact(y, cb, cr, gray=gray, rounded=rounded,
+                                  qtables=qtables)
 
 
 def _emit_local(yq, cbq, crq, restart_interval: int = 0,
@@ -596,26 +598,23 @@ def _decode_fused_batch(coeff_all: torch.Tensor, *, geom, level, gray,
     _decode_fused_batch_packed): coefficients [N, sum(B_i), 64] of every
     component in one array -> [N, H_mcu, W_mcu, 3] uint8 RGB, or
     [N, H_mcu, W_mcu, 1] for gray or a 1-component frame.  Dequantize,
-    IDCT at the precision's dtype (float64 ordered sums in exact mode),
-    deblockify, nearest upsample by the sampling factors, then colour or
-    the gray clamp.  Gray needs the luma only, so the chroma components
-    are not transformed."""
+    IDCT at the precision's dtype, deblockify, nearest upsample by the
+    sampling factors, then colour or the gray clamp.  Gray needs the luma
+    only, so the chroma components are not transformed.  Exact mode's
+    dequantize, float64 ordered IDCT and deblockify are
+    BT.idct_planes_exact, the hand-written kernel on CUDA tensors, one
+    launch for every component."""
     dt = _dtype(precision)
-    dev = coeff_all.device
-    N = coeff_all.shape[0]
-    planes = []
-    off = 0
-    for n_b, qt, (mcus_y, mcus_x, v, h, dup_y, dup_x) in zip(
-            sizes, qtuple, geom):
-        cb = coeff_all[:, off:off + n_b]
-        off += n_b
-        deq = Q.dequantize(cb.reshape(-1, 64),
-                           torch.tensor(qt, dtype=torch.int32, device=dev))
-        spat = D.inverse_dct(deq, level, dt).reshape(N, n_b, 64)
-        plane = B.deblockify(spat, mcus_y, mcus_x, v, h)
-        planes.append(B.upsample_nearest(plane, dup_y, dup_x))
-        if gray:
-            return C.clamp_gray(planes[0], dt)[..., None]
+    if dt == torch.float64:
+        spats = BT.idct_planes_exact(coeff_all, geom=geom, level=level,
+                                     gray=gray, sizes=sizes, qtuple=qtuple)
+    else:
+        spats = BT.idct_planes_rgb_plain(coeff_all, geom=geom, level=level,
+                                         gray=gray, sizes=sizes,
+                                         qtuple=qtuple, dtype=dt)
+    planes = [B.upsample_nearest(p, g[4], g[5]) for p, g in zip(spats, geom)]
+    if gray:
+        return C.clamp_gray(planes[0], dt)[..., None]
     r, g, b = C.ycc_to_rgb(planes[0], planes[1], planes[2], dt)
     return torch.stack([r, g, b], dim=-1)
 

@@ -3,9 +3,10 @@
 The codec has no learned weights.  Its parameters are the Annex K
 quantisation and Huffman tables (jpezy_tpu/core/tables.py), the 64x64 DCT
 bases (ops/dct.py), the 8x8 cosine and normalisation tables of the
-separable forward DCT that the fDCT kernel computes (their masters here)
-and the float64 ordered-sum term tables of the oracle
-(jpezy_tpu/codec/oracle.py).  The other numpy masters stay in those
+separable forward DCT that the fDCT kernel computes (their masters here),
+the float64 ordered-sum term tables of the oracle
+(jpezy_tpu/codec/oracle.py) and the float64 factors of those terms that the
+exact-mode kernels take (EXACT_TABLES, host memory).  The other numpy masters stay in those
 jax-free modules; this module places them on a device, once per
 (device, quality).  Callers treat the returned tensors as read-only.
 """
@@ -37,6 +38,29 @@ def _separable_masters() -> tuple[np.ndarray, np.ndarray]:
 
 
 FDCT_COS, FDCT_SCALE = _separable_masters()
+
+
+def _exact_masters() -> np.ndarray:
+    """The float64 tables of the exact-mode kernels
+    (csrc/exact_transforms.cu), one host array of 136: COS[u][x] = cos((2x
+    + 1) u pi / 16) (64, u * 8 + x), cu (8: 1/sqrt(2), then 1) and cucv[k]
+    = fl(cu[u] cv[v]) (64, k = 8 v + u), all computed by numpy on the host
+    as the oracle computes them.  The oracle's term tables are products of
+    no two of them: fwd_c1[k, 8i + j] = COS[j][k % 8], fwd_c2[k, 8i + j] =
+    COS[i][k // 8], inv_c1[k, 8y + x] = COS[k % 8][x], inv_c2[k, 8y + x] =
+    COS[k // 8][y] (tests/test_torch_exact.py holds them equal bit for
+    bit), so a kernel that reads the factors makes the oracle's roundings."""
+    cos = _o.cos_table()
+    cu = np.where(np.arange(8) == 0, 1.0 / np.sqrt(2.0), 1.0)
+    cucv = np.array([cu[k % 8] * cu[k // 8] for k in range(64)])
+    return np.ascontiguousarray(np.concatenate([cos.ravel(), cu, cucv]),
+                                np.float64)
+
+
+EXACT_TABLES = _exact_masters()
+EXACT_COS = EXACT_TABLES[:64].reshape(8, 8)
+EXACT_CU = EXACT_TABLES[64:72]
+EXACT_CUCV = EXACT_TABLES[72:]
 
 
 @functools.lru_cache(maxsize=32)

@@ -1,0 +1,548 @@
+// Exact mode's two block transforms for Hopper (sm_90a): the float64
+// forward DCT in the reference's term order with quantization on encode,
+// and dequantization with the float64 inverse DCT in the reference's term
+// order into int32 planes on decode.  precision="exact" promises streams
+// byte-identical to the reference encoder and pixels identical to its
+// decoder, so every rounding of the reference's double arithmetic is kept.
+//
+// Kernel 1, fdct_quantize_exact_kernel, replaces exact mode's half of the
+// stage XLA fused on the TPU in jpezy_tpu/parallel/sharded.py:
+// _quantize_local_ycc: ops/blocks.py:blockify_luma and blockify_chroma,
+// ops/dct.py:_forward_dct_ordered and ops/quantize.py:quantize.
+//   In:  Y-128 [N, H, W] and Cb, Cr [N, H/2, W/2] samples, int8 or int32,
+//        at any element strides (the ycc420 upload's views, the rgb path's
+//        decimated chroma); the float64 tables COS[u][x] = cos((2x + 1) u
+//        pi / 16) and cu (cu[0] = 1/sqrt(2), else 1) as kernel parameters;
+//        one [64] int32 quant table for luma, one for chroma.
+//   Out: quantized blocks [N, B_c, 64] int32 per component, natural order,
+//        luma blocks TL, TR, BL, BR within each MCU; gray writes zero
+//        chroma blocks.
+//   Per block p and coefficient (i, j) (codec/oracle.py:forward_dct): s
+//   starts at +0, then for k = 8 y + x ascending s += (p[k] COS[j][x])
+//   COS[i][y]; then ((s cu[j]) cu[i]) / 4, truncated toward zero; then C's
+//   truncating division |c| / q (or (2|c| + q) / (2q) when rounded) with
+//   the sign put back.
+//
+// Kernel 2, idct_planes_exact_kernel, replaces exact mode's half of
+// jpezy_tpu/codec/jax_codec.py:_decode_fused_batch up to the upsampling:
+// ops/quantize.py:dequantize, ops/dct.py:_inverse_dct_ordered and the
+// deblockify transpose.
+//   In:  the rgb transport's coefficients [N, sum B_c, 64] (int16 or int32,
+//        every component's blocks of an image in one row, MCU order), the
+//        components' [ncomp, 64] int32 quant tables, the float64 tables COS
+//        and cucv[k] = fl(cu[u] cv[v]) (k = 8 v + u).
+//   Out: per component its int32 plane [N, mcus_y v 8, mcus_x h 8],
+//        UNclamped (colour conversion follows in float64).  Gray takes
+//        component 0 only.
+//   Per block and sample (y, x) (codec/oracle.py:inverse_dct): d[k] =
+//   c[k] q[k] as a 32-bit integer; s starts at +0, then for k = 8 v + u
+//   ascending s += ((cucv[k] d[k]) COS[u][x]) COS[v][y]; then s / 4 +
+//   level (128, or 2048 for 12-bit frames), truncated toward zero.
+//
+// The traps, each of which flips the truncation of some coefficient or
+// sample (the smoke's tie set finds them):
+//  - No contraction.  nvcc contracts a*b + c into DFMA by default, which
+//    skips the product's rounding.  Every multiply and add here is
+//    __dmul_rn / __dadd_rn, which are never contracted; chip_smoke.py
+//    finds no DFMA in the SASS of either kernel.
+//  - No refolding.  cu[i] cu[j], the / 4 and the two cosines of a term are
+//    not premultiplied into one table: each product is rounded where the
+//    reference rounds it.  Only products the reference computes anyway are
+//    shared: p[k] COS[j][x] does not depend on i, so it is computed once per
+//    (k, j) and used for the 8 values of i (the same IEEE value), and
+//    cucv[k] d[k] once per coefficient.  A / 4 is a multiply by 0.25 (both
+//    exact, and equal).
+//  - No device trigonometry.  The tables are the port's float64 masters
+//    (constants.exact_tables, numpy's cos and sqrt), handed from the host;
+//    cos() or sqrt() on the device may differ in the last bit.
+//  - Truncation is __double2int_rz, as C's int() and torch's .to(int32).
+//  - Zero coefficients are skipped on decode: a zero coefficient's term is
+//    +0 or -0, x + (+-0) = x for every x != 0, and the sum starts at +0 and
+//    +0 + (+-0) = +0, so the sum over the nonzero coefficients in ascending
+//    order is the 64-term sum bit for bit.
+//
+// What bounds them, per 16 x 512 x 512 4:2:0 batch (98,304 blocks):
+//  - fdct_quantize_exact: per block 512 first products, 4,096 second
+//    products, 4,096 adds and 192 for the normalisation, 8,896 float64
+//    operations, 0.87e9 a batch: 0.052 ms at the card's 16.75e12 separate
+//    DMUL/DADD a second (33.5 TFLOP/s with an FMA counted two).  Its bytes
+//    (6.3 MB of int8 samples in, 25.2 MB of blocks out) take 0.009 ms, so
+//    it is bound by float64 issue.  Design: a warp takes 4 blocks; lane
+//    8 b + r first loads row r of block b and puts it, as doubles, into the
+//    warp's shared tile (65 doubles a block, so the 4 blocks' same sample
+//    falls in different banks); then the lane owns column j = r of block
+//    b, holds COS[j][0..7] and cu[j] in registers and keeps 8 accumulators,
+//    one per row i: per sample k one first product and 8 products and
+//    adds, eight independent add chains that hide the float64 latency.
+//    COS[i][y] and cu[i] are compile-time indices into the kernel's
+//    parameters (operands of the multiplies, no loads).  The lane then
+//    normalises, truncates and quantizes its 8 coefficients; the stores of
+//    a row i fill whole 32-byte sectors.
+//  - idct_planes_exact: bytes, the int16 upload (12.6 MB) and the int32
+//    planes (25.2 MB), 0.011 ms; operations, 137 a nonzero coefficient (1
+//    for cucv d, 8 for the column products, 64 multiplies and 64 adds) and
+//    2 a sample, which on photographs is far below the bytes and on noise
+//    at quality 100 about 0.05 ms.  Design: a warp takes 4 blocks; lane
+//    8 b + r loads row r of block b's coefficients (one 16-byte load of
+//    int16), dequantizes it and puts it into the warp's tile as doubles;
+//    the block's nonzero mask is OR-reduced over its 8 lanes by shuffles;
+//    then lane 8 b + x owns column x of block b with 8 accumulators, one
+//    per row y, and walks the mask's set bits in ascending order (the
+//    tables COS, read by row, and cucv in shared memory); it stores its
+//    column of int32 samples, each row's 8 lanes one 32-byte sector.
+//
+// No atomics: every output is written by one thread, so the same input
+// gives the same bits on every run.
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 4;       // blocks a warp
+constexpr int kStride = 65;    // doubles a block in the warp's tile
+
+// The top-left sample of block bi of a component whose MCUs hold v x h
+// blocks in raster order (luma 2 x 2 at 4:2:0: TL, TR, BL, BR).
+__device__ __forceinline__ void block_origin(int bi, int v, int h,
+                                             int mcus_x, int* row,
+                                             int* col) {
+  const int per = v * h;
+  const int m = bi / per;
+  const int r = bi - m * per;
+  const int my = m / mcus_x;
+  const int mx = m - my * mcus_x;
+  const int vy = r / h;
+  *row = (my * v + vy) * 8;
+  *col = (mx * h + (r - vy * h)) * 8;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 1: blockify, float64 ordered forward DCT, quantize
+// ---------------------------------------------------------------------------
+
+struct FwdComp {
+  const void* base;       // the plane's first sample
+  long long sn, sr, sc;   // element strides: image, row, column
+  const int32_t* q;       // [64] quant table
+  int32_t* out;           // [N, nblocks, 64]
+  int nblocks;
+};
+
+struct FwdArgs {
+  FwdComp comp[3];
+  double cosv[64];        // COS[u][x], u * 8 + x
+  double cu[8];
+  int nimages, mcus_x, gray, rounded;
+  int ty, tc;             // tiles of luma, of each chroma component
+};
+
+// Row r of a block: 8 samples at column stride sc, as doubles (exact).
+__device__ __forceinline__ void load_row(const int8_t* src, long long sc,
+                                         double* x) {
+  if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(src));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[j] = __int2double_rn(static_cast<int8_t>(
+          ((j < 4 ? w.x : w.y) >> (8 * (j & 3))) & 0xFF));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(__ldg(src + j * sc));
+}
+
+__device__ __forceinline__ void load_row(const int32_t* src, long long sc,
+                                         double* x) {
+  if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(src));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+    const int v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(v[j]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(__ldg(src + j * sc));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fdct_quantize_exact_kernel(const __grid_constant__ FwdArgs a) {
+  __shared__ double tiles[kWarps][kTile * kStride];
+  const int lane = threadIdx.x & 31;
+  double* tile = tiles[threadIdx.x >> 5];
+  const int b = lane >> 3;      // the lane's block in the tile
+  const int r = lane & 7;       // its row (load), then its column j
+  // COS[j][x] for the lane's column j = r, and cu[j]
+  double cj[8];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) cj[x] = a.cosv[r * 8 + x];
+  const double cuj = a.cu[r];
+  const int total = a.ty + 2 * a.tc;
+  for (int tile_i = blockIdx.x * kWarps + (threadIdx.x >> 5); tile_i < total;
+       tile_i += gridDim.x * kWarps) {
+    const int c = tile_i < a.ty ? 0 : (tile_i < a.ty + a.tc ? 1 : 2);
+    const int first =
+        (tile_i - (c == 0 ? 0 : (c == 1 ? a.ty : a.ty + a.tc))) * kTile;
+    const FwdComp& P = a.comp[c];
+    const int f = first + b;    // the lane's block
+    const bool live = f < a.nimages * P.nblocks;
+    int32_t* out = P.out + static_cast<long long>(f) * 64 + r;
+    if (a.gray && c > 0) {
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) out[i * 8] = 0;
+      }
+      continue;
+    }
+    double x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = 0.0;
+    if (live) {
+      const int n = f / P.nblocks;
+      const int bi = f - n * P.nblocks;
+      // 4:2:0: luma blocks TL, TR, BL, BR of MCU bi / 4, chroma MCU bi
+      const int m = c == 0 ? bi >> 2 : bi;
+      const int my = m / a.mcus_x;
+      const int mx = m - my * a.mcus_x;
+      const int y0 = c == 0 ? (2 * my + ((bi >> 1) & 1)) * 8 : my * 8;
+      const int x0 = c == 0 ? (2 * mx + (bi & 1)) * 8 : mx * 8;
+      load_row(static_cast<const T*>(P.base) + n * P.sn + (y0 + r) * P.sr +
+                   x0 * P.sc,
+               P.sc, x);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) tile[b * kStride + r * 8 + j] = x[j];
+    __syncwarp();
+    // the 64 terms of column j in the reference's order, k = 8 y + x
+    double acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.0;
+#pragma unroll
+    for (int y = 0; y < 8; ++y) {
+#pragma unroll
+      for (int xx = 0; xx < 8; ++xx) {
+        const double t = __dmul_rn(tile[b * kStride + y * 8 + xx], cj[xx]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          acc[i] = __dadd_rn(acc[i], __dmul_rn(t, a.cosv[i * 8 + y]));
+      }
+    }
+    __syncwarp();  // the tile is loaded again for the next blocks
+    if (!live) continue;
+    const int32_t* q = P.q;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int cf = __double2int_rz(
+          __dmul_rn(__dmul_rn(__dmul_rn(acc[i], cuj), a.cu[i]), 0.25));
+      const int qv = __ldg(q + i * 8 + r);
+      const int mag = cf < 0 ? -cf : cf;
+      const int qm = a.rounded ? (2 * mag + qv) / (2 * qv) : mag / qv;
+      out[i * 8] = cf < 0 ? -qm : qm;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: dequantize, float64 ordered inverse DCT, deblockify
+// ---------------------------------------------------------------------------
+
+struct InvComp {
+  int nblocks;            // B_c: the component's blocks in one image
+  int v, h, width;        // sampling factors, plane width in samples
+  int first;              // the component's first block in a coefficient row
+  int32_t* out;           // [N, mcus_y v 8, width]
+  long long plane;        // samples of one image's plane
+};
+
+struct InvArgs {
+  InvComp comp[3];
+  const void* coeff;      // [N, row_blocks, 64]
+  const int32_t* q;       // [ncomp, 64]
+  double cosv[64];        // COS[u][x], u * 8 + x
+  double cucv[64];        // fl(cu[u] cv[v]), k = 8 v + u
+  int nimages, ncomp, mcus_x, row_blocks, level;
+  int tiles[3];           // tiles of each component over the batch
+};
+
+// Row r of a block: 8 coefficients as 32-bit integers.
+__device__ __forceinline__ void load_coeffs(const int16_t* src, int* c) {
+  const int4 w = __ldg(reinterpret_cast<const int4*>(src));
+  const int v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    c[2 * j] = static_cast<int16_t>(v[j] & 0xFFFF);
+    c[2 * j + 1] = v[j] >> 16;
+  }
+}
+
+__device__ __forceinline__ void load_coeffs(const int32_t* src, int* c) {
+  const int4 a = __ldg(reinterpret_cast<const int4*>(src));
+  const int4 b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+  c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
+  c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    idct_planes_exact_kernel(const __grid_constant__ InvArgs a) {
+  __shared__ double tiles[kWarps][kTile * kStride];
+  __shared__ __align__(16) double cosv[64];
+  __shared__ double cucv[64];
+  __shared__ int qs[3][64];
+  const int t = threadIdx.x;
+  for (int i = t; i < 128 + 64 * a.ncomp; i += kThreads) {
+    if (i < 64)
+      cosv[i] = a.cosv[i];
+    else if (i < 128)
+      cucv[i - 64] = a.cucv[i - 64];
+    else
+      qs[(i - 128) >> 6][i & 63] = __ldg(a.q + (i - 128));
+  }
+  __syncthreads();
+  const int lane = t & 31;
+  double* tile = tiles[t >> 5];
+  const int b = lane >> 3;      // the lane's block in the tile
+  const int r = lane & 7;       // its row (load), then its column x
+  const double level = __int2double_rn(a.level);
+  const int total = a.tiles[0] + a.tiles[1] + a.tiles[2];
+  for (int tile_i = blockIdx.x * kWarps + (t >> 5); tile_i < total;
+       tile_i += gridDim.x * kWarps) {
+    int c = 0, lt = tile_i;
+    while (lt >= a.tiles[c]) lt -= a.tiles[c++];
+    const InvComp& P = a.comp[c];
+    const int f = lt * kTile + b;   // the lane's block
+    const bool live = f < a.nimages * P.nblocks;
+    const int n = live ? f / P.nblocks : 0;
+    const int bi = f - n * P.nblocks;
+    // row r of the block, dequantized: d = c q as a 32-bit integer
+    int d[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) d[u] = 0;
+    if (live)
+      load_coeffs(static_cast<const T*>(a.coeff) +
+                      (static_cast<long long>(n) * a.row_blocks + P.first +
+                       bi) * 64 + r * 8,
+                  d);
+    unsigned row_mask = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      d[u] = static_cast<int>(static_cast<unsigned>(d[u]) *
+                              static_cast<unsigned>(qs[c][r * 8 + u]));
+      row_mask |= (d[u] != 0 ? 1u : 0u) << u;
+      tile[b * kStride + r * 8 + u] = __int2double_rn(d[u]);
+    }
+    // the block's 64-bit nonzero mask, bit k = 8 v + u, in its 8 lanes
+    unsigned lo = r < 4 ? row_mask << (8 * r) : 0u;
+    unsigned hi = r < 4 ? 0u : row_mask << (8 * (r - 4));
+#pragma unroll
+    for (int s = 1; s < 8; s <<= 1) {
+      lo |= __shfl_xor_sync(kFullMask, lo, s);
+      hi |= __shfl_xor_sync(kFullMask, hi, s);
+    }
+    unsigned long long mask =
+        (static_cast<unsigned long long>(hi) << 32) | lo;
+    __syncwarp();
+    double acc[8];
+#pragma unroll
+    for (int y = 0; y < 8; ++y) acc[y] = 0.0;
+    while (mask) {
+      const int k = __ffsll(static_cast<long long>(mask)) - 1;
+      mask &= mask - 1;
+      const int u = k & 7;
+      const int v = k >> 3;
+      const double cx = __dmul_rn(
+          __dmul_rn(cucv[k], tile[b * kStride + k]), cosv[u * 8 + r]);
+      const double2* cy = reinterpret_cast<const double2*>(cosv + v * 8);
+#pragma unroll
+      for (int y2 = 0; y2 < 4; ++y2) {
+        const double2 w = cy[y2];
+        acc[2 * y2] = __dadd_rn(acc[2 * y2], __dmul_rn(cx, w.x));
+        acc[2 * y2 + 1] = __dadd_rn(acc[2 * y2 + 1], __dmul_rn(cx, w.y));
+      }
+    }
+    __syncwarp();  // the tile is loaded again for the next blocks
+    if (!live) continue;
+    int row0, col0;
+    block_origin(bi, P.v, P.h, a.mcus_x, &row0, &col0);
+    int32_t* out = P.out + n * P.plane +
+                   static_cast<long long>(row0) * P.width + col0 + r;
+#pragma unroll
+    for (int y = 0; y < 8; ++y)
+      out[static_cast<long long>(y) * P.width] =
+          __double2int_rz(__dadd_rn(__dmul_rn(acc[y], 0.25), level));
+  }
+}
+
+template <typename K>
+cudaError_t grid_for(K kernel, long long units, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return e;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<int>(units < resident ? units : resident);
+  return cudaSuccess;
+}
+
+template <typename K>
+int kernel_info(K kernel, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  info[0] = attr.numRegs;
+  info[1] = per_sm;
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = kThreads;
+  return 0;
+}
+
+template <typename K, typename A>
+int launch(K kernel, long long tiles, const A& a, cudaStream_t s) {
+  int grid = 0;
+  const cudaError_t e = grid_for(kernel, (tiles + kWarps - 1) / kWarps, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// Kernel 1 on `stream` (PyTorch's current stream); returns
+// cudaGetLastError(), 0 on success.  Does not synchronise.  elem_bytes:
+// 1 (int8 samples) or 4 (int32).  desc (host memory): nimages, mcus_y,
+// mcus_x, gray, rounded, then per component Y, Cb, Cr its element strides
+// (image, row, column).  tabs (host memory): 136 float64, COS[u][x], cu,
+// cucv (constants.exact_tables; cucv unused here).
+int jz_fdct_quantize_exact(int elem_bytes, const long long* desc,
+                           const double* tabs, const void* y, const void* cb,
+                           const void* cr, const void* yq, const void* cq,
+                           void* oy, void* ocb, void* ocr, void* stream) {
+  const long long nimages = desc[0], mcus_y = desc[1], mcus_x = desc[2];
+  if (nimages <= 0 || mcus_y <= 0 || mcus_x <= 0) return 0;
+  const long long nm = mcus_y * mcus_x;
+  if (nimages * 4 * nm > 0x7FFFFFFFll || (elem_bytes != 1 && elem_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a;
+  const void* bases[3] = {y, cb, cr};
+  void* outs[3] = {oy, ocb, ocr};
+  for (int c = 0; c < 3; ++c) {
+    FwdComp& p = a.comp[c];
+    p.base = bases[c];
+    p.sn = desc[5 + 3 * c];
+    p.sr = desc[6 + 3 * c];
+    p.sc = desc[7 + 3 * c];
+    p.q = static_cast<const int32_t*>(c == 0 ? yq : cq);
+    p.out = static_cast<int32_t*>(outs[c]);
+    p.nblocks = static_cast<int>(c == 0 ? 4 * nm : nm);
+  }
+  for (int i = 0; i < 64; ++i) a.cosv[i] = tabs[i];
+  for (int i = 0; i < 8; ++i) a.cu[i] = tabs[64 + i];
+  a.nimages = static_cast<int>(nimages);
+  a.mcus_x = static_cast<int>(mcus_x);
+  a.gray = desc[3] != 0;
+  a.rounded = desc[4] != 0;
+  a.ty = static_cast<int>((nimages * 4 * nm + kTile - 1) / kTile);
+  a.tc = static_cast<int>((nimages * nm + kTile - 1) / kTile);
+  const long long tiles = a.ty + 2ll * a.tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return elem_bytes == 1
+             ? launch(fdct_quantize_exact_kernel<int8_t>, tiles, a, s)
+             : launch(fdct_quantize_exact_kernel<int32_t>, tiles, a, s);
+}
+
+// Kernel 2 on `stream`; returns cudaGetLastError(), 0 on success.  Does not
+// synchronise.  elem_bytes: 2 (int16 coefficients) or 4 (int32); coeff is
+// [N, row_blocks, 64], 16-byte aligned; q [ncomp, 64] int32.  desc (host
+// memory): nimages, ncomp (the components transformed, 1 to 3), mcus_x,
+// row_blocks, level, then per component nblocks, v, h, first (its first
+// block in a row).  tabs: as jz_fdct_quantize_exact's.  outs: the
+// components' int32 planes.
+int jz_idct_planes_exact(int elem_bytes, const long long* desc,
+                         const double* tabs, const void* coeff, const void* q,
+                         void* o0, void* o1, void* o2, void* stream) {
+  const long long nimages = desc[0];
+  if (nimages <= 0) return 0;
+  InvArgs a;
+  a.ncomp = static_cast<int>(desc[1]);
+  if (a.ncomp < 1 || a.ncomp > 3 || desc[2] <= 0 ||
+      nimages * desc[3] > 0x7FFFFFFFll || (elem_bytes != 2 && elem_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.nimages = static_cast<int>(nimages);
+  a.mcus_x = static_cast<int>(desc[2]);
+  a.row_blocks = static_cast<int>(desc[3]);
+  a.level = static_cast<int>(desc[4]);
+  void* outs[3] = {o0, o1, o2};
+  long long tiles = 0;
+  for (int c = 0; c < 3; ++c) {
+    InvComp& p = a.comp[c];
+    const long long* d = desc + 5 + 4 * c;
+    p.nblocks = static_cast<int>(d[0]);
+    p.v = static_cast<int>(d[1]);
+    p.h = static_cast<int>(d[2]);
+    p.first = static_cast<int>(d[3]);
+    p.out = static_cast<int32_t*>(outs[c]);
+    a.tiles[c] = 0;
+    p.width = p.h * 8 * a.mcus_x;
+    p.plane = 0;
+    if (c >= a.ncomp) continue;
+    if (p.v < 1 || p.h < 1 || d[0] <= 0 ||
+        d[0] % (static_cast<long long>(p.v) * p.h * desc[2]) ||
+        d[3] + d[0] > desc[3])
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.plane = d[0] * 64;
+    a.tiles[c] = static_cast<int>((nimages * d[0] + kTile - 1) / kTile);
+    tiles += a.tiles[c];
+  }
+  a.coeff = coeff;
+  a.q = static_cast<const int32_t*>(q);
+  for (int i = 0; i < 64; ++i) {
+    a.cosv[i] = tabs[i];
+    a.cucv[i] = tabs[72 + i];
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return elem_bytes == 2
+             ? launch(idct_planes_exact_kernel<int16_t>, tiles, a, s)
+             : launch(idct_planes_exact_kernel<int32_t>, tiles, a, s);
+}
+
+// What the card reports for kernel `which` (0: fdct_quantize_exact int8,
+// 1: int32, 2: idct_planes_exact int16, 3: int32): info[0] registers a
+// thread, [1] resident thread blocks an SM, [2] static shared bytes, [3]
+// local bytes a thread, [4] threads a block.  Returns 0 or a CUDA error
+// code.
+int jz_exact_kernel_info(int which, int* info) {
+  switch (which) {
+    case 0:
+      return kernel_info(fdct_quantize_exact_kernel<int8_t>, info);
+    case 1:
+      return kernel_info(fdct_quantize_exact_kernel<int32_t>, info);
+    case 2:
+      return kernel_info(idct_planes_exact_kernel<int16_t>, info);
+    case 3:
+      return kernel_info(idct_planes_exact_kernel<int32_t>, info);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+const char* jz_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -25,9 +25,13 @@ order, a float32 multiply then a float32 add per term (inverse_model).
 The plain versions' matrix products (cuBLAS, or the CPU's BLAS) sum the
 64-term form in another order, so a kernel and its plain version may
 differ by 1 where a sum falls next to an integer, while a kernel and its
-model agree bit for bit.  The kernels compute the fast precision only:
-exact mode's float64 ordered sums stay plain torch on every device by
-design (ops/dct.py).
+model agree bit for bit.
+
+Exact mode has its own pair (fdct_quantize_exact, idct_planes_exact): the
+oracle's ordered float64 sums (ops/dct.py) as hand-written CUDA kernels
+(ops/exact_cuda.py, csrc/exact_transforms.cu) on CUDA tensors, equal to
+their plain versions bit for bit, since both make the oracle's roundings
+and no others; the plain versions on CPU tensors.
 """
 from __future__ import annotations
 
@@ -95,6 +99,30 @@ def fdct_quantize(y, cb, cr, *, gray: bool, rounded: bool, qtables=None):
         raise ValueError(f"fdct_quantize: unsupported device {y.device}")
     return fdct_quantize_plain(y, cb, cr, gray=gray, rounded=rounded,
                                qtables=qtables)
+
+
+def fdct_quantize_exact(y, cb, cr, *, gray: bool, rounded: bool,
+                        qtables=None):
+    """fdct_quantize_plain at float64 (the oracle's ordered sums), bit for
+    bit.  CUDA tensors go through the hand-written kernel
+    (exact_cuda.fdct_quantize_exact_cuda, one launch for the three
+    components, the planes read at their strides), CPU tensors through the
+    plain version; a kernel that fails to build or launch raises."""
+    if y.is_cuda:
+        from .exact_cuda import fdct_quantize_exact_cuda
+
+        c = codec_constants(y.device)
+        yqt, cqt = qtables if qtables is not None else (None, None)
+        return fdct_quantize_exact_cuda(
+            y, cb, cr,
+            c["y_quant"] if yqt is None else Q._table(yqt, y.device),
+            c["c_quant"] if cqt is None else Q._table(cqt, y.device),
+            gray=gray, rounded=rounded)
+    if y.device.type != "cpu":
+        raise ValueError(f"fdct_quantize_exact: unsupported device "
+                         f"{y.device}")
+    return fdct_quantize_plain(y, cb, cr, gray=gray, rounded=rounded,
+                               qtables=qtables, dtype=torch.float64)
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +277,52 @@ def idct_planes_dense(blocks, bad, qarr, *, N, nseg, ri, geom, level):
                          f"{blocks.device}")
     return idct_planes_dense_plain(blocks, bad, qarr, N=N, nseg=nseg, ri=ri,
                                    geom=geom, level=level)
+
+
+def idct_planes_rgb_plain(coeff_all, *, geom, level, gray, sizes, qtuple,
+                          dtype):
+    """The rgb transport's device program (jax_codec._decode_fused_batch)
+    up to the upsampling, at either precision: coefficients
+    [N, sum(sizes), 64] of every component in one array -> per component
+    its int32 plane [N, mcus_y v 8, mcus_x h 8], unclamped: dequantize,
+    the inverse DCT at dtype with the level shift (float64: the oracle's
+    ordered sums), and deblockify.  Gray transforms component 0 alone (a
+    list of one)."""
+    dev = coeff_all.device
+    N = coeff_all.shape[0]
+    planes, off = [], 0
+    for n_b, qt, g in zip(sizes[:1] if gray else sizes, qtuple, geom):
+        mcus_y, mcus_x, v, h = g[:4]
+        deq = Q.dequantize(coeff_all[:, off:off + n_b].reshape(-1, 64),
+                           torch.tensor(qt, dtype=torch.int32, device=dev))
+        off += n_b
+        spat = D.inverse_dct(deq, level, dtype).reshape(N, n_b, 64)
+        planes.append(B.deblockify(spat, mcus_y, mcus_x, v, h))
+    return planes
+
+
+# exact mode's plain version: the float64 ordered sums
+idct_planes_exact_plain = functools.partial(idct_planes_rgb_plain,
+                                            dtype=torch.float64)
+
+
+def idct_planes_exact(coeff_all, *, geom, level, gray, sizes, qtuple):
+    """idct_planes_exact_plain's planes, bit for bit.  A CUDA tensor goes
+    through the hand-written kernel (exact_cuda.idct_planes_exact_cuda,
+    one launch for every component, zero coefficients skipped), a CPU
+    tensor through the plain version; a kernel that fails to build or
+    launch raises."""
+    if coeff_all.is_cuda:
+        from .exact_cuda import idct_planes_exact_cuda
+
+        return idct_planes_exact_cuda(
+            coeff_all, quant_tables(qtuple, coeff_all.device), geom=geom,
+            level=level, gray=gray, sizes=sizes)
+    if coeff_all.device.type != "cpu":
+        raise ValueError(f"idct_planes_exact: unsupported device "
+                         f"{coeff_all.device}")
+    return idct_planes_exact_plain(coeff_all, geom=geom, level=level,
+                                   gray=gray, sizes=sizes, qtuple=qtuple)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,12 @@ float64 reproduces the reference's double-precision int() truncation with
 the oracle's exact term and accumulation order, built from separate
 multiply and add ops (no fused multiply-add), so `precision="exact"` stays
 bit-identical to the oracle.
+
+These ordered float64 forms are the plain versions of exact mode: the
+CPU's route and the reference the card is held to.  On CUDA tensors the
+codec runs them as hand-written kernels that make the same roundings
+(ops/block_transform.py: fdct_quantize_exact, idct_planes_exact;
+csrc/exact_transforms.cu), and no CUDA path of the codec calls them here.
 """
 from __future__ import annotations
 

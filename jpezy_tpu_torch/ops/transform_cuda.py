@@ -21,9 +21,9 @@ replace jpezy_tpu/codec/jax_codec.py:_decode_fused_batch_ycc420 and the
 tail of _decode_fused_batch_device.
 
 The kernels sum in a fixed order, which block_transform's numpy models
-reproduce bit for bit; they compute the fast precision only, and
-exact mode's float64 transforms stay plain torch by design, on every
-device.  The library is built at first use and loaded with ctypes by
+reproduce bit for bit; they compute the fast precision only.  Exact
+mode's float64 transforms have kernels of their own (ops/exact_cuda.py,
+csrc/exact_transforms.cu).  The library is built at first use and loaded with ctypes by
 ops/cuda_build.py.  A failed build or launch raises; nothing falls back to
 the plain versions.
 

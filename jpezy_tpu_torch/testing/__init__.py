@@ -1,0 +1,1 @@
+"""Fixtures shared by the port's tests and chip_smoke.py."""

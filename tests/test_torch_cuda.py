@@ -18,6 +18,7 @@ from jpezy_tpu_torch.codec import host_glue as HG
 from jpezy_tpu_torch.codec import torch_codec as TC
 from jpezy_tpu_torch.ops import entropy as TE
 from jpezy_tpu_torch.ops import entropy_decode as ED
+from jpezy_tpu_torch.testing import exact_ties as XT
 
 pytestmark = pytest.mark.cuda
 
@@ -907,3 +908,166 @@ def test_transform_kernels_on_the_codec_paths(cuda):
         before = counts()
         TC.decode_batch(streams, device=cuda, **kw)
         assert tuple(a - b for a, b in zip(counts(), before)) == want, kw
+
+
+def _exact_counts():
+    from jpezy_tpu_torch.ops import exact_cuda, transform_cuda
+
+    return (exact_cuda.fdct_exact_launches, exact_cuda.idct_exact_launches,
+            transform_cuda.fdct_launches, transform_cuda.idct_launches)
+
+
+def _rgb_upload(streams):
+    """The rgb transport's coefficient upload of `streams` (host frontend)
+    and its kwargs."""
+    pjs, geom, level = TC._parse_batch(streams, precision="exact")
+    return TC._rgb_host_prep(pjs, geom, level, gray=False,
+                             precision="exact")
+
+
+def test_exact_fdct_kernel_matches_plain(cuda):
+    """fdct_quantize_exact on the card equals the plain float64 ordered
+    sums on the card bit for bit: the tie set (int8 and int32 planes,
+    quantizer 1 and Annex K), two 512x512 images' ycc420 upload at Annex
+    K, quality 95, rounded and gray, their rgb path's int32 planes with
+    strided chroma, and noise at quality 100; one launch a call, the fast
+    kernel never."""
+    from jpezy_tpu_torch.core import tables as T
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import blocks as B
+    from jpezy_tpu_torch.ops import colorspace as C
+
+    ties = XT.forward_tie_blocks(2048, 440)
+    ones = torch.ones(64, dtype=torch.int32, device=cuda)
+    plain = dict(gray=False, rounded=False)
+    cases = [(f"ties {dt.__name__}{' q1' if q else ''}",
+              tuple(torch.from_numpy(p.astype(dt)).to(cuda)
+                    for p in XT.tie_planes(ties)),
+              dict(plain, qtables=(ones, ones)) if q else plain)
+             for dt in (np.int8, np.int32) for q in (True, False)]
+    cases += [(label, planes, kw) for label, planes, kw in _fdct_cases(cuda)]
+    imgs = _transform_images(512, 512, 441)
+    y, cb, cr = HG.host_rgb_to_ycc420(imgs)
+    up = tuple(torch.from_numpy(a).to(cuda) for a in (y, cb, cr))
+    q95 = tuple(torch.from_numpy(t).to(cuda) for t in
+                T.scale_quant_tables(95))
+    q100 = tuple(torch.from_numpy(t).to(cuda) for t in
+                 T.scale_quant_tables(100))
+    rgb = torch.from_numpy(imgs).to(cuda)
+    ry, rcb, rcr = C.rgb_to_ycc(rgb[..., 0], rgb[..., 1], rgb[..., 2],
+                                torch.float64)
+    noise = np.random.default_rng(442).integers(0, 256, (2, 512, 512, 3),
+                                                dtype=np.uint8)
+    cases += [("512 annexk", up, plain), ("512 q95", up,
+                                           dict(plain, qtables=q95)),
+              ("512 rounded", up, dict(plain, rounded=True)),
+              ("512 gray", up, dict(plain, gray=True)),
+              ("512 rgb int32 strided",
+               (ry, B.decimate_420(rcb), B.decimate_420(rcr)), plain),
+              ("noise q100", tuple(torch.from_numpy(a).to(cuda) for a in
+                                   HG.host_rgb_to_ycc420(noise)),
+               dict(plain, qtables=q100))]
+    for label, planes, kw in cases:
+        before = _exact_counts()
+        got = BT.fdct_quantize_exact(*planes, **kw)
+        after = _exact_counts()
+        assert (after[0] - before[0], after[2] - before[2]) == (1, 0), label
+        want = BT.fdct_quantize_plain(*planes, dtype=torch.float64, **kw)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w), label
+
+
+def test_exact_idct_kernel_matches_plain(cuda):
+    """idct_planes_exact on the card equals the plain float64 ordered sums
+    on the card bit for bit: the tie set at level 128 and 2048 (one
+    component, quantizer 1), and two 512x512 images' rgb upload read as
+    4:2:0, 4:2:2, 4:4:4, one component and gray, at level 128 and 2048,
+    int16 and int32; one launch a call, the fast kernel never."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+
+    cases = []
+    for level in (128, 2048):
+        ties = XT.inverse_tie_blocks(4096, 443, level)
+        n = len(ties)
+        cases.append((f"ties level {level}",
+                      torch.from_numpy(ties[None]).to(cuda),
+                      dict(geom=((1, n, 1, 1, 1, 1),), sizes=(n,),
+                           gray=False, level=level,
+                           qtuple=(tuple([1] * 64),))))
+    streams = TC.encode_batch(_transform_images(512, 512, 444),
+                              quality=90, device="cpu")
+    coeff, kw = _rgb_upload(streams)
+    coeff = torch.from_numpy(coeff).to(cuda)
+    assert coeff.dtype == torch.int16
+    my, mx = kw["geom"][0][:2]
+    for label, (geom, sizes, gray) in XT.upload_layouts(my, mx).items():
+        for level in (128, 2048):
+            for dt in (torch.int16, torch.int32):
+                cases.append((f"{label} level {level} {dt}", coeff.to(dt),
+                              dict(geom=geom, sizes=sizes, gray=gray,
+                                   level=level,
+                                   qtuple=kw["qtuple"][:len(sizes)])))
+    for label, src, kw in cases:
+        before = _exact_counts()
+        got = BT.idct_planes_exact(src, **kw)
+        after = _exact_counts()
+        assert (after[1] - before[1], after[3] - before[3]) == (1, 0), label
+        want = BT.idct_planes_exact_plain(src, **kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(want) == (1 if kw["gray"] else
+                                         len(kw["sizes"])), label
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32 and torch.equal(g, w), label
+
+
+def test_exact_kernels_4k(cuda):
+    """One 3840x2160 image: its exact encode on the card is host_codec's
+    stream (one exact fDCT launch) and its exact decode host_codec's pixels
+    (one exact IDCT launch)."""
+    from jpezy_tpu_torch.codec import host_codec
+
+    img = _transform_images(2160, 3840, 445, n=1)
+    before = _exact_counts()
+    stream = TC.encode_batch(img, precision="exact", device=cuda)
+    px, _ = TC.decode_batch(stream, precision="exact", device=cuda)
+    after = _exact_counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
+    assert stream == [host_codec.encode(img[0, ..., 0], img[0, ..., 1],
+                                        img[0, ..., 2])]
+    assert np.array_equal(px[0], np.stack(host_codec.decode(stream[0])[:3],
+                                          -1))
+
+
+@pytest.mark.parametrize("kw", [{}, {"transport": "rgb"}, {"quality": 95},
+                                {"optimize": True, "restart_interval": 2}],
+                         ids=["ycc420", "rgb", "q95", "optimize"])
+def test_exact_codec_on_card(cuda, kw):
+    """encode_batch(precision="exact") and decode_batch(precision="exact"),
+    colour and gray, on the card: streams equal the CPU's and host_codec's,
+    pixels host_codec.decode's; per call one exact fDCT launch and no fast
+    one, one exact IDCT launch and no fast one."""
+    from jpezy_tpu_torch.codec import host_codec
+
+    rgbs = _transform_images(96, 128, 446)
+    before = _exact_counts()
+    streams = TC.encode_batch(rgbs, precision="exact", device=cuda, **kw)
+    after = _exact_counts()
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 0, 0, 0)
+    assert streams == TC.encode_batch(rgbs, precision="exact", device="cpu",
+                                      **kw)
+    host_kw = {k: v for k, v in kw.items() if k != "transport"}
+    assert streams == [host_codec.encode(im[..., 0], im[..., 1], im[..., 2],
+                                         **host_kw) for im in rgbs]
+    for gray in (False, True):
+        before = _exact_counts()
+        px, _ = TC.decode_batch(streams, precision="exact", gray=gray,
+                                device=cuda)
+        after = _exact_counts()
+        assert tuple(a - b for a, b in zip(after, before)) == (0, 1, 0, 0)
+        cpu, _ = TC.decode_batch(streams, precision="exact", gray=gray,
+                                 device="cpu")
+        assert np.array_equal(px, cpu), gray
+        want = np.stack([np.stack(host_codec.decode(s, gray=gray)[:3], -1)
+                         for s in streams])
+        assert np.array_equal(px, want), gray
