@@ -12,9 +12,10 @@ the restart path (the same round trip with restart_interval=8 and the
 Huffman tables; encode_batches(optimize=True, restart_interval=8), then
 the device decode), the rgb transports and single-image, mixed-size and
 command-line entry points, the sharded codec (parallel/) on a 1x1
-mesh and over gloo ranks that share the card, and exact mode's paths
+mesh and over gloo ranks that share the card, exact mode's paths
 (precision="exact": the ycc420 and rgb encodes and the rgb decode, colour
-and gray, through the float64 kernels).  Each phase prints one line and
+and gray, through the float64 kernels) and the fast rgb paths (the colour
+kernels and the fast IDCT into planes).  Each phase prints one line and
 any failure exits nonzero.  In the order they run:
 
   1. environment: torch/CUDA versions, the card's name and power limit,
@@ -27,14 +28,16 @@ any failure exits nonzero.  In the order they run:
      fDCT+quantize kernel for int8 and int32 samples and the
      IDCT-to-planes kernel's sparse, overflow and dense launches,
      block_transforms.cu; exact mode's fDCT+quantize and
-     dequantize+IDCT-to-planes kernels, exact_transforms.cu; and the
-     designs the entropy kernel and the concat replaced,
-     scripts/previous_designs.cu, for phase 6) and prints what ptxas
-     reports for each kernel (a template's instantiations under one name);
-     a stack frame or a spill in any kernel but the scan, or a spill in
-     the scan kernel, fails the run.  Counts each kernel's SASS
-     instructions (cuobjdump), and in the exact kernels DFMA, DMUL and
-     DADD: a DFMA (a contracted multiply-add) fails the run;
+     dequantize+IDCT-to-planes kernels and the rgb transport's fast
+     IDCT-to-planes, exact_transforms.cu; the rgb transport's colour
+     kernels, colour.cu; and the designs the entropy kernel and the concat
+     replaced, scripts/previous_designs.cu, for phase 6) and prints what
+     ptxas reports for each kernel (a template's instantiations under one
+     name); a stack frame or a spill in any kernel but the scan, or a
+     spill in the scan kernel, fails the run.  Counts each kernel's SASS
+     instructions (cuobjdump), and in the exact kernels and the three rgb
+     kernels FFMA, DFMA, FMUL, FADD, DMUL and DADD: an FFMA or DFMA (a
+     contracted multiply-add) fails the run;
   3. the pack kernels against their plain torch versions: the pack alone
      per component on the real 16x512x512 blocks, on seeded worst-case
      blocks and on the edge-case blocks; the batched entropy kernel (one
@@ -98,9 +101,10 @@ any failure exits nonzero.  In the order they run:
      (the table derivation, the 16 LUT sets of the decode);
   11. rgb and entry points: rgb encode (fast, exact) and rgb decode (fast,
      exact, gray) on the card against the same calls on the CPU, with
-     their launches (an encode its fDCT kernel, fast or exact, the fused
-     kernel and the concat; an exact decode idct_planes_exact once, the
-     fast rgb decode no kernel); exact rgb streams at 16x512x512 equal the
+     their launches (an encode the colour kernel, its fDCT kernel, fast or
+     exact, the fused kernel and the concat; a decode the IDCT of its
+     precision, idct_planes_rgb or idct_planes_exact, and the colour
+     kernel once each); exact rgb streams at 16x512x512 equal the
      ycc420 transport's and decode to host_codec's pixels; encode/decode
      of a 1000x750 image,
      encode_mixed/decode_mixed of six sizes (exact: equal to host_codec),
@@ -118,10 +122,14 @@ any failure exits nonzero.  In the order they run:
      decode per shard) and `sharded_optimize` (one table set a batch):
      decode_sharded pixels equal decode_batch(transport="rgb")'s, optimize
      streams decode to the restart streams' pixels in fewer bytes,
-     launches per batch 1 fDCT, 1 fused and 1 concat (+ 1 scan with
-     restarts, + 1 histogram with optimize; no IDCT kernel: the shards
-     decode through the rgb transport's program, colour on unclamped
-     planes), MP/s beside encode_batch/decode_batch.
+     launches per batch 1 colour (encode), 1 fDCT, 1 fused, 1 concat, 1
+     fast rgb IDCT and 1 colour (decode) (+ 1 scan with restarts, + 1
+     histogram with optimize: the shards decode through the rgb
+     transport's program, colour on unclamped planes), MP/s beside
+     encode_batch/decode_batch; the plain and restart streams decoded
+     again in 2 and 4 tile shards rank by rank in this process, shards
+     whose MCU rows differ from the whole image's: pixels equal
+     decode_batch(transport="rgb")'s exactly.
      Then this
      script spawns itself as 2 gloo ranks (a 1x2 mesh), then 4 (2x2), all
      on the one card, on 4 of the images with restart_interval=8: exact
@@ -171,8 +179,27 @@ any failure exits nonzero.  In the order they run:
      paths over the 4 batches: the ycc420 and the rgb encode
      byte-identical to host_codec's streams, the rgb decode (colour and
      gray) identical to host_codec.decode's pixels; per batch an encode
-     launches the exact fDCT, the fused kernel and the concat once and no
-     fast fDCT, a decode idct_planes_exact once;
+     launches the exact fDCT, the fused kernel and the concat once (the rgb
+     one the colour kernel too) and no fast fDCT, a decode
+     idct_planes_exact and the colour kernel once;
+  16. the rgb transport's kernels against their references, bit for bit:
+     rgb_to_ycc420 at float32 and float64 against the plain torch version
+     on the real 16x512x512 batch and on an 8192x8192 image whose 2x2
+     quads hold all 2^24 RGB triples, at float64 also against the host
+     C++ rgb_to_ycc420, and every triple's values within int8;
+     ycc_planes_to_rgb at both precisions against the plain version on all
+     2^24 (Y, Cb, Cr) triples at 4:4:4 and on planes past both clamps at
+     4:2:0, 4:2:2, 4:4:4, 4:1:1, a 3x horizontal factor, an upsampled
+     luma, one component and gray, at float64 also against the host C++
+     ycc_to_rgb_i32 (the triples, 4:2:0); idct_planes_rgb against its
+     numpy model (block_transform.idct_planes_rgb_model) bit for bit and
+     the plain version (cuBLAS) within 1, the share that differs printed,
+     on the main batch's rgb upload read at every sampling and level, as
+     int32 and on noise at quality 100; one counted launch each.  Then the
+     fast rgb paths over the 4 batches: encode_batch(transport="rgb")
+     (colour, fDCT, fused, concat once a batch) and its decode_batch(
+     transport="rgb") (fast IDCT and colour once a batch), PSNR within
+     0.05 dB of the host codec's exact round trip;
   5/8 device: only now the profiler: per batch the encode and decode
      programs' CUDA-event spans (host-launch bound), their device-busy
      time (kernel and copy time summed from a torch.profiler trace) and
@@ -188,9 +215,12 @@ any failure exits nonzero.  In the order they run:
      (device time of a profiled round trip over the wall time of the
      unprofiled one); 10/11 device: the optimize encode's device stages alone
      and the optimize path's busy share, the rgb transports' device programs
-     (fast, exact, gray; the exact ones beside their plain readings,
-     EARLIER_EXACT), and the exact ycc420 encode program, which must be the
-     exact fDCT, entropy and concat kernels alone (3 device events);
+     (fast, exact, gray; beside their plain readings, EARLIER_EXACT and
+     EARLIER_RGB), each of which must be the hand kernels alone (4 device
+     events an encode: colour, fDCT, entropy, concat; 2 a decode: the
+     IDCT into planes and colour), and the exact ycc420 encode program,
+     which must be the exact fDCT, entropy and concat kernels alone (3
+     device events);
   6. times of the pack kernels, the histogram kernel, the concat and the
      four block transforms alone on the real batch beside their bounds
      (see _bound; the transforms' by bytes or float32 operations, the
@@ -209,7 +239,11 @@ any failure exits nonzero.  In the order they run:
      (scripts/previous_designs.py: three per-component launches, the
      two-pass concat) in turns, without and with restart_interval=8, warm
      and with the L2 cache overwritten first, with both designs' registers
-     and thread blocks an SM;
+     and thread blocks an SM; the rgb transport's kernels (fast) on the
+     main batch beside their bounds (bytes, or separate float32
+     operations), their plain versions and, for the fast IDCT, the
+     float32 matmul; the colour kernels' float64 and gray forms too, with
+     what the card reports for each instantiation;
   9. times of the scan kernel alone on the real segments beside its bound
      and the plain version's time, with the L2 cache overwritten before
      each launch, on four times the segments, and with every segment on
@@ -220,10 +254,11 @@ any failure exits nonzero.  In the order they run:
 Every wall clock is taken before torch.profiler first traces: after that
 every launch in the process costs the host more.
 
-The last three lines are the kernel table as JSON (nine kernels:
+The last three lines are the kernel table as JSON (twelve kernels:
 pack_words, encode_blocks, decode_segments, symbol_histograms,
 concat_streams, fdct_quantize, idct_planes, fdct_quantize_exact,
-idct_planes_exact; launches per path in launches_by_path), the card's name and power limit, and {"ok": true,
+idct_planes_exact, rgb_to_ycc420, idct_planes_rgb, ycc_planes_to_rgb;
+launches per path in launches_by_path), the card's name and power limit, and {"ok": true,
 "device": {...}}.  Without a CUDA device, or
 outside a checkout of the repository, it exits nonzero and prints no
 result.  Imports nothing of JAX and nothing of the jpezy_tpu package.
@@ -325,9 +360,22 @@ MIN_OPS_PER_SYMBOL = 12
 EARLIER_SCAN_MS = 0.1052
 KERNELS = ("pack_words", "encode_blocks", "decode_segments",
            "symbol_histograms", "concat_streams", "fdct_quantize",
-           "idct_planes", "fdct_quantize_exact", "idct_planes_exact")
+           "idct_planes", "fdct_quantize_exact", "idct_planes_exact",
+           "rgb_to_ycc420", "idct_planes_rgb", "ycc_planes_to_rgb")
 # exact mode's kernels, whose SASS must hold no DFMA
 EXACT_KERNELS = ("fdct_quantize_exact", "idct_planes_exact")
+# the kernels that make torch's or the reference's roundings one operation
+# at a time: no contracted multiply-add (FFMA, DFMA) may appear in their
+# SASS, and the separate multiplies and adds of each precision they
+# compute must
+NO_FMA = {"fdct_quantize_exact": ("DMUL", "DADD"),
+          "idct_planes_exact": ("DMUL", "DADD"),
+          "rgb_to_ycc420": ("FMUL", "FADD", "DMUL", "DADD"),
+          "idct_planes_rgb": ("FMUL", "FADD"),
+          "ycc_planes_to_rgb": ("FMUL", "FADD", "DMUL", "DADD")}
+SASS_OPS = ("FFMA", "DFMA", "FMUL", "FADD", "DMUL", "DADD")
+# the rgb transport's kernels (phase 16)
+RGB_KERNELS = ("rgb_to_ycc420", "idct_planes_rgb", "ycc_planes_to_rgb")
 # the fused kernel's instantiation for the caller's tables (optimize), built
 # and checked beside the fixed-table one, which keeps the name
 ENCODE_CUSTOM = "encode_blocks (custom tables)"
@@ -346,7 +394,10 @@ SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "fdct_quantize": "jpezy_tpu_torch/csrc/block_transforms.cu",
            "idct_planes": "jpezy_tpu_torch/csrc/block_transforms.cu",
            "fdct_quantize_exact": "jpezy_tpu_torch/csrc/exact_transforms.cu",
-           "idct_planes_exact": "jpezy_tpu_torch/csrc/exact_transforms.cu"}
+           "idct_planes_exact": "jpezy_tpu_torch/csrc/exact_transforms.cu",
+           "rgb_to_ycc420": "jpezy_tpu_torch/csrc/colour.cu",
+           "idct_planes_rgb": "jpezy_tpu_torch/csrc/exact_transforms.cu",
+           "ycc_planes_to_rgb": "jpezy_tpu_torch/csrc/colour.cu"}
 REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
             "encode_blocks": "jpezy_tpu/ops/pack_pallas.py:27",
             "decode_segments": "jpezy_tpu/ops/entropy_decode.py:211",
@@ -355,7 +406,10 @@ REPLACES = {"pack_words": "jpezy_tpu/ops/pack_pallas.py:27",
             "fdct_quantize": "jpezy_tpu/parallel/sharded.py:75",
             "idct_planes": "jpezy_tpu/codec/jax_codec.py:833",
             "fdct_quantize_exact": "jpezy_tpu/ops/dct.py:58",
-            "idct_planes_exact": "jpezy_tpu/ops/dct.py:87"}
+            "idct_planes_exact": "jpezy_tpu/ops/dct.py:87",
+            "rgb_to_ycc420": "jpezy_tpu/ops/colorspace.py:15",
+            "idct_planes_rgb": "jpezy_tpu/ops/dct.py:73",
+            "ycc_planes_to_rgb": "jpezy_tpu/ops/colorspace.py:30"}
 # The block transforms' stages as plain torch on the card, as this script's
 # phase 5 read them before the kernels (NVIDIA H100 80GB HBM3, 700 W; kept
 # from then, not measured here): fDCT+quantize alone, the encode and
@@ -371,6 +425,16 @@ EARLIER_PROGRAMS = {"fDCT+quantize": (0.1830, 24), "encode": (0.2441, 35),
 EARLIER_EXACT = {"rgb exact encode": (7.7399, 634),
                  "exact decode": (7.7703, 827),
                  "gray exact decode": (5.0066, 270)}
+# The rgb transport's device programs before the colour kernels and the
+# fast rgb IDCT, as this script's 11 device line read them (NVIDIA H100
+# 80GB HBM3, 700 W; kept from then, not measured here): device busy ms
+# (device events).  Each now must be the hand kernels alone: 4 events an
+# encode, 2 a decode.
+EARLIER_RGB = {"rgb encode, fast": (0.3718, 26),
+               "rgb encode, exact": (0.6949, 26),
+               "rgb decode, fast": (0.5235, 56),
+               "rgb decode, exact": (0.6447, 30),
+               "rgb decode, gray exact": (0.0925, 5)}
 # The three per-component histogram launches that the one-launch kernel
 # replaced, summed (chip_smoke.py phase 6, PR 5 and PR 6: NVIDIA H100 80GB
 # HBM3, 700 W; kept from then, not measured here).
@@ -395,14 +459,17 @@ FDCT_DIFF_SHARE = 2e-3
 # with the launches every step must make
 PARALLEL_IMAGES = 4
 RANK_STEPS = {"exact_restart": {"encode_blocks": 1, "concat_streams": 1,
-                                "fdct_quantize_exact": 1},
+                                "fdct_quantize_exact": 1, "rgb_to_ycc420": 1},
               "exact_optimize": {"encode_blocks": 1, "symbol_histograms": 1,
                                  "concat_streams": 1,
-                                 "fdct_quantize_exact": 1},
+                                 "fdct_quantize_exact": 1,
+                                 "rgb_to_ycc420": 1},
               "fast_restart": {"encode_blocks": 1, "concat_streams": 1,
-                               "fdct_quantize": 1},
-              "device_decode": {"decode_segments": 1},
-              "corrupt_decode": {"decode_segments": 1}}
+                               "fdct_quantize": 1, "rgb_to_ycc420": 1},
+              "device_decode": {"decode_segments": 1, "idct_planes_rgb": 1,
+                                "ycc_planes_to_rgb": 1},
+              "corrupt_decode": {"decode_segments": 1, "idct_planes_rgb": 1,
+                                 "ycc_planes_to_rgb": 1}}
 RANK_TIMEOUT_S = 300
 # the smaller batch of the card-against-CPU comparisons (phase 11): the
 # plain versions on the host's CPU take seconds per image at 512x512
@@ -411,19 +478,22 @@ CPU_BATCH, CPU_HW = 2, 256
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count to 0."""
-    from jpezy_tpu_torch.ops import (concat_cuda, exact_cuda, pack_cuda,
-                                     scan_cuda, transform_cuda)
+    from jpezy_tpu_torch.ops import (colour_cuda, concat_cuda, exact_cuda,
+                                     pack_cuda, scan_cuda, transform_cuda)
 
     pack_cuda.launches = pack_cuda.encode_launches = 0
     pack_cuda.histogram_launches = scan_cuda.launches = 0
     concat_cuda.launches = 0
     transform_cuda.fdct_launches = transform_cuda.idct_launches = 0
     exact_cuda.fdct_exact_launches = exact_cuda.idct_exact_launches = 0
+    exact_cuda.idct_rgb_launches = 0
+    colour_cuda.rgb_to_ycc420_launches = 0
+    colour_cuda.ycc_planes_to_rgb_launches = 0
 
 
 def read_counts() -> dict:
-    from jpezy_tpu_torch.ops import (concat_cuda, exact_cuda, pack_cuda,
-                                     scan_cuda, transform_cuda)
+    from jpezy_tpu_torch.ops import (colour_cuda, concat_cuda, exact_cuda,
+                                     pack_cuda, scan_cuda, transform_cuda)
 
     return {"pack_words": pack_cuda.launches,
             "encode_blocks": pack_cuda.encode_launches,
@@ -433,7 +503,10 @@ def read_counts() -> dict:
             "fdct_quantize": transform_cuda.fdct_launches,
             "idct_planes": transform_cuda.idct_launches,
             "fdct_quantize_exact": exact_cuda.fdct_exact_launches,
-            "idct_planes_exact": exact_cuda.idct_exact_launches}
+            "idct_planes_exact": exact_cuda.idct_exact_launches,
+            "rgb_to_ycc420": colour_cuda.rgb_to_ycc420_launches,
+            "idct_planes_rgb": exact_cuda.idct_rgb_launches,
+            "ycc_planes_to_rgb": colour_cuda.ycc_planes_to_rgb_launches}
 
 
 _T0 = time.perf_counter()
@@ -569,6 +642,7 @@ def _kernel_of(symbol: str) -> str:
         return ENCODE_CUSTOM
     for name in ("encode_blocks_batch", "decode_segments", "symbol_histograms",
                  "concat_streams", "fdct_quantize_exact", "idct_planes_exact",
+                 "idct_planes_rgb", "rgb_to_ycc420", "ycc_planes_to_rgb",
                  "fdct_quantize", "idct_planes"):
         if name in symbol:
             return name.replace("_batch", "")
@@ -949,8 +1023,8 @@ def main() -> int:
     from jpezy_tpu_torch.ops import entropy_decode as ED
     from jpezy_tpu_torch.ops import block_transform as BT
     from jpezy_tpu_torch.testing import exact_ties as XT
-    from jpezy_tpu_torch.ops import (concat_cuda, exact_cuda, pack_cuda,
-                                     scan_cuda, transform_cuda)
+    from jpezy_tpu_torch.ops import (colour_cuda, concat_cuda, exact_cuda,
+                                     pack_cuda, scan_cuda, transform_cuda)
     from jpezy_tpu_torch.runtime import batch as RB
     import previous_designs
     from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
@@ -972,7 +1046,7 @@ def main() -> int:
     import concurrent.futures as cf
 
     libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB,
-            transform_cuda.LIB, exact_cuda.LIB)
+            transform_cuda.LIB, exact_cuda.LIB, colour_cuda.LIB)
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(len(libs) + 1) as ex:
         secs = list(ex.map(lambda lib: lib.build(force=True),
@@ -983,7 +1057,7 @@ def main() -> int:
         lib.get()
         ptxas.update(_ptxas_by_kernel(lib.build_log))
         n_sass, ops = _sass_instructions(cuda_build.nvcc(), lib.so,
-                                         ("DFMA", "DMUL", "DADD"))
+                                         SASS_OPS)
         sass.update(n_sass)
         sass_ops.update(ops)
     built = sorted(KERNELS + (ENCODE_CUSTOM,))
@@ -992,12 +1066,13 @@ def main() -> int:
         raise AssertionError(
             f"ptxas reported {sorted(ptxas)}, cuobjdump {sass}:\n"
             + "\n".join(lib.build_log for lib in libs))
-    # exact mode: every float64 multiply and add separate, none contracted
-    for k in EXACT_KERNELS:
-        if sass_ops[k]["DFMA"] or not sass_ops[k]["DMUL"] \
-                or not sass_ops[k]["DADD"]:
+    # exact mode and the rgb transport's kernels: every multiply and add
+    # separate, none contracted
+    for k, want in NO_FMA.items():
+        if sass_ops[k]["DFMA"] or sass_ops[k]["FFMA"] or not all(
+                sass_ops[k][op] for op in want):
             raise AssertionError(f"{k}'s SASS holds {sass_ops[k]}: want "
-                                 "DMUL and DADD and no DFMA")
+                                 f"{', '.join(want)} and no FFMA or DFMA")
     previous_designs.LIB.get()
     prev_ptxas = _ptxas_by_kernel(previous_designs.LIB.build_log,
                                   _previous_of)
@@ -1012,7 +1087,7 @@ def main() -> int:
          + " || ".join(f"{k}: {' | '.join(v)} | {sass[k]} SASS instructions"
                        + (" (" + ", ".join(f"{n} {op}" for op, n in
                                            sass_ops[k].items()) + ")"
-                          if k in EXACT_KERNELS else "")
+                          if k in NO_FMA else "")
                        for k, v in ptxas.items())
          + " || " + " || ".join(f"{k}: {' | '.join(v)}"
                                 for k, v in prev_ptxas.items()))
@@ -1629,7 +1704,8 @@ def main() -> int:
         rgb_launches[f"encode {precision}"] = read_counts()
         if rgb_launches[f"encode {precision}"] != {
                 k: int(k in (fdct_of[precision], "encode_blocks",
-                             "concat_streams")) for k in KERNELS}:
+                             "concat_streams", "rgb_to_ycc420"))
+                for k in KERNELS}:
             raise AssertionError(f"rgb encode ({precision}) launched "
                                  f"{rgb_launches[f'encode {precision}']}")
         on_cpu = TC.encode_batch(small, transport="rgb", precision=precision,
@@ -1654,18 +1730,18 @@ def main() -> int:
         reset_counts()
         a, _ = TC.decode_batch(exact_small, device="cuda", **kw)
         rgb_launches[f"decode {label}"] = read_counts()
-        # the fast rgb decode is plain torch (Queue 2 item 2); exact mode's
-        # transform is idct_planes_exact, one launch
+        # the IDCT of the precision into planes, then the colour kernel
+        idct_of = "idct_planes_rgb" if label == "fast" else "idct_planes_exact"
         if rgb_launches[f"decode {label}"] != {
-                k: int(k == "idct_planes_exact" and label != "fast")
-                for k in KERNELS}:
+                k: int(k in (idct_of, "ycc_planes_to_rgb")) for k in KERNELS}:
             raise AssertionError(f"rgb decode ({label}) launched "
                                  f"{rgb_launches[f'decode {label}']}")
         b, _ = TC.decode_batch(exact_small, device="cpu", **kw)
         d = int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
         rgb_dec_diff[label] = d
-        # exact: float64 ordered sums on both; fast: float32 IDCT and
-        # colour summed in another order by cuBLAS than on the CPU
+        # exact: float64 ordered sums on both; fast: the IDCT kernel's
+        # ascending float32 sums against the CPU's BLAS order (a sample
+        # may truncate 1 apart, and colour moves a pixel by up to 2)
         if d > (2 if label == "fast" else 0):
             raise AssertionError(f"rgb decode ({label}) differs by {d} "
                                  "between the card and the CPU")
@@ -1691,7 +1767,8 @@ def main() -> int:
     rgb_launches["full width"] = read_counts()
     if rgb_launches["full width"] != {
             k: {"fdct_quantize_exact": 2, "encode_blocks": 2,
-                "concat_streams": 2, "idct_planes_exact": 1}.get(k, 0)
+                "concat_streams": 2, "idct_planes_exact": 1,
+                "rgb_to_ycc420": 1, "ycc_planes_to_rgb": 1}.get(k, 0)
             for k in KERNELS}:
         raise AssertionError(f"two exact encodes and an exact decode at "
                              f"full width launched "
@@ -1831,8 +1908,9 @@ def main() -> int:
                                  "from host_codec.decode")
     for k, counts in sharded_exact.items():
         want = ({"fdct_quantize_exact": 1, "encode_blocks": 1,
-                 "concat_streams": 1} if k.startswith("encode")
-                else {"idct_planes_exact": 1})
+                 "concat_streams": 1, "rgb_to_ycc420": 1}
+                if k.startswith("encode")
+                else {"idct_planes_exact": 1, "ycc_planes_to_rgb": 1})
         if counts != {n: want.get(n, 0) for n in KERNELS}:
             raise AssertionError(f"{k} (exact) launched {counts}, want "
                                  f"{want}")
@@ -1859,17 +1937,18 @@ def main() -> int:
                                 device="cuda", **kw)):
             raise AssertionError(f"dense encode_sharded ({kw}) differs from "
                                  "host_codec or encode_batch(transport='rgb')")
-    # the shards decode through the rgb transport's program (colour on the
-    # unclamped planes): no IDCT kernel
+    # the shards encode from RGB through the colour kernel and decode
+    # through the rgb transport's program (the fast IDCT into unclamped
+    # planes, then the colour kernel)
+    rgb_steps = {"rgb_to_ycc420": 1, "fdct_quantize": 1, "encode_blocks": 1,
+                 "concat_streams": 1, "idct_planes_rgb": 1,
+                 "ycc_planes_to_rgb": 1}
     sharded_paths = (
-        ("sharded", {}, {"fdct_quantize": 1, "encode_blocks": 1,
-                         "concat_streams": 1}),
+        ("sharded", {}, rgb_steps),
         ("sharded_restart", {"restart_interval": ri},
-         {"fdct_quantize": 1, "encode_blocks": 1, "concat_streams": 1,
-          "decode_segments": 1}),
+         dict(rgb_steps, decode_segments=1)),
         ("sharded_optimize", {"optimize": True, "restart_interval": ri},
-         {"fdct_quantize": 1, "encode_blocks": 1, "concat_streams": 1,
-          "decode_segments": 1, "symbol_histograms": 1}))
+         dict(rgb_steps, decode_segments=1, symbol_histograms=1)))
     sharded_launches, sharded_mps, sharded_out = {}, {}, {}
     for label, kw, per_batch in sharded_paths:
         decode_sharded(mesh, encode_sharded(mesh, batches[0], **kw))
@@ -1906,6 +1985,33 @@ def main() -> int:
         sharded_mps[label] = {k: mpix / v for k, v in (
             ("encode_sharded", t_enc), ("decode_sharded", t_dec),
             ("encode_batch", t_ref_enc), ("decode_batch rgb", t_ref_dec))}
+    # tile shards whose row counts differ from the whole image's, decoded
+    # rank by rank in this process (the ranks' own calls): the fast
+    # pixels equal decode_batch(transport="rgb")'s exactly, since the IDCT
+    # kernel's per-block sums do not depend on a shard's rows
+    from jpezy_tpu_torch.parallel import api as PA
+    from jpezy_tpu_torch.parallel.mesh import Mesh
+
+    tiled = []
+    for label in ("sharded", "sharded_restart"):
+        streams_t = sharded_out[label][0][0]
+        want_t, _ = TC.decode_batch(streams_t, transport="rgb", device="cuda")
+        for tile in (2, 4):
+            pjs_t, geom_t, level_t = PA._parse_checked(
+                streams_t, tile, gray=False, precision="fast")
+            rows_t = [PA._decode_shard(Mesh(1, tile, dev, t), pjs_t, geom_t,
+                                       level_t, gray=False,
+                                       precision="fast")[0]
+                      for t in range(tile)]
+            px_t = torch.cat(rows_t, dim=1).cpu().numpy()[:, :H, :W]
+            if not np.array_equal(px_t, want_t):
+                d = int(np.abs(px_t.astype(np.int32)
+                               - want_t.astype(np.int32)).max())
+                raise AssertionError(f"{label} streams decoded in {tile} "
+                                     f"tile shards differ from decode_batch("
+                                     f"transport='rgb') by up to {d}")
+            tiled.append(f"{label} streams in {tile} tile shards of "
+                         f"{geom_t[0][0] // tile} MCU rows")
     sh_opt_lists, sh_opt_px = sharded_out["sharded_optimize"]
     sh_rst_lists, sh_rst_px = sharded_out["sharded_restart"]
     for a, b in zip(sh_opt_px, sh_rst_px):
@@ -1928,7 +2034,8 @@ def main() -> int:
          f"were emitted again into {dense_maxw} (without, with restart "
          f"markers), exact streams equal host_codec's and encode_batch's; "
          f"decode_sharded pixels equal decode_batch("
-         f"transport='rgb')'s on every path; optimize ({sh_opt_bytes} bytes "
+         f"transport='rgb')'s on every path, and exactly so on "
+         + ", ".join(tiled) + f"; optimize ({sh_opt_bytes} bytes "
          f"against {sh_rst_bytes}, one table set a batch) decodes to the "
          f"restart streams' pixels; launches " + "; ".join(
              f"{k} {v}" for k, v in sharded_launches.items())
@@ -2405,7 +2512,8 @@ def main() -> int:
                              ("exact_rgb_encode", "rgb")):
         lists15 = run_exact_path(label, lambda i, b: TC.encode_batch(
             b, precision="exact", transport=transport, device="cuda"),
-            enc_once)
+            dict(enc_once, rgb_to_ycc420=1) if transport == "rgb"
+            else enc_once)
         if [s for ss in lists15 for s in ss] != host_streams:
             raise AssertionError(f"{label}: streams differ from host_codec's")
     host_lists = [host_streams[i * BATCH:(i + 1) * BATCH]
@@ -2416,7 +2524,8 @@ def main() -> int:
                                    ("exact_gray_decode", True, host_gray)):
         pxs = run_exact_path(label, lambda i, b: TC.decode_batch(
             host_lists[i], precision="exact", gray=gray15,
-            device="cuda")[0], dict(idct_planes_exact=1))
+            device="cuda")[0], dict(idct_planes_exact=1,
+                                    ycc_planes_to_rgb=1))
         if not np.array_equal(np.concatenate(pxs), want_px):
             raise AssertionError(f"{label}: pixels differ from "
                                  "host_codec.decode's")
@@ -2429,6 +2538,181 @@ def main() -> int:
              for k, v in exact_launches.items())
          + "; serial MP/s " + ", ".join(f"{k} {mpix / v:.3f}"
                                         for k, v in walls15.items())
+         + f" (no warm-up); on {card}")
+
+    # ---- 16. the rgb transport's kernels against their references, bit
+    # for bit, then the fast rgb paths over the batches
+    from jpezy_tpu_torch.runtime import native
+    from jpezy_tpu_torch.testing import colour_sets as CS
+
+    # colour + 4:2:0 decimation: the real batch, and an 8192x8192 image
+    # whose 2x2 quads hold all 2^24 RGB triples (each reaches the chroma)
+    triples = CS.triple_quads(dev)
+    enc16 = [("real batch", torch.from_numpy(batches[0]).to(dev)),
+             (f"all 2^24 RGB triples in 2x2 quads "
+              f"{tuple(triples.shape)}", triples)]
+    err["rgb_to_ycc420"] = 0
+    colour_cuda.rgb_to_ycc420_launches = 0
+    ranges16 = {}
+    for label, rgb16 in enc16:
+        for dt in (torch.float32, torch.float64):
+            got = OC.rgb_to_ycc420(rgb16, dt)
+            want = OC.rgb_to_ycc420_plain(rgb16, dt)
+            torch.cuda.synchronize()
+            for g, w_ in zip(got, want):
+                e = int((g.to(torch.int32) - w_.to(torch.int32)).abs().max())
+                err["rgb_to_ycc420"] = max(err["rgb_to_ycc420"], e)
+                if e or g.dtype != torch.int8:
+                    raise AssertionError(f"rgb_to_ycc420 kernel != plain "
+                                         f"version on {label}, {dt}")
+            if dt == torch.float64:
+                host = native.rgb_to_ycc420(rgb16.cpu().numpy())
+                if not all(np.array_equal(g.cpu().numpy(), h)
+                           for g, h in zip(got, host)):
+                    raise AssertionError(f"exact rgb_to_ycc420 kernel != "
+                                         f"host C++ rgb_to_ycc420 on {label}")
+            if rgb16 is triples:
+                # every value fits int8: the int32 conversion's range
+                full = OC.rgb_to_ycc(triples[..., 0], triples[..., 1],
+                                     triples[..., 2], dt)
+                ranges16[str(dt).split(".")[1]] = [
+                    (int(c.min()), int(c.max())) for c in full]
+                if ranges16[str(dt).split(".")[1]] != [
+                        (-128, 127), (-127, 127), (-127, 127)]:
+                    raise AssertionError(f"RGB triples at {dt} span "
+                                         f"{ranges16}")
+                del full
+    if colour_cuda.rgb_to_ycc420_launches != 2 * len(enc16):
+        raise AssertionError(f"colour kernel (encode) launched "
+                             f"{colour_cuda.rgb_to_ycc420_launches} times in "
+                             f"{2 * len(enc16)} comparisons")
+    del triples, enc16, got, want
+    # upsampling + colour: every (Y, Cb, Cr) triple at 4:4:4, and each
+    # sampling with samples past both clamps
+    dec16 = [("all 2^24 (Y, Cb, Cr) triples at 4:4:4",
+              CS.ycc_triple_planes(dev), CS.SAMPLINGS["4:4:4"])]
+    for lay16, (dups16, gray16) in CS.SAMPLINGS.items():
+        dec16.append((f"{lay16}, samples -400..699",
+                      CS.sampling_planes(dups16, 4, H, 480, seed=16,
+                                         device=dev), (dups16, gray16)))
+    err["ycc_planes_to_rgb"] = 0
+    colour_cuda.ycc_planes_to_rgb_launches = 0
+    for label, planes16, (dups16, gray16) in dec16:
+        used16 = planes16[:1] if gray16 else planes16
+        geom16 = CS.geom_of(dups16)
+        for dt in (torch.float32, torch.float64):
+            got = OC.planes_to_rgb(used16, geom16, gray16, dt)
+            want = OC.planes_to_rgb_plain(used16, geom16, gray16, dt)
+            torch.cuda.synchronize()
+            e = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            err["ycc_planes_to_rgb"] = max(err["ycc_planes_to_rgb"], e)
+            if e or got.dtype != torch.uint8:
+                raise AssertionError(f"ycc_planes_to_rgb kernel != plain "
+                                     f"version on {label}, {dt}")
+            if dt == torch.float64 and not gray16 and (
+                    dups16 == CS.SAMPLINGS["4:2:0"][0] or "triples" in label):
+                up16 = [OB.upsample_nearest(p, dy, dx).cpu().numpy()
+                        for p, (dy, dx) in zip(used16, dups16)]
+                host = np.stack([native.ycc_to_rgb_i32(*(u[i] for u in up16))
+                                 for i in range(up16[0].shape[0])])
+                if not np.array_equal(got.cpu().numpy(), host):
+                    raise AssertionError(f"exact ycc_planes_to_rgb kernel != "
+                                         f"host C++ ycc_to_rgb_i32 on {label}")
+    if colour_cuda.ycc_planes_to_rgb_launches != 2 * len(dec16):
+        raise AssertionError(f"colour kernel (decode) launched "
+                             f"{colour_cuda.ycc_planes_to_rgb_launches} times "
+                             f"in {2 * len(dec16)} comparisons")
+    del dec16, got, want
+    # the fast IDCT into planes: the main batch's rgb upload read at every
+    # sampling and level, as int32 too, and noise at quality 100
+    ir_sets = [(f"main batch's upload as {lay16}, level {lvl}", main_up,
+                dict(geom=g16, sizes=s16, gray=gr16, level=lvl,
+                     qtuple=main_kw["qtuple"][:len(s16)]))
+               for lay16, (g16, s16, gr16) in XT.upload_layouts(
+                   my15, mx15).items() for lvl in (128, 2048)]
+    ir_sets.append(("main batch's upload as int32", main_up.to(torch.int32),
+                    ir_sets[0][2]))
+    ir_sets.append((f"{BATCH} noise images at quality 100",
+                    exact_idct_noise[0], exact_idct_noise[1]))
+    err["idct_planes_rgb"] = 0
+    ir_diff = []
+    exact_cuda.idct_rgb_launches = 0
+    for label, src16, kw in ir_sets:
+        got = BT.idct_planes_rgb(src16, precision="fast", **kw)
+        want = BT.idct_planes_rgb_plain(src16, dtype=torch.float32, **kw)
+        model = BT.idct_planes_rgb_model(src16.cpu().numpy(), **kw)
+        torch.cuda.synchronize()
+        if len(got) != len(model):
+            raise AssertionError(f"idct_planes_rgb gave {len(got)} planes, "
+                                 f"the model {len(model)}, on {label}")
+        n_diff = n_all = 0
+        for g, w_, m in zip(got, want, model):
+            if g.dtype != torch.int32 or not np.array_equal(g.cpu().numpy(),
+                                                            m):
+                raise AssertionError(f"idct_planes_rgb kernel != its numpy "
+                                     f"model on {label}")
+            d = (g - w_).abs()
+            err["idct_planes_rgb"] = max(err["idct_planes_rgb"],
+                                         int(d.max()))
+            if int(d.max()) > 1:
+                raise AssertionError(f"idct_planes_rgb kernel differs from "
+                                     f"the plain version by {int(d.max())} "
+                                     f"on {label}")
+            n_diff += int((d > 0).sum())
+            n_all += d.numel()
+        ir_diff.append(f"{label} {n_diff / n_all:.2e}")
+    if exact_cuda.idct_rgb_launches != len(ir_sets):
+        raise AssertionError(f"fast rgb IDCT kernel launched "
+                             f"{exact_cuda.idct_rgb_launches} times in "
+                             f"{len(ir_sets)} comparisons")
+    rgb_idct_input = (main_up, ir_sets[0][2])   # phase 6 times these
+    del ir_sets, got, want, model
+    # the fast rgb paths over the batches: the colour kernel, the fDCT, the
+    # entropy kernel and the concat once an encode; the fast IDCT and the
+    # colour kernel once a decode; PSNR within the main path's slack of the
+    # host codec's exact round trip
+    rgb_launches16, walls16 = {}, {}
+
+    def run_rgb_path(label, fn, per_batch):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = [fn(i, b) for i, b in enumerate(batches)]
+        walls16[label] = time.perf_counter() - t0
+        rgb_launches16[label] = read_counts()
+        if rgb_launches16[label] != _per_batch(**per_batch):
+            raise AssertionError(f"{label} launches {rgb_launches16[label]}"
+                                 f", want per batch {per_batch}")
+        return out
+
+    rgb_lists = run_rgb_path("rgb_encode", lambda i, b: TC.encode_batch(
+        b, transport="rgb", device="cuda"), dict(
+            rgb_to_ycc420=1, fdct_quantize=1, encode_blocks=1,
+            concat_streams=1))
+    rgb_px = run_rgb_path("rgb_decode", lambda i, b: TC.decode_batch(
+        rgb_lists[i], transport="rgb", device="cuda")[0], dict(
+            idct_planes_rgb=1, ycc_planes_to_rgb=1))
+    p_rgb = _psnr(np.concatenate(rgb_px), np.concatenate(batches))
+    if p_rgb < p_ref - PSNR_SLACK_DB:
+        raise AssertionError(f"fast rgb round trip PSNR {p_rgb} < host exact "
+                             f"{p_ref}")
+    del rgb_lists, rgb_px
+    _say("16 rgb kernels", f"rgb_to_ycc420 (one launch) bit-identical to the "
+         f"plain version at float32 and float64 on the real batch and on all "
+         f"2^24 RGB triples in 2x2 quads, the float64 form also to the host "
+         f"C++ rgb_to_ycc420; the triples' values (Y-128, Cb, Cr) span "
+         f"{ranges16}, so int8 holds them; ycc_planes_to_rgb (one launch) "
+         f"bit-identical to the plain version at both precisions on all "
+         f"2^24 (Y, Cb, Cr) triples at 4:4:4 and on 4x{H}x480 planes past "
+         f"both clamps at " + ", ".join(CS.SAMPLINGS) + ", the float64 form "
+         f"also to the host C++ ycc_to_rgb_i32 (triples, 4:2:0); "
+         f"idct_planes_rgb bit-identical to its numpy model and within 1 of "
+         f"the plain version (cuBLAS), share differing: " + "; ".join(ir_diff)
+         + f"; fast rgb paths over {MAIN_BATCHES} batches: PSNR {p_rgb:.4f} "
+         f"dB (host exact {p_ref:.4f}), launches " + "; ".join(
+             f"{k} { {n: c for n, c in v.items() if c} }"
+             for k, v in rgb_launches16.items())
+         + "; serial MP/s " + ", ".join(f"{k} {mpix / v:.3f}"
+                                        for k, v in walls16.items())
          + f" (no warm-up); on {card}")
 
     # ---- 5/8 device: event spans, then (only now) the profiler
@@ -2660,24 +2944,57 @@ def main() -> int:
     coeff_dev = torch.from_numpy(coeff).to(dev)
     rgb_prep_ms = _host_ms(lambda: TC._rgb_host_prep(
         pjs_rgb, geom_rgb, level_rgb, gray=False, precision="fast"))
-    def was(name):
+    def was(name, key):
         ms, events = EARLIER_EXACT[name]
+        ms2, events2 = EARLIER_RGB[key]
         return (f"before the exact kernels {ms} ms busy in {events} events, "
+                f"before the colour kernels {ms2} ms in {events2} events, "
                 f"kept from then")
 
-    rgb_rows = stage_rows((
-        ("rgb encode program, fast (_encode_batch_blocks)",
-         lambda: TC._encode_batch_blocks(rgb_dev)),
-        (f"rgb encode program, exact ({was('rgb exact encode')})",
-         lambda: TC._encode_batch_blocks(rgb_dev, precision="exact")),
-        ("rgb decode program, fast (_decode_fused_batch)",
-         lambda: TC._decode_fused_batch(coeff_dev, **rkw)),
-        (f"rgb decode program, exact ({was('exact decode')})",
+    # the rgb programs are the hand kernels alone between the upload and
+    # the fetch: 4 device events an encode, 2 a decode
+    enc_k = ("rgb_to_ycc420_kernel", "encode_blocks_batch_kernel",
+             "concat_streams_kernel")
+    dec_k = ("ycc_planes_to_rgb_kernel",)
+    rgb_programs = (
+        ("rgb encode, fast", "rgb encode program, fast "
+         "(_encode_batch_blocks; before the colour kernel "
+         f"{EARLIER_RGB['rgb encode, fast'][0]} ms in "
+         f"{EARLIER_RGB['rgb encode, fast'][1]} events, kept from then)",
+         lambda: TC._encode_batch_blocks(rgb_dev),
+         enc_k + ("fdct_quantize_kernel",)),
+        ("rgb encode, exact", "rgb encode program, exact ("
+         + was("rgb exact encode", "rgb encode, exact") + ")",
+         lambda: TC._encode_batch_blocks(rgb_dev, precision="exact"),
+         enc_k + ("fdct_quantize_exact_kernel",)),
+        ("rgb decode, fast", "rgb decode program, fast "
+         "(_decode_fused_batch; before the fast IDCT and colour kernels "
+         f"{EARLIER_RGB['rgb decode, fast'][0]} ms in "
+         f"{EARLIER_RGB['rgb decode, fast'][1]} events, kept from then)",
+         lambda: TC._decode_fused_batch(coeff_dev, **rkw),
+         dec_k + ("idct_planes_rgb_kernel",)),
+        ("rgb decode, exact", "rgb decode program, exact ("
+         + was("exact decode", "rgb decode, exact") + ")",
          lambda: TC._decode_fused_batch(coeff_dev,
-                                        **dict(rkw, precision="exact"))),
-        (f"rgb decode program, gray exact ({was('gray exact decode')})",
+                                        **dict(rkw, precision="exact")),
+         dec_k + ("idct_planes_exact_kernel",)),
+        ("rgb decode, gray exact", "rgb decode program, gray exact ("
+         + was("gray exact decode", "rgb decode, gray exact") + ")",
          lambda: TC._decode_fused_batch(
-             coeff_dev, **dict(rkw, precision="exact", gray=True)))))
+             coeff_dev, **dict(rkw, precision="exact", gray=True)),
+         dec_k + ("idct_planes_exact_kernel",)))
+    rgb_rows = []
+    for key, label, fn, want_k in rgb_programs:
+        span, prof = _time_ms(fn, 5), _profile(fn, 5)
+        names = sorted(prof["by_name"])
+        if prof["events"] > len(want_k) or len(names) != len(want_k) \
+                or not all(any(k in n for n in names) for k in want_k):
+            raise AssertionError(
+                f"the {key} program makes {prof['events']} device events "
+                f"per call ({names}): want {', '.join(want_k)} alone")
+        rgb_rows.append(f"{label}: device busy {_fmt_ms(prof['busy_ms'])} "
+                        f"ms, event span {span:.3f} ms, "
+                        f"{prof['events']:.1f} events")
     # the exact ycc420 encode program is the exact fDCT, entropy and concat
     # kernels alone, as the fast one is with its fDCT kernel
     def enc_exact():
@@ -2785,6 +3102,27 @@ def main() -> int:
                      + 4 * ex_samples + 8 * 136 + 3 * 4 * 64)
     ex_nonzero = int((ex_coeff != 0).sum())
     ex_idct_ops = exact_inv_ops(ex_coeff, ex_kw)
+    # the rgb transport's kernels on the main batch: its RGB samples (fast
+    # colour), its rgb upload into the fast IDCT's int32 planes, and those
+    # planes (4:2:0) into RGB; their bytes, and their separate float32
+    # multiplies and adds (the IDCT's 128 a nonzero coefficient, counted
+    # from the data; colour 6 a pixel for Y and 10 a 2x2 quad for the
+    # chroma on encode, 10 a pixel on decode)
+    rgb6 = torch.from_numpy(batches[0]).to(dev)
+    rgb_src, rgb_kw = rgb_idct_input[0], {
+        k: main_kw[k] for k in ("geom", "sizes", "gray", "level", "qtuple")}
+    planes6 = BT.idct_planes_rgb(rgb_src, precision="fast", **rgb_kw)
+    n_px = BATCH * H * W
+    col_enc_bytes = 3 * n_px + n_px + 2 * (n_px // 4)
+    col_enc_ops = 6 * n_px + 10 * (n_px // 4)
+    ir_bytes = (rgb_src.numel() * rgb_src.element_size()
+                + sum(4 * p.numel() for p in planes6) + 4 * 64 * 64
+                + 3 * 4 * 64)
+    ir_nonzero = int((rgb_src != 0).sum())
+    ir_ops = 128 * ir_nonzero
+    col_dec_bytes = sum(4 * p.numel() for p in planes6) + 3 * n_px
+    col_dec_ops = 10 * n_px
+    rgb_geom = rgb_kw["geom"]
     # each kernel's launches on one batch (Y, Cb, Cr, or one for all), its
     # plain version on the same inputs, its symbols in the trace, its bound
     kernels6 = {
@@ -2896,6 +3234,46 @@ def main() -> int:
             f"the kernel (kept from then); torch.matmul of the "
             f"float64 product alone (DGEMM, not the same function) "
             f"{_fmt_ms(library64_ms)} ms"),
+        "rgb_to_ycc420": (
+            [lambda: OC.rgb_to_ycc420(rgb6)],
+            lambda: OC.rgb_to_ycc420_plain(rgb6),
+            ("rgb_to_ycc420_kernel",),
+            _bound(col_enc_bytes, col_enc_ops, PEAK_FP32_FLOPS),
+            f"float32, the main batch's {tuple(rgb6.shape)} uint8 samples "
+            f"into int8 Y, Cb, Cr, {col_enc_bytes} bytes "
+            f"({1e3 * col_enc_bytes / PEAK_BYTES_PER_S:.4f} ms); "
+            f"{col_enc_ops} float32 operations "
+            f"({1e3 * col_enc_ops / PEAK_FP32_FLOPS:.4f} ms); the rgb fast "
+            f"encode program read {EARLIER_RGB['rgb encode, fast'][0]} ms "
+            f"busy before the kernel (kept from then); no PyTorch call "
+            f"computes it"),
+        "idct_planes_rgb": (
+            [lambda: BT.idct_planes_rgb(rgb_src, precision="fast",
+                                        **rgb_kw)],
+            lambda: BT.idct_planes_rgb_plain(rgb_src, dtype=torch.float32,
+                                             **rgb_kw),
+            ("idct_planes_rgb_kernel",),
+            _bound(ir_bytes, ir_ops, PEAK_FP32_FLOPS),
+            f"the main batch's rgb upload {tuple(rgb_src.shape)} "
+            f"{rgb_src.dtype} into int32 planes, {ir_bytes} bytes "
+            f"({1e3 * ir_bytes / PEAK_BYTES_PER_S:.4f} ms); {ir_nonzero} "
+            f"nonzero coefficients x 128 = {ir_ops} float32 operations "
+            f"({1e3 * ir_ops / PEAK_FP32_FLOPS:.4f} ms); the rgb fast "
+            f"decode program read {EARLIER_RGB['rgb decode, fast'][0]} ms "
+            f"busy before the kernels (kept from then); torch.matmul of the "
+            f"[{n_blocks}, 64] @ [64, 64] float32 product alone "
+            f"{_fmt_ms(library_ms)} ms"),
+        "ycc_planes_to_rgb": (
+            [lambda: OC.planes_to_rgb(planes6, rgb_geom, False)],
+            lambda: OC.planes_to_rgb_plain(planes6, rgb_geom, False),
+            ("ycc_planes_to_rgb_kernel",),
+            _bound(col_dec_bytes, col_dec_ops, PEAK_FP32_FLOPS),
+            f"float32, the main batch's fast int32 planes at 4:2:0 into "
+            f"[{BATCH}, {H}, {W}, 3] uint8, {col_dec_bytes} bytes "
+            f"({1e3 * col_dec_bytes / PEAK_BYTES_PER_S:.4f} ms); "
+            f"{col_dec_ops} float32 operations "
+            f"({1e3 * col_dec_ops / PEAK_FP32_FLOPS:.4f} ms); no PyTorch "
+            f"call computes it"),
     }
 
     # five times the card's 50 MB L2 cache
@@ -2928,6 +3306,7 @@ def main() -> int:
                         else None)
         t["library_ms"] = {"fdct_quantize": library_ms,
                            "idct_planes": library_ms,
+                           "idct_planes_rgb": library_ms,
                            "fdct_quantize_exact": library64_ms,
                            "idct_planes_exact": library64_ms}.get(name)
         if name in EXACT_KERNELS:
@@ -3059,9 +3438,10 @@ def main() -> int:
     # the block transforms with what the card reports for each
     # instantiation (cudaFuncGetAttributes,
     # cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    info = {**transform_cuda.kernel_info(), **exact_cuda.kernel_info()}
+    info = {**transform_cuda.kernel_info(), **exact_cuda.kernel_info(),
+            **colour_cuda.kernel_info()}
     for name in ("fdct_quantize", "idct_planes", "fdct_quantize_exact",
-                 "idct_planes_exact"):
+                 "idct_planes_exact") + RGB_KERNELS:
         timing[name]["kernel_info"] = {
             k: v for k, v in info.items() if k.split()[0] == name}
     # exact mode's inverse where its float64 operations bound it: noise at
@@ -3116,7 +3496,42 @@ def main() -> int:
          f"of the [{n_blocks}, 64] @ [64, 64] float32 product alone "
          f"{_fmt_ms(library_ms)} ms, float64 (DGEMM, not the same function "
          f"as the exact kernels) {_fmt_ms(library64_ms)} ms; on {card}")
-    del sp_dev, dn_src, lib_x, lib_x64, nz_coeff, ex_coeff
+    # the colour kernels' other forms: float64 (exact mode) and gray, warm
+    # and with the L2 cache overwritten first, beside their bounds (the
+    # same bytes; float64 operations at the separate DMUL/DADD rate)
+    gray_bytes = 4 * planes6[0].numel() + n_px
+    extra6 = (
+        ("rgb_to_ycc420", "exact",
+         lambda: OC.rgb_to_ycc420(rgb6, torch.float64),
+         _bound(col_enc_bytes, col_enc_ops, PEAK_FP64_OPS)),
+        ("ycc_planes_to_rgb", "exact",
+         lambda: OC.planes_to_rgb(planes6, rgb_geom, False, torch.float64),
+         _bound(col_dec_bytes, col_dec_ops, PEAK_FP64_OPS)),
+        ("ycc_planes_to_rgb", "gray",
+         lambda: OC.planes_to_rgb(planes6[:1], rgb_geom, True),
+         _bound(gray_bytes, 0)))
+    rows6c = []
+    for name, form, fn, (b_ms, b_by) in extra6:
+        sym = f"{name}_kernel"
+        warm, _ = _traced(fn, 20, sym)
+        cold, _ = _traced(lambda fn=fn: (l2_flush.zero_(), fn()), 20, sym)
+        timing[name][f"{form}_ms"] = warm
+        timing[name][f"{form}_cold_ms"] = cold
+        timing[name][f"{form}_bound_ms"] = b_ms
+        rows6c.append(f"{name} {form}: {warm:.4f} ms (L2 overwritten first "
+                      f"{cold:.4f}), bound {b_ms:.4f} ms by {b_by} = "
+                      f"{b_ms / warm:.3f} of it")
+    _say("6 colour", "; ".join(rows6c) + "; " + "; ".join(
+        f"{name}: {timing[name]['ms']:.4f} ms (L2 overwritten first "
+        f"{timing[name]['cold_ms']:.4f}), bound "
+        f"{timing[name]['bound_ms']:.4f} ms = "
+        f"{timing[name]['bound_ms'] / timing[name]['ms']:.3f} of it"
+        for name in RGB_KERNELS) + "; what the card reports (registers a "
+        "thread, thread blocks an SM, static shared bytes, local bytes, "
+        "threads a block): " + ", ".join(
+            f"{k} {v}" for k, v in info.items()
+            if k.split()[0] in RGB_KERNELS) + f"; on {card}")
+    del sp_dev, dn_src, lib_x, lib_x64, nz_coeff, ex_coeff, rgb6, planes6
     # the fused kernel on four batches in one launch
     comps4 = tuple(torch.cat([c] * 4) for c in real_comps)
     big_ms, _ = _traced(lambda: pack_cuda.encode_blocks_batch_cuda(*comps4),
@@ -3232,7 +3647,8 @@ def main() -> int:
     # blocks; encode_blocks' and concat_streams' are the main path's;
     # decode_segments' is the restart path's; symbol_histograms' is the
     # optimize path's; the exact kernels' are phase 15's exact encode
-    # (ycc420) and exact decode paths'.
+    # (ycc420) and exact decode paths'; the rgb transport's kernels' are
+    # phase 16's fast rgb encode and decode paths'.
     # launches_by_path holds every path's own counts (phase 12's sharded
     # paths too), each read just after that path's run.
     launches = {"pack_words": pack_alone_launches,
@@ -3245,7 +3661,13 @@ def main() -> int:
                 "fdct_quantize_exact":
                     exact_launches["exact_encode"]["fdct_quantize_exact"],
                 "idct_planes_exact":
-                    exact_launches["exact_decode"]["idct_planes_exact"]}
+                    exact_launches["exact_decode"]["idct_planes_exact"],
+                "rgb_to_ycc420":
+                    rgb_launches16["rgb_encode"]["rgb_to_ycc420"],
+                "idct_planes_rgb":
+                    rgb_launches16["rgb_decode"]["idct_planes_rgb"],
+                "ycc_planes_to_rgb":
+                    rgb_launches16["rgb_decode"]["ycc_planes_to_rgb"]}
     by_path = {name: {"main": main_launches[name],
                       "restart_device": restart_launches[name],
                       "decode_indexed": indexed_launches[name],
@@ -3253,7 +3675,9 @@ def main() -> int:
                       **{path: counts[name]
                          for path, counts in sharded_launches.items()},
                       **{path: counts[name]
-                         for path, counts in exact_launches.items()}}
+                         for path, counts in exact_launches.items()},
+                      **{path: counts[name]
+                         for path, counts in rgb_launches16.items()}}
                for name in launches}
     per_batch = {name: {path: n / MAIN_BATCHES for path, n in paths.items()}
                  for name, paths in by_path.items()}
@@ -3275,7 +3699,9 @@ def main() -> int:
                              "dense_form_ms", "cold_dense_form_ms",
                              "kernel_info", "previous_ms",
                              "previous_cold_ms", "previous_dense_ms",
-                             "versus_previous")
+                             "versus_previous", "exact_ms", "exact_cold_ms",
+                             "exact_bound_ms", "gray_ms", "gray_cold_ms",
+                             "gray_bound_ms")
            if k in t},
     } for name, t in timing.items()]}))
     print(card)

@@ -12,8 +12,9 @@ launch for the three components), the CUDA stream concat (one launch, the
 blocks read where the entropy kernel wrote them) -> ONE fetch of
 `combined` [N, 1 + maxw] ->
 host header + byte stuffing.
-`rgb` transport: ONE [N, H, W, 3] u8 upload, colour conversion and 4:2:0
-decimation on the device (float32 in fast mode), then the same program.
+`rgb` transport: ONE [N, H, W, 3] u8 upload, the CUDA colour kernel
+(colour conversion and 4:2:0 decimation into int8 planes, float32 in fast
+mode, float64 in exact mode), then the same program.
 Exact mode takes the exact fDCT+quantize kernel in place of the fast one
 (the oracle's ordered float64 sums, ops/exact_cuda.py) on either
 transport.
@@ -34,10 +35,11 @@ Huffman scan, one lane per segment (ops/entropy_decode.py) -> the same
 IDCT kernel on the scan's blocks (per-image dequantize, IDCT, planes plus
 one corruption flag per image) -> ONE fetch.  `indexed` gives restart-free streams the same device decode
 after a length-only host scan.  `rgb`, for any frame: host Huffman
-frontend -> ONE upload of the coefficients -> dequantize, IDCT,
-deblockify (exact mode: the CUDA kernel of the float64 ordered sums, one
-launch), upsample by the sampling factors, colour or gray clamp on the
-device -> ONE fetch of RGB.
+frontend -> ONE upload of the coefficients -> the CUDA IDCT kernel
+(dequantize, IDCT, deblockify into unclamped int32 planes: float32, or
+exact mode's float64 ordered sums, one launch), then the CUDA colour
+kernel (upsample by the sampling factors, colour or gray clamp, one
+launch) -> ONE fetch of RGB.
 
 precision:
   "fast"  - float32 transforms at IEEE precision (TF32 refused); on the
@@ -61,7 +63,6 @@ from ..core.geometry import ComponentGeometry, EncodeGeometry
 from ..core.props import ImageProps, make_encode_props
 from ..device import resolve
 from ..ops import block_transform as BT
-from ..ops import blocks as B
 from ..ops import colorspace as C
 from ..ops import entropy as E
 from ..ops import entropy_decode as ED
@@ -195,12 +196,14 @@ def _quantize_batch_rgb(rgb: torch.Tensor, *, gray: bool = False,
     """rgb [N, H, W, 3] uint8 on the device -> per-component quantized
     blocks [N, B, 64] (jax_codec._encode_batch_blocks up to the entropy
     coding, via parallel/sharded.py:_encode_local): colour conversion at
-    the precision's dtype, then 4:2:0 decimation."""
+    the precision's dtype and 4:2:0 decimation into int8 planes
+    (C.rgb_to_ycc420, the hand-written kernel on a CUDA tensor), then the
+    fDCT and quantize of the ycc420 transport."""
     dt = _dtype(precision)
-    y, cb, cr = C.rgb_to_ycc(rgb[..., 0], rgb[..., 1], rgb[..., 2], dt)
-    return _quantize_local_ycc(
-        y, B.decimate_420(cb), B.decimate_420(cr), gray=gray, dtype=dt,
-        rounded=rounded, qtables=_qtables(quality, rgb.device))
+    y, cb, cr = C.rgb_to_ycc420(rgb, dt)
+    return _quantize_local_ycc(y, cb, cr, gray=gray, dtype=dt,
+                               rounded=rounded,
+                               qtables=_qtables(quality, rgb.device))
 
 
 def _encode_batch_blocks(rgb: torch.Tensor, *, gray: bool = False,
@@ -598,25 +601,15 @@ def _decode_fused_batch(coeff_all: torch.Tensor, *, geom, level, gray,
     _decode_fused_batch_packed): coefficients [N, sum(B_i), 64] of every
     component in one array -> [N, H_mcu, W_mcu, 3] uint8 RGB, or
     [N, H_mcu, W_mcu, 1] for gray or a 1-component frame.  Dequantize,
-    IDCT at the precision's dtype, deblockify, nearest upsample by the
-    sampling factors, then colour or the gray clamp.  Gray needs the luma
-    only, so the chroma components are not transformed.  Exact mode's
-    dequantize, float64 ordered IDCT and deblockify are
-    BT.idct_planes_exact, the hand-written kernel on CUDA tensors, one
-    launch for every component."""
-    dt = _dtype(precision)
-    if dt == torch.float64:
-        spats = BT.idct_planes_exact(coeff_all, geom=geom, level=level,
-                                     gray=gray, sizes=sizes, qtuple=qtuple)
-    else:
-        spats = BT.idct_planes_rgb_plain(coeff_all, geom=geom, level=level,
-                                         gray=gray, sizes=sizes,
-                                         qtuple=qtuple, dtype=dt)
-    planes = [B.upsample_nearest(p, g[4], g[5]) for p, g in zip(spats, geom)]
-    if gray:
-        return C.clamp_gray(planes[0], dt)[..., None]
-    r, g, b = C.ycc_to_rgb(planes[0], planes[1], planes[2], dt)
-    return torch.stack([r, g, b], dim=-1)
+    IDCT at the precision, deblockify into unclamped int32 planes
+    (BT.idct_planes_rgb), then nearest upsampling by the sampling factors
+    with colour or the gray clamp (C.planes_to_rgb): on CUDA tensors two
+    hand-written kernels, one launch each.  Gray needs the luma only, so
+    the chroma components are not transformed."""
+    spats = BT.idct_planes_rgb(coeff_all, geom=geom, level=level, gray=gray,
+                               sizes=sizes, qtuple=qtuple,
+                               precision=precision)
+    return C.planes_to_rgb(spats, geom, gray, _dtype(precision))
 
 
 def _i32(a: np.ndarray, dev) -> torch.Tensor:

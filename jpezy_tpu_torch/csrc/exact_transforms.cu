@@ -39,12 +39,30 @@
 //   ascending s += ((cucv[k] d[k]) COS[u][x]) COS[v][y]; then s / 4 +
 //   level (128, or 2048 for 12-bit frames), truncated toward zero.
 //
+// Kernel 3, idct_planes_rgb_kernel, is kernel 2's walk with the fast
+// precision's arithmetic, for the rgb transport's fast decode: it replaces
+// the float32 half of jpezy_tpu/codec/jax_codec.py:_decode_fused_batch up to
+// the upsampling (ops/quantize.py:dequantize, ops/dct.py:inverse_dct at
+// float32, deblockify).  Same inputs and outputs as kernel 2, with the
+// [64][64] float32 inverse basis M[p][k] in place of the float64 tables.
+//   Per block and sample p = 8 y + x: s starts at +0, then for k ascending
+//   over the nonzero d[k], s += fl32(d[k]) M[p][k] (a float32 multiply, then
+//   a float32 add); then s + level, truncated toward zero: the numpy model
+//   block_transform.inverse_model, bit for bit.  torch.matmul (the plain
+//   version) sums in another order, so the two may differ by 1.
+//   Bound: the same bytes as kernel 2's, 0.011 ms on the main batch; 128
+//   float32 operations a nonzero coefficient, far below them.  The walk,
+//   shared with kernel 2 through a template, keeps the basis in shared
+//   memory by k, its rows padded so that the warp's 4 blocks at different
+//   k fall in different banks more often.
+//
 // The traps, each of which flips the truncation of some coefficient or
 // sample (the smoke's tie set finds them):
-//  - No contraction.  nvcc contracts a*b + c into DFMA by default, which
-//    skips the product's rounding.  Every multiply and add here is
-//    __dmul_rn / __dadd_rn, which are never contracted; chip_smoke.py
-//    finds no DFMA in the SASS of either kernel.
+//  - No contraction.  nvcc contracts a*b + c into DFMA (FFMA) by default,
+//    which skips the product's rounding.  Every multiply and add here is
+//    __dmul_rn / __dadd_rn (__fmul_rn / __fadd_rn), which are never
+//    contracted; chip_smoke.py finds no DFMA in the SASS of kernels 1 and 2
+//    and no FFMA in kernel 3's.
 //  - No refolding.  cu[i] cu[j], the / 4 and the two cosines of a term are
 //    not premultiplied into one table: each product is rounded where the
 //    reference rounds it.  Only products the reference computes anyway are
@@ -262,8 +280,9 @@ struct InvArgs {
   InvComp comp[3];
   const void* coeff;      // [N, row_blocks, 64]
   const int32_t* q;       // [ncomp, 64]
-  double cosv[64];        // COS[u][x], u * 8 + x
-  double cucv[64];        // fl(cu[u] cv[v]), k = 8 v + u
+  const float* basis;     // the fast form's [64][64] float32 M[p][k] by k
+  double cosv[64];        // COS[u][x], u * 8 + x (exact mode)
+  double cucv[64];        // fl(cu[u] cv[v]), k = 8 v + u (exact mode)
   int nimages, ncomp, mcus_x, row_blocks, level;
   int tiles[3];           // tiles of each component over the batch
 };
@@ -286,28 +305,56 @@ __device__ __forceinline__ void load_coeffs(const int32_t* src, int* c) {
   c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    idct_planes_exact_kernel(const __grid_constant__ InvArgs a) {
-  __shared__ double tiles[kWarps][kTile * kStride];
-  __shared__ __align__(16) double cosv[64];
-  __shared__ double cucv[64];
+// The tables of the inverse's two arithmetics: exact mode's float64 factors,
+// or the fast form's float32 basis M[p][k] (p = 8 y + x) stored by k, each
+// row padded to kBasisStride floats so that the 4 blocks of a warp, at
+// different k, read different banks more often.
+constexpr int kBasisStride = 72;
+template <typename Real>
+struct InvTables;
+template <>
+struct InvTables<double> {
+  double cosv[64];        // COS[u][x], u * 8 + x
+  double cucv[64];
+};
+template <>
+struct InvTables<float> {
+  float basis[64 * kBasisStride];   // basis[k * kBasisStride + p] = M[p][k]
+};
+
+// The walk of both inverse kernels: lane 8 b + r loads and dequantizes row
+// r of block b, then owns column x = r with 8 accumulators, one per row y,
+// over the block's nonzero coefficients in ascending order.  Real = double:
+// exact mode's terms ((cucv[k] d[k]) COS[u][x]) COS[v][y] and s / 4 +
+// level; Real = float: the fast IDCT's terms d[k] M[8 y + x][k] and s +
+// level (block_transform.inverse_model), each a multiply then an add.
+template <typename T, typename Real>
+__device__ __forceinline__ void idct_planes_walk(const InvArgs& a) {
+  constexpr bool kExact = sizeof(Real) == 8;
+  __shared__ __align__(16) Real tiles[kWarps][kTile * kStride];
+  __shared__ __align__(16) InvTables<Real> tabs;
   __shared__ int qs[3][64];
   const int t = threadIdx.x;
-  for (int i = t; i < 128 + 64 * a.ncomp; i += kThreads) {
-    if (i < 64)
-      cosv[i] = a.cosv[i];
-    else if (i < 128)
-      cucv[i - 64] = a.cucv[i - 64];
-    else
-      qs[(i - 128) >> 6][i & 63] = __ldg(a.q + (i - 128));
+  if constexpr (kExact) {
+    for (int i = t; i < 128; i += kThreads) {
+      if (i < 64)
+        tabs.cosv[i] = a.cosv[i];
+      else
+        tabs.cucv[i - 64] = a.cucv[i - 64];
+    }
+  } else {
+    for (int i = t; i < 64 * 64; i += kThreads)
+      tabs.basis[(i >> 6) * kBasisStride + (i & 63)] = __ldg(a.basis + i);
   }
+  for (int i = t; i < 64 * a.ncomp; i += kThreads)
+    qs[i >> 6][i & 63] = __ldg(a.q + i);
   __syncthreads();
   const int lane = t & 31;
-  double* tile = tiles[t >> 5];
+  Real* tile = tiles[t >> 5];
   const int b = lane >> 3;      // the lane's block in the tile
   const int r = lane & 7;       // its row (load), then its column x
-  const double level = __int2double_rn(a.level);
+  const Real level = kExact ? Real(__int2double_rn(a.level))
+                            : Real(__int2float_rn(a.level));
   const int total = a.tiles[0] + a.tiles[1] + a.tiles[2];
   for (int tile_i = blockIdx.x * kWarps + (t >> 5); tile_i < total;
        tile_i += gridDim.x * kWarps) {
@@ -333,7 +380,10 @@ __global__ void __launch_bounds__(kThreads)
       d[u] = static_cast<int>(static_cast<unsigned>(d[u]) *
                               static_cast<unsigned>(qs[c][r * 8 + u]));
       row_mask |= (d[u] != 0 ? 1u : 0u) << u;
-      tile[b * kStride + r * 8 + u] = __int2double_rn(d[u]);
+      if constexpr (kExact)
+        tile[b * kStride + r * 8 + u] = __int2double_rn(d[u]);
+      else
+        tile[b * kStride + r * 8 + u] = __int2float_rn(d[u]);
     }
     // the block's 64-bit nonzero mask, bit k = 8 v + u, in its 8 lanes
     unsigned lo = r < 4 ? row_mask << (8 * r) : 0u;
@@ -346,22 +396,32 @@ __global__ void __launch_bounds__(kThreads)
     unsigned long long mask =
         (static_cast<unsigned long long>(hi) << 32) | lo;
     __syncwarp();
-    double acc[8];
+    Real acc[8];
 #pragma unroll
-    for (int y = 0; y < 8; ++y) acc[y] = 0.0;
+    for (int y = 0; y < 8; ++y) acc[y] = Real(0);
     while (mask) {
       const int k = __ffsll(static_cast<long long>(mask)) - 1;
       mask &= mask - 1;
-      const int u = k & 7;
-      const int v = k >> 3;
-      const double cx = __dmul_rn(
-          __dmul_rn(cucv[k], tile[b * kStride + k]), cosv[u * 8 + r]);
-      const double2* cy = reinterpret_cast<const double2*>(cosv + v * 8);
+      if constexpr (kExact) {
+        const int u = k & 7;
+        const int v = k >> 3;
+        const double cx = __dmul_rn(
+            __dmul_rn(tabs.cucv[k], tile[b * kStride + k]),
+            tabs.cosv[u * 8 + r]);
+        const double2* cy = reinterpret_cast<const double2*>(tabs.cosv +
+                                                             v * 8);
 #pragma unroll
-      for (int y2 = 0; y2 < 4; ++y2) {
-        const double2 w = cy[y2];
-        acc[2 * y2] = __dadd_rn(acc[2 * y2], __dmul_rn(cx, w.x));
-        acc[2 * y2 + 1] = __dadd_rn(acc[2 * y2 + 1], __dmul_rn(cx, w.y));
+        for (int y2 = 0; y2 < 4; ++y2) {
+          const double2 w = cy[y2];
+          acc[2 * y2] = __dadd_rn(acc[2 * y2], __dmul_rn(cx, w.x));
+          acc[2 * y2 + 1] = __dadd_rn(acc[2 * y2 + 1], __dmul_rn(cx, w.y));
+        }
+      } else {
+        const float dk = tile[b * kStride + k];
+        const float* m = tabs.basis + k * kBasisStride + r;
+#pragma unroll
+        for (int y = 0; y < 8; ++y)
+          acc[y] = __fadd_rn(acc[y], __fmul_rn(dk, m[8 * y]));
       }
     }
     __syncwarp();  // the tile is loaded again for the next blocks
@@ -371,10 +431,27 @@ __global__ void __launch_bounds__(kThreads)
     int32_t* out = P.out + n * P.plane +
                    static_cast<long long>(row0) * P.width + col0 + r;
 #pragma unroll
-    for (int y = 0; y < 8; ++y)
-      out[static_cast<long long>(y) * P.width] =
-          __double2int_rz(__dadd_rn(__dmul_rn(acc[y], 0.25), level));
+    for (int y = 0; y < 8; ++y) {
+      int s;
+      if constexpr (kExact)
+        s = __double2int_rz(__dadd_rn(__dmul_rn(acc[y], 0.25), level));
+      else
+        s = __float2int_rz(__fadd_rn(acc[y], level));
+      out[static_cast<long long>(y) * P.width] = s;
+    }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    idct_planes_exact_kernel(const __grid_constant__ InvArgs a) {
+  idct_planes_walk<T, double>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    idct_planes_rgb_kernel(const __grid_constant__ InvArgs a) {
+  idct_planes_walk<T, float>(a);
 }
 
 template <typename K>
@@ -417,6 +494,48 @@ int launch(K kernel, long long tiles, const A& a, cudaStream_t s) {
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// desc (host memory, see jz_idct_planes_exact) -> a's layout and the tiles
+// of the launch; 0 or a CUDA error code.
+int inverse_layout(int elem_bytes, const long long* desc, const void* coeff,
+                   const void* q, void* o0, void* o1, void* o2, InvArgs* a,
+                   long long* tiles) {
+  const long long nimages = desc[0];
+  a->ncomp = static_cast<int>(desc[1]);
+  if (a->ncomp < 1 || a->ncomp > 3 || desc[2] <= 0 ||
+      nimages * desc[3] > 0x7FFFFFFFll || (elem_bytes != 2 && elem_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a->nimages = static_cast<int>(nimages);
+  a->mcus_x = static_cast<int>(desc[2]);
+  a->row_blocks = static_cast<int>(desc[3]);
+  a->level = static_cast<int>(desc[4]);
+  void* outs[3] = {o0, o1, o2};
+  *tiles = 0;
+  for (int c = 0; c < 3; ++c) {
+    InvComp& p = a->comp[c];
+    const long long* d = desc + 5 + 4 * c;
+    p.nblocks = static_cast<int>(d[0]);
+    p.v = static_cast<int>(d[1]);
+    p.h = static_cast<int>(d[2]);
+    p.first = static_cast<int>(d[3]);
+    p.out = static_cast<int32_t*>(outs[c]);
+    a->tiles[c] = 0;
+    p.width = p.h * 8 * a->mcus_x;
+    p.plane = 0;
+    if (c >= a->ncomp) continue;
+    if (p.v < 1 || p.h < 1 || d[0] <= 0 ||
+        d[0] % (static_cast<long long>(p.v) * p.h * desc[2]) ||
+        d[3] + d[0] > desc[3])
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.plane = d[0] * 64;
+    a->tiles[c] = static_cast<int>((nimages * d[0] + kTile - 1) / kTile);
+    *tiles += a->tiles[c];
+  }
+  a->coeff = coeff;
+  a->q = static_cast<const int32_t*>(q);
+  a->basis = nullptr;
+  return 0;
 }
 
 }  // namespace
@@ -476,41 +595,12 @@ int jz_fdct_quantize_exact(int elem_bytes, const long long* desc,
 int jz_idct_planes_exact(int elem_bytes, const long long* desc,
                          const double* tabs, const void* coeff, const void* q,
                          void* o0, void* o1, void* o2, void* stream) {
-  const long long nimages = desc[0];
-  if (nimages <= 0) return 0;
+  if (desc[0] <= 0) return 0;
   InvArgs a;
-  a.ncomp = static_cast<int>(desc[1]);
-  if (a.ncomp < 1 || a.ncomp > 3 || desc[2] <= 0 ||
-      nimages * desc[3] > 0x7FFFFFFFll || (elem_bytes != 2 && elem_bytes != 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.nimages = static_cast<int>(nimages);
-  a.mcus_x = static_cast<int>(desc[2]);
-  a.row_blocks = static_cast<int>(desc[3]);
-  a.level = static_cast<int>(desc[4]);
-  void* outs[3] = {o0, o1, o2};
   long long tiles = 0;
-  for (int c = 0; c < 3; ++c) {
-    InvComp& p = a.comp[c];
-    const long long* d = desc + 5 + 4 * c;
-    p.nblocks = static_cast<int>(d[0]);
-    p.v = static_cast<int>(d[1]);
-    p.h = static_cast<int>(d[2]);
-    p.first = static_cast<int>(d[3]);
-    p.out = static_cast<int32_t*>(outs[c]);
-    a.tiles[c] = 0;
-    p.width = p.h * 8 * a.mcus_x;
-    p.plane = 0;
-    if (c >= a.ncomp) continue;
-    if (p.v < 1 || p.h < 1 || d[0] <= 0 ||
-        d[0] % (static_cast<long long>(p.v) * p.h * desc[2]) ||
-        d[3] + d[0] > desc[3])
-      return static_cast<int>(cudaErrorInvalidValue);
-    p.plane = d[0] * 64;
-    a.tiles[c] = static_cast<int>((nimages * d[0] + kTile - 1) / kTile);
-    tiles += a.tiles[c];
-  }
-  a.coeff = coeff;
-  a.q = static_cast<const int32_t*>(q);
+  const int rc = inverse_layout(elem_bytes, desc, coeff, q, o0, o1, o2, &a,
+                                &tiles);
+  if (rc) return rc;
   for (int i = 0; i < 64; ++i) {
     a.cosv[i] = tabs[i];
     a.cucv[i] = tabs[72 + i];
@@ -521,8 +611,30 @@ int jz_idct_planes_exact(int elem_bytes, const long long* desc,
              : launch(idct_planes_exact_kernel<int32_t>, tiles, a, s);
 }
 
+// The fast form of kernel 2 (idct_planes_rgb_kernel: float32, the sum over
+// the nonzero coefficients of d[k] M[p][k] in ascending k, then + level) on
+// `stream`, with the layout of jz_idct_planes_exact.  basis: the [64][64]
+// float32 inverse basis transposed, basis[k * 64 + p] = M[p][k], in device
+// memory.
+int jz_idct_planes_rgb(int elem_bytes, const long long* desc,
+                       const void* basis, const void* coeff, const void* q,
+                       void* o0, void* o1, void* o2, void* stream) {
+  if (desc[0] <= 0) return 0;
+  InvArgs a;
+  long long tiles = 0;
+  const int rc = inverse_layout(elem_bytes, desc, coeff, q, o0, o1, o2, &a,
+                                &tiles);
+  if (rc) return rc;
+  a.basis = static_cast<const float*>(basis);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return elem_bytes == 2
+             ? launch(idct_planes_rgb_kernel<int16_t>, tiles, a, s)
+             : launch(idct_planes_rgb_kernel<int32_t>, tiles, a, s);
+}
+
 // What the card reports for kernel `which` (0: fdct_quantize_exact int8,
-// 1: int32, 2: idct_planes_exact int16, 3: int32): info[0] registers a
+// 1: int32, 2: idct_planes_exact int16, 3: int32, 4: idct_planes_rgb int16,
+// 5: int32): info[0] registers a
 // thread, [1] resident thread blocks an SM, [2] static shared bytes, [3]
 // local bytes a thread, [4] threads a block.  Returns 0 or a CUDA error
 // code.
@@ -536,6 +648,10 @@ int jz_exact_kernel_info(int which, int* info) {
       return kernel_info(idct_planes_exact_kernel<int16_t>, info);
     case 3:
       return kernel_info(idct_planes_exact_kernel<int32_t>, info);
+    case 4:
+      return kernel_info(idct_planes_rgb_kernel<int16_t>, info);
+    case 5:
+      return kernel_info(idct_planes_rgb_kernel<int32_t>, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

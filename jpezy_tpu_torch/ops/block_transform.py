@@ -31,7 +31,10 @@ Exact mode has its own pair (fdct_quantize_exact, idct_planes_exact): the
 oracle's ordered float64 sums (ops/dct.py) as hand-written CUDA kernels
 (ops/exact_cuda.py, csrc/exact_transforms.cu) on CUDA tensors, equal to
 their plain versions bit for bit, since both make the oracle's roundings
-and no others; the plain versions on CPU tensors.
+and no others; the plain versions on CPU tensors.  The rgb transport's
+decode takes idct_planes_rgb: at fast precision the same kernel walk with
+the IDCT kernel's float32 arithmetic into unclamped int32 planes
+(idct_planes_rgb_model), at exact precision idct_planes_exact.
 """
 from __future__ import annotations
 
@@ -301,6 +304,35 @@ def idct_planes_rgb_plain(coeff_all, *, geom, level, gray, sizes, qtuple,
     return planes
 
 
+def idct_planes_rgb(coeff_all, *, geom, level, gray, sizes, qtuple,
+                    precision: str = "fast"):
+    """The rgb transport's planes at either precision.  CUDA tensors go
+    through a hand-written kernel, one launch for every component: fast,
+    exact_cuda.idct_planes_rgb_cuda (float32, idct_planes_rgb_model's sums
+    bit for bit, within 1 of the plain version's matrix product); exact,
+    idct_planes_exact (the oracle's ordered float64 sums).  CPU tensors go
+    through idct_planes_rgb_plain at the precision's dtype; a kernel that
+    fails to build or launch raises."""
+    if precision not in ("fast", "exact"):
+        raise ValueError(f"precision must be 'fast' or 'exact', got "
+                         f"{precision!r}")
+    if precision == "exact":
+        return idct_planes_exact(coeff_all, geom=geom, level=level, gray=gray,
+                                 sizes=sizes, qtuple=qtuple)
+    if coeff_all.is_cuda:
+        from .exact_cuda import idct_planes_rgb_cuda
+
+        return idct_planes_rgb_cuda(
+            coeff_all, quant_tables(qtuple, coeff_all.device), geom=geom,
+            level=level, gray=gray, sizes=sizes)
+    if coeff_all.device.type != "cpu":
+        raise ValueError(f"idct_planes_rgb: unsupported device "
+                         f"{coeff_all.device}")
+    return idct_planes_rgb_plain(coeff_all, geom=geom, level=level, gray=gray,
+                                 sizes=sizes, qtuple=qtuple,
+                                 dtype=torch.float32)
+
+
 # exact mode's plain version: the float64 ordered sums
 idct_planes_exact_plain = functools.partial(idct_planes_rgb_plain,
                                             dtype=torch.float64)
@@ -471,6 +503,26 @@ def idct_planes_sparse_model(flat: np.ndarray, *, geom, level, shapes, K, N,
         outs.append(_model_planes(deq.reshape(N, Bn, 64), g, level,
                                   transform))
     return np.concatenate(outs, axis=1)
+
+
+def idct_planes_rgb_model(coeff_all, *, geom, level, gray, sizes, qtuple,
+                          transform=inverse_model):
+    """idct_planes_rgb_kernel in numpy: the rgb transport's coefficients
+    [N, sum(sizes), 64] (numpy ints) -> per component its unclamped int32
+    plane [N, mcus_y v 8, mcus_x h 8] (component 0's alone with gray):
+    dequantize as a 32-bit product, inverse_model (the ascending float32
+    sum over the nonzero coefficients, + level, truncated) and
+    deblockify."""
+    coeff_all = np.asarray(coeff_all)
+    N = coeff_all.shape[0]
+    planes, off = [], 0
+    for n_b, qt, g in zip(sizes[:1] if gray else sizes, qtuple, geom):
+        blk = coeff_all[:, off:off + n_b].astype(np.int32)
+        off += n_b
+        deq = blk * np.asarray(qt, np.int32)[None, None, :]
+        spat = transform(deq.reshape(-1, 64), level).reshape(N, n_b, 64)
+        planes.append(_deblockify(spat, *g[:4]))
+    return planes
 
 
 def idct_planes_dense_model(blocks, bad, qarr, *, N, nseg, ri, geom, level,

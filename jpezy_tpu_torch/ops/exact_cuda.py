@@ -12,7 +12,11 @@ the oracle's ordered float64 sums, the level shift and truncation, into
 each component's unclamped int32 plane, one launch for every component.
 They replace exact mode's halves of the stages XLA fused on the TPU in
 jpezy_tpu/parallel/sharded.py:_quantize_local_ycc and
-jpezy_tpu/codec/jax_codec.py:_decode_fused_batch.
+jpezy_tpu/codec/jax_codec.py:_decode_fused_batch.  idct_planes_rgb_cuda
+is the same walk with the fast precision's float32 arithmetic (the rgb
+transport's fast decode, the other half of _decode_fused_batch): equal
+to block_transform.idct_planes_rgb_model bit for bit, and within 1 of
+idct_planes_rgb_plain's matrix product, which sums in another order.
 
 Both make the oracle's roundings and nothing else: every multiply and add
 a separate IEEE operation in the oracle's order, the tables the port's
@@ -21,8 +25,9 @@ versions' bit for bit on every input.  The library is built at first use
 and loaded with ctypes by ops/cuda_build.py.  A failed build or launch
 raises; nothing falls back to the plain versions.
 
-`fdct_exact_launches` and `idct_exact_launches` count calls that launched
-a kernel, so a run can show that its path went through them.
+`fdct_exact_launches`, `idct_exact_launches` and `idct_rgb_launches`
+count calls that launched a kernel, so a run can show that its path went
+through them.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import torch
 
 from ..constants import EXACT_TABLES
 from .cuda_build import KernelLibrary, check_tensors
-from .transform_cuda import _layout
+from .transform_cuda import _inverse_basis_t, _layout
 
 
 def _bind(lib) -> None:
@@ -43,6 +48,8 @@ def _bind(lib) -> None:
     lib.jz_fdct_quantize_exact.argtypes = [ci] + [vp] * 11
     lib.jz_idct_planes_exact.restype = ci
     lib.jz_idct_planes_exact.argtypes = [ci] + [vp] * 8
+    lib.jz_idct_planes_rgb.restype = ci
+    lib.jz_idct_planes_rgb.argtypes = [ci] + [vp] * 8
     lib.jz_exact_kernel_info.restype = ci
     lib.jz_exact_kernel_info.argtypes = [ci, vp]
 
@@ -52,11 +59,13 @@ LIB = KernelLibrary("exact_transforms.cu", _bind)
 _lock = threading.Lock()
 fdct_exact_launches = 0
 idct_exact_launches = 0
+idct_rgb_launches = 0
 _SAMPLE_BYTES = {torch.int8: 1, torch.int32: 4}
 _COEFF_BYTES = {torch.int16: 2, torch.int32: 4}
 # the kernels' instantiations, in jz_exact_kernel_info's order
 KERNEL_INFO = ("fdct_quantize_exact int8", "fdct_quantize_exact int32",
-               "idct_planes_exact int16", "idct_planes_exact int32")
+               "idct_planes_exact int16", "idct_planes_exact int32",
+               "idct_planes_rgb int16", "idct_planes_rgb int32")
 
 
 def kernel_info() -> dict:
@@ -116,17 +125,11 @@ def fdct_quantize_exact_cuda(y, cb, cr, yqt, cqt, *, gray: bool = False,
     return tuple(outs)
 
 
-def idct_planes_exact_cuda(coeff_all, qtab, *, geom, level: int, gray: bool,
-                           sizes):
-    """The rgb transport's coefficients coeff_all [N, sum(sizes), 64]
-    (int16 or int32; per image every component's blocks in MCU order, one
-    component after the other), the components' quant tables qtab
-    [ncomp, 64] int32, their geometry (mcus_y, mcus_x, v, h, ...) and
-    block counts -> a list of int32 planes [N, mcus_y v 8, mcus_x h 8]
-    holding int(s / 4 + level) unclamped, one a component, or component 0's
-    alone with `gray`; equal to idct_planes_exact_plain's.  One launch."""
-    global idct_exact_launches
-    fn = "idct_planes_exact_cuda"
+def _inverse(fn: str, coeff_all, qtab, *, geom, level: int, gray: bool,
+             sizes, fast: bool = False):
+    """Check the arguments of an inverse kernel, allocate its planes and
+    launch it: exact mode's, or with `fast` the float32 form's on the
+    inverse basis (transposed, on the device).  Returns the planes."""
     ncomp = len(sizes)
     if not 1 <= ncomp <= 3 or len(geom) != ncomp:
         raise ValueError(f"{fn}: geom and sizes must name the same 1 to 3 "
@@ -167,12 +170,49 @@ def idct_planes_exact_cuda(coeff_all, qtab, *, geom, level: int, gray: bool,
                             device=dev) for g in geom[:used]]
         ptrs = [o.data_ptr() for o in outs] + [None] * (3 - used)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.jz_idct_planes_exact(
-            _COEFF_BYTES[src.dtype], desc.ctypes.data,
-            EXACT_TABLES.ctypes.data, src.data_ptr(), q.data_ptr(), *ptrs,
-            stream)
-    LIB.raise_on("idct_planes_exact", rc)
-    if N > 0:
+        if fast:
+            rc = lib.jz_idct_planes_rgb(
+                _COEFF_BYTES[src.dtype], desc.ctypes.data,
+                _inverse_basis_t(dev).data_ptr(), src.data_ptr(),
+                q.data_ptr(), *ptrs, stream)
+        else:
+            rc = lib.jz_idct_planes_exact(
+                _COEFF_BYTES[src.dtype], desc.ctypes.data,
+                EXACT_TABLES.ctypes.data, src.data_ptr(), q.data_ptr(),
+                *ptrs, stream)
+    LIB.raise_on(fn, rc)
+    return outs
+
+
+def idct_planes_exact_cuda(coeff_all, qtab, *, geom, level: int, gray: bool,
+                           sizes):
+    """The rgb transport's coefficients coeff_all [N, sum(sizes), 64]
+    (int16 or int32; per image every component's blocks in MCU order, one
+    component after the other), the components' quant tables qtab
+    [ncomp, 64] int32, their geometry (mcus_y, mcus_x, v, h, ...) and
+    block counts -> a list of int32 planes [N, mcus_y v 8, mcus_x h 8]
+    holding int(s / 4 + level) unclamped, one a component, or component 0's
+    alone with `gray`; equal to idct_planes_exact_plain's.  One launch."""
+    global idct_exact_launches
+    outs = _inverse("idct_planes_exact_cuda", coeff_all, qtab, geom=geom,
+                    level=level, gray=gray, sizes=sizes)
+    if coeff_all.shape[0] > 0:
         with _lock:
             idct_exact_launches += 1
+    return outs
+
+
+def idct_planes_rgb_cuda(coeff_all, qtab, *, geom, level: int, gray: bool,
+                         sizes):
+    """idct_planes_exact_cuda's layout with the fast precision's
+    arithmetic: per sample the float32 sum over the block's nonzero
+    dequantized coefficients d[k] of d[k] M[p][k] in ascending k, then
+    + level, truncated (block_transform.idct_planes_rgb_model), into
+    unclamped int32 planes.  One launch."""
+    global idct_rgb_launches
+    outs = _inverse("idct_planes_rgb_cuda", coeff_all, qtab, geom=geom,
+                    level=level, gray=gray, sizes=sizes, fast=True)
+    if coeff_all.shape[0] > 0:
+        with _lock:
+            idct_rgb_launches += 1
     return outs

@@ -1,7 +1,8 @@
 """CUDA-only checks of jpezy_tpu_torch: the hand-written kernels (the pack
 alone, the batched entropy encode with its predictors, the symbol
 histograms, the one-launch stream concat, the Huffman scan of the device
-decode and the block transforms) against their plain torch versions, and
+decode, the block transforms and the rgb transport's colour kernels and
+fast IDCT) against their plain torch versions, and
 the codec on the card against the codec on the CPU.  Marked
 `cuda`; each test skips when no CUDA device is present (decided inside the
 fixture, never at import).  On a card:
@@ -18,6 +19,7 @@ from jpezy_tpu_torch.codec import host_glue as HG
 from jpezy_tpu_torch.codec import torch_codec as TC
 from jpezy_tpu_torch.ops import entropy as TE
 from jpezy_tpu_torch.ops import entropy_decode as ED
+from jpezy_tpu_torch.testing import colour_sets as CS
 from jpezy_tpu_torch.testing import exact_ties as XT
 
 pytestmark = pytest.mark.cuda
@@ -1071,3 +1073,215 @@ def test_exact_codec_on_card(cuda, kw):
         want = np.stack([np.stack(host_codec.decode(s, gray=gray)[:3], -1)
                          for s in streams])
         assert np.array_equal(px, want), gray
+
+
+# ---------------------------------------------------------------------------
+# The rgb transport's colour kernels (csrc/colour.cu) and its fast IDCT
+# (exact_transforms.cu: idct_planes_rgb_kernel)
+# ---------------------------------------------------------------------------
+
+
+def _colour_counts():
+    from jpezy_tpu_torch.ops import colour_cuda, exact_cuda
+
+    return (colour_cuda.rgb_to_ycc420_launches,
+            colour_cuda.ycc_planes_to_rgb_launches,
+            exact_cuda.idct_rgb_launches)
+
+
+def test_colour_encode_kernel_matches_plain(cuda):
+    """rgb_to_ycc420 on the card equals the plain torch version on the card
+    bit for bit at float32 and float64, and at float64 the host C++
+    rgb_to_ycc420: two 512x512 test images, noise, every 256th RGB triple
+    in its own 2x2 quad, and an upload whose first byte is not aligned;
+    one launch a call."""
+    from jpezy_tpu_torch.ops import colorspace as C
+    from jpezy_tpu_torch.runtime import native
+
+    from test_torch_host_copies import build_host_runtime
+
+    build_host_runtime()
+    noise = np.random.default_rng(450).integers(0, 256, (3, 64, 96, 3),
+                                                dtype=np.uint8)
+    buf = torch.from_numpy(np.concatenate([[7], noise.ravel()]).astype(
+        np.uint8)).to(cuda)
+    cases = [("512 test images",
+              torch.from_numpy(_transform_images(512, 512, 451)).to(cuda)),
+             ("noise", torch.from_numpy(noise).to(cuda)),
+             ("triples", CS.triple_quads(cuda, stride=256)),
+             ("misaligned", buf[1:].reshape(noise.shape))]
+    assert cases[3][1].data_ptr() % 2 == 1
+    for label, rgb in cases:
+        for dt in (torch.float32, torch.float64):
+            before = _colour_counts()
+            got = C.rgb_to_ycc420(rgb, dt)
+            assert tuple(a - b for a, b in zip(_colour_counts(), before)) \
+                == (1, 0, 0), label
+            want = C.rgb_to_ycc420_plain(rgb, dt)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert g.dtype == torch.int8 and torch.equal(g, w), (label,
+                                                                     dt)
+            if dt == torch.float64:
+                host = native.rgb_to_ycc420(rgb.cpu().numpy())
+                for g, h in zip(got, host):
+                    assert np.array_equal(g.cpu().numpy(), h), label
+
+
+@pytest.mark.parametrize("label", list(CS.SAMPLINGS))
+def test_colour_decode_kernel_matches_plain(cuda, label):
+    """planes_to_rgb on the card equals the plain torch version on the card
+    bit for bit at float32 and float64 on planes past both clamps, and at
+    float64 the host C++ ycc_to_rgb_i32 of the upsampled planes; one
+    launch a call."""
+    from jpezy_tpu_torch.ops import blocks as B
+    from jpezy_tpu_torch.ops import colorspace as C
+    from jpezy_tpu_torch.runtime import native
+
+    from test_torch_host_copies import build_host_runtime
+
+    build_host_runtime()
+    dups, gray = CS.SAMPLINGS[label]
+    planes = CS.sampling_planes(dups, 3, 96, 240, seed=452, device=cuda)
+    used = planes[:1] if gray else planes
+    geom = CS.geom_of(dups)
+    for dt in (torch.float32, torch.float64):
+        before = _colour_counts()
+        got = C.planes_to_rgb(used, geom, gray, dt)
+        assert tuple(a - b for a, b in zip(_colour_counts(), before)) == (
+            0, 1, 0)
+        want = C.planes_to_rgb_plain(used, geom, gray, dt)
+        torch.cuda.synchronize()
+        assert got.shape == (3, 96, 240, 1 if gray else 3)
+        assert torch.equal(got, want), dt
+        if dt == torch.float64 and not gray:
+            up = [B.upsample_nearest(p, dy, dx).cpu().numpy()
+                  for p, (dy, dx) in zip(used, dups)]
+            host = np.stack([native.ycc_to_rgb_i32(*(u[i] for u in up))
+                             for i in range(3)])
+            assert np.array_equal(got.cpu().numpy(), host)
+
+
+def test_colour_decode_kernel_every_ycc_triple(cuda):
+    """Every (Y, Cb, Cr) triple of 0..255 at 4:4:4: the kernel equals the
+    plain version at both precisions and the host C++ at float64."""
+    from jpezy_tpu_torch.ops import colorspace as C
+    from jpezy_tpu_torch.runtime import native
+
+    from test_torch_host_copies import build_host_runtime
+
+    build_host_runtime()
+    planes = CS.ycc_triple_planes(cuda)
+    geom = CS.geom_of(CS.SAMPLINGS["4:4:4"][0])
+    for dt in (torch.float32, torch.float64):
+        got = C.planes_to_rgb(planes, geom, False, dt)
+        assert torch.equal(got, C.planes_to_rgb_plain(planes, geom, False,
+                                                      dt)), dt
+    host = native.ycc_to_rgb_i32(*(p[0].cpu().numpy() for p in planes))
+    assert np.array_equal(got[0].cpu().numpy(), host)
+
+
+def test_idct_rgb_kernel_matches_model(cuda):
+    """idct_planes_rgb (fast) on the card equals idct_planes_rgb_model bit
+    for bit and the plain matrix product within 1: two 512x512 images' rgb
+    upload read as 4:2:0, 4:2:2, 4:4:4, one component and gray, at level
+    128 and 2048, int16 and int32, and noise at quality 100; one launch a
+    call, idct_planes_exact never."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+
+    cases = []
+    for label, imgs, quality in (
+            ("images", _transform_images(512, 512, 453), 90),
+            ("noise q100", np.random.default_rng(454).integers(
+                0, 256, (2, 128, 128, 3), dtype=np.uint8), 100)):
+        streams = TC.encode_batch(imgs, quality=quality, device="cpu")
+        coeff, kw = _rgb_upload(streams)
+        coeff = torch.from_numpy(coeff).to(cuda)
+        my, mx = kw["geom"][0][:2]
+        for lay, (geom, sizes, gray) in XT.upload_layouts(my, mx).items():
+            for level in (128, 2048):
+                for dt in (torch.int16, torch.int32):
+                    cases.append((f"{label} {lay} level {level} {dt}",
+                                  coeff.to(dt),
+                                  dict(geom=geom, sizes=sizes, gray=gray,
+                                       level=level,
+                                       qtuple=kw["qtuple"][:len(sizes)])))
+    for label, src, kw in cases:
+        before = _colour_counts() + _exact_counts()
+        got = BT.idct_planes_rgb(src, precision="fast", **kw)
+        after = _colour_counts() + _exact_counts()
+        assert tuple(a - b for a, b in zip(after, before)) == (
+            0, 0, 1, 0, 0, 0, 0), label
+        plain = BT.idct_planes_rgb_plain(src, dtype=torch.float32, **kw)
+        model = BT.idct_planes_rgb_model(src.cpu().numpy(), **kw)
+        torch.cuda.synchronize()
+        assert len(got) == len(model) == len(plain), label
+        for g, m, p in zip(got, model, plain):
+            assert g.dtype == torch.int32, label
+            assert np.array_equal(g.cpu().numpy(), m), label
+            # cuBLAS sums in another order: within 1 (ties)
+            assert int((g - p).abs().max()) <= 1, label
+
+
+@pytest.mark.parametrize("precision", ["fast", "exact"])
+def test_rgb_transport_launches(cuda, precision):
+    """encode_batch(transport="rgb") on the card launches the colour
+    kernel, the fDCT of its precision, the entropy kernel and the concat
+    once each; decode_batch(transport="rgb"), colour and gray, the IDCT of
+    its precision and the colour kernel once each.  Exact streams and
+    pixels equal the CPU's."""
+    from jpezy_tpu_torch.ops import concat_cuda, pack_cuda
+
+    def counts():
+        return _colour_counts() + _exact_counts() + (
+            pack_cuda.encode_launches, concat_cuda.launches,
+            pack_cuda.histogram_launches)
+
+    exact = precision == "exact"
+    rgbs = _transform_images(96, 128, 455)
+    before = counts()
+    streams = TC.encode_batch(rgbs, transport="rgb", precision=precision,
+                              device=cuda)
+    got = tuple(a - b for a, b in zip(counts(), before))
+    # colour enc/dec, idct rgb, fdct/idct exact, fdct/idct fast, entropy,
+    # concat, histograms
+    assert got == (1, 0, 0, int(exact), 0, int(not exact), 0, 1, 1, 0)
+    if exact:
+        assert streams == TC.encode_batch(rgbs, transport="rgb",
+                                          precision="exact", device="cpu")
+    for gray in (False, True):
+        before = counts()
+        px, _ = TC.decode_batch(streams, transport="rgb", gray=gray,
+                                precision=precision, device=cuda)
+        got = tuple(a - b for a, b in zip(counts(), before))
+        assert got == (0, 1, int(not exact), 0, int(exact), 0, 0, 0, 0, 0)
+        cpu, _ = TC.decode_batch(streams, transport="rgb", gray=gray,
+                                 precision=precision, device="cpu")
+        diff = int(np.abs(px.astype(int) - cpu.astype(int)).max())
+        # exact: float64 ordered sums on both; fast: the kernel's ascending
+        # sums against the CPU's BLAS order, which may truncate 1 apart,
+        # and colour then moves a pixel by up to 2
+        assert diff <= (0 if exact else 2), gray
+
+
+@pytest.mark.parametrize("restart", [0, 2])
+def test_sharded_fast_decode_equals_rgb_decode(cuda, restart):
+    """Fast decode_sharded's pixels, its tile shards decoded rank by rank
+    in this process on 1x1, 1x2 and 1x4 meshes, equal decode_batch(
+    transport="rgb")'s exactly on the card: the IDCT kernel's per-block
+    sums do not depend on how many rows a shard holds."""
+    from jpezy_tpu_torch.parallel import api as A
+    from jpezy_tpu_torch.parallel.mesh import Mesh
+
+    rgbs = _transform_images(128, 96, 456, n=2)
+    streams = TC.encode_batch(rgbs, restart_interval=restart, device=cuda)
+    want, _ = TC.decode_batch(streams, transport="rgb", device=cuda)
+    for tile in (1, 2, 4):
+        pjs, geom, level = A._parse_checked(streams, tile, gray=False,
+                                            precision="fast")
+        shards = [A._decode_shard(Mesh(1, tile, cuda, t), pjs, geom, level,
+                                  gray=False, precision="fast")
+                  for t in range(tile)]
+        px = np.concatenate([rgb.cpu().numpy() for rgb, _ in shards],
+                            axis=1)[:, :128, :96]
+        assert np.array_equal(px, want), tile
