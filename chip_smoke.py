@@ -30,8 +30,10 @@ any failure exits nonzero.  In the order they run:
      block_transforms.cu; exact mode's fDCT+quantize and
      dequantize+IDCT-to-planes kernels and the rgb transport's fast
      IDCT-to-planes, exact_transforms.cu; the rgb transport's colour
-     kernels, colour.cu; and the designs the entropy kernel and the concat
-     replaced, scripts/previous_designs.cu, for phase 6) and prints what
+     kernels, colour.cu; the designs the entropy kernel, the concat and
+     exact mode's two kernels replaced, scripts/previous_designs.cu, and
+     the float64 chains of scripts/fp64_ceiling.cu, for phase 6) and
+     prints what
      ptxas reports for each kernel (a template's instantiations under one
      name); a stack frame or a spill in any kernel but the scan, or a
      spill in the scan kernel, fails the run.  Counts each kernel's SASS
@@ -170,12 +172,17 @@ any failure exits nonzero.  In the order they run:
      column stride 2), on noise at quality 100 and on the tie set
      (testing/exact_ties.forward_tie_blocks: ramps on which another summation
      order truncates differently, and flat blocks; int8 at quantizer 1,
-     int32 at Annex K); idct_planes_exact on the main batch's rgb upload
+     int32 at Annex K), on blocks in the kernel's warp groups of 4 that mix
+     a dense block with sparse, zero, cancelling and tie ones (and groups
+     of sparse blocks alone: testing/exact_ties.mixed_sample_groups; the
+     kernel's straight and skipping paths) and on blocks whose row-0 sums
+     cancel to 0; idct_planes_exact on the main batch's rgb upload
      read as 4:2:0, 4:2:2, 4:4:4, one component and gray, at level 128 and
      2048, as int32, on 16 noise images at quality 100 (their quantized
      blocks from fdct_quantize_exact, as the rgb transport would upload
-     them) and on the inverse tie set at both levels; one counted call
-     each.  Then exact mode's
+     them), on the inverse tie set and on mixed warp groups
+     (mixed_coefficient_groups) at both levels and on blocks whose partial
+     sums cancel to 0; one counted call each.  Then exact mode's
      paths over the 4 batches: the ycc420 and the rgb encode
      byte-identical to host_codec's streams, the rgb decode (colour and
      gray) identical to host_codec.decode's pixels; per batch an encode
@@ -216,7 +223,9 @@ any failure exits nonzero.  In the order they run:
      unprofiled one); 10/11 device: the optimize encode's device stages alone
      and the optimize path's busy share, the rgb transports' device programs
      (fast, exact, gray; beside their plain readings, EARLIER_EXACT and
-     EARLIER_RGB), each of which must be the hand kernels alone (4 device
+     EARLIER_RGB, and the exact ones beside their readings with the exact
+     kernels' first designs, FIRST_EXACT_PROGRAMS), each of which must be
+     the hand kernels alone (4 device
      events an encode: colour, fDCT, entropy, concat; 2 a decode: the
      IDCT into planes and colour), and the exact ycc420 encode program,
      which must be the exact fDCT, entropy and concat kernels alone (3
@@ -228,10 +237,18 @@ any failure exits nonzero.  In the order they run:
      counted from the batch's nonzero coefficients) and their plain
      versions, with the L2 cache overwritten too, the transforms beside
      torch.matmul of the [98304, 64] @ [64, 64] product alone (float32;
-     float64, cuBLAS DGEMM, for the exact ones: not the same function),
-     of idct_planes_exact on noise at quality 100 too, and
+     float64, cuBLAS DGEMM, for the exact ones: not the same function), and
      each instantiation's registers and resident thread blocks an SM as the
-     card reports them; of
+     card reports them; exact mode's two kernels beside their first designs
+     (scripts/previous_designs.py) in turns (now, first, now, first), warm
+     and with the L2 cache overwritten first, on the main batch and on
+     noise at quality 100, with their bounds, registers, thread blocks an
+     SM and static DMUL, DADD and DFMA counts; the float64 rate the card
+     sustains as separate DMUL/DADD (scripts/fp64_ceiling.py, three operand
+     forms, at the exact forward's occupancy and at 64 warps an SM) with
+     the SM clock nvidia-smi reports, and the clock while the exact
+     forward runs; idct_planes_rgb on noise at quality 100 beside the
+     float32 matmul; times of
      the concat on noise at quality 100 (dense blocks), of the IDCT
      kernel's dense form on the restart segments, and of the fused kernel
      with the 16 per-image table sets beside the fixed tables; the entropy
@@ -307,7 +324,7 @@ PEAK_FP64_OPS = 33.5e12 / 2
 # (j >= 1), 56 second products (i >= 1) and 64 adds; per block with one:
 # 64 first adds fewer, and 16 products by cu[0] and 64 divisions by 4 for
 # the normalisation.  A block with no zero sample needs 8,144 (the kernel
-# issues 8,896: 512, 4,096, 4,096 and 192).  Inverse, per nonzero
+# issues 8,264, its first design 8,896).  Inverse, per nonzero
 # coefficient (u, v): 64 adds, 8 column products if u >= 1, 64 row products
 # if v >= 1, the product cucv[k] d[k] if u or v is 0; per block with one:
 # 64 first adds fewer, and s / 4 + level for each of its 64 samples.
@@ -385,7 +402,9 @@ ENCODE_CUSTOM = "encode_blocks (custom tables)"
 # and scatter
 PREVIOUS = {"encode_blocks_kernel": "previous encode_blocks",
             "concat_offsets_kernel": "previous concat_streams (offsets)",
-            "concat_scatter_kernel": "previous concat_streams (scatter)"}
+            "concat_scatter_kernel": "previous concat_streams (scatter)",
+            "fdct_exact_first_kernel": "previous fdct_quantize_exact",
+            "idct_exact_first_kernel": "previous idct_planes_exact"}
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
@@ -425,6 +444,13 @@ EARLIER_PROGRAMS = {"fDCT+quantize": (0.1830, 24), "encode": (0.2441, 35),
 EARLIER_EXACT = {"rgb exact encode": (7.7399, 634),
                  "exact decode": (7.7703, 827),
                  "gray exact decode": (5.0066, 270)}
+# The same programs (and the exact ycc420 encode) with the exact kernels'
+# first designs, as this script's 11 device line read them (NVIDIA H100
+# 80GB HBM3, 700 W; kept from then, not measured here): device busy ms.
+FIRST_EXACT_PROGRAMS = {"ycc420 exact encode": 0.1208,
+                        "rgb exact encode": 0.1287,
+                        "exact decode": 0.0413,
+                        "gray exact decode": 0.0230}
 # The rgb transport's device programs before the colour kernels and the
 # fast rgb IDCT, as this script's 11 device line read them (NVIDIA H100
 # 80GB HBM3, 700 W; kept from then, not measured here): device busy ms
@@ -672,11 +698,13 @@ def _ptxas_by_kernel(log: str, kernel_of=_kernel_of) -> dict:
     return out
 
 
-def _sass_instructions(nvcc: str, lib: str, opcodes=()) -> tuple:
+def _sass_instructions(nvcc: str, lib: str, opcodes=(),
+                       kernel_of=_kernel_of) -> tuple:
     """({kernel: number of SASS instructions in its sm_90a code, summed
     over the instantiations of a template}, {kernel: {opcode: how many of
     its instructions are that opcode (predicated or not, any suffix)}}),
-    from `cuobjdump -sass` of the built library, NOPs left out."""
+    from `cuobjdump -sass` of the built library, NOPs left out (kernels
+    that kernel_of names None too)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     res = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
                          timeout=120)
@@ -685,9 +713,10 @@ def _sass_instructions(nvcc: str, lib: str, opcodes=()) -> tuple:
     out, ops, cur = {}, {}, None
     for ln in res.stdout.splitlines():
         if "Function :" in ln:
-            cur = _kernel_of(ln.split(":", 1)[1])
-            out.setdefault(cur, 0)
-            ops.setdefault(cur, dict.fromkeys(opcodes, 0))
+            cur = kernel_of(ln.split(":", 1)[1])
+            if cur is not None:
+                out.setdefault(cur, 0)
+                ops.setdefault(cur, dict.fromkeys(opcodes, 0))
             continue
         m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@\S+\s+)?([A-Z]\w*)",
                      ln)
@@ -1026,6 +1055,7 @@ def main() -> int:
     from jpezy_tpu_torch.ops import (colour_cuda, concat_cuda, exact_cuda,
                                      pack_cuda, scan_cuda, transform_cuda)
     from jpezy_tpu_torch.runtime import batch as RB
+    import fp64_ceiling
     import previous_designs
     from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
                                                   encode_batches,
@@ -1048,9 +1078,9 @@ def main() -> int:
     libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB,
             transform_cuda.LIB, exact_cuda.LIB, colour_cuda.LIB)
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(len(libs) + 1) as ex:
+    with cf.ThreadPoolExecutor(len(libs) + 2) as ex:
         secs = list(ex.map(lambda lib: lib.build(force=True),
-                           libs + (previous_designs.LIB,)))
+                           libs + (previous_designs.LIB, fp64_ceiling.LIB)))
     build_wall = time.perf_counter() - t0
     ptxas, sass, sass_ops = {}, {}, {}
     for lib in libs:
@@ -1074,14 +1104,20 @@ def main() -> int:
             raise AssertionError(f"{k}'s SASS holds {sass_ops[k]}: want "
                                  f"{', '.join(want)} and no FFMA or DFMA")
     previous_designs.LIB.get()
+    fp64_ceiling.LIB.get()
     prev_ptxas = _ptxas_by_kernel(previous_designs.LIB.build_log,
                                   _previous_of)
     if sorted(prev_ptxas) != sorted(PREVIOUS.values()):
         raise AssertionError(f"ptxas reported {sorted(prev_ptxas)} of the "
                              f"earlier designs:\n"
                              f"{previous_designs.LIB.build_log}")
+    # the earlier exact designs' float64 operations, for phase 6
+    _, prev_ops = _sass_instructions(cuda_build.nvcc(),
+                                     previous_designs.LIB.so, SASS_OPS,
+                                     _previous_of)
     _say("2 build", ", ".join(os.path.basename(lib.src) for lib in libs)
-         + f" and the earlier designs' scripts/previous_designs.cu built for "
+         + f" and the earlier designs' scripts/previous_designs.cu and the "
+         f"float64 chains of scripts/fp64_ceiling.cu built for "
          f"sm_90a side by side in {build_wall:.2f} s (nvcc "
          + ", ".join(f"{t:.2f}" for t in secs) + " s); "
          + " || ".join(f"{k}: {' | '.join(v)} | {sass[k]} SASS instructions"
@@ -2382,6 +2418,8 @@ def main() -> int:
     noise15 = np.random.default_rng(17).integers(0, 256, (BATCH, H, W, 3),
                                                  dtype=np.uint8)
     fwd_ties = XT.forward_tie_blocks(4096, 18)
+    mixed_fwd = XT.mixed_sample_groups(2048, 21)
+    cancel_fwd = XT.cancelling_samples(4096, 22)
     fx_sets = [
         ("ycc420 upload, Annex K", ycc_real, plain_kw),
         ("quality 95", ycc_real, dict(plain_kw, qtables=q95)),
@@ -2394,7 +2432,13 @@ def main() -> int:
         (f"tie set of {len(fwd_ties)} blocks, int8, quantizer 1",
          tie_planes(fwd_ties, np.int8), dict(plain_kw, qtables=(ones, ones))),
         ("the tie set, int32, Annex K", tie_planes(fwd_ties, np.int32),
-         plain_kw)]
+         plain_kw),
+        (f"{len(mixed_fwd)} blocks in warp groups that mix dense, sparse, "
+         f"zero, cancelling and tie blocks, int8, quantizer 1",
+         tie_planes(mixed_fwd, np.int8), dict(plain_kw, qtables=(ones, ones))),
+        (f"{len(cancel_fwd)} blocks whose row-0 sums cancel to 0, int32, "
+         f"Annex K", tie_planes(cancel_fwd, np.int32), plain_kw)]
+    exact_fdct_noise = (fx_sets[5][1], q100)  # phase 6 times the kernels
     del rgb0, ecb, ecr
     err["fdct_quantize_exact"] = 0
     exact_cuda.fdct_exact_launches = 0
@@ -2454,14 +2498,25 @@ def main() -> int:
                     noise_kw))
     ix_sets.append(("main batch's upload as int32", main_up.to(torch.int32),
                     ix_sets[0][2]))
+    def one_component(blocks, level):
+        """Coefficient blocks as one 1-component image on the card, at
+        quantizer 1, and the decode's kwargs."""
+        nt = len(blocks)
+        return (torch.from_numpy(blocks[None].astype(np.int32)).to(dev),
+                dict(geom=((1, nt, 1, 1, 1, 1),), sizes=(nt,), gray=False,
+                     level=level, qtuple=(tuple([1] * 64),)))
+
     for lvl in (128, 2048):
         inv_ties = XT.inverse_tie_blocks(4096, 19, lvl)
-        nt = len(inv_ties)
-        ix_sets.append((f"tie set of {nt} blocks, level {lvl}, quantizer 1",
-                        torch.from_numpy(inv_ties[None]).to(dev),
-                        dict(geom=((1, nt, 1, 1, 1, 1),), sizes=(nt,),
-                             gray=False, level=lvl,
-                             qtuple=(tuple([1] * 64),))))
+        ix_sets.append((f"tie set of {len(inv_ties)} blocks, level {lvl}, "
+                        f"quantizer 1", *one_component(inv_ties, lvl)))
+        mixed_inv = XT.mixed_coefficient_groups(2048, 23 + lvl, lvl)
+        ix_sets.append((f"{len(mixed_inv)} blocks in warp groups that mix "
+                        f"dense, sparse, zero, cancelling and tie blocks, "
+                        f"level {lvl}", *one_component(mixed_inv, lvl)))
+    cancel_inv = XT.cancelling_coefficients(4096, 24)
+    ix_sets.append((f"{len(cancel_inv)} blocks whose partial sums cancel to "
+                    f"0", *one_component(cancel_inv, 128)))
     err["idct_planes_exact"] = 0
     exact_cuda.idct_exact_launches = 0
     for label, src15, kw in ix_sets:
@@ -2949,7 +3004,8 @@ def main() -> int:
         ms2, events2 = EARLIER_RGB[key]
         return (f"before the exact kernels {ms} ms busy in {events} events, "
                 f"before the colour kernels {ms2} ms in {events2} events, "
-                f"kept from then")
+                f"with the exact kernels' first designs "
+                f"{FIRST_EXACT_PROGRAMS[name]} ms, kept from then")
 
     # the rgb programs are the hand kernels alone between the upload and
     # the fetch: 4 device events an encode, 2 a decode
@@ -3015,7 +3071,9 @@ def main() -> int:
     _say("11 device", f"rgb transports per {BATCH}x{H}x{W} batch: "
          + "; ".join(rgb_rows)
          + f"; ycc420 encode program, exact "
-         f"(_encode_batch_blocks_packed): device busy "
+         f"(_encode_batch_blocks_packed; with the exact kernels' first "
+         f"designs {FIRST_EXACT_PROGRAMS['ycc420 exact encode']} ms busy, "
+         f"kept from then): device busy "
          f"{_fmt_ms(exact_prof['busy_ms'])} ms, event span {exact_span:.3f} "
          f"ms, {exact_prof['events']:.1f} events (exact fDCT kernel "
          f"{_fmt_ms(_kernel_ms(exact_prof, 'fdct_quantize_exact_kernel', False))}"
@@ -3209,7 +3267,8 @@ def main() -> int:
             f"({1e3 * ex_fdct_bytes / PEAK_BYTES_PER_S:.4f} ms); "
             f"{ex_fdct_ops} float64 operations that the oracle's roundings "
             f"need ({ex_fdct_ops / n_blocks:.2f} a block; 8144 for a block "
-            f"with no zero sample, the kernel issues 8896) at "
+            f"with no zero sample, the kernel issues 8264, its first design "
+            f"8896) at "
             f"{PEAK_FP64_OPS:.4g} separate DMUL/DADD a second; the rgb "
             f"exact encode program read "
             f"{EARLIER_EXACT['rgb exact encode'][0]} ms busy before the "
@@ -3444,24 +3503,153 @@ def main() -> int:
                  "idct_planes_exact") + RGB_KERNELS:
         timing[name]["kernel_info"] = {
             k: v for k, v in info.items() if k.split()[0] == name}
-    # exact mode's inverse where its float64 operations bound it: noise at
-    # quality 100, every coefficient nonzero or nearly
+    # exact mode's kernels beside their first designs
+    # (scripts/previous_designs.py), in turns on the same inputs (now,
+    # first, now again, first again), warm and with the L2 cache overwritten
+    # first: on the main batch and on noise at quality 100 (dense blocks,
+    # where float64 operations bound both), each beside its bound
     nz_coeff, nz_kw = exact_idct_noise
+    nzf_planes, nzf_q = exact_fdct_noise
+    ak6 = (codec_constants(dev)["y_quant"], codec_constants(dev)["c_quant"])
+
+    def first_idct(coeff, kw):
+        q = BT.quant_tables(kw["qtuple"], dev)
+        return lambda: previous_designs.idct_planes_exact_first(
+            coeff, q, geom=kw["geom"], level=kw["level"], gray=kw["gray"],
+            sizes=kw["sizes"])
+
     nz_samples = nz_coeff.numel()
-    nz_bound, nz_by = _bound(
-        nz_coeff.numel() * nz_coeff.element_size() + 4 * nz_samples,
-        exact_inv_ops(nz_coeff, nz_kw), PEAK_FP64_OPS)
-    nz_ms, _ = _traced(lambda: BT.idct_planes_exact(nz_coeff, **nz_kw), 20,
-                       "idct_planes_exact_kernel")
-    nz_cold_ms, _ = _traced(lambda: (l2_flush.zero_(), BT.idct_planes_exact(
-        nz_coeff, **nz_kw)), 20, "idct_planes_exact_kernel")
-    timing["idct_planes_exact"]["noise_ms"] = nz_ms
-    timing["idct_planes_exact"]["noise_bound_ms"] = nz_bound
-    _say("6 times", f"idct_planes_exact on {nz_coeff.shape[0]} noise images "
-         f"at quality 100 ({int((nz_coeff != 0).sum())} nonzero of "
-         f"{nz_samples} coefficients): kernel {nz_ms:.4f} ms (L2 "
-         f"overwritten first {nz_cold_ms:.4f}), bound {nz_bound:.4f} ms by "
-         f"{nz_by} = {nz_bound / nz_ms:.3f} of it; on {card}")
+    ex_sets = {
+        "fdct_quantize_exact": (
+            "fdct_quantize_exact_kernel", "fdct_exact_first_kernel", {
+                "main": (
+                    lambda: BT.fdct_quantize_exact(
+                        *exact_fdct_input, gray=False, rounded=False),
+                    lambda: previous_designs.fdct_quantize_exact_first(
+                        *exact_fdct_input, *ak6),
+                    timing["fdct_quantize_exact"]["bound_ms"]),
+                "noise at quality 100": (
+                    lambda: BT.fdct_quantize_exact(
+                        *nzf_planes, gray=False, rounded=False,
+                        qtables=nzf_q),
+                    lambda: previous_designs.fdct_quantize_exact_first(
+                        *nzf_planes, *nzf_q),
+                    _bound(sum(p.numel() for p in nzf_planes)
+                           + 4 * 64 * n_blocks, exact_fwd_ops(nzf_planes),
+                           PEAK_FP64_OPS)[0])}),
+        "idct_planes_exact": (
+            "idct_planes_exact_kernel", "idct_exact_first_kernel", {
+                "main": (lambda: BT.idct_planes_exact(ex_coeff, **ex_kw),
+                         first_idct(ex_coeff, ex_kw),
+                         timing["idct_planes_exact"]["bound_ms"]),
+                "noise at quality 100": (
+                    lambda: BT.idct_planes_exact(nz_coeff, **nz_kw),
+                    first_idct(nz_coeff, nz_kw),
+                    _bound(nz_coeff.numel() * nz_coeff.element_size()
+                           + 4 * nz_samples, exact_inv_ops(nz_coeff, nz_kw),
+                           PEAK_FP64_OPS)[0])})}
+    ex_rows = []
+    for name, (sym, first_sym, sets) in ex_sets.items():
+        t = timing[name]
+        t["versus_previous"] = {}
+        for set_name, (now, first, b_ms) in sets.items():
+            row = {}
+            for which, fn, k_sym in (("now", now, sym),
+                                     ("first", first, first_sym),
+                                     ("now again", now, sym),
+                                     ("first again", first, first_sym)):
+                warm = _traced(fn, 20, k_sym)[0]
+                cold = _traced(lambda fn=fn: (l2_flush.zero_(), fn()), 20,
+                               k_sym)[0]
+                row[which] = (warm, cold)
+            t["versus_previous"][set_name] = row
+            best = min(row["now"][0], row["now again"][0])
+            first_best = min(row["first"][0], row["first again"][0])
+            if set_name == "main":
+                t["previous_ms"], t["previous_cold_ms"] = row["first"]
+            else:
+                t["noise_ms"], t["noise_cold_ms"] = row["now"]
+                t["noise_previous_ms"] = row["first"][0]
+                t["noise_bound_ms"] = b_ms
+            ex_rows.append(
+                f"{name} on {set_name}: " + ", ".join(
+                    f"{k} {w:.4f} ms (L2 overwritten first {c:.4f})"
+                    for k, (w, c) in row.items())
+                + f"; bound {b_ms:.4f} ms = {b_ms / best:.3f} of the "
+                f"faster turn (first design {b_ms / first_best:.3f}); "
+                f"{'faster' if best < first_best else 'NOT faster'} than "
+                f"the first design by {first_best - best:.4f} ms")
+        kinfo = exact_cuda.kernel_info()
+        pinfo = previous_designs.kernel_info()
+        now_key = {"fdct_quantize_exact": "fdct_quantize_exact int8",
+                   "idct_planes_exact": "idct_planes_exact int16"}[name]
+        first_key = now_key.replace(" int", " first int")
+        prev_ops_k = prev_ops[f"previous {name}"]
+        t["sass_ops"] = {"now": sass_ops[name], "first": prev_ops_k}
+        ex_rows.append(
+            f"{name} now: {kinfo[now_key][0]} registers, {kinfo[now_key][1]} "
+            f"thread blocks an SM, SASS {sass_ops[name]['DMUL']} DMUL, "
+            f"{sass_ops[name]['DADD']} DADD, {sass_ops[name]['DFMA']} DFMA "
+            f"(both instantiations); first design: {pinfo[first_key][0]} "
+            f"registers, {pinfo[first_key][1]} thread blocks, "
+            f"{prev_ops_k['DMUL']} DMUL, {prev_ops_k['DADD']} DADD, "
+            f"{prev_ops_k['DFMA']} DFMA")
+    _say("6 exact", "exact mode's kernels beside their first designs "
+         "(kernels' own device time, profiler): " + " || ".join(ex_rows)
+         + f"; plain versions {timing['fdct_quantize_exact']['plain_ms']:.4f}"
+         f" and {timing['idct_planes_exact']['plain_ms']:.4f} ms; "
+         f"torch.matmul of the float64 [{n_blocks}, 64] @ [64, 64] product "
+         f"(cuBLAS DGEMM on the FP64 tensor cores, which reorders and "
+         f"contracts: out of reach of kernels that keep every rounding) "
+         f"{_fmt_ms(library64_ms)} ms; on {card}")
+    # the float64 rate the card sustains as separate DMUL/DADD, at the
+    # forward kernel's occupancy and at the full 64 warps, in each operand
+    # form, with the SM clock; and the clock while the forward kernel runs
+    fdct_sm = exact_cuda.kernel_info()["fdct_quantize_exact int8"][1]
+    ceiling = {}
+    for form, label in enumerate(fp64_ceiling.FORMS):
+        for per_sm in sorted({fdct_sm, 8}):
+            ceiling[f"{label}, {per_sm} thread blocks an SM"] = (
+                fp64_ceiling.rate(per_sm, form))
+    fdct_ms = timing["fdct_quantize_exact"]["ms"]
+
+    def run_fdct(secs):
+        for _ in range(int(secs / (1e-3 * fdct_ms))):
+            BT.fdct_quantize_exact(*exact_fdct_input, gray=False,
+                                   rounded=False)
+
+    fdct_clock = fp64_ceiling.clock_while(run_fdct, 2.0)
+    timing["fdct_quantize_exact"]["fp64_ceiling"] = {
+        k: {"ops_per_s": r, "sm_clock": c} for k, (r, c) in ceiling.items()}
+    timing["fdct_quantize_exact"]["sm_clock"] = fdct_clock
+    _say("6 fp64", "the float64 chains of scripts/fp64_ceiling.cu (256 "
+         "threads a block, 4 chains a thread): " + "; ".join(
+             f"{k}: {r:.4g} a second = {r / PEAK_FP64_OPS:.3f} of the data "
+             f"sheet's {PEAK_FP64_OPS:.4g}, SM clock {c}"
+             for k, (r, c) in ceiling.items())
+         + f"; SM clock while fdct_quantize_exact runs {fdct_clock}; the "
+         f"exact kernels' bounds stay at the data sheet's rate; on {card}")
+    # the fast rgb IDCT on dense blocks: noise at quality 100, beside the
+    # float32 matmul (its bound counts 128 float32 operations a nonzero
+    # coefficient, as on the main batch)
+    ir_nz_nonzero = int((nz_coeff != 0).sum())
+    ir_nz_bound, ir_nz_by = _bound(
+        nz_coeff.numel() * nz_coeff.element_size() + 4 * nz_samples
+        + 4 * 64 * 64 + 3 * 4 * 64, 128 * ir_nz_nonzero, PEAK_FP32_FLOPS)
+    ir_nz = lambda: BT.idct_planes_rgb(nz_coeff, precision="fast", **nz_kw)
+    ir_nz_ms, _ = _traced(ir_nz, 20, "idct_planes_rgb_kernel")
+    ir_nz_cold_ms, _ = _traced(lambda: (l2_flush.zero_(), ir_nz()), 20,
+                               "idct_planes_rgb_kernel")
+    timing["idct_planes_rgb"].update(noise_ms=ir_nz_ms,
+                                     noise_cold_ms=ir_nz_cold_ms,
+                                     noise_bound_ms=ir_nz_bound)
+    _say("6 times", f"idct_planes_rgb on {nz_coeff.shape[0]} noise images at "
+         f"quality 100 ({ir_nz_nonzero} nonzero of {nz_samples} "
+         f"coefficients): kernel {ir_nz_ms:.4f} ms (L2 overwritten first "
+         f"{ir_nz_cold_ms:.4f}), bound {ir_nz_bound:.4f} ms by {ir_nz_by} = "
+         f"{ir_nz_bound / ir_nz_ms:.3f} of it; torch.matmul of the float32 "
+         f"[{n_blocks}, 64] @ [64, 64] product {_fmt_ms(library_ms)} ms "
+         f"({'the kernel loses to it' if library_ms and ir_nz_ms > library_ms else 'the kernel is faster'}); on {card}")
     rows6 = []
     for label, ms, cold, b_ms, key in (
             ("fdct_quantize", timing["fdct_quantize"]["ms"],
@@ -3699,7 +3887,9 @@ def main() -> int:
                              "dense_form_ms", "cold_dense_form_ms",
                              "kernel_info", "previous_ms",
                              "previous_cold_ms", "previous_dense_ms",
-                             "versus_previous", "exact_ms", "exact_cold_ms",
+                             "versus_previous", "noise_cold_ms",
+                             "noise_previous_ms", "sass_ops", "fp64_ceiling",
+                             "sm_clock", "exact_ms", "exact_cold_ms",
                              "exact_bound_ms", "gray_ms", "gray_cold_ms",
                              "gray_bound_ms")
            if k in t},

@@ -39,22 +39,23 @@
 //   ascending s += ((cucv[k] d[k]) COS[u][x]) COS[v][y]; then s / 4 +
 //   level (128, or 2048 for 12-bit frames), truncated toward zero.
 //
-// Kernel 3, idct_planes_rgb_kernel, is kernel 2's walk with the fast
-// precision's arithmetic, for the rgb transport's fast decode: it replaces
-// the float32 half of jpezy_tpu/codec/jax_codec.py:_decode_fused_batch up to
-// the upsampling (ops/quantize.py:dequantize, ops/dct.py:inverse_dct at
-// float32, deblockify).  Same inputs and outputs as kernel 2, with the
-// [64][64] float32 inverse basis M[p][k] in place of the float64 tables.
+// Kernel 3, idct_planes_rgb_kernel, is the float32 inverse for the rgb
+// transport's fast decode: it replaces the float32 half of
+// jpezy_tpu/codec/jax_codec.py:_decode_fused_batch up to the upsampling
+// (ops/quantize.py:dequantize, ops/dct.py:inverse_dct at float32,
+// deblockify).  Same inputs and outputs as kernel 2, with the [64][64]
+// float32 inverse basis M[p][k] in place of the float64 tables.
 //   Per block and sample p = 8 y + x: s starts at +0, then for k ascending
 //   over the nonzero d[k], s += fl32(d[k]) M[p][k] (a float32 multiply, then
 //   a float32 add); then s + level, truncated toward zero: the numpy model
 //   block_transform.inverse_model, bit for bit.  torch.matmul (the plain
 //   version) sums in another order, so the two may differ by 1.
 //   Bound: the same bytes as kernel 2's, 0.011 ms on the main batch; 128
-//   float32 operations a nonzero coefficient, far below them.  The walk,
-//   shared with kernel 2 through a template, keeps the basis in shared
-//   memory by k, its rows padded so that the warp's 4 blocks at different
-//   k fall in different banks more often.
+//   float32 operations a nonzero coefficient, far below them.  A warp takes
+//   4 blocks, lane 8 b + r loads row r of block b, then owns column x = r
+//   and walks its block's own nonzero mask; the basis sits in shared memory
+//   by k, its rows padded so that the warp's 4 blocks at different k fall
+//   in different banks more often.
 //
 // The traps, each of which flips the truncation of some coefficient or
 // sample (the smoke's tie set finds them):
@@ -74,40 +75,74 @@
 //    (constants.exact_tables, numpy's cos and sqrt), handed from the host;
 //    cos() or sqrt() on the device may differ in the last bit.
 //  - Truncation is __double2int_rz, as C's int() and torch's .to(int32).
-//  - Zero coefficients are skipped on decode: a zero coefficient's term is
-//    +0 or -0, x + (+-0) = x for every x != 0, and the sum starts at +0 and
-//    +0 + (+-0) = +0, so the sum over the nonzero coefficients in ascending
-//    order is the 64-term sum bit for bit.
+//
+// What kernels 1 and 2 leave out, exactly:
+//  - Products by exactly 1: x 1 = x for every x.  COS[0][x] = cos(0) = 1,
+//    cu[j] = 1 for j >= 1 and cucv[k] = 1 where u and v are both nonzero
+//    (the launchers refuse tables where these are not 1).
+//  - The first add of a sum, onto +0: +0 + t = t but for the sign of a
+//    zero.  The first term is stored instead.
+//  - Zero inputs: a zero sample or coefficient makes every term of its k
+//    +0 or -0, and x + (+-0) = x for every x != 0, so leaving such terms
+//    out changes a sum at most in the sign of a zero.  A zero sum's sign
+//    is dropped by everything that follows (products keep a zero zero, and
+//    the truncation of +-0, or of +-0 + level, is the same integer).  So
+//    the outputs are the 64-term sums' bit for bit.
 //
 // What bounds them, per 16 x 512 x 512 4:2:0 batch (98,304 blocks):
-//  - fdct_quantize_exact: per block 512 first products, 4,096 second
-//    products, 4,096 adds and 192 for the normalisation, 8,896 float64
-//    operations, 0.87e9 a batch: 0.052 ms at the card's 16.75e12 separate
-//    DMUL/DADD a second (33.5 TFLOP/s with an FMA counted two).  Its bytes
-//    (6.3 MB of int8 samples in, 25.2 MB of blocks out) take 0.009 ms, so
-//    it is bound by float64 issue.  Design: a warp takes 4 blocks; lane
-//    8 b + r first loads row r of block b and puts it, as doubles, into the
+//  - fdct_quantize_exact: float64 issue.  A block with no zero sample
+//    needs 8,144 separate DMUL/DADD (chip_smoke.py: EXACT_FWD_OPS),
+//    0.80e9 a batch: 0.048 ms at the card's 16.75e12 a second (33.5
+//    TFLOP/s with an FMA counted two).  Its bytes (6.3 MB of int8 samples
+//    in, 25.2 MB of blocks out) take 0.009 ms.  Design: a warp takes 4
+//    blocks; lane 8 b + r loads row r of block b a tile ahead (its loads in
+//    flight while the tile before is summed), puts it as doubles into the
 //    warp's shared tile (65 doubles a block, so the 4 blocks' same sample
-//    falls in different banks); then the lane owns column j = r of block
-//    b, holds COS[j][0..7] and cu[j] in registers and keeps 8 accumulators,
-//    one per row i: per sample k one first product and 8 products and
-//    adds, eight independent add chains that hide the float64 latency.
-//    COS[i][y] and cu[i] are compile-time indices into the kernel's
-//    parameters (operands of the multiplies, no loads).  The lane then
-//    normalises, truncates and quantizes its 8 coefficients; the stores of
-//    a row i fill whole 32-byte sectors.
+//    falls in different banks), and the warp ORs the 4 blocks' nonzero
+//    samples into one 64-bit mask (__reduce_or_sync: a warp-uniform
+//    value).  Then the lane owns column j = r of block b, holds
+//    COS[j][0..7] and cu[j] in registers and keeps 8 accumulators, one per
+//    row i.  Per sample: one shared load, the first product p[k]
+//    COS[j][x], its add into row 0 (COS[0][y] = 1), and 7 products by
+//    COS[i][y] (kernel parameters at compile-time offsets: uniform
+//    operands, no table in shared memory) with 7 adds, eight independent
+//    add chains; k = 0 stores.  A warp whose mask holds kDenseTerms or
+//    more takes all 64 samples in one branch-free run, which the compiler
+//    schedules as a whole; below, each sample behind a uniform branch on
+//    the mask (one branch a sample costs the dense run about 15 %).  Then
+//    per lane 8 products by cu[j], one by cu[0] for row 0 and 8 by 0.25.
+//    A block with no zero sample issues 8,264 operations (the first
+//    design, scripts/previous_designs.cu: 8,896): the 120 beyond the need
+//    are the products by COS[0][x] and cu[j] = 1 in the lanes whose column
+//    j makes them so, which vary with the lane.  The lane truncates and
+//    quantizes its 8 coefficients, the divisions by reciprocals rounded up
+//    (div_exact: the same quotients as C's, far fewer instructions); the
+//    stores of a row i fill whole 32-byte sectors.
 //  - idct_planes_exact: bytes, the int16 upload (12.6 MB) and the int32
-//    planes (25.2 MB), 0.011 ms; operations, 137 a nonzero coefficient (1
-//    for cucv d, 8 for the column products, 64 multiplies and 64 adds) and
-//    2 a sample, which on photographs is far below the bytes and on noise
-//    at quality 100 about 0.05 ms.  Design: a warp takes 4 blocks; lane
-//    8 b + r loads row r of block b's coefficients (one 16-byte load of
-//    int16), dequantizes it and puts it into the warp's tile as doubles;
-//    the block's nonzero mask is OR-reduced over its 8 lanes by shuffles;
-//    then lane 8 b + x owns column x of block b with 8 accumulators, one
-//    per row y, and walks the mask's set bits in ascending order (the
-//    tables COS, read by row, and cucv in shared memory); it stores its
-//    column of int32 samples, each row's 8 lanes one 32-byte sector.
+//    planes (25.2 MB), 0.011 ms; operations, per nonzero coefficient 64
+//    adds, 8 column products if u >= 1, 64 row products if v >= 1 and the
+//    product cucv[k] d[k] if u or v is 0, and 64 a block (chip_smoke.py:
+//    EXACT_INV_OPS), which on photographs is far below the bytes and on
+//    noise at quality 100 about 0.047 ms.  Design: a warp takes 4 blocks;
+//    lane 8 b + r loads row r of block b's coefficients (one 16-byte load
+//    of int16), dequantizes it, multiplies the
+//    coefficients whose cucv is not 1 (u = 0 in every lane, u >= 1 in the
+//    lanes of row 0) and puts cucv[k] d[k] into the warp's tile as
+//    doubles; the warp ORs the 4 blocks' nonzero coefficients into one
+//    uniform 64-bit mask.  Then lane 8 b + x owns column x of block b with
+//    8 accumulators, one per row y, and takes the coefficients in
+//    ascending k: one shared load of the block's cucv[k] d[k], the product
+//    by COS[u][x] (in registers; none for u = 0), 8 products by COS[v][y]
+//    (uniform operands; none for v = 0) and 8 adds (k = 0 stores).  As in
+//    kernel 1, a warp whose mask holds kDenseTerms or more takes all 64 in
+//    one branch-free run, else each behind a uniform branch (a row of 8
+//    behind one more).  A dense block issues 8,207 operations, the count
+//    the bound takes (the first design: 9,344, with 7 shared loads a term
+//    where this takes 1).  The index arithmetic divides by reciprocals
+//    (div_exact), and registers are held to 64 for 4 thread blocks an SM:
+//    on photographs the kernel waits on memory, and the warps keep its
+//    loads in flight.  The lane stores its column of int32 samples, each
+//    row's 8 lanes one 32-byte sector.
 //
 // No atomics: every output is written by one thread, so the same input
 // gives the same bits on every run.
@@ -121,6 +156,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 4;       // blocks a warp
 constexpr int kStride = 65;    // doubles a block in the warp's tile
+// mask bits (of 64) from which a warp takes every term in one straight run
+constexpr int kDenseTerms = 56;
+// thread blocks an SM the inverse's registers are held to (64 a thread):
+// more warps to keep the byte-bound sets' loads in flight
+constexpr int kInvBlocksPerSm = 4;
 
 // The top-left sample of block bi of a component whose MCUs hold v x h
 // blocks in raster order (luma 2 x 2 at 4:2:0: TL, TR, BL, BR).
@@ -135,6 +175,14 @@ __device__ __forceinline__ void block_origin(int bi, int v, int h,
   const int vy = r / h;
   *row = (my * v + vy) * 8;
   *col = (mx * h + (r - vy * h)) * 8;
+}
+
+// The 64-bit mask of the warp's 4 blocks' nonzero entries, bit k = 8 r + u
+// of lo (k < 32) or hi, from each lane's mask of its row r: warp-uniform.
+__device__ __forceinline__ void union_mask(unsigned row_mask, int r,
+                                           unsigned* lo, unsigned* hi) {
+  *lo = __reduce_or_sync(kFullMask, r < 4 ? row_mask << (8 * r) : 0u);
+  *hi = __reduce_or_sync(kFullMask, r < 4 ? 0u : row_mask << (8 * (r - 4)));
 }
 
 // ---------------------------------------------------------------------------
@@ -157,41 +205,177 @@ struct FwdArgs {
   int ty, tc;             // tiles of luma, of each chroma component
 };
 
-// Row r of a block: 8 samples at column stride sc, as doubles (exact).
+// Row r of a block's samples as loaded (8 bytes of int8 or 32 of int32),
+// so that the next tile's loads are in flight while this one is summed.
+template <typename T>
+struct SampleRow;
+template <>
+struct SampleRow<int8_t> {
+  uint2 w;
+  __device__ __forceinline__ double at(int j) const {
+    const uint32_t v = j < 4 ? w.x : w.y;
+    return __int2double_rn(static_cast<int8_t>((v >> (8 * (j & 3))) & 0xFF));
+  }
+};
+template <>
+struct SampleRow<int32_t> {
+  int4 a, b;
+  __device__ __forceinline__ double at(int j) const {
+    const int4& p = j < 4 ? a : b;
+    const int k = j & 3;
+    return __int2double_rn(k == 0 ? p.x
+                                  : (k == 1 ? p.y : (k == 2 ? p.z : p.w)));
+  }
+};
+
+// 8 samples from src at column stride sc.
 __device__ __forceinline__ void load_row(const int8_t* src, long long sc,
-                                         double* x) {
+                                         SampleRow<int8_t>* row) {
   if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
-    const uint2 w = __ldg(reinterpret_cast<const uint2*>(src));
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      x[j] = __int2double_rn(static_cast<int8_t>(
-          ((j < 4 ? w.x : w.y) >> (8 * (j & 3))) & 0xFF));
+    row->w = __ldg(reinterpret_cast<const uint2*>(src));
     return;
   }
+  uint32_t lo = 0, hi = 0;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(__ldg(src + j * sc));
+  for (int j = 0; j < 4; ++j) {
+    lo |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(src + j * sc)))
+          << (8 * j);
+    hi |= static_cast<uint32_t>(
+              static_cast<uint8_t>(__ldg(src + (j + 4) * sc)))
+          << (8 * j);
+  }
+  row->w = make_uint2(lo, hi);
 }
 
 __device__ __forceinline__ void load_row(const int32_t* src, long long sc,
-                                         double* x) {
+                                         SampleRow<int32_t>* row) {
   if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int4 a = __ldg(reinterpret_cast<const int4*>(src));
-    const int4 b = __ldg(reinterpret_cast<const int4*>(src) + 1);
-    const int v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(v[j]);
+    row->a = __ldg(reinterpret_cast<const int4*>(src));
+    row->b = __ldg(reinterpret_cast<const int4*>(src) + 1);
     return;
   }
+  row->a = make_int4(__ldg(src), __ldg(src + sc), __ldg(src + 2 * sc),
+                     __ldg(src + 3 * sc));
+  row->b = make_int4(__ldg(src + 4 * sc), __ldg(src + 5 * sc),
+                     __ldg(src + 6 * sc), __ldg(src + 7 * sc));
+}
+
+// C's truncating division num / den for num >= 0 and den >= 1, from
+// rcp = 1/den rounded up (the quantizer's and the index arithmetic's
+// divisions).  Below 2^22 the product num rcp, rounded up, is at least
+// num / den and below num / den + num / den 2^-22 (1 + 2^-24), which stays
+// under the next integer since the remainder is at most den - 1; so its
+// truncation is the quotient.  Above, or where den is 2^24 or more (rcp
+// 0), the integer division.  (block_transforms.cu's, the same proof.)
+__device__ __forceinline__ int div_exact(int num, int den, float rcp) {
+  if (num >= (1 << 22) || rcp == 0.f) return num / den;
+  return __float2int_rz(__fmul_ru(__int2float_rn(num), rcp));
+}
+
+// 1/d rounded up for div_exact (the smallest float32 at or above it), 0
+// from 2^24 on, in integer arithmetic alone: __frcp_ru would bring FFMA
+// into kernels whose SASS must hold none (chip_smoke.py phase 2).  With
+// 2^e <= d < 2^(e+1) and D = d 2^(23-e), 1/d = (2^47 / D) 2^-(e+24): the
+// quotient, by restoring division, rounded up, is the 24-bit mantissa.
+__device__ __forceinline__ float rcp_up(int d) {
+  if (d < 1 || d >= (1 << 24)) return 0.f;
+  const int e = 31 - __clz(d);
+  if ((d & (d - 1)) == 0) return __int_as_float((127 - e) << 23);
+  const unsigned den = static_cast<unsigned>(d) << (23 - e);
+  unsigned q = 0, rem = 0;
+#pragma unroll 1
+  for (int i = 47; i >= 0; --i) {
+    rem = (rem << 1) | (i == 47 ? 1u : 0u);
+    q <<= 1;
+    if (rem >= den) {
+      rem -= den;
+      q |= 1u;
+    }
+  }
+  q += rem != 0u;   // in (2^23, 2^24]; 2^24 rounds up to 2^-e
+  return __int_as_float(q == (1u << 24) ? (127 - e) << 23
+                                        : ((126 - e) << 23) |
+                                              static_cast<int>(q - (1u << 23)));
+}
+
+// Tile tile_i's component *c and first block *first; the lane's row (lane
+// 8 b + r: row r of the tile's block b) into *row, zeros past the
+// component's last block and for gray chroma.  rcp_nb: 1 / nblocks of
+// each component, rounded up.
+template <typename T>
+__device__ __forceinline__ void fdct_load(const FwdArgs& a,
+                                          const float* rcp_nb, float rcp_mx,
+                                          int tile_i, int b, int r, int* c,
+                                          int* first, SampleRow<T>* row) {
+  *c = tile_i < a.ty ? 0 : (tile_i < a.ty + a.tc ? 1 : 2);
+  *first = (tile_i - (*c == 0 ? 0 : (*c == 1 ? a.ty : a.ty + a.tc))) * kTile;
+  *row = SampleRow<T>{};
+  const FwdComp& P = a.comp[*c];
+  const int f = *first + b;
+  if (f >= a.nimages * P.nblocks || (a.gray && *c > 0)) return;
+  const int n = div_exact(f, P.nblocks, rcp_nb[*c]);
+  const int bi = f - n * P.nblocks;
+  // 4:2:0: luma blocks TL, TR, BL, BR of MCU bi / 4, chroma MCU bi
+  const int m = *c == 0 ? bi >> 2 : bi;
+  const int my = div_exact(m, a.mcus_x, rcp_mx);
+  const int mx = m - my * a.mcus_x;
+  const int y0 = *c == 0 ? (2 * my + ((bi >> 1) & 1)) * 8 : my * 8;
+  const int x0 = *c == 0 ? (2 * mx + (bi & 1)) * 8 : mx * 8;
+  load_row(static_cast<const T*>(P.base) + n * P.sn + (y0 + r) * P.sr +
+               x0 * P.sc,
+           P.sc, row);
+}
+
+// The 64 terms of column j (cj = COS[j][0..7]) of the block whose samples
+// are p[0..63] into acc[i], i = 0..7, in the reference's order k = 8 y + x.
+// kSkip: only where the mask's bit k is set (a sample nonzero in one of
+// the warp's blocks), each behind a uniform branch; else all 64 in one
+// straight run, which the compiler schedules as a whole.
+template <bool kSkip>
+__device__ __forceinline__ void forward_terms(const FwdArgs& a,
+                                              const double* p,
+                                              const double* cj, unsigned lo,
+                                              unsigned hi, double* acc) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(__ldg(src + j * sc));
+  for (int i = 0; i < 8; ++i) acc[i] = 0.0;
+#pragma unroll
+  for (int y = 0; y < 8; ++y) {
+#pragma unroll
+    for (int xx = 0; xx < 8; ++xx) {
+      const int k = 8 * y + xx;
+      if (kSkip && !(((k < 32 ? lo : hi) >> (k & 31)) & 1u)) continue;
+      const double t = __dmul_rn(p[k], cj[xx]);
+      acc[0] = k == 0 ? t : __dadd_rn(acc[0], t);   // COS[0][y] = 1
+#pragma unroll
+      for (int i = 1; i < 8; ++i) {
+        const double q = __dmul_rn(t, a.cosv[i * 8 + y]);
+        acc[i] = k == 0 ? q : __dadd_rn(acc[i], q);
+      }
+    }
+  }
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     fdct_quantize_exact_kernel(const __grid_constant__ FwdArgs a) {
   __shared__ double tiles[kWarps][kTile * kStride];
-  const int lane = threadIdx.x & 31;
-  double* tile = tiles[threadIdx.x >> 5];
+  __shared__ int den[2][64];     // luma, chroma: q, or 2 q when rounded
+  __shared__ int bias[2][64];    // what a rounded quotient adds: q, or 0
+  __shared__ float rcp[2][64];   // 1 / den, rounded up
+  __shared__ float rcp_nb[3];    // 1 / nblocks of each component, rounded up
+  const int t = threadIdx.x;
+  if (t < 3) rcp_nb[t] = rcp_up(a.comp[t].nblocks);
+  if (t < 128) {
+    const int k = t & 63;
+    const int q = __ldg(a.comp[t >> 6].q + k);
+    den[t >> 6][k] = a.rounded ? 2 * q : q;
+    bias[t >> 6][k] = a.rounded ? q : 0;
+    rcp[t >> 6][k] = rcp_up(a.rounded ? 2 * q : q);
+  }
+  __syncthreads();
+  const float rcp_mx = rcp_up(a.mcus_x);
+  const int lane = t & 31;
+  double* tile = tiles[t >> 5];
   const int b = lane >> 3;      // the lane's block in the tile
   const int r = lane & 7;       // its row (load), then its column j
   // COS[j][x] for the lane's column j = r, and cu[j]
@@ -200,11 +384,21 @@ __global__ void __launch_bounds__(kThreads)
   for (int x = 0; x < 8; ++x) cj[x] = a.cosv[r * 8 + x];
   const double cuj = a.cu[r];
   const int total = a.ty + 2 * a.tc;
-  for (int tile_i = blockIdx.x * kWarps + (threadIdx.x >> 5); tile_i < total;
-       tile_i += gridDim.x * kWarps) {
-    const int c = tile_i < a.ty ? 0 : (tile_i < a.ty + a.tc ? 1 : 2);
-    const int first =
-        (tile_i - (c == 0 ? 0 : (c == 1 ? a.ty : a.ty + a.tc))) * kTile;
+  const int warps = gridDim.x * kWarps;
+  // the samples of the next tile are loaded while this one is summed
+  int c_next = 0, first_next = 0;
+  SampleRow<T> next = {};
+  int tile_i = blockIdx.x * kWarps + (t >> 5);
+  if (tile_i < total)
+    fdct_load<T>(a, rcp_nb, rcp_mx, tile_i, b, r, &c_next, &first_next,
+                 &next);
+  for (; tile_i < total; tile_i += warps) {
+    const int c = c_next;
+    const int first = first_next;
+    const SampleRow<T> cur = next;
+    if (tile_i + warps < total)
+      fdct_load<T>(a, rcp_nb, rcp_mx, tile_i + warps, b, r, &c_next,
+                   &first_next, &next);
     const FwdComp& P = a.comp[c];
     const int f = first + b;    // the lane's block
     const bool live = f < a.nimages * P.nblocks;
@@ -216,56 +410,45 @@ __global__ void __launch_bounds__(kThreads)
       }
       continue;
     }
-    double x[8];
+    unsigned row_mask = 0;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) x[j] = 0.0;
-    if (live) {
-      const int n = f / P.nblocks;
-      const int bi = f - n * P.nblocks;
-      // 4:2:0: luma blocks TL, TR, BL, BR of MCU bi / 4, chroma MCU bi
-      const int m = c == 0 ? bi >> 2 : bi;
-      const int my = m / a.mcus_x;
-      const int mx = m - my * a.mcus_x;
-      const int y0 = c == 0 ? (2 * my + ((bi >> 1) & 1)) * 8 : my * 8;
-      const int x0 = c == 0 ? (2 * mx + (bi & 1)) * 8 : mx * 8;
-      load_row(static_cast<const T*>(P.base) + n * P.sn + (y0 + r) * P.sr +
-                   x0 * P.sc,
-               P.sc, x);
+    for (int j = 0; j < 8; ++j) {
+      const double x = cur.at(j);
+      tile[b * kStride + r * 8 + j] = x;
+      row_mask |= (x != 0.0 ? 1u : 0u) << j;
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) tile[b * kStride + r * 8 + j] = x[j];
+    unsigned lo, hi;
+    union_mask(row_mask, r, &lo, &hi);
     __syncwarp();
-    // the 64 terms of column j in the reference's order, k = 8 y + x
+    // the 64 terms of column j in the reference's order, k = 8 y + x: all
+    // of them where the 4 blocks' samples are nearly all nonzero, else
+    // each behind a uniform branch on the mask
     double acc[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = 0.0;
-#pragma unroll
-    for (int y = 0; y < 8; ++y) {
-#pragma unroll
-      for (int xx = 0; xx < 8; ++xx) {
-        const double t = __dmul_rn(tile[b * kStride + y * 8 + xx], cj[xx]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          acc[i] = __dadd_rn(acc[i], __dmul_rn(t, a.cosv[i * 8 + y]));
-      }
-    }
+    if (__popc(lo) + __popc(hi) >= kDenseTerms)
+      forward_terms<false>(a, tile + b * kStride, cj, lo, hi, acc);
+    else
+      forward_terms<true>(a, tile + b * kStride, cj, lo, hi, acc);
     __syncwarp();  // the tile is loaded again for the next blocks
     if (!live) continue;
-    const int32_t* q = P.q;
+    const int* dn = den[c > 0];
+    const int* bs = bias[c > 0];
+    const float* rc = rcp[c > 0];
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int cf = __double2int_rz(
-          __dmul_rn(__dmul_rn(__dmul_rn(acc[i], cuj), a.cu[i]), 0.25));
-      const int qv = __ldg(q + i * 8 + r);
+      double s = __dmul_rn(acc[i], cuj);
+      if (i == 0) s = __dmul_rn(s, a.cu[0]);          // cu[i] = 1 for i >= 1
+      const int cf = __double2int_rz(__dmul_rn(s, 0.25));
+      // quantize: |c| / q, or (2|c| + q) / (2q) rounded
+      const int k = i * 8 + r;
       const int mag = cf < 0 ? -cf : cf;
-      const int qm = a.rounded ? (2 * mag + qv) / (2 * qv) : mag / qv;
+      const int qm = div_exact((mag << a.rounded) + bs[k], dn[k], rc[k]);
       out[i * 8] = cf < 0 ? -qm : qm;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 2: dequantize, float64 ordered inverse DCT, deblockify
+// Kernels 2 and 3: dequantize, ordered inverse DCT, deblockify
 // ---------------------------------------------------------------------------
 
 struct InvComp {
@@ -305,56 +488,32 @@ __device__ __forceinline__ void load_coeffs(const int32_t* src, int* c) {
   c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
 }
 
-// The tables of the inverse's two arithmetics: exact mode's float64 factors,
-// or the fast form's float32 basis M[p][k] (p = 8 y + x) stored by k, each
+// The fast form's basis M[p][k] (p = 8 y + x) in shared memory by k, each
 // row padded to kBasisStride floats so that the 4 blocks of a warp, at
 // different k, read different banks more often.
 constexpr int kBasisStride = 72;
-template <typename Real>
-struct InvTables;
-template <>
-struct InvTables<double> {
-  double cosv[64];        // COS[u][x], u * 8 + x
-  double cucv[64];
-};
-template <>
-struct InvTables<float> {
-  float basis[64 * kBasisStride];   // basis[k * kBasisStride + p] = M[p][k]
-};
 
-// The walk of both inverse kernels: lane 8 b + r loads and dequantizes row
-// r of block b, then owns column x = r with 8 accumulators, one per row y,
-// over the block's nonzero coefficients in ascending order.  Real = double:
-// exact mode's terms ((cucv[k] d[k]) COS[u][x]) COS[v][y] and s / 4 +
-// level; Real = float: the fast IDCT's terms d[k] M[8 y + x][k] and s +
-// level (block_transform.inverse_model), each a multiply then an add.
-template <typename T, typename Real>
-__device__ __forceinline__ void idct_planes_walk(const InvArgs& a) {
-  constexpr bool kExact = sizeof(Real) == 8;
-  __shared__ __align__(16) Real tiles[kWarps][kTile * kStride];
-  __shared__ __align__(16) InvTables<Real> tabs;
+// Kernel 3: lane 8 b + r loads and dequantizes row r of block b, then owns
+// column x = r with 8 accumulators, one per row y, over the block's nonzero
+// coefficients in ascending order: terms d[k] M[8 y + x][k] and s + level
+// (block_transform.inverse_model), each a multiply then an add.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    idct_planes_rgb_kernel(const __grid_constant__ InvArgs a) {
+  __shared__ __align__(16) float tiles[kWarps][kTile * kStride];
+  __shared__ __align__(16) float basis[64 * kBasisStride];
   __shared__ int qs[3][64];
   const int t = threadIdx.x;
-  if constexpr (kExact) {
-    for (int i = t; i < 128; i += kThreads) {
-      if (i < 64)
-        tabs.cosv[i] = a.cosv[i];
-      else
-        tabs.cucv[i - 64] = a.cucv[i - 64];
-    }
-  } else {
-    for (int i = t; i < 64 * 64; i += kThreads)
-      tabs.basis[(i >> 6) * kBasisStride + (i & 63)] = __ldg(a.basis + i);
-  }
+  for (int i = t; i < 64 * 64; i += kThreads)
+    basis[(i >> 6) * kBasisStride + (i & 63)] = __ldg(a.basis + i);
   for (int i = t; i < 64 * a.ncomp; i += kThreads)
     qs[i >> 6][i & 63] = __ldg(a.q + i);
   __syncthreads();
   const int lane = t & 31;
-  Real* tile = tiles[t >> 5];
+  float* tile = tiles[t >> 5];
   const int b = lane >> 3;      // the lane's block in the tile
   const int r = lane & 7;       // its row (load), then its column x
-  const Real level = kExact ? Real(__int2double_rn(a.level))
-                            : Real(__int2float_rn(a.level));
+  const float level = __int2float_rn(a.level);
   const int total = a.tiles[0] + a.tiles[1] + a.tiles[2];
   for (int tile_i = blockIdx.x * kWarps + (t >> 5); tile_i < total;
        tile_i += gridDim.x * kWarps) {
@@ -380,10 +539,7 @@ __device__ __forceinline__ void idct_planes_walk(const InvArgs& a) {
       d[u] = static_cast<int>(static_cast<unsigned>(d[u]) *
                               static_cast<unsigned>(qs[c][r * 8 + u]));
       row_mask |= (d[u] != 0 ? 1u : 0u) << u;
-      if constexpr (kExact)
-        tile[b * kStride + r * 8 + u] = __int2double_rn(d[u]);
-      else
-        tile[b * kStride + r * 8 + u] = __int2float_rn(d[u]);
+      tile[b * kStride + r * 8 + u] = __int2float_rn(d[u]);
     }
     // the block's 64-bit nonzero mask, bit k = 8 v + u, in its 8 lanes
     unsigned lo = r < 4 ? row_mask << (8 * r) : 0u;
@@ -396,33 +552,17 @@ __device__ __forceinline__ void idct_planes_walk(const InvArgs& a) {
     unsigned long long mask =
         (static_cast<unsigned long long>(hi) << 32) | lo;
     __syncwarp();
-    Real acc[8];
+    float acc[8];
 #pragma unroll
-    for (int y = 0; y < 8; ++y) acc[y] = Real(0);
+    for (int y = 0; y < 8; ++y) acc[y] = 0.0f;
     while (mask) {
       const int k = __ffsll(static_cast<long long>(mask)) - 1;
       mask &= mask - 1;
-      if constexpr (kExact) {
-        const int u = k & 7;
-        const int v = k >> 3;
-        const double cx = __dmul_rn(
-            __dmul_rn(tabs.cucv[k], tile[b * kStride + k]),
-            tabs.cosv[u * 8 + r]);
-        const double2* cy = reinterpret_cast<const double2*>(tabs.cosv +
-                                                             v * 8);
+      const float dk = tile[b * kStride + k];
+      const float* m = basis + k * kBasisStride + r;
 #pragma unroll
-        for (int y2 = 0; y2 < 4; ++y2) {
-          const double2 w = cy[y2];
-          acc[2 * y2] = __dadd_rn(acc[2 * y2], __dmul_rn(cx, w.x));
-          acc[2 * y2 + 1] = __dadd_rn(acc[2 * y2 + 1], __dmul_rn(cx, w.y));
-        }
-      } else {
-        const float dk = tile[b * kStride + k];
-        const float* m = tabs.basis + k * kBasisStride + r;
-#pragma unroll
-        for (int y = 0; y < 8; ++y)
-          acc[y] = __fadd_rn(acc[y], __fmul_rn(dk, m[8 * y]));
-      }
+      for (int y = 0; y < 8; ++y)
+        acc[y] = __fadd_rn(acc[y], __fmul_rn(dk, m[8 * y]));
     }
     __syncwarp();  // the tile is loaded again for the next blocks
     if (!live) continue;
@@ -431,27 +571,138 @@ __device__ __forceinline__ void idct_planes_walk(const InvArgs& a) {
     int32_t* out = P.out + n * P.plane +
                    static_cast<long long>(row0) * P.width + col0 + r;
 #pragma unroll
-    for (int y = 0; y < 8; ++y) {
-      int s;
-      if constexpr (kExact)
-        s = __double2int_rz(__dadd_rn(__dmul_rn(acc[y], 0.25), level));
-      else
-        s = __float2int_rz(__fadd_rn(acc[y], level));
-      out[static_cast<long long>(y) * P.width] = s;
+    for (int y = 0; y < 8; ++y)
+      out[static_cast<long long>(y) * P.width] =
+          __float2int_rz(__fadd_rn(acc[y], level));
+  }
+}
+
+// The divisors of a component's index arithmetic as reciprocals rounded up
+// (div_exact): 1 / nblocks, 1 / (v h), 1 / h.
+struct InvRcp {
+  float nb, per, h;
+};
+
+// The 64 terms of column x (cx[u] = COS[u][x]) of the block whose
+// cucv[k] d[k] are e[0..63] into acc[y], y = 0..7, in ascending k = 8 v + u.
+// kSkip: only where the mask's bit k is set, each behind a uniform branch
+// (a row of 8 behind one more); else all 64 in one straight run.
+template <bool kSkip>
+__device__ __forceinline__ void inverse_terms(const InvArgs& a,
+                                              const double* e,
+                                              const double* cx, unsigned lo,
+                                              unsigned hi, double* acc) {
+#pragma unroll
+  for (int y = 0; y < 8; ++y) acc[y] = 0.0;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const unsigned row = ((v < 4 ? lo : hi) >> (8 * (v & 3))) & 0xFFu;
+    if (kSkip && row == 0u) continue;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (kSkip && !((row >> u) & 1u)) continue;
+      const int k = 8 * v + u;
+      const double cxk = u == 0 ? e[k] : __dmul_rn(e[k], cx[u]);
+#pragma unroll
+      for (int y = 0; y < 8; ++y) {
+        // COS[0][y] = 1: a term of row v = 0 is its column product
+        const double term = v == 0 ? cxk : __dmul_rn(cxk, a.cosv[v * 8 + y]);
+        acc[y] = k == 0 ? term : __dadd_rn(acc[y], term);
+      }
     }
   }
 }
 
+// Kernel 2 (see the header): the warp's 4 blocks walked as one, over the
+// union of their nonzero coefficients, every table index a compile-time
+// constant but the lane's own column x.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kInvBlocksPerSm)
     idct_planes_exact_kernel(const __grid_constant__ InvArgs a) {
-  idct_planes_walk<T, double>(a);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    idct_planes_rgb_kernel(const __grid_constant__ InvArgs a) {
-  idct_planes_walk<T, float>(a);
+  __shared__ double tiles[kWarps][kTile * kStride];
+  __shared__ int qs[3][64];
+  __shared__ InvRcp rcp[3];
+  const int t = threadIdx.x;
+  for (int i = t; i < 64 * a.ncomp; i += kThreads)
+    qs[i >> 6][i & 63] = __ldg(a.q + i);
+  if (t < 3) {
+    const InvComp& P = a.comp[t];
+    rcp[t] = {rcp_up(P.nblocks), rcp_up(P.v * P.h), rcp_up(P.h)};
+  }
+  __syncthreads();
+  const float rcp_mx = rcp_up(a.mcus_x);
+  const int lane = t & 31;
+  double* tile = tiles[t >> 5];
+  const int b = lane >> 3;      // the lane's block in the tile
+  const int r = lane & 7;       // its row (load), then its column x
+  // cucv of the lane's row's first coefficient (k = 8 r), and COS[u][x] of
+  // its column x = r
+  const double cucv_r = a.cucv[8 * r];
+  double cx[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) cx[u] = a.cosv[u * 8 + r];
+  const double level = __int2double_rn(a.level);
+  const int total = a.tiles[0] + a.tiles[1] + a.tiles[2];
+  for (int tile_i = blockIdx.x * kWarps + (t >> 5); tile_i < total;
+       tile_i += gridDim.x * kWarps) {
+    int c = 0, lt = tile_i;
+    while (lt >= a.tiles[c]) lt -= a.tiles[c++];
+    const InvComp& P = a.comp[c];
+    const int f = lt * kTile + b;   // the lane's block
+    const bool live = f < a.nimages * P.nblocks;
+    const int n = live ? div_exact(f, P.nblocks, rcp[c].nb) : 0;
+    const int bi = f - n * P.nblocks;
+    int d[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) d[u] = 0;
+    if (live)
+      load_coeffs(static_cast<const T*>(a.coeff) +
+                      (static_cast<long long>(n) * a.row_blocks + P.first +
+                       bi) * 64 + r * 8,
+                  d);
+    // row r of the block dequantized, d = c q as a 32-bit integer, then
+    // cucv[k] d[k] into the tile: cucv is 1 but where u or v is 0
+    unsigned row_mask = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      d[u] = static_cast<int>(static_cast<unsigned>(d[u]) *
+                              static_cast<unsigned>(qs[c][r * 8 + u]));
+      row_mask |= (d[u] != 0 ? 1u : 0u) << u;
+    }
+    double* dst = tile + b * kStride + r * 8;
+    dst[0] = __dmul_rn(cucv_r, __int2double_rn(d[0]));
+    if (r == 0) {
+#pragma unroll
+      for (int u = 1; u < 8; ++u)
+        dst[u] = __dmul_rn(a.cucv[u], __int2double_rn(d[u]));
+    } else {
+#pragma unroll
+      for (int u = 1; u < 8; ++u) dst[u] = __int2double_rn(d[u]);
+    }
+    unsigned lo, hi;
+    union_mask(row_mask, r, &lo, &hi);
+    __syncwarp();
+    double acc[8];
+    if (__popc(lo) + __popc(hi) >= kDenseTerms)
+      inverse_terms<false>(a, tile + b * kStride, cx, lo, hi, acc);
+    else
+      inverse_terms<true>(a, tile + b * kStride, cx, lo, hi, acc);
+    __syncwarp();  // the tile is loaded again for the next blocks
+    if (!live) continue;
+    // the block's top-left sample (block_origin's arithmetic)
+    const int m = div_exact(bi, P.v * P.h, rcp[c].per);
+    const int rb = bi - m * P.v * P.h;
+    const int my = div_exact(m, a.mcus_x, rcp_mx);
+    const int vy = div_exact(rb, P.h, rcp[c].h);
+    const int row0 = (my * P.v + vy) * 8;
+    const int col0 = ((m - my * a.mcus_x) * P.h + (rb - vy * P.h)) * 8;
+    int32_t* out = P.out + n * P.plane +
+                   static_cast<long long>(row0) * P.width + col0 + r;
+#pragma unroll
+    for (int y = 0; y < 8; ++y)
+      out[static_cast<long long>(y) * P.width] =
+          __double2int_rz(__dadd_rn(__dmul_rn(acc[y], 0.25), level));
+  }
 }
 
 template <typename K>
@@ -494,6 +745,16 @@ int launch(K kernel, long long tiles, const A& a, cudaStream_t s) {
   if (e != cudaSuccess) return static_cast<int>(e);
   kernel<<<grid, kThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// tabs (see jz_fdct_quantize_exact) holds 1 exactly wherever kernels 1 and
+// 2 leave a product out: COS[0][x], cu[j] for j >= 1, cucv[k] for u, v >= 1.
+bool ones_where_skipped(const double* tabs) {
+  for (int i = 0; i < 8; ++i)
+    if (tabs[i] != 1.0 || (i > 0 && tabs[64 + i] != 1.0)) return false;
+  for (int k = 0; k < 64; ++k)
+    if ((k & 7) && (k >> 3) && tabs[72 + k] != 1.0) return false;
+  return true;
 }
 
 // desc (host memory, see jz_idct_planes_exact) -> a's layout and the tiles
@@ -555,7 +816,8 @@ int jz_fdct_quantize_exact(int elem_bytes, const long long* desc,
   const long long nimages = desc[0], mcus_y = desc[1], mcus_x = desc[2];
   if (nimages <= 0 || mcus_y <= 0 || mcus_x <= 0) return 0;
   const long long nm = mcus_y * mcus_x;
-  if (nimages * 4 * nm > 0x7FFFFFFFll || (elem_bytes != 1 && elem_bytes != 4))
+  if (nimages * 4 * nm > 0x7FFFFFFFll ||
+      (elem_bytes != 1 && elem_bytes != 4) || !ones_where_skipped(tabs))
     return static_cast<int>(cudaErrorInvalidValue);
   FwdArgs a;
   const void* bases[3] = {y, cb, cr};
@@ -596,6 +858,8 @@ int jz_idct_planes_exact(int elem_bytes, const long long* desc,
                          const double* tabs, const void* coeff, const void* q,
                          void* o0, void* o1, void* o2, void* stream) {
   if (desc[0] <= 0) return 0;
+  if (!ones_where_skipped(tabs))
+    return static_cast<int>(cudaErrorInvalidValue);
   InvArgs a;
   long long tiles = 0;
   const int rc = inverse_layout(elem_bytes, desc, coeff, q, o0, o1, o2, &a,
@@ -611,11 +875,10 @@ int jz_idct_planes_exact(int elem_bytes, const long long* desc,
              : launch(idct_planes_exact_kernel<int32_t>, tiles, a, s);
 }
 
-// The fast form of kernel 2 (idct_planes_rgb_kernel: float32, the sum over
-// the nonzero coefficients of d[k] M[p][k] in ascending k, then + level) on
-// `stream`, with the layout of jz_idct_planes_exact.  basis: the [64][64]
-// float32 inverse basis transposed, basis[k * 64 + p] = M[p][k], in device
-// memory.
+// Kernel 3 (idct_planes_rgb_kernel: float32, the sum over the nonzero
+// coefficients of d[k] M[p][k] in ascending k, then + level) on `stream`,
+// with the layout of jz_idct_planes_exact.  basis: the [64][64] float32
+// inverse basis transposed, basis[k * 64 + p] = M[p][k], in device memory.
 int jz_idct_planes_rgb(int elem_bytes, const long long* desc,
                        const void* basis, const void* coeff, const void* q,
                        void* o0, void* o1, void* o2, void* stream) {

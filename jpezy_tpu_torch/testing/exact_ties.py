@@ -113,3 +113,95 @@ def upload_layouts(mcus_y: int, mcus_x: int) -> dict:
             "4:4:4": layout(2 * mcus_x, ((1, 1),) * 3),
             "1 component": layout(6 * mcus_x, ((1, 1),)),
             "gray": layout(mcus_x, std, True)}
+
+
+def cancelling_coefficients(n: int, seed: int) -> np.ndarray:
+    """Dequantized coefficient blocks [n, 64] int64: d[2] = a, d[16] = -a,
+    whose terms are exact negatives on the diagonal samples, so the
+    inverse's partial sum is exactly 0 there after k = 16; two more
+    coefficients after it, zeros between."""
+    rng = np.random.default_rng(seed)
+    d = np.zeros((n, 64), np.int64)
+    a = rng.integers(1, 500, n) * rng.choice([-1, 1], n)
+    d[:, 2], d[:, 16] = a, -a
+    later = rng.integers(17, 64, (n, 2))
+    d[np.arange(n)[:, None], later] = rng.integers(-300, 301, (n, 2))
+    return d
+
+
+def cancelling_samples(n: int, seed: int) -> np.ndarray:
+    """Sample blocks [n, 64] int32: p[y1][x] = a and p[y2][x] = -a (y1 < y2),
+    whose terms in coefficient row i = 0 (COS[0][y] = 1) are exact
+    negatives, so the forward's partial sums of that row are exactly 0
+    after sample 8 y2 + x; two more samples after it, zeros between."""
+    rng = np.random.default_rng(seed)
+    p = np.zeros((n, 64), np.int32)
+    idx = np.arange(n)
+    x = rng.integers(0, 8, n)
+    y1 = rng.integers(0, 4, n)
+    y2 = rng.integers(4, 7, n)
+    a = rng.integers(1, 128, n) * rng.choice([-1, 1], n)
+    p[idx, 8 * y1 + x], p[idx, 8 * y2 + x] = a, -a
+    later = 8 * y2 + x + 1 + rng.integers(0, 63 - (8 * y2 + x), (2, n))
+    p[idx[None, :].repeat(2, 0), later] = rng.integers(-128, 128, (2, n))
+    return p
+
+
+def _in_groups(kinds: list, groups: int, rng) -> np.ndarray:
+    """groups x 4 blocks in a seeded order.  Even groups: one of kinds[0]
+    (the dense kind), one of kinds[1:4] (sparse, zero or cancelling) and
+    two drawn from all kinds.  Odd groups: four drawn from kinds[1:4], so
+    that their union of nonzero entries stays small (a kernel warp takes
+    such a group on its skipping path, a dense one on its straight one)."""
+    out = []
+    for g in range(groups):
+        if g % 2 == 0:
+            pick = [0, int(rng.integers(1, 4))] + list(
+                rng.integers(0, len(kinds), 2))
+        else:
+            pick = list(rng.integers(1, 4, 4))
+        rng.shuffle(pick)
+        out += [kinds[i][rng.integers(0, len(kinds[i]))] for i in pick]
+    return np.stack(out)
+
+
+def mixed_sample_groups(groups: int, seed: int) -> np.ndarray:
+    """Sample blocks [4 groups, 64] int32 in [-128, 127], in the groups of 4
+    that fdct_quantize_exact's warps take together (with tie_planes: the
+    luma blocks of one MCU): every other group a dense noise block beside
+    sparse blocks (1 to 4 nonzero samples), all-zero blocks, blocks whose
+    sums cancel to 0 on the way and tie blocks, the others sparse, zero
+    and cancelling blocks alone (see _in_groups), so that most samples a
+    group takes are zero in some of its blocks and nonzero in others."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    dense = rng.integers(-128, 128, (n, 64)).astype(np.int32)
+    sparse = np.zeros((n, 64), np.int32)
+    for blk in sparse:
+        k = rng.choice(64, int(rng.integers(1, 5)), replace=False)
+        blk[k] = rng.integers(-128, 128, len(k))
+    return _in_groups([dense, sparse, np.zeros((1, 64), np.int32),
+                       cancelling_samples(n, seed + 1),
+                       forward_tie_blocks(256, seed + 2)], groups, rng)
+
+
+def mixed_coefficient_groups(groups: int, seed: int,
+                             level: int = 128) -> np.ndarray:
+    """Dequantized coefficient blocks [4 groups, 64] int32, in the groups of
+    4 that idct_planes_exact's warps take together (4 consecutive blocks
+    of a component): every other group a dense block (every coefficient
+    nonzero) beside sparse blocks (1 to 3 nonzero), all-zero blocks,
+    blocks whose partial sums cancel to 0 and tie blocks at `level`, the
+    others sparse, zero and cancelling blocks alone (see _in_groups)."""
+    rng = np.random.default_rng(seed)
+    n = 64
+    scale = level // 128
+    dense = (rng.integers(1, 1025, (n, 64)) * rng.choice([-1, 1], (n, 64))
+             * scale).astype(np.int32)
+    sparse = np.zeros((n, 64), np.int32)
+    for blk in sparse:
+        k = rng.choice(64, int(rng.integers(1, 4)), replace=False)
+        blk[k] = rng.integers(-1024, 1025, len(k)) * scale
+    return _in_groups([dense, sparse, np.zeros((1, 64), np.int32),
+                       cancelling_coefficients(n, seed + 1).astype(np.int32),
+                       inverse_tie_blocks(512, seed + 2, level)], groups, rng)

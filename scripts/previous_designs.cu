@@ -1,4 +1,4 @@
-// The designs of two kernels of jpezy_tpu_torch that later revisions
+// The designs of kernels of jpezy_tpu_torch that later revisions
 // replaced, kept so that chip_smoke.py can time them beside the current
 // ones in one run, on the same inputs (scripts/previous_designs.py binds
 // them; nothing in the package calls them):
@@ -15,10 +15,20 @@
 //     places each warp's blocks' used words, with atomicOr on the words
 //     blocks share (the current jz_concat_streams is one launch of many
 //     thread blocks an image, no scratch, every word one plain store).
+//   jz_prev_fdct_quantize_exact, jz_prev_idct_planes_exact  exact mode's
+//     first float64 kernels: the forward issues all 64 terms of every
+//     block, products by COS[0][y] = 1 and cu[i] = 1 and the first adds
+//     onto +0 included; the inverse walks each block's own nonzero mask,
+//     k different in each of a warp's 4 blocks, with the tables COS and
+//     cucv in shared memory (7 shared loads a term).  The current
+//     exact_transforms.cu skips the exact products by 1 and the zero
+//     samples of a warp's 4 blocks, and walks their union with the tables
+//     as constant-bank operands.
 //
-// Both are verbatim but for names: the current entropy source is
-// included for encode_block and the table layout, and the concat's two
-// kernels sit in namespace two_pass.
+// All are verbatim but for names: the current entropy source is
+// included for encode_block and the table layout, the concat's two
+// kernels sit in namespace two_pass and the exact kernels in namespace
+// first_exact.
 #include "../jpezy_tpu_torch/csrc/entropy_pack.cu"
 
 namespace {
@@ -310,6 +320,427 @@ __global__ void __launch_bounds__(kScatterThreads)
 
 }  // namespace two_pass
 
+namespace first_exact {
+
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 4;       // blocks a warp
+constexpr int kStride = 65;    // doubles a block in the warp's tile
+
+// The top-left sample of block bi of a component whose MCUs hold v x h
+// blocks in raster order (luma 2 x 2 at 4:2:0: TL, TR, BL, BR).
+__device__ __forceinline__ void block_origin(int bi, int v, int h,
+                                             int mcus_x, int* row,
+                                             int* col) {
+  const int per = v * h;
+  const int m = bi / per;
+  const int r = bi - m * per;
+  const int my = m / mcus_x;
+  const int mx = m - my * mcus_x;
+  const int vy = r / h;
+  *row = (my * v + vy) * 8;
+  *col = (mx * h + (r - vy * h)) * 8;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 1: blockify, float64 ordered forward DCT, quantize
+// ---------------------------------------------------------------------------
+
+struct FwdComp {
+  const void* base;       // the plane's first sample
+  long long sn, sr, sc;   // element strides: image, row, column
+  const int32_t* q;       // [64] quant table
+  int32_t* out;           // [N, nblocks, 64]
+  int nblocks;
+};
+
+struct FwdArgs {
+  FwdComp comp[3];
+  double cosv[64];        // COS[u][x], u * 8 + x
+  double cu[8];
+  int nimages, mcus_x, gray, rounded;
+  int ty, tc;             // tiles of luma, of each chroma component
+};
+
+// Row r of a block: 8 samples at column stride sc, as doubles (exact).
+__device__ __forceinline__ void load_row(const int8_t* src, long long sc,
+                                         double* x) {
+  if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(src));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      x[j] = __int2double_rn(static_cast<int8_t>(
+          ((j < 4 ? w.x : w.y) >> (8 * (j & 3))) & 0xFF));
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(__ldg(src + j * sc));
+}
+
+__device__ __forceinline__ void load_row(const int32_t* src, long long sc,
+                                         double* x) {
+  if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(src));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+    const int v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(v[j]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = __int2double_rn(__ldg(src + j * sc));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fdct_exact_first_kernel(const __grid_constant__ FwdArgs a) {
+  __shared__ double tiles[kWarps][kTile * kStride];
+  const int lane = threadIdx.x & 31;
+  double* tile = tiles[threadIdx.x >> 5];
+  const int b = lane >> 3;      // the lane's block in the tile
+  const int r = lane & 7;       // its row (load), then its column j
+  // COS[j][x] for the lane's column j = r, and cu[j]
+  double cj[8];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) cj[x] = a.cosv[r * 8 + x];
+  const double cuj = a.cu[r];
+  const int total = a.ty + 2 * a.tc;
+  for (int tile_i = blockIdx.x * kWarps + (threadIdx.x >> 5); tile_i < total;
+       tile_i += gridDim.x * kWarps) {
+    const int c = tile_i < a.ty ? 0 : (tile_i < a.ty + a.tc ? 1 : 2);
+    const int first =
+        (tile_i - (c == 0 ? 0 : (c == 1 ? a.ty : a.ty + a.tc))) * kTile;
+    const FwdComp& P = a.comp[c];
+    const int f = first + b;    // the lane's block
+    const bool live = f < a.nimages * P.nblocks;
+    int32_t* out = P.out + static_cast<long long>(f) * 64 + r;
+    if (a.gray && c > 0) {
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) out[i * 8] = 0;
+      }
+      continue;
+    }
+    double x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = 0.0;
+    if (live) {
+      const int n = f / P.nblocks;
+      const int bi = f - n * P.nblocks;
+      // 4:2:0: luma blocks TL, TR, BL, BR of MCU bi / 4, chroma MCU bi
+      const int m = c == 0 ? bi >> 2 : bi;
+      const int my = m / a.mcus_x;
+      const int mx = m - my * a.mcus_x;
+      const int y0 = c == 0 ? (2 * my + ((bi >> 1) & 1)) * 8 : my * 8;
+      const int x0 = c == 0 ? (2 * mx + (bi & 1)) * 8 : mx * 8;
+      load_row(static_cast<const T*>(P.base) + n * P.sn + (y0 + r) * P.sr +
+                   x0 * P.sc,
+               P.sc, x);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) tile[b * kStride + r * 8 + j] = x[j];
+    __syncwarp();
+    // the 64 terms of column j in the reference's order, k = 8 y + x
+    double acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.0;
+#pragma unroll
+    for (int y = 0; y < 8; ++y) {
+#pragma unroll
+      for (int xx = 0; xx < 8; ++xx) {
+        const double t = __dmul_rn(tile[b * kStride + y * 8 + xx], cj[xx]);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          acc[i] = __dadd_rn(acc[i], __dmul_rn(t, a.cosv[i * 8 + y]));
+      }
+    }
+    __syncwarp();  // the tile is loaded again for the next blocks
+    if (!live) continue;
+    const int32_t* q = P.q;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int cf = __double2int_rz(
+          __dmul_rn(__dmul_rn(__dmul_rn(acc[i], cuj), a.cu[i]), 0.25));
+      const int qv = __ldg(q + i * 8 + r);
+      const int mag = cf < 0 ? -cf : cf;
+      const int qm = a.rounded ? (2 * mag + qv) / (2 * qv) : mag / qv;
+      out[i * 8] = cf < 0 ? -qm : qm;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: dequantize, float64 ordered inverse DCT, deblockify
+// ---------------------------------------------------------------------------
+
+struct InvComp {
+  int nblocks;            // B_c: the component's blocks in one image
+  int v, h, width;        // sampling factors, plane width in samples
+  int first;              // the component's first block in a coefficient row
+  int32_t* out;           // [N, mcus_y v 8, width]
+  long long plane;        // samples of one image's plane
+};
+
+struct InvArgs {
+  InvComp comp[3];
+  const void* coeff;      // [N, row_blocks, 64]
+  const int32_t* q;       // [ncomp, 64]
+  const float* basis;     // the fast form's [64][64] float32 M[p][k] by k
+  double cosv[64];        // COS[u][x], u * 8 + x (exact mode)
+  double cucv[64];        // fl(cu[u] cv[v]), k = 8 v + u (exact mode)
+  int nimages, ncomp, mcus_x, row_blocks, level;
+  int tiles[3];           // tiles of each component over the batch
+};
+
+// Row r of a block: 8 coefficients as 32-bit integers.
+__device__ __forceinline__ void load_coeffs(const int16_t* src, int* c) {
+  const int4 w = __ldg(reinterpret_cast<const int4*>(src));
+  const int v[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    c[2 * j] = static_cast<int16_t>(v[j] & 0xFFFF);
+    c[2 * j + 1] = v[j] >> 16;
+  }
+}
+
+__device__ __forceinline__ void load_coeffs(const int32_t* src, int* c) {
+  const int4 a = __ldg(reinterpret_cast<const int4*>(src));
+  const int4 b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+  c[0] = a.x; c[1] = a.y; c[2] = a.z; c[3] = a.w;
+  c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
+}
+
+// The tables of the inverse's two arithmetics: exact mode's float64 factors,
+// or the fast form's float32 basis M[p][k] (p = 8 y + x) stored by k, each
+// row padded to kBasisStride floats so that the 4 blocks of a warp, at
+// different k, read different banks more often.
+constexpr int kBasisStride = 72;
+template <typename Real>
+struct InvTables;
+template <>
+struct InvTables<double> {
+  double cosv[64];        // COS[u][x], u * 8 + x
+  double cucv[64];
+};
+template <>
+struct InvTables<float> {
+  float basis[64 * kBasisStride];   // basis[k * kBasisStride + p] = M[p][k]
+};
+
+// The walk of both inverse kernels: lane 8 b + r loads and dequantizes row
+// r of block b, then owns column x = r with 8 accumulators, one per row y,
+// over the block's nonzero coefficients in ascending order.  Real = double:
+// exact mode's terms ((cucv[k] d[k]) COS[u][x]) COS[v][y] and s / 4 +
+// level; Real = float: the fast IDCT's terms d[k] M[8 y + x][k] and s +
+// level (block_transform.inverse_model), each a multiply then an add.
+template <typename T, typename Real>
+__device__ __forceinline__ void idct_planes_walk(const InvArgs& a) {
+  constexpr bool kExact = sizeof(Real) == 8;
+  __shared__ __align__(16) Real tiles[kWarps][kTile * kStride];
+  __shared__ __align__(16) InvTables<Real> tabs;
+  __shared__ int qs[3][64];
+  const int t = threadIdx.x;
+  if constexpr (kExact) {
+    for (int i = t; i < 128; i += kThreads) {
+      if (i < 64)
+        tabs.cosv[i] = a.cosv[i];
+      else
+        tabs.cucv[i - 64] = a.cucv[i - 64];
+    }
+  } else {
+    for (int i = t; i < 64 * 64; i += kThreads)
+      tabs.basis[(i >> 6) * kBasisStride + (i & 63)] = __ldg(a.basis + i);
+  }
+  for (int i = t; i < 64 * a.ncomp; i += kThreads)
+    qs[i >> 6][i & 63] = __ldg(a.q + i);
+  __syncthreads();
+  const int lane = t & 31;
+  Real* tile = tiles[t >> 5];
+  const int b = lane >> 3;      // the lane's block in the tile
+  const int r = lane & 7;       // its row (load), then its column x
+  const Real level = kExact ? Real(__int2double_rn(a.level))
+                            : Real(__int2float_rn(a.level));
+  const int total = a.tiles[0] + a.tiles[1] + a.tiles[2];
+  for (int tile_i = blockIdx.x * kWarps + (t >> 5); tile_i < total;
+       tile_i += gridDim.x * kWarps) {
+    int c = 0, lt = tile_i;
+    while (lt >= a.tiles[c]) lt -= a.tiles[c++];
+    const InvComp& P = a.comp[c];
+    const int f = lt * kTile + b;   // the lane's block
+    const bool live = f < a.nimages * P.nblocks;
+    const int n = live ? f / P.nblocks : 0;
+    const int bi = f - n * P.nblocks;
+    // row r of the block, dequantized: d = c q as a 32-bit integer
+    int d[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) d[u] = 0;
+    if (live)
+      load_coeffs(static_cast<const T*>(a.coeff) +
+                      (static_cast<long long>(n) * a.row_blocks + P.first +
+                       bi) * 64 + r * 8,
+                  d);
+    unsigned row_mask = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      d[u] = static_cast<int>(static_cast<unsigned>(d[u]) *
+                              static_cast<unsigned>(qs[c][r * 8 + u]));
+      row_mask |= (d[u] != 0 ? 1u : 0u) << u;
+      if constexpr (kExact)
+        tile[b * kStride + r * 8 + u] = __int2double_rn(d[u]);
+      else
+        tile[b * kStride + r * 8 + u] = __int2float_rn(d[u]);
+    }
+    // the block's 64-bit nonzero mask, bit k = 8 v + u, in its 8 lanes
+    unsigned lo = r < 4 ? row_mask << (8 * r) : 0u;
+    unsigned hi = r < 4 ? 0u : row_mask << (8 * (r - 4));
+#pragma unroll
+    for (int s = 1; s < 8; s <<= 1) {
+      lo |= __shfl_xor_sync(kFullMask, lo, s);
+      hi |= __shfl_xor_sync(kFullMask, hi, s);
+    }
+    unsigned long long mask =
+        (static_cast<unsigned long long>(hi) << 32) | lo;
+    __syncwarp();
+    Real acc[8];
+#pragma unroll
+    for (int y = 0; y < 8; ++y) acc[y] = Real(0);
+    while (mask) {
+      const int k = __ffsll(static_cast<long long>(mask)) - 1;
+      mask &= mask - 1;
+      if constexpr (kExact) {
+        const int u = k & 7;
+        const int v = k >> 3;
+        const double cx = __dmul_rn(
+            __dmul_rn(tabs.cucv[k], tile[b * kStride + k]),
+            tabs.cosv[u * 8 + r]);
+        const double2* cy = reinterpret_cast<const double2*>(tabs.cosv +
+                                                             v * 8);
+#pragma unroll
+        for (int y2 = 0; y2 < 4; ++y2) {
+          const double2 w = cy[y2];
+          acc[2 * y2] = __dadd_rn(acc[2 * y2], __dmul_rn(cx, w.x));
+          acc[2 * y2 + 1] = __dadd_rn(acc[2 * y2 + 1], __dmul_rn(cx, w.y));
+        }
+      } else {
+        const float dk = tile[b * kStride + k];
+        const float* m = tabs.basis + k * kBasisStride + r;
+#pragma unroll
+        for (int y = 0; y < 8; ++y)
+          acc[y] = __fadd_rn(acc[y], __fmul_rn(dk, m[8 * y]));
+      }
+    }
+    __syncwarp();  // the tile is loaded again for the next blocks
+    if (!live) continue;
+    int row0, col0;
+    block_origin(bi, P.v, P.h, a.mcus_x, &row0, &col0);
+    int32_t* out = P.out + n * P.plane +
+                   static_cast<long long>(row0) * P.width + col0 + r;
+#pragma unroll
+    for (int y = 0; y < 8; ++y) {
+      int s;
+      if constexpr (kExact)
+        s = __double2int_rz(__dadd_rn(__dmul_rn(acc[y], 0.25), level));
+      else
+        s = __float2int_rz(__fadd_rn(acc[y], level));
+      out[static_cast<long long>(y) * P.width] = s;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    idct_exact_first_kernel(const __grid_constant__ InvArgs a) {
+  idct_planes_walk<T, double>(a);
+}
+
+template <typename K>
+cudaError_t grid_for(K kernel, long long units, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return e;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<int>(units < resident ? units : resident);
+  return cudaSuccess;
+}
+
+template <typename K>
+int kernel_info(K kernel, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  info[0] = attr.numRegs;
+  info[1] = per_sm;
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = kThreads;
+  return 0;
+}
+
+template <typename K, typename A>
+int launch(K kernel, long long tiles, const A& a, cudaStream_t s) {
+  int grid = 0;
+  const cudaError_t e = grid_for(kernel, (tiles + kWarps - 1) / kWarps, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// desc (host memory, see jz_idct_planes_exact) -> a's layout and the tiles
+// of the launch; 0 or a CUDA error code.
+int inverse_layout(int elem_bytes, const long long* desc, const void* coeff,
+                   const void* q, void* o0, void* o1, void* o2, InvArgs* a,
+                   long long* tiles) {
+  const long long nimages = desc[0];
+  a->ncomp = static_cast<int>(desc[1]);
+  if (a->ncomp < 1 || a->ncomp > 3 || desc[2] <= 0 ||
+      nimages * desc[3] > 0x7FFFFFFFll || (elem_bytes != 2 && elem_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  a->nimages = static_cast<int>(nimages);
+  a->mcus_x = static_cast<int>(desc[2]);
+  a->row_blocks = static_cast<int>(desc[3]);
+  a->level = static_cast<int>(desc[4]);
+  void* outs[3] = {o0, o1, o2};
+  *tiles = 0;
+  for (int c = 0; c < 3; ++c) {
+    InvComp& p = a->comp[c];
+    const long long* d = desc + 5 + 4 * c;
+    p.nblocks = static_cast<int>(d[0]);
+    p.v = static_cast<int>(d[1]);
+    p.h = static_cast<int>(d[2]);
+    p.first = static_cast<int>(d[3]);
+    p.out = static_cast<int32_t*>(outs[c]);
+    a->tiles[c] = 0;
+    p.width = p.h * 8 * a->mcus_x;
+    p.plane = 0;
+    if (c >= a->ncomp) continue;
+    if (p.v < 1 || p.h < 1 || d[0] <= 0 ||
+        d[0] % (static_cast<long long>(p.v) * p.h * desc[2]) ||
+        d[3] + d[0] > desc[3])
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.plane = d[0] * 64;
+    a->tiles[c] = static_cast<int>((nimages * d[0] + kTile - 1) / kTile);
+    *tiles += a->tiles[c];
+  }
+  a->coeff = coeff;
+  a->q = static_cast<const int32_t*>(q);
+  a->basis = nullptr;
+  return 0;
+}
+
+}  // namespace first_exact
+
 extern "C" {
 
 // tables [nsets, kSetEntries] int32.  custom != 0: the caller's tables,
@@ -373,9 +804,72 @@ int jz_prev_concat_streams(const void* wy, const void* wcb, const void* wcr,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The first exact kernels, with the arguments of jz_fdct_quantize_exact and
+// jz_idct_planes_exact (exact_transforms.cu).
+int jz_prev_fdct_quantize_exact(int elem_bytes, const long long* desc,
+                                const double* tabs, const void* y,
+                                const void* cb, const void* cr,
+                                const void* yq, const void* cq, void* oy,
+                                void* ocb, void* ocr, void* stream) {
+  using namespace first_exact;
+  const long long nimages = desc[0], mcus_y = desc[1], mcus_x = desc[2];
+  if (nimages <= 0 || mcus_y <= 0 || mcus_x <= 0) return 0;
+  const long long nm = mcus_y * mcus_x;
+  if (nimages * 4 * nm > 0x7FFFFFFFll || (elem_bytes != 1 && elem_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a;
+  const void* bases[3] = {y, cb, cr};
+  void* outs[3] = {oy, ocb, ocr};
+  for (int c = 0; c < 3; ++c) {
+    FwdComp& p = a.comp[c];
+    p.base = bases[c];
+    p.sn = desc[5 + 3 * c];
+    p.sr = desc[6 + 3 * c];
+    p.sc = desc[7 + 3 * c];
+    p.q = static_cast<const int32_t*>(c == 0 ? yq : cq);
+    p.out = static_cast<int32_t*>(outs[c]);
+    p.nblocks = static_cast<int>(c == 0 ? 4 * nm : nm);
+  }
+  for (int i = 0; i < 64; ++i) a.cosv[i] = tabs[i];
+  for (int i = 0; i < 8; ++i) a.cu[i] = tabs[64 + i];
+  a.nimages = static_cast<int>(nimages);
+  a.mcus_x = static_cast<int>(mcus_x);
+  a.gray = desc[3] != 0;
+  a.rounded = desc[4] != 0;
+  a.ty = static_cast<int>((nimages * 4 * nm + kTile - 1) / kTile);
+  a.tc = static_cast<int>((nimages * nm + kTile - 1) / kTile);
+  const long long tiles = a.ty + 2ll * a.tc;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return elem_bytes == 1
+             ? launch(fdct_exact_first_kernel<int8_t>, tiles, a, s)
+             : launch(fdct_exact_first_kernel<int32_t>, tiles, a, s);
+}
+
+int jz_prev_idct_planes_exact(int elem_bytes, const long long* desc,
+                              const double* tabs, const void* coeff,
+                              const void* q, void* o0, void* o1, void* o2,
+                              void* stream) {
+  using namespace first_exact;
+  if (desc[0] <= 0) return 0;
+  InvArgs a;
+  long long tiles = 0;
+  const int rc = inverse_layout(elem_bytes, desc, coeff, q, o0, o1, o2, &a,
+                                &tiles);
+  if (rc) return rc;
+  for (int i = 0; i < 64; ++i) {
+    a.cosv[i] = tabs[i];
+    a.cucv[i] = tabs[72 + i];
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return elem_bytes == 2
+             ? launch(idct_exact_first_kernel<int16_t>, tiles, a, s)
+             : launch(idct_exact_first_kernel<int32_t>, tiles, a, s);
+}
+
 // What the card reports for kernel `which` (0: the per-component fused
-// kernel, fixed tables; 1: the concat's pass 1; 2: its pass 2), as
-// jz_entropy_kernel_info reports it.
+// kernel, fixed tables; 1: the concat's pass 1; 2: its pass 2; 3: the
+// first exact forward, int8 samples; 4: the first exact inverse, int16
+// coefficients), as jz_entropy_kernel_info reports it.
 int jz_prev_kernel_info(int which, int* info) {
   switch (which) {
     case 0:
@@ -387,6 +881,12 @@ int jz_prev_kernel_info(int which, int* info) {
     case 2:
       return kernel_info(two_pass::concat_scatter_kernel,
                          two_pass::kScatterThreads, info);
+    case 3:
+      return first_exact::kernel_info(
+          first_exact::fdct_exact_first_kernel<int8_t>, info);
+    case 4:
+      return first_exact::kernel_info(
+          first_exact::idct_exact_first_kernel<int16_t>, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

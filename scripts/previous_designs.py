@@ -1,4 +1,4 @@
-"""The earlier designs of two of jpezy_tpu_torch's kernels, built from
+"""The earlier designs of four of jpezy_tpu_torch's kernels, built from
 scripts/previous_designs.cu with the package's loader, so that
 chip_smoke.py times them beside the current kernels in one run, on the
 same inputs and the same card.  Nothing in the package calls them.
@@ -14,8 +14,16 @@ same inputs and the same card.  Nothing in the package calls them.
                      offsets scratch [N, 6 nm] (and thread blocks that zero
                      the streams), then a scatter of the used words with
                      atomicOr on shared words; two launches a call.
+  fdct_quantize_exact_first, idct_planes_exact_first
+                     exact mode's first float64 kernels, with the
+                     arguments and results of exact_cuda's
+                     fdct_quantize_exact_cuda and idct_planes_exact_cuda:
+                     every term of every block issued (products by
+                     exactly 1 and first adds onto +0 included), and each
+                     block's own nonzero mask walked with the tables in
+                     shared memory.
 
-Both raise without a card; neither falls back.
+All raise without a card; none falls back.
 """
 from __future__ import annotations
 
@@ -24,12 +32,17 @@ import os
 
 import torch
 
+import numpy as np
+
+from jpezy_tpu_torch.constants import EXACT_TABLES
 from jpezy_tpu_torch.ops import entropy as E
+from jpezy_tpu_torch.ops import exact_cuda
 from jpezy_tpu_torch.ops.cuda_build import KernelLibrary
 from jpezy_tpu_torch.ops.pack_cuda import annex_k_row
 
 KERNEL_INFO = ("encode_blocks per component", "concat_streams pass 1",
-               "concat_streams pass 2")
+               "concat_streams pass 2", "fdct_quantize_exact first int8",
+               "idct_planes_exact first int16")
 
 
 def _bind(lib) -> None:
@@ -39,6 +52,10 @@ def _bind(lib) -> None:
                                           vp]
     lib.jz_prev_concat_streams.restype = ci
     lib.jz_prev_concat_streams.argtypes = [vp] * 8 + [ll] * 5 + [vp]
+    lib.jz_prev_fdct_quantize_exact.restype = ci
+    lib.jz_prev_fdct_quantize_exact.argtypes = [ci] + [vp] * 11
+    lib.jz_prev_idct_planes_exact.restype = ci
+    lib.jz_prev_idct_planes_exact.argtypes = [ci] + [vp] * 8
     lib.jz_prev_kernel_info.restype = ci
     lib.jz_prev_kernel_info.argtypes = [ci, vp]
 
@@ -102,3 +119,51 @@ def concat_two_pass(words, bits, *, maxw: int, restart_interval: int = 0):
         torch.cuda.current_stream().cuda_stream)
     LIB.raise_on("prev_concat_streams", rc)
     return combined
+
+
+def fdct_quantize_exact_first(y, cb, cr, yqt, cqt, *, gray: bool = False,
+                              rounded: bool = False):
+    """exact_cuda.fdct_quantize_exact_cuda's result from the first exact
+    forward kernel: (yq [N, 4 nm, 64], cbq, crq [N, nm, 64]) int32."""
+    lib = LIB.get()
+    N, H, W = y.shape
+    my, mx = H // 16, W // 16
+    desc = np.array([N, my, mx, int(gray), int(rounded), *y.stride(),
+                     *cb.stride(), *cr.stride()], np.int64)
+    tabs = [t.contiguous() for t in (yqt, cqt)]
+    outs = [torch.empty((N, k * my * mx, 64), dtype=torch.int32,
+                        device=y.device) for k in (4, 1, 1)]
+    rc = lib.jz_prev_fdct_quantize_exact(
+        {torch.int8: 1, torch.int32: 4}[y.dtype], desc.ctypes.data,
+        EXACT_TABLES.ctypes.data,
+        *(t.data_ptr() for t in (y, cb, cr, *tabs, *outs)),
+        torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_fdct_quantize_exact", rc)
+    return tuple(outs)
+
+
+def idct_planes_exact_first(coeff_all, qtab, *, geom, level: int,
+                            gray: bool, sizes):
+    """exact_cuda.idct_planes_exact_cuda's planes from the first exact
+    inverse kernel (coeff_all contiguous and 16-byte aligned)."""
+    lib = LIB.get()
+    N = coeff_all.shape[0]
+    used = 1 if gray else len(sizes)
+    comps, first = [], 0
+    for c in range(3):
+        comps += ([sizes[c], int(geom[c][2]), int(geom[c][3]), first]
+                  if c < used else [0, 0, 0, 0])
+        first += sizes[c] if c < len(sizes) else 0
+    mcus_y, mcus_x = (int(x) for x in geom[0][:2])
+    desc = np.array([N, used, mcus_x, sum(sizes), level, *comps], np.int64)
+    outs = [torch.empty((N, mcus_y * int(g[2]) * 8, mcus_x * int(g[3]) * 8),
+                        dtype=torch.int32, device=coeff_all.device)
+            for g in geom[:used]]
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - used)
+    q = qtab.contiguous()
+    rc = lib.jz_prev_idct_planes_exact(
+        exact_cuda._COEFF_BYTES[coeff_all.dtype], desc.ctypes.data,
+        EXACT_TABLES.ctypes.data, coeff_all.data_ptr(), q.data_ptr(), *ptrs,
+        torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_idct_planes_exact", rc)
+    return outs

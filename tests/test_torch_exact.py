@@ -22,6 +22,12 @@ Here, with exact equality everywhere:
     product shared by the 8 rows, the inverse over the nonzero
     coefficients only, partial sums that cancel to 0 included) equal the
     oracle;
+  - numpy models of the kernels' schedules (a warp's 4 blocks as one: the
+    union of their nonzero samples or coefficients, the other blocks'
+    +-0 terms; no product by COS[0][.], cu[i >= 1] or a cucv of 1, the
+    first term stored) equal the oracle on the tie sets, cancelling
+    blocks, noise at quality 100 and warp groups that mix dense blocks
+    with sparse and zero ones;
   - the tie sets (testing/exact_ties.forward_tie_blocks, inverse_tie_blocks)
     hold blocks on which jitted JAX differs from the oracle, and the port
     does not;
@@ -336,17 +342,9 @@ def test_kernel_forward_factorization_equals_oracle():
     assert np.array_equal(_kernel_forward(blk), O.forward_dct(blk))
 
 
-def _cancelling_blocks(n, seed):
-    """d[2] = a, d[16] = -a: on the diagonal samples the two terms are
-    exact negatives, so the partial sum is exactly 0 there after k = 16;
-    more coefficients after it, zeros between."""
-    rng = np.random.default_rng(seed)
-    d = np.zeros((n, 64), np.int64)
-    a = rng.integers(1, 500, n) * rng.choice([-1, 1], n)
-    d[:, 2], d[:, 16] = a, -a
-    later = rng.integers(17, 64, (n, 2))
-    d[np.arange(n)[:, None], later] = rng.integers(-300, 301, (n, 2))
-    return d
+# d[2] = a, d[16] = -a: on the diagonal samples the two terms are exact
+# negatives, so the partial sum is exactly 0 there after k = 16
+_cancelling_blocks = XT.cancelling_coefficients
 
 
 def test_zero_skipping_inverse_cancelling_partial_sums():
@@ -380,6 +378,202 @@ def test_zero_skipping_inverse_equals_full_sum(seed, density, level):
     ties = _inverse_ties(level)
     d[8:16] = ties[rng.integers(0, len(ties), 8)]
     assert np.array_equal(_kernel_inverse(d, level),
+                          O.inverse_dct(d, level))
+
+
+# ---------------------------------------------------------------------------
+# The kernels' schedules: a warp's 4 blocks as one, products by 1 left out
+# ---------------------------------------------------------------------------
+
+
+def _groups(a):
+    """Blocks [B, 64] -> [G, 4, 64], the last group padded with zero blocks,
+    as a kernel warp takes them (4 consecutive blocks of a component)."""
+    out = np.zeros((-(-len(a) // 4) * 4, 64), a.dtype)
+    out[:len(a)] = a
+    return out.reshape(-1, 4, 64)
+
+
+def _schedule_forward(blk):
+    """fdct_quantize_exact_kernel's float part: per group of 4 blocks the
+    samples nonzero in any of them (the others' terms left out), per (k, j)
+    one first product p[k] COS[j][x], added as it is into row 0 (COS[0][y] =
+    1) and times COS[i][y] into rows 1 to 7, the k = 0 term stored in
+    place of its add onto +0; then (s cu[j]) cu[0] / 4 for row 0 and
+    s cu[j] / 4 for the others (cu[i] = 1), truncated."""
+    cos, cu = K.EXACT_COS, K.EXACT_CU
+    pic = _groups(np.asarray(blk, np.float64))
+    union = (pic != 0).any(axis=1)                          # [G, k]
+    acc = np.zeros(pic.shape[:2] + (8, 8))                  # [G, b, i, j]
+    for k in range(64):
+        y, x = divmod(k, 8)
+        g = union[:, k]
+        t = pic[g, :, k][:, :, None] * cos[:, x]            # [g, b, j]
+        rows = np.concatenate([t[:, :, None, :], t[:, :, None, :]
+                               * cos[1:, y][None, None, :, None]], axis=2)
+        acc[g] = rows if k == 0 else acc[g] + rows
+    res = acc * cu[None, None, None, :]
+    res[:, :, 0, :] *= cu[0]
+    res = (res * 0.25).reshape(-1, 64)[:len(blk)]
+    return res.astype(np.int32)
+
+
+def _schedule_inverse(deq, level):
+    """idct_planes_exact_kernel's float part: cucv[k] d[k] once per
+    coefficient where u or v is 0 (cucv is 1 elsewhere); per group of 4
+    blocks the coefficients nonzero in any of them in ascending k, each
+    term (cucv[k] d) COS[u][x] (no product for u = 0) times COS[v][y] (none
+    for v = 0), the k = 0 term stored in place of its add onto +0, the
+    other blocks' zero coefficients adding +-0; then s / 4 + level,
+    truncated."""
+    cos, cucv = K.EXACT_COS, K.EXACT_CUCV
+    d = _groups(np.asarray(deq, np.int64)).astype(np.float64)
+    union = (d != 0).any(axis=1)
+    k = np.arange(64)
+    scaled = (k % 8 == 0) | (k // 8 == 0)
+    d[:, :, scaled] = cucv[scaled] * d[:, :, scaled]
+    acc = np.zeros(d.shape[:2] + (8, 8))                    # [G, b, y, x]
+    for k in range(64):
+        v, u = divmod(k, 8)
+        g = union[:, k]
+        cx = d[g, :, k][:, :, None] * (cos[u] if u else np.ones(8))
+        term = cx[:, :, None, :] * (cos[v][:, None] if v else np.ones((8, 1)))
+        acc[g] = term if k == 0 else acc[g] + term
+    return (acc * 0.25 + level).astype(np.int32).reshape(-1, 64)[:len(deq)]
+
+
+def _rcp_up(d):
+    """exact_transforms.cu's rcp_up in numpy: for 2^e <= d < 2^(e+1),
+    D = d 2^(23-e), the mantissa q = ceil(2^47 / D) in (2^23, 2^24], built
+    into a float32's bits as the kernel builds them (2^-e for a power of
+    two or where q rounds up to 2^24)."""
+    d = np.asarray(d, np.int64)
+    e = np.floor(np.log2(d)).astype(np.int64)
+    e -= (np.int64(1) << e) > d                 # floor(log2) exactly
+    e += (np.int64(1) << (e + 1)) <= d
+    q = -(-(np.int64(1) << 47) // (d << (23 - e)))
+    pow2 = (d & (d - 1)) == 0
+    top = pow2 | (q == 1 << 24)
+    bits = np.where(top, (127 - e) << 23,
+                    ((126 - e) << 23) | (q - (1 << 23)))
+    return bits.astype(np.int32).view(np.float32)
+
+
+def test_rcp_up_is_the_reciprocal_rounded_up():
+    """The kernels' division by reciprocals (div_exact) needs 1/d rounded
+    up to a float32; rcp_up makes it in integer arithmetic, so that the
+    exact kernels' SASS holds no FFMA (__frcp_ru's would).  For every d
+    below 2^24: r d >= 1 and the next float32 below r gives < 1 (products
+    exact in float64: 24 by 24 bits)."""
+    d = np.arange(1, 1 << 24, dtype=np.int64)
+    r = _rcp_up(d)
+    below = np.nextafter(r, np.float32(0))
+    df = d.astype(np.float64)
+    assert np.all(r.astype(np.float64) * df >= 1.0)
+    assert np.all(below.astype(np.float64) * df < 1.0)
+
+
+def test_skipped_factors_are_exactly_one():
+    """The factors the kernels leave out (and their launchers check): x 1
+    is x for every x."""
+    k = np.arange(64)
+    assert np.array_equal(_bits(K.EXACT_COS[0]), _bits(np.ones(8)))
+    assert np.array_equal(_bits(K.EXACT_CU[1:]), _bits(np.ones(7)))
+    both = (k % 8 > 0) & (k // 8 > 0)
+    assert np.array_equal(_bits(K.EXACT_CUCV[both]), _bits(np.ones(49)))
+    assert not np.any(K.EXACT_CUCV[~both] == 1.0)
+
+
+def _noise_samples(n, seed):
+    return np.random.default_rng(seed).integers(-128, 128, (n, 64))
+
+
+def _noise_q100(n, seed):
+    """Dequantized coefficients of noise at quality 100 (quantizer 1)."""
+    assert set(np.concatenate(T.scale_quant_tables(100)).tolist()) == {1}
+    return O.forward_dct(_noise_samples(n, seed))
+
+
+FORWARD_SETS = {
+    "ties": lambda: XT.forward_tie_blocks(1024, 600),
+    "cancelling": lambda: XT.cancelling_samples(512, 601),
+    "noise": lambda: _noise_samples(1024, 602),
+    "mixed groups": lambda: XT.mixed_sample_groups(256, 603),
+}
+
+
+@pytest.mark.parametrize("name", list(FORWARD_SETS))
+def test_schedule_forward_equals_oracle(name):
+    blk = FORWARD_SETS[name]().astype(np.int32)
+    assert np.array_equal(_schedule_forward(blk), O.forward_dct(blk))
+
+
+INVERSE_SETS = {
+    "ties 128": (lambda: XT.inverse_tie_blocks(2048, 610, 128), 128),
+    "ties 2048": (lambda: XT.inverse_tie_blocks(2048, 611, 2048), 2048),
+    "cancelling": (lambda: _cancelling_blocks(512, 612), 128),
+    "noise q100": (lambda: _noise_q100(512, 613), 128),
+    "mixed groups 128": (lambda: XT.mixed_coefficient_groups(256, 614), 128),
+    "mixed groups 2048": (
+        lambda: XT.mixed_coefficient_groups(256, 615, 2048), 2048),
+}
+
+
+@pytest.mark.parametrize("name", list(INVERSE_SETS))
+def test_schedule_inverse_equals_oracle(name):
+    make, level = INVERSE_SETS[name]
+    d = make()
+    assert np.array_equal(_schedule_inverse(d, level),
+                          O.inverse_dct(d, level))
+
+
+def test_mixed_groups_mix_dense_with_sparse_blocks():
+    """Even groups hold a dense block, odd ones none (a small union, the
+    kernels' skipping path), and in every group most of the samples (or
+    coefficients) the group takes are zero in another of its blocks: the
+    kernels' +-0 terms are exercised on both paths."""
+    for blk in (XT.mixed_sample_groups(64, 620),
+                XT.mixed_coefficient_groups(64, 621)):
+        nz = _groups(blk) != 0
+        dense = nz.sum(axis=2).max(axis=1)
+        assert np.all(dense[0::2] >= 60) and np.all(dense[1::2] <= 8)
+        union = nz.any(axis=1)
+        assert np.all(union[1::2].sum(axis=1) <= 32)
+        mixed = (union & ~nz.all(axis=1)).sum(axis=1)
+        assert np.all(mixed >= union.sum(axis=1) // 2)
+
+
+def _mixed(seed, density_dense, density_rest, lo, hi):
+    """4 groups of 4: a dense block beside blocks at another density, in a
+    seeded order."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(4):
+        dens = [density_dense] + [density_rest] * 3
+        rng.shuffle(dens)
+        for p in dens:
+            out.append(np.where(rng.random(64) < p,
+                                rng.integers(lo, hi, 64), 0))
+    return np.stack(out)
+
+
+@settings(max_examples=25, deadline=None, derandomize=True)
+@given(st.integers(0, 2**31 - 1), st.sampled_from([0.0, 0.05, 0.3]))
+def test_schedule_forward_mixed_densities(seed, rest):
+    blk = _mixed(seed, 1.0, rest, -128, 128)
+    blk[:4] = XT.cancelling_samples(4, seed)
+    assert np.array_equal(_schedule_forward(blk), O.forward_dct(blk))
+
+
+@settings(max_examples=25, deadline=None, derandomize=True)
+@given(st.integers(0, 2**31 - 1), st.sampled_from([0.0, 0.05, 0.3]),
+       st.sampled_from([128, 2048]))
+def test_schedule_inverse_mixed_densities(seed, rest, level):
+    d = _mixed(seed, 0.9, rest, -1024, 1025) * (level // 128)
+    d[4:8] = _cancelling_blocks(4, seed)
+    ties = _inverse_ties(level)
+    d[8:10] = ties[np.random.default_rng(seed).integers(0, len(ties), 2)]
+    assert np.array_equal(_schedule_inverse(d, level),
                           O.inverse_dct(d, level))
 
 
