@@ -30,8 +30,9 @@ any failure exits nonzero.  In the order they run:
      block_transforms.cu; exact mode's fDCT+quantize and
      dequantize+IDCT-to-planes kernels and the rgb transport's fast
      IDCT-to-planes, exact_transforms.cu; the rgb transport's colour
-     kernels, colour.cu; the designs the entropy kernel, the concat and
-     exact mode's two kernels replaced, scripts/previous_designs.cu, and
+     kernels, colour.cu; the designs the entropy kernel, the concat,
+     exact mode's two kernels and the fast rgb IDCT replaced,
+     scripts/previous_designs.cu, and
      the float64 chains of scripts/fp64_ceiling.cu, for phase 6) and
      prints what
      ptxas reports for each kernel (a template's instantiations under one
@@ -202,7 +203,12 @@ any failure exits nonzero.  In the order they run:
      numpy model (block_transform.idct_planes_rgb_model) bit for bit and
      the plain version (cuBLAS) within 1, the share that differs printed,
      on the main batch's rgb upload read at every sampling and level, as
-     int32 and on noise at quality 100; one counted launch each.  Then the
+     int32, on the main batch's images at quality 95, on noise at quality
+     100, on the float32 tie set (testing/rgb_ties.inverse_tie_blocks:
+     blocks on which another order of the same float32 terms truncates
+     differently) and on the kernel's mixed warp groups
+     (rgb_ties.mixed_coefficient_groups), both at levels 128 and 2048; one
+     counted launch each.  Then the
      fast rgb paths over the 4 batches: encode_batch(transport="rgb")
      (colour, fDCT, fused, concat once a batch) and its decode_batch(
      transport="rgb") (fast IDCT and colour once a batch), PSNR within
@@ -223,8 +229,10 @@ any failure exits nonzero.  In the order they run:
      unprofiled one); 10/11 device: the optimize encode's device stages alone
      and the optimize path's busy share, the rgb transports' device programs
      (fast, exact, gray; beside their plain readings, EARLIER_EXACT and
-     EARLIER_RGB, and the exact ones beside their readings with the exact
-     kernels' first designs, FIRST_EXACT_PROGRAMS), each of which must be
+     EARLIER_RGB, the exact ones beside their readings with the exact
+     kernels' first designs, FIRST_EXACT_PROGRAMS, and the fast decode in
+     turns with the fast IDCT's first design in its place), each of which
+     must be
      the hand kernels alone (4 device
      events an encode: colour, fDCT, entropy, concat; 2 a decode: the
      IDCT into planes and colour), and the exact ycc420 encode program,
@@ -247,8 +255,13 @@ any failure exits nonzero.  In the order they run:
      sustains as separate DMUL/DADD (scripts/fp64_ceiling.py, three operand
      forms, at the exact forward's occupancy and at 64 warps an SM) with
      the SM clock nvidia-smi reports, and the clock while the exact
-     forward runs; idct_planes_rgb on noise at quality 100 beside the
-     float32 matmul; times of
+     forward runs; the float32 rate of separate FMUL/FADD likewise (x m +
+     y, and the rgb IDCT's step of one product into four adds); the fast
+     rgb IDCT beside its first design in turns
+     likewise, on the main batch, on noise at quality 100 and on the main
+     batch's images at quality 95, with its FMUL, FADD and FFMA counts, on
+     noise also beside the float32 matmul; idct_planes (the ycc420 IDCT)
+     on the same noise; times of
      the concat on noise at quality 100 (dense blocks), of the IDCT
      kernel's dense form on the restart segments, and of the fused kernel
      with the 16 per-image table sets beside the fixed tables; the entropy
@@ -258,7 +271,8 @@ any failure exits nonzero.  In the order they run:
      and with the L2 cache overwritten first, with both designs' registers
      and thread blocks an SM; the rgb transport's kernels (fast) on the
      main batch beside their bounds (bytes, or separate float32
-     operations), their plain versions and, for the fast IDCT, the
+     operations: the rgb IDCT's those its roundings need, rgb_inv_ops, at
+     PEAK_FP32_OPS), their plain versions and, for the fast IDCT, the
      float32 matmul; the colour kernels' float64 and gray forms too, with
      what the card reports for each instantiation;
   9. times of the scan kernel alone on the real segments beside its bound
@@ -308,8 +322,12 @@ PSNR_SLACK_DB = 0.05
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT_OPS_PER_S = 67e12 / 2
 # the float32 rate outside the tensor cores in operations (a multiply-add
-# counts two): the rate of the block transforms' bound
+# counts two): the rate of the fast block transforms' bound
 PEAK_FP32_FLOPS = 67e12
+# the same rate as separate FMUL/FADD instructions, one operation each: the
+# rate of the kernels that may not contract (no FFMA in their SASS), the
+# fast rgb IDCT's and the colour kernels' bounds
+PEAK_FP32_OPS = 67e12 / 2
 # the float64 rate outside the tensor cores, 33.5 TFLOP/s with a fused
 # multiply-add counted two, as separate DMUL and DADD operations (exact
 # mode's kernels may not contract): the rate of their bound
@@ -404,7 +422,8 @@ PREVIOUS = {"encode_blocks_kernel": "previous encode_blocks",
             "concat_offsets_kernel": "previous concat_streams (offsets)",
             "concat_scatter_kernel": "previous concat_streams (scatter)",
             "fdct_exact_first_kernel": "previous fdct_quantize_exact",
-            "idct_exact_first_kernel": "previous idct_planes_exact"}
+            "idct_exact_first_kernel": "previous idct_planes_exact",
+            "idct_rgb_first_kernel": "previous idct_planes_rgb"}
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
@@ -576,6 +595,10 @@ def _time_ms(fn, reps: int) -> float:
 def _profile(fn, reps: int) -> dict:
     """torch.profiler trace of `reps` calls of fn (after one warm-up call).
 
+    Every fn traced here launches work on the card, so a trace that holds
+    no device event lost its events (the profiler drops a whole trace now
+    and then): it is taken again, up to three times in all.
+
     Returns per call: busy_ms, the durations of the kernels, copies and
     memsets traced on the card, summed (None if the trace holds no device
     events); events, their number; by_name, busy ms per device event
@@ -585,14 +608,18 @@ def _profile(fn, reps: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        dev = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+        if dev:
+            break
     us = sum(e.self_device_time_total for e in dev)
     return {"busy_ms": us / 1e3 / reps if us > 0 else None,
             "events": sum(e.count for e in dev) / reps,
@@ -746,6 +773,19 @@ def exact_inv_ops(coeff, kw) -> int:
     per_term = torch.from_numpy(EXACT_INV_OPS[0]).to(c.device)
     return (int((nz * per_term).sum())
             + EXACT_INV_OPS[1] * int(nz.any(dim=1).sum()))
+
+
+def rgb_inv_ops(coeff, kw, basis: np.ndarray) -> int:
+    """The float32 operations that the fast rgb IDCT's roundings need,
+    counted on the coefficients it transforms (component 0 alone with
+    gray): per nonzero coefficient its 64 adds and one product per distinct
+    |M[.][k]| of its k (a product d M[p][k] is the same, up to its sign, at
+    every sample p where |M[p][k]| is; 384 over the 64 k).  A block's 64
+    adds of the level balance the 64 first adds onto +0 it need not make."""
+    per_k = torch.tensor([64 + len(np.unique(np.abs(basis[:, k])))
+                          for k in range(64)], device=coeff.device)
+    c = coeff[:, :kw["sizes"][0]] if kw["gray"] else coeff
+    return int(((c.reshape(-1, 64) != 0) * per_k).sum())
 
 
 def _bound(nbytes: int, ops: int, rate: float = PEAK_INT_OPS_PER_S):
@@ -1052,6 +1092,7 @@ def main() -> int:
     from jpezy_tpu_torch.ops import entropy_decode as ED
     from jpezy_tpu_torch.ops import block_transform as BT
     from jpezy_tpu_torch.testing import exact_ties as XT
+    from jpezy_tpu_torch.testing import rgb_ties as RT
     from jpezy_tpu_torch.ops import (colour_cuda, concat_cuda, exact_cuda,
                                      pack_cuda, scan_cuda, transform_cuda)
     from jpezy_tpu_torch.runtime import batch as RB
@@ -2481,7 +2522,18 @@ def main() -> int:
     yq100, cq100 = (tuple(int(x) for x in t)
                     for t in T.scale_quant_tables(100))
     noise_kw = dict(main_kw, qtuple=(yq100, cq100, cq100))
-    del noise15
+    # the same noise through the ycc420 upload, for idct_planes in phase 6,
+    # its nonzero coefficients and the float32 operations that its sums
+    # (inverse_model's, as idct_planes_rgb's) need
+    noise_streams = TC.encode_batch(noise15, quality=100, device="cuda")
+    noise_flat, noise_flat_kw, *_ = TC._decode_host_prep(
+        noise_streams, gray=False, precision="fast", transport=None)
+    noise_rgb_up, noise_rgb_kw = rgb_upload(noise_streams)
+    noise_flat_nonzero = int((noise_rgb_up != 0).sum())
+    noise_flat_ops = rgb_inv_ops(noise_rgb_up, noise_rgb_kw,
+                                 exact_cuda.INV_BASIS)
+    del noise_rgb_up
+    del noise15, noise_streams
     my15, mx15 = main_kw["geom"][0][:2]
     ix_sets = []
     for lay15, (geom15, sizes15, gray15) in XT.upload_layouts(
@@ -2679,7 +2731,9 @@ def main() -> int:
                              f"in {2 * len(dec16)} comparisons")
     del dec16, got, want
     # the fast IDCT into planes: the main batch's rgb upload read at every
-    # sampling and level, as int32 too, and noise at quality 100
+    # sampling and level, as int32 too, the main batch's images at quality
+    # 95, noise at quality 100, the float32 tie set and the kernel's mixed
+    # warp groups at both levels
     ir_sets = [(f"main batch's upload as {lay16}, level {lvl}", main_up,
                 dict(geom=g16, sizes=s16, gray=gr16, level=lvl,
                      qtuple=main_kw["qtuple"][:len(s16)]))
@@ -2687,8 +2741,21 @@ def main() -> int:
                    my15, mx15).items() for lvl in (128, 2048)]
     ir_sets.append(("main batch's upload as int32", main_up.to(torch.int32),
                     ir_sets[0][2]))
+    q95_up, q95_kw = rgb_upload(TC.encode_batch(batches[0], quality=95,
+                                                device="cuda"))
+    q95_kw = {k: q95_kw[k] for k in ir_sets[0][2]}
+    ir_sets.append(("main batch's images at quality 95", q95_up, q95_kw))
     ir_sets.append((f"{BATCH} noise images at quality 100",
                     exact_idct_noise[0], exact_idct_noise[1]))
+    for lvl in (128, 2048):
+        f32_ties = RT.inverse_tie_blocks(16384, 25 + lvl, lvl)
+        ir_sets.append((f"float32 tie set of {len(f32_ties)} blocks, level "
+                        f"{lvl}, quantizer 1",
+                        *one_component(f32_ties, lvl)))
+        mixed16 = RT.mixed_coefficient_groups(2048, 26 + lvl, lvl)
+        ir_sets.append((f"{len(mixed16)} blocks in warp groups that mix "
+                        f"dense, sparse, zero, cancelling and float32 tie "
+                        f"blocks, level {lvl}", *one_component(mixed16, lvl)))
     err["idct_planes_rgb"] = 0
     ir_diff = []
     exact_cuda.idct_rgb_launches = 0
@@ -2721,6 +2788,7 @@ def main() -> int:
                              f"{exact_cuda.idct_rgb_launches} times in "
                              f"{len(ir_sets)} comparisons")
     rgb_idct_input = (main_up, ir_sets[0][2])   # phase 6 times these
+    rgb_idct_q95 = (q95_up, q95_kw)
     del ir_sets, got, want, model
     # the fast rgb paths over the batches: the colour kernel, the fDCT, the
     # entropy kernel and the concat once an encode; the fast IDCT and the
@@ -3041,16 +3109,45 @@ def main() -> int:
          dec_k + ("idct_planes_exact_kernel",)))
     rgb_rows = []
     for key, label, fn, want_k in rgb_programs:
-        span, prof = _time_ms(fn, 5), _profile(fn, 5)
-        names = sorted(prof["by_name"])
-        if prof["events"] > len(want_k) or len(names) != len(want_k) \
-                or not all(any(k in n for n in names) for k in want_k):
-            raise AssertionError(
-                f"the {key} program makes {prof['events']} device events "
-                f"per call ({names}): want {', '.join(want_k)} alone")
+        span = _time_ms(fn, 5)
+        for attempt in range(3):  # a trace that lost events is taken again
+            prof = _profile(fn, 5)
+            names = sorted(prof["by_name"])
+            if prof["events"] <= len(want_k) and len(names) == len(want_k) \
+                    and all(any(k in n for n in names) for k in want_k):
+                break
+            if attempt == 2:
+                raise AssertionError(
+                    f"the {key} program makes {prof['events']} device "
+                    f"events per call ({names}): want {', '.join(want_k)} "
+                    "alone")
         rgb_rows.append(f"{label}: device busy {_fmt_ms(prof['busy_ms'])} "
                         f"ms, event span {span:.3f} ms, "
                         f"{prof['events']:.1f} events")
+
+    # the fast decode program with the fast IDCT's first design
+    # (scripts/previous_designs.py) in its place, in turns with it as it is
+    def with_first_rgb(fn):
+        def first(coeff_all, qtab, **kw):
+            return previous_designs.idct_planes_rgb_first(
+                coeff_all.contiguous(), qtab, **kw)
+
+        def run():
+            keep = exact_cuda.idct_planes_rgb_cuda
+            exact_cuda.idct_planes_rgb_cuda = first
+            try:
+                return fn()
+            finally:
+                exact_cuda.idct_planes_rgb_cuda = keep
+        return run
+
+    dec_fast = rgb_programs[2][2]
+    dec_turns = [(which, _profile(fn, 5)["busy_ms"]) for which, fn in (
+        ("now", dec_fast), ("first", with_first_rgb(dec_fast)),
+        ("now again", dec_fast), ("first again", with_first_rgb(dec_fast)))]
+    rgb_rows.append("rgb decode program, fast, in turns with the fast "
+                    "IDCT's first design in its place: " + ", ".join(
+                        f"{w} {_fmt_ms(ms)} ms" for w, ms in dec_turns))
     # the exact ycc420 encode program is the exact fDCT, entropy and concat
     # kernels alone, as the fast one is with its fDCT kernel
     def enc_exact():
@@ -3163,9 +3260,9 @@ def main() -> int:
     # the rgb transport's kernels on the main batch: its RGB samples (fast
     # colour), its rgb upload into the fast IDCT's int32 planes, and those
     # planes (4:2:0) into RGB; their bytes, and their separate float32
-    # multiplies and adds (the IDCT's 128 a nonzero coefficient, counted
-    # from the data; colour 6 a pixel for Y and 10 a 2x2 quad for the
-    # chroma on encode, 10 a pixel on decode)
+    # multiplies and adds (the IDCT's that its roundings need, rgb_inv_ops,
+    # counted from the data; colour 6 a pixel for Y and 10 a 2x2 quad for
+    # the chroma on encode, 10 a pixel on decode)
     rgb6 = torch.from_numpy(batches[0]).to(dev)
     rgb_src, rgb_kw = rgb_idct_input[0], {
         k: main_kw[k] for k in ("geom", "sizes", "gray", "level", "qtuple")}
@@ -3177,7 +3274,7 @@ def main() -> int:
                 + sum(4 * p.numel() for p in planes6) + 4 * 64 * 64
                 + 3 * 4 * 64)
     ir_nonzero = int((rgb_src != 0).sum())
-    ir_ops = 128 * ir_nonzero
+    ir_ops = rgb_inv_ops(rgb_src, rgb_kw, exact_cuda.INV_BASIS)
     col_dec_bytes = sum(4 * p.numel() for p in planes6) + 3 * n_px
     col_dec_ops = 10 * n_px
     rgb_geom = rgb_kw["geom"]
@@ -3234,7 +3331,7 @@ def main() -> int:
             f"{fdct_ops} float32 operations in the kernel's separable form "
             f"({1e3 * fdct_ops / PEAK_FP32_FLOPS:.4f} ms; issued as "
             f"separate multiplies and adds "
-            f"{2e3 * fdct_ops / PEAK_FP32_FLOPS:.4f} ms), {fdct_ops64} in "
+            f"{1e3 * fdct_ops / PEAK_FP32_OPS:.4f} ms), {fdct_ops64} in "
             f"the 64-term form of the plain version and of the first kernel "
             f"({1e3 * fdct_ops64 / PEAK_FP32_FLOPS:.4f} ms); the plain stage "
             f"read {EARLIER_PROGRAMS['fDCT+quantize'][0]} ms busy (before "
@@ -3297,12 +3394,12 @@ def main() -> int:
             [lambda: OC.rgb_to_ycc420(rgb6)],
             lambda: OC.rgb_to_ycc420_plain(rgb6),
             ("rgb_to_ycc420_kernel",),
-            _bound(col_enc_bytes, col_enc_ops, PEAK_FP32_FLOPS),
+            _bound(col_enc_bytes, col_enc_ops, PEAK_FP32_OPS),
             f"float32, the main batch's {tuple(rgb6.shape)} uint8 samples "
             f"into int8 Y, Cb, Cr, {col_enc_bytes} bytes "
             f"({1e3 * col_enc_bytes / PEAK_BYTES_PER_S:.4f} ms); "
-            f"{col_enc_ops} float32 operations "
-            f"({1e3 * col_enc_ops / PEAK_FP32_FLOPS:.4f} ms); the rgb fast "
+            f"{col_enc_ops} separate float32 operations "
+            f"({1e3 * col_enc_ops / PEAK_FP32_OPS:.4f} ms); the rgb fast "
             f"encode program read {EARLIER_RGB['rgb encode, fast'][0]} ms "
             f"busy before the kernel (kept from then); no PyTorch call "
             f"computes it"),
@@ -3312,12 +3409,15 @@ def main() -> int:
             lambda: BT.idct_planes_rgb_plain(rgb_src, dtype=torch.float32,
                                              **rgb_kw),
             ("idct_planes_rgb_kernel",),
-            _bound(ir_bytes, ir_ops, PEAK_FP32_FLOPS),
+            _bound(ir_bytes, ir_ops, PEAK_FP32_OPS),
             f"the main batch's rgb upload {tuple(rgb_src.shape)} "
             f"{rgb_src.dtype} into int32 planes, {ir_bytes} bytes "
             f"({1e3 * ir_bytes / PEAK_BYTES_PER_S:.4f} ms); {ir_nonzero} "
-            f"nonzero coefficients x 128 = {ir_ops} float32 operations "
-            f"({1e3 * ir_ops / PEAK_FP32_FLOPS:.4f} ms); the rgb fast "
+            f"nonzero coefficients: {ir_ops} separate float32 operations "
+            f"that the roundings need "
+            f"({1e3 * ir_ops / PEAK_FP32_OPS:.4f} ms; 128 a nonzero "
+            f"coefficient, {128 * ir_nonzero}, "
+            f"{128e3 * ir_nonzero / PEAK_FP32_OPS:.4f} ms); the rgb fast "
             f"decode program read {EARLIER_RGB['rgb decode, fast'][0]} ms "
             f"busy before the kernels (kept from then); torch.matmul of the "
             f"[{n_blocks}, 64] @ [64, 64] float32 product alone "
@@ -3326,12 +3426,12 @@ def main() -> int:
             [lambda: OC.planes_to_rgb(planes6, rgb_geom, False)],
             lambda: OC.planes_to_rgb_plain(planes6, rgb_geom, False),
             ("ycc_planes_to_rgb_kernel",),
-            _bound(col_dec_bytes, col_dec_ops, PEAK_FP32_FLOPS),
+            _bound(col_dec_bytes, col_dec_ops, PEAK_FP32_OPS),
             f"float32, the main batch's fast int32 planes at 4:2:0 into "
             f"[{BATCH}, {H}, {W}, 3] uint8, {col_dec_bytes} bytes "
             f"({1e3 * col_dec_bytes / PEAK_BYTES_PER_S:.4f} ms); "
-            f"{col_dec_ops} float32 operations "
-            f"({1e3 * col_dec_ops / PEAK_FP32_FLOPS:.4f} ms); no PyTorch "
+            f"{col_dec_ops} separate float32 operations "
+            f"({1e3 * col_dec_ops / PEAK_FP32_OPS:.4f} ms); no PyTorch "
             f"call computes it"),
     }
 
@@ -3503,22 +3603,38 @@ def main() -> int:
                  "idct_planes_exact") + RGB_KERNELS:
         timing[name]["kernel_info"] = {
             k: v for k, v in info.items() if k.split()[0] == name}
-    # exact mode's kernels beside their first designs
+    # exact mode's kernels and the fast rgb IDCT beside their first designs
     # (scripts/previous_designs.py), in turns on the same inputs (now,
     # first, now again, first again), warm and with the L2 cache overwritten
     # first: on the main batch and on noise at quality 100 (dense blocks,
-    # where float64 operations bound both), each beside its bound
+    # where operations bound them), the rgb IDCT also on the main batch's
+    # images at quality 95, each beside its bound
     nz_coeff, nz_kw = exact_idct_noise
     nzf_planes, nzf_q = exact_fdct_noise
+    q95_coeff, q95_kw = rgb_idct_q95
     ak6 = (codec_constants(dev)["y_quant"], codec_constants(dev)["c_quant"])
 
-    def first_idct(coeff, kw):
+    def first_idct(coeff, kw, first=previous_designs.idct_planes_exact_first):
         q = BT.quant_tables(kw["qtuple"], dev)
-        return lambda: previous_designs.idct_planes_exact_first(
-            coeff, q, geom=kw["geom"], level=kw["level"], gray=kw["gray"],
-            sizes=kw["sizes"])
+        return lambda: first(coeff, q, geom=kw["geom"], level=kw["level"],
+                             gray=kw["gray"], sizes=kw["sizes"])
+
+    def fast_idct(coeff, kw):
+        return lambda: BT.idct_planes_rgb(coeff, precision="fast", **kw)
+
+    def rgb_bound(coeff, kw):
+        """The fast rgb IDCT's bound and its operation counts on coeff."""
+        nbytes = (coeff.numel() * (coeff.element_size() + 4) + 4 * 64 * 64
+                  + 3 * 4 * 64)
+        ops = rgb_inv_ops(coeff, kw, exact_cuda.INV_BASIS)
+        return _bound(nbytes, ops, PEAK_FP32_OPS), ops, 128 * int(
+            (coeff != 0).sum())
 
     nz_samples = nz_coeff.numel()
+    (ir_nz_bound, ir_nz_by), ir_nz_ops, ir_nz_128 = rgb_bound(nz_coeff,
+                                                              nz_kw)
+    (ir_q95_bound, ir_q95_by), ir_q95_ops, _ = rgb_bound(q95_coeff, q95_kw)
+    first_rgb = previous_designs.idct_planes_rgb_first
     ex_sets = {
         "fdct_quantize_exact": (
             "fdct_quantize_exact_kernel", "fdct_exact_first_kernel", {
@@ -3547,7 +3663,18 @@ def main() -> int:
                     first_idct(nz_coeff, nz_kw),
                     _bound(nz_coeff.numel() * nz_coeff.element_size()
                            + 4 * nz_samples, exact_inv_ops(nz_coeff, nz_kw),
-                           PEAK_FP64_OPS)[0])})}
+                           PEAK_FP64_OPS)[0])}),
+        "idct_planes_rgb": (
+            "idct_planes_rgb_kernel", "idct_rgb_first_kernel", {
+                "main": (fast_idct(rgb_src, rgb_kw),
+                         first_idct(rgb_src, rgb_kw, first_rgb),
+                         timing["idct_planes_rgb"]["bound_ms"]),
+                "noise at quality 100": (
+                    fast_idct(nz_coeff, nz_kw),
+                    first_idct(nz_coeff, nz_kw, first_rgb), ir_nz_bound),
+                "quality 95": (fast_idct(q95_coeff, q95_kw),
+                               first_idct(q95_coeff, q95_kw, first_rgb),
+                               ir_q95_bound)})}
     ex_rows = []
     for name, (sym, first_sym, sets) in ex_sets.items():
         t = timing[name]
@@ -3568,9 +3695,10 @@ def main() -> int:
             if set_name == "main":
                 t["previous_ms"], t["previous_cold_ms"] = row["first"]
             else:
-                t["noise_ms"], t["noise_cold_ms"] = row["now"]
-                t["noise_previous_ms"] = row["first"][0]
-                t["noise_bound_ms"] = b_ms
+                key = "noise" if set_name.startswith("noise") else "q95"
+                t[f"{key}_ms"], t[f"{key}_cold_ms"] = row["now"]
+                t[f"{key}_previous_ms"] = row["first"][0]
+                t[f"{key}_bound_ms"] = b_ms
             ex_rows.append(
                 f"{name} on {set_name}: " + ", ".join(
                     f"{k} {w:.4f} ms (L2 overwritten first {c:.4f})"
@@ -3582,26 +3710,32 @@ def main() -> int:
         kinfo = exact_cuda.kernel_info()
         pinfo = previous_designs.kernel_info()
         now_key = {"fdct_quantize_exact": "fdct_quantize_exact int8",
-                   "idct_planes_exact": "idct_planes_exact int16"}[name]
+                   "idct_planes_exact": "idct_planes_exact int16",
+                   "idct_planes_rgb": "idct_planes_rgb int16"}[name]
         first_key = now_key.replace(" int", " first int")
         prev_ops_k = prev_ops[f"previous {name}"]
         t["sass_ops"] = {"now": sass_ops[name], "first": prev_ops_k}
+        ops_k = (("FMUL", "FADD", "FFMA") if name == "idct_planes_rgb"
+                 else ("DMUL", "DADD", "DFMA"))
         ex_rows.append(
             f"{name} now: {kinfo[now_key][0]} registers, {kinfo[now_key][1]} "
-            f"thread blocks an SM, SASS {sass_ops[name]['DMUL']} DMUL, "
-            f"{sass_ops[name]['DADD']} DADD, {sass_ops[name]['DFMA']} DFMA "
-            f"(both instantiations); first design: {pinfo[first_key][0]} "
-            f"registers, {pinfo[first_key][1]} thread blocks, "
-            f"{prev_ops_k['DMUL']} DMUL, {prev_ops_k['DADD']} DADD, "
-            f"{prev_ops_k['DFMA']} DFMA")
-    _say("6 exact", "exact mode's kernels beside their first designs "
-         "(kernels' own device time, profiler): " + " || ".join(ex_rows)
+            f"thread blocks of {kinfo[now_key][4]} an SM, SASS "
+            + ", ".join(f"{sass_ops[name][op]} {op}" for op in ops_k)
+            + f" (both instantiations); first design: {pinfo[first_key][0]} "
+            f"registers, {pinfo[first_key][1]} thread blocks of "
+            f"{pinfo[first_key][4]}, "
+            + ", ".join(f"{prev_ops_k[op]} {op}" for op in ops_k))
+    _say("6 exact", "exact mode's kernels and the fast rgb IDCT beside their "
+         "first designs (kernels' own device time, profiler): "
+         + " || ".join(ex_rows)
          + f"; plain versions {timing['fdct_quantize_exact']['plain_ms']:.4f}"
-         f" and {timing['idct_planes_exact']['plain_ms']:.4f} ms; "
+         f", {timing['idct_planes_exact']['plain_ms']:.4f} and "
+         f"{timing['idct_planes_rgb']['plain_ms']:.4f} ms; "
          f"torch.matmul of the float64 [{n_blocks}, 64] @ [64, 64] product "
          f"(cuBLAS DGEMM on the FP64 tensor cores, which reorders and "
          f"contracts: out of reach of kernels that keep every rounding) "
-         f"{_fmt_ms(library64_ms)} ms; on {card}")
+         f"{_fmt_ms(library64_ms)} ms, of the float32 one "
+         f"{_fmt_ms(library_ms)} ms; on {card}")
     # the float64 rate the card sustains as separate DMUL/DADD, at the
     # forward kernel's occupancy and at the full 64 warps, in each operand
     # form, with the SM clock; and the clock while the forward kernel runs
@@ -3622,34 +3756,76 @@ def main() -> int:
     timing["fdct_quantize_exact"]["fp64_ceiling"] = {
         k: {"ops_per_s": r, "sm_clock": c} for k, (r, c) in ceiling.items()}
     timing["fdct_quantize_exact"]["sm_clock"] = fdct_clock
+    # and the float32 rate of separate FMUL/FADD, the fast rgb IDCT's
+    ceiling32 = {f"{label}, {per_sm} thread blocks an SM": fp64_ceiling.rate(
+        per_sm, form, fp32=True)
+        for form, label in enumerate(fp64_ceiling.FORMS32)
+        for per_sm in (4, 8)}
+    timing["idct_planes_rgb"]["fp32_ceiling"] = {
+        k: {"ops_per_s": r, "sm_clock": c}
+        for k, (r, c) in ceiling32.items()}
     _say("6 fp64", "the float64 chains of scripts/fp64_ceiling.cu (256 "
          "threads a block, 4 chains a thread): " + "; ".join(
              f"{k}: {r:.4g} a second = {r / PEAK_FP64_OPS:.3f} of the data "
              f"sheet's {PEAK_FP64_OPS:.4g}, SM clock {c}"
              for k, (r, c) in ceiling.items())
          + f"; SM clock while fdct_quantize_exact runs {fdct_clock}; the "
-         f"exact kernels' bounds stay at the data sheet's rate; on {card}")
-    # the fast rgb IDCT on dense blocks: noise at quality 100, beside the
-    # float32 matmul (its bound counts 128 float32 operations a nonzero
-    # coefficient, as on the main batch)
-    ir_nz_nonzero = int((nz_coeff != 0).sum())
-    ir_nz_bound, ir_nz_by = _bound(
-        nz_coeff.numel() * nz_coeff.element_size() + 4 * nz_samples
-        + 4 * 64 * 64 + 3 * 4 * 64, 128 * ir_nz_nonzero, PEAK_FP32_FLOPS)
-    ir_nz = lambda: BT.idct_planes_rgb(nz_coeff, precision="fast", **nz_kw)
-    ir_nz_ms, _ = _traced(ir_nz, 20, "idct_planes_rgb_kernel")
-    ir_nz_cold_ms, _ = _traced(lambda: (l2_flush.zero_(), ir_nz()), 20,
-                               "idct_planes_rgb_kernel")
-    timing["idct_planes_rgb"].update(noise_ms=ir_nz_ms,
-                                     noise_cold_ms=ir_nz_cold_ms,
-                                     noise_bound_ms=ir_nz_bound)
+         f"exact kernels' bounds stay at the data sheet's rate; the float32 "
+         f"chains as separate FMUL/FADD: " + "; ".join(
+             f"{k}: {r:.4g} a second = {r / PEAK_FP32_OPS:.3f} of "
+             f"{PEAK_FP32_OPS:.4g}, SM clock {c}"
+             for k, (r, c) in ceiling32.items()) + f"; on {card}")
+    # the fast rgb IDCT on dense blocks (noise at quality 100) beside the
+    # float32 matmul and its first design, and on the quality-95 set; the
+    # ycc420 IDCT (sparse form) on the same noise, for the record
+    ir_t = timing["idct_planes_rgb"]
+    ir_nz_ms = min(ir_t["versus_previous"]["noise at quality 100"][k][0]
+                   for k in ("now", "now again"))
+    ir_nz_first = min(ir_t["versus_previous"]["noise at quality 100"][k][0]
+                      for k in ("first", "first again"))
+    noise_flat_dev = torch.from_numpy(noise_flat).to(dev)
+    yc_nz = lambda: BT.idct_planes_sparse(noise_flat_dev, **noise_flat_kw)
+    yc_syms = ("idct_planes_kernel", "idct_planes_overflow_kernel")
+    yc_nz_ms, _ = _traced(yc_nz, 20, *yc_syms)
+    yc_nz_cold_ms, _ = _traced(lambda: (l2_flush.zero_(), yc_nz()), 20,
+                               *yc_syms)
+    yc_nz_bytes = noise_flat.size + BATCH * H * W * 3 // 2
+    yc_nz_bound, yc_nz_by = _bound(yc_nz_bytes, noise_flat_ops,
+                                   PEAK_FP32_OPS)
+    timing["idct_planes"].update(noise_ms=yc_nz_ms,
+                                 noise_cold_ms=yc_nz_cold_ms,
+                                 noise_bound_ms=yc_nz_bound)
+    del noise_flat_dev
     _say("6 times", f"idct_planes_rgb on {nz_coeff.shape[0]} noise images at "
-         f"quality 100 ({ir_nz_nonzero} nonzero of {nz_samples} "
-         f"coefficients): kernel {ir_nz_ms:.4f} ms (L2 overwritten first "
-         f"{ir_nz_cold_ms:.4f}), bound {ir_nz_bound:.4f} ms by {ir_nz_by} = "
-         f"{ir_nz_bound / ir_nz_ms:.3f} of it; torch.matmul of the float32 "
-         f"[{n_blocks}, 64] @ [64, 64] product {_fmt_ms(library_ms)} ms "
-         f"({'the kernel loses to it' if library_ms and ir_nz_ms > library_ms else 'the kernel is faster'}); on {card}")
+         f"quality 100 ({int((nz_coeff != 0).sum())} nonzero of {nz_samples} "
+         f"coefficients; {ir_nz_ops} separate float32 operations that the "
+         f"roundings need, 128 a nonzero coefficient would be {ir_nz_128}, "
+         f"{1e3 * ir_nz_128 / PEAK_FP32_OPS:.4f} ms): kernel "
+         f"{ir_nz_ms:.4f} ms (the faster turn; L2 overwritten first "
+         f"{ir_t['noise_cold_ms']:.4f}), bound {ir_nz_bound:.4f} ms by "
+         f"{ir_nz_by} = {ir_nz_bound / ir_nz_ms:.3f} of it; torch.matmul of "
+         f"the float32 [{n_blocks}, 64] @ [64, 64] product "
+         f"{_fmt_ms(library_ms)} ms (the kernel "
+         f"{'is faster' if library_ms and ir_nz_ms < library_ms else 'loses'}"
+         f"); "
+         f"the first design's faster turn {ir_nz_first:.4f} ms "
+         f"({'under' if ir_nz_ms < ir_nz_first / 2 else 'NOT under'} half "
+         f"of it); on the main batch's images at quality 95 "
+         f"({int((q95_coeff != 0).sum())} nonzero coefficients, {ir_q95_ops} "
+         f"operations): kernel {ir_t['q95_ms']:.4f} ms (L2 overwritten first "
+         f"{ir_t['q95_cold_ms']:.4f}), first design "
+         f"{ir_t['q95_previous_ms']:.4f}, bound {ir_q95_bound:.4f} ms by "
+         f"{ir_q95_by}; idct_planes (the ycc420 IDCT, sparse form) on the "
+         f"same noise through the ycc420 upload ({noise_flat.size} bytes, "
+         f"{noise_flat_nonzero} nonzero coefficients; its sparse and "
+         f"overflow launches): {yc_nz_ms:.4f} ms (L2 overwritten first "
+         f"{yc_nz_cold_ms:.4f}), bound {yc_nz_bound:.4f} ms by {yc_nz_by} "
+         f"= {yc_nz_bound / yc_nz_ms:.3f} of it ({noise_flat_ops} separate "
+         f"float32 operations that its roundings need, counted as "
+         f"idct_planes_rgb's, at {PEAK_FP32_OPS:.4g} a second; 128 a "
+         f"nonzero coefficient would be "
+         f"{1e3 * 128 * noise_flat_nonzero / PEAK_FP32_OPS:.4f} ms); on "
+         f"{card}")
     rows6 = []
     for label, ms, cold, b_ms, key in (
             ("fdct_quantize", timing["fdct_quantize"]["ms"],
@@ -3720,6 +3896,7 @@ def main() -> int:
             f"{k} {v}" for k, v in info.items()
             if k.split()[0] in RGB_KERNELS) + f"; on {card}")
     del sp_dev, dn_src, lib_x, lib_x64, nz_coeff, ex_coeff, rgb6, planes6
+    del noise_flat, q95_coeff
     # the fused kernel on four batches in one launch
     comps4 = tuple(torch.cat([c] * 4) for c in real_comps)
     big_ms, _ = _traced(lambda: pack_cuda.encode_blocks_batch_cuda(*comps4),
@@ -3889,9 +4066,11 @@ def main() -> int:
                              "previous_cold_ms", "previous_dense_ms",
                              "versus_previous", "noise_cold_ms",
                              "noise_previous_ms", "sass_ops", "fp64_ceiling",
+                             "fp32_ceiling",
                              "sm_clock", "exact_ms", "exact_cold_ms",
                              "exact_bound_ms", "gray_ms", "gray_cold_ms",
-                             "gray_bound_ms")
+                             "gray_bound_ms", "q95_ms", "q95_cold_ms",
+                             "q95_previous_ms", "q95_bound_ms")
            if k in t},
     } for name, t in timing.items()]}))
     print(card)

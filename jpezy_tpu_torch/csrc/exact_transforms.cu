@@ -44,18 +44,13 @@
 // jpezy_tpu/codec/jax_codec.py:_decode_fused_batch up to the upsampling
 // (ops/quantize.py:dequantize, ops/dct.py:inverse_dct at float32,
 // deblockify).  Same inputs and outputs as kernel 2, with the [64][64]
-// float32 inverse basis M[p][k] in place of the float64 tables.
-//   Per block and sample p = 8 y + x: s starts at +0, then for k ascending
-//   over the nonzero d[k], s += fl32(d[k]) M[p][k] (a float32 multiply, then
-//   a float32 add); then s + level, truncated toward zero: the numpy model
+// float32 inverse basis M[p][k] (p = 8 y + x, k = 8 v + u) in place of the
+// float64 tables.
+//   Per block and sample p: s starts at +0, then for k ascending over the
+//   nonzero d[k], s += fl32(d[k]) M[p][k] (a float32 multiply, then a
+//   float32 add); then s + level, truncated toward zero: the numpy model
 //   block_transform.inverse_model, bit for bit.  torch.matmul (the plain
 //   version) sums in another order, so the two may differ by 1.
-//   Bound: the same bytes as kernel 2's, 0.011 ms on the main batch; 128
-//   float32 operations a nonzero coefficient, far below them.  A warp takes
-//   4 blocks, lane 8 b + r loads row r of block b, then owns column x = r
-//   and walks its block's own nonzero mask; the basis sits in shared memory
-//   by k, its rows padded so that the warp's 4 blocks at different k fall
-//   in different banks more often.
 //
 // The traps, each of which flips the truncation of some coefficient or
 // sample (the smoke's tie set finds them):
@@ -76,10 +71,11 @@
 //    cos() or sqrt() on the device may differ in the last bit.
 //  - Truncation is __double2int_rz, as C's int() and torch's .to(int32).
 //
-// What kernels 1 and 2 leave out, exactly:
-//  - Products by exactly 1: x 1 = x for every x.  COS[0][x] = cos(0) = 1,
-//    cu[j] = 1 for j >= 1 and cucv[k] = 1 where u and v are both nonzero
-//    (the launchers refuse tables where these are not 1).
+// What the kernels leave out, exactly:
+//  - Products by exactly 1 (kernels 1 and 2): x 1 = x for every x.
+//    COS[0][x] = cos(0) = 1, cu[j] = 1 for j >= 1 and cucv[k] = 1 where u
+//    and v are both nonzero (the launchers refuse tables where these are
+//    not 1).
 //  - The first add of a sum, onto +0: +0 + t = t but for the sign of a
 //    zero.  The first term is stored instead.
 //  - Zero inputs: a zero sample or coefficient makes every term of its k
@@ -143,11 +139,45 @@
 //    on photographs the kernel waits on memory, and the warps keep its
 //    loads in flight.  The lane stores its column of int32 samples, each
 //    row's 8 lanes one 32-byte sector.
+//  - idct_planes_rgb: bytes on photographs, the same 37.8 MB as
+//    idct_planes_exact's, 0.011 ms; float32 adds on dense blocks: per
+//    nonzero coefficient its 64 adds and one product per distinct
+//    |M[.][k]| (384 over the 64 k; chip_smoke.py: rgb_inv_ops), on noise
+//    at quality 100 about 0.013 ms at 33.5e12 separate FMUL/FADD a second.
+//    Design: the basis is mirror-symmetric bit for bit, M[8 y + 7 - x][k]
+//    = (-1)^u M[p][k] and M[8 (7 - y) + x][k] = (-1)^v M[p][k]
+//    (exact_cuda makes no table of another basis), and fl(d (-m)) = -fl(d m), so one
+//    product serves the 4 samples of a mirror quad (y, x), (y, 7 - x),
+//    (7 - y, x), (7 - y, 7 - x) as an add of +-t with the same bits: 16
+//    products and 64 adds a coefficient of a block (the first design, a
+//    lane a column with the whole basis in shared memory: 64 and 64, and 9
+//    shared loads for every 16 float operations, which bound it).  A warp
+//    takes 8 blocks; lane 8 b + r loads row r of blocks b and b + 4,
+//    dequantizes them into the warp's tile as float32 (blocks 2 p and
+//    2 p + 1 side by side) and the warp ORs the 8 blocks' nonzero
+//    coefficients into one uniform mask.  Lane 8 p + j keeps 16 sums (the
+//    4 samples of quads j and j + 8 of blocks 2 p and 2 p + 1, 16
+//    independent add chains) and takes two coefficients a step: one
+//    16-byte shared load of d[k], d[k + 1] of its two blocks, one of its
+//    two quads' M[p][k], M[p][k + 1] (the 16 quads' 1,024 values stay in
+//    shared memory: 64 registers of basis held a draft to 16 warps an SM),
+//    8 products and 32 adds.  What the warp reads from shared memory a
+//    term, 32 lanes' 16 bytes, serves 8 blocks: 64 bytes a block and term,
+//    where 4 blocks a warp (one quad of two blocks a lane) took 96 and the
+//    loads' data, not the float32 issue, bounded the sums on dense blocks.
+//    Kernel 2's walk: all 64 terms in one branch-free run where the mask
+//    holds kRgbDenseTerms or more, else each behind a uniform branch; k = 0
+//    stores.  The samples go back through the tile, so that two lanes
+//    store each row of 8 (a 32-byte sector) with two 16-byte stores.  One
+//    tile a warp, not a persistent grid: with as many warps as the card
+//    holds looping over the tiles, the last round left most of them idle.
 //
 // No atomics: every output is written by one thread, so the same input
 // gives the same bits on every run.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cstring>
 
 namespace {
 
@@ -162,22 +192,7 @@ constexpr int kDenseTerms = 56;
 // more warps to keep the byte-bound sets' loads in flight
 constexpr int kInvBlocksPerSm = 4;
 
-// The top-left sample of block bi of a component whose MCUs hold v x h
-// blocks in raster order (luma 2 x 2 at 4:2:0: TL, TR, BL, BR).
-__device__ __forceinline__ void block_origin(int bi, int v, int h,
-                                             int mcus_x, int* row,
-                                             int* col) {
-  const int per = v * h;
-  const int m = bi / per;
-  const int r = bi - m * per;
-  const int my = m / mcus_x;
-  const int mx = m - my * mcus_x;
-  const int vy = r / h;
-  *row = (my * v + vy) * 8;
-  *col = (mx * h + (r - vy * h)) * 8;
-}
-
-// The 64-bit mask of the warp's 4 blocks' nonzero entries, bit k = 8 r + u
+// The 64-bit mask of the warp's blocks' nonzero entries, bit k = 8 r + u
 // of lo (k < 32) or hi, from each lane's mask of its row r: warp-uniform.
 __device__ __forceinline__ void union_mask(unsigned row_mask, int r,
                                            unsigned* lo, unsigned* hi) {
@@ -272,15 +287,33 @@ __device__ __forceinline__ int div_exact(int num, int den, float rcp) {
   return __float2int_rz(__fmul_ru(__int2float_rn(num), rcp));
 }
 
+// The float32 whose bits are i.
+__host__ __device__ __forceinline__ float bits_as_float(int i) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(i);
+#else
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+#endif
+}
+
 // 1/d rounded up for div_exact (the smallest float32 at or above it), 0
 // from 2^24 on, in integer arithmetic alone: __frcp_ru would bring FFMA
 // into kernels whose SASS must hold none (chip_smoke.py phase 2).  With
 // 2^e <= d < 2^(e+1) and D = d 2^(23-e), 1/d = (2^47 / D) 2^-(e+24): the
 // quotient, by restoring division, rounded up, is the 24-bit mantissa.
-__device__ __forceinline__ float rcp_up(int d) {
+// Kernels 1 and 2 make their reciprocals with it on the device, kernel 3's
+// launcher on the host: one rule.
+__host__ __device__ __forceinline__ float rcp_up(int d) {
   if (d < 1 || d >= (1 << 24)) return 0.f;
+#ifdef __CUDA_ARCH__
   const int e = 31 - __clz(d);
-  if ((d & (d - 1)) == 0) return __int_as_float((127 - e) << 23);
+#else
+  int e = 0;
+  while (d >> (e + 1)) ++e;
+#endif
+  if ((d & (d - 1)) == 0) return bits_as_float((127 - e) << 23);
   const unsigned den = static_cast<unsigned>(d) << (23 - e);
   unsigned q = 0, rem = 0;
 #pragma unroll 1
@@ -293,9 +326,9 @@ __device__ __forceinline__ float rcp_up(int d) {
     }
   }
   q += rem != 0u;   // in (2^23, 2^24]; 2^24 rounds up to 2^-e
-  return __int_as_float(q == (1u << 24) ? (127 - e) << 23
-                                        : ((126 - e) << 23) |
-                                              static_cast<int>(q - (1u << 23)));
+  return bits_as_float(q == (1u << 24) ? (127 - e) << 23
+                                       : ((126 - e) << 23) |
+                                             static_cast<int>(q - (1u << 23)));
 }
 
 // Tile tile_i's component *c and first block *first; the lane's row (lane
@@ -463,7 +496,7 @@ struct InvArgs {
   InvComp comp[3];
   const void* coeff;      // [N, row_blocks, 64]
   const int32_t* q;       // [ncomp, 64]
-  const float* basis;     // the fast form's [64][64] float32 M[p][k] by k
+  const float* basis;     // the fast form's quads' table (jz_idct_planes_rgb)
   double cosv[64];        // COS[u][x], u * 8 + x (exact mode)
   double cucv[64];        // fl(cu[u] cv[v]), k = 8 v + u (exact mode)
   int nimages, ncomp, mcus_x, row_blocks, level;
@@ -488,100 +521,27 @@ __device__ __forceinline__ void load_coeffs(const int32_t* src, int* c) {
   c[4] = b.x; c[5] = b.y; c[6] = b.z; c[7] = b.w;
 }
 
-// The fast form's basis M[p][k] (p = 8 y + x) in shared memory by k, each
-// row padded to kBasisStride floats so that the 4 blocks of a warp, at
-// different k, read different banks more often.
-constexpr int kBasisStride = 72;
-
-// Kernel 3: lane 8 b + r loads and dequantizes row r of block b, then owns
-// column x = r with 8 accumulators, one per row y, over the block's nonzero
-// coefficients in ascending order: terms d[k] M[8 y + x][k] and s + level
-// (block_transform.inverse_model), each a multiply then an add.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    idct_planes_rgb_kernel(const __grid_constant__ InvArgs a) {
-  __shared__ __align__(16) float tiles[kWarps][kTile * kStride];
-  __shared__ __align__(16) float basis[64 * kBasisStride];
-  __shared__ int qs[3][64];
-  const int t = threadIdx.x;
-  for (int i = t; i < 64 * 64; i += kThreads)
-    basis[(i >> 6) * kBasisStride + (i & 63)] = __ldg(a.basis + i);
-  for (int i = t; i < 64 * a.ncomp; i += kThreads)
-    qs[i >> 6][i & 63] = __ldg(a.q + i);
-  __syncthreads();
-  const int lane = t & 31;
-  float* tile = tiles[t >> 5];
-  const int b = lane >> 3;      // the lane's block in the tile
-  const int r = lane & 7;       // its row (load), then its column x
-  const float level = __int2float_rn(a.level);
-  const int total = a.tiles[0] + a.tiles[1] + a.tiles[2];
-  for (int tile_i = blockIdx.x * kWarps + (t >> 5); tile_i < total;
-       tile_i += gridDim.x * kWarps) {
-    int c = 0, lt = tile_i;
-    while (lt >= a.tiles[c]) lt -= a.tiles[c++];
-    const InvComp& P = a.comp[c];
-    const int f = lt * kTile + b;   // the lane's block
-    const bool live = f < a.nimages * P.nblocks;
-    const int n = live ? f / P.nblocks : 0;
-    const int bi = f - n * P.nblocks;
-    // row r of the block, dequantized: d = c q as a 32-bit integer
-    int d[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) d[u] = 0;
-    if (live)
-      load_coeffs(static_cast<const T*>(a.coeff) +
-                      (static_cast<long long>(n) * a.row_blocks + P.first +
-                       bi) * 64 + r * 8,
-                  d);
-    unsigned row_mask = 0;
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      d[u] = static_cast<int>(static_cast<unsigned>(d[u]) *
-                              static_cast<unsigned>(qs[c][r * 8 + u]));
-      row_mask |= (d[u] != 0 ? 1u : 0u) << u;
-      tile[b * kStride + r * 8 + u] = __int2float_rn(d[u]);
-    }
-    // the block's 64-bit nonzero mask, bit k = 8 v + u, in its 8 lanes
-    unsigned lo = r < 4 ? row_mask << (8 * r) : 0u;
-    unsigned hi = r < 4 ? 0u : row_mask << (8 * (r - 4));
-#pragma unroll
-    for (int s = 1; s < 8; s <<= 1) {
-      lo |= __shfl_xor_sync(kFullMask, lo, s);
-      hi |= __shfl_xor_sync(kFullMask, hi, s);
-    }
-    unsigned long long mask =
-        (static_cast<unsigned long long>(hi) << 32) | lo;
-    __syncwarp();
-    float acc[8];
-#pragma unroll
-    for (int y = 0; y < 8; ++y) acc[y] = 0.0f;
-    while (mask) {
-      const int k = __ffsll(static_cast<long long>(mask)) - 1;
-      mask &= mask - 1;
-      const float dk = tile[b * kStride + k];
-      const float* m = basis + k * kBasisStride + r;
-#pragma unroll
-      for (int y = 0; y < 8; ++y)
-        acc[y] = __fadd_rn(acc[y], __fmul_rn(dk, m[8 * y]));
-    }
-    __syncwarp();  // the tile is loaded again for the next blocks
-    if (!live) continue;
-    int row0, col0;
-    block_origin(bi, P.v, P.h, a.mcus_x, &row0, &col0);
-    int32_t* out = P.out + n * P.plane +
-                   static_cast<long long>(row0) * P.width + col0 + r;
-#pragma unroll
-    for (int y = 0; y < 8; ++y)
-      out[static_cast<long long>(y) * P.width] =
-          __float2int_rz(__fadd_rn(acc[y], level));
-  }
-}
-
 // The divisors of a component's index arithmetic as reciprocals rounded up
 // (div_exact): 1 / nblocks, 1 / (v h), 1 / h.
 struct InvRcp {
   float nb, per, h;
 };
+
+// The offset in its plane of the top-left sample of block bi of component
+// P, whose MCUs hold v x h blocks in raster order (luma 2 x 2 at 4:2:0:
+// TL, TR, BL, BR): MCU m, row vy of it.
+__device__ __forceinline__ long long block_offset(const InvComp& P,
+                                                  int mcus_x, int bi,
+                                                  const InvRcp& rcp,
+                                                  float rcp_mx) {
+  const int m = div_exact(bi, P.v * P.h, rcp.per);
+  const int rb = bi - m * P.v * P.h;
+  const int my = div_exact(m, mcus_x, rcp_mx);
+  const int vy = div_exact(rb, P.h, rcp.h);
+  const int row0 = (my * P.v + vy) * 8;
+  const int col0 = ((m - my * mcus_x) * P.h + (rb - vy * P.h)) * 8;
+  return static_cast<long long>(row0) * P.width + col0;
+}
 
 // The 64 terms of column x (cx[u] = COS[u][x]) of the block whose
 // cucv[k] d[k] are e[0..63] into acc[y], y = 0..7, in ascending k = 8 v + u.
@@ -689,19 +649,288 @@ __global__ void __launch_bounds__(kThreads, kInvBlocksPerSm)
       inverse_terms<true>(a, tile + b * kStride, cx, lo, hi, acc);
     __syncwarp();  // the tile is loaded again for the next blocks
     if (!live) continue;
-    // the block's top-left sample (block_origin's arithmetic)
-    const int m = div_exact(bi, P.v * P.h, rcp[c].per);
-    const int rb = bi - m * P.v * P.h;
-    const int my = div_exact(m, a.mcus_x, rcp_mx);
-    const int vy = div_exact(rb, P.h, rcp[c].h);
-    const int row0 = (my * P.v + vy) * 8;
-    const int col0 = ((m - my * a.mcus_x) * P.h + (rb - vy * P.h)) * 8;
     int32_t* out = P.out + n * P.plane +
-                   static_cast<long long>(row0) * P.width + col0 + r;
+                   block_offset(P, a.mcus_x, bi, rcp[c], rcp_mx) + r;
 #pragma unroll
     for (int y = 0; y < 8; ++y)
       out[static_cast<long long>(y) * P.width] =
           __double2int_rz(__dadd_rn(__dmul_rn(acc[y], 0.25), level));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 3: dequantize, the fast float32 inverse DCT, deblockify
+// ---------------------------------------------------------------------------
+
+// One tile of kRgbTile blocks a warp, kRgbWarps a thread block, as many
+// thread blocks as the tiles fill (not a persistent grid: the card's
+// scheduler starts a thread block where one ends, and no round of tiles is
+// left to a few warps at the end).
+constexpr int kRgbThreads = 128;
+constexpr int kRgbWarps = kRgbThreads / 32;
+constexpr int kRgbTile = 8;
+// thread blocks an SM its registers are held to (64 a thread at most)
+constexpr int kRgbBlocksPerSm = 8;
+// mask bits (of 64) from which a warp takes every term in one straight run
+constexpr int kRgbDenseTerms = 32;
+// The warp's tile, in floats.  Coefficients: row v of the pair p's blocks
+// 2 p and 2 p + 1 at float kPairStride p + kRowStride v, d[k] of block
+// 2 p + s at 2 u + s, so that one 16-byte load gives a lane d[k] and
+// d[k + 1] of both its blocks (k even); the pad after each row and the
+// pairs' offsets put the four pairs' loads of one k in different banks.
+// Then, for the stores, the samples as int32 [8][64], block 2 p + s's rows
+// and halves of a row permuted by p (sample_at).
+constexpr int kRowStride = 20;
+constexpr int kPairStride = 8 * kRowStride + 4;
+constexpr int kRgbTileFloats = 3 * kPairStride + 8 * kRowStride;
+
+// Kernel 3's arguments: kernel 2's layout, with basis the quads' table
+// (jz_idct_planes_rgb), and the reciprocals of the index arithmetic,
+// rounded up, made on the host by rcp_up (not in each of its many thread
+// blocks).
+struct RgbArgs {
+  InvArgs in;
+  InvRcp rcp[3];
+  float rcp_mx;
+};
+
+// Row r of a block's coefficients as loaded (16 bytes of int16, or 32 of
+// int32), so that the load is in flight while the thread block copies its
+// tables; at(u) the coefficient of column u as a 32-bit integer.
+template <typename T>
+struct CoeffRow;
+template <>
+struct CoeffRow<int16_t> {
+  int4 w;
+  __device__ __forceinline__ void load(const int16_t* src) {
+    w = __ldg(reinterpret_cast<const int4*>(src));
+  }
+  __device__ __forceinline__ int at(int u) const {
+    const int v = u < 4 ? (u < 2 ? w.x : w.y) : (u < 6 ? w.z : w.w);
+    return (u & 1) ? v >> 16 : static_cast<int16_t>(v & 0xFFFF);
+  }
+};
+template <>
+struct CoeffRow<int32_t> {
+  int4 a, b;
+  __device__ __forceinline__ void load(const int32_t* src) {
+    a = __ldg(reinterpret_cast<const int4*>(src));
+    b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+  }
+  __device__ __forceinline__ int at(int u) const {
+    const int4& p = u < 4 ? a : b;
+    const int j = u & 3;
+    return j == 0 ? p.x : (j == 1 ? p.y : (j == 2 ? p.z : p.w));
+  }
+};
+
+// Row r of block f of component P, and off, the element offset of the
+// block's top-left sample in P's planes (-1 past P's last block).
+template <typename T>
+struct RgbRow {
+  CoeffRow<T> row;
+  long long off;
+};
+
+template <typename T>
+__device__ __forceinline__ void rgb_load(const InvArgs& a, const InvComp& P,
+                                         const InvRcp& rcp, float rcp_mx,
+                                         int f, int r, RgbRow<T>* L) {
+  L->off = -1;
+  L->row = CoeffRow<T>{};
+  if (f >= a.nimages * P.nblocks) return;
+  const int n = div_exact(f, P.nblocks, rcp.nb);
+  const int bi = f - n * P.nblocks;
+  L->row.load(static_cast<const T*>(a.coeff) +
+              (static_cast<long long>(n) * a.row_blocks + P.first + bi) *
+                  64 +
+              r * 8);
+  L->off = n * P.plane + block_offset(P, a.mcus_x, bi, rcp, rcp_mx);
+}
+
+// A row dequantized (d = c q as a 32-bit integer) into dst as float32, at
+// dst[2 (u ^ swap)] for column u (a pair of odd p writes its columns in
+// swapped pairs: the warp's stores of one step fall in 32 banks); returns
+// the row's nonzero mask.
+template <typename T>
+__device__ __forceinline__ unsigned dequant_row(const CoeffRow<T>& row,
+                                                const int* q, float* dst,
+                                                int swap) {
+  int d[8];
+  unsigned mask = 0;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    d[u] = static_cast<int>(static_cast<unsigned>(row.at(u)) *
+                            static_cast<unsigned>(q[u]));
+    mask |= (d[u] != 0 ? 1u : 0u) << u;
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    dst[2 * (u ^ swap)] = __int2float_rn(swap ? d[u ^ 1] : d[u]);
+  return mask;
+}
+
+// Term t = d M[p][k] of a mirror quad's base sample p into its 4 sums:
+// acc[0] (y, x), acc[1] (y, 7 - x), acc[2] (7 - y, x), acc[3] (7 - y,
+// 7 - x).  The basis is mirror-symmetric bit for bit, M[8 y + 7 - x][k] =
+// (-1)^u M[p][k] and M[8 (7 - y) + x][k] = (-1)^v M[p][k], and rounding
+// to nearest is symmetric, so each mirrored term is t or -t exactly; the
+// k = 0 term is stored in place of its add onto +0.
+__device__ __forceinline__ void quad_add(float* acc, float t, int k, int u,
+                                         int v) {
+  if (k == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = t;
+    return;
+  }
+  acc[0] = __fadd_rn(acc[0], t);
+  acc[1] = (u & 1) ? __fsub_rn(acc[1], t) : __fadd_rn(acc[1], t);
+  acc[2] = (v & 1) ? __fsub_rn(acc[2], t) : __fadd_rn(acc[2], t);
+  acc[3] = ((u ^ v) & 1) ? __fsub_rn(acc[3], t) : __fadd_rn(acc[3], t);
+}
+
+// The terms of the lane's two mirror quads of the pair's two blocks into
+// acc[block][quad][sample], in ascending k = 8 v + u, two k a step:
+// e[5 v + u / 2] holds d[k], d[k + 1] of both blocks, m[8 (k / 2)] the two
+// quads' M[p][k], M[p][k + 1].  kSkip: only where the mask's bit k is set
+// (a coefficient nonzero in one of the warp's blocks), each behind a
+// uniform branch (a row of 8 and a step of 2 behind one more); else all 64
+// in one straight run.
+template <bool kSkip>
+__device__ __forceinline__ void rgb_terms(const float4* e, const float4* m,
+                                          unsigned lo, unsigned hi,
+                                          float (*acc)[2][4]) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[s][h][i] = 0.0f;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const unsigned row = ((v < 4 ? lo : hi) >> (8 * (v & 3))) & 0xFFu;
+    if (kSkip && row == 0u) continue;
+#pragma unroll
+    for (int u = 0; u < 8; u += 2) {
+      const unsigned two = (row >> u) & 3u;
+      if (kSkip && two == 0u) continue;
+      const int k = 8 * v + u;
+      const float4 dk = e[5 * v + u / 2];
+      const float4 mk = m[8 * (k / 2)];
+      if (!kSkip || (two & 1u)) {
+        quad_add(acc[0][0], __fmul_rn(dk.x, mk.x), k, u, v);
+        quad_add(acc[1][0], __fmul_rn(dk.y, mk.x), k, u, v);
+        quad_add(acc[0][1], __fmul_rn(dk.x, mk.z), k, u, v);
+        quad_add(acc[1][1], __fmul_rn(dk.y, mk.z), k, u, v);
+      }
+      if (!kSkip || (two & 2u)) {
+        quad_add(acc[0][0], __fmul_rn(dk.z, mk.y), k + 1, u + 1, v);
+        quad_add(acc[1][0], __fmul_rn(dk.w, mk.y), k + 1, u + 1, v);
+        quad_add(acc[0][1], __fmul_rn(dk.z, mk.w), k + 1, u + 1, v);
+        quad_add(acc[1][1], __fmul_rn(dk.w, mk.w), k + 1, u + 1, v);
+      }
+    }
+  }
+}
+
+// Where sample (y, x) of the tile's block ob sits in the samples tile: its
+// rows permuted by 2 and its row halves swapped by the block's pair, so
+// that the stores of one sum fall in 32 banks.
+__device__ __forceinline__ int sample_at(int ob, int y, int x) {
+  return ob * 64 + 8 * (y ^ ((ob >> 2) << 1)) + (x ^ (((ob >> 1) & 1) << 2));
+}
+
+// Kernel 3 (see the header): lane 8 b + r loads row r of blocks b and
+// b + 4; lane 8 p + j sums the mirror quads j and j + 8 of blocks 2 p and
+// 2 p + 1 over the union of the 8 blocks' nonzero coefficients; two lanes
+// store each row of 8 samples.
+template <typename T>
+__global__ void __launch_bounds__(kRgbThreads, kRgbBlocksPerSm)
+    idct_planes_rgb_kernel(const __grid_constant__ RgbArgs g) {
+  const InvArgs& a = g.in;
+  __shared__ __align__(16) float tiles[kRgbWarps][kRgbTileFloats];
+  // the quads' basis, two k a float4: mq[8 (k / 2) + j] = (M[p][k],
+  // M[p][k + 1], M[p'][k], M[p'][k + 1]) for quads j and j + 8, p = 8 y + x
+  // of quad q = 4 y + x
+  __shared__ __align__(16) float4 mq[32 * 8];
+  __shared__ __align__(16) int qs[3][64];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int b = lane >> 3;      // loads: row r of the tile's blocks b, b + 4
+  const int r = lane & 7;
+  const int total = a.tiles[0] + a.tiles[1] + a.tiles[2];
+  const int tile_i = blockIdx.x * kRgbWarps + (t >> 5);
+  int c = 0, lt = tile_i;
+  while (c < 2 && lt >= a.tiles[c]) lt -= a.tiles[c++];
+  const InvComp& P = a.comp[c];
+  // the warp's rows first: their loads are in flight while the thread
+  // block copies its tables
+  RgbRow<T> row0, row1;
+  if (tile_i < total) {
+    rgb_load<T>(a, P, g.rcp[c], g.rcp_mx, lt * kRgbTile + b, r, &row0);
+    rgb_load<T>(a, P, g.rcp[c], g.rcp_mx, lt * kRgbTile + b + 4, r, &row1);
+  }
+  for (int i = t; i < 32 * 8; i += kRgbThreads)
+    mq[i] = __ldg(reinterpret_cast<const float4*>(a.basis) + i);
+  for (int i = t; i < 64 * a.ncomp; i += kRgbThreads)
+    qs[i >> 6][i & 63] = __ldg(a.q + i);
+  __syncthreads();
+  if (tile_i >= total) return;
+  float* tile = tiles[t >> 5];
+  int* samples = reinterpret_cast<int*>(tile);
+  // rows r of blocks b and b + 4 into the tile: block 2 p + s at pair p
+  const int4 q0 = *reinterpret_cast<const int4*>(&qs[c][8 * r]);
+  const int4 q1 = *reinterpret_cast<const int4*>(&qs[c][8 * r + 4]);
+  const int qv[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+  float* dst = tile + (b >> 1) * kPairStride + kRowStride * r + (b & 1);
+  const unsigned row_mask =
+      dequant_row(row0.row, qv, dst, b >> 1) |
+      dequant_row(row1.row, qv, dst + 2 * kPairStride, b >> 1);
+  unsigned lo, hi;
+  union_mask(row_mask, r, &lo, &hi);
+  __syncwarp();
+  // sums: lane 8 p + j takes quads j (y = j / 4, x = j % 4) and j + 8
+  // (y + 2) of blocks 2 p and 2 p + 1
+  const int pair = lane >> 3;
+  const int j = lane & 7;
+  float acc[2][2][4];
+  const float4* e =
+      reinterpret_cast<const float4*>(tile + pair * kPairStride);
+  if (__popc(lo) + __popc(hi) >= kRgbDenseTerms)
+    rgb_terms<false>(e, mq + j, lo, hi, acc);
+  else
+    rgb_terms<true>(e, mq + j, lo, hi, acc);
+  __syncwarp();  // the tile takes the samples now
+  const float level = __int2float_rn(a.level);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int y = (j >> 2) + 2 * h, x = j & 3;
+        samples[sample_at(2 * pair + s, (i & 2) ? 7 - y : y,
+                          (i & 1) ? 7 - x : x)] =
+            __float2int_rz(__fadd_rn(acc[s][h][i], level));
+      }
+    }
+  }
+  __syncwarp();
+  // row 8 ob + orow of the tile's samples, columns 4 hf to 4 hf + 3: a
+  // store fills 16 rows' 32-byte sectors
+#pragma unroll
+  for (int k4 = 0; k4 < 4; ++k4) {
+    const int ob = 2 * k4 + (lane >> 4);
+    const int orow = (lane >> 1) & 7;
+    const int hf = lane & 1;
+    const long long off = __shfl_sync(
+        kFullMask, k4 < 2 ? row0.off : row1.off, 8 * (ob & 3));
+    const int4 w = *reinterpret_cast<const int4*>(
+        samples + sample_at(ob, orow, 4 * hf));
+    if (off >= 0)
+      *reinterpret_cast<int4*>(
+          P.out + off + static_cast<long long>(orow) * P.width + 4 * hf) =
+          w;
   }
 }
 
@@ -722,19 +951,19 @@ cudaError_t grid_for(K kernel, long long units, int* grid) {
 }
 
 template <typename K>
-int kernel_info(K kernel, int* info) {
+int kernel_info(K kernel, int* info, int threads = kThreads) {
   cudaFuncAttributes attr;
   cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   int per_sm = 0;
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
+                                                      threads, 0);
   if (e != cudaSuccess) return static_cast<int>(e);
   info[0] = attr.numRegs;
   info[1] = per_sm;
   info[2] = static_cast<int>(attr.sharedSizeBytes);
   info[3] = static_cast<int>(attr.localSizeBytes);
-  info[4] = kThreads;
+  info[4] = threads;
   return 0;
 }
 
@@ -877,22 +1106,46 @@ int jz_idct_planes_exact(int elem_bytes, const long long* desc,
 
 // Kernel 3 (idct_planes_rgb_kernel: float32, the sum over the nonzero
 // coefficients of d[k] M[p][k] in ascending k, then + level) on `stream`,
-// with the layout of jz_idct_planes_exact.  basis: the [64][64] float32
-// inverse basis transposed, basis[k * 64 + p] = M[p][k], in device memory.
+// with the layout of jz_idct_planes_exact.  basis: the 16 mirror quads'
+// rows of the [64][64] float32 inverse basis, quads j and j + 8 and two k
+// a float4, basis[32 (k / 2) + 4 j + 2 h + k % 2] = M[p][k] for quad
+// q = j + 8 h, p = 8 (q / 4) + q % 4 (exact_cuda.quad_basis), 1,024 floats
+// in device memory, 16-byte aligned, from a basis mirror-symmetric bit for
+// bit (the header; exact_cuda.quad_basis makes no table of another).
 int jz_idct_planes_rgb(int elem_bytes, const long long* desc,
                        const void* basis, const void* coeff, const void* q,
                        void* o0, void* o1, void* o2, void* stream) {
   if (desc[0] <= 0) return 0;
-  InvArgs a;
+  RgbArgs g;
   long long tiles = 0;
-  const int rc = inverse_layout(elem_bytes, desc, coeff, q, o0, o1, o2, &a,
-                                &tiles);
+  const int rc = inverse_layout(elem_bytes, desc, coeff, q, o0, o1, o2,
+                                &g.in, &tiles);
   if (rc) return rc;
-  a.basis = static_cast<const float*>(basis);
+  g.in.basis = static_cast<const float*>(basis);
+  for (int c = 0; c < 3; ++c) {
+    const InvComp& P = g.in.comp[c];
+    g.rcp[c] = {rcp_up(P.nblocks), rcp_up(P.v * P.h), rcp_up(P.h)};
+  }
+  g.rcp_mx = rcp_up(g.in.mcus_x);
+  // the tiles again, of kRgbTile blocks, not kernel 2's kTile
+  tiles = 0;
+  for (int c = 0; c < g.in.ncomp; ++c) {
+    g.in.tiles[c] = static_cast<int>(
+        (static_cast<long long>(g.in.nimages) * g.in.comp[c].nblocks +
+         kRgbTile - 1) /
+        kRgbTile);
+    tiles += g.in.tiles[c];
+  }
+  const long long blocks = (tiles + kRgbWarps - 1) / kRgbWarps;
+  if (blocks > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return elem_bytes == 2
-             ? launch(idct_planes_rgb_kernel<int16_t>, tiles, a, s)
-             : launch(idct_planes_rgb_kernel<int32_t>, tiles, a, s);
+  if (elem_bytes == 2)
+    idct_planes_rgb_kernel<int16_t>
+        <<<static_cast<unsigned>(blocks), kRgbThreads, 0, s>>>(g);
+  else
+    idct_planes_rgb_kernel<int32_t>
+        <<<static_cast<unsigned>(blocks), kRgbThreads, 0, s>>>(g);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // What the card reports for kernel `which` (0: fdct_quantize_exact int8,
@@ -912,9 +1165,11 @@ int jz_exact_kernel_info(int which, int* info) {
     case 3:
       return kernel_info(idct_planes_exact_kernel<int32_t>, info);
     case 4:
-      return kernel_info(idct_planes_rgb_kernel<int16_t>, info);
+      return kernel_info(idct_planes_rgb_kernel<int16_t>, info,
+                         kRgbThreads);
     case 5:
-      return kernel_info(idct_planes_rgb_kernel<int32_t>, info);
+      return kernel_info(idct_planes_rgb_kernel<int32_t>, info,
+                         kRgbThreads);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

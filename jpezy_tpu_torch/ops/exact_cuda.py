@@ -16,7 +16,11 @@ jpezy_tpu/codec/jax_codec.py:_decode_fused_batch.  idct_planes_rgb_cuda
 is the same walk with the fast precision's float32 arithmetic (the rgb
 transport's fast decode, the other half of _decode_fused_batch): equal
 to block_transform.idct_planes_rgb_model bit for bit, and within 1 of
-idct_planes_rgb_plain's matrix product, which sums in another order.
+idct_planes_rgb_plain's matrix product, which sums in another order.  Its
+kernel takes one product for the four samples of a mirror quad, which is
+exact only for a basis that is mirror-symmetric bit for bit
+(mirror_symmetric): quad_basis, which makes the kernel's table on the host
+when this module is imported, refuses any other.
 
 Both make the oracle's roundings and nothing else: every multiply and add
 a separate IEEE operation in the oracle's order, the tables the port's
@@ -32,14 +36,15 @@ through them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import numpy as np
 import torch
 
-from ..constants import EXACT_TABLES
+from ..constants import EXACT_TABLES, codec_constants
 from .cuda_build import KernelLibrary, check_tensors
-from .transform_cuda import _inverse_basis_t, _layout
+from .transform_cuda import _layout
 
 
 def _bind(lib) -> None:
@@ -81,6 +86,52 @@ def kernel_info() -> dict:
                      lib.jz_exact_kernel_info(i, info.ctypes.data))
         out[name] = tuple(int(v) for v in info)
     return out
+
+
+def mirror_symmetric(basis: np.ndarray) -> bool:
+    """Whether a [64, 64] float32 inverse basis M[p][k] (p = 8 y + x,
+    k = 8 v + u) is mirror-symmetric bit for bit: M[8 y + 7 - x][k] =
+    (-1)^u M[p][k] and M[8 (7 - y) + x][k] = (-1)^v M[p][k] for every entry.
+    Negation is exact, and rounding to nearest is symmetric, so then
+    fl(d M[p'][k]) = +-fl(d M[p][k]) at the mirrored samples p'."""
+    m = np.asarray(basis)
+    if m.dtype != np.float32 or m.shape != (64, 64):
+        return False
+    p, k = np.arange(64), np.arange(64)
+    flip_x, flip_y = 8 * (p // 8) + 7 - p % 8, 8 * (7 - p // 8) + p % 8
+    sign_u = np.where(k % 2 == 1, -1, 1).astype(np.float32)
+    sign_v = np.where(k // 8 % 2 == 1, -1, 1).astype(np.float32)
+    bits = m.view(np.uint32)
+    return (np.array_equal(bits[flip_x], (m * sign_u).view(np.uint32))
+            and np.array_equal(bits[flip_y], (m * sign_v).view(np.uint32)))
+
+
+def quad_basis(basis: np.ndarray) -> np.ndarray:
+    """The rows of a [64, 64] inverse basis that the fast kernel reads, in
+    its layout: the 16 mirror quads' base samples p = 8 y + x (y, x < 4,
+    quad q = 4 y + x), quads j and j + 8 and two k together, [32, 8, 2, 2]
+    with Q[k // 2, j, h, k % 2] = M[p][k] for q = j + 8 h.  Raises for a
+    basis that is not mirror-symmetric bit for bit: the kernel's one
+    product a mirror quad would not give that basis's sums."""
+    if not mirror_symmetric(basis):
+        raise ValueError("quad_basis: the inverse basis is not a [64, 64] "
+                         "float32 table mirror-symmetric bit for bit, which "
+                         "the kernel's one product a mirror quad needs")
+    q = np.arange(16)
+    rows = np.asarray(basis, np.float32)[8 * (q // 4) + q % 4]   # [q, k]
+    return np.ascontiguousarray(
+        rows.reshape(2, 8, 32, 2).transpose(2, 1, 0, 3))
+
+
+# The fast form's inverse basis M[p][k] (ops/dct.py's, at float32) and the
+# kernel's table of it, made and checked on the host once.
+INV_BASIS = codec_constants("cpu")["inv64_f32"].numpy()
+_INV_QUADS = quad_basis(INV_BASIS)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_quads(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_INV_QUADS).to(device)
 
 
 def fdct_quantize_exact_cuda(y, cb, cr, yqt, cqt, *, gray: bool = False,
@@ -128,8 +179,8 @@ def fdct_quantize_exact_cuda(y, cb, cr, yqt, cqt, *, gray: bool = False,
 def _inverse(fn: str, coeff_all, qtab, *, geom, level: int, gray: bool,
              sizes, fast: bool = False):
     """Check the arguments of an inverse kernel, allocate its planes and
-    launch it: exact mode's, or with `fast` the float32 form's on the
-    inverse basis (transposed, on the device).  Returns the planes."""
+    launch it: exact mode's, or with `fast` the fast form's.  Returns the
+    planes."""
     ncomp = len(sizes)
     if not 1 <= ncomp <= 3 or len(geom) != ncomp:
         raise ValueError(f"{fn}: geom and sizes must name the same 1 to 3 "
@@ -173,7 +224,7 @@ def _inverse(fn: str, coeff_all, qtab, *, geom, level: int, gray: bool,
         if fast:
             rc = lib.jz_idct_planes_rgb(
                 _COEFF_BYTES[src.dtype], desc.ctypes.data,
-                _inverse_basis_t(dev).data_ptr(), src.data_ptr(),
+                _device_quads(dev).data_ptr(), src.data_ptr(),
                 q.data_ptr(), *ptrs, stream)
         else:
             rc = lib.jz_idct_planes_exact(

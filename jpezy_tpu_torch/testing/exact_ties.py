@@ -185,14 +185,16 @@ def mixed_sample_groups(groups: int, seed: int) -> np.ndarray:
                        forward_tie_blocks(256, seed + 2)], groups, rng)
 
 
-def mixed_coefficient_groups(groups: int, seed: int,
-                             level: int = 128) -> np.ndarray:
+def mixed_coefficient_groups(groups: int, seed: int, level: int = 128,
+                             ties=inverse_tie_blocks) -> np.ndarray:
     """Dequantized coefficient blocks [4 groups, 64] int32, in the groups of
     4 that idct_planes_exact's warps take together (4 consecutive blocks
     of a component): every other group a dense block (every coefficient
     nonzero) beside sparse blocks (1 to 3 nonzero), all-zero blocks,
-    blocks whose partial sums cancel to 0 and tie blocks at `level`, the
-    others sparse, zero and cancelling blocks alone (see _in_groups)."""
+    blocks whose partial sums cancel to 0 and tie blocks at `level`
+    (ties(n, seed, level): this module's, or the fast IDCT's of
+    testing/rgb_ties), the others sparse, zero and cancelling blocks alone
+    (see _in_groups)."""
     rng = np.random.default_rng(seed)
     n = 64
     scale = level // 128
@@ -204,4 +206,4 @@ def mixed_coefficient_groups(groups: int, seed: int,
         blk[k] = rng.integers(-1024, 1025, len(k)) * scale
     return _in_groups([dense, sparse, np.zeros((1, 64), np.int32),
                        cancelling_coefficients(n, seed + 1).astype(np.int32),
-                       inverse_tie_blocks(512, seed + 2, level)], groups, rng)
+                       ties(512, seed + 2, level)], groups, rng)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where exact mode's two kernels spend their time, on one CUDA card.
+"""Where exact mode's two kernels and the fast rgb IDCT spend their time,
+on one CUDA card.
 
     python3 scripts/exact_phases.py [TREE]
 
@@ -10,7 +11,8 @@ launches after a warm-up, in two rounds), beside the first designs of
 both kernels (scripts/previous_designs.py), on the main path's 16x512x512
 batch (tests/imagegen; the forward on its int8 planes at Annex K, the
 inverse on the exact forward's coefficients as the rgb transport uploads
-them, int16) and on 16 noise images at quality 100 (dense blocks):
+them, int16), on the same images at quality 95 and on 16 noise images at
+quality 100 (dense blocks):
 
   full            the source as it is
   all straight    every warp takes the branch-free run of all 64 terms
@@ -23,11 +25,21 @@ them, int16) and on 16 noise images at quality 100 (dense blocks):
   no terms        the forward's 64-term sums cut out (wrong output)
   no bounds       the inverse without its launch bounds' thread blocks
                   an SM
+  rgb dense N     the rgb IDCT's warps take the branch-free run from N
+                  mask bits (the source: kRgbDenseTerms; 0 every warp, 65
+                  none)
+  rgb 256 threads the rgb IDCT in thread blocks of 256 (registers held
+                  for 4 an SM)
+  rgb no loads    the rgb IDCT's terms read d and M once, not a shared load
+                  a step (wrong output)
+  rgb one add     one add a term, not the 4 of a mirror quad (wrong output)
+  rgb no terms    the rgb IDCT without its sums (wrong output)
+
+The rgb variants time the rgb IDCT alone, beside its first design.
 
 With TREE (another checkout, e.g. the parent commit unpacked with
 `git archive` under build/), its exact_transforms.cu is built too and its
-three kernels timed in the same turns, the fast rgb IDCT
-(idct_planes_rgb) beside this source's.
+three kernels timed in the same turns.
 
 The variants marked wrong serve timing only; every other variant (and
 TREE's source) is held bit for bit to the plain float64 forms on the
@@ -78,7 +90,38 @@ def _variants(src: str) -> dict:
              "      forward_terms<true>(a, tile + b * kStride, cj, lo, hi, "
              "acc);\n")
     bounds = "constexpr int kInvBlocksPerSm = 4;"
-    return {
+    rgb_dense = "constexpr int kRgbDenseTerms = 32;"
+    rgb_threads = ("constexpr int kRgbThreads = 128;", "constexpr int "
+                   "kRgbBlocksPerSm = 8;")
+    rgb = {f"rgb dense {n}": (cut(src, rgb_dense, f"constexpr int "
+                                  f"kRgbDenseTerms = {n};"), True)
+           for n in (0, 16, 24, 40, 48, 56, 65)}
+    rgb_loads = ("      const float4 dk = e[5 * v + u / 2];\n"
+                 "      const float4 mk = m[8 * (k / 2)];\n")
+    rgb_adds = ("  acc[0] = __fadd_rn(acc[0], t);\n"
+                "  acc[1] = (u & 1) ? __fsub_rn(acc[1], t) : "
+                "__fadd_rn(acc[1], t);\n"
+                "  acc[2] = (v & 1) ? __fsub_rn(acc[2], t) : "
+                "__fadd_rn(acc[2], t);\n"
+                "  acc[3] = ((u ^ v) & 1) ? __fsub_rn(acc[3], t) : "
+                "__fadd_rn(acc[3], t);\n")
+    rgb_sums = ("  if (__popc(lo) + __popc(hi) >= kRgbDenseTerms)\n"
+                "    rgb_terms<false>(e, mq + j, lo, hi, acc);\n"
+                "  else\n"
+                "    rgb_terms<true>(e, mq + j, lo, hi, acc);\n")
+    return {**rgb,
+        "rgb no loads": (cut(src, rgb_loads,
+                             "      const float4 dk = e[0];\n"
+                             "      const float4 mk = m[0];\n"), False),
+        "rgb one add": (cut(src, rgb_adds,
+                            "  acc[0] = __fadd_rn(acc[0], t);\n"), False),
+        "rgb no terms": (cut(src, rgb_sums,
+                             "  for (int i = 0; i < 16; ++i)\n"
+                             "    acc[i / 8][i / 4 % 2][i % 4] = e[i].x;\n"),
+                         False),
+        "rgb 256 threads": (cut(cut(src, rgb_threads[0], "constexpr int "
+                                    "kRgbThreads = 256;"), rgb_threads[1],
+                                "constexpr int kRgbBlocksPerSm = 4;"), True),
         "full": (src, True),
         "all straight": (cut(src, dense, "constexpr int kDenseTerms = 0;"),
                          True),
@@ -155,8 +198,11 @@ def main() -> int:
     annex_k = (c["y_quant"], c["c_quant"])
     q100 = tuple(torch.from_numpy(t).to(dev)
                  for t in T.scale_quant_tables(100))
-    sets = {"main": (planes(np.stack([make_test_image(H, W, seed=1000 + i)
-                                      for i in range(BATCH)])), annex_k),
+    main = planes(np.stack([make_test_image(H, W, seed=1000 + i)
+                            for i in range(BATCH)]))
+    q95 = tuple(torch.from_numpy(t).to(dev)
+                for t in T.scale_quant_tables(95))
+    sets = {"main": (main, annex_k), "quality 95": (main, q95),
             "noise q100": (planes(np.random.default_rng(17).integers(
                 0, 256, (BATCH, H, W, 3), dtype=np.uint8)), q100)}
     my, mx = H // 16, W // 16
@@ -233,7 +279,18 @@ def main() -> int:
                     coeff, qtab, geom=kw["geom"], level=kw["level"],
                     gray=kw["gray"], sizes=kw["sizes"]),
                     "idct_exact_first_kernel"))
+            rows.setdefault(f"rgb inverse, {s}, first design", []).append(
+                kernel_ms(lambda: previous_designs.idct_planes_rgb_first(
+                    coeff, qtab, geom=kw["geom"], level=kw["level"],
+                    gray=kw["gray"], sizes=kw["sizes"]),
+                    "idct_rgb_first_kernel"))
             for name, lib in libs.items():
+                if name.startswith("rgb"):
+                    rows.setdefault(f"rgb inverse, {s}, {name}", []).append(
+                        kernel_ms(with_lib(lib, lambda: BT.idct_planes_rgb(
+                            coeff, precision="fast", **kw)),
+                            "idct_planes_rgb_kernel"))
+                    continue
                 rows.setdefault(f"forward, {s}, {name}", []).append(
                     kernel_ms(with_lib(lib, lambda: BT.fdct_quantize_exact(
                         *p, gray=False, rounded=False, qtables=qt)),

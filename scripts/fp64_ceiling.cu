@@ -8,8 +8,11 @@
 // (both operations two register operands).  The launch holds exactly `blocks_per_sm`
 // thread blocks of 256 threads on every SM (dynamic shared memory caps
 // the rest), to read the rate at a kernel's occupancy and at the full 64
-// warps.  scripts/fp64_ceiling.py binds it; nothing in the package calls
-// it.
+// warps.  The float32 rate of separate FMUL and FADD likewise
+// (jz_fp32_chains; the fast rgb IDCT may not contract either): x = x m +
+// y, and the rgb IDCT's step, one product into four adds (t = x m, then
+// a[j] += t for 4 sums a chain).  scripts/fp64_ceiling.py binds it;
+// nothing in the package calls it.
 #include <cuda_runtime.h>
 
 namespace {
@@ -42,6 +45,69 @@ __global__ void __launch_bounds__(kThreads)
   if (s == -1.0) out[0] = s;  // never true: keeps the chains live
 }
 
+// float32: kForm 0, x = x m + y; kForm 1, t = x m, a[j] += t for j < 4
+// and x = t + y (one product into four adds, and the chain carried on)
+template <int kForm>
+__global__ void __launch_bounds__(kThreads)
+    fp32_chains_kernel(float* out, int iters, float m) {
+  float x[kChains], y[kChains], a[kChains][4];
+#pragma unroll
+  for (int i = 0; i < kChains; ++i) {
+    x[i] = (blockIdx.x * kThreads + threadIdx.x) * 1e-9f + i;
+    y[i] = __fadd_rn(0.5f, x[i] * 1e-12f);   // in a register, not uniform
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[i][j] = y[i] * j;
+  }
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int i = 0; i < kChains; ++i) {
+      const float t = __fmul_rn(x[i], m);
+      if (kForm == 1) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) a[i][j] = __fadd_rn(a[i][j], t);
+      }
+      x[i] = __fadd_rn(t, y[i]);
+    }
+  }
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kChains; ++i) {
+    s = __fadd_rn(s, x[i]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s = __fadd_rn(s, a[i][j]);
+  }
+  if (s == -1.0f) out[0] = s;  // never true: keeps the chains live
+}
+
+// The dynamic shared memory that leaves room for exactly blocks_per_sm
+// thread blocks of kernel on an SM, or a CUDA error code.
+template <typename K>
+cudaError_t occupy(K kernel, int blocks_per_sm, int* smem, int* grid) {
+  int dev = 0, sms = 0, smem_sm = 0, reserved = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (e != cudaSuccess) return e;
+  // a whole number of KB, so that the allocation's granularity cannot
+  // leave room for one thread block fewer
+  *smem = (smem_sm / blocks_per_sm - reserved) / 1024 * 1024;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           *smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, *smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm != blocks_per_sm) return cudaErrorInvalidConfiguration;
+  *grid = sms * blocks_per_sm;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -56,34 +122,31 @@ int jz_fp64_chains(int form, int blocks_per_sm, int iters, void* out,
   void (*kernel)(double*, int, double, double) =
       form == 0 ? fp64_chains_kernel<0>
                 : (form == 1 ? fp64_chains_kernel<1> : fp64_chains_kernel<2>);
-  int dev = 0, sms = 0, smem_sm = 0, reserved = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(
-        &smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(
-        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
   if (blocks_per_sm < 1 || iters < 1 || form < 0 || form > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  // a whole number of KB, so that the allocation's granularity cannot
-  // leave room for one thread block fewer
-  const int smem = (smem_sm / blocks_per_sm - reserved) / 1024 * 1024;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, smem);
+  int smem = 0, grid = 0;
+  const cudaError_t e = occupy(kernel, blocks_per_sm, &smem, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (per_sm != blocks_per_sm)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int grid = sms * blocks_per_sm;
   *ops = 2ll * kChains * iters * kThreads * grid;
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<double*>(out), iters, 0.999999, 1e-6);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 chains of `form` (0 or 1, see fp32_chains_kernel), as
+// jz_fp64_chains; *ops receives the float32 operations issued.
+int jz_fp32_chains(int form, int blocks_per_sm, int iters, void* out,
+                   long long* ops, void* stream) {
+  void (*kernel)(float*, int, float) =
+      form == 0 ? fp32_chains_kernel<0> : fp32_chains_kernel<1>;
+  if (blocks_per_sm < 1 || iters < 1 || form < 0 || form > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int smem = 0, grid = 0;
+  const cudaError_t e = occupy(kernel, blocks_per_sm, &smem, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *ops = (form == 0 ? 2ll : 6ll) * kChains * iters * kThreads * grid;
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(out), iters, 0.999999f);
   return static_cast<int>(cudaGetLastError());
 }
 

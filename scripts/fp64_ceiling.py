@@ -3,7 +3,10 @@ DMUL/DADD, read at a chosen occupancy and operand form
 (scripts/fp64_ceiling.cu: FORMS), with the SM clock nvidia-smi reports
 while it runs.  chip_smoke.py phase 6 prints
 it beside the data sheet's 16.75e12 a second, the rate of the exact
-kernels' bound.  Raises without a card."""
+kernels' bound; and the float32 rate of separate FMUL/FADD (FORMS32,
+rate(..., fp32=True)), beside 33.5e12 a second, the rate of the fast rgb
+IDCT's bound.
+Raises without a card."""
 from __future__ import annotations
 
 import ctypes
@@ -21,13 +24,17 @@ from jpezy_tpu_torch.ops.cuda_build import KernelLibrary
 FORMS = ("x m + c, one register operand each",
          "x m + y, the add's two operands in registers",
          "x y + y, both operations two register operands")
+# the float32 chains' forms, in jz_fp32_chains' order
+FORMS32 = ("float32 x m + y",
+           "float32 one product into four adds (the rgb IDCT's step)")
 
 
 def _bind(lib) -> None:
     lib.jz_fp64_chains.restype = ctypes.c_int
-    lib.jz_fp64_chains.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                   ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.c_void_p]
+    for fn in (lib.jz_fp64_chains, lib.jz_fp32_chains):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 LIB = KernelLibrary("fp64_ceiling.cu", _bind,
@@ -64,18 +71,20 @@ def clock_while(enqueue, seconds: float) -> str:
     return got["clock"]
 
 
-def rate(blocks_per_sm: int, form: int = 0,
-         seconds: float = 1.0) -> tuple[float, str]:
+def rate(blocks_per_sm: int, form: int = 0, seconds: float = 1.0,
+         fp32: bool = False) -> tuple[float, str]:
     """(float64 operations a second, SM clock during the run) of the chains
-    of FORMS[form] at blocks_per_sm thread blocks of 256 threads an SM,
-    over about `seconds` of launches timed with CUDA events."""
+    of FORMS[form] (with fp32, float32 operations of FORMS32[form]) at
+    blocks_per_sm thread blocks of 256 threads an SM, over about `seconds`
+    of launches timed with CUDA events."""
     lib = LIB.get()
     out = torch.zeros(1, dtype=torch.float64, device="cuda")
     ops = ctypes.c_longlong(0)
     stream = torch.cuda.current_stream().cuda_stream
+    chains = lib.jz_fp32_chains if fp32 else lib.jz_fp64_chains
 
     def launch(iters: int) -> int:
-        LIB.raise_on("fp64_chains", lib.jz_fp64_chains(
+        LIB.raise_on("fp_chains", chains(
             form, blocks_per_sm, iters, out.data_ptr(), ctypes.byref(ops),
             stream))
         return ops.value

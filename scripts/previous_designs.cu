@@ -15,6 +15,12 @@
 //     places each warp's blocks' used words, with atomicOr on the words
 //     blocks share (the current jz_concat_streams is one launch of many
 //     thread blocks an image, no scratch, every word one plain store).
+//   jz_prev_idct_planes_rgb  the first fast rgb IDCT: a lane a column of its
+//     block over the block's own nonzero mask, the [64][64] float32 basis in
+//     shared memory (9 shared loads for every 16 float operations; the
+//     current kernel holds its basis in registers, takes one product for
+//     the four samples of a mirror quad and walks the union of a warp's 4
+//     blocks).
 //   jz_prev_fdct_quantize_exact, jz_prev_idct_planes_exact  exact mode's
 //     first float64 kernels: the forward issues all 64 terms of every
 //     block, products by COS[0][y] = 1 and cu[i] = 1 and the first adds
@@ -27,8 +33,8 @@
 //
 // All are verbatim but for names: the current entropy source is
 // included for encode_block and the table layout, the concat's two
-// kernels sit in namespace two_pass and the exact kernels in namespace
-// first_exact.
+// kernels sit in namespace two_pass and the exact kernels and the first
+// fast rgb IDCT in namespace first_exact.
 #include "../jpezy_tpu_torch/csrc/entropy_pack.cu"
 
 namespace {
@@ -655,6 +661,91 @@ __global__ void __launch_bounds__(kThreads)
   idct_planes_walk<T, double>(a);
 }
 
+// The first fast rgb IDCT (exact_transforms.cu's kernel 3 as it was first
+// made): lane 8 b + r loads and dequantizes row r of block b, then owns
+// column x = r with 8 accumulators, one per row y, over the block's nonzero
+// coefficients in ascending order: terms d[k] M[8 y + x][k] and s + level
+// (block_transform.inverse_model), each a multiply then an add.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    idct_rgb_first_kernel(const __grid_constant__ InvArgs a) {
+  __shared__ __align__(16) float tiles[kWarps][kTile * kStride];
+  __shared__ __align__(16) float basis[64 * kBasisStride];
+  __shared__ int qs[3][64];
+  const int t = threadIdx.x;
+  for (int i = t; i < 64 * 64; i += kThreads)
+    basis[(i >> 6) * kBasisStride + (i & 63)] = __ldg(a.basis + i);
+  for (int i = t; i < 64 * a.ncomp; i += kThreads)
+    qs[i >> 6][i & 63] = __ldg(a.q + i);
+  __syncthreads();
+  const int lane = t & 31;
+  float* tile = tiles[t >> 5];
+  const int b = lane >> 3;      // the lane's block in the tile
+  const int r = lane & 7;       // its row (load), then its column x
+  const float level = __int2float_rn(a.level);
+  const int total = a.tiles[0] + a.tiles[1] + a.tiles[2];
+  for (int tile_i = blockIdx.x * kWarps + (t >> 5); tile_i < total;
+       tile_i += gridDim.x * kWarps) {
+    int c = 0, lt = tile_i;
+    while (lt >= a.tiles[c]) lt -= a.tiles[c++];
+    const InvComp& P = a.comp[c];
+    const int f = lt * kTile + b;   // the lane's block
+    const bool live = f < a.nimages * P.nblocks;
+    const int n = live ? f / P.nblocks : 0;
+    const int bi = f - n * P.nblocks;
+    // row r of the block, dequantized: d = c q as a 32-bit integer
+    int d[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) d[u] = 0;
+    if (live)
+      load_coeffs(static_cast<const T*>(a.coeff) +
+                      (static_cast<long long>(n) * a.row_blocks + P.first +
+                       bi) * 64 + r * 8,
+                  d);
+    unsigned row_mask = 0;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      d[u] = static_cast<int>(static_cast<unsigned>(d[u]) *
+                              static_cast<unsigned>(qs[c][r * 8 + u]));
+      row_mask |= (d[u] != 0 ? 1u : 0u) << u;
+      tile[b * kStride + r * 8 + u] = __int2float_rn(d[u]);
+    }
+    // the block's 64-bit nonzero mask, bit k = 8 v + u, in its 8 lanes
+    unsigned lo = r < 4 ? row_mask << (8 * r) : 0u;
+    unsigned hi = r < 4 ? 0u : row_mask << (8 * (r - 4));
+#pragma unroll
+    for (int s = 1; s < 8; s <<= 1) {
+      lo |= __shfl_xor_sync(kFullMask, lo, s);
+      hi |= __shfl_xor_sync(kFullMask, hi, s);
+    }
+    unsigned long long mask =
+        (static_cast<unsigned long long>(hi) << 32) | lo;
+    __syncwarp();
+    float acc[8];
+#pragma unroll
+    for (int y = 0; y < 8; ++y) acc[y] = 0.0f;
+    while (mask) {
+      const int k = __ffsll(static_cast<long long>(mask)) - 1;
+      mask &= mask - 1;
+      const float dk = tile[b * kStride + k];
+      const float* m = basis + k * kBasisStride + r;
+#pragma unroll
+      for (int y = 0; y < 8; ++y)
+        acc[y] = __fadd_rn(acc[y], __fmul_rn(dk, m[8 * y]));
+    }
+    __syncwarp();  // the tile is loaded again for the next blocks
+    if (!live) continue;
+    int row0, col0;
+    block_origin(bi, P.v, P.h, a.mcus_x, &row0, &col0);
+    int32_t* out = P.out + n * P.plane +
+                   static_cast<long long>(row0) * P.width + col0 + r;
+#pragma unroll
+    for (int y = 0; y < 8; ++y)
+      out[static_cast<long long>(y) * P.width] =
+          __float2int_rz(__fadd_rn(acc[y], level));
+  }
+}
+
 template <typename K>
 cudaError_t grid_for(K kernel, long long units, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -866,10 +957,31 @@ int jz_prev_idct_planes_exact(int elem_bytes, const long long* desc,
              : launch(idct_exact_first_kernel<int32_t>, tiles, a, s);
 }
 
+// The first fast rgb IDCT, with the arguments of jz_idct_planes_rgb but
+// the basis transposed, basis[k * 64 + p] = M[p][k].
+int jz_prev_idct_planes_rgb(int elem_bytes, const long long* desc,
+                            const void* basis, const void* coeff,
+                            const void* q, void* o0, void* o1, void* o2,
+                            void* stream) {
+  using namespace first_exact;
+  if (desc[0] <= 0) return 0;
+  InvArgs a;
+  long long tiles = 0;
+  const int rc = inverse_layout(elem_bytes, desc, coeff, q, o0, o1, o2, &a,
+                                &tiles);
+  if (rc) return rc;
+  a.basis = static_cast<const float*>(basis);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return elem_bytes == 2
+             ? launch(idct_rgb_first_kernel<int16_t>, tiles, a, s)
+             : launch(idct_rgb_first_kernel<int32_t>, tiles, a, s);
+}
+
 // What the card reports for kernel `which` (0: the per-component fused
 // kernel, fixed tables; 1: the concat's pass 1; 2: its pass 2; 3: the
 // first exact forward, int8 samples; 4: the first exact inverse, int16
-// coefficients), as jz_entropy_kernel_info reports it.
+// coefficients; 5: the first fast rgb IDCT, int16 coefficients), as
+// jz_entropy_kernel_info reports it.
 int jz_prev_kernel_info(int which, int* info) {
   switch (which) {
     case 0:
@@ -887,6 +999,9 @@ int jz_prev_kernel_info(int which, int* info) {
     case 4:
       return first_exact::kernel_info(
           first_exact::idct_exact_first_kernel<int16_t>, info);
+    case 5:
+      return first_exact::kernel_info(
+          first_exact::idct_rgb_first_kernel<int16_t>, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

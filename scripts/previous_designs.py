@@ -1,4 +1,4 @@
-"""The earlier designs of four of jpezy_tpu_torch's kernels, built from
+"""The earlier designs of five of jpezy_tpu_torch's kernels, built from
 scripts/previous_designs.cu with the package's loader, so that
 chip_smoke.py times them beside the current kernels in one run, on the
 same inputs and the same card.  Nothing in the package calls them.
@@ -22,6 +22,12 @@ same inputs and the same card.  Nothing in the package calls them.
                      exactly 1 and first adds onto +0 included), and each
                      block's own nonzero mask walked with the tables in
                      shared memory.
+  idct_planes_rgb_first
+                     the first fast rgb IDCT, with the arguments and
+                     results of exact_cuda.idct_planes_rgb_cuda: a lane a
+                     column of its block, 8 products and 8 adds a term,
+                     each block's own nonzero mask walked with the float32
+                     basis in shared memory.
 
 All raise without a card; none falls back.
 """
@@ -39,10 +45,11 @@ from jpezy_tpu_torch.ops import entropy as E
 from jpezy_tpu_torch.ops import exact_cuda
 from jpezy_tpu_torch.ops.cuda_build import KernelLibrary
 from jpezy_tpu_torch.ops.pack_cuda import annex_k_row
+from jpezy_tpu_torch.ops.transform_cuda import _inverse_basis_t
 
 KERNEL_INFO = ("encode_blocks per component", "concat_streams pass 1",
                "concat_streams pass 2", "fdct_quantize_exact first int8",
-               "idct_planes_exact first int16")
+               "idct_planes_exact first int16", "idct_planes_rgb first int16")
 
 
 def _bind(lib) -> None:
@@ -56,6 +63,8 @@ def _bind(lib) -> None:
     lib.jz_prev_fdct_quantize_exact.argtypes = [ci] + [vp] * 11
     lib.jz_prev_idct_planes_exact.restype = ci
     lib.jz_prev_idct_planes_exact.argtypes = [ci] + [vp] * 8
+    lib.jz_prev_idct_planes_rgb.restype = ci
+    lib.jz_prev_idct_planes_rgb.argtypes = [ci] + [vp] * 8
     lib.jz_prev_kernel_info.restype = ci
     lib.jz_prev_kernel_info.argtypes = [ci, vp]
 
@@ -142,11 +151,8 @@ def fdct_quantize_exact_first(y, cb, cr, yqt, cqt, *, gray: bool = False,
     return tuple(outs)
 
 
-def idct_planes_exact_first(coeff_all, qtab, *, geom, level: int,
-                            gray: bool, sizes):
-    """exact_cuda.idct_planes_exact_cuda's planes from the first exact
-    inverse kernel (coeff_all contiguous and 16-byte aligned)."""
-    lib = LIB.get()
+def _inverse_desc(coeff_all, *, geom, level: int, gray: bool, sizes):
+    """The inverse kernels' desc (exact_cuda._inverse's) and their planes."""
     N = coeff_all.shape[0]
     used = 1 if gray else len(sizes)
     comps, first = [], 0
@@ -159,11 +165,38 @@ def idct_planes_exact_first(coeff_all, qtab, *, geom, level: int,
     outs = [torch.empty((N, mcus_y * int(g[2]) * 8, mcus_x * int(g[3]) * 8),
                         dtype=torch.int32, device=coeff_all.device)
             for g in geom[:used]]
-    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - used)
+    return desc, outs
+
+
+def idct_planes_exact_first(coeff_all, qtab, *, geom, level: int,
+                            gray: bool, sizes):
+    """exact_cuda.idct_planes_exact_cuda's planes from the first exact
+    inverse kernel (coeff_all contiguous and 16-byte aligned)."""
+    lib = LIB.get()
+    desc, outs = _inverse_desc(coeff_all, geom=geom, level=level, gray=gray,
+                               sizes=sizes)
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
     q = qtab.contiguous()
     rc = lib.jz_prev_idct_planes_exact(
         exact_cuda._COEFF_BYTES[coeff_all.dtype], desc.ctypes.data,
         EXACT_TABLES.ctypes.data, coeff_all.data_ptr(), q.data_ptr(), *ptrs,
         torch.cuda.current_stream().cuda_stream)
     LIB.raise_on("prev_idct_planes_exact", rc)
+    return outs
+
+
+def idct_planes_rgb_first(coeff_all, qtab, *, geom, level: int, gray: bool,
+                          sizes):
+    """exact_cuda.idct_planes_rgb_cuda's planes from the first fast rgb
+    IDCT kernel (coeff_all contiguous and 16-byte aligned)."""
+    lib = LIB.get()
+    desc, outs = _inverse_desc(coeff_all, geom=geom, level=level, gray=gray,
+                               sizes=sizes)
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - len(outs))
+    q = qtab.contiguous()
+    rc = lib.jz_prev_idct_planes_rgb(
+        exact_cuda._COEFF_BYTES[coeff_all.dtype], desc.ctypes.data,
+        _inverse_basis_t(coeff_all.device).data_ptr(), coeff_all.data_ptr(),
+        q.data_ptr(), *ptrs, torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_idct_planes_rgb", rc)
     return outs

@@ -21,6 +21,7 @@ from jpezy_tpu_torch.ops import entropy as TE
 from jpezy_tpu_torch.ops import entropy_decode as ED
 from jpezy_tpu_torch.testing import colour_sets as CS
 from jpezy_tpu_torch.testing import exact_ties as XT
+from jpezy_tpu_torch.testing import rgb_ties as RT
 
 pytestmark = pytest.mark.cuda
 
@@ -1185,8 +1186,10 @@ def test_idct_rgb_kernel_matches_model(cuda):
     """idct_planes_rgb (fast) on the card equals idct_planes_rgb_model bit
     for bit and the plain matrix product within 1: two 512x512 images' rgb
     upload read as 4:2:0, 4:2:2, 4:4:4, one component and gray, at level
-    128 and 2048, int16 and int32, and noise at quality 100; one launch a
-    call, idct_planes_exact never."""
+    128 and 2048, int16 and int32, noise at quality 100, and as one
+    component at quantizer 1 the float32 tie set (rgb_ties) and the
+    kernel's mixed warp groups at both levels; one launch a call,
+    idct_planes_exact never."""
     from jpezy_tpu_torch.ops import block_transform as BT
 
     cases = []
@@ -1206,6 +1209,16 @@ def test_idct_rgb_kernel_matches_model(cuda):
                                   dict(geom=geom, sizes=sizes, gray=gray,
                                        level=level,
                                        qtuple=kw["qtuple"][:len(sizes)])))
+    for level in (128, 2048):
+        for label, blocks in (
+                ("float32 ties", RT.inverse_tie_blocks(8192, 455, level)),
+                ("mixed groups", RT.mixed_coefficient_groups(512, 456,
+                                                             level))):
+            n = len(blocks)
+            cases.append((f"{label} level {level}", torch.from_numpy(
+                blocks[None].astype(np.int32)).to(cuda), dict(
+                    geom=((1, n, 1, 1, 1, 1),), sizes=(n,), gray=False,
+                    level=level, qtuple=(tuple([1] * 64),))))
     for label, src, kw in cases:
         before = _colour_counts() + _exact_counts()
         got = BT.idct_planes_rgb(src, precision="fast", **kw)
