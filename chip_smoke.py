@@ -38,9 +38,10 @@ any failure exits nonzero.  In the order they run:
      ptxas reports for each kernel (a template's instantiations under one
      name); a stack frame or a spill in any kernel but the scan, or a
      spill in the scan kernel, fails the run.  Counts each kernel's SASS
-     instructions (cuobjdump), and in the exact kernels and the three rgb
-     kernels FFMA, DFMA, FMUL, FADD, DMUL and DADD: an FFMA or DFMA (a
-     contracted multiply-add) fails the run;
+     instructions (cuobjdump), and in the exact kernels, the three rgb
+     kernels and the three kernels of idct_planes (sparse, overflow and
+     dense launches) FFMA, DFMA, FMUL, FADD, DMUL and DADD: an FFMA or DFMA
+     (a contracted multiply-add) fails the run;
   3. the pack kernels against their plain torch versions: the pack alone
      per component on the real 16x512x512 blocks, on seeded worst-case
      blocks and on the edge-case blocks; the batched entropy kernel (one
@@ -157,9 +158,15 @@ any failure exits nonzero.  In the order they run:
      fdct_quantize on the main batch's ycc420 int8 planes at Annex K,
      quality 95, rounded and gray, on the rgb path's int32 planes (chroma
      at column stride 2) and on noise; idct_planes' sparse form on the
-     uploads of the main and restart batches, of 4 noise images at
-     quality 100 (overflow rows) and of 16x16, 48x16 and 48x32 batches
-     (odd MCU counts put the Cr fields off a word boundary), its dense
+     uploads of the main and restart batches, of the main batch's images
+     at quality 95, of 4 noise images at quality 100 (overflow rows), of
+     16x16, 48x16 and 48x32 batches (odd MCU counts put the Cr fields off
+     a word boundary) and, at levels 128 and 2048, of
+     testing/ycc_uploads.overflow_sets (the overflow launch's cases: the
+     float32 tie set, the mixed warp groups, blocks that clamp at both
+     ends, noise, sampling factors 1 to 4, caps that are not a multiple of
+     8, sentinel and junk padding; the plain version takes no index below
+     0, so the junk padding is held to the model alone), its dense
      form on the scan's blocks of the restart path's 2,048 segments and
      of the indexed transport's pseudo-segments: bit-identical to the
      model, within 1 of the plain version (the share that differs
@@ -235,9 +242,11 @@ any failure exits nonzero.  In the order they run:
      must be
      the hand kernels alone (4 device
      events an encode: colour, fDCT, entropy, concat; 2 a decode: the
-     IDCT into planes and colour), and the exact ycc420 encode program,
+     IDCT into planes and colour), the exact ycc420 encode program,
      which must be the exact fDCT, entropy and concat kernels alone (3
-     device events);
+     device events), and the ycc420 decode program on the main batch and
+     on noise at quality 100 in turns with the first design of the IDCT's
+     overflow launch in its place;
   6. times of the pack kernels, the histogram kernel, the concat and the
      four block transforms alone on the real batch beside their bounds
      (see _bound; the transforms' by bytes or float32 operations, the
@@ -260,8 +269,16 @@ any failure exits nonzero.  In the order they run:
      rgb IDCT beside its first design in turns
      likewise, on the main batch, on noise at quality 100 and on the main
      batch's images at quality 95, with its FMUL, FADD and FFMA counts, on
-     noise also beside the float32 matmul; idct_planes (the ycc420 IDCT)
-     on the same noise; times of
+     noise also beside the float32 matmul; idct_planes (the ycc420 IDCT,
+     sparse form) beside the first design of its overflow launch
+     (previous_designs.idct_planes_overflow_first) in turns, warm and with
+     the L2 cache overwritten first, each launch's own time and the two
+     together, on the same noise through the ycc420 upload, on the main
+     batch and on its images at quality 95, with the overflow rows a
+     component, both designs' registers, thread blocks an SM and FMUL,
+     FADD and FFMA counts, and the float32 matmul beside them; the
+     overflow launch alone on tiles of 8 rows whose union holds 8 to 64
+     coefficients (where its branch-free run pays); times of
      the concat on noise at quality 100 (dense blocks), of the IDCT
      kernel's dense form on the restart segments, and of the fused kernel
      with the 16 per-image table sets beside the fixed tables; the entropy
@@ -406,6 +423,7 @@ EXACT_KERNELS = ("fdct_quantize_exact", "idct_planes_exact")
 NO_FMA = {"fdct_quantize_exact": ("DMUL", "DADD"),
           "idct_planes_exact": ("DMUL", "DADD"),
           "rgb_to_ycc420": ("FMUL", "FADD", "DMUL", "DADD"),
+          "idct_planes": ("FMUL", "FADD"),
           "idct_planes_rgb": ("FMUL", "FADD"),
           "ycc_planes_to_rgb": ("FMUL", "FADD", "DMUL", "DADD")}
 SASS_OPS = ("FFMA", "DFMA", "FMUL", "FADD", "DMUL", "DADD")
@@ -423,7 +441,8 @@ PREVIOUS = {"encode_blocks_kernel": "previous encode_blocks",
             "concat_scatter_kernel": "previous concat_streams (scatter)",
             "fdct_exact_first_kernel": "previous fdct_quantize_exact",
             "idct_exact_first_kernel": "previous idct_planes_exact",
-            "idct_rgb_first_kernel": "previous idct_planes_rgb"}
+            "idct_rgb_first_kernel": "previous idct_planes_rgb",
+            "idct_overflow_first_kernel": "previous idct_planes overflow"}
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
@@ -1093,6 +1112,7 @@ def main() -> int:
     from jpezy_tpu_torch.ops import block_transform as BT
     from jpezy_tpu_torch.testing import exact_ties as XT
     from jpezy_tpu_torch.testing import rgb_ties as RT
+    from jpezy_tpu_torch.testing import ycc_uploads as YU
     from jpezy_tpu_torch.ops import (colour_cuda, concat_cuda, exact_cuda,
                                      pack_cuda, scan_cuda, transform_cuda)
     from jpezy_tpu_torch.runtime import batch as RB
@@ -1156,6 +1176,11 @@ def main() -> int:
     _, prev_ops = _sass_instructions(cuda_build.nvcc(),
                                      previous_designs.LIB.so, SASS_OPS,
                                      _previous_of)
+    # and the ycc420 IDCT's overflow launch alone (its three kernels share
+    # the name idct_planes above)
+    ovf_sass, ovf_ops = _sass_instructions(
+        cuda_build.nvcc(), transform_cuda.LIB.so, SASS_OPS,
+        lambda sym: "overflow" if "idct_planes_overflow" in sym else None)
     _say("2 build", ", ".join(os.path.basename(lib.src) for lib in libs)
          + f" and the earlier designs' scripts/previous_designs.cu and the "
          f"float64 chains of scripts/fp64_ceiling.cu built for "
@@ -2383,11 +2408,21 @@ def main() -> int:
     small = {f"{w}x{h}, quality 95": TC.encode_batch(
         np.stack([make_test_image(h, w, seed=340 + i) for i in range(3)]),
         quality=95, device="cuda") for h, w in ((16, 16), (16, 48), (32, 48))}
+    # the main batch's images at quality 95 (phases 16 and 6 take these
+    # streams too)
+    q95_streams = TC.encode_batch(batches[0], quality=95, device="cuda")
     idct_sets = [("main path's batch", sparse_set(plain_lists[0])),
                  ("restart path's batch", sparse_set(restart_lists[0])),
+                 ("main batch's images at quality 95",
+                  sparse_set(q95_streams)),
                  (f"{BATCH // 4} noise images at quality 100",
                   sparse_set(noise_q100))]
     idct_sets += [(label, sparse_set(st)) for label, st in small.items()]
+    # the overflow launch's cases (testing/ycc_uploads), at both levels
+    for lvl in (128, 2048):
+        idct_sets += [(f"{label}, level {lvl}", ("sparse", flat, kw))
+                      for label, (flat, kw) in YU.overflow_sets(
+                          lvl, ties=16384).items()]
     idct_sets += [
         ("restart path's segments", dense_set(
             _restart_lanes(HG, restart_lists[0], ri), restart_lists[0])),
@@ -2400,7 +2435,11 @@ def main() -> int:
         if form == "sparse":
             src_dev = torch.from_numpy(src).to(dev)
             got = BT.idct_planes_sparse(src_dev, **kw)
-            want = BT.idct_planes_sparse_plain(src_dev, **kw)
+            # the plain version takes no overflow index below 0 (the
+            # transport pads with N B_c): the junk padding is held to the
+            # model alone
+            want = (None if label.startswith("junk padding") else
+                    BT.idct_planes_sparse_plain(src_dev, **kw))
             model = BT.idct_planes_sparse_model(src, **kw)
             extra = f", overflow rows {list(kw['caps'])}"
         else:
@@ -2413,6 +2452,9 @@ def main() -> int:
         got = got.cpu().numpy()
         if not np.array_equal(got, model):
             raise AssertionError(f"idct_planes kernel != its model on {label}")
+        if want is None:
+            said14.append(f"{label} ({form}{extra}): the model alone")
+            continue
         d = np.abs(got.astype(np.int32) - want.cpu().numpy().astype(np.int32))
         err["idct_planes"] = max(err["idct_planes"], int(d.max()))
         if d.max() > 1:
@@ -2440,6 +2482,7 @@ def main() -> int:
          "scan's blocks of the same streams give identical planes: "
          + "; ".join(said14))
     idct_sparse_input = idct_sets[0][1]     # phase 6 times both forms
+    idct_q95_input = idct_sets[2][1]
     idct_dense_input = idct_sets[-2][1]
     del idct_sets, planes_by, got, want, model, noise_q100, small
 
@@ -2529,7 +2572,6 @@ def main() -> int:
     noise_flat, noise_flat_kw, *_ = TC._decode_host_prep(
         noise_streams, gray=False, precision="fast", transport=None)
     noise_rgb_up, noise_rgb_kw = rgb_upload(noise_streams)
-    noise_flat_nonzero = int((noise_rgb_up != 0).sum())
     noise_flat_ops = rgb_inv_ops(noise_rgb_up, noise_rgb_kw,
                                  exact_cuda.INV_BASIS)
     del noise_rgb_up
@@ -2741,8 +2783,7 @@ def main() -> int:
                    my15, mx15).items() for lvl in (128, 2048)]
     ir_sets.append(("main batch's upload as int32", main_up.to(torch.int32),
                     ir_sets[0][2]))
-    q95_up, q95_kw = rgb_upload(TC.encode_batch(batches[0], quality=95,
-                                                device="cuda"))
+    q95_up, q95_kw = rgb_upload(q95_streams)
     q95_kw = {k: q95_kw[k] for k in ir_sets[0][2]}
     ir_sets.append(("main batch's images at quality 95", q95_up, q95_kw))
     ir_sets.append((f"{BATCH} noise images at quality 100",
@@ -3148,6 +3189,40 @@ def main() -> int:
     rgb_rows.append("rgb decode program, fast, in turns with the fast "
                     "IDCT's first design in its place: " + ", ".join(
                         f"{w} {_fmt_ms(ms)} ms" for w, ms in dec_turns))
+
+    # the ycc420 decode program with the first design of the IDCT's
+    # overflow launch (scripts/previous_designs.py, after the same sparse
+    # launch) in its place, in turns with it as it is: on the main batch
+    # and on noise at quality 100
+    def with_first_overflow(fn):
+        def run():
+            keep = transform_cuda.idct_planes_sparse_cuda
+            transform_cuda.idct_planes_sparse_cuda = (
+                previous_designs.idct_planes_overflow_first)
+            try:
+                return fn()
+            finally:
+                transform_cuda.idct_planes_sparse_cuda = keep
+        return run
+
+    for label, flat11, kw11 in (
+            ("main batch", idct_sparse_input[1], idct_sparse_input[2]),
+            ("noise at quality 100", noise_flat, noise_flat_kw)):
+        flat11_dev = torch.from_numpy(flat11).to(dev)
+
+        def dec11(flat11_dev=flat11_dev, kw11=kw11):
+            return TC._decode_fused_batch_ycc420(flat11_dev, **kw11)
+
+        turns11 = [(which, _profile(fn, 5)["busy_ms"]) for which, fn in (
+            ("now", dec11), ("first", with_first_overflow(dec11)),
+            ("now again", dec11),
+            ("first again", with_first_overflow(dec11)))]
+        rgb_rows.append(
+            f"ycc420 decode program on the {label} (overflow rows "
+            f"{list(kw11['caps'])}), in turns with the first overflow "
+            f"launch in its place: " + ", ".join(
+                f"{w} {_fmt_ms(ms)} ms" for w, ms in turns11))
+        del flat11_dev
     # the exact ycc420 encode program is the exact fDCT, entropy and concat
     # kernels alone, as the fast one is with its fDCT kernel
     def enc_exact():
@@ -3341,10 +3416,13 @@ def main() -> int:
         "idct_planes": (
             [lambda: BT.idct_planes_sparse(sp_dev, **sp_kw)],
             lambda: BT.idct_planes_sparse_plain(sp_dev, **sp_kw),
-            ("idct_planes_kernel",),
+            ("idct_planes_kernel",) + (("idct_planes_overflow_kernel",)
+                                       if any(sp_kw["caps"]) else ()),
             _bound(idct_bytes, idct_ops, PEAK_FP32_FLOPS),
-            f"sparse form, the main path's upload of {sp_flat.size} bytes "
-            f"(overflow rows {list(sp_kw['caps'])}), {idct_bytes} bytes "
+            f"sparse form (its sparse and overflow launches), the main "
+            f"path's upload of {sp_flat.size} bytes (overflow rows a "
+            f"component {YU.overflow_rows(sp_flat, sp_kw)}, caps "
+            f"{list(sp_kw['caps'])}), {idct_bytes} bytes "
             f"with the planes; {real_nonzero} nonzero coefficients x 64 "
             f"multiply-adds = {idct_ops} float32 operations "
             f"({1e3 * idct_ops / PEAK_FP32_FLOPS:.4f} ms); the plain "
@@ -3783,19 +3861,6 @@ def main() -> int:
                    for k in ("now", "now again"))
     ir_nz_first = min(ir_t["versus_previous"]["noise at quality 100"][k][0]
                       for k in ("first", "first again"))
-    noise_flat_dev = torch.from_numpy(noise_flat).to(dev)
-    yc_nz = lambda: BT.idct_planes_sparse(noise_flat_dev, **noise_flat_kw)
-    yc_syms = ("idct_planes_kernel", "idct_planes_overflow_kernel")
-    yc_nz_ms, _ = _traced(yc_nz, 20, *yc_syms)
-    yc_nz_cold_ms, _ = _traced(lambda: (l2_flush.zero_(), yc_nz()), 20,
-                               *yc_syms)
-    yc_nz_bytes = noise_flat.size + BATCH * H * W * 3 // 2
-    yc_nz_bound, yc_nz_by = _bound(yc_nz_bytes, noise_flat_ops,
-                                   PEAK_FP32_OPS)
-    timing["idct_planes"].update(noise_ms=yc_nz_ms,
-                                 noise_cold_ms=yc_nz_cold_ms,
-                                 noise_bound_ms=yc_nz_bound)
-    del noise_flat_dev
     _say("6 times", f"idct_planes_rgb on {nz_coeff.shape[0]} noise images at "
          f"quality 100 ({int((nz_coeff != 0).sum())} nonzero of {nz_samples} "
          f"coefficients; {ir_nz_ops} separate float32 operations that the "
@@ -3815,17 +3880,166 @@ def main() -> int:
          f"operations): kernel {ir_t['q95_ms']:.4f} ms (L2 overwritten first "
          f"{ir_t['q95_cold_ms']:.4f}), first design "
          f"{ir_t['q95_previous_ms']:.4f}, bound {ir_q95_bound:.4f} ms by "
-         f"{ir_q95_by}; idct_planes (the ycc420 IDCT, sparse form) on the "
-         f"same noise through the ycc420 upload ({noise_flat.size} bytes, "
-         f"{noise_flat_nonzero} nonzero coefficients; its sparse and "
-         f"overflow launches): {yc_nz_ms:.4f} ms (L2 overwritten first "
-         f"{yc_nz_cold_ms:.4f}), bound {yc_nz_bound:.4f} ms by {yc_nz_by} "
-         f"= {yc_nz_bound / yc_nz_ms:.3f} of it ({noise_flat_ops} separate "
-         f"float32 operations that its roundings need, counted as "
-         f"idct_planes_rgb's, at {PEAK_FP32_OPS:.4g} a second; 128 a "
-         f"nonzero coefficient would be "
-         f"{1e3 * 128 * noise_flat_nonzero / PEAK_FP32_OPS:.4f} ms); on "
-         f"{card}")
+         f"{ir_q95_by}; on {card}")
+    # the ycc420 IDCT (idct_planes, sparse form) beside the first design of
+    # its overflow launch (previous_designs.idct_planes_overflow_first: the
+    # same sparse launch, then the first overflow kernel), in turns (now,
+    # first, now again, first again), warm and with the L2 cache
+    # overwritten first, each launch's own time from the same trace: noise
+    # at quality 100 through the ycc420 upload (nearly every block an
+    # overflow row), the main batch and its images at quality 95
+    _, q95_flat, q95_flat_kw = idct_q95_input
+    yc_sets = {"noise at quality 100": (noise_flat, noise_flat_kw,
+                                        noise_flat_ops),
+               "main": (sp_flat, sp_kw, ir_ops),
+               "quality 95": (q95_flat, q95_flat_kw, ir_q95_ops)}
+    yc_sym = "idct_planes_overflow_kernel"
+    yc_first_sym = "idct_overflow_first_kernel"
+    yc_args = ("geom", "level", "shapes", "K", "N", "caps")
+
+    def yc_read(fn, ovf_sym, has_ovf):
+        """(both launches, the sparse launch, the overflow launch): device
+        ms a call."""
+        syms = ("idct_planes_kernel",) + ((ovf_sym,) if has_ovf else ())
+        both, prof = _traced(fn, 20, *syms)
+        ovf = _kernel_ms(prof, ovf_sym) if has_ovf else 0.0
+        return both, both - ovf, ovf
+
+    yc_t = timing["idct_planes"]
+    yc_t["versus_previous"] = {}
+    yc_rows = []
+    for set_name, (flat6, kw6, ops6) in yc_sets.items():
+        flat6_dev = torch.from_numpy(flat6).to(dev)
+        q6 = BT.quant_tables(kw6["qtuple"], dev)
+        now6 = (lambda flat6_dev=flat6_dev, kw6=kw6:
+                BT.idct_planes_sparse(flat6_dev, **kw6))
+        first6 = (lambda flat6_dev=flat6_dev, q6=q6, kw6=kw6:
+                  previous_designs.idct_planes_overflow_first(
+                      flat6_dev, q6, **{k: kw6[k] for k in yc_args}))
+        has_ovf = any(kw6["caps"])
+        ovf_rows6 = YU.overflow_rows(flat6, kw6)
+        row = {}
+        for which, fn, sym in (("now", now6, yc_sym),
+                               ("first", first6, yc_first_sym),
+                               ("now again", now6, yc_sym),
+                               ("first again", first6, yc_first_sym)):
+            warm = yc_read(fn, sym, has_ovf)
+            cold = yc_read(lambda fn=fn: (l2_flush.zero_(), fn()), sym,
+                           has_ovf)
+            row[which] = dict(zip(
+                ("ms", "sparse_ms", "overflow_ms", "cold_ms",
+                 "cold_sparse_ms", "cold_overflow_ms"), warm + cold))
+        b6, by6 = _bound(flat6.size + BATCH * H * W * 3 // 2 + 4 * 1024
+                         + 3 * 4 * 64, ops6, PEAK_FP32_OPS)
+        yc_t["versus_previous"][set_name] = dict(
+            row, bound_ms=b6, bound_by=by6, overflow_rows=ovf_rows6,
+            caps=list(kw6["caps"]))
+        best = {k: min(row[w][k] for w in ("now", "now again"))
+                for k in row["now"]}
+        first_best = {k: min(row[w][k] for w in ("first", "first again"))
+                      for k in row["now"]}
+        if set_name == "main":
+            yc_t["previous_ms"] = row["first"]["ms"]
+            yc_t["previous_cold_ms"] = row["first"]["cold_ms"]
+        else:
+            key = "noise" if set_name.startswith("noise") else "q95"
+            yc_t[f"{key}_ms"] = row["now"]["ms"]
+            yc_t[f"{key}_cold_ms"] = row["now"]["cold_ms"]
+            yc_t[f"{key}_previous_ms"] = row["first"]["ms"]
+            yc_t[f"{key}_bound_ms"] = b6
+            yc_t[f"{key}_overflow_ms"] = row["now"]["overflow_ms"]
+            yc_t[f"{key}_overflow_previous_ms"] = row["first"]["overflow_ms"]
+        if set_name.startswith("noise"):
+            under = library_ms and best["overflow_ms"] < library_ms
+            half = best["ms"] < first_best["ms"] / 2
+            verdict = (f"overflow launch alone {best['overflow_ms']:.4f} ms, "
+                       f"{'under' if under else 'NOT under'} torch.matmul's "
+                       f"{_fmt_ms(library_ms)}; both launches "
+                       f"{'under' if half else 'NOT under'} half of the "
+                       f"first design's")
+        else:
+            warm_ok = best["ms"] <= first_best["ms"]
+            cold_ok = best["cold_ms"] <= first_best["cold_ms"]
+            verdict = (f"both launches "
+                       f"{'no slower' if warm_ok else 'SLOWER'} than the "
+                       f"first design warm, "
+                       f"{'no slower' if cold_ok else 'SLOWER'} cold")
+        yc_rows.append(
+            f"{set_name} ({flat6.size} bytes, overflow rows a component "
+            f"{ovf_rows6}, caps {list(kw6['caps'])}; {ops6} separate float32 "
+            f"operations that the roundings need): " + "; ".join(
+                f"{w} {r['ms']:.4f} ms = sparse {r['sparse_ms']:.4f} + "
+                f"overflow {r['overflow_ms']:.4f} (L2 overwritten first "
+                f"{r['cold_ms']:.4f} = {r['cold_sparse_ms']:.4f} + "
+                f"{r['cold_overflow_ms']:.4f})" for w, r in row.items())
+            + f"; bound {b6:.4f} ms by {by6} = {b6 / best['ms']:.3f} of the "
+            f"faster turn (first design {b6 / first_best['ms']:.3f}); "
+            + verdict)
+        del flat6_dev
+    # the overflow launch alone on tiles whose union holds n coefficients:
+    # 16 images of 6,144 blocks of one component, every block an overflow
+    # row, the 8 blocks of each tile nonzero on the same n seeded
+    # coefficients; below kOvfDenseTerms the warps walk the union, from it
+    # they take all 64 terms.  The walk's cost is fitted over n < 32 and
+    # set against the branch-free run's mean: where the two lines cross
+    sweep, rng6, nb6 = {}, np.random.default_rng(60), 6144
+    tiles6 = BATCH * nb6 // 8
+    for n_u in (8, 16, 24, 31, 32, 40, 48, 56, 64):
+        keys6 = np.argsort(rng6.random((tiles6, 64)), axis=1)[:, :n_u]
+        blocks6 = np.zeros((tiles6, 8, 64), np.int32)
+        np.put_along_axis(
+            blocks6, np.broadcast_to(keys6[:, None, :], (tiles6, 8, n_u)),
+            rng6.integers(1, 200, (tiles6, 8, n_u))
+            * rng6.choice([-1, 1], (tiles6, 8, n_u)), axis=2)
+        flat6, kw6 = YU.sparse_upload([blocks6.reshape(BATCH, nb6, 64)],
+                                      all_overflow=True, pad=0)
+        kw6.update(geom=YU.geometry(64, 96, ((1, 1),)), level=128,
+                   qtuple=(tuple([1] * 64),))
+        flat6_dev = torch.from_numpy(flat6).to(dev)
+        got6 = BT.idct_planes_sparse(flat6_dev, **kw6)
+        want6 = BT.idct_planes_sparse_plain(flat6_dev, **kw6)
+        if int((got6.to(torch.int32) - want6.to(torch.int32)).abs().max()) > 1:
+            raise AssertionError(f"idct_planes differs from the plain "
+                                 f"version by more than 1 on tiles of "
+                                 f"union {n_u}")
+        sweep[n_u], _ = _traced(
+            lambda flat6_dev=flat6_dev, kw6=kw6: BT.idct_planes_sparse(
+                flat6_dev, **kw6), 20, yc_sym)
+        del flat6, flat6_dev, blocks6, got6, want6
+    walk = [n for n in sweep if n < 32]
+    slope, icept = np.polyfit(walk, [sweep[n] for n in walk], 1)
+    straight = float(np.mean([sweep[n] for n in sweep if n >= 32]))
+    cross = (straight - icept) / slope if slope > 0 else float("nan")
+    yc_t["union_sweep_ms"] = {str(n): ms for n, ms in sweep.items()}
+    yc_t["union_sweep_cross"] = cross
+    kinfo6 = transform_cuda.kernel_info()["idct_planes overflow"]
+    pinfo6 = previous_designs.kernel_info()["idct_planes overflow first"]
+    prev_ovf_ops = prev_ops["previous idct_planes overflow"]
+    yc_t["sass_ops"] = {"three kernels now": sass_ops["idct_planes"],
+                        "overflow now": ovf_ops["overflow"],
+                        "overflow first": prev_ovf_ops}
+    _say("6 ycc idct", "idct_planes (sparse form) beside the first design of "
+         "its overflow launch, in turns (kernels' own device time, "
+         "profiler): " + " || ".join(yc_rows)
+         + f" || the overflow launch alone on {tiles6} tiles of 8 rows "
+         f"whose union holds n coefficients: " + ", ".join(
+             f"n = {n} {ms:.4f} ms" for n, ms in sweep.items())
+         + f"; the union walk {icept:.4f} + {slope:.6f} n ms (n < 32), the "
+         f"branch-free run {straight:.4f} ms (n >= 32): they cross at n = "
+         f"{cross:.1f} || overflow launch now: {kinfo6[0]} registers, "
+         f"{kinfo6[1]} thread blocks of {kinfo6[4]} an SM, {kinfo6[2]} "
+         f"bytes of shared memory, SASS {ovf_sass['overflow']} "
+         f"instructions, " + ", ".join(f"{ovf_ops['overflow'][op]} {op}"
+                                       for op in ("FMUL", "FADD", "FFMA"))
+         + f"; first design: {pinfo6[0]} registers, {pinfo6[1]} thread "
+         f"blocks of {pinfo6[4]}, {pinfo6[2]} bytes of shared memory, "
+         + ", ".join(f"{prev_ovf_ops[op]} {op}"
+                     for op in ("FMUL", "FADD", "FFMA"))
+         + f"; the three idct_planes kernels: " + ", ".join(
+             f"{sass_ops['idct_planes'][op]} {op}"
+             for op in ("FMUL", "FADD", "FFMA"))
+         + f"; torch.matmul of the float32 [{n_blocks}, 64] @ [64, 64] "
+         f"product {_fmt_ms(library_ms)} ms; on {card}")
     rows6 = []
     for label, ms, cold, b_ms, key in (
             ("fdct_quantize", timing["fdct_quantize"]["ms"],
@@ -4070,7 +4284,11 @@ def main() -> int:
                              "sm_clock", "exact_ms", "exact_cold_ms",
                              "exact_bound_ms", "gray_ms", "gray_cold_ms",
                              "gray_bound_ms", "q95_ms", "q95_cold_ms",
-                             "q95_previous_ms", "q95_bound_ms")
+                             "q95_previous_ms", "q95_bound_ms",
+                             "noise_overflow_ms",
+                             "noise_overflow_previous_ms",
+                             "q95_overflow_ms", "q95_overflow_previous_ms",
+                             "union_sweep_ms", "union_sweep_cross")
            if k in t},
     } for name, t in timing.items()]}))
     print(card)

@@ -44,10 +44,17 @@
 //             is read bytewise.
 //   overflow: a second launch (idct_planes_overflow_kernel) when the
 //             upload carries overflow rows (per component oidx [cap] i32 |
-//             orows [cap, 64] i16 after the image rows): each row's block
-//             is transformed again from its row and overwrites the pixels
-//             the first launch wrote.  An index outside [0, N * B_c) (the
-//             host's padding sentinel is N * B_c) writes nothing.
+//             orows [cap, 64] i16 after the image rows, at any byte): each
+//             row's block is transformed again from its row and overwrites
+//             the pixels the first launch wrote (the host clears an
+//             overflow block's mask, so the first launch wrote its level).
+//             An index outside [0, N * B_c) (the host's padding sentinel
+//             is N * B_c) writes nothing.  It replaces the overflow half of
+//             _decode_fused_batch_ycc420: _densify's overflow scatter, then
+//             the same dequantize, inverse DCT, level shift, clamp and
+//             deblockify.  Its own walk (a mirror quad's four samples from
+//             one product, below) adds the same terms in the same order as
+//             row_samples, so its pixels are the same bits.
 //   dense:    the Huffman scan's blocks [N * nseg, ri * 6, 64] int16 in
 //             MCU order (4 Y, Cb, Cr), with one quant table per image and
 //             component; one more byte per image ORs its segments'
@@ -110,6 +117,44 @@
 //    neighbouring bytes.  No barrier past the tables.  A thread block that
 //    stages whole strips for all its warps with cp.async, the next strip's
 //    copy in flight, was measured slower (PERF.md).
+//  - idct_planes_overflow_kernel must move its rows (132 bytes each) in
+//    and their 64 samples out.  Where few blocks overflow (photographs:
+//    tens of rows a batch) that and the launch are all; on noise at
+//    quality 100 nearly every block is a dense overflow row, 13 MB of rows
+//    and 6.3 MB of planes, 0.006 ms, while the separate FMUL/FADD that
+//    the roundings need (per nonzero coefficient 64 adds and one product
+//    per distinct |M[.][k]|, 384 over the 64 k: chip_smoke.py rgb_inv_ops)
+//    take about 0.013 ms at 33.5e12 a second: operations bound it.  The
+//    first design (scripts/previous_designs.cu) took a row a group of 8
+//    lanes, a row of 8 samples a lane, each group on its own block's mask
+//    (the 4 groups of a warp diverged), reloaded every term's coefficient
+//    from device memory and read 32 bytes of the 16 KB [64][64] basis in
+//    shared memory for 16 float operations.  Design: the rows are tiled
+//    by component, a warp a tile of up to 8 (tiles of one component never
+//    mix quant tables), so the sums are idct_planes_rgb's
+//    (exact_transforms.cu): lane 8 b + r loads row r of rows b and b + 4
+//    once (one 16-byte load where the row is aligned, else load_i16) with
+//    their indices, dequantizes them into the warp's float32 tile and the
+//    warp ORs the 8 blocks' nonzero coefficients into one uniform mask.
+//    The basis is mirror-symmetric bit for bit, M[8 y + 7 - x][k] = (-1)^u
+//    M[p][k] and M[8 (7 - y) + x][k] = (-1)^v M[p][k] (exact_cuda makes
+//    no table of another basis), and fl(d (-m)) = -fl(d m), so one product
+//    serves the 4 samples of a mirror quad (y, x), (y, 7 - x), (7 - y, x),
+//    (7 - y, 7 - x) as adds of +-t with the same bits: 16 products and 64
+//    adds a coefficient of a block where the first design issued 64 and
+//    64.  Lane 8 p + j keeps 16 sums (the 4 samples of quads j and j + 8
+//    of blocks 2 p and 2 p + 1) and takes two coefficients a step: one
+//    16-byte shared load of d[k], d[k + 1] of its two blocks and one of
+//    its two quads' M[p][k], M[p][k + 1] from the quads' 4 KB table, then
+//    8 products and 32 adds.  All 64 terms in one branch-free run where
+//    the mask holds kOvfDenseTerms or more (noise), else each behind a
+//    uniform branch; k = 0 stores; a tile of sentinel rows alone ends
+//    before the sums.  Each sample is + level, truncated and clamped as
+//    row_samples does, and the samples go back through the tile as bytes,
+//    so that one store of the warp writes 4 rows of all 8 blocks: a tile
+//    of neighbouring blocks (on noise two MCUs' luma side by side, or 8
+//    MCUs' chroma) fills whole 32-byte sectors, 8 bytes a lane where the
+//    destination is 8-byte aligned, else bytewise.
 //
 // No atomics: every output is written by one thread, so the same input
 // gives the same bits on every run.
@@ -400,6 +445,7 @@ struct IdctComp {
   int v, h, per;         // sampling factors: v x h = per blocks an MCU
   int width;             // plane width in samples
   int cap;               // sparse: overflow rows
+  int tiles;             // sparse: the overflow launch's tiles of them
   int slot0;             // dense: the component's first slot in an MCU
   int mcus_y;            // MCU rows
   int mpu, ux;           // MCUs a unit, units an MCU row
@@ -416,6 +462,7 @@ struct IdctArgs {
   const uint8_t* bad;      // dense: [N * nseg] corruption flags
   const int32_t* q;        // quant tables: [ncomp, 64] or [N, ncomp, 64]
   const float* basis_t;    // [64, 64] transposed: basis_t[k][p] = M[p][k]
+  const float* quads;      // overflow: the mirror quads' basis (1,024)
   uint8_t* out;            // [N, out_stride]
   long long row_bytes;     // sparse: bytes of one image's row
   long long image_blocks;  // dense: block slots of one image
@@ -493,25 +540,6 @@ __device__ __forceinline__ uint2 row_samples(const float* mt, int level,
     w[x >> 2] |= min(__float2uint_rz(__fadd_rn(s[x], lv)), 255u)
                  << (8 * (x & 3));
   return make_uint2(w[0], w[1]);
-}
-
-// The nonzero mask of a block whose coefficients k = 8 g .. 8 g + 7 lane
-// g of each group of 8 holds in c[]: every lane of the group gets the
-// whole mask.  All 32 lanes call it.
-__device__ __forceinline__ void group_mask(const int32_t c[8], int g,
-                                           uint32_t* mlo, uint32_t* mhi) {
-  uint32_t byte = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) byte |= static_cast<uint32_t>(c[j] != 0) << j;
-  uint32_t lo = g < 4 ? byte << (8 * g) : 0u;
-  uint32_t hi = g < 4 ? 0u : byte << (8 * (g - 4));
-#pragma unroll
-  for (int d = 1; d < 8; d <<= 1) {
-    lo |= __shfl_xor_sync(kFullMask, lo, d, 8);
-    hi |= __shfl_xor_sync(kFullMask, hi, d, 8);
-  }
-  *mlo = lo;
-  *mhi = hi;
 }
 
 // 8 bytes of samples at p (in shared or device memory), one store where
@@ -761,53 +789,257 @@ __global__ void __launch_bounds__(kIdctThreads)
   }
 }
 
-// The overflow launch: every overflow row's block transformed again from
-// the row, its samples stored over the first launch's.  A group of 8
-// lanes a row, 4 rows a warp at a time, the rows of the three components
-// one after the other; no barrier past the basis and the tables.
-__global__ void __launch_bounds__(kIdctThreads)
-    idct_planes_overflow_kernel(const __grid_constant__ IdctArgs a) {
-  __shared__ __align__(16) float mt[64 * 64];
-  __shared__ int qs[3][64];
-  __shared__ IdctComp comps[3];
-  const int t = threadIdx.x;
-  const int grp = (t & 31) >> 3;
-  const int g = t & 7;
-  if (t < 3) comps[t] = a.comp[t];
-  if (t < 3 * 64) qs[t >> 6][t & 63] = t < a.ncomp * 64 ? __ldg(a.q + t) : 0;
-  load_basis(mt, a.basis_t, t);
-  __syncthreads();
-  const int i0 = comps[0].cap, i1 = comps[1].cap;
-  const int rows = i0 + i1 + comps[2].cap;
-  for (int base = 4 * (blockIdx.x * kIdctWarps + (t >> 5)); base < rows;
-       base += 4 * kIdctWarps * gridDim.x) {
-    const int u = base + grp;
-    const int c = u < i0 ? 0 : (u < i0 + i1 ? 1 : 2);
-    const IdctComp& C = comps[c];
-    const int item = u - (c == 0 ? 0 : (c == 1 ? i0 : i0 + i1));
-    int f = -1;
-    if (u < rows) {
-      f = static_cast<int32_t>(load_u32(a.flat + C.oidx_off + 4ll * item));
-      if (f < 0 || f >= a.nimages * C.nblocks) f = -1;
-    }
-    const uint8_t* row = a.flat + C.orows_off + 128ll * item;
-    int32_t cf[8];
+// ---------------------------------------------------------------------------
+// Kernel 2's overflow launch: the mirror-quad walk over tiles of 8 rows
+// ---------------------------------------------------------------------------
+
+// One tile of kOvfTile overflow rows of one component a warp, kOvfWarps a
+// thread block, as many thread blocks as the tiles fill.
+constexpr int kOvfThreads = 128;
+constexpr int kOvfWarps = kOvfThreads / 32;
+constexpr int kOvfTile = 8;
+// thread blocks an SM its registers are held to (64 a thread at most)
+constexpr int kOvfBlocksPerSm = 8;
+// mask bits (of 64) from which a warp takes every term in one straight run
+constexpr int kOvfDenseTerms = 32;
+// The warp's tile, in floats.  Coefficients: row v of the pair p's blocks
+// 2 p and 2 p + 1 at float kPairStride p + kRowStride v, d[k] of block
+// 2 p + s at 2 u + s, so that one 16-byte load gives a lane d[k] and
+// d[k + 1] of both its blocks (k even); the pad after each row and the
+// pairs' offsets put the four pairs' loads of one k in different banks.
+// Then, for the stores, the samples as bytes, row y of block ob at
+// kSampleStride ob + 8 y (the four pairs' byte stores of one sum fall in
+// different banks).
+constexpr int kRowStride = 20;
+constexpr int kPairStride = 8 * kRowStride + 4;
+constexpr int kOvfTileFloats = 3 * kPairStride + 8 * kRowStride;
+constexpr int kSampleStride = 72;
+
+// Row r of an overflow row: the 8 int16 coefficients at p, one 16-byte
+// load where p is aligned, else one load_i16 a coefficient.
+__device__ __forceinline__ int4 load_coeff_row(const uint8_t* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0)
+    return __ldg(reinterpret_cast<const int4*>(p));
+  uint32_t h[8];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      cf[j] = f >= 0 ? load_i16(row + 2 * (8 * g + j)) : 0;
-    uint32_t mlo, mhi;
-    group_mask(cf, g, &mlo, &mhi);
-    const int* q = qs[c];
-    const uint2 v = row_samples(
-        mt, a.level, mlo, mhi, 64,
-        [&](int k, int) { return load_i16(row + 2 * k) * q[k]; }, g);
-    if (f >= 0) {
-      const int n = f / C.nblocks;
-      int y0, x0;
-      block_origin(f - n * C.nblocks, C.v, C.h, a.mcus_x, &y0, &x0);
-      store_row(a.out + n * a.out_stride + C.plane_off +
-                    static_cast<long long>(y0 + g) * C.width + x0,
-                v);
+  for (int j = 0; j < 8; ++j)
+    h[j] = static_cast<uint32_t>(load_i16(p + 2 * j)) & 0xFFFFu;
+  return make_int4(static_cast<int>(h[0] | (h[1] << 16)),
+                   static_cast<int>(h[2] | (h[3] << 16)),
+                   static_cast<int>(h[4] | (h[5] << 16)),
+                   static_cast<int>(h[6] | (h[7] << 16)));
+}
+
+// A row dequantized (d = c q as a 32-bit integer) into dst as float32, at
+// dst[2 (u ^ swap)] for column u (a pair of odd p writes its columns in
+// swapped pairs: the warp's stores of one step fall in 32 banks); returns
+// the row's nonzero mask.
+__device__ __forceinline__ uint32_t dequant_row(int4 w, const int* q,
+                                                float* dst, int swap) {
+  const int ws[4] = {w.x, w.y, w.z, w.w};
+  int d[8];
+  uint32_t mask = 0;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int c = (u & 1) ? ws[u >> 1] >> 16
+                          : static_cast<int16_t>(ws[u >> 1] & 0xFFFF);
+    d[u] = static_cast<int>(static_cast<uint32_t>(c) *
+                            static_cast<uint32_t>(q[u]));
+    mask |= (d[u] != 0 ? 1u : 0u) << u;
+  }
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    dst[2 * (u ^ swap)] = __int2float_rn(swap ? d[u ^ 1] : d[u]);
+  return mask;
+}
+
+// The 64-bit mask of the warp's blocks' nonzero coefficients, bit k = 8 r
+// + u of lo (k < 32) or hi, from each lane's mask of its row r:
+// warp-uniform.
+__device__ __forceinline__ void union_mask(uint32_t row_mask, int r,
+                                           uint32_t* lo, uint32_t* hi) {
+  *lo = __reduce_or_sync(kFullMask, r < 4 ? row_mask << (8 * r) : 0u);
+  *hi = __reduce_or_sync(kFullMask, r < 4 ? 0u : row_mask << (8 * (r - 4)));
+}
+
+// Term t = d M[p][k] of a mirror quad's base sample p into its 4 sums:
+// acc[0] (y, x), acc[1] (y, 7 - x), acc[2] (7 - y, x), acc[3] (7 - y,
+// 7 - x).  The basis is mirror-symmetric bit for bit, M[8 y + 7 - x][k] =
+// (-1)^u M[p][k] and M[8 (7 - y) + x][k] = (-1)^v M[p][k], and rounding
+// to nearest is symmetric, so each mirrored term is t or -t exactly; the
+// k = 0 term is stored in place of its add onto +0.
+__device__ __forceinline__ void quad_add(float* acc, float t, int k, int u,
+                                         int v) {
+  if (k == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] = t;
+    return;
+  }
+  acc[0] = __fadd_rn(acc[0], t);
+  acc[1] = (u & 1) ? __fsub_rn(acc[1], t) : __fadd_rn(acc[1], t);
+  acc[2] = (v & 1) ? __fsub_rn(acc[2], t) : __fadd_rn(acc[2], t);
+  acc[3] = ((u ^ v) & 1) ? __fsub_rn(acc[3], t) : __fadd_rn(acc[3], t);
+}
+
+// The terms of the lane's two mirror quads of the pair's two blocks into
+// acc[block][quad][sample], in ascending k = 8 v + u, two k a step:
+// e[5 v + u / 2] holds d[k], d[k + 1] of both blocks, m[8 (k / 2)] the two
+// quads' M[p][k], M[p][k + 1].  kSkip: only where the mask's bit k is set
+// (a coefficient nonzero in one of the warp's blocks), each behind a
+// uniform branch (a row of 8 and a step of 2 behind one more); else all 64
+// in one straight run.
+template <bool kSkip>
+__device__ __forceinline__ void quad_terms(const float4* e, const float4* m,
+                                           uint32_t lo, uint32_t hi,
+                                           float (*acc)[2][4]) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[s][h][i] = 0.0f;
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    const uint32_t row = ((v < 4 ? lo : hi) >> (8 * (v & 3))) & 0xFFu;
+    if (kSkip && row == 0u) continue;
+#pragma unroll
+    for (int u = 0; u < 8; u += 2) {
+      const uint32_t two = (row >> u) & 3u;
+      if (kSkip && two == 0u) continue;
+      const int k = 8 * v + u;
+      const float4 dk = e[5 * v + u / 2];
+      const float4 mk = m[8 * (k / 2)];
+      if (!kSkip || (two & 1u)) {
+        quad_add(acc[0][0], __fmul_rn(dk.x, mk.x), k, u, v);
+        quad_add(acc[1][0], __fmul_rn(dk.y, mk.x), k, u, v);
+        quad_add(acc[0][1], __fmul_rn(dk.x, mk.z), k, u, v);
+        quad_add(acc[1][1], __fmul_rn(dk.y, mk.z), k, u, v);
+      }
+      if (!kSkip || (two & 2u)) {
+        quad_add(acc[0][0], __fmul_rn(dk.z, mk.y), k + 1, u + 1, v);
+        quad_add(acc[1][0], __fmul_rn(dk.w, mk.y), k + 1, u + 1, v);
+        quad_add(acc[0][1], __fmul_rn(dk.z, mk.w), k + 1, u + 1, v);
+        quad_add(acc[1][1], __fmul_rn(dk.w, mk.w), k + 1, u + 1, v);
+      }
+    }
+  }
+}
+
+// The overflow launch (see the header): lane 8 b + r loads row r of the
+// tile's rows b and b + 4 and their indices; lane 8 p + j sums the mirror
+// quads j and j + 8 of blocks 2 p and 2 p + 1 over the union of the 8
+// blocks' nonzero coefficients; lane l stores rows l / 8 and 4 + l / 8 of
+// block l % 8.  No barrier past the tables.
+__global__ void __launch_bounds__(kOvfThreads, kOvfBlocksPerSm)
+    idct_planes_overflow_kernel(const __grid_constant__ IdctArgs a) {
+  __shared__ __align__(16) float tiles[kOvfWarps][kOvfTileFloats];
+  // the quads' basis, two k a float4: mq[8 (k / 2) + j] = (M[p][k],
+  // M[p][k + 1], M[p'][k], M[p'][k + 1]) for quads j and j + 8, p = 8 y + x
+  // of quad q = 4 y + x
+  __shared__ __align__(16) float4 mq[32 * 8];
+  __shared__ __align__(16) int qs[3][64];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int b = lane >> 3;      // loads: row r of the tile's rows b, b + 4
+  const int r = lane & 7;
+  const int total = a.comp[0].tiles + a.comp[1].tiles + a.comp[2].tiles;
+  const int tile_i = blockIdx.x * kOvfWarps + (t >> 5);
+  int c = 0, lt = tile_i;
+  while (c < 2 && lt >= a.comp[c].tiles) lt -= a.comp[c++].tiles;
+  const IdctComp& C = a.comp[c];
+  // the warp's indices and rows first: their loads are in flight while the
+  // thread block copies its tables.  Each row is loaded once.
+  int f[2] = {-1, -1};
+  int4 w[2] = {make_int4(0, 0, 0, 0), make_int4(0, 0, 0, 0)};
+  if (tile_i < total) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = lt * kOvfTile + b + 4 * h;
+      if (i < C.cap) {
+        f[h] = static_cast<int32_t>(load_u32(a.flat + C.oidx_off + 4ll * i));
+        w[h] = load_coeff_row(a.flat + C.orows_off + 128ll * i + 16 * r);
+      }
+    }
+  }
+  for (int i = t; i < 32 * 8; i += kOvfThreads)
+    mq[i] = __ldg(reinterpret_cast<const float4*>(a.quads) + i);
+  for (int i = t; i < 64 * a.ncomp; i += kOvfThreads)
+    qs[i >> 6][i & 63] = __ldg(a.q + i);
+  __syncthreads();
+  if (tile_i >= total) return;
+  // a row whose index is outside [0, N B_c) (the host's sentinel padding)
+  // adds no term and stores nothing; a tile of such rows alone ends here
+  const int nb = a.nimages * C.nblocks;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (f[h] < 0 || f[h] >= nb) {
+      f[h] = -1;
+      w[h] = make_int4(0, 0, 0, 0);
+    }
+  }
+  if (!__any_sync(kFullMask, f[0] >= 0 || f[1] >= 0)) return;
+  float* tile = tiles[t >> 5];
+  // rows r of rows b and b + 4 into the tile: block 2 p + s at pair p
+  const int4 q0 = *reinterpret_cast<const int4*>(&qs[c][8 * r]);
+  const int4 q1 = *reinterpret_cast<const int4*>(&qs[c][8 * r + 4]);
+  const int qv[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+  float* dst = tile + (b >> 1) * kPairStride + kRowStride * r + (b & 1);
+  const uint32_t row_mask =
+      dequant_row(w[0], qv, dst, b >> 1) |
+      dequant_row(w[1], qv, dst + 2 * kPairStride, b >> 1);
+  uint32_t lo, hi;
+  union_mask(row_mask, r, &lo, &hi);
+  __syncwarp();
+  // sums: lane 8 p + j takes quads j (y = j / 4, x = j % 4) and j + 8
+  // (y + 2) of blocks 2 p and 2 p + 1
+  const int pair = lane >> 3;
+  const int j = lane & 7;
+  float acc[2][2][4];
+  const float4* e =
+      reinterpret_cast<const float4*>(tile + pair * kPairStride);
+  if (__popc(lo) + __popc(hi) >= kOvfDenseTerms)
+    quad_terms<false>(e, mq + j, lo, hi, acc);
+  else
+    quad_terms<true>(e, mq + j, lo, hi, acc);
+  __syncwarp();  // the tile takes the samples now
+  // + level, then truncation and the clamp to [0, 255]: the conversion to
+  // unsigned saturates below at 0
+  uint8_t* samples = reinterpret_cast<uint8_t*>(tile);
+  const float level = __int2float_rn(a.level);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int y = (j >> 2) + 2 * h, x = j & 3;
+        samples[kSampleStride * (2 * pair + s) + 8 * ((i & 2) ? 7 - y : y) +
+                ((i & 1) ? 7 - x : x)] = static_cast<uint8_t>(
+            min(__float2uint_rz(__fadd_rn(acc[s][h][i], level)), 255u));
+      }
+    }
+  }
+  __syncwarp();
+  // out: lane l stores rows l / 8 and 4 + l / 8 of block ob = l % 8, so
+  // one store of the warp writes 4 rows of all 8 blocks and fills every
+  // sector that lies in them (two MCUs' luma side by side, 8 MCUs'
+  // chroma); 8 bytes a store where the destination allows, else bytewise
+  const int ob = lane & 7;
+  const int fa = __shfl_sync(kFullMask, f[0], 8 * (ob & 3));
+  const int fb = __shfl_sync(kFullMask, f[1], 8 * (ob & 3));
+  const int fo = ob < 4 ? fa : fb;
+  if (fo >= 0) {
+    const int n = fo / C.nblocks;
+    int y0, x0;
+    block_origin(fo - n * C.nblocks, C.v, C.h, a.mcus_x, &y0, &x0);
+    uint8_t* base = a.out + n * a.out_stride + C.plane_off +
+                    static_cast<long long>(y0) * C.width + x0;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int orow = 4 * k + (lane >> 3);
+      store_row(base + static_cast<long long>(orow) * C.width,
+                *reinterpret_cast<const uint2*>(
+                    samples + kSampleStride * ob + 8 * orow));
     }
   }
 }
@@ -911,14 +1143,18 @@ int jz_fdct_quantize(int elem_bytes, const long long* desc, const float* tabs,
 // then, where any component has overflow rows, the overflow launch;
 // dense = 1: the dense form from `src` (the scan's int16 blocks) with the
 // corruption flags `bad`, one byte each.  basis_t: the
-// inverse basis transposed, [k][p].  desc (host memory):
+// inverse basis transposed, [k][p] (the sparse and dense launches); quads:
+// the overflow launch's table of the basis' 16 mirror quads, laid out as
+// jz_idct_planes_rgb's basis (exact_cuda.quad_basis; 1,024 floats in
+// device memory, 16-byte aligned; may be null without overflow rows).
+// desc (host memory):
 // nimages, ncomp, mcus_x, K, level, nseg, row_bytes, image_blocks,
 // out_stride, q_stride, planes, mcu_blocks, then per component nblocks, v,
 // h, width, cap, slot0, plane_off, mlo_off, mhi_off, val_off, oidx_off,
 // orows_off.  Sampling factors 1..4; the sparse form takes K in 1..64.
 int jz_idct_planes(int dense, const long long* desc, const void* src,
                    const void* bad, const void* q, const void* basis_t,
-                   void* out, void* stream) {
+                   const void* quads, void* out, void* stream) {
   IdctArgs a;
   a.nimages = static_cast<int>(desc[0]);
   a.ncomp = static_cast<int>(desc[1]);
@@ -937,7 +1173,7 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
   a.q_stride = desc[9];
   a.planes = desc[10];
   a.mcu_blocks = static_cast<int>(desc[11]);
-  long long caps = 0, units = 0;
+  long long caps = 0, tiles = 0, units = 0;
   for (int c = 0; c < 3; ++c) {
     const long long* d = desc + 12 + 12 * c;
     IdctComp& p = a.comp[c];
@@ -966,19 +1202,24 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
       const long long n = desc[0] * p.mcus_y * p.ux;
       if (n > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
       p.units = static_cast<int>(n);
+      if (p.cap < 0) return static_cast<int>(cudaErrorInvalidValue);
+      p.tiles = (p.cap + kOvfTile - 1) / kOvfTile;
       caps += p.cap;
+      tiles += p.tiles;
       units += n;
     } else {
-      p.cap = p.nblocks = 0;
+      p.cap = p.nblocks = p.tiles = 0;
     }
   }
-  if (units > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
+  if (units > 0x7FFFFFFFll || tiles > 0x7FFFFFFFll)
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks_needed = (units + kIdctWarps - 1) / kIdctWarps;
   a.flat = static_cast<const uint8_t*>(src);
   a.blocks = static_cast<const int16_t*>(src);
   a.bad = static_cast<const uint8_t*>(bad);
   a.q = static_cast<const int32_t*>(q);
   a.basis_t = static_cast<const float*>(basis_t);
+  a.quads = static_cast<const float*>(quads);
   a.out = static_cast<uint8_t*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int grid = 0;
@@ -999,10 +1240,10 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
       a);
   e = cudaGetLastError();
   if (e != cudaSuccess || caps == 0) return static_cast<int>(e);
-  e = grid_for(idct_planes_overflow_kernel, kIdctThreads,
-               (caps + 4 * kIdctWarps - 1) / (4 * kIdctWarps), &grid);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  idct_planes_overflow_kernel<<<grid, kIdctThreads, 0, s>>>(a);
+  if (quads == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  idct_planes_overflow_kernel<<<static_cast<unsigned>(
+                                    (tiles + kOvfWarps - 1) / kOvfWarps),
+                                kOvfThreads, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1022,7 +1263,7 @@ int jz_transform_kernel_info(int which, int* info) {
     case 3:
       return kernel_info(idct_planes_kernel<kDense>, kIdctThreads, info);
     case 4:
-      return kernel_info(idct_planes_overflow_kernel, kIdctThreads, info);
+      return kernel_info(idct_planes_overflow_kernel, kOvfThreads, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -14,9 +14,11 @@ block_transform.idct_planes_sparse_plain and idct_planes_dense_plain:
 dequantize, inverse DCT, level shift, truncation and clamp, written
 straight into the packed u8 planes.  The sparse form reads the ycc420
 transport's upload in place (one launch, and a second for the overflow
-rows when the upload carries any); the dense form reads the Huffman
-scan's blocks and writes each image's corruption flag after its planes
-(one launch).  Both call the kernel's one arithmetic function.  They
+rows when the upload carries any: tiles of 8 rows of a component, one
+product for the 4 samples of a mirror quad, from exact_cuda's checked
+table of the basis' quads); the dense form reads the Huffman scan's blocks
+and writes each image's corruption flag after its planes (one launch).
+Every launch adds the same terms in the same ascending order.  They
 replace jpezy_tpu/codec/jax_codec.py:_decode_fused_batch_ycc420 and the
 tail of _decode_fused_batch_device.
 
@@ -49,7 +51,7 @@ def _bind(lib) -> None:
     lib.jz_fdct_quantize.restype = ci
     lib.jz_fdct_quantize.argtypes = [ci] + [vp] * 11
     lib.jz_idct_planes.restype = ci
-    lib.jz_idct_planes.argtypes = [ci] + [vp] * 7
+    lib.jz_idct_planes.argtypes = [ci] + [vp] * 8
     lib.jz_transform_kernel_info.restype = ci
     lib.jz_transform_kernel_info.argtypes = [ci, vp]
 
@@ -184,27 +186,27 @@ def _inverse_basis_t(device: torch.device) -> torch.Tensor:
 
 def _launch(dense: int, desc, src, bad, q, out) -> None:
     global idct_launches
+    from .exact_cuda import _device_quads   # exact_cuda imports this module
+
     lib = LIB.get()
     dev = out.device
     with torch.cuda.device(dev):
         basis = _inverse_basis_t(dev)
+        quads = _device_quads(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jz_idct_planes(
             dense, desc.ctypes.data, src.data_ptr(),
             None if bad is None else bad.data_ptr(), q.data_ptr(),
-            basis.data_ptr(), out.data_ptr(), stream)
+            basis.data_ptr(), quads.data_ptr(), out.data_ptr(), stream)
     LIB.raise_on("idct_planes", rc)
     if out.shape[0] > 0:
         with _lock:
             idct_launches += 1
 
 
-def idct_planes_sparse_cuda(flat, qtab, *, geom, level, shapes, K, N, caps):
-    """The ycc420 upload flat (1-D uint8, the layout of
-    block_transform.idct_planes_sparse_plain) and the components' quant
-    tables qtab [ncomp, 64] int32 -> [N, P] uint8 planes.  Overflow
-    indices outside [0, N*B_c), the host's padding among them, write
-    nothing."""
+def sparse_desc(flat, qtab, *, geom, level, shapes, K, N, caps):
+    """The sparse form's checked arguments: (the launcher's int64
+    description of the upload flat, the planes' bytes an image)."""
     fn = "idct_planes_sparse_cuda"
     ncomp = len(geom)
     if not (1 <= ncomp <= 3) or len(shapes) != ncomp or len(caps) != ncomp:
@@ -225,8 +227,19 @@ def idct_planes_sparse_cuda(flat, qtab, *, geom, level, shapes, K, N, caps):
                        ooff, ooff + 4 * cap))
         off += (8 + K) * Bn
         ooff += 132 * cap
-    desc, planes = _desc(N, geom, shapes, flag=False, K=K, level=level,
-                         row_bytes=X, fields=fields)
+    return _desc(N, geom, shapes, flag=False, K=K, level=level,
+                 row_bytes=X, fields=fields)
+
+
+def idct_planes_sparse_cuda(flat, qtab, *, geom, level, shapes, K, N, caps):
+    """The ycc420 upload flat (1-D uint8, the layout of
+    block_transform.idct_planes_sparse_plain) and the components' quant
+    tables qtab [ncomp, 64] int32 -> [N, P] uint8 planes: the sparse
+    launch, then the overflow launch where caps holds rows.  Overflow
+    indices outside [0, N*B_c), the host's padding among them, write
+    nothing."""
+    desc, planes = sparse_desc(flat, qtab, geom=geom, level=level,
+                               shapes=shapes, K=K, N=N, caps=caps)
     with torch.cuda.device(flat.device):
         out = torch.empty((N, planes), dtype=torch.uint8, device=flat.device)
         src, q = flat.contiguous(), qtab.contiguous()

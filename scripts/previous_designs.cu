@@ -21,6 +21,14 @@
 //     current kernel holds its basis in registers, takes one product for
 //     the four samples of a mirror quad and walks the union of a warp's 4
 //     blocks).
+//   jz_prev_idct_planes_overflow  the first overflow launch of the ycc420
+//     IDCT (block_transforms.cu's jz_idct_planes): a group of 8 lanes an
+//     overflow row and a lane a row of 8 samples, each group on its own
+//     block's mask, every term's coefficient loaded again from device
+//     memory and two 16-byte words of the 16 KB [64][64] basis in shared
+//     memory read for 16 float operations (the current launch tiles the
+//     rows 8 a warp by component, loads each row once and walks the union
+//     of the tile's nonzero coefficients, one product a mirror quad).
 //   jz_prev_fdct_quantize_exact, jz_prev_idct_planes_exact  exact mode's
 //     first float64 kernels: the forward issues all 64 terms of every
 //     block, products by COS[0][y] = 1 and cu[i] = 1 and the first adds
@@ -33,8 +41,10 @@
 //
 // All are verbatim but for names: the current entropy source is
 // included for encode_block and the table layout, the concat's two
-// kernels sit in namespace two_pass and the exact kernels and the first
-// fast rgb IDCT in namespace first_exact.
+// kernels sit in namespace two_pass, the exact kernels and the first
+// fast rgb IDCT in namespace first_exact, and the first overflow launch
+// with the helpers and argument structs of its source in namespace
+// first_overflow.
 #include "../jpezy_tpu_torch/csrc/entropy_pack.cu"
 
 namespace {
@@ -832,6 +842,239 @@ int inverse_layout(int elem_bytes, const long long* desc, const void* coeff,
 
 }  // namespace first_exact
 
+namespace first_overflow {
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kIdctThreads = 256;
+constexpr int kIdctWarps = kIdctThreads / 32;
+
+// The top-left sample of block bi of a component whose MCUs hold v x h
+// blocks in raster order (luma 2 x 2: TL, TR, BL, BR).
+__device__ __forceinline__ void block_origin(int bi, int v, int h,
+                                             int mcus_x, int* row,
+                                             int* col) {
+  const int per = v * h;
+  const int m = bi / per;
+  const int r = bi - m * per;
+  const int my = m / mcus_x;
+  const int mx = m - my * mcus_x;
+  const int vy = r / h;
+  *row = (my * v + vy) * 8;
+  *col = (mx * h + (r - vy * h)) * 8;
+}
+
+
+struct IdctComp {
+  int nblocks;           // B_c: the component's blocks in one image
+  int v, h, per;         // sampling factors: v x h = per blocks an MCU
+  int width;             // plane width in samples
+  int cap;               // sparse: overflow rows
+  int slot0;             // dense: the component's first slot in an MCU
+  int mcus_y;            // MCU rows
+  int mpu, ux;           // MCUs a unit, units an MCU row
+  int units;             // units of the component over the batch
+  long long plane_off;   // the plane's first byte in an output row
+  long long mlo_off, mhi_off, val_off;  // sparse: fields in an image row
+  long long oidx_off, orows_off;        // sparse: overflow tail in flat
+};
+
+struct IdctArgs {
+  IdctComp comp[3];
+  const uint8_t* flat;     // sparse: the upload
+  const int16_t* blocks;   // dense: the scan's blocks
+  const uint8_t* bad;      // dense: [N * nseg] corruption flags
+  const int32_t* q;        // quant tables: [ncomp, 64] or [N, ncomp, 64]
+  const float* basis_t;    // [64, 64] transposed: basis_t[k][p] = M[p][k]
+  uint8_t* out;            // [N, out_stride]
+  long long row_bytes;     // sparse: bytes of one image's row
+  long long image_blocks;  // dense: block slots of one image
+  long long out_stride;    // bytes of one output row
+  long long q_stride;      // int32s from one image's tables to the next
+  long long planes;        // dense: the flag byte's place in a row
+  int ncomp, nimages, mcus_x, K, level, nseg, mcu_blocks;
+};
+
+__device__ __forceinline__ uint32_t load_u32(const uint8_t* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 3) == 0)
+    return __ldg(reinterpret_cast<const uint32_t*>(p));
+  return static_cast<uint32_t>(__ldg(p)) |
+         (static_cast<uint32_t>(__ldg(p + 1)) << 8) |
+         (static_cast<uint32_t>(__ldg(p + 2)) << 16) |
+         (static_cast<uint32_t>(__ldg(p + 3)) << 24);
+}
+
+__device__ __forceinline__ int32_t load_i16(const uint8_t* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 1) == 0)
+    return __ldg(reinterpret_cast<const int16_t*>(p));
+  return static_cast<int16_t>(static_cast<uint16_t>(__ldg(p)) |
+                              (static_cast<uint16_t>(__ldg(p + 1)) << 8));
+}
+
+// The terms of the set bits of `bits` (coefficients k0 + bit), ascending,
+// while fewer than `limit` terms have been added in all (*r counts them).
+template <typename Coef>
+__device__ __forceinline__ void add_terms(float s[8], const float* mt,
+                                          uint32_t bits, int k0, int* r,
+                                          int limit, Coef coef, int g) {
+  for (; bits && *r < limit; ++*r) {
+    const int k = k0 + __ffs(bits) - 1;
+    bits &= bits - 1;
+    const float ck = __int2float_rn(coef(k, *r));
+    const float4 m0 = *reinterpret_cast<const float4*>(mt + k * 64 + 8 * g);
+    const float4 m1 =
+        *reinterpret_cast<const float4*>(mt + k * 64 + 8 * g + 4);
+    s[0] = __fadd_rn(s[0], __fmul_rn(ck, m0.x));
+    s[1] = __fadd_rn(s[1], __fmul_rn(ck, m0.y));
+    s[2] = __fadd_rn(s[2], __fmul_rn(ck, m0.z));
+    s[3] = __fadd_rn(s[3], __fmul_rn(ck, m0.w));
+    s[4] = __fadd_rn(s[4], __fmul_rn(ck, m1.x));
+    s[5] = __fadd_rn(s[5], __fmul_rn(ck, m1.y));
+    s[6] = __fadd_rn(s[6], __fmul_rn(ck, m1.z));
+    s[7] = __fadd_rn(s[7], __fmul_rn(ck, m1.w));
+  }
+}
+
+// The one arithmetic of every form, run by a group of 8 lanes on one
+// block: lane g of the group sums the 8 samples of row g, p = 8 g + x,
+// over the block's nonzero coefficients in ascending k (the first `limit`
+// set bits of the mask mlo | mhi << 32), coefficient k being coef(k, r)
+// for the r-th of them (its dequantized value), each term a float32
+// multiply then a float32 add, the sums starting at +0.0f; then + level,
+// truncation and the clamp.  Returns the row's 8 samples, x = 0 in the low
+// byte.  No lane of the group waits on another: each walks the mask
+// alone.
+template <typename Coef>
+__device__ __forceinline__ uint2 row_samples(const float* mt, int level,
+                                             uint32_t mlo, uint32_t mhi,
+                                             int limit, Coef coef, int g) {
+  float s[8];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) s[x] = 0.f;
+  int r = 0;
+  add_terms(s, mt, mlo, 0, &r, limit, coef, g);
+  add_terms(s, mt, mhi, 32, &r, limit, coef, g);
+  // + level, then truncation and the clamp to [0, 255]: the conversion to
+  // unsigned saturates below at 0
+  const float lv = __int2float_rn(level);
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+    w[x >> 2] |= min(__float2uint_rz(__fadd_rn(s[x], lv)), 255u)
+                 << (8 * (x & 3));
+  return make_uint2(w[0], w[1]);
+}
+
+// The nonzero mask of a block whose coefficients k = 8 g .. 8 g + 7 lane
+// g of each group of 8 holds in c[]: every lane of the group gets the
+// whole mask.  All 32 lanes call it.
+__device__ __forceinline__ void group_mask(const int32_t c[8], int g,
+                                           uint32_t* mlo, uint32_t* mhi) {
+  uint32_t byte = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) byte |= static_cast<uint32_t>(c[j] != 0) << j;
+  uint32_t lo = g < 4 ? byte << (8 * g) : 0u;
+  uint32_t hi = g < 4 ? 0u : byte << (8 * (g - 4));
+#pragma unroll
+  for (int d = 1; d < 8; d <<= 1) {
+    lo |= __shfl_xor_sync(kFullMask, lo, d, 8);
+    hi |= __shfl_xor_sync(kFullMask, hi, d, 8);
+  }
+  *mlo = lo;
+  *mhi = hi;
+}
+
+// 8 bytes of samples at p (in shared or device memory), one store where
+// p is 8-byte aligned.
+__device__ __forceinline__ void store_row(uint8_t* p, uint2 v) {
+  if ((reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    *reinterpret_cast<uint2*>(p) = v;
+    return;
+  }
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+    p[x] = static_cast<uint8_t>(((x < 4 ? v.x : v.y) >> (8 * (x & 3))) & 0xFF);
+}
+
+
+__device__ __forceinline__ void load_basis(float* mt, const float* basis_t,
+                                           int t) {
+  const float4* src = reinterpret_cast<const float4*>(basis_t);
+  for (int i = t; i < 64 * 64 / 4; i += kIdctThreads)
+    reinterpret_cast<float4*>(mt)[i] = __ldg(src + i);
+}
+
+
+// The overflow launch: every overflow row's block transformed again from
+// the row, its samples stored over the first launch's.  A group of 8
+// lanes a row, 4 rows a warp at a time, the rows of the three components
+// one after the other; no barrier past the basis and the tables.
+__global__ void __launch_bounds__(kIdctThreads)
+    idct_overflow_first_kernel(const __grid_constant__ IdctArgs a) {
+  __shared__ __align__(16) float mt[64 * 64];
+  __shared__ int qs[3][64];
+  __shared__ IdctComp comps[3];
+  const int t = threadIdx.x;
+  const int grp = (t & 31) >> 3;
+  const int g = t & 7;
+  if (t < 3) comps[t] = a.comp[t];
+  if (t < 3 * 64) qs[t >> 6][t & 63] = t < a.ncomp * 64 ? __ldg(a.q + t) : 0;
+  load_basis(mt, a.basis_t, t);
+  __syncthreads();
+  const int i0 = comps[0].cap, i1 = comps[1].cap;
+  const int rows = i0 + i1 + comps[2].cap;
+  for (int base = 4 * (blockIdx.x * kIdctWarps + (t >> 5)); base < rows;
+       base += 4 * kIdctWarps * gridDim.x) {
+    const int u = base + grp;
+    const int c = u < i0 ? 0 : (u < i0 + i1 ? 1 : 2);
+    const IdctComp& C = comps[c];
+    const int item = u - (c == 0 ? 0 : (c == 1 ? i0 : i0 + i1));
+    int f = -1;
+    if (u < rows) {
+      f = static_cast<int32_t>(load_u32(a.flat + C.oidx_off + 4ll * item));
+      if (f < 0 || f >= a.nimages * C.nblocks) f = -1;
+    }
+    const uint8_t* row = a.flat + C.orows_off + 128ll * item;
+    int32_t cf[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      cf[j] = f >= 0 ? load_i16(row + 2 * (8 * g + j)) : 0;
+    uint32_t mlo, mhi;
+    group_mask(cf, g, &mlo, &mhi);
+    const int* q = qs[c];
+    const uint2 v = row_samples(
+        mt, a.level, mlo, mhi, 64,
+        [&](int k, int) { return load_i16(row + 2 * k) * q[k]; }, g);
+    if (f >= 0) {
+      const int n = f / C.nblocks;
+      int y0, x0;
+      block_origin(f - n * C.nblocks, C.v, C.h, a.mcus_x, &y0, &x0);
+      store_row(a.out + n * a.out_stride + C.plane_off +
+                    static_cast<long long>(y0 + g) * C.width + x0,
+                v);
+    }
+  }
+}
+
+
+template <typename K>
+cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (e != cudaSuccess) return e;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<int>(units < resident ? units : resident);
+  return cudaSuccess;
+}
+
+
+}  // namespace first_overflow
+
 extern "C" {
 
 // tables [nsets, kSetEntries] int32.  custom != 0: the caller's tables,
@@ -977,11 +1220,60 @@ int jz_prev_idct_planes_rgb(int elem_bytes, const long long* desc,
              : launch(idct_rgb_first_kernel<int32_t>, tiles, a, s);
 }
 
+// The first overflow launch alone (idct_overflow_first_kernel: a group of
+// 8 lanes a row, its coefficients read again from device memory for every
+// term, the [64][64] basis in shared memory), with jz_idct_planes's
+// sparse-form desc, upload, tables and planes but the basis transposed
+// only; the caller makes the sparse launch first, whose pixels it
+// overwrites.
+int jz_prev_idct_planes_overflow(const long long* desc, const void* src,
+                                 const void* q, const void* basis_t,
+                                 void* out, void* stream) {
+  using namespace first_overflow;
+  IdctArgs a;
+  a.nimages = static_cast<int>(desc[0]);
+  a.ncomp = static_cast<int>(desc[1]);
+  if (a.nimages <= 0) return 0;
+  if (a.ncomp < 1 || a.ncomp > 3 || desc[0] > 0x7FFFFFFFll || desc[2] <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.mcus_x = static_cast<int>(desc[2]);
+  a.level = static_cast<int>(desc[4]);
+  a.out_stride = desc[8];
+  long long caps = 0;
+  for (int c = 0; c < 3; ++c) {
+    const long long* d = desc + 12 + 12 * c;
+    IdctComp& p = a.comp[c];
+    p.nblocks = c < a.ncomp ? static_cast<int>(d[0]) : 0;
+    p.v = static_cast<int>(d[1]);
+    p.h = static_cast<int>(d[2]);
+    p.width = static_cast<int>(d[3]);
+    p.cap = c < a.ncomp ? static_cast<int>(d[4]) : 0;
+    p.plane_off = d[6];
+    p.oidx_off = d[10];
+    p.orows_off = d[11];
+    caps += p.cap;
+  }
+  if (caps == 0) return 0;
+  a.flat = static_cast<const uint8_t*>(src);
+  a.q = static_cast<const int32_t*>(q);
+  a.basis_t = static_cast<const float*>(basis_t);
+  a.out = static_cast<uint8_t*>(out);
+  int grid = 0;
+  const cudaError_t e = grid_for(idct_overflow_first_kernel, kIdctThreads,
+                                 (caps + 4 * kIdctWarps - 1) /
+                                     (4 * kIdctWarps), &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  idct_overflow_first_kernel<<<grid, kIdctThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What the card reports for kernel `which` (0: the per-component fused
 // kernel, fixed tables; 1: the concat's pass 1; 2: its pass 2; 3: the
 // first exact forward, int8 samples; 4: the first exact inverse, int16
-// coefficients; 5: the first fast rgb IDCT, int16 coefficients), as
-// jz_entropy_kernel_info reports it.
+// coefficients; 5: the first fast rgb IDCT, int16 coefficients; 6: the
+// first overflow launch of the ycc420 IDCT), as jz_entropy_kernel_info
+// reports it.
 int jz_prev_kernel_info(int which, int* info) {
   switch (which) {
     case 0:
@@ -1002,6 +1294,9 @@ int jz_prev_kernel_info(int which, int* info) {
     case 5:
       return first_exact::kernel_info(
           first_exact::idct_rgb_first_kernel<int16_t>, info);
+    case 6:
+      return kernel_info(first_overflow::idct_overflow_first_kernel,
+                         first_overflow::kIdctThreads, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

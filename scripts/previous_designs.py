@@ -1,4 +1,4 @@
-"""The earlier designs of five of jpezy_tpu_torch's kernels, built from
+"""The earlier designs of six of jpezy_tpu_torch's kernels, built from
 scripts/previous_designs.cu with the package's loader, so that
 chip_smoke.py times them beside the current kernels in one run, on the
 same inputs and the same card.  Nothing in the package calls them.
@@ -28,6 +28,13 @@ same inputs and the same card.  Nothing in the package calls them.
                      column of its block, 8 products and 8 adds a term,
                      each block's own nonzero mask walked with the float32
                      basis in shared memory.
+  idct_planes_overflow_first
+                     the ycc420 IDCT with the first design of its overflow
+                     launch, with the arguments and results of
+                     transform_cuda.idct_planes_sparse_cuda: the current
+                     sparse launch, then the first overflow launch (a group
+                     of 8 lanes a row, every term's coefficient loaded
+                     again, the [64][64] basis in shared memory).
 
 All raise without a card; none falls back.
 """
@@ -45,11 +52,13 @@ from jpezy_tpu_torch.ops import entropy as E
 from jpezy_tpu_torch.ops import exact_cuda
 from jpezy_tpu_torch.ops.cuda_build import KernelLibrary
 from jpezy_tpu_torch.ops.pack_cuda import annex_k_row
+from jpezy_tpu_torch.ops import transform_cuda
 from jpezy_tpu_torch.ops.transform_cuda import _inverse_basis_t
 
 KERNEL_INFO = ("encode_blocks per component", "concat_streams pass 1",
                "concat_streams pass 2", "fdct_quantize_exact first int8",
-               "idct_planes_exact first int16", "idct_planes_rgb first int16")
+               "idct_planes_exact first int16", "idct_planes_rgb first int16",
+               "idct_planes overflow first")
 
 
 def _bind(lib) -> None:
@@ -65,6 +74,8 @@ def _bind(lib) -> None:
     lib.jz_prev_idct_planes_exact.argtypes = [ci] + [vp] * 8
     lib.jz_prev_idct_planes_rgb.restype = ci
     lib.jz_prev_idct_planes_rgb.argtypes = [ci] + [vp] * 8
+    lib.jz_prev_idct_planes_overflow.restype = ci
+    lib.jz_prev_idct_planes_overflow.argtypes = [vp] * 6
     lib.jz_prev_kernel_info.restype = ci
     lib.jz_prev_kernel_info.argtypes = [ci, vp]
 
@@ -200,3 +211,25 @@ def idct_planes_rgb_first(coeff_all, qtab, *, geom, level: int, gray: bool,
         q.data_ptr(), *ptrs, torch.cuda.current_stream().cuda_stream)
     LIB.raise_on("prev_idct_planes_rgb", rc)
     return outs
+
+
+def idct_planes_overflow_first(flat, qtab, *, geom, level: int, shapes, K: int,
+                               N: int, caps):
+    """transform_cuda.idct_planes_sparse_cuda's planes with the first
+    overflow launch: the current sparse launch alone (the description's
+    caps zeroed), then the first overflow kernel over the same upload."""
+    lib = LIB.get()
+    desc, planes = transform_cuda.sparse_desc(
+        flat, qtab, geom=geom, level=level, shapes=shapes, K=K, N=N,
+        caps=caps)
+    alone = desc.copy()
+    alone[16::12] = 0      # each component's cap
+    out = torch.empty((N, planes), dtype=torch.uint8, device=flat.device)
+    src, q = flat.contiguous(), qtab.contiguous()
+    transform_cuda._launch(0, alone, src, None, q, out)
+    rc = lib.jz_prev_idct_planes_overflow(
+        desc.ctypes.data, src.data_ptr(), q.data_ptr(),
+        _inverse_basis_t(flat.device).data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_idct_planes_overflow", rc)
+    return out

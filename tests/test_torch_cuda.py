@@ -780,34 +780,49 @@ def _sparse_case(streams):
 
 def test_idct_sparse_kernel_matches_model(cuda):
     """The sparse form of the IDCT kernel on the ycc420 upload: real
-    images, noise at quality 100 (every block an overflow row, the tails
-    padded with the sentinel), and 16x16, 48x16 (Cr fields off a word
-    boundary) and 48x32 batches at quality 95 (overflow rows too):
-    bit-identical to the model, within 1 of the plain version, one counted
-    call each."""
+    images at quality 75 and 95, noise at quality 100 (every block an
+    overflow row, the tails padded with the sentinel), 16x16, 48x16 (Cr
+    fields off a word boundary) and 48x32 batches at quality 95 (overflow
+    rows too), and at levels 128 and 2048 the overflow sets of
+    testing/ycc_uploads (the float32 tie set, the mixed warp groups, blocks
+    that clamp at both ends, noise, sampling factors 1 to 4 with fields at
+    odd byte offsets, caps that are not a multiple of 8 and sentinel or
+    junk padding): bit-identical to the model, within 1 of the plain
+    version (which takes no index below 0, so not on the junk padding),
+    one counted call each."""
     from jpezy_tpu_torch.ops import block_transform as BT
     from jpezy_tpu_torch.ops import transform_cuda
+    from jpezy_tpu_torch.testing import ycc_uploads as YU
+    from test_torch_host_copies import build_host_runtime
 
+    build_host_runtime()       # YU.sparse_upload's native.sparsify8
     noise = np.random.default_rng(410).integers(0, 256, (3, 64, 64, 3),
                                                 dtype=np.uint8)
     cases = {"real": TC.encode_batch(_transform_images(128, 96, 411),
                                      device="cpu"),
+             "real q95": TC.encode_batch(_transform_images(128, 96, 411),
+                                         quality=95, device="cpu"),
              "noise q100": TC.encode_batch(noise, quality=100, device="cpu")}
     for h, w in ((16, 16), (16, 48), (32, 48)):
         cases[f"{w}x{h}"] = TC.encode_batch(
             _transform_images(h, w, 412, n=3), quality=95, device="cpu")
-    for label, streams in cases.items():
-        flat, kw = _sparse_case(streams)
-        if label == "noise q100":
-            assert all(kw["caps"])
+    uploads = {label: _sparse_case(streams)
+               for label, streams in cases.items()}
+    assert all(uploads["noise q100"][1]["caps"])
+    for level in (128, 2048):
+        uploads.update({f"{label}, level {level}": up for label, up in
+                        YU.overflow_sets(level).items()})
+    for label, (flat, kw) in uploads.items():
         before = transform_cuda.idct_launches
         got = BT.idct_planes_sparse(torch.from_numpy(flat).to(cuda), **kw)
         assert transform_cuda.idct_launches - before == 1, label
         model = BT.idct_planes_sparse_model(flat, **kw)
-        plain = BT.idct_planes_sparse_plain(torch.from_numpy(flat).to(cuda),
-                                            **kw)
         torch.cuda.synchronize()
         assert np.array_equal(got.cpu().numpy(), model), label
+        if label.startswith("junk padding"):
+            continue
+        plain = BT.idct_planes_sparse_plain(torch.from_numpy(flat).to(cuda),
+                                            **kw)
         assert (got.to(torch.int32) - plain.to(torch.int32)).abs().max() \
             <= 1, label
 
