@@ -31,8 +31,8 @@ any failure exits nonzero.  In the order they run:
      dequantize+IDCT-to-planes kernels and the rgb transport's fast
      IDCT-to-planes, exact_transforms.cu; the rgb transport's colour
      kernels, colour.cu; the designs the entropy kernel, the concat,
-     exact mode's two kernels and the fast rgb IDCT replaced,
-     scripts/previous_designs.cu, and
+     exact mode's two kernels, the fast rgb IDCT and the ycc420 IDCT's
+     overflow launch replaced, scripts/previous_designs.cu, and
      the float64 chains of scripts/fp64_ceiling.cu, for phase 6) and
      prints what
      ptxas reports for each kernel (a template's instantiations under one
@@ -45,12 +45,17 @@ any failure exits nonzero.  In the order they run:
   3. the pack kernels against their plain torch versions: the pack alone
      per component on the real 16x512x512 blocks, on seeded worst-case
      blocks and on the edge-case blocks; the batched entropy kernel (one
-     launch for the three components, its predictors found in the kernel)
-     on the real batch without and with restart markers and on the
-     worst-case and edge-case blocks as an image's components: words and
-     bits must be identical.  The pack kernel alone is off every path, so
-     its launch count is taken here, over the real blocks (3, one per
-     component);
+     launch for the three components, its predictors found in the kernel,
+     its words 32-bit) on the real batch without and with restart markers,
+     with a carry, one custom table set and 16 per-image sets, on the
+     worst-case and edge-case blocks as an image's components, on 16
+     images of 48x48 (runs of 32 blocks across images and restart
+     segments, two table sets in a run, carries inside a run), on the
+     longest blocks the kernel and the plain form code alike
+     (testing/encode_runs.longest_blocks: 1,791 bits) and on an empty
+     batch (no launch): words (as 32-bit patterns) and bits must be
+     identical.  The pack kernel alone is off every path, so its launch
+     count is taken here, over the real blocks (3, one per component);
   7. the scan kernel against decode_segments_plain on the card: the 2,048
      real segments of a 16x512x512 restart batch, noise images, the
      edge-case blocks encoded into segments, the 2,048 pseudo-segments of
@@ -151,8 +156,8 @@ any failure exits nonzero.  In the order they run:
      the shard budget, seeded blocks whose bits reach word 63, one-MCU
      images, and one 3840x2160 image without and with restart_interval=8
      (whose entropy kernel output is held to the plain version too); one
-     counted call (one launch) each; the two-pass design phase 6 times
-     beside it gives the same combined;
+     counted call (one launch) each; the concat with 64-bit loads that
+     phase 6 times beside it gives the same combined;
   14. the block transforms against their plain versions and the numpy
      models of the kernels' arithmetic order (ops/block_transform.py):
      fdct_quantize on the main batch's ycc420 int8 planes at Annex K,
@@ -228,17 +233,21 @@ any failure exits nonzero.  In the order they run:
      device decode's tail after the scan; each encode program, with and
      without restart markers, must be the fDCT, entropy and concat kernels
      alone (3 device events, no plain torch between the upload and the
-     fetch); the encode program's stages alone (the entropy stage and the
-     concat also as the earlier designs ran them, the concat and
-     fDCT+quantize also as the plain torch stages they replaced), and the
-     card's busy share of each pipelined round trip
+     fetch), in turns with the first fused entropy kernel and the concat
+     with 64-bit loads in place of the two; the encode program's stages
+     alone (the entropy stage and the concat also as their first designs
+     ran them, the concat and fDCT+quantize also as the plain torch stages
+     they replaced), and the card's busy share of each pipelined round
+     trip
      (device time of a profiled round trip over the wall time of the
      unprofiled one); 10/11 device: the optimize encode's device stages alone
      and the optimize path's busy share, the rgb transports' device programs
      (fast, exact, gray; beside their plain readings, EARLIER_EXACT and
      EARLIER_RGB, the exact ones beside their readings with the exact
-     kernels' first designs, FIRST_EXACT_PROGRAMS, and the fast decode in
-     turns with the fast IDCT's first design in its place), each of which
+     kernels' first designs, FIRST_EXACT_PROGRAMS, the fast decode in
+     turns with the fast IDCT's first design in its place, the fast encode
+     and the exact ycc420 encode in turns with the first fused entropy
+     kernel and the concat with 64-bit loads in place), each of which
      must be
      the hand kernels alone (4 device
      events an encode: colour, fDCT, entropy, concat; 2 a decode: the
@@ -282,11 +291,14 @@ any failure exits nonzero.  In the order they run:
      the concat on noise at quality 100 (dense blocks), of the IDCT
      kernel's dense form on the restart segments, and of the fused kernel
      with the 16 per-image table sets beside the fixed tables; the entropy
-     kernel and the concat beside the designs they replaced
-     (scripts/previous_designs.py: three per-component launches, the
-     two-pass concat) in turns, without and with restart_interval=8, warm
-     and with the L2 cache overwritten first, with both designs' registers
-     and thread blocks an SM; the rgb transport's kernels (fast) on the
+     kernel beside its first fused design (scripts/previous_designs.py:
+     64-bit words, a warp 2 blocks) in turns (now, first, now, first) on
+     the main batch, with restart_interval=8, with 16 per-image table sets
+     and on noise at quality 100, and the concat beside its form with
+     64-bit loads without and with restart_interval=8, warm and with the
+     L2 cache overwritten first, with both designs' registers, thread
+     blocks an SM, shared bytes and ptxas spill and stack bytes; the rgb
+     transport's kernels (fast) on the
      main batch beside their bounds (bytes, or separate float32
      operations: the rgb IDCT's those its roundings need, rgb_inv_ops, at
      PEAK_FP32_OPS), their plain versions and, for the fast IDCT, the
@@ -368,9 +380,10 @@ _U, _V = np.arange(64) % 8, np.arange(64) // 8
 EXACT_INV_OPS = (64 + 8 * (_U > 0) + 64 * (_V > 0) + ((_U == 0) | (_V == 0)),
                  2 * 64 - 64)
 # Bytes per 8x8 block that each kernel's function must move: its inputs
-# read once, 64 32-bit words and one bit count written once.  (The kernels
-# store the words zero-extended to 64 bits, 256 bytes more per block: a
-# cost of that layout, not part of the bound.)
+# read once, 64 32-bit words and one bit count written once.  (The fused
+# kernel stores just these; its first design and the pack alone store the
+# words zero-extended to 64 bits, 256 bytes more per block: a cost of that
+# layout, not part of the bound.)
 BLOCK_BYTES = {"pack_words": 3 * 256 + 256 + 4,
                # the coefficients in, the words and the count out: the
                # kernel finds the DC predictors itself (its per-component
@@ -397,9 +410,9 @@ MIN_OPS = {"pack_words": (2, 10), "encode_blocks": (3, 25),
 # add and the split of its offset (3), per word it places the two halves
 # of the funnel shift, their merge and the store (4).
 CONCAT_OPS = (3, 4)
-# blocks one warp of each kernel takes (kBlocksPerWarp of the source; the
-# histogram kernel takes one a thread)
-BLOCKS_PER_WARP = {"pack_words": 1, "encode_blocks": 2,
+# blocks one warp of each kernel takes (the pack alone one; the fused
+# kernel and the histogram kernel one a thread)
+BLOCKS_PER_WARP = {"pack_words": 1, "encode_blocks": 32,
                    "symbol_histograms": 32}
 # The least 32-bit operations per decoded Huffman symbol, whatever decodes
 # it: cut the 16-bit window (1), index the table (2), split length and
@@ -432,13 +445,13 @@ RGB_KERNELS = ("rgb_to_ycc420", "idct_planes_rgb", "ycc_planes_to_rgb")
 # the fused kernel's instantiation for the caller's tables (optimize), built
 # and checked beside the fixed-table one, which keeps the name
 ENCODE_CUSTOM = "encode_blocks (custom tables)"
-# the earlier designs that the encode program's entropy kernel and concat
-# replaced (scripts/previous_designs.cu), built and timed beside them in
-# this run: the per-component fused kernel, the two-pass concat's scan
-# and scatter
-PREVIOUS = {"encode_blocks_kernel": "previous encode_blocks",
-            "concat_offsets_kernel": "previous concat_streams (offsets)",
-            "concat_scatter_kernel": "previous concat_streams (scatter)",
+# the earlier designs of the kernels (scripts/previous_designs.cu), built
+# and timed beside them in this run: the first fused entropy kernel (64-bit
+# words, a warp 2 blocks) and the concat with the 64-bit loads it fed
+PREVIOUS = {"encode_blocks_fused_first_kernel":
+                "previous encode_blocks (fused, first)",
+            "concat_streams_first_kernel":
+                "previous concat_streams (64-bit loads)",
             "fdct_exact_first_kernel": "previous fdct_quantize_exact",
             "idct_exact_first_kernel": "previous idct_planes_exact",
             "idct_rgb_first_kernel": "previous idct_planes_rgb",
@@ -1110,6 +1123,8 @@ def main() -> int:
     from jpezy_tpu_torch.ops import entropy as E
     from jpezy_tpu_torch.ops import entropy_decode as ED
     from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.core import tables as T
+    from jpezy_tpu_torch.testing import encode_runs as ER
     from jpezy_tpu_torch.testing import exact_ties as XT
     from jpezy_tpu_torch.testing import rgb_ties as RT
     from jpezy_tpu_torch.testing import ycc_uploads as YU
@@ -1242,49 +1257,100 @@ def main() -> int:
     if pack_alone_launches != len(real_inputs):
         raise AssertionError(f"pack_words launched {pack_alone_launches} "
                              f"times on {len(real_inputs)} components")
-    # the batched entropy kernel, one launch a set for the three components:
-    # the real batch, then the worst-case and edge-case blocks as one
-    # image's components (Y with the luma tables, Cb and Cr with the chroma
-    # ones), with restart intervals that reset the chains
+    # the batched entropy kernel, one launch a set for the three components,
+    # its int32 words read as 32-bit patterns: the real batch (fixed
+    # tables, a carry, one custom set, 16 per-image sets), the worst-case
+    # and edge-case blocks as one image's components (Y with the luma
+    # tables, Cb and Cr with the chroma ones), 16 images of 48x48 (a luma
+    # run of 32 blocks crosses two images and stages both sets; restarts
+    # and carries inside runs), the longest blocks the kernel and the plain
+    # form code alike (testing/encode_runs.longest_blocks), an empty batch
     k4 = worst.shape[0] // 4
     ke = edge.shape[0] // 4
-    enc_sets = [("real", real_comps, 0), ("real", real_comps, RESTART_INTERVAL),
-                ("worst", (worst[None], worst[None, :k4], worst[None, -k4:]),
-                 0),
-                ("edge", (edge[None], edge[None, :ke], edge[None, -ke:]), 1)]
-    worst_bits = 0
-    for label, comps3, r_i in enc_sets:
-        wk, bk = pack_cuda.encode_blocks_batch_cuda(*comps3,
-                                                    restart_interval=r_i)
-        wp, bp = E.encode_blocks_batch_plain(*comps3, r_i)
+    rng3 = np.random.default_rng(31)
+    carry16 = torch.from_numpy(rng3.integers(-1000, 1000, (BATCH, 3)).astype(
+        np.int32)).to(dev)
+    hists3 = E.symbol_histograms_batch_plain(*real_comps).cpu().numpy()
+    _, yt3, ct3 = TC._optimal_tables(hists3)
+    tot3 = hists3.sum(axis=0)
+    one3 = tuple(tuple(T.optimal_flat_tables(tot3[2 * c], tot3[2 * c + 1])
+                       [2:]) for c in (0, 1))
+    from imagegen import make_test_image
+
+    small = TC._quantize_batch_rgb(torch.from_numpy(np.stack(
+        [make_test_image(48, 48, seed=310 + i) for i in range(BATCH)])).to(dev))
+    hs = E.symbol_histograms_batch_plain(*small).cpu().numpy()
+    _, yts, cts = TC._optimal_tables(hs)
+    if not any(len(u.staged) == 2 for u in ER.schedule(
+            BATCH, small[0].shape[1], small[1].shape[1], 1, BATCH)):
+        raise AssertionError("no run of the 48x48 images crosses two sets")
+    longest = torch.from_numpy(ER.longest_blocks(256)).to(dev)
+    kl = longest.shape[0] // 4
+    enc_sets = [
+        ("real", real_comps, 0, None, (None, None)),
+        ("real", real_comps, RESTART_INTERVAL, None, (None, None)),
+        ("real, carry", real_comps, RESTART_INTERVAL, carry16, (None, None)),
+        ("real, one custom set", real_comps, 0, None, one3),
+        (f"real, {BATCH} per-image sets", real_comps, RESTART_INTERVAL, None,
+         (yt3, ct3)),
+        ("worst", (worst[None], worst[None, :k4], worst[None, -k4:]), 0, None,
+         (None, None)),
+        ("edge", (edge[None], edge[None, :ke], edge[None, -ke:]), 1, None,
+         (None, None)),
+        ("48x48, fixed tables, carry", small, 1, carry16, (None, None)),
+        (f"48x48, {BATCH} per-image sets", small, 1, None, (yts, cts)),
+        ("48x48, one custom set, carry", small, 0, carry16,
+         tuple(tuple(t[0] for t in side) for side in (yts, cts))),
+        ("longest blocks", (longest[None], longest[None, :kl],
+                            longest[None, -kl:]), 0, None,
+         (ER.longest_tables(), ER.longest_tables(24))),
+        ("empty batch", tuple(c[:0] for c in real_comps), 0, None,
+         (None, None))]
+    worst_bits = longest_bits = 0
+    for label, comps3, r_i, carry3, tabs3 in enc_sets:
+        rows3 = None if tabs3[0] is None else tuple(
+            E.kernel_tables(t, dev) for t in tabs3)
+        wk, bk = pack_cuda.encode_blocks_batch_cuda(
+            *comps3, restart_interval=r_i, carry=carry3, tables=rows3)
+        wp, bp = E.encode_blocks_batch_plain(*comps3, r_i, carry3, tabs3)
         torch.cuda.synchronize()
-        e = max(max(int((a - b).abs().max()) for a, b in zip(wk, wp)),
-                max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-                    for a, b in zip(bk, bp)))
-        err["encode_blocks"] = max(err["encode_blocks"], e)
-        if e or wk[0].dtype != torch.int64:
+        same = all(torch.equal(E.words64(a), b) for a, b in zip(wk, wp)) \
+            and all(torch.equal(a, b.to(torch.int32)) for a, b in zip(bk, bp))
+        err["encode_blocks"] = max(err["encode_blocks"], 0 if same else max(
+            int((E.words64(a) - b).abs().max()) for a, b in zip(wk, wp)
+            if a.numel()))
+        if not same or wk[0].dtype != torch.int32:
             raise AssertionError(
                 f"encode_blocks kernel != plain version on {label} blocks "
                 f"{[tuple(c.shape) for c in comps3]}, restart_interval={r_i}")
         if label == "worst":
             worst_bits = max(int(b.max()) for b in bp)
-    if pack_cuda.encode_launches != len(enc_sets):
+        if label == "longest blocks":
+            longest_bits = max(int(b.max()) for b in bp)
+    launched = sum(c[1][0].shape[0] > 0 for c in enc_sets)
+    if pack_cuda.encode_launches != launched:
         raise AssertionError(f"encode_blocks launched "
                              f"{pack_cuda.encode_launches} times on "
-                             f"{len(enc_sets)} sets")
-    if worst_bits <= 32 * 32:
-        raise AssertionError(f"worst-case blocks reach only {worst_bits} bits")
+                             f"{launched} sets (the empty batch launches "
+                             "nothing)")
+    if worst_bits <= 32 * 32 or longest_bits != 1791:
+        raise AssertionError(f"worst-case blocks reach only {worst_bits} "
+                             f"bits, the longest {longest_bits}")
 
     n_edge = edge.shape[0]
     _say("3 kernels", f"pack_words (per component) and encode_blocks (one "
-         f"launch for the three components, predictors found in the kernel)"
-         f": words and bits identical to the plain versions on real "
-         f"{[tuple(q.shape) for q in real_comps]} with restart_interval 0 "
-         f"and {RESTART_INTERVAL}, worst-case (max {worst_bits} bits/block) "
-         f"and {n_edge} edge-case blocks; pack_words launches on the real "
-         f"blocks {pack_alone_launches}, encode_blocks "
-         f"{pack_cuda.encode_launches} on {len(enc_sets)} sets")
-    del real, edge, worst, ems, wp, bp, wk, bk, q, pred
+         f"launch for the three components, predictors found in the kernel, "
+         f"32-bit words): words (as 32-bit patterns) and bits identical to "
+         f"the plain versions on "
+         + "; ".join(f"{label} {[tuple(c.shape) for c in comps3]} "
+                     f"restart_interval={r_i}"
+                     for label, comps3, r_i, _, _ in enc_sets)
+         + f" (worst-case blocks up to {worst_bits} bits, the longest "
+         f"{longest_bits}, words 0 to {(longest_bits - 1) // 32}: no block "
+         f"the two code alike reaches word 63; {n_edge} edge-case blocks); "
+         f"pack_words launches on the real blocks {pack_alone_launches}, "
+         f"encode_blocks {pack_cuda.encode_launches} on {launched} sets")
+    del real, edge, worst, ems, wp, bp, wk, bk, q, pred, small, longest
     torch.cuda.empty_cache()
 
     # ---- 7. the scan kernel against its plain torch version
@@ -1674,7 +1740,8 @@ def main() -> int:
         wp, bp = E.encode_blocks_batch_plain(*comps, r_i,
                                              tables=(ytabs, ctabs))
         torch.cuda.synchronize()
-        e = max(max(int((a - b).abs().max()) for a, b in zip(wk, wp)),
+        e = max(max(int((E.words64(a) - b).abs().max())
+                    for a, b in zip(wk, wp)),
                 max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                     for a, b in zip(bk, bp)))
         err["encode_blocks"] = max(err["encode_blocks"], e)
@@ -2237,7 +2304,7 @@ def main() -> int:
                             shard_maxw))
     swc, sbc = E.stream_blocks(6, 700, seed=63)
     concat_sets.append(("seeded, bits up to word 63",
-                        tuple(w.to(dev) for w in swc),
+                        tuple(E.words32(w).to(dev) for w in swc),
                         tuple(b.to(dev) for b in sbc), 3, None))
     # a restart interval past the image (one segment), one-MCU images
     concat_sets.append(("real, restart_interval=2000 (one segment)",
@@ -2245,7 +2312,7 @@ def main() -> int:
     for r_i in (0, 1):
         owc1, obc1 = E.stream_blocks(8, 1, seed=64 + r_i)
         concat_sets.append((f"one-MCU images, restart_interval={r_i}",
-                            tuple(w.to(dev) for w in owc1),
+                            tuple(E.words32(w).to(dev) for w in owc1),
                             tuple(b.to(dev) for b in obc1), r_i, 64))
     # one 3840x2160 image: 32,400 MCUs in 16 tiles of 2,025
     big = torch.from_numpy(np.stack([_image_4k()])).to(dev)
@@ -2255,7 +2322,8 @@ def main() -> int:
         bwc, bbc = TC._emit_local(*big_q, r_i)
         bwp, bbp = E.encode_blocks_batch_plain(*big_q, r_i)
         torch.cuda.synchronize()
-        if not all(torch.equal(x, y) for x, y in zip(bwc + bbc, bwp + bbp)):
+        if not all(torch.equal(x, y) for x, y in zip(
+                tuple(E.words64(w) for w in bwc) + bbc, bwp + bbp)):
             raise AssertionError(f"encode_blocks on a 3840x2160 image != "
                                  f"plain version, restart_interval={r_i}")
         concat_sets.append((f"3840x2160, restart_interval={r_i}", bwc, bbc,
@@ -2269,7 +2337,8 @@ def main() -> int:
             maxw = TC.stream_budget_words_batch(6 * cbc[1].shape[1])
         got = concat_cuda.concat_streams_cuda(cwc, cbc, maxw=maxw,
                                               restart_interval=r_i)
-        want = E.concat_streams_plain(cwc, cbc, r_i, maxw)
+        want = E.concat_streams_plain(tuple(E.words64(w) for w in cwc), cbc,
+                                      r_i, maxw)
         torch.cuda.synchronize()
         e = int((got - want).abs().max())
         err["concat_streams"] = max(err["concat_streams"], e)
@@ -2282,15 +2351,18 @@ def main() -> int:
                              f" times in {len(concat_sets)} comparisons")
     if dropped < 8:  # both noise images in all four noise sets
         raise AssertionError(f"only {dropped} images outgrew their budget")
-    # the two-pass design timed in phase 6 computes the same function
+    # the concat with 64-bit loads, which phase 6 times beside it,
+    # computes the same function from the zero-extended words
     pmaxw = TC.stream_budget_words_batch(6 * concat_inputs[1][1].shape[1])
     for r_i in (0, ri):
         cwc, cbc = concat_sets[0 if r_i == 0 else 2][1:3]
+        cwc = tuple(E.words64(w) for w in cwc)
         if not torch.equal(
-                previous_designs.concat_two_pass(cwc, cbc, maxw=pmaxw,
-                                                 restart_interval=r_i),
+                previous_designs.concat_streams_first(cwc, cbc, maxw=pmaxw,
+                                                      restart_interval=r_i),
                 E.concat_streams_plain(cwc, cbc, r_i, pmaxw)):
-            raise AssertionError("the two-pass concat != plain version")
+            raise AssertionError("the concat with 64-bit loads != plain "
+                                 "version")
     _say("13 concat", "concat_streams (one launch a call) bit-identical "
          f"to the plain version on {len(concat_sets)} sets: "
          + ", ".join(f"{label} ({cbc[1].shape[0]} images of "
@@ -2301,8 +2373,9 @@ def main() -> int:
          f"{concat_cuda.tile_layout((H // 16) * (W // 16))} at {H}x{W}, "
          f"{concat_cuda.tile_layout(32400)} at 3840x2160 (tiles, MCUs a "
          f"tile); encode_blocks on the 3840x2160 image identical to the "
-         f"plain version, restart_interval 0 and {ri}; the two-pass design "
-         f"(scripts/previous_designs.cu) identical on the main path's sets")
+         f"plain version, restart_interval 0 and {ri}; the concat with "
+         f"64-bit loads (scripts/previous_designs.cu) identical on the main "
+         f"path's sets")
     del concat_sets, owc, obc, gray_q, dense_q, dwc, dbc, halves, bwc, bbc
 
     # ---- 14. the block transforms against their plain versions and the
@@ -2939,6 +3012,36 @@ def main() -> int:
     def earlier(name):
         ms, events = EARLIER_PROGRAMS[name]
         return f"before the kernels: {ms} ms busy in {events} events"
+
+    # the encode programs, with and without restart markers, in turns with
+    # the first fused entropy kernel and the concat with 64-bit loads it
+    # fed (scripts/previous_designs.py) in place of the two kernels
+    def with_first_entropy(fn):
+        def concat64(words, bits, restart_interval, maxw):
+            return previous_designs.concat_streams_first(
+                words, bits, maxw=maxw, restart_interval=restart_interval)
+
+        def run():
+            keep = (pack_cuda.encode_blocks_batch_cuda, E.concat_streams)
+            pack_cuda.encode_blocks_batch_cuda = (
+                previous_designs.encode_blocks_fused_first)
+            E.concat_streams = concat64
+            try:
+                return fn()
+            finally:
+                pack_cuda.encode_blocks_batch_cuda, E.concat_streams = keep
+        return run
+
+    def in_turns(fn, swap):
+        """'now ms, first ms, now ms, first ms' of fn's device busy time,
+        as it is and with swap(fn)."""
+        return ", ".join(
+            f"{which} {_fmt_ms(_profile(f, 5)['busy_ms'])}"
+            for which, f in (("now", fn), ("first", swap(fn)),
+                             ("now again", fn), ("first again", swap(fn))))
+
+    enc_turns = {name: in_turns(fn, with_first_entropy)
+                 for name, fn in (("enc", enc), ("enc_r", enc_r))}
     # the card's busy share of a pipelined round trip: device time of the
     # same round trip under the profiler (which slows the host, not the
     # kernels) over the wall time measured above without it
@@ -2954,7 +3057,9 @@ def main() -> int:
          f"{spans['enc']:.3f} ms, device busy "
          f"{_fmt_ms(enc_prof['busy_ms'])} ms in {enc_prof['events']:.1f} "
          f"device events ({earlier('encode')}; {EARLIER_ENCODE['encode']} "
-         f"with the earlier entropy tail; fused kernel "
+         f"with the earlier entropy tail; in turns with the first fused "
+         f"kernel and the concat with 64-bit loads in place of the two: "
+         f"{enc_turns['enc']} ms; fused kernel "
          f"{_fmt_ms(_kernel_ms(enc_prof, 'encode_blocks_batch_kernel', False))}"
          " ms, fDCT kernel "
          f"{_fmt_ms(_kernel_ms(enc_prof, 'fdct_quantize_kernel', False))} "
@@ -2979,7 +3084,9 @@ def main() -> int:
          f"{_fmt_ms(profs['enc_r']['busy_ms'])} ms in "
          f"{profs['enc_r']['events']:.1f} device events "
          f"({EARLIER_ENCODE['restart encode']} with the earlier entropy "
-         f"tail; fused kernel "
+         f"tail; in turns with the first fused kernel and the concat with "
+         f"64-bit loads in place of the two: {enc_turns['enc_r']} ms; fused "
+         f"kernel "
          + _fmt_ms(_kernel_ms(profs["enc_r"], "encode_blocks_batch_kernel",
                               False))
          + " ms, concat kernel "
@@ -3019,12 +3126,14 @@ def main() -> int:
         return TC._emit_local(*quantized)
 
     emitted = st_emit()
+    # the same words zero-extended, as the first fused design wrote them
+    emitted64 = tuple(E.words64(w) for w in emitted[0])
     stage_maxw = TC.stream_budget_words_batch(6 * (H // 16) * (W // 16))
     def st_concat():
         return TC._concat_batch_combined_comp(*emitted)
 
     def st_concat_plain():  # the stage as it was before the kernel
-        return E.concat_streams_plain(*emitted, 0, stage_maxw)
+        return E.concat_streams_plain(emitted64, emitted[1], 0, stage_maxw)
 
     parts = []
     for label, fn in (("fDCT+quantize, kernel (one wrapper call)", st_quant),
@@ -3035,17 +3144,18 @@ def main() -> int:
                        st_emit),
                       ("entropy, restart_interval=8, the batched kernel",
                        lambda: TC._emit_local(*quantized, ri)),
-                      ("entropy as the earlier design ran it: plain "
-                       "predictor chains and three per-component launches "
-                       "(previous_designs)",
-                       lambda: previous_designs.encode_stage(*quantized)),
+                      ("entropy, the first fused design (64-bit words; "
+                       "previous_designs.encode_blocks_fused_first)",
+                       lambda: previous_designs.encode_blocks_fused_first(
+                           *quantized)),
                       ("the same, restart_interval=8",
-                       lambda: previous_designs.encode_stage(*quantized,
-                                                             ri)),
+                       lambda: previous_designs.encode_blocks_fused_first(
+                           *quantized, restart_interval=ri)),
                       ("concat, kernel (one wrapper call)", st_concat),
-                      ("concat, the two-pass design (previous_designs)",
-                       lambda: previous_designs.concat_two_pass(
-                           *emitted, maxw=stage_maxw)),
+                      ("concat with 64-bit loads, from the zero-extended "
+                       "words (previous_designs.concat_streams_first)",
+                       lambda: previous_designs.concat_streams_first(
+                           emitted64, emitted[1], maxw=stage_maxw)),
                       ("concat, plain torch on the card (the stage before "
                        f"the kernel; {EARLIER_CONCAT_MS} ms busy in 40 events "
                        "in PR 5)", st_concat_plain)):
@@ -3054,7 +3164,7 @@ def main() -> int:
                      f"event span {span:.3f} ms, {prof['events']:.1f} events")
     _say("5 stages", "encode program per batch, each stage alone: "
          + "; ".join(parts))
-    del planes, quantized, emitted
+    del planes, quantized, emitted, emitted64
 
     def stage_rows(stages):
         """'label: device busy, event span, events' of each stage alone
@@ -3189,6 +3299,11 @@ def main() -> int:
     rgb_rows.append("rgb decode program, fast, in turns with the fast "
                     "IDCT's first design in its place: " + ", ".join(
                         f"{w} {_fmt_ms(ms)} ms" for w, ms in dec_turns))
+    rgb_rows.append("rgb encode program, fast, in turns with the first fused "
+                    "entropy kernel and the concat with 64-bit loads in "
+                    "place of the two: "
+                    + in_turns(rgb_programs[0][2], with_first_entropy)
+                    + " ms")
 
     # the ycc420 decode program with the first design of the IDCT's
     # overflow launch (scripts/previous_designs.py, after the same sparse
@@ -3231,6 +3346,7 @@ def main() -> int:
 
     exact_span = _time_ms(enc_exact, 5)
     exact_prof = _profile(enc_exact, 5)
+    exact_turns = in_turns(enc_exact, with_first_entropy)
     names = sorted(exact_prof["by_name"])
     if exact_prof["events"] > 3 or len(names) != 3 or not all(
             any(k in n for n in names) for k in (
@@ -3249,8 +3365,10 @@ def main() -> int:
          f"{_fmt_ms(exact_prof['busy_ms'])} ms, event span {exact_span:.3f} "
          f"ms, {exact_prof['events']:.1f} events (exact fDCT kernel "
          f"{_fmt_ms(_kernel_ms(exact_prof, 'fdct_quantize_exact_kernel', False))}"
-         f" ms); host frontend of the rgb decode (_rgb_host_prep) "
-         f"{rgb_prep_ms:.3f} ms on {card}")
+         f" ms; in turns with the first fused kernel and the concat with "
+         f"64-bit loads in place of the two: {exact_turns} ms); host "
+         f"frontend of the rgb decode (_rgb_host_prep) {rgb_prep_ms:.3f} ms "
+         f"on {card}")
     del rgb_dev, coeff_dev
 
     # ---- 6. each kernel alone, timed (after the round trips: the profiler
@@ -3284,8 +3402,8 @@ def main() -> int:
     used_words = sum(int(((b.to(torch.int64) + 31) // 32).clamp(max=64).sum())
                      for b in cbc)
     combined_bytes = 8 * BATCH * (1 + cmaxw)
-    concat_bytes = 4 * n_cblocks + 8 * used_words + combined_bytes
-    concat_layout_bytes = (4 + 8 * 64) * n_cblocks + combined_bytes
+    concat_bytes = 4 * n_cblocks + 4 * used_words + combined_bytes
+    concat_layout_bytes = (4 + 4 * 64) * n_cblocks + combined_bytes
     # the block transforms on the main path's batch: the bytes their
     # functions must move, and their float32 operations (a multiply-add two;
     # the IDCT's depend on the data: 64 multiply-adds per nonzero
@@ -3572,90 +3690,117 @@ def main() -> int:
     # holds it whole
     noise = np.random.default_rng(14).integers(0, 256, (BATCH, H, W, 3),
                                                dtype=np.uint8)
-    nwc, nbc = TC._emit_local(*TC._quantize_batch_rgb(
-        torch.from_numpy(noise).to(dev), quality=100))
+    nq = TC._quantize_batch_rgb(torch.from_numpy(noise).to(dev), quality=100)
+    nwc, nbc = TC._emit_local(*nq)
+    nwc64 = tuple(E.words64(w) for w in nwc)
     del noise
     n_bits = sum(b.to(torch.int64).sum(dim=1) for b in nbc)
     n_maxw = int(n_bits.max()) // 32 + 2
     n_used = sum(int(((b.to(torch.int64) + 31) // 32).clamp(max=64).sum())
                  for b in nbc)
-    n_bytes = 4 * n_cblocks + 8 * n_used + 8 * BATCH * (1 + n_maxw)
+    n_bytes = 4 * n_cblocks + 4 * n_used + 8 * BATCH * (1 + n_maxw)
     n_bound, n_by = _bound(n_bytes, CONCAT_OPS[0] * n_cblocks
                            + CONCAT_OPS[1] * n_used)
     dense_ms, _ = _traced(lambda: concat_cuda.concat_streams_cuda(
         nwc, nbc, maxw=n_maxw), 20, *kernels6["concat_streams"][2])
     dense_plain_ms = _time_ms(
-        lambda: E.concat_streams_plain(nwc, nbc, 0, n_maxw), 3)
-    prev_concat = ("concat_offsets_kernel", "concat_scatter_kernel")
-    dense_prev_ms, _ = _traced(lambda: previous_designs.concat_two_pass(
-        nwc, nbc, maxw=n_maxw), 20, *prev_concat)
+        lambda: E.concat_streams_plain(nwc64, nbc, 0, n_maxw), 3)
+    prev_concat = ("concat_streams_first_kernel",)
+    dense_prev_ms, _ = _traced(lambda: previous_designs.concat_streams_first(
+        nwc64, nbc, maxw=n_maxw), 20, *prev_concat)
     timing["concat_streams"]["dense_ms"] = dense_ms
     timing["concat_streams"]["previous_dense_ms"] = dense_prev_ms
     _say("6 times", f"concat_streams on dense blocks ({BATCH}x{H}x{W} noise "
          f"at quality 100, {n_used} used words in {n_cblocks} blocks, "
          f"budget {n_maxw} words): kernel {dense_ms:.4f} ms, bound "
          f"{n_bound:.4f} ms by {n_by} = {n_bound / dense_ms:.3f} of it; the "
-         f"two-pass design in this run {dense_prev_ms:.4f} ms; plain version "
-         f"event span {dense_plain_ms:.4f} ms; on {card}")
-    del nwc, nbc
-    # the entropy kernel and the concat beside the designs they replaced
-    # (scripts/previous_designs.cu), in turns on the same inputs: the
-    # kernels' own time, then with the L2 cache overwritten before each
-    # call, and what the card reports for each
+         f"same concat with 64-bit loads in this run {dense_prev_ms:.4f} ms; "
+         f"plain version event span {dense_plain_ms:.4f} ms; on {card}")
+    del nwc, nbc, nwc64
+    # the entropy kernel beside its first fused design and the concat
+    # beside its form with 64-bit loads (scripts/previous_designs.cu), in
+    # turns on the same inputs (now, first, now, first): the kernels' own
+    # time, then with the L2 cache overwritten before each call; the
+    # entropy kernel on the main batch, with restart_interval=8, with the
+    # batch's 16 per-image table sets and on noise at quality 100; and what
+    # the card and ptxas report for each
     cwc_r, cbc_r = concat_inputs_r
+    enc_cases = {"main batch": (real_comps, 0, None),
+                 f"restart_interval={RESTART_INTERVAL}": (
+                     real_comps, RESTART_INTERVAL, None),
+                 f"{BATCH} per-image sets": (real_comps, 0, set_rows),
+                 "noise at quality 100": (nq, 0, None)}
+    cat_cases = {"main batch": (cwc, cbc, 0),
+                 f"restart_interval={RESTART_INTERVAL}": (
+                     cwc_r, cbc_r, RESTART_INTERVAL)}
     vs = {
-        "encode_blocks": (
-            lambda r_i: lambda: pack_cuda.encode_blocks_batch_cuda(
-                *real_comps, restart_interval=r_i),
-            ("encode_blocks_batch_kernel",),
-            lambda r_i: lambda: previous_designs.encode_stage(*real_comps,
-                                                              r_i),
-            ("encode_blocks_kernel",)),
-        "concat_streams": (
-            lambda r_i: lambda: concat_cuda.concat_streams_cuda(
-                *((cwc, cbc) if r_i == 0 else (cwc_r, cbc_r)), maxw=cmaxw,
-                restart_interval=r_i),
-            ("concat_streams_kernel",),
-            lambda r_i: lambda: previous_designs.concat_two_pass(
-                *((cwc, cbc) if r_i == 0 else (cwc_r, cbc_r)), maxw=cmaxw,
-                restart_interval=r_i),
-            prev_concat)}
-    infos = {**{f"now {k}": v for k, v in pack_cuda.kernel_info().items()},
+        "encode_blocks": {
+            label: (lambda c=c, r=r, t=t: pack_cuda.encode_blocks_batch_cuda(
+                        *c, restart_interval=r, tables=t),
+                    ("encode_blocks_batch_kernel",),
+                    lambda c=c, r=r, t=t:
+                        previous_designs.encode_blocks_fused_first(
+                            *c, restart_interval=r, tables=t),
+                    ("encode_blocks_fused_first_kernel",))
+            for label, (c, r, t) in enc_cases.items()},
+        "concat_streams": {
+            label: (lambda w=w, b=b, r=r: concat_cuda.concat_streams_cuda(
+                        w, b, maxw=cmaxw, restart_interval=r),
+                    ("concat_streams_kernel",),
+                    lambda w64=tuple(E.words64(x) for x in w), b=b, r=r:
+                        previous_designs.concat_streams_first(
+                            w64, b, maxw=cmaxw, restart_interval=r),
+                    prev_concat)
+            for label, (w, b, r) in cat_cases.items()}}
+    infos = {**{f"now {k}": v for k, v in pack_cuda.kernel_info().items()
+                if k.startswith("encode_blocks")},
              "now concat_streams": concat_cuda.kernel_info(),
-             **{f"previous {k}": v
-                for k, v in previous_designs.kernel_info().items()}}
+             **{f"first {k}": v
+                for k, v in previous_designs.kernel_info().items()
+                if k.startswith(("encode_blocks", "concat_streams"))}}
+    ptx = {"now encode_blocks": ptxas["encode_blocks"]
+           + ptxas[ENCODE_CUSTOM],
+           "first encode_blocks": prev_ptxas[
+               PREVIOUS["encode_blocks_fused_first_kernel"]],
+           "now concat_streams": ptxas["concat_streams"],
+           "first concat_streams": prev_ptxas[
+               PREVIOUS["concat_streams_first_kernel"]]}
     vs_rows = []
-    for name, (now, now_syms, prev, prev_syms) in vs.items():
+    for name, cases in vs.items():
         row = {}
-        for r_i in (0, RESTART_INTERVAL):
-            for which, make, syms in (("now", now, now_syms),
-                                      ("previous", prev, prev_syms),
-                                      ("now again", now, now_syms),
-                                      ("previous again", prev, prev_syms)):
-                fn = make(r_i)
+        for label, (now, now_syms, prev, prev_syms) in cases.items():
+            for which, fn, syms in (("now", now, now_syms),
+                                    ("first", prev, prev_syms),
+                                    ("now again", now, now_syms),
+                                    ("first again", prev, prev_syms)):
                 warm = _traced(fn, 20, *syms)[0]
-                cold = _traced(lambda: (l2_flush.zero_(), fn()), 20,
+                cold = _traced(lambda fn=fn: (l2_flush.zero_(), fn()), 20,
                                *syms)[0]
-                row[f"{which}, restart_interval={r_i}"] = (warm, cold)
-        timing[name]["previous_ms"] = row[
-            "previous, restart_interval=0"][0]
-        timing[name]["previous_cold_ms"] = row[
-            "previous, restart_interval=0"][1]
+                row[f"{which}, {label}"] = (warm, cold)
+        timing[name]["previous_ms"] = row["first, main batch"][0]
+        timing[name]["previous_cold_ms"] = row["first, main batch"][1]
         timing[name]["versus_previous"] = row
+        timing[name]["kernel_info"] = {k: v for k, v in infos.items()
+                                       if name in k}
+        timing[name]["ptxas"] = {k: v for k, v in ptx.items() if name in k}
         vs_rows.append(f"{name}: " + "; ".join(
             f"{k} {w:.4f} ms (L2 overwritten first {c:.4f})"
             for k, (w, c) in row.items()))
-    timing["encode_blocks"]["kernel_info"] = {
-        k: v for k, v in infos.items() if "encode_blocks" in k}
-    timing["concat_streams"]["kernel_info"] = {
-        k: v for k, v in infos.items() if "concat_streams" in k}
-    _say("6 versus", "the current kernels beside the designs they replaced "
-         "(kernels' own device time, profiler; the earlier entropy design's "
-         "plain predictor chains not counted here, see 5 stages): "
-         + " || ".join(vs_rows) + "; what the card reports (registers a "
-         "thread, thread blocks an SM, static shared bytes, local bytes, "
-         "threads a block): " + ", ".join(f"{k} {v}" for k, v in
-                                          infos.items()) + f"; on {card}")
+    noise_row = timing["encode_blocks"]["versus_previous"]
+    timing["encode_blocks"]["noise_ms"] = noise_row[
+        "now, noise at quality 100"][0]
+    timing["encode_blocks"]["noise_previous_ms"] = noise_row[
+        "first, noise at quality 100"][0]
+    _say("6 versus", "the entropy kernel beside its first fused design "
+         "(64-bit words, a warp 2 blocks) and the concat with 32-bit loads "
+         "beside its 64-bit loads, in turns (kernels' own device time, "
+         "profiler): " + " || ".join(vs_rows) + "; what the card reports "
+         "(registers a thread, thread blocks an SM, static shared bytes, "
+         "local bytes, threads a block): " + ", ".join(
+             f"{k} {v}" for k, v in infos.items()) + "; ptxas: " + " || ".join(
+             f"{k}: {' | '.join(v)}" for k, v in ptx.items())
+         + f"; on {card}")
+    del nq
     # the IDCT kernel's dense form on the restart path's 2,048 segments
     dn_ms, _ = _traced(lambda: BT.idct_planes_dense(*dn_src, **dn_kw), 20,
                        "idct_planes_kernel")
@@ -4279,7 +4424,8 @@ def main() -> int:
                              "kernel_info", "previous_ms",
                              "previous_cold_ms", "previous_dense_ms",
                              "versus_previous", "noise_cold_ms",
-                             "noise_previous_ms", "sass_ops", "fp64_ceiling",
+                             "noise_previous_ms", "ptxas", "sass_ops",
+                             "fp64_ceiling",
                              "fp32_ceiling",
                              "sm_clock", "exact_ms", "exact_cold_ms",
                              "exact_bound_ms", "gray_ms", "gray_cold_ms",

@@ -6,13 +6,15 @@
 // jpezy_tpu/ops/entropy.py:pack_block_words (reduce, prefix, fori): it
 // folds in the exclusive cumsum of the emission lengths and the 96-bit
 // window alignment (entropy._window_words) that the JAX package computes
-// around its kernel.  Three entry points; the first two share one pack
-// routine:
+// around its kernel.  Three entry points:
 //
 //   jz_pack_words     the one-to-one counterpart of the Pallas kernel.
 //     In:  hi, lo [B, 64] uint32 halves of each merged emission (the
 //          emission sits MSB-first in the low bits of hi:lo), nbits [B, 64]
 //          int32 emission lengths, 0 <= nbits <= 59.
+//     Out: words [B, 64] MSB-first packed block bitstring, 32-bit words
+//          stored zero-extended as uint64 (the int64 word convention of
+//          the plain torch forms); bits [B] int32 total bits.
 //   jz_encode_blocks_batch  emissions fused in (jpezy_tpu/ops/entropy.py:
 //     block_emissions followed by pack_block_words), with the DC
 //     predictor chains of jpezy_tpu/parallel/sharded.py:_emit_local that
@@ -30,12 +32,12 @@
 //          `custom` says the tables are the caller's (optimize): one set
 //          for the batch, or one an image (image n takes set n), and an
 //          emission may exceed 64 bits.  Without it the sets are the
-//          fixed Annex K tables.
-//   Out of both: words [B, 64] MSB-first packed block bitstring (per
-//     component [N, B_c, 64]), 32-bit words stored zero-extended as
-//     uint64, which is the int64 word convention of the stream concat
-//     (storing them as uint32 and widening them in a second pass was
-//     measured slower, PERF.md); bits [B] int32 total bits.
+//          fixed Annex K tables.  The blocks, the table rows and the
+//          words must be 16-byte aligned.
+//     Out: words [N, B_c, 64] per component, 32-bit words (the packed
+//          block bitstring, MSB-first, zero past the block's bits), which
+//          the stream concat (stream_concat.cu) reads as they are; bits
+//          [N, B_c] int32 total bits.
 //   jz_symbol_histograms_batch  the counts of jpezy_tpu/codec/jax_codec.py:
 //     _symbol_histograms_batch (jpezy_tpu/ops/entropy.py:symbol_histograms
 //     vmapped over images, one chain per component), which XLA fused on
@@ -48,37 +50,53 @@
 //     same two rows for Cb and Cr together: the symbols
 //     jz_encode_blocks_batch would emit.
 //
-// Design: a warp owns an 8x8 block.  Lane l owns emission slots l and l+32,
-// so a warp reads its block's 256-byte row of each input in two 128-byte
-// requests.  The fused entry reads each coefficient through the zigzag
-// permutation; two ballots give the nonzero masks of the block's two
-// halves, and a slot's zero run is its position minus the position of the
-// highest set bit below it (__clz), which replaces the cummax of the
-// tensor program.  Each lane builds its two emissions in registers: the
-// code and extra bits (<= 27 bits, 32-bit arithmetic) and the rare ZRL
-// prefix in front of them (up to 3 codes).  With the Annex K tables a
-// whole emission has <= 59 bits, and the prefix is merged into one 64-bit
-// register.  Optimal tables allow codes of 16 bits and emissions of up to
-// 74, more than a 64-bit register holds, so the kernel is instantiated
-// twice: the custom-table form keeps the prefix (<= 48 bits) apart as a
-// count until it is placed, and takes each image's table set; the
-// fixed-table form, the main path's, carries neither (28-32 registers
-// against 40).  One launch takes the batch's three components, a warp's
-// blocks all of one component; each block's DC predictor is found in the
-// kernel (the previous block's DC, already in lane 0 for the warp's second
-// block, one 4-byte load for its first; 0 at a restart segment's start;
-// the carry or 0 at the image's first block), so no predictor array is
-// built or read.  The shared
-// pack routine then turns lengths into exclusive bit offsets with one warp
-// shuffle scan (both slots' lengths ride in the halves of one register),
-// cuts each part into its <= 3 words and ORs them with atomicOr into
-// the warp's 64-word buffer in shared memory (neighbouring lanes can land
-// in one word; emission bit ranges are disjoint, so OR accumulates them),
-// and the 64 words leave as two coalesced stores.  Windows past word 63
-// are dropped, as the masked forms of the JAX package drop them.  No
-// per-thread array, so nothing lives in local memory.  A table set is one
-// row of 1,392 bytes (one pointer a block), read through the read-only
-// cache; 22 KB for 16 sets.
+// Design of the pack alone: a warp owns an 8x8 block, lane l its
+// emissions l and l+32; one warp shuffle scan turns the lengths into bit
+// offsets (both slots' lengths ride in the halves of one register), each
+// emission is cut into its <= 3 words and ORed with atomicOr into the
+// warp's 64-word buffer in shared memory (emission bit ranges are
+// disjoint, so OR accumulates them), and the 64 words leave as two
+// coalesced stores.  Windows past word 63 are dropped, as the masked forms
+// of the JAX package drop them.
+//
+// Design of the fused kernel (jz_encode_blocks_batch): the blocks are cut
+// into runs of kRunBlocks consecutive blocks of one component (with a
+// table set an image and images of fewer blocks, a run of one image's
+// blocks, so that a run meets at most two images), and a thread block is
+// one warp that takes one run, a lane a block.  The lanes copy the run's
+// blocks into a shared-memory stage with 16-byte asynchronous copies
+// (cp.async; two whole blocks an instruction, read in order from device
+// memory), and the table sets the run needs beside them (the component's
+// fixed row, or the set of each image the run touches).  Rows are kRow
+// words apart, so that the 16 16-byte reads with which a lane takes its
+// block into registers meet no bank twice in a quarter warp.  While the
+// copies are in flight, each lane finds its block's DC predictor source:
+// the previous block's DC (the neighbouring lane's, by a shuffle), 0 at a
+// restart segment's start, the carry or 0 at an image's first block, and
+// for the run's first block otherwise one 4-byte load.  The lane then
+// walks its 64 coefficients in zigzag order (a loop unrolled with the
+// positions fixed at compile time, as in the histogram kernel), each
+// nonzero coefficient one emission from the table set in shared memory
+// (ZRL codes first where its zero run is 16 or more), and appends each
+// emission to a 64-bit bit accumulator, whose top 32 bits leave as a word
+// (a predicated store) whenever it holds 32.  The words go into the
+// lane's own row of the stage, zeroed once its block is in registers, and
+// the warp then stores the rows to device memory in 16-byte stores, two
+// whole rows an instruction.  So a block costs its lane some tens of
+// instructions a nonzero coefficient and a test for each zero, where the
+// first fused design (scripts/previous_designs.cu) spent a whole warp on
+// every block's 64 emission slots, a shuffle scan and shared-memory
+// atomics (measured: that schedule with this design's stage and stores
+// read 0.0300 ms on the main batch where the bytes alone read 0.0187,
+// scripts/encode_phases.py, PERF.md); and the coefficients arrive by
+// asynchronous copies that cost no registers, where that design gathered
+// them by 4-byte loads.  A bulk copy (cp.async.bulk) a block and a bulk
+// store a row, which the copy engine takes one at a time, read slower
+// than these copies and stores (PERF.md).  The launch bounds hold a lane
+// to the registers that let kResident thread blocks share an SM (the 64
+// coefficients take most of them).  One launch takes the batch's three
+// components (Y's runs, then Cb's, then Cr's); the launcher keeps each
+// component's blocks below 2**31, so the indices are 32-bit.
 //
 // The histogram kernel counts the same symbols another way: it needs no
 // emission, only each nonzero coefficient's run and category, and a block
@@ -102,27 +120,14 @@
 //
 // What bounds them: memory traffic.  Per block the function jz_pack_words
 // computes must read 768 bytes and write 64 32-bit words and a count, 260:
-// 1,028 bytes, 101 MB per 16x512x512 4:2:0 batch of 98,304 blocks.  That
-// of jz_encode_blocks_batch must read 256 and write 260: 516 bytes, 50.7
-// MB per batch (the per-component form it replaced also read a 4-byte
-// predictor a block, 520; the table sets add 1,392 bytes a set, read
-// through the cache);
-// jz_symbol_histograms_batch reads the 256 bytes of coefficients and
-// writes 4 KB an image: 25.2 MB per batch.  These are the bounds.  The zero upper halves of the stored
-// words are 256 more bytes per block (1,284 and 776 moved), a cost of the
-// layout and no part of the bound.  The integer work, some tens of short
-// operations per slot, stays below the card's rate for that many bytes.
-// The design answers with coalesced
-// loads and stores, with a warp per block, which keeps the card full of
-// threads (64 warps resident per SM at <= 32 registers and 2 KB of shared
-// memory per CTA), and with the fusion, which removes the emissions' 768
-// bytes per block from device memory altogether.  The fused kernel moves
-// so few bytes per block that one block per warp leaves too few loads in
-// flight; each of its warps therefore takes kBlocksPerWarp consecutive
-// blocks and starts all their loads before it uses any (2 measured
-// fastest on an H100; 4 and 8 cost registers and were slower).  A
-// histogram thread has its block's whole row in flight at once (16 loads
-// of 16 bytes).  Times on the card are in PERF.md.
+// 1,028 bytes, 101 MB per 16x512x512 4:2:0 batch of 98,304 blocks (the
+// pack alone stores its words zero-extended, 256 bytes a block more).
+// That of jz_encode_blocks_batch must read 256 and write 260: 516 bytes,
+// 50.7 MB per batch, and the kernel moves just these (the table sets add
+// 1,392 bytes a thread block, from L2); its first design stored the words
+// zero-extended, 776 bytes a block.  jz_symbol_histograms_batch reads the
+// 256 bytes of coefficients and writes 4 KB an image: 25.2 MB per batch.
+// These are the bounds.  Times on the card are in PERF.md.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -130,21 +135,17 @@ namespace {
 
 constexpr int kSlots = 64;
 constexpr int kWords = 64;
-constexpr int kWarpsPerCta = 8;
-constexpr int kBlocksPerWarp = 2;  // of the fused kernel
+constexpr int kWarpsPerCta = 8;  // of the pack alone
+// the fused kernel: a thread block is a warp, a lane a block of the run
+constexpr int kRunBlocks = 32;
+constexpr int kRow = kSlots + 4;  // words a staged block takes: 272 bytes
+constexpr int kRunSets = 2;       // table sets a run may meet (custom)
+constexpr int kResident = 24;     // thread blocks an SM the bounds ask for
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 constexpr int kEobIndex = 0;
 constexpr int kZrlIndex = 151;
 constexpr int kDcEntries = 12;
 constexpr int kAcEntries = 162;
-
-// kZigzag[k] = natural (row-major) index of the k-th zigzag element.  In
-// global memory, not __constant__: every lane reads another entry.
-__device__ const uint8_t kZigzag[kSlots] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
 __device__ __forceinline__ void or_word(uint32_t* buf, int w, uint32_t word) {
   if (w < kWords && word != 0u) atomicOr(buf + w, word);
@@ -175,38 +176,18 @@ constexpr int kDcSize = kDcEntries;
 constexpr int kAcCode = 2 * kDcEntries;
 constexpr int kAcSize = 2 * kDcEntries + kAcEntries;
 constexpr int kSetEntries = 2 * (kDcEntries + kAcEntries);
+constexpr int kSetBytes = 4 * kSetEntries;  // 1,392: a multiple of 16
 
-// `count` ZRL codes of `size` bits of the set t, one after the other
-// (<= 3 x 16 bits).
-__device__ __forceinline__ uint64_t zrl_prefix(const int32_t* t, int count,
-                                               int size) {
-  const uint64_t code = static_cast<uint32_t>(__ldg(t + kAcCode + kZrlIndex));
-  uint64_t z = 0ull;
-  for (int k = 0; k < count; ++k) z = (z << size) | code;
-  return z;
-}
-
-// The shared pack routine.  Every lane of the warp calls it with its two
-// emissions (slot `lane` and slot `lane + 32`), each as zc ZRL codes of the
-// table set t followed by a body (v, n) of <= 64 bits; `buf` is the warp's
-// 64-word buffer in shared memory.  The prefix travels as a count and is
-// built only where it is placed: no 64-bit value of it stays live across
-// the scan.  Callers whose emissions are whole pass zc = 0, and the
-// prefix code folds away.
-template <typename V>
-__device__ __forceinline__ void pack_block(int zc0, V v0, int n0, int zc1,
-                                           V v1, int n1, const int32_t* t,
-                                           uint32_t* buf, int lane,
+// The pack alone's routine.  Every lane of the warp calls it with its two
+// merged emissions (slot `lane` and slot `lane + 32`, <= 64 bits each);
+// `buf` is the warp's 64-word buffer in shared memory.
+__device__ __forceinline__ void pack_block(uint64_t v0, int n0, uint64_t v1,
+                                           int n1, uint32_t* buf, int lane,
                                            uint64_t* out_row,
                                            int32_t* out_bits) {
-  const int zs = (zc0 | zc1) != 0 ? __ldg(t + kAcSize + kZrlIndex) : 0;
-  const int zn0 = zc0 * zs;
-  const int zn1 = zc1 * zs;
-  // inclusive scan of both slots' lengths at once: 32 * 74 < 2**16, so
+  // inclusive scan of both slots' lengths at once: 32 * 64 < 2**16, so
   // the two sums never meet
-  const int t0 = zn0 + n0;
-  const int t1 = zn1 + n1;
-  int incl = t0 | (t1 << 16);
+  int incl = n0 | (n1 << 16);
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int x = __shfl_up_sync(kFullMask, incl, d);
@@ -214,16 +195,14 @@ __device__ __forceinline__ void pack_block(int zc0, V v0, int n0, int zc1,
   }
   const int tot = __shfl_sync(kFullMask, incl, 31);
   const int total0 = tot & 0xFFFF;
-  const int off0 = (incl & 0xFFFF) - t0;
-  const int off1 = total0 + (incl >> 16) - t1;
+  const int off0 = (incl & 0xFFFF) - n0;
+  const int off1 = total0 + (incl >> 16) - n1;
 
   buf[lane] = 0u;
   buf[lane + 32] = 0u;
   __syncwarp();
-  if (zc0 != 0) place(buf, zrl_prefix(t, zc0, zs), zn0, off0);
-  place(buf, v0, n0, off0 + zn0);
-  if (zc1 != 0) place(buf, zrl_prefix(t, zc1, zs), zn1, off1);
-  place(buf, v1, n1, off1 + zn1);
+  place(buf, v0, n0, off0);
+  place(buf, v1, n1, off1);
   __syncwarp();
   out_row[lane] = buf[lane];
   out_row[lane + 32] = buf[lane + 32];
@@ -246,8 +225,8 @@ __global__ void __launch_bounds__(kWarpsPerCta * 32)
       (static_cast<uint64_t>(hi[base + lane]) << 32) | lo[base + lane];
   const uint64_t v1 = (static_cast<uint64_t>(hi[base + lane + 32]) << 32) |
                       lo[base + lane + 32];
-  pack_block(0, v0, nbits[base + lane], 0, v1, nbits[base + lane + 32],
-             nullptr, bufs[warp], lane, words + base, bits + b);
+  pack_block(v0, nbits[base + lane], v1, nbits[base + lane + 32], bufs[warp],
+             lane, words + base, bits + b);
 }
 
 // Magnitude category: bit length of |v| (0 for v == 0).
@@ -264,182 +243,224 @@ __device__ __forceinline__ uint32_t code_and_extra(uint32_t code, int v,
   return (code << s) | extra;
 }
 
-// The type of an emission's body: the code and extra bits alone (custom
-// tables), or the whole emission with its ZRL prefix merged in (<= 59
-// bits, the fixed tables).
-template <bool kCustom>
-struct Body {
-  using type = uint64_t;
-};
-template <>
-struct Body<true> {
-  using type = uint32_t;
-};
+// A lane's bit writer: the block's bits so far, the last `held` of them
+// (< 32) still in `acc`, the words before them in the lane's output row.
+struct Bits {
+  uint64_t acc;
+  int held;
+  int words;
+  int32_t* row;
 
-// Slot 0: the DC code and extra bits of diff = DC - predictor.
-template <typename V>
-__device__ __forceinline__ void dc_emission(int diff, const int32_t* t,
-                                            V& v, int& n) {
-  const int s = min(category(diff), kDcEntries - 1);
-  v = code_and_extra(static_cast<uint32_t>(__ldg(t + kDcCode + s)), diff, s);
-  n = __ldg(t + kDcSize + s) + s;
-}
-
-// Slot j in 1..63: the coefficient c at zigzag position j, `prev` the
-// position of the last nonzero coefficient before it (0 if none).  A
-// nonzero c emits one ZRL per 16 zeros of its run, then the (run & 15,
-// category) code and the extra bits (v, n); a zero emits nothing, except
-// EOB at position 63.  With custom tables the ZRLs are returned as their
-// count zc; with the fixed ones they are merged into v (zc = 0).
-template <bool kCustom>
-__device__ __forceinline__ void ac_emission(int c, int j, int prev,
-                                            const int32_t* t, int& zc,
-                                            typename Body<kCustom>::type& v,
-                                            int& n) {
-  zc = 0;
-  v = 0u;
-  n = 0;
-  if (c != 0) {
-    const int run = j - prev - 1;
-    const int rem = run & 15;
-    const int s = category(c);
-    const int idx = min(rem * 10 + s + (rem == 15 ? 1 : 0), kAcEntries - 1);
-    v = code_and_extra(static_cast<uint32_t>(__ldg(t + kAcCode + idx)), c, s);
-    n = __ldg(t + kAcSize + idx) + s;
-    if constexpr (kCustom) {
-      zc = run >> 4;  // rare: up to three ZRL codes go in front
-    } else if (run >= 16) {  // rare, and <= 3 x 11 + 27 bits in all
-      const int zs = __ldg(t + kAcSize + kZrlIndex);
-      v |= zrl_prefix(t, run >> 4, zs) << n;
-      n += (run >> 4) * zs;
-    }
-  } else if (j == kSlots - 1) {
-    v = static_cast<uint32_t>(__ldg(t + kAcCode + kEobIndex));
-    n = __ldg(t + kAcSize + kEobIndex);
+  // Append the n low bits of v (n <= 32); a full word leaves for the row.
+  // Words past the row's 64 land in its padding and are dropped, as the
+  // plain forms drop them.
+  __device__ __forceinline__ void put(uint32_t v, int n) {
+    acc = (acc << n) | v;
+    held += n;
+    const bool full = held >= 32;
+    held &= 31;  // held < 64
+    if (full) row[min(words, kWords)] = static_cast<int32_t>(acc >> held);
+    words += full;
   }
-}
-
-// One block, by the whole warp: lane l holds the coefficients at zigzag
-// positions l (c0) and l + 32 (c1); dcp is the DC predictor (read in
-// lane 0), t the block's table set.  Writes the block's 64 words and its
-// bit count.
-template <bool kCustom>
-__device__ __forceinline__ void encode_block(int c0, int c1, int dcp,
-                                             const int32_t* t, uint32_t* buf,
-                                             int lane, uint64_t* out_row,
-                                             int32_t* out_bits) {
-  const uint32_t lanes_below = (1u << lane) - 1u;
-  // nonzero masks of zigzag positions 0..31 and 32..63; bit 0 (the DC)
-  // is always set, so "no nonzero AC before me" reads as position 0
-  const uint32_t nz_lo = __ballot_sync(kFullMask, c0 != 0) | 1u;
-  const uint32_t nz_hi = __ballot_sync(kFullMask, c1 != 0);
-  const uint32_t below_hi = nz_hi & lanes_below;
-  typename Body<kCustom>::type v0, v1;
-  int zc0, n0, zc1, n1;
-  if (lane == 0) {
-    zc0 = 0;
-    dc_emission(c0 - dcp, t, v0, n0);
-  } else {
-    ac_emission<kCustom>(c0, lane, 31 - __clz(nz_lo & lanes_below), t, zc0,
-                         v0, n0);
-  }
-  ac_emission<kCustom>(
-      c1, lane + 32,
-      below_hi != 0u ? 63 - __clz(below_hi) : 31 - __clz(nz_lo), t, zc1, v1,
-      n1);
-  pack_block(zc0, v0, n0, zc1, v1, n1, t, buf, lane, out_row, out_bits);
-}
+};
 
 // One component of the batch: its quantized blocks [N, per_image, 64], its
 // table sets (one, or one an image), its outputs.
 struct Component {
   const int32_t* q;
   const int32_t* tables;
-  uint64_t* words;
+  uint32_t* words;
   int32_t* bits;
   int per_image;   // blocks an image
   int seg_blocks;  // blocks a restart segment; 0 for none
-  int warps;       // warps it takes: ceil(N * per_image / kBlocksPerWarp)
+  int run;         // blocks a run (the component's last run fewer)
+  int runs;        // its runs: ceil(N * per_image / run)
 };
 
-// One launch for the batch's three components.  A warp takes
-// kBlocksPerWarp consecutive blocks of one component, picked by branches
-// (a parameter array indexed at run time would be copied to local
-// memory).  Block b's DC predictor is block b - 1's DC in the same image
-// and component; 0 where a restart segment starts (every seg_blocks
-// blocks), and carry[n, comp] (or 0) at image n's first block.  The warp's
-// second block takes the first block's DC, which lane 0 already holds;
-// only the first block loads one more DC (4 bytes).  Every predictor and
-// table set is decided, and every load started, before any block is
-// coded.  The launcher keeps each component's blocks below 2**31, so the
-// indices are 32-bit.
+// Run r of the batch (runs [0, y.runs) Y's, then Cb's, then Cr's): its
+// component, its first block and block count, the image of its first
+// block, and whether it reaches into the next image's table set.
+struct Run {
+  Component k;
+  int comp;
+  unsigned b0;
+  int count;
+  unsigned n0;
+  bool two;
+};
+
 template <bool kCustom>
-__global__ void __launch_bounds__(kWarpsPerCta * 32)
+__device__ __forceinline__ Run run_of(int r, const Component& y,
+                                      const Component& cb,
+                                      const Component& cr, int nimages,
+                                      int nsets) {
+  // picked by branches: a parameter array indexed at run time would be
+  // copied to local memory
+  Run u;
+  u.k = y;
+  u.comp = 0;
+  if (r >= y.runs) {
+    r -= y.runs;
+    u.k = cb;
+    u.comp = 1;
+    if (r >= cb.runs) {
+      r -= cb.runs;
+      u.k = cr;
+      u.comp = 2;
+    }
+  }
+  const unsigned per_image = static_cast<unsigned>(u.k.per_image);
+  u.b0 = static_cast<unsigned>(r) * u.k.run;
+  u.count = min(u.k.run, static_cast<int>(static_cast<unsigned>(nimages) *
+                                              per_image -
+                                          u.b0));
+  u.n0 = u.b0 / per_image;
+  u.two = kCustom && nsets > 1 && (u.b0 + u.count - 1) / per_image != u.n0;
+  return u;
+}
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory at src to shared memory at dst, both 16-byte
+// aligned, asynchronously (in the issuing lane's current copy group).
+__device__ __forceinline__ void copy16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   shared_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Start the copies of run u, one group a lane: its blocks into the stage's
+// rows, 16 bytes a lane and two rows an instruction (each row's 256 bytes
+// read by 16 neighbouring lanes), and its table set or sets into `sets`.
+template <bool kCustom>
+__device__ __forceinline__ void start_run(const Run& u, int nsets,
+                                          int32_t* stage, int32_t* sets,
+                                          int lane) {
+  const int32_t* q = u.k.q + static_cast<size_t>(u.b0) * kSlots;
+#pragma unroll
+  for (int i = 0; i < kRunBlocks / 2; ++i) {
+    const int row = 2 * i + (lane >> 4);
+    if (row < u.count)
+      copy16(stage + row * kRow + 4 * (lane & 15), q + row * kSlots +
+                                                       4 * (lane & 15));
+  }
+  const int32_t* t = u.k.tables;
+  if (kCustom && nsets > 1) t += static_cast<size_t>(u.n0) * kSetEntries;
+  const int chunks = (u.two ? 2 : 1) * kSetEntries / 4;
+  for (int i = lane; i < chunks; i += 32) copy16(sets + 4 * i, t + 4 * i);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// One launch for the batch's three components.  A thread block is one
+// warp and takes run blockIdx.x, a lane a block (see the header).  Block
+// b's DC predictor is block b - 1's DC in the same image and component; 0
+// where a restart segment starts (every seg_blocks blocks), and carry[n,
+// comp] (or 0) at image n's first block.  With a table set an image
+// (custom, nsets > 1), a run meets at most two images (the launcher's
+// runs are no longer than an image), and their sets are staged side by
+// side.
+template <bool kCustom>
+__global__ void __launch_bounds__(kRunBlocks, kResident)
     encode_blocks_batch_kernel(Component y, Component cb, Component cr,
                                const int32_t* __restrict__ carry, int nimages,
                                int nsets) {
-  __shared__ uint32_t bufs[kWarpsPerCta][kWords];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  int g = blockIdx.x * kWarpsPerCta + warp;
-  Component k = y;
-  int comp = 0;
-  if (g >= y.warps) {  // every test on g is warp-uniform
-    g -= y.warps;
-    k = cb;
-    comp = 1;
-    if (g >= cb.warps) {
-      g -= cb.warps;
-      k = cr;
-      comp = 2;
-      if (g >= cr.warps) return;  // whole warps leave together
+  // zigzag position k -> natural index; the walk below is unrolled, so
+  // every read of this table folds into a register number
+  constexpr int kZigzag[kSlots] = {
+      0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+      12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+      35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+      58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+  // the run's blocks in, then their words out, a row a block
+  __shared__ __align__(128) int32_t stage[kRunBlocks * kRow];
+  __shared__ __align__(16) int32_t sets[(kCustom ? kRunSets : 1) *
+                                        kSetEntries];
+  const int lane = threadIdx.x;
+  const Run u = run_of<kCustom>(blockIdx.x, y, cb, cr, nimages, nsets);
+  start_run<kCustom>(u, nsets, stage, sets, lane);
+  const Component& k = u.k;
+  const unsigned b = u.b0 + lane;
+  const bool live = lane < u.count;
+  // while the copies run: the block's predictor source and table set
+  const unsigned per_image = static_cast<unsigned>(k.per_image);
+  const unsigned n = b / per_image;
+  const unsigned at = b - n * per_image;  // the block's index in its image
+  const bool reset =
+      k.seg_blocks > 0 && at % static_cast<unsigned>(k.seg_blocks) == 0;
+  int pred = 0;
+  if (live && !reset) {
+    if (at == 0) {
+      if (carry != nullptr) pred = __ldg(carry + n * 3 + u.comp);
+    } else if (lane == 0) {  // the block before the run
+      pred = __ldg(k.q + static_cast<size_t>(b - 1) * kSlots);
     }
   }
-  const unsigned nblocks = static_cast<unsigned>(nimages) * k.per_image;
-  const unsigned b0 = static_cast<unsigned>(g) * kBlocksPerWarp;
-  // All loads of the warp's blocks are started before any is used: a block
-  // is only 256 bytes, and one block per warp keeps too few bytes in
-  // flight to cover the latency of device memory.
-  const int z0 = kZigzag[lane];
-  const int z1 = kZigzag[lane + 32];
-  int c0[kBlocksPerWarp], c1[kBlocksPerWarp], dcp[kBlocksPerWarp];
-  bool chained[kBlocksPerWarp];  // predictor: the previous block's DC
-  unsigned set[kBlocksPerWarp];
-  unsigned n = b0 / k.per_image;
-  unsigned at = b0 - n * k.per_image;  // the block's index in its image
+  const int32_t* t = sets + (kCustom && u.two && n != u.n0 ? kSetEntries : 0);
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncwarp();  // every lane's copies have landed
+  // the block's coefficients into registers; its row then takes its words
+  int32_t* row = stage + lane * kRow;
+  int c[kSlots];
 #pragma unroll
-  for (int i = 0; i < kBlocksPerWarp; ++i) {
-    const bool live = b0 + i < nblocks;
-    const unsigned b = live ? b0 + i : b0;  // tail: load a valid row
-    const int32_t* row = k.q + static_cast<size_t>(b) * kSlots;
-    c0[i] = __ldg(row + z0);
-    c1[i] = __ldg(row + z1);
-    const bool seg_start = k.seg_blocks > 0 && at % k.seg_blocks == 0;
-    chained[i] = i > 0 && at != 0 && !seg_start;
-    dcp[i] = 0;
-    if (live && !seg_start && at == 0 && carry != nullptr)
-      dcp[i] = __ldg(carry + n * 3 + comp);
-    else if (!seg_start && at != 0 && i == 0 && lane == 0)
-      dcp[i] = __ldg(row - kSlots);  // the block before the warp's first
-    set[i] = n;
-    if (++at == static_cast<unsigned>(k.per_image)) {
-      at = 0;
-      ++n;
-    }
+  for (int i = 0; i < kSlots / 4; ++i) {
+    const int4 v = reinterpret_cast<const int4*>(row)[i];
+    c[4 * i] = v.x;
+    c[4 * i + 1] = v.y;
+    c[4 * i + 2] = v.z;
+    c[4 * i + 3] = v.w;
   }
+  const int before = __shfl_up_sync(kFullMask, c[0], 1);
+  if (!reset && at != 0 && lane > 0) pred = before;
+  if (live) {
 #pragma unroll
-  for (int i = 0; i < kBlocksPerWarp; ++i) {
-    const unsigned b = b0 + i;
-    if (b >= nblocks) break;
-    // the previous block's DC is c0[i - 1] in lane 0
-    const int pred = chained[i] ? c0[i > 0 ? i - 1 : 0] : dcp[i];
-    const int32_t* t = k.tables;
-    if constexpr (kCustom) {
-      if (nsets > 1) t += set[i] * kSetEntries;
+    for (int i = 0; i < kWords / 4; ++i)
+      reinterpret_cast<int4*>(row)[i] = make_int4(0, 0, 0, 0);
+    Bits out = {0ull, 0, 0, row};
+    {  // the DC difference; its category capped at the table's last
+      const int diff = c[0] - pred;
+      const int s = min(category(diff), kDcEntries - 1);
+      out.put(code_and_extra(static_cast<uint32_t>(t[kDcCode + s]), diff, s),
+              t[kDcSize + s] + s);
     }
-    encode_block<kCustom>(c0[i], c1[i], pred, t, bufs[warp], lane,
-                          k.words + static_cast<size_t>(b) * kSlots,
-                          k.bits + b);
+    int last = 0;  // the zigzag position of the last nonzero coefficient
+#pragma unroll
+    for (int i = 1; i < kSlots; ++i) {
+      const int v = c[kZigzag[i]];
+      if (v != 0) {
+        int run = i - last - 1;
+        if (run >= 16) {  // rare: a ZRL code for each 16 zeros
+          const uint32_t z = static_cast<uint32_t>(t[kAcCode + kZrlIndex]);
+          const int zs = t[kAcSize + kZrlIndex];
+#pragma unroll 1
+          for (; run >= 16; run -= 16) out.put(z, zs);
+        }
+        const int s = category(v);
+        const int e = min(run * 10 + s + (run == 15 ? 1 : 0), kAcEntries - 1);
+        out.put(code_and_extra(static_cast<uint32_t>(t[kAcCode + e]), v, s),
+                t[kAcSize + e] + s);
+        last = i;
+      }
+    }
+    if (last != kSlots - 1)
+      out.put(static_cast<uint32_t>(t[kAcCode + kEobIndex]),
+              t[kAcSize + kEobIndex]);
+    if (out.held > 0)  // the last word, zero-padded
+      row[min(out.words, kWords)] =
+          static_cast<int32_t>(out.acc << (32 - out.held));
+    k.bits[b] = 32 * out.words + out.held;
+  }
+  __syncwarp();  // every row holds its words
+  // the rows to device memory: 16 bytes a lane, two whole rows a store
+  uint32_t* dst = k.words + static_cast<size_t>(u.b0) * kWords;
+#pragma unroll
+  for (int i = 0; i < kRunBlocks / 2; ++i) {
+    const int w = 2 * i + (lane >> 4);
+    if (w < u.count)
+      reinterpret_cast<int4*>(dst + w * kWords)[lane & 15] =
+          reinterpret_cast<const int4*>(stage + w * kRow)[lane & 15];
   }
 }
 
@@ -568,6 +589,10 @@ int kernel_info(K kernel, int threads, int* info) {
   return 0;
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -595,7 +620,9 @@ int jz_pack_words(const void* hi, const void* lo, const void* nbits,
 // rows (custom == 0, nsets 1) or the caller's (custom != 0: nsets 1, or N
 // and image n takes set n); carry [N, 3] int32 or null; ri the restart
 // interval in MCUs (0: none); out per component: words [N, B_c, 64]
-// uint64 and bits [N, B_c] int32.
+// 32-bit words and bits [N, B_c] int32.  The blocks, the table rows and
+// the words must be 16-byte aligned (the 16-byte copies and stores need
+// it).
 int jz_encode_blocks_batch(const void* yq, const void* cbq, const void* crq,
                            const void* luma, const void* chroma, int nsets,
                            int custom, const void* carry, void* wy, void* wcb,
@@ -608,32 +635,44 @@ int jz_encode_blocks_batch(const void* yq, const void* cbq, const void* crq,
   if (luma_blocks <= 0 || chroma_blocks <= 0 || ri < 0 ||
       nimages * luma_blocks > most || nimages * chroma_blocks > most ||
       4 * ri > most || nsets < 1 || (!custom && nsets != 1) ||
-      (nsets > 1 && nsets != nimages))
+      (nsets > 1 && nsets != nimages) || !aligned16(yq) || !aligned16(cbq) ||
+      !aligned16(crq) || !aligned16(luma) || !aligned16(chroma) ||
+      !aligned16(wy) || !aligned16(wcb) || !aligned16(wcr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long luma_warps =
-      (nimages * luma_blocks + kBlocksPerWarp - 1) / kBlocksPerWarp;
-  const long long chroma_warps =
-      (nimages * chroma_blocks + kBlocksPerWarp - 1) / kBlocksPerWarp;
-  unsigned grid;
-  if (!grid_for(luma_warps + 2 * chroma_warps, 1, &grid) ||
-      luma_warps + 2 * chroma_warps > most)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const auto comp = [](const void* q, const void* t, void* w, void* b,
-                       long long per_image, long long seg_blocks,
-                       long long warps) {
-    return Component{static_cast<const int32_t*>(q),
-                     static_cast<const int32_t*>(t), static_cast<uint64_t*>(w),
-                     static_cast<int32_t*>(b), static_cast<int>(per_image),
-                     static_cast<int>(seg_blocks), static_cast<int>(warps)};
+  // with a table set an image, a run no longer than an image meets at
+  // most two of them
+  const auto run_of = [&](long long per_image) {
+    return nsets > 1 && per_image < kRunBlocks ? per_image
+                                               : static_cast<long long>(
+                                                     kRunBlocks);
   };
-  const Component y = comp(yq, luma, wy, by, luma_blocks, 4 * ri, luma_warps);
-  const Component cb =
-      comp(cbq, chroma, wcb, bcb, chroma_blocks, ri, chroma_warps);
-  const Component cr =
-      comp(crq, chroma, wcr, bcr, chroma_blocks, ri, chroma_warps);
+  const long long luma_run = run_of(luma_blocks);
+  const long long chroma_run = run_of(chroma_blocks);
+  const long long luma_runs = (nimages * luma_blocks + luma_run - 1) / luma_run;
+  const long long chroma_runs =
+      (nimages * chroma_blocks + chroma_run - 1) / chroma_run;
+  if (luma_runs + 2 * chroma_runs > most)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   auto kernel = custom ? encode_blocks_batch_kernel<true>
                        : encode_blocks_batch_kernel<false>;
-  kernel<<<grid, kWarpsPerCta * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long grid = luma_runs + 2 * chroma_runs;  // a thread block a run
+  const auto comp = [](const void* q, const void* t, void* w, void* b,
+                       long long per_image, long long seg_blocks,
+                       long long run, long long runs) {
+    return Component{static_cast<const int32_t*>(q),
+                     static_cast<const int32_t*>(t), static_cast<uint32_t*>(w),
+                     static_cast<int32_t*>(b), static_cast<int>(per_image),
+                     static_cast<int>(seg_blocks), static_cast<int>(run),
+                     static_cast<int>(runs)};
+  };
+  const Component y =
+      comp(yq, luma, wy, by, luma_blocks, 4 * ri, luma_run, luma_runs);
+  const Component cb = comp(cbq, chroma, wcb, bcb, chroma_blocks, ri,
+                            chroma_run, chroma_runs);
+  const Component cr = comp(crq, chroma, wcr, bcr, chroma_blocks, ri,
+                            chroma_run, chroma_runs);
+  kernel<<<static_cast<unsigned>(grid), kRunBlocks, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       y, cb, cr, static_cast<const int32_t*>(carry),
       static_cast<int>(nimages), nsets);
   return static_cast<int>(cudaGetLastError());
@@ -648,13 +687,10 @@ int jz_symbol_histograms_batch(const void* yq, const void* cbq,
                                long long chroma_blocks, long long ri,
                                void* stream) {
   if (nimages <= 0) return 0;
-  const auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
   const long long most = 0x7FFFFFFFll / kSlots;  // int block offsets
   if (luma_blocks <= 0 || chroma_blocks <= 0 || luma_blocks > most ||
       chroma_blocks > most || ri < 0 || ri > 0x7FFFFFFFll / 4 ||
-      !aligned(yq) || !aligned(cbq) || !aligned(crq))
+      !aligned16(yq) || !aligned16(cbq) || !aligned16(crq))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long luma_ctas = (luma_blocks + kHistThreads - 1) / kHistThreads;
   const long long chroma_ctas =
@@ -680,11 +716,9 @@ int jz_symbol_histograms_batch(const void* yq, const void* cbq,
 int jz_entropy_kernel_info(int which, int* info) {
   switch (which) {
     case 0:
-      return kernel_info(encode_blocks_batch_kernel<false>, kWarpsPerCta * 32,
-                         info);
+      return kernel_info(encode_blocks_batch_kernel<false>, kRunBlocks, info);
     case 1:
-      return kernel_info(encode_blocks_batch_kernel<true>, kWarpsPerCta * 32,
-                         info);
+      return kernel_info(encode_blocks_batch_kernel<true>, kRunBlocks, info);
     case 2:
       return kernel_info(symbol_histograms_batch_kernel, kHistThreads, info);
     case 3:

@@ -8,9 +8,9 @@
 // bit for bit, as jpezy_tpu_torch/ops/entropy.py:concat_streams_plain.
 //
 //   In:  per component c (Y, Cb, Cr) words_c [N, B_c, 64] 32-bit words
-//        stored zero-extended as uint64 (the packed block bitstring,
-//        MSB-first, zero past the block's bits: what jz_encode_blocks_batch
-//        writes) and bits_c [N, B_c] int32, B_Y = 4 nm, B_Cb = B_Cr = nm
+//        (the packed block bitstring, MSB-first, zero past the block's
+//        bits: what jz_encode_blocks_batch writes) and bits_c [N, B_c]
+//        int32, B_Y = 4 nm, B_Cb = B_Cr = nm
 //        for nm MCUs an image; restart_interval ri (0: none); maxw.
 //   Out: combined [N, 1 + S + maxw] int64: the image's total bits, then
 //        with restarts the S = ceil(nm / ri) segments' bit counts, then
@@ -60,7 +60,7 @@
 // What bounds it: memory traffic, and at these sizes latency.  The
 // function must read each block's bit count and used words once and write
 // combined once: for a 16 x 512 x 512 4:2:0 batch of photographs about
-// 0.4 MB of counts, 0.8 MB of used words and 1.6 MB of combined, under a
+// 0.4 MB of counts, 0.4 MB of used words and 1.6 MB of combined, under a
 // microsecond at the card's rate.  The earlier two-pass design wrote an
 // 8-byte offset a block to a scratch array and read it back, zeroed the
 // streams in thread blocks of their own and ran one thread block an image
@@ -93,9 +93,9 @@ constexpr size_t smem_bytes(long long tile_mcus, long long stage_words) {
 }
 
 struct Comps {
-  const uint64_t* wy;
-  const uint64_t* wcb;
-  const uint64_t* wcr;
+  const uint32_t* wy;
+  const uint32_t* wcb;
+  const uint32_t* wcr;
   const int32_t* by;
   const int32_t* bcb;
   const int32_t* bcr;
@@ -115,7 +115,7 @@ __device__ __forceinline__ void mcu_bits(const Comps& c, int64_t n,
 }
 
 // Block j (stream order within the MCU) of MCU m: its 64 words.
-__device__ __forceinline__ const uint64_t* block_words(const Comps& c,
+__device__ __forceinline__ const uint32_t* block_words(const Comps& c,
                                                        int64_t n, int64_t nm,
                                                        int64_t m, int j) {
   if (j < 4) return c.wy + ((n * nm + m) * 4 + j) * kWords;
@@ -202,17 +202,14 @@ __device__ __forceinline__ Run block_scan(Run r, Run* sh, Run* whole) {
 // overlaps them (o < p + 32 and o + nb > p): its word i and the next one
 // funnel-shifted to the word's phase; the next is read only where the
 // block has bits there.
-__device__ __forceinline__ uint32_t piece(const uint64_t* w, int nb,
+__device__ __forceinline__ uint32_t piece(const uint32_t* w, int nb,
                                           int64_t o, int64_t p) {
-  if (o >= p)
-    return static_cast<uint32_t>(__ldg(w)) >> static_cast<int>(o - p);
+  if (o >= p) return __ldg(w) >> static_cast<int>(o - p);
   const int k = static_cast<int>(p - o);  // < nb
   const int i = k >> 5;
   const int r = k & 31;
-  const uint32_t hi = static_cast<uint32_t>(__ldg(w + i));
-  const uint32_t lo = r != 0 && 32 * (i + 1) < nb
-                          ? static_cast<uint32_t>(__ldg(w + i + 1))
-                          : 0u;
+  const uint32_t hi = __ldg(w + i);
+  const uint32_t lo = r != 0 && 32 * (i + 1) < nb ? __ldg(w + i + 1) : 0u;
   return __funnelshift_l(lo, hi, r);
 }
 
@@ -250,7 +247,7 @@ __device__ uint32_t bits_past_tile(const Comps& c, int64_t n, int64_t nm,
 // output word q + x takes its words x (shifted right by r) and x - 1, and
 // the words [first, last] of its own that these need.
 struct Span {
-  const uint64_t* w;
+  const uint32_t* w;
   int64_t q;
   int r, nw, x0, x1, first, last;
 };
@@ -293,9 +290,7 @@ __device__ __forceinline__ void place_block(const Span& sp,
     const uint32_t v = ahead[0];
 #pragma unroll
     for (int u = 0; u + 1 < kAhead; ++u) ahead[u] = ahead[u + 1];
-    ahead[kAhead - 1] = y + kAhead <= sp.last
-                            ? static_cast<uint32_t>(__ldg(sp.w + y + kAhead))
-                            : 0u;
+    ahead[kAhead - 1] = y + kAhead <= sp.last ? __ldg(sp.w + y + kAhead) : 0u;
     ++y;
     return v;
   };
@@ -432,8 +427,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int u = 0; u < kAhead; ++u)
           ahead[g][u] = sp[g].first + u <= sp[g].last
-                            ? static_cast<uint32_t>(
-                                  __ldg(sp[g].w + sp[g].first + u))
+                            ? __ldg(sp[g].w + sp[g].first + u)
                             : 0u;
       }
 #pragma unroll
@@ -484,9 +478,9 @@ int jz_concat_streams(const void* wy, const void* wcb, const void* wcr,
     return static_cast<int>(cudaErrorInvalidValue);
   if (nimages * ntiles > 0x7FFFFFFFll)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const Comps c = {static_cast<const uint64_t*>(wy),
-                   static_cast<const uint64_t*>(wcb),
-                   static_cast<const uint64_t*>(wcr),
+  const Comps c = {static_cast<const uint32_t*>(wy),
+                   static_cast<const uint32_t*>(wcb),
+                   static_cast<const uint32_t*>(wcr),
                    static_cast<const int32_t*>(by),
                    static_cast<const int32_t*>(bcb),
                    static_cast<const int32_t*>(bcr)};

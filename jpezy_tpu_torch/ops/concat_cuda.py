@@ -81,8 +81,9 @@ def concat_streams_cuda(words, bits, *, maxw: int,
                         restart_interval: int = 0) -> torch.Tensor:
     """Per-component packed blocks -> combined [N, 1 + S + maxw] int64.
 
-    words: (Y, Cb, Cr) int64 [N, B_c, 64] words in [0, 2**32), zero past
-    each block's bits (what the entropy kernel writes); bits: (Y, Cb, Cr)
+    words: (Y, Cb, Cr) int32 [N, B_c, 64] holding 32-bit words' patterns,
+    zero past each block's bits (what the entropy kernel writes; the
+    kernel loads only each block's used words); bits: (Y, Cb, Cr)
     int32 [N, B_c]; B_Y = 4 nm and B_Cb = B_Cr = nm for nm MCUs an image.
     Column 0 of each row is the image's total bits, then with
     restart_interval > 0 the S = ceil(nm / restart_interval) segments' bit
@@ -98,7 +99,7 @@ def concat_streams_cuda(words, bits, *, maxw: int,
     N, nm = bits[1].shape
     specs = []
     for name, w, b, per_mcu in zip(("Y", "Cb", "Cr"), words, bits, (4, 1, 1)):
-        specs += [(f"{name} words", w, torch.int64,
+        specs += [(f"{name} words", w, torch.int32,
                    (N, per_mcu * nm, WORDS_PER_BLOCK)),
                   (f"{name} bits", b, torch.int32, (N, per_mcu * nm))]
     check_tensors("concat_streams_cuda", words[0], *specs)

@@ -14,11 +14,12 @@ Counterpart of jpezy_tpu/ops/entropy.py, same formulation:
  3'. On a CUDA device steps 1-3, and the DC predictor chains of every
     image and component, are ONE hand-written kernel launch for the
     batch's three components (encode_blocks_batch -> ops/pack_cuda.py,
-    csrc/entropy_pack.cu): a warp per block finds its predictor, computes
-    the 64 emissions in registers and packs them through a shared-memory
-    word buffer, so neither the emissions (768 bytes per block) nor the
-    predictors reach device memory; per block it moves the 256 bytes of
-    coefficients in and the words and bit count out.  The same source
+    csrc/entropy_pack.cu): a warp stages a run of 32 blocks and its
+    table sets in shared memory, a lane per block finds its predictor and
+    codes its nonzero coefficients in zigzag order into its words, so
+    neither the emissions (768 bytes per block) nor the predictors reach
+    device memory; per block it moves the 256 bytes of coefficients in and
+    the 32-bit words and bit count out.  The same source
     holds the pack alone (pack_block_words), the one-to-one counterpart of
     the JAX package's Pallas kernel.  For CPU tensors both take the plain
     tensor programs below (dc_predictors_restart, block_emissions and the
@@ -33,9 +34,14 @@ per image (symbol_histograms_batch; a hand-written kernel on CUDA
 tensors, in the same source as the entropy kernel).
 
 Word convention: CPU torch implements no shifts, adds or compares on
-uint32, so 32-bit words are held as int64 values in [0, 2**32) and masked
-with & 0xFFFFFFFF.  An emission part of <= 59 bits is one int64 `v`; the
-(hi, lo) pair of the JAX package is `v >> 32, v & 0xFFFFFFFF`.
+uint32, so the plain forms hold 32-bit words as int64 values in [0,
+2**32) and mask with & 0xFFFFFFFF.  An emission part of <= 59 bits is one
+int64 `v`; the (hi, lo) pair of the JAX package is `v >> 32, v &
+0xFFFFFFFF`.  On the card the entropy kernel writes the words as int32
+tensors of their 32-bit patterns, half the bytes, and the concat kernel
+reads them so; torch compares and shifts them as signed there, so only
+the kernels and the host (words64, or a numpy view as uint32) read
+them.
 """
 from __future__ import annotations
 
@@ -381,9 +387,10 @@ def encode_blocks_batch(yq, cbq, crq, restart_interval: int = 0, carry=None,
     for the three components, every set of tables in it, the predictors
     found in it; tables in the JAX order are laid out as its rows by
     kernel_tables, and a table given as a tensor is taken as such rows),
-    CPU tensors
-    through encode_blocks_batch_plain; a kernel that fails to build or
-    launch raises."""
+    whose words are int32 tensors of the 32-bit patterns (words64 widens
+    them to the plain form's values); CPU tensors through
+    encode_blocks_batch_plain; a kernel that fails to build or launch
+    raises."""
     if yq.is_cuda:
         from .pack_cuda import encode_blocks_batch_cuda
 
@@ -726,20 +733,43 @@ def concat_streams_plain(words, bits, restart_interval: int, maxw: int):
     return torch.cat([total[:, None]] + head + [stream], dim=1)
 
 
+def words32(words: torch.Tensor) -> torch.Tensor:
+    """int64 words in [0, 2**32) -> int32 tensor of the same 32-bit
+    patterns (words at or above 2**31 become negative): the layout the
+    entropy kernel writes on the card.  Exact arithmetic, no wrapping
+    cast."""
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def words64(words: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> int64 words in [0, 2**32), the plain forms'
+    convention; int64 words pass unchanged."""
+    if words.dtype == torch.int32:
+        return words.to(torch.int64) & M32
+    return words
+
+
 def concat_streams(words, bits, restart_interval: int, maxw: int):
-    """concat_streams_plain's combined.  CUDA tensors go through the
-    hand-written kernel (concat_cuda.concat_streams_cuda: it reads each
-    block's used words where they lie, so the words are neither
-    interleaved nor concatenated first), CPU tensors through
-    concat_streams_plain; a kernel that fails to build or launch
-    raises."""
+    """concat_streams_plain's combined.  words: either layout, int32
+    tensors holding the 32-bit patterns (what the entropy kernel writes
+    on the card) or int64 values in [0, 2**32) (the plain forms').  CUDA
+    tensors go through the hand-written kernel (concat_cuda.
+    concat_streams_cuda, which takes int32 words: it reads each block's
+    used words where they lie, so the words are neither interleaved nor
+    concatenated first; int64 words are narrowed first), CPU tensors
+    through concat_streams_plain (int32 words widened first); a kernel
+    that fails to build or launch raises."""
     if words[0].is_cuda:
         from .concat_cuda import concat_streams_cuda
 
         return concat_streams_cuda(
-            words, tuple(b.to(torch.int32) for b in bits), maxw=maxw,
+            tuple(w if w.dtype == torch.int32 else words32(w)
+                  for w in words),
+            tuple(b.to(torch.int32) for b in bits), maxw=maxw,
             restart_interval=restart_interval)
     if words[0].device.type != "cpu":
         raise ValueError(
             f"concat_streams: unsupported device {words[0].device}")
-    return concat_streams_plain(words, bits, restart_interval, maxw)
+    return concat_streams_plain(tuple(words64(w) for w in words), bits,
+                                restart_interval, maxw)

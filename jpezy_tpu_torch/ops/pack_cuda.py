@@ -13,14 +13,17 @@ warp-per-block pack routine and three entry points:
                       (64 32-bit words and a count): a bound of 1,028.
   encode_blocks_batch_cuda
                       a batch's three components of quantized blocks +
-                      Huffman tables -> packed words per component, one
-                      launch, the emissions computed in registers and
-                      the DC predictors found in the kernel; the encode
-                      program calls this one.  Takes the fixed tables,
-                      or the caller's: one set or one per image
-                      (optimize), with emissions of up to 74 bits.  Per
-                      block the function reads 256 bytes and writes
-                      260: a bound of 516.
+                      Huffman tables -> packed 32-bit words per
+                      component, one launch, a warp a run of 32 blocks
+                      staged in shared memory by asynchronous copies
+                      with their table sets, a lane a block coded into
+                      its words, the DC predictors found in the kernel;
+                      the encode program calls this one.  Takes
+                      the fixed tables, or the caller's: one set or one
+                      per image (optimize), with emissions of up to 74
+                      bits.  Per block the function reads 256 bytes and
+                      writes 260: a bound of 516, which is what it
+                      moves.
   symbol_histograms_batch_cuda
                       a batch's three components of quantized blocks ->
                       per-image symbol counts [N, 4, 256] (pass 1 of
@@ -28,12 +31,14 @@ warp-per-block pack routine and three entry points:
                       in the kernel.  Per block it reads 256 bytes, per
                       image it writes 4 KB.
 
-All are bound by memory traffic; the design (coalesced rows, a warp
-shuffle scan, a 64-word shared-memory buffer per warp) is described in the
-source's header.  Words come back as int64 values in [0, 2**32), the word
-convention of ops/entropy.py: the kernels store them zero-extended
-themselves (256 bytes per block beyond the bound), which was measured
-faster on an H100 than 32-bit stores and a widening pass (PERF.md).
+All are bound by memory traffic; their designs are described in the
+source's header.  The fused kernel's words come back as int32 tensors
+holding the 32-bit patterns (words at or above 2**31 read negative): the
+layout the stream concat kernel reads (ops/concat_cuda.py), so no byte
+beyond the bound is moved; torch on the card compares and shifts them as
+signed, so nothing but the concat and the host (which views them as
+uint32) should read them.  The pack alone keeps the int64 convention of
+ops/entropy.py, values in [0, 2**32).
 
 The library is built at first use and loaded with ctypes by
 ops/cuda_build.py.  A failed build or launch raises; nothing falls back to
@@ -84,13 +89,6 @@ KERNEL_INFO = ("encode_blocks fixed tables", "encode_blocks custom tables",
                "symbol_histograms", "pack_words")
 
 
-def _low32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> int32 tensor with the same 32-bit
-    pattern: the low half of each little-endian int64, picked from a view
-    of the same memory (no reliance on a wrapping cast)."""
-    return x.contiguous().view(torch.int32)[..., ::2].contiguous()
-
-
 def pack_words_cuda(hi: torch.Tensor, lo: torch.Tensor, nbits: torch.Tensor):
     """CUDA form of entropy.pack_block_words.
 
@@ -104,11 +102,13 @@ def pack_words_cuda(hi: torch.Tensor, lo: torch.Tensor, nbits: torch.Tensor):
     _check("pack_words_cuda", hi, ("hi", hi, torch.int64, hi.shape),
            ("lo", lo, torch.int64, hi.shape),
            ("nbits", nbits, torch.int32, hi.shape))
+    from .entropy import words32
+
     lib = LIB.get()
     B = hi.shape[0]
     dev = hi.device
     with torch.cuda.device(dev):
-        h32, l32 = _low32(hi), _low32(lo)
+        h32, l32 = words32(hi).contiguous(), words32(lo).contiguous()
         n32 = nbits.contiguous()
         words = torch.empty((B, 64), dtype=torch.int64, device=dev)
         bits = torch.empty((B,), dtype=torch.int32, device=dev)
@@ -160,7 +160,7 @@ def encode_blocks_batch_cuda(yq: torch.Tensor, cbq: torch.Tensor,
     """CUDA form of entropy.encode_blocks_batch_plain, one launch for the
     three components: block_emissions and pack_block_words in one kernel,
     the emissions never stored, each block's DC predictor found in the
-    kernel.
+    kernel, the words stored as 32-bit words.
 
     yq [N, B_Y, 64], cbq and crq [N, B_C, 64] int32 quantized blocks in
     natural order; each component of an image is one DC chain, reset
@@ -171,13 +171,26 @@ def encode_blocks_batch_cuda(yq: torch.Tensor, cbq: torch.Tensor,
     on the blocks' device (entropy.kernel_tables builds them from the JAX
     order), T = 1 for the batch or N, one set an image; their emissions
     may exceed 64 bits.  Returns ((words_Y, words_Cb, words_Cr) [N, B_c,
-    64] int64 in [0, 2**32), (bits_Y, bits_Cb, bits_Cr) [N, B_c] int32),
-    on the inputs' device and stream."""
+    64] int32 holding the 32-bit words' patterns, (bits_Y, bits_Cb,
+    bits_Cr) [N, B_c] int32), on the inputs' device and stream.  The
+    kernel copies the blocks and the table rows 16 bytes at a time, from
+    16-byte addresses: a contiguous tensor whose data is not 16-byte
+    aligned (a view at an odd offset) is refused; a non-contiguous one is
+    copied, and the copy is aligned."""
     global encode_launches
     if yq.dim() != 3 or yq.shape[2] != 64 or cbq.dim() != 3:
         raise ValueError(f"encode_blocks_batch_cuda: yq has shape "
                          f"{tuple(yq.shape)}, cbq {tuple(cbq.shape)}, want "
                          "[N, B, 64] each")
+    named = [("yq", yq), ("cbq", cbq), ("crq", crq)]
+    if tables is not None and len(tables) == 2:
+        named += [("luma tables", tables[0]), ("chroma tables", tables[1])]
+    for name, t in named:
+        if (isinstance(t, torch.Tensor) and t.is_contiguous()
+                and t.numel() and t.data_ptr() % 16):
+            raise ValueError(f"encode_blocks_batch_cuda: {name} is not "
+                             "16-byte aligned (the kernel's 16-byte copies "
+                             "need it); pass a fresh tensor (.clone())")
     N = yq.shape[0]
     specs = [("yq", yq, torch.int32, yq.shape),
              ("cbq", cbq, torch.int32, (N, cbq.shape[1], 64)),
@@ -209,7 +222,7 @@ def encode_blocks_batch_cuda(yq: torch.Tensor, cbq: torch.Tensor,
         qs = [t.contiguous() for t in (yq, cbq, crq)]
         rs = [r.contiguous() for r in rows]
         cc = None if carry is None else carry.contiguous()
-        outs = [(torch.empty((N, q.shape[1], 64), dtype=torch.int64,
+        outs = [(torch.empty((N, q.shape[1], 64), dtype=torch.int32,
                              device=dev),
                  torch.empty((N, q.shape[1]), dtype=torch.int32, device=dev))
                 for q in qs]

@@ -7,8 +7,9 @@ Builds variants of jpezy_tpu_torch/csrc/stream_concat.cu into
 build/concat_phases/ (the source's text with one step cut off or one
 constant changed) and times each, with torch.profiler (20 launches after
 a warm-up, twice), on the main path's blocks of a 16x512x512 batch
-(tests/imagegen, fast, 4:2:0, no restart markers), beside the two-pass
-design it replaced (scripts/previous_designs.py):
+(tests/imagegen, fast, 4:2:0, no restart markers), beside its form with
+64-bit word loads (scripts/previous_designs.py), which read the words as
+the first fused entropy kernel wrote them:
 
   empty          the kernel returns at once: the card's cost of a launch
   phase 1        returns after the bit-count fold and the scan
@@ -51,6 +52,7 @@ def main() -> int:
     from imagegen import make_test_image
     from jpezy_tpu_torch.codec import torch_codec as TC
     from jpezy_tpu_torch.ops import concat_cuda, cuda_build
+    from jpezy_tpu_torch.ops import entropy as E
 
     src = open(concat_cuda.LIB.src).read()
     scan = "  const int64_t s_next = apply(whole, 0);"
@@ -100,6 +102,7 @@ def main() -> int:
                      for i in range(BATCH)])
     wc, bc = TC._emit_local(*TC._quantize_batch_rgb(
         torch.from_numpy(rgbs).to(dev)))
+    wc64 = tuple(E.words64(w) for w in wc)
     N, nm = bc[1].shape
     maxw = TC.stream_budget_words_batch(6 * nm)
     combined = torch.empty((N, 1 + maxw), dtype=torch.int64, device=dev)
@@ -127,9 +130,10 @@ def main() -> int:
     _, tile = concat_cuda.tile_layout(nm)
     rows = {}
     for rnd in range(2):
-        rows.setdefault("two-pass design", []).append(kernel_ms(
-            lambda: previous_designs.concat_two_pass(wc, bc, maxw=maxw),
-            "concat_offsets", "concat_scatter"))
+        rows.setdefault("64-bit loads", []).append(kernel_ms(
+            lambda: previous_designs.concat_streams_first(wc64, bc,
+                                                          maxw=maxw),
+            "concat_streams_first_kernel"))
         for name, lib in libs.items():
             for t in ((64, tile, 256) if name == "full" else (tile,)):
                 rows.setdefault(f"{name}, tiles of {t}", []).append(

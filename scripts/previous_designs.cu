@@ -3,18 +3,19 @@
 // ones in one run, on the same inputs (scripts/previous_designs.py binds
 // them; nothing in the package calls them):
 //
-//   jz_prev_encode_blocks  the per-component fused entropy kernel: one
-//     launch a component, each block's DC predictor read from an array
-//     the caller builds in plain torch (the current jz_encode_blocks_batch
-//     takes the three components in one launch and finds the predictors
-//     itself).  Its per-block work is the current kernel's encode_block,
-//     so the two differ only in what they launch and read.
-//   jz_prev_concat_streams  the two-pass stream concat: pass 1 one thread
-//     block an image scans the MCUs' bit counts into an offsets scratch
-//     goff [N, 6 nm] while 64 more thread blocks zero the streams; pass 2
-//     places each warp's blocks' used words, with atomicOr on the words
-//     blocks share (the current jz_concat_streams is one launch of many
-//     thread blocks an image, no scratch, every word one plain store).
+//   jz_prev_encode_blocks_fused  the first design of the fused entropy
+//     kernel (one launch for the three components, each block's DC
+//     predictor found in the kernel): a warp took 2 consecutive blocks,
+//     gathered their coefficients in zigzag order by 4-byte loads into
+//     registers, read every table entry from device memory through the
+//     read-only cache, and stored each 32-bit word zero-extended to 64
+//     bits (776 bytes moved a block where the function needs 516).  The
+//     current jz_encode_blocks_batch stages a thread block's run of 32
+//     blocks and its table sets in shared memory by bulk copies and
+//     stores 32-bit words.
+//   jz_prev_concat_streams  the stream concat as it read those words: the
+//     current jz_concat_streams with 64-bit word loads (it uses the low
+//     32 bits of each).
 //   jz_prev_idct_planes_rgb  the first fast rgb IDCT: a lane a column of its
 //     block over the block's own nonzero mask, the [64][64] float32 basis in
 //     shared memory (9 shared loads for every 16 float operations; the
@@ -39,302 +40,736 @@
 //     samples of a warp's 4 blocks, and walks their union with the tables
 //     as constant-bank operands.
 //
-// All are verbatim but for names: the current entropy source is
-// included for encode_block and the table layout, the concat's two
-// kernels sit in namespace two_pass, the exact kernels and the first
-// fast rgb IDCT in namespace first_exact, and the first overflow launch
-// with the helpers and argument structs of its source in namespace
-// first_overflow.
-#include "../jpezy_tpu_torch/csrc/entropy_pack.cu"
+// All are verbatim but for names: the first fused entropy kernel with the
+// helpers of its source in namespace fused_first, the concat it fed in
+// namespace concat_first, the exact kernels and the first fast rgb IDCT
+// in namespace first_exact, and the first overflow launch with the
+// helpers and argument structs of its source in namespace first_overflow.
+#include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-// The table set of block b out of `nsets` (b / blocks_per_image; the
-// launcher keeps b below 2**31 when nsets > 1).
-__device__ __forceinline__ const int32_t* table_set(const int32_t* tables,
-                                                    int64_t b, int nsets,
-                                                    int64_t blocks_per_image) {
-  if (nsets <= 1) return tables;
-  const int s = min(static_cast<int>(static_cast<uint32_t>(b) /
-                                     static_cast<uint32_t>(blocks_per_image)),
-                    nsets - 1);
-  return tables + s * kSetEntries;
-}
-
-template <bool kCustom>
-__global__ void __launch_bounds__(kWarpsPerCta * 32)
-    encode_blocks_kernel(const int32_t* __restrict__ q,
-                         const int32_t* __restrict__ pred,
-                         const int32_t* __restrict__ tables, int nsets,
-                         int64_t blocks_per_image,
-                         uint64_t* __restrict__ words, int32_t* __restrict__ bits,
-                         int64_t nblocks) {
-  __shared__ uint32_t bufs[kWarpsPerCta][kWords];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t b0 =
-      (static_cast<int64_t>(blockIdx.x) * kWarpsPerCta + warp) * kBlocksPerWarp;
-  if (b0 >= nblocks) return;
-  const int z0 = kZigzag[lane];
-  const int z1 = kZigzag[lane + 32];
-  int c0[kBlocksPerWarp], c1[kBlocksPerWarp], dcp[kBlocksPerWarp];
-#pragma unroll
-  for (int i = 0; i < kBlocksPerWarp; ++i) {
-    const int64_t b = b0 + i < nblocks ? b0 + i : b0;  // tail: load a valid row
-    c0[i] = __ldg(q + b * kSlots + z0);
-    c1[i] = __ldg(q + b * kSlots + z1);
-    dcp[i] = lane == 0 ? __ldg(pred + b) : 0;
-  }
-#pragma unroll
-  for (int i = 0; i < kBlocksPerWarp; ++i) {
-    const int64_t b = b0 + i;
-    if (b >= nblocks) break;
-    const int32_t* t = tables;
-    if constexpr (kCustom) t = table_set(tables, b, nsets, blocks_per_image);
-    encode_block<kCustom>(c0[i], c1[i], dcp[i], t, bufs[warp], lane,
-                          words + b * kSlots, bits + b);
-  }
+template <typename K>
+int kernel_info(K kernel, int threads, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  int per_sm = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  info[0] = attr.numRegs;
+  info[1] = per_sm;
+  info[2] = static_cast<int>(attr.sharedSizeBytes);
+  info[3] = static_cast<int>(attr.localSizeBytes);
+  info[4] = threads;
+  return 0;
 }
 
 }  // namespace
 
-namespace two_pass {
+namespace fused_first {
 
+constexpr int kSlots = 64;
+constexpr int kWords = 64;
+constexpr int kWarpsPerCta = 8;
+constexpr int kBlocksPerWarp = 2;  // of the fused kernel
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
-constexpr int kWords = 64;          // words a block holds
-constexpr int kThreads = 1024;      // pass 1: MCUs per round
-constexpr int kZeroCtas = 64;       // pass 1: thread blocks zeroing streams
-constexpr int kScatterThreads = 256;  // pass 2: blocks a thread block takes
-constexpr int kRounds = 2;  // pass 2: output words a lane places per step
+constexpr int kEobIndex = 0;
+constexpr int kZrlIndex = 151;
+constexpr int kDcEntries = 12;
+constexpr int kAcEntries = 162;
 
-struct Comps {
-  const uint64_t* words[3];
-  const int32_t* bits[3];
-};
+// kZigzag[k] = natural (row-major) index of the k-th zigzag element.  In
+// global memory, not __constant__: every lane reads another entry.
+__device__ const uint8_t kZigzag[kSlots] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
 
-// Bit counts of MCU m of image n, in stream order Y0..Y3, Cb, Cr.
-__device__ __forceinline__ void mcu_bits(const Comps& c, int64_t n,
-                                         int64_t nm, int64_t m, int32_t b[6]) {
-  const int32_t* y = c.bits[0] + (n * nm + m) * 4;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) b[j] = __ldg(y + j);
-  b[4] = __ldg(c.bits[1] + n * nm + m);
-  b[5] = __ldg(c.bits[2] + n * nm + m);
+__device__ __forceinline__ void or_word(uint32_t* buf, int w, uint32_t word) {
+  if (w < kWords && word != 0u) atomicOr(buf + w, word);
 }
 
-// The zero bits that round a segment of seg_bits up to a byte.
-__device__ __forceinline__ int64_t pad_of(int64_t seg_bits) {
-  return (8 - (seg_bits & 7)) & 7;
+// OR the n-bit emission v (1 <= n <= 64, else nothing) into the block
+// buffer at bit offset `off`: v is justified to the top of 64 bits and
+// moved down by off & 31 into a 96-bit window of three words that starts
+// at word off >> 5; each word is one funnel shift.
+__device__ __forceinline__ void place(uint32_t* buf, uint64_t v, int n,
+                                      int off) {
+  if (n <= 0) return;
+  const uint64_t u = v << (64 - n);
+  const uint32_t uhi = static_cast<uint32_t>(u >> 32);
+  const uint32_t ulo = static_cast<uint32_t>(u);
+  const int p = off & 31;
+  const int w0 = off >> 5;
+  or_word(buf, w0, uhi >> p);
+  or_word(buf, w0 + 1, __funnelshift_r(ulo, uhi, p));
+  or_word(buf, w0 + 2, __funnelshift_r(0u, ulo, p));
 }
 
-// Exclusive block-wide scan of x over kThreads threads; *sum receives the
-// total.  `warp_sums` holds 32 values in shared memory.
-__device__ __forceinline__ int64_t block_scan(int64_t x, int64_t* warp_sums,
-                                              int64_t* sum) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int64_t v = x;
+// One set of Huffman tables is kSetEntries int32 in a row: dc_code and
+// dc_size by magnitude category, then ac_code and ac_size in the flat AC
+// layout.
+constexpr int kDcCode = 0;
+constexpr int kDcSize = kDcEntries;
+constexpr int kAcCode = 2 * kDcEntries;
+constexpr int kAcSize = 2 * kDcEntries + kAcEntries;
+constexpr int kSetEntries = 2 * (kDcEntries + kAcEntries);
+
+// `count` ZRL codes of `size` bits of the set t, one after the other
+// (<= 3 x 16 bits).
+__device__ __forceinline__ uint64_t zrl_prefix(const int32_t* t, int count,
+                                               int size) {
+  const uint64_t code = static_cast<uint32_t>(__ldg(t + kAcCode + kZrlIndex));
+  uint64_t z = 0ull;
+  for (int k = 0; k < count; ++k) z = (z << size) | code;
+  return z;
+}
+
+// The shared pack routine.  Every lane of the warp calls it with its two
+// emissions (slot `lane` and slot `lane + 32`), each as zc ZRL codes of the
+// table set t followed by a body (v, n) of <= 64 bits; `buf` is the warp's
+// 64-word buffer in shared memory.  The prefix travels as a count and is
+// built only where it is placed: no 64-bit value of it stays live across
+// the scan.  Callers whose emissions are whole pass zc = 0, and the
+// prefix code folds away.
+template <typename V>
+__device__ __forceinline__ void pack_block(int zc0, V v0, int n0, int zc1,
+                                           V v1, int n1, const int32_t* t,
+                                           uint32_t* buf, int lane,
+                                           uint64_t* out_row,
+                                           int32_t* out_bits) {
+  const int zs = (zc0 | zc1) != 0 ? __ldg(t + kAcSize + kZrlIndex) : 0;
+  const int zn0 = zc0 * zs;
+  const int zn1 = zc1 * zs;
+  // inclusive scan of both slots' lengths at once: 32 * 74 < 2**16, so
+  // the two sums never meet
+  const int t0 = zn0 + n0;
+  const int t1 = zn1 + n1;
+  int incl = t0 | (t1 << 16);
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int64_t o = __shfl_up_sync(kFullMask, v, d);
-    if (lane >= d) v += o;
+    const int x = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += x;
   }
-  if (lane == 31) warp_sums[warp] = v;
+  const int tot = __shfl_sync(kFullMask, incl, 31);
+  const int total0 = tot & 0xFFFF;
+  const int off0 = (incl & 0xFFFF) - t0;
+  const int off1 = total0 + (incl >> 16) - t1;
+
+  buf[lane] = 0u;
+  buf[lane + 32] = 0u;
+  __syncwarp();
+  if (zc0 != 0) place(buf, zrl_prefix(t, zc0, zs), zn0, off0);
+  place(buf, v0, n0, off0 + zn0);
+  if (zc1 != 0) place(buf, zrl_prefix(t, zc1, zs), zn1, off1);
+  place(buf, v1, n1, off1 + zn1);
+  __syncwarp();
+  out_row[lane] = buf[lane];
+  out_row[lane + 32] = buf[lane + 32];
+  if (lane == 0) *out_bits = total0 + (tot >> 16);
+}
+
+// Magnitude category: bit length of |v| (0 for v == 0).
+__device__ __forceinline__ int category(int v) {
+  return 32 - __clz(v < 0 ? -v : v);
+}
+
+// Code, then the s extra bits of v (v itself, or its one's complement
+// when negative): at most 16 + 11 bits, so 32-bit arithmetic holds them.
+__device__ __forceinline__ uint32_t code_and_extra(uint32_t code, int v,
+                                                   int s) {
+  const uint32_t extra =
+      static_cast<uint32_t>(v < 0 ? v - 1 : v) & ((1u << s) - 1u);
+  return (code << s) | extra;
+}
+
+// The type of an emission's body: the code and extra bits alone (custom
+// tables), or the whole emission with its ZRL prefix merged in (<= 59
+// bits, the fixed tables).
+template <bool kCustom>
+struct Body {
+  using type = uint64_t;
+};
+template <>
+struct Body<true> {
+  using type = uint32_t;
+};
+
+// Slot 0: the DC code and extra bits of diff = DC - predictor.
+template <typename V>
+__device__ __forceinline__ void dc_emission(int diff, const int32_t* t,
+                                            V& v, int& n) {
+  const int s = min(category(diff), kDcEntries - 1);
+  v = code_and_extra(static_cast<uint32_t>(__ldg(t + kDcCode + s)), diff, s);
+  n = __ldg(t + kDcSize + s) + s;
+}
+
+// Slot j in 1..63: the coefficient c at zigzag position j, `prev` the
+// position of the last nonzero coefficient before it (0 if none).  A
+// nonzero c emits one ZRL per 16 zeros of its run, then the (run & 15,
+// category) code and the extra bits (v, n); a zero emits nothing, except
+// EOB at position 63.  With custom tables the ZRLs are returned as their
+// count zc; with the fixed ones they are merged into v (zc = 0).
+template <bool kCustom>
+__device__ __forceinline__ void ac_emission(int c, int j, int prev,
+                                            const int32_t* t, int& zc,
+                                            typename Body<kCustom>::type& v,
+                                            int& n) {
+  zc = 0;
+  v = 0u;
+  n = 0;
+  if (c != 0) {
+    const int run = j - prev - 1;
+    const int rem = run & 15;
+    const int s = category(c);
+    const int idx = min(rem * 10 + s + (rem == 15 ? 1 : 0), kAcEntries - 1);
+    v = code_and_extra(static_cast<uint32_t>(__ldg(t + kAcCode + idx)), c, s);
+    n = __ldg(t + kAcSize + idx) + s;
+    if constexpr (kCustom) {
+      zc = run >> 4;  // rare: up to three ZRL codes go in front
+    } else if (run >= 16) {  // rare, and <= 3 x 11 + 27 bits in all
+      const int zs = __ldg(t + kAcSize + kZrlIndex);
+      v |= zrl_prefix(t, run >> 4, zs) << n;
+      n += (run >> 4) * zs;
+    }
+  } else if (j == kSlots - 1) {
+    v = static_cast<uint32_t>(__ldg(t + kAcCode + kEobIndex));
+    n = __ldg(t + kAcSize + kEobIndex);
+  }
+}
+
+// One block, by the whole warp: lane l holds the coefficients at zigzag
+// positions l (c0) and l + 32 (c1); dcp is the DC predictor (read in
+// lane 0), t the block's table set.  Writes the block's 64 words and its
+// bit count.
+template <bool kCustom>
+__device__ __forceinline__ void encode_block(int c0, int c1, int dcp,
+                                             const int32_t* t, uint32_t* buf,
+                                             int lane, uint64_t* out_row,
+                                             int32_t* out_bits) {
+  const uint32_t lanes_below = (1u << lane) - 1u;
+  // nonzero masks of zigzag positions 0..31 and 32..63; bit 0 (the DC)
+  // is always set, so "no nonzero AC before me" reads as position 0
+  const uint32_t nz_lo = __ballot_sync(kFullMask, c0 != 0) | 1u;
+  const uint32_t nz_hi = __ballot_sync(kFullMask, c1 != 0);
+  const uint32_t below_hi = nz_hi & lanes_below;
+  typename Body<kCustom>::type v0, v1;
+  int zc0, n0, zc1, n1;
+  if (lane == 0) {
+    zc0 = 0;
+    dc_emission(c0 - dcp, t, v0, n0);
+  } else {
+    ac_emission<kCustom>(c0, lane, 31 - __clz(nz_lo & lanes_below), t, zc0,
+                         v0, n0);
+  }
+  ac_emission<kCustom>(
+      c1, lane + 32,
+      below_hi != 0u ? 63 - __clz(below_hi) : 31 - __clz(nz_lo), t, zc1, v1,
+      n1);
+  pack_block(zc0, v0, n0, zc1, v1, n1, t, buf, lane, out_row, out_bits);
+}
+
+// One component of the batch: its quantized blocks [N, per_image, 64], its
+// table sets (one, or one an image), its outputs.
+struct Component {
+  const int32_t* q;
+  const int32_t* tables;
+  uint64_t* words;
+  int32_t* bits;
+  int per_image;   // blocks an image
+  int seg_blocks;  // blocks a restart segment; 0 for none
+  int warps;       // warps it takes: ceil(N * per_image / kBlocksPerWarp)
+};
+
+// One launch for the batch's three components.  A warp takes
+// kBlocksPerWarp consecutive blocks of one component, picked by branches
+// (a parameter array indexed at run time would be copied to local
+// memory).  Block b's DC predictor is block b - 1's DC in the same image
+// and component; 0 where a restart segment starts (every seg_blocks
+// blocks), and carry[n, comp] (or 0) at image n's first block.  The warp's
+// second block takes the first block's DC, which lane 0 already holds;
+// only the first block loads one more DC (4 bytes).  Every predictor and
+// table set is decided, and every load started, before any block is
+// coded.  The launcher keeps each component's blocks below 2**31, so the
+// indices are 32-bit.
+template <bool kCustom>
+__global__ void __launch_bounds__(kWarpsPerCta * 32)
+    encode_blocks_fused_first_kernel(Component y, Component cb, Component cr,
+                               const int32_t* __restrict__ carry, int nimages,
+                               int nsets) {
+  __shared__ uint32_t bufs[kWarpsPerCta][kWords];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int g = blockIdx.x * kWarpsPerCta + warp;
+  Component k = y;
+  int comp = 0;
+  if (g >= y.warps) {  // every test on g is warp-uniform
+    g -= y.warps;
+    k = cb;
+    comp = 1;
+    if (g >= cb.warps) {
+      g -= cb.warps;
+      k = cr;
+      comp = 2;
+      if (g >= cr.warps) return;  // whole warps leave together
+    }
+  }
+  const unsigned nblocks = static_cast<unsigned>(nimages) * k.per_image;
+  const unsigned b0 = static_cast<unsigned>(g) * kBlocksPerWarp;
+  // All loads of the warp's blocks are started before any is used: a block
+  // is only 256 bytes, and one block per warp keeps too few bytes in
+  // flight to cover the latency of device memory.
+  const int z0 = kZigzag[lane];
+  const int z1 = kZigzag[lane + 32];
+  int c0[kBlocksPerWarp], c1[kBlocksPerWarp], dcp[kBlocksPerWarp];
+  bool chained[kBlocksPerWarp];  // predictor: the previous block's DC
+  unsigned set[kBlocksPerWarp];
+  unsigned n = b0 / k.per_image;
+  unsigned at = b0 - n * k.per_image;  // the block's index in its image
+#pragma unroll
+  for (int i = 0; i < kBlocksPerWarp; ++i) {
+    const bool live = b0 + i < nblocks;
+    const unsigned b = live ? b0 + i : b0;  // tail: load a valid row
+    const int32_t* row = k.q + static_cast<size_t>(b) * kSlots;
+    c0[i] = __ldg(row + z0);
+    c1[i] = __ldg(row + z1);
+    const bool seg_start = k.seg_blocks > 0 && at % k.seg_blocks == 0;
+    chained[i] = i > 0 && at != 0 && !seg_start;
+    dcp[i] = 0;
+    if (live && !seg_start && at == 0 && carry != nullptr)
+      dcp[i] = __ldg(carry + n * 3 + comp);
+    else if (!seg_start && at != 0 && i == 0 && lane == 0)
+      dcp[i] = __ldg(row - kSlots);  // the block before the warp's first
+    set[i] = n;
+    if (++at == static_cast<unsigned>(k.per_image)) {
+      at = 0;
+      ++n;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kBlocksPerWarp; ++i) {
+    const unsigned b = b0 + i;
+    if (b >= nblocks) break;
+    // the previous block's DC is c0[i - 1] in lane 0
+    const int pred = chained[i] ? c0[i > 0 ? i - 1 : 0] : dcp[i];
+    const int32_t* t = k.tables;
+    if constexpr (kCustom) {
+      if (nsets > 1) t += set[i] * kSetEntries;
+    }
+    encode_block<kCustom>(c0[i], c1[i], pred, t, bufs[warp], lane,
+                          k.words + static_cast<size_t>(b) * kSlots,
+                          k.bits + b);
+  }
+}
+
+// kWarpsPerCta warps per CTA, `per_warp` blocks per warp; false when the
+// grid would not fit the launch limits.
+bool grid_for(long long nblocks, int per_warp, unsigned* grid) {
+  const long long per_cta = static_cast<long long>(kWarpsPerCta) * per_warp;
+  const long long g = (nblocks + per_cta - 1) / per_cta;
+  if (g > 0x7FFFFFFFll) return false;
+  *grid = static_cast<unsigned>(g);
+  return true;
+}
+
+}  // namespace fused_first
+
+namespace concat_first {
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kWords = 64;            // words a block holds
+constexpr int kThreads = 512;         // a thread block: one tile
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTileMcus = 2048;    // shared memory: 16 KB of offsets
+                                      // and 24 KB of bit counts at most
+constexpr int kStage = 32768;         // and up to 128 KB of words being
+                                      // assembled (maxw words if fewer)
+constexpr int kGroup = 2;             // blocks a thread starts at once
+constexpr int kAhead = 6;             // words of each block in flight
+constexpr int kNext = 2;              // MCUs of the next tile read early
+
+// Dynamic shared memory of a tile of tile_mcus MCUs and a stage of
+// stage_words words.
+constexpr size_t smem_bytes(long long tile_mcus, long long stage_words) {
+  return 8 * tile_mcus + 2 * ((6 * tile_mcus + 1) & ~1ll) + 4 * stage_words;
+}
+
+struct Comps {
+  const uint64_t* wy;
+  const uint64_t* wcb;
+  const uint64_t* wcr;
+  const int32_t* by;
+  const int32_t* bcb;
+  const int32_t* bcr;
+};
+
+// Bit counts of MCU m of image n, in stream order Y0..Y3, Cb, Cr (the Y
+// counts as one 16-byte load: the launcher checks their alignment).
+__device__ __forceinline__ void mcu_bits(const Comps& c, int64_t n,
+                                         int64_t nm, int64_t m, int32_t b[6]) {
+  const int4 y = __ldg(reinterpret_cast<const int4*>(c.by) + n * nm + m);
+  b[0] = y.x;
+  b[1] = y.y;
+  b[2] = y.z;
+  b[3] = y.w;
+  b[4] = __ldg(c.bcb + n * nm + m);
+  b[5] = __ldg(c.bcr + n * nm + m);
+}
+
+// Block j (stream order within the MCU) of MCU m: its 64 words.
+__device__ __forceinline__ const uint64_t* block_words(const Comps& c,
+                                                       int64_t n, int64_t nm,
+                                                       int64_t m, int j) {
+  if (j < 4) return c.wy + ((n * nm + m) * 4 + j) * kWords;
+  return (j == 4 ? c.wcb : c.wcr) + (n * nm + m) * kWords;
+}
+
+__device__ __forceinline__ int64_t ceil8(int64_t x) { return (x + 7) & ~7ll; }
+
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+__device__ __forceinline__ int64_t lmax(int64_t a, int64_t b) {
+  return a > b ? a : b;
+}
+
+// A run of MCUs as a map of the running bit offset x: x + a, or, when a
+// segment starts inside the run, ceil8(x + a) + c.
+struct Run {
+  int64_t a, c;
+  int bound;
+};
+
+// the empty run: x -> x
+__device__ __forceinline__ Run none() { return Run{0, 0, 0}; }
+
+// f, then g.  ceil8(ceil8(y) + d) = ceil8(y) + ceil8(d), so two runs with
+// segment starts compose into one.
+__device__ __forceinline__ Run then(Run f, Run g) {
+  if (!g.bound) {
+    if (f.bound)
+      f.c += g.a;
+    else
+      f.a += g.a;
+    return f;
+  }
+  if (!f.bound) return Run{f.a + g.a, g.c, 1};
+  return Run{f.a, ceil8(f.c + g.a) + g.c, 1};
+}
+
+__device__ __forceinline__ int64_t apply(Run f, int64_t x) {
+  return f.bound ? ceil8(x + f.a) + f.c : x + f.a;
+}
+
+__device__ __forceinline__ Run shfl_up(Run r, int d) {
+  return Run{__shfl_up_sync(kFullMask, r.a, d),
+             __shfl_up_sync(kFullMask, r.c, d),
+             __shfl_up_sync(kFullMask, r.bound, d)};
+}
+
+// Exclusive in-order scan of the threads' runs over the thread block;
+// *whole receives the run of all of them.  `sh` holds kWarps runs.
+__device__ __forceinline__ Run block_scan(Run r, Run* sh, Run* whole) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  Run incl = r;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Run o = shfl_up(incl, d);
+    if (lane >= d) incl = then(o, incl);
+  }
+  if (lane == 31) sh[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    int64_t w = warp_sums[lane];
+    Run w = lane < kWarps ? sh[lane] : none();
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int64_t o = __shfl_up_sync(kFullMask, w, d);
-      if (lane >= d) w += o;
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const Run o = shfl_up(w, d);
+      if (lane >= d) w = then(o, w);
     }
-    warp_sums[lane] = w;  // inclusive over warps
+    __syncwarp();
+    if (lane < kWarps) sh[lane] = w;  // inclusive over warps
   }
   __syncthreads();
-  const int64_t before = warp > 0 ? warp_sums[warp - 1] : 0;
-  *sum = warp_sums[31];
-  __syncthreads();  // warp_sums is reused by the next call
-  return before + v - x;
+  Run excl = shfl_up(incl, 1);
+  if (lane == 0) excl = none();
+  const Run before = warp > 0 ? sh[warp - 1] : none();
+  *whole = sh[kWarps - 1];
+  __syncthreads();  // sh may be reused
+  return then(before, excl);
+}
+
+// Bits [p, p + 32) of a block of nb > 0 bits at offset o, where the block
+// overlaps them (o < p + 32 and o + nb > p): its word i and the next one
+// funnel-shifted to the word's phase; the next is read only where the
+// block has bits there.
+__device__ __forceinline__ uint32_t piece(const uint64_t* w, int nb,
+                                          int64_t o, int64_t p) {
+  if (o >= p)
+    return static_cast<uint32_t>(__ldg(w)) >> static_cast<int>(o - p);
+  const int k = static_cast<int>(p - o);  // < nb
+  const int i = k >> 5;
+  const int r = k & 31;
+  const uint32_t hi = static_cast<uint32_t>(__ldg(w + i));
+  const uint32_t lo = r != 0 && 32 * (i + 1) < nb
+                          ? static_cast<uint32_t>(__ldg(w + i + 1))
+                          : 0u;
+  return __funnelshift_l(lo, hi, r);
+}
+
+// The bits [p, p + 32) that the blocks after the tile put there: the
+// tile's last word may reach into the next tiles' blocks, whose offsets
+// follow from s_next, the offset where MCU m1 starts (before its
+// segment's padding).  The bit counts of the next kNext MCUs are in nxt
+// (loaded early); a walk further loads them.
+__device__ uint32_t bits_past_tile(const Comps& c, int64_t n, int64_t nm,
+                                   int64_t ri, int64_t m1, int64_t s_next,
+                                   int64_t p, const int32_t (*nxt)[6]) {
+  uint32_t word = 0u;
+  int64_t o = s_next;
+  for (int64_t m = m1; m < nm && o < p + 32; ++m) {
+    if (ri > 0 && m % ri == 0) o = ceil8(o);
+    int32_t b[6];
+    if (m < m1 + kNext) {
+#pragma unroll
+      for (int j = 0; j < 6; ++j) b[j] = nxt[m - m1][j];
+    } else {
+      mcu_bits(c, n, nm, m, b);
+    }
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+      if (b[j] > 0 && o < p + 32 && o + b[j] > p)
+        word |= piece(block_words(c, n, nm, m, j), b[j], o, p);
+      o += b[j];
+    }
+  }
+  return word;
+}
+
+// What block i (stream order) of a tile puts into the stage's words [lo,
+// hi): its output words q + x for x in [x0, x1] (x0 > x1: none), where
+// output word q + x takes its words x (shifted right by r) and x - 1, and
+// the words [first, last] of its own that these need.
+struct Span {
+  const uint64_t* w;
+  int64_t q;
+  int r, nw, x0, x1, first, last;
+};
+
+__device__ __forceinline__ Span span_of(const Comps& c, int64_t n,
+                                        int64_t nm, int64_t m0,
+                                        int64_t tile_mcus, const int64_t* off,
+                                        const uint16_t* cnt, int i, int nblk,
+                                        int64_t lo, int64_t hi) {
+  Span sp = {nullptr, 0, 0, 0, 1, 0, 0, -1};
+  if (i >= nblk) return sp;
+  const int k = i / 6;
+  const int j = i - 6 * k;
+  const int nb = cnt[j * tile_mcus + k];
+  if (nb == 0) return sp;
+  int64_t o = off[k];
+  for (int jj = 0; jj < j; ++jj) o += cnt[jj * tile_mcus + k];
+  sp.q = o >> 5;
+  sp.r = static_cast<int>(o & 31);
+  sp.nw = (nb + 31) >> 5;
+  // the last output word only where the block's bits reach into it
+  const int64_t x0 = lmax(0, lo - sp.q);
+  const int64_t x1 = lmin(sp.r > 0 ? sp.nw : sp.nw - 1, hi - 1 - sp.q);
+  if (x0 > x1) return sp;
+  sp.x0 = static_cast<int>(x0);
+  sp.x1 = static_cast<int>(x1);
+  sp.first = sp.x0 > 0 ? sp.x0 - 1 : 0;
+  sp.last = min(sp.x1, sp.nw - 1);
+  sp.w = block_words(c, n, nm, m0 + k, j);
+  return sp;
+}
+
+// OR a block's output words into the stage.  ahead holds its words first,
+// first + 1, ...; each word taken is replaced by the one kAhead later.
+__device__ __forceinline__ void place_block(const Span& sp,
+                                            uint32_t (&ahead)[kAhead],
+                                            uint32_t* stage, int64_t lo) {
+  int y = sp.first;  // the word in ahead[0]
+  const auto take = [&]() {
+    const uint32_t v = ahead[0];
+#pragma unroll
+    for (int u = 0; u + 1 < kAhead; ++u) ahead[u] = ahead[u + 1];
+    ahead[kAhead - 1] = y + kAhead <= sp.last
+                            ? static_cast<uint32_t>(__ldg(sp.w + y + kAhead))
+                            : 0u;
+    ++y;
+    return v;
+  };
+  uint32_t prev = sp.x0 > 0 ? take() : 0u;
+  for (int x = sp.x0; x <= sp.x1; ++x) {
+    const uint32_t cur = x < sp.nw ? take() : 0u;
+    const uint32_t v =
+        sp.r == 0 ? cur : (cur >> sp.r) | (prev << (32 - sp.r));
+    if (v != 0u) atomicOr(stage + (sp.q + x - lo), v);
+    prev = cur;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-    concat_offsets_kernel(Comps c, int64_t nimages, int64_t nm, int64_t ri,
-                          int64_t nseg, int64_t maxw,
-                          int64_t* __restrict__ goff,
-                          int64_t* __restrict__ combined) {
-  __shared__ int64_t warp_sums[32];
-  const int64_t row = 1 + nseg + maxw;
-  if (blockIdx.x >= nimages) {  // one of the kZeroCtas: zero the streams
-    const int64_t stride = static_cast<int64_t>(kZeroCtas) * kThreads;
-    for (int64_t i = (blockIdx.x - nimages) * kThreads + threadIdx.x;
-         i < nimages * maxw; i += stride) {
-      const int64_t n = i / maxw;
-      combined[n * row + 1 + nseg + (i - n * maxw)] = 0;
+    concat_streams_first_kernel(Comps c, int64_t nimages, int64_t nm,
+                                int64_t ri, int64_t nseg, int64_t maxw,
+                                int64_t tile_mcus, int64_t ntiles,
+                                int64_t stage_words,
+                                int64_t* __restrict__ combined) {
+  // dynamic shared memory: the tile's MCU offsets, its bit counts (<=
+  // 2048; block j of MCU m at cnt[j * tile_mcus + m - m0]) and the stage
+  // of stage_words words that its words are assembled in
+  extern __shared__ int64_t dyn[];
+  int64_t* off = dyn;
+  uint16_t* cnt = reinterpret_cast<uint16_t*>(off + tile_mcus);
+  uint32_t* stage = reinterpret_cast<uint32_t*>(
+      cnt + ((6 * tile_mcus + 1) & ~1ll));
+  __shared__ Run sh[kWarps];
+  __shared__ int64_t marks[2];  // s_t, and the base of the open segment
+  // the bit counts of the next tile's first MCUs, for the tile's last word
+  __shared__ int32_t nxt[kNext][6];
+  // the image's last tile first: it writes the most words
+  const int64_t n = blockIdx.x % nimages;
+  const int64_t t = ntiles - 1 - blockIdx.x / nimages;
+  const int64_t m0 = t * tile_mcus;
+  const int64_t m1 = lmin(nm, m0 + tile_mcus);
+  const bool last = m1 == nm;
+  // the first MCU of the segment that holds m0
+  const int64_t open = ri > 0 ? m0 / ri * ri : m0;
+
+  // 1. the MCUs [0, m1): a contiguous run a thread, then the block's scan
+  const int64_t chunk = (m1 + kThreads - 1) / kThreads;
+  const int64_t c0 = lmin(m1, static_cast<int64_t>(threadIdx.x) * chunk);
+  const int64_t c1 = lmin(m1, c0 + chunk);
+  const int64_t phase0 = ri > 0 ? c0 % ri : 1;
+  Run mine = none();
+  {
+    int64_t phase = phase0;
+#pragma unroll 4
+    for (int64_t m = c0; m < c1; ++m) {
+      int32_t b[6];
+      mcu_bits(c, n, nm, m, b);
+      const int64_t mb = b[0] + b[1] + b[2] + b[3] + b[4] + b[5];
+      mine = then(mine, (m > 0 && phase == 0) ? Run{0, mb, 1}
+                                              : Run{mb, 0, 0});
+      if (ri > 0 && ++phase == ri) phase = 0;
     }
-    return;
   }
-  const int64_t n = blockIdx.x;
-  int64_t* out = combined + n * row;
-  unsigned long long* seg = reinterpret_cast<unsigned long long*>(out + 1);
-  for (int64_t i = threadIdx.x; i < nseg; i += kThreads) out[1 + i] = 0;
-  __syncthreads();
-  // the segments' bit counts: MCUs of one segment sit in neighbouring
-  // threads; a warp whose MCUs all lie in one segment adds once
-  if (ri > 0) {
-    for (int64_t m0 = 0; m0 < nm; m0 += kThreads) {
-      const int64_t m = m0 + threadIdx.x;
-      int32_t b[6] = {0, 0, 0, 0, 0, 0};
-      if (m < nm) mcu_bits(c, n, nm, m, b);
-      const int64_t s = m < nm ? m / ri : -1;
-      const unsigned sum =
-          static_cast<unsigned>(b[0] + b[1] + b[2] + b[3] + b[4] + b[5]);
-      if (__match_any_sync(kFullMask, s) == kFullMask) {  // warp-uniform
-        const unsigned total = __reduce_add_sync(kFullMask, sum);
-        if (s >= 0 && (threadIdx.x & 31) == 0 && total != 0u)
-          atomicAdd(seg + s, static_cast<unsigned long long>(total));
-      } else if (s >= 0 && sum != 0u) {
-        atomicAdd(seg + s, static_cast<unsigned long long>(sum));
+  // the walker, the last thread, takes the tile's last word; the counts
+  // it needs first are loaded now, beside the scan's
+  const bool walker = threadIdx.x == kThreads - 1 && !last;
+  if (walker)
+    for (int k = 0; k < kNext && m1 + k < nm; ++k)
+      mcu_bits(c, n, nm, m1 + k, nxt[k]);
+  Run whole;
+  const Run before = block_scan(mine, sh, &whole);
+  const int64_t s_next = apply(whole, 0);  // the offset where m1 starts
+
+  // 2. offsets: the value before MCU m0 (s_t), the base of the segment
+  // open at m0, and every tile MCU's first-block offset (after padding)
+  if (c1 > open) {
+    int64_t v = apply(before, 0);
+    int64_t phase = phase0;
+    for (int64_t m = c0; m < c1; ++m) {
+      int32_t b[6];
+      mcu_bits(c, n, nm, m, b);
+      if (m == m0) marks[0] = v;
+      if (m > 0 && phase == 0) v = ceil8(v);
+      if (m == open && m < m0) marks[1] = v;
+      if (m >= m0) {
+        off[m - m0] = v;
+#pragma unroll
+        for (int j = 0; j < 6; ++j)
+          cnt[j * tile_mcus + m - m0] = static_cast<uint16_t>(b[j]);
       }
+      v += b[0] + b[1] + b[2] + b[3] + b[4] + b[5];
+      if (ri > 0 && ++phase == ri) phase = 0;
     }
+  }
+  __syncthreads();
+  const int64_t s_t = marks[0];
+  int64_t* out = combined + n * (1 + nseg + maxw);
+  // the bit counts of the segments that end in this tile
+  if (ri > 0) {
+    for (int64_t s = m0 / ri + threadIdx.x; s <= (m1 - 1) / ri;
+         s += kThreads) {
+      const int64_t e = lmin((s + 1) * ri, nm) - 1;  // its last MCU
+      if (e >= m1) continue;
+      int64_t end = off[e - m0];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) end += cnt[j * tile_mcus + e - m0];
+      const int64_t start = s * ri;
+      out[1 + s] = end - (start >= m0 ? off[start - m0] : marks[1]);
+    }
+  }
+  if (last && threadIdx.x == 0) out[0] = ri > 0 ? ceil8(s_next) : s_next;
+
+  // 3. the tile's words [w0, w_data): the words that start in its bits,
+  // up to maxw, assembled stage_words at a time in shared memory (all at
+  // once unless the tile's words are many): a thread a
+  // block ORs the block's words, shifted to their phase, into the stage;
+  // the walker adds the bits of the next tiles' blocks in the tile's last
+  // word; then the stage leaves in coalesced plain stores.  The last tile
+  // then writes the zeros after the image's data.
+  int64_t* stream = out + 1 + nseg;
+  const int64_t w0 = (s_t + 31) >> 5;
+  const int64_t w_data = lmin(maxw, (s_next + 31) >> 5);
+  const int nblk = static_cast<int>(6 * (m1 - m0));
+  for (int64_t lo = w0; lo < w_data; lo += stage_words) {
+    const int64_t hi = lmin(lo + stage_words, w_data);
+    for (int i = threadIdx.x; i < hi - lo; i += kThreads) stage[i] = 0u;
+    __syncthreads();
+    uint32_t past = 0u;
+    if (walker && hi == w_data && (s_next & 31) != 0)
+      past = bits_past_tile(c, n, nm, ri, m1, s_next, (w_data - 1) << 5, nxt);
+    // kGroup blocks a thread, all their first kAhead words in flight
+    // before any is used, and each block's later words kAhead ahead
+    for (int i0 = threadIdx.x; i0 < nblk; i0 += kGroup * kThreads) {
+      Span sp[kGroup];
+      uint32_t ahead[kGroup][kAhead];
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        sp[g] = span_of(c, n, nm, m0, tile_mcus, off, cnt, i0 + g * kThreads,
+                        nblk, lo, hi);
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u)
+          ahead[g][u] = sp[g].first + u <= sp[g].last
+                            ? static_cast<uint32_t>(
+                                  __ldg(sp[g].w + sp[g].first + u))
+                            : 0u;
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g)
+        if (sp[g].x0 <= sp[g].x1)
+          place_block(sp[g], ahead[g], stage, lo);
+    }
+    if (past != 0u) atomicOr(stage + (w_data - 1 - lo), past);
+    __syncthreads();
+    for (int i = threadIdx.x; i < hi - lo; i += kThreads)
+      stream[lo + i] = stage[i];
     __syncthreads();
   }
-  // the offsets: one MCU a thread, in rounds of kThreads MCUs
-  int64_t carry = 0;
-  for (int64_t m0 = 0; m0 < nm; m0 += kThreads) {
-    const int64_t m = m0 + threadIdx.x;
-    int32_t b[6] = {0, 0, 0, 0, 0, 0};
-    int64_t pad = 0;
-    if (m < nm) {
-      mcu_bits(c, n, nm, m, b);
-      if (ri > 0 && m > 0 && m % ri == 0)
-        pad = pad_of(static_cast<int64_t>(__ldcg(seg + m / ri - 1)));
+  if (last) {  // the words after the image's data: 16-byte stores
+    int64_t w = lmax(w0, w_data);
+    if (w < maxw && (reinterpret_cast<uintptr_t>(stream + w) & 15) != 0) {
+      if (threadIdx.x == 0) stream[w] = 0;
+      ++w;
     }
-    const int64_t mbits = b[0] + b[1] + b[2] + b[3] + b[4] + b[5];
-    int64_t round_sum;
-    int64_t off = carry + block_scan(mbits + pad, warp_sums, &round_sum) + pad;
-    carry += round_sum;
-    if (m < nm) {
-      int64_t* g = goff + n * 6 * nm;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        g[4 * m + j] = off;
-        off += b[j];
-      }
-      g[4 * nm + m] = off;
-      g[5 * nm + m] = off + b[4];
-    }
-  }
-  if (threadIdx.x == 0)
-    out[0] = carry + (ri > 0 ? pad_of(static_cast<int64_t>(
-                                   __ldcg(seg + nseg - 1)))
-                             : 0);
-}
-
-// OR v into stream word w (< maxw); a plain store where the block owns the
-// word whole.
-__device__ __forceinline__ void put(uint64_t* stream, int64_t w, int64_t maxw,
-                                    uint32_t v, bool owned) {
-  if (v == 0u || w >= maxw) return;
-  if (owned)
-    stream[w] = v;
-  else
-    atomicOr(reinterpret_cast<unsigned long long*>(stream + w),
-             static_cast<unsigned long long>(v));
-}
-
-// Output word j of a block at bit phase r: its word j shifted right by r,
-// below the r low bits of its word j - 1.
-__device__ __forceinline__ uint32_t shifted(uint64_t cur, uint64_t prev,
-                                            int r) {
-  const uint32_t a = static_cast<uint32_t>(cur) >> r;
-  return r == 0 ? a : a | static_cast<uint32_t>(prev << (32 - r));
-}
-
-__global__ void __launch_bounds__(kScatterThreads)
-    concat_scatter_kernel(Comps c, int64_t nm, int64_t nseg, int64_t maxw,
-                          const int64_t* __restrict__ goff,
-                          int64_t* __restrict__ combined, int64_t nblocks) {
-  const int lane = threadIdx.x & 31;
-  const int64_t g =
-      static_cast<int64_t>(blockIdx.x) * kScatterThreads + threadIdx.x;
-  // this lane's block: its used words, offset, words and stream
-  int nw = 0;
-  int64_t off = 0;
-  const uint64_t* w = nullptr;
-  uint64_t* stream = nullptr;
-  if (g < nblocks) {
-    const int64_t per_image = 6 * nm;
-    const int64_t n = g / per_image;
-    int64_t i = g - n * per_image;
-    // the component by branches: a parameter array indexed at run time
-    // would be copied to local memory
-    const int32_t* bits = c.bits[0];
-    const uint64_t* words = c.words[0];
-    int64_t bc = 4 * nm;
-    if (i >= 5 * nm) {
-      bits = c.bits[2], words = c.words[2], i -= 5 * nm, bc = nm;
-    } else if (i >= 4 * nm) {
-      bits = c.bits[1], words = c.words[1], i -= 4 * nm, bc = nm;
-    }
-    const int nb = __ldg(bits + n * bc + i);
-    if (nb > 0) {
-      nw = min(kWords, (nb + 31) >> 5);
-      off = __ldg(goff + g);
-      w = words + (n * bc + i) * kWords;
-      stream = reinterpret_cast<uint64_t*>(combined + n * (1 + nseg + maxw) +
-                                           1 + nseg);
-    }
-  }
-  // The warp's 32 blocks' output words as one list: a block's nw words
-  // and its carry word, from `start` on (an exclusive scan over lanes).
-  const int count = nw > 0 ? nw + 1 : 0;
-  int start = count;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int o = __shfl_up_sync(kFullMask, start, d);
-    if (lane >= d) start += o;
-  }
-  const int total = __shfl_sync(kFullMask, start, 31);
-  start -= count;
-  const auto bcast = [](const void* p, int k) {
-    return __shfl_sync(kFullMask, reinterpret_cast<unsigned long long>(p), k);
-  };
-  for (int f0 = 0; f0 < total; f0 += 32 * kRounds) {
-    int j[kRounds], nwk[kRounds], r[kRounds];
-    int64_t q[kRounds];
-    uint64_t* dst[kRounds];
-    uint64_t cur[kRounds], prev[kRounds];
-#pragma unroll
-    for (int t = 0; t < kRounds; ++t) {
-      const int f = f0 + 32 * t + lane;
-      // the block of list entry f: the last lane whose words start at or
-      // before it (starts do not decrease; an empty block shares its start
-      // with the next block)
-      int k = 0;
-#pragma unroll
-      for (int step = 16; step > 0; step >>= 1)
-        if (__shfl_sync(kFullMask, start, k + step) <= f) k += step;
-      j[t] = f - __shfl_sync(kFullMask, start, k);
-      nwk[t] = __shfl_sync(kFullMask, nw, k);
-      const int64_t ok = __shfl_sync(kFullMask, off, k);
-      const uint64_t* wk = reinterpret_cast<const uint64_t*>(bcast(w, k));
-      dst[t] = reinterpret_cast<uint64_t*>(bcast(stream, k));
-      r[t] = static_cast<int>(ok & 31);
-      q[t] = ok >> 5;
-      if (f >= total) j[t] = -1;
-      cur[t] = j[t] >= 0 && j[t] < nwk[t] ? __ldg(wk + j[t]) : 0ull;
-      prev[t] = j[t] > 0 ? __ldg(wk + j[t] - 1) : 0ull;
-    }
-    // output word j of a block takes its words j and j - 1
-#pragma unroll
-    for (int t = 0; t < kRounds; ++t)
-      if (j[t] >= 0)
-        put(dst[t], q[t] + j[t], maxw, shifted(cur[t], prev[t], r[t]),
-            j[t] > 0 && j[t] < nwk[t] - 1);
+    longlong2* pairs = reinterpret_cast<longlong2*>(stream + w);
+    for (int64_t i = threadIdx.x; i < (maxw - w) >> 1; i += kThreads)
+      pairs[i] = make_longlong2(0, 0);
+    if (w < maxw && ((maxw - w) & 1) != 0 && threadIdx.x == 0)
+      stream[maxw - 1] = 0;
   }
 }
 
-}  // namespace two_pass
+
+}  // namespace concat_first
 
 namespace first_exact {
 
@@ -1077,64 +1512,86 @@ cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
 
 extern "C" {
 
-// tables [nsets, kSetEntries] int32.  custom != 0: the caller's tables,
-// with nsets > 1 block b takes set b / blocks_per_image; custom == 0: the
-// one fixed Annex K set (nsets must be 1).
-int jz_prev_encode_blocks(const void* q, const void* pred, const void* tables,
-                          int nsets, int custom, long long blocks_per_image,
-                          void* words, void* bits, long long nblocks,
-                          void* stream) {
-  if (nblocks <= 0) return 0;
-  if (nsets < 1 || (!custom && nsets != 1) ||
-      (nsets > 1 && (blocks_per_image <= 0 || nblocks > 0x7FFFFFFFll)))
+// The first fused entropy kernel, with the arguments of
+// jz_encode_blocks_batch but words [N, B_c, 64] uint64 (32-bit words
+// zero-extended).
+int jz_prev_encode_blocks_fused(
+    const void* yq, const void* cbq, const void* crq, const void* luma,
+    const void* chroma, int nsets, int custom, const void* carry, void* wy,
+    void* wcb, void* wcr, void* by, void* bcb, void* bcr, long long nimages,
+    long long luma_blocks, long long chroma_blocks, long long ri,
+    void* stream) {
+  using namespace fused_first;
+  if (nimages <= 0) return 0;
+  const long long most = 0x7FFFFFFFll;  // 32-bit block indices
+  if (luma_blocks <= 0 || chroma_blocks <= 0 || ri < 0 ||
+      nimages * luma_blocks > most || nimages * chroma_blocks > most ||
+      4 * ri > most || nsets < 1 || (!custom && nsets != 1) ||
+      (nsets > 1 && nsets != nimages))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long luma_warps =
+      (nimages * luma_blocks + kBlocksPerWarp - 1) / kBlocksPerWarp;
+  const long long chroma_warps =
+      (nimages * chroma_blocks + kBlocksPerWarp - 1) / kBlocksPerWarp;
   unsigned grid;
-  if (!grid_for(nblocks, kBlocksPerWarp, &grid))
+  if (!grid_for(luma_warps + 2 * chroma_warps, 1, &grid) ||
+      luma_warps + 2 * chroma_warps > most)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  auto kernel =
-      custom ? encode_blocks_kernel<true> : encode_blocks_kernel<false>;
+  const auto comp = [](const void* q, const void* t, void* w, void* b,
+                       long long per_image, long long seg_blocks,
+                       long long warps) {
+    return Component{static_cast<const int32_t*>(q),
+                     static_cast<const int32_t*>(t), static_cast<uint64_t*>(w),
+                     static_cast<int32_t*>(b), static_cast<int>(per_image),
+                     static_cast<int>(seg_blocks), static_cast<int>(warps)};
+  };
+  const Component y = comp(yq, luma, wy, by, luma_blocks, 4 * ri, luma_warps);
+  const Component cb =
+      comp(cbq, chroma, wcb, bcb, chroma_blocks, ri, chroma_warps);
+  const Component cr =
+      comp(crq, chroma, wcr, bcr, chroma_blocks, ri, chroma_warps);
+  auto kernel = custom ? encode_blocks_fused_first_kernel<true>
+                       : encode_blocks_fused_first_kernel<false>;
   kernel<<<grid, kWarpsPerCta * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(q), static_cast<const int32_t*>(pred),
-      static_cast<const int32_t*>(tables), nsets, blocks_per_image,
-      static_cast<uint64_t*>(words), static_cast<int32_t*>(bits), nblocks);
+      y, cb, cr, static_cast<const int32_t*>(carry),
+      static_cast<int>(nimages), nsets);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches both passes on `stream` and returns cudaGetLastError().  goff
-// [N, 6 nm] int64 scratch and combined [N, 1 + nseg + maxw] int64 are
-// written whole.
+// The concat with 64-bit word loads, with the arguments of
+// jz_concat_streams but words [N, B_c, 64] uint64 (the low 32 bits used).
 int jz_prev_concat_streams(const void* wy, const void* wcb, const void* wcr,
                            const void* by, const void* bcb, const void* bcr,
-                           void* goff, void* combined, long long nimages,
-                           long long nm, long long ri, long long nseg,
-                           long long maxw, void* stream) {
-  using namespace two_pass;
+                           void* combined, long long nimages, long long nm,
+                           long long ri, long long nseg, long long maxw,
+                           long long tile_mcus, long long ntiles,
+                           void* stream) {
+  using namespace concat_first;
   if (nimages <= 0) return 0;
-  if (nm <= 0 || ri < 0 || maxw <= 0 || nimages > 0x7FFFFFFFll ||
-      nseg != (ri > 0 ? (nm + ri - 1) / ri : 0))
+  if (nm <= 0 || ri < 0 || maxw <= 0 ||
+      nseg != (ri > 0 ? (nm + ri - 1) / ri : 0) || tile_mcus <= 0 ||
+      tile_mcus > kMaxTileMcus || ntiles <= 0 || ntiles * tile_mcus < nm ||
+      (ntiles - 1) * tile_mcus >= nm ||
+      reinterpret_cast<uintptr_t>(by) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long nblocks = nimages * 6 * nm;
-  const long long grid2 = (nblocks + kScatterThreads - 1) / kScatterThreads;
-  if (grid2 > 0x7FFFFFFFll || nimages + kZeroCtas > 0x7FFFFFFFll)
+  if (nimages * ntiles > 0x7FFFFFFFll)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  two_pass::Comps c;
-  c.words[0] = static_cast<const uint64_t*>(wy);
-  c.words[1] = static_cast<const uint64_t*>(wcb);
-  c.words[2] = static_cast<const uint64_t*>(wcr);
-  c.bits[0] = static_cast<const int32_t*>(by);
-  c.bits[1] = static_cast<const int32_t*>(bcb);
-  c.bits[2] = static_cast<const int32_t*>(bcr);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  concat_offsets_kernel<<<static_cast<unsigned>(nimages + kZeroCtas),
-                          two_pass::kThreads, 0, s>>>(
-      c, nimages, nm, ri, nseg, maxw, static_cast<int64_t*>(goff),
+  const Comps c = {static_cast<const uint64_t*>(wy),
+                   static_cast<const uint64_t*>(wcb),
+                   static_cast<const uint64_t*>(wcr),
+                   static_cast<const int32_t*>(by),
+                   static_cast<const int32_t*>(bcb),
+                   static_cast<const int32_t*>(bcr)};
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      concat_streams_first_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(kMaxTileMcus, kStage)));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long stage_words = maxw < kStage ? maxw : kStage;
+  concat_streams_first_kernel<<<static_cast<unsigned>(nimages * ntiles),
+                                kThreads, smem_bytes(tile_mcus, stage_words),
+                                static_cast<cudaStream_t>(stream)>>>(
+      c, nimages, nm, ri, nseg, maxw, tile_mcus, ntiles, stage_words,
       static_cast<int64_t*>(combined));
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  concat_scatter_kernel<<<static_cast<unsigned>(grid2), kScatterThreads, 0,
-                          s>>>(c, nm, nseg, maxw,
-                               static_cast<const int64_t*>(goff),
-                               static_cast<int64_t*>(combined), nblocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1268,38 +1725,54 @@ int jz_prev_idct_planes_overflow(const long long* desc, const void* src,
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the card reports for kernel `which` (0: the per-component fused
-// kernel, fixed tables; 1: the concat's pass 1; 2: its pass 2; 3: the
-// first exact forward, int8 samples; 4: the first exact inverse, int16
-// coefficients; 5: the first fast rgb IDCT, int16 coefficients; 6: the
+// What the card reports for kernel `which` (0: the first fused entropy
+// kernel, fixed tables; 1: the concat with 64-bit loads at the main path's
+// shape, tiles of 128 MCUs and a budget of 12,288 words; 2: the first
+// exact forward, int8 samples; 3: the first exact inverse, int16
+// coefficients; 4: the first fast rgb IDCT, int16 coefficients; 5: the
 // first overflow launch of the ycc420 IDCT), as jz_entropy_kernel_info
 // reports it.
 int jz_prev_kernel_info(int which, int* info) {
   switch (which) {
     case 0:
-      return kernel_info(encode_blocks_kernel<false>, kWarpsPerCta * 32,
-                         info);
-    case 1:
-      return kernel_info(two_pass::concat_offsets_kernel,
-                         two_pass::kThreads, info);
+      return kernel_info(fused_first::encode_blocks_fused_first_kernel<false>,
+                         fused_first::kWarpsPerCta * 32, info);
+    case 1: {
+      using namespace concat_first;
+      cudaFuncAttributes attr;
+      cudaError_t e = cudaFuncGetAttributes(&attr, concat_streams_first_kernel);
+      int per_sm = 0;
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, concat_streams_first_kernel, kThreads,
+            smem_bytes(128, 12288));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      info[0] = attr.numRegs;
+      info[1] = per_sm;
+      info[2] = static_cast<int>(attr.sharedSizeBytes + smem_bytes(128, 12288));
+      info[3] = static_cast<int>(attr.localSizeBytes);
+      info[4] = kThreads;
+      return 0;
+    }
     case 2:
-      return kernel_info(two_pass::concat_scatter_kernel,
-                         two_pass::kScatterThreads, info);
-    case 3:
       return first_exact::kernel_info(
           first_exact::fdct_exact_first_kernel<int8_t>, info);
-    case 4:
+    case 3:
       return first_exact::kernel_info(
           first_exact::idct_exact_first_kernel<int16_t>, info);
-    case 5:
+    case 4:
       return first_exact::kernel_info(
           first_exact::idct_rgb_first_kernel<int16_t>, info);
-    case 6:
+    case 5:
       return kernel_info(first_overflow::idct_overflow_first_kernel,
                          first_overflow::kIdctThreads, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+const char* jz_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

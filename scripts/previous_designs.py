@@ -3,17 +3,16 @@ scripts/previous_designs.cu with the package's loader, so that
 chip_smoke.py times them beside the current kernels in one run, on the
 same inputs and the same card.  Nothing in the package calls them.
 
-  encode_stage       the entropy stage as torch_codec._emit_local ran it
-                     before the kernel found the predictors: per
-                     component the plain torch predictor chain
-                     (entropy.dc_predictors_restart on the card), then one
-                     launch of the per-component fused kernel; three
-                     launches and the chains' events a batch.
-  concat_two_pass    the stream concat's two-pass design: a scan of the
-                     bit counts, one thread block an image, into an
-                     offsets scratch [N, 6 nm] (and thread blocks that zero
-                     the streams), then a scatter of the used words with
-                     atomicOr on shared words; two launches a call.
+  encode_blocks_fused_first
+                     the first design of the fused entropy kernel, with
+                     the arguments of pack_cuda.encode_blocks_batch_cuda:
+                     a warp 2 blocks in registers, gathered by 4-byte
+                     loads, tables read through the read-only cache, and
+                     the words stored zero-extended, int64 [N, B_c, 64].
+  concat_streams_first
+                     the stream concat as it read those words, with the
+                     arguments of concat_cuda.concat_streams_cuda but int64
+                     words: 64-bit word loads.
   fdct_quantize_exact_first, idct_planes_exact_first
                      exact mode's first float64 kernels, with the
                      arguments and results of exact_cuda's
@@ -48,26 +47,25 @@ import torch
 import numpy as np
 
 from jpezy_tpu_torch.constants import EXACT_TABLES
-from jpezy_tpu_torch.ops import entropy as E
-from jpezy_tpu_torch.ops import exact_cuda
+from jpezy_tpu_torch.ops import concat_cuda, exact_cuda
 from jpezy_tpu_torch.ops.cuda_build import KernelLibrary
 from jpezy_tpu_torch.ops.pack_cuda import annex_k_row
 from jpezy_tpu_torch.ops import transform_cuda
 from jpezy_tpu_torch.ops.transform_cuda import _inverse_basis_t
 
-KERNEL_INFO = ("encode_blocks per component", "concat_streams pass 1",
-               "concat_streams pass 2", "fdct_quantize_exact first int8",
+KERNEL_INFO = ("encode_blocks fused first", "concat_streams 64-bit loads",
+               "fdct_quantize_exact first int8",
                "idct_planes_exact first int16", "idct_planes_rgb first int16",
                "idct_planes overflow first")
 
 
 def _bind(lib) -> None:
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.jz_prev_encode_blocks.restype = ci
-    lib.jz_prev_encode_blocks.argtypes = [vp, vp, vp, ci, ci, ll, vp, vp, ll,
-                                          vp]
+    lib.jz_prev_encode_blocks_fused.restype = ci
+    lib.jz_prev_encode_blocks_fused.argtypes = [vp] * 5 + [ci, ci] + [
+        vp] * 7 + [ll] * 4 + [vp]
     lib.jz_prev_concat_streams.restype = ci
-    lib.jz_prev_concat_streams.argtypes = [vp] * 8 + [ll] * 5 + [vp]
+    lib.jz_prev_concat_streams.argtypes = [vp] * 7 + [ll] * 7 + [vp]
     lib.jz_prev_fdct_quantize_exact.restype = ci
     lib.jz_prev_fdct_quantize_exact.argtypes = [ci] + [vp] * 11
     lib.jz_prev_idct_planes_exact.restype = ci
@@ -96,47 +94,54 @@ def kernel_info() -> dict:
     return out
 
 
-def encode_stage(yq, cbq, crq, restart_interval: int = 0):
-    """(words, bits) per component of the batch's quantized blocks [N,
-    B_c, 64] int32 on the card, with the fixed tables, as the encode
-    program made them before the batched kernel."""
+def encode_blocks_fused_first(yq, cbq, crq, *, restart_interval: int = 0,
+                              carry=None, tables=None):
+    """pack_cuda.encode_blocks_batch_cuda's (words, bits) from the first
+    fused design: the same arguments, words int64 [N, B_c, 64] in [0,
+    2**32)."""
     lib = LIB.get()
-    words, bits = [], []
-    for q, chroma, bpm in ((yq, False, 4), (cbq, True, 1), (crq, True, 1)):
-        n, b, _ = q.shape
-        pred = E.dc_predictors_restart(q[:, :, 0], restart_interval * bpm)
-        pred = pred.reshape(-1).to(torch.int32).contiguous()
-        qc = q.reshape(-1, 64).contiguous()
-        w = torch.empty((n * b, 64), dtype=torch.int64, device=q.device)
-        bt = torch.empty((n * b,), dtype=torch.int32, device=q.device)
-        rc = lib.jz_prev_encode_blocks(
-            qc.data_ptr(), pred.data_ptr(),
-            annex_k_row(q.device, chroma).data_ptr(), 1, 0, 0, w.data_ptr(),
-            bt.data_ptr(), n * b, torch.cuda.current_stream().cuda_stream)
-        LIB.raise_on("prev_encode_blocks", rc)
-        words.append(w.reshape(n, b, 64))
-        bits.append(bt.reshape(n, b))
-    return tuple(words), tuple(bits)
+    N = yq.shape[0]
+    custom = tables is not None
+    rows = tables if custom else (annex_k_row(yq.device, False),
+                                  annex_k_row(yq.device, True))
+    qs = [t.contiguous() for t in (yq, cbq, crq)]
+    rs = [r.contiguous() for r in rows]
+    cc = None if carry is None else carry.contiguous()
+    outs = [(torch.empty((N, q.shape[1], 64), dtype=torch.int64,
+                         device=yq.device),
+             torch.empty((N, q.shape[1]), dtype=torch.int32,
+                         device=yq.device)) for q in qs]
+    rc = lib.jz_prev_encode_blocks_fused(
+        *(t.data_ptr() for t in qs + rs), rows[0].shape[0], int(custom),
+        None if cc is None else cc.data_ptr(),
+        *(w.data_ptr() for w, _ in outs), *(b.data_ptr() for _, b in outs),
+        N, yq.shape[1], cbq.shape[1], restart_interval,
+        torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_encode_blocks_fused", rc)
+    return tuple(w for w, _ in outs), tuple(b for _, b in outs)
 
 
-def concat_two_pass(words, bits, *, maxw: int, restart_interval: int = 0):
-    """combined [N, 1 + S + maxw] int64 of the two-pass design, from the
-    per-component (words, bits) that encode_stage or the current kernel
-    returns."""
+def concat_streams_first(words, bits, *, maxw: int,
+                         restart_interval: int = 0):
+    """combined [N, 1 + S + maxw] int64 of the concat with 64-bit word
+    loads, from int64 words (encode_blocks_fused_first's, or
+    entropy.words64 of the current kernel's)."""
     lib = LIB.get()
+    if any(w.dtype != torch.int64 for w in words):
+        raise ValueError("concat_streams_first: words must be int64")
     N, nm = bits[1].shape
     ri = restart_interval
     nseg = -(-nm // ri) if ri else 0
-    dev = words[0].device
+    ntiles, tile_mcus = concat_cuda.tile_layout(nm)
     ws = [w.contiguous() for w in words]
     bs = [b.to(torch.int32).contiguous() for b in bits]
-    goff = torch.empty((N, 6 * nm), dtype=torch.int64, device=dev)
+    if bs[0].data_ptr() % 16:
+        bs[0] = bs[0].clone()
     combined = torch.empty((N, 1 + nseg + maxw), dtype=torch.int64,
-                           device=dev)
+                           device=words[0].device)
     rc = lib.jz_prev_concat_streams(
-        *(t.data_ptr() for t in ws + bs), goff.data_ptr(),
-        combined.data_ptr(), N, nm, ri, nseg, maxw,
-        torch.cuda.current_stream().cuda_stream)
+        *(t.data_ptr() for t in ws + bs), combined.data_ptr(), N, nm, ri,
+        nseg, maxw, tile_mcus, ntiles, torch.cuda.current_stream().cuda_stream)
     LIB.raise_on("prev_concat_streams", rc)
     return combined
 

@@ -339,9 +339,12 @@ def test_overflow_takes_the_host_splice(ri):
     assert got == want
 
 
-def _concat_args(dtype=torch.int64, bits_dtype=torch.int32):
+def _concat_args(words64=False, bits_dtype=torch.int32):
+    """The concat wrapper's arguments on the CPU: int32 words (the 32-bit
+    patterns the entropy kernel writes, the layout the wrapper takes) or
+    with words64 the plain forms' int64 values, which it refuses."""
     wc, bc = TE.stream_blocks(1, 4, seed=3)
-    return (tuple(w.to(dtype) for w in wc),
+    return (tuple(w if words64 else TE.words32(w) for w in wc),
             tuple(b.to(bits_dtype) for b in bc))
 
 
@@ -350,7 +353,7 @@ def _concat_args(dtype=torch.int64, bits_dtype=torch.int32):
 def test_concat_wrapper_refuses_before_building(case):
     wc, bc = _concat_args()
     if case == "words dtype":
-        wc, bc = _concat_args(dtype=torch.int32)
+        wc, bc = _concat_args(words64=True)
     elif case == "bits dtype":
         wc, bc = _concat_args(bits_dtype=torch.int64)
     elif case == "bits rank":

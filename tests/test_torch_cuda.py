@@ -88,22 +88,31 @@ def test_fused_kernel_matches_plain(cuda):
     for q, _ in blocks:
         k = max(1, q.shape[0] // 4)
         comps = (q[None], q[None, :k], q[None, -k:])
-        wk, bk = pack_cuda.encode_blocks_batch_cuda(*comps)
-        wp, bp = TE.encode_blocks_batch_plain(*(c.cpu() for c in comps))
+        got = pack_cuda.encode_blocks_batch_cuda(*comps)
+        want = TE.encode_blocks_batch_plain(*(c.cpu() for c in comps))
         torch.cuda.synchronize()
-        for a, b in zip(wk + bk, wp + bp):
-            assert torch.equal(a.cpu(), b)
-        assert all(w.dtype == torch.int64 for w in wk)
+        _assert_encoded(got, want)
     assert pack_cuda.encode_launches - before[1] == len(blocks)
     assert pack_cuda.launches == before[0]
+
+
+def _assert_encoded(got, want, label=None):
+    """The kernel's (words, bits) equal the plain form's: its int32 words
+    read as 32-bit patterns (entropy.words64), its bits as they are."""
+    assert all(w.dtype == torch.int32 for w in got[0]), label
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(TE.words64(a.cpu()), b.cpu()), label
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a.cpu(), b.cpu()), label
 
 
 def _batch_cases(dev):
     """(label, (yq, cbq, crq), restart_interval, carry) of the batched
     entropy kernel: the real components with restart intervals 0, 1 and
-    8 (a segment shorter than a warp's blocks, and longer), a carry, and
-    images whose odd chroma block counts put a warp's two blocks in two
-    images."""
+    8 (a segment shorter than a run of 32 blocks, and longer), a carry,
+    and images of 7 and 3 blocks a component, so that one run of 32
+    blocks crosses several images (and with the carry, several carries
+    inside a run)."""
     q, _, _ = _optimize_inputs(dev)
     rng = np.random.default_rng(173)
     carry = torch.from_numpy(rng.integers(-1000, 1000, (3, 3)).astype(
@@ -112,9 +121,12 @@ def _batch_cases(dev):
     n = edge.shape[0] // 13
     blk = edge[:n * 13].reshape(n, 13, 64)
     odd = (blk[:, :7], blk[:, 7:10], blk[:, 10:])
+    odd_carry = torch.from_numpy(rng.integers(-1000, 1000, (n, 3)).astype(
+        np.int32)).to(dev)
     return ([(f"real ri={ri}", q, ri, None) for ri in (0, 1, 8)]
             + [("real, carry", q, 0, carry), ("real, carry ri=1", q, 1, carry),
-               ("odd", odd, 0, None), ("odd ri=1", odd, 1, None)])
+               ("odd", odd, 0, None), ("odd ri=1", odd, 1, None),
+               ("odd, carry", odd, 0, odd_carry)])
 
 
 def test_fused_kernel_dispatch_predictors_and_tables(cuda):
@@ -135,9 +147,8 @@ def test_fused_kernel_dispatch_predictors_and_tables(cuda):
             None if carry is None else carry.cpu())
         torch.cuda.synchronize()
         assert pack_cuda.encode_launches - before == 2, label
-        for a, b, c in zip(got[0] + got[1], as_custom[0] + as_custom[1],
-                           want[0] + want[1]):
-            assert torch.equal(a.cpu(), c) and torch.equal(b.cpu(), c), label
+        _assert_encoded(got, want, label)
+        _assert_encoded(as_custom, want, label)
     q = _batch_cases(cuda)[0][1]
     before = pack_cuda.encode_launches
     empty_w, empty_b = pack_cuda.encode_blocks_batch_cuda(*(c[:0] for c in q))
@@ -159,8 +170,7 @@ def test_fused_and_concat_kernels_4k(cuda):
         wc, bc = TC._emit_local(*q, ri)
         wp, bp = TE.encode_blocks_batch_plain(*(c.cpu() for c in q), ri)
         torch.cuda.synchronize()
-        for a, b in zip(wc + bc, wp + bp):
-            assert torch.equal(a.cpu(), b), ri
+        _assert_encoded((wc, bc), (wp, bp), ri)
         got, _, _ = TC._concat_batch_combined_comp(wc, bc, ri)
         maxw = got.shape[1] - 1 - (-(-q[1].shape[1] // ri) if ri else 0)
         want = TE.concat_streams_plain(wp, bp, ri, maxw)
@@ -560,9 +570,10 @@ def _concat_in_tiles(wc, bc, ri, maxw, tile):
     nseg = -(-nm // ri) if ri else 0
     out = torch.empty((N, 1 + nseg + maxw), dtype=torch.int64,
                       device=bc[1].device)
+    words = tuple(w if w.dtype == torch.int32 else TE.words32(w) for w in wc)
     rc = concat_cuda.LIB.get().jz_concat_streams(
-        *(t.contiguous().data_ptr() for t in wc + bc), out.data_ptr(), N, nm,
-        ri, nseg, maxw, tile, -(-nm // tile),
+        *(t.contiguous().data_ptr() for t in words + bc), out.data_ptr(), N,
+        nm, ri, nseg, maxw, tile, -(-nm // tile),
         torch.cuda.current_stream().cuda_stream)
     concat_cuda.LIB.raise_on("concat_streams", rc)
     return out
@@ -585,7 +596,7 @@ def test_concat_kernel_matches_plain(cuda):
             got = _concat_in_tiles(wc, bc, ri, maxw or (
                 TC.stream_budget_words_batch(6 * bc[1].shape[1])), tile)
         m = got.shape[1] - 1 - (-(-bc[1].shape[1] // ri) if ri else 0)
-        want = TE.concat_streams_plain(tuple(w.cpu() for w in wc),
+        want = TE.concat_streams_plain(tuple(TE.words64(w.cpu()) for w in wc),
                                        tuple(b.cpu() for b in bc), ri, m)
         torch.cuda.synchronize()
         assert got.dtype == torch.int64, label
@@ -599,7 +610,7 @@ def test_concat_kernel_refuses_shapes(cuda):
     from jpezy_tpu_torch.ops import concat_cuda
 
     wc, bc = TE.stream_blocks(2, 4, seed=6)
-    wc = tuple(w.to(cuda) for w in wc)
+    wc = tuple(TE.words32(w).to(cuda) for w in wc)
     bc = tuple(b.to(cuda) for b in bc)
     for w, b in (((wc[0][:, :15],) + wc[1:], bc),
                  (wc, (bc[0], bc[1], bc[2][:1])),
@@ -622,8 +633,7 @@ def test_fused_kernel_per_image_tables(cuda):
         wp, bp = TE.encode_blocks_batch_plain(*(c.cpu() for c in q), ri,
                                               tables=(ytabs, ctabs))
         torch.cuda.synchronize()
-        for a, b in zip(wk + bk, wp + bp):
-            assert torch.equal(a.cpu(), b), ri
+        _assert_encoded((wk, bk), (wp, bp), ri)
         for i in range(q[0].shape[0]):
             one = tuple(tuple(t[i] for t in tabs) for tabs in (ytabs, ctabs))
             wi, bi = TE.encode_blocks_batch(*(c[i:i + 1] for c in q), ri,
@@ -636,12 +646,45 @@ def test_fused_kernel_per_image_tables(cuda):
     wk, bk = TE.encode_blocks_batch(*comps, tables=(flat_tabs, flat_tabs))
     wp, bp = TE.encode_blocks_batch_plain(*(c.cpu() for c in comps),
                                           tables=(flat_tabs, flat_tabs))
-    for a, b in zip(wk + bk, wp + bp):
-        assert torch.equal(a.cpu(), b)
+    _assert_encoded((wk, bk), (wp, bp))
     _, _, nbits = TE.block_emissions(longq.cpu(),
                                      TE.dc_predictors(longq[:, 0].cpu()),
                                      False, flat_tabs)
     assert int(nbits.max()) == 74
+
+
+def test_fused_kernel_sixteen_sets_and_runs_across_images(cuda):
+    """16 images of 48x48 (36 luma blocks, 9 chroma): with a table set an
+    image the luma runs of 32 blocks cross two images and stage both
+    sets (testing/encode_runs.schedule says which), the chroma runs are
+    one image's; with the fixed tables every run crosses images.  The
+    kernel equals the plain form and the schedule's model, with and
+    without restarts."""
+    from imagegen import make_test_image
+
+    from jpezy_tpu_torch.testing import encode_runs as ER
+
+    rgbs = np.stack([make_test_image(48, 48, seed=190 + i)
+                     for i in range(16)])
+    y, cb, cr = HG.host_rgb_to_ycc420(rgbs)
+    q = TC._quantize_local_ycc(*(torch.from_numpy(a).to(cuda)
+                                 for a in (y, cb, cr)),
+                               gray=False, dtype=torch.float32, rounded=False)
+    hists = TC._symbol_histograms_batch(*(t.cpu() for t in q)).numpy()
+    _, ytabs, ctabs = TC._optimal_tables(hists)
+    runs = ER.schedule(16, q[0].shape[1], q[1].shape[1], 0, 16)
+    assert sum(len(u.staged) == 2 for u in runs) > 0
+    for tabs in ((None, None), (ytabs, ctabs)):
+        for ri in (0, 1, 2):
+            got = TE.encode_blocks_batch(*q, ri, tables=tabs)
+            qc = [c.cpu() for c in q]
+            want = TE.encode_blocks_batch_plain(*qc, ri, tables=tabs)
+            torch.cuda.synchronize()
+            _assert_encoded(got, want, (tabs[0] is None, ri))
+            model = ER.encode(*qc, ri, tables=tabs)
+            assert all(np.array_equal(m, w.numpy())
+                       for m, w in zip(model[0] + model[1],
+                                       want[0] + want[1]))
 
 
 def test_optimize_and_rgb_on_card_match_cpu(cuda):

@@ -270,12 +270,12 @@ class TestCudaWrappersOnCpu:
     bit-pattern view, and the kernel source's tables."""
 
     def test_low32_keeps_bit_patterns(self):
-        from jpezy_tpu_torch.ops import pack_cuda
-
+        """entropy.words32, which the pack's wrapper hands its halves
+        through."""
         rng = np.random.default_rng(63)
         x = rng.integers(0, 2**32, (5, 64), dtype=np.int64)
         x[0, :4] = [0, 2**31 - 1, 2**31, 2**32 - 1]
-        got = pack_cuda._low32(_t(x)).numpy()
+        got = TE.words32(_t(x)).numpy()
         assert got.dtype == np.int32
         assert np.array_equal(got.view(np.uint32), x.astype(np.uint32))
 
