@@ -31,8 +31,9 @@ any failure exits nonzero.  In the order they run:
      dequantize+IDCT-to-planes kernels and the rgb transport's fast
      IDCT-to-planes, exact_transforms.cu; the rgb transport's colour
      kernels, colour.cu; the designs the entropy kernel, the concat,
-     exact mode's two kernels, the fast rgb IDCT and the ycc420 IDCT's
-     overflow launch replaced, scripts/previous_designs.cu, and
+     exact mode's two kernels, the fast rgb IDCT, the ycc420 IDCT's
+     overflow launch and the fDCT replaced, scripts/previous_designs.cu,
+     and
      the float64 chains of scripts/fp64_ceiling.cu, for phase 6) and
      prints what
      ptxas reports for each kernel (a template's instantiations under one
@@ -41,7 +42,9 @@ any failure exits nonzero.  In the order they run:
      instructions (cuobjdump), and in the exact kernels, the three rgb
      kernels and the three kernels of idct_planes (sparse, overflow and
      dense launches) FFMA, DFMA, FMUL, FADD, DMUL and DADD: an FFMA or DFMA
-     (a contracted multiply-add) fails the run;
+     (a contracted multiply-add) fails the run; and the fDCT kernel's IMMA
+     and FMUL: no IMMA (its products off the int8 tensor cores) fails the
+     run;
   3. the pack kernels against their plain torch versions: the pack alone
      per component on the real 16x512x512 blocks, on seeded worst-case
      blocks and on the edge-case blocks; the batched entropy kernel (one
@@ -159,10 +162,18 @@ any failure exits nonzero.  In the order they run:
      counted call (one launch) each; the concat with 64-bit loads that
      phase 6 times beside it gives the same combined;
   14. the block transforms against their plain versions and the numpy
-     models of the kernels' arithmetic order (ops/block_transform.py):
+     models of the kernels' arithmetic (ops/block_transform.py):
      fdct_quantize on the main batch's ycc420 int8 planes at Annex K,
      quality 95, rounded and gray, on the rgb path's int32 planes (chroma
-     at column stride 2) and on noise; idct_planes' sparse form on the
+     at column stride 2), on noise and on the extreme blocks of
+     testing/fdct_int (each digit's sum and each coefficient at its
+     largest, Annex K and rounded) and with quant tables holding divisors
+     of 2^21 or more (the quantizer's reciprocals alone, past where
+     div_exact's guard would matter), against the
+     model of its integer form
+     (integer_forward), and its first design (PR 9's,
+     previous_designs.fdct_quantize_first) on the same sets against the
+     model of its separable float32 form; idct_planes' sparse form on the
      uploads of the main and restart batches, of the main batch's images
      at quality 95, of 4 noise images at quality 100 (overflow rows), of
      16x16, 48x16 and 48x32 batches (odd MCU counts put the Cr fields off
@@ -175,8 +186,9 @@ any failure exits nonzero.  In the order they run:
      form on the scan's blocks of the restart path's 2,048 segments and
      of the indexed transport's pseudo-segments: bit-identical to the
      model, within 1 of the plain version (the share that differs
-     printed; the fDCT's, separable against the plain 64-term product,
-     at most FDCT_DIFF_SHARE per set), the two forms' planes identical on
+     printed; the fDCT's, integer against the plain 64-term float32
+     product, at most FDCT_DIFF_SHARE per set), the two forms' planes
+     identical on
      the same streams; one counted call each;
   15. exact mode's kernels against their plain versions (the ordered
      float64 sums of ops/dct.py), bit for bit: fdct_quantize_exact on the
@@ -234,7 +246,8 @@ any failure exits nonzero.  In the order they run:
      without restart markers, must be the fDCT, entropy and concat kernels
      alone (3 device events, no plain torch between the upload and the
      fetch), in turns with the first fused entropy kernel and the concat
-     with 64-bit loads in place of the two; the encode program's stages
+     with 64-bit loads in place of the two, and in turns with PR 9's fDCT
+     kernel in place of the fDCT kernel; the encode program's stages
      alone (the entropy stage and the concat also as their first designs
      ran them, the concat and fDCT+quantize also as the plain torch stages
      they replaced), and the card's busy share of each pipelined round
@@ -247,7 +260,8 @@ any failure exits nonzero.  In the order they run:
      kernels' first designs, FIRST_EXACT_PROGRAMS, the fast decode in
      turns with the fast IDCT's first design in its place, the fast encode
      and the exact ycc420 encode in turns with the first fused entropy
-     kernel and the concat with 64-bit loads in place), each of which
+     kernel and the concat with 64-bit loads in place, the fast encode also
+     with PR 9's fDCT kernel in place), each of which
      must be
      the hand kernels alone (4 device
      events an encode: colour, fDCT, entropy, concat; 2 a decode: the
@@ -259,13 +273,19 @@ any failure exits nonzero.  In the order they run:
   6. times of the pack kernels, the histogram kernel, the concat and the
      four block transforms alone on the real batch beside their bounds
      (see _bound; the transforms' by bytes or float32 operations, the
-     exact ones' by bytes or separate float64 DMUL/DADD, the IDCTs'
+     fDCT's by bytes or int8 tensor-core operations, the exact ones' by
+     bytes or separate float64 DMUL/DADD, the IDCTs'
      counted from the batch's nonzero coefficients) and their plain
      versions, with the L2 cache overwritten too, the transforms beside
      torch.matmul of the [98304, 64] @ [64, 64] product alone (float32;
      float64, cuBLAS DGEMM, for the exact ones: not the same function), and
      each instantiation's registers and resident thread blocks an SM as the
-     card reports them; exact mode's two kernels beside their first designs
+     card reports them; fdct_quantize beside PR 9's design in turns (now,
+     first, now, first), warm and with the L2 cache overwritten first, on
+     the main batch, its images at quality 95, noise and the rgb path's
+     int32 planes, with both designs' registers, thread blocks an SM, SASS
+     IMMA, FMUL, FADD and FFMA counts and ptxas lines, beside the float32
+     matmul; exact mode's two kernels beside their first designs
      (scripts/previous_designs.py) in turns (now, first, now, first), warm
      and with the L2 cache overwritten first, on the main batch and on
      noise at quality 100, with their bounds, registers, thread blocks an
@@ -439,7 +459,7 @@ NO_FMA = {"fdct_quantize_exact": ("DMUL", "DADD"),
           "idct_planes": ("FMUL", "FADD"),
           "idct_planes_rgb": ("FMUL", "FADD"),
           "ycc_planes_to_rgb": ("FMUL", "FADD", "DMUL", "DADD")}
-SASS_OPS = ("FFMA", "DFMA", "FMUL", "FADD", "DMUL", "DADD")
+SASS_OPS = ("FFMA", "DFMA", "FMUL", "FADD", "DMUL", "DADD", "IMMA")
 # the rgb transport's kernels (phase 16)
 RGB_KERNELS = ("rgb_to_ycc420", "idct_planes_rgb", "ycc_planes_to_rgb")
 # the fused kernel's instantiation for the caller's tables (optimize), built
@@ -455,7 +475,8 @@ PREVIOUS = {"encode_blocks_fused_first_kernel":
             "fdct_exact_first_kernel": "previous fdct_quantize_exact",
             "idct_exact_first_kernel": "previous idct_planes_exact",
             "idct_rgb_first_kernel": "previous idct_planes_rgb",
-            "idct_overflow_first_kernel": "previous idct_planes overflow"}
+            "idct_overflow_first_kernel": "previous idct_planes overflow",
+            "fdct_first_kernel": "previous fdct_quantize"}
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
@@ -529,9 +550,13 @@ EARLIER_CONCAT_MS = 0.5805
 EARLIER_ENCODE = {"encode": "0.0818 ms busy in 12 events",
                   "restart encode": "0.1052 ms busy in 27 events"}
 # The share of fdct_quantize's coefficients that may differ from the plain
-# version's (phase 14): the separable form and the 64-term product round
-# differently, each by at most 1.
+# version's (phase 14): the integer form (and the separable form of its
+# first design) and the 64-term float32 product round differently, each by
+# at most 1.
 FDCT_DIFF_SHARE = 2e-3
+# the int8 tensor cores' dense rate (NVIDIA H100 SXM data sheet), the rate
+# of the fDCT kernel's products: its bound's operations side
+PEAK_INT8_OPS = 1979e12
 # phase 12's gloo ranks: the images they share, and each rank's steps
 # with the launches every step must make
 PARALLEL_IMAGES = 4
@@ -1126,6 +1151,7 @@ def main() -> int:
     from jpezy_tpu_torch.core import tables as T
     from jpezy_tpu_torch.testing import encode_runs as ER
     from jpezy_tpu_torch.testing import exact_ties as XT
+    from jpezy_tpu_torch.testing import fdct_int as FI
     from jpezy_tpu_torch.testing import rgb_ties as RT
     from jpezy_tpu_torch.testing import ycc_uploads as YU
     from jpezy_tpu_torch.ops import (colour_cuda, concat_cuda, exact_cuda,
@@ -1179,6 +1205,10 @@ def main() -> int:
                 sass_ops[k][op] for op in want):
             raise AssertionError(f"{k}'s SASS holds {sass_ops[k]}: want "
                                  f"{', '.join(want)} and no FFMA or DFMA")
+    # the fDCT kernel's products run on the int8 tensor cores
+    if not sass_ops["fdct_quantize"]["IMMA"]:
+        raise AssertionError(f"fdct_quantize's SASS holds no IMMA: "
+                             f"{sass_ops['fdct_quantize']}")
     previous_designs.LIB.get()
     fp64_ceiling.LIB.get()
     prev_ptxas = _ptxas_by_kernel(previous_designs.LIB.build_log,
@@ -1187,8 +1217,9 @@ def main() -> int:
         raise AssertionError(f"ptxas reported {sorted(prev_ptxas)} of the "
                              f"earlier designs:\n"
                              f"{previous_designs.LIB.build_log}")
-    # the earlier exact designs' float64 operations, for phase 6
-    _, prev_ops = _sass_instructions(cuda_build.nvcc(),
+    # the earlier designs' float64 operations (and PR 9's fDCT's), for
+    # phase 6
+    prev_sass, prev_ops = _sass_instructions(cuda_build.nvcc(),
                                      previous_designs.LIB.so, SASS_OPS,
                                      _previous_of)
     # and the ycc420 IDCT's overflow launch alone (its three kernels share
@@ -1205,6 +1236,9 @@ def main() -> int:
                        + (" (" + ", ".join(f"{n} {op}" for op, n in
                                            sass_ops[k].items()) + ")"
                           if k in NO_FMA else "")
+                       + (f" ({sass_ops[k]['IMMA']} IMMA, "
+                          f"{sass_ops[k]['FMUL']} FMUL)"
+                          if k == "fdct_quantize" else "")
                        for k, v in ptxas.items())
          + " || " + " || ".join(f"{k}: {' | '.join(v)}"
                                 for k, v in prev_ptxas.items()))
@@ -2380,6 +2414,7 @@ def main() -> int:
 
     # ---- 14. the block transforms against their plain versions and the
     # numpy models of the kernels' arithmetic order
+    from jpezy_tpu_torch.constants import codec_constants
     from jpezy_tpu_torch.ops import blocks as OB
     from jpezy_tpu_torch.ops import colorspace as OC
 
@@ -2400,14 +2435,28 @@ def main() -> int:
     q95 = tuple(torch.from_numpy(t).to(dev)
                 for t in T.scale_quant_tables(95))
     plain_kw = dict(gray=False, rounded=False)
+    rgb14 = (ry, OB.decimate_420(rcb), OB.decimate_420(rcr))
+    noise_up = upload(noise14)
+    extreme14 = tuple(torch.from_numpy(p).to(dev)
+                      for p in FI.planes_of(FI.extreme_blocks()))
+    ak14 = (codec_constants(dev)["y_quant"], codec_constants(dev)["c_quant"])
+    big14 = tuple(torch.from_numpy(np.where(np.arange(64) % 9 == 4, 5 << 20,
+                                            t)).to(dev)
+                  for t in T.scale_quant_tables(50))
     fdct_sets = [
         ("ycc420 upload, Annex K", ycc_real, plain_kw),
         ("quality 95", ycc_real, dict(plain_kw, qtables=q95)),
         ("rounded", ycc_real, dict(plain_kw, rounded=True)),
         ("gray", ycc_real, dict(plain_kw, gray=True)),
-        ("rgb path, int32 planes, chroma at column stride 2",
-         (ry, OB.decimate_420(rcb), OB.decimate_420(rcr)), plain_kw),
-        ("noise", upload(noise14), plain_kw)]
+        ("rgb path, int32 planes, chroma at column stride 2", rgb14,
+         plain_kw),
+        ("noise", noise_up, plain_kw),
+        ("extreme blocks", extreme14, plain_kw),
+        ("extreme blocks, rounded", extreme14, dict(plain_kw, rounded=True)),
+        ("quant tables with divisors of 2^21 or more (rounded, dividends "
+         "past 2^22: the quantizer's reciprocals alone still exact)",
+         ycc_real,
+         dict(plain_kw, rounded=True, qtables=big14))]
     del rgb0, rcb, rcr
     err["fdct_quantize"] = 0
     transform_cuda.fdct_launches = 0
@@ -2416,18 +2465,27 @@ def main() -> int:
         got = BT.fdct_quantize(*planes14, **kw)
         want = BT.fdct_quantize_plain(*planes14, **kw)
         qt = kw.get("qtables")
-        model = BT.fdct_quantize_model(
-            *(p.cpu().numpy() for p in planes14), gray=kw["gray"],
-            rounded=kw["rounded"],
-            qtables=None if qt is None else tuple(t.cpu().numpy()
-                                                  for t in qt))
+        first = previous_designs.fdct_quantize_first(
+            *planes14, *(ak14 if qt is None else qt), gray=kw["gray"],
+            rounded=kw["rounded"])
+        model_kw = dict(gray=kw["gray"], rounded=kw["rounded"],
+                        qtables=None if qt is None else tuple(
+                            t.cpu().numpy() for t in qt))
+        host14 = tuple(p.cpu().numpy() for p in planes14)
+        model = BT.fdct_quantize_model(*host14, **model_kw)
+        first_model = BT.fdct_quantize_model(
+            *host14, transform=BT.separable_forward, **model_kw)
         torch.cuda.synchronize()
+        if not all(np.array_equal(f.cpu().numpy(), m)
+                   for f, m in zip(first, first_model)):
+            raise AssertionError(f"fdct_quantize's first design != the "
+                                 f"model of its separable form on {label}")
         n_diff = n_all = 0
         for g, w_, m in zip(got, want, model):
             if g.dtype != torch.int32 or not np.array_equal(g.cpu().numpy(),
                                                             m):
-                raise AssertionError(f"fdct_quantize kernel != its model on "
-                                     f"{label}")
+                raise AssertionError(f"fdct_quantize kernel != its integer "
+                                     f"model on {label}")
             e = int((g - w_).abs().max())
             err["fdct_quantize"] = max(err["fdct_quantize"], e)
             if e > 1:
@@ -2446,14 +2504,25 @@ def main() -> int:
                              f"{transform_cuda.fdct_launches} times in "
                              f"{len(fdct_sets)} comparisons")
     _say("14 fdct", "fdct_quantize (one launch for the three components) "
-         "bit-identical to the numpy model of its separable float32 sums "
-         "and within 1 of the plain version (the 64-term product), on at "
-         f"most {FDCT_DIFF_SHARE} of the coefficients, on {BATCH}x{H}x{W}: "
-         + "; ".join(said14))
+         "bit-identical to the numpy model of its integer form "
+         "(block_transform.integer_forward: the int8 samples times "
+         "round(W 2^24) in three 8-bit digits, exact) and within 1 of the "
+         "plain version (the 64-term float32 product), on at "
+         f"most {FDCT_DIFF_SHARE} of the coefficients, on {BATCH}x{H}x{W} "
+         f"(the extreme blocks of testing/fdct_int: "
+         f"{extreme14[0].shape[0]} images of "
+         f"{extreme14[0].shape[1]}x{extreme14[0].shape[2]}): "
+         + "; ".join(said14) + "; its first design (previous_designs."
+         "fdct_quantize_first) bit-identical to the model of its separable "
+         "float32 sums on every set")
     fdct_inputs = ycc_real      # phase 6 times the kernel on these planes
+    fdct_sets6 = {"main": (ycc_real, plain_kw),
+                  "quality 95": (ycc_real, dict(plain_kw, qtables=q95)),
+                  "noise": (noise_up, plain_kw),
+                  "rgb path, int32 planes": (rgb14, plain_kw)}
     real_nonzero = sum(int((q != 0).sum()) for q in BT.fdct_quantize(
         *ycc_real, **plain_kw))
-    del fdct_sets, got, want, model, noise14
+    del fdct_sets, got, want, model, first, first_model, noise14, extreme14
 
     # the IDCT kernel: the sparse form on ycc420 uploads, the dense form on
     # the scan's blocks, each against its model and its plain version
@@ -3042,6 +3111,22 @@ def main() -> int:
 
     enc_turns = {name: in_turns(fn, with_first_entropy)
                  for name, fn in (("enc", enc), ("enc_r", enc_r))}
+
+    # and in turns with PR 9's fDCT kernel (scripts/previous_designs.py,
+    # the separable float32 form) in place of the fDCT kernel
+    def with_first_fdct(fn):
+        def run():
+            keep = transform_cuda.fdct_quantize_cuda
+            transform_cuda.fdct_quantize_cuda = (
+                previous_designs.fdct_quantize_first)
+            try:
+                return fn()
+            finally:
+                transform_cuda.fdct_quantize_cuda = keep
+        return run
+
+    fdct_turns = {name: in_turns(fn, with_first_fdct)
+                  for name, fn in (("enc", enc), ("enc_r", enc_r))}
     # the card's busy share of a pipelined round trip: device time of the
     # same round trip under the profiler (which slows the host, not the
     # kernels) over the wall time measured above without it
@@ -3059,7 +3144,8 @@ def main() -> int:
          f"device events ({earlier('encode')}; {EARLIER_ENCODE['encode']} "
          f"with the earlier entropy tail; in turns with the first fused "
          f"kernel and the concat with 64-bit loads in place of the two: "
-         f"{enc_turns['enc']} ms; fused kernel "
+         f"{enc_turns['enc']} ms; in turns with PR 9's fDCT kernel in place "
+         f"of the fDCT kernel: {fdct_turns['enc']} ms; fused kernel "
          f"{_fmt_ms(_kernel_ms(enc_prof, 'encode_blocks_batch_kernel', False))}"
          " ms, fDCT kernel "
          f"{_fmt_ms(_kernel_ms(enc_prof, 'fdct_quantize_kernel', False))} "
@@ -3085,8 +3171,9 @@ def main() -> int:
          f"{profs['enc_r']['events']:.1f} device events "
          f"({EARLIER_ENCODE['restart encode']} with the earlier entropy "
          f"tail; in turns with the first fused kernel and the concat with "
-         f"64-bit loads in place of the two: {enc_turns['enc_r']} ms; fused "
-         f"kernel "
+         f"64-bit loads in place of the two: {enc_turns['enc_r']} ms; in "
+         f"turns with PR 9's fDCT kernel in its place: "
+         f"{fdct_turns['enc_r']} ms; fused kernel "
          + _fmt_ms(_kernel_ms(profs["enc_r"], "encode_blocks_batch_kernel",
                               False))
          + " ms, concat kernel "
@@ -3303,7 +3390,9 @@ def main() -> int:
                     "entropy kernel and the concat with 64-bit loads in "
                     "place of the two: "
                     + in_turns(rgb_programs[0][2], with_first_entropy)
-                    + " ms")
+                    + " ms; in turns with PR 9's fDCT kernel in place of "
+                    "the fDCT kernel: "
+                    + in_turns(rgb_programs[0][2], with_first_fdct) + " ms")
 
     # the ycc420 decode program with the first design of the IDCT's
     # overflow launch (scripts/previous_designs.py, after the same sparse
@@ -3411,10 +3500,20 @@ def main() -> int:
     from jpezy_tpu_torch.constants import codec_constants
 
     n_blocks = sum(counts)
-    fdct_bytes = (sum(p.numel() * p.element_size() for p in fdct_inputs)
-                  + 4 * 64 * n_blocks + 4 * 64 * 64 + 2 * 4 * 64)
-    fdct_ops = 2 * 1024 * n_blocks       # the kernel's separable form
-    fdct_ops64 = 2 * 4096 * n_blocks     # the 64-term form (the plain one)
+    def fdct_bytes_of(planes):
+        """The fDCT's bytes: the samples, the int32 blocks, the digit
+        table and the two quant tables, each once."""
+        nb = sum(p.numel() for p in planes) // 64
+        return (sum(p.numel() * p.element_size() for p in planes)
+                + 4 * 64 * nb + 3 * 64 * 64 + 2 * 4 * 64)
+
+    fdct_bytes = fdct_bytes_of(fdct_inputs)
+    # the kernel's int8 products (three digits of a 64 x 64 product a
+    # block, a multiply-add two), the first design's separable float32 form
+    # and the 64-term float32 form (the plain one)
+    fdct_ops = 3 * 2 * 4096 * n_blocks
+    fdct_ops_sep = 2 * 1024 * n_blocks
+    fdct_ops64 = 2 * 4096 * n_blocks
     _, sp_flat, sp_kw = idct_sparse_input
     sp_dev = torch.from_numpy(sp_flat).to(dev)
     idct_out_bytes = BATCH * H * W * 3 // 2
@@ -3519,13 +3618,16 @@ def main() -> int:
             lambda: BT.fdct_quantize_plain(*fdct_inputs, gray=False,
                                            rounded=False),
             ("fdct_quantize_kernel",),
-            _bound(fdct_bytes, fdct_ops, PEAK_FP32_FLOPS),
+            _bound(fdct_bytes, fdct_ops, PEAK_INT8_OPS),
             f"{n_blocks} blocks from int8 planes, {fdct_bytes} bytes; "
-            f"{fdct_ops} float32 operations in the kernel's separable form "
-            f"({1e3 * fdct_ops / PEAK_FP32_FLOPS:.4f} ms; issued as "
-            f"separate multiplies and adds "
-            f"{1e3 * fdct_ops / PEAK_FP32_OPS:.4f} ms), {fdct_ops64} in "
-            f"the 64-term form of the plain version and of the first kernel "
+            f"{fdct_ops} int8 tensor-core operations in the kernel's "
+            f"integer form, three digits "
+            f"({1e3 * fdct_ops / PEAK_INT8_OPS:.4f} ms at {PEAK_INT8_OPS:.4g} "
+            f"a second); {fdct_ops_sep} float32 operations in PR 9's "
+            f"separable form ({1e3 * fdct_ops_sep / PEAK_FP32_FLOPS:.4f} ms; "
+            f"issued as separate multiplies and adds "
+            f"{1e3 * fdct_ops_sep / PEAK_FP32_OPS:.4f} ms), {fdct_ops64} in "
+            f"the 64-term form of the plain version and of PR 8's kernel "
             f"({1e3 * fdct_ops64 / PEAK_FP32_FLOPS:.4f} ms); the plain stage "
             f"read {EARLIER_PROGRAMS['fDCT+quantize'][0]} ms busy (before "
             f"the kernel, kept from then); torch.matmul of the "
@@ -4185,6 +4287,83 @@ def main() -> int:
              for op in ("FMUL", "FADD", "FFMA"))
          + f"; torch.matmul of the float32 [{n_blocks}, 64] @ [64, 64] "
          f"product {_fmt_ms(library_ms)} ms; on {card}")
+    # fdct_quantize beside PR 9's design (previous_designs.
+    # fdct_quantize_first, the separable float32 form), in turns (now,
+    # first, now again, first again), warm and with the L2 cache
+    # overwritten first, on the main batch, its images at quality 95, noise
+    # and the rgb path's int32 planes, each beside its bound
+    fq_t = timing["fdct_quantize"]
+    fq_t["versus_previous"] = {}
+    fq_rows = []
+    fq_ak = (codec_constants(dev)["y_quant"], codec_constants(dev)["c_quant"])
+    for set_name, (planes6f, kw6f) in fdct_sets6.items():
+        qt6f = kw6f.get("qtables", fq_ak)
+        now6f = (lambda planes6f=planes6f, kw6f=kw6f:
+                 BT.fdct_quantize(*planes6f, **kw6f))
+        first6f = (lambda planes6f=planes6f, qt6f=qt6f:
+                   previous_designs.fdct_quantize_first(*planes6f, *qt6f))
+        row = {}
+        for which, fn, sym in (("now", now6f, "fdct_quantize_kernel"),
+                               ("first", first6f, "fdct_first_kernel"),
+                               ("now again", now6f, "fdct_quantize_kernel"),
+                               ("first again", first6f, "fdct_first_kernel")):
+            warm = _traced(fn, 20, sym)[0]
+            cold = _traced(lambda fn=fn: (l2_flush.zero_(), fn()), 20, sym)[0]
+            row[which] = (warm, cold)
+        b6f, by6f = _bound(fdct_bytes_of(planes6f), fdct_ops, PEAK_INT8_OPS)
+        fq_t["versus_previous"][set_name] = dict(row, bound_ms=b6f,
+                                                 bound_by=by6f)
+        best = [min(row[w][i] for w in ("now", "now again")) for i in (0, 1)]
+        first_best = [min(row[w][i] for w in ("first", "first again"))
+                      for i in (0, 1)]
+        if set_name == "main":
+            fq_t["previous_ms"], fq_t["previous_cold_ms"] = row["first"]
+            slower = max(row["now"][0], row["now again"][0])
+            verdict = (f"; at most twice the bound: "
+                       f"{'yes' if slower <= 2 * b6f else 'NO'}")
+        else:
+            verdict = ""
+            key = {"quality 95": "q95", "noise": "noise"}.get(set_name)
+            if key:
+                fq_t[f"{key}_ms"], fq_t[f"{key}_cold_ms"] = row["now"]
+                fq_t[f"{key}_previous_ms"] = row["first"][0]
+                fq_t[f"{key}_bound_ms"] = b6f
+        fq_rows.append(
+            f"{set_name}: " + ", ".join(
+                f"{k} {w:.4f} ms (L2 overwritten first {c:.4f})"
+                for k, (w, c) in row.items())
+            + f"; bound {b6f:.4f} ms by {by6f} = {b6f / best[0]:.3f} of the "
+            f"faster turn (first design {b6f / first_best[0]:.3f}); "
+            f"{'faster' if best[0] < first_best[0] else 'NOT faster'} than "
+            f"the first design warm by {first_best[0] - best[0]:.4f} ms, "
+            f"{'faster' if best[1] < first_best[1] else 'NOT faster'} cold "
+            f"by {first_best[1] - best[1]:.4f} ms" + verdict)
+    fq_info = transform_cuda.kernel_info()
+    fq_pinfo = previous_designs.kernel_info()
+    fq_ops = ("IMMA", "FMUL", "FADD", "FFMA")
+    fq_t["sass_ops"] = {"now": sass_ops["fdct_quantize"],
+                        "first": prev_ops["previous fdct_quantize"]}
+    fq_t["ptxas"] = {"now": ptxas["fdct_quantize"],
+                     "first": prev_ptxas["previous fdct_quantize"]}
+    _say("6 fdct", "fdct_quantize (the integer form on the int8 tensor "
+         "cores) beside PR 9's design (the separable float32 form), in "
+         "turns (kernels' own device time, profiler): " + " || ".join(fq_rows)
+         + " || " + "; ".join(
+             f"{which} {k}: {v[0]} registers, {v[1]} thread blocks of "
+             f"{v[4]} an SM ({v[1] * v[4] // 32} warps), {v[2]} bytes of "
+             f"shared memory, {v[3]} of local memory"
+             for which, inf in (("now", fq_info), ("first", fq_pinfo))
+             for k, v in inf.items() if k.startswith("fdct_quantize "))
+         + f"; SASS now {sass['fdct_quantize']} instructions ("
+         + ", ".join(f"{sass_ops['fdct_quantize'][op]} {op}" for op in fq_ops)
+         + f"), first {prev_sass['previous fdct_quantize']} ("
+         + ", ".join(f"{prev_ops['previous fdct_quantize'][op]} {op}"
+                     for op in fq_ops)
+         + ") (both instantiations each); ptxas now: "
+         + " | ".join(ptxas["fdct_quantize"]) + "; first: "
+         + " | ".join(prev_ptxas["previous fdct_quantize"])
+         + f"; torch.matmul of the float32 [{n_blocks}, 64] @ [64, 64] "
+         f"product {_fmt_ms(library_ms)} ms; on {card}")
     rows6 = []
     for label, ms, cold, b_ms, key in (
             ("fdct_quantize", timing["fdct_quantize"]["ms"],
@@ -4285,7 +4464,7 @@ def main() -> int:
          f"{fixed_ms:.4f} ms with the fixed tables in the same run; bound "
          f"{timing['encode_blocks']['bound_ms']:.4f} ms")
     del real_inputs, comps4, real_comps, set_rows, concat_inputs
-    del concat_inputs_r, comps, fdct_inputs
+    del concat_inputs_r, comps, fdct_inputs, fdct_sets6, noise_up, rgb14
 
     # ---- 9. the scan kernel alone on the real segments of phase 7
     S, Lw = real_args["words"].shape

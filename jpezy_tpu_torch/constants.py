@@ -2,13 +2,14 @@
 
 The codec has no learned weights.  Its parameters are the Annex K
 quantisation and Huffman tables (jpezy_tpu/core/tables.py), the 64x64 DCT
-bases (ops/dct.py), the 8x8 cosine and normalisation tables of the
-separable forward DCT that the fDCT kernel computes (their masters here),
-the float64 ordered-sum term tables of the oracle
-(jpezy_tpu/codec/oracle.py) and the float64 factors of those terms that the
-exact-mode kernels take (EXACT_TABLES, host memory).  The other numpy masters stay in those
-jax-free modules; this module places them on a device, once per
-(device, quality).  Callers treat the returned tensors as read-only.
+bases (ops/dct.py), the integer forward DCT that the fDCT kernel computes
+and its three 8-bit digits (FDCT_INT, FDCT_DIGITS, host memory), the 8x8
+cosine and normalisation tables of the separable forward DCT that its
+first design computed (their masters here), the float64 ordered-sum term
+tables of the oracle (jpezy_tpu/codec/oracle.py) and the float64 factors
+of those terms that the exact-mode kernels take (EXACT_TABLES, host
+memory).  The other numpy masters stay in those jax-free modules; this
+module places them on a device, once per (device, quality).  Callers treat the returned tensors as read-only.
 """
 from __future__ import annotations
 
@@ -38,6 +39,29 @@ def _separable_masters() -> tuple[np.ndarray, np.ndarray]:
 
 
 FDCT_COS, FDCT_SCALE = _separable_masters()
+
+# The integer forward DCT's fixed point: W_int = round(W 2^FDCT_INT_SHIFT)
+FDCT_INT_SHIFT = 24
+
+
+def _integer_masters() -> tuple[np.ndarray, np.ndarray]:
+    """The integer forward DCT that the fDCT kernel computes on the tensor
+    cores: W_INT[s][k] = round(W[s][k] 2^24) (int64 [64, 64], sample s =
+    8 y + x, coefficient k = 8 u + v, W the float64 forward basis with its
+    normalisation c_u c_v / 4), and its three balanced signed 8-bit digits
+    DIGITS [3, 64, 64] int8 with W_INT = d0 + 2^8 d1 + 2^16 d2 exactly.
+    |W_INT| < 2^22 (the DC column is 2^21 exactly), so the digits lie
+    within +-122, +-119 and +-62, and a block's product with one digit is
+    an exact int32 sum below 64 * 128 * 128 = 2^20 in magnitude."""
+    w = np.round(_FWD64.T * float(1 << FDCT_INT_SHIFT)).astype(np.int64)
+    d0 = (w + 128) % 256 - 128
+    w1 = (w - d0) // 256
+    d1 = (w1 + 128) % 256 - 128
+    d2 = (w1 - d1) // 256
+    return w, np.stack([d0, d1, d2]).astype(np.int8)
+
+
+FDCT_INT, FDCT_DIGITS = _integer_masters()
 
 
 def _exact_masters() -> np.ndarray:

@@ -8,26 +8,24 @@
 // _encode_batch_blocks_packed): ops/blocks.py:blockify_luma and
 // blockify_chroma, ops/dct.py:forward_dct at float32 and
 // ops/quantize.py:quantize.
-//   In:  Y-128 [N, H, W] and Cb, Cr [N, H/2, W/2] samples, int8 or int32,
-//        at any element strides (the ycc420 upload's views, the rgb path's
-//        decimated chroma); the separable form's tables C and S (kernel
-//        parameters); one [64] int32 quant table for luma and one for
-//        chroma.
+//   In:  Y-128 [N, H, W] and Cb, Cr [N, H/2, W/2] samples, int8 or int32
+//        (within [-128, 127]), at any element strides (the ycc420
+//        upload's views, the rgb path's decimated chroma); the B fragments
+//        of W_int's three digits (transform_cuda.fragment_table, device
+//        memory); one [64] int32 quant table for luma and one for chroma.
 //   Out: quantized blocks [N, B_c, 64] int32 per component, natural order,
 //        luma blocks TL, TR, BL, BR within each MCU; B_Y = 4 B_Cb.
-//   The separable form, with X the block's samples: C[v][x] =
-//   float32(cos((2x + 1) v pi / 16)) (row 0 exactly 1), S[u][v] =
-//   float32(c_u c_v / 4) (S[0][0] exactly 0.125).  Row pass t[y][v] = sum
-//   over x = 0..7 ascending of X[y][x] C[v][x]; column pass o[u][v] = sum
-//   over y = 0..7 ascending of C[u][y] t[y][v]; every term a float32
-//   multiply and then a float32 add, never contracted into a fused
-//   multiply-add (the first term is taken as it is: adding it to +0.0f
-//   could only change the sign of a zero, which the truncation cannot
-//   see).  Then o[u][v] S[u][v] as one float32 multiply, truncated toward
-//   zero; then C's truncating division |c| / q (or (2|c| + q) / (2q) when
+//   The integer form, with X the block's 64 samples (s = 8 y + x, exact
+//   int8): coefficient k = 8 u + v is trunc(sum_s X[s] W_int[s][k] / 2^24)
+//   toward zero, W_int = round(W 2^24) with W[s][k] = c_u c_v / 4
+//   cos((2 y + 1) u pi / 16) cos((2 x + 1) v pi / 16) (constants.
+//   FDCT_INT, made in float64 on the host).  |W_int| < 2^22, so W_int =
+//   d0 + 2^8 d1 + 2^16 d2 in balanced signed 8-bit digits, and each
+//   digit's product is an exact int32 sum below 2^20: no order of
+//   summation changes a bit (block_transform.integer_forward is the
+//   model; the flat block's DC is trunc(sum X / 8), its AC terms 0).
+//   Then C's truncating division |c| / q (or (2|c| + q) / (2q) when
 //   rounded) with the sign put back.  Gray writes zero chroma blocks.
-//   The normalisation is not folded into the passes' tables: c_0 / 2
-//   squared is not 0.125 in float32, and a flat block's DC would be off.
 //
 // Kernel 2, idct_planes_kernel, replaces jpezy_tpu/codec/jax_codec.py:
 // _decode_fused_batch_ycc420 (with _densify, ops/quantize.py:dequantize,
@@ -70,28 +68,36 @@
 //
 // What bounds them, per 16 x 512 x 512 4:2:0 batch (98,304 blocks):
 //  - fdct_quantize must move 6.3 MB of int8 samples in and 25.2 MB of
-//    int32 blocks out, 9.4 us at 3.35 TB/s.  The separable form is 16
-//    8-term products a block, 201 M float32 operations, 3 us at the
-//    card's float32 rate (6 us issued as separate multiplies and adds), so
-//    the function is bound by bytes; in practice the kernel is bound by
-//    instruction issue (the passes, the quantizer and the index
-//    arithmetic, about 450 instructions a lane for 4 blocks).  The design
-//    is warp-synchronous: a warp takes 4 blocks, lane 8 b + r row r of
-//    block b, loaded as one 8-byte word where the plane allows (else
-//    element by element at the strides); the row pass runs in the lane's
-//    registers, the rows go through the warp's own 1,152-byte shared tile
-//    (72 words a block, 9 a row: no bank conflicts either way) to a lane
-//    per column, the column pass and the quantizer run there, and the
-//    quantized block goes back through the tile so that each lane stores
-//    16-byte words and the warp writes its 4 blocks' 1 KB in two fully
-//    coalesced stores.  The cosines are kernel parameters (the same index
-//    in every lane), S and the quant tables' divisors, rounding terms and
-//    reciprocals in shared memory, set once per thread block;
-//    the products by C's row 0, which is 1, are the samples themselves.
-//    The divisions, the quantizer's and the index arithmetic's, multiply
-//    by a reciprocal rounded up (div_exact).  Warps stay resident and walk
-//    the tiles component after component with the next tile's samples in
-//    flight; the only barrier is the one after the tables.
+//    int32 blocks out, 9.4 us at 3.35 TB/s; its products are 2.4 G int8
+//    operations (three digits), 1.2 us at the card's 1,979 TOPS, so bytes
+//    bound it.  The first design (scripts/previous_designs.cu) summed the
+//    separable float32 form on the CUDA cores: about 112 warp
+//    instructions a block, with 103 registers for 16 warps an SM, so
+//    instruction issue held it at twice its bound.  Design: the sums go
+//    to the int8 tensor cores and the transposes vanish.  A warp takes a
+//    tile of 16 consecutive blocks of one component (4 luma MCUs or 16
+//    chroma ones) as the 16 rows of mma.sync m16n8k32 (s8 by s8 into
+//    s32); K = 64 samples is two k-steps, N = 64 coefficients eight
+//    n-tiles (n-tile u: coefficient row u), three digits: 48 products a
+//    tile.  Lane 4 g + t loads rows 2 t and 2 t + 1 of blocks g and g + 8
+//    (one 8-byte load a row where the plane allows, else element by
+//    element at the strides), and these words are its A fragments as they
+//    are: the samples take the slot order that fits the loads
+//    (transform_cuda.slot_sample) and the table's rows the same.  The B
+//    fragments, 12,288 bytes, sit in shared memory from the start (one
+//    16-byte load a lane, a digit and an n-tile).  Each lane recombines its
+//    4 sums of an n-tile in 32-bit steps (recombine), quantizes them with
+//    the divisors and reciprocals of shared memory (the reciprocal alone:
+//    quantize) and stores them as 8 bytes a
+//    block: one store of the warp fills the 32-byte sector of row u of 8
+//    blocks (a per-warp stage and 16-byte stores read slower).  Warps stay
+//    resident and walk the tiles component after component with the next
+//    tile's samples in flight; the only barrier is the one after the
+//    tables.  At most 85 registers a thread for 24 warps an SM: a batch's
+//    6,144 tiles fill its 3,168 warps nearly twice over, where 32 warps an
+//    SM (64 registers) left the second round 45 % full and read slower
+//    (scripts/fdct_phases.py).  Tiles past a component's last block load
+//    zeros and store nothing there.
 //  - idct_planes must move the sparse upload (about 1.8 MB) or the dense
 //    blocks (12.6 MB) in and 6.3 MB of planes out: 2.4 or 5.6 us.  Its
 //    operations depend on the data, 64 multiply-adds per nonzero
@@ -165,12 +171,14 @@ namespace {
 
 constexpr unsigned kFullMask = 0xFFFFFFFFu;
 
-// Kernel 1: 8 warps a thread block, 4 blocks a warp at a time.
+// Kernel 1: 8 warps a thread block, 3 thread blocks an SM (85 registers
+// a thread at most), a warp a tile of 16 blocks at a time.
 constexpr int kFdctThreads = 256;
 constexpr int kFdctWarps = kFdctThreads / 32;
-constexpr int kFdctTile = 4;      // blocks a warp's tile
-constexpr int kBlockWords = 72;   // a block's words in the warp's tile
-constexpr int kRowWords = 9;      // a row's words there (the row pass)
+constexpr int kFdctBlocksPerSm = 3;
+constexpr int kFdctTile = 16;     // blocks a warp's tile: the mma's 16 rows
+// the B fragments' 16-byte words: 3 digits, 8 n-tiles, 32 lanes
+constexpr int kDigitWords = 3 * 8 * 32;
 
 // Kernel 2: 8 warps a thread block, a warp a unit, a group of 8 lanes a
 // block.
@@ -202,7 +210,8 @@ __device__ __forceinline__ void block_origin(int bi, int v, int h,
 }
 
 // ---------------------------------------------------------------------------
-// Kernel 1: blockify, forward DCT (separable), quantize
+// Kernel 1: blockify, forward DCT (integer, on the int8 tensor cores),
+// quantize
 // ---------------------------------------------------------------------------
 
 struct FdctComp {
@@ -216,44 +225,26 @@ struct FdctComp {
 
 struct FdctArgs {
   FdctComp comp[3];
-  float cosv[64];         // C[v][x], v * 8 + x: the same in every lane
-  float scale[64];        // S[u][v], u * 8 + v
+  const int4* digits;     // the B fragments: [3][8][32] 16-byte words
   int nimages, mcus_x, gray, rounded;
   int ty, tc;             // tiles of luma, of each chroma component
 };
 
-// A lane's row of 8 samples as loaded: 8 bytes (int8) or 8 words.
-template <typename T>
-struct RowRaw;
-template <>
-struct RowRaw<int8_t> {
-  uint2 w;
-  __device__ __forceinline__ void zero() { w = make_uint2(0u, 0u); }
-  __device__ __forceinline__ float at(int j) const {
-    const uint32_t v = j < 4 ? w.x : w.y;
-    return __int2float_rn(static_cast<int8_t>((v >> (8 * (j & 3))) & 0xFF));
-  }
-};
-template <>
-struct RowRaw<int32_t> {
-  int4 a, b;
-  __device__ __forceinline__ void zero() {
-    a = b = make_int4(0, 0, 0, 0);
-  }
-  __device__ __forceinline__ float at(int j) const {
-    const int4& p = j < 4 ? a : b;
-    const int k = j & 3;
-    return __int2float_rn(k == 0 ? p.x : (k == 1 ? p.y : (k == 2 ? p.z
-                                                                  : p.w)));
-  }
+// A lane's samples of its tile (lane 4 g + t): rows 2 t and 2 t + 1 of
+// blocks g and g + 8, each row as two words of 4 int8, the leftmost
+// sample in the low byte.  w[j][2 h + b] is half h of row 2 t + j of
+// block g + 8 b: k-step j's A fragment of mma m16n8k32, register for
+// register (A's register i holds row g + 8 (i & 1) of the tile, its slots
+// 4 t + 16 (i >> 1) .. + 3; transform_cuda.slot_sample).
+struct FdctFrag {
+  uint32_t w[2][4];
 };
 
-__device__ __forceinline__ void load_row(const int8_t* src, long long sc,
-                                         RowRaw<int8_t>* raw) {
-  if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
-    raw->w = __ldg(reinterpret_cast<const uint2*>(src));
-    return;
-  }
+// A row of 8 samples as 8 int8 in two words: one 8-byte load where the
+// plane allows, else element by element at the column stride.
+__device__ __forceinline__ uint2 load_row(const int8_t* src, long long sc) {
+  if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 7) == 0)
+    return __ldg(reinterpret_cast<const uint2*>(src));
   uint32_t lo = 0, hi = 0;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
@@ -263,20 +254,27 @@ __device__ __forceinline__ void load_row(const int8_t* src, long long sc,
               static_cast<uint8_t>(__ldg(src + (j + 4) * sc)))
           << (8 * j);
   }
-  raw->w = make_uint2(lo, hi);
+  return make_uint2(lo, hi);
 }
 
-__device__ __forceinline__ void load_row(const int32_t* src, long long sc,
-                                         RowRaw<int32_t>* raw) {
+// int32 samples narrowed to their low bytes (the wrapper refuses samples
+// outside [-128, 127], so no value changes).
+__device__ __forceinline__ uint2 load_row(const int32_t* src, long long sc) {
+  int v[8];
   if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    raw->a = __ldg(reinterpret_cast<const int4*>(src));
-    raw->b = __ldg(reinterpret_cast<const int4*>(src) + 1);
-    return;
+    const int4 a = __ldg(reinterpret_cast<const int4*>(src));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = __ldg(src + j * sc);
   }
-  raw->a = make_int4(__ldg(src), __ldg(src + sc), __ldg(src + 2 * sc),
-                     __ldg(src + 3 * sc));
-  raw->b = make_int4(__ldg(src + 4 * sc), __ldg(src + 5 * sc),
-                     __ldg(src + 6 * sc), __ldg(src + 7 * sc));
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    w[j >> 2] |= (static_cast<uint32_t>(v[j]) & 0xFFu) << (8 * (j & 3));
+  return make_uint2(w[0], w[1]);
 }
 
 // C's truncating division num / den for num >= 0 and den >= 1, from
@@ -297,44 +295,133 @@ __device__ __forceinline__ float rcp_up(int d) {
 }
 
 // Tile `tile` (kFdctTile blocks) -> its component and first block; the
-// lane's row (lane = 8 b + r: row r of the tile's block b) loaded into
-// *raw, zeros past the component's last block and for gray chroma.
+// lane's rows of blocks g and g + 8 loaded into *f, zeros past the
+// component's last block and for gray chroma (whose blocks are zero).
 template <typename T>
 __device__ __forceinline__ void fdct_load(const FdctArgs& a,
                                           const FdctComp* comps,
                                           float rcp_mx, int tile, int lane,
-                                          int* c, int* first,
-                                          RowRaw<T>* raw) {
+                                          int* c, int* first, FdctFrag* f) {
   int lt = tile;
   *c = lt < a.ty ? 0 : (lt < a.ty + a.tc ? 1 : 2);
   lt -= *c == 0 ? 0 : (*c == 1 ? a.ty : a.ty + a.tc);
   *first = lt * kFdctTile;
-  raw->zero();
   const FdctComp& P = comps[*c];
-  const int f = *first + (lane >> 3);
-  if (f >= a.nimages * P.nblocks || (a.gray && *c > 0)) return;
-  const int n = div_exact(f, P.nblocks, P.rcp_nb);
-  const int bi = f - n * P.nblocks;
-  // 4:2:0: luma blocks TL, TR, BL, BR of MCU bi / 4, chroma MCU bi
-  const int m = *c == 0 ? bi >> 2 : bi;
-  const int my = div_exact(m, a.mcus_x, rcp_mx);
-  const int mx = m - my * a.mcus_x;
-  const int y = (*c == 0 ? (2 * my + ((bi >> 1) & 1)) * 8 : my * 8) +
-                (lane & 7);
-  const int x0 = *c == 0 ? (2 * mx + (bi & 1)) * 8 : mx * 8;
-  const T* src = static_cast<const T*>(P.base) + n * P.sn + y * P.sr +
-                 x0 * P.sc;
-  load_row(src, P.sc, raw);
+  const int nb = a.nimages * P.nblocks;
+  const bool none = a.gray && *c > 0;
+  const int t = lane & 3;
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+    const int fb = *first + (lane >> 2) + 8 * b;
+    uint2 r0 = make_uint2(0u, 0u), r1 = make_uint2(0u, 0u);
+    if (fb < nb && !none) {
+      const int n = div_exact(fb, P.nblocks, P.rcp_nb);
+      const int bi = fb - n * P.nblocks;
+      // 4:2:0: luma blocks TL, TR, BL, BR of MCU bi / 4, chroma MCU bi
+      const int m = *c == 0 ? bi >> 2 : bi;
+      const int my = div_exact(m, a.mcus_x, rcp_mx);
+      const int mx = m - my * a.mcus_x;
+      const int y = (*c == 0 ? (2 * my + ((bi >> 1) & 1)) * 8 : my * 8) +
+                    2 * t;
+      const int x0 = *c == 0 ? (2 * mx + (bi & 1)) * 8 : mx * 8;
+      const T* src = static_cast<const T*>(P.base) + n * P.sn + y * P.sr +
+                     x0 * P.sc;
+      r0 = load_row(src, P.sc);
+      r1 = load_row(src + P.sr, P.sc);
+    }
+    f->w[0][b] = r0.x;
+    f->w[0][2 + b] = r0.y;
+    f->w[1][b] = r1.x;
+    f->w[1][2 + b] = r1.y;
+  }
+}
+
+// acc += A B on the int8 tensor cores: mma m16n8k32, s8 by s8 into s32
+// (exact: the sums stay far below 2^31).
+__device__ __forceinline__ void mma_s8(int (&acc)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+r"(acc[0]), "+r"(acc[1]), "+r"(acc[2]), "+r"(acc[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// trunc((a0 + 2^8 a1 + 2^16 a2) / 2^24) toward zero from the three digit
+// sums, in 32-bit steps (block_transform.recombine_digits): L = a0 + 2^8
+// a1 stays below 2^29 in magnitude, C = a2 + floor(L / 2^16), the floor
+// of the quotient is floor(C / 2^8) and the remainder is zero where C's
+// low 8 and L's low 16 bits are; a negative floor with a remainder moves
+// one up.
+__device__ __forceinline__ int recombine(int a0, int a1, int a2) {
+  const int lo = a0 + a1 * 256;
+  const int c = a2 + (lo >> 16);
+  const int q = c >> 8;
+  return q + ((q < 0 && ((c & 255) | (lo & 0xFFFF)) != 0) ? 1 : 0);
+}
+
+// The quantizer: |c| / q, or (2|c| + q) / (2q) rounded (den = 2q), with
+// the sign put back, by the reciprocal alone.  int8 samples keep |c| <=
+// 128 max_k sum_s |W[s][k]| = 1,024 (the DC column's), so div_exact's guard
+// can never change a quotient: truncating, num <= 1,024 < 2^22, below which
+// its proof holds; rounded, num >= 2^22 needs q >= 2^22 - 2,048, and then
+// num / den <= 1/2 + 1,024 / q < 0.5003, so both give 0; and from den =
+// 2^24 on rcp_up is 0, and so is every quotient.
+__device__ __forceinline__ int quantize(int cf, int den, float rcp, int up) {
+  const int mag = cf < 0 ? -cf : cf;
+  const int num = (mag << up) + (up ? den >> 1 : 0);
+  const int qv = __float2int_rz(__fmul_ru(__int2float_rn(num), rcp));
+  return cf < 0 ? -qv : qv;
+}
+
+// A warp's tile from the lane's samples cur (see the header): n-tile u is
+// coefficient row u (k = 8 u + v); each digit's sums in two k-steps, then
+// the recombination and the quantizer on the lane's 4: blocks g and g + 8,
+// coefficients 8 u + 2 tq and + 1; one 8-byte store a block, so that the
+// warp's store fills the 32-byte sector of row u of each of 8 blocks
+// (live0, live1: blocks g, g + 8 lie in the component).
+__device__ __forceinline__ void fdct_tile(const FdctFrag& cur,
+                                          const int4* digits, const int* dn,
+                                          const float* rc, int up,
+                                          int32_t* out, int lane, bool live0,
+                                          bool live1) {
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    int acc[3][4];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const int4 bw = digits[(d * 8 + u) * 32 + lane];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[d][i] = 0;
+      mma_s8(acc[d], cur.w[0], static_cast<uint32_t>(bw.x),
+             static_cast<uint32_t>(bw.y));
+      mma_s8(acc[d], cur.w[1], static_cast<uint32_t>(bw.z),
+             static_cast<uint32_t>(bw.w));
+    }
+    const int k = 8 * u + 2 * tq;
+    const int2 dd = *reinterpret_cast<const int2*>(dn + k);
+    const float2 rr = *reinterpret_cast<const float2*>(rc + k);
+    int qv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qv[i] = quantize(recombine(acc[0][i], acc[1][i], acc[2][i]),
+                       (i & 1) ? dd.y : dd.x, (i & 1) ? rr.y : rr.x, up);
+    if (live0)
+      *reinterpret_cast<int2*>(out + g * 64 + k) = make_int2(qv[0], qv[1]);
+    if (live1)
+      *reinterpret_cast<int2*>(out + (g + 8) * 64 + k) =
+          make_int2(qv[2], qv[3]);
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kFdctThreads)
+__global__ void __launch_bounds__(kFdctThreads, kFdctBlocksPerSm)
     fdct_quantize_kernel(const __grid_constant__ FdctArgs a) {
-  __shared__ __align__(16) float tiles[kFdctWarps][kFdctTile * kBlockWords];
-  __shared__ float scale[64];
-  __shared__ int den[2][64];     // luma, chroma: q, or 2 q when rounded
-  __shared__ int bias[2][64];    // what a rounded quotient adds: q, or 0
-  __shared__ float rcp[2][64];   // 1 / den, rounded up
+  __shared__ int4 digits[kDigitWords];   // the B fragments, 12,288 bytes
+  __shared__ __align__(8) int den[2][64];     // luma, chroma: q, or 2 q
+  __shared__ __align__(8) float rcp[2][64];   // 1 / den, rounded up
   __shared__ FdctComp comps[3];
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -343,25 +430,23 @@ __global__ void __launch_bounds__(kFdctThreads)
     comps[t].rcp_nb = rcp_up(a.comp[t].nblocks);
   }
   const float rcp_mx = rcp_up(a.mcus_x);
+  for (int i = t; i < kDigitWords; i += kFdctThreads)
+    digits[i] = __ldg(a.digits + i);
   if (t < 128) {
     const int k = t & 63;
     const int q = __ldg(a.comp[t >> 6].q + k);
     const int d = a.rounded ? 2 * q : q;
     den[t >> 6][k] = d;
-    bias[t >> 6][k] = a.rounded ? q : 0;
     rcp[t >> 6][k] = rcp_up(d);
-  } else if (t < 192) {
-    scale[t - 128] = a.scale[t - 128];
   }
   __syncthreads();
-  float* tile = tiles[t >> 5];
-  const int b = lane >> 3;      // the lane's block in the tile
-  const int r = lane & 7;       // its row (row pass), then column
+  const int g = lane >> 2;      // the lane's blocks g, g + 8 of the tile
   const int total = a.ty + 2 * a.tc;
   const int warps = gridDim.x * kFdctWarps;
-  // the samples of the next tile are loaded while this one is summed
+  const int up = a.rounded;
+  // the samples of the next tile are loaded while this one is multiplied
   int c_next = 0, first_next = 0;
-  RowRaw<T> next;
+  FdctFrag next;
   int tile_i = blockIdx.x * kFdctWarps + (t >> 5);
   if (tile_i < total)
     fdct_load<T>(a, comps, rcp_mx, tile_i, lane, &c_next, &first_next,
@@ -369,70 +454,25 @@ __global__ void __launch_bounds__(kFdctThreads)
   for (; tile_i < total; tile_i += warps) {
     const int c = c_next;
     const int first = first_next;
-    const RowRaw<T> cur = next;
+    const FdctFrag cur = next;
     if (tile_i + warps < total)
       fdct_load<T>(a, comps, rcp_mx, tile_i + warps, lane, &c_next,
                    &first_next, &next);
-    const FdctComp& P = comps[c];
-    const int nb = a.nimages * P.nblocks;
-    int4* out = reinterpret_cast<int4*>(P.out + static_cast<long long>(first)
-                                                    * 64);
+    const int nb = a.nimages * comps[c].nblocks;
+    int32_t* out = comps[c].out + static_cast<long long>(first) * 64;
     if (a.gray && c > 0) {
+      // the tile's 4 KB of zeros, lane l words 4 (l + 32 j) .. + 3
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 8; ++j)
         if (first + ((lane + 32 * j) >> 4) < nb)
-          out[lane + 32 * j] = make_int4(0, 0, 0, 0);
+          reinterpret_cast<int4*>(out)[lane + 32 * j] = make_int4(0, 0, 0, 0);
       continue;
     }
-    // row pass: t[r][v], into the tile at b 72 + r 9 + v
-    float x[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) x[j] = cur.at(j);
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      // C[0][x] is 1: its products are the samples themselves
-      float s = v == 0 ? x[0] : __fmul_rn(x[0], a.cosv[v * 8]);
-#pragma unroll
-      for (int k = 1; k < 8; ++k)
-        s = __fadd_rn(s, v == 0 ? x[k] : __fmul_rn(x[k], a.cosv[v * 8 + k]));
-      tile[b * kBlockWords + r * kRowWords + v] = s;
-    }
-    __syncwarp();
-    // column pass: lane 8 b + v takes column v of block b
-    float col[8];
-#pragma unroll
-    for (int y = 0; y < 8; ++y)
-      col[y] = tile[b * kBlockWords + y * kRowWords + r];
-    __syncwarp();
     const int* dn = den[c > 0];
-    const int* bs = bias[c > 0];
     const float* rc = rcp[c > 0];
-    const int up = a.rounded;
-    int* qtile = reinterpret_cast<int*>(tile);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) {
-      float o = u == 0 ? col[0] : __fmul_rn(a.cosv[u * 8], col[0]);
-#pragma unroll
-      for (int y = 1; y < 8; ++y)
-        o = __fadd_rn(o, u == 0 ? col[y]
-                                : __fmul_rn(a.cosv[u * 8 + y], col[y]));
-      // quantize: |c| / q, or (2|c| + q) / (2q) rounded
-      const int k = u * 8 + r;
-      const int cf = __float2int_rz(__fmul_rn(o, scale[k]));
-      const int mag = cf < 0 ? -cf : cf;
-      const int qv = div_exact((mag << up) + bs[k], dn[k], rc[k]);
-      qtile[b * kBlockWords + k] = cf < 0 ? -qv : qv;
-    }
-    __syncwarp();
-    // out: lane l stores words 4 (l + 32 j) .. + 3 of the tile's 256
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int e = 4 * (lane + 32 * j);
-      if (first + (e >> 6) < nb)
-        out[lane + 32 * j] = *reinterpret_cast<const int4*>(
-            &qtile[(e >> 6) * kBlockWords + (e & 63)]);
-    }
-    __syncwarp();
+    const bool live0 = first + g < nb;
+    const bool live1 = first + g + 8 < nb;
+    fdct_tile(cur, digits, dn, rc, up, out, lane, live0, live1);
   }
 }
 
@@ -1083,18 +1123,21 @@ extern "C" {
 
 // Kernel 1 on `stream` (PyTorch's current stream); returns
 // cudaGetLastError(), 0 on success.  Does not synchronise.  elem_bytes:
-// 1 (int8 samples) or 4 (int32).  desc (host memory): nimages, mcus_y,
-// mcus_x, gray, rounded, then per component Y, Cb, Cr its element strides
-// (image, row, column).  tabs (host memory): 128 float32, C[v][x] then
-// S[u][v], passed to the kernel as parameters.
-int jz_fdct_quantize(int elem_bytes, const long long* desc, const float* tabs,
-                     const void* y, const void* cb, const void* cr,
-                     const void* yq, const void* cq, void* oy, void* ocb,
-                     void* ocr, void* stream) {
+// 1 (int8 samples) or 4 (int32, each within [-128, 127]: the kernel
+// narrows them).  desc (host memory): nimages, mcus_y, mcus_x, gray,
+// rounded, then per component Y, Cb, Cr its element strides (image, row,
+// column).  digits (device memory, 16-byte aligned): the 12,288 bytes of
+// transform_cuda.fragment_table, W_int's three digits as B fragments.
+int jz_fdct_quantize(int elem_bytes, const long long* desc,
+                     const void* digits, const void* y, const void* cb,
+                     const void* cr, const void* yq, const void* cq,
+                     void* oy, void* ocb, void* ocr, void* stream) {
   const long long nimages = desc[0], mcus_y = desc[1], mcus_x = desc[2];
   if (nimages <= 0 || mcus_y <= 0 || mcus_x <= 0) return 0;
   const long long nm = mcus_y * mcus_x;
-  if (nimages * 4 * nm > 0x7FFFFFFFll || (elem_bytes != 1 && elem_bytes != 4))
+  if (nimages * 4 * nm > 0x7FFFFFFFll ||
+      (elem_bytes != 1 && elem_bytes != 4) || digits == nullptr ||
+      (reinterpret_cast<uintptr_t>(digits) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   FdctArgs a;
   const void* bases[3] = {y, cb, cr};
@@ -1109,10 +1152,7 @@ int jz_fdct_quantize(int elem_bytes, const long long* desc, const float* tabs,
     p.out = static_cast<int32_t*>(outs[c]);
     p.nblocks = static_cast<int>(c == 0 ? 4 * nm : nm);
   }
-  for (int i = 0; i < 64; ++i) {
-    a.cosv[i] = tabs[i];
-    a.scale[i] = tabs[64 + i];
-  }
+  a.digits = static_cast<const int4*>(digits);
   a.nimages = static_cast<int>(nimages);
   a.mcus_x = static_cast<int>(mcus_x);
   a.gray = desc[3] != 0;

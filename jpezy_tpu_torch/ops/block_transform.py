@@ -11,21 +11,28 @@ sparse and a dense form).
 Each has a plain torch version (the CPU's route, and the reference the
 kernels are held to on the card), a dispatcher that takes the
 hand-written CUDA kernel (ops/transform_cuda.py, csrc/block_transforms.cu)
-for CUDA tensors and the plain version for CPU tensors, and a float32
-numpy model of the kernel's arithmetic order.
+for CUDA tensors and the plain version for CPU tensors, and a numpy
+model of the kernel's arithmetic (integer for the fDCT, float32 in the
+kernel's order for the IDCT).
 
-The fDCT kernel computes the separable form (separable_forward): a row
-pass of 8 terms, t[y][v] = sum over x = 0..7 ascending of X[y][x] C[v][x],
-then a column pass, o[u][v] = sum over y = 0..7 ascending of C[u][y]
-t[y][v], with the unnormalised cosines C (row 0 exactly 1), then one
-multiply by S[u][v] = c_u c_v / 4 (S[0][0] exactly 0.125), truncated toward
-zero; every term a float32 multiply then a float32 add.  The IDCT kernel
-sums each sample over the nonzero coefficients k = 0..63 in ascending
-order, a float32 multiply then a float32 add per term (inverse_model).
-The plain versions' matrix products (cuBLAS, or the CPU's BLAS) sum the
-64-term form in another order, so a kernel and its plain version may
-differ by 1 where a sum falls next to an integer, while a kernel and its
-model agree bit for bit.
+The fDCT kernel computes the integer form (integer_forward): the block's
+64 samples X (exact int8) times W_int = round(W 2^24) (constants.FDCT_INT),
+truncated toward zero after the division by 2^24; W_int is split into
+three signed 8-bit digits, each digit's product an exact int32 sum on the
+int8 tensor cores, recombined exactly (digit_sums, recombine_digits), so
+no order of summation can change a bit.  Its first design computed the
+separable float32 form (separable_forward, kept as the model of that
+design): a row pass of 8 terms, t[y][v] = sum over x = 0..7 ascending of
+X[y][x] C[v][x], then a column pass, o[u][v] = sum over y = 0..7 ascending
+of C[u][y] t[y][v], with the unnormalised cosines C (row 0 exactly 1),
+then one multiply by S[u][v] = c_u c_v / 4 (S[0][0] exactly 0.125),
+truncated toward zero; every term a float32 multiply then a float32 add.
+The IDCT kernel sums each sample over the nonzero coefficients k = 0..63
+in ascending order, a float32 multiply then a float32 add per term
+(inverse_model).  The plain versions' matrix products (cuBLAS, or the
+CPU's BLAS) sum the 64-term float32 form in another order, so a kernel and
+its plain version may differ by 1 where a sum falls next to an integer,
+while a kernel and its model agree bit for bit.
 
 Exact mode has its own pair (fdct_quantize_exact, idct_planes_exact): the
 oracle's ordered float64 sums (ops/dct.py) as hand-written CUDA kernels
@@ -43,7 +50,8 @@ import functools
 import numpy as np
 import torch
 
-from ..constants import codec_constants
+from ..constants import (FDCT_DIGITS, FDCT_INT, FDCT_INT_SHIFT,
+                         codec_constants)
 from ..core import tables as T
 from . import blocks as B
 from . import dct as D
@@ -358,7 +366,7 @@ def idct_planes_exact(coeff_all, *, geom, level, gray, sizes, qtuple):
 
 
 # ---------------------------------------------------------------------------
-# float32 numpy models of the kernels' arithmetic order
+# numpy models of the kernels' arithmetic (and its order)
 # ---------------------------------------------------------------------------
 
 
@@ -399,10 +407,45 @@ def separable_forward(blocks: np.ndarray) -> np.ndarray:
     """[B, 64] int samples -> [B, 64] int32 coefficients (natural index
     8u + v): separable_sums with the unnormalised cosines, times
     S[u][v] = c_u c_v / 4 as one float32 multiply, truncated toward zero
-    (fdct_quantize_kernel's float part)."""
+    (the float part of the fDCT kernel's first design,
+    scripts/previous_designs.py fdct_quantize_first)."""
     o = separable_sums(blocks, _basis("fdct_cos_f32"))
     o = o * _basis("fdct_scale_f32")[None]
     return o.reshape(-1, 64).astype(np.int32)
+
+
+def digit_sums(blocks: np.ndarray) -> np.ndarray:
+    """[B, 64] int samples -> [3, B, 64] int64: the block's product with
+    each of W_int's three 8-bit digits (constants.FDCT_DIGITS), the sums
+    the kernel's int8 tensor-core products accumulate in int32."""
+    x = np.asarray(blocks).astype(np.int64)
+    return np.stack([x @ d.astype(np.int64) for d in FDCT_DIGITS])
+
+
+def recombine_digits(acc: np.ndarray) -> np.ndarray:
+    """[3, ...] digit sums (each within int32) -> trunc((acc0 + 2^8 acc1 +
+    2^16 acc2) / 2^24) as int32, in the kernel's 32-bit steps: L = acc0 +
+    2^8 acc1 and C = acc2 + (L >> 16) (arithmetic shifts, floors), the
+    floor C >> 8 and the remainder's bits C & 255, L & 0xFFFF; a negative
+    floor with a nonzero remainder moves one up (truncation toward zero).
+    Exact while |acc0 + 2^8 acc1| < 2^31, which digit sums below 2^20
+    keep."""
+    a = np.asarray(acc).astype(np.int32)
+    lo = a[0] + (a[1] << 8)
+    c = a[2] + (lo >> 16)
+    q = c >> 8
+    rem = ((c & 255) | (lo & 0xFFFF)) != 0
+    return (q + ((q < 0) & rem)).astype(np.int32)
+
+
+def integer_forward(blocks: np.ndarray) -> np.ndarray:
+    """[B, 64] int samples -> [B, 64] int32 coefficients (natural index
+    8u + v): trunc(X @ W_int / 2^24) toward zero in int64, W_int =
+    constants.FDCT_INT (fdct_quantize_kernel's arithmetic; the kernel
+    forms it as recombine_digits(digit_sums(X)))."""
+    a = np.asarray(blocks).astype(np.int64) @ FDCT_INT
+    mag = np.abs(a) >> FDCT_INT_SHIFT
+    return (np.sign(a) * mag).astype(np.int32)
 
 
 def inverse_model(deq: np.ndarray, level: int) -> np.ndarray:
@@ -437,10 +480,11 @@ def _quantize(coef: np.ndarray, q: np.ndarray, rounded: bool) -> np.ndarray:
 
 
 def fdct_quantize_model(y, cb, cr, *, gray: bool, rounded: bool,
-                        qtables=None, transform=separable_forward):
+                        qtables=None, transform=integer_forward):
     """fdct_quantize_kernel in numpy: planes (numpy ints) -> (yq, cbq, crq)
     [N, B_c, 64] int32.  transform: [B, 64] int samples -> [B, 64] int32
-    coefficients (the float part; default the kernel's separable form)."""
+    coefficients (default the kernel's integer form; separable_forward
+    for its first design)."""
     yqt, cqt = qtables if qtables is not None else (T.Y_QUANT, T.C_QUANT)
     out = []
     for plane, vh, qt, zero in ((y, 2, yqt, False), (cb, 1, cqt, gray),

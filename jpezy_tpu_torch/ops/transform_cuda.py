@@ -2,12 +2,13 @@
 (csrc/block_transforms.cu).
 
 fdct_quantize_cuda is the CUDA form of block_transform.fdct_quantize_plain
-at float32: blockify, forward DCT (the separable form of
-block_transform.separable_forward) and quantize of the three components in
-one launch, the planes read at their element strides (the ycc420 upload's
-int8 views, the rgb path's int32 planes and decimated chroma), so no copy
-is made first.  It replaces the stage XLA fused on the TPU in
-jpezy_tpu/parallel/sharded.py:_quantize_local_ycc.
+at float32: blockify, forward DCT (the integer form of
+block_transform.integer_forward, on the int8 tensor cores with the
+samples and W_int's three 8-bit digits, fragment_table) and quantize of the
+three components in one launch, the planes read at their element strides
+(the ycc420 upload's int8 views, the rgb path's int32 planes and decimated
+chroma), so no copy is made first.  It replaces the stage XLA fused on the
+TPU in jpezy_tpu/parallel/sharded.py:_quantize_local_ycc.
 
 idct_planes_sparse_cuda and idct_planes_dense_cuda are the CUDA forms of
 block_transform.idct_planes_sparse_plain and idct_planes_dense_plain:
@@ -22,8 +23,9 @@ Every launch adds the same terms in the same ascending order.  They
 replace jpezy_tpu/codec/jax_codec.py:_decode_fused_batch_ycc420 and the
 tail of _decode_fused_batch_device.
 
-The kernels sum in a fixed order, which block_transform's numpy models
-reproduce bit for bit; they compute the fast precision only.  Exact
+The fDCT kernel's sums are exact integers and the IDCT kernels sum in a
+fixed order, so block_transform's numpy models reproduce them bit for bit;
+they compute the fast precision only.  Exact
 mode's float64 transforms have kernels of their own (ops/exact_cuda.py,
 csrc/exact_transforms.cu).  The library is built at first use and loaded with ctypes by
 ops/cuda_build.py.  A failed build or launch raises; nothing falls back to
@@ -42,7 +44,7 @@ import threading
 import numpy as np
 import torch
 
-from ..constants import codec_constants
+from ..constants import FDCT_DIGITS, codec_constants
 from .cuda_build import KernelLibrary, check_tensors
 
 
@@ -70,14 +72,48 @@ KERNEL_INFO = ("fdct_quantize int8", "fdct_quantize int32",
                "idct_planes overflow")
 
 
+def slot_sample(j: int, slot) -> np.ndarray:
+    """The fDCT kernel's order of a block's samples on the tensor cores:
+    slot (0..31) of k-step j (0, 1) of mma m16n8k32 holds sample s = 8 (2 t
+    + j) + 4 h + e, slot = 16 h + 4 t + e.  Lane 4 g + t of a warp loads
+    rows 2 t and 2 t + 1 of its tile's blocks g and g + 8 as two 4-byte
+    half-rows each (h = 0 the left, 1 the right), which are its A
+    fragments' registers as they are: row 2 t + j's halves h of block g in
+    registers 2 h, of block g + 8 in 2 h + 1.  The table's rows take the
+    same order, so each product sums the same 64 terms."""
+    slot = np.asarray(slot)
+    h, t, e = slot >> 4, (slot >> 2) & 3, slot & 3
+    return 8 * (2 * t + j) + 4 * h + e
+
+
 @functools.lru_cache(maxsize=1)
-def _fdct_tables() -> np.ndarray:
-    """The separable fDCT's float32 tables, C[v][x] then S[u][v] (128
-    values, host memory), handed to the fDCT kernel's launcher."""
-    c = codec_constants("cpu")
-    return np.ascontiguousarray(np.concatenate(
-        [c["fdct_cos_f32"].numpy().ravel(),
-         c["fdct_scale_f32"].numpy().ravel()]), np.float32)
+def fragment_table() -> np.ndarray:
+    """W_int's three digits (constants.FDCT_DIGITS) as the fDCT kernel's B
+    fragments, int32 [3, 8, 32, 4] (12,288 bytes): [d][n-tile u][lane 4 g
+    + t][2 j + r] is register r of k-step j of lane 4 g + t for coefficient
+    row u, its byte e digit d of sample slot_sample(j, 16 r + 4 t + e) and
+    coefficient k = 8 u + g (mma m16n8k32's B layout: register r holds
+    rows 4 t + 16 r .. + 3 of column g, the low byte first).  A lane reads
+    its 4 words of one digit and n-tile as one 16-byte word, neighbouring
+    lanes on neighbouring words."""
+    e = np.arange(4)
+    out = np.zeros((3, 8, 32, 4), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for j in range(2):
+            for r in range(2):
+                s = slot_sample(j, 16 * r + 4 * t + e)
+                for u in range(8):
+                    b = FDCT_DIGITS[:, s, 8 * u + g].astype(np.int64) & 0xFF
+                    out[:, u, lane, 2 * j + r] = (b << (8 * e)).sum(axis=1)
+    return out.astype(np.uint32).view(np.int32)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_digits(device: torch.device) -> torch.Tensor:
+    """fragment_table on device (once per device), passed to the fDCT
+    kernel, which stages it in shared memory."""
+    return torch.from_numpy(fragment_table().copy()).to(device)
 
 
 def kernel_info() -> dict:
@@ -101,7 +137,9 @@ def fdct_quantize_cuda(y, cb, cr, yqt, cqt, *, gray: bool = False,
     all three alike, any strides; H, W multiples of 16), quant tables yqt,
     cqt [64] int32 -> (yq [N, 4 nm, 64], cbq, crq [N, nm, 64]) int32
     quantized blocks in natural order, nm = H W / 256 MCUs an image.  On
-    the inputs' device and stream."""
+    the inputs' device and stream.  The kernel multiplies int8 samples:
+    int32 planes are narrowed, so a sample outside [-128, 127] raises
+    (checked on the int32 form alone, the one that synchronises)."""
     global fdct_launches
     fn = "fdct_quantize_cuda"
     if y.dim() != 3 or y.shape[1] % 16 or y.shape[2] % 16:
@@ -115,19 +153,25 @@ def fdct_quantize_cuda(y, cb, cr, yqt, cqt, *, gray: bool = False,
                   ("cr", cr, y.dtype, (N, H // 2, W // 2)),
                   ("yqt", yqt, torch.int32, (64,)),
                   ("cqt", cqt, torch.int32, (64,)))
+    if y.dtype == torch.int32 and y.numel() > 0:
+        for name, p in (("y", y), ("cb", cb), ("cr", cr)):
+            lo, hi = (int(v) for v in torch.aminmax(p))
+            if lo < -128 or hi > 127:
+                raise ValueError(f"{fn}: {name} holds samples in [{lo}, "
+                                 f"{hi}], want [-128, 127] (int8)")
     lib = LIB.get()
     dev = y.device
     my, mx = H // 16, W // 16
     desc = np.array([N, my, mx, int(gray), int(rounded), *y.stride(),
                      *cb.stride(), *cr.stride()], np.int64)
-    sep = _fdct_tables()
     with torch.cuda.device(dev):
+        digits = _device_digits(dev)
         tabs = [t.contiguous() for t in (yqt, cqt)]
         outs = [torch.empty((N, k * my * mx, 64), dtype=torch.int32,
                             device=dev) for k in (4, 1, 1)]
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jz_fdct_quantize(
-            _SAMPLE_BYTES[y.dtype], desc.ctypes.data, sep.ctypes.data,
+            _SAMPLE_BYTES[y.dtype], desc.ctypes.data, digits.data_ptr(),
             *(t.data_ptr() for t in (y, cb, cr, *tabs, *outs)), stream)
     LIB.raise_on("fdct_quantize", rc)
     if N > 0:

@@ -47,19 +47,23 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, H, W, REPS = 16, 512, 512, 20
 
 
+def _once(text: str, mark: str) -> None:
+    if text.count(mark) != 1:
+        raise RuntimeError(f"the kernel's source no longer holds {mark!r} "
+                           "once")
+
+
 def _const(text: str, name: str, value: int) -> str:
     pat = rf"constexpr int {name} = [^;]+;"
     if not re.search(pat, text):
-        raise RuntimeError(f"entropy_pack.cu no longer holds {name}")
+        raise RuntimeError(f"the kernel's source no longer holds {name}")
     return re.sub(pat, f"constexpr int {name} = {value};", text, count=1)
 
 
 def _cut(text: str, begin: str, end: str, put: str) -> str:
     """text with [begin, end) replaced by put (both marks once in it)."""
-    for mark in (begin, end):
-        if text.count(mark) != 1:
-            raise RuntimeError(f"entropy_pack.cu no longer holds {mark!r} "
-                               "once")
+    _once(text, begin)
+    _once(text, end)
     i = text.index(begin)
     return text[:i] + put + text[text.index(end, i):]
 

@@ -39,12 +39,20 @@
 //     exact_transforms.cu skips the exact products by 1 and the zero
 //     samples of a warp's 4 blocks, and walks their union with the tables
 //     as constant-bank operands.
+//   jz_prev_fdct_quantize  the fDCT kernel of block_transforms.cu as PR 9
+//     designed it: the separable float32 form (a row pass and a column
+//     pass of 8 terms, then one multiply by c_u c_v / 4), 4 blocks a warp,
+//     a lane a row and then a column, the transposes through a per-warp
+//     shared tile, the cosines as kernel parameters; 103 registers, 16
+//     warps an SM, bound by instruction issue.  The current kernel takes
+//     the integer form on the int8 tensor cores, 16 blocks a warp.
 //
 // All are verbatim but for names: the first fused entropy kernel with the
 // helpers of its source in namespace fused_first, the concat it fed in
 // namespace concat_first, the exact kernels and the first fast rgb IDCT
-// in namespace first_exact, and the first overflow launch with the
-// helpers and argument structs of its source in namespace first_overflow.
+// in namespace first_exact, the first overflow launch with the helpers
+// and argument structs of its source in namespace first_overflow, and
+// PR 9's fDCT kernel with its helpers in namespace first_fdct.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -1510,6 +1518,265 @@ cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
 
 }  // namespace first_overflow
 
+namespace first_fdct {
+
+// Kernel 1 of block_transforms.cu as PR 9 designed it: 8 warps a thread
+// block, 4 blocks a warp at a time.
+constexpr int kFdctThreads = 256;
+constexpr int kFdctWarps = kFdctThreads / 32;
+constexpr int kFdctTile = 4;      // blocks a warp's tile
+constexpr int kBlockWords = 72;   // a block's words in the warp's tile
+constexpr int kRowWords = 9;      // a row's words there (the row pass)
+
+struct FdctComp {
+  const void* base;       // the plane's first sample
+  long long sn, sr, sc;   // element strides: image, row, column
+  const int32_t* q;       // [64] quant table
+  int32_t* out;           // [N, nblocks, 64]
+  int nblocks;
+  float rcp_nb;           // 1 / nblocks rounded up (set in the kernel)
+};
+
+struct FdctArgs {
+  FdctComp comp[3];
+  float cosv[64];         // C[v][x], v * 8 + x: the same in every lane
+  float scale[64];        // S[u][v], u * 8 + v
+  int nimages, mcus_x, gray, rounded;
+  int ty, tc;             // tiles of luma, of each chroma component
+};
+
+// A lane's row of 8 samples as loaded: 8 bytes (int8) or 8 words.
+template <typename T>
+struct RowRaw;
+template <>
+struct RowRaw<int8_t> {
+  uint2 w;
+  __device__ __forceinline__ void zero() { w = make_uint2(0u, 0u); }
+  __device__ __forceinline__ float at(int j) const {
+    const uint32_t v = j < 4 ? w.x : w.y;
+    return __int2float_rn(static_cast<int8_t>((v >> (8 * (j & 3))) & 0xFF));
+  }
+};
+template <>
+struct RowRaw<int32_t> {
+  int4 a, b;
+  __device__ __forceinline__ void zero() {
+    a = b = make_int4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ float at(int j) const {
+    const int4& p = j < 4 ? a : b;
+    const int k = j & 3;
+    return __int2float_rn(k == 0 ? p.x : (k == 1 ? p.y : (k == 2 ? p.z
+                                                                  : p.w)));
+  }
+};
+
+__device__ __forceinline__ void load_row(const int8_t* src, long long sc,
+                                         RowRaw<int8_t>* raw) {
+  if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+    raw->w = __ldg(reinterpret_cast<const uint2*>(src));
+    return;
+  }
+  uint32_t lo = 0, hi = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    lo |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(src + j * sc)))
+          << (8 * j);
+    hi |= static_cast<uint32_t>(
+              static_cast<uint8_t>(__ldg(src + (j + 4) * sc)))
+          << (8 * j);
+  }
+  raw->w = make_uint2(lo, hi);
+}
+
+__device__ __forceinline__ void load_row(const int32_t* src, long long sc,
+                                         RowRaw<int32_t>* raw) {
+  if (sc == 1 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    raw->a = __ldg(reinterpret_cast<const int4*>(src));
+    raw->b = __ldg(reinterpret_cast<const int4*>(src) + 1);
+    return;
+  }
+  raw->a = make_int4(__ldg(src), __ldg(src + sc), __ldg(src + 2 * sc),
+                     __ldg(src + 3 * sc));
+  raw->b = make_int4(__ldg(src + 4 * sc), __ldg(src + 5 * sc),
+                     __ldg(src + 6 * sc), __ldg(src + 7 * sc));
+}
+
+// C's truncating division num / den for num >= 0 and den >= 1, from
+// rcp = 1/den rounded up (the quantizer's and the index arithmetic's
+// divisions).  Below 2^22 the product num rcp, rounded up, is at least
+// num / den and below num / den + num / den 2^-22 (1 + 2^-24), which stays
+// under the next integer since the remainder is at most den - 1; so its
+// truncation is the quotient.  Above, or where den is 2^24 or more (rcp
+// 0), the integer division.
+__device__ __forceinline__ int div_exact(int num, int den, float rcp) {
+  if (num >= (1 << 22) || rcp == 0.f) return num / den;
+  return __float2int_rz(__fmul_ru(__int2float_rn(num), rcp));
+}
+
+// 1/d rounded up for div_exact, 0 from 2^24 on.
+__device__ __forceinline__ float rcp_up(int d) {
+  return d < (1 << 24) ? __frcp_ru(__int2float_rn(d)) : 0.f;
+}
+
+// Tile `tile` (kFdctTile blocks) -> its component and first block; the
+// lane's row (lane = 8 b + r: row r of the tile's block b) loaded into
+// *raw, zeros past the component's last block and for gray chroma.
+template <typename T>
+__device__ __forceinline__ void fdct_load(const FdctArgs& a,
+                                          const FdctComp* comps,
+                                          float rcp_mx, int tile, int lane,
+                                          int* c, int* first,
+                                          RowRaw<T>* raw) {
+  int lt = tile;
+  *c = lt < a.ty ? 0 : (lt < a.ty + a.tc ? 1 : 2);
+  lt -= *c == 0 ? 0 : (*c == 1 ? a.ty : a.ty + a.tc);
+  *first = lt * kFdctTile;
+  raw->zero();
+  const FdctComp& P = comps[*c];
+  const int f = *first + (lane >> 3);
+  if (f >= a.nimages * P.nblocks || (a.gray && *c > 0)) return;
+  const int n = div_exact(f, P.nblocks, P.rcp_nb);
+  const int bi = f - n * P.nblocks;
+  // 4:2:0: luma blocks TL, TR, BL, BR of MCU bi / 4, chroma MCU bi
+  const int m = *c == 0 ? bi >> 2 : bi;
+  const int my = div_exact(m, a.mcus_x, rcp_mx);
+  const int mx = m - my * a.mcus_x;
+  const int y = (*c == 0 ? (2 * my + ((bi >> 1) & 1)) * 8 : my * 8) +
+                (lane & 7);
+  const int x0 = *c == 0 ? (2 * mx + (bi & 1)) * 8 : mx * 8;
+  const T* src = static_cast<const T*>(P.base) + n * P.sn + y * P.sr +
+                 x0 * P.sc;
+  load_row(src, P.sc, raw);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kFdctThreads)
+    fdct_first_kernel(const __grid_constant__ FdctArgs a) {
+  __shared__ __align__(16) float tiles[kFdctWarps][kFdctTile * kBlockWords];
+  __shared__ float scale[64];
+  __shared__ int den[2][64];     // luma, chroma: q, or 2 q when rounded
+  __shared__ int bias[2][64];    // what a rounded quotient adds: q, or 0
+  __shared__ float rcp[2][64];   // 1 / den, rounded up
+  __shared__ FdctComp comps[3];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  if (t < 3) {
+    comps[t] = a.comp[t];
+    comps[t].rcp_nb = rcp_up(a.comp[t].nblocks);
+  }
+  const float rcp_mx = rcp_up(a.mcus_x);
+  if (t < 128) {
+    const int k = t & 63;
+    const int q = __ldg(a.comp[t >> 6].q + k);
+    const int d = a.rounded ? 2 * q : q;
+    den[t >> 6][k] = d;
+    bias[t >> 6][k] = a.rounded ? q : 0;
+    rcp[t >> 6][k] = rcp_up(d);
+  } else if (t < 192) {
+    scale[t - 128] = a.scale[t - 128];
+  }
+  __syncthreads();
+  float* tile = tiles[t >> 5];
+  const int b = lane >> 3;      // the lane's block in the tile
+  const int r = lane & 7;       // its row (row pass), then column
+  const int total = a.ty + 2 * a.tc;
+  const int warps = gridDim.x * kFdctWarps;
+  // the samples of the next tile are loaded while this one is summed
+  int c_next = 0, first_next = 0;
+  RowRaw<T> next;
+  int tile_i = blockIdx.x * kFdctWarps + (t >> 5);
+  if (tile_i < total)
+    fdct_load<T>(a, comps, rcp_mx, tile_i, lane, &c_next, &first_next,
+                 &next);
+  for (; tile_i < total; tile_i += warps) {
+    const int c = c_next;
+    const int first = first_next;
+    const RowRaw<T> cur = next;
+    if (tile_i + warps < total)
+      fdct_load<T>(a, comps, rcp_mx, tile_i + warps, lane, &c_next,
+                   &first_next, &next);
+    const FdctComp& P = comps[c];
+    const int nb = a.nimages * P.nblocks;
+    int4* out = reinterpret_cast<int4*>(P.out + static_cast<long long>(first)
+                                                    * 64);
+    if (a.gray && c > 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (first + ((lane + 32 * j) >> 4) < nb)
+          out[lane + 32 * j] = make_int4(0, 0, 0, 0);
+      continue;
+    }
+    // row pass: t[r][v], into the tile at b 72 + r 9 + v
+    float x[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) x[j] = cur.at(j);
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      // C[0][x] is 1: its products are the samples themselves
+      float s = v == 0 ? x[0] : __fmul_rn(x[0], a.cosv[v * 8]);
+#pragma unroll
+      for (int k = 1; k < 8; ++k)
+        s = __fadd_rn(s, v == 0 ? x[k] : __fmul_rn(x[k], a.cosv[v * 8 + k]));
+      tile[b * kBlockWords + r * kRowWords + v] = s;
+    }
+    __syncwarp();
+    // column pass: lane 8 b + v takes column v of block b
+    float col[8];
+#pragma unroll
+    for (int y = 0; y < 8; ++y)
+      col[y] = tile[b * kBlockWords + y * kRowWords + r];
+    __syncwarp();
+    const int* dn = den[c > 0];
+    const int* bs = bias[c > 0];
+    const float* rc = rcp[c > 0];
+    const int up = a.rounded;
+    int* qtile = reinterpret_cast<int*>(tile);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float o = u == 0 ? col[0] : __fmul_rn(a.cosv[u * 8], col[0]);
+#pragma unroll
+      for (int y = 1; y < 8; ++y)
+        o = __fadd_rn(o, u == 0 ? col[y]
+                                : __fmul_rn(a.cosv[u * 8 + y], col[y]));
+      // quantize: |c| / q, or (2|c| + q) / (2q) rounded
+      const int k = u * 8 + r;
+      const int cf = __float2int_rz(__fmul_rn(o, scale[k]));
+      const int mag = cf < 0 ? -cf : cf;
+      const int qv = div_exact((mag << up) + bs[k], dn[k], rc[k]);
+      qtile[b * kBlockWords + k] = cf < 0 ? -qv : qv;
+    }
+    __syncwarp();
+    // out: lane l stores words 4 (l + 32 j) .. + 3 of the tile's 256
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = 4 * (lane + 32 * j);
+      if (first + (e >> 6) < nb)
+        out[lane + 32 * j] = *reinterpret_cast<const int4*>(
+            &qtile[(e >> 6) * kBlockWords + (e & 63)]);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename K>
+cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (e != cudaSuccess) return e;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<int>(units < resident ? units : resident);
+  return cudaSuccess;
+}
+
+}  // namespace first_fdct
+
 extern "C" {
 
 // The first fused entropy kernel, with the arguments of
@@ -1592,6 +1859,61 @@ int jz_prev_concat_streams(const void* wy, const void* wcb, const void* wcr,
                                 static_cast<cudaStream_t>(stream)>>>(
       c, nimages, nm, ri, nseg, maxw, tile_mcus, ntiles, stage_words,
       static_cast<int64_t*>(combined));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// PR 9's fDCT kernel, with the arguments of jz_fdct_quantize as it was
+// then: tabs (host memory), 128 float32, C[v][x] then S[u][v] (the
+// separable form's tables, passed to the kernel as parameters).
+int jz_prev_fdct_quantize(int elem_bytes, const long long* desc,
+                          const float* tabs, const void* y, const void* cb,
+                          const void* cr, const void* yq, const void* cq,
+                          void* oy, void* ocb, void* ocr, void* stream) {
+  using namespace first_fdct;
+  const long long nimages = desc[0], mcus_y = desc[1], mcus_x = desc[2];
+  if (nimages <= 0 || mcus_y <= 0 || mcus_x <= 0) return 0;
+  const long long nm = mcus_y * mcus_x;
+  if (nimages * 4 * nm > 0x7FFFFFFFll || (elem_bytes != 1 && elem_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FdctArgs a;
+  const void* bases[3] = {y, cb, cr};
+  void* outs[3] = {oy, ocb, ocr};
+  for (int c = 0; c < 3; ++c) {
+    FdctComp& p = a.comp[c];
+    p.base = bases[c];
+    p.sn = desc[5 + 3 * c];
+    p.sr = desc[6 + 3 * c];
+    p.sc = desc[7 + 3 * c];
+    p.q = static_cast<const int32_t*>(c == 0 ? yq : cq);
+    p.out = static_cast<int32_t*>(outs[c]);
+    p.nblocks = static_cast<int>(c == 0 ? 4 * nm : nm);
+  }
+  for (int i = 0; i < 64; ++i) {
+    a.cosv[i] = tabs[i];
+    a.scale[i] = tabs[64 + i];
+  }
+  a.nimages = static_cast<int>(nimages);
+  a.mcus_x = static_cast<int>(mcus_x);
+  a.gray = desc[3] != 0;
+  a.rounded = desc[4] != 0;
+  a.ty = static_cast<int>((nimages * 4 * nm + kFdctTile - 1) / kFdctTile);
+  a.tc = static_cast<int>((nimages * nm + kFdctTile - 1) / kFdctTile);
+  const long long blocks_needed =
+      (a.ty + 2ll * a.tc + kFdctWarps - 1) / kFdctWarps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int grid = 0;
+  cudaError_t e;
+  if (elem_bytes == 1) {
+    e = grid_for(fdct_first_kernel<int8_t>, kFdctThreads, blocks_needed,
+                 &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fdct_first_kernel<int8_t><<<grid, kFdctThreads, 0, s>>>(a);
+  } else {
+    e = grid_for(fdct_first_kernel<int32_t>, kFdctThreads, blocks_needed,
+                 &grid);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fdct_first_kernel<int32_t><<<grid, kFdctThreads, 0, s>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1730,8 +2052,8 @@ int jz_prev_idct_planes_overflow(const long long* desc, const void* src,
 // shape, tiles of 128 MCUs and a budget of 12,288 words; 2: the first
 // exact forward, int8 samples; 3: the first exact inverse, int16
 // coefficients; 4: the first fast rgb IDCT, int16 coefficients; 5: the
-// first overflow launch of the ycc420 IDCT), as jz_entropy_kernel_info
-// reports it.
+// first overflow launch of the ycc420 IDCT; 6, 7: PR 9's fDCT kernel, int8
+// and int32 samples), as jz_entropy_kernel_info reports it.
 int jz_prev_kernel_info(int which, int* info) {
   switch (which) {
     case 0:
@@ -1766,6 +2088,12 @@ int jz_prev_kernel_info(int which, int* info) {
     case 5:
       return kernel_info(first_overflow::idct_overflow_first_kernel,
                          first_overflow::kIdctThreads, info);
+    case 6:
+      return kernel_info(first_fdct::fdct_first_kernel<int8_t>,
+                         first_fdct::kFdctThreads, info);
+    case 7:
+      return kernel_info(first_fdct::fdct_first_kernel<int32_t>,
+                         first_fdct::kFdctThreads, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

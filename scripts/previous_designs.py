@@ -1,4 +1,4 @@
-"""The earlier designs of six of jpezy_tpu_torch's kernels, built from
+"""The earlier designs of seven of jpezy_tpu_torch's kernels, built from
 scripts/previous_designs.cu with the package's loader, so that
 chip_smoke.py times them beside the current kernels in one run, on the
 same inputs and the same card.  Nothing in the package calls them.
@@ -34,6 +34,12 @@ same inputs and the same card.  Nothing in the package calls them.
                      sparse launch, then the first overflow launch (a group
                      of 8 lanes a row, every term's coefficient loaded
                      again, the [64][64] basis in shared memory).
+  fdct_quantize_first
+                     PR 9's fDCT kernel, with the arguments and results of
+                     transform_cuda.fdct_quantize_cuda: the separable
+                     float32 form (block_transform.separable_forward is its
+                     model), 4 blocks a warp, a lane a row then a column,
+                     transposes through a per-warp shared tile.
 
 All raise without a card; none falls back.
 """
@@ -46,7 +52,7 @@ import torch
 
 import numpy as np
 
-from jpezy_tpu_torch.constants import EXACT_TABLES
+from jpezy_tpu_torch.constants import EXACT_TABLES, FDCT_COS, FDCT_SCALE
 from jpezy_tpu_torch.ops import concat_cuda, exact_cuda
 from jpezy_tpu_torch.ops.cuda_build import KernelLibrary
 from jpezy_tpu_torch.ops.pack_cuda import annex_k_row
@@ -56,7 +62,8 @@ from jpezy_tpu_torch.ops.transform_cuda import _inverse_basis_t
 KERNEL_INFO = ("encode_blocks fused first", "concat_streams 64-bit loads",
                "fdct_quantize_exact first int8",
                "idct_planes_exact first int16", "idct_planes_rgb first int16",
-               "idct_planes overflow first")
+               "idct_planes overflow first", "fdct_quantize first int8",
+               "fdct_quantize first int32")
 
 
 def _bind(lib) -> None:
@@ -74,6 +81,8 @@ def _bind(lib) -> None:
     lib.jz_prev_idct_planes_rgb.argtypes = [ci] + [vp] * 8
     lib.jz_prev_idct_planes_overflow.restype = ci
     lib.jz_prev_idct_planes_overflow.argtypes = [vp] * 6
+    lib.jz_prev_fdct_quantize.restype = ci
+    lib.jz_prev_fdct_quantize.argtypes = [ci] + [vp] * 11
     lib.jz_prev_kernel_info.restype = ci
     lib.jz_prev_kernel_info.argtypes = [ci, vp]
 
@@ -238,3 +247,31 @@ def idct_planes_overflow_first(flat, qtab, *, geom, level: int, shapes, K: int,
         torch.cuda.current_stream().cuda_stream)
     LIB.raise_on("prev_idct_planes_overflow", rc)
     return out
+
+
+# the separable form's float32 tables, C[v][x] then S[u][v] (host memory),
+# as PR 9's launcher took them
+_SEPARABLE = np.ascontiguousarray(np.concatenate(
+    [FDCT_COS.ravel(), FDCT_SCALE.ravel()]), np.float32)
+
+
+def fdct_quantize_first(y, cb, cr, yqt, cqt, *, gray: bool = False,
+                        rounded: bool = False):
+    """transform_cuda.fdct_quantize_cuda's arguments and results from PR
+    9's kernel: (yq [N, 4 nm, 64], cbq, crq [N, nm, 64]) int32, equal to
+    block_transform.fdct_quantize_model with transform=separable_forward."""
+    lib = LIB.get()
+    N, H, W = y.shape
+    my, mx = H // 16, W // 16
+    desc = np.array([N, my, mx, int(gray), int(rounded), *y.stride(),
+                     *cb.stride(), *cr.stride()], np.int64)
+    tabs = [t.contiguous() for t in (yqt, cqt)]
+    outs = [torch.empty((N, k * my * mx, 64), dtype=torch.int32,
+                        device=y.device) for k in (4, 1, 1)]
+    rc = lib.jz_prev_fdct_quantize(
+        {torch.int8: 1, torch.int32: 4}[y.dtype], desc.ctypes.data,
+        _SEPARABLE.ctypes.data,
+        *(t.data_ptr() for t in (y, cb, cr, *tabs, *outs)),
+        torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_fdct_quantize", rc)
+    return tuple(outs)

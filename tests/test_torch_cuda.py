@@ -371,7 +371,8 @@ def _scan_blocks(streams, ri):
 
 def _fdct_model_cpu(y, cb, cr, *, gray, rounded, qtables=None):
     """BT.fdct_quantize on CPU tensors through the fDCT kernel's numpy
-    model (the separable form) in place of the plain version."""
+    model (the integer form, block_transform.integer_forward) in place of
+    the plain version."""
     from jpezy_tpu_torch.ops import block_transform as BT
 
     assert not y.is_cuda
@@ -757,10 +758,16 @@ def _transform_images(h, w, seed, n=2):
 def _fdct_cases(dev):
     """(label, (y, cb, cr) on dev, kwargs of fdct_quantize) of the fDCT
     kernel: the ycc420 upload's int8 views (Annex K, quality 95, rounded,
-    gray), noise, and the rgb path's int32 planes with strided chroma."""
+    gray), noise, the rgb path's int32 planes with strided chroma, the
+    extreme blocks of testing/fdct_int (Annex K, rounded), quant tables
+    with divisors of 2^21 or more (where div_exact's guard would be the
+    first to matter; the reciprocal alone must still be exact) and
+    batches of 3 images of 48x16, 48x32 and 128x64, whose components end
+    in tiles of fewer than the kernel's 16 blocks."""
     from jpezy_tpu_torch.core import tables as T
     from jpezy_tpu_torch.ops import blocks as B
     from jpezy_tpu_torch.ops import colorspace as C
+    from jpezy_tpu_torch.testing import fdct_int as FI
 
     def upload(rgbs):
         y, cb, cr = HG.host_rgb_to_ycc420(rgbs)
@@ -778,18 +785,32 @@ def _fdct_cases(dev):
     strided = (y, B.decimate_420(cb), B.decimate_420(cr))
     q95 = tuple(torch.from_numpy(t).to(dev) for t in
                 T.scale_quant_tables(95))
+    extreme = tuple(torch.from_numpy(p).to(dev)
+                    for p in FI.planes_of(FI.extreme_blocks()))
+    # divisors of 2^21 or more: the quantizer's reciprocals alone stay exact
+    big = tuple(torch.from_numpy(np.where(np.arange(64) % 9 == 4, 5 << 20,
+                                          t)).to(dev)
+                for t in T.scale_quant_tables(50))
     plain = dict(gray=False, rounded=False)
     return [("annexk", real, plain), ("q95", real, dict(plain, qtables=q95)),
             ("rounded", real, dict(plain, rounded=True)),
             ("gray", real, dict(plain, gray=True)),
-            ("noise", noise, plain), ("rgb int32 strided", strided, plain)]
+            ("noise", noise, plain), ("rgb int32 strided", strided, plain),
+            ("extreme", extreme, plain),
+            ("extreme rounded", extreme, dict(plain, rounded=True)),
+            ("divisors of 2^21", real, dict(plain, qtables=big)),
+            ("divisors of 2^21 rounded", real, dict(plain, qtables=big,
+                                                     rounded=True))] + [
+        (f"{w}x{h} tails", upload(_transform_images(h, w, 403 + h, n=3)),
+         plain) for w, h in ((48, 16), (48, 32), (128, 64))]
 
 
 def test_fdct_kernel_matches_model(cuda):
     """The fDCT kernel is bit-identical to block_transform's numpy model
-    (the same separable float32 sums) and within 1 of the plain version
-    (cuBLAS sums the 64-term form), differing on at most 2e-3 of the
-    coefficients; one launch a call, no copy of the strided planes."""
+    (the integer form: exact int8 products with W_int's three digits) and
+    within 1 of the plain version (cuBLAS sums the 64-term float32 form),
+    differing on at most 2e-3 of the coefficients; one launch a call, no
+    copy of the strided planes."""
     from jpezy_tpu_torch.ops import block_transform as BT
     from jpezy_tpu_torch.ops import transform_cuda
 
@@ -813,6 +834,25 @@ def test_fdct_kernel_matches_model(cuda):
             n_diff += int((g != p).sum())
             n_all += g.numel()
         assert n_diff <= 2e-3 * n_all, label
+
+
+@pytest.mark.parametrize("sample", [128, -129])
+def test_fdct_kernel_refuses_int32_samples_outside_int8(cuda, sample):
+    """The kernel multiplies int8 samples: an int32 plane holding a sample
+    outside [-128, 127] raises in the wrapper, before any launch, where
+    narrowing would wrap it."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import transform_cuda
+
+    planes = [p.to(torch.int32) for p in _fdct_cases(cuda)[0][1]]
+    for i in range(3):
+        bad = [p.clone() for p in planes]
+        bad[i][0, 3, 5] = sample
+        before = transform_cuda.fdct_launches
+        with pytest.raises(ValueError, match=r"\[-128, 127\]"):
+            BT.fdct_quantize(*bad, gray=False, rounded=False)
+        assert transform_cuda.fdct_launches == before
+    BT.fdct_quantize(*planes, gray=False, rounded=False)
 
 
 def _sparse_case(streams):

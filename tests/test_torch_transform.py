@@ -15,12 +15,19 @@ tensors and their plain versions on CPU tensors.  Here, on the CPU:
     orders), with the share of values that differ stated and bounded, and
     identical on flat blocks and DC-only blocks, where every product is
     exact in float32;
-  - the float32 numpy models of the kernels' arithmetic (the fDCT's
-    separable form, the IDCT's ascending sums): equal to the plain
-    versions exactly when both take the same float part (the layout,
+  - the numpy models of the kernels' arithmetic (the fDCT's integer
+    form, PR 9's separable one, the IDCT's ascending sums): equal to the
+    plain versions exactly when both take the same float part (the layout,
     densify, overflow rows, dequantize, quantize, rounded, gray, clamp),
     within 1 with the kernels' own order, and the sparse and dense forms
     give identical planes for the same blocks;
+  - the integer fDCT model (integer_forward): W_int and its three 8-bit
+    digits, each digit's sum within int32 on the extreme blocks, the
+    kernel's 32-bit recombination, a register-by-register model of a warp
+    tile's tensor-core fragments, the DC trunc(sum / 8), within 1 of the
+    64-term float32 form and of JAX, no more often off an
+    extended-precision truth, and against the plain form on images whose
+    components end in short tiles;
   - the separable fDCT model: its DC is the exact sum times 0.125, flat
     blocks give DC only, it is within 1 of the 64-term float32 form and of
     an extended-precision truth and no more often off the truth, and the
@@ -43,11 +50,13 @@ from jpezy_tpu.parallel import sharded as JS
 from jpezy_tpu_torch.bitstream.reader import parse
 from jpezy_tpu_torch.codec import host_glue as HG
 from jpezy_tpu_torch.codec import torch_codec as TC
+from jpezy_tpu_torch.constants import FDCT_DIGITS, FDCT_INT
 from jpezy_tpu_torch.core import tables as T
 from jpezy_tpu_torch.ops import block_transform as BT
 from jpezy_tpu_torch.ops import dct as D
 from jpezy_tpu_torch.ops import entropy_decode as ED
 from jpezy_tpu_torch.ops import transform_cuda
+from jpezy_tpu_torch.testing import fdct_int as FI
 
 from test_torch_host_copies import host_runtime  # noqa: F401 (autouse)
 
@@ -218,14 +227,15 @@ def _synthetic_blocks(n, seed):
 @pytest.fixture(scope="module")
 def forward_sets(planes):
     """The test planes' blocks and 16,384 synthetic ones, with the
-    separable model's, the 64-term form's and the truth's coefficients."""
+    separable model's, the integer model's, the 64-term form's and the
+    truth's coefficients."""
     y, cb, cr = planes
     blk = np.concatenate(
         [BT._blockify(y.astype(np.int32), 2, 2).reshape(-1, 64)]
         + [BT._blockify(p.astype(np.int32), 1, 1).reshape(-1, 64)
            for p in (cb, cr)] + [_synthetic_blocks(16384, 321)])
-    return {"sep": BT.separable_forward(blk), "f64": _forward64(blk),
-            "truth": _forward_truth(blk)}
+    return {"sep": BT.separable_forward(blk), "int": BT.integer_forward(blk),
+            "f64": _forward64(blk), "truth": _forward_truth(blk)}
 
 
 QUANT_SETTINGS = {"annexk": (None, False), "q95": (95, False),
@@ -365,6 +375,176 @@ def test_fdct_model_reads_strided_int32_planes():
     assert all(np.array_equal(p.numpy(), m) for p, m in zip(plain, model))
     assert all(np.array_equal(a.numpy(), b.numpy()) for a, b in zip(
         plain, TC._quantize_batch_rgb(rgb)))
+
+
+# ---------------------------------------------------------------------------
+# fdct_quantize: the integer form of the kernel (integer_forward)
+# ---------------------------------------------------------------------------
+
+
+def test_integer_table_and_digits():
+    """W_int = round(W 2^24) from the float64 forward basis, below 2^22,
+    its DC column 2^21 exactly, no column's magnitudes summing past the
+    DC's 2^27; the three digits are balanced signed bytes that recombine
+    to W_int exactly; the kernel's B fragments (transform_cuda.
+    fragment_table, 12,288 bytes) hold every digit once, at the sample
+    order of transform_cuda.slot_sample, a permutation."""
+    w = FDCT_INT
+    assert np.array_equal(w, np.round(D._FWD64.T * 2.0 ** 24))
+    assert np.abs(w).max() < 1 << 22 and (w[:, 0] == 1 << 21).all()
+    # int8 samples keep every coefficient within 1,024 (the DC's bound),
+    # which lets the kernel's quantizer skip div_exact's guard
+    assert 128 * np.abs(w).sum(axis=0).max() == 1024 << 24
+    d = FDCT_DIGITS.astype(np.int64)
+    assert FDCT_DIGITS.dtype == np.int8
+    assert np.array_equal(d[0] + (d[1] << 8) + (d[2] << 16), w)
+    assert [int(np.abs(x).max()) for x in d] == [122, 119, 62]
+    slots = np.concatenate([transform_cuda.slot_sample(j, np.arange(32))
+                            for j in (0, 1)])
+    assert sorted(slots.tolist()) == list(range(64))
+    table = transform_cuda.fragment_table()
+    assert table.shape == (3, 8, 32, 4) and table.nbytes == 12288
+    got = np.sort(table.view(np.int8).reshape(3, -1), axis=1)
+    assert np.array_equal(got, np.sort(FDCT_DIGITS.reshape(3, -1), axis=1))
+
+
+def _integer_sets():
+    rng = np.random.default_rng(350)
+    levels = np.arange(-128, 128)
+    return {"extreme": FI.extreme_blocks(),
+            "flat": np.repeat(levels[:, None], 64, axis=1),
+            "noise": rng.integers(-128, 128, (4096, 64)),
+            "synthetic": _synthetic_blocks(4096, 351)}
+
+
+@pytest.mark.parametrize("label", ["extreme", "flat", "noise", "synthetic"])
+def test_integer_digit_sums_stay_within_int32(label):
+    """Each digit's sum, the int32 accumulator of the kernel's tensor-core
+    products, stays below 2^20 (so below 2^31), largest on the extreme
+    blocks; recombined in the kernel's 32-bit steps it is the int64
+    truncation of X W_int / 2^24, integer_forward."""
+    blk = _integer_sets()[label]
+    acc = BT.digit_sums(blk)
+    assert np.abs(acc).max() < 1 << 20
+    if label == "extreme":
+        # each digit's sum reaches the largest magnitude any int8 block
+        # gives it: 127 or 128 times the sums of its positive and of its
+        # negative entries
+        for a, d in zip(acc, FDCT_DIGITS.astype(np.int64)):
+            pos, neg = np.clip(d, 0, None).sum(0), -np.clip(d, None, 0).sum(0)
+            most = np.maximum(127 * pos + 128 * neg, 128 * pos + 127 * neg)
+            assert np.abs(a).max() == most.max()
+    assert np.array_equal(BT.recombine_digits(acc), BT.integer_forward(blk))
+
+
+def test_recombine_digits_equals_int64_truncation():
+    """The kernel's 32-bit recombination against trunc(A / 2^24) in int64
+    on digit sums over their whole range, and on sums at the edges of a
+    quotient: A = m 2^24 + r for r in {-1, 0, 1} and both signs of m."""
+    rng = np.random.default_rng(352)
+    acc = rng.integers(-(1 << 20), 1 << 20, (3, 200000))
+    edges = []
+    for m in (-64, -2, -1, 0, 1, 2, 63):
+        for r in (-1, 0, 1):
+            a = m * (1 << 24) + r
+            a2 = int(np.clip(a // (1 << 16), -(1 << 19), (1 << 19) - 1))
+            rest = a - (a2 << 16)
+            a1 = rest // 256
+            edges.append((rest - 256 * a1, a1, a2))
+    acc = np.concatenate([acc, np.array(edges).T], axis=1)
+    total = acc[0] + (acc[1] << 8) + (acc[2] << 16)
+    want = np.sign(total) * (np.abs(total) >> 24)
+    assert np.abs(acc[0] + (acc[1] << 8)).max() < 1 << 31
+    assert np.array_equal(BT.recombine_digits(acc), want)
+
+
+@pytest.mark.parametrize("label", ["flat", "noise", "synthetic"])
+def test_integer_dc_is_the_exact_sum_over_8(label):
+    """W_int's DC column is 2^21, so the DC is trunc(sum(X) / 8) exactly;
+    flat blocks of every level give 8 times the level and no AC term."""
+    blk = _integer_sets()[label]
+    got = BT.integer_forward(blk)
+    s = blk.sum(axis=1)
+    assert np.array_equal(got[:, 0], np.sign(s) * (np.abs(s) // 8))
+    if label == "flat":
+        assert np.array_equal(got[:, 0], 8 * np.arange(-128, 128))
+        assert not got[:, 1:].any()
+
+
+@pytest.mark.parametrize("label", ["extreme", "noise", "planes"])
+def test_warp_tile_model_equals_digit_sums(label, planes):
+    """testing/fdct_int's model of a warp tile, register by register as the
+    PTX ISA lays out mma m16n8k32's s8 fragments (the lanes' loaded rows as
+    A, transform_cuda.fragment_table as B), equals the digit sums of the
+    tile's 16 blocks: the kernel's sample order and its table agree."""
+    if label == "planes":
+        blk = BT._blockify(planes[0].astype(np.int32), 2, 2).reshape(-1, 64)
+    else:
+        blk = _integer_sets()[label]
+    for tile in (blk[:16], blk[16:32], blk[-16:]):
+        assert np.array_equal(FI.warp_digit_sums(tile), BT.digit_sums(tile))
+
+
+def test_integer_within_one_of_64_term_and_jax(planes, forward_sets):
+    """integer_forward within 1 of the 64-term float32 form, differing on
+    at most 2e-3 of the coefficients; quantized through the model, within
+    1 of JAX's _quantize_local_ycc at float32 (the JAX package's own CPU
+    path)."""
+    d = np.abs(forward_sets["int"].astype(np.int64) - forward_sets["f64"])
+    assert d.max() <= 1 and (d > 0).mean() <= 2e-3
+    model = BT.fdct_quantize_model(*planes, gray=False, rounded=False,
+                                   transform=BT.integer_forward)
+    ref = JS._quantize_local_ycc(*(jnp.asarray(a) for a in planes),
+                                 gray=False, dtype=jnp.float32,
+                                 rounded=False, qtables=None)
+    for m, r in zip(model, ref):
+        assert np.abs(m.astype(np.int64) - np.asarray(r)).max() <= 1
+
+
+@pytest.mark.parametrize("setting", list(QUANT_SETTINGS))
+def test_integer_error_share_against_truth(forward_sets, setting):
+    """The integer form is off the extended-precision truth on at most
+    1.5 times as many quantized coefficients as the 64-term float32 form,
+    at each quantizer setting alone, within 1 of it and of the truth and
+    never off on a DC; and before quantization as rarely."""
+    q = _quantized(forward_sets, setting)
+    for other in ("f64", "truth"):
+        d = np.abs(q["int"].astype(np.int64) - q[other])
+        assert d.max() <= 1 and not d[:, 0].any(), other
+    n_int = int((q["int"] != q["truth"]).sum())
+    n_f64 = int((q["f64"] != q["truth"]).sum())
+    assert n_int <= 1.5 * n_f64
+    raw = {k: int((forward_sets[k] != forward_sets["truth"]).sum())
+           for k in ("int", "f64")}
+    assert 0 < raw["int"] <= 1.5 * raw["f64"]
+
+
+INTEGER_MODEL_SETTINGS = {"annexk": dict(gray=False, rounded=False),
+                          "q95": dict(gray=False, rounded=False,
+                                      qtables=T.scale_quant_tables(95)),
+                          "rounded": dict(gray=False, rounded=True),
+                          "gray": dict(gray=True, rounded=False)}
+
+
+@pytest.mark.parametrize("wh", [(48, 16), (48, 32), (128, 64)],
+                         ids=["48x16", "48x32", "128x64"])
+@pytest.mark.parametrize("setting", list(INTEGER_MODEL_SETTINGS))
+def test_integer_model_agrees_with_plain(setting, wh):
+    """fdct_quantize_model with integer_forward against the plain form
+    (the 64-term float32 product) on 3 images whose components end in
+    tiles of fewer than the kernel's 16 blocks: the same shapes, within
+    1, on at most 2e-3 of the coefficients (none on these)."""
+    w, h = wh
+    kw = INTEGER_MODEL_SETTINGS[setting]
+    p = _planes(np.stack([_img(h, w, 360 + i) for i in range(3)]))
+    plain = BT.fdct_quantize_plain(*(torch.from_numpy(a) for a in p), **kw)
+    model = BT.fdct_quantize_model(*p, transform=BT.integer_forward, **kw)
+    for g, m in zip(plain, model):
+        assert m.dtype == np.int32 and g.shape == m.shape
+        d = np.abs(g.numpy().astype(np.int64) - m)
+        assert d.max() <= 1 and (d > 0).mean() <= 2e-3
+        if kw["gray"] and g is not plain[0]:
+            assert not m.any()
 
 
 # ---------------------------------------------------------------------------
