@@ -476,7 +476,8 @@ PREVIOUS = {"encode_blocks_fused_first_kernel":
             "idct_exact_first_kernel": "previous idct_planes_exact",
             "idct_rgb_first_kernel": "previous idct_planes_rgb",
             "idct_overflow_first_kernel": "previous idct_planes overflow",
-            "fdct_first_kernel": "previous fdct_quantize"}
+            "fdct_first_kernel": "previous fdct_quantize",
+            "idct_sparse_first_kernel": "previous idct_planes sparse"}
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
@@ -537,6 +538,10 @@ EARLIER_RGB = {"rgb encode, fast": (0.3718, 26),
 # replaced, summed (chip_smoke.py phase 6, PR 5 and PR 6: NVIDIA H100 80GB
 # HBM3, 700 W; kept from then, not measured here).
 EARLIER_HISTOGRAM_MS = 0.0268
+# idct_planes' dense launch as this script's 6 times line read it before
+# the sparse launch's redesign, whose code it shares nothing with (PR 16
+# run A, NVIDIA H100 80GB HBM3, 700 W; kept from then, not measured here)
+EARLIER_DENSE_MS = 0.0180
 # The concat stage of the encode program as plain torch on the card, as
 # earlier runs read it (chip_smoke.py phase 5 stages, PR 5: NVIDIA H100
 # 80GB HBM3, 700 W; kept from then); this run measures it again beside
@@ -853,6 +858,27 @@ def _bound(nbytes: int, ops: int, rate: float = PEAK_INT_OPS_PER_S):
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def sparse_launch_work(flat: np.ndarray, kw: dict) -> tuple:
+    """(bytes, separate float32 operations) that idct_planes' sparse
+    launch needs on an upload: its image rows read once, the planes
+    written once, the quant tables and the 4 KB quads' table; per mask bit
+    among a block's first K one product a mirror quad (16) and an add a
+    sample (64), and per sample its + level (64 a block)."""
+    N, K = kw["N"], kw["K"]
+    X = sum((8 + K) * bn for bn in kw["shapes"])
+    rows = np.asarray(flat)[:N * X].reshape(N, X)
+    planes = sum(int(g[0]) * int(g[2]) * int(g[1]) * int(g[3]) * 64
+                 for g in kw["geom"])
+    kept, off = 0, 0
+    for bn in kw["shapes"]:
+        bits = np.unpackbits(rows[:, off:off + 8 * bn].copy(), axis=1)
+        n = bits.reshape(N, 2, bn, 32).sum(axis=(1, 3))
+        kept += int(np.minimum(n, K).sum())
+        off += (8 + K) * bn
+    nbytes = N * X + N * planes + 256 * len(kw["shapes"]) + 4096
+    return nbytes, 80 * kept + N * planes
+
+
 def _host_ms(fn, reps: int = 5) -> float:
     """Median wall time in ms of fn() on the host's clock."""
     times = []
@@ -1158,6 +1184,7 @@ def main() -> int:
                                      pack_cuda, scan_cuda, transform_cuda)
     from jpezy_tpu_torch.runtime import batch as RB
     import fp64_ceiling
+    import idct_sparse_phases
     import previous_designs
     from jpezy_tpu_torch.runtime.pipeline import (decode_batches,
                                                   encode_batches,
@@ -1179,11 +1206,20 @@ def main() -> int:
 
     libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB,
             transform_cuda.LIB, exact_cuda.LIB, colour_cuda.LIB)
+    extra = (previous_designs.LIB, fp64_ceiling.LIB)
     t0 = time.perf_counter()
-    with cf.ThreadPoolExecutor(len(libs) + 2) as ex:
-        secs = list(ex.map(lambda lib: lib.build(force=True),
-                           libs + (previous_designs.LIB, fp64_ceiling.LIB)))
+    with cf.ThreadPoolExecutor(len(libs) + len(extra)) as ex:
+        secs = list(ex.map(lambda lib: lib.build(force=True), libs + extra))
     build_wall = time.perf_counter() - t0
+    # the sparse IDCT launch at the other union sizes, for [6 ycc idct]'s
+    # sweep (scripts/idct_sparse_phases.py's variants): built in the
+    # background while the phases up to 6 run
+    union_libs = idct_sparse_phases.libraries(
+        os.path.join(REPO, "build", "idct_sparse_phases"),
+        idct_sparse_phases.union_variants(open(transform_cuda.LIB.src).read()))
+    union_pool = cf.ThreadPoolExecutor(len(union_libs))
+    union_built = [union_pool.submit(lib.build, force=True)
+                   for lib in union_libs.values()]
     ptxas, sass, sass_ops = {}, {}, {}
     for lib in libs:
         lib.get()
@@ -1222,11 +1258,16 @@ def main() -> int:
     prev_sass, prev_ops = _sass_instructions(cuda_build.nvcc(),
                                      previous_designs.LIB.so, SASS_OPS,
                                      _previous_of)
-    # and the ycc420 IDCT's overflow launch alone (its three kernels share
+    # and the ycc420 IDCT's three launches each alone (their kernels share
     # the name idct_planes above)
-    ovf_sass, ovf_ops = _sass_instructions(
-        cuda_build.nvcc(), transform_cuda.LIB.so, SASS_OPS,
-        lambda sym: "overflow" if "idct_planes_overflow" in sym else None)
+    def launch_of(sym):
+        return next((k for k in ("sparse", "dense", "overflow")
+                     if f"idct_planes_{k}_kernel" in sym), None)
+
+    launch_sass, launch_ops = _sass_instructions(
+        cuda_build.nvcc(), transform_cuda.LIB.so, SASS_OPS, launch_of)
+    launch_ptxas = _ptxas_by_kernel(transform_cuda.LIB.build_log, launch_of)
+    sparse_regs = transform_cuda.kernel_info()["idct_planes sparse"]
     _say("2 build", ", ".join(os.path.basename(lib.src) for lib in libs)
          + f" and the earlier designs' scripts/previous_designs.cu and the "
          f"float64 chains of scripts/fp64_ceiling.cu built for "
@@ -1241,7 +1282,13 @@ def main() -> int:
                           if k == "fdct_quantize" else "")
                        for k, v in ptxas.items())
          + " || " + " || ".join(f"{k}: {' | '.join(v)}"
-                                for k, v in prev_ptxas.items()))
+                                for k, v in prev_ptxas.items())
+         + " || idct_planes' sparse launch alone: "
+         + " | ".join(launch_ptxas["sparse"]) + f" ({sparse_regs[0]} "
+         f"registers, {sparse_regs[1]} thread blocks of {sparse_regs[4]} an "
+         f"SM), {launch_sass['sparse']} SASS instructions, " + ", ".join(
+             f"{launch_ops['sparse'][op]} {op}" for op in ("FMUL", "FADD",
+                                                          "FFMA")))
     for k, lines in list(ptxas.items()) + list(prev_ptxas.items()):
         frames = [ln for ln in lines if "stack frame" in ln]
         clean = ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
@@ -2560,11 +2607,14 @@ def main() -> int:
                  (f"{BATCH // 4} noise images at quality 100",
                   sparse_set(noise_q100))]
     idct_sets += [(label, sparse_set(st)) for label, st in small.items()]
-    # the overflow launch's cases (testing/ycc_uploads), at both levels
+    # the overflow launch's cases and the sparse launch's (testing/
+    # ycc_uploads: a sparse-row tie set, masks with more than K set bits, K
+    # 1, 13 and 64), at both levels
     for lvl in (128, 2048):
         idct_sets += [(f"{label}, level {lvl}", ("sparse", flat, kw))
-                      for label, (flat, kw) in YU.overflow_sets(
-                          lvl, ties=16384).items()]
+                      for label, (flat, kw) in list(YU.overflow_sets(
+                          lvl, ties=16384).items())
+                      + list(YU.sparse_sets(lvl, ties=4096).items())]
     idct_sets += [
         ("restart path's segments", dense_set(
             _restart_lanes(HG, restart_lists[0], ri), restart_lists[0])),
@@ -2625,6 +2675,8 @@ def main() -> int:
          + "; ".join(said14))
     idct_sparse_input = idct_sets[0][1]     # phase 6 times both forms
     idct_q95_input = idct_sets[2][1]
+    idct_small_inputs = {label: up for label, up in idct_sets
+                         if label in small}
     idct_dense_input = idct_sets[-2][1]
     del idct_sets, planes_by, got, want, model, noise_q100, small
 
@@ -3155,8 +3207,8 @@ def main() -> int:
          f"decode event span {spans['dec']:.3f} ms, device busy "
          f"{_fmt_ms(dec_prof['busy_ms'])} ms in {dec_prof['events']:.1f} "
          f"device events ({earlier('ycc420 decode')}; IDCT kernel "
-         f"{_fmt_ms(_kernel_ms(dec_prof, 'idct_planes_kernel', False))} "
-         "ms); "
+         + _fmt_ms(_kernel_ms(dec_prof, 'idct_planes_sparse_kernel', False))
+         + " ms); "
          f"device busy over the {MAIN_BATCHES} pipelined batches "
          f"{rt_prof['busy_ms']:.3f} ms in {rt_prof['events']:.0f} device "
          f"events = {busy_share:.4f} of that wall, idle "
@@ -3189,7 +3241,8 @@ def main() -> int:
                                     scan_in_dec_r)
                    else profs["dec_r"]["busy_ms"] - scan_in_dec_r)
          + " ms (the IDCT kernel "
-         + _fmt_ms(_kernel_ms(profs["dec_r"], "idct_planes_kernel", False))
+         + _fmt_ms(_kernel_ms(profs["dec_r"], "idct_planes_dense_kernel",
+                              False))
          + f" ms); device busy over the {MAIN_BATCHES} pipelined batches "
          f"{rrt_prof['busy_ms']:.3f} ms in {rrt_prof['events']:.0f} device "
          f"events = {rbusy_share:.4f} of that wall, idle "
@@ -3398,11 +3451,11 @@ def main() -> int:
     # overflow launch (scripts/previous_designs.py, after the same sparse
     # launch) in its place, in turns with it as it is: on the main batch
     # and on noise at quality 100
-    def with_first_overflow(fn):
+    def with_first_design(
+            fn, first=previous_designs.idct_planes_overflow_first):
         def run():
             keep = transform_cuda.idct_planes_sparse_cuda
-            transform_cuda.idct_planes_sparse_cuda = (
-                previous_designs.idct_planes_overflow_first)
+            transform_cuda.idct_planes_sparse_cuda = first
             try:
                 return fn()
             finally:
@@ -3418,14 +3471,25 @@ def main() -> int:
             return TC._decode_fused_batch_ycc420(flat11_dev, **kw11)
 
         turns11 = [(which, _profile(fn, 5)["busy_ms"]) for which, fn in (
-            ("now", dec11), ("first", with_first_overflow(dec11)),
+            ("now", dec11), ("first", with_first_design(dec11)),
             ("now again", dec11),
-            ("first again", with_first_overflow(dec11)))]
+            ("first again", with_first_design(dec11)))]
         rgb_rows.append(
             f"ycc420 decode program on the {label} (overflow rows "
             f"{list(kw11['caps'])}), in turns with the first overflow "
             f"launch in its place: " + ", ".join(
                 f"{w} {_fmt_ms(ms)} ms" for w, ms in turns11))
+        if not any(kw11["caps"]):
+            # no overflow row: the first sparse launch alone decodes it
+            first_sparse = with_first_design(
+                dec11, previous_designs.idct_planes_sparse_first)
+            turns11 = [(which, _profile(fn, 5)["busy_ms"]) for which, fn in (
+                ("now", dec11), ("first", first_sparse),
+                ("now again", dec11), ("first again", first_sparse))]
+            rgb_rows.append(
+                f"ycc420 decode program on the {label}, in turns with the "
+                f"first sparse launch in its place: " + ", ".join(
+                    f"{w} {_fmt_ms(ms)} ms" for w, ms in turns11))
         del flat11_dev
     # the exact ycc420 encode program is the exact fDCT, entropy and concat
     # kernels alone, as the fast one is with its fDCT kernel
@@ -3636,7 +3700,7 @@ def main() -> int:
         "idct_planes": (
             [lambda: BT.idct_planes_sparse(sp_dev, **sp_kw)],
             lambda: BT.idct_planes_sparse_plain(sp_dev, **sp_kw),
-            ("idct_planes_kernel",) + (("idct_planes_overflow_kernel",)
+            ("idct_planes_sparse_kernel",) + (("idct_planes_overflow_kernel",)
                                        if any(sp_kw["caps"]) else ()),
             _bound(idct_bytes, idct_ops, PEAK_FP32_FLOPS),
             f"sparse form (its sparse and overflow launches), the main "
@@ -3905,12 +3969,12 @@ def main() -> int:
     del nq
     # the IDCT kernel's dense form on the restart path's 2,048 segments
     dn_ms, _ = _traced(lambda: BT.idct_planes_dense(*dn_src, **dn_kw), 20,
-                       "idct_planes_kernel")
+                       "idct_planes_dense_kernel")
     dn_plain_ms = _time_ms(lambda: BT.idct_planes_dense_plain(*dn_src,
                                                               **dn_kw), 3)
     dn_bound, dn_by = _bound(dn_bytes, idct_ops, PEAK_FP32_FLOPS)
     dn_cold_ms, _ = _traced(lambda: (l2_flush.zero_(), BT.idct_planes_dense(
-        *dn_src, **dn_kw)), 20, "idct_planes_kernel")
+        *dn_src, **dn_kw)), 20, "idct_planes_dense_kernel")
     timing["idct_planes"]["dense_form_ms"] = dn_ms
     timing["idct_planes"]["cold_dense_form_ms"] = dn_cold_ms
     _say("6 times", f"idct_planes, dense form, on the scan's blocks of the "
@@ -4147,7 +4211,8 @@ def main() -> int:
     def yc_read(fn, ovf_sym, has_ovf):
         """(both launches, the sparse launch, the overflow launch): device
         ms a call."""
-        syms = ("idct_planes_kernel",) + ((ovf_sym,) if has_ovf else ())
+        syms = ("idct_planes_sparse_kernel",) + ((ovf_sym,) if has_ovf
+                                                 else ())
         both, prof = _traced(fn, 20, *syms)
         ovf = _kernel_ms(prof, ovf_sym) if has_ovf else 0.0
         return both, both - ovf, ovf
@@ -4185,10 +4250,7 @@ def main() -> int:
                 for k in row["now"]}
         first_best = {k: min(row[w][k] for w in ("first", "first again"))
                       for k in row["now"]}
-        if set_name == "main":
-            yc_t["previous_ms"] = row["first"]["ms"]
-            yc_t["previous_cold_ms"] = row["first"]["cold_ms"]
-        else:
+        if set_name != "main":
             key = "noise" if set_name.startswith("noise") else "q95"
             yc_t[f"{key}_ms"] = row["now"]["ms"]
             yc_t[f"{key}_cold_ms"] = row["now"]["cold_ms"]
@@ -4263,7 +4325,7 @@ def main() -> int:
     pinfo6 = previous_designs.kernel_info()["idct_planes overflow first"]
     prev_ovf_ops = prev_ops["previous idct_planes overflow"]
     yc_t["sass_ops"] = {"three kernels now": sass_ops["idct_planes"],
-                        "overflow now": ovf_ops["overflow"],
+                        "overflow now": launch_ops["overflow"],
                         "overflow first": prev_ovf_ops}
     _say("6 ycc idct", "idct_planes (sparse form) beside the first design of "
          "its overflow launch, in turns (kernels' own device time, "
@@ -4275,8 +4337,8 @@ def main() -> int:
          f"branch-free run {straight:.4f} ms (n >= 32): they cross at n = "
          f"{cross:.1f} || overflow launch now: {kinfo6[0]} registers, "
          f"{kinfo6[1]} thread blocks of {kinfo6[4]} an SM, {kinfo6[2]} "
-         f"bytes of shared memory, SASS {ovf_sass['overflow']} "
-         f"instructions, " + ", ".join(f"{ovf_ops['overflow'][op]} {op}"
+         f"bytes of shared memory, SASS {launch_sass['overflow']} "
+         f"instructions, " + ", ".join(f"{launch_ops['overflow'][op]} {op}"
                                        for op in ("FMUL", "FADD", "FFMA"))
          + f"; first design: {pinfo6[0]} registers, {pinfo6[1]} thread "
          f"blocks of {pinfo6[4]}, {pinfo6[2]} bytes of shared memory, "
@@ -4287,6 +4349,134 @@ def main() -> int:
              for op in ("FMUL", "FADD", "FFMA"))
          + f"; torch.matmul of the float32 [{n_blocks}, 64] @ [64, 64] "
          f"product {_fmt_ms(library_ms)} ms; on {card}")
+    # the sparse launch beside its first design (previous_designs.
+    # idct_planes_sparse_first, PR 9's), in turns (now, first, now again,
+    # first again), warm and with the L2 cache overwritten first, each
+    # launch's own time (profiler): the main batch, its images at quality
+    # 95, noise at quality 100 (there both launches now too) and the three
+    # small quality-95 sets; each beside the sparse launch's bound and the
+    # float32 matmul of this run
+    sp_sets6 = {"main": (sp_flat, sp_kw),
+                "quality 95": (q95_flat, q95_flat_kw),
+                "noise at quality 100": (noise_flat, noise_flat_kw)}
+    sp_sets6.update({label: (up[1], up[2])
+                     for label, up in idct_small_inputs.items()})
+    sp_sym = "idct_planes_sparse_kernel"
+    sp_first_sym = "idct_sparse_first_kernel"
+    yc_t["sparse_turns"] = {}
+    sp_rows = []
+    for set_name, (flat6, kw6) in sp_sets6.items():
+        flat6_dev = torch.from_numpy(flat6).to(dev)
+        q6 = BT.quant_tables(kw6["qtuple"], dev)
+        has_ovf = any(kw6["caps"])
+        now6 = (lambda flat6_dev=flat6_dev, kw6=kw6:
+                BT.idct_planes_sparse(flat6_dev, **kw6))
+        first6 = (lambda flat6_dev=flat6_dev, q6=q6, kw6=kw6:
+                  previous_designs.idct_planes_sparse_first(
+                      flat6_dev, q6, **{k: kw6[k] for k in yc_args}))
+        row = {}
+        for which, fn, sym in (("now", now6, sp_sym),
+                               ("first", first6, sp_first_sym),
+                               ("now again", now6, sp_sym),
+                               ("first again", first6, sp_first_sym)):
+            both = has_ovf and which.startswith("now")
+            syms = (sym, yc_sym) if both else (sym,)
+            reading = {}
+            for cold, key in ((False, ""), (True, "cold_")):
+                run6 = ((lambda fn=fn: (l2_flush.zero_(), fn())) if cold
+                        else fn)
+                total6, prof6 = _traced(run6, 20, *syms)
+                reading[f"{key}ms"] = _kernel_ms(prof6, sym)
+                if both:
+                    reading[f"{key}both_ms"] = total6
+            row[which] = reading
+        nbytes6, ops6 = sparse_launch_work(flat6, kw6)
+        b6, by6 = _bound(nbytes6, ops6, PEAK_FP32_OPS)
+        yc_t["sparse_turns"][set_name] = dict(row, bound_ms=b6, bound_by=by6,
+                                              caps=list(kw6["caps"]))
+        now_r = [row[w][k] for w in ("now", "now again")
+                 for k in ("ms", "cold_ms")]
+        first_r = [row[w][k] for w in ("first", "first again")
+                   for k in ("ms", "cold_ms")]
+        under = (max(row[w]["ms"] for w in ("now", "now again"))
+                 < min(row[w]["ms"] for w in ("first", "first again"))
+                 and max(row[w]["cold_ms"] for w in ("now", "now again"))
+                 < min(row[w]["cold_ms"] for w in ("first", "first again")))
+        sp_rows.append(
+            f"{set_name} ({flat6.size} bytes, caps {list(kw6['caps'])}): "
+            + "; ".join(f"{w} {r['ms']:.4f} ms (L2 overwritten first "
+                        f"{r['cold_ms']:.4f})"
+                        + (f", both launches {r['both_ms']:.4f} "
+                           f"({r['cold_both_ms']:.4f})" if "both_ms" in r
+                           else "")
+                        for w, r in row.items())
+            + f"; bound {b6:.4f} ms by {by6} ({nbytes6} bytes, {ops6} "
+            f"operations) = {b6 / min(now_r):.3f} of the fastest reading now "
+            f"({b6 / min(first_r):.3f} of the first design's); both readings "
+            f"now {'under' if under else 'NOT under'} both of the first "
+            f"design, warm and cold")
+        if set_name == "main":
+            yc_t["previous_ms"] = row["first"]["ms"]
+            yc_t["previous_cold_ms"] = row["first"]["cold_ms"]
+        del flat6_dev
+    # the sparse launch at the other union sizes (scripts/
+    # idct_sparse_phases.py's variants) on the main batch and at quality
+    # 95, in turns with the package's
+    for built in union_built:
+        built.result()
+    union_pool.shutdown()
+    for lib in union_libs.values():
+        lib.get()
+    sweep6 = {}
+    for set_name in ("main", "quality 95"):
+        flat6, kw6 = sp_sets6[set_name]
+        flat6_dev = torch.from_numpy(flat6).to(dev)
+        alone6 = dict(kw6, caps=(0,) * len(kw6["caps"]))
+        # phase 14 holds the package's launch to the model
+        want6 = BT.idct_planes_sparse(flat6_dev, **alone6)
+        cases6 = dict(union_libs, package=transform_cuda.LIB)
+        for name, lib in union_libs.items():
+            got6 = idct_sparse_phases.sparse_with(lib, flat6_dev, alone6)
+            if not torch.equal(got6, want6):
+                raise AssertionError(f"the sparse launch's variant {name} != "
+                                     f"the package's on {set_name}")
+        for _ in range(2):
+            for name, lib in cases6.items():
+                sweep6.setdefault(set_name, {}).setdefault(name, []).append(
+                    _traced(lambda lib=lib, flat6_dev=flat6_dev,
+                            alone6=alone6: idct_sparse_phases.sparse_with(
+                                lib, flat6_dev, alone6), 20, sp_sym)[0])
+        del flat6_dev
+    yc_t["sparse_union_sweep_ms"] = sweep6
+    group6 = idct_sparse_phases._group(open(transform_cuda.LIB.src).read())
+    spinfo6 = transform_cuda.kernel_info()["idct_planes sparse"]
+    pspinfo6 = previous_designs.kernel_info()["idct_planes sparse first"]
+    yc_t["sass_ops"]["sparse now"] = launch_ops["sparse"]
+    yc_t["sass_ops"]["sparse first"] = prev_ops["previous idct_planes sparse"]
+    yc_t["dense_form_ms_again"] = dn_ms
+    _say("6 ycc idct", "idct_planes' sparse launch beside its first design "
+         "(previous_designs.idct_planes_sparse_first), in turns (kernels' own "
+         "device time, profiler): " + " || ".join(sp_rows)
+         + " || the sparse launch by the blocks of a union walk (the "
+         f"package's: {group6}), twice in turns: " + "; ".join(
+             f"{set_name}: " + ", ".join(
+                 f"{name} " + " / ".join(f"{ms:.4f}" for ms in v) + " ms"
+                 for name, v in by.items())
+             for set_name, by in sweep6.items())
+         + f" || sparse launch now: {spinfo6[0]} registers, {spinfo6[1]} "
+         f"thread blocks of {spinfo6[4]} an SM, {spinfo6[2]} bytes of shared "
+         f"memory, SASS {launch_sass['sparse']} instructions, " + ", ".join(
+             f"{launch_ops['sparse'][op]} {op}" for op in ("FMUL", "FADD",
+                                                          "FFMA"))
+         + f"; first design: {pspinfo6[0]} registers, {pspinfo6[1]} thread "
+         f"blocks of {pspinfo6[4]}, {pspinfo6[2]} bytes of shared memory, "
+         + ", ".join(f"{prev_ops['previous idct_planes sparse'][op]} {op}"
+                     for op in ("FMUL", "FADD", "FFMA"))
+         + f" || the dense launch (its code unchanged) {dn_ms:.4f} ms (L2 "
+         f"overwritten first {dn_cold_ms:.4f}), {EARLIER_DENSE_MS} before "
+         f"the sparse launch's redesign (kept from then); torch.matmul of "
+         f"the float32 [{n_blocks}, 64] @ [64, 64] product "
+         f"{_fmt_ms(library_ms)} ms; on {card}")
     # fdct_quantize beside PR 9's design (previous_designs.
     # fdct_quantize_first, the separable float32 form), in turns (now,
     # first, now again, first again), warm and with the L2 cache

@@ -27,20 +27,19 @@
 //   Then C's truncating division |c| / q (or (2|c| + q) / (2q) when
 //   rounded) with the sign put back.  Gray writes zero chroma blocks.
 //
-// Kernel 2, idct_planes_kernel, replaces jpezy_tpu/codec/jax_codec.py:
+// Kernel 2, idct_planes, replaces jpezy_tpu/codec/jax_codec.py:
 // _decode_fused_batch_ycc420 (with _densify, ops/quantize.py:dequantize,
 // ops/dct.py:inverse_dct and the deblockify transpose) and the same tail
-// of _decode_fused_batch_device after decode_segments.  Its forms read the
-// coefficients from two layouts and share one arithmetic function,
-// row_samples:
-//   sparse:   the ycc420 transport's single flat uint8 upload, read in
-//             place: per image and component mask_lo [B] u32 | mask_hi [B]
-//             u32 | vals [B, K] int8; a block's coefficient at natural
-//             index j is vals[rank(j)], rank counting the set mask bits
-//             below j, and 0 unless bit j is set and the rank is below K.
-//             The fields start at any byte, so a word that is not aligned
-//             is read bytewise.
-//   overflow: a second launch (idct_planes_overflow_kernel) when the
+// of _decode_fused_batch_device after decode_segments, in three launches
+// that read the coefficients from two layouts:
+//   sparse:   idct_planes_sparse_kernel, on the ycc420 transport's single
+//             flat uint8 upload, read in place: per image and component
+//             mask_lo [B] u32 | mask_hi [B] u32 | vals [B, K] int8; a
+//             block's coefficient at natural index j is vals[rank(j)],
+//             rank counting the set mask bits below j, and 0 unless bit j
+//             is set and the rank is below K.  The fields start at any
+//             byte.
+//   overflow: idct_planes_overflow_kernel, a second launch when the
 //             upload carries overflow rows (per component oidx [cap] i32 |
 //             orows [cap, 64] i16 after the image rows, at any byte): each
 //             row's block is transformed again from its row and overwrites
@@ -50,21 +49,22 @@
 //             is N * B_c) writes nothing.  It replaces the overflow half of
 //             _decode_fused_batch_ycc420: _densify's overflow scatter, then
 //             the same dequantize, inverse DCT, level shift, clamp and
-//             deblockify.  Its own walk (a mirror quad's four samples from
-//             one product, below) adds the same terms in the same order as
-//             row_samples, so its pixels are the same bits.
-//   dense:    the Huffman scan's blocks [N * nseg, ri * 6, 64] int16 in
-//             MCU order (4 Y, Cb, Cr), with one quant table per image and
-//             component; one more byte per image ORs its segments'
-//             corruption flags.
+//             deblockify.
+//   dense:    idct_planes_dense_kernel, on the Huffman scan's blocks
+//             [N * nseg, ri * 6, 64] int16 in MCU order (4 Y, Cb, Cr), with
+//             one quant table per image and component; one more byte per
+//             image ORs its segments' corruption flags.
 //   Out: per image the planes Y, Cb, Cr, each mcus_y v 8 x mcus_x h 8 u8
 //   samples, row after row (the dense form's flag byte after them).
 //   Sample p of a block is sum_k float(c[k] q[k]) * M[p][k] over k in
 //   ascending order (float32 multiply, then float32 add), then + level as
 //   one more float32 add, truncated toward zero and clamped to [0, 255].
-//   Zero coefficients are skipped: the sum starts at +0.0f and adding a
-//   zero product (+0 or -0) changes no sum, so skipping them is exact and
-//   both layouts give the same pixels for the same blocks.
+//   Zero coefficients are skipped or add +-0: the sum starts at +0.0f and
+//   adding a zero product (+0 or -0) changes no sum, so the launches give
+//   the same pixels for the same blocks.  The sparse and the overflow
+//   launch walk the union of several blocks' nonzero coefficients with one
+//   product for a mirror quad's four samples (quad_walk, below); the
+//   dense launch walks each block's own (row_samples).
 //
 // What bounds them, per 16 x 512 x 512 4:2:0 batch (98,304 blocks):
 //  - fdct_quantize must move 6.3 MB of int8 samples in and 25.2 MB of
@@ -100,29 +100,49 @@
 //    zeros and store nothing there.
 //  - idct_planes must move the sparse upload (about 1.8 MB) or the dense
 //    blocks (12.6 MB) in and 6.3 MB of planes out: 2.4 or 5.6 us.  Its
-//    operations depend on the data, 64 multiply-adds per nonzero
-//    coefficient, two a block on the photographs of the main path, so the
-//    function is bound by bytes; the kernel, by instruction issue and by
-//    the latency of each warp's loads.  An earlier design lost its time to
-//    each block's chain of dependent global loads, to a whole warp per
-//    block and to single-byte stores that filled a quarter of every
-//    sector.  The work unit is now a warp's strip: up to kUnitBlocks
-//    blocks (whole MCUs) of one MCU row of one image and component, so its
-//    sources are contiguous ranges of the input (mask words and value
-//    bytes, or each MCU's int16 blocks) and its samples whole 8-row bands
-//    of the plane.  The warp loads the unit's sources at once into its own
-//    shared memory (all the loads in flight together, the dense blocks'
-//    nonzero masks found on the way), then runs the blocks four at a
-//    time, a group of 8 lanes a block and a lane a row of it (the
-//    coefficient's value broadcast from shared memory, the basis, held in
-//    shared memory for the whole launch, read as two 16-byte words a
-//    term), into a shared image of the unit whose rows sit at the same
-//    address modulo 16 as their destination; then the unit leaves row
-//    after row in 16-byte stores that fill whole sectors, the ends of rows
-//    whose destination is not aligned bytewise, neighbouring lanes on
-//    neighbouring bytes.  No barrier past the tables.  A thread block that
-//    stages whole strips for all its warps with cp.async, the next strip's
-//    copy in flight, was measured slower (PERF.md).
+//    operations depend on the data, a product for each of 16 mirror quads
+//    and 64 adds per nonzero coefficient, two a block on the photographs
+//    of the main path, so the function is bound by bytes; the kernels by
+//    the instructions a warp issues per block and by each warp's chain of
+//    dependent steps, with every warp of the grid in the same step at once
+//    (scripts/idct_sparse_phases.py cuts steps off and times them).  Both
+//    forms take a warp's unit at a time: up to kUnitBlocks (dense) or
+//    kSparseUnit (sparse) blocks, whole MCUs, of one MCU row of one image
+//    and component, so its sources are contiguous ranges of the input
+//    (mask words and value bytes, or each MCU's int16 blocks) and its
+//    samples whole 8-row bands of the plane.  A unit of 32 blocks leaves
+//    the main batch one unit a warp; of 16, two, and the second unit's
+//    wait and copies on each warp's chain of steps (slower on the main
+//    batch; faster where a few busy units hold their warps longest, as the
+//    chroma at quality 95).
+//    The dense launch (PR 9's design) loads a unit's sources at once into
+//    the warp's shared memory (the blocks' nonzero masks found on the
+//    way), runs the blocks four at a time, a group of 8 lanes a block and
+//    a lane a row of it over the block's own mask (the 16 KB basis in
+//    shared memory, 8 products and 8 adds a term), into a shared image of
+//    the unit whose rows sit at their destination's address modulo 16,
+//    and stores it row after row in 16-byte stores that fill whole
+//    sectors.  The sparse launch: the unit's mask words, value bytes and
+//    quant table go into one of the warp's two stages by cp.async while
+//    the warp sums the unit before (the bytes before and after a range's
+//    whole words by single loads, stored once they have come); per group
+//    of kSparseGroup blocks (16: a union walk of fewer blocks read slower)
+//    lane l takes block l / kSparseLanes and the kSparseQuads
+//    mirror quads of rows y and 7 - y for its rows y, each mask cut to its
+//    first K set bits, and the group walks the union of the cut masks
+//    (quad_walk: one product a quad from the 4 KB quad table, staged in
+//    shared memory by k; a block's coefficient k is its r-th value byte
+//    times q[k] where its bit k is set, r counting its set bits below k,
+//    else +-0).  A group whose union holds no bit but the DC (flat and
+//    DC-only blocks, and every overflow block, whose mask the host
+//    clears) takes one term a quad and no walk.  The samples go through
+//    the FP32 pipe alone (sample_of) and leave as the lane's rows, 8
+//    bytes a store: one store of the warp writes rows of 16 neighbouring
+//    blocks, whole 32-byte sectors.  Each component's unit layout and
+//    the reciprocals of the units' divisions (div_exact) come from the
+//    launcher (SparseComp).  The first
+//    design (scripts/previous_designs.cu) ran the sparse form as the
+//    dense one runs, its 16 KB basis copied by every thread block.
 //  - idct_planes_overflow_kernel must move its rows (132 bytes each) in
 //    and their 64 samples out.  Where few blocks overflow (photographs:
 //    tens of rows a batch) that and the launch are all; on noise at
@@ -155,8 +175,8 @@
 //    8 products and 32 adds.  All 64 terms in one branch-free run where
 //    the mask holds kOvfDenseTerms or more (noise), else each behind a
 //    uniform branch; k = 0 stores; a tile of sentinel rows alone ends
-//    before the sums.  Each sample is + level, truncated and clamped as
-//    row_samples does, and the samples go back through the tile as bytes,
+//    before the sums.  Each sample is + level, truncated and clamped
+//    (sample_of), and the samples go back through the tile as bytes,
 //    so that one store of the warp writes 4 rows of all 8 blocks: a tile
 //    of neighbouring blocks (on noise two MCUs' luma side by side, or 8
 //    MCUs' chroma) fills whole 32-byte sectors, 8 bytes a lane where the
@@ -166,6 +186,8 @@
 // gives the same bits on every run.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <cmath>
 
 namespace {
 
@@ -180,19 +202,20 @@ constexpr int kFdctTile = 16;     // blocks a warp's tile: the mma's 16 rows
 // the B fragments' 16-byte words: 3 digits, 8 n-tiles, 32 lanes
 constexpr int kDigitWords = 3 * 8 * 32;
 
-// Kernel 2: 8 warps a thread block, a warp a unit, a group of 8 lanes a
-// block.
+// Kernel 2's dense launch: 8 warps a thread block, a warp a unit, a group
+// of 8 lanes a block.
 constexpr int kIdctThreads = 256;
 constexpr int kIdctWarps = kIdctThreads / 32;
 constexpr int kUnitBlocks = 16;   // a unit's blocks (or one MCU's, if more)
+// the sparse launch's unit: up to 32 blocks (whole MCUs, or one MCU) of
+// one MCU row, walked kSparseGroup at a time
+constexpr int kSparseUnit = 32;
 constexpr int kMaxK = 64;         // sparse: at most K value bytes a block
 constexpr int kMaxV = 4;          // sampling factors 1..4 (JPEG's limit)
 // a unit's samples: 8 v rows of at most 1,024 / (8 v) bytes, each row
 // padded to 16 bytes plus 16 (its offset modulo 16); 1,536 bytes at most
 // for any sampling factors 1..4
 constexpr int kUnitImage = 1536;
-
-enum Form { kSparse, kDense };
 
 // The top-left sample of block bi of a component whose MCUs hold v x h
 // blocks in raster order (luma 2 x 2: TL, TR, BL, BR).
@@ -495,8 +518,17 @@ struct IdctComp {
   long long oidx_off, orows_off;        // sparse: overflow tail in flat
 };
 
+// What the sparse launch takes of a component besides: its units'
+// divisors' reciprocals (rounded up, for div_exact) and a unit's block i
+// at row y, column x of its samples, (y << 16) | x.
+struct SparseComp {
+  float rcp_image, rcp_ux;  // 1 / (mcus_y ux), 1 / ux
+  uint32_t place[kSparseUnit];
+};
+
 struct IdctArgs {
   IdctComp comp[3];
+  SparseComp sparse[3];
   const uint8_t* flat;     // sparse: the upload
   const int16_t* blocks;   // dense: the scan's blocks
   const uint8_t* bad;      // dense: [N * nseg] corruption flags
@@ -631,40 +663,16 @@ __device__ __forceinline__ Unit unit_of(const IdctArgs& a,
   return U;
 }
 
-// The warp copies [src, src + nbytes) into dst (shared memory, 4-byte
-// aligned), byte j of the range to dst[(src & 3) + j]: the aligned words
-// whole, the bytes before the first and after the last bytewise.
-__device__ __forceinline__ void warp_copy(uint8_t* dst, const uint8_t* src,
-                                          int nbytes, int lane) {
-  const int s = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3);
-  const uint8_t* base = src - s;
-  const int words = (s + nbytes) >> 2;
-  for (int w = lane; w < words; w += 32) {
-    if (w == 0 && s != 0) {
-      for (int j = s; j < 4; ++j) dst[j] = __ldg(base + j);
-    } else {
-      reinterpret_cast<uint32_t*>(dst)[w] =
-          __ldg(reinterpret_cast<const uint32_t*>(base) + w);
-    }
-  }
-  if (words == 0) {
-    if (lane >= s && lane < s + nbytes) dst[lane] = __ldg(base + lane);
-  } else if (lane < ((s + nbytes) & 3)) {
-    dst[4 * words + lane] = __ldg(base + 4 * words + lane);
-  }
-}
-
-template <int kForm>
 __global__ void __launch_bounds__(kIdctThreads)
-    idct_planes_kernel(const __grid_constant__ IdctArgs a) {
+    idct_planes_dense_kernel(const __grid_constant__ IdctArgs a) {
   __shared__ __align__(16) float mt[64 * 64];  // mt[k * 64 + p] = M[p][k]
   // per component, a unit's block i: at row y, column x of the unit's
-  // samples, (y << 16) | x; and (dense) its slot after the unit's first,
-  // m mcu_blocks + r for block r of the unit's MCU m
+  // samples, (y << 16) | x; and its slot after the unit's first, m
+  // mcu_blocks + r for block r of the unit's MCU m
   __shared__ uint32_t place[3][kUnitBlocks];
   __shared__ int slot[3][kUnitBlocks];
-  // per warp: the unit's quant table, its sources (sparse: the masks and
-  // the value bytes; dense: the int16 blocks) and its samples
+  // per warp: the unit's quant table, its int16 blocks, their nonzero
+  // masks and its samples
   __shared__ int qw[kIdctWarps][64];
   __shared__ __align__(16) uint8_t src_w[kIdctWarps][kUnitBlocks * 128];
   __shared__ __align__(8) uint8_t nz_w[kIdctWarps][kUnitBlocks * 8];
@@ -690,22 +698,20 @@ __global__ void __launch_bounds__(kIdctThreads)
     }
   }
   load_basis(mt, a.basis_t, t);
-  if (kForm == kDense) {
-    // one flag byte per image: any of its segments corrupt
-    for (int n = blockIdx.x; n < a.nimages; n += gridDim.x) {
-      int any = 0;
-      for (int s = t; s < a.nseg; s += kIdctThreads)
-        any |= __ldg(a.bad + static_cast<long long>(n) * a.nseg + s);
-      any = __syncthreads_or(any);
-      if (t == 0) a.out[n * a.out_stride + a.planes] = any ? 1 : 0;
-    }
+  // one flag byte per image: any of its segments corrupt
+  for (int n = blockIdx.x; n < a.nimages; n += gridDim.x) {
+    int any = 0;
+    for (int s = t; s < a.nseg; s += kIdctThreads)
+      any |= __ldg(a.bad + static_cast<long long>(n) * a.nseg + s);
+    any = __syncthreads_or(any);
+    if (t == 0) a.out[n * a.out_stride + a.planes] = any ? 1 : 0;
   }
   __syncthreads();
   // a warp a unit: no barrier past this point
   const int total = comps[0].units + comps[1].units + comps[2].units;
   uint8_t* im = img[warp];
   uint8_t* sw = src_w[warp];
-  uint8_t* nz = nz_w[warp];  // dense: the blocks' nonzero masks
+  uint8_t* nz = nz_w[warp];  // the blocks' nonzero masks
   int* q = qw[warp];
   for (int u = blockIdx.x * kIdctWarps + warp; u < total;
        u += gridDim.x * kIdctWarps) {
@@ -715,49 +721,33 @@ __global__ void __launch_bounds__(kIdctThreads)
     const int32_t* qsrc = a.q + U.n * a.q_stride + U.c * 64;
     q[lane] = __ldg(qsrc + lane);
     q[lane + 32] = __ldg(qsrc + lane + 32);
-    const uint8_t* row = a.flat + U.n * a.row_bytes;
-    const uint8_t* vals = sw + 8 * kUnitBlocks;
-    if (kForm == kSparse) {
-      // lanes 0..15 the low mask words, 16..31 the high ones
-      static_assert(2 * kUnitBlocks <= 32 &&
-                    (kUnitBlocks & (kUnitBlocks - 1)) == 0, "one word a lane");
-      const int i = lane & (kUnitBlocks - 1);
-      if (lane < 2 * kUnitBlocks && i < U.nb)
-        reinterpret_cast<uint32_t*>(sw)[lane] =
-            load_u32(row + (lane < kUnitBlocks ? C.mlo_off : C.mhi_off) +
-                     4ll * (U.b0 + i));
-      const uint8_t* v = row + C.val_off + static_cast<long long>(U.b0) * a.K;
-      warp_copy(sw + 8 * kUnitBlocks, v, U.nb * a.K, lane);
-      vals += reinterpret_cast<uintptr_t>(v) & 3;
-    } else {
-      const long long first = U.n * a.image_blocks +
-                              static_cast<long long>(U.b0 / C.per) *
-                                  a.mcu_blocks + C.slot0;
-      for (int k = lane; k < 8 * U.nb; k += 32) {
-        const int16_t* src = a.blocks +
-            ((first + slot[U.c][k >> 3]) << 6) + 8 * (k & 7);
-        int4 w;
-        if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-          w = __ldg(reinterpret_cast<const int4*>(src));
-        } else {
-          int h[8];
+    const long long first = U.n * a.image_blocks +
+                            static_cast<long long>(U.b0 / C.per) *
+                                a.mcu_blocks + C.slot0;
+    for (int k = lane; k < 8 * U.nb; k += 32) {
+      const int16_t* src = a.blocks +
+          ((first + slot[U.c][k >> 3]) << 6) + 8 * (k & 7);
+      int4 w;
+      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        w = __ldg(reinterpret_cast<const int4*>(src));
+      } else {
+        int h[8];
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
-            h[j] = static_cast<uint16_t>(__ldg(src + j));
-          w = make_int4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
-                        h[4] | (h[5] << 16), h[6] | (h[7] << 16));
-        }
-        reinterpret_cast<int4*>(sw)[k] = w;
-        // bit j of byte k: coefficient 8 k + j is nonzero
-        const int ws[4] = {w.x, w.y, w.z, w.w};
-        uint32_t byte = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t m = __vcmpne2(static_cast<uint32_t>(ws[j]), 0u);
-          byte |= ((m & 1u) | ((m >> 15) & 2u)) << (2 * j);
-        }
-        nz[k] = static_cast<uint8_t>(byte);
+        for (int j = 0; j < 8; ++j)
+          h[j] = static_cast<uint16_t>(__ldg(src + j));
+        w = make_int4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                      h[4] | (h[5] << 16), h[6] | (h[7] << 16));
       }
+      reinterpret_cast<int4*>(sw)[k] = w;
+      // bit j of byte k: coefficient 8 k + j is nonzero
+      const int ws[4] = {w.x, w.y, w.z, w.w};
+      uint32_t byte = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t m = __vcmpne2(static_cast<uint32_t>(ws[j]), 0u);
+        byte |= ((m & 1u) | ((m >> 15) & 2u)) << (2 * j);
+      }
+      nz[k] = static_cast<uint8_t>(byte);
     }
     __syncwarp();
     const int pitch = ((U.width + 15) & ~15) + 16;
@@ -770,22 +760,12 @@ __global__ void __launch_bounds__(kIdctThreads)
       // the round's blocks: group grp takes block i0 + grp
       const int i = i0 + grp;
       const bool live = i < U.nb;
-      uint2 v;
-      if (kForm == kSparse) {
-        // the first K set bits of the mask, ascending, take the value
-        // bytes in order (vals[rank])
-        const uint32_t* m = reinterpret_cast<const uint32_t*>(sw);
-        const int8_t* vb = reinterpret_cast<const int8_t*>(vals + i * a.K);
-        v = row_samples(mt, a.level, live ? m[i] : 0u,
-                        live ? m[kUnitBlocks + i] : 0u, a.K,
-                        [&](int k, int r) { return vb[r] * q[k]; }, g);
-      } else {
-        const int16_t* blk = reinterpret_cast<const int16_t*>(sw) + 64 * i;
-        const uint2 m = live ? reinterpret_cast<const uint2*>(nz)[i]
-                             : make_uint2(0u, 0u);
-        v = row_samples(mt, a.level, m.x, m.y, 64,
-                        [&](int k, int) { return blk[k] * q[k]; }, g);
-      }
+      const int16_t* blk = reinterpret_cast<const int16_t*>(sw) + 64 * i;
+      const uint2 m = live ? reinterpret_cast<const uint2*>(nz)[i]
+                           : make_uint2(0u, 0u);
+      const uint2 v = row_samples(mt, a.level, m.x, m.y, 64,
+                                  [&](int k, int) { return blk[k] * q[k]; },
+                                  g);
       if (live) {
         const uint32_t at = place[U.c][i];
         const int y = static_cast<int>(at >> 16) + g;
@@ -921,23 +901,25 @@ __device__ __forceinline__ void quad_add(float* acc, float t, int k, int u,
   acc[3] = ((u ^ v) & 1) ? __fsub_rn(acc[3], t) : __fadd_rn(acc[3], t);
 }
 
-// The terms of the lane's two mirror quads of the pair's two blocks into
-// acc[block][quad][sample], in ascending k = 8 v + u, two k a step:
-// e[5 v + u / 2] holds d[k], d[k + 1] of both blocks, m[8 (k / 2)] the two
-// quads' M[p][k], M[p][k + 1].  kSkip: only where the mask's bit k is set
-// (a coefficient nonzero in one of the warp's blocks), each behind a
-// uniform branch (a row of 8 and a step of 2 behind one more); else all 64
-// in one straight run.
-template <bool kSkip>
-__device__ __forceinline__ void quad_terms(const float4* e, const float4* m,
-                                           uint32_t lo, uint32_t hi,
-                                           float (*acc)[2][4]) {
+// The union walk of both sparse-form launches: the terms of the lane's kB
+// blocks and kQ mirror quads into acc[block][quad][sample], in ascending
+// k = 8 v + u, two k a step: terms(k, d, m) gives d[h][b] = d[k + h] of
+// block b and m[h][j] = M[p][k + h] of quad j's base sample p.  kSkip:
+// only where the warp-uniform mask lo | hi << 32 has bit k set (a
+// coefficient nonzero in one of the warp's blocks), each behind a uniform
+// branch (a row of 8 and a step of 2 behind one more); else all 64 in one
+// straight run.  A block without coefficient k adds +-0, which changes no
+// sum: a sum is never -0 (it starts at +0, the k = 0 term d[0] M[p][0] is
+// +0 where d[0] is 0, and x + (-x) is +0).
+template <bool kSkip, int kB, int kQ, typename Terms>
+__device__ __forceinline__ void quad_walk(uint32_t lo, uint32_t hi,
+                                          Terms terms, float (*acc)[kQ][4]) {
 #pragma unroll
-  for (int s = 0; s < 2; ++s)
+  for (int b = 0; b < kB; ++b)
 #pragma unroll
-    for (int h = 0; h < 2; ++h)
+    for (int j = 0; j < kQ; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[s][h][i] = 0.0f;
+      for (int i = 0; i < 4; ++i) acc[b][j][i] = 0.0f;
 #pragma unroll
   for (int v = 0; v < 8; ++v) {
     const uint32_t row = ((v < 4 ? lo : hi) >> (8 * (v & 3))) & 0xFFu;
@@ -947,22 +929,31 @@ __device__ __forceinline__ void quad_terms(const float4* e, const float4* m,
       const uint32_t two = (row >> u) & 3u;
       if (kSkip && two == 0u) continue;
       const int k = 8 * v + u;
-      const float4 dk = e[5 * v + u / 2];
-      const float4 mk = m[8 * (k / 2)];
-      if (!kSkip || (two & 1u)) {
-        quad_add(acc[0][0], __fmul_rn(dk.x, mk.x), k, u, v);
-        quad_add(acc[1][0], __fmul_rn(dk.y, mk.x), k, u, v);
-        quad_add(acc[0][1], __fmul_rn(dk.x, mk.z), k, u, v);
-        quad_add(acc[1][1], __fmul_rn(dk.y, mk.z), k, u, v);
-      }
-      if (!kSkip || (two & 2u)) {
-        quad_add(acc[0][0], __fmul_rn(dk.z, mk.y), k + 1, u + 1, v);
-        quad_add(acc[1][0], __fmul_rn(dk.w, mk.y), k + 1, u + 1, v);
-        quad_add(acc[0][1], __fmul_rn(dk.z, mk.w), k + 1, u + 1, v);
-        quad_add(acc[1][1], __fmul_rn(dk.w, mk.w), k + 1, u + 1, v);
+      float d[2][kB], m[2][kQ];
+      terms(k, d, m);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (kSkip && ((two >> h) & 1u) == 0u) continue;
+#pragma unroll
+        for (int j = 0; j < kQ; ++j)
+#pragma unroll
+          for (int b = 0; b < kB; ++b)
+            quad_add(acc[b][j], __fmul_rn(d[h][b], m[h][j]), k + h, u + h,
+                     v);
       }
     }
   }
+}
+
+// + level, then truncation and the clamp to [0, 255] of a sample's sum,
+// in the low byte of the word returned: the clamp first (a sum below 0
+// gives 0, one of 255 or more 255), then 2^23 added rounding down, which
+// leaves floor(x) in the low bits of the mantissa.  Every step runs on the
+// FP32 pipe, where a conversion to an integer runs at a quarter of its
+// rate.
+__device__ __forceinline__ uint32_t sample_of(float s, float level) {
+  const float x = fminf(fmaxf(__fadd_rn(s, level), 0.0f), 255.0f);
+  return __float_as_uint(__fadd_rd(x, 8388608.0f));
 }
 
 // The overflow launch (see the header): lane 8 b + r loads row r of the
@@ -1037,13 +1028,25 @@ __global__ void __launch_bounds__(kOvfThreads, kOvfBlocksPerSm)
   float acc[2][2][4];
   const float4* e =
       reinterpret_cast<const float4*>(tile + pair * kPairStride);
+  // the terms of k and k + 1: e[5 v + u / 2] holds d[k], d[k + 1] of both
+  // blocks, mq[8 (k / 2) + j] the two quads' M[p][k], M[p][k + 1]
+  const auto terms = [&](int k, float (&d)[2][2], float (&m)[2][2]) {
+    const float4 dk = e[5 * (k >> 3) + ((k & 7) >> 1)];
+    const float4 mk = mq[8 * (k >> 1) + j];
+    d[0][0] = dk.x;
+    d[0][1] = dk.y;
+    d[1][0] = dk.z;
+    d[1][1] = dk.w;
+    m[0][0] = mk.x;
+    m[1][0] = mk.y;
+    m[0][1] = mk.z;
+    m[1][1] = mk.w;
+  };
   if (__popc(lo) + __popc(hi) >= kOvfDenseTerms)
-    quad_terms<false>(e, mq + j, lo, hi, acc);
+    quad_walk<false, 2, 2>(lo, hi, terms, acc);
   else
-    quad_terms<true>(e, mq + j, lo, hi, acc);
+    quad_walk<true, 2, 2>(lo, hi, terms, acc);
   __syncwarp();  // the tile takes the samples now
-  // + level, then truncation and the clamp to [0, 255]: the conversion to
-  // unsigned saturates below at 0
   uint8_t* samples = reinterpret_cast<uint8_t*>(tile);
   const float level = __int2float_rn(a.level);
 #pragma unroll
@@ -1055,7 +1058,7 @@ __global__ void __launch_bounds__(kOvfThreads, kOvfBlocksPerSm)
         const int y = (j >> 2) + 2 * h, x = j & 3;
         samples[kSampleStride * (2 * pair + s) + 8 * ((i & 2) ? 7 - y : y) +
                 ((i & 1) ? 7 - x : x)] = static_cast<uint8_t>(
-            min(__float2uint_rz(__fadd_rn(acc[s][h][i], level)), 255u));
+            sample_of(acc[s][h][i], level));
       }
     }
   }
@@ -1084,6 +1087,349 @@ __global__ void __launch_bounds__(kOvfThreads, kOvfBlocksPerSm)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 2's sparse launch: the mirror-quad walk over groups of a unit's
+// blocks
+// ---------------------------------------------------------------------------
+
+// 8 warps a thread block, kSparseBlocksPerSm thread blocks an SM (at most
+// 85 registers a thread), a warp a unit at a time (unit_of) with the next
+// unit's sources in flight.
+constexpr int kSparseThreads = 256;
+constexpr int kSparseWarps = kSparseThreads / 32;
+constexpr int kSparseBlocksPerSm = 3;
+// the blocks whose masks one walk takes as a union (4, 8 or 16):
+// kSparseLanes lanes a block, kSparseQuads mirror quads a lane
+constexpr int kSparseGroup = 16;
+constexpr int kSparseLanes = 32 / kSparseGroup;
+constexpr int kSparseQuads = 16 / kSparseLanes;
+static_assert(kSparseGroup == 4 || kSparseGroup == 8 || kSparseGroup == 16,
+              "a group of 4, 8 or 16 blocks");
+static_assert(kSparseUnit % kSparseGroup == 0, "whole groups a unit");
+// a unit's value bytes in words: at most kSparseUnit kMaxK from any byte
+// of a word, and a word more for the reads one byte past a block's last
+constexpr int kValWords = (3 + kSparseUnit * kMaxK + 3) / 4 + 1;
+
+// The lowest `limit` set bits of bits (all of them where it has fewer).
+__device__ __forceinline__ uint32_t first_bits(uint32_t bits, int limit) {
+  uint32_t keep = 0u;
+  for (; bits != 0u && limit > 0; --limit) {
+    const uint32_t low = bits & (0u - bits);
+    keep |= low;
+    bits ^= low;
+  }
+  return keep;
+}
+
+// A warp's staging of one unit's sources in shared memory (words): the
+// mask words of its blocks, low then high, each field from the byte its
+// source starts at in its word (kMaskWords), its quant table, its value
+// bytes likewise (kValWords); two of them a warp, one for the unit being
+// summed and one for the next unit's copies.
+constexpr int kMaskWords = kSparseUnit + 2;
+constexpr int kStageWords = 2 * kMaskWords + 64 + kValWords;
+constexpr int kMaskLo = 0, kMaskHi = kMaskWords, kQ = 2 * kMaskWords,
+              kVals = kQ + 64;
+
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes from device memory to shared memory, both 4-byte aligned,
+// asynchronously (in the issuing lane's current copy group).
+__device__ __forceinline__ void copy4(uint32_t* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   shared_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The copy of byte range [src, src + nbytes) (at most kWords words) into
+// the stage's words from dst, byte j of the range to byte (src & 3) + j:
+// the words that the range holds whole by copy4, a word a lane; the at
+// most 3 bytes before the first of them and 3 after the last by lanes
+// edge0 .. edge0 + 5, one a lane, loaded into *edge and stored at byte
+// *edge_at of the stage once they have come (the range's other bytes are
+// not read).
+template <int kWords>
+__device__ __forceinline__ void start_range(uint32_t* stage, int dst,
+                                            const uint8_t* src, int nbytes,
+                                            int lane, int edge0,
+                                            uint32_t* edge, int* edge_at) {
+  const int s = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3);
+  const uint8_t* base = src - s;
+  const int end = s + nbytes;
+  const int lo = (s + 3) >> 2, hi = max(end >> 2, lo);  // whole: [lo, hi)
+#pragma unroll
+  for (int j = 0; j < (kWords + 31) / 32; ++j) {
+    if (lo + 32 * j >= hi) break;
+    const int w = lo + lane + 32 * j;
+    if (w < hi) copy4(stage + dst + w, base + 4 * w);
+  }
+  const int e = lane - edge0;
+  if (e >= 0 && e < 6) {
+    const int j = e < 3 ? s + e : 4 * hi + e - 3;
+    if (j < (e < 3 ? min(4 * lo, end) : end)) {
+      *edge = __ldg(base + j);
+      *edge_at = 4 * dst + j;
+    }
+  }
+}
+
+// unit_of with its two divisions by reciprocals (div_exact), which the
+// launcher puts in SparseComp.
+__device__ __forceinline__ Unit sparse_unit(const IdctArgs& a,
+                                            const IdctComp* comps,
+                                            const SparseComp* sp, int u) {
+  Unit U;
+  U.c = 0;
+  while (U.c < 2 && u >= comps[U.c].units) u -= comps[U.c++].units;
+  const IdctComp& C = comps[U.c];
+  const int per_image = C.mcus_y * C.ux;
+  U.n = div_exact(u, per_image, sp[U.c].rcp_image);
+  u -= U.n * per_image;
+  const int my = div_exact(u, C.ux, sp[U.c].rcp_ux);
+  const int mx0 = (u - my * C.ux) * C.mpu;
+  const int nm = min(C.mpu, a.mcus_x - mx0);
+  U.b0 = (my * a.mcus_x + mx0) * C.per;
+  U.nb = nm * C.per;
+  U.rows = C.v * 8;
+  U.width = nm * C.h * 8;
+  U.dst = U.n * a.out_stride + C.plane_off +
+          static_cast<long long>(my * C.v * 8) * C.width + mx0 * C.h * 8;
+  return U;
+}
+
+// What a lane keeps of the unit whose copies are in flight: the unit, the
+// byte its masks and its value bytes start at in their words, and the
+// lane's edge byte (edge_at < 0: none).
+struct SparseNext {
+  Unit U;
+  int mshift, vshift;
+  uint32_t edge;
+  int edge_at;
+};
+
+// Unit u's copies into stage (one copy group): the low masks' edge bytes
+// by lanes 0..5, the high ones' by 6..11, the value bytes' by 12..17.
+__device__ __forceinline__ void start_unit(const IdctArgs& a,
+                                           const IdctComp* comps,
+                                           const SparseComp* sp, int u,
+                                           uint32_t* stage, int lane,
+                                           SparseNext* next) {
+  next->U = sparse_unit(a, comps, sp, u);
+  const Unit& U = next->U;
+  const IdctComp& C = comps[U.c];
+  const uint8_t* row = a.flat + U.n * a.row_bytes;
+  const uint8_t* lo = row + C.mlo_off + 4ll * U.b0;
+  const uint8_t* v = row + C.val_off + static_cast<long long>(U.b0) * a.K;
+  next->mshift = static_cast<int>(reinterpret_cast<uintptr_t>(lo) & 3);
+  next->vshift = static_cast<int>(reinterpret_cast<uintptr_t>(v) & 3);
+  next->edge_at = -1;
+  start_range<kMaskWords>(stage, kMaskLo, lo, 4 * U.nb, lane, 0,
+                          &next->edge, &next->edge_at);
+  start_range<kMaskWords>(stage, kMaskHi, row + C.mhi_off + 4ll * U.b0,
+                          4 * U.nb, lane, 6, &next->edge, &next->edge_at);
+  start_range<kValWords>(stage, kVals, v, U.nb * a.K, lane, 12, &next->edge,
+                         &next->edge_at);
+  const int32_t* q = a.q + U.n * a.q_stride + U.c * 64;
+  copy4(reinterpret_cast<uint32_t*>(stage + kQ + lane), q + lane);
+  copy4(reinterpret_cast<uint32_t*>(stage + kQ + 32 + lane), q + lane + 32);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// The lane's samples of its block, sb[j][i] for its quad j and i as in
+// quad_add, as 8-byte rows at p (the block's top-left sample, rows `width`
+// apart; `live`: the block lies in the unit).  kSparseQuads 4 or 8: the
+// lane holds whole rows y and 7 - y; 2: half of them, which it trades with
+// the lane beside it (lane ^ 1, the other half), so that each stores one
+// whole row.  All lanes take part.
+__device__ __forceinline__ void store_quads(const uint32_t (*sb)[4],
+                                            uint8_t* p, int width, int sub,
+                                            bool live) {
+  // the low bytes of 4 words as one
+  const auto pack = [](uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+    return __byte_perm(__byte_perm(b0, b1, 0x0040),
+                       __byte_perm(b2, b3, 0x0040), 0x5410);
+  };
+  if constexpr (kSparseQuads == 2) {
+    // quads 4 y + 2 h and + 1: x = 2 h, 2 h + 1 and their mirrors 7 - x;
+    // a word of each row, bytes x = 2 h, 2 h + 1, 6 - 2 h, 7 - 2 h
+    const int y = sub >> 1, h = sub & 1;
+    const uint32_t top = pack(sb[0][0], sb[1][0], sb[1][1], sb[0][1]);
+    const uint32_t bot = pack(sb[0][2], sb[1][2], sb[1][3], sb[0][3]);
+    const uint32_t other = __shfl_xor_sync(kFullMask, h ? top : bot, 1);
+    const uint32_t w0 = h ? other : top;     // x = 0, 1, 6, 7
+    const uint32_t w1 = h ? bot : other;     // x = 2, 3, 4, 5
+    if (live)
+      store_row(p + static_cast<long long>(h ? 7 - y : y) * width,
+                make_uint2(__byte_perm(w0, w1, 0x5410),
+                           __byte_perm(w0, w1, 0x3276)));
+  } else {
+#pragma unroll
+    for (int rr = 0; rr < kSparseQuads / 4; ++rr) {
+      const int y = (kSparseQuads / 4) * sub + rr;
+      const uint32_t(*r)[4] = sb + 4 * rr;   // quads (y, 0) .. (y, 3)
+      if (live) {
+        store_row(p + static_cast<long long>(y) * width,
+                  make_uint2(pack(r[0][0], r[1][0], r[2][0], r[3][0]),
+                             pack(r[3][1], r[2][1], r[1][1], r[0][1])));
+        store_row(p + static_cast<long long>(7 - y) * width,
+                  make_uint2(pack(r[0][2], r[1][2], r[2][2], r[3][2]),
+                             pack(r[3][3], r[2][3], r[1][3], r[0][3])));
+      }
+    }
+  }
+}
+
+// The sparse launch (see the header): warps walk the units, each unit's
+// masks, quant table and value bytes copied into the warp's stage while it
+// sums the unit before; per group of kSparseGroup blocks lane l sums quads
+// kSparseQuads (l % kSparseLanes) .. of block l / kSparseLanes over the
+// union of the group's masks, each cut to its first K set bits, and
+// stores its rows.  No barrier past the tables.
+__global__ void __launch_bounds__(kSparseThreads, kSparseBlocksPerSm)
+    idct_planes_sparse_kernel(const __grid_constant__ IdctArgs a) {
+  // the quads' basis by k: mb[16 k + q] = M[p][k] for quad q = 4 y + x and
+  // its base sample p = 8 y + x
+  __shared__ __align__(16) float mb[64 * 16];
+  __shared__ uint32_t stages[kSparseWarps][2][kStageWords];
+  __shared__ IdctComp comps[3];
+  __shared__ SparseComp sp[3];
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  if (t < 3) {
+    comps[t] = a.comp[t];
+    sp[t] = a.sparse[t];
+  }
+  __syncthreads();
+  const int total = comps[0].units + comps[1].units + comps[2].units;
+  const int stride = gridDim.x * kSparseWarps;
+  int u = blockIdx.x * kSparseWarps + warp;
+  // the warp's first unit's copies are in flight while the thread block
+  // fills its tables
+  SparseNext next;
+  if (u < total)
+    start_unit(a, comps, sp, u, stages[warp][0], lane, &next);
+  // exact_cuda.quad_basis' layout: float4 8 k2 + j holds M[p][2 k2],
+  // M[p][2 k2 + 1] of quad j, then of quad j + 8
+  for (int i = t; i < 32 * 8; i += kSparseThreads) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(a.quads) + i);
+    const int k = 2 * (i >> 3), j = i & 7;
+    mb[16 * k + j] = w.x;
+    mb[16 * k + 16 + j] = w.y;
+    mb[16 * k + j + 8] = w.z;
+    mb[16 * k + 24 + j] = w.w;
+  }
+  __syncthreads();
+  const int blk = lane / kSparseLanes;    // the lane's block of a group
+  const int sub = lane % kSparseLanes;    // its quads kSparseQuads sub ..
+  const float* mbq = mb + kSparseQuads * sub;
+  const float level = __int2float_rn(a.level);
+  for (int buf = 0; u < total; u += stride, buf ^= 1) {
+    // this unit's copies have come; its edge bytes go to their places
+    const SparseNext cur = next;
+    uint32_t* stage = stages[warp][buf];
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    if (cur.edge_at >= 0)
+      reinterpret_cast<uint8_t*>(stage)[cur.edge_at] =
+          static_cast<uint8_t>(cur.edge);
+    __syncwarp();
+    if (u + stride < total)
+      start_unit(a, comps, sp, u + stride, stages[warp][buf ^ 1], lane,
+                 &next);
+    const Unit& U = cur.U;
+    const IdctComp& C = comps[U.c];
+    const int* q = reinterpret_cast<const int*>(stage + kQ);
+    for (int g0 = 0; g0 < U.nb; g0 += kSparseGroup) {
+      const int i = g0 + blk;
+      const bool live = i < U.nb;
+      // block i's mask words from the byte they start at
+      uint32_t lo = __funnelshift_r(stage[kMaskLo + i], stage[kMaskLo + i + 1],
+                                    8 * cur.mshift);
+      uint32_t hi = __funnelshift_r(stage[kMaskHi + i], stage[kMaskHi + i + 1],
+                                    8 * cur.mshift);
+      if (!live) lo = hi = 0u;
+      // the first K set bits take the value bytes; a mask with more (the
+      // transport sends none) loses the rest
+      if (__popc(lo) + __popc(hi) > a.K) {
+        const uint32_t first = first_bits(lo, a.K);
+        hi = first_bits(hi, a.K - __popc(first));
+        lo = first;
+      }
+      const uint32_t ulo = __reduce_or_sync(kFullMask, lo);
+      const uint32_t uhi = __reduce_or_sync(kFullMask, hi);
+      const int8_t* vb = reinterpret_cast<const int8_t*>(stage + kVals) +
+                         cur.vshift + i * a.K;
+      uint32_t sb[kSparseQuads][4];
+      if ((ulo >> 1) == 0u && uhi == 0u) {
+        // no coefficient but DCs in the group (flat and DC-only blocks;
+        // every overflow block, whose mask the host clears): a quad's 4
+        // samples are its one term d[0] M[p][0], stored, + level
+        const float d0 =
+            (lo & 1u) ? __int2float_rn(static_cast<int>(
+                            static_cast<uint32_t>(vb[0]) *
+                            static_cast<uint32_t>(q[0])))
+                      : 0.0f;
+#pragma unroll
+        for (int j = 0; j < kSparseQuads; ++j) {
+          const uint32_t v = sample_of(__fmul_rn(d0, mbq[j]), level);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sb[j][e] = v;
+        }
+      } else {
+        // the block's coefficient k is its r-th value byte times q[k] where
+        // bit k is set (r: the set bits below k), else 0
+        int r = 0;
+        const auto terms = [&](int k, float (&d)[2][1],
+                               float (&m)[2][kSparseQuads]) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int kk = k + h;
+            const uint32_t bit = ((kk < 32 ? lo : hi) >> (kk & 31)) & 1u;
+            const int c = vb[r];
+            r += static_cast<int>(bit);
+            d[h][0] = bit ? __int2float_rn(static_cast<int>(
+                                static_cast<uint32_t>(c) *
+                                static_cast<uint32_t>(q[kk])))
+                          : 0.0f;
+            if constexpr (kSparseQuads == 2) {
+              const float2 w = *reinterpret_cast<const float2*>(mbq +
+                                                                16 * kk);
+              m[h][0] = w.x;
+              m[h][1] = w.y;
+            } else {
+#pragma unroll
+              for (int j = 0; j < kSparseQuads; j += 4) {
+                const float4 w =
+                    *reinterpret_cast<const float4*>(mbq + 16 * kk + j);
+                m[h][j] = w.x;
+                m[h][j + 1] = w.y;
+                m[h][j + 2] = w.z;
+                m[h][j + 3] = w.w;
+              }
+            }
+          }
+        };
+        float acc[1][kSparseQuads][4];
+        quad_walk<true, 1, kSparseQuads>(ulo, uhi, terms, acc);
+#pragma unroll
+        for (int j = 0; j < kSparseQuads; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sb[j][e] = sample_of(acc[0][j][e], level);
+      }
+      const uint32_t at = sp[U.c].place[i];
+      store_quads(sb,
+                  a.out + U.dst + static_cast<long long>(at >> 16) * C.width +
+                      (at & 0xFFFF),
+                  C.width, sub, live);
+    }
+    __syncwarp();
+  }
+}
+
 template <typename K>
 cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -1098,6 +1444,15 @@ cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
       static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   *grid = static_cast<int>(units < resident ? units : resident);
   return cudaSuccess;
+}
+
+// rcp_up on the host: 1 / d rounded up to a float (d >= 1), 0 from 2^24
+// on.
+float rcp_up_host(int d) {
+  if (d >= (1 << 24)) return 0.f;
+  float r = 1.0f / static_cast<float>(d);
+  if (static_cast<double>(r) * d < 1.0) r = std::nextafter(r, 2.0f);
+  return r;
 }
 
 template <typename K>
@@ -1237,13 +1592,22 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
         return static_cast<int>(cudaErrorInvalidValue);
       p.per = p.v * p.h;
       p.mcus_y = static_cast<int>(d[0] / (p.per * desc[2]));
-      p.mpu = p.per < kUnitBlocks ? kUnitBlocks / p.per : 1;
+      const int unit = dense ? kUnitBlocks : kSparseUnit;
+      p.mpu = p.per < unit ? unit / p.per : 1;
       p.ux = (a.mcus_x + p.mpu - 1) / p.mpu;
       const long long n = desc[0] * p.mcus_y * p.ux;
       if (n > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
       p.units = static_cast<int>(n);
       if (p.cap < 0) return static_cast<int>(cudaErrorInvalidValue);
       p.tiles = (p.cap + kOvfTile - 1) / kOvfTile;
+      SparseComp& q = a.sparse[c];
+      q.rcp_image = rcp_up_host(p.mcus_y * p.ux);
+      q.rcp_ux = rcp_up_host(p.ux);
+      for (int i = 0; i < kSparseUnit; ++i) {
+        const int m = i / p.per, r = i % p.per;
+        q.place[i] = (static_cast<uint32_t>(r / p.h * 8) << 16) |
+                     static_cast<uint32_t>((m * p.h + r % p.h) * 8);
+      }
       caps += p.cap;
       tiles += p.tiles;
       units += n;
@@ -1253,7 +1617,6 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
   }
   if (units > 0x7FFFFFFFll || tiles > 0x7FFFFFFFll)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks_needed = (units + kIdctWarps - 1) / kIdctWarps;
   a.flat = static_cast<const uint8_t*>(src);
   a.blocks = static_cast<const int16_t*>(src);
   a.bad = static_cast<const uint8_t*>(bad);
@@ -1265,22 +1628,22 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
   int grid = 0;
   cudaError_t e;
   if (dense) {
-    e = grid_for(idct_planes_kernel<kDense>, kIdctThreads, blocks_needed,
-                 &grid);
+    e = grid_for(idct_planes_dense_kernel, kIdctThreads,
+                 (units + kIdctWarps - 1) / kIdctWarps, &grid);
     if (e != cudaSuccess) return static_cast<int>(e);
     // the flag bytes need a thread block even without units
-    idct_planes_kernel<kDense><<<grid > 0 ? grid : 1, kIdctThreads, 0, s>>>(
+    idct_planes_dense_kernel<<<grid > 0 ? grid : 1, kIdctThreads, 0, s>>>(
         a);
     return static_cast<int>(cudaGetLastError());
   }
-  e = grid_for(idct_planes_kernel<kSparse>, kIdctThreads, blocks_needed,
-               &grid);
+  if (quads == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  e = grid_for(idct_planes_sparse_kernel, kSparseThreads,
+               (units + kSparseWarps - 1) / kSparseWarps, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
-  idct_planes_kernel<kSparse><<<grid > 0 ? grid : 1, kIdctThreads, 0, s>>>(
+  idct_planes_sparse_kernel<<<grid > 0 ? grid : 1, kSparseThreads, 0, s>>>(
       a);
   e = cudaGetLastError();
   if (e != cudaSuccess || caps == 0) return static_cast<int>(e);
-  if (quads == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   idct_planes_overflow_kernel<<<static_cast<unsigned>(
                                     (tiles + kOvfWarps - 1) / kOvfWarps),
                                 kOvfThreads, 0, s>>>(a);
@@ -1299,9 +1662,9 @@ int jz_transform_kernel_info(int which, int* info) {
     case 1:
       return kernel_info(fdct_quantize_kernel<int32_t>, kFdctThreads, info);
     case 2:
-      return kernel_info(idct_planes_kernel<kSparse>, kIdctThreads, info);
+      return kernel_info(idct_planes_sparse_kernel, kSparseThreads, info);
     case 3:
-      return kernel_info(idct_planes_kernel<kDense>, kIdctThreads, info);
+      return kernel_info(idct_planes_dense_kernel, kIdctThreads, info);
     case 4:
       return kernel_info(idct_planes_overflow_kernel, kOvfThreads, info);
     default:

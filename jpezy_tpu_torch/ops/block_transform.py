@@ -177,7 +177,8 @@ def _planes(spat, geom_c):
     clamped u8 plane rows."""
     mcus_y, mcus_x, v, h = geom_c[:4]
     plane = B.deblockify(spat, mcus_y, mcus_x, v, h)
-    return plane.clamp(0, 255).to(torch.uint8).reshape(spat.shape[0], -1)
+    return plane.clamp(0, 255).to(torch.uint8).reshape(
+        spat.shape[0], plane.shape[1] * plane.shape[2])
 
 
 def idct_planes_sparse_plain(flat: torch.Tensor, *, geom, level, shapes, K,
@@ -451,7 +452,8 @@ def integer_forward(blocks: np.ndarray) -> np.ndarray:
 def inverse_model(deq: np.ndarray, level: int) -> np.ndarray:
     """[B, 64] int32 dequantized coefficients -> [B, 64] int32 samples: the
     ascending float32 sum, then + level as one more float32 add, truncated
-    toward zero (idct_planes_kernel's float part, before the clamp)."""
+    toward zero (the idct_planes launches' float part, before the
+    clamp)."""
     s = sum_ascending(deq.astype(np.float32), _basis("inv64_f32"))
     return (s + np.float32(level)).astype(np.int32)
 
@@ -503,7 +505,8 @@ def _model_planes(deq, geom_c, level, transform) -> np.ndarray:
     N = deq.shape[0]
     spat = transform(deq.reshape(-1, 64), level).reshape(deq.shape)
     plane = _deblockify(spat, *geom_c[:4])
-    return np.clip(plane, 0, 255).astype(np.uint8).reshape(N, -1)
+    return np.clip(plane, 0, 255).astype(np.uint8).reshape(
+        N, plane.shape[1] * plane.shape[2])
 
 
 def _le(buf: np.ndarray, dtype) -> np.ndarray:
@@ -512,7 +515,7 @@ def _le(buf: np.ndarray, dtype) -> np.ndarray:
 
 def idct_planes_sparse_model(flat: np.ndarray, *, geom, level, shapes, K, N,
                              caps, qtuple, transform=inverse_model):
-    """The sparse form's launches (idct_planes_kernel, then
+    """The sparse form's launches (idct_planes_sparse_kernel, then
     idct_planes_overflow_kernel) in numpy: the flat
     upload (uint8) -> [N, P] uint8 planes.  Each block's coefficient j is
     vals[rank(j)] where bit j is set and its rank is below K; an overflow
@@ -571,7 +574,7 @@ def idct_planes_rgb_model(coeff_all, *, geom, level, gray, sizes, qtuple,
 
 def idct_planes_dense_model(blocks, bad, qarr, *, N, nseg, ri, geom, level,
                             transform=inverse_model):
-    """idct_planes_kernel's dense form in numpy: the scan's blocks [N*nseg,
+    """idct_planes_dense_kernel in numpy: the scan's blocks [N*nseg,
     ri*6, 64] int16, bad [N*nseg] bool, qarr [N, 3, 64] int32 -> [N, P + 1]
     uint8 planes and flag bytes."""
     nmcu = geom[0][0] * geom[0][1]

@@ -15,10 +15,11 @@ block_transform.idct_planes_sparse_plain and idct_planes_dense_plain:
 dequantize, inverse DCT, level shift, truncation and clamp, written
 straight into the packed u8 planes.  The sparse form reads the ycc420
 transport's upload in place (one launch, and a second for the overflow
-rows when the upload carries any: tiles of 8 rows of a component, one
-product for the 4 samples of a mirror quad, from exact_cuda's checked
-table of the basis' quads); the dense form reads the Huffman scan's blocks
-and writes each image's corruption flag after its planes (one launch).
+rows when the upload carries any); both walk the union of several
+blocks' nonzero coefficients with one product for the 4 samples of a
+mirror quad, from exact_cuda's checked table of the basis' quads.  The
+dense form reads the Huffman scan's blocks and writes each image's
+corruption flag after its planes (one launch).
 Every launch adds the same terms in the same ascending order.  They
 replace jpezy_tpu/codec/jax_codec.py:_decode_fused_batch_ycc420 and the
 tail of _decode_fused_batch_device.
@@ -224,7 +225,8 @@ def _desc(N, geom, shapes, *, flag: bool, K=0, level=128, nseg=0,
 @functools.lru_cache(maxsize=8)
 def _inverse_basis_t(device: torch.device) -> torch.Tensor:
     """The float32 inverse basis transposed, [k][p], on device (once): the
-    IDCT kernel copies it into shared memory with coalesced reads."""
+    IDCT's dense launch copies it into shared memory with coalesced
+    reads."""
     return codec_constants(device)["inv64_f32"].t().contiguous()
 
 

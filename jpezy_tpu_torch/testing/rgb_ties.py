@@ -29,22 +29,27 @@ def _reordered(coef: np.ndarray, level: int) -> list:
             for s in (rev, tree[:, :, 0], wide)]
 
 
-def inverse_tie_blocks(n: int, seed: int, level: int = 128) -> np.ndarray:
+def inverse_tie_blocks(n: int, seed: int, level: int = 128,
+                       ac_limit: int | None = None) -> np.ndarray:
     """Dequantized coefficient blocks [B, 64] int32 on which inverse_model
     and another order of its float32 terms (_reordered) truncate some
     sample differently: of n seeded blocks with a DC that is a multiple of
     8 and one to three pairs of coefficients at (u, v) and (v, u), equal or
     opposite (exact_ties.inverse_tie_blocks' candidates: samples next to
     integers), the ones where an order disagrees; about 0.7 % of them.  A
-    kernel that reorders or contracts the sums misses on them."""
+    kernel that reorders or contracts the sums misses on them.  ac_limit:
+    the pairs' coefficients within [-ac_limit, ac_limit] (127: int8 with
+    quantizer 1, so that the blocks can travel in the ycc420 upload's
+    sparse rows, their DC as an int8 times 8 level / 128)."""
     rng = np.random.default_rng(seed)
     scale = level // 128
+    top = 100 * scale if ac_limit is None else min(100 * scale, ac_limit + 1)
     coef = np.zeros((n, 64), np.int32)
     coef[:, 0] = rng.integers(-64, 64, n) * 8 * scale
     for i in range(n):
         for _ in range(int(rng.integers(1, 4))):
             u, v = rng.choice(8, 2, replace=False)
-            m = int(rng.integers(1, 100 * scale)) * int(rng.choice([-1, 1]))
+            m = int(rng.integers(1, top)) * int(rng.choice([-1, 1]))
             coef[i, v * 8 + u] = m
             coef[i, u * 8 + v] = -m if i % 2 == 0 else m
     tie = np.zeros(n, bool)

@@ -4,8 +4,9 @@ overflow launches) and chip_smoke.py: each image's blocks go through the
 host library's jz_sparsify_i8 (runtime/native.sparsify8) as the
 transport's host half sends them (codec/host_glue._ycc420_host_frontend),
 or all of them become overflow rows; the overflow rows of a component can
-be padded with the host's sentinel to any count.  No codec path calls this
-module."""
+be padded with the host's sentinel to any count, and masks can be given
+more set bits than the values they carry (junk_masks).  No codec path
+calls this module."""
 from __future__ import annotations
 
 import numpy as np
@@ -196,5 +197,106 @@ def overflow_sets(level: int, ties: int = 4096) -> dict:
                    for _ in factors)
         flat, kw = sparse_upload(comps, **up)
         out[label] = (flat, dict(kw, geom=geometry(2, 3, factors),
+                                 level=level, qtuple=qt))
+    return out
+
+
+def junk_masks(flat, kw, seed: int, share: float = 0.3) -> np.ndarray:
+    """A copy of the upload flat in which about `share` of the blocks carry
+    a seeded mask with K + 1 to 64 set bits and seeded value bytes (the
+    transport sends at most K; only the first K set bits take values)."""
+    flat = np.array(flat, np.uint8)
+    N, K = kw["N"], kw["K"]
+    X = sum((8 + K) * bn for bn in kw["shapes"])
+    rows = flat[:N * X].reshape(N, X)
+    rng = np.random.default_rng(seed)
+    off = 0
+    for bn in kw["shapes"]:
+        pick = rng.random((N, bn)) < share
+        n_bits = rng.integers(min(K + 1, 64), 65, (N, bn))
+        order = np.argsort(rng.random((N, bn, 64)), axis=2)
+        bits = (order < n_bits[..., None]).astype(np.uint64)
+        mask = (bits << np.arange(64, dtype=np.uint64)).sum(
+            axis=2, dtype=np.uint64)
+        lo = np.where(pick, mask & np.uint64(0xFFFFFFFF), 0).astype("<u4")
+        hi = np.where(pick, mask >> np.uint64(32), 0).astype("<u4")
+        vals = rng.integers(-128, 128, (N, bn, K)).astype(np.int8)
+        for field, new in ((rows[:, off:off + 4 * bn], lo),
+                           (rows[:, off + 4 * bn:off + 8 * bn], hi)):
+            old = field.copy().view("<u4")
+            field[:] = np.where(pick, new, old).view(np.uint8)
+        v = rows[:, off + 8 * bn:off + (8 + K) * bn].reshape(N, bn, K)
+        v[pick] = vals[pick].view(np.uint8)
+        off += (8 + K) * bn
+    return flat
+
+
+def sparse_sets(level: int, ties: int = 8192) -> dict:
+    """{label: (flat, kwargs of idct_planes_sparse)} at `level` (128 or
+    2048): uploads whose sparse rows carry the cases that the IDCT's
+    sparse launch must give bit for bit:
+
+    sparse ties    rgb_ties.inverse_tie_blocks of `ties` candidates (their
+                   pairs within int8), interleaved with flat, DC-only and
+                   cancelling blocks, at K = 10 with the quantizer 8 level
+                   / 128 at the DC and 1 elsewhere: every block in the
+                   sparse rows (one component), each group of blocks a
+                   mix of ties, walks and flat blocks;
+    junk masks     4:2:0 on 2 images of 3 x 5 MCUs (a luma unit of one
+                   MCU at each row's end, chroma widths of 40), K = 7,
+                   random densities (overflow rows too), then
+                   junk_masks: masks with more than K set bits;
+    K = 1          2 images of 2 x 3 MCUs at 4:2:0: most blocks DC-only
+                   or flat, the rest overflow rows;
+    K = 13         2 images of 3 x 7 MCUs at 3 x 3, 1 x 1, 1 x 1: an image
+                   row of 4,851 bytes, so that units' value bytes start at
+                   every byte of a word; plane widths of 168 and 56, luma
+                   units of 3 MCUs (one from x = 72, off a 16-byte
+                   boundary) and one of 1 MCU at each row's end;
+    K = 64, N = 1  one image of 2 x 3 MCUs at 1 x 2, 1 x 1, 1 x 1 whose
+                   blocks hold up to 64 int8 values (none overflows)."""
+    from . import rgb_ties
+
+    scale = level // 128
+    rng = np.random.default_rng(950 + scale)
+    out = {}
+    tie = rgb_ties.inverse_tie_blocks(ties, 960 + scale, level, ac_limit=127)
+    n_t = len(tie)
+    dc_only = np.zeros((n_t, 64), np.int64)
+    dc_only[:, 0] = rng.integers(-64, 64, n_t) * 8 * scale
+    cancel = np.zeros((n_t, 64), np.int64)
+    k = rng.integers(1, 8, n_t)
+    m = rng.integers(1, 128, n_t)
+    cancel[np.arange(n_t), 8 * k] = m
+    cancel[np.arange(n_t), k] = -m
+    blocks = np.stack([tie, dc_only, np.zeros((n_t, 64), np.int64),
+                       cancel], axis=1).reshape(-1, 64)
+    qt = np.ones(64, np.int64)
+    qt[0] = 8 * scale
+    flat, kw = sparse_upload([(blocks // qt)[None]], K=10)
+    if any(kw["caps"]):
+        raise AssertionError("sparse_sets: a tie block is an overflow row")
+    out["sparse ties"] = (flat, dict(
+        kw, geom=geometry(1, len(blocks), ((1, 1),)), level=level,
+        qtuple=(tuple(int(x) for x in qt),)))
+    for label, (my, mx), factors, K, n, dens in (
+            ("junk masks", (3, 5), ((2, 2), (1, 1), (1, 1)), 7, 2,
+             (0.02, 0.2, 0.9)),
+            ("K = 1", (2, 3), ((2, 2), (1, 1), (1, 1)), 1, 2,
+             (0.0, 0.016, 0.05)),
+            ("K = 13", (3, 7), ((3, 3), (1, 1), (1, 1)), 13, 2,
+             (0.02, 0.1, 0.2)),
+            ("K = 64, N = 1", (2, 3), ((1, 2), (1, 1), (1, 1)), 64, 1,
+             (0.3, 0.7, 1.0))):
+        comps = [_random_blocks(rng, n, my * mx * v * h, scale, dens)
+                 for v, h in factors]
+        if K == 64:
+            comps = [np.clip(c, -127, 127) for c in comps]
+        qt = tuple(tuple(int(x) for x in rng.integers(1, 9, 64))
+                   for _ in factors)
+        flat, kw = sparse_upload(comps, K=K)
+        if label == "junk masks":
+            flat = junk_masks(flat, kw, 970 + scale)
+        out[label] = (flat, dict(kw, geom=geometry(my, mx, factors),
                                  level=level, qtuple=qt))
     return out

@@ -30,6 +30,17 @@
 //     memory read for 16 float operations (the current launch tiles the
 //     rows 8 a warp by component, loads each row once and walks the union
 //     of the tile's nonzero coefficients, one product a mirror quad).
+//   jz_prev_idct_planes_sparse  the first sparse launch of the ycc420 IDCT
+//     (PR 9's design): a warp a unit of up to 16 blocks of one MCU row, its
+//     masks and value bytes copied into the warp's shared memory, then the
+//     blocks 4 at a time, a group of 8 lanes a block and a lane a row of 8
+//     samples over the block's own mask (8 products and 8 adds a term, the
+//     4 groups' walks diverging), the 16 KB [64][64] basis copied into
+//     shared memory by every thread block, the strip staged in shared
+//     memory and stored in 16-byte chunks.  The current launch walks the
+//     union of a group of blocks' masks with one product a mirror quad from
+//     the 4 KB quad table, loads the next unit while it sums this one, and
+//     stores rows straight from registers.
 //   jz_prev_fdct_quantize_exact, jz_prev_idct_planes_exact  exact mode's
 //     first float64 kernels: the forward issues all 64 terms of every
 //     block, products by COS[0][y] = 1 and cu[i] = 1 and the first adds
@@ -51,8 +62,10 @@
 // helpers of its source in namespace fused_first, the concat it fed in
 // namespace concat_first, the exact kernels and the first fast rgb IDCT
 // in namespace first_exact, the first overflow launch with the helpers
-// and argument structs of its source in namespace first_overflow, and
-// PR 9's fDCT kernel with its helpers in namespace first_fdct.
+// and argument structs of its source in namespace first_overflow, the
+// first sparse launch with the helpers and argument structs of its source
+// in namespace first_sparse, and PR 9's fDCT kernel with its helpers in
+// namespace first_fdct.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -1518,6 +1531,388 @@ cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
 
 }  // namespace first_overflow
 
+namespace first_sparse {
+
+constexpr unsigned kFullMask = 0xFFFFFFFFu;
+constexpr int kIdctThreads = 256;
+constexpr int kIdctWarps = kIdctThreads / 32;
+constexpr int kUnitBlocks = 16;   // a unit's blocks (or one MCU's, if more)
+constexpr int kMaxK = 64;         // sparse: at most K value bytes a block
+constexpr int kMaxV = 4;          // sampling factors 1..4 (JPEG's limit)
+// a unit's samples: 8 v rows of at most 1,024 / (8 v) bytes, each row
+// padded to 16 bytes plus 16 (its offset modulo 16); 1,536 bytes at most
+// for any sampling factors 1..4
+constexpr int kUnitImage = 1536;
+
+enum Form { kSparse, kDense };
+
+struct IdctComp {
+  int nblocks;           // B_c: the component's blocks in one image
+  int v, h, per;         // sampling factors: v x h = per blocks an MCU
+  int width;             // plane width in samples
+  int cap;               // sparse: overflow rows
+  int tiles;             // sparse: the overflow launch's tiles of them
+  int slot0;             // dense: the component's first slot in an MCU
+  int mcus_y;            // MCU rows
+  int mpu, ux;           // MCUs a unit, units an MCU row
+  int units;             // units of the component over the batch
+  long long plane_off;   // the plane's first byte in an output row
+  long long mlo_off, mhi_off, val_off;  // sparse: fields in an image row
+  long long oidx_off, orows_off;        // sparse: overflow tail in flat
+};
+
+struct IdctArgs {
+  IdctComp comp[3];
+  const uint8_t* flat;     // sparse: the upload
+  const int16_t* blocks;   // dense: the scan's blocks
+  const uint8_t* bad;      // dense: [N * nseg] corruption flags
+  const int32_t* q;        // quant tables: [ncomp, 64] or [N, ncomp, 64]
+  const float* basis_t;    // [64, 64] transposed: basis_t[k][p] = M[p][k]
+  const float* quads;      // overflow: the mirror quads' basis (1,024)
+  uint8_t* out;            // [N, out_stride]
+  long long row_bytes;     // sparse: bytes of one image's row
+  long long image_blocks;  // dense: block slots of one image
+  long long out_stride;    // bytes of one output row
+  long long q_stride;      // int32s from one image's tables to the next
+  long long planes;        // dense: the flag byte's place in a row
+  int ncomp, nimages, mcus_x, K, level, nseg, mcu_blocks;
+};
+
+__device__ __forceinline__ uint32_t load_u32(const uint8_t* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 3) == 0)
+    return __ldg(reinterpret_cast<const uint32_t*>(p));
+  return static_cast<uint32_t>(__ldg(p)) |
+         (static_cast<uint32_t>(__ldg(p + 1)) << 8) |
+         (static_cast<uint32_t>(__ldg(p + 2)) << 16) |
+         (static_cast<uint32_t>(__ldg(p + 3)) << 24);
+}
+
+__device__ __forceinline__ int32_t load_i16(const uint8_t* p) {
+  if ((reinterpret_cast<uintptr_t>(p) & 1) == 0)
+    return __ldg(reinterpret_cast<const int16_t*>(p));
+  return static_cast<int16_t>(static_cast<uint16_t>(__ldg(p)) |
+                              (static_cast<uint16_t>(__ldg(p + 1)) << 8));
+}
+
+// The terms of the set bits of `bits` (coefficients k0 + bit), ascending,
+// while fewer than `limit` terms have been added in all (*r counts them).
+template <typename Coef>
+__device__ __forceinline__ void add_terms(float s[8], const float* mt,
+                                          uint32_t bits, int k0, int* r,
+                                          int limit, Coef coef, int g) {
+  for (; bits && *r < limit; ++*r) {
+    const int k = k0 + __ffs(bits) - 1;
+    bits &= bits - 1;
+    const float ck = __int2float_rn(coef(k, *r));
+    const float4 m0 = *reinterpret_cast<const float4*>(mt + k * 64 + 8 * g);
+    const float4 m1 =
+        *reinterpret_cast<const float4*>(mt + k * 64 + 8 * g + 4);
+    s[0] = __fadd_rn(s[0], __fmul_rn(ck, m0.x));
+    s[1] = __fadd_rn(s[1], __fmul_rn(ck, m0.y));
+    s[2] = __fadd_rn(s[2], __fmul_rn(ck, m0.z));
+    s[3] = __fadd_rn(s[3], __fmul_rn(ck, m0.w));
+    s[4] = __fadd_rn(s[4], __fmul_rn(ck, m1.x));
+    s[5] = __fadd_rn(s[5], __fmul_rn(ck, m1.y));
+    s[6] = __fadd_rn(s[6], __fmul_rn(ck, m1.z));
+    s[7] = __fadd_rn(s[7], __fmul_rn(ck, m1.w));
+  }
+}
+
+// The one arithmetic of every form, run by a group of 8 lanes on one
+// block: lane g of the group sums the 8 samples of row g, p = 8 g + x,
+// over the block's nonzero coefficients in ascending k (the first `limit`
+// set bits of the mask mlo | mhi << 32), coefficient k being coef(k, r)
+// for the r-th of them (its dequantized value), each term a float32
+// multiply then a float32 add, the sums starting at +0.0f; then + level,
+// truncation and the clamp.  Returns the row's 8 samples, x = 0 in the low
+// byte.  No lane of the group waits on another: each walks the mask
+// alone.
+template <typename Coef>
+__device__ __forceinline__ uint2 row_samples(const float* mt, int level,
+                                             uint32_t mlo, uint32_t mhi,
+                                             int limit, Coef coef, int g) {
+  float s[8];
+#pragma unroll
+  for (int x = 0; x < 8; ++x) s[x] = 0.f;
+  int r = 0;
+  add_terms(s, mt, mlo, 0, &r, limit, coef, g);
+  add_terms(s, mt, mhi, 32, &r, limit, coef, g);
+  // + level, then truncation and the clamp to [0, 255]: the conversion to
+  // unsigned saturates below at 0
+  const float lv = __int2float_rn(level);
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+    w[x >> 2] |= min(__float2uint_rz(__fadd_rn(s[x], lv)), 255u)
+                 << (8 * (x & 3));
+  return make_uint2(w[0], w[1]);
+}
+
+// 8 bytes of samples at p (in shared or device memory), one store where
+// p is 8-byte aligned.
+__device__ __forceinline__ void store_row(uint8_t* p, uint2 v) {
+  if ((reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    *reinterpret_cast<uint2*>(p) = v;
+    return;
+  }
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+    p[x] = static_cast<uint8_t>(((x < 4 ? v.x : v.y) >> (8 * (x & 3))) & 0xFF);
+}
+
+__device__ __forceinline__ void load_basis(float* mt, const float* basis_t,
+                                           int t) {
+  const float4* src = reinterpret_cast<const float4*>(basis_t);
+  for (int i = t; i < 64 * 64 / 4; i += kIdctThreads)
+    reinterpret_cast<float4*>(mt)[i] = __ldg(src + i);
+}
+
+// A unit: up to mpu MCUs of one MCU row of one image and component, a
+// warp's work at a time (kUnitBlocks blocks, or one MCU where an MCU holds
+// more).
+struct Unit {
+  int c, n, b0, nb;   // component, image, first block (bi), blocks
+  int rows, width;    // its samples: v 8 rows of width bytes
+  long long dst;      // its top-left sample's byte in out
+};
+
+__device__ __forceinline__ Unit unit_of(const IdctArgs& a,
+                                        const IdctComp* comps, int u) {
+  Unit U;
+  U.c = 0;
+  while (U.c < 2 && u >= comps[U.c].units) u -= comps[U.c++].units;
+  const IdctComp& C = comps[U.c];
+  const int per_image = C.mcus_y * C.ux;
+  U.n = u / per_image;
+  u -= U.n * per_image;
+  const int my = u / C.ux;
+  const int mx0 = (u - my * C.ux) * C.mpu;
+  const int nm = min(C.mpu, a.mcus_x - mx0);
+  U.b0 = (my * a.mcus_x + mx0) * C.per;
+  U.nb = nm * C.per;
+  U.rows = C.v * 8;
+  U.width = nm * C.h * 8;
+  U.dst = U.n * a.out_stride + C.plane_off +
+          static_cast<long long>(my * C.v * 8) * C.width + mx0 * C.h * 8;
+  return U;
+}
+
+// The warp copies [src, src + nbytes) into dst (shared memory, 4-byte
+// aligned), byte j of the range to dst[(src & 3) + j]: the aligned words
+// whole, the bytes before the first and after the last bytewise.
+__device__ __forceinline__ void warp_copy(uint8_t* dst, const uint8_t* src,
+                                          int nbytes, int lane) {
+  const int s = static_cast<int>(reinterpret_cast<uintptr_t>(src) & 3);
+  const uint8_t* base = src - s;
+  const int words = (s + nbytes) >> 2;
+  for (int w = lane; w < words; w += 32) {
+    if (w == 0 && s != 0) {
+      for (int j = s; j < 4; ++j) dst[j] = __ldg(base + j);
+    } else {
+      reinterpret_cast<uint32_t*>(dst)[w] =
+          __ldg(reinterpret_cast<const uint32_t*>(base) + w);
+    }
+  }
+  if (words == 0) {
+    if (lane >= s && lane < s + nbytes) dst[lane] = __ldg(base + lane);
+  } else if (lane < ((s + nbytes) & 3)) {
+    dst[4 * words + lane] = __ldg(base + 4 * words + lane);
+  }
+}
+
+template <int kForm>
+__global__ void __launch_bounds__(kIdctThreads)
+    idct_sparse_first_kernel(const __grid_constant__ IdctArgs a) {
+  __shared__ __align__(16) float mt[64 * 64];  // mt[k * 64 + p] = M[p][k]
+  // per component, a unit's block i: at row y, column x of the unit's
+  // samples, (y << 16) | x; and (dense) its slot after the unit's first,
+  // m mcu_blocks + r for block r of the unit's MCU m
+  __shared__ uint32_t place[3][kUnitBlocks];
+  __shared__ int slot[3][kUnitBlocks];
+  // per warp: the unit's quant table, its sources (sparse: the masks and
+  // the value bytes; dense: the int16 blocks) and its samples
+  __shared__ int qw[kIdctWarps][64];
+  __shared__ __align__(16) uint8_t src_w[kIdctWarps][kUnitBlocks * 128];
+  __shared__ __align__(8) uint8_t nz_w[kIdctWarps][kUnitBlocks * 8];
+  __shared__ __align__(16) uint8_t img[kIdctWarps][kUnitImage];
+  __shared__ IdctComp comps[3];
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int grp = lane >> 3;   // the group's block of the round's 4
+  const int g = t & 7;         // the lane's row of it
+  if (t < 3) comps[t] = a.comp[t];
+  if (t < 3 * kUnitBlocks) {
+    const int c = t / kUnitBlocks;
+    const int i = t - c * kUnitBlocks;
+    const IdctComp& C = a.comp[c];
+    if (C.per > 0) {
+      const int m = i / C.per;
+      const int r = i - m * C.per;
+      const int vy = r / C.h;
+      place[c][i] = (static_cast<uint32_t>(vy * 8) << 16) |
+                    static_cast<uint32_t>((m * C.h + r - vy * C.h) * 8);
+      slot[c][i] = m * a.mcu_blocks + r;
+    }
+  }
+  load_basis(mt, a.basis_t, t);
+  if (kForm == kDense) {
+    // one flag byte per image: any of its segments corrupt
+    for (int n = blockIdx.x; n < a.nimages; n += gridDim.x) {
+      int any = 0;
+      for (int s = t; s < a.nseg; s += kIdctThreads)
+        any |= __ldg(a.bad + static_cast<long long>(n) * a.nseg + s);
+      any = __syncthreads_or(any);
+      if (t == 0) a.out[n * a.out_stride + a.planes] = any ? 1 : 0;
+    }
+  }
+  __syncthreads();
+  // a warp a unit: no barrier past this point
+  const int total = comps[0].units + comps[1].units + comps[2].units;
+  uint8_t* im = img[warp];
+  uint8_t* sw = src_w[warp];
+  uint8_t* nz = nz_w[warp];  // dense: the blocks' nonzero masks
+  int* q = qw[warp];
+  for (int u = blockIdx.x * kIdctWarps + warp; u < total;
+       u += gridDim.x * kIdctWarps) {
+    const Unit U = unit_of(a, comps, u);
+    const IdctComp& C = comps[U.c];
+    // the unit's sources in one go, all their loads in flight together
+    const int32_t* qsrc = a.q + U.n * a.q_stride + U.c * 64;
+    q[lane] = __ldg(qsrc + lane);
+    q[lane + 32] = __ldg(qsrc + lane + 32);
+    const uint8_t* row = a.flat + U.n * a.row_bytes;
+    const uint8_t* vals = sw + 8 * kUnitBlocks;
+    if (kForm == kSparse) {
+      // lanes 0..15 the low mask words, 16..31 the high ones
+      static_assert(2 * kUnitBlocks <= 32 &&
+                    (kUnitBlocks & (kUnitBlocks - 1)) == 0, "one word a lane");
+      const int i = lane & (kUnitBlocks - 1);
+      if (lane < 2 * kUnitBlocks && i < U.nb)
+        reinterpret_cast<uint32_t*>(sw)[lane] =
+            load_u32(row + (lane < kUnitBlocks ? C.mlo_off : C.mhi_off) +
+                     4ll * (U.b0 + i));
+      const uint8_t* v = row + C.val_off + static_cast<long long>(U.b0) * a.K;
+      warp_copy(sw + 8 * kUnitBlocks, v, U.nb * a.K, lane);
+      vals += reinterpret_cast<uintptr_t>(v) & 3;
+    } else {
+      const long long first = U.n * a.image_blocks +
+                              static_cast<long long>(U.b0 / C.per) *
+                                  a.mcu_blocks + C.slot0;
+      for (int k = lane; k < 8 * U.nb; k += 32) {
+        const int16_t* src = a.blocks +
+            ((first + slot[U.c][k >> 3]) << 6) + 8 * (k & 7);
+        int4 w;
+        if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+          w = __ldg(reinterpret_cast<const int4*>(src));
+        } else {
+          int h[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            h[j] = static_cast<uint16_t>(__ldg(src + j));
+          w = make_int4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                        h[4] | (h[5] << 16), h[6] | (h[7] << 16));
+        }
+        reinterpret_cast<int4*>(sw)[k] = w;
+        // bit j of byte k: coefficient 8 k + j is nonzero
+        const int ws[4] = {w.x, w.y, w.z, w.w};
+        uint32_t byte = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t m = __vcmpne2(static_cast<uint32_t>(ws[j]), 0u);
+          byte |= ((m & 1u) | ((m >> 15) & 2u)) << (2 * j);
+        }
+        nz[k] = static_cast<uint8_t>(byte);
+      }
+    }
+    __syncwarp();
+    const int pitch = ((U.width + 15) & ~15) + 16;
+    // row y of the unit's samples sits in im at its destination's address
+    // modulo 16: (shift + y wshift) mod 16
+    const int shift = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(a.out) + U.dst) & 15);
+    const int wshift = C.width & 15;
+    for (int i0 = 0; i0 < U.nb; i0 += 4) {
+      // the round's blocks: group grp takes block i0 + grp
+      const int i = i0 + grp;
+      const bool live = i < U.nb;
+      uint2 v;
+      if (kForm == kSparse) {
+        // the first K set bits of the mask, ascending, take the value
+        // bytes in order (vals[rank])
+        const uint32_t* m = reinterpret_cast<const uint32_t*>(sw);
+        const int8_t* vb = reinterpret_cast<const int8_t*>(vals + i * a.K);
+        v = row_samples(mt, a.level, live ? m[i] : 0u,
+                        live ? m[kUnitBlocks + i] : 0u, a.K,
+                        [&](int k, int r) { return vb[r] * q[k]; }, g);
+      } else {
+        const int16_t* blk = reinterpret_cast<const int16_t*>(sw) + 64 * i;
+        const uint2 m = live ? reinterpret_cast<const uint2*>(nz)[i]
+                             : make_uint2(0u, 0u);
+        v = row_samples(mt, a.level, m.x, m.y, 64,
+                        [&](int k, int) { return blk[k] * q[k]; }, g);
+      }
+      if (live) {
+        const uint32_t at = place[U.c][i];
+        const int y = static_cast<int>(at >> 16) + g;
+        store_row(im + y * pitch + ((shift + y * wshift) & 15) +
+                      (at & 0xFFFF), v);
+      }
+    }
+    __syncwarp();
+    // out: row after row.  The aligned 16-byte chunks of every row in
+    // 16-byte stores that fill whole sectors; where a row's destination is
+    // not aligned, the bytes before its first chunk and after its last one
+    // a row at a time, neighbouring lanes on neighbouring bytes.
+    const int per_row = (U.width >> 4) + 1;
+    for (int y = lane / per_row, j = lane - y * per_row; y < U.rows;) {
+      const int sh = (shift + y * wshift) & 15;
+      const int head = min((16 - sh) & 15, U.width);
+      if (j < ((U.width - head) >> 4))
+        *reinterpret_cast<int4*>(a.out + U.dst +
+                                 static_cast<long long>(y) * C.width + head +
+                                 16 * j) =
+            *reinterpret_cast<const int4*>(im + y * pitch + sh + head +
+                                           16 * j);
+      for (j += 32; j >= per_row; j -= per_row) ++y;
+    }
+    if ((shift | wshift | (U.width & 15)) != 0) {
+      // a row's ends hold at most 30 bytes, at most 15 (and two rows a
+      // pass) where the width is a multiple of 16
+      const int two = (U.width & 15) == 0;
+      const int b = two ? lane & 15 : lane;
+      for (int y = two ? lane >> 4 : 0; y < U.rows; y += 1 + two) {
+        const int sh = (shift + y * wshift) & 15;
+        const int head = min((16 - sh) & 15, U.width);
+        const int full = (U.width - head) >> 4;
+        const int x = b < head ? b : head + 16 * full + (b - head);
+        if (x < U.width)
+          a.out[U.dst + static_cast<long long>(y) * C.width + x] =
+              im[y * pitch + sh + x];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+template <typename K>
+cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, 0);
+  if (e != cudaSuccess) return e;
+  const long long resident =
+      static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  *grid = static_cast<int>(units < resident ? units : resident);
+  return cudaSuccess;
+}
+
+}  // namespace first_sparse
+
 namespace first_fdct {
 
 // Kernel 1 of block_transforms.cu as PR 9 designed it: 8 warps a thread
@@ -2047,13 +2442,93 @@ int jz_prev_idct_planes_overflow(const long long* desc, const void* src,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The first sparse launch of the ycc420 IDCT alone (idct_sparse_first_kernel:
+// a group of 8 lanes a block, each lane a row of 8 samples over its own
+// block's mask, the [64][64] basis in shared memory, the strip staged in
+// shared memory), with jz_idct_planes's sparse-form desc, upload, tables
+// and planes and the basis transposed; it writes the level where an
+// overflow row replaces a block, and no overflow launch follows.
+int jz_prev_idct_planes_sparse(const long long* desc, const void* src,
+                               const void* q, const void* basis_t,
+                               void* out, void* stream) {
+  using namespace first_sparse;
+  IdctArgs a;
+  a.nimages = static_cast<int>(desc[0]);
+  a.ncomp = static_cast<int>(desc[1]);
+  if (a.nimages <= 0) return 0;
+  if (a.ncomp < 1 || a.ncomp > 3 || desc[0] > 0x7FFFFFFFll ||
+      desc[2] <= 0 || desc[3] < 1 || desc[3] > kMaxK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.mcus_x = static_cast<int>(desc[2]);
+  a.K = static_cast<int>(desc[3]);
+  a.level = static_cast<int>(desc[4]);
+  a.nseg = static_cast<int>(desc[5]);
+  a.row_bytes = desc[6];
+  a.image_blocks = desc[7];
+  a.out_stride = desc[8];
+  a.q_stride = desc[9];
+  a.planes = desc[10];
+  a.mcu_blocks = static_cast<int>(desc[11]);
+  long long units = 0;
+  for (int c = 0; c < 3; ++c) {
+    const long long* d = desc + 12 + 12 * c;
+    IdctComp& p = a.comp[c];
+    p.nblocks = static_cast<int>(d[0]);
+    p.v = static_cast<int>(d[1]);
+    p.h = static_cast<int>(d[2]);
+    p.width = static_cast<int>(d[3]);
+    p.cap = p.tiles = 0;
+    p.slot0 = static_cast<int>(d[5]);
+    p.plane_off = d[6];
+    p.mlo_off = d[7];
+    p.mhi_off = d[8];
+    p.val_off = d[9];
+    p.oidx_off = d[10];
+    p.orows_off = d[11];
+    p.per = p.mcus_y = p.mpu = p.ux = p.units = 0;
+    if (c < a.ncomp) {
+      if (p.v < 1 || p.v > kMaxV || p.h < 1 || p.h > kMaxV ||
+          d[0] <= 0 || d[0] % (static_cast<long long>(p.v) * p.h * desc[2]) ||
+          desc[0] * d[0] > 0x7FFFFFFFll)
+        return static_cast<int>(cudaErrorInvalidValue);
+      p.per = p.v * p.h;
+      p.mcus_y = static_cast<int>(d[0] / (p.per * desc[2]));
+      p.mpu = p.per < kUnitBlocks ? kUnitBlocks / p.per : 1;
+      p.ux = (a.mcus_x + p.mpu - 1) / p.mpu;
+      const long long n = desc[0] * p.mcus_y * p.ux;
+      if (n > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
+      p.units = static_cast<int>(n);
+      units += n;
+    } else {
+      p.nblocks = 0;
+    }
+  }
+  if (units > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
+  a.flat = static_cast<const uint8_t*>(src);
+  a.blocks = nullptr;
+  a.bad = nullptr;
+  a.q = static_cast<const int32_t*>(q);
+  a.basis_t = static_cast<const float*>(basis_t);
+  a.quads = nullptr;
+  a.out = static_cast<uint8_t*>(out);
+  int grid = 0;
+  const cudaError_t e = grid_for(idct_sparse_first_kernel<kSparse>,
+                                 kIdctThreads,
+                                 (units + kIdctWarps - 1) / kIdctWarps, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  idct_sparse_first_kernel<kSparse><<<grid > 0 ? grid : 1, kIdctThreads, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What the card reports for kernel `which` (0: the first fused entropy
 // kernel, fixed tables; 1: the concat with 64-bit loads at the main path's
 // shape, tiles of 128 MCUs and a budget of 12,288 words; 2: the first
 // exact forward, int8 samples; 3: the first exact inverse, int16
 // coefficients; 4: the first fast rgb IDCT, int16 coefficients; 5: the
 // first overflow launch of the ycc420 IDCT; 6, 7: PR 9's fDCT kernel, int8
-// and int32 samples), as jz_entropy_kernel_info reports it.
+// and int32 samples; 8: the first sparse launch of the ycc420 IDCT), as
+// jz_entropy_kernel_info reports it.
 int jz_prev_kernel_info(int which, int* info) {
   switch (which) {
     case 0:
@@ -2094,6 +2569,10 @@ int jz_prev_kernel_info(int which, int* info) {
     case 7:
       return kernel_info(first_fdct::fdct_first_kernel<int32_t>,
                          first_fdct::kFdctThreads, info);
+    case 8:
+      return kernel_info(
+          first_sparse::idct_sparse_first_kernel<first_sparse::kSparse>,
+          first_sparse::kIdctThreads, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,4 +1,4 @@
-"""The earlier designs of seven of jpezy_tpu_torch's kernels, built from
+"""The earlier designs of eight of jpezy_tpu_torch's kernels, built from
 scripts/previous_designs.cu with the package's loader, so that
 chip_smoke.py times them beside the current kernels in one run, on the
 same inputs and the same card.  Nothing in the package calls them.
@@ -34,6 +34,14 @@ same inputs and the same card.  Nothing in the package calls them.
                      sparse launch, then the first overflow launch (a group
                      of 8 lanes a row, every term's coefficient loaded
                      again, the [64][64] basis in shared memory).
+  idct_planes_sparse_first
+                     the first sparse launch of the ycc420 IDCT (PR 9's
+                     design), with the arguments of
+                     transform_cuda.idct_planes_sparse_cuda: a group of 8
+                     lanes a block over its own mask, the [64][64] basis in
+                     shared memory, the strip staged in shared memory; the
+                     sparse launch alone (no overflow launch follows, so an
+                     overflow row's block keeps its level).
   fdct_quantize_first
                      PR 9's fDCT kernel, with the arguments and results of
                      transform_cuda.fdct_quantize_cuda: the separable
@@ -63,7 +71,7 @@ KERNEL_INFO = ("encode_blocks fused first", "concat_streams 64-bit loads",
                "fdct_quantize_exact first int8",
                "idct_planes_exact first int16", "idct_planes_rgb first int16",
                "idct_planes overflow first", "fdct_quantize first int8",
-               "fdct_quantize first int32")
+               "fdct_quantize first int32", "idct_planes sparse first")
 
 
 def _bind(lib) -> None:
@@ -81,6 +89,8 @@ def _bind(lib) -> None:
     lib.jz_prev_idct_planes_rgb.argtypes = [ci] + [vp] * 8
     lib.jz_prev_idct_planes_overflow.restype = ci
     lib.jz_prev_idct_planes_overflow.argtypes = [vp] * 6
+    lib.jz_prev_idct_planes_sparse.restype = ci
+    lib.jz_prev_idct_planes_sparse.argtypes = [vp] * 6
     lib.jz_prev_fdct_quantize.restype = ci
     lib.jz_prev_fdct_quantize.argtypes = [ci] + [vp] * 11
     lib.jz_prev_kernel_info.restype = ci
@@ -246,6 +256,25 @@ def idct_planes_overflow_first(flat, qtab, *, geom, level: int, shapes, K: int,
         _inverse_basis_t(flat.device).data_ptr(), out.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     LIB.raise_on("prev_idct_planes_overflow", rc)
+    return out
+
+
+def idct_planes_sparse_first(flat, qtab, *, geom, level: int, shapes,
+                             K: int, N: int, caps):
+    """The planes of the first sparse launch alone over the upload flat
+    (transform_cuda.idct_planes_sparse_cuda's arguments): equal to
+    block_transform.idct_planes_sparse_model with every cap 0."""
+    lib = LIB.get()
+    desc, planes = transform_cuda.sparse_desc(
+        flat, qtab, geom=geom, level=level, shapes=shapes, K=K, N=N,
+        caps=caps)
+    out = torch.empty((N, planes), dtype=torch.uint8, device=flat.device)
+    src, q = flat.contiguous(), qtab.contiguous()
+    rc = lib.jz_prev_idct_planes_sparse(
+        desc.ctypes.data, src.data_ptr(), q.data_ptr(),
+        _inverse_basis_t(flat.device).data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_idct_planes_sparse", rc)
     return out
 
 

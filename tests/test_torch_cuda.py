@@ -870,7 +870,9 @@ def test_idct_sparse_kernel_matches_model(cuda):
     testing/ycc_uploads (the float32 tie set, the mixed warp groups, blocks
     that clamp at both ends, noise, sampling factors 1 to 4 with fields at
     odd byte offsets, caps that are not a multiple of 8 and sentinel or
-    junk padding): bit-identical to the model, within 1 of the plain
+    junk padding; and the sparse rows' sets: a float32 tie set, masks with
+    more than K set bits, K 1, 13 and 64, one image): bit-identical to the
+    model, within 1 of the plain
     version (which takes no index below 0, so not on the junk padding),
     one counted call each."""
     from jpezy_tpu_torch.ops import block_transform as BT
@@ -895,6 +897,8 @@ def test_idct_sparse_kernel_matches_model(cuda):
     for level in (128, 2048):
         uploads.update({f"{label}, level {level}": up for label, up in
                         YU.overflow_sets(level).items()})
+        uploads.update({f"{label}, level {level}": up for label, up in
+                        YU.sparse_sets(level).items()})
     for label, (flat, kw) in uploads.items():
         before = transform_cuda.idct_launches
         got = BT.idct_planes_sparse(torch.from_numpy(flat).to(cuda), **kw)
@@ -908,6 +912,52 @@ def test_idct_sparse_kernel_matches_model(cuda):
                                             **kw)
         assert (got.to(torch.int32) - plain.to(torch.int32)).abs().max() \
             <= 1, label
+
+
+def test_idct_sparse_first_design_matches_model(cuda):
+    """The sparse launch's first design (scripts/previous_designs.py
+    idct_planes_sparse_first, the launch alone) on the sparse rows' sets
+    and a real upload: bit-identical to the model with every cap 0."""
+    import os
+    import sys
+
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.testing import ycc_uploads as YU
+    from test_torch_host_copies import REPO, build_host_runtime
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import previous_designs
+
+    build_host_runtime()
+    uploads = dict(YU.sparse_sets(128))
+    uploads["real q95"] = _sparse_case(TC.encode_batch(
+        _transform_images(64, 96, 416), quality=95, device="cpu"))
+    args = ("geom", "level", "shapes", "K", "N", "caps")
+    for label, (flat, kw) in uploads.items():
+        got = previous_designs.idct_planes_sparse_first(
+            torch.from_numpy(flat).to(cuda),
+            BT.quant_tables(kw["qtuple"], cuda), **{k: kw[k] for k in args})
+        model = BT.idct_planes_sparse_model(
+            flat, **dict(kw, caps=(0,) * len(kw["caps"])))
+        torch.cuda.synchronize()
+        assert np.array_equal(got.cpu().numpy(), model), label
+
+
+def test_idct_sparse_kernel_without_images(cuda):
+    """N = 0: [0, P] planes and no launch counted."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import transform_cuda
+    from jpezy_tpu_torch.testing import ycc_uploads as YU
+
+    kw = dict(shapes=(4,), K=10, N=0, caps=(0,),
+              geom=YU.geometry(1, 4, ((1, 1),)), level=128,
+              qtuple=(tuple([1] * 64),))
+    before = transform_cuda.idct_launches
+    got = BT.idct_planes_sparse(torch.zeros(0, dtype=torch.uint8,
+                                            device=cuda), **kw)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (0, 256)
+    assert transform_cuda.idct_launches == before
 
 
 def test_idct_sparse_kernel_4k_wide(cuda):

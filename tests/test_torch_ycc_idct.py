@@ -1,12 +1,17 @@
-"""The ycc420 IDCT's overflow launch (csrc/block_transforms.cu,
-idct_planes_overflow_kernel) in numpy: its schedule held to
-block_transform.idct_planes_sparse_model bit for bit on uploads whose
-overflow rows carry the float32 tie set, the mixed warp groups, blocks that
-clamp at both ends, noise, other sampling factors, fields at odd byte
-offsets, caps that are not multiples of 8 and padding rows (the
-testing/ycc_uploads sets, at levels 128 and 2048); and the uploads those
-sets are built with, held to the transport's own.  numpy and the host
-library only: no JAX compile, no card."""
+"""The ycc420 IDCT's two sparse-form launches (csrc/block_transforms.cu,
+idct_planes_sparse_kernel and idct_planes_overflow_kernel) in numpy: their
+schedules held to block_transform.idct_planes_sparse_model bit for bit.
+The overflow launch's on uploads whose overflow rows carry the float32 tie
+set, the mixed warp groups, blocks that clamp at both ends, noise, other
+sampling factors, fields at odd byte offsets, caps that are not multiples
+of 8 and padding rows (testing/ycc_uploads.overflow_sets, at levels 128
+and 2048); the sparse launch's on those, on the sparse rows of
+ycc_uploads.sparse_sets (a float32 tie set, masks with more than K set
+bits, K from 1 to 64, value bytes at every byte of a word, units at an MCU
+row's end, one image), on the transport's own uploads and on seeded
+uploads; and the uploads those sets are built with, held to the
+transport's own.  numpy and the host library only: no JAX compile, no
+card."""
 from __future__ import annotations
 
 import numpy as np
@@ -28,20 +33,41 @@ BASIS = exact_cuda.INV_BASIS
 # union bits from which it takes all 64 terms (kOvfDenseTerms)
 TILE = 8
 DENSE_TERMS = 32
+# the sparse launch's unit of blocks (kSparseUnit) and the blocks whose
+# masks one walk takes as a union (kSparseGroup)
+UNIT = 32
+GROUP = 16
+_Q = np.arange(4)
+# the 16 mirror quads' base samples p = 8 y + x, [y, x]
+_QUAD_P = 8 * _Q[:, None] + _Q[None, :]
 
 
-def _tile_samples(d, level):
-    """idct_planes_overflow_kernel's float part on tiles d [T, 8, 64] of
-    dequantized float32 rows: per tile the coefficients nonzero in any of
-    its rows, in ascending k = 8 v + u (the other rows' zero coefficients
-    adding +-0); per k and mirror quad (y, x < 4) one float32 product t =
-    d[k] M[8 y + x][k], added as t into sample (y, x), as (-1)^u t into
-    (y, 7 - x), (-1)^v t into (7 - y, x) and (-1)^(u + v) t into (7 - y,
+def _mirror(s):
+    """[..., i, y, x] samples of the 4 mirror positions of quad (y, x) ->
+    [..., 8, 8]: i = 0 (y, x), 1 (y, 7 - x), 2 (7 - y, x), 3 (7 - y,
+    7 - x)."""
+    out = np.zeros(s.shape[:-3] + (8, 8), s.dtype)
+    rows, cols = _Q[:, None], _Q[None, :]
+    out[..., rows, cols] = s[..., 0, :, :]
+    out[..., rows, 7 - cols] = s[..., 1, :, :]
+    out[..., 7 - rows, cols] = s[..., 2, :, :]
+    out[..., 7 - rows, 7 - cols] = s[..., 3, :, :]
+    return out
+
+
+def _tile_samples(d, level, union=None):
+    """The union walk of both sparse-form launches (quad_walk) on groups d
+    [T, B, 64] of dequantized float32 blocks: per group the coefficients
+    in `union` [T, 64] (by default those nonzero in any of its blocks), in
+    ascending k = 8 v + u (the other blocks' zero coefficients adding
+    +-0); per k and mirror quad (y, x < 4) one float32 product t = d[k]
+    M[8 y + x][k], added as t into sample (y, x), as (-1)^u t into (y,
+    7 - x), (-1)^v t into (7 - y, x) and (-1)^(u + v) t into (7 - y,
     7 - x); the k = 0 term stored in place of its add onto +0; then + level
-    in float32, truncated and clamped to [0, 255] -> [T, 8, 8, 8] uint8."""
-    union = (d != 0).any(axis=1)
-    q = np.arange(4)
-    base = BASIS[(8 * q[:, None] + q[None, :]).ravel()].reshape(4, 4, 64)
+    in float32, truncated and clamped to [0, 255] -> [T, B, 8, 8] uint8."""
+    if union is None:
+        union = (d != 0).any(axis=1)
+    base = BASIS[_QUAD_P.ravel()].reshape(4, 4, 64)
     acc = np.zeros(d.shape[:2] + (4, 4, 4), np.float32)  # [T, b, i, y, x]
     for k in range(64):
         v, u = divmod(k, 8)
@@ -51,28 +77,106 @@ def _tile_samples(d, level):
                         np.float32)
         term = t[:, :, None] * sign[None, None, :, None, None]  # exact
         acc[g] = term if k == 0 else acc[g] + term
-    s = np.clip(np.trunc(acc + np.float32(level)), 0, 255).astype(np.uint8)
-    out = np.zeros(d.shape[:2] + (8, 8), np.uint8)
-    rows, cols = q[:, None], q[None, :]
-    out[:, :, rows, cols] = s[:, :, 0]
-    out[:, :, rows, 7 - cols] = s[:, :, 1]
-    out[:, :, 7 - rows, cols] = s[:, :, 2]
-    out[:, :, 7 - rows, 7 - cols] = s[:, :, 3]
+    return _mirror(_clamped(acc, level))
+
+
+def _clamped(s, level):
+    """float32 sums + level in float32, truncated, clamped to [0, 255]."""
+    return np.clip(np.trunc(s + np.float32(level)), 0, 255).astype(np.uint8)
+
+
+def _unit_groups(mcus_y, mcus_x, v, h, group=GROUP):
+    """The sparse launch's walks over one image's blocks of a component
+    with sampling factors v x h: [walks, group] block indices, -1 past a
+    unit's blocks.  A unit is up to UNIT // (v h) MCUs of one MCU row (one
+    MCU where it holds more), its blocks consecutive from (my mcus_x + mx0)
+    v h; a walk takes `group` of them."""
+    per = v * h
+    mpu = UNIT // per if per < UNIT else 1
+    walks = []
+    for my in range(mcus_y):
+        for mx0 in range(0, mcus_x, mpu):
+            b0, nb = (my * mcus_x + mx0) * per, min(mpu, mcus_x - mx0) * per
+            walks += [[b0 + g0 + i if g0 + i < nb else -1
+                       for i in range(group)] for g0 in range(0, nb, group)]
+    return np.array(walks, np.int64).reshape(-1, group)
+
+
+def _sparse_rows(flat, kw, cut=True):
+    """Per component of an upload its blocks' masks, [N B_c, 64] bool, cut
+    to their first K set bits (all of them without `cut`), and dequantized
+    coefficients d = c q as int32 (c the value byte of the bit's rank, the
+    last one past the K-th), [N B_c, 64]."""
+    flat = np.asarray(flat, np.uint8)
+    N, K = kw["N"], kw["K"]
+    X = sum((8 + K) * bn for bn in kw["shapes"])
+    rows = flat[:N * X].reshape(N, X)
+    out, off = [], 0
+    j = np.arange(64, dtype=np.uint64)
+    for bn, qt in zip(kw["shapes"], kw["qtuple"]):
+        lo, hi = (np.frombuffer(rows[:, o:o + 4 * bn].tobytes(), "<u4")
+                  .astype(np.uint64) for o in (off, off + 4 * bn))
+        vals = rows[:, off + 8 * bn:off + (8 + K) * bn].reshape(
+            N * bn, K).view(np.int8).astype(np.int64)
+        off += (8 + K) * bn
+        bit = ((lo | (hi << np.uint64(32)))[:, None] >> j) & np.uint64(1)
+        bit = bit.astype(np.int64)
+        rank = np.cumsum(bit, axis=1) - bit
+        keep = (bit == 1) & ((rank < K) | (not cut))
+        c = np.take_along_axis(vals, np.minimum(rank, K - 1), axis=1)
+        d = np.where(keep, c * np.asarray(qt, np.int64)[None], 0)
+        out.append((keep, d.astype(np.int32)))
     return out
 
 
-def _schedule_overflow(flat, kw):
+def _schedule_sparse(flat, kw, group=GROUP, cut=True):
+    """The sparse form's two launches with the sparse launch's schedule,
+    then the overflow launch's (_schedule_overflow): per component and
+    image the units' walks (_unit_groups); each block's mask cut to its
+    first K set bits, its coefficient k = c q (int32) at a kept bit, else
+    0; the union of the walk's cut masks.  A walk whose union holds no bit
+    but k = 0 gives each quad its one term fl(d[0] M[p][0]) + level for
+    its 4 samples; any other walks the union (_tile_samples).  Blocks past
+    a unit's end hold nothing and store nothing.  cut=False walks every set
+    bit of a mask (a kernel without the cut to the first K)."""
+    N, geom = kw["N"], kw["geom"]
+    planes = []
+    for (keep, d), g in zip(_sparse_rows(flat, kw, cut), geom):
+        mcus_y, mcus_x, v, h = (int(x) for x in g[:4])
+        bn = mcus_y * mcus_x * v * h
+        walks = _unit_groups(mcus_y, mcus_x, v, h, group)    # [W, group]
+        live = np.tile(walks >= 0, (N, 1))                     # [N W, group]
+        at = (np.maximum(walks, 0)[None]
+              + bn * np.arange(N)[:, None, None]).reshape(-1, group)
+        dg = np.where(live[..., None], d[at], 0).astype(np.float32)
+        union = np.where(live[..., None], keep[at], False).any(axis=1)
+        samples = _tile_samples(dg, kw["level"], union)
+        flat_walk = ~union[:, 1:].any(axis=1)
+        if flat_walk.any():
+            t = (dg[flat_walk, :, 0, None, None]
+                 * BASIS[_QUAD_P, 0][None, None])             # [T, b, y, x]
+            s = _clamped(t, kw["level"])
+            samples[flat_walk] = _mirror(np.repeat(s[:, :, None], 4, axis=2))
+        blocks = np.zeros((N * bn, 8, 8), np.uint8)
+        blocks[at[live]] = samples[live]
+        planes.append(BT._deblockify(blocks.reshape(N, bn, 64), mcus_y,
+                                     mcus_x, v, h).reshape(N, bn * 64))
+    return _schedule_overflow(flat, kw, np.concatenate(planes, axis=1))
+
+
+def _schedule_overflow(flat, kw, planes=None):
     """The sparse form's two launches with the overflow launch's schedule:
-    the planes of the sparse launch (the model without the tails: an
-    overflow block's mask is clear, so it holds its level), then per
-    component its rows in tiles of 8 in upload order (the last tile padded
-    with rows that are not there); a row whose index is outside [0, N B_c)
-    is zero (no term) and stores nothing, each other row's 64 samples
-    (_tile_samples) go to its block's place in the planes."""
+    the planes of the sparse launch (by default the model without the
+    tails: an overflow block's mask is clear, so it holds its level), then
+    per component its rows in tiles of 8 in upload order (the last tile
+    padded with rows that are not there); a row whose index is outside
+    [0, N B_c) is zero (no term) and stores nothing, each other row's 64
+    samples (_tile_samples) go to its block's place in the planes."""
     flat = np.asarray(flat, np.uint8)
     N, shapes, geom = kw["N"], kw["shapes"], kw["geom"]
-    planes = BT.idct_planes_sparse_model(
-        flat, **dict(kw, caps=(0,) * len(shapes)))
+    if planes is None:
+        planes = BT.idct_planes_sparse_model(
+            flat, **dict(kw, caps=(0,) * len(shapes)))
     p0 = 0
     for (rows, oidx), Bn, qt, g in zip(YU.overflow_tails(flat, kw), shapes,
                                        kw["qtuple"], geom):
@@ -234,3 +338,195 @@ def test_idct_planes_sparse_cuda_refuses_cpu_tensors_before_building():
     with pytest.raises(ValueError, match="CUDA"):
         transform_cuda.sparse_desc(torch.from_numpy(flat), q, **args)
     assert transform_cuda.LIB.handle is None
+
+
+# ---------------------------------------------------------------------------
+# The sparse launch's schedule (_schedule_sparse)
+# ---------------------------------------------------------------------------
+
+SPARSE_LABELS = ("sparse ties", "junk masks", "K = 1", "K = 13",
+                 "K = 64, N = 1")
+SPARSE_SETS = [(level, label) for level in (128, 2048)
+               for label in SPARSE_LABELS]
+_SPARSE_BUILT = {}
+
+
+def _sparse_set(level, label):
+    if level not in _SPARSE_BUILT:
+        _SPARSE_BUILT[level] = YU.sparse_sets(level)
+    return _SPARSE_BUILT[level][label]
+
+
+def _any_set(level, label):
+    return (_sparse_set if label in SPARSE_LABELS else _set)(level, label)
+
+
+@pytest.mark.parametrize("level, label", SPARSE_SETS + SETS)
+def test_schedule_sparse_equals_model(level, label):
+    """The sparse launch's unions, +-0 terms, mirror quads, k = 0 store
+    and DC-only groups, then the overflow launch, on every set of
+    testing/ycc_uploads."""
+    flat, kw = _any_set(level, label)
+    assert np.array_equal(_schedule_sparse(flat, kw),
+                          BT.idct_planes_sparse_model(flat, **kw))
+
+
+@pytest.mark.parametrize("group", [4, 8, 16])
+@pytest.mark.parametrize("level, label", [(128, "junk masks"),
+                                          (2048, "K = 13"),
+                                          (128, "samplings, 1 component")])
+def test_schedule_sparse_any_union_size(group, level, label):
+    """Walks of 4, 8 or 16 blocks (the union sizes scripts/
+    idct_sparse_phases.py and chip_smoke.py time) give the same planes."""
+    flat, kw = _any_set(level, label)
+    assert np.array_equal(_schedule_sparse(flat, kw, group),
+                          BT.idct_planes_sparse_model(flat, **kw))
+
+
+@pytest.mark.parametrize("quality", [75, 95])
+def test_schedule_sparse_on_the_transports_uploads(quality):
+    """The main test images through the codec and the transport's host
+    half (codec/host_glue), at quality 75 (no overflow row) and 95 (luma
+    overflow rows)."""
+    from imagegen import make_test_image
+
+    rgbs = np.stack([make_test_image(64, 80, seed=440 + i)
+                     for i in range(2)])
+    flat, kw, *_ = TC._decode_host_prep(
+        TC.encode_batch(rgbs, quality=quality, device="cpu"), gray=False,
+        precision="fast", transport=None)
+    assert np.array_equal(_schedule_sparse(flat, kw),
+                          BT.idct_planes_sparse_model(flat, **kw))
+
+
+@settings(max_examples=25, deadline=None, derandomize=True)
+@given(st.integers(0, 2**31 - 1), st.sampled_from([128, 2048]),
+       st.lists(st.tuples(st.integers(1, 4), st.integers(1, 4)), min_size=1,
+                max_size=3),
+       st.integers(1, 64), st.sampled_from([0.0, 0.3]),
+       st.integers(1, 2), st.integers(1, 5))
+def test_schedule_sparse_random_uploads(seed, level, factors, K, junk, n,
+                                        mcus_x):
+    """Seeded uploads at any sampling factors 1..4, K 1..64, masks with
+    more than K set bits and odd MCU widths."""
+    rng = np.random.default_rng(seed)
+    scale = level // 128
+    comps = [YU._random_blocks(rng, n, 2 * mcus_x * v * h, scale)
+             for v, h in factors]
+    flat, kw = YU.sparse_upload(comps, K=K)
+    if junk:
+        flat = YU.junk_masks(flat, kw, seed, junk)
+    qt = tuple(tuple(int(x) for x in rng.integers(1, 9, 64))
+               for _ in factors)
+    kw.update(geom=YU.geometry(2, mcus_x, factors), level=level, qtuple=qt)
+    assert np.array_equal(_schedule_sparse(flat, kw),
+                          BT.idct_planes_sparse_model(flat, **kw))
+
+
+def test_schedule_sparse_without_images():
+    """N = 0: no plane, no walk (the wrapper launches nothing)."""
+    flat = np.zeros(0, np.uint8)
+    kw = dict(shapes=(4,), K=10, N=0, caps=(0,),
+              geom=YU.geometry(1, 4, ((1, 1),)), level=128,
+              qtuple=(tuple([1] * 64),))
+    assert _schedule_sparse(flat, kw).shape == (0, 256)
+    assert BT.idct_planes_sparse_model(flat, **kw).shape == (0, 256)
+    assert tuple(BT.idct_planes_sparse(torch.from_numpy(flat), **kw).shape) \
+        == (0, 256)
+
+
+def _unit_starts(kw):
+    """Per unit of an upload (component, image, unit): (the byte its value
+    bytes start at, the byte its low mask words start at, its first
+    sample's byte in the [N, P] planes, whether it ends an MCU row short of
+    UNIT blocks)."""
+    N, K = kw["N"], kw["K"]
+    X = sum((8 + K) * bn for bn in kw["shapes"])
+    P = sum(int(g[0]) * int(g[2]) * 8 * int(g[1]) * int(g[3]) * 8
+            for g in kw["geom"])
+    out, off, plane = [], 0, 0
+    for bn, g in zip(kw["shapes"], kw["geom"]):
+        mcus_y, mcus_x, v, h = (int(x) for x in g[:4])
+        per = v * h
+        mpu = UNIT // per if per < UNIT else 1
+        width = mcus_x * h * 8
+        for n in range(N):
+            for my in range(mcus_y):
+                for mx0 in range(0, mcus_x, mpu):
+                    b0 = (my * mcus_x + mx0) * per
+                    out.append((n * X + off + 8 * bn + b0 * K,
+                                n * X + off + 4 * b0,
+                                n * P + plane + my * v * 8 * width
+                                + mx0 * h * 8,
+                                mcus_x - mx0 < mpu))
+        off += (8 + K) * bn
+        plane += mcus_y * v * 8 * width
+    return out
+
+
+def test_sets_reach_every_hard_case():
+    """The sets hold each case a union walk over sparse rows meets: masks
+    with more than K set bits (which the cut to the first K changes);
+    value bytes and mask words that start at every byte of a word, K 1, 64
+    and odd, image rows whose length is not a multiple of 4; units that
+    end an MCU row short, sampling factors 3 x 4 and 4 x 1; plane widths
+    and unit destinations off a 16-byte boundary; one image; level 2048;
+    sums that cancel to 0 and blocks adding -0 to a sum of +0 (a walk's
+    union bit k > 0 where the block has none); samples clamped at 0 and at
+    255; walks of DC-only groups and of wider unions."""
+    every = [(lvl, lab) for lvl, lab in SPARSE_SETS + SETS]
+    ks, rows, vals, masks, short, dests, widths, factors = (
+        set(), set(), set(), set(), 0, set(), set(), set())
+    junk = cancel = minus0 = low = high = dc_walks = wide_walks = 0
+    ones = False
+    for lvl, lab in every:
+        flat, kw = _any_set(lvl, lab)
+        X = sum((8 + kw["K"]) * bn for bn in kw["shapes"])
+        ks.add(kw["K"])
+        rows.add(X % 4)
+        ones |= kw["N"] == 1
+        for g in kw["geom"]:
+            factors.add((int(g[2]), int(g[3])))
+            widths.add(int(g[1]) * int(g[3]) * 8 % 16)
+        for v0, m0, d0, end in _unit_starts(kw):
+            vals.add(v0 % 4)
+            masks.add(m0 % 4)
+            dests.add(d0 % 16)
+            short += end
+        planes = BT.idct_planes_sparse_model(flat, **kw)
+        low += int((planes == 0).sum())
+        high += int((planes == 255).sum())
+        for (keep, d), (bits, _), bn, g in zip(
+                _sparse_rows(flat, kw), _sparse_rows(flat, kw, cut=False),
+                kw["shapes"], kw["geom"]):
+            N = kw["N"]
+            junk += int((bits.sum(axis=1) > kw["K"]).sum())
+            s = BT.sum_ascending(d.astype(np.float32), BASIS)
+            cancel += int(((s == 0) & keep.any(axis=1)[:, None]).sum())
+            walks = _unit_groups(*(int(x) for x in g[:4]))
+            live = np.tile(walks >= 0, (N, 1))
+            at = (np.maximum(walks, 0)[None]
+                  + bn * np.arange(N)[:, None, None]).reshape(-1, GROUP)
+            kept = np.where(live[..., None], keep[at], False)
+            union = kept.any(axis=1)
+            dc_walks += int((~union[:, 1:].any(axis=1)).sum())
+            wide_walks += int((union.sum(axis=1) >= 8).sum())
+            minus0 += int((union[:, None, 1:] & ~kept[:, :, 1:]
+                           & live[..., None]).any(axis=2).sum())
+    assert junk > 0
+    assert {1, 64} <= ks and any(k % 2 for k in ks)
+    assert rows - {0} and vals == {0, 1, 2, 3} and masks - {0}
+    assert short > 0 and {(3, 4), (4, 1)} <= factors
+    assert 8 in widths and dests - {0}
+    assert ones and {128, 2048} <= {lvl for lvl, _ in every}
+    assert min(cancel, minus0, low, high, dc_walks, wide_walks) > 0
+
+
+
+def test_junk_masks_need_the_cut_to_k():
+    """Walking every set bit of the junk masks, not their first K, gives
+    other planes (at level 128; at 2048 most samples clamp): the sets
+    hold the cut to a difference."""
+    flat, kw = _sparse_set(128, "junk masks")
+    assert not np.array_equal(_schedule_sparse(flat, kw, cut=False),
+                              BT.idct_planes_sparse_model(flat, **kw))
