@@ -33,12 +33,13 @@ any failure exits nonzero.  In the order they run:
      kernels, colour.cu; the designs the entropy kernel, the concat,
      exact mode's two kernels, the fast rgb IDCT, the ycc420 IDCT's
      overflow launch and the fDCT replaced, scripts/previous_designs.cu,
-     and
-     the float64 chains of scripts/fp64_ceiling.cu, for phase 6) and
-     prints what
+     the grid design tried in place of the Huffman scan,
+     scripts/scan_grid.cu, and the float64 chains of
+     scripts/fp64_ceiling.cu, for phase 6) and prints what
      ptxas reports for each kernel (a template's instantiations under one
-     name); a stack frame or a spill in any kernel but the scan, or a
-     spill in the scan kernel, fails the run.  Counts each kernel's SASS
+     name); a stack frame or a spill in any kernel but the scans (the
+     kernel and the grid design), or a spill in a scan kernel, fails the
+     run.  Counts each kernel's SASS
      instructions (cuobjdump), and in the exact kernels, the three rgb
      kernels and the three kernels of idct_planes (sparse, overflow and
      dense launches) FFMA, DFMA, FMUL, FADD, DMUL and DADD: an FFMA or DFMA
@@ -68,10 +69,16 @@ any failure exits nonzero.  In the order they run:
      and 128 words and the long rows of quality-95 and noise segments, two
      table sets interleaved segment by segment (both in one thread block),
      a luma AC table whose codes all have 10 to 14 bits (no symbol answered
-     by the first-level table), and a launch into a buffer filled with a
-     pattern, with more block slots than any segment decodes, segments
-     with no blocks and a segment count that fills no whole thread block:
-     blocks and flags must be identical;
+     by the first-level table), dense rows (4 noise images at quality 100
+     and 95, restart_interval=8), 16 per-image table sets, rows of 3
+     words, 16 one bits at each offset of the 64-bit window, and Cr blocks
+     coded with tables of their own (the luma tables; an AC table of 10 to
+     14 bits), which a stream from another encoder may hold; and a launch
+     into a buffer filled with a pattern, with more block slots than any
+     segment decodes, segments with no blocks and a segment count that
+     fills no whole thread block: blocks and flags must be identical.  The
+     grid design (scripts/scan_grid.cu) runs on every set too, and the
+     sets where it differs from the plain version are printed;
   4. exact parity: 4x512x512 precision="exact" encodes on the card, without
      and with restart markers, must be byte-identical to the host C++ codec
      (the port's verbatim copy of jpezy_tpu's host_codec), each launching
@@ -242,7 +249,9 @@ any failure exits nonzero.  In the order they run:
      time (kernel and copy time summed from a torch.profiler trace) and
      number of device events, for both paths, with the plain programs'
      earlier readings (EARLIER_PROGRAMS, EARLIER_ENCODE) beside them and the
-     device decode's tail after the scan; each encode program, with and
+     device decode's tail after the scan, the device decode program in
+     turns with the scan's grid design in the scan kernel's place; each
+     encode program, with and
      without restart markers, must be the fDCT, entropy and concat kernels
      alone (3 device events, no plain torch between the upload and the
      fetch), in turns with the first fused entropy kernel and the concat
@@ -329,7 +338,17 @@ any failure exits nonzero.  In the order they run:
      each launch, on four times the segments, and with every segment on
      the slowest one's row; how the launch lies on the card (warps, thread
      blocks, warps per SM) and the share of symbols its first-level table
-     answers.
+     answers; then the kernel in turns with the grid design tried in its
+     place (scripts/previous_designs.py decode_segments_grid: now, grid,
+     now, grid, warm and with the L2 cache overwritten first) on the real
+     segments, the indexed pseudo-segments, the optimize path's segments
+     with 16 per-image table sets, the main images at quality 95 and 16
+     noise images at quality 100 (restart_interval=8; the last four sets
+     held to the plain version and the grid design to it on all), each
+     set's bound (the tables counted at their DHT bytes), symbols a
+     segment and ns a symbol of the slowest segment, both designs'
+     ptxas lines and the grid's registers and shared bytes, and the sets
+     where the grid design is under the kernel.
 
 Every wall clock is taken before torch.profiler first traces: after that
 every launch in the process costs the host more.
@@ -439,10 +458,6 @@ BLOCKS_PER_WARP = {"pack_words": 1, "encode_blocks": 32,
 # value (2), cut and sign-extend the extra bits (4), the coefficient's
 # position (2), advance the bit position (1).
 MIN_OPS_PER_SYMBOL = 12
-# The one-thread-per-segment kernel this one replaced, on the same
-# segments (NVIDIA H100 80GB HBM3, 700 W; a reading kept from then, not
-# taken again here).
-EARLIER_SCAN_MS = 0.1052
 KERNELS = ("pack_words", "encode_blocks", "decode_segments",
            "symbol_histograms", "concat_streams", "fdct_quantize",
            "idct_planes", "fdct_quantize_exact", "idct_planes_exact",
@@ -478,6 +493,9 @@ PREVIOUS = {"encode_blocks_fused_first_kernel":
             "idct_overflow_first_kernel": "previous idct_planes overflow",
             "fdct_first_kernel": "previous fdct_quantize",
             "idct_sparse_first_kernel": "previous idct_planes sparse"}
+# the grid design of the Huffman scan (scripts/scan_grid.cu), tried in place
+# of the scan kernel and not taken
+GRID_SCAN = "grid decode_segments"
 SOURCES = {"pack_words": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "encode_blocks": "jpezy_tpu_torch/csrc/entropy_pack.cu",
            "decode_segments": "jpezy_tpu_torch/csrc/huffman_scan.cu",
@@ -975,18 +993,12 @@ def _long_code_lanes(E, lut: np.ndarray, dev):
     index bits answers no luma AC symbol.  The blocks are encoded on the
     card by the batched entropy kernel, which takes the tables as
     arrays."""
-    from jpezy_tpu_torch.bitstream.reader import HuffTable
     from jpezy_tpu_torch.core import tables as T
-    from jpezy_tpu_torch.runtime.native import _huff_lut
 
-    bits = bytes([0] * 9 + [20, 30, 40, 40, 32, 0, 0])
-    sizes, codes = T.build_canonical_codes(bits)
+    sizes, codes, long_row = _long_ac_table(T)
     ac_size, ac_code = T.huffval_to_flat_ac(T.AC_LUMA_VALS, sizes, codes)
     long_lut = np.array(lut)
-    long_lut[1] = _huff_lut(HuffTable(
-        sizes, codes, np.frombuffer(T.AC_LUMA_VALS, np.uint8).astype(np.int32)))
-    if int((long_lut[1][long_lut[1] >= 0] & 0xFF).min()) < 10:
-        raise AssertionError("a luma AC code shorter than 10 bits")
+    long_lut[1] = long_row
     dc_size, dc_code, _, _ = E.annex_k_tables("cpu", False)
     rows = (E.kernel_tables((dc_size, dc_code, ac_size, ac_code), dev),
             E.kernel_tables(E.annex_k_tables("cpu", True), dev))
@@ -996,6 +1008,62 @@ def _long_code_lanes(E, lut: np.ndarray, dev):
                                      tables=rows)
 
     return _edge_case_lanes(E, long_lut, encode)
+
+
+def _long_ac_table(T):
+    """A Huffman AC table whose 162 codes all have 10 to 14 bits, so that a
+    first-level table of up to 9 index bits answers none of its symbols:
+    (sizes, codes, decode LUT row [65536])."""
+    from jpezy_tpu_torch.bitstream.reader import HuffTable
+    from jpezy_tpu_torch.runtime.native import _huff_lut
+
+    bits = bytes([0] * 9 + [20, 30, 40, 40, 32, 0, 0])
+    sizes, codes = T.build_canonical_codes(bits)
+    row = _huff_lut(HuffTable(
+        sizes, codes, np.frombuffer(T.AC_LUMA_VALS, np.uint8).astype(np.int32)))
+    if int((row[row >= 0] & 0xFF).min()) < 10:
+        raise AssertionError("an AC code shorter than 10 bits")
+    return sizes, codes, row
+
+
+def _cr_own_lanes(E, lut: np.ndarray, cr_tables, cr_rows, dev):
+    """_edge_case_lanes with Cr's blocks coded with tables of their own,
+    cr_tables (JAX order, one set), and decoded by LUT rows 4 and 5 =
+    cr_rows, where the encoder and the port's LUTs give Cb and Cr one set:
+    what a stream from another encoder may hold.  Y and Cb keep the Annex K
+    tables."""
+    std = (E.kernel_tables(E.annex_k_tables("cpu", False), dev),
+           E.kernel_tables(E.annex_k_tables("cpu", True), dev))
+    own = (std[0], E.kernel_tables(cr_tables, dev))
+
+    def encode(*comps):
+        comps = [c.to(dev) for c in comps]
+        (wy, wcb, _), (by, bcb, _) = E.encode_blocks_batch(*comps, 1,
+                                                           tables=std)
+        (_, _, wcr), (_, _, bcr) = E.encode_blocks_batch(*comps, 1,
+                                                         tables=own)
+        return (wy, wcb, wcr), (by, bcb, bcr)
+
+    cr_lut = np.array(lut)
+    cr_lut[4], cr_lut[5] = cr_rows
+    return _edge_case_lanes(E, cr_lut, encode)
+
+
+def _ones_at_offsets(kw: dict, span: int = 64) -> dict:
+    """Corrupt rows at every alignment of the scan's 64-bit window: for bit
+    offset o in 0..span-1, a copy of lane o % S of kw (decode_segments
+    arguments, numpy) whose 16 bits from bit 32 + o are ones (no code of a
+    JPEG table is all ones), then kw's lanes unchanged."""
+    words = np.asarray(kw["words"], np.uint32)
+    take = [o % words.shape[0] for o in range(span)]
+    rows = []
+    for o, s in enumerate(take):
+        bits = np.unpackbits(words[s].astype(">u4").view(np.uint8))
+        bits[32 + o:48 + o] = 1
+        rows.append(np.packbits(bits).view(">u4").astype(np.uint32))
+    out = _take_lanes(kw, np.array(take + list(range(words.shape[0]))))
+    out["words"] = np.concatenate([np.stack(rows), words])
+    return out
 
 
 PER_LANE = ("words", "nblk", "tsel", "rawlen", "skip0", "preds0")
@@ -1206,7 +1274,7 @@ def main() -> int:
 
     libs = (pack_cuda.LIB, scan_cuda.LIB, concat_cuda.LIB,
             transform_cuda.LIB, exact_cuda.LIB, colour_cuda.LIB)
-    extra = (previous_designs.LIB, fp64_ceiling.LIB)
+    extra = (previous_designs.LIB, previous_designs.GRID, fp64_ceiling.LIB)
     t0 = time.perf_counter()
     with cf.ThreadPoolExecutor(len(libs) + len(extra)) as ex:
         secs = list(ex.map(lambda lib: lib.build(force=True), libs + extra))
@@ -1246,6 +1314,7 @@ def main() -> int:
         raise AssertionError(f"fdct_quantize's SASS holds no IMMA: "
                              f"{sass_ops['fdct_quantize']}")
     previous_designs.LIB.get()
+    previous_designs.GRID.get()
     fp64_ceiling.LIB.get()
     prev_ptxas = _ptxas_by_kernel(previous_designs.LIB.build_log,
                                   _previous_of)
@@ -1253,6 +1322,15 @@ def main() -> int:
         raise AssertionError(f"ptxas reported {sorted(prev_ptxas)} of the "
                              f"earlier designs:\n"
                              f"{previous_designs.LIB.build_log}")
+    # the grid design of the scan (scripts/scan_grid.cu), tried and not
+    # taken, for phases 7 and 9
+    prev_ptxas.update(_ptxas_by_kernel(
+        previous_designs.GRID.build_log,
+        lambda sym: GRID_SCAN if "decode_segments_grid_kernel" in sym
+        else None))
+    if GRID_SCAN not in prev_ptxas:
+        raise AssertionError("ptxas reported no grid scan kernel:\n"
+                             f"{previous_designs.GRID.build_log}")
     # the earlier designs' float64 operations (and PR 9's fDCT's), for
     # phase 6
     prev_sass, prev_ops = _sass_instructions(cuda_build.nvcc(),
@@ -1269,9 +1347,10 @@ def main() -> int:
     launch_ptxas = _ptxas_by_kernel(transform_cuda.LIB.build_log, launch_of)
     sparse_regs = transform_cuda.kernel_info()["idct_planes sparse"]
     _say("2 build", ", ".join(os.path.basename(lib.src) for lib in libs)
-         + f" and the earlier designs' scripts/previous_designs.cu and the "
-         f"float64 chains of scripts/fp64_ceiling.cu built for "
-         f"sm_90a side by side in {build_wall:.2f} s (nvcc "
+         + " and the earlier designs' scripts/previous_designs.cu, the "
+         "scan's grid design scripts/scan_grid.cu and the float64 chains of "
+         "scripts/fp64_ceiling.cu built for sm_90a side by side in "
+         f"{build_wall:.2f} s (nvcc "
          + ", ".join(f"{t:.2f}" for t in secs) + " s); "
          + " || ".join(f"{k}: {' | '.join(v)} | {sass[k]} SASS instructions"
                        + (" (" + ", ".join(f"{n} {op}" for op, n in
@@ -1296,9 +1375,10 @@ def main() -> int:
         if not frames:
             raise AssertionError(f"ptxas printed no stack frame for {k}")
         for ln in frames:
-            # the scan kernel may keep a stack frame; nothing may spill
+            # the scan kernels may keep a stack frame; nothing may spill
             ok = (ln.endswith(clean[clean.index("0 bytes spill"):])
-                  if k == "decode_segments" else ln.startswith(clean))
+                  if k in ("decode_segments", GRID_SCAN)
+                  else ln.startswith(clean))
             if not ok:
                 raise AssertionError(f"{k} uses local memory: {lines}")
 
@@ -1489,12 +1569,50 @@ def main() -> int:
                   ("noise, quality 95, restart_interval=16", noise_rows),
                   ("two table sets interleaved", mixed),
                   ("luma AC codes of 10 to 14 bits", long_np)]
+    # dense rows (noise at quality 100 and 95), a table set an image,
+    # rows of 3 words, 16 one bits at each offset of the 64-bit window, and
+    # Cr blocks with tables of their own: on the luma tables, and with an
+    # AC table whose codes have 10 to 14 bits
+    dense = rng.integers(0, 256, (4, 128, 128, 3), np.uint8)
+    for q in (100, 95):
+        scan_sets.append((f"dense rows, noise at quality {q}, "
+                          f"restart_interval={RESTART_INTERVAL}",
+                          _restart_lanes(HG, TC.encode_batch(
+                              dense, restart_interval=RESTART_INTERVAL,
+                              quality=q, device="cuda"), RESTART_INTERVAL)))
+    sets16 = _restart_lanes(HG, [host_codec.encode(
+        im[..., 0], im[..., 1], im[..., 2], optimize=True, restart_interval=2)
+        for im in _images(BATCH, 80)[:, :64, :64]], 2)
+    flat = np.zeros((3, 16, 32, 3), np.uint8) + np.array(
+        [17, 128, 240], np.uint8)[:, None, None, None]
+    tiny = _restart_lanes(HG, TC.encode_batch(flat, restart_interval=1,
+                                              device="cuda"), 1)
+    if sets16["lut"].shape[0] != BATCH or int(tiny["rawlen"].max()) + 4 > 12:
+        raise AssertionError("the table sets or the short rows are not what "
+                             "they were meant to be")
+    tiny["words"] = np.ascontiguousarray(tiny["words"][:, :3])
+    cr_sizes, cr_codes, cr_row = _long_ac_table(T)
+    cr_long = E.annex_k_tables("cpu", True)[:2] + tuple(
+        torch.from_numpy(np.asarray(a, np.int64))[None]
+        for a in T.huffval_to_flat_ac(T.AC_LUMA_VALS, cr_sizes, cr_codes))
+    cr_luma_np, cr_luma_q = _cr_own_lanes(
+        E, std_lut, E.annex_k_tables("cpu", False), std_lut[:2], dev)
+    cr_long_np, cr_long_q = _cr_own_lanes(
+        E, std_lut, cr_long, (std_lut[4], cr_row), dev)
+    scan_sets += [(f"{BATCH} table sets", sets16),
+                  ("rows of 3 words", tiny),
+                  ("corrupt: 16 one bits at each offset of the window",
+                   _ones_at_offsets(sub)),
+                  ("Cr on the luma tables", cr_luma_np),
+                  ("Cr AC codes of 10 to 14 bits", cr_long_np)]
     err["decode_segments"] = 0
     scan_plain_ms = None
     flagged = lanes_seen = 0
+    grid_differs = []  # sets where the tried grid design is not the plain
     for label, kw in scan_sets:
         args = _to_dev(kw, dev)
         gb, gbad = ED.decode_segments(**args)
+        grid = previous_designs.decode_segments_grid(**args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pb, pbad = ED.decode_segments_plain(**args)
@@ -1510,12 +1628,16 @@ def main() -> int:
             raise AssertionError(
                 f"decode_segments kernel != plain version on {label} "
                 f"segments {tuple(kw['words'].shape)}")
+        if not (torch.equal(grid[0], pb) and torch.equal(grid[1], pbad)):
+            grid_differs.append(label)
         if label.startswith("corrupt"):
             flagged += int(pbad.sum())
             lanes_seen += pbad.numel()
         elif bool(pbad.any()):
             raise AssertionError(f"{label} segments flagged as corrupt")
-        for name, want in (("edge", edge_q), ("luma AC codes", long_q)):
+        for name, want in (("edge", edge_q), ("luma AC codes", long_q),
+                           ("Cr on the luma", cr_luma_q),
+                           ("Cr AC codes", cr_long_q)):
             if label.startswith(name) and not np.array_equal(
                     gb.cpu().numpy(), want):
                 raise AssertionError(f"{label}: the blocks do not survive "
@@ -1556,8 +1678,11 @@ def main() -> int:
          f"segments x {gb.shape[1]} slots with "
          f"{int((ragged['nblk'] == 0).sum())} segments of no blocks; the "
          f"sweep flagged {flagged} of {lanes_seen} lanes; plain version on "
-         f"the real segments {scan_plain_ms:.1f} ms (one call)")
-    del scan_sets, sub, args, gb, gbad, pb, pbad
+         f"the real segments {scan_plain_ms:.1f} ms (one call); the grid "
+         f"design tried in the kernel's place (scripts/scan_grid.cu, not on "
+         f"any path) differs from the plain version on: "
+         + (", ".join(grid_differs) or "none"))
+    del scan_sets, sub, args, gb, gbad, pb, pbad, grid
     torch.cuda.empty_cache()
 
     # ---- 4. exact parity with the host C++ codec
@@ -3153,13 +3278,13 @@ def main() -> int:
                 pack_cuda.encode_blocks_batch_cuda, E.concat_streams = keep
         return run
 
-    def in_turns(fn, swap):
+    def in_turns(fn, swap, other="first"):
         """'now ms, first ms, now ms, first ms' of fn's device busy time,
-        as it is and with swap(fn)."""
+        as it is and with swap(fn) (named `other`)."""
         return ", ".join(
             f"{which} {_fmt_ms(_profile(f, 5)['busy_ms'])}"
-            for which, f in (("now", fn), ("first", swap(fn)),
-                             ("now again", fn), ("first again", swap(fn))))
+            for which, f in (("now", fn), (other, swap(fn)),
+                             ("now again", fn), (f"{other} again", swap(fn))))
 
     enc_turns = {name: in_turns(fn, with_first_entropy)
                  for name, fn in (("enc", enc), ("enc_r", enc_r))}
@@ -3179,6 +3304,22 @@ def main() -> int:
 
     fdct_turns = {name: in_turns(fn, with_first_fdct)
                   for name, fn in (("enc", enc), ("enc_r", enc_r))}
+
+    # the device decode program in turns with the scan's grid design
+    # (scripts/previous_designs.py decode_segments_grid) in place of the
+    # scan kernel
+    def with_grid_scan(fn):
+        def run():
+            keep = scan_cuda.decode_segments_cuda
+            scan_cuda.decode_segments_cuda = (
+                previous_designs.decode_segments_grid)
+            try:
+                return fn()
+            finally:
+                scan_cuda.decode_segments_cuda = keep
+        return run
+
+    scan_turns = in_turns(dec_r, with_grid_scan, "grid")
     # the card's busy share of a pipelined round trip: device time of the
     # same round trip under the profiler (which slows the host, not the
     # kernels) over the wall time measured above without it
@@ -3235,7 +3376,8 @@ def main() -> int:
          f"{spans['dec_r']:.3f} ms, device busy "
          f"{_fmt_ms(profs['dec_r']['busy_ms'])} ms in "
          f"{profs['dec_r']['events']:.1f} device events "
-         f"({earlier('device decode')}), of it the scan kernel "
+         f"({earlier('device decode')}; in turns with the scan's grid "
+         f"design in its place: {scan_turns} ms), of it the scan kernel "
          + _fmt_ms(scan_in_dec_r) + " ms and the tail after the scan "
          + _fmt_ms(None if None in (profs["dec_r"]["busy_ms"],
                                     scan_in_dec_r)
@@ -4656,28 +4798,110 @@ def main() -> int:
     del real_inputs, comps4, real_comps, set_rows, concat_inputs
     del concat_inputs_r, comps, fdct_inputs, fdct_sets6, noise_up, rgb14
 
-    # ---- 9. the scan kernel alone on the real segments of phase 7
+    # ---- 9. the scan kernel alone, in turns with the grid design
     S, Lw = real_args["words"].shape
     mb = real_args["max_blocks"]
-    nsym, per_lane = _count_symbols(E, real_blocks, real_args["nblk"])
-    scan_bytes = (4 * S * Lw + 3 * 4 * S + 4 * real_args["lut"].numel()
-                  + 2 * 64 * mb * S + S)
+
+    def scan_bytes_of(args):
+        """Bytes the function must move: rows, per-lane arguments, the
+        blocks and the flags, each once, and of the table sets what a
+        decode needs, their DHT bytes (16 code-length counts and a byte a
+        symbol for each distinct table of a set): a decode reads the LUT
+        entries its symbols select, never a 65,536-entry row whole."""
+        n, lw = args["words"].shape
+        lane = sum(4 * (args.get(k) is not None)
+                   for k in ("nblk", "tsel", "rawlen", "skip0"))
+        lane += 12 * (args.get("preds0") is not None)
+        dht = 0
+        for set6 in args["lut"].cpu().numpy():
+            tables = {row.tobytes(): row for row in set6}
+            dht += sum(16 + np.unique(row[row >= 0]).size
+                       for row in tables.values())
+        return (4 * n * lw + lane * n + dht
+                + 2 * 64 * args["max_blocks"] * n + n)
 
     def run_scan(args=real_args):
         scan_cuda.decode_segments_cuda(**args)
 
-    def run_scan_cold():
-        l2_flush.zero_()
-        run_scan()
+    def run_grid(args=real_args):
+        previous_designs.decode_segments_grid(**args)
 
+    def cold(fn):
+        return lambda: (l2_flush.zero_(), fn())
+
+    # the sets: the restart path's segments (held to the plain version in
+    # phase 7), the indexed transport's pseudo-segments, the optimize
+    # path's segments (a table set an image), the main images at quality
+    # 95 and 16 noise images at quality 100 (dense rows); each of the last
+    # four held here to the plain version, and the grid design on all
+    def lanes_of(streams, ri=RESTART_INTERVAL):
+        return _to_dev(_restart_lanes(HG, streams, ri), dev)
+
+    imgs9 = _images(BATCH, 0)
+    noise9 = np.random.default_rng(17).integers(0, 256, (BATCH, H, W, 3),
+                                                dtype=np.uint8)
+    sets9 = {"real": real_args,
+             "indexed": _to_dev(_indexed_lanes(HG, plain0), dev),
+             f"{BATCH} table sets": lanes_of(TC.encode_batch(
+                 imgs9, optimize=True, restart_interval=RESTART_INTERVAL,
+                 device="cuda")),
+             "quality 95": lanes_of(TC.encode_batch(
+                 imgs9, quality=95, restart_interval=RESTART_INTERVAL,
+                 device="cuda")),
+             "noise at quality 100": lanes_of(TC.encode_batch(
+                 noise9, quality=100, restart_interval=RESTART_INTERVAL,
+                 device="cuda"))}
+    grid_info = previous_designs.grid_layout()
+    scan9 = {}
+    for label, args in sets9.items():
+        got = scan_cuda.decode_segments_cuda(**args)
+        grid = previous_designs.decode_segments_grid(**args)
+        want = ((real_blocks, got[1]) if label == "real"
+                else ED.decode_segments_plain(**args))
+        torch.cuda.synchronize()
+        for name, out in (("kernel", got), ("grid design", grid)):
+            if not (torch.equal(out[0], want[0])
+                    and torch.equal(out[1], want[1])):
+                raise AssertionError(f"decode_segments' {name} != the plain "
+                                     f"version on the {label} set")
+        if bool(want[1].any()):
+            raise AssertionError(f"{label} segments flagged as corrupt")
+        nsym_set, per_lane_set = _count_symbols(E, got[0], args["nblk"])
+        readings = {}
+        for which in ("warm", "cold"):
+            for design, fn, sym in (
+                    ("now", run_scan, "decode_segments_kernel"),
+                    ("grid", run_grid, "decode_segments_grid_kernel")) * 2:
+                f = (lambda fn=fn: fn(args))
+                ms, _ = _traced(cold(f) if which == "cold" else f, 20, sym)
+                readings.setdefault(f"{design} {which}", []).append(ms)
+        bound_ms, bound_by = _bound(scan_bytes_of(args),
+                                    MIN_OPS_PER_SYMBOL * nsym_set)
+        scan9[label] = dict(readings, segments=args["words"].shape[0],
+                            row_words=args["words"].shape[1],
+                            symbols=nsym_set,
+                            mean_symbols=float(per_lane_set.float().mean()),
+                            max_symbols=int(per_lane_set.max()),
+                            bound_ms=bound_ms, bound_by=bound_by)
+        if label == "real":
+            nsym, per_lane = nsym_set, per_lane_set
+    # where the grid design is faster: both its readings under both of
+    # the kernel's in the same turns
+    grid_faster = [f"{label} {which}" for label, r in scan9.items()
+                   for which in ("warm", "cold")
+                   if max(r[f"grid {which}"]) < min(r[f"now {which}"])]
+    real9 = scan9["real"]
     t = {"event_ms": _time_ms(run_scan, 20), "plain_ms": scan_plain_ms}
     t["ms"], prof = _traced(run_scan, 20, "decode_segments_kernel")
     t["wrapper_busy_ms"] = prof["busy_ms"]
-    t["cold_ms"], _ = _traced(run_scan_cold, 20, "decode_segments_kernel")
-    t["bound_ms"], t["bound_by"] = _bound(scan_bytes,
-                                          MIN_OPS_PER_SYMBOL * nsym)
+    t["cold_ms"], _ = _traced(cold(run_scan), 20, "decode_segments_kernel")
+    t["bound_ms"], t["bound_by"] = real9["bound_ms"], real9["bound_by"]
     t["sass_ms"], t["sass_instructions"] = None, sass["decode_segments"]
     t["launch_ms"], t["cold_launch_ms"] = [t["ms"]], [t["cold_ms"]]
+    t["grid_ms"] = min(real9["grid warm"])
+    t["grid_cold_ms"] = min(real9["grid cold"])
+    t["scan_sets"] = scan9
+    t["kernel_info"] = {"decode_segments": layout, GRID_SCAN: grid_info}
     # four times the segments in one launch: does the card have room left?
     wide = {k: (torch.cat([v] * 4) if k in (
         "words", "nblk", "tsel", "rawlen") else v)
@@ -4700,6 +4924,11 @@ def main() -> int:
     if seen != nsym:
         raise AssertionError(f"{seen} symbols by table row, {nsym} by block")
     timing["decode_segments"] = t
+
+    def turns_of(r, which):
+        return ", ".join(f"{x:.4f}" for x in r[f"now {which}"]) + " / " \
+            + ", ".join(f"{x:.4f}" for x in r[f"grid {which}"])
+
     _say("9 times", f"decode_segments per {BATCH}x{H}x{W} batch with "
          f"restart_interval={RESTART_INTERVAL} (1 launch, {S} segments x "
          f"{mb} block slots, rows of {Lw} words; one warp a segment, {ctas} "
@@ -4707,30 +4936,52 @@ def main() -> int:
          f"{warps_per_sm} warps on an SM of the "
          f"{layout['warps_per_block'] * layout['blocks_per_sm']} it could "
          f"hold): kernel alone {t['ms']:.4f} ms (profiler), wrapper device "
-         f"busy {_fmt_ms(t['wrapper_busy_ms'])} ms (the blocks are not "
-         f"cleared first), wrapper event span {t['event_ms']:.4f} ms; the "
-         f"one-thread-per-segment kernel it replaced read "
-         f"{EARLIER_SCAN_MS} ms on these segments (NVIDIA H100 80GB HBM3, "
-         f"700 W; kept from then, not measured here); bound "
-         f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({scan_bytes} bytes: "
-         f"rows {4 * S * Lw}, per-lane arguments {12 * S}, LUT "
-         f"{4 * real_args['lut'].numel()}, blocks {128 * mb * S}, flags "
-         f"{S}; {nsym} symbols x {MIN_OPS_PER_SYMBOL} operations) = "
+         f"busy {_fmt_ms(t['wrapper_busy_ms'])} ms (the blocks are not cleared "
+         f"first), wrapper event span {t['event_ms']:.4f} ms; bound "
+         f"{t['bound_ms']:.4f} ms by {t['bound_by']} = "
          f"{t['bound_ms'] / t['ms']:.4f} of the kernel's time; with the L2 "
-         f"cache overwritten before each launch: kernel {t['cold_ms']:.4f} "
-         f"ms; {4 * S} segments in one launch: {wide_ms:.4f} ms "
+         f"cache overwritten before each launch {t['cold_ms']:.4f} ms; "
+         f"{4 * S} segments in one launch: {wide_ms:.4f} ms "
          f"({wide_ms / t['ms']:.2f} x the time for 4 x the work); all {S} "
          f"segments on the slowest one's row ({int(per_lane.max())} "
          f"symbols): {same_ms:.4f} ms = "
-         f"{1e6 * same_ms / int(per_lane.max()):.1f} ns per symbol; symbols "
-         f"per segment: mean {float(per_lane.float().mean()):.1f}, max "
-         f"{int(per_lane.max())}: "
-         f"{1e6 * t['ms'] / int(per_lane.max()):.1f} ns per symbol of the "
-         f"slowest segment; the first-level table of "
-         f"{layout['first_level_bits']} index bits answers {hit} of {seen} "
-         f"symbols ({hit / seen:.4f}); plain version {t['plain_ms']:.1f} ms (one call, all {S} "
-         f"segments, host clock with a synchronise); on {card}")
-    del real_args, real_blocks, wide, same, l2_flush
+         f"{1e6 * same_ms / int(per_lane.max()):.1f} ns per symbol; the "
+         f"first-level table of {layout['first_level_bits']} index bits "
+         f"answers {hit} of {seen} symbols ({hit / seen:.4f}); plain "
+         f"version {t['plain_ms']:.1f} ms (one call, all {S} segments, host "
+         f"clock with a synchronise); on {card}")
+    _say("9 versus", "decode_segments beside the grid design that was "
+         "tried in its place (scripts/scan_grid.cu, previous_designs."
+         "decode_segments_grid), blocks and flags identical to each other "
+         "and to the plain version on every set; kernel ms in turns "
+         "kernel, kernel / grid, grid (now, grid, now, grid; each reading "
+         "20 launches), warm; with the L2 cache overwritten before each "
+         "launch; per set the bound (bytes: rows, blocks, flags, per-lane "
+         "arguments and the tables' DHT bytes), symbols a segment and ns a "
+         "symbol of the slowest segment at the faster reading: " + "; ".join(
+             f"{label} ({r['segments']} segments, rows of {r['row_words']} "
+             f"words): warm {turns_of(r, 'warm')}, cold "
+             f"{turns_of(r, 'cold')}; bound {r['bound_ms']:.4f} ms by "
+             f"{r['bound_by']} = {r['bound_ms'] / min(r['now warm']):.4f} "
+             f"(grid {r['bound_ms'] / min(r['grid warm']):.4f}); symbols "
+             f"a segment mean {r['mean_symbols']:.1f}, max "
+             f"{r['max_symbols']}; "
+             f"{1e6 * min(r['now warm']) / r['max_symbols']:.1f} ns a "
+             f"symbol (grid "
+             f"{1e6 * min(r['grid warm']) / r['max_symbols']:.1f})"
+             for label, r in scan9.items())
+         + f"; the kernel: {layout['blocks_per_sm']} thread blocks of "
+         f"{32 * layout['warps_per_block']} threads an SM, ptxas "
+         + " | ".join(ptxas["decode_segments"]) + "; the grid design: "
+         f"{grid_info['registers']} registers a thread, "
+         f"{grid_info['shared_bytes']} shared bytes a thread block of "
+         f"{32 * grid_info['warps_per_block']} threads, "
+         f"{grid_info['blocks_per_sm']} thread blocks an SM, chunks of "
+         f"{grid_info['chunk_bits']} bit offsets, ptxas "
+         + " | ".join(prev_ptxas[GRID_SCAN]) + "; the grid design under the "
+         "kernel (both its readings under both of the kernel's) on: "
+         + (", ".join(grid_faster) or "none") + f"; on {card}")
+    del real_args, real_blocks, wide, same, l2_flush, sets9
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "jpezy_tpu"))
@@ -4803,7 +5054,8 @@ def main() -> int:
                              "noise_overflow_ms",
                              "noise_overflow_previous_ms",
                              "q95_overflow_ms", "q95_overflow_previous_ms",
-                             "union_sweep_ms", "union_sweep_cross")
+                             "union_sweep_ms", "union_sweep_cross",
+                             "grid_ms", "grid_cold_ms", "scan_sets")
            if k in t},
     } for name, t in timing.items()]}))
     print(card)

@@ -85,14 +85,11 @@ def _launch(args, blocks, bad) -> None:
             launches += 1
 
 
-def decode_segments_cuda(words, nblk, lut, tsel=None, rawlen=None,
-                         skip0=None, preds0=None, *, max_blocks: int):
-    """CUDA form of entropy_decode.decode_segments (arguments as there).
-
-    words: [S, Lw] int32 (uint32 bit patterns); nblk [S] int32; lut
-    [T, 6, 65536] or [6, 65536] int32; tsel, rawlen, skip0 [S] int32 and
-    preds0 [S, 3] int32 are optional.  Returns (blocks [S, max_blocks, 64]
-    int16, bad [S] bool) on the inputs' device and stream."""
+def prepare(words, nblk, lut, tsel=None, rawlen=None, skip0=None,
+            preds0=None, *, max_blocks: int):
+    """Checks decode_segments_cuda's arguments and returns (args, blocks,
+    bad): the contiguous inputs in the order _launch takes them (lut as
+    [T, 6, 65536]), and the uncleared outputs on the inputs' device."""
     fn = "decode_segments_cuda"
     if lut.dim() == 2:
         lut = lut[None]
@@ -122,5 +119,18 @@ def decode_segments_cuda(words, nblk, lut, tsel=None, rawlen=None,
         blocks = torch.empty((S, max_blocks, 64), dtype=torch.int16,
                              device=dev)
         bad = torch.empty((S,), dtype=torch.uint8, device=dev)
+    return args, blocks, bad
+
+
+def decode_segments_cuda(words, nblk, lut, tsel=None, rawlen=None,
+                         skip0=None, preds0=None, *, max_blocks: int):
+    """CUDA form of entropy_decode.decode_segments (arguments as there).
+
+    words: [S, Lw] int32 (uint32 bit patterns); nblk [S] int32; lut
+    [T, 6, 65536] or [6, 65536] int32; tsel, rawlen, skip0 [S] int32 and
+    preds0 [S, 3] int32 are optional.  Returns (blocks [S, max_blocks, 64]
+    int16, bad [S] bool) on the inputs' device and stream."""
+    args, blocks, bad = prepare(words, nblk, lut, tsel, rawlen, skip0,
+                                preds0, max_blocks=max_blocks)
     _launch(args, blocks, bad)
     return blocks, bad.bool()

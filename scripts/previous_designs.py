@@ -49,6 +49,16 @@ same inputs and the same card.  Nothing in the package calls them.
                      model), 4 blocks a warp, a lane a row then a column,
                      transposes through a per-warp shared tile.
 
+and, from scripts/scan_grid.cu, one design that was tried and not taken:
+
+  decode_segments_grid
+                     a Huffman scan with the arguments and results of
+                     scan_cuda.decode_segments_cuda that takes the table
+                     lookups off the symbol chain: a warp builds the
+                     decoded entry at every bit offset of a chunk of its
+                     segment in each table row the walk can reach, then
+                     walks them (GRID, grid_layout).
+
 All raise without a card; none falls back.
 """
 from __future__ import annotations
@@ -304,3 +314,53 @@ def fdct_quantize_first(y, cb, cr, yqt, cqt, *, gray: bool = False,
         torch.cuda.current_stream().cuda_stream)
     LIB.raise_on("prev_fdct_quantize", rc)
     return tuple(outs)
+
+
+def _bind_grid(lib) -> None:
+    from jpezy_tpu_torch.ops import scan_cuda
+
+    scan_cuda._bind(lib)
+    for fn in (lib.jz_scan_chunk_bits, lib.jz_scan_shared_bytes,
+               lib.jz_scan_registers):
+        fn.restype = ctypes.c_int
+        fn.argtypes = []
+
+
+GRID = KernelLibrary("scan_grid.cu", _bind_grid,
+                     directory=os.path.dirname(os.path.abspath(__file__)))
+
+
+def grid_layout() -> dict:
+    """scan_cuda.layout() of the grid design, with the bit offsets of a
+    chunk, shared bytes a thread block and registers a thread."""
+    h = GRID.get()
+    return {"warps_per_block": h.jz_scan_warps_per_block(),
+            "first_level_bits": h.jz_scan_first_level_bits(),
+            "chunk_bits": h.jz_scan_chunk_bits(),
+            "shared_bytes": h.jz_scan_shared_bytes(),
+            "registers": h.jz_scan_registers(),
+            "blocks_per_sm": h.jz_scan_blocks_per_sm()}
+
+
+def decode_segments_grid(words, nblk, lut, tsel=None, rawlen=None,
+                         skip0=None, preds0=None, *, max_blocks: int,
+                         lib=None):
+    """scan_cuda.decode_segments_cuda's (blocks, bad) from the grid design
+    (`lib`, a build of scripts/scan_grid.cu or a variant of it; GRID by
+    default): the same arguments (CUDA tensors, checked by the package
+    wrapper's rules) and results.  Not counted in scan_cuda.launches."""
+    from jpezy_tpu_torch.ops import scan_cuda
+
+    lib = lib or GRID
+    h = lib.get()
+    args, blocks, bad = scan_cuda.prepare(words, nblk, lut, tsel, rawlen,
+                                          skip0, preds0,
+                                          max_blocks=max_blocks)
+    S, Lw = args[0].shape
+    with torch.cuda.device(args[0].device):
+        rc = h.jz_decode_segments(
+            *(None if t is None else t.data_ptr() for t in args),
+            blocks.data_ptr(), bad.data_ptr(), S, Lw, args[2].shape[0],
+            max_blocks, torch.cuda.current_stream(args[0].device).cuda_stream)
+    lib.raise_on("decode_segments_grid", rc)
+    return blocks, bad.bool()

@@ -17,6 +17,7 @@ import torch
 
 from jpezy_tpu_torch.codec import host_glue as HG
 from jpezy_tpu_torch.codec import torch_codec as TC
+from jpezy_tpu_torch.core import tables as T
 from jpezy_tpu_torch.ops import entropy as TE
 from jpezy_tpu_torch.ops import entropy_decode as ED
 from jpezy_tpu_torch.testing import colour_sets as CS
@@ -214,6 +215,73 @@ def _repad(kw, lw):
     return dict(kw, words=wide)
 
 
+def _ones_at_offsets(kw, span=64):
+    """Corrupt rows at every alignment of the scan's 64-bit window: for bit
+    offset o in 0..span-1, a copy of lane o % S of kw whose 16 bits from
+    bit 32 + o are ones (no code of a JPEG table is all ones), then kw's
+    lanes unchanged."""
+    words = np.asarray(kw["words"], np.uint32)
+    take = [o % words.shape[0] for o in range(span)]
+    rows = []
+    for o, s in enumerate(take):
+        bits = np.unpackbits(words[s].astype(">u4").view(np.uint8))
+        bits[32 + o:48 + o] = 1
+        rows.append(np.packbits(bits).view(">u4").astype(np.uint32))
+    out = _lanes(kw, np.array(take + list(range(words.shape[0]))))
+    out["words"] = np.concatenate([np.stack(rows), words])
+    return out
+
+
+def _long_ac_table():
+    """A Huffman AC table whose 162 codes all have 10 to 14 bits (none
+    answered by the scan's first-level table): (sizes, codes, decode LUT
+    row [65536])."""
+    from jpezy_tpu_torch.bitstream.reader import HuffTable
+    from jpezy_tpu_torch.runtime.native import _huff_lut
+
+    sizes, codes = T.build_canonical_codes(
+        bytes([0] * 9 + [20, 30, 40, 40, 32, 0, 0]))
+    row = _huff_lut(HuffTable(
+        sizes, codes, np.frombuffer(T.AC_LUMA_VALS, np.uint8).astype(np.int32)))
+    assert int((row[row >= 0] & 0xFF).min()) >= 10
+    return sizes, codes, row
+
+
+def _cr_own_case(lut, cr_tables, cr_rows):
+    """Segments of one MCU of entropy.edge_case_blocks each (predictors
+    reset) whose Cr blocks are coded with cr_tables (JAX order, one set)
+    and decoded by LUT rows 4 and 5 = cr_rows, Y and Cb with the Annex K
+    tables: a stream from another encoder may give Cr tables of its own."""
+    from jpezy_tpu_torch.bitstream.splice import splice_blocks
+
+    q = TE.edge_case_blocks(3)
+    q = q[: (q.shape[0] // 6) * 6].reshape(-1, 6, 64)
+    n = q.shape[0]
+    comps = (torch.from_numpy(q[:, :4].reshape(1, -1, 64).copy()),
+             torch.from_numpy(q[None, :, 4].copy()),
+             torch.from_numpy(q[None, :, 5].copy()))
+    (wy, wcb, _), (by, bcb, _) = TE.encode_blocks_batch_plain(*comps, 1)
+    (_, _, wcr), (_, _, bcr) = TE.encode_blocks_batch_plain(
+        *comps, 1, None, (None, cr_tables))
+    w = torch.cat([wy.reshape(n, 4, 64), wcb.reshape(n, 1, 64),
+                   wcr.reshape(n, 1, 64)], 1).reshape(-1, 64)
+    b = torch.cat([by.reshape(n, 4), bcb.reshape(n, 1),
+                   bcr.reshape(n, 1)], 1).reshape(-1)
+    w, b = w.numpy().astype(np.uint32), b.numpy().astype(np.int32)
+    raws = [splice_blocks(w[i:i + 6], b[i:i + 6])[0]
+            for i in range(0, w.shape[0], 6)]
+    width = (max(map(len, raws)) + 8 + 3) // 4 * 4
+    rows = np.zeros((n, width), np.uint8)
+    for i, raw in enumerate(raws):
+        rows[i, :len(raw)] = np.frombuffer(raw, np.uint8)
+    cr_lut = np.array(lut)
+    cr_lut[4], cr_lut[5] = cr_rows
+    return dict(words=rows.view(">u4").astype("=u4"),
+                nblk=np.full(n, 6, np.int32), lut=cr_lut,
+                rawlen=np.array([len(r) for r in raws], np.int32),
+                max_blocks=6)
+
+
 @functools.lru_cache(maxsize=None)
 def _scan_cases():
     """{label: kwargs of decode_segments as numpy arrays} for the scan
@@ -221,7 +289,10 @@ def _scan_cases():
     transport, a mixed-table batch, seeded corruptions of the first, and
     the shapes the kernel's layout is sensitive to (row lengths, more
     block slots than blocks, a segment count that fills no whole thread
-    block, segments without blocks, two table sets in one thread block)."""
+    block, segments without blocks, two table sets in one thread block);
+    dense rows (noise at quality 100 and 95, restart_interval=8), 16
+    per-image table sets, rows of 3 words, 16 one bits at each offset of
+    the 64-bit window, and Cr blocks coded with tables of their own."""
     from imagegen import make_test_image
 
     from jpezy_tpu_torch.bitstream.reader import parse
@@ -274,6 +345,36 @@ def _scan_cases():
     n = mixed["words"].shape[0]
     cases["interleaved tables"] = _lanes(
         mixed, np.arange(n).reshape(3, -1).T.reshape(-1))
+    for q in (100, 95):
+        restart_case(f"dense rows, quality {q}", TC.encode_batch(
+            noise, restart_interval=8, quality=q, device="cpu"), 8)
+    small = np.stack([make_test_image(32, 32, seed=160 + i)
+                      for i in range(16)])
+    restart_case("16 table sets", [
+        host_codec.encode(im[..., 0], im[..., 1], im[..., 2], optimize=True,
+                          restart_interval=2) for im in small], 2)
+    assert cases["16 table sets"]["lut"].shape[0] == 16
+    flat = np.zeros((3, 16, 32, 3), np.uint8) + np.array(
+        [17, 128, 240], np.uint8)[:, None, None, None]
+    restart_case("rows of 3 words", TC.encode_batch(
+        flat, restart_interval=1, device="cpu"), 1)
+    short = cases["rows of 3 words"]
+    assert 4 * 3 >= int(short["rawlen"].max()) + 4     # 3 words hold them
+    short["words"] = np.ascontiguousarray(short["words"][:, :3])
+    restart_case("segments of 8 MCUs", TC.encode_batch(
+        rgbs, restart_interval=8, device="cpu"), 8)
+    cases["corrupt at each offset of the window"] = _ones_at_offsets(
+        cases["segments of 8 MCUs"])
+    std_lut = real["lut"][0]
+    cases["Cr on the luma tables"] = _cr_own_case(
+        std_lut, TE.annex_k_tables("cpu", False), std_lut[:2])
+    sizes, codes, long_row = _long_ac_table()
+    c_dc_size, c_dc_code, _, _ = TE.annex_k_tables("cpu", True)
+    cases["Cr AC codes of 10 to 14 bits"] = _cr_own_case(
+        std_lut, (c_dc_size, c_dc_code) + tuple(
+            torch.from_numpy(np.asarray(a, np.int64))[None]
+            for a in T.huffval_to_flat_ac(T.AC_LUMA_VALS, sizes, codes)),
+        (std_lut[4], long_row))
     return cases
 
 
@@ -281,7 +382,11 @@ SCAN_CASES = ("real", "noise", "mixed tables", "indexed", "corrupt 0",
               "corrupt 1", "corrupt 2", "corrupt 3", "rows of 64 words",
               "rows of 128 words", "long rows", "more slots than blocks",
               "ragged segment count", "segments without blocks",
-              "interleaved tables")
+              "interleaved tables", "dense rows, quality 100",
+              "dense rows, quality 95", "16 table sets",
+              "rows of 3 words", "segments of 8 MCUs",
+              "corrupt at each offset of the window", "Cr on the luma tables",
+              "Cr AC codes of 10 to 14 bits")
 
 
 def _scan_args(kw, dev):
