@@ -45,7 +45,8 @@ any failure exits nonzero.  In the order they run:
      dense launches) FFMA, DFMA, FMUL, FADD, DMUL and DADD: an FFMA or DFMA
      (a contracted multiply-add) fails the run; and the fDCT kernel's IMMA
      and FMUL: no IMMA (its products off the int8 tensor cores) fails the
-     run;
+     run; the sparse and the dense launch of idct_planes each alone, with
+     their registers, thread blocks an SM, shared and local bytes;
   3. the pack kernels against their plain torch versions: the pack alone
      per component on the real 16x512x512 blocks, on seeded worst-case
      blocks and on the edge-case blocks; the batched entropy kernel (one
@@ -191,12 +192,17 @@ any failure exits nonzero.  In the order they run:
      8, sentinel and junk padding; the plain version takes no index below
      0, so the junk padding is held to the model alone), its dense
      form on the scan's blocks of the restart path's 2,048 segments and
-     of the indexed transport's pseudo-segments: bit-identical to the
-     model, within 1 of the plain version (the share that differs
-     printed; the fDCT's, integer against the plain 64-term float32
-     product, at most FDCT_DIFF_SHARE per set), the two forms' planes
-     identical on
-     the same streams; one counted call each;
+     of the indexed transport's pseudo-segments of the main batch, of its
+     images at quality 95 and of 4 noise images at quality 100, and on
+     testing/ycc_uploads.dense_sets at levels 128 and 2048 (the tie,
+     mixed-group, clamp and noise sets in the scan's layout, junk past
+     each image's MCUs, a table set an image, corrupt segments):
+     bit-identical to the model, within 1 of the plain version (the share
+     that differs printed; the fDCT's, integer against the plain 64-term
+     float32 product, at most FDCT_DIFF_SHARE per set), the two forms'
+     planes identical on the same streams, and the dense launch's first design
+     (previous_designs.idct_planes_dense_first) identical to the dense
+     form on every dense set; one counted call each;
   15. exact mode's kernels against their plain versions (the ordered
      float64 sums of ops/dct.py), bit for bit: fdct_quantize_exact on the
      main batch's ycc420 int8 planes at Annex K, quality 95, rounded and
@@ -250,7 +256,8 @@ any failure exits nonzero.  In the order they run:
      number of device events, for both paths, with the plain programs'
      earlier readings (EARLIER_PROGRAMS, EARLIER_ENCODE) beside them and the
      device decode's tail after the scan, the device decode program in
-     turns with the scan's grid design in the scan kernel's place; each
+     turns with the scan's grid design in the scan kernel's place and in
+     turns with the dense IDCT launch's first design in its place; each
      encode program, with and
      without restart markers, must be the fDCT, entropy and concat kernels
      alone (3 device events, no plain torch between the upload and the
@@ -318,7 +325,11 @@ any failure exits nonzero.  In the order they run:
      overflow launch alone on tiles of 8 rows whose union holds 8 to 64
      coefficients (where its branch-free run pays); times of
      the concat on noise at quality 100 (dense blocks), of the IDCT
-     kernel's dense form on the restart segments, and of the fused kernel
+     kernel's dense launch beside its first design in turns (now, first, now,
+     first; warm and cold) on the restart segments and on the indexed
+     pseudo-segments of the main batch, of its images at quality 95 and of
+     16 noise images at quality 100, beside the float32 matmul, and of the
+     fused kernel
      with the 16 per-image table sets beside the fixed tables; the entropy
      kernel beside its first fused design (scripts/previous_designs.py:
      64-bit words, a warp 2 blocks) in turns (now, first, now, first) on
@@ -492,7 +503,8 @@ PREVIOUS = {"encode_blocks_fused_first_kernel":
             "idct_rgb_first_kernel": "previous idct_planes_rgb",
             "idct_overflow_first_kernel": "previous idct_planes overflow",
             "fdct_first_kernel": "previous fdct_quantize",
-            "idct_sparse_first_kernel": "previous idct_planes sparse"}
+            "idct_sparse_first_kernel": "previous idct_planes sparse",
+            "idct_dense_first_kernel": "previous idct_planes dense"}
 # the grid design of the Huffman scan (scripts/scan_grid.cu), tried in place
 # of the scan kernel and not taken
 GRID_SCAN = "grid decode_segments"
@@ -556,10 +568,6 @@ EARLIER_RGB = {"rgb encode, fast": (0.3718, 26),
 # replaced, summed (chip_smoke.py phase 6, PR 5 and PR 6: NVIDIA H100 80GB
 # HBM3, 700 W; kept from then, not measured here).
 EARLIER_HISTOGRAM_MS = 0.0268
-# idct_planes' dense launch as this script's 6 times line read it before
-# the sparse launch's redesign, whose code it shares nothing with (PR 16
-# run A, NVIDIA H100 80GB HBM3, 700 W; kept from then, not measured here)
-EARLIER_DENSE_MS = 0.0180
 # The concat stage of the encode program as plain torch on the card, as
 # earlier runs read it (chip_smoke.py phase 5 stages, PR 5: NVIDIA H100
 # 80GB HBM3, 700 W; kept from then); this run measures it again beside
@@ -862,10 +870,15 @@ def rgb_inv_ops(coeff, kw, basis: np.ndarray) -> int:
     |M[.][k]| of its k (a product d M[p][k] is the same, up to its sign, at
     every sample p where |M[p][k]| is; 384 over the 64 k).  A block's 64
     adds of the level balance the 64 first adds onto +0 it need not make."""
+    c = coeff[:, :kw["sizes"][0]] if kw["gray"] else coeff
+    return _inv_ops(c, basis)
+
+
+def _inv_ops(coeff, basis: np.ndarray) -> int:
+    """rgb_inv_ops' count on the blocks [..., 64] of coeff."""
     per_k = torch.tensor([64 + len(np.unique(np.abs(basis[:, k])))
                           for k in range(64)], device=coeff.device)
-    c = coeff[:, :kw["sizes"][0]] if kw["gray"] else coeff
-    return int(((c.reshape(-1, 64) != 0) * per_k).sum())
+    return int(((coeff.reshape(-1, 64) != 0) * per_k).sum())
 
 
 def _bound(nbytes: int, ops: int, rate: float = PEAK_INT_OPS_PER_S):
@@ -874,6 +887,22 @@ def _bound(nbytes: int, ops: int, rate: float = PEAK_INT_OPS_PER_S):
     one)."""
     t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops / rate
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def dense_launch_work(src, kw: dict, basis: np.ndarray) -> tuple:
+    """(bytes, separate float32 operations) that idct_planes' dense launch
+    needs on the scan's blocks (src: blocks, bad, qarr): each image's
+    nmcu MCUs of 6 blocks, the flags, the tables and the 4 KB quads' table
+    read once, the planes and flag bytes written once; per nonzero
+    coefficient of those blocks its 64 adds and one product per distinct
+    |M[.][k]| (rgb_inv_ops' count)."""
+    blocks, bad, qarr = src
+    N, nseg, ri = kw["N"], kw["nseg"], kw["ri"]
+    nmcu = kw["geom"][0][0] * kw["geom"][0][1]
+    used = blocks.reshape(N, nseg * ri, 6, 64)[:, :nmcu]
+    nbytes = (2 * used.numel() + bad.numel() + 4 * qarr.numel() + 4096
+              + N * (used[0].numel() + 1))
+    return nbytes, _inv_ops(used, basis)
 
 
 def sparse_launch_work(flat: np.ndarray, kw: dict) -> tuple:
@@ -1346,6 +1375,7 @@ def main() -> int:
         cuda_build.nvcc(), transform_cuda.LIB.so, SASS_OPS, launch_of)
     launch_ptxas = _ptxas_by_kernel(transform_cuda.LIB.build_log, launch_of)
     sparse_regs = transform_cuda.kernel_info()["idct_planes sparse"]
+    dense_regs = transform_cuda.kernel_info()["idct_planes dense"]
     _say("2 build", ", ".join(os.path.basename(lib.src) for lib in libs)
          + " and the earlier designs' scripts/previous_designs.cu, the "
          "scan's grid design scripts/scan_grid.cu and the float64 chains of "
@@ -1367,7 +1397,14 @@ def main() -> int:
          f"registers, {sparse_regs[1]} thread blocks of {sparse_regs[4]} an "
          f"SM), {launch_sass['sparse']} SASS instructions, " + ", ".join(
              f"{launch_ops['sparse'][op]} {op}" for op in ("FMUL", "FADD",
-                                                          "FFMA")))
+                                                          "FFMA"))
+         + " || its dense launch alone: " + " | ".join(launch_ptxas["dense"])
+         + f" ({dense_regs[0]} registers, {dense_regs[1]} thread blocks of "
+         f"{dense_regs[4]} an SM, {dense_regs[2]} bytes of shared memory, "
+         f"{dense_regs[3]} of local memory), {launch_sass['dense']} SASS "
+         "instructions, " + ", ".join(
+             f"{launch_ops['dense'][op]} {op}" for op in ("FMUL", "FADD",
+                                                         "FFMA")))
     for k, lines in list(ptxas.items()) + list(prev_ptxas.items()):
         frames = [ln for ln in lines if "stack frame" in ln]
         clean = ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
@@ -2740,11 +2777,31 @@ def main() -> int:
                       for label, (flat, kw) in list(YU.overflow_sets(
                           lvl, ties=16384).items())
                       + list(YU.sparse_sets(lvl, ties=4096).items())]
-    idct_sets += [
-        ("restart path's segments", dense_set(
-            _restart_lanes(HG, restart_lists[0], ri), restart_lists[0])),
-        ("indexed transport's pseudo-segments of the main path's batch",
-         dense_set(_indexed_lanes(HG, plain_lists[0]), plain_lists[0]))]
+    # the dense form on the scan's blocks of the same streams (restart
+    # segments, the indexed transport's pseudo-segments), on testing/
+    # ycc_uploads.dense_sets at both levels (the tie, mixed-group, clamp
+    # and noise sets in the scan's layout, junk past each image's MCUs, a
+    # table set an image, corrupt segments); each also through the dense
+    # launch's first design (previous_designs.idct_planes_dense_first)
+    dense_pairs = (
+        ("restart path's batch", "restart path's segments",
+         restart_lists[0], True),
+        ("main path's batch", "indexed transport's pseudo-segments of the "
+         "main path's batch", plain_lists[0], False),
+        ("main batch's images at quality 95", "indexed pseudo-segments of "
+         "the main batch's images at quality 95", q95_streams, False),
+        (f"{BATCH // 4} noise images at quality 100", "indexed "
+         f"pseudo-segments of {BATCH // 4} noise images at quality 100",
+         noise_q100, False))
+    idct_sets += [(dense_label, dense_set(
+        _restart_lanes(HG, st, ri) if restart else _indexed_lanes(HG, st),
+        st)) for _, dense_label, st, restart in dense_pairs]
+    for lvl in (128, 2048):
+        idct_sets += [(f"scan layout, {label}, level {lvl}", (
+            "dense", tuple(torch.from_numpy(x).to(dev)
+                           for x in (blocks, bad, qarr)), kw))
+            for label, (blocks, bad, qarr, kw) in YU.dense_sets(
+                lvl, ties=16384).items()]
     err["idct_planes"] = 0
     transform_cuda.idct_launches = 0
     said14, planes_by = [], {}
@@ -2762,9 +2819,13 @@ def main() -> int:
         else:
             got = BT.idct_planes_dense(*src, **kw)
             want = BT.idct_planes_dense_plain(*src, **kw)
+            first = previous_designs.idct_planes_dense_first(*src, **kw)
             model = BT.idct_planes_dense_model(
                 *(t.cpu().numpy() for t in src), **kw)
             extra = ", flags " + str(got[:, -1].tolist().count(1))
+            if not torch.equal(first, got):
+                raise AssertionError(f"idct_planes' dense launch differs "
+                                     f"from its first design on {label}")
         torch.cuda.synchronize()
         got = got.cpu().numpy()
         if not np.array_equal(got, model):
@@ -2785,9 +2846,7 @@ def main() -> int:
                              f"{transform_cuda.idct_launches} times in "
                              f"{len(idct_sets)} comparisons")
     # the two forms give the same planes for the same blocks
-    for sparse_label, dense_label in (
-            ("restart path's batch", idct_sets[-2][0]),
-            ("main path's batch", idct_sets[-1][0])):
+    for sparse_label, dense_label, _, _ in dense_pairs:
         if not np.array_equal(planes_by[sparse_label],
                               planes_by[dense_label][:, :-1]):
             raise AssertionError(f"the sparse form on the {sparse_label} "
@@ -2796,13 +2855,18 @@ def main() -> int:
     _say("14 idct", "idct_planes bit-identical to the numpy model of its "
          "ascending float32 sums and within 1 of the plain version; the "
          "sparse form on the ycc420 uploads and the dense form on the "
-         "scan's blocks of the same streams give identical planes: "
+         "scan's blocks of the same streams give identical planes, and the "
+         "dense launch's first design the dense form's on every dense set: "
          + "; ".join(said14))
     idct_sparse_input = idct_sets[0][1]     # phase 6 times both forms
     idct_q95_input = idct_sets[2][1]
     idct_small_inputs = {label: up for label, up in idct_sets
                          if label in small}
-    idct_dense_input = idct_sets[-2][1]
+    # phase 6 times the dense form on the scan's blocks of these streams
+    dense_inputs6 = {label: (src, kw) for label, (form, src, kw) in idct_sets
+                     if label in [p[1] for p in dense_pairs[:3]]}
+    idct_dense_input = idct_sets[
+        [label for label, _ in idct_sets].index(dense_pairs[0][1])][1]
     del idct_sets, planes_by, got, want, model, noise_q100, small
 
     # ---- 15. exact mode's kernels against their plain versions, bit for
@@ -2893,7 +2957,13 @@ def main() -> int:
     noise_rgb_up, noise_rgb_kw = rgb_upload(noise_streams)
     noise_flat_ops = rgb_inv_ops(noise_rgb_up, noise_rgb_kw,
                                  exact_cuda.INV_BASIS)
-    del noise_rgb_up
+    # and through the indexed transport's pseudo-segments: the scan's
+    # dense blocks, for idct_planes' dense launch in phase 6
+    _, *noise_dense6 = dense_set(_indexed_lanes(HG, noise_streams),
+                                 noise_streams)
+    dense_inputs6[f"indexed pseudo-segments of {BATCH} noise images at "
+                  "quality 100"] = tuple(noise_dense6)
+    del noise_rgb_up, noise_dense6
     del noise15, noise_streams
     my15, mx15 = main_kw["geom"][0][:2]
     ix_sets = []
@@ -3320,6 +3390,21 @@ def main() -> int:
         return run
 
     scan_turns = in_turns(dec_r, with_grid_scan, "grid")
+
+    # and in turns with the dense IDCT launch's first design (scripts/
+    # previous_designs.py idct_planes_dense_first) in its place
+    def with_first_dense(fn):
+        def run():
+            keep = transform_cuda.idct_planes_dense_cuda
+            transform_cuda.idct_planes_dense_cuda = (
+                previous_designs.idct_planes_dense_first)
+            try:
+                return fn()
+            finally:
+                transform_cuda.idct_planes_dense_cuda = keep
+        return run
+
+    dense_turns = in_turns(dec_r, with_first_dense)
     # the card's busy share of a pipelined round trip: device time of the
     # same round trip under the profiler (which slows the host, not the
     # kernels) over the wall time measured above without it
@@ -3377,7 +3462,9 @@ def main() -> int:
          f"{_fmt_ms(profs['dec_r']['busy_ms'])} ms in "
          f"{profs['dec_r']['events']:.1f} device events "
          f"({earlier('device decode')}; in turns with the scan's grid "
-         f"design in its place: {scan_turns} ms), of it the scan kernel "
+         f"design in its place: {scan_turns} ms; in turns with the dense IDCT "
+         f"launch's first design in its place: {dense_turns} ms), of it "
+         "the scan kernel "
          + _fmt_ms(scan_in_dec_r) + " ms and the tail after the scan "
          + _fmt_ms(None if None in (profs["dec_r"]["busy_ms"],
                                     scan_in_dec_r)
@@ -3725,10 +3812,6 @@ def main() -> int:
     idct_out_bytes = BATCH * H * W * 3 // 2
     idct_bytes = sp_flat.size + idct_out_bytes + 4 * 64 * 64 + 3 * 4 * 64
     idct_ops = 128 * real_nonzero
-    _, dn_src, dn_kw = idct_dense_input
-    dn_used = BATCH * (H // 16) * (W // 16) * 6 * 128
-    dn_bytes = (dn_used + dn_src[1].numel() + idct_out_bytes + BATCH
-                + dn_src[2].numel() * 4 + 4 * 64 * 64)
     # the one PyTorch call beside them (the port calls it nowhere): the
     # [98304, 64] @ [64, 64] float32 product alone
     lib_x = torch.randn(n_blocks, 64, device=dev)
@@ -4109,22 +4192,92 @@ def main() -> int:
              f"{k}: {' | '.join(v)}" for k, v in ptx.items())
          + f"; on {card}")
     del nq
-    # the IDCT kernel's dense form on the restart path's 2,048 segments
-    dn_ms, _ = _traced(lambda: BT.idct_planes_dense(*dn_src, **dn_kw), 20,
-                       "idct_planes_dense_kernel")
+    # idct_planes' dense launch beside its first design (previous_designs.
+    # idct_planes_dense_first) in turns (now, first, now again, first
+    # again), each launch alone (profiler), warm and with the L2 cache
+    # overwritten first: the restart path's segments, the indexed
+    # pseudo-segments of the main batch, of its images at quality 95 and
+    # of 16 noise images at quality 100 (98,304 dense blocks), each beside
+    # its bound and this run's torch.matmul of the float32 product
+    dn_sym, dn_first_sym = "idct_planes_dense_kernel", "idct_dense_first_kernel"
+    noise6_label = next(k for k in dense_inputs6 if "noise" in k)
+    n_src, n_kw = dense_inputs6[noise6_label]
+    n_got = BT.idct_planes_dense(*n_src, **n_kw)
+    n_first = previous_designs.idct_planes_dense_first(*n_src, **n_kw)
+    n_model = BT.idct_planes_dense_model(*(t.cpu().numpy() for t in n_src),
+                                         **n_kw)
+    if not (np.array_equal(n_got.cpu().numpy(), n_model)
+            and torch.equal(n_first, n_got)):
+        raise AssertionError(f"idct_planes' dense launch or its first design "
+                             f"!= the model on the {noise6_label}")
+    del n_got, n_first, n_model
+    dn_t = timing["idct_planes"]["dense_turns"] = {}
+    dn_rows = []
+    for set_name, (src6, kw6) in dense_inputs6.items():
+        now6 = (lambda src6=src6, kw6=kw6: BT.idct_planes_dense(*src6, **kw6))
+        first6 = (lambda src6=src6, kw6=kw6:
+                  previous_designs.idct_planes_dense_first(*src6, **kw6))
+        row = {}
+        for which, fn, sym in (("now", now6, dn_sym),
+                               ("first", first6, dn_first_sym),
+                               ("now again", now6, dn_sym),
+                               ("first again", first6, dn_first_sym)):
+            warm = _traced(fn, 20, sym)[0]
+            cold = _traced(lambda fn=fn: (l2_flush.zero_(), fn()), 20, sym)[0]
+            row[which] = (warm, cold)
+        nbytes6, ops6 = dense_launch_work(src6, kw6, exact_cuda.INV_BASIS)
+        b6, by6 = _bound(nbytes6, ops6, PEAK_FP32_OPS)
+        dn_t[set_name] = dict(row, bound_ms=b6, bound_by=by6,
+                              bytes=nbytes6, operations=ops6)
+        best = [min(row[w][i] for w in ("now", "now again")) for i in (0, 1)]
+        first_best = [min(row[w][i] for w in ("first", "first again"))
+                      for i in (0, 1)]
+        under = (max(row[w][0] for w in ("now", "now again")) < first_best[0]
+                 and max(row[w][1] for w in ("now", "now again"))
+                 < first_best[1])
+        dn_rows.append(
+            f"{set_name}: " + ", ".join(
+                f"{k} {w:.4f} ms (L2 overwritten first {c:.4f})"
+                for k, (w, c) in row.items())
+            + f"; bound {b6:.4f} ms by {by6} ({nbytes6} bytes, {ops6} "
+            f"separate float32 operations) = {b6 / best[0]:.3f} of the "
+            f"faster turn (the first design's {b6 / first_best[0]:.3f}); both "
+            f"readings now {'under' if under else 'NOT under'} both of the "
+            f"first design's, warm and cold")
+    dn_src, dn_kw = idct_dense_input[1:]
+    restart6 = dn_t[dense_pairs[0][1]]
+    dn_ms = min(restart6["now"][0], restart6["now again"][0])
+    dn_cold_ms = min(restart6["now"][1], restart6["now again"][1])
+    dn_bound = restart6["bound_ms"]
     dn_plain_ms = _time_ms(lambda: BT.idct_planes_dense_plain(*dn_src,
                                                               **dn_kw), 3)
-    dn_bound, dn_by = _bound(dn_bytes, idct_ops, PEAK_FP32_FLOPS)
-    dn_cold_ms, _ = _traced(lambda: (l2_flush.zero_(), BT.idct_planes_dense(
-        *dn_src, **dn_kw)), 20, "idct_planes_dense_kernel")
     timing["idct_planes"]["dense_form_ms"] = dn_ms
     timing["idct_planes"]["cold_dense_form_ms"] = dn_cold_ms
-    _say("6 times", f"idct_planes, dense form, on the scan's blocks of the "
-         f"restart path's {dn_src[0].shape[0]} segments ({dn_bytes} bytes: "
-         f"the {dn_used} bytes of used blocks, flags, tables and planes): "
-         f"kernel {dn_ms:.4f} ms (L2 overwritten first {dn_cold_ms:.4f}), "
-         f"bound {dn_bound:.4f} ms by {dn_by} = {dn_bound / dn_ms:.3f} of "
-         f"it; plain version event span {dn_plain_ms:.4f} ms; on {card}")
+    timing["idct_planes"]["previous_dense_ms"] = min(
+        restart6["first"][0], restart6["first again"][0])
+    noise_t6 = dn_t[noise6_label]
+    dn_info = transform_cuda.kernel_info()["idct_planes dense"]
+    dn_pinfo = previous_designs.kernel_info()["idct_planes dense first"]
+    dn_ops = prev_ops["previous idct_planes dense"]
+    _say("6 dense idct", "idct_planes' dense launch beside its first design "
+         "(previous_designs.idct_planes_dense_first), in turns (kernel's own "
+         "device time, profiler): " + " || ".join(dn_rows)
+         + f" || on noise the faster turn "
+         f"{min(noise_t6['now'][0], noise_t6['now again'][0]):.4f} ms, "
+         f"torch.matmul of the float32 [{n_blocks}, 64] @ [64, 64] product "
+         f"{_fmt_ms(library_ms)} ms in this run || dense launch now: "
+         f"{dn_info[0]} registers, {dn_info[1]} thread blocks of {dn_info[4]} "
+         f"an SM, {dn_info[2]} bytes of shared memory, {dn_info[3]} of local "
+         f"memory, SASS {launch_sass['dense']} instructions, " + ", ".join(
+             f"{launch_ops['dense'][op]} {op}" for op in ("FMUL", "FADD",
+                                                         "FFMA"))
+         + f"; ptxas: {' | '.join(launch_ptxas['dense'])}; first design: "
+         f"{dn_pinfo[0]} registers, {dn_pinfo[1]} thread blocks of "
+         f"{dn_pinfo[4]}, {dn_pinfo[2]} bytes of shared memory, SASS "
+         f"{prev_sass['previous idct_planes dense']} instructions, "
+         + ", ".join(f"{dn_ops[op]} {op}" for op in ("FMUL", "FADD", "FFMA"))
+         + f"; plain version on the restart segments, event span "
+         f"{dn_plain_ms:.4f} ms; on {card}")
     # the block transforms with what the card reports for each
     # instantiation (cudaFuncGetAttributes,
     # cudaOccupancyMaxActiveBlocksPerMultiprocessor)
@@ -4614,10 +4767,8 @@ def main() -> int:
          f"blocks of {pspinfo6[4]}, {pspinfo6[2]} bytes of shared memory, "
          + ", ".join(f"{prev_ops['previous idct_planes sparse'][op]} {op}"
                      for op in ("FMUL", "FADD", "FFMA"))
-         + f" || the dense launch (its code unchanged) {dn_ms:.4f} ms (L2 "
-         f"overwritten first {dn_cold_ms:.4f}), {EARLIER_DENSE_MS} before "
-         f"the sparse launch's redesign (kept from then); torch.matmul of "
-         f"the float32 [{n_blocks}, 64] @ [64, 64] product "
+         + f"; torch.matmul of the float32 [{n_blocks}, 64] @ [64, 64] "
+         f"product "
          f"{_fmt_ms(library_ms)} ms; on {card}")
     # fdct_quantize beside PR 9's design (previous_designs.
     # fdct_quantize_first, the separable float32 form), in turns (now,
@@ -5041,6 +5192,7 @@ def main() -> int:
                              "cold_ms_per_image_tables", "dense_ms",
                              "library_call", "noise_ms", "noise_bound_ms",
                              "dense_form_ms", "cold_dense_form_ms",
+                             "dense_turns",
                              "kernel_info", "previous_ms",
                              "previous_cold_ms", "previous_dense_ms",
                              "versus_previous", "noise_cold_ms",

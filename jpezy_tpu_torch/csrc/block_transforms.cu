@@ -61,10 +61,9 @@
 //   one more float32 add, truncated toward zero and clamped to [0, 255].
 //   Zero coefficients are skipped or add +-0: the sum starts at +0.0f and
 //   adding a zero product (+0 or -0) changes no sum, so the launches give
-//   the same pixels for the same blocks.  The sparse and the overflow
-//   launch walk the union of several blocks' nonzero coefficients with one
-//   product for a mirror quad's four samples (quad_walk, below); the
-//   dense launch walks each block's own (row_samples).
+//   the same pixels for the same blocks.  All three launches walk the
+//   union of several blocks' nonzero coefficients with one product for a
+//   mirror quad's four samples (quad_walk, below).
 //
 // What bounds them, per 16 x 512 x 512 4:2:0 batch (98,304 blocks):
 //  - fdct_quantize must move 6.3 MB of int8 samples in and 25.2 MB of
@@ -106,7 +105,7 @@
 //    the instructions a warp issues per block and by each warp's chain of
 //    dependent steps, with every warp of the grid in the same step at once
 //    (scripts/idct_sparse_phases.py cuts steps off and times them).  Both
-//    forms take a warp's unit at a time: up to kUnitBlocks (dense) or
+//    forms take a warp's unit at a time: up to kDenseUnit (dense) or
 //    kSparseUnit (sparse) blocks, whole MCUs, of one MCU row of one image
 //    and component, so its sources are contiguous ranges of the input
 //    (mask words and value bytes, or each MCU's int16 blocks) and its
@@ -115,14 +114,7 @@
 //    wait and copies on each warp's chain of steps (slower on the main
 //    batch; faster where a few busy units hold their warps longest, as the
 //    chroma at quality 95).
-//    The dense launch (PR 9's design) loads a unit's sources at once into
-//    the warp's shared memory (the blocks' nonzero masks found on the
-//    way), runs the blocks four at a time, a group of 8 lanes a block and
-//    a lane a row of it over the block's own mask (the 16 KB basis in
-//    shared memory, 8 products and 8 adds a term), into a shared image of
-//    the unit whose rows sit at their destination's address modulo 16,
-//    and stores it row after row in 16-byte stores that fill whole
-//    sectors.  The sparse launch: the unit's mask words, value bytes and
+//    The sparse launch: the unit's mask words, value bytes and
 //    quant table go into one of the warp's two stages by cp.async while
 //    the warp sums the unit before (the bytes before and after a range's
 //    whole words by single loads, stored once they have come); per group
@@ -142,7 +134,42 @@
 //    the reciprocals of the units' divisions (div_exact) come from the
 //    launcher (SparseComp).  The first
 //    design (scripts/previous_designs.cu) ran the sparse form as the
-//    dense one runs, its 16 KB basis copied by every thread block.
+//    dense launch's first design ran, its 16 KB basis copied by every thread block.
+//    The dense launch reads 128 bytes a block where the sparse upload
+//    holds about 18, so bytes weigh more; on noise every block holds 64
+//    coefficients and its operations bound it as the overflow launch's.
+//    Its first design (scripts/previous_designs.cu) loaded a
+//    unit's blocks with nothing in flight behind the sums, ran them four
+//    at a time, a group of 8 lanes a block and a lane a row of it over the
+//    block's own mask (the four groups of a warp diverging; the 16 KB
+//    basis copied by every thread block, 8 products and 8 adds a term:
+//    about 6 warp instructions for each coefficient of a block), through a
+//    shared image of the unit.  Design: the sparse launch's walk.  A
+//    unit is one walk of kDenseUnit blocks (a luma unit 4 whole 768-byte
+//    MCUs, the first 512 bytes of each; a chroma unit 16 blocks of 128
+//    bytes, 768 apart), its rows copied by 16-byte cp.async with its quant
+//    table into one of the warp's two stages (element by element where the
+//    blocks are not 16-byte aligned), row r of block i at chunk r ^ (i & 7)
+//    (the walk's loads of one k from 16 blocks fall in 8 banks); a warp's
+//    first two units are in flight before the tables, and a stage takes
+//    the unit after next once its unit is stored.  Lane l takes block
+//    l / kDenseLanes as the sparse launch does; it finds the nonzero
+//    coefficients of its rows from the staged words (__vcmpne2), the warp
+//    ORs them into the union, and the walk takes c[k], c[k + 1] from one
+//    32-bit shared load and q[k], q[k + 1] from one 8-byte load, the term
+//    c[k] q[k] as a 32-bit product converted to float; from kDenseTerms
+//    union bits all 64 in one straight run (noise, quality-95 luma).  A
+//    lane's rows leave as 8-byte words: the planes of image n start at n
+//    (P + 1) (the flag byte after each), so a unit's rows sit at one
+//    offset s modulo 8, and where it is not 0 a lane stores the aligned
+//    word that its row's last s bytes and the first 8 - s of the row of
+//    the block to its right (a shuffle from that lane) make, and the
+//    unit's edge blocks their ends in aligned pieces of 4, 2 and 1 bytes,
+//    the same in every lane (put_row): no shared image.  On the
+//    photographs' segments the walks are short (8 union bits a luma
+//    group, 2 a chroma one), the kernel's issue goes to each unit's copies,
+//    masks, samples and stores, and bytes and issue add
+//    (scripts/idct_dense_phases.py cuts steps off and times them).
 //  - idct_planes_overflow_kernel must move its rows (132 bytes each) in
 //    and their 64 samples out.  Where few blocks overflow (photographs:
 //    tens of rows a batch) that and the launch are all; on noise at
@@ -202,20 +229,11 @@ constexpr int kFdctTile = 16;     // blocks a warp's tile: the mma's 16 rows
 // the B fragments' 16-byte words: 3 digits, 8 n-tiles, 32 lanes
 constexpr int kDigitWords = 3 * 8 * 32;
 
-// Kernel 2's dense launch: 8 warps a thread block, a warp a unit, a group
-// of 8 lanes a block.
-constexpr int kIdctThreads = 256;
-constexpr int kIdctWarps = kIdctThreads / 32;
-constexpr int kUnitBlocks = 16;   // a unit's blocks (or one MCU's, if more)
 // the sparse launch's unit: up to 32 blocks (whole MCUs, or one MCU) of
 // one MCU row, walked kSparseGroup at a time
 constexpr int kSparseUnit = 32;
 constexpr int kMaxK = 64;         // sparse: at most K value bytes a block
 constexpr int kMaxV = 4;          // sampling factors 1..4 (JPEG's limit)
-// a unit's samples: 8 v rows of at most 1,024 / (8 v) bytes, each row
-// padded to 16 bytes plus 16 (its offset modulo 16); 1,536 bytes at most
-// for any sampling factors 1..4
-constexpr int kUnitImage = 1536;
 
 // The top-left sample of block bi of a component whose MCUs hold v x h
 // blocks in raster order (luma 2 x 2: TL, TR, BL, BR).
@@ -518,12 +536,17 @@ struct IdctComp {
   long long oidx_off, orows_off;        // sparse: overflow tail in flat
 };
 
-// What the sparse launch takes of a component besides: its units'
-// divisors' reciprocals (rounded up, for div_exact) and a unit's block i
-// at row y, column x of its samples, (y << 16) | x.
+// What the sparse and dense launches take of a component besides: its
+// units' divisors' reciprocals (rounded up, for div_exact) and per block i
+// of a unit: at row y, column x of the unit's samples, (y << 16) | x; its
+// slot after the first of the unit's MCU 0 in the scan's blocks, m
+// mcu_blocks + r for block r of the unit's MCU m (dense); and the block
+// beside it on the right, were the unit whole (dense).
 struct SparseComp {
   float rcp_image, rcp_ux;  // 1 / (mcus_y ux), 1 / ux
   uint32_t place[kSparseUnit];
+  uint16_t slot[kSparseUnit];
+  uint8_t right[kSparseUnit];
 };
 
 struct IdctArgs {
@@ -533,8 +556,7 @@ struct IdctArgs {
   const int16_t* blocks;   // dense: the scan's blocks
   const uint8_t* bad;      // dense: [N * nseg] corruption flags
   const int32_t* q;        // quant tables: [ncomp, 64] or [N, ncomp, 64]
-  const float* basis_t;    // [64, 64] transposed: basis_t[k][p] = M[p][k]
-  const float* quads;      // overflow: the mirror quads' basis (1,024)
+  const float* quads;      // the mirror quads' basis (1,024 floats)
   uint8_t* out;            // [N, out_stride]
   long long row_bytes;     // sparse: bytes of one image's row
   long long image_blocks;  // dense: block slots of one image
@@ -560,60 +582,6 @@ __device__ __forceinline__ int32_t load_i16(const uint8_t* p) {
                               (static_cast<uint16_t>(__ldg(p + 1)) << 8));
 }
 
-// The terms of the set bits of `bits` (coefficients k0 + bit), ascending,
-// while fewer than `limit` terms have been added in all (*r counts them).
-template <typename Coef>
-__device__ __forceinline__ void add_terms(float s[8], const float* mt,
-                                          uint32_t bits, int k0, int* r,
-                                          int limit, Coef coef, int g) {
-  for (; bits && *r < limit; ++*r) {
-    const int k = k0 + __ffs(bits) - 1;
-    bits &= bits - 1;
-    const float ck = __int2float_rn(coef(k, *r));
-    const float4 m0 = *reinterpret_cast<const float4*>(mt + k * 64 + 8 * g);
-    const float4 m1 =
-        *reinterpret_cast<const float4*>(mt + k * 64 + 8 * g + 4);
-    s[0] = __fadd_rn(s[0], __fmul_rn(ck, m0.x));
-    s[1] = __fadd_rn(s[1], __fmul_rn(ck, m0.y));
-    s[2] = __fadd_rn(s[2], __fmul_rn(ck, m0.z));
-    s[3] = __fadd_rn(s[3], __fmul_rn(ck, m0.w));
-    s[4] = __fadd_rn(s[4], __fmul_rn(ck, m1.x));
-    s[5] = __fadd_rn(s[5], __fmul_rn(ck, m1.y));
-    s[6] = __fadd_rn(s[6], __fmul_rn(ck, m1.z));
-    s[7] = __fadd_rn(s[7], __fmul_rn(ck, m1.w));
-  }
-}
-
-// The one arithmetic of every form, run by a group of 8 lanes on one
-// block: lane g of the group sums the 8 samples of row g, p = 8 g + x,
-// over the block's nonzero coefficients in ascending k (the first `limit`
-// set bits of the mask mlo | mhi << 32), coefficient k being coef(k, r)
-// for the r-th of them (its dequantized value), each term a float32
-// multiply then a float32 add, the sums starting at +0.0f; then + level,
-// truncation and the clamp.  Returns the row's 8 samples, x = 0 in the low
-// byte.  No lane of the group waits on another: each walks the mask
-// alone.
-template <typename Coef>
-__device__ __forceinline__ uint2 row_samples(const float* mt, int level,
-                                             uint32_t mlo, uint32_t mhi,
-                                             int limit, Coef coef, int g) {
-  float s[8];
-#pragma unroll
-  for (int x = 0; x < 8; ++x) s[x] = 0.f;
-  int r = 0;
-  add_terms(s, mt, mlo, 0, &r, limit, coef, g);
-  add_terms(s, mt, mhi, 32, &r, limit, coef, g);
-  // + level, then truncation and the clamp to [0, 255]: the conversion to
-  // unsigned saturates below at 0
-  const float lv = __int2float_rn(level);
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int x = 0; x < 8; ++x)
-    w[x >> 2] |= min(__float2uint_rz(__fadd_rn(s[x], lv)), 255u)
-                 << (8 * (x & 3));
-  return make_uint2(w[0], w[1]);
-}
-
 // 8 bytes of samples at p (in shared or device memory), one store where
 // p is 8-byte aligned.
 __device__ __forceinline__ void store_row(uint8_t* p, uint2 v) {
@@ -626,188 +594,15 @@ __device__ __forceinline__ void store_row(uint8_t* p, uint2 v) {
     p[x] = static_cast<uint8_t>(((x < 4 ? v.x : v.y) >> (8 * (x & 3))) & 0xFF);
 }
 
-__device__ __forceinline__ void load_basis(float* mt, const float* basis_t,
-                                           int t) {
-  const float4* src = reinterpret_cast<const float4*>(basis_t);
-  for (int i = t; i < 64 * 64 / 4; i += kIdctThreads)
-    reinterpret_cast<float4*>(mt)[i] = __ldg(src + i);
-}
-
 // A unit: up to mpu MCUs of one MCU row of one image and component, a
-// warp's work at a time (kUnitBlocks blocks, or one MCU where an MCU holds
-// more).
+// warp's work at a time (kSparseUnit or kDenseUnit blocks, or one MCU
+// where an MCU holds more).
 struct Unit {
   int c, n, b0, nb;   // component, image, first block (bi), blocks
+  int m0;             // its first MCU in the image
   int rows, width;    // its samples: v 8 rows of width bytes
   long long dst;      // its top-left sample's byte in out
 };
-
-__device__ __forceinline__ Unit unit_of(const IdctArgs& a,
-                                        const IdctComp* comps, int u) {
-  Unit U;
-  U.c = 0;
-  while (U.c < 2 && u >= comps[U.c].units) u -= comps[U.c++].units;
-  const IdctComp& C = comps[U.c];
-  const int per_image = C.mcus_y * C.ux;
-  U.n = u / per_image;
-  u -= U.n * per_image;
-  const int my = u / C.ux;
-  const int mx0 = (u - my * C.ux) * C.mpu;
-  const int nm = min(C.mpu, a.mcus_x - mx0);
-  U.b0 = (my * a.mcus_x + mx0) * C.per;
-  U.nb = nm * C.per;
-  U.rows = C.v * 8;
-  U.width = nm * C.h * 8;
-  U.dst = U.n * a.out_stride + C.plane_off +
-          static_cast<long long>(my * C.v * 8) * C.width + mx0 * C.h * 8;
-  return U;
-}
-
-__global__ void __launch_bounds__(kIdctThreads)
-    idct_planes_dense_kernel(const __grid_constant__ IdctArgs a) {
-  __shared__ __align__(16) float mt[64 * 64];  // mt[k * 64 + p] = M[p][k]
-  // per component, a unit's block i: at row y, column x of the unit's
-  // samples, (y << 16) | x; and its slot after the unit's first, m
-  // mcu_blocks + r for block r of the unit's MCU m
-  __shared__ uint32_t place[3][kUnitBlocks];
-  __shared__ int slot[3][kUnitBlocks];
-  // per warp: the unit's quant table, its int16 blocks, their nonzero
-  // masks and its samples
-  __shared__ int qw[kIdctWarps][64];
-  __shared__ __align__(16) uint8_t src_w[kIdctWarps][kUnitBlocks * 128];
-  __shared__ __align__(8) uint8_t nz_w[kIdctWarps][kUnitBlocks * 8];
-  __shared__ __align__(16) uint8_t img[kIdctWarps][kUnitImage];
-  __shared__ IdctComp comps[3];
-  const int t = threadIdx.x;
-  const int warp = t >> 5;
-  const int lane = t & 31;
-  const int grp = lane >> 3;   // the group's block of the round's 4
-  const int g = t & 7;         // the lane's row of it
-  if (t < 3) comps[t] = a.comp[t];
-  if (t < 3 * kUnitBlocks) {
-    const int c = t / kUnitBlocks;
-    const int i = t - c * kUnitBlocks;
-    const IdctComp& C = a.comp[c];
-    if (C.per > 0) {
-      const int m = i / C.per;
-      const int r = i - m * C.per;
-      const int vy = r / C.h;
-      place[c][i] = (static_cast<uint32_t>(vy * 8) << 16) |
-                    static_cast<uint32_t>((m * C.h + r - vy * C.h) * 8);
-      slot[c][i] = m * a.mcu_blocks + r;
-    }
-  }
-  load_basis(mt, a.basis_t, t);
-  // one flag byte per image: any of its segments corrupt
-  for (int n = blockIdx.x; n < a.nimages; n += gridDim.x) {
-    int any = 0;
-    for (int s = t; s < a.nseg; s += kIdctThreads)
-      any |= __ldg(a.bad + static_cast<long long>(n) * a.nseg + s);
-    any = __syncthreads_or(any);
-    if (t == 0) a.out[n * a.out_stride + a.planes] = any ? 1 : 0;
-  }
-  __syncthreads();
-  // a warp a unit: no barrier past this point
-  const int total = comps[0].units + comps[1].units + comps[2].units;
-  uint8_t* im = img[warp];
-  uint8_t* sw = src_w[warp];
-  uint8_t* nz = nz_w[warp];  // the blocks' nonzero masks
-  int* q = qw[warp];
-  for (int u = blockIdx.x * kIdctWarps + warp; u < total;
-       u += gridDim.x * kIdctWarps) {
-    const Unit U = unit_of(a, comps, u);
-    const IdctComp& C = comps[U.c];
-    // the unit's sources in one go, all their loads in flight together
-    const int32_t* qsrc = a.q + U.n * a.q_stride + U.c * 64;
-    q[lane] = __ldg(qsrc + lane);
-    q[lane + 32] = __ldg(qsrc + lane + 32);
-    const long long first = U.n * a.image_blocks +
-                            static_cast<long long>(U.b0 / C.per) *
-                                a.mcu_blocks + C.slot0;
-    for (int k = lane; k < 8 * U.nb; k += 32) {
-      const int16_t* src = a.blocks +
-          ((first + slot[U.c][k >> 3]) << 6) + 8 * (k & 7);
-      int4 w;
-      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-        w = __ldg(reinterpret_cast<const int4*>(src));
-      } else {
-        int h[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          h[j] = static_cast<uint16_t>(__ldg(src + j));
-        w = make_int4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
-                      h[4] | (h[5] << 16), h[6] | (h[7] << 16));
-      }
-      reinterpret_cast<int4*>(sw)[k] = w;
-      // bit j of byte k: coefficient 8 k + j is nonzero
-      const int ws[4] = {w.x, w.y, w.z, w.w};
-      uint32_t byte = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const uint32_t m = __vcmpne2(static_cast<uint32_t>(ws[j]), 0u);
-        byte |= ((m & 1u) | ((m >> 15) & 2u)) << (2 * j);
-      }
-      nz[k] = static_cast<uint8_t>(byte);
-    }
-    __syncwarp();
-    const int pitch = ((U.width + 15) & ~15) + 16;
-    // row y of the unit's samples sits in im at its destination's address
-    // modulo 16: (shift + y wshift) mod 16
-    const int shift = static_cast<int>(
-        (reinterpret_cast<uintptr_t>(a.out) + U.dst) & 15);
-    const int wshift = C.width & 15;
-    for (int i0 = 0; i0 < U.nb; i0 += 4) {
-      // the round's blocks: group grp takes block i0 + grp
-      const int i = i0 + grp;
-      const bool live = i < U.nb;
-      const int16_t* blk = reinterpret_cast<const int16_t*>(sw) + 64 * i;
-      const uint2 m = live ? reinterpret_cast<const uint2*>(nz)[i]
-                           : make_uint2(0u, 0u);
-      const uint2 v = row_samples(mt, a.level, m.x, m.y, 64,
-                                  [&](int k, int) { return blk[k] * q[k]; },
-                                  g);
-      if (live) {
-        const uint32_t at = place[U.c][i];
-        const int y = static_cast<int>(at >> 16) + g;
-        store_row(im + y * pitch + ((shift + y * wshift) & 15) +
-                      (at & 0xFFFF), v);
-      }
-    }
-    __syncwarp();
-    // out: row after row.  The aligned 16-byte chunks of every row in
-    // 16-byte stores that fill whole sectors; where a row's destination is
-    // not aligned, the bytes before its first chunk and after its last one
-    // a row at a time, neighbouring lanes on neighbouring bytes.
-    const int per_row = (U.width >> 4) + 1;
-    for (int y = lane / per_row, j = lane - y * per_row; y < U.rows;) {
-      const int sh = (shift + y * wshift) & 15;
-      const int head = min((16 - sh) & 15, U.width);
-      if (j < ((U.width - head) >> 4))
-        *reinterpret_cast<int4*>(a.out + U.dst +
-                                 static_cast<long long>(y) * C.width + head +
-                                 16 * j) =
-            *reinterpret_cast<const int4*>(im + y * pitch + sh + head +
-                                           16 * j);
-      for (j += 32; j >= per_row; j -= per_row) ++y;
-    }
-    if ((shift | wshift | (U.width & 15)) != 0) {
-      // a row's ends hold at most 30 bytes, at most 15 (and two rows a
-      // pass) where the width is a multiple of 16
-      const int two = (U.width & 15) == 0;
-      const int b = two ? lane & 15 : lane;
-      for (int y = two ? lane >> 4 : 0; y < U.rows; y += 1 + two) {
-        const int sh = (shift + y * wshift) & 15;
-        const int head = min((16 - sh) & 15, U.width);
-        const int full = (U.width - head) >> 4;
-        const int x = b < head ? b : head + 16 * full + (b - head);
-        if (x < U.width)
-          a.out[U.dst + static_cast<long long>(y) * C.width + x] =
-              im[y * pitch + sh + x];
-      }
-    }
-    __syncwarp();
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Kernel 2's overflow launch: the mirror-quad walk over tiles of 8 rows
@@ -1093,8 +888,8 @@ __global__ void __launch_bounds__(kOvfThreads, kOvfBlocksPerSm)
 // ---------------------------------------------------------------------------
 
 // 8 warps a thread block, kSparseBlocksPerSm thread blocks an SM (at most
-// 85 registers a thread), a warp a unit at a time (unit_of) with the next
-// unit's sources in flight.
+// 85 registers a thread), a warp a unit at a time (sparse_unit) with the
+// next unit's sources in flight.
 constexpr int kSparseThreads = 256;
 constexpr int kSparseWarps = kSparseThreads / 32;
 constexpr int kSparseBlocksPerSm = 3;
@@ -1176,8 +971,10 @@ __device__ __forceinline__ void start_range(uint32_t* stage, int dst,
   }
 }
 
-// unit_of with its two divisions by reciprocals (div_exact), which the
-// launcher puts in SparseComp.
+// Unit u of the batch (the units of component 0, then 1, then 2; per
+// image its MCU rows in order, each row's units from the left), its two
+// divisions by reciprocals (div_exact), which the launcher puts in
+// SparseComp.  The sparse and the dense launch take their units so.
 __device__ __forceinline__ Unit sparse_unit(const IdctArgs& a,
                                             const IdctComp* comps,
                                             const SparseComp* sp, int u) {
@@ -1191,7 +988,8 @@ __device__ __forceinline__ Unit sparse_unit(const IdctArgs& a,
   const int my = div_exact(u, C.ux, sp[U.c].rcp_ux);
   const int mx0 = (u - my * C.ux) * C.mpu;
   const int nm = min(C.mpu, a.mcus_x - mx0);
-  U.b0 = (my * a.mcus_x + mx0) * C.per;
+  U.m0 = my * a.mcus_x + mx0;
+  U.b0 = U.m0 * C.per;
   U.nb = nm * C.per;
   U.rows = C.v * 8;
   U.width = nm * C.h * 8;
@@ -1430,6 +1228,291 @@ __global__ void __launch_bounds__(kSparseThreads, kSparseBlocksPerSm)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel 2's dense launch: the same walk over the scan's blocks, staged a
+// unit ahead
+// ---------------------------------------------------------------------------
+
+// 8 warps a thread block, kDenseBlocksPerSm thread blocks an SM (at most
+// 85 registers a thread), a warp a unit of up to kDenseUnit blocks at a
+// time (sparse_unit), one walk, with the next unit's blocks in flight:
+// kDenseLanes lanes a block, kDenseQuads mirror quads a lane.
+constexpr int kDenseThreads = 256;
+constexpr int kDenseWarps = kDenseThreads / 32;
+constexpr int kDenseBlocksPerSm = 3;
+constexpr int kDenseUnit = 16;
+constexpr int kDenseLanes = 32 / kDenseUnit;
+constexpr int kDenseQuads = 16 / kDenseLanes;
+static_assert(kDenseUnit == 8 || kDenseUnit == 16,
+              "a lane holds whole rows of its block");
+// union bits from which a walk takes all 64 terms in one straight run
+constexpr int kDenseTerms = 32;
+// A stage (words): the unit's blocks, 32 words each, row r of block i (its
+// 16 bytes) at chunk r ^ (i & 7) of the block, so that the walk's loads of
+// one k from the 16 blocks fall in 8 banks and a lane's row loads of the
+// masks in distinct ones; then the unit's quant table.
+constexpr int kDenseQ = kDenseUnit * 32;
+constexpr int kDenseStageWords = kDenseQ + 64;
+
+// 16 bytes from device memory to shared memory, both 16-byte aligned,
+// asynchronously (in the issuing lane's current copy group).
+__device__ __forceinline__ void copy16(uint32_t* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   shared_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Unit u's blocks and quant table into stage (one copy group): row j & 7
+// of the unit's block j >> 3 by lane j % 32, by cp.async where the scan's
+// blocks are 16-byte aligned, else loaded element by element and stored
+// at once.
+__device__ __forceinline__ void start_dense(const IdctArgs& a,
+                                            const IdctComp* comps,
+                                            const SparseComp* sp, int u,
+                                            uint32_t* stage, int lane) {
+  const Unit U = sparse_unit(a, comps, sp, u);
+  const IdctComp& C = comps[U.c];
+  const SparseComp& S = sp[U.c];
+  const int16_t* first =
+      a.blocks + ((U.n * a.image_blocks +
+                   static_cast<long long>(U.m0) * a.mcu_blocks + C.slot0)
+                  << 6);
+  const bool aligned = (reinterpret_cast<uintptr_t>(a.blocks) & 15) == 0;
+  for (int j = lane; j < 8 * U.nb; j += 32) {
+    const int i = j >> 3, r = j & 7;
+    const int16_t* src = first + (static_cast<int>(S.slot[i]) << 6) + 8 * r;
+    uint32_t* dst = stage + 32 * i + 4 * (r ^ (i & 7));
+    if (aligned) {
+      copy16(dst, src);
+    } else {
+      uint32_t h[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        h[e] = static_cast<uint16_t>(__ldg(src + e));
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                     h[4] | (h[5] << 16), h[6] | (h[7] << 16));
+    }
+  }
+  const int32_t* q = a.q + U.n * a.q_stride + U.c * 64;
+  copy4(stage + kDenseQ + lane, q + lane);
+  copy4(stage + kDenseQ + 32 + lane, q + lane + 32);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Bit j: coefficient j of a row of 8 int16 (w) is nonzero.
+__device__ __forceinline__ uint32_t nonzero_bits(uint4 w) {
+  const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+  uint32_t bits = 0u;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t m = __vcmpne2(ws[j], 0u);
+    bits |= ((m & 1u) | ((m >> 15) & 2u)) << (2 * j);
+  }
+  return bits;
+}
+
+// A row v of 8 samples (x = 0 in the low byte) of a block at p, s = p & 7
+// (the unit's: its blocks' columns are multiples of 8).  s = 0: one 8-byte
+// store.  Else the 8-byte word from p + 8 - s, the row's last s bytes and
+// the first 8 - s of the block to its right in the unit (`right`, that
+// row of it), or where none is there the last s bytes alone; and where no
+// block of the unit is to its left, its first 8 - s bytes (else the block
+// to its left stores them).  The pieces are aligned stores of 4, 2 and 1
+// bytes as the bits of their length say, the same ones in every lane:
+// every byte once, no store past the row.
+__device__ __forceinline__ void put_row(uint8_t* p, int s, uint64_t v,
+                                        uint64_t right, bool has_left,
+                                        bool has_right) {
+  if (s == 0) {
+    *reinterpret_cast<uint64_t*>(p) = v;
+    return;
+  }
+  uint8_t* w = p + 8 - s;
+  const uint64_t tail = v >> (8 * (8 - s));
+  if (has_right) {
+    *reinterpret_cast<uint64_t*>(w) = tail | (right << (8 * s));
+  } else {
+    // [w, w + s): 4 bytes at w, 2 after them, 1 after those
+    if (s & 4) *reinterpret_cast<uint32_t*>(w) = static_cast<uint32_t>(tail);
+    if (s & 2)
+      *reinterpret_cast<uint16_t*>(w + (s & 4)) =
+          static_cast<uint16_t>(tail >> (8 * (s & 4)));
+    if (s & 1) w[s & 6] = static_cast<uint8_t>(tail >> (8 * (s & 6)));
+  }
+  if (!has_left) {
+    // [p, w), m = 8 - s bytes ending at an 8-byte boundary: 1 byte at p, 2
+    // after it, 4 after those
+    const int m = 8 - s;
+    if (m & 1) *p = static_cast<uint8_t>(v);
+    if (m & 2)
+      *reinterpret_cast<uint16_t*>(p + (m & 1)) =
+          static_cast<uint16_t>(v >> (8 * (m & 1)));
+    if (m & 4)
+      *reinterpret_cast<uint32_t*>(p + (m & 3)) =
+          static_cast<uint32_t>(v >> (8 * (m & 3)));
+  }
+}
+
+// The dense launch (see the header): warps walk the units, each unit's
+// blocks and quant table copied into one of the warp's two stages while
+// it sums the unit before (the first two units' copies issued before the
+// tables, a stage refilled once its unit is stored, so that a warp never
+// waits to issue copies with a unit ready); lane l takes block
+// l / kDenseLanes of the unit and its
+// kDenseQuads mirror quads of rows y and 7 - y for its rows y, finds its
+// rows' nonzero coefficients, and the unit walks the union of its blocks'
+// (quad_walk; all 64 terms where the union holds kDenseTerms or more);
+// each lane's rows leave as 8-byte words (put_row).  No barrier past the
+// tables and the flag bytes.
+__global__ void __launch_bounds__(kDenseThreads, kDenseBlocksPerSm)
+    idct_planes_dense_kernel(const __grid_constant__ IdctArgs a) {
+  // the quads' basis by k, as the sparse launch's
+  __shared__ __align__(16) float mb[64 * 16];
+  __shared__ __align__(16) uint32_t stages[kDenseWarps][2][kDenseStageWords];
+  __shared__ IdctComp comps[3];
+  __shared__ SparseComp sp[3];
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  if (t < 3) {
+    comps[t] = a.comp[t];
+    sp[t] = a.sparse[t];
+  }
+  __syncthreads();
+  const int total = comps[0].units + comps[1].units + comps[2].units;
+  const int stride = gridDim.x * kDenseWarps;
+  int u = blockIdx.x * kDenseWarps + warp;
+  // the warp's first two units' copies are in flight while the thread
+  // block fills its table and the flag bytes
+  if (u < total) start_dense(a, comps, sp, u, stages[warp][0], lane);
+  if (u + stride < total)
+    start_dense(a, comps, sp, u + stride, stages[warp][1], lane);
+  for (int i = t; i < 32 * 8; i += kDenseThreads) {
+    const float4 w = __ldg(reinterpret_cast<const float4*>(a.quads) + i);
+    const int k = 2 * (i >> 3), j = i & 7;
+    mb[16 * k + j] = w.x;
+    mb[16 * k + 16 + j] = w.y;
+    mb[16 * k + j + 8] = w.z;
+    mb[16 * k + 24 + j] = w.w;
+  }
+  // one flag byte per image: any of its segments corrupt
+  for (int n = blockIdx.x; n < a.nimages; n += gridDim.x) {
+    int any = 0;
+    for (int s = t; s < a.nseg; s += kDenseThreads)
+      any |= __ldg(a.bad + static_cast<long long>(n) * a.nseg + s);
+    any = __syncthreads_or(any);
+    if (t == 0) a.out[n * a.out_stride + a.planes] = any ? 1 : 0;
+  }
+  __syncthreads();
+  const int i = lane / kDenseLanes;      // the lane's block of the unit
+  const int sub = lane % kDenseLanes;    // its quads kDenseQuads sub ..
+  const float* mbq = mb + kDenseQuads * sub;
+  const float level = __int2float_rn(a.level);
+  // block i's row r at word (4 r) ^ sw of its 32
+  const int sw = 4 * (i & 7);
+  for (int buf = 0; u < total; u += stride, buf ^= 1) {
+    // this unit's copies have come (the next unit's may not have)
+    if (u + stride < total)
+      asm volatile("cp.async.wait_group 1;" ::: "memory");
+    else
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    __syncwarp();
+    uint32_t* stage = stages[warp][buf];
+    const Unit U = sparse_unit(a, comps, sp, u);
+    const IdctComp& C = comps[U.c];
+    const int* q = reinterpret_cast<const int*>(stage + kDenseQ);
+    const uint32_t* bw = stage + 32 * i;
+    const bool live = i < U.nb;
+    // the lane's rows' nonzero coefficients: bit 8 r + j, coefficient j of
+    // row r
+    uint64_t nz = 0u;
+    if (live) {
+#pragma unroll
+      for (int rr = 0; rr < 8 / kDenseLanes; ++rr) {
+        const int r = (8 / kDenseLanes) * sub + rr;
+        nz |= static_cast<uint64_t>(nonzero_bits(
+                  *reinterpret_cast<const uint4*>(bw + ((4 * r) ^ sw))))
+              << (8 * r);
+      }
+    }
+    const uint32_t ulo = __reduce_or_sync(kFullMask, static_cast<uint32_t>(nz));
+    const uint32_t uhi =
+        __reduce_or_sync(kFullMask, static_cast<uint32_t>(nz >> 32));
+    // block i's coefficient k: c[k] q[k] as a 32-bit product (c[k] and
+    // c[k + 1] in one word, q[k] and q[k + 1] in one load), then a float
+    const auto terms = [&](int k, float (&d)[2][1],
+                           float (&m)[2][kDenseQuads]) {
+      const uint32_t cw = bw[((4 * (k >> 3)) ^ sw) + ((k & 7) >> 1)];
+      const int2 qk = *reinterpret_cast<const int2*>(q + k);
+      d[0][0] = __int2float_rn(static_cast<int>(
+          static_cast<uint32_t>(static_cast<int>(static_cast<int16_t>(
+              cw & 0xFFFFu))) *
+          static_cast<uint32_t>(qk.x)));
+      d[1][0] = __int2float_rn(static_cast<int>(
+          static_cast<uint32_t>(static_cast<int>(cw) >> 16) *
+          static_cast<uint32_t>(qk.y)));
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < kDenseQuads; j += 4) {
+          const float4 w =
+              *reinterpret_cast<const float4*>(mbq + 16 * (k + h) + j);
+          m[h][j] = w.x;
+          m[h][j + 1] = w.y;
+          m[h][j + 2] = w.z;
+          m[h][j + 3] = w.w;
+        }
+    };
+    float acc[1][kDenseQuads][4];
+    if (__popc(ulo) + __popc(uhi) >= kDenseTerms)
+      quad_walk<false, 1, kDenseQuads>(ulo, uhi, terms, acc);
+    else
+      quad_walk<true, 1, kDenseQuads>(ulo, uhi, terms, acc);
+    // the lane's rows y = (kDenseQuads / 4) sub + rr and 7 - y, 8 bytes
+    // each (quads (y, 0) .. (y, 3) and their mirrors), out
+    const uint32_t at = sp[U.c].place[i];
+    const int x = static_cast<int>(at & 0xFFFF);
+    uint8_t* p = a.out + U.dst + static_cast<long long>(at >> 16) * C.width + x;
+    const int s = static_cast<int>(reinterpret_cast<uintptr_t>(a.out + U.dst) &
+                                   7);
+    const bool has_right = x + 8 < U.width;
+    const int from = has_right ? kDenseLanes * sp[U.c].right[i] + sub : lane;
+    const auto pack = [&](int j0, int e0, int j1, int e1, int j2, int e2,
+                          int j3, int e3) {
+      const uint32_t b0 = sample_of(acc[0][j0][e0], level);
+      const uint32_t b1 = sample_of(acc[0][j1][e1], level);
+      const uint32_t b2 = sample_of(acc[0][j2][e2], level);
+      const uint32_t b3 = sample_of(acc[0][j3][e3], level);
+      return __byte_perm(__byte_perm(b0, b1, 0x0040),
+                         __byte_perm(b2, b3, 0x0040), 0x5410);
+    };
+#pragma unroll
+    for (int rr = 0; rr < kDenseQuads / 4; ++rr) {
+      const int y = (kDenseQuads / 4) * sub + rr;
+      const int j = 4 * rr;   // quads (y, 0) .. (y, 3): j .. j + 3
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {   // row y, then row 7 - y
+        const int e = 2 * m;
+        const uint64_t v =
+            static_cast<uint64_t>(pack(j, e, j + 1, e, j + 2, e, j + 3, e)) |
+            (static_cast<uint64_t>(pack(j + 3, e + 1, j + 2, e + 1, j + 1,
+                                        e + 1, j, e + 1))
+             << 32);
+        const uint64_t rv = s ? __shfl_sync(kFullMask, v, from) : 0u;
+        if (live)
+          put_row(p + static_cast<long long>(m ? 7 - y : y) * C.width, s, v,
+                  rv, x > 0, has_right);
+      }
+    }
+    // every lane is done with the stage: the unit after next into it
+    __syncwarp();
+    if (u + 2 * stride < total)
+      start_dense(a, comps, sp, u + 2 * stride, stage, lane);
+  }
+}
+
 template <typename K>
 cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -1537,25 +1620,24 @@ int jz_fdct_quantize(int elem_bytes, const long long* desc,
 // synchronise.  dense = 0: the sparse form from `src` (the flat upload),
 // then, where any component has overflow rows, the overflow launch;
 // dense = 1: the dense form from `src` (the scan's int16 blocks) with the
-// corruption flags `bad`, one byte each.  basis_t: the
-// inverse basis transposed, [k][p] (the sparse and dense launches); quads:
-// the overflow launch's table of the basis' 16 mirror quads, laid out as
+// corruption flags `bad`, one byte each.  quads: the table of the basis'
+// 16 mirror quads that every launch walks with, laid out as
 // jz_idct_planes_rgb's basis (exact_cuda.quad_basis; 1,024 floats in
-// device memory, 16-byte aligned; may be null without overflow rows).
-// desc (host memory):
+// device memory, 16-byte aligned; never null).  desc (host memory):
 // nimages, ncomp, mcus_x, K, level, nseg, row_bytes, image_blocks,
 // out_stride, q_stride, planes, mcu_blocks, then per component nblocks, v,
 // h, width, cap, slot0, plane_off, mlo_off, mhi_off, val_off, oidx_off,
 // orows_off.  Sampling factors 1..4; the sparse form takes K in 1..64.
 int jz_idct_planes(int dense, const long long* desc, const void* src,
-                   const void* bad, const void* q, const void* basis_t,
-                   const void* quads, void* out, void* stream) {
+                   const void* bad, const void* q, const void* quads,
+                   void* out, void* stream) {
   IdctArgs a;
   a.nimages = static_cast<int>(desc[0]);
   a.ncomp = static_cast<int>(desc[1]);
   if (a.nimages <= 0) return 0;
   if (a.ncomp < 1 || a.ncomp > 3 || desc[0] > 0x7FFFFFFFll ||
-      desc[2] <= 0 || (dense && bad == nullptr) ||
+      desc[2] <= 0 || (dense && bad == nullptr) || quads == nullptr ||
+      (reinterpret_cast<uintptr_t>(quads) & 15) != 0 ||
       (!dense && (desc[3] < 1 || desc[3] > kMaxK)))
     return static_cast<int>(cudaErrorInvalidValue);
   a.mcus_x = static_cast<int>(desc[2]);
@@ -1591,8 +1673,11 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
           desc[0] * d[0] > 0x7FFFFFFFll)
         return static_cast<int>(cudaErrorInvalidValue);
       p.per = p.v * p.h;
+      // a dense unit is one walk: an MCU's blocks must fit it
+      if (dense && p.per > kDenseUnit)
+        return static_cast<int>(cudaErrorInvalidValue);
       p.mcus_y = static_cast<int>(d[0] / (p.per * desc[2]));
-      const int unit = dense ? kUnitBlocks : kSparseUnit;
+      const int unit = dense ? kDenseUnit : kSparseUnit;
       p.mpu = p.per < unit ? unit / p.per : 1;
       p.ux = (a.mcus_x + p.mpu - 1) / p.mpu;
       const long long n = desc[0] * p.mcus_y * p.ux;
@@ -1607,6 +1692,9 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
         const int m = i / p.per, r = i % p.per;
         q.place[i] = (static_cast<uint32_t>(r / p.h * 8) << 16) |
                      static_cast<uint32_t>((m * p.h + r % p.h) * 8);
+        q.slot[i] = static_cast<uint16_t>(m * a.mcu_blocks + r);
+        q.right[i] = static_cast<uint8_t>(
+            r % p.h + 1 < p.h ? i + 1 : (m + 1) * p.per + r / p.h * p.h);
       }
       caps += p.cap;
       tiles += p.tiles;
@@ -1621,22 +1709,20 @@ int jz_idct_planes(int dense, const long long* desc, const void* src,
   a.blocks = static_cast<const int16_t*>(src);
   a.bad = static_cast<const uint8_t*>(bad);
   a.q = static_cast<const int32_t*>(q);
-  a.basis_t = static_cast<const float*>(basis_t);
   a.quads = static_cast<const float*>(quads);
   a.out = static_cast<uint8_t*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int grid = 0;
   cudaError_t e;
   if (dense) {
-    e = grid_for(idct_planes_dense_kernel, kIdctThreads,
-                 (units + kIdctWarps - 1) / kIdctWarps, &grid);
+    e = grid_for(idct_planes_dense_kernel, kDenseThreads,
+                 (units + kDenseWarps - 1) / kDenseWarps, &grid);
     if (e != cudaSuccess) return static_cast<int>(e);
     // the flag bytes need a thread block even without units
-    idct_planes_dense_kernel<<<grid > 0 ? grid : 1, kIdctThreads, 0, s>>>(
+    idct_planes_dense_kernel<<<grid > 0 ? grid : 1, kDenseThreads, 0, s>>>(
         a);
     return static_cast<int>(cudaGetLastError());
   }
-  if (quads == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   e = grid_for(idct_planes_sparse_kernel, kSparseThreads,
                (units + kSparseWarps - 1) / kSparseWarps, &grid);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1664,7 +1750,7 @@ int jz_transform_kernel_info(int which, int* info) {
     case 2:
       return kernel_info(idct_planes_sparse_kernel, kSparseThreads, info);
     case 3:
-      return kernel_info(idct_planes_dense_kernel, kIdctThreads, info);
+      return kernel_info(idct_planes_dense_kernel, kDenseThreads, info);
     case 4:
       return kernel_info(idct_planes_overflow_kernel, kOvfThreads, info);
     default:

@@ -15,11 +15,11 @@ block_transform.idct_planes_sparse_plain and idct_planes_dense_plain:
 dequantize, inverse DCT, level shift, truncation and clamp, written
 straight into the packed u8 planes.  The sparse form reads the ycc420
 transport's upload in place (one launch, and a second for the overflow
-rows when the upload carries any); both walk the union of several
-blocks' nonzero coefficients with one product for the 4 samples of a
-mirror quad, from exact_cuda's checked table of the basis' quads.  The
-dense form reads the Huffman scan's blocks and writes each image's
-corruption flag after its planes (one launch).
+rows when the upload carries any); the dense form reads the Huffman
+scan's blocks and writes each image's corruption flag after its planes
+(one launch).  All three launches walk the union of several blocks'
+nonzero coefficients with one product for the 4 samples of a mirror
+quad, from exact_cuda's checked table of the basis' quads.
 Every launch adds the same terms in the same ascending order.  They
 replace jpezy_tpu/codec/jax_codec.py:_decode_fused_batch_ycc420 and the
 tail of _decode_fused_batch_device.
@@ -45,7 +45,7 @@ import threading
 import numpy as np
 import torch
 
-from ..constants import FDCT_DIGITS, codec_constants
+from ..constants import FDCT_DIGITS
 from .cuda_build import KernelLibrary, check_tensors
 
 
@@ -54,7 +54,7 @@ def _bind(lib) -> None:
     lib.jz_fdct_quantize.restype = ci
     lib.jz_fdct_quantize.argtypes = [ci] + [vp] * 11
     lib.jz_idct_planes.restype = ci
-    lib.jz_idct_planes.argtypes = [ci] + [vp] * 8
+    lib.jz_idct_planes.argtypes = [ci] + [vp] * 7
     lib.jz_transform_kernel_info.restype = ci
     lib.jz_transform_kernel_info.argtypes = [ci, vp]
 
@@ -222,14 +222,6 @@ def _desc(N, geom, shapes, *, flag: bool, K=0, level=128, nseg=0,
     return np.array(head + comps, np.int64), planes
 
 
-@functools.lru_cache(maxsize=8)
-def _inverse_basis_t(device: torch.device) -> torch.Tensor:
-    """The float32 inverse basis transposed, [k][p], on device (once): the
-    IDCT's dense launch copies it into shared memory with coalesced
-    reads."""
-    return codec_constants(device)["inv64_f32"].t().contiguous()
-
-
 def _launch(dense: int, desc, src, bad, q, out) -> None:
     global idct_launches
     from .exact_cuda import _device_quads   # exact_cuda imports this module
@@ -237,13 +229,12 @@ def _launch(dense: int, desc, src, bad, q, out) -> None:
     lib = LIB.get()
     dev = out.device
     with torch.cuda.device(dev):
-        basis = _inverse_basis_t(dev)
         quads = _device_quads(dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.jz_idct_planes(
             dense, desc.ctypes.data, src.data_ptr(),
             None if bad is None else bad.data_ptr(), q.data_ptr(),
-            basis.data_ptr(), quads.data_ptr(), out.data_ptr(), stream)
+            quads.data_ptr(), out.data_ptr(), stream)
     LIB.raise_on("idct_planes", rc)
     if out.shape[0] > 0:
         with _lock:
@@ -293,12 +284,10 @@ def idct_planes_sparse_cuda(flat, qtab, *, geom, level, shapes, K, N, caps):
     return out
 
 
-def idct_planes_dense_cuda(blocks, bad, qarr, *, N, nseg, ri, geom, level):
-    """The Huffman scan's blocks [N*nseg, ri*6, 64] int16 (4 Y, Cb, Cr per
-    MCU, the first nmcu MCUs of each image used), its flags bad [N*nseg]
-    bool and the per-image quant tables qarr [N, 3, 64] int32 -> [N, P + 1]
-    uint8: the planes, then 1 where any of the image's segments is
-    corrupt."""
+def dense_desc(blocks, bad, qarr, *, N, nseg, ri, geom, level):
+    """The dense form's checked arguments: (the launcher's int64
+    description, the planes' bytes an image, the blocks, flags as uint8
+    and tables, contiguous)."""
     fn = "idct_planes_dense_cuda"
     if len(geom) != 3 or [tuple(g[2:4]) for g in geom] != [(2, 2), (1, 1),
                                                            (1, 1)]:
@@ -319,8 +308,20 @@ def idct_planes_dense_cuda(blocks, bad, qarr, *, N, nseg, ri, geom, level):
                          level=level, nseg=nseg, image_blocks=nseg * ri * 6,
                          q_stride=3 * 64, mcu_blocks=6)
     with torch.cuda.device(blocks.device):
+        args = tuple(t.contiguous() for t in (blocks, bad, qarr))
+    return desc, planes, args
+
+
+def idct_planes_dense_cuda(blocks, bad, qarr, *, N, nseg, ri, geom, level):
+    """The Huffman scan's blocks [N*nseg, ri*6, 64] int16 (4 Y, Cb, Cr per
+    MCU, the first nmcu MCUs of each image used), its flags bad [N*nseg]
+    bool and the per-image quant tables qarr [N, 3, 64] int32 -> [N, P + 1]
+    uint8: the planes, then 1 where any of the image's segments is
+    corrupt."""
+    desc, planes, args = dense_desc(blocks, bad, qarr, N=N, nseg=nseg,
+                                    ri=ri, geom=geom, level=level)
+    with torch.cuda.device(blocks.device):
         out = torch.empty((N, planes + 1), dtype=torch.uint8,
                           device=blocks.device)
-        args = [t.contiguous() for t in (blocks, bad, qarr)]
-    _launch(1, desc, args[0], args[1], args[2], out)
+    _launch(1, desc, *args, out)
     return out

@@ -300,3 +300,121 @@ def sparse_sets(level: int, ties: int = 8192) -> dict:
         out[label] = (flat, dict(kw, geom=geometry(my, mx, factors),
                                  level=level, qtuple=qt))
     return out
+
+
+def scan_blocks(comps, mcus_x: int, ri: int, rng, bad_segments=()):
+    """comps: the 4:2:0 components' quantized blocks, Y [N, 4 nmcu, 64] (an
+    MCU's TL, TR, BL, BR after one another), Cb and Cr [N, nmcu, 64], in
+    MCU-raster order -> (blocks [N nseg, ri 6, 64] int16, bad [N nseg]
+    bool, kwargs N, nseg, ri, geom of idct_planes_dense without level), the
+    Huffman scan's layout: MCU m of image n at segment n nseg + m // ri,
+    slots 6 (m % ri) .. + 5 (4 Y, Cb, Cr).  The slots past the image's
+    nmcu MCUs in its last segment hold seeded junk (a kernel that reads
+    them shows it); the segments of bad_segments are flagged corrupt."""
+    y, cb, cr = (np.asarray(c) for c in comps)
+    N, nmcu = cb.shape[:2]
+    if y.shape != (N, 4 * nmcu, 64) or cr.shape != cb.shape \
+            or nmcu % mcus_x:
+        raise ValueError("scan_blocks: want Y [N, 4 nmcu, 64] and Cb, Cr "
+                         "[N, nmcu, 64] on whole MCU rows")
+    nseg = -(-nmcu // ri)
+    out = rng.integers(-500, 500, (N, nseg * ri, 6, 64))
+    out[:, :nmcu, :4] = y.reshape(N, nmcu, 4, 64)
+    out[:, :nmcu, 4] = cb
+    out[:, :nmcu, 5] = cr
+    if out.min() < -32768 or out.max() > 32767:
+        raise ValueError("scan_blocks: a coefficient outside int16")
+    bad = np.zeros(N * nseg, bool)
+    bad[list(bad_segments)] = True
+    my = nmcu // mcus_x
+    geom = ((my, mcus_x, 2, 2, 2, 2), (my, mcus_x, 1, 1, 2, 2),
+            (my, mcus_x, 1, 1, 2, 2))
+    return (out.astype(np.int16).reshape(N * nseg, ri * 6, 64), bad,
+            dict(N=N, nseg=nseg, ri=ri, geom=geom))
+
+
+def dense_sets(level: int, ties: int = 4096) -> dict:
+    """{label: (blocks, bad, qarr, kwargs of idct_planes_dense)} at `level`
+    (128 or 2048): the scan's blocks (scan_blocks: junk in the slots past
+    each image's MCUs, a corrupt segment in the second image) of 2 images
+    (3 for the last set) that carry the cases the IDCT's dense launch must
+    give bit for bit, with a quant table of its own for each image:
+
+    ties           the float32 tie set (rgb_ties.inverse_tie_blocks) in
+                   every component, the first image at quantizer 1, the
+                   second at 8 level / 128 for the DC (the ties' DCs are
+                   its multiples) and 1 elsewhere, the second's Cr blocks
+                   zero (walks of no coefficient); 2 x 6 MCUs, ri = 5;
+    mixed groups   rgb_ties.mixed_coefficient_groups (groups of 8 blocks,
+                   dense ones beside sparse, zero, cancelling and tie
+                   blocks, then sparse ones alone) at quantizer 1, so
+                   that a walk of 16 blocks (4 luma MCUs, 16 chroma ones)
+                   is a dense group and a sparse one in Y, two sparse
+                   groups in Cb (the skipping walk) and two dense ones in
+                   Cr, the roles turned in the second image; 2 x 8 MCUs,
+                   ri = 3;
+    clamp          blocks far below 0 and far above 255 (every other DC),
+                   random tables 1..8; 2 x 4 MCUs, ri = 3;
+    noise          the forward DCT of noise (every coefficient nonzero),
+                   quantizer 1 and random tables 1..3; 2 x 4 MCUs, ri = 3;
+    random, padded 3 images of 3 x 5 MCUs (luma units of 4 MCUs and of 1
+                   at each row's end) at densities 0.02, 0.2 and 0.9 a
+                   block, random tables 1..8, ri = 4."""
+    from ..codec import oracle
+    from . import rgb_ties
+
+    scale = level // 128
+    rng = np.random.default_rng(980 + scale)
+    out = {}
+
+    def tables(n, top):
+        q = rng.integers(1, top + 1, (n, 3, 64)) if top > 1 \
+            else np.ones((n, 3, 64), np.int64)
+        return q.astype(np.int32)
+
+    def split(blocks, N, nmcu):
+        b = np.asarray(blocks).reshape(N, 6 * nmcu, 64)
+        return b[:, :4 * nmcu], b[:, 4 * nmcu:5 * nmcu], b[:, 5 * nmcu:]
+
+    tie = rgb_ties.inverse_tie_blocks(ties, 990 + scale, level)
+    nmcu = 12
+    y, cb, cr = split(np.resize(tie, (2 * 6 * nmcu, 64)), 2, nmcu)
+    q = np.ones((2, 3, 64), np.int32)
+    q[1, :, 0] = 8 * scale
+    y, cb, cr = (c.copy() for c in (y, cb, cr))
+    for c in (y, cb, cr):
+        c[1, :, 0] //= 8 * scale
+    cr[1] = 0
+    out["ties"] = (y, cb, cr), 6, 5, q
+    mixed = rgb_ties.mixed_coefficient_groups(8, 995 + scale, level)
+    dense, sparse = (mixed.reshape(-1, 2, 8, 64)[:, i].reshape(-1, 64)
+                     for i in (0, 1))
+    nmcu = 16
+    y0 = mixed                                        # dense, sparse, ...
+    y1 = np.concatenate([sparse, dense])              # sparse, then dense
+    out["mixed groups"] = ((np.stack([y0, y1]), np.stack([sparse[:16],
+                                                          dense[:16]]),
+                            np.stack([dense[:16], sparse[16:]])), 8, 3,
+                           tables(2, 1))
+    nmcu = 8
+    clamp = rng.integers(-300, 301, (2 * 6 * nmcu, 64)) * scale
+    clamp[:, 0] = np.where(np.arange(len(clamp)) % 2 == 0,
+                           rng.integers(2000, 4000, len(clamp)),
+                           -rng.integers(2100, 3700, len(clamp)) * 8)
+    out["clamp"] = split(clamp, 2, nmcu), 4, 3, tables(2, 8)
+    samples = rng.integers(-128, 128, (2 * 6 * nmcu, 64)) * scale
+    noise = oracle.forward_dct(samples)
+    q = tables(2, 3)
+    q[0] = 1
+    out["noise"] = split(noise, 2, nmcu), 4, 3, q
+    nmcu = 15
+    comps = [_random_blocks(rng, 3, k * nmcu, scale) for k in (4, 1, 1)]
+    out["random, padded"] = tuple(comps), 5, 4, tables(3, 8)
+    sets = {}
+    for label, (comps, mcus_x, ri, q) in out.items():
+        N = len(q)
+        nseg = -(-comps[1].shape[1] // ri)
+        blocks, bad, kw = scan_blocks(comps, mcus_x, ri, rng,
+                                      bad_segments=(nseg + 1,))
+        sets[label] = (blocks, bad, q, dict(kw, level=level))
+    return sets

@@ -41,6 +41,16 @@
 //     union of a group of blocks' masks with one product a mirror quad from
 //     the 4 KB quad table, loads the next unit while it sums this one, and
 //     stores rows straight from registers.
+//   jz_prev_idct_planes_dense  the first dense launch of the ycc420 IDCT, the
+//     same design on the Huffman scan's int16 blocks: a unit's blocks
+//     loaded into the warp's shared memory with nothing in flight behind
+//     the sums (their nonzero masks found on the way), the blocks four at
+//     a time, a group of 8 lanes a block and a lane a row over its own
+//     mask, into a shared image of the unit whose rows sit at their
+//     destination's address modulo 16, stored in 16-byte chunks.  The
+//     current launch stages the next unit by cp.async while it walks the
+//     union of the unit's 16 masks with the sparse launch's walk, and
+//     stores 8-byte words from registers.
 //   jz_prev_fdct_quantize_exact, jz_prev_idct_planes_exact  exact mode's
 //     first float64 kernels: the forward issues all 64 terms of every
 //     block, products by COS[0][y] = 1 and cu[i] = 1 and the first adds
@@ -63,9 +73,9 @@
 // namespace concat_first, the exact kernels and the first fast rgb IDCT
 // in namespace first_exact, the first overflow launch with the helpers
 // and argument structs of its source in namespace first_overflow, the
-// first sparse launch with the helpers and argument structs of its source
-// in namespace first_sparse, and PR 9's fDCT kernel with its helpers in
-// namespace first_fdct.
+// first sparse and dense launches with the helpers and argument structs
+// of their source in namespace first_sparse, and the first fDCT kernel
+// with its helpers in namespace first_fdct.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -1911,6 +1921,154 @@ cudaError_t grid_for(K kernel, int threads, long long units, int* grid) {
   return cudaSuccess;
 }
 
+// The first dense launch, as block_transforms.cu ran it before the dense
+// launch took the union walk (its sparse branches gone by then).
+__global__ void __launch_bounds__(kIdctThreads)
+    idct_dense_first_kernel(const __grid_constant__ IdctArgs a) {
+  __shared__ __align__(16) float mt[64 * 64];  // mt[k * 64 + p] = M[p][k]
+  // per component, a unit's block i: at row y, column x of the unit's
+  // samples, (y << 16) | x; and its slot after the unit's first, m
+  // mcu_blocks + r for block r of the unit's MCU m
+  __shared__ uint32_t place[3][kUnitBlocks];
+  __shared__ int slot[3][kUnitBlocks];
+  // per warp: the unit's quant table, its int16 blocks, their nonzero
+  // masks and its samples
+  __shared__ int qw[kIdctWarps][64];
+  __shared__ __align__(16) uint8_t src_w[kIdctWarps][kUnitBlocks * 128];
+  __shared__ __align__(8) uint8_t nz_w[kIdctWarps][kUnitBlocks * 8];
+  __shared__ __align__(16) uint8_t img[kIdctWarps][kUnitImage];
+  __shared__ IdctComp comps[3];
+  const int t = threadIdx.x;
+  const int warp = t >> 5;
+  const int lane = t & 31;
+  const int grp = lane >> 3;   // the group's block of the round's 4
+  const int g = t & 7;         // the lane's row of it
+  if (t < 3) comps[t] = a.comp[t];
+  if (t < 3 * kUnitBlocks) {
+    const int c = t / kUnitBlocks;
+    const int i = t - c * kUnitBlocks;
+    const IdctComp& C = a.comp[c];
+    if (C.per > 0) {
+      const int m = i / C.per;
+      const int r = i - m * C.per;
+      const int vy = r / C.h;
+      place[c][i] = (static_cast<uint32_t>(vy * 8) << 16) |
+                    static_cast<uint32_t>((m * C.h + r - vy * C.h) * 8);
+      slot[c][i] = m * a.mcu_blocks + r;
+    }
+  }
+  load_basis(mt, a.basis_t, t);
+  // one flag byte per image: any of its segments corrupt
+  for (int n = blockIdx.x; n < a.nimages; n += gridDim.x) {
+    int any = 0;
+    for (int s = t; s < a.nseg; s += kIdctThreads)
+      any |= __ldg(a.bad + static_cast<long long>(n) * a.nseg + s);
+    any = __syncthreads_or(any);
+    if (t == 0) a.out[n * a.out_stride + a.planes] = any ? 1 : 0;
+  }
+  __syncthreads();
+  // a warp a unit: no barrier past this point
+  const int total = comps[0].units + comps[1].units + comps[2].units;
+  uint8_t* im = img[warp];
+  uint8_t* sw = src_w[warp];
+  uint8_t* nz = nz_w[warp];  // the blocks' nonzero masks
+  int* q = qw[warp];
+  for (int u = blockIdx.x * kIdctWarps + warp; u < total;
+       u += gridDim.x * kIdctWarps) {
+    const Unit U = unit_of(a, comps, u);
+    const IdctComp& C = comps[U.c];
+    // the unit's sources in one go, all their loads in flight together
+    const int32_t* qsrc = a.q + U.n * a.q_stride + U.c * 64;
+    q[lane] = __ldg(qsrc + lane);
+    q[lane + 32] = __ldg(qsrc + lane + 32);
+    const long long first = U.n * a.image_blocks +
+                            static_cast<long long>(U.b0 / C.per) *
+                                a.mcu_blocks + C.slot0;
+    for (int k = lane; k < 8 * U.nb; k += 32) {
+      const int16_t* src = a.blocks +
+          ((first + slot[U.c][k >> 3]) << 6) + 8 * (k & 7);
+      int4 w;
+      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        w = __ldg(reinterpret_cast<const int4*>(src));
+      } else {
+        int h[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          h[j] = static_cast<uint16_t>(__ldg(src + j));
+        w = make_int4(h[0] | (h[1] << 16), h[2] | (h[3] << 16),
+                      h[4] | (h[5] << 16), h[6] | (h[7] << 16));
+      }
+      reinterpret_cast<int4*>(sw)[k] = w;
+      // bit j of byte k: coefficient 8 k + j is nonzero
+      const int ws[4] = {w.x, w.y, w.z, w.w};
+      uint32_t byte = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t m = __vcmpne2(static_cast<uint32_t>(ws[j]), 0u);
+        byte |= ((m & 1u) | ((m >> 15) & 2u)) << (2 * j);
+      }
+      nz[k] = static_cast<uint8_t>(byte);
+    }
+    __syncwarp();
+    const int pitch = ((U.width + 15) & ~15) + 16;
+    // row y of the unit's samples sits in im at its destination's address
+    // modulo 16: (shift + y wshift) mod 16
+    const int shift = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(a.out) + U.dst) & 15);
+    const int wshift = C.width & 15;
+    for (int i0 = 0; i0 < U.nb; i0 += 4) {
+      // the round's blocks: group grp takes block i0 + grp
+      const int i = i0 + grp;
+      const bool live = i < U.nb;
+      const int16_t* blk = reinterpret_cast<const int16_t*>(sw) + 64 * i;
+      const uint2 m = live ? reinterpret_cast<const uint2*>(nz)[i]
+                           : make_uint2(0u, 0u);
+      const uint2 v = row_samples(mt, a.level, m.x, m.y, 64,
+                                  [&](int k, int) { return blk[k] * q[k]; },
+                                  g);
+      if (live) {
+        const uint32_t at = place[U.c][i];
+        const int y = static_cast<int>(at >> 16) + g;
+        store_row(im + y * pitch + ((shift + y * wshift) & 15) +
+                      (at & 0xFFFF), v);
+      }
+    }
+    __syncwarp();
+    // out: row after row.  The aligned 16-byte chunks of every row in
+    // 16-byte stores that fill whole sectors; where a row's destination is
+    // not aligned, the bytes before its first chunk and after its last one
+    // a row at a time, neighbouring lanes on neighbouring bytes.
+    const int per_row = (U.width >> 4) + 1;
+    for (int y = lane / per_row, j = lane - y * per_row; y < U.rows;) {
+      const int sh = (shift + y * wshift) & 15;
+      const int head = min((16 - sh) & 15, U.width);
+      if (j < ((U.width - head) >> 4))
+        *reinterpret_cast<int4*>(a.out + U.dst +
+                                 static_cast<long long>(y) * C.width + head +
+                                 16 * j) =
+            *reinterpret_cast<const int4*>(im + y * pitch + sh + head +
+                                           16 * j);
+      for (j += 32; j >= per_row; j -= per_row) ++y;
+    }
+    if ((shift | wshift | (U.width & 15)) != 0) {
+      // a row's ends hold at most 30 bytes, at most 15 (and two rows a
+      // pass) where the width is a multiple of 16
+      const int two = (U.width & 15) == 0;
+      const int b = two ? lane & 15 : lane;
+      for (int y = two ? lane >> 4 : 0; y < U.rows; y += 1 + two) {
+        const int sh = (shift + y * wshift) & 15;
+        const int head = min((16 - sh) & 15, U.width);
+        const int full = (U.width - head) >> 4;
+        const int x = b < head ? b : head + 16 * full + (b - head);
+        if (x < U.width)
+          a.out[U.dst + static_cast<long long>(y) * C.width + x] =
+              im[y * pitch + sh + x];
+      }
+    }
+    __syncwarp();
+  }
+}
+
 }  // namespace first_sparse
 
 namespace first_fdct {
@@ -2521,14 +2679,93 @@ int jz_prev_idct_planes_sparse(const long long* desc, const void* src,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The first dense launch of the ycc420 IDCT (idct_dense_first_kernel: a
+// group of 8 lanes a block, each lane a row of 8 samples over its own
+// block's mask, the [64][64] basis in shared memory, the strip staged in
+// shared memory), with jz_idct_planes's dense-form desc, blocks, flags,
+// tables and planes and the basis transposed.
+int jz_prev_idct_planes_dense(const long long* desc, const void* src,
+                              const void* bad, const void* q,
+                              const void* basis_t, void* out, void* stream) {
+  using namespace first_sparse;
+  IdctArgs a;
+  a.nimages = static_cast<int>(desc[0]);
+  a.ncomp = static_cast<int>(desc[1]);
+  if (a.nimages <= 0) return 0;
+  if (a.ncomp < 1 || a.ncomp > 3 || desc[0] > 0x7FFFFFFFll ||
+      desc[2] <= 0 || bad == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.mcus_x = static_cast<int>(desc[2]);
+  a.K = static_cast<int>(desc[3]);
+  a.level = static_cast<int>(desc[4]);
+  a.nseg = static_cast<int>(desc[5]);
+  a.row_bytes = desc[6];
+  a.image_blocks = desc[7];
+  a.out_stride = desc[8];
+  a.q_stride = desc[9];
+  a.planes = desc[10];
+  a.mcu_blocks = static_cast<int>(desc[11]);
+  long long units = 0;
+  for (int c = 0; c < 3; ++c) {
+    const long long* d = desc + 12 + 12 * c;
+    IdctComp& p = a.comp[c];
+    p.nblocks = static_cast<int>(d[0]);
+    p.v = static_cast<int>(d[1]);
+    p.h = static_cast<int>(d[2]);
+    p.width = static_cast<int>(d[3]);
+    p.cap = p.tiles = 0;
+    p.slot0 = static_cast<int>(d[5]);
+    p.plane_off = d[6];
+    p.mlo_off = d[7];
+    p.mhi_off = d[8];
+    p.val_off = d[9];
+    p.oidx_off = d[10];
+    p.orows_off = d[11];
+    p.per = p.mcus_y = p.mpu = p.ux = p.units = 0;
+    if (c < a.ncomp) {
+      if (p.v < 1 || p.v > kMaxV || p.h < 1 || p.h > kMaxV ||
+          d[0] <= 0 || d[0] % (static_cast<long long>(p.v) * p.h * desc[2]) ||
+          desc[0] * d[0] > 0x7FFFFFFFll)
+        return static_cast<int>(cudaErrorInvalidValue);
+      p.per = p.v * p.h;
+      p.mcus_y = static_cast<int>(d[0] / (p.per * desc[2]));
+      p.mpu = p.per < kUnitBlocks ? kUnitBlocks / p.per : 1;
+      p.ux = (a.mcus_x + p.mpu - 1) / p.mpu;
+      const long long n = desc[0] * p.mcus_y * p.ux;
+      if (n > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
+      p.units = static_cast<int>(n);
+      units += n;
+    } else {
+      p.nblocks = 0;
+    }
+  }
+  if (units > 0x7FFFFFFFll) return static_cast<int>(cudaErrorInvalidValue);
+  a.flat = nullptr;
+  a.blocks = static_cast<const int16_t*>(src);
+  a.bad = static_cast<const uint8_t*>(bad);
+  a.q = static_cast<const int32_t*>(q);
+  a.basis_t = static_cast<const float*>(basis_t);
+  a.quads = nullptr;
+  a.out = static_cast<uint8_t*>(out);
+  int grid = 0;
+  const cudaError_t e = grid_for(idct_dense_first_kernel, kIdctThreads,
+                                 (units + kIdctWarps - 1) / kIdctWarps, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the flag bytes need a thread block even without units
+  idct_dense_first_kernel<<<grid > 0 ? grid : 1, kIdctThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // What the card reports for kernel `which` (0: the first fused entropy
 // kernel, fixed tables; 1: the concat with 64-bit loads at the main path's
 // shape, tiles of 128 MCUs and a budget of 12,288 words; 2: the first
 // exact forward, int8 samples; 3: the first exact inverse, int16
 // coefficients; 4: the first fast rgb IDCT, int16 coefficients; 5: the
 // first overflow launch of the ycc420 IDCT; 6, 7: PR 9's fDCT kernel, int8
-// and int32 samples; 8: the first sparse launch of the ycc420 IDCT), as
-// jz_entropy_kernel_info reports it.
+// and int32 samples; 8: the first sparse launch of the ycc420 IDCT; 9:
+// the first dense launch of the ycc420 IDCT), as jz_entropy_kernel_info
+// reports it.
 int jz_prev_kernel_info(int which, int* info) {
   switch (which) {
     case 0:
@@ -2573,6 +2810,9 @@ int jz_prev_kernel_info(int which, int* info) {
       return kernel_info(
           first_sparse::idct_sparse_first_kernel<first_sparse::kSparse>,
           first_sparse::kIdctThreads, info);
+    case 9:
+      return kernel_info(first_sparse::idct_dense_first_kernel,
+                         first_sparse::kIdctThreads, info);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

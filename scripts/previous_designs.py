@@ -1,4 +1,4 @@
-"""The earlier designs of eight of jpezy_tpu_torch's kernels, built from
+"""The earlier designs of nine of jpezy_tpu_torch's kernels, built from
 scripts/previous_designs.cu with the package's loader, so that
 chip_smoke.py times them beside the current kernels in one run, on the
 same inputs and the same card.  Nothing in the package calls them.
@@ -42,6 +42,14 @@ same inputs and the same card.  Nothing in the package calls them.
                      shared memory, the strip staged in shared memory; the
                      sparse launch alone (no overflow launch follows, so an
                      overflow row's block keeps its level).
+  idct_planes_dense_first
+                     the first dense launch of the ycc420 IDCT, with the
+                     arguments and results of
+                     transform_cuda.idct_planes_dense_cuda: a unit's
+                     blocks loaded with nothing in flight behind the
+                     sums, a group of 8 lanes a block over its own mask,
+                     the [64][64] basis in shared memory, the unit staged
+                     in a shared image.
   fdct_quantize_first
                      PR 9's fDCT kernel, with the arguments and results of
                      transform_cuda.fdct_quantize_cuda: the separable
@@ -64,24 +72,26 @@ All raise without a card; none falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 
 import torch
 
 import numpy as np
 
-from jpezy_tpu_torch.constants import EXACT_TABLES, FDCT_COS, FDCT_SCALE
+from jpezy_tpu_torch.constants import (EXACT_TABLES, FDCT_COS, FDCT_SCALE,
+                                       codec_constants)
 from jpezy_tpu_torch.ops import concat_cuda, exact_cuda
 from jpezy_tpu_torch.ops.cuda_build import KernelLibrary
 from jpezy_tpu_torch.ops.pack_cuda import annex_k_row
 from jpezy_tpu_torch.ops import transform_cuda
-from jpezy_tpu_torch.ops.transform_cuda import _inverse_basis_t
 
 KERNEL_INFO = ("encode_blocks fused first", "concat_streams 64-bit loads",
                "fdct_quantize_exact first int8",
                "idct_planes_exact first int16", "idct_planes_rgb first int16",
                "idct_planes overflow first", "fdct_quantize first int8",
-               "fdct_quantize first int32", "idct_planes sparse first")
+               "fdct_quantize first int32", "idct_planes sparse first",
+               "idct_planes dense first")
 
 
 def _bind(lib) -> None:
@@ -101,6 +111,8 @@ def _bind(lib) -> None:
     lib.jz_prev_idct_planes_overflow.argtypes = [vp] * 6
     lib.jz_prev_idct_planes_sparse.restype = ci
     lib.jz_prev_idct_planes_sparse.argtypes = [vp] * 6
+    lib.jz_prev_idct_planes_dense.restype = ci
+    lib.jz_prev_idct_planes_dense.argtypes = [vp] * 7
     lib.jz_prev_fdct_quantize.restype = ci
     lib.jz_prev_fdct_quantize.argtypes = [ci] + [vp] * 11
     lib.jz_prev_kernel_info.restype = ci
@@ -109,6 +121,13 @@ def _bind(lib) -> None:
 
 LIB = KernelLibrary("previous_designs.cu", _bind,
                     directory=os.path.dirname(os.path.abspath(__file__)))
+
+
+@functools.lru_cache(maxsize=8)
+def _inverse_basis_t(device: torch.device) -> torch.Tensor:
+    """The float32 inverse basis transposed, [k][p], on device (once): the
+    first designs copy it into shared memory with coalesced reads."""
+    return codec_constants(device)["inv64_f32"].t().contiguous()
 
 
 def kernel_info() -> dict:
@@ -285,6 +304,24 @@ def idct_planes_sparse_first(flat, qtab, *, geom, level: int, shapes,
         _inverse_basis_t(flat.device).data_ptr(), out.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
     LIB.raise_on("prev_idct_planes_sparse", rc)
+    return out
+
+
+def idct_planes_dense_first(blocks, bad, qarr, *, N, nseg, ri, geom, level):
+    """transform_cuda.idct_planes_dense_cuda's planes and flags from the
+    first dense launch: the same arguments (checked by the package's rules)
+    and results, [N, P + 1] uint8.  Not counted in
+    transform_cuda.idct_launches."""
+    lib = LIB.get()
+    desc, planes, (src, flags, q) = transform_cuda.dense_desc(
+        blocks, bad, qarr, N=N, nseg=nseg, ri=ri, geom=geom, level=level)
+    out = torch.empty((N, planes + 1), dtype=torch.uint8,
+                      device=blocks.device)
+    rc = lib.jz_prev_idct_planes_dense(
+        desc.ctypes.data, src.data_ptr(), flags.data_ptr(), q.data_ptr(),
+        _inverse_basis_t(blocks.device).data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    LIB.raise_on("prev_idct_planes_dense", rc)
     return out
 
 

@@ -1019,20 +1019,27 @@ def test_idct_sparse_kernel_matches_model(cuda):
             <= 1, label
 
 
-def test_idct_sparse_first_design_matches_model(cuda):
-    """The sparse launch's first design (scripts/previous_designs.py
-    idct_planes_sparse_first, the launch alone) on the sparse rows' sets
-    and a real upload: bit-identical to the model with every cap 0."""
+def _previous_designs():
     import os
     import sys
 
-    from jpezy_tpu_torch.ops import block_transform as BT
-    from jpezy_tpu_torch.testing import ycc_uploads as YU
-    from test_torch_host_copies import REPO, build_host_runtime
+    from test_torch_host_copies import REPO
 
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     import previous_designs
 
+    return previous_designs
+
+
+def test_idct_sparse_first_design_matches_model(cuda):
+    """The sparse launch's first design (scripts/previous_designs.py
+    idct_planes_sparse_first, the launch alone) on the sparse rows' sets
+    and a real upload: bit-identical to the model with every cap 0."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.testing import ycc_uploads as YU
+    from test_torch_host_copies import build_host_runtime
+
+    previous_designs = _previous_designs()
     build_host_runtime()
     uploads = dict(YU.sparse_sets(128))
     uploads["real q95"] = _sparse_case(TC.encode_batch(
@@ -1136,6 +1143,77 @@ def test_idct_dense_kernel_matches_model_and_sparse(cuda):
         flat, skw = _sparse_case(streams)
         sparse = BT.idct_planes_sparse(torch.from_numpy(flat).to(cuda), **skw)
         assert np.array_equal(sparse.cpu().numpy(), got[:, :-1]), label
+
+
+@pytest.mark.parametrize("level", [128, 2048])
+def test_idct_dense_kernel_on_dense_sets(cuda, level):
+    """The dense launch on testing/ycc_uploads.dense_sets (the tie,
+    mixed-group, clamp and noise sets in the scan's layout, junk past each
+    image's MCUs, a quant table an image, corrupt segments): bit-identical
+    to the model, within 1 of the plain version, identical to the dense
+    launch's first design (scripts/previous_designs.py
+    idct_planes_dense_first); and the
+    same from blocks 2 bytes off a 16-byte boundary (the launch's element
+    loads in place of cp.async)."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import transform_cuda
+    from jpezy_tpu_torch.testing import ycc_uploads as YU
+
+    first = _previous_designs().idct_planes_dense_first
+    for label, (blocks, bad, qarr, kw) in YU.dense_sets(level).items():
+        args = [torch.from_numpy(a).to(cuda) for a in (blocks, bad, qarr)]
+        before = transform_cuda.idct_launches
+        got = BT.idct_planes_dense(*args, **kw)
+        assert transform_cuda.idct_launches - before == 1, label
+        plain = BT.idct_planes_dense_plain(*args, **kw)
+        prev = first(*args, **kw)
+        store = torch.zeros(blocks.size + 8, dtype=torch.int16, device=cuda)
+        off = store[1:1 + blocks.size].view(blocks.shape)
+        off.copy_(args[0])
+        assert off.data_ptr() % 16 == 2
+        shifted = BT.idct_planes_dense(off, *args[1:], **kw)
+        model = BT.idct_planes_dense_model(blocks, bad, qarr, **kw)
+        torch.cuda.synchronize()
+        assert transform_cuda.idct_launches - before == 2, label
+        assert np.array_equal(got.cpu().numpy(), model), label
+        assert torch.equal(prev, got), label
+        assert torch.equal(shifted, got), label
+        assert (got.to(torch.int32) - plain.to(torch.int32)).abs().max() \
+            <= 1, label
+
+
+def test_idct_dense_first_design_matches_model(cuda):
+    """The first dense launch (previous_designs.idct_planes_dense_first) on
+    the scan's blocks of restart segments: bit-identical to the model, and
+    not counted as a launch of the package's kernel."""
+    from jpezy_tpu_torch.ops import block_transform as BT
+    from jpezy_tpu_torch.ops import transform_cuda
+    from test_torch_host_copies import build_host_runtime
+
+    build_host_runtime()
+    streams = TC.encode_batch(_transform_images(48, 80, 422, n=2),
+                              restart_interval=3, device="cpu")
+    pjs, geom, level = TC._parse_batch(streams)
+    nmcu = geom[0][0] * geom[0][1]
+    nseg = -(-nmcu // 3)
+    words, nblk, rawlen = HG._device_host_frontend(pjs, nmcu, 3, nseg)
+    lut, tsel = HG._device_luts(pjs, nseg)
+    args = {k: torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(cuda)
+            for k, v in dict(nblk=nblk, tsel=tsel, rawlen=rawlen).items()}
+    blocks, bad = ED.decode_segments(
+        ED.words_tensor(words).to(cuda), lut=ED.device_lut(lut, cuda),
+        max_blocks=18, **args)
+    qarr = torch.from_numpy(HG._quant_arr(pjs)).to(cuda)
+    kw = dict(N=2, nseg=nseg, ri=3, geom=geom, level=level)
+    before = transform_cuda.idct_launches
+    got = _previous_designs().idct_planes_dense_first(blocks, bad, qarr,
+                                                      **kw)
+    model = BT.idct_planes_dense_model(blocks.cpu().numpy(),
+                                       bad.cpu().numpy(), qarr.cpu().numpy(),
+                                       **kw)
+    torch.cuda.synchronize()
+    assert transform_cuda.idct_launches == before
+    assert np.array_equal(got.cpu().numpy(), model)
 
 
 def test_transform_kernels_on_the_codec_paths(cuda):

@@ -1,6 +1,8 @@
-"""The ycc420 IDCT's two sparse-form launches (csrc/block_transforms.cu,
-idct_planes_sparse_kernel and idct_planes_overflow_kernel) in numpy: their
-schedules held to block_transform.idct_planes_sparse_model bit for bit.
+"""The ycc420 IDCT's three launches (csrc/block_transforms.cu,
+idct_planes_sparse_kernel, idct_planes_overflow_kernel and
+idct_planes_dense_kernel) in numpy: their schedules held to
+block_transform.idct_planes_sparse_model and idct_planes_dense_model bit
+for bit.
 The overflow launch's on uploads whose overflow rows carry the float32 tie
 set, the mixed warp groups, blocks that clamp at both ends, noise, other
 sampling factors, fields at odd byte offsets, caps that are not multiples
@@ -9,9 +11,12 @@ and 2048); the sparse launch's on those, on the sparse rows of
 ycc_uploads.sparse_sets (a float32 tie set, masks with more than K set
 bits, K from 1 to 64, value bytes at every byte of a word, units at an MCU
 row's end, one image), on the transport's own uploads and on seeded
-uploads; and the uploads those sets are built with, held to the
-transport's own.  numpy and the host library only: no JAX compile, no
-card."""
+uploads; the dense launch's on the scan's blocks of ycc_uploads.
+dense_sets (the tie, mixed-group, clamp and noise sets, segments padded
+past the images' MCUs, a quant table an image, corrupt segments) and of
+the transport's own streams; and the uploads those sets are built with,
+held to the transport's own.  numpy and the host library only: no JAX
+compile, no card."""
 from __future__ import annotations
 
 import numpy as np
@@ -37,6 +42,10 @@ DENSE_TERMS = 32
 # masks one walk takes as a union (kSparseGroup)
 UNIT = 32
 GROUP = 16
+# the dense launch's unit, one walk (kDenseUnit), and the union bits from
+# which it takes all 64 terms (kDenseTerms)
+DENSE_UNIT = 16
+DENSE_GROUP_TERMS = 32
 _Q = np.arange(4)
 # the 16 mirror quads' base samples p = 8 y + x, [y, x]
 _QUAD_P = 8 * _Q[:, None] + _Q[None, :]
@@ -55,7 +64,7 @@ def _mirror(s):
     return out
 
 
-def _tile_samples(d, level, union=None):
+def _tile_samples(d, level, union=None, finish=None):
     """The union walk of both sparse-form launches (quad_walk) on groups d
     [T, B, 64] of dequantized float32 blocks: per group the coefficients
     in `union` [T, 64] (by default those nonzero in any of its blocks), in
@@ -64,7 +73,8 @@ def _tile_samples(d, level, union=None):
     M[8 y + x][k], added as t into sample (y, x), as (-1)^u t into (y,
     7 - x), (-1)^v t into (7 - y, x) and (-1)^(u + v) t into (7 - y,
     7 - x); the k = 0 term stored in place of its add onto +0; then + level
-    in float32, truncated and clamped to [0, 255] -> [T, B, 8, 8] uint8."""
+    in float32, truncated and clamped to [0, 255] (or `finish` of the sums
+    and the level) -> [T, B, 8, 8] uint8."""
     if union is None:
         union = (d != 0).any(axis=1)
     base = BASIS[_QUAD_P.ravel()].reshape(4, 4, 64)
@@ -77,7 +87,7 @@ def _tile_samples(d, level, union=None):
                         np.float32)
         term = t[:, :, None] * sign[None, None, :, None, None]  # exact
         acc[g] = term if k == 0 else acc[g] + term
-    return _mirror(_clamped(acc, level))
+    return _mirror((finish or _clamped)(acc, level))
 
 
 def _clamped(s, level):
@@ -85,14 +95,22 @@ def _clamped(s, level):
     return np.clip(np.trunc(s + np.float32(level)), 0, 255).astype(np.uint8)
 
 
-def _unit_groups(mcus_y, mcus_x, v, h, group=GROUP):
+def _sample_of(s, level):
+    """The kernels' sample_of: + level in float32, clamped to [0, 255]
+    first, then its floor."""
+    x = np.clip(s + np.float32(level), np.float32(0), np.float32(255))
+    return np.floor(x).astype(np.uint8)
+
+
+def _unit_groups(mcus_y, mcus_x, v, h, group=GROUP, unit=UNIT):
     """The sparse launch's walks over one image's blocks of a component
-    with sampling factors v x h: [walks, group] block indices, -1 past a
-    unit's blocks.  A unit is up to UNIT // (v h) MCUs of one MCU row (one
-    MCU where it holds more), its blocks consecutive from (my mcus_x + mx0)
-    v h; a walk takes `group` of them."""
+    with sampling factors v x h (the dense launch's with unit=DENSE_UNIT):
+    [walks, group] block indices, -1 past a unit's blocks.  A unit is up
+    to unit // (v h) MCUs of one MCU row (one MCU where it holds more), its
+    blocks consecutive from (my mcus_x + mx0) v h; a walk takes `group` of
+    them."""
     per = v * h
-    mpu = UNIT // per if per < UNIT else 1
+    mpu = unit // per if per < unit else 1
     walks = []
     for my in range(mcus_y):
         for mx0 in range(0, mcus_x, mpu):
@@ -530,3 +548,178 @@ def test_junk_masks_need_the_cut_to_k():
     flat, kw = _sparse_set(128, "junk masks")
     assert not np.array_equal(_schedule_sparse(flat, kw, cut=False),
                               BT.idct_planes_sparse_model(flat, **kw))
+
+
+
+# ---------------------------------------------------------------------------
+# The dense launch's schedule (_schedule_dense)
+# ---------------------------------------------------------------------------
+
+DENSE_LABELS = ("ties", "mixed groups", "clamp", "noise", "random, padded")
+DENSE_SETS = [(level, label) for level in (128, 2048)
+              for label in DENSE_LABELS]
+_DENSE_BUILT = {}
+
+
+def _dense_set(level, label):
+    if level not in _DENSE_BUILT:
+        _DENSE_BUILT[level] = YU.dense_sets(level)
+    return _DENSE_BUILT[level][label]
+
+
+def _dense_walks(blocks, qarr, kw):
+    """Per component, the dense launch's walks as it stages them: (the
+    walks' block indices [N W, DENSE_UNIT] into the component's blocks of
+    the batch, -1 past a unit's, the coefficients c [N W, DENSE_UNIT, 64]
+    it copies from the scan's slots, n image_blocks + (m0 + i // per) 6 +
+    slot0 + i % per for block i of a unit whose first MCU is m0, the
+    image's quant table [N W, 64]), the units of one image, then the
+    next's."""
+    N, nseg, ri, geom = kw["N"], kw["nseg"], kw["ri"], kw["geom"]
+    flat = np.asarray(blocks).reshape(-1, 64)
+    image_blocks = nseg * ri * 6
+    out, slot0 = [], 0
+    for c, g in enumerate(geom):
+        mcus_y, mcus_x, v, h = (int(x) for x in g[:4])
+        per = v * h
+        bn = mcus_y * mcus_x * per
+        walks = _unit_groups(mcus_y, mcus_x, v, h, DENSE_UNIT, DENSE_UNIT)
+        live = walks >= 0
+        bi = np.maximum(walks, 0)
+        slots = (bi // per) * 6 + slot0 + bi % per
+        at, cs, qs = [], [], []
+        for n in range(N):
+            at.append(np.where(live, walks + n * bn, -1))
+            cs.append(np.where(live[..., None],
+                               flat[n * image_blocks + slots], 0))
+            qs.append(np.repeat(np.asarray(qarr)[n, c][None], len(walks), 0))
+        out.append((np.concatenate(at), np.concatenate(cs).astype(np.int32),
+                    np.concatenate(qs).astype(np.int32)))
+        slot0 += per
+    return out
+
+
+def _schedule_dense(blocks, bad, qarr, kw, threshold=DENSE_GROUP_TERMS):
+    """The dense launch in numpy: per component its units of DENSE_UNIT
+    blocks, one walk each (_dense_walks); the walk's union of the staged
+    blocks' nonzero coefficients c != 0, or all 64 where it holds
+    `threshold` or more (the straight run); each term's d = c q as a
+    32-bit product, then a float; the union walk with one product a
+    mirror quad and the k = 0 store (_tile_samples), sample_of's clamp
+    (_sample_of); blocks past a unit's end store nothing; then each
+    image's flag byte, the OR of its segments' flags."""
+    N, nseg, geom, level = kw["N"], kw["nseg"], kw["geom"], kw["level"]
+    planes = []
+    for (at, c, q), g in zip(_dense_walks(blocks, qarr, kw), geom):
+        mcus_y, mcus_x, v, h = (int(x) for x in g[:4])
+        bn = mcus_y * mcus_x * v * h
+        union = (c != 0).any(axis=1)
+        union[union.sum(axis=1) >= threshold] = True
+        d = (c.astype(np.int64) * q[:, None, :]).astype(np.int32)
+        samples = _tile_samples(d.astype(np.float32), level, union,
+                                finish=_sample_of)
+        out = np.zeros((N * bn, 8, 8), np.uint8)
+        out[at[at >= 0]] = samples[at >= 0]
+        planes.append(BT._deblockify(out.reshape(N, bn, 64), mcus_y, mcus_x,
+                                     v, h).reshape(N, bn * 64))
+    flags = np.asarray(bad).reshape(N, nseg).any(axis=1).astype(np.uint8)
+    return np.concatenate(planes + [flags[:, None]], axis=1)
+
+
+@pytest.mark.parametrize("level, label", DENSE_SETS)
+def test_schedule_dense_equals_model(level, label):
+    """The dense launch's unions, straight runs, +-0 terms, mirror quads,
+    k = 0 store and sample_of's clamp, on every set of ycc_uploads.
+    dense_sets."""
+    blocks, bad, qarr, kw = _dense_set(level, label)
+    assert np.array_equal(_schedule_dense(blocks, bad, qarr, kw),
+                          BT.idct_planes_dense_model(blocks, bad, qarr,
+                                                     **kw))
+
+
+@pytest.mark.parametrize("threshold", [1, 65])
+def test_schedule_dense_any_threshold(threshold):
+    """Every walk straight (1) or every walk skipping (65): the same
+    planes, as the +-0 terms of the blocks without a coefficient add
+    nothing."""
+    blocks, bad, qarr, kw = _dense_set(128, "mixed groups")
+    assert np.array_equal(
+        _schedule_dense(blocks, bad, qarr, kw, threshold),
+        BT.idct_planes_dense_model(blocks, bad, qarr, **kw))
+
+
+@pytest.mark.parametrize("quality, restart", [(75, 3), (95, 8)])
+def test_schedule_dense_on_the_transports_blocks(quality, restart):
+    """The main test images through the codec, their blocks from the host
+    decoder laid out as the scan lays them (ycc_uploads.scan_blocks, junk
+    in the padding), each image its own tables (quality 75 and 95)."""
+    from imagegen import make_test_image
+
+    rgbs = np.stack([make_test_image(48, 80, seed=450 + i)
+                     for i in range(2)])
+    pjs = []
+    for i, q in enumerate((quality, 100 - quality // 5)):
+        pjs += TC._parse_batch(TC.encode_batch(rgbs[i:i + 1], quality=q,
+                                               device="cpu"))[0]
+    decoded = [HG.decode_entropy_host(pj) for pj in pjs]
+    comps = [np.stack([b[c] for b in decoded]) for c in range(3)]
+    blocks, bad, kw = YU.scan_blocks(comps, 5, restart,
+                                     np.random.default_rng(quality),
+                                     bad_segments=(0,))
+    qarr = HG._quant_arr(pjs)
+    kw["level"] = 128
+    assert not np.array_equal(qarr[0], qarr[1])
+    assert np.array_equal(_schedule_dense(blocks, bad, qarr, kw),
+                          BT.idct_planes_dense_model(blocks, bad, qarr,
+                                                     **kw))
+
+
+def test_dense_sets_reach_both_walks_and_both_clamps():
+    """The dense sets' walks take the straight run (DENSE_GROUP_TERMS or
+    more union bits), the skipping walk and walks of no coefficient; their
+    samples saturate at 0 and at 255; units end MCU rows short; segments
+    hold junk past the images' MCUs; every set's images have tables of
+    their own and a corrupt segment that flags its image."""
+    straight = skipping = empty = low = high = short = padded = 0
+    for level, label in DENSE_SETS:
+        blocks, bad, qarr, kw = _dense_set(level, label)
+        for at, c, _ in _dense_walks(blocks, qarr, kw):
+            bits = (c != 0).any(axis=1).sum(axis=1)
+            straight += int((bits >= DENSE_GROUP_TERMS).sum())
+            skipping += int(((bits > 0) & (bits < DENSE_GROUP_TERMS)).sum())
+            empty += int((bits == 0).sum())
+            short += int(((at >= 0).sum(axis=1) < DENSE_UNIT).sum())
+        nmcu = kw["geom"][0][0] * kw["geom"][0][1]
+        b6 = blocks.reshape(kw["N"], kw["nseg"] * kw["ri"], 6, 64)
+        padded += int((b6[:, nmcu:] != 0).any())
+        planes = BT.idct_planes_dense_model(blocks, bad, qarr, **kw)
+        low += int((planes[:, :-1] == 0).sum())
+        high += int((planes[:, :-1] == 255).sum())
+        assert planes[:, -1].tolist()[:2] == [0, 1], label
+        assert kw["nseg"] * kw["ri"] > nmcu, label
+        assert label == "mixed groups" or not np.array_equal(qarr[0], qarr[1])
+    assert min(straight, skipping, empty, low, high, short, padded) > 0
+
+
+def test_scan_blocks_is_the_scans_layout():
+    """YU.scan_blocks puts MCU m of image n at segment n nseg + m // ri,
+    slots 6 (m % ri) ..: idct_planes_dense_plain's planes of its blocks
+    equal idct_planes_sparse_plain's of the same blocks in the ycc420
+    upload."""
+    blocks, bad, qarr, kw = _dense_set(128, "random, padded")
+    nmcu = kw["geom"][0][0] * kw["geom"][0][1]
+    b6 = blocks.reshape(kw["N"], kw["nseg"] * kw["ri"], 6, 64)[:, :nmcu]
+    comps = [b6[:, :, :4].reshape(kw["N"], 4 * nmcu, 64), b6[:, :, 4],
+             b6[:, :, 5]]
+    geom = YU.geometry(kw["geom"][0][0], kw["geom"][0][1],
+                       ((2, 2), (1, 1), (1, 1)))
+    dense = BT.idct_planes_dense_plain(torch.from_numpy(blocks),
+                                       torch.from_numpy(bad),
+                                       torch.from_numpy(qarr), **kw)
+    for n in range(kw["N"]):
+        flat, skw = YU.sparse_upload([c[n:n + 1] for c in comps], K=10)
+        sparse = BT.idct_planes_sparse_plain(
+            torch.from_numpy(flat), geom=geom, level=128, **skw,
+            qtuple=tuple(tuple(int(x) for x in qarr[n, c])
+                         for c in range(3)))
+        assert torch.equal(sparse[0], dense[n, :-1])
